@@ -1,0 +1,118 @@
+// Shared device helpers for the vit_tpu_torch kernels: dtype conversion,
+// warp reductions, per-row LayerNorm statistics, and the GELU forms.
+//
+// The numerics follow the JAX package's Pallas kernels
+// (vit_tpu/ops/pallas/fused_block.py:_ln, _gelu, _erf_tanh_inner and
+// mlp_kernel.py:_erf): fp32 statistics with the centred variance and eps
+// inside the rsqrt; exact GELU via the Abramowitz-Stegun erf in fp32 and
+// the tanh-form erf in bf16.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace vt {
+
+// dtype codes passed from Python (vit_tpu_torch/ops/kernels/_build.py)
+enum DType { kFloat32 = 0, kBFloat16 = 1 };
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+// round to nearest even, as torch's and XLA's casts do
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+// value after rounding to T, back in fp32
+template <typename T> __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One warp computes one row's fp32 mean and rstd = rsqrt(var + eps), two
+// passes (mean, then the centred variance) over the row in device memory
+// (the second pass hits L1).
+template <typename TIn>
+__device__ __forceinline__ void warp_row_stats(const TIn* __restrict__ x, int d, float eps,
+                                               int lane, float& mean, float& rstd) {
+  float s = 0.f;
+  for (int j = lane; j < d; j += 32) s += to_f(x[j]);
+  mean = warp_sum(s) / (float)d;
+  float v = 0.f;
+  for (int j = lane; j < d; j += 32) {
+    float c = to_f(x[j]) - mean;
+    v += c * c;
+  }
+  rstd = rsqrtf(warp_sum(v) / (float)d + eps);
+}
+
+constexpr int kRowThreads = 256;  // 8 rows (warps) per block
+
+template <typename TIn>
+__global__ void __launch_bounds__(kRowThreads)
+row_stats_kernel(const TIn* __restrict__ x, float* __restrict__ mean, float* __restrict__ rstd,
+                 int rows, int d, float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // whole warps exit together
+  float m, r;
+  warp_row_stats(x + (size_t)row * d, d, eps, lane, m, r);
+  if (lane == 0) {
+    mean[row] = m;
+    rstd[row] = r;
+  }
+}
+
+template <typename TIn>
+inline cudaError_t launch_row_stats(const TIn* x, float* mean, float* rstd, int rows, int d,
+                                    float eps, cudaStream_t stream) {
+  row_stats_kernel<TIn><<<cdiv(rows, kRowThreads / 32), kRowThreads, 0, stream>>>(
+      x, mean, rstd, rows, d, eps);
+  return cudaGetLastError();
+}
+
+// erf via Abramowitz-Stegun 7.1.26, |err| <= 1.5e-7 (mlp_kernel.py:_erf)
+__device__ __forceinline__ float erf_as(float x) {
+  const float a = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.3275911f * a);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float y = 1.0f - poly * expf(-a * a);
+  return x > 0.f ? y : (x < 0.f ? -y : 0.f);  // sign(x) * y
+}
+
+// erf(x) ~= tanh(x * q(x^2)), x clamped to [-3.2, 3.2], |err| <= 3.1e-5
+// (fused_block.py:_erf_tanh_inner)
+__device__ __forceinline__ float erf_tanh(float x) {
+  const float xc = fminf(fmaxf(x, -3.2f), 3.2f);
+  const float t = xc * xc;
+  float q = 1.4501721850515667e-05f;
+  q = q * t + -0.00022230843767343287f;
+  q = q * t + -0.0011219408928909798f;
+  q = q * t + 0.10359029852786425f;
+  q = q * t + 1.1281997085186337f;
+  return tanhf(xc * q);
+}
+
+// variant 0 = exact (erf form), 1 = tanh approximation (fused_block.py:_gelu)
+__device__ __forceinline__ float gelu(float h, int variant, bool fast_erf) {
+  if (variant == 0) {
+    const float z = h * 0.7071067811865476f;
+    const float e = fast_erf ? erf_tanh(z) : erf_as(z);
+    return 0.5f * h * (1.0f + e);
+  }
+  return 0.5f * h * (1.0f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
+}
+
+}  // namespace vt

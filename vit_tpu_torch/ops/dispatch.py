@@ -1,0 +1,60 @@
+"""Op dispatch: the eager reference ops or the hand-written CUDA kernels.
+
+Counterpart of ``vit_tpu.ops.dispatch``: one model parameterized by an op
+table.  ``eager`` plays the role of ``xla``; ``fused`` is the per-layer
+kernel path.  The other tables of the JAX package (``pallas``, ``quant``,
+``fused_train``, ``qat``) wait for their slices of the port (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+from vit_tpu_torch.ops import reference
+
+
+@dataclasses.dataclass(frozen=True)
+class OpsImpl:
+    """The pluggable op table consumed by ``vit_tpu_torch.models.vit``.
+
+    ``encoder_block``, when set, replaces the whole per-layer composition
+    with a fused implementation of signature
+    ``(x2d, blk, num_heads, seq_len, eps, gelu_variant) -> x2d`` on a flat
+    (B*T, D) activation; ``attention`` and ``mlp`` are then unused and may
+    be None.
+    """
+
+    name: str
+    layer_norm: Callable
+    patch_embed: Callable
+    attention: Optional[Callable] = None
+    mlp: Optional[Callable] = None
+    encoder_block: Optional[Callable] = None
+
+
+EAGER_OPS = OpsImpl(
+    name="eager",
+    layer_norm=reference.layer_norm,
+    patch_embed=reference.patch_embed,
+    attention=reference.attention,
+    mlp=reference.mlp,
+)
+
+
+def get_ops(impl: str = "eager") -> OpsImpl:
+    """Return the op table for ``impl`` in {'eager', 'fused'}.
+
+    'eager' is the plain PyTorch reference path; 'fused' runs each encoder
+    block as two CUDA kernels and the final LayerNorm as a third.  The
+    kernel module is imported lazily, so eager use never touches it."""
+    if impl == "eager":
+        return EAGER_OPS
+    if impl == "fused":
+        from vit_tpu_torch.ops import fused
+
+        return fused.FUSED_OPS
+    raise ValueError(
+        f"unknown ops impl {impl!r}; expected 'eager' or 'fused' (the JAX "
+        "package's other op tables are still to be ported — see ROADMAP.md)"
+    )

@@ -1,0 +1,155 @@
+"""Build the CUDA kernels at first use and bind them with ``ctypes``.
+
+The sources in ``vit_tpu_torch/csrc`` (``*.cu``, ``*.cuh``) have a plain C
+interface and include no PyTorch header, so one ``nvcc`` call builds them
+into a shared library in seconds::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/vit_tpu_torch/libvit_tpu_torch_<hash>.so \
+         vit_tpu_torch/csrc/*.cu
+
+The library's name carries a hash of the sources and flags, so an edit
+rebuilds it and an unchanged tree reuses it.  A missing ``nvcc`` or a
+failed build raises ``RuntimeError``; nothing falls back to another
+implementation.
+
+Every C entry point takes raw pointers (``tensor.data_ptr()``), the device
+index and PyTorch's current stream, launches on that stream, and returns
+``cudaGetLastError()``; :func:`check` raises on a non-zero status.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "vit_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# kernel-side dtype codes (csrc/common.cuh DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    # x, scale, bias, out, rows, d, eps, dtype, device, stream
+    "vt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # x, ln_scale, ln_bias, wqkv, bqkv, stats, qkv, ctx,
+    # batch, seq, d, heads, head_dim, eps, dtype, device, stream
+    "vt_ln_qkv_attn": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+    # ctx, res, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, x1, stats, g, out,
+    # rows, d_ctx, d, f, eps, gelu_variant, dtype, device, stream
+    "vt_out_ln_mlp_residual": [_P] * 14 + [_I] * 4 + [_F, _I, _I, _I, _P],
+}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME`` (default the toolkit's
+    standard prefix, /usr/local/cuda)."""
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "cannot build the vit_tpu_torch CUDA kernels: nvcc not found on PATH "
+        "or under $CUDA_HOME/bin (install the CUDA toolkit, or run on the "
+        "CPU, where the kernels' plain PyTorch versions are used)"
+    )
+
+
+def sources():
+    """(.cu translation units, .cuh headers), sorted."""
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = sources()
+    for path in (*cu, *cuh):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libvit_tpu_torch_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these exact sources exists;
+    -> its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    cu, _ = sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}) building the vit_tpu_torch "
+            f"CUDA kernels:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    return out
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's signature."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.vt_error_string.argtypes = [ctypes.c_int]
+    lib.vt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(status: int, kernel: str) -> None:
+    """Raise when a C entry point reports a CUDA error."""
+    if status != 0:
+        msg = load_library().vt_error_string(status).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {status} ({msg})")
+
+
+def check_operands(kernel: str, x: torch.Tensor, *others: torch.Tensor) -> None:
+    """Every operand on x's CUDA device, in x's dtype (fp32 or bf16), and
+    contiguous — what the kernels take; anything else raises."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel}: expected a CUDA or CPU tensor, got {x.device}")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"{kernel}: dtype {x.dtype} not supported (float32, bfloat16)")
+    for t in (x, *others):
+        if t.device != x.device:
+            raise ValueError(f"{kernel}: operands on {t.device} and {x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{kernel}: mixed dtypes {t.dtype} and {x.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: operands must be contiguous")
+
+
+def check_shape(kernel: str, name: str, t: torch.Tensor, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,100 @@
+"""K2: out_proj + residual -> LN2 -> FC1 -> GELU -> FC2 -> residual, CUDA
+(``csrc/out_ln_mlp_residual.cu``).
+
+Replaces ``vit_tpu/ops/pallas/fused_block.py:out_ln_mlp_residual``
+(pallas_call at :617; body ``_out_ln_mlp_kernel`` :589).
+
+What bounds it on the H100: three GEMMs (B/16 batch 100: 19,700 rows,
+D = 768, F = 3,072; 23 + 93 + 93 GFLOP) of tensor-core work.  The TPU
+kernel keeps W_o, W1 and W2 (10.6 MB bf16) resident in VMEM and never
+writes x1 or the (rows, F) hidden activation; a Hopper block has 227 KB of
+shared memory, so the design runs three tiled GEMMs that stream weight
+tiles, with the elementwise steps in their prologues and epilogues:
+
+  1. x1 = ctx @ W_o + b_o + res, kept in an fp32 device scratch and never
+     rounded (rounding it would change the second residual);
+  2. per-row LN2 statistics of x1 (fp32);
+  3. GEMM whose A-tile load applies LN2 to x1 and rounds to the dtype;
+     epilogue u + b1 -> GELU in fp32 -> g rounded to the dtype, into a
+     (rows, F) scratch (121 MB at batch 100 bf16 — the second fusion
+     target for later work);
+  4. out = g @ W2 + b2 + x1, rounded to the dtype.
+
+GELU: the fp32 path uses the Abramowitz-Stegun erf, the bf16 path the
+tanh-form erf (``fused_block._erf``/``_erf_tanh_inner``).  Ragged row
+tiles load zeros.  bf16 GEMMs run on the tensor cores (WMMA, fp32
+accumulators); fp32 runs plain fp32 FMA, never TF32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vit_tpu_torch.ops.fused_block import _gelu, _ln, use_fast_erf
+from vit_tpu_torch.ops.kernels import _build
+
+GELU_VARIANTS = {"exact": 0, "tanh": 1}
+
+
+def out_ln_mlp_residual_plain(
+    ctx, res, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, eps,
+    gelu_variant: str = "exact",
+) -> torch.Tensor:
+    """Plain twin: fp32 compute with casts at the TPU kernel's rounding
+    points."""
+    dtype = ctx.dtype
+    x1 = ctx.float() @ wo.float() + bo.float() + res.float()
+    h = _ln(x1, ln_scale, ln_bias, eps).to(dtype)
+    u = h.float() @ w1.float() + b1.float()
+    g = _gelu(u, gelu_variant, fast_erf=use_fast_erf(dtype)).to(dtype)
+    return (g.float() @ w2.float() + b2.float() + x1).to(dtype)
+
+
+def out_ln_mlp_residual(
+    ctx, res, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, eps,
+    gelu_variant: str = "exact",
+) -> torch.Tensor:
+    """res + ctx@wo+bo -> LN2 -> FC1 -> GELU -> FC2 -> +residual over
+    (B*T, D) rows.  CPU tensors take the plain twin; CUDA tensors launch
+    the kernel."""
+    if ctx.device.type == "cpu":
+        return out_ln_mlp_residual_plain(
+            ctx, res, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, eps,
+            gelu_variant,
+        )
+    name = "out_ln_mlp_residual"
+    if gelu_variant not in GELU_VARIANTS:
+        raise ValueError(f"{name}: gelu_variant {gelu_variant!r} not in {tuple(GELU_VARIANTS)}")
+    _build.check_operands(name, ctx, res, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2)
+    rows, d_ctx = ctx.shape
+    d = res.shape[-1]
+    f = w1.shape[-1]
+    _build.check_shape(name, "res", res, (rows, d))
+    _build.check_shape(name, "wo", wo, (d_ctx, d))
+    for n, t in (("bo", bo), ("ln_scale", ln_scale), ("ln_bias", ln_bias), ("b2", b2)):
+        _build.check_shape(name, n, t, (d,))
+    _build.check_shape(name, "w1", w1, (d, f))
+    _build.check_shape(name, "b1", b1, (f,))
+    _build.check_shape(name, "w2", w2, (f, d))
+    dev = ctx.device
+    x1 = torch.empty(rows, d, dtype=torch.float32, device=dev)
+    stats = torch.empty(2 * rows, dtype=torch.float32, device=dev)
+    g = torch.empty(rows, f, dtype=ctx.dtype, device=dev)
+    out = torch.empty(rows, d, dtype=ctx.dtype, device=dev)
+    lib = _build.load_library()
+    _build.check(
+        lib.vt_out_ln_mlp_residual(
+            ctx.data_ptr(), res.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+            ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), x1.data_ptr(),
+            stats.data_ptr(), g.data_ptr(), out.data_ptr(), rows, d_ctx, d,
+            f, eps, GELU_VARIANTS[gelu_variant],
+            _build.DTYPE_CODES[ctx.dtype], dev.index, _build.stream_of(ctx),
+        ),
+        name,
+    )
+    out_ln_mlp_residual.launches += 1
+    return out
+
+
+out_ln_mlp_residual.launches = 0
