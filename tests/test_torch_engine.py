@@ -125,8 +125,10 @@ def test_engine_rejects_unknown_dtype_and_ops(tiny_cfg, tree):
 @pytest.fixture
 def weight_dir(tiny_cfg, tmp_path, monkeypatch):
     from vit_tpu import config
+    from vit_tpu_torch import config as tconfig
 
     monkeypatch.setitem(config.CONFIGS, tiny_cfg.name, tiny_cfg)
+    monkeypatch.setitem(tconfig.CONFIGS, tiny_cfg.name, tiny_cfg)
     d = tmp_path / "Network"
     wio.save_reference_weights(wio.synth_reference_tensors(tiny_cfg, seed=1), d, tiny_cfg)
     return d
@@ -184,6 +186,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import vit_tpu_torch.cli.main, vit_tpu_torch.runtime.engine, vit_tpu_torch.ops.fused\n"
         "import vit_tpu_torch.models.vit, vit_tpu_torch.io.params\n"
+        "import vit_tpu_torch.cli.train, vit_tpu_torch.cli.train_setup, vit_tpu_torch.cli.train_loop\n"
+        "import vit_tpu_torch.runtime.trainer, vit_tpu_torch.ops.trainable, vit_tpu_torch.ops.backward\n"
+        "from vit_tpu_torch.ops.dispatch import get_ops; get_ops('fused_train')\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -232,6 +232,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_hash_covers_every_source():
     cu, cuh = _build.sources()
-    assert {p.name for p in cu} == {"layer_norm.cu", "ln_qkv_attn.cu", "out_ln_mlp_residual.cu"}
-    assert {p.name for p in cuh} == {"common.cuh", "gemm.cuh"}
+    assert {p.name for p in cu} == {
+        "layer_norm.cu", "ln_qkv_attn.cu", "out_ln_mlp_residual.cu", "out_residual.cu",
+        "ln_mlp_residual.cu", "ln_mlp_out_residual_bwd.cu", "ln_qkv_attn_bwd.cu"}
+    assert {p.name for p in cuh} == {"common.cuh", "gemm.cuh", "epilogue.cuh", "attention.cuh"}
     assert _build.library_path().name == f"libvit_tpu_torch_{_build.source_hash()}.so"

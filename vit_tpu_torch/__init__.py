@@ -13,11 +13,11 @@ counterpart's path and names so a reader finds each twin:
   - ``vit_tpu_torch.models.vit``     <- ``vit_tpu.models.vit`` (inference)
   - ``vit_tpu_torch.runtime.engine`` <- ``vit_tpu.runtime.engine``
   - ``vit_tpu_torch.cli.main``       <- ``vit_tpu.cli.main``
+  - ``vit_tpu_torch.config``, ``io`` <- ``vit_tpu.config``, ``vit_tpu.io``
+    (the routes the port's entry points take by default)
 
-The package imports ``torch`` and never ``jax``.  It reuses the JAX-free
-parts of ``vit_tpu`` (``config``, ``io``, ``eval.comparator``).
+The package imports ``torch`` and never ``jax``.  Its classify and train
+paths load nothing of ``vit_tpu``; only the classify CLI's reference-format
+weight directories, raw ``--images`` and ``--golden`` read through the JAX
+package's numpy-only ``io`` and ``eval.comparator`` modules.
 """
-
-from vit_tpu.version import __version__
-
-__all__ = ["__version__"]

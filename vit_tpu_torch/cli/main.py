@@ -2,8 +2,11 @@
 
 Loads an image batch and weights, runs the model, and writes one
 ``[%d] label: %d / prob: %.6f`` line per image (the reference result
-format, through ``vit_tpu.eval.comparator``); ``--golden`` gates the
-results against a golden file and the exit code is the comparator's.
+format); ``--golden`` gates the results against a golden file and the
+exit code is the comparator's.  Weight directories in the reference's
+Weight_*.bin format, raw ``--images`` and ``--golden`` read through the
+JAX package's numpy-only ``vit_tpu.io`` / ``vit_tpu.eval`` modules; the
+``.npz``, ``--input`` and ``--synth`` routes load nothing of it.
 
 Usage::
 
@@ -87,7 +90,7 @@ def load_params(source, cfg, round_to_6dp: bool, allow_synth: bool):
             "to .npz or Weight_*.bin"
         )
     if p.suffix.lower() == ".npz":
-        from vit_tpu.io import checkpoint as ckpt
+        from vit_tpu_torch.io import checkpoint as ckpt
 
         tree = ckpt.load_params_from_state(p) if ckpt.is_train_state(p) else ckpt.load_npz(p)
         if "decoder" in tree and "head" not in tree:
@@ -105,10 +108,9 @@ def load_params(source, cfg, round_to_6dp: bool, allow_synth: bool):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    from vit_tpu.cli.common import resolve_config
-    from vit_tpu.eval import comparator
-    from vit_tpu.io import images as iio
-    from vit_tpu.io.labels import load_labels
+    from vit_tpu_torch.config import resolve_config
+    from vit_tpu_torch.io import images as iio
+    from vit_tpu_torch.io import results
     from vit_tpu_torch.runtime.engine import InferenceEngine
 
     cfg = resolve_config(args.config, args.num_classes)
@@ -148,9 +150,9 @@ def main(argv=None) -> int:
     pred = probs.argmax(-1)
     top_prob = probs[np.arange(len(pred)), pred]
 
-    label_names = load_labels(args.labels, cfg.num_classes)
+    label_names = results.load_labels(args.labels, cfg.num_classes)
     for i in range(len(pred)):
-        line = comparator.format_result_line(i, pred[i], top_prob[i])
+        line = results.format_result_line(i, pred[i], top_prob[i])
         if args.top > 1:
             order = probs[i].argsort()[::-1][: args.top]
             extra = ", ".join(f"{label_names[j]}={probs[i, j]:.4f}" for j in order)
@@ -162,10 +164,12 @@ def main(argv=None) -> int:
         print(line)
 
     if args.output:
-        comparator.write_result_file(pred, top_prob, args.output)
+        results.write_result_file(pred, top_prob, args.output)
 
     n_errors = 0
     if args.golden:
+        from vit_tpu.eval import comparator
+
         got = [
             comparator.ResultLine(i, int(l), float(p))
             for i, (l, p) in enumerate(zip(pred, top_prob))

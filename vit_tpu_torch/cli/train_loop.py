@@ -1,0 +1,48 @@
+"""The vit-tpu-torch-train step loop: per-step dispatch, the ``step N  loss
+L  T s`` lines and ``--log-jsonl`` records of ``vit_tpu.cli.train_loop``,
+and the final ``--save``."""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def run(args, st) -> int:
+    """Drive ``st`` (a train_setup.TrainSetup) for args.steps steps."""
+    from vit_tpu_torch.io import checkpoint as ckpt
+    from vit_tpu_torch.io.params import params_to_numpy
+
+    staged = {}  # static data cycles a few aligned batches: upload each once
+    for s in range(args.steps):
+        i0 = (s * args.batch) % st.n_static
+        if i0 not in staged:
+            staged[i0] = (
+                torch.from_numpy(st.images[i0 : i0 + args.batch]).to(st.device),
+                torch.from_numpy(st.labels[i0 : i0 + args.batch]).to(st.device),
+            )
+        xb, yb = staged[i0]
+        if st.lr_at is not None:
+            for group in st.optimizer.param_groups:
+                group["lr"] = st.lr_at(s)
+        t0 = time.perf_counter()
+        loss = float(st.step(st.params, xb, yb))  # waits for the device
+        dt = time.perf_counter() - t0
+        print(f"step {s:4d}  loss {loss:.4f}  {dt:.2f}s")
+        if args.log_jsonl:
+            with open(args.log_jsonl, "a") as fh:
+                fh.write(json.dumps({
+                    "step": s, "loss": round(loss, 6), "ms": round(dt * 1e3, 2),
+                    "images_per_sec": round(args.batch / dt, 2),
+                }) + "\n")
+        if not np.isfinite(loss):
+            print("non-finite loss; aborting", file=sys.stderr)
+            return 1
+    if args.save:
+        ckpt.save_npz(params_to_numpy(st.params), args.save)
+        print(f"saved params to {args.save}")
+    return 0

@@ -1,5 +1,6 @@
 // Shared device helpers for the vit_tpu_torch kernels: dtype conversion,
-// warp reductions, per-row LayerNorm statistics, and the GELU forms.
+// warp reductions, per-row LayerNorm statistics and input gradient, and the
+// GELU forms with their derivatives.
 //
 // The numerics follow the JAX package's Pallas kernels
 // (vit_tpu/ops/pallas/fused_block.py:_ln, _gelu, _erf_tanh_inner and
@@ -30,6 +31,13 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __flo
 
 // value after rounding to T, back in fp32
 template <typename T> __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
+
+// return a failed launch's status from the enclosing host function
+#define VT_TRY(expr)                      \
+  do {                                    \
+    const cudaError_t err_ = (expr);      \
+    if (err_ != cudaSuccess) return err_; \
+  } while (0)
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -93,16 +101,21 @@ __device__ __forceinline__ float erf_as(float x) {
 }
 
 // erf(x) ~= tanh(x * q(x^2)), x clamped to [-3.2, 3.2], |err| <= 3.1e-5
-// (fused_block.py:_erf_tanh_inner)
-__device__ __forceinline__ float erf_tanh(float x) {
-  const float xc = fminf(fmaxf(x, -3.2f), 3.2f);
+// (fused_block.py:_erf_tanh_inner); also hands back the clamped x and q
+__device__ __forceinline__ float erf_tanh_inner(float x, float& xc, float& q) {
+  xc = fminf(fmaxf(x, -3.2f), 3.2f);
   const float t = xc * xc;
-  float q = 1.4501721850515667e-05f;
+  q = 1.4501721850515667e-05f;
   q = q * t + -0.00022230843767343287f;
   q = q * t + -0.0011219408928909798f;
   q = q * t + 0.10359029852786425f;
   q = q * t + 1.1281997085186337f;
   return tanhf(xc * q);
+}
+
+__device__ __forceinline__ float erf_tanh(float x) {
+  float xc, q;
+  return erf_tanh_inner(x, xc, q);
 }
 
 // variant 0 = exact (erf form), 1 = tanh approximation (fused_block.py:_gelu)
@@ -113,6 +126,72 @@ __device__ __forceinline__ float gelu(float h, int variant, bool fast_erf) {
     return 0.5f * h * (1.0f + e);
   }
   return 0.5f * h * (1.0f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
+}
+
+// d gelu(u) / du in fp32 (backward.py:_gelu_grad): exact = Phi(u) + u phi(u)
+// with the A-S erf, or the derivative of the tanh-form erf when fast_erf;
+// tanh variant = 0.5(1+t) + 0.5 u (1-t^2) c (1 + 3*0.044715 u^2).
+__device__ __forceinline__ float gelu_grad(float u, int variant, bool fast_erf) {
+  if (variant == 0) {
+    const float inv_sqrt2 = 0.7071067811865476f;
+    if (fast_erf) {
+      float sc, q;
+      const float t = erf_tanh_inner(u * inv_sqrt2, sc, q);
+      const float tsq = sc * sc;
+      float qp = (float)(4 * 1.4501721850515667e-05);  // sum of i * Q[i] * s^(2(i-1))
+      qp = qp * tsq + (float)(3 * -0.00022230843767343287);
+      qp = qp * tsq + (float)(2 * -0.0011219408928909798);
+      qp = qp * tsq + (float)(1 * 0.10359029852786425);
+      const float vp = q + 2.0f * tsq * qp;  // d(s q(s^2)) / ds
+      return 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * vp * inv_sqrt2;
+    }
+    const float cdf = 0.5f * (1.0f + erf_as(u * inv_sqrt2));
+    const float pdf = 0.3989422804014327f * expf(-0.5f * u * u);
+    return cdf + u * pdf;
+  }
+  const float c = 0.7978845608028654f;
+  const float t = tanhf(c * (u + 0.044715f * u * u * u));
+  return 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * c * (1.0f + (float)(3 * 0.044715) * u * u);
+}
+
+// LayerNorm input gradient, one warp per row (backward.py:_ln_bwd_dx, plus
+// the residual join): with xhat = (x - mean) rstd and g = dh * gamma,
+//   dx = dres + rstd * (g - mean(g) - xhat * mean(g * xhat))
+// in fp32; written in T, and in fp32 too when dx_f32 is given.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+ln_bwd_rows_kernel(const float* __restrict__ dh, const T* __restrict__ x,
+                   const float* __restrict__ mean, const float* __restrict__ rstd,
+                   const T* __restrict__ gamma, const T* __restrict__ dres, T* __restrict__ dx,
+                   float* __restrict__ dx_f32, int rows, int d) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // whole warps exit together
+  const size_t base = (size_t)row * d;
+  const float m = mean[row], r = rstd[row];
+  float s1 = 0.f, s2 = 0.f;
+  for (int j = lane; j < d; j += 32) {
+    const float g = dh[base + j] * to_f(gamma[j]);
+    s1 += g;
+    s2 += g * ((to_f(x[base + j]) - m) * r);
+  }
+  const float m1 = warp_sum(s1) / (float)d, m2 = warp_sum(s2) / (float)d;
+  for (int j = lane; j < d; j += 32) {
+    const float g = dh[base + j] * to_f(gamma[j]);
+    const float xhat = (to_f(x[base + j]) - m) * r;
+    const float v = to_f(dres[base + j]) + r * (g - m1 - xhat * m2);
+    dx[base + j] = from_f<T>(v);
+    if (dx_f32) dx_f32[base + j] = v;
+  }
+}
+
+template <typename T>
+inline cudaError_t launch_ln_bwd_rows(const float* dh, const T* x, const float* mean,
+                                      const float* rstd, const T* gamma, const T* dres, T* dx,
+                                      float* dx_f32, int rows, int d, cudaStream_t stream) {
+  ln_bwd_rows_kernel<T><<<cdiv(rows, kRowThreads / 32), kRowThreads, 0, stream>>>(
+      dh, x, mean, rstd, gamma, dres, dx, dx_f32, rows, d);
+  return cudaGetLastError();
 }
 
 }  // namespace vt

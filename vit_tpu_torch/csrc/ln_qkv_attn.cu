@@ -14,65 +14,18 @@
 //      rounded to the dtype, then p @ v), so every T fits and the rounding
 //      points are the TPU kernel's.  Ragged query and key edges are masked;
 //      keys past T load zeros and get p = 0.
+#include "attention.cuh"
 #include "common.cuh"
+#include "epilogue.cuh"
 #include "gemm.cuh"
 
 namespace vt {
-
-// qkv[r, c] = round(acc + b[c])
-template <typename T>
-struct BiasRoundEpi {
-  const T* b;
-  T* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
-    out[(size_t)r * ld + c] = from_f<T>(acc + to_f(b[c]));
-  }
-};
-
-constexpr int kAtQ = 64, kAtK = 64, kAtThreads = 256;
 
 template <int DH>
 constexpr size_t attention_smem_bytes() {
   // Qs [Q][DH+1], Ks [K][DH+1], Vs [K][DH], Ps [Q][K+1], all fp32
   return sizeof(float) *
          (kAtQ * (DH + 1) + kAtK * (DH + 1) + kAtK * DH + kAtQ * (kAtK + 1));
-}
-
-// Thread (ty, tx) = (tid / 16, tid % 16) owns queries ty + 16i and keys
-// tx + 16j (i, j < 4) of the 64 x 64 score tile; the 16 threads sharing a
-// query row are one half-warp, reduced with xor-shuffles of width 16.
-template <int DH>
-__device__ __forceinline__ void score_tile(const float* Qs, const float* Ks, int tx, int ty,
-                                           float s[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    float qv[4], kv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * (DH + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (DH + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o, 16));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o, 16);
-  return v;
 }
 
 template <typename T, int DH>
@@ -100,35 +53,8 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int seq, int he
 
   // pass 1: running row max m and sum of exp(s - m) over all keys
   float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
+  softmax_stats<T, DH>(base, ld, seq, Qs, Ks, tid, tx, ty, m, l);
   float s[4][4];
-  for (int k0 = 0; k0 < seq; k0 += kAtK) {
-    __syncthreads();  // Qs written / previous tile consumed
-    for (int i = tid; i < kAtK * DH; i += kAtThreads) {
-      const int r = i / DH, c = i % DH, t = k0 + r;
-      Ks[r * (DH + 1) + c] = t < seq ? to_f(base[(size_t)t * ld + DH + c]) : 0.f;
-    }
-    __syncthreads();
-    score_tile<DH>(Qs, Ks, tx, ty, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + tx + 16 * j < seq) tmax = fmaxf(tmax, s[i][j]);
-      const float mn = fmaxf(m[i], half_warp_max(tmax));  // finite: every tile has a key
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + tx + 16 * j < seq) ps += expf(s[i][j] - mn);
-      l[i] = l[i] * expf(m[i] - mn) + half_warp_sum(ps);
-      m[i] = mn;
-    }
-  }
   float inv[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) inv[i] = 1.0f / l[i];
@@ -206,8 +132,8 @@ cudaError_t ln_qkv_attn(const T* x, const T* ln_scale, const T* ln_bias, const T
   float* rstd = stats + rows;
   cudaError_t err = launch_row_stats(x, mean, rstd, rows, d, eps, stream);
   if (err != cudaSuccess) return err;
-  err = launch_gemm<T>(LoadLnA<T, T>{x, d, mean, rstd, ln_scale, ln_bias}, wqkv, rows, d3, d,
-                       BiasRoundEpi<T>{bqkv, qkv, d3}, stream);
+  err = launch_gemm<T>(LoadLn<T, T>{x, d, mean, rstd, ln_scale, ln_bias}, Load<T>{wqkv, d3},
+                       rows, d3, d, BiasEpi<T, T>{bqkv, qkv, d3}, stream);
   if (err != cudaSuccess) return err;
   switch (head_dim) {
     case 16: return launch_attention<T, 16>(qkv, ctx, batch, seq, heads, stream);

@@ -12,48 +12,10 @@
 //   4. out = g @ W2 + b2 + x1             -> rounded to the dtype
 // GELU's erf is the A-S form in fp32 and the tanh form in bf16.
 #include "common.cuh"
+#include "epilogue.cuh"
 #include "gemm.cuh"
 
 namespace vt {
-
-// x1[r, c] = acc + bo[c] + res[r, c], kept in fp32
-template <typename T>
-struct OutProjResidualEpi {
-  const T* bo;
-  const T* res;
-  float* x1;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
-    const size_t i = (size_t)r * ld + c;
-    x1[i] = acc + to_f(bo[c]) + to_f(res[i]);
-  }
-};
-
-// g[r, c] = round(gelu(acc + b1[c]))
-template <typename T>
-struct BiasGeluEpi {
-  const T* b1;
-  T* g;
-  int ld;
-  int variant;
-  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
-    constexpr bool fast_erf = std::is_same<T, bf16>::value;
-    g[(size_t)r * ld + c] = from_f<T>(gelu(acc + to_f(b1[c]), variant, fast_erf));
-  }
-};
-
-// out[r, c] = round(acc + b2[c] + x1[r, c])
-template <typename T>
-struct BiasResidualEpi {
-  const T* b2;
-  const float* x1;
-  T* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
-    const size_t i = (size_t)r * ld + c;
-    out[i] = from_f<T>(acc + to_f(b2[c]) + x1[i]);
-  }
-};
 
 template <typename T>
 cudaError_t out_ln_mlp_residual(const T* ctx, const T* res, const T* wo, const T* bo,
@@ -63,16 +25,16 @@ cudaError_t out_ln_mlp_residual(const T* ctx, const T* res, const T* wo, const T
                                 cudaStream_t stream) {
   float* mean = stats;
   float* rstd = stats + rows;
-  cudaError_t err = launch_gemm<T>(LoadA<T>{ctx, d_ctx}, wo, rows, d, d_ctx,
-                                   OutProjResidualEpi<T>{bo, res, x1, d}, stream);
+  cudaError_t err = launch_gemm<T>(Load<T>{ctx, d_ctx}, Load<T>{wo, d}, rows, d, d_ctx,
+                                   BiasResidualEpi<T, T, float>{bo, res, x1, d}, stream);
   if (err != cudaSuccess) return err;
   err = launch_row_stats(x1, mean, rstd, rows, d, eps, stream);
   if (err != cudaSuccess) return err;
-  err = launch_gemm<T>(LoadLnA<float, T>{x1, d, mean, rstd, ln_scale, ln_bias}, w1, rows, f, d,
-                       BiasGeluEpi<T>{b1, g, f, variant}, stream);
+  err = launch_gemm<T>(LoadLn<float, T>{x1, d, mean, rstd, ln_scale, ln_bias}, Load<T>{w1, f},
+                       rows, f, d, BiasGeluEpi<T>{b1, g, f, variant}, stream);
   if (err != cudaSuccess) return err;
-  return launch_gemm<T>(LoadA<T>{g, f}, w2, rows, d, f, BiasResidualEpi<T>{b2, x1, out, d},
-                        stream);
+  return launch_gemm<T>(Load<T>{g, f}, Load<T>{w2, d}, rows, d, f,
+                        BiasResidualEpi<T, float, T>{b2, x1, out, d}, stream);
 }
 
 }  // namespace vt

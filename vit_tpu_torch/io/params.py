@@ -1,8 +1,9 @@
 """The JAX package's params pytree <-> the port's tensors.
 
-Loading stays in ``vit_tpu.io`` (``params_from_tensors`` /
-``load_params_any``, pure numpy); this module only moves the resulting
-nested dict of arrays onto a torch device and back.  The layout is kept
+Loading is ``vit_tpu_torch.io.checkpoint`` (``.npz``) or the JAX
+package's numpy-only ``load_params_any`` (reference weight directories);
+this module only moves the resulting nested dict of arrays onto a torch
+device and back.  The layout is kept
 exactly: [in, out] matrices, the encoder layers stacked on a leading L
 axis, and the packed QKV in (head, {q,k,v}, head_dim) column order.
 Nothing is transposed to ``nn.Linear``'s [out, in] layout: a square

@@ -1,12 +1,13 @@
 """Build the CUDA kernels at first use and bind them with ``ctypes``.
 
 The sources in ``vit_tpu_torch/csrc`` (``*.cu``, ``*.cuh``) have a plain C
-interface and include no PyTorch header, so one ``nvcc`` call builds them
-into a shared library in seconds::
+interface and include no PyTorch header.  One ``nvcc`` per ``.cu``, all
+started together, compiles each to an object file; one more links them
+into a shared library::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/vit_tpu_torch/libvit_tpu_torch_<hash>.so \
-         vit_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o vit_tpu_torch/csrc/<name>.cu    # each
+    nvcc -shared -o build/vit_tpu_torch/libvit_tpu_torch_<hash>.so *.o
 
 The library's name carries a hash of the sources and flags, so an edit
 rebuilds it and an unchanged tree reuses it.  A missing ``nvcc`` or a
@@ -35,7 +36,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "vit_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # kernel-side dtype codes (csrc/common.cuh DType)
@@ -51,6 +52,28 @@ SIGNATURES = {
     # ctx, res, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, x1, stats, g, out,
     # rows, d_ctx, d, f, eps, gelu_variant, dtype, device, stream
     "vt_out_ln_mlp_residual": [_P] * 14 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # ctx, res, wo, bo, out, rows, d_ctx, d, dtype, device, stream
+    "vt_out_residual": [_P] * 5 + [_I] * 5 + [_P],
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, stats, g, out,
+    # rows, d, f, eps, gelu_variant, dtype, device, stream
+    "vt_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, dx1, dctx, dgamma,
+    # dbeta, dw1, db1, dw2, db2, dwo, dbo, workspace,
+    # rows, d, f, d_ctx, eps, gelu_variant, dtype, device, stream
+    "vt_ln_mlp_out_residual_bwd": [_P] * 20 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # dctx, dres, x, ln_scale, ln_bias, wqkv, bqkv, dx, dgamma, dbeta, dwqkv,
+    # dbqkv, workspace, batch, seq, d, heads, head_dim, eps, dtype, device,
+    # stream
+    "vt_ln_qkv_attn_bwd": [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P],
+}
+
+# workspace size queries (bytes) of the kernels that carve their scratch
+# from one buffer the wrapper allocates
+WORKSPACE_SIGNATURES = {
+    # rows, d, f, d_ctx, dtype
+    "vt_ln_mlp_out_residual_bwd_workspace": [_I] * 5,
+    # batch, seq, d, heads, head_dim, dtype
+    "vt_ln_qkv_attn_bwd_workspace": [_I] * 6,
 }
 
 
@@ -98,14 +121,26 @@ def build() -> Path:
     cu, _ = sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building the vit_tpu_torch "
-            f"CUDA kernels:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for o, src in zip(objs, cu)]
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        results = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(rc == 0 for *_, rc in results):
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            results.append((link, proc.stdout, proc.returncode))
+        failed = [(c, log, rc) for c, log, rc in results if rc != 0]
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                "nvcc failed building the vit_tpu_torch CUDA kernels:\n" + "\n".join(
+                    f"(exit {rc}) {' '.join(c)}\n{log}" for c, log, rc in failed)
+            )
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     return out
 
@@ -118,6 +153,10 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in WORKSPACE_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_size_t
     lib.vt_error_string.argtypes = [ctypes.c_int]
     lib.vt_error_string.restype = ctypes.c_char_p
     return lib
@@ -153,3 +192,9 @@ def check_shape(kernel: str, name: str, t: torch.Tensor, shape) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def workspace(query: str, device: torch.device, *sizes: int) -> torch.Tensor:
+    """A byte buffer as large as the kernel's ``<query>`` says it needs."""
+    nbytes = getattr(load_library(), query)(*sizes)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)

@@ -1,0 +1,116 @@
+"""K7: merged backward of [LN2 + MLP + residual] and [out_proj + residual],
+CUDA (``csrc/ln_mlp_out_residual_bwd.cu``).
+
+Replaces ``vit_tpu/ops/pallas/backward.py:ln_mlp_out_residual_bwd``
+(pallas_call at :380; body ``_ln_mlp_out_bwd_kernel`` :296 with
+``_mlp_bwd_core`` :111 and ``_mlp_grad_accum`` :159).
+
+What bounds it on the H100: eight GEMMs of tensor-core work (B/16 batch 64:
+12,608 rows, D = 768, F = 3,072; about 270 GFLOP, three of them weight
+gradients whose depth is the ragged row axis).  The TPU kernel walks row
+blocks in order and keeps W1, W2, W_o and the fp32 weight-gradient
+accumulators in VMEM across grid steps.  Hopper blocks run in no order, so
+the design is a chain of tiled GEMMs over all rows with device scratch
+between them (the fp32 (rows, F) u/du buffer is 155 MB at batch 64 — a
+fusion target for later work), the elementwise steps in the GEMMs' loads
+and epilogues, and every reduction over rows as its own deterministic pass:
+weight gradients split their depth into fixed chunks whose fp32 partials a
+second pass sums in order, and each column sum (db1, db2, dgamma, dbeta,
+db_o) sums 128-row partials in order.  No float atomics: two runs give
+bit-identical gradients.
+
+Rounding points (the TPU kernel's): x-hat and 1/sigma from the rounded x1
+in fp32; h2 rounded; u fp32, never rounded; g = GELU(u) fp32, rounded only
+as dW2's operand; du = (dy W2^T) gelu'(u) fp32, rounded to du_c; dh2 =
+du_c W1^T; dx1 = dy + LN-bwd(dh2) fp32, written in the dtype; dctx =
+round(dx1) W_o^T.  bf16 differentiates the tanh-form erf, fp32 the A-S form.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vit_tpu_torch.ops.backward import _gelu_grad, _ln_bwd_dx, _ln_stats
+from vit_tpu_torch.ops.fused_block import _gelu, use_fast_erf
+from vit_tpu_torch.ops.kernels import _build
+from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import GELU_VARIANTS
+
+
+def ln_mlp_out_residual_bwd_plain(
+    dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, eps, gelu_variant: str = "exact",
+):
+    """Plain twin: fp32 compute with casts at the TPU kernel's rounding
+    points.  -> (dx1, dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo, dbo);
+    dx1 and dctx in the dtype, the rest fp32."""
+    cd = dy.dtype
+    fast = use_fast_erf(cd)
+    dyf, gamma = dy.float(), ln_scale.float()
+    xhat, inv = _ln_stats(x1.float(), eps)
+    h2 = (xhat * gamma + ln_bias.float()).to(cd)
+    u = h2.float() @ w1.float() + b1.float()
+    g = _gelu(u, gelu_variant, fast_erf=fast)
+    du = (dyf @ w2.float().t()) * _gelu_grad(u, gelu_variant, fast_erf=fast)
+    du_c = du.to(cd)
+    dh2 = du_c.float() @ w1.float().t()
+    dx1 = dyf + _ln_bwd_dx(dh2, xhat, inv, gamma)
+    dx1_c = dx1.to(cd)
+    dctx = (dx1_c.float() @ wo.float().t()).to(cd)
+    return (
+        dx1_c, dctx, (dh2 * xhat).sum(0), dh2.sum(0),
+        h2.float().t() @ du_c.float(), du.sum(0),
+        g.to(cd).float().t() @ dyf, dyf.sum(0),
+        ctx.float().t() @ dx1_c.float(), dx1.sum(0),
+    )
+
+
+def ln_mlp_out_residual_bwd(
+    dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, eps, gelu_variant: str = "exact",
+    u=None,
+):
+    """VJP of [out_proj + residual] then [LN2 + MLP + residual] over (B*T, D)
+    rows, from the upstream gradient ``dy`` and the saved x1 and ctx.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel.  ``u``
+    (the pre-GELU stash of a later slice) raises."""
+    name = "ln_mlp_out_residual_bwd"
+    if u is not None:
+        raise NotImplementedError(f"{name}: the u= stash hook is not ported yet (ROADMAP.md)")
+    if dy.device.type == "cpu":
+        return ln_mlp_out_residual_bwd_plain(
+            dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, eps, gelu_variant
+        )
+    if gelu_variant not in GELU_VARIANTS:
+        raise ValueError(f"{name}: gelu_variant {gelu_variant!r} not in {tuple(GELU_VARIANTS)}")
+    _build.check_operands(name, dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo)
+    rows, d = dy.shape
+    d_ctx = ctx.shape[-1]
+    f = w1.shape[-1]
+    _build.check_shape(name, "x1", x1, (rows, d))
+    _build.check_shape(name, "ctx", ctx, (rows, d_ctx))
+    _build.check_shape(name, "ln_scale", ln_scale, (d,))
+    _build.check_shape(name, "ln_bias", ln_bias, (d,))
+    _build.check_shape(name, "w1", w1, (d, f))
+    _build.check_shape(name, "b1", b1, (f,))
+    _build.check_shape(name, "w2", w2, (f, d))
+    _build.check_shape(name, "wo", wo, (d_ctx, d))
+    dev, code = dy.device, _build.DTYPE_CODES[dy.dtype]
+    f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)  # noqa: E731
+    outs = (
+        torch.empty(rows, d, dtype=dy.dtype, device=dev),
+        torch.empty(rows, d_ctx, dtype=dy.dtype, device=dev),
+        f32(d), f32(d), f32(d, f), f32(f), f32(f, d), f32(d), f32(d_ctx, d), f32(d),
+    )
+    ws = _build.workspace("vt_ln_mlp_out_residual_bwd_workspace", dev, rows, d, f, d_ctx, code)
+    lib = _build.load_library()
+    _build.check(
+        lib.vt_ln_mlp_out_residual_bwd(
+            *(t.data_ptr() for t in (dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo)),
+            *(t.data_ptr() for t in outs), ws.data_ptr(), rows, d, f, d_ctx, eps,
+            GELU_VARIANTS[gelu_variant], code, dev.index, _build.stream_of(dy),
+        ),
+        name,
+    )
+    ln_mlp_out_residual_bwd.launches += 1
+    return outs
+
+
+ln_mlp_out_residual_bwd.launches = 0

@@ -1,0 +1,87 @@
+"""K5: LN2 -> FC1 -> GELU -> FC2 -> residual, CUDA
+(``csrc/ln_mlp_residual.cu``).
+
+Replaces ``vit_tpu/ops/pallas/fused_block.py:ln_mlp_residual`` (pallas_call
+at :469; body ``_ln_mlp_kernel`` :422), in its non-``partial`` form
+without ``return_u``.
+
+What bounds it on the H100: two GEMMs (B/16 batch 64: 12,608 rows, D = 768,
+F = 3,072; 2 x 60 GFLOP) of tensor-core work.  The TPU kernel keeps W1 and
+W2 resident in VMEM and never writes the hidden activation; a Hopper block
+has 227 KB of shared memory, so the design is K2's MLP half: LN2 row
+statistics, a GEMM whose A-tile load applies LN2 and rounds, an epilogue
+u + b1 -> GELU (fp32) -> g rounded into a (rows, F) scratch (77 MB at
+batch 64 bf16), and a GEMM g @ W2 whose epilogue adds b2 and the residual
+x in fp32 and rounds.  The residual is the rounded x1 that K4 wrote.
+GELU: A-S erf in fp32, tanh-form erf in bf16; fp32 GEMMs never use TF32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vit_tpu_torch.ops.fused_block import _gelu, _ln, use_fast_erf
+from vit_tpu_torch.ops.kernels import _build
+from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import GELU_VARIANTS
+
+
+def ln_mlp_residual_plain(
+    x2d, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_variant: str = "exact",
+) -> torch.Tensor:
+    """Plain twin: fp32 compute with casts at the TPU kernel's rounding
+    points."""
+    dtype = x2d.dtype
+    h = _ln(x2d, ln_scale, ln_bias, eps).to(dtype)
+    u = h.float() @ w1.float() + b1.float()
+    g = _gelu(u, gelu_variant, fast_erf=use_fast_erf(dtype)).to(dtype)
+    return (g.float() @ w2.float() + b2.float() + x2d.float()).to(dtype)
+
+
+def ln_mlp_residual(
+    x2d, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_variant: str = "exact",
+    partial: bool = False, return_u: bool = False,
+) -> torch.Tensor:
+    """x + MLP(LN2(x)) over (B*T, D) rows.  CPU tensors take the plain
+    twin; CUDA tensors launch the kernel.  ``partial`` (tensor-parallel)
+    and ``return_u`` (pre-GELU stash) belong to later slices of the port
+    and raise."""
+    name = "ln_mlp_residual"
+    if partial or return_u:
+        raise NotImplementedError(
+            f"{name}: partial= (tensor parallel) and return_u= (the stash "
+            "hook) are not ported yet (ROADMAP.md)"
+        )
+    if x2d.device.type == "cpu":
+        return ln_mlp_residual_plain(
+            x2d, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_variant
+        )
+    if gelu_variant not in GELU_VARIANTS:
+        raise ValueError(f"{name}: gelu_variant {gelu_variant!r} not in {tuple(GELU_VARIANTS)}")
+    _build.check_operands(name, x2d, ln_scale, ln_bias, w1, b1, w2, b2)
+    rows, d = x2d.shape
+    f = w1.shape[-1]
+    for n, t in (("ln_scale", ln_scale), ("ln_bias", ln_bias), ("b2", b2)):
+        _build.check_shape(name, n, t, (d,))
+    _build.check_shape(name, "w1", w1, (d, f))
+    _build.check_shape(name, "b1", b1, (f,))
+    _build.check_shape(name, "w2", w2, (f, d))
+    dev = x2d.device
+    stats = torch.empty(2 * rows, dtype=torch.float32, device=dev)
+    g = torch.empty(rows, f, dtype=x2d.dtype, device=dev)
+    out = torch.empty(rows, d, dtype=x2d.dtype, device=dev)
+    lib = _build.load_library()
+    _build.check(
+        lib.vt_ln_mlp_residual(
+            x2d.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            stats.data_ptr(), g.data_ptr(), out.data_ptr(), rows, d, f, eps,
+            GELU_VARIANTS[gelu_variant], _build.DTYPE_CODES[x2d.dtype],
+            dev.index, _build.stream_of(x2d),
+        ),
+        name,
+    )
+    ln_mlp_residual.launches += 1
+    return out
+
+
+ln_mlp_residual.launches = 0

@@ -18,7 +18,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from vit_tpu.config import ViTConfig
+from vit_tpu_torch.config import ViTConfig
 from vit_tpu_torch.io.params import params_from_numpy
 from vit_tpu_torch.models import vit
 from vit_tpu_torch.ops import reference
