@@ -28,12 +28,34 @@ Phases (a failed phase raises; nothing is caught):
      gradients for every leaf (fp32, 4 images), bf16 mixed vs fp32 loss, and
      memorization of 32 images through the trainer's step;
  10. train images/s at batch 64 mixed precision, fused_train and eager,
-     timed in turns, with the peak device memory of each.
+     timed in turns, with the peak device memory of each;
+ 11. the regularized kernels (K10 out_residual_train, K11
+     ln_mlp_residual_train, K12a ln_mlp_out_residual_bwd_train) against
+     their plain twins at dropout 0.1 and drop-path 0.1, every output, bf16
+     and fp32, batch 64 and 3, timed beside K4, K5 and K7; K10's exact zeros
+     against the twin's (the mask pattern); K10/K11/K12a at zero rates bit
+     for bit equal to K4/K5/K7; the kept fraction of each dropout site, read
+     off the kernels' outputs, within 4 sigma of 1 - p;
+ 12. the train CLI with ``--dropout 0.1 --drop-path 0.1`` (otherwise as in
+     8), with the counts set to 0 just before and read just after (12 each
+     of K1, K10, K11, K12a, K6 per step; none of K2-K5, K7);
+ 13. regularized training correctness at full width: fp32 fused_train
+     gradients against autograd through the regularized block's plain twin
+     (``train_block_reference_2d``) under the same seeds, every leaf, 4
+     images; bf16 mixed vs fp32 loss;
+ 14. train images/s at batch 64 mixed precision, timed in turns:
+     regularized fused_train, unregularized fused_train, regularized eager,
+     with the peak device memory of each (no mask is stored, so the
+     regularized step's peak is within 1% of the unregularized one's).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the card's name and power limit, and the one before
-that a JSON object with one entry per kernel.  Imports nothing of JAX.
+that a JSON object with one entry per kernel: its time, its plain twin's,
+the least time the card could take for the same work (bytes over 3.35 TB/s
+or operations over the dtype's peak, whichever is larger), one PyTorch
+call's time where one computes the same function, and its launches on the
+main path.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -42,6 +64,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -82,6 +105,24 @@ TRAIN_KERNELS = {
 TRAIN_BATCHES = (64, 3)
 TRAIN_STEPS = 5
 MEMORIZE_LR = 3e-4  # weight decay 1e-4, optax.adamw's default
+
+REG_KERNELS = {
+    "out_residual_train": ("K10", "vit_tpu_torch/csrc/out_residual_train.cu",
+                           "vit_tpu/ops/pallas/fused_block.py:377"),
+    "ln_mlp_residual_train": ("K11", "vit_tpu_torch/csrc/ln_mlp_residual_train.cu",
+                              "vit_tpu/ops/pallas/fused_block.py:531"),
+    "ln_mlp_out_residual_bwd_train": ("K12a",
+                                      "vit_tpu_torch/csrc/ln_mlp_out_residual_bwd_train.cu",
+                                      "vit_tpu/ops/pallas/backward.py:502"),
+}
+REG_P = 0.1  # dropout, and the drop-path rate of the kernel cases
+REG_SEED = 0x9E3779B9  # >= 2^31: the full uint32 range reaches the kernels
+REG_FLAGS = ["--dropout", str(REG_P), "--drop-path", str(REG_P)]
+
+# the card's peaks (H100 SXM data sheet): dense tensor-core bf16 and fp32
+# FMA outside the tensor cores, and HBM3 bandwidth
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def synth_params(cfg, seed: int = 0) -> dict:
@@ -138,24 +179,44 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def kernel_cases(dev: torch.device):
-    """-> {kernel: [(tag, dtype, batch, kernel_fn, plain_fn)]} at B/16 shapes."""
-    from vit_tpu_torch.ops.kernels import layer_norm as k3
-    from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
-    from vit_tpu_torch.ops.kernels import out_ln_mlp_residual as k2
+def case(tag, dtype, batch, fn, plain, args, flops, library=None) -> dict:
+    """One kernel-vs-twin case: the kernel and its twin on ``args``, the
+    operations its function needs, and one PyTorch call computing the same
+    function, where there is one."""
+    return dict(tag=tag, dtype=dtype, batch=batch, kernel=lambda: fn(*args),
+                plain=lambda: plain(*args), inputs=[a for a in args if torch.is_tensor(a)],
+                flops=flops, library=library)
 
-    d, h, f, t = B16["d"], B16["heads"], B16["f"], B16["t"]
-    gen = torch.Generator(device=dev).manual_seed(0)
+
+def _tag(dtype, b, rows):
+    return f"{str(dtype).removeprefix('torch.')} batch {b} (rows {rows})"
+
+
+def _rand(dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rn(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
         x = torch.randn(*shape, generator=gen, device=dev) * scale + shift
         return x.to(dtype)
 
+    return rn
+
+
+def kernel_cases(dev: torch.device):
+    """-> {kernel: [case]} for K1-K3 at B/16 shapes."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops.kernels import layer_norm as k3
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
+    from vit_tpu_torch.ops.kernels import out_ln_mlp_residual as k2
+
+    d, h, f, t = B16["d"], B16["heads"], B16["f"], B16["t"]
+    rn = _rand(dev, 0)
     cases = {name: [] for name in KERNELS}
     for dtype in (torch.bfloat16, torch.float32):
         for b in BATCHES:
             rows = b * t
-            tag = f"{str(dtype).removeprefix('torch.')} batch {b} (rows {rows})"
+            tag = _tag(dtype, b, rows)
             x = rn(rows, d, scale=2.0, dtype=dtype)
             s1, b1n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
             wqkv, bqkv = rn(d, 3 * d, scale=d ** -0.5, dtype=dtype), rn(3 * d, scale=0.1, dtype=dtype)
@@ -166,24 +227,38 @@ def kernel_cases(dev: torch.device):
             w2, bb2 = rn(f, d, scale=f ** -0.5, dtype=dtype), rn(d, scale=0.1, dtype=dtype)
             a2 = (ctx, x, wo, bo, s1, b1n, w1, bb1, w2, bb2, 1e-6, "exact")
             a3 = (x.reshape(b, t, d), s1, b1n, 1e-6)
-            cases["ln_qkv_attn"].append(
-                (tag, dtype, b, lambda a=a1: k1.ln_qkv_attn(*a), lambda a=a1: k1.ln_qkv_attn_plain(*a)))
-            cases["out_ln_mlp_residual"].append(
-                (tag, dtype, b, lambda a=a2: k2.out_ln_mlp_residual(*a),
-                 lambda a=a2: k2.out_ln_mlp_residual_plain(*a)))
-            cases["layer_norm"].append(
-                (tag, dtype, b, lambda a=a3: k3.layer_norm(*a), lambda a=a3: k3.layer_norm_plain(*a)))
+            cases["ln_qkv_attn"].append(case(tag, dtype, b, k1.ln_qkv_attn, k1.ln_qkv_attn_plain,
+                                             a1, 2 * rows * d * 3 * d + 4 * b * t * t * d))
+            cases["out_ln_mlp_residual"].append(case(
+                tag, dtype, b, k2.out_ln_mlp_residual, k2.out_ln_mlp_residual_plain, a2,
+                2 * rows * d * d + 4 * rows * d * f))
+            cases["layer_norm"].append(case(
+                tag, dtype, b, k3.layer_norm, k3.layer_norm_plain, a3, 0,
+                library=lambda a=a3: F.layer_norm(a[0], (d,), a[1], a[2], a[3])))
     return cases
 
 
+def bound(flops: float, nbytes: float, dtype) -> tuple:
+    """(ms, 'bytes' or 'operations'): the least time the card could take to
+    move ``nbytes`` once and do ``flops`` at the dtype's peak."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_kernels(cases: dict, labels: dict, summary_batch: int) -> dict:
-    """Phases 3 and 7: kernel vs plain twin on every output, each held to
+    """Phases 3, 7 and 11: kernel vs plain twin on every output, each held to
     TOLERANCE[dtype] x max(1, its own largest |value|).  -> {kernel:
-    summary at bf16 ``summary_batch``}."""
+    summary at bf16 ``summary_batch``}: error, kernel, twin and library
+    times, and the bound from this case's inputs and outputs."""
     summary = {}
     for name, kcases in cases.items():
-        for tag, dtype, b, kernel_fn, plain_fn in kcases:
-            got, want = kernel_fn(), plain_fn()
+        for c in kcases:
+            tag, dtype = c["tag"], c["dtype"]
+            got, want = c["kernel"](), c["plain"]()
             got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
             torch.cuda.synchronize()
             err, worst = 0.0, 0.0  # largest |d|, and largest |d| / tol
@@ -197,34 +272,35 @@ def phase_kernels(cases: dict, labels: dict, summary_batch: int) -> dict:
                     raise RuntimeError(f"{name} {tag}: output {i} max|d|={e:.6g} > tol "
                                        f"{tol:.6g}: kernel disagrees with its plain twin")
                 err, worst = max(err, e), max(worst, e / tol)
-            ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+            ms, plain_ms = cuda_ms(c["kernel"]), cuda_ms(c["plain"])
+            lib_ms = cuda_ms(c["library"]) if c["library"] else None
+            bound_ms, bound_by = bound(c["flops"], _nbytes(c["inputs"]) + _nbytes(got), dtype)
             log(f"{labels[name][0]} {name} {tag}: {len(got)} output(s), max|d|={err:.6g} "
-                f"(at most {worst:.3g} of its tol) kernel {ms:.6g} ms, plain {plain_ms:.6g} ms")
-            if dtype == torch.bfloat16 and b == summary_batch:
-                summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                f"(at most {worst:.3g} of its tol) kernel {ms:.6g} ms, plain {plain_ms:.6g} ms, "
+                f"library {'none' if lib_ms is None else f'{lib_ms:.6g} ms'}, bound "
+                f"{bound_ms:.6g} ms ({bound_by})")
+            if dtype == torch.bfloat16 and c["batch"] == summary_batch:
+                summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            del got, want
     return summary
 
 
 def train_kernel_cases(dev: torch.device):
-    """-> {kernel: [(tag, dtype, batch, kernel_fn, plain_fn)]} for K4-K7 at
-    B/16 training shapes."""
+    """-> {kernel: [case]} for K4-K7 at B/16 training shapes."""
     from vit_tpu_torch.ops.kernels import ln_mlp_out_residual_bwd as k7
     from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
     from vit_tpu_torch.ops.kernels import ln_qkv_attn_bwd as k6
     from vit_tpu_torch.ops.kernels import out_residual as k4
 
     d, h, f, t = B16["d"], B16["heads"], B16["f"], B16["t"]
-    gen = torch.Generator(device=dev).manual_seed(1)
-
-    def rn(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
-        x = torch.randn(*shape, generator=gen, device=dev) * scale + shift
-        return x.to(dtype)
-
+    rn = _rand(dev, 1)
     cases = {name: [] for name in TRAIN_KERNELS}
+    mods = {"out_residual": k4, "ln_mlp_residual": k5, "ln_qkv_attn_bwd": k6,
+            "ln_mlp_out_residual_bwd": k7}
     for dtype in (torch.bfloat16, torch.float32):
         for b in TRAIN_BATCHES:
             rows = b * t
-            tag = f"{str(dtype).removeprefix('torch.')} batch {b} (rows {rows})"
             row = lambda scale=1.0: rn(rows, d, scale=scale, dtype=dtype)  # noqa: E731
             s1, b1n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
             s2, b2n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
@@ -234,25 +310,147 @@ def train_kernel_cases(dev: torch.device):
             w2, bb2 = rn(f, d, scale=f ** -0.5, dtype=dtype), rn(d, scale=0.1, dtype=dtype)
             x, ctx, x1, dy, dctx = row(2.0), row(), row(2.0), row(), row()
             args = {
-                "out_residual": (ctx, x, wo, bo),
-                "ln_mlp_residual": (x1, s2, b2n, w1, bb1, w2, bb2, 1e-6, "exact"),
-                "ln_qkv_attn_bwd": (dctx, dy, x, s1, b1n, wqkv, bqkv, h, t, 1e-6),
-                "ln_mlp_out_residual_bwd": (dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, 1e-6, "exact"),
+                "out_residual": ((ctx, x, wo, bo), 2 * rows * d * d),
+                "ln_mlp_residual": ((x1, s2, b2n, w1, bb1, w2, bb2, 1e-6, "exact"),
+                                    4 * rows * d * f),
+                "ln_qkv_attn_bwd": ((dctx, dy, x, s1, b1n, wqkv, bqkv, h, t, 1e-6),
+                                    6 * rows * d * 3 * d + 10 * b * t * t * d),
+                "ln_mlp_out_residual_bwd": ((dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, 1e-6, "exact"),
+                                            10 * rows * d * f + 4 * rows * d * d),
             }
-            mods = {"out_residual": k4, "ln_mlp_residual": k5, "ln_qkv_attn_bwd": k6,
-                    "ln_mlp_out_residual_bwd": k7}
-            for name, a in args.items():
-                fn, plain = getattr(mods[name], name), getattr(mods[name], f"{name}_plain")
-                cases[name].append(
-                    (tag, dtype, b, lambda fn=fn, a=a: fn(*a), lambda p=plain, a=a: p(*a)))
+            for name, (a, flops) in args.items():
+                cases[name].append(case(_tag(dtype, b, rows), dtype, b, getattr(mods[name], name),
+                                        getattr(mods[name], f"{name}_plain"), a, flops))
     return cases
+
+
+def reg_kernel_cases(dev: torch.device):
+    """-> {kernel: [case]} for K10-K12a at B/16 training shapes, dropout and
+    drop-path REG_P.  A row whose drop-path scale is 0 needs no GEMM work
+    (its branch is dropped), so each bound counts the kept rows only."""
+    from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
+    from vit_tpu_torch.ops.kernels import ln_mlp_out_residual_bwd_train as k12
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_train as k11
+    from vit_tpu_torch.ops.kernels import out_residual_train as k10
+
+    d, f, t = B16["d"], B16["f"], B16["t"]
+    rn = _rand(dev, 2)
+    cases = {name: [] for name in REG_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in TRAIN_BATCHES:
+            rows = b * t
+            tag = _tag(dtype, b, rows)
+            row = lambda scale=1.0: rn(rows, d, scale=scale, dtype=dtype)  # noqa: E731
+            s2, b2n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+            wo, bo = rn(d, d, scale=d ** -0.5, dtype=dtype), rn(d, scale=0.1, dtype=dtype)
+            w1, bb1 = rn(d, f, scale=d ** -0.5, dtype=dtype), rn(f, scale=0.1, dtype=dtype)
+            w2, bb2 = rn(f, d, scale=f ** -0.5, dtype=dtype), rn(d, scale=0.1, dtype=dtype)
+            x, ctx, x1, dy = row(2.0), row(), row(2.0), row()
+            dp_a = drop_path_scale_rows(REG_SEED, 4, b, t, REG_P, device=dev)
+            dp_m = drop_path_scale_rows(REG_SEED, 5, b, t, REG_P, device=dev)
+            kept_a, kept_m = (int((dp != 0).sum()) for dp in (dp_a, dp_m))
+            reg = (REG_SEED, REG_P)
+            cases["out_residual_train"].append(case(
+                tag, dtype, b, k10.out_residual_train, k10.out_residual_train_plain,
+                (ctx, x, wo, bo, dp_a, *reg), 2 * kept_a * d * d))
+            cases["ln_mlp_residual_train"].append(case(
+                tag, dtype, b, k11.ln_mlp_residual_train, k11.ln_mlp_residual_train_plain,
+                (x1, s2, b2n, w1, bb1, w2, bb2, dp_m, *reg, 1e-6, "exact"), 4 * kept_m * d * f))
+            cases["ln_mlp_out_residual_bwd_train"].append(case(
+                tag, dtype, b, k12.ln_mlp_out_residual_bwd_train,
+                k12.ln_mlp_out_residual_bwd_train_plain,
+                (dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, dp_m, dp_a, *reg, 1e-6, "exact"),
+                10 * kept_m * d * f + 4 * kept_a * d * d))
+    return cases
+
+
+def _kept(frac: float, n: int, p: float, site: str) -> str:
+    """Check a kept fraction against 1 - p within 4 sigma of n Bernoulli draws."""
+    sigma = math.sqrt(p * (1 - p) / n)
+    z = (frac - (1 - p)) / sigma
+    if not abs(z) <= 4:
+        raise RuntimeError(f"{site}: kept fraction {frac:.6g} is {z:.3g} sigma from {1 - p}")
+    return f"{site} {frac:.6g} ({z:+.3g} sigma of {n})"
+
+
+def phase_regularizer_checks(dev: torch.device) -> None:
+    """Phase 11's exact checks at B/16 batch 64: K10's zeros are the twin's;
+    at zero rates K10/K11/K12a equal K4/K5/K7 bit for bit; each dropout
+    site's kept fraction, read off a kernel output, is within 4 sigma of
+    1 - p (the drop-path sites from the row scales the kernels read)."""
+    from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
+    from vit_tpu_torch.ops.kernels import ln_mlp_out_residual_bwd as k7
+    from vit_tpu_torch.ops.kernels import ln_mlp_out_residual_bwd_train as k12
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_train as k11
+    from vit_tpu_torch.ops.kernels import out_residual as k4
+    from vit_tpu_torch.ops.kernels import out_residual_train as k10
+
+    d, f, t, b = B16["d"], B16["f"], B16["t"], 64
+    rows, p, reg = b * t, REG_P, (REG_SEED, REG_P)
+    rn = _rand(dev, 3)
+    ones = torch.ones(rows, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        ctx, x1, dy = rn(rows, d, dtype=dtype), rn(rows, d, scale=2.0, dtype=dtype), rn(rows, d, dtype=dtype)
+        wo, bo = rn(d, d, scale=d ** -0.5, dtype=dtype), rn(d, scale=0.1, dtype=dtype)
+        s2, b2n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+        w1, bb1 = rn(d, f, scale=d ** -0.5, dtype=dtype), rn(f, scale=0.1, dtype=dtype)
+        w2, bb2 = rn(f, d, scale=f ** -0.5, dtype=dtype), rn(d, scale=0.1, dtype=dtype)
+        zero = torch.zeros(rows, d, dtype=dtype, device=dev)
+
+        # the attention-out mask: K10 with a zero residual and no drop-path
+        out = k10.out_residual_train(ctx, zero, wo, bo, ones, *reg)
+        want = k10.out_residual_train_plain(ctx, zero, wo, bo, ones, *reg)
+        if not torch.equal(out == 0, want == 0):
+            raise RuntimeError(f"K10 {name}: its zeros differ from the twin's (the mask pattern)")
+        sites = [_kept((out != 0).float().mean().item(), out.numel(), p, "attention-out")]
+
+        # the MLP sites: K11 with x = 0, W1 = 0, b1 = 3 (so gelu(u) is one
+        # constant), W2 = [I; 0], b2 = 0 -> out = round(gelu(3) m_in) m_out
+        # on the first D inner columns; with W2 = 0, b2 = 1 -> out = m_out
+        eye = torch.zeros(f, d, dtype=dtype, device=dev)
+        eye[:d] = torch.eye(d, dtype=dtype, device=dev)
+        zf = torch.zeros(d, f, dtype=dtype, device=dev)
+        threes, zd = torch.full((f,), 3.0, dtype=dtype, device=dev), torch.zeros(d, dtype=dtype, device=dev)
+        m_out = k11.ln_mlp_residual_train(zero, s2, b2n, zf, threes, torch.zeros_like(eye),
+                                          torch.ones_like(zd), ones, *reg, 1e-6) != 0
+        both = k11.ln_mlp_residual_train(zero, s2, b2n, zf, threes, eye, zd, ones, *reg, 1e-6) != 0
+        if (both & ~m_out).any():
+            raise RuntimeError(f"K11 {name}: an output the MLP-out mask drops is not zero")
+        sites.append(_kept(m_out.float().mean().item(), m_out.numel(), p, "mlp-out"))
+        n_out = int(m_out.sum())
+        sites.append(_kept(int(both.sum()) / n_out, n_out, p, "mlp-inner"))
+        for site in (4, 5):
+            dp = drop_path_scale_rows(REG_SEED, site, b, t, p, device=dev)[::t]
+            sites.append(_kept((dp != 0).float().mean().item(), b, p, f"drop-path site {site}"))
+        log(f"K10/K11 {name} batch {b}: K10's zeros equal the twin's; kept fractions: "
+            + ", ".join(sites))
+
+        # zero rates: the gates compile out and dp multiplies by 1
+        same = [
+            torch.equal(k10.out_residual_train(ctx, x1, wo, bo, ones, REG_SEED, 0.0),
+                        k4.out_residual(ctx, x1, wo, bo)),
+            torch.equal(k11.ln_mlp_residual_train(x1, s2, b2n, w1, bb1, w2, bb2, ones, REG_SEED,
+                                                  0.0, 1e-6),
+                        k5.ln_mlp_residual(x1, s2, b2n, w1, bb1, w2, bb2, 1e-6)),
+            all(torch.equal(a, c) for a, c in zip(
+                k12.ln_mlp_out_residual_bwd_train(dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, ones,
+                                                  ones, REG_SEED, 0.0, 1e-6),
+                k7.ln_mlp_out_residual_bwd(dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, 1e-6))),
+        ]
+        log(f"zero rates {name} batch {b}: K10 == K4 {same[0]}, K11 == K5 {same[1]}, "
+            f"K12a == K7 {same[2]} (bit for bit)")
+        if not all(same):
+            raise RuntimeError("a regularized kernel at zero rates differs from its plain kernel")
 
 
 def phase_cli(params, workdir: str) -> dict:
     """Phase 4: the classify CLI on the card, on ``params`` saved as an npz.
     -> launch counts of its run."""
     from vit_tpu_torch.cli.main import main
-    from vit_tpu_torch.io import checkpoint, results
+    from vit_tpu_torch.eval import comparator
+    from vit_tpu_torch.io import checkpoint
 
     weights = f"{workdir}/params.npz"
     checkpoint.save_npz(params, weights)
@@ -275,7 +473,7 @@ def phase_cli(params, workdir: str) -> dict:
     fmt = re.compile(r"^\[\d+\] label: \d+ / prob: \d+\.\d{6}")
     if sum(bool(fmt.match(line)) for line in out) != 100:
         raise RuntimeError("classify CLI did not print 100 result lines")
-    if [r.index for r in results.parse_result_file(result)] != list(range(100)):
+    if [r.index for r in comparator.parse_result_file(result)] != list(range(100)):
         raise RuntimeError("classify CLI's --output is not 100 well-formed lines")
     want = {name: 0 for name in wrappers}
     want.update(ln_qkv_attn=12, out_ln_mlp_residual=12, layer_norm=1)
@@ -362,27 +560,19 @@ def phase_throughput(params, images: np.ndarray, dev: torch.device, card: str) -
 
 def all_wrappers() -> dict:
     """Every kernel wrapper of the port, by name (each carries ``launches``)."""
-    from vit_tpu_torch.ops.kernels import layer_norm as k3
-    from vit_tpu_torch.ops.kernels import ln_mlp_out_residual_bwd as k7
-    from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
-    from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
-    from vit_tpu_torch.ops.kernels import ln_qkv_attn_bwd as k6
-    from vit_tpu_torch.ops.kernels import out_ln_mlp_residual as k2
-    from vit_tpu_torch.ops.kernels import out_residual as k4
+    import importlib
 
-    return {
-        "ln_qkv_attn": k1.ln_qkv_attn, "out_ln_mlp_residual": k2.out_ln_mlp_residual,
-        "layer_norm": k3.layer_norm, "out_residual": k4.out_residual,
-        "ln_mlp_residual": k5.ln_mlp_residual, "ln_qkv_attn_bwd": k6.ln_qkv_attn_bwd,
-        "ln_mlp_out_residual_bwd": k7.ln_mlp_out_residual_bwd,
-    }
+    return {name: getattr(importlib.import_module(f"vit_tpu_torch.ops.kernels.{name}"), name)
+            for name in (*KERNELS, *TRAIN_KERNELS, *REG_KERNELS)}
 
 
-def phase_train_cli(workdir: str) -> dict:
-    """Phase 8: the train CLI on the card.  -> launch counts of its run."""
+def _train_cli(workdir: str, extra) -> tuple:
+    """The train CLI on the card (B/16, 5 steps, batch 64, fused_train, bf16
+    mixed) with ``extra`` flags; every count set to 0 just before and read
+    just after.  -> (launch counts, losses)."""
     from vit_tpu_torch.cli.train import main
 
-    log_path = f"{workdir}/train.jsonl"
+    log_path = f"{workdir}/train{len(extra)}.jsonl"
     wrappers = all_wrappers()
     buf = io.StringIO()
     for fn in wrappers.values():
@@ -391,20 +581,27 @@ def phase_train_cli(workdir: str) -> dict:
         rc = main([
             "--config", "vit_b_16", "--steps", str(TRAIN_STEPS), "--batch", "64",
             "--ops", "fused_train", "--mixed-precision", "--device", "cuda",
-            "--log-jsonl", log_path,
+            "--log-jsonl", log_path, *extra,
         ])
     launches = {name: fn.launches for name, fn in wrappers.items()}
-    log("\n".join("train cli: " + line for line in buf.getvalue().splitlines()))
-    log(f"train cli: rc {rc}, launches {launches}")
+    tag = "train cli" + (" " + " ".join(extra) if extra else "")
+    log("\n".join(f"{tag}: " + line for line in buf.getvalue().splitlines()))
+    log(f"{tag}: rc {rc}, launches {launches}")
     if rc != 0:
-        raise RuntimeError(f"train CLI exited {rc}")
+        raise RuntimeError(f"train CLI {extra} exited {rc}")
     with open(log_path) as fh:
         losses = [json.loads(line)["loss"] for line in fh]
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
-        raise RuntimeError(f"train CLI logged {losses}, expected {TRAIN_STEPS} finite losses")
-    per_step = 12 * TRAIN_STEPS
-    want = {name: per_step for name in ("ln_qkv_attn", *TRAIN_KERNELS)}
-    want.update(out_ln_mlp_residual=0, layer_norm=0)
+        raise RuntimeError(f"train CLI {extra} logged {losses}, expected {TRAIN_STEPS} finite losses")
+    return launches, losses
+
+
+def phase_train_cli(workdir: str, extra=(), kernels=("ln_qkv_attn", *TRAIN_KERNELS)) -> dict:
+    """Phases 8 and 12: 12 launches per step of each of ``kernels``, none of
+    any other.  -> launch counts of the run."""
+    launches, _ = _train_cli(workdir, list(extra))
+    want = {name: 0 for name in launches}
+    want.update({name: 12 * TRAIN_STEPS for name in kernels})
     if launches != want:
         raise RuntimeError(f"expected {want} kernel launches over {TRAIN_STEPS} steps, "
                            f"got {launches}")
@@ -420,16 +617,29 @@ def _paths(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def _grads(cfg, tree, x, y, ops_name: str, compute_dtype, dev):
-    """-> (loss, {leaf path: grad}) of one cross-entropy backward."""
+def _grads(cfg, tree, x, y, ops, compute_dtype, dev, rng_seed=None):
+    """-> (loss, {leaf path: grad}) of one cross-entropy backward; with
+    ``rng_seed``, dropout and drop-path draw from a generator of that seed."""
     from vit_tpu_torch.ops.dispatch import get_ops
     from vit_tpu_torch.runtime import trainer
 
     params = trainer.as_trainable(tree, dev, torch.float32)
-    loss_fn = trainer._make_loss_fn(cfg, get_ops(ops_name), False, compute_dtype)
-    loss = loss_fn(params, x, y)
+    ops = get_ops(ops) if isinstance(ops, str) else ops
+    loss_fn = trainer._make_loss_fn(cfg, ops, False, compute_dtype)
+    rng = None if rng_seed is None else torch.Generator().manual_seed(rng_seed)
+    loss = loss_fn(params, x, y, rng)
     loss.backward()
     return loss.item(), {path: t.grad for path, t in _paths(params)}
+
+
+def _worst_leaf(got: dict, want: dict) -> tuple:
+    """(worst ratio of max|d| to 1e-3 x max(1, max|g|), its leaf)."""
+    worst, worst_leaf = 0.0, None
+    for leaf, g in want.items():
+        r = (got[leaf] - g).abs().max().item() / (1e-3 * max(1.0, g.abs().max().item()))
+        if r > worst:
+            worst, worst_leaf = r, leaf
+    return worst, worst_leaf
 
 
 def phase_train_correctness(dev: torch.device) -> None:
@@ -443,17 +653,12 @@ def phase_train_correctness(dev: torch.device) -> None:
     from vit_tpu_torch.runtime import trainer
 
     cfg = VIT_B_16
-    tree = params_from_numpy(synth_params(cfg, 0))
+    tree = params_from_numpy(synth_params(cfg, 0), "cpu")
     x = torch.from_numpy(synth_images(4, cfg, seed=3)).to(dev)
     y = torch.tensor([3, 141, 592, 653], device=dev)
     lf, gf = _grads(cfg, tree, x, y, "fused_train", None, dev)
     le, ge = _grads(cfg, tree, x, y, "eager", None, dev)
-    worst, worst_leaf = 0.0, None
-    for leaf, g in ge.items():
-        bound = 1e-3 * max(1.0, g.abs().max().item())
-        r = (gf[leaf] - g).abs().max().item() / bound
-        if r > worst:
-            worst, worst_leaf = r, leaf
+    worst, worst_leaf = _worst_leaf(gf, ge)
     log(f"train grads fp32 fused_train vs eager autograd (card, TF32 off), B/16, 4 images: "
         f"loss {lf:.6g} vs {le:.6g}; {len(ge)} leaves, worst {worst_leaf} at {worst:.3g} of "
         f"its bound (bound 1e-3 x max(1, max|g|), the JAX package's oracle bar)")
@@ -504,51 +709,113 @@ def phase_train_correctness(dev: torch.device) -> None:
         raise RuntimeError(f"memorization left {least} (nearly) unchanged: its gradient is lost")
 
 
-def phase_train_throughput(dev: torch.device, card: str) -> dict:
-    """Phase 10: train img/s at B/16 batch 64 bf16 mixed precision,
-    fused_train and eager (no remat), timed in turns; peak memory of each."""
+def phase_reg_correctness(dev: torch.device) -> None:
+    """Phase 13: the regularized fused_train gradients (fp32, every leaf)
+    against autograd through ``train_block_reference_2d`` — the same model
+    with the kernels' block replaced by its plain twin, the same seeds, so
+    the same masks — and the bf16 mixed loss against fp32."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.io.params import params_from_numpy
+    from vit_tpu_torch.ops import trainable
+    from vit_tpu_torch.ops.dispatch import get_ops
+
+    cfg = dataclasses.replace(VIT_B_16, dropout=REG_P, drop_path=REG_P)
+    fused = get_ops("fused_train")
+    twin = dataclasses.replace(fused, name="fused_train_twin",
+                               encoder_block_train=trainable.train_block_reference_2d)
+    tree = params_from_numpy(synth_params(cfg, 0), "cpu")
+    x = torch.from_numpy(synth_images(4, cfg, seed=3)).to(dev)
+    y = torch.tensor([3, 141, 592, 653], device=dev)
+    lf, gf = _grads(cfg, tree, x, y, fused, None, dev, rng_seed=5)
+    lr_, gr = _grads(cfg, tree, x, y, twin, None, dev, rng_seed=5)
+    worst, worst_leaf = _worst_leaf(gf, gr)
+    log(f"regularized train grads fp32 fused_train vs autograd through the block's plain twin "
+        f"(dropout {REG_P}, drop-path {REG_P}, same seeds), B/16, 4 images: loss {lf:.6g} vs "
+        f"{lr_:.6g}; {len(gr)} leaves, worst {worst_leaf} at {worst:.3g} of its bound "
+        f"(1e-3 x max(1, max|g|))")
+    if worst > 1.0 or set(gf) != set(gr) or not np.isfinite(lf):
+        raise RuntimeError("regularized fused_train gradients outside 1e-3 of the twin's autograd")
+    del gf, gr
+    lb, _ = _grads(cfg, tree, x, y, fused, torch.bfloat16, dev, rng_seed=5)
+    log(f"regularized train loss bf16 mixed vs fp32: {lb:.6g} vs {lf:.6g}, |d|={abs(lb - lf):.6g} "
+        f"(tol 2e-2)")
+    if not abs(lb - lf) <= 2e-2:
+        raise RuntimeError("regularized bf16 mixed-precision loss outside 2e-2 of fp32")
+
+
+def _train_rates(dev, card: str, runs: dict, phase: str) -> dict:
+    """Train img/s at B/16 batch 64 bf16 mixed (no remat) of each run
+    ``label: (ops, regularized)``, timed in turns, and the peak device
+    memory of each alone on the card."""
     from vit_tpu_torch.config import VIT_B_16
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops.dispatch import get_ops
     from vit_tpu_torch.runtime import trainer
 
-    cfg, b = VIT_B_16, 64
-    x = torch.from_numpy(synth_images(b, cfg, seed=4)).to(dev)
-    y = torch.arange(b, device=dev) * 7 % cfg.num_classes
+    b = 64
+    x = torch.from_numpy(synth_images(b, VIT_B_16, seed=4)).to(dev)
+    y = torch.arange(b, device=dev) * 7 % VIT_B_16.num_classes
 
-    def make(ops):
+    def make(ops, regularized):
+        cfg = (dataclasses.replace(VIT_B_16, dropout=REG_P, drop_path=REG_P) if regularized
+               else VIT_B_16)
         params = trainer.as_trainable(vit.init_params(torch.Generator().manual_seed(0), cfg), dev)
         opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-4)
         step = trainer.make_train_step(cfg, opt, get_ops(ops), remat=False,
-                                       compute_dtype=torch.bfloat16)
+                                       compute_dtype=torch.bfloat16, use_dropout=regularized,
+                                       rng=torch.Generator().manual_seed(0))
         return lambda: float(step(params, x, y))
 
     peak = {}
-    for ops in ("fused_train", "eager"):  # alone on the card, for its peak
-        run = make(ops)
+    for label, spec in runs.items():  # alone on the card, for its peak
+        run = make(*spec)
         run()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         run()
-        peak[ops] = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak[label] = torch.cuda.max_memory_allocated() / 2 ** 30
         del run
         torch.cuda.empty_cache()
-    steps = {ops: make(ops) for ops in ("fused_train", "eager")}
+    steps = {label: make(*spec) for label, spec in runs.items()}
     for run in steps.values():  # warm up
         run()
         run()
-    times = {ops: [] for ops in steps}
+    times = {label: [] for label in steps}
+    order = list(steps)
     for _ in range(4):
-        for ops in ("fused_train", "eager", "eager", "fused_train"):
+        for label in order + order[::-1]:
             t0 = time.perf_counter()
-            steps[ops]()  # float(loss) waits for the device
-            times[ops].append(time.perf_counter() - t0)
-    rates = {ops: b / statistics.median(t) for ops, t in times.items()}
-    for ops, rate in rates.items():
-        log(f"train throughput {ops} B/16 batch {b} bf16 mixed: {rate:.6g} img/s "
-            f"(median of {len(times[ops])}, step {statistics.median(times[ops]) * 1e3:.6g} ms); "
-            f"peak device memory {peak[ops]:.4g} GiB; {card}")
+            steps[label]()  # float(loss) waits for the device
+            times[label].append(time.perf_counter() - t0)
+    rates = {label: b / statistics.median(t) for label, t in times.items()}
+    for label, rate in rates.items():
+        log(f"{phase} {label} B/16 batch {b} bf16 mixed: {rate:.6g} img/s "
+            f"(median of {len(times[label])}, step {statistics.median(times[label]) * 1e3:.6g} ms); "
+            f"peak device memory {peak[label]:.6g} GiB; {card}")
+    return rates, peak
+
+
+def phase_train_throughput(dev: torch.device, card: str) -> dict:
+    """Phase 10: fused_train and eager, unregularized."""
+    return _train_rates(dev, card, {"fused_train": ("fused_train", False),
+                                    "eager": ("eager", False)}, "train throughput")[0]
+
+
+def phase_reg_throughput(dev: torch.device, card: str) -> dict:
+    """Phase 14: regularized fused_train, unregularized fused_train and
+    regularized eager; the regularized kernels store no mask, so their
+    step's peak memory stays within 1% of the unregularized one's."""
+    rates, peak = _train_rates(dev, card, {
+        "fused_train regularized": ("fused_train", True),
+        "fused_train": ("fused_train", False),
+        "eager regularized": ("eager", True),
+    }, "regularized train throughput")
+    ratio = peak["fused_train regularized"] / peak["fused_train"]
+    log(f"peak memory regularized / unregularized fused_train: {ratio:.6g} (gate <= 1.01)")
+    if not ratio <= 1.01:
+        raise RuntimeError("the regularized step's peak memory exceeds the unregularized one's by > 1%")
     return rates
 
 
@@ -576,7 +843,7 @@ def main() -> None:
     params = synth_params(VIT_B_16, 0)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
-        launches = phase_cli(params, workdir)
+        launches = {"classify": phase_cli(params, workdir)}
 
     images = synth_images(100, VIT_B_16, seed=1)
     phase_correctness(params, images, dev)
@@ -587,18 +854,31 @@ def main() -> None:
     summary.update(phase_kernels(train_kernel_cases(dev), TRAIN_KERNELS, 64))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
-        train_launches = phase_train_cli(workdir)
+        launches["train"] = phase_train_cli(workdir)
     phase_train_correctness(dev)
     torch.cuda.empty_cache()
     phase_train_throughput(dev, card)
+    torch.cuda.empty_cache()
 
-    # launches: the classify CLI's run for K1-K3, the train CLI's for K4-K7;
-    # "paths" has both readings
+    summary.update(phase_kernels(reg_kernel_cases(dev), REG_KERNELS, 64))
+    phase_regularizer_checks(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        launches["train_regularized"] = phase_train_cli(
+            workdir, REG_FLAGS, ("ln_qkv_attn", "ln_qkv_attn_bwd", *REG_KERNELS))
+    phase_reg_correctness(dev)
+    torch.cuda.empty_cache()
+    phase_reg_throughput(dev, card)
+
+    # launches: the classify CLI's run for K1-K3, the train CLI's for K4-K7,
+    # the regularized train CLI's for K10-K12a; "paths" has every reading
+    path_of = {**{k: "classify" for k in KERNELS}, **{k: "train" for k in TRAIN_KERNELS},
+               **{k: "train_regularized" for k in REG_KERNELS}}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": (launches if name in KERNELS else train_launches)[name],
-         "paths": {"classify": launches[name], "train": train_launches[name]}, **summary[name]}
-        for name, (_, src, replaces) in {**KERNELS, **TRAIN_KERNELS}.items()
+         "launches": launches[path_of[name]][name],
+         "paths": {path: counts[name] for path, counts in launches.items()}, **summary[name]}
+        for name, (_, src, replaces) in {**KERNELS, **TRAIN_KERNELS, **REG_KERNELS}.items()
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

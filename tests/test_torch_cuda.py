@@ -24,12 +24,25 @@ import torch
 
 from vit_tpu_torch.config import VIT_B_16
 from vit_tpu_torch.io.images import synth_images
+from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
 from vit_tpu_torch.ops.kernels.layer_norm import layer_norm, layer_norm_plain
 from vit_tpu_torch.ops.kernels.ln_mlp_out_residual_bwd import (
     ln_mlp_out_residual_bwd,
     ln_mlp_out_residual_bwd_plain,
 )
+from vit_tpu_torch.ops.kernels.ln_mlp_out_residual_bwd_train import (
+    ln_mlp_out_residual_bwd_train,
+    ln_mlp_out_residual_bwd_train_plain,
+)
 from vit_tpu_torch.ops.kernels.ln_mlp_residual import ln_mlp_residual, ln_mlp_residual_plain
+from vit_tpu_torch.ops.kernels.ln_mlp_residual_train import (
+    ln_mlp_residual_train,
+    ln_mlp_residual_train_plain,
+)
+from vit_tpu_torch.ops.kernels.out_residual_train import (
+    out_residual_train,
+    out_residual_train_plain,
+)
 from vit_tpu_torch.ops.kernels.ln_qkv_attn import ln_qkv_attn, ln_qkv_attn_plain
 from vit_tpu_torch.ops.kernels.ln_qkv_attn_bwd import ln_qkv_attn_bwd, ln_qkv_attn_bwd_plain
 from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import (
@@ -240,6 +253,70 @@ def test_backward_kernels_are_deterministic(dev):
         first = [t.clone() for t in fn(*args)]
         for a, b in zip(first, fn(*args)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d,f,t", [(10, 64, 256, 5), (591, 768, 3072, 197),
+                                        (1000, 128, 512, 10)])
+def test_regularized_kernels(dev, dtype, rows, d, f, t):
+    # K10, K11, K12a against their twins at p = 0.1, drop-path 0.1, every output
+    dp_a = drop_path_scale_rows(2 ** 31 + 3, 4, rows // t, t, 0.1, device=dev)
+    dp_m = drop_path_scale_rows(2 ** 31 + 3, 5, rows // t, t, 0.1, device=dev)
+    reg = (2 ** 31 + 3, 0.1)
+    k10 = (_rn(dev, 0, rows, d, dtype=dtype), _rn(dev, 1, rows, d, scale=2.0, dtype=dtype),
+           _rn(dev, 2, d, d, scale=d ** -0.5, dtype=dtype), _rn(dev, 3, d, scale=0.1, dtype=dtype),
+           dp_a, *reg)
+    _check(out_residual_train(*k10), out_residual_train_plain(*k10))
+    k11 = (*_mlp_args(dev, dtype, rows, d, f), dp_m, *reg, 1e-6)
+    _check(ln_mlp_residual_train(*k11), ln_mlp_residual_train_plain(*k11))
+    k12 = (*_k7_args(dev, dtype, rows, d, f, "exact")[:9], dp_m, dp_a, *reg, 1e-6)
+    _check_all(ln_mlp_out_residual_bwd_train(*k12), ln_mlp_out_residual_bwd_train_plain(*k12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_regularized_kernels_at_zero_rates_are_the_plain_kernels(dev, dtype):
+    # bit for bit: the gates compile out at p = 0 and dp multiplies by 1
+    rows, d, f = 591, 768, 3072
+    ones = torch.ones(rows, device=dev)
+    k4 = (_rn(dev, 0, rows, d, dtype=dtype), _rn(dev, 1, rows, d, scale=2.0, dtype=dtype),
+          _rn(dev, 2, d, d, scale=d ** -0.5, dtype=dtype), _rn(dev, 3, d, scale=0.1, dtype=dtype))
+    assert torch.equal(out_residual_train(*k4, ones, 7, 0.0), out_residual(*k4))
+    k5 = _mlp_args(dev, dtype, rows, d, f)
+    assert torch.equal(ln_mlp_residual_train(*k5, ones, 7, 0.0, 1e-6), ln_mlp_residual(*k5, 1e-6))
+    k7 = _k7_args(dev, dtype, rows, d, f, "exact")
+    for a, b in zip(ln_mlp_out_residual_bwd_train(*k7[:9], ones, ones, 7, 0.0, 1e-6),
+                    ln_mlp_out_residual_bwd(*k7)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_regularized_block_grads_match_the_reference(dev):
+    from vit_tpu_torch.ops import trainable as TT
+
+    b, t, d, f, h = 2, 197, 256, 1024, 4
+    x = _rn(dev, 30, b * t, d)
+    k7 = _k7_args(dev, torch.float32, 1, d, f, "exact")
+    k6 = _k6_args(dev, torch.float32, 1, 1, d, h)
+    blk = {"ln1_scale": k6[3], "ln1_bias": k6[4], "wqkv": k6[5], "bqkv": k6[6], "wo": k7[8],
+           "bo": _rn(dev, 31, d, scale=0.1), "ln2_scale": k7[3], "ln2_bias": k7[4],
+           "w1": k7[5], "b1": k7[6], "w2": k7[7], "b2": _rn(dev, 32, d, scale=0.1)}
+    weight = _rn(dev, 33, b * t, d)
+    args = (h, t, 1e-6, "exact", 2 ** 31 + 9, 0.2, 0.3)
+
+    def grads(fn):
+        xs = x.clone().requires_grad_(True)
+        bs = {k: v.clone().requires_grad_(True) for k, v in blk.items()}
+        (fn(xs, bs, *args) * weight).sum().backward()
+        return [xs.grad] + [bs[k].grad for k in TT.BLOCK_KEYS]
+
+    before = ln_mlp_out_residual_bwd_train.launches
+    got = grads(TT.encoder_block_train)
+    assert ln_mlp_out_residual_bwd_train.launches == before + 1
+    for i, (g, w) in enumerate(zip(got, grads(TT.train_block_reference_2d))):
+        err, bound = (g - w).abs().max().item(), 1e-3 * max(1.0, w.abs().max().item())
+        assert err <= bound, f"grad {i}: max|d| {err} > {bound}"
 
 
 @pytest.mark.cuda

@@ -51,7 +51,7 @@ def _probs(logits):
 
 
 def test_fused_forward_fp32_matches_jax(tiny_cfg, tree, images, jax_fused_fp32):
-    got = tvit.forward(params_from_numpy(tree), torch.from_numpy(images), tiny_cfg,
+    got = tvit.forward(params_from_numpy(tree, "cpu"), torch.from_numpy(images), tiny_cfg,
                        get_ops("fused"))
     np.testing.assert_allclose(got.numpy(), jax_fused_fp32, atol=1e-5, rtol=0)
 
@@ -62,7 +62,7 @@ def test_fused_forward_bf16_decisive_labels_match_jax(tiny_cfg, tree, images, ja
     jparams = jvit.cast_params(jax.tree.map(jnp.asarray, tree), jnp.bfloat16)
     want = np.asarray(jvit.forward(jparams, jnp.asarray(images).astype(jnp.bfloat16), tiny_cfg,
                                    jget_ops("fused"), gelu_variant=variant))
-    got = tvit.forward(params_from_numpy(tree, dtype=torch.bfloat16),
+    got = tvit.forward(params_from_numpy(tree, "cpu", torch.bfloat16),
                        torch.from_numpy(images), tiny_cfg, get_ops("fused"),
                        gelu_variant=variant).numpy()
     assert np.isfinite(got).all() and got.shape == want.shape

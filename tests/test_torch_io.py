@@ -19,6 +19,7 @@ from vit_tpu.io import checkpoint as jckpt
 from vit_tpu.io import images as jimages
 from vit_tpu.io import labels as jlabels
 from vit_tpu_torch import config as tconfig
+from vit_tpu_torch.eval import comparator as tcomp
 from vit_tpu_torch.io import checkpoint as tckpt
 from vit_tpu_torch.io import images as timages
 from vit_tpu_torch.io import results
@@ -102,7 +103,7 @@ def test_result_lines_match_comparator(tmp_path):
     results.write_result_file(labels, probs, mine)
     comparator.write_result_file(labels, probs, theirs)
     assert mine.read_text() == theirs.read_text()
-    assert ([tuple(r) for r in results.parse_result_file(mine)]
+    assert ([tuple(r) for r in tcomp.parse_result_file(mine)]
             == [(r.index, r.label, r.prob) for r in comparator.parse_result_file(mine)])
 
 
@@ -126,24 +127,159 @@ def test_labels_match_jax(tmp_path, monkeypatch, source):
             results.load_labels(str(path), 10)
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tests/test_torch_cuda.py"])
-def test_card_scripts_import_nothing_of_the_jax_package(script):
-    """What runs on the card names no module of JAX or of the JAX package,
-    at the top or inside a function."""
+def _imported_modules(path):
+    """Every module an ``import`` of the file names, at the top or inside
+    a function."""
     modules = []
-    for node in ast.walk(ast.parse((REPO / script).read_text())):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             modules += [alias.name for alias in node.names]
         elif isinstance(node, ast.ImportFrom):
             modules.append(node.module or "")
-    assert not [m for m in modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib")]
+    return modules
+
+
+def _jax_side(modules):
+    return [m for m in modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib")]
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tests/test_torch_cuda.py"])
+def test_card_scripts_import_nothing_of_the_jax_package(script):
+    """What runs on the card names no module of JAX or of the JAX package,
+    at the top or inside a function."""
+    modules = _imported_modules(REPO / script)
+    assert not _jax_side(modules)
     assert any(m.startswith("vit_tpu_torch") for m in modules)
 
 
-def test_main_paths_load_nothing_of_the_jax_package(tmp_path):
-    """chip_smoke, then the train CLI (fused_train, --save) and the classify
-    CLI on its npz (fused, --output) on the CPU: no vit_tpu or jax module
-    gets loaded."""
+PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / "vit_tpu_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_module_imports_nothing_of_the_jax_package(path):
+    assert not _jax_side(_imported_modules(REPO / path))
+
+
+# -- the classify CLI's readers against the JAX package's --------------------
+
+
+def _ref_dir(tmp_path, cfg, seed=1, drop=()):
+    from vit_tpu.io import weights as jweights
+
+    d = tmp_path / "Network"
+    tensors = jweights.synth_reference_tensors(cfg, seed=seed)
+    for idx in drop:
+        del tensors[idx]
+    jweights.save_reference_weights(tensors, d, cfg)
+    return d
+
+
+@pytest.mark.parametrize("round6,drop", [(True, ()), (False, ()), (True, (1, 6, 17))],
+                         ids=["round6", "raw", "synth_fill"])
+def test_weight_dir_reads_like_jax(tmp_path, tiny_cfg, round6, drop):
+    from vit_tpu.io import weights as jweights
+    from vit_tpu_torch.io import weights as tweights
+
+    d = _ref_dir(tmp_path, tiny_cfg, drop=drop)
+    kw = dict(round_to_6dp=round6, allow_synth=bool(drop))
+    _assert_same_tree(tweights.load_reference_weights(d, tiny_cfg, **kw),
+                      jweights.load_reference_weights(d, tiny_cfg, **kw))
+    got, want = tweights.synth_reference_tensors(tiny_cfg, 3), jweights.synth_reference_tensors(tiny_cfg, 3)
+    assert got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
+    x = np.random.default_rng(0).normal(size=1000).astype(np.float32) * 3
+    np.testing.assert_array_equal(tweights.round6(x), jweights.round6(x))
+    if drop:
+        with pytest.raises(FileNotFoundError, match="missing Weight_1_"):
+            tweights.load_reference_weights(d, tiny_cfg)
+
+
+def test_pth_and_every_route_load_like_jax(tmp_path, tiny_cfg):
+    import torch
+
+    from vit_tpu.io import weights as jweights
+    from vit_tpu.io.load_any import load_params_any as jload
+    from vit_tpu.io.torch_convert import save_pth
+    from vit_tpu_torch.io.load_any import load_params_any as tload
+
+    params = jweights.params_from_tensors(jweights.synth_reference_tensors(tiny_cfg, seed=2), tiny_cfg)
+    save_pth(params, tmp_path / "model.pth", tiny_cfg)
+    jckpt.save_npz(params, tmp_path / "p.npz")
+    d = _ref_dir(tmp_path, tiny_cfg, drop=(5,))
+    for source, kw in ((tmp_path / "model.pth", {}), (tmp_path / "p.npz", {}),
+                       (d, dict(allow_synth=True)), (d, dict(allow_synth=True, round_to_6dp=False))):
+        _assert_same_tree(tload(source, tiny_cfg, **kw), jload(source, tiny_cfg, **kw))
+    sd = torch.load(tmp_path / "model.pth", weights_only=True)
+    del sd["encoder.ln.weight"]
+    torch.save(sd, tmp_path / "bad.pth")
+    with pytest.raises(KeyError, match="encoder.ln.weight"):
+        tload(tmp_path / "bad.pth", tiny_cfg)
+    (tmp_path / "orbax").mkdir()
+    with pytest.raises(ValueError, match="Orbax"):
+        tload(tmp_path / "orbax", tiny_cfg)
+    with pytest.raises(ValueError, match="unrecognized weight source"):
+        tload(tmp_path / "weights.txt", tiny_cfg)
+    with pytest.raises(ValueError, match="head geometry"):
+        tload(tmp_path / "model.pth", dataclasses.replace(tiny_cfg, native_checkpoints=False))
+
+
+def _pngs(tmp_path):
+    from PIL import Image
+
+    rng = np.random.default_rng(4)
+    paths = []
+    for name, (w, h) in (("a_wide.png", (53, 37)), ("b_tall.png", (30, 61))):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(tmp_path / name)
+        paths.append(tmp_path / name)
+    return paths
+
+
+def test_preprocess_matches_jax(tmp_path, tiny_cfg):
+    from vit_tpu.io import preprocess as jpre
+    from vit_tpu_torch.io import preprocess as tpre
+
+    paths = _pngs(tmp_path)
+    (tmp_path / "notes.txt").write_text("not an image")
+    got, got_names = tpre.load_and_preprocess([str(tmp_path)], tiny_cfg)
+    want, want_names = jpre.load_and_preprocess([str(tmp_path)], tiny_cfg)
+    assert got.shape == (2, 3, 32, 32) and got_names == want_names == [str(p) for p in paths]
+    np.testing.assert_array_equal(got, want)
+    arr = np.random.default_rng(5).integers(0, 256, (40, 45, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(tpre.preprocess_image(arr, 24, 30), jpre.preprocess_image(arr, 24, 30))
+    with pytest.raises(FileNotFoundError):
+        tpre.collect_image_paths([str(tmp_path / "absent.png")])
+
+
+def test_comparator_matches_jax(tmp_path):
+    golden = tmp_path / "golden.txt"
+    comparator.write_result_file([3, 7, 9, 1, 4], [0.5, 0.25, 0.9, 0.3, 0.6], golden)
+    got = tmp_path / "got.txt"
+    got.write_text("[0] label: 3 / prob: 0.505000\n[1] label: 8 / prob: 0.250000\n"
+                   "[2] label: 9 / prob: 0.950000\n\n[3] label: 1 / prob: nan\n")
+    for count in (None, 1, 3, 6):
+        want = [(m.index, m.kind, m.got and tuple(dataclasses.astuple(m.got)),
+                 m.want and tuple(dataclasses.astuple(m.want)))
+                for m in comparator.compare_files(got, golden, count=count)]
+        mine = [(m.index, m.kind, m.got and tuple(m.got), m.want and tuple(m.want))
+                for m in tcomp.compare_files(got, golden, count=count)]
+        assert mine == want
+        assert ([str(m) for m in tcomp.compare_results(tcomp.parse_result_file(got),
+                                                       tcomp.parse_result_file(golden), count)]
+                == [str(m) for m in comparator.compare_results(comparator.parse_result_file(got),
+                                                               comparator.parse_result_file(golden), count)])
+
+
+def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
+    """chip_smoke, then on the CPU: the train CLI (fused_train, --save; and
+    regularized, eager and fused_train), and the classify CLI on its npz, on
+    a Weight_*.bin directory, on a .pth, on --images and with --golden: no
+    vit_tpu or jax module gets loaded."""
+    from vit_tpu.io import weights as jweights
+    from vit_tpu.io.torch_convert import save_pth
+
+    _ref_dir(tmp_path, tiny_cfg, drop=(4, 9))
+    save_pth(jweights.params_from_tensors(jweights.synth_reference_tensors(tiny_cfg, 1), tiny_cfg),
+             tmp_path / "model.pth", tiny_cfg)
+    _pngs(tmp_path)
     code = f"""
 import sys
 sys.path.insert(0, {str(REPO)!r})
@@ -154,11 +290,24 @@ cfg = config.ViTConfig(image_size=32, patch_size=16, embed_dim=64, depth=2, num_
                        num_classes=11, name="vit_tiny_test")
 config.CONFIGS[cfg.name] = cfg
 d = {str(tmp_path)!r}
-assert train.main(["--config", cfg.name, "--steps", "1", "--batch", "2", "--ops", "fused_train",
-                   "--device", "cpu", "--save", d + "/p.npz"]) == 0
-assert classify.main(["--config", cfg.name, "--weights", d + "/p.npz", "--synth", "2",
-                      "--ops", "fused", "--device", "cpu", "--output", d + "/r.txt"]) == 0
+run = ["--config", cfg.name, "--device", "cpu"]
+assert train.main([*run, "--steps", "1", "--batch", "2", "--ops", "fused_train",
+                   "--save", d + "/p.npz"]) == 0
+for ops in ("eager", "fused_train"):
+    assert train.main([*run, "--steps", "1", "--batch", "2", "--ops", ops,
+                       "--dropout", "0.1", "--drop-path", "0.1"]) == 0
+assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2", "--ops", "fused",
+                      "--output", d + "/r.txt"]) == 0
+assert classify.main([*run, "--weights", d + "/Network", "--allow-synth-weights",
+                      "--synth", "2", "--ops", "fused"]) == 0
+assert classify.main([*run, "--weights", d + "/model.pth", "--images", d + "/a_wide.png",
+                      d + "/b_tall.png", "--output", d + "/img.txt"]) == 0
+assert classify.main([*run, "--weights", d + "/model.pth", "--images", d,
+                      "--golden", d + "/img.txt"]) == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib"))
 assert not loaded, loaded
 """
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=300, cwd=tmp_path)
+    out = subprocess.run([sys.executable, "-c", code], timeout=300, cwd=tmp_path,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "comparator: 0 error(s) over 2 line(s)" in out.stdout

@@ -110,7 +110,7 @@ def test_softmax():
 def test_params_round_trip_bit_exact(tiny_cfg, dtype):
     tree = wio.params_from_tensors(wio.synth_reference_tensors(tiny_cfg, seed=3), tiny_cfg)
     if dtype == torch.bfloat16:  # values a bf16 tensor can hold exactly
-        tree = params_to_numpy(params_from_numpy(tree, dtype=dtype))
+        tree = params_to_numpy(params_from_numpy(tree, "cpu", dtype))
     back = params_to_numpy(params_from_numpy(tree, "cpu", dtype))
     flat_a, flat_b = jax.tree.leaves(tree), jax.tree.leaves(back)
     assert jax.tree.structure(tree) == jax.tree.structure(back)
@@ -156,7 +156,7 @@ def _eager_vs_jax(cfg, seed):
         }
     imgs = synth_images(3, cfg, seed=seed)
     want = jvit.forward(jax.tree.map(jnp.asarray, tree), jnp.asarray(imgs), cfg)
-    got = tvit.forward(params_from_numpy(tree), torch.from_numpy(imgs), cfg)
+    got = tvit.forward(params_from_numpy(tree, "cpu"), torch.from_numpy(imgs), cfg)
     return got, want, tree, imgs
 
 
@@ -180,7 +180,7 @@ def test_features_and_vit_module(tiny_cfg):
     from vit_tpu_torch.models import vit as tvit
 
     _, _, tree, imgs = _eager_vs_jax(tiny_cfg, 7)
-    model = tvit.ViT(tiny_cfg, params_from_numpy(tree))
+    model = tvit.ViT(tiny_cfg, params_from_numpy(tree, "cpu"))
     assert "blocks.wqkv" in model.params.state_dict()
     jtree = jax.tree.map(jnp.asarray, tree)
     _close(model(torch.from_numpy(imgs)), jvit.forward(jtree, jnp.asarray(imgs), tiny_cfg))
@@ -196,6 +196,6 @@ def test_eager_forward_float64_tracks_fp32(tiny_cfg):
 
     got32, _, tree, imgs = _eager_vs_jax(tiny_cfg, 8)
     got64 = tvit.forward(
-        params_from_numpy(tree, dtype=torch.float64), torch.from_numpy(imgs), tiny_cfg
+        params_from_numpy(tree, "cpu", torch.float64), torch.from_numpy(imgs), tiny_cfg
     )
     _close(got64, got32.numpy())

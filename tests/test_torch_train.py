@@ -165,7 +165,7 @@ def _jax_step(cfg, jparams, batch, opt, ops, compute_dtype=None, grad_accum=1):
 
 
 def _port_step(cfg, jparams, batch, make_opt, ops, compute_dtype=None, grad_accum=1, remat=False):
-    params = ttrainer.as_trainable(params_from_numpy(jparams))
+    params = ttrainer.as_trainable(params_from_numpy(jparams, "cpu"), "cpu")
     opt = make_opt(list(ttrainer.leaves(params)))
     step = ttrainer.make_train_step(cfg, opt, get_ops(ops), remat=remat,
                                     compute_dtype=compute_dtype, grad_accum=grad_accum)
@@ -265,10 +265,23 @@ def test_init_params_shapes_and_scales_match_jax(tiny_cfg):
 def test_init_train_state(tiny_cfg):
     params, opt = ttrainer.init_train_state(
         torch.Generator().manual_seed(0), tiny_cfg, lambda p: torch.optim.SGD(
-            list(ttrainer.leaves(p)), lr=0.1))
+            list(ttrainer.leaves(p)), lr=0.1), device="cpu")
     leaves = list(ttrainer.leaves(params))
     assert all(t.requires_grad and t.is_leaf and t.dtype == torch.float32 for t in leaves)
+    assert all(t.device.type == "cpu" for t in leaves)
     assert [id(t) for t in opt.param_groups[0]["params"]] == [id(t) for t in leaves]
+
+
+def test_helpers_default_to_the_card(tiny_cfg, monkeypatch):
+    # the card unless the caller asks for the CPU; without one they raise
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.zeros(3, np.float32)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrainer.as_trainable({"w": torch.zeros(3)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrainer.init_train_state(torch.Generator(), tiny_cfg, lambda p: None)
 
 
 # -- optimizer pieces against optax on fixed numpy gradients ------------------
@@ -304,7 +317,7 @@ def test_adamw_matches_optax(exempt, clip):
     jp, state = jax.tree.map(jnp.asarray, params), None
     state = opt.init(jp)
 
-    tp = ttrainer.as_trainable(params_from_numpy(params))
+    tp = ttrainer.as_trainable(params_from_numpy(params, "cpu"), "cpu")
     lr_at = train_setup.warmup_cosine(lr, steps)
     topt = torch.optim.AdamW(train_setup.adamw_param_groups(tp, wd, exempt), lr=lr_at(0))
     for s in range(steps):
@@ -325,7 +338,7 @@ def test_decay_mask_matches_jax(tiny_cfg, jparams):
     from vit_tpu.cli.train_setup import decay_mask as jmask
 
     assert train_setup.decay_mask(jparams) == jmask(jparams)
-    groups = train_setup.adamw_param_groups(ttrainer.as_trainable(params_from_numpy(jparams)),
+    groups = train_setup.adamw_param_groups(ttrainer.as_trainable(params_from_numpy(jparams, "cpu"), "cpu"),
                                             0.05, True)
     assert [g["weight_decay"] for g in groups] == [0.05, 0.0]
     n_decay = sum(v for v in jax.tree.leaves(jmask(jparams)))
@@ -451,15 +464,17 @@ def test_train_cli_has_no_flags_of_later_slices():
     from vit_tpu_torch.cli.train_args import build_parser
 
     flags = {o for a in build_parser()._actions for o in a.option_strings}
-    for later in ("--tp", "--dp", "--dropout", "--drop-path", "--augment", "--resume",
-                  "--optimizer", "--tome", "--ema-decay", "--save-state"):
+    for later in ("--tp", "--dp", "--augment", "--resume", "--optimizer", "--tome",
+                  "--ema-decay", "--save-state"):
         assert later not in flags
+    assert {"--dropout", "--drop-path"} <= flags  # the regularized slice's
 
 
 def test_forward_dropout_rng_raises(tiny_cfg, jparams, batch):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tvit.forward(params_from_numpy(jparams), torch.from_numpy(batch[0]), tiny_cfg,
-                     get_ops("fused_train"), dropout_rng=torch.Generator())
+    # the inference table has no regularized kernels; fused_train and eager do
+    with pytest.raises(ValueError, match="no kernel hooks"):
+        tvit.forward(params_from_numpy(jparams, "cpu"), torch.from_numpy(batch[0]), tiny_cfg,
+                     get_ops("fused"), dropout_rng=torch.Generator())
 
 
 def test_long_sequence_block_raises():
@@ -472,7 +487,9 @@ def test_long_sequence_block_raises():
 def test_fused_train_table():
     ops = get_ops("fused_train")
     assert ops.name == "fused_train" and ops.encoder_block is TT.encoder_block_trainable
-    assert not hasattr(ops, "encoder_block_train")  # lands with the regularized slice
+    assert ops.encoder_block_train is TT.encoder_block_train
+    assert get_ops("fused").encoder_block_train is None
+    assert get_ops("eager").encoder_block_train is None
     from vit_tpu_torch.ops import reference
 
     assert ops.layer_norm is reference.layer_norm and ops.patch_embed is reference.patch_embed
@@ -486,13 +503,17 @@ def test_profile_train_flop_counts():
     from vit_tpu_torch.config import VIT_B_16
 
     rows, t = 64 * 197, 197  # B/16 batch 64
-    assert layer_flop(VIT_B_16, 64) == {
+    want = {
         "ln_qkv_attn": 2 * rows * 768 * 2304 + 4 * 64 * t ** 2 * 768,
         "out_residual": 2 * rows * 768 * 768,
         "ln_mlp_residual": 4 * rows * 768 * 3072,
         "ln_mlp_out_residual_bwd": 10 * rows * 768 * 3072 + 4 * rows * 768 * 768,
         "ln_qkv_attn_bwd": 6 * rows * 768 * 2304 + 10 * 64 * t ** 2 * 768,
     }
+    want.update(out_residual_train=want["out_residual"],
+                ln_mlp_residual_train=want["ln_mlp_residual"],
+                ln_mlp_out_residual_bwd_train=want["ln_mlp_out_residual_bwd"])
+    assert layer_flop(VIT_B_16, 64) == want
 
 
 def test_profile_train_needs_a_card(monkeypatch):

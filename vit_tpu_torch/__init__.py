@@ -10,14 +10,15 @@ counterpart's path and names so a reader finds each twin:
   - ``vit_tpu_torch.ops.fused_block`` <- ``vit_tpu.ops.pallas.fused_block``
   - ``vit_tpu_torch.ops.kernels``    hand-written CUDA kernels (sources in
     ``csrc/``), each beside its plain PyTorch twin
-  - ``vit_tpu_torch.models.vit``     <- ``vit_tpu.models.vit`` (inference)
-  - ``vit_tpu_torch.runtime.engine`` <- ``vit_tpu.runtime.engine``
-  - ``vit_tpu_torch.cli.main``       <- ``vit_tpu.cli.main``
-  - ``vit_tpu_torch.config``, ``io`` <- ``vit_tpu.config``, ``vit_tpu.io``
-    (the routes the port's entry points take by default)
+  - ``vit_tpu_torch.ops.trainable``, ``ops.backward`` <- their namesakes
+    under ``vit_tpu.ops.pallas`` (the ``fused_train`` block, plain and
+    regularized)
+  - ``vit_tpu_torch.models.vit``     <- ``vit_tpu.models.vit``
+  - ``vit_tpu_torch.runtime``        <- ``vit_tpu.runtime`` (engine, trainer)
+  - ``vit_tpu_torch.cli``            <- ``vit_tpu.cli`` (classify, train)
+  - ``vit_tpu_torch.config``, ``io``, ``eval`` <- ``vit_tpu.config``,
+    ``vit_tpu.io``, ``vit_tpu.eval.comparator``
 
-The package imports ``torch`` and never ``jax``.  Its classify and train
-paths load nothing of ``vit_tpu``; only the classify CLI's reference-format
-weight directories, raw ``--images`` and ``--golden`` read through the JAX
-package's numpy-only ``io`` and ``eval.comparator`` modules.
+The package imports ``torch`` and never ``jax`` nor anything of
+``vit_tpu``: it keeps its own copies of the JAX-free modules it needs.
 """

@@ -3,10 +3,10 @@
 Loads an image batch and weights, runs the model, and writes one
 ``[%d] label: %d / prob: %.6f`` line per image (the reference result
 format); ``--golden`` gates the results against a golden file and the
-exit code is the comparator's.  Weight directories in the reference's
-Weight_*.bin format, raw ``--images`` and ``--golden`` read through the
-JAX package's numpy-only ``vit_tpu.io`` / ``vit_tpu.eval`` modules; the
-``.npz``, ``--input`` and ``--synth`` routes load nothing of it.
+exit code is the comparator's.  Weights come from a reference-format
+Weight_*.bin directory, a ``.npz`` or a torchvision ``.pth``
+(``io/load_any.py``); images from ``--input``, ``--synth`` or raw files
+(``--images``, ``io/preprocess.py``).
 
 Usage::
 
@@ -24,7 +24,6 @@ import argparse
 import json
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 
@@ -79,38 +78,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_params(source, cfg, round_to_6dp: bool, allow_synth: bool):
-    """``vit_tpu.io.load_any.load_params_any`` without the routes that need
-    JAX: an Orbax directory is refused, and ``.npz`` is read directly."""
-    p = Path(source)
-    if p.is_dir() and not any(p.glob("Weight_*.bin")):
-        raise ValueError(
-            f"{source}: a directory with no Weight_*.bin is an Orbax checkpoint, "
-            "which restores through JAX; convert it first (vit-tpu-convert) "
-            "to .npz or Weight_*.bin"
-        )
-    if p.suffix.lower() == ".npz":
-        from vit_tpu_torch.io import checkpoint as ckpt
-
-        tree = ckpt.load_params_from_state(p) if ckpt.is_train_state(p) else ckpt.load_npz(p)
-        if "decoder" in tree and "head" not in tree:
-            raise ValueError(
-                f"{source} is an MAE pretraining checkpoint (no classifier head)"
-            )
-        return tree
-    from vit_tpu.io.load_any import load_params_any
-
-    return load_params_any(
-        source, cfg, round_to_6dp=round_to_6dp, allow_synth=allow_synth
-    )
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from vit_tpu_torch.config import resolve_config
     from vit_tpu_torch.io import images as iio
     from vit_tpu_torch.io import results
+    from vit_tpu_torch.io.load_any import load_params_any
     from vit_tpu_torch.runtime.engine import InferenceEngine
 
     cfg = resolve_config(args.config, args.num_classes)
@@ -123,13 +97,13 @@ def main(argv=None) -> int:
     if args.input:
         images = iio.load_image_bin(args.input)
     elif args.images:
-        from vit_tpu.io.preprocess import load_and_preprocess
+        from vit_tpu_torch.io.preprocess import load_and_preprocess
 
         images, source_names = load_and_preprocess(args.images, cfg)
     else:
         images = iio.synth_images(args.synth, cfg, seed=0)
     try:
-        params = load_params(
+        params = load_params_any(
             args.weights, cfg, round_to_6dp=not args.no_round6,
             allow_synth=args.allow_synth_weights,
         )
@@ -168,7 +142,7 @@ def main(argv=None) -> int:
 
     n_errors = 0
     if args.golden:
-        from vit_tpu.eval import comparator
+        from vit_tpu_torch.eval import comparator
 
         got = [
             comparator.ResultLine(i, int(l), float(p))

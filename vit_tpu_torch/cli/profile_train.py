@@ -2,10 +2,11 @@
 every kernel wrapper (ms per step and per call, achieved TFLOP/s), the
 step's wall time, and a ``torch.profiler`` pass for device time and the
 top device kernels.  Random weights and images from ``--seed``; AdamW,
-mixed precision unless ``--fp32``, no remat.
+mixed precision unless ``--fp32``, no remat; ``--dropout``/``--drop-path``
+profile the regularized step.
 
     python3 -m vit_tpu_torch.cli.profile_train [--config vit_b_16] [--batch 64] \\
-        [--ops fused_train eager] [--steps 3]
+        [--ops fused_train eager] [--steps 3] [--dropout 0.1 --drop-path 0.1]
 
 Needs a card.  The timing wrappers replace the kernel wrappers for the
 life of the process.
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import statistics
 import sys
 import time
@@ -22,7 +24,8 @@ import time
 import torch
 
 _KERNELS = ("ln_qkv_attn", "out_residual", "ln_mlp_residual", "ln_qkv_attn_bwd",
-            "ln_mlp_out_residual_bwd")
+            "ln_mlp_out_residual_bwd", "out_residual_train", "ln_mlp_residual_train",
+            "ln_mlp_out_residual_bwd_train")
 
 
 def layer_flop(cfg, batch: int) -> dict:
@@ -31,13 +34,18 @@ def layer_flop(cfg, batch: int) -> dict:
     t, d, f = cfg.seq_len, cfg.embed_dim, cfg.mlp_dim
     rows = batch * t
     attn = batch * t * t * d
-    return {
+    flop = {
         "ln_qkv_attn": 2 * rows * d * 3 * d + 4 * attn,
         "out_residual": 2 * rows * d * d,
         "ln_mlp_residual": 4 * rows * d * f,
         "ln_mlp_out_residual_bwd": 10 * rows * d * f + 4 * rows * d * d,
         "ln_qkv_attn_bwd": 6 * rows * d * 3 * d + 10 * attn,
     }
+    # the regularized kernels run their unregularized twins' GEMMs in full
+    flop.update(out_residual_train=flop["out_residual"],
+                ln_mlp_residual_train=flop["ln_mlp_residual"],
+                ln_mlp_out_residual_bwd_train=flop["ln_mlp_out_residual_bwd"])
+    return flop
 
 
 def _time_wrappers(events: dict) -> None:
@@ -76,6 +84,8 @@ def main(argv=None) -> int:
                    choices=["fused_train", "eager"])
     p.add_argument("--fp32", action="store_true", help="fp32 compute instead of bf16 mixed")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dropout", type=float, default=0.0)
+    p.add_argument("--drop-path", type=float, default=0.0)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a card: torch.cuda.is_available() is False")
@@ -83,12 +93,15 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cfg, b = resolve_config(args.config), args.batch
+    regularized = bool(args.dropout or args.drop_path)
+    cfg = dataclasses.replace(cfg, dropout=args.dropout, drop_path=args.drop_path)
     x = torch.from_numpy(synth_images(b, cfg, seed=args.seed)).to(dev)
     y = torch.arange(b, device=dev) * 7 % cfg.num_classes
     events = collections.defaultdict(list)
     _time_wrappers(events)
     flop = layer_flop(cfg, b)
-    print(f"{cfg.name} batch {b} {'fp32' if args.fp32 else 'bf16 mixed'}; "
+    print(f"{cfg.name} batch {b} {'fp32' if args.fp32 else 'bf16 mixed'}"
+          f"{f'; dropout {args.dropout}, drop-path {args.drop_path}' if regularized else ''}; "
           f"{torch.cuda.get_device_name(0)}")
 
     for ops in args.ops:
@@ -96,7 +109,9 @@ def main(argv=None) -> int:
             vit.init_params(torch.Generator().manual_seed(args.seed), cfg), dev)
         opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-4)
         step = trainer.make_train_step(cfg, opt, get_ops(ops), remat=False,
-                                       compute_dtype=None if args.fp32 else torch.bfloat16)
+                                       compute_dtype=None if args.fp32 else torch.bfloat16,
+                                       use_dropout=regularized,
+                                       rng=torch.Generator().manual_seed(args.seed))
         for _ in range(2):
             float(step(params, x, y))
         events.clear()

@@ -1,7 +1,7 @@
 """Argument parser for the training CLI (vit-tpu-torch-train).
 
 The flags of ``vit_tpu.cli.train_args`` that the one-device PyTorch port
-runs; the mesh, regularizer, distillation, MAE, ToMe, EMA, resume and
+runs; the mesh, augmentation, distillation, MAE, ToMe, EMA, resume and
 streaming-data flags wait for their slices of the port (ROADMAP.md).
 """
 
@@ -71,6 +71,17 @@ def build_parser() -> argparse.ArgumentParser:
         "--grad-accum", type=int, default=1, metavar="K",
         help="accumulate gradients over K microbatches per step (K must "
         "divide --batch)",
+    )
+    p.add_argument(
+        "--dropout", type=float, default=0.0, metavar="P",
+        help="training dropout at torchvision's four sites (input + pos "
+        "embedding, post-attention, intra-MLP, post-MLP); --ops eager or "
+        "fused_train (in-kernel masks)",
+    )
+    p.add_argument(
+        "--drop-path", type=float, default=0.0, metavar="R",
+        help="stochastic depth: per-sample residual-branch drop, rate "
+        "scaled linearly from 0 at the first block to R at the last",
     )
     p.add_argument(
         "--log-jsonl", metavar="PATH",

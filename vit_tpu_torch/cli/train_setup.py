@@ -111,8 +111,8 @@ def _load_data(args, cfg):
 
 
 def prepare(args) -> TrainSetup:
-    from vit_tpu_torch.cli.main import load_params
     from vit_tpu_torch.config import resolve_config
+    from vit_tpu_torch.io.load_any import load_params_any
     from vit_tpu_torch.io.params import params_from_numpy
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops.dispatch import get_ops
@@ -137,14 +137,27 @@ def prepare(args) -> TrainSetup:
           f"{bool(args.mixed_precision)}  remat: {remat}")
     if args.batch % args.grad_accum:
         raise SetupError(f"error: --grad-accum {args.grad_accum} must divide --batch {args.batch}")
+    use_dropout = bool(args.dropout or args.drop_path)
+    if use_dropout:
+        # eager: masks drawn in the plain blocks; fused_train: regenerated in
+        # the kernels from one seed per layer (ops/trainable.py).  --ops
+        # takes no table without regularizer hooks (argparse refuses fused).
+        if ops_name == "fused_train" and cfg.seq_len > 1024:
+            raise SetupError(
+                "error: --dropout/--drop-path through the fused kernels support "
+                f"seq_len <= 1024 (got {cfg.seq_len}); use --ops eager for very "
+                "long sequences"
+            )
+        cfg = dataclasses.replace(cfg, dropout=args.dropout, drop_path=args.drop_path)
+        print(f"dropout: {args.dropout}  drop_path: {args.drop_path}")
 
     if args.init_weights:
         try:
-            tree = load_params(args.init_weights, load_cfg, round_to_6dp=True,
-                               allow_synth=args.allow_synth_weights)
+            tree = load_params_any(args.init_weights, load_cfg, round_to_6dp=True,
+                                   allow_synth=args.allow_synth_weights)
         except ValueError as e:
             raise SetupError(f"error: {e}") from e
-        params = params_from_numpy(tree, dtype=torch.float32)
+        params = params_from_numpy(tree, "cpu", torch.float32)
         if args.num_classes:
             params["head"] = vit.init_head(torch.Generator().manual_seed(args.seed ^ 0x4EAD), cfg)
             print(f"transfer learning: fresh {cfg.embed_dim} x {args.num_classes} head")
@@ -164,7 +177,8 @@ def prepare(args) -> TrainSetup:
     step = trainer.make_train_step(
         cfg, optimizer, get_ops(ops_name), remat=remat, compute_dtype=compute_dtype,
         label_smoothing=args.label_smoothing, grad_accum=args.grad_accum,
-        grad_clip=args.grad_clip,
+        grad_clip=args.grad_clip, use_dropout=use_dropout,
+        rng=torch.Generator().manual_seed(args.seed) if use_dropout else None,
     )
 
     images, labels = _load_data(args, cfg)

@@ -13,6 +13,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace vt {
 
@@ -153,6 +154,39 @@ __device__ __forceinline__ float gelu_grad(float u, int variant, bool fast_erf) 
   const float t = tanhf(c * (u + 0.044715f * u * u * u));
   return 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * c * (1.0f + (float)(3 * 0.044715) * u * u);
 }
+
+// ---- training-mode regularizer masks (fused_block.py:104-137).  The
+// regularized kernels regenerate every dropout mask from a hash of
+// (per-layer seed, site, absolute row, column of the site's width) —
+// bit-identical to vit_tpu_torch/ops/fused_block.py:mask_hash_u32 and to
+// the JAX package's — so nothing mask-shaped is stored between forward and
+// backward.
+
+// DROP_SITE_* of ops/fused_block.py
+enum DropSite { kSiteAttnOut = 1, kSiteMlpInner = 2, kSiteMlpOut = 3 };
+
+// murmur3-finalizer mix, native uint32 arithmetic (wraps mod 2^32)
+__device__ __forceinline__ uint32_t mask_hash(uint32_t seed, uint32_t site, uint32_t r,
+                                              uint32_t c) {
+  uint32_t x = r * 0x9E3779B9u + c * 0x85EBCA6Bu + seed + site * 0x27D4EB2Fu;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// Inverted dropout of rate p: keep = fp32(1/(1-p)) where the hash is at
+// least thresh = uint32(p * 2^32), else 0.  Both come from the host.
+struct Dropout {
+  uint32_t seed;
+  uint32_t thresh;
+  float keep;
+  __device__ __forceinline__ float operator()(int site, int r, int c) const {
+    return mask_hash(seed, (uint32_t)site, (uint32_t)r, (uint32_t)c) >= thresh ? keep : 0.f;
+  }
+};
 
 // LayerNorm input gradient, one warp per row (backward.py:_ln_bwd_dx, plus
 // the residual join): with xhat = (x - mean) rstd and g = dh * gamma,

@@ -57,4 +57,91 @@ struct BiasGeluEpi {
   }
 };
 
+// ---- the regularized kernels' gates (K10, K11, K12a).  kDrop is a
+// template flag: with p = 0 the hash is never compiled in, and dp (the
+// (rows,) fp32 stochastic-depth scale) multiplies by 1 where a row is kept.
+// Products run in the TPU kernels' order.
+
+// out[r, c] = round(((acc + b[c]) * m_site) * dp[r] + res[r, c])
+// (K10 at the attention-out site, K11's FC2 at the MLP-out site)
+template <typename T, bool kDrop>
+struct BiasDropResidualEpi {
+  const T* b;
+  const T* res;
+  const float* dp;
+  Dropout drop;
+  int site;
+  T* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
+    const size_t i = (size_t)r * ld + c;
+    float v = acc + to_f(b[c]);
+    if constexpr (kDrop) v = v * drop(site, r, c);
+    out[i] = from_f<T>(v * dp[r] + to_f(res[i]));
+  }
+};
+
+// g[r, c] = round(gelu(acc + b1[c]) * m_inner): the inner mask multiplies
+// in fp32 before g rounds (K11's FC1)
+template <typename T, bool kDrop>
+struct BiasGeluDropEpi {
+  const T* b1;
+  T* g;
+  int ld;
+  int variant;
+  Dropout drop;
+  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
+    constexpr bool fast_erf = std::is_same<T, bf16>::value;
+    float v = gelu(acc + to_f(b1[c]), variant, fast_erf);
+    if constexpr (kDrop) v = v * drop(kSiteMlpInner, r, c);
+    g[(size_t)r * ld + c] = from_f<T>(v);
+  }
+};
+
+// K12a's GELU backward: u[r, c] holds u on entry and du on exit;
+// g = round(gelu(u) * m_inner), du = (acc * m_inner) * gelu'(u) with
+// acc = (round(dy_m) @ W2^T)[r, c], du_c = round(du)
+template <typename T, bool kDrop>
+struct GeluGradDropEpi {
+  float* u;
+  T* g;
+  T* du_c;
+  int ld;
+  int variant;
+  Dropout drop;
+  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
+    constexpr bool fast_erf = std::is_same<T, bf16>::value;
+    const size_t i = (size_t)r * ld + c;
+    const float uu = u[i];
+    float gv = gelu(uu, variant, fast_erf);
+    if constexpr (kDrop) {
+      const float m = drop(kSiteMlpInner, r, c);
+      gv = gv * m;
+      acc = acc * m;
+    }
+    g[i] = from_f<T>(gv);
+    const float du = acc * gelu_grad(uu, variant, fast_erf);
+    u[i] = du;
+    du_c[i] = from_f<T>(du);
+  }
+};
+
+// Gated gradient operand, element (i, j) of a row-major (rows, cols)
+// matrix x: (x * dp[i]) * m_site, in fp32 — K12a's dy_m = (dy dp_mlp)
+// m_out and dz = (dx1 dp_attn) m_attn, summed as is (db2, db_o) and
+// written rounded once for the GEMMs.
+template <typename TSrc, bool kDrop>
+struct Gate {
+  const TSrc* x;
+  int ld;
+  const float* dp;
+  Dropout drop;
+  int site;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    float v = to_f(x[(size_t)i * ld + j]) * dp[i];
+    if constexpr (kDrop) v = v * drop(site, i, j);
+    return v;
+  }
+};
+
 }  // namespace vt

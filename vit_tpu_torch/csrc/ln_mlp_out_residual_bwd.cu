@@ -25,6 +25,7 @@
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm.cuh"
+#include "ln_mlp_out_residual_bwd.cuh"
 
 namespace vt {
 
@@ -47,29 +48,6 @@ struct GeluGradEpi {
     du_c[i] = from_f<T>(du);
   }
 };
-
-template <typename T>
-struct K7Scratch {
-  float *mean, *rstd, *u, *dh2, *dx1f, *cpart, *wpart;
-  T *g, *du_c;
-};
-
-template <typename T>
-K7Scratch<T> k7_scratch(Arena& a, int rows, int d, int f, int d_ctx) {
-  K7Scratch<T> s;
-  s.mean = a.take<float>(rows);
-  s.rstd = a.take<float>(rows);
-  s.u = a.take<float>((size_t)rows * f);
-  s.g = a.take<T>((size_t)rows * f);
-  s.du_c = a.take<T>((size_t)rows * f);
-  s.dh2 = a.take<float>((size_t)rows * d);
-  s.dx1f = a.take<float>((size_t)rows * d);
-  s.cpart = a.take<float>(colsum_partial_floats(rows, std::max(f, d)));
-  s.wpart = a.take<float>(std::max({wgrad_partial_floats<T>(d, f, rows),
-                                    wgrad_partial_floats<T>(f, d, rows),
-                                    wgrad_partial_floats<T>(d_ctx, d, rows)}));
-  return s;
-}
 
 template <typename T>
 cudaError_t ln_mlp_out_residual_bwd(const T* dy, const T* x1, const T* ctx, const T* ln_scale,

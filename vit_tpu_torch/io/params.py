@@ -1,9 +1,9 @@
 """The JAX package's params pytree <-> the port's tensors.
 
-Loading is ``vit_tpu_torch.io.checkpoint`` (``.npz``) or the JAX
-package's numpy-only ``load_params_any`` (reference weight directories);
-this module only moves the resulting nested dict of arrays onto a torch
-device and back.  The layout is kept
+Loading is ``vit_tpu_torch.io.load_any`` (reference weight directories,
+``.npz``, ``.pth``); this module only moves the resulting nested dict of
+arrays onto a torch device (the card unless the caller asks for the CPU)
+and back.  The layout is kept
 exactly: [in, out] matrices, the encoder layers stacked on a leading L
 axis, and the packed QKV in (head, {q,k,v}, head_dim) column order.
 Nothing is transposed to ``nn.Linear``'s [out, in] layout: a square
@@ -19,10 +19,23 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree: Mapping[str, Any], device="cpu", dtype=None):
+def device_or_raise(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises — nothing runs on the CPU instead."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: torch.cuda.is_available() is False (no NVIDIA "
+            "card or a CPU-only PyTorch); pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def params_from_numpy(tree: Mapping[str, Any], device="cuda", dtype=None):
     """Nested dict of numpy arrays -> the same dict of torch tensors on
     ``device``.  Floating leaves are cast to ``dtype`` when given; other
     leaves keep their dtype."""
+    device = device_or_raise(device)
     out = {}
     for key, value in tree.items():
         if isinstance(value, Mapping):

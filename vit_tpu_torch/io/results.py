@@ -1,6 +1,6 @@
 """What the classify CLI writes: one ``[i] label: L / prob: P`` line per
-image (the reference program's format, Main.c:71, as
-``vit_tpu.eval.comparator`` writes and parses it) and the class names
+image (the reference program's format, Main.c:71, which
+``vit_tpu_torch.eval.comparator`` parses and gates) and the class names
 printed beside them (``vit_tpu.io.labels``'s resolution order)."""
 
 from __future__ import annotations
@@ -8,17 +8,10 @@ from __future__ import annotations
 import os
 import re
 from pathlib import Path
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, Optional, Sequence
 
 # the JAX package's ImageNet-1k name table, read in place (a data file, not a module)
 PACKAGED_LABELS = Path(__file__).resolve().parents[2] / "vit_tpu" / "io" / "data" / "imagenet_labels.txt"
-_LINE_RE = re.compile(r"^\[(\d+)\]\s*label:\s*(\d+)\s*/\s*prob:\s*([0-9.eE+-]+)\s*$")
-
-
-class ResultLine(NamedTuple):
-    index: int
-    label: int
-    prob: float
 
 
 def format_result_line(index: int, label: int, prob: float) -> str:
@@ -29,16 +22,6 @@ def write_result_file(labels: Sequence[int], probs: Sequence[float], path) -> No
     Path(path).write_text("".join(
         format_result_line(i, int(l), float(p)) + "\n" for i, (l, p) in enumerate(zip(labels, probs))
     ))
-
-
-def parse_result_file(path) -> List[ResultLine]:
-    """The well-formed lines of a result file, in order."""
-    out = []
-    for line in Path(path).read_text().splitlines():
-        m = _LINE_RE.match(line.strip())
-        if m:
-            out.append(ResultLine(int(m.group(1)), int(m.group(2)), float(m.group(3))))
-    return out
 
 
 def load_labels(path: Optional[str] = None, num_classes: int = 1000) -> List[str]:

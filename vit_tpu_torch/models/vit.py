@@ -7,8 +7,7 @@ packed QKV in (head, {q,k,v}, head_dim) column order.  ``lax.scan`` over
 the stacked layers becomes a Python loop over ``unbind`` views of the
 stacked tensors, whose backward stacks the per-layer gradients back.
 
-The dropout and drop-path hooks and the attention probe wait for their
-slices of the port.
+The attention probe waits for its slice of the port.
 """
 
 from __future__ import annotations
@@ -64,17 +63,68 @@ def encoder_block(
     cfg: ViTConfig,
     ops: OpsImpl = EAGER_OPS,
     gelu_variant: str = "exact",
+    dropout_rng: Optional[torch.Generator] = None,
+    drop_path_rate: float = 0.0,
 ) -> torch.Tensor:
     """One pre-LN encoder block: LN1 -> MHA -> residual; LN2 -> MLP ->
-    residual."""
+    residual.
+
+    ``dropout_rng`` (a generator on x's device), when given, applies
+    cfg.dropout at torchvision's three in-block sites — after the attention
+    out_proj, between the MLP's GELU and FC2 (``ops.mlp``'s
+    ``inner_dropout``), after FC2 — and, when cfg.drop_path > 0, stochastic
+    depth at ``drop_path_rate`` on both residual branches."""
+    use_rng = dropout_rng is not None
+    drop = use_rng and cfg.dropout > 0
     h = ops.layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.layernorm_eps)
-    x = x + ops.attention(
-        h, blk["wqkv"], blk["bqkv"], blk["wo"], blk["bo"], cfg.num_heads
-    )
+    h = ops.attention(h, blk["wqkv"], blk["bqkv"], blk["wo"], blk["bo"], cfg.num_heads)
+    if drop:
+        h = _dropout(h, cfg.dropout, dropout_rng)
+    if use_rng and cfg.drop_path > 0:
+        h = _drop_path(h, drop_path_rate, dropout_rng)
+    x = x + h
     h = ops.layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], cfg.layernorm_eps)
-    return x + ops.mlp(
-        h, blk["w1"], blk["b1"], blk["w2"], blk["b2"], gelu_variant=gelu_variant
-    )
+    mlp_kw = {"inner_dropout": (dropout_rng, cfg.dropout)} if drop else {}
+    h = ops.mlp(h, blk["w1"], blk["b1"], blk["w2"], blk["b2"], gelu_variant=gelu_variant,
+                **mlp_kw)
+    if drop:
+        h = _dropout(h, cfg.dropout, dropout_rng)
+    if use_rng and cfg.drop_path > 0:
+        h = _drop_path(h, drop_path_rate, dropout_rng)
+    return x + h
+
+
+def _dp_rates(cfg: ViTConfig):
+    """Per-layer stochastic-depth rates, linear from 0 at the first block to
+    cfg.drop_path at the last (the standard schedule)."""
+    if cfg.depth == 1:
+        return [float(cfg.drop_path)]
+    return [cfg.drop_path * l / (cfg.depth - 1) for l in range(cfg.depth)]
+
+
+_dropout = reference.dropout
+
+
+def _drop_path(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """Stochastic depth: drop the whole residual branch per sample (leading
+    axis), rescaling survivors by 1/(1 - rate)."""
+    keep = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=gen,
+                      device=x.device) >= rate
+    xf = x.float()
+    return torch.where(keep, xf / (1.0 - rate), torch.zeros((), device=x.device)).to(x.dtype)
+
+
+def device_generator(gen: torch.Generator, device) -> torch.Generator:
+    """A generator on ``device`` seeded from one draw of the host generator
+    ``gen`` (a CUDA tensor cannot draw from a CPU generator)."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def layer_seeds(gen: torch.Generator, depth: int):
+    """One uint32 seed per layer for the regularized kernels, drawn on the
+    host from ``gen`` (a kernel launch argument: no device sync)."""
+    return [int(s) for s in torch.randint(0, 2 ** 32, (depth,), generator=gen)]
 
 
 def layers(blocks: Dict[str, torch.Tensor]):
@@ -101,13 +151,21 @@ def forward(
     patch-embed -> prefix tokens + pos -> depth x encoder block -> final
     LN -> head on the CLS row.  Softmax is left to the caller
     (``reference.softmax``).  Differentiable on every op table whose block
-    is (``eager``, ``fused_train``).  ``dropout_rng`` (training dropout and
-    drop-path) is not ported yet and raises."""
-    if dropout_rng is not None:
-        raise NotImplementedError(
-            "dropout/drop-path (dropout_rng) is not ported yet: the JAX "
-            "package runs it in the regularized kernels K10-K12 of "
-            "ROADMAP.md queue 1 item 8"
+    is (``eager``, ``fused_train``).
+
+    ``dropout_rng`` (a host ``torch.Generator``) turns on training-mode
+    dropout at torchvision's four sites (input + position embedding here,
+    in plain torch; the three in-block sites) and stochastic depth on the
+    linear schedule (``_dp_rates``).  On ``eager`` the blocks draw their
+    masks from device generators seeded from it; on ``fused_train`` one
+    uint32 seed per layer (``layer_seeds``) goes to the regularized kernels,
+    which regenerate the masks.  ``fused`` has no regularized kernels and
+    raises."""
+    if dropout_rng is not None and ops.encoder_block is not None \
+            and ops.encoder_block_train is None:
+        raise ValueError(
+            f"dropout/drop-path on ops={ops.name!r} has no kernel hooks — use "
+            "ops='fused_train' (in-kernel regularizers) or 'eager'"
         )
     x = images.to(params["pos_embed"].dtype)
     x = ops.patch_embed(
@@ -115,19 +173,34 @@ def forward(
         cfg.patch_size,
     )
     x = reference.add_cls_and_pos(x, prefix_tokens(params), params["pos_embed"])
+    if dropout_rng is not None and cfg.dropout > 0:
+        # torchvision's Encoder drops input + pos_embedding before block 0
+        x = _dropout(x, cfg.dropout, device_generator(dropout_rng, x.device))
 
-    per_layer = layers(params["blocks"])
+    per_layer = layers(params["blocks"])[: cfg.depth]
     if ops.encoder_block is not None:
         # fused path: one flat (B*T, D) activation through every layer
         *lead, t, d = x.shape
         x2 = x.reshape(-1, d)
-        for blk in per_layer[: cfg.depth]:
-            x2 = ops.encoder_block(
-                x2, blk, cfg.num_heads, t, cfg.layernorm_eps, gelu_variant,
-            )
+        if dropout_rng is not None:
+            seeds = layer_seeds(dropout_rng, cfg.depth)
+            for blk, seed, rate in zip(per_layer, seeds, _dp_rates(cfg)):
+                x2 = ops.encoder_block_train(
+                    x2, blk, cfg.num_heads, t, cfg.layernorm_eps, gelu_variant,
+                    seed, cfg.dropout, rate,
+                )
+        else:
+            for blk in per_layer:
+                x2 = ops.encoder_block(
+                    x2, blk, cfg.num_heads, t, cfg.layernorm_eps, gelu_variant,
+                )
         x = x2.reshape(*lead, t, d)
+    elif dropout_rng is not None:
+        for blk, rate in zip(per_layer, _dp_rates(cfg)):
+            x = encoder_block(x, blk, cfg, ops, gelu_variant,
+                              device_generator(dropout_rng, x.device), rate)
     else:
-        for blk in per_layer[: cfg.depth]:
+        for blk in per_layer:
             x = encoder_block(x, blk, cfg, ops, gelu_variant)
 
     x = ops.layer_norm(

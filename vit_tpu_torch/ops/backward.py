@@ -5,6 +5,8 @@ Counterpart of ``vit_tpu.ops.pallas.backward``:
 
   K7 ``ln_mlp_out_residual_bwd``  d[LN2 + MLP + residual] chained into
                                   d[out_proj + residual]
+  K12a ``ln_mlp_out_residual_bwd_train``  K7 through the regularized
+                                  block's dropout and drop-path gates
   K6 ``ln_qkv_attn_bwd``          d[LN1 + QKV + attention] joined with the
                                   first residual's gradient
 
@@ -93,9 +95,42 @@ def fused_encoder_block_bwd(
         dctx, dx1, x2d, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"],
         blk["bqkv"], num_heads, seq_len, eps,
     )
+    return dx, _block_grads(blk, dg1, dbt1, dwqkv, dbqkv, dwo, dbo, dg2, dbt2, dw1, db1, dw2, db2)
+
+
+def _block_grads(blk, dg1, dbt1, dwqkv, dbqkv, dwo, dbo, dg2, dbt2, dw1, db1, dw2, db2):
+    """The block's gradients under the params dict's keys, each cast to its
+    parameter's dtype (the JAX backward's ``like``)."""
     grads = {
         "ln1_scale": dg1, "ln1_bias": dbt1, "wqkv": dwqkv, "bqkv": dbqkv,
         "wo": dwo, "bo": dbo, "ln2_scale": dg2, "ln2_bias": dbt2,
         "w1": dw1, "b1": db1, "w2": dw2, "b2": db2,
     }
-    return dx, {k: v.to(blk[k].dtype) for k, v in grads.items()}
+    return {k: v.to(blk[k].dtype) for k, v in grads.items()}
+
+
+def fused_encoder_block_bwd_train(
+    x2d, blk, ctx, x1, g, dp_attn, dp_mlp, seed: int, dropout_p: float, num_heads: int,
+    seq_len: int, eps: float, gelu_variant: str = "exact",
+):
+    """The regularized block's backward from the saved (x, ctx, x1), the
+    (rows,) drop-path scales and the seed: K12a then K6 (counterpart of
+    ``vit_tpu/ops/pallas/backward.py:fused_encoder_block_bwd_train``).  K12a
+    regenerates the forward's dropout masks; K6 is unchanged, because the
+    recipe has no attention-probability dropout.  Every T <= 1024 runs the
+    merged K12a, as :func:`fused_encoder_block_bwd` runs K7 (the JAX
+    package's split K12b + K12c is its VMEM route)."""
+    from vit_tpu_torch.ops.kernels.ln_mlp_out_residual_bwd_train import (
+        ln_mlp_out_residual_bwd_train,
+    )
+    from vit_tpu_torch.ops.kernels.ln_qkv_attn_bwd import ln_qkv_attn_bwd
+
+    (dx1, dctx, dg2, dbt2, dw1, db1, dw2, db2, dwo, dbo) = ln_mlp_out_residual_bwd_train(
+        g, x1, ctx, blk["ln2_scale"], blk["ln2_bias"], blk["w1"], blk["b1"],
+        blk["w2"], blk["wo"], dp_mlp, dp_attn, seed, dropout_p, eps, gelu_variant,
+    )
+    dx, dg1, dbt1, dwqkv, dbqkv = ln_qkv_attn_bwd(
+        dctx, dx1, x2d, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"],
+        blk["bqkv"], num_heads, seq_len, eps,
+    )
+    return dx, _block_grads(blk, dg1, dbt1, dwqkv, dbqkv, dwo, dbo, dg2, dbt2, dw1, db1, dw2, db2)

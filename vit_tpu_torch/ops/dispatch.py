@@ -23,8 +23,10 @@ class OpsImpl:
     with a fused implementation of signature
     ``(x2d, blk, num_heads, seq_len, eps, gelu_variant) -> x2d`` on a flat
     (B*T, D) activation; ``attention`` and ``mlp`` are then unused and may
-    be None.  The JAX table's ``encoder_block_train`` (the regularized
-    block: dropout, drop-path) comes with the slice that ports its kernels.
+    be None.  ``encoder_block_train``, on the ``fused_train`` table only,
+    is the regularized block (dropout and drop-path in the kernels) of
+    signature ``(x2d, blk, num_heads, seq_len, eps, gelu_variant, seed,
+    dropout_p, drop_path_rate) -> x2d``.
     """
 
     name: str
@@ -33,6 +35,7 @@ class OpsImpl:
     attention: Optional[Callable] = None
     mlp: Optional[Callable] = None
     encoder_block: Optional[Callable] = None
+    encoder_block_train: Optional[Callable] = None
 
 
 EAGER_OPS = OpsImpl(

@@ -42,7 +42,10 @@ NVCC_FLAGS = (
 # kernel-side dtype codes (csrc/common.cuh DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+# the regularized kernels' dropout arguments: seed, threshold, kept value,
+# dropout on (fused_block.dropout_launch_args)
+_DROP = [_U, _U, _F, _I]
 SIGNATURES = {
     # x, scale, bias, out, rows, d, eps, dtype, device, stream
     "vt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
@@ -65,6 +68,15 @@ SIGNATURES = {
     # dbqkv, workspace, batch, seq, d, heads, head_dim, eps, dtype, device,
     # stream
     "vt_ln_qkv_attn_bwd": [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P],
+    # ctx, res, wo, bo, dp, out, rows, d_ctx, d, <dropout>, dtype, device, stream
+    "vt_out_residual_train": [_P] * 6 + [_I] * 3 + _DROP + [_I, _I, _P],
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, dp, stats, g, out,
+    # rows, d, f, eps, gelu_variant, <dropout>, dtype, device, stream
+    "vt_ln_mlp_residual_train": [_P] * 11 + [_I] * 3 + [_F, _I] + _DROP + [_I, _I, _P],
+    # dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, dp_mlp, dp_attn, dx1,
+    # dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo, dbo, workspace,
+    # rows, d, f, d_ctx, eps, gelu_variant, <dropout>, dtype, device, stream
+    "vt_ln_mlp_out_residual_bwd_train": [_P] * 22 + [_I] * 4 + [_F, _I] + _DROP + [_I, _I, _P],
 }
 
 # workspace size queries (bytes) of the kernels that carve their scratch
@@ -72,6 +84,7 @@ SIGNATURES = {
 WORKSPACE_SIGNATURES = {
     # rows, d, f, d_ctx, dtype
     "vt_ln_mlp_out_residual_bwd_workspace": [_I] * 5,
+    "vt_ln_mlp_out_residual_bwd_train_workspace": [_I] * 5,
     # batch, seq, d, heads, head_dim, dtype
     "vt_ln_qkv_attn_bwd_workspace": [_I] * 6,
 }
@@ -188,6 +201,13 @@ def check_operands(kernel: str, x: torch.Tensor, *others: torch.Tensor) -> None:
 def check_shape(kernel: str, name: str, t: torch.Tensor, shape) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def check_row_scale(kernel: str, name: str, dp: torch.Tensor, x: torch.Tensor) -> None:
+    """A stochastic-depth row scale: (rows,) fp32, contiguous, on x's device."""
+    if dp.device != x.device or dp.dtype != torch.float32 or not dp.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous float32 on {x.device}")
+    check_shape(kernel, name, dp, (x.shape[0],))
 
 
 def stream_of(t: torch.Tensor) -> int:

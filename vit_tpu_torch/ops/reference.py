@@ -111,6 +111,16 @@ def attention(
     return linear(merge_heads(ctx.to(x.dtype)), wo, bo)
 
 
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """Inverted dropout (train time; eval applies nothing): keep each
+    element with probability 1 - rate, drawn from ``gen`` (a generator on
+    x's device), and scale the kept ones by 1/(1 - rate)."""
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    xf = _acc(x)
+    return torch.where(keep, xf / (1.0 - rate), torch.zeros((), dtype=xf.dtype,
+                                                            device=x.device)).to(x.dtype)
+
+
 def mlp(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -118,10 +128,16 @@ def mlp(
     w2: torch.Tensor,
     b2: torch.Tensor,
     gelu_variant: str = "exact",
+    inner_dropout=None,
 ) -> torch.Tensor:
-    """Linear(D->F) -> GELU -> Linear(F->D)."""
+    """Linear(D->F) -> GELU -> Linear(F->D).  ``inner_dropout``, a
+    ``(generator, rate)`` pair, applies torchvision MLPBlock's dropout
+    between the GELU and the second linear."""
     h = linear(x, w1, b1)
     h = gelu_exact(h) if gelu_variant == "exact" else gelu_tanh(h)
+    if inner_dropout is not None:
+        gen, rate = inner_dropout
+        h = dropout(h, rate, gen)
     return linear(h, w2, b2)
 
 

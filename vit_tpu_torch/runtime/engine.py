@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from vit_tpu_torch.config import ViTConfig
-from vit_tpu_torch.io.params import params_from_numpy
+from vit_tpu_torch.io.params import device_or_raise, params_from_numpy
 from vit_tpu_torch.models import vit
 from vit_tpu_torch.ops import reference
 from vit_tpu_torch.ops.dispatch import get_ops
@@ -57,12 +57,7 @@ class InferenceEngine:
         self.cfg = cfg
         self.batch_pad = batch_pad
         self.compute_dtype = _DTYPES[dtype]
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device 'cuda' requested but torch.cuda.is_available() is "
-                "False; pass device='cpu' to run on the CPU"
-            )
+        self.device = device_or_raise(device)
         self._ops = get_ops(ops)
         self._gelu_variant = gelu_variant
         self.params = self._prepare_params(params)

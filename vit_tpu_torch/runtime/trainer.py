@@ -11,13 +11,14 @@ eagerly: no ``torch.compile``.
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from vit_tpu_torch.config import ViTConfig
+from vit_tpu_torch.io.params import device_or_raise
 from vit_tpu_torch.models import vit
 from vit_tpu_torch.ops.dispatch import EAGER_OPS, OpsImpl
 
@@ -51,35 +52,44 @@ def cross_entropy_loss(
 
 def _make_loss_fn(cfg: ViTConfig, ops: OpsImpl, remat: bool, compute_dtype=None,
                   label_smoothing: float = 0.0):
-    """(params, images, labels) -> scalar loss.  With ``compute_dtype``
-    (mixed precision) the params and images are cast inside the loss, so
-    the gradients land in the fp32 master weights through the cast.
-    ``remat`` recomputes the forward in the backward
-    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``)."""
+    """(params, images, labels[, rng]) -> scalar loss.  With
+    ``compute_dtype`` (mixed precision) the params and images are cast
+    inside the loss, so the gradients land in the fp32 master weights
+    through the cast.  ``remat`` recomputes the forward in the backward
+    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
+    ``rng``, a host generator, turns on dropout and drop-path: each call
+    draws one seed from it, and the forward draws its masks from a
+    generator made from that seed, so a recomputed forward draws the same
+    masks."""
 
-    def fwd(p, x):
+    def fwd(p, x, seed):
         if compute_dtype is not None:
             p = vit.cast_params(p, compute_dtype)
             x = x.to(compute_dtype)
-        return vit.forward(p, x, cfg, ops)
+        rng = None if seed is None else torch.Generator().manual_seed(seed)
+        return vit.forward(p, x, cfg, ops, dropout_rng=rng)
 
-    def loss_fn(params, images, labels):
+    def loss_fn(params, images, labels, rng=None):
+        seed = None if rng is None else int(torch.randint(0, 2 ** 62, (), generator=rng))
         if remat:
-            logits = torch.utils.checkpoint.checkpoint(fwd, params, images, use_reentrant=False)
+            logits = torch.utils.checkpoint.checkpoint(fwd, params, images, seed,
+                                                       use_reentrant=False)
         else:
-            logits = fwd(params, images)
+            logits = fwd(params, images, seed)
         return cross_entropy_loss(logits, labels, label_smoothing)
 
     return loss_fn
 
 
-def _value_and_grad_accum(loss_fn, params, images, labels, k: int) -> torch.Tensor:
+def _value_and_grad_accum(loss_fn, params, images, labels, k: int, rng=None) -> torch.Tensor:
     """The mean loss (detached), with the gradients of the mean in each
     leaf's ``.grad``.  ``k`` > 1 splits the batch into k equal microbatches
     whose gradients sum before one division by k — k x less activation
-    memory, and the mean of the microbatch means is the full-batch mean."""
+    memory, and the mean of the microbatch means is the full-batch mean.
+    ``rng`` (dropout) is handed to every microbatch's loss, which advances
+    it."""
     if k <= 1:
-        loss = loss_fn(params, images, labels)
+        loss = loss_fn(params, images, labels, rng)
         loss.backward()
         return loss.detach()
     b = images.shape[0]
@@ -87,7 +97,7 @@ def _value_and_grad_accum(loss_fn, params, images, labels, k: int) -> torch.Tens
         raise ValueError(f"batch {b} must be divisible by grad_accum {k}")
     total = torch.zeros((), dtype=torch.float32, device=images.device)
     for x, y in zip(images.chunk(k), labels.chunk(k)):
-        loss = loss_fn(params, x, y)
+        loss = loss_fn(params, x, y, rng)
         loss.backward()
         total = total + loss.detach()
     with torch.no_grad():
@@ -106,6 +116,8 @@ def make_train_step(
     label_smoothing: float = 0.0,
     grad_accum: int = 1,
     grad_clip: float = 0.0,
+    use_dropout: bool = False,
+    rng: Optional[torch.Generator] = None,
 ):
     """Build ``(params, images, labels) -> loss``, one optimizer update per
     call on ``optimizer``'s leaves (which must be ``params``' leaves).
@@ -114,12 +126,20 @@ def make_train_step(
     weights and optimizer state, casts inside the loss.  ``grad_clip`` > 0
     clips the gradients' global L2 norm before the update
     (``clip_grad_norm_``, the counterpart of ``optax.clip_by_global_norm``).
-    ``grad_accum`` as in :func:`_value_and_grad_accum`."""
+    ``grad_accum`` as in :func:`_value_and_grad_accum`.  ``use_dropout``
+    applies cfg.dropout and cfg.drop_path in the forward, with a fresh
+    generator per step drawn from ``rng`` (a host ``torch.Generator``, the
+    counterpart of the JAX step's rng argument)."""
+    if use_dropout and rng is None:
+        raise ValueError("use_dropout needs rng, a torch.Generator (e.g. seeded from --seed)")
     loss_fn = _make_loss_fn(cfg, ops, remat, compute_dtype, label_smoothing)
 
     def train_step(params, images, labels) -> torch.Tensor:
+        step_rng = None
+        if use_dropout:  # a fresh generator per step
+            step_rng = torch.Generator().manual_seed(int(torch.randint(0, 2 ** 62, (), generator=rng)))
         optimizer.zero_grad(set_to_none=True)
-        loss = _value_and_grad_accum(loss_fn, params, images, labels, grad_accum)
+        loss = _value_and_grad_accum(loss_fn, params, images, labels, grad_accum, step_rng)
         if grad_clip:
             torch.nn.utils.clip_grad_norm_(list(leaves(params)), grad_clip)
         optimizer.step()
@@ -133,17 +153,20 @@ def init_train_state(
     cfg: ViTConfig,
     make_optimizer: Callable,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[dict, torch.optim.Optimizer]:
     """Random params (``vit.init_params``) as trainable leaves on
-    ``device``, and ``make_optimizer(params)`` over them."""
+    ``device`` (the card unless the caller asks for the CPU), and
+    ``make_optimizer(params)`` over them."""
     params = as_trainable(vit.init_params(gen, cfg, dtype), device)
     return params, make_optimizer(params)
 
 
-def as_trainable(tree, device="cpu", dtype=None):
+def as_trainable(tree, device="cuda", dtype=None):
     """A nested dict of tensors as fresh leaf tensors on ``device`` that
-    require grad (floating leaves cast to ``dtype`` when given)."""
+    require grad (floating leaves cast to ``dtype`` when given).  A CUDA
+    device without a card raises."""
+    device = device_or_raise(device)
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
