@@ -46,7 +46,29 @@ Phases (a failed phase raises; nothing is caught):
  14. train images/s at batch 64 mixed precision, timed in turns:
      regularized fused_train, unregularized fused_train, regularized eager,
      with the peak device memory of each (no mask is stored, so the
-     regularized step's peak is within 1% of the unregularized one's).
+     regularized step's peak is within 1% of the unregularized one's);
+ 15. the long-sequence kernels (K13 flash_attention_fwd, K14
+     flash_attention_bwd, K8 ln_mlp_residual_bwd, K9 out_residual_bwd)
+     against their plain twins, every output, bf16 and fp32, at ViT-B/16
+     @512 shapes (T = 1,025; batch 16, and a ragged batch of 3), K13/K14
+     also at T = 2,048 batch 4; K13/K14 through strided views of the
+     packed QKV, as the path calls them, each timed beside
+     ``F.scaled_dot_product_attention`` (its forward for K13, its backward
+     as forward + backward less forward for K14);
+ 16. the long classify path: ``InferenceEngine`` at B/16 @512, batch 16,
+     bf16, ``fused``, with every count set to 0 just before and read just
+     after (13 K3, 12 K13, 12 K2, no K1 per forward); fp32 fused vs fp32
+     eager (4 images, <= 1e-3) and bf16 vs fp32 (comparator rule);
+ 17. the long train path: the trainer's step at @512 batch 16, bf16 mixed,
+     ``fused_train``, counts set to 0 just before and read just after (12
+     each of K13, K14, K4, K5, K8, K9 per step; no K1, K6, K7); fp32
+     fused_train vs eager autograd gradients on every leaf (2 images), bf16
+     mixed vs fp32 loss;
+ 18. images/s and peak device memory of the long classify forward and the
+     long train step, fused against eager, timed in turns;
+ 19. where the 1,024-token switch sits: the K1 + K2 block against the
+     K3 + QKV GEMM + K13 + K2 block at T = 577 and T = 1,025 (batch 16,
+     bf16), timed in turns.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -115,6 +137,22 @@ REG_KERNELS = {
                                       "vit_tpu_torch/csrc/ln_mlp_out_residual_bwd_train.cu",
                                       "vit_tpu/ops/pallas/backward.py:502"),
 }
+LONG_KERNELS = {
+    "flash_attention_fwd": ("K13", "vit_tpu_torch/csrc/flash_attention.cu",
+                            "vit_tpu/ops/pallas/flash_attention.py:94"),
+    "flash_attention_bwd": ("K14", "vit_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "vit_tpu/ops/pallas/flash_attention.py:271"),
+    "ln_mlp_residual_bwd": ("K8", "vit_tpu_torch/csrc/ln_mlp_residual_bwd.cu",
+                            "vit_tpu/ops/pallas/backward.py:218"),
+    "out_residual_bwd": ("K9", "vit_tpu_torch/csrc/out_residual_bwd.cu",
+                         "vit_tpu/ops/pallas/backward.py:779"),
+}
+LONG_IMAGE = 512  # ViT-B/16 @512: T = 1,025, past the 1,024-token switch
+LONG_BATCHES = (16, 3)
+LONG_T = 2048  # the flash cases' longest sequence, at batch LONG_T_BATCH
+LONG_T_BATCH = 4
+SWITCH_T = (577, 1025)  # where the switch phase times both blocks
+
 REG_P = 0.1  # dropout, and the drop-path rate of the kernel cases
 REG_SEED = 0x9E3779B9  # >= 2^31: the full uint32 range reaches the kernels
 REG_FLAGS = ["--dropout", str(REG_P), "--drop-path", str(REG_P)]
@@ -179,13 +217,14 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def case(tag, dtype, batch, fn, plain, args, flops, library=None) -> dict:
+def case(tag, dtype, batch, fn, plain, args, flops, library=None, library_ms=None) -> dict:
     """One kernel-vs-twin case: the kernel and its twin on ``args``, the
     operations its function needs, and one PyTorch call computing the same
-    function, where there is one."""
+    function, where there is one (``library``, timed here; or
+    ``library_ms``, a function that times it)."""
     return dict(tag=tag, dtype=dtype, batch=batch, kernel=lambda: fn(*args),
                 plain=lambda: plain(*args), inputs=[a for a in args if torch.is_tensor(a)],
-                flops=flops, library=library)
+                flops=flops, library=library, library_ms=library_ms)
 
 
 def _tag(dtype, b, rows):
@@ -273,7 +312,8 @@ def phase_kernels(cases: dict, labels: dict, summary_batch: int) -> dict:
                                        f"{tol:.6g}: kernel disagrees with its plain twin")
                 err, worst = max(err, e), max(worst, e / tol)
             ms, plain_ms = cuda_ms(c["kernel"]), cuda_ms(c["plain"])
-            lib_ms = cuda_ms(c["library"]) if c["library"] else None
+            lib_ms = (cuda_ms(c["library"]) if c["library"]
+                      else c["library_ms"]() if c["library_ms"] else None)
             bound_ms, bound_by = bound(c["flops"], _nbytes(c["inputs"]) + _nbytes(got), dtype)
             log(f"{labels[name][0]} {name} {tag}: {len(got)} output(s), max|d|={err:.6g} "
                 f"(at most {worst:.3g} of its tol) kernel {ms:.6g} ms, plain {plain_ms:.6g} ms, "
@@ -361,6 +401,68 @@ def reg_kernel_cases(dev: torch.device):
                 k12.ln_mlp_out_residual_bwd_train_plain,
                 (dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, dp_m, dp_a, *reg, 1e-6, "exact"),
                 10 * kept_m * d * f + 4 * kept_a * d * d))
+    return cases
+
+
+def _sdpa_bwd_ms(q, k, v, do) -> float:
+    """K14's library time: ``F.scaled_dot_product_attention``'s forward +
+    backward on copies of the same inputs, less its forward."""
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    fwd = lambda: F.scaled_dot_product_attention(qg, kg, vg)  # noqa: E731
+    both = lambda: torch.autograd.grad(fwd(), (qg, kg, vg), do)  # noqa: E731
+    return cuda_ms(both) - cuda_ms(fwd)
+
+
+def long_kernel_cases(dev: torch.device):
+    """-> {kernel: [case]} for K13, K14, K8, K9 at B/16 @512 shapes (T =
+    1,025; batch 16 and 3), and K13/K14 at T = 2,048 batch 4.  K13/K14 take
+    strided (B, H, T, dh) views of a packed (B*T, 3D) QKV, as the path
+    gives them."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops.flash_attention import packed_views
+    from vit_tpu_torch.ops.kernels import flash_attention as k13
+    from vit_tpu_torch.ops.kernels import flash_attention_bwd as k14
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd as k8
+    from vit_tpu_torch.ops.kernels import out_residual_bwd as k9
+
+    d, h, f = B16["d"], B16["heads"], B16["f"]
+    t512 = (LONG_IMAGE // 16) ** 2 + 1
+    rn = _rand(dev, 4)
+    cases = {name: [] for name in LONG_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        shapes = [(b, t512) for b in LONG_BATCHES] + [(LONG_T_BATCH, LONG_T)]
+        for b, t in shapes:
+            rows, dh = b * t, d // h
+            tag = _tag(dtype, b, rows) + f" T {t}"
+            q, k, v = packed_views(rn(rows, 3 * d, dtype=dtype), b, t, h, 3)
+            out, lse = k13.flash_attention_fwd_plain(q, k, v, True)
+            do = rn(b, h, t, dh, dtype=dtype)
+            cases["flash_attention_fwd"].append(case(
+                tag, dtype, b, lambda *a: k13.flash_attention_fwd(*a, return_lse=True),
+                lambda *a: k13.flash_attention_fwd_plain(*a, True), (q, k, v),
+                4 * b * h * t * t * dh,
+                library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v)))
+            cases["flash_attention_bwd"].append(case(
+                tag, dtype, b, k14.flash_attention_bwd, k14.flash_attention_bwd_plain,
+                (q, k, v, out, lse, do), 10 * b * h * t * t * dh,
+                library_ms=lambda q=q, k=k, v=v, do=do: _sdpa_bwd_ms(q, k, v, do)))
+            if t == LONG_T:
+                continue
+            row = lambda scale=1.0: rn(rows, d, scale=scale, dtype=dtype)  # noqa: E731
+            s2, b2n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+            w1, bb1 = rn(d, f, scale=d ** -0.5, dtype=dtype), rn(f, scale=0.1, dtype=dtype)
+            w2 = rn(f, d, scale=f ** -0.5, dtype=dtype)
+            wo = rn(d, d, scale=d ** -0.5, dtype=dtype)
+            dy, x1, ctx = row(), row(2.0), row()
+            cases["ln_mlp_residual_bwd"].append(case(
+                tag, dtype, b, k8.ln_mlp_residual_bwd, k8.ln_mlp_residual_bwd_plain,
+                (dy, x1, s2, b2n, w1, bb1, w2, 1e-6, "exact"), 10 * rows * d * f))
+            cases["out_residual_bwd"].append(case(
+                tag, dtype, b, k9.out_residual_bwd, k9.out_residual_bwd_plain,
+                (dy, ctx, wo), 4 * rows * d * d))
     return cases
 
 
@@ -455,10 +557,8 @@ def phase_cli(params, workdir: str) -> dict:
     weights = f"{workdir}/params.npz"
     checkpoint.save_npz(params, weights)
     result = f"{workdir}/result.txt"
-    wrappers = all_wrappers()
     buf = io.StringIO()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = _reset_counts()
     with contextlib.redirect_stdout(buf):
         rc = main([
             "--weights", weights, "--synth", "100", "--ops", "fused", "--dtype", "bfloat16",
@@ -560,10 +660,28 @@ def phase_throughput(params, images: np.ndarray, dev: torch.device, card: str) -
 
 def all_wrappers() -> dict:
     """Every kernel wrapper of the port, by name (each carries ``launches``)."""
-    import importlib
+    from vit_tpu_torch.ops.kernels import wrapper
 
-    return {name: getattr(importlib.import_module(f"vit_tpu_torch.ops.kernels.{name}"), name)
-            for name in (*KERNELS, *TRAIN_KERNELS, *REG_KERNELS)}
+    return {name: wrapper(name) for name in (*KERNELS, *TRAIN_KERNELS, *REG_KERNELS, *LONG_KERNELS)}
+
+
+def _reset_counts() -> dict:
+    """Every wrapper by name, its launch count set to 0."""
+    wrappers = all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def _expect_counts(wrappers: dict, want: dict, what: str) -> dict:
+    """Read every count; fail unless ``want`` (the rest 0)."""
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    expected = {name: 0 for name in wrappers}
+    expected.update(want)
+    log(f"{what}: launches {launches}")
+    if launches != expected:
+        raise RuntimeError(f"{what}: expected launches {expected}, got {launches}")
+    return launches
 
 
 def _train_cli(workdir: str, extra) -> tuple:
@@ -573,10 +691,8 @@ def _train_cli(workdir: str, extra) -> tuple:
     from vit_tpu_torch.cli.train import main
 
     log_path = f"{workdir}/train{len(extra)}.jsonl"
-    wrappers = all_wrappers()
     buf = io.StringIO()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = _reset_counts()
     with contextlib.redirect_stdout(buf):
         rc = main([
             "--config", "vit_b_16", "--steps", str(TRAIN_STEPS), "--batch", "64",
@@ -744,23 +860,23 @@ def phase_reg_correctness(dev: torch.device) -> None:
         raise RuntimeError("regularized bf16 mixed-precision loss outside 2e-2 of fp32")
 
 
-def _train_rates(dev, card: str, runs: dict, phase: str) -> dict:
-    """Train img/s at B/16 batch 64 bf16 mixed (no remat) of each run
-    ``label: (ops, regularized)``, timed in turns, and the peak device
-    memory of each alone on the card."""
+def _train_rates(dev, card: str, runs: dict, phase: str, base=None, b: int = 64) -> dict:
+    """Train img/s at ``base`` (default B/16 @224) batch ``b`` bf16 mixed
+    (no remat) of each run ``label: (ops, regularized)``, timed in turns,
+    and the peak device memory of each alone on the card."""
     from vit_tpu_torch.config import VIT_B_16
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops.dispatch import get_ops
     from vit_tpu_torch.runtime import trainer
 
-    b = 64
-    x = torch.from_numpy(synth_images(b, VIT_B_16, seed=4)).to(dev)
-    y = torch.arange(b, device=dev) * 7 % VIT_B_16.num_classes
+    base = base or VIT_B_16
+    x = torch.from_numpy(synth_images(b, base, seed=4)).to(dev)
+    y = torch.arange(b, device=dev) * 7 % base.num_classes
 
     def make(ops, regularized):
-        cfg = (dataclasses.replace(VIT_B_16, dropout=REG_P, drop_path=REG_P) if regularized
-               else VIT_B_16)
+        cfg = (dataclasses.replace(base, dropout=REG_P, drop_path=REG_P) if regularized
+               else base)
         params = trainer.as_trainable(vit.init_params(torch.Generator().manual_seed(0), cfg), dev)
         opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-4)
         step = trainer.make_train_step(cfg, opt, get_ops(ops), remat=False,
@@ -791,7 +907,7 @@ def _train_rates(dev, card: str, runs: dict, phase: str) -> dict:
             times[label].append(time.perf_counter() - t0)
     rates = {label: b / statistics.median(t) for label, t in times.items()}
     for label, rate in rates.items():
-        log(f"{phase} {label} B/16 batch {b} bf16 mixed: {rate:.6g} img/s "
+        log(f"{phase} {label} {base.name} batch {b} bf16 mixed: {rate:.6g} img/s "
             f"(median of {len(times[label])}, step {statistics.median(times[label]) * 1e3:.6g} ms); "
             f"peak device memory {peak[label]:.6g} GiB; {card}")
     return rates, peak
@@ -817,6 +933,180 @@ def phase_reg_throughput(dev: torch.device, card: str) -> dict:
     if not ratio <= 1.01:
         raise RuntimeError("the regularized step's peak memory exceeds the unregularized one's by > 1%")
     return rates
+
+
+def phase_long_inference(dev: torch.device) -> dict:
+    """Phase 16: the long classify path through ``InferenceEngine``.
+    -> launch counts of one bf16 forward of 16 images."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = VIT_B_16.with_image_size(LONG_IMAGE)
+    params = synth_params(cfg, 0)
+    images = synth_images(16, cfg, seed=5)
+    fused16 = InferenceEngine(cfg, params, "bfloat16", "fused", dev, batch_pad=16)
+    wrappers = _reset_counts()
+    l16 = fused16.logits(images).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = _expect_counts(
+        wrappers, {"layer_norm": 13, "flash_attention_fwd": 12, "out_ln_mlp_residual": 12},
+        f"long classify {cfg.name} (T {cfg.seq_len}) batch 16 bf16 fused, one forward")
+    del fused16
+    if l16.shape != (16, cfg.num_classes) or not np.isfinite(l16).all():
+        raise RuntimeError(f"long bf16 logits: shape {l16.shape} or non-finite")
+
+    fused32 = InferenceEngine(cfg, params, "float32", "fused", dev, batch_pad=1)
+    f32 = fused32.logits(images).cpu().numpy()
+    del fused32
+    eager32 = InferenceEngine(cfg, params, "float32", "eager", dev, batch_pad=1)
+    e32 = eager32.logits(images[:4]).cpu().numpy()
+    del eager32
+    torch.cuda.empty_cache()
+    dev_eager = float(np.abs(f32[:4] - e32).max())
+    log(f"long fp32 fused vs fp32 eager (card, TF32 off), {cfg.name}, 4 images: "
+        f"max|d logit|={dev_eager:.6g} (tol 1e-3)")
+    if not dev_eager <= 1e-3:
+        raise RuntimeError("long fp32 fused logits outside 1e-3 of the eager path")
+    p32, p16 = _probs(f32), _probs(l16)
+    l32, lb = p32.argmax(-1), p16.argmax(-1)
+    n = len(l32)
+    top2 = np.sort(p32, -1)[:, -2:]
+    decisive = (top2[:, 1] - top2[:, 0]) > 0.01
+    n_bad = int(((lb != l32) & decisive).sum())
+    prob_dev = float(np.abs(p16[np.arange(n), lb] - p32[np.arange(n), l32]).max())
+    log(f"long bf16 fused vs fp32 fused, {n} images: {int(decisive.sum())} decisive, {n_bad} "
+        f"decisive label mismatches (tol 0), top-prob max|d|={prob_dev:.6g} (tol 0.01)")
+    if n_bad or not prob_dev <= 0.01:
+        raise RuntimeError("long bf16 fused path fails the comparator rule against fp32")
+    return launches
+
+
+def phase_long_train(dev: torch.device) -> dict:
+    """Phase 17: the trainer's step on the long path, its launches, and
+    its gradients against eager autograd.  -> launch counts of one step."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.io.params import params_from_numpy
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.runtime import trainer
+
+    cfg = VIT_B_16.with_image_size(LONG_IMAGE)
+    b = 16
+    x = torch.from_numpy(synth_images(b, cfg, seed=6)).to(dev)
+    y = torch.arange(b, device=dev) * 13 % cfg.num_classes
+    params = trainer.as_trainable(vit.init_params(torch.Generator().manual_seed(0), cfg), dev)
+    opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-4)
+    step = trainer.make_train_step(cfg, opt, get_ops("fused_train"), remat=False,
+                                   compute_dtype=torch.bfloat16)
+    step(params, x, y)  # warm up
+    torch.cuda.synchronize()
+    wrappers = _reset_counts()
+    loss = float(step(params, x, y))
+    launches = _expect_counts(
+        wrappers, {name: 12 for name in ("flash_attention_fwd", "flash_attention_bwd",
+                                         "out_residual", "ln_mlp_residual",
+                                         "ln_mlp_residual_bwd", "out_residual_bwd")},
+        f"long train {cfg.name} (T {cfg.seq_len}) batch {b} bf16 mixed fused_train, one step")
+    if not np.isfinite(loss):
+        raise RuntimeError(f"long train step loss {loss}")
+    del params, opt, step
+    torch.cuda.empty_cache()
+
+    tree = params_from_numpy(synth_params(cfg, 0), "cpu")
+    x2 = torch.from_numpy(synth_images(2, cfg, seed=7)).to(dev)
+    y2 = torch.tensor([3, 141], device=dev) % cfg.num_classes
+    lf, gf = _grads(cfg, tree, x2, y2, "fused_train", None, dev)
+    le, ge = _grads(cfg, tree, x2, y2, "eager", None, dev)
+    worst, worst_leaf = _worst_leaf(gf, ge)
+    log(f"long train grads fp32 fused_train vs eager autograd (card, TF32 off), {cfg.name}, "
+        f"2 images: loss {lf:.6g} vs {le:.6g}; {len(ge)} leaves, worst {worst_leaf} at "
+        f"{worst:.3g} of its bound (1e-3 x max(1, max|g|))")
+    if worst > 1.0 or set(gf) != set(ge) or not np.isfinite(lf):
+        raise RuntimeError("long fused_train gradients outside 1e-3 of eager autograd")
+    del gf, ge
+    lb, _ = _grads(cfg, tree, x2, y2, "fused_train", torch.bfloat16, dev)
+    log(f"long train loss bf16 mixed vs fp32 fused_train: {lb:.6g} vs {lf:.6g}, "
+        f"|d|={abs(lb - lf):.6g} (tol 2e-2)")
+    if not abs(lb - lf) <= 2e-2:
+        raise RuntimeError("long bf16 mixed-precision loss outside 2e-2 of fp32")
+    return launches
+
+
+def phase_long_throughput(dev: torch.device, card: str) -> None:
+    """Phase 18: long classify img/s and peak memory (fused vs eager, batch
+    16 bf16, in turns), then the long train step's (fused_train vs eager)."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = VIT_B_16.with_image_size(LONG_IMAGE)
+    params = synth_params(cfg, 0)
+    x = torch.from_numpy(synth_images(16, cfg, seed=8)).to(dev, torch.bfloat16)
+    engines, peak = {}, {}
+    for ops in ("fused", "eager"):
+        engines[ops] = InferenceEngine(cfg, params, "bfloat16", ops, dev, batch_pad=16)
+        engines[ops].logits(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engines[ops].logits(x)
+        peak[ops] = torch.cuda.max_memory_allocated() / 2 ** 30
+    times = {ops: [] for ops in engines}
+    for _ in range(4):
+        for ops in ("fused", "eager", "eager", "fused"):
+            t0 = time.perf_counter()
+            engines[ops].logits(x)
+            torch.cuda.synchronize()
+            times[ops].append(time.perf_counter() - t0)
+    for ops, ts in times.items():
+        log(f"long classify throughput {ops} {cfg.name} batch 16 bf16: "
+            f"{16 / statistics.median(ts):.6g} img/s (median of {len(ts)}, forward "
+            f"{statistics.median(ts) * 1e3:.6g} ms); peak device memory {peak[ops]:.6g} GiB; {card}")
+    del engines
+    torch.cuda.empty_cache()
+    _train_rates(dev, card, {"fused_train": ("fused_train", False), "eager": ("eager", False)},
+                 "long train throughput", base=cfg, b=16)
+
+
+def phase_switch(dev: torch.device, card: str) -> None:
+    """Phase 19: the K1 + K2 block against the long block (K3 + QKV GEMM +
+    K13 + K2) at T = 577 and 1,025, B/16 width, batch 16, bf16, in turns.
+    The switch stays at 1,024, so that both packages route alike."""
+    from vit_tpu_torch.ops import fused_block
+    from vit_tpu_torch.ops.kernels.ln_qkv_attn import ln_qkv_attn
+    from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import out_ln_mlp_residual
+
+    d, h, f = B16["d"], B16["heads"], B16["f"]
+    rn = _rand(dev, 9)
+    dt = torch.bfloat16
+    blk = {"ln1_scale": rn(d, scale=0.2, shift=1.0, dtype=dt), "ln1_bias": rn(d, scale=0.2, dtype=dt),
+           "wqkv": rn(d, 3 * d, scale=d ** -0.5, dtype=dt), "bqkv": rn(3 * d, scale=0.1, dtype=dt),
+           "wo": rn(d, d, scale=d ** -0.5, dtype=dt), "bo": rn(d, scale=0.1, dtype=dt),
+           "ln2_scale": rn(d, scale=0.2, shift=1.0, dtype=dt), "ln2_bias": rn(d, scale=0.2, dtype=dt),
+           "w1": rn(d, f, scale=d ** -0.5, dtype=dt), "b1": rn(f, scale=0.1, dtype=dt),
+           "w2": rn(f, d, scale=f ** -0.5, dtype=dt), "b2": rn(d, scale=0.1, dtype=dt)}
+
+    def k1k2(x, t):  # what fused_encoder_block runs up to the switch
+        ctx = ln_qkv_attn(x, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"], blk["bqkv"], h, t,
+                          1e-6)
+        return out_ln_mlp_residual(ctx, x, blk["wo"], blk["bo"], blk["ln2_scale"],
+                                   blk["ln2_bias"], blk["w1"], blk["b1"], blk["w2"], blk["b2"],
+                                   1e-6)
+
+    for t in SWITCH_T:
+        x = rn(16 * t, d, scale=2.0, dtype=dt)
+        short = lambda: k1k2(x, t)  # noqa: E731
+        long = lambda: fused_block._long_seq_block(x, blk, h, t, 1e-6, "exact")  # noqa: E731
+        err = (short().float() - long().float()).abs().max().item()
+        ms = {"K1+K2": [], "K3+GEMM+K13+K2": []}
+        for _ in range(3):
+            for label, fn in (("K1+K2", short), ("K3+GEMM+K13+K2", long),
+                              ("K3+GEMM+K13+K2", long), ("K1+K2", short)):
+                ms[label].append(cuda_ms(fn, warmup=1, iters=5))
+        a, b = (statistics.median(v) for v in ms.values())
+        log(f"switch at T {t}, B/16 batch 16 bf16: K1+K2 block {a:.6g} ms, K3+GEMM+K13+K2 "
+            f"block {b:.6g} ms (ratio {b / a:.6g}); outputs max|d|={err:.6g}; {card}")
 
 
 def main() -> None:
@@ -869,16 +1159,31 @@ def main() -> None:
     phase_reg_correctness(dev)
     torch.cuda.empty_cache()
     phase_reg_throughput(dev, card)
+    torch.cuda.empty_cache()
+
+    summary.update(phase_kernels(long_kernel_cases(dev), LONG_KERNELS, LONG_BATCHES[0]))
+    torch.cuda.empty_cache()
+    launches["classify_long"] = phase_long_inference(dev)
+    torch.cuda.empty_cache()
+    launches["train_long"] = phase_long_train(dev)
+    torch.cuda.empty_cache()
+    phase_long_throughput(dev, card)
+    torch.cuda.empty_cache()
+    phase_switch(dev, card)
 
     # launches: the classify CLI's run for K1-K3, the train CLI's for K4-K7,
-    # the regularized train CLI's for K10-K12a; "paths" has every reading
+    # the regularized train CLI's for K10-K12a, the long classify forward's
+    # for K13, the long train step's for K14, K8, K9; "paths" has every
+    # reading
     path_of = {**{k: "classify" for k in KERNELS}, **{k: "train" for k in TRAIN_KERNELS},
-               **{k: "train_regularized" for k in REG_KERNELS}}
+               **{k: "train_regularized" for k in REG_KERNELS},
+               **{k: "train_long" for k in LONG_KERNELS}, "flash_attention_fwd": "classify_long"}
+    all_kernels = {**KERNELS, **TRAIN_KERNELS, **REG_KERNELS, **LONG_KERNELS}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[path_of[name]][name],
          "paths": {path: counts[name] for path, counts in launches.items()}, **summary[name]}
-        for name, (_, src, replaces) in {**KERNELS, **TRAIN_KERNELS, **REG_KERNELS}.items()
+        for name, (_, src, replaces) in all_kernels.items()
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -50,6 +50,19 @@ from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import (
     out_ln_mlp_residual_plain,
 )
 from vit_tpu_torch.ops.kernels.out_residual import out_residual, out_residual_plain
+from vit_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention_fwd,
+    flash_attention_fwd_plain,
+)
+from vit_tpu_torch.ops.kernels.flash_attention_bwd import (
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+)
+from vit_tpu_torch.ops.kernels.ln_mlp_residual_bwd import (
+    ln_mlp_residual_bwd,
+    ln_mlp_residual_bwd_plain,
+)
+from vit_tpu_torch.ops.kernels.out_residual_bwd import out_residual_bwd, out_residual_bwd_plain
 
 REL_TOL = {torch.float32: 2.0 ** -16, torch.bfloat16: 2.0 ** -6}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -350,5 +363,156 @@ def test_fused_block_grads_match_eager_autograd(dev):
     # the JAX package's oracle bar: 1e-3 of each gradient's scale
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype == dtype
+        err, bound = (g - w).abs().max().item(), 1e-3 * max(1.0, w.abs().max().item())
+        assert err <= bound, f"grad {i}: max|d| {err} > {bound}"
+
+
+# -- the long-sequence kernels K13, K14, K8, K9 ----------------------------------
+
+# (batch, heads, T, dh): ragged tiles at every head dim, B/16 @512's
+# T = 1,025, and T = 2,048
+FLASH_CASES = {
+    "t100_dh32": (2, 2, 100, 32), "t64_dh16": (1, 3, 64, 16), "t160_dh64": (2, 2, 160, 64),
+    "t77_dh128": (1, 2, 77, 128), "b16_t1025": (1, 12, 1025, 64), "t2048": (1, 2, 2048, 64),
+}
+
+
+def _qkv4(dev, dtype, b, h, t, dh, scale=1.0):
+    return [_rn(dev, 40 + i, b, h, t, dh, scale=scale, dtype=dtype) for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_fwd(dev, dtype, case):
+    q, k, v = _qkv4(dev, dtype, *FLASH_CASES[case])
+    out, lse = flash_attention_fwd(q, k, v, return_lse=True)
+    want, want_lse = flash_attention_fwd_plain(q, k, v, True)
+    _check(out, want)
+    _check(lse, want_lse, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_fwd_extreme_logits(dev, dtype):
+    # scores near 30^2 * 16 / 4 must stay finite.  fp32 is held to 2^-10 of
+    # the output's scale, not 2^-16: an fp32 ulp of such a score (2.4e-4)
+    # reaches p through exp, so two summation orders differ by that much
+    q, k, v = _qkv4(dev, dtype, 1, 1, 64, 16)
+    q, k = q * 30, k * 30
+    out, _ = flash_attention_fwd(q, k, v)
+    want, _ = flash_attention_fwd_plain(q, k, v)
+    assert torch.isfinite(out).all()
+    tol = {torch.float32: 2.0 ** -10, torch.bfloat16: REL_TOL[torch.bfloat16]}[dtype]
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_bwd(dev, dtype, case):
+    b, h, t, dh = FLASH_CASES[case]
+    q, k, v = _qkv4(dev, dtype, b, h, t, dh)
+    do = _rn(dev, 50, b, h, t, dh, dtype=dtype)
+    out, lse = flash_attention_fwd_plain(q, k, v, True)
+    _check_all(flash_attention_bwd(q, k, v, out, lse, do),
+               flash_attention_bwd_plain(q, k, v, out, lse, do))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_packed_context_matches_contiguous(dev, dtype):
+    # the packed (B*T, 3D) QKV and (B*T, D) context read and written in
+    # place through strides, against the twins on contiguous (B, H, T, dh)
+    from vit_tpu_torch.ops.flash_attention import flash_context_from_packed_qkv, packed_views
+
+    b, t, h, dh = 2, 197, 12, 64
+    qkv = _rn(dev, 60, b * t, 3 * h * dh, dtype=dtype).requires_grad_(True)
+    g = _rn(dev, 61, b * t, h * dh, dtype=dtype)
+    launches = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    ctx = flash_context_from_packed_qkv(qkv, b, t, h)
+    ctx.backward(g)
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == tuple(
+        n + 1 for n in launches)
+    q, k, v = (x.contiguous() for x in packed_views(qkv.detach(), b, t, h, 3))
+    want, lse = flash_attention_fwd_plain(q, k, v, True)
+    _check(ctx.detach(), want.permute(0, 2, 1, 3).reshape(b * t, h * dh))
+    (do,) = (x.contiguous() for x in packed_views(g, b, t, h, 1))
+    dq, dk, dv = flash_attention_bwd_plain(q, k, v, want, lse, do)
+    dqkv = torch.stack([dq, dk, dv], 3).permute(0, 2, 1, 3, 4).reshape(b * t, 3 * h * dh)
+    _check(qkv.grad, dqkv)
+
+
+def _k8_args(dev, dtype, rows, d, f, variant):
+    x1, s, b, w1, b1, w2, _ = _mlp_args(dev, dtype, rows, d, f)
+    return (_rn(dev, 10, rows, d, dtype=dtype), x1, s, b, w1, b1, w2, 1e-6, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", ["exact", "tanh"])
+@pytest.mark.parametrize("rows,d,f", [(10, 64, 256), (591, 768, 3072), (133, 384, 1536),
+                                      (16400, 768, 3072)])
+def test_ln_mlp_residual_bwd(dev, dtype, variant, rows, d, f):
+    args = _k8_args(dev, dtype, rows, d, f, variant)
+    _check_all(ln_mlp_residual_bwd(*args), ln_mlp_residual_bwd_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", [(10, 64), (591, 768), (16400, 768), (133, 384)])
+def test_out_residual_bwd(dev, dtype, rows, d):
+    args = (_rn(dev, 0, rows, d, dtype=dtype), _rn(dev, 1, rows, d, dtype=dtype),
+            _rn(dev, 2, d, d, scale=d ** -0.5, dtype=dtype))
+    _check_all(out_residual_bwd(*args), out_residual_bwd_plain(*args))
+
+
+@pytest.mark.cuda
+def test_split_and_flash_backward_are_deterministic(dev):
+    q, k, v = _qkv4(dev, torch.bfloat16, 1, 12, 1025, 64)
+    do = _rn(dev, 50, 1, 12, 1025, 64, dtype=torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, return_lse=True)
+    k8 = _k8_args(dev, torch.bfloat16, 591, 768, 3072, "exact")
+    k9 = k8[:2] + (k8[4][:, :768].contiguous(),)
+    for fn, args in ((ln_mlp_residual_bwd, k8), (out_residual_bwd, k9),
+                     (flash_attention_bwd, (q, k, v, out, lse, do))):
+        first = [t.clone() for t in fn(*args)]
+        for a, b in zip(first, fn(*args)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_long_block_grads_match_eager_autograd(dev, monkeypatch):
+    # the long-sequence trainable block (K13/K14, K4/K9, K5/K8) against
+    # autograd through the eager block, fp32, the switch lowered to T - 1
+    from vit_tpu_torch.ops import fused_block
+    from vit_tpu_torch.ops import trainable as TT
+
+    b, t, d, f, h = 2, 197, 256, 1024, 4
+    monkeypatch.setattr(fused_block, "VMEM_ATTENTION_MAX_T", t - 1)
+    x = _rn(dev, 30, b * t, d)
+    k8 = _k8_args(dev, torch.float32, 1, d, f, "exact")
+    k6 = _k6_args(dev, torch.float32, 1, 1, d, h)
+    blk = {"ln1_scale": k6[3], "ln1_bias": k6[4], "wqkv": k6[5], "bqkv": k6[6],
+           "wo": _rn(dev, 34, d, d, scale=d ** -0.5), "bo": _rn(dev, 31, d, scale=0.1),
+           "ln2_scale": k8[2], "ln2_bias": k8[3], "w1": k8[4], "b1": k8[5], "w2": k8[6],
+           "b2": _rn(dev, 32, d, scale=0.1)}
+    weight = _rn(dev, 33, b * t, d)
+
+    def grads(fn):
+        xs = x.clone().requires_grad_(True)
+        bs = {k: v.clone().requires_grad_(True) for k, v in blk.items()}
+        (fn(xs, bs, h, t, 1e-6) * weight).sum().backward()
+        return [xs.grad] + [bs[k].grad for k in TT.BLOCK_KEYS]
+
+    counted = (flash_attention_fwd, flash_attention_bwd, out_residual, out_residual_bwd,
+               ln_mlp_residual, ln_mlp_residual_bwd, ln_qkv_attn, ln_qkv_attn_bwd,
+               ln_mlp_out_residual_bwd)
+    before = [fn.launches for fn in counted]
+    got = grads(TT.encoder_block_trainable)
+    assert [fn.launches - n for fn, n in zip(counted, before)] == [1] * 6 + [0] * 3
+    want = grads(TT._reference_block_2d)
+    for i, (g, w) in enumerate(zip(got, want)):
         err, bound = (g - w).abs().max().item(), 1e-3 * max(1.0, w.abs().max().item())
         assert err <= bound, f"grad {i}: max|d| {err} > {bound}"

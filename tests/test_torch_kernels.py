@@ -160,9 +160,25 @@ def test_fused_encoder_block_matches_pallas(tiny_cfg, tiny_params, variant):
     _close(got, want, "float32")
 
 
-def test_fused_encoder_block_long_sequence_not_ported():
-    with pytest.raises(NotImplementedError, match="K13"):
-        TF.fused_encoder_block(torch.zeros(1025, 64), {}, 4, 1025, 1e-6)
+def test_fused_encoder_block_long_sequence_not_ported(tiny_params, monkeypatch):
+    # past VMEM_ATTENTION_MAX_T the block runs K3 + QKV + K13 + K2 (their
+    # twins here) and computes what the K1 + K2 block does
+    import vit_tpu_torch.ops.kernels.flash_attention as KFA
+
+    calls = []
+    plain = KFA.flash_attention_fwd_plain
+    monkeypatch.setattr(KFA, "flash_attention_fwd_plain", lambda *a: calls.append(1) or plain(*a))
+    t = TF.VMEM_ATTENTION_MAX_T + 1
+    x = torch.from_numpy(_np(31, t, 64))
+    blk = {k: torch.from_numpy(np.array(v[0])) for k, v in tiny_params["blocks"].items()}
+    got = TF.fused_encoder_block(x, blk, 4, t, 1e-6)
+    assert calls == [1]
+    ctx = ln_qkv_attn_plain(x, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"], blk["bqkv"],
+                            4, t, 1e-6)
+    want = out_ln_mlp_residual_plain(ctx, x, blk["wo"], blk["bo"], blk["ln2_scale"],
+                                     blk["ln2_bias"], blk["w1"], blk["b1"], blk["w2"], blk["b2"],
+                                     1e-6)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 # -- GELU helpers ------------------------------------------------------------
@@ -235,7 +251,9 @@ def test_build_hash_covers_every_source():
     assert {p.name for p in cu} == {
         "layer_norm.cu", "ln_qkv_attn.cu", "out_ln_mlp_residual.cu", "out_residual.cu",
         "ln_mlp_residual.cu", "ln_mlp_out_residual_bwd.cu", "ln_qkv_attn_bwd.cu",
-        "out_residual_train.cu", "ln_mlp_residual_train.cu", "ln_mlp_out_residual_bwd_train.cu"}
+        "out_residual_train.cu", "ln_mlp_residual_train.cu", "ln_mlp_out_residual_bwd_train.cu",
+        "flash_attention.cu", "flash_attention_bwd.cu", "ln_mlp_residual_bwd.cu",
+        "out_residual_bwd.cu"}
     assert {p.name for p in cuh} == {"common.cuh", "gemm.cuh", "epilogue.cuh", "attention.cuh",
-                                      "ln_mlp_out_residual_bwd.cuh"}
+                                      "ln_mlp_out_residual_bwd.cuh", "flash.cuh"}
     assert _build.library_path().name == f"libvit_tpu_torch_{_build.source_hash()}.so"

@@ -477,11 +477,25 @@ def test_forward_dropout_rng_raises(tiny_cfg, jparams, batch):
                      get_ops("fused"), dropout_rng=torch.Generator())
 
 
-def test_long_sequence_block_raises():
-    d = 64
-    blk = {k: torch.from_numpy(v) for k, v in _block(d, 256, 70).items()}
-    with pytest.raises(NotImplementedError, match="K13/K14"):
-        TT.encoder_block_trainable(torch.zeros(1025, d), blk, 4, 1025, EPS)
+def test_long_sequence_block_raises(monkeypatch):
+    # past VMEM_ATTENTION_MAX_T the trainable block runs flash attention
+    # (K13/K14's twins here) and the split backward (K8/K9's), and its
+    # gradients are those of autograd through the eager block
+    import vit_tpu_torch.ops.kernels.flash_attention_bwd as KFB
+
+    calls = []
+    plain = KFB.flash_attention_bwd_plain
+    monkeypatch.setattr(KFB, "flash_attention_bwd_plain", lambda *a: calls.append(1) or plain(*a))
+    from vit_tpu_torch.ops import fused_block
+
+    d, t = 64, fused_block.VMEM_ATTENTION_MAX_T + 1
+    x, weight, blk = _np(71, t, d, scale=0.5), _np(72, t, d), _block(d, 128, 70)
+    out, gx, gb = _port_block_grads(TT.encoder_block_trainable, x, blk, weight, 4, t, "exact")
+    assert calls == [1]
+    rout, rgx, rgb = _port_block_grads(TT._reference_block_2d, x, blk, weight, 4, t, "exact")
+    np.testing.assert_allclose(out, rout, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(gx, rgx, atol=1e-4, rtol=1e-4)
+    assert _max_leaf_diff(gb, rgb) <= 1e-4
 
 
 def test_fused_train_table():
@@ -512,7 +526,11 @@ def test_profile_train_flop_counts():
     }
     want.update(out_residual_train=want["out_residual"],
                 ln_mlp_residual_train=want["ln_mlp_residual"],
-                ln_mlp_out_residual_bwd_train=want["ln_mlp_out_residual_bwd"])
+                ln_mlp_out_residual_bwd_train=want["ln_mlp_out_residual_bwd"],
+                flash_attention_fwd=4 * 64 * t ** 2 * 768,
+                flash_attention_bwd=10 * 64 * t ** 2 * 768,
+                ln_mlp_residual_bwd=10 * rows * 768 * 3072,
+                out_residual_bwd=4 * rows * 768 * 768)
     assert layer_flop(VIT_B_16, 64) == want
 
 

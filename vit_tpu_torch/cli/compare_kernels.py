@@ -75,10 +75,23 @@ print(json.dumps(times))
 """
 
 
+def _functions(dump: str) -> dict:
+    """``cuobjdump -sass`` output -> {kernel name: its instructions}."""
+    out, name = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            out[name] = []
+        elif name is not None and "/*" in line:
+            out[name].append(line)
+    return out
+
+
 def same_sass(a: str, b: str, sources) -> dict:
     """{source: True when both checkouts compile it to the same machine
     code} — nvcc with the build's flags to a cubin, then ``cuobjdump
-    -sass``, compared line for line."""
+    -sass``, compared kernel by kernel (the same kernels, each with the
+    same instructions, in whatever order the cubin lists them)."""
     import tempfile
     from pathlib import Path
 
@@ -97,7 +110,7 @@ def same_sass(a: str, b: str, sources) -> dict:
                                check=True, capture_output=True)
                 dump = subprocess.run([cuobjdump, "-sass", cubin], check=True,
                                       capture_output=True, text=True).stdout
-                sass.append([ln for ln in dump.splitlines() if "/*" in ln])  # the instructions
+                sass.append(_functions(dump))
             out[src] = sass[0] == sass[1]
     return out
 

@@ -3,10 +3,13 @@ every kernel wrapper (ms per step and per call, achieved TFLOP/s), the
 step's wall time, and a ``torch.profiler`` pass for device time and the
 top device kernels.  Random weights and images from ``--seed``; AdamW,
 mixed precision unless ``--fp32``, no remat; ``--dropout``/``--drop-path``
-profile the regularized step.
+profile the regularized step; ``--image-size 512`` the long-sequence step
+(T = 1,025, past the 1,024-token switch: flash attention and the split
+backward).
 
     python3 -m vit_tpu_torch.cli.profile_train [--config vit_b_16] [--batch 64] \\
-        [--ops fused_train eager] [--steps 3] [--dropout 0.1 --drop-path 0.1]
+        [--ops fused_train eager] [--steps 3] [--dropout 0.1 --drop-path 0.1] \\
+        [--image-size 512]
 
 Needs a card.  The timing wrappers replace the kernel wrappers for the
 life of the process.
@@ -25,12 +28,14 @@ import torch
 
 _KERNELS = ("ln_qkv_attn", "out_residual", "ln_mlp_residual", "ln_qkv_attn_bwd",
             "ln_mlp_out_residual_bwd", "out_residual_train", "ln_mlp_residual_train",
-            "ln_mlp_out_residual_bwd_train")
+            "ln_mlp_out_residual_bwd_train", "flash_attention_fwd", "flash_attention_bwd",
+            "ln_mlp_residual_bwd", "out_residual_bwd")
 
 
 def layer_flop(cfg, batch: int) -> dict:
     """Multiply-add x 2 of each training kernel for one layer: the GEMMs,
-    with K1 and K6's attention products (4 and 10 of T^2 x D per image)."""
+    with K1 and K6's attention products (4 and 10 of T^2 x D per image;
+    K13 and K14, the long-sequence forward and backward, the same)."""
     t, d, f = cfg.seq_len, cfg.embed_dim, cfg.mlp_dim
     rows = batch * t
     attn = batch * t * t * d
@@ -40,6 +45,10 @@ def layer_flop(cfg, batch: int) -> dict:
         "ln_mlp_residual": 4 * rows * d * f,
         "ln_mlp_out_residual_bwd": 10 * rows * d * f + 4 * rows * d * d,
         "ln_qkv_attn_bwd": 6 * rows * d * 3 * d + 10 * attn,
+        "flash_attention_fwd": 4 * attn,
+        "flash_attention_bwd": 10 * attn,
+        "ln_mlp_residual_bwd": 10 * rows * d * f,
+        "out_residual_bwd": 4 * rows * d * d,
     }
     # the regularized kernels run their unregularized twins' GEMMs in full
     flop.update(out_residual_train=flop["out_residual"],
@@ -50,11 +59,13 @@ def layer_flop(cfg, batch: int) -> dict:
 
 def _time_wrappers(events: dict) -> None:
     """Replace each kernel wrapper by one that records CUDA events around it."""
-    import importlib
+    import sys
+
+    from vit_tpu_torch.ops.kernels import wrapper
 
     for name in _KERNELS:
-        mod = importlib.import_module(f"vit_tpu_torch.ops.kernels.{name}")
-        real = getattr(mod, name)
+        real = wrapper(name)
+        mod = sys.modules[real.__module__]
 
         def timed(*args, _real=real, _name=name, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
@@ -86,6 +97,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dropout", type=float, default=0.0)
     p.add_argument("--drop-path", type=float, default=0.0)
+    p.add_argument("--image-size", type=int, default=0,
+                   help="override the config's image size (512: the long-sequence step)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a card: torch.cuda.is_available() is False")
@@ -93,6 +106,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cfg, b = resolve_config(args.config), args.batch
+    if args.image_size:
+        cfg = cfg.with_image_size(args.image_size)
     regularized = bool(args.dropout or args.drop_path)
     cfg = dataclasses.replace(cfg, dropout=args.dropout, drop_path=args.drop_path)
     x = torch.from_numpy(synth_images(b, cfg, seed=args.seed)).to(dev)

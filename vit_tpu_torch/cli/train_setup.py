@@ -15,6 +15,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from vit_tpu_torch.ops import fused_block
+
 
 class SetupError(Exception):
     """Invalid flag combination; exit code in ``code``."""
@@ -142,10 +144,11 @@ def prepare(args) -> TrainSetup:
         # eager: masks drawn in the plain blocks; fused_train: regenerated in
         # the kernels from one seed per layer (ops/trainable.py).  --ops
         # takes no table without regularizer hooks (argparse refuses fused).
-        if ops_name == "fused_train" and cfg.seq_len > 1024:
+        max_t = fused_block.VMEM_ATTENTION_MAX_T
+        if ops_name == "fused_train" and cfg.seq_len > max_t:
             raise SetupError(
                 "error: --dropout/--drop-path through the fused kernels support "
-                f"seq_len <= 1024 (got {cfg.seq_len}); use --ops eager for very "
+                f"seq_len <= {max_t} (got {cfg.seq_len}); use --ops eager for very "
                 "long sequences"
             )
         cfg = dataclasses.replace(cfg, dropout=args.dropout, drop_path=args.drop_path)

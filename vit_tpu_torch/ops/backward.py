@@ -82,7 +82,8 @@ def fused_encoder_block_bwd(
     The JAX package splits it into K8 + K9 when its VMEM bill passes
     ``MERGED_BWD_VMEM_BUDGET`` (vit_tpu/ops/pallas/backward.py:1014-1019),
     a limit of the TPU's VMEM; K7 keeps its accumulators and scratch in
-    device memory, so that bound does not apply on the card.
+    device memory, so that bound does not apply on the card.  K8 and K9
+    run past the switch, in the long-sequence block (``ops/trainable.py``).
     """
     from vit_tpu_torch.ops.kernels.ln_mlp_out_residual_bwd import ln_mlp_out_residual_bwd
     from vit_tpu_torch.ops.kernels.ln_qkv_attn_bwd import ln_qkv_attn_bwd

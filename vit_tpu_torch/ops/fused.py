@@ -2,14 +2,16 @@
 and ``TRAINABLE_FUSED_OPS``.
 
 ``fused`` (inference):
-  - ``encoder_block``: K1 + K2 (``ops/fused_block.py``);
+  - ``encoder_block``: K1 + K2 (``ops/fused_block.py``); past 1,024 tokens
+    K3 + the QKV GEMM + K13 flash attention + K2;
   - ``layer_norm``: K3, the final LayerNorm over all (B, T, D) rows;
   - ``patch_embed``: the plain reference (one large GEMM, which the JAX
     package also leaves to XLA).
 
 ``fused_train`` (training):
   - ``encoder_block``: K1 -> K4 -> K5 forward, K7 -> K6 backward
-    (``ops/trainable.py``);
+    (``ops/trainable.py``); past 1,024 tokens K13 -> K4 -> K5 forward,
+    K8 -> K9 -> K14 backward, LN1 and the QKV GEMM in plain torch;
   - ``encoder_block_train``: the regularized block, K1 -> K10 -> K11
     forward, K12a -> K6 backward;
   - ``layer_norm``, ``attention``, ``mlp``, ``patch_embed``: the eager

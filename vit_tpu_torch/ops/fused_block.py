@@ -6,6 +6,10 @@ Counterpart of ``vit_tpu.ops.pallas.fused_block.fused_encoder_block``:
   K2 ``out_ln_mlp_residual``  out_proj + residual -> LN2 -> FC1 -> GELU ->
                               FC2 -> residual
 
+Past ``VMEM_ATTENTION_MAX_T`` tokens the block is ``_long_seq_block``: K3
+``layer_norm``, the QKV product as a plain ``reference.linear``, K13
+blockwise flash attention (``ops/flash_attention.py``), then K2.
+
 The shared numerics of the kernels' plain twins live here, as in the JAX
 module: ``_ln`` (fp32 statistics, centred variance) and the GELU helpers
 (``_gelu``, ``_erf``, ``_erf_tanh_inner``, ``use_fast_erf``).  The CUDA
@@ -17,8 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# Past this sequence length the JAX package routes the block to blockwise
-# flash attention (fused_block.VMEM_ATTENTION_MAX_T), which is not ported.
+# Past this sequence length the block runs blockwise flash attention, as
+# the JAX package's (fused_block.VMEM_ATTENTION_MAX_T) does.  Read at call
+# time (tests lower it); it stays at the JAX package's 1024 so that both
+# route alike, though K1 takes any T (PERF.md has the H100 measurement).
 VMEM_ATTENTION_MAX_T = 1024
 
 
@@ -164,6 +170,24 @@ def drop_path_scale_rows(seed: int, site: int, batch: int, seq_len: int, rate: f
     return rows.repeat_interleave(seq_len)
 
 
+def _long_seq_block(x2d, blk, num_heads: int, seq_len: int, eps: float, gelu_variant: str):
+    """The block past ``VMEM_ATTENTION_MAX_T``
+    (``vit_tpu/ops/pallas/fused_block.py:_long_seq_block``): K3 LN1, the
+    packed QKV product (a plain GEMM, as XLA's in JAX), K13, then K2."""
+    from vit_tpu_torch.ops import reference
+    from vit_tpu_torch.ops.flash_attention import flash_context_from_packed_qkv
+    from vit_tpu_torch.ops.kernels.layer_norm import layer_norm
+    from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import out_ln_mlp_residual
+
+    h = layer_norm(x2d, blk["ln1_scale"], blk["ln1_bias"], eps)
+    qkv = reference.linear(h, blk["wqkv"], blk["bqkv"])  # columns (H, 3, Dh)
+    ctx = flash_context_from_packed_qkv(qkv, x2d.shape[0] // seq_len, seq_len, num_heads)
+    return out_ln_mlp_residual(
+        ctx, x2d, blk["wo"], blk["bo"], blk["ln2_scale"], blk["ln2_bias"],
+        blk["w1"], blk["b1"], blk["w2"], blk["b2"], eps, gelu_variant,
+    )
+
+
 def fused_encoder_block(
     x2d: torch.Tensor,
     blk,
@@ -172,13 +196,10 @@ def fused_encoder_block(
     eps: float,
     gelu_variant: str = "exact",
 ) -> torch.Tensor:
-    """One pre-LN encoder block on a flat (B*T, D) activation: K1 then K2."""
+    """One pre-LN encoder block on a flat (B*T, D) activation: K1 then K2,
+    or the long-sequence block past ``VMEM_ATTENTION_MAX_T``."""
     if seq_len > VMEM_ATTENTION_MAX_T:
-        raise NotImplementedError(
-            f"seq_len {seq_len} > {VMEM_ATTENTION_MAX_T}: the JAX package "
-            "routes this to blockwise flash attention (K13), which is not "
-            "ported yet (ROADMAP.md)"
-        )
+        return _long_seq_block(x2d, blk, num_heads, seq_len, eps, gelu_variant)
     from vit_tpu_torch.ops.kernels.ln_qkv_attn import ln_qkv_attn
     from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import out_ln_mlp_residual
 

@@ -43,6 +43,7 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+_L3 = [ctypes.c_longlong] * 3  # a (batch, head, token, dh) view's element strides
 # the regularized kernels' dropout arguments: seed, threshold, kept value,
 # dropout on (fused_block.dropout_launch_args)
 _DROP = [_U, _U, _F, _I]
@@ -77,6 +78,18 @@ SIGNATURES = {
     # dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo, dbo, workspace,
     # rows, d, f, d_ctx, eps, gelu_variant, <dropout>, dtype, device, stream
     "vt_ln_mlp_out_residual_bwd_train": [_P] * 22 + [_I] * 4 + [_F, _I] + _DROP + [_I, _I, _P],
+    # dy, x1, ln_scale, ln_bias, w1, b1, w2, dx1, dgamma, dbeta, dw1, db1,
+    # dw2, db2, workspace, rows, d, f, eps, gelu_variant, dtype, device, stream
+    "vt_ln_mlp_residual_bwd": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # dx1, ctx, wo, dctx, dwo, dbo, workspace, rows, d_ctx, d, dtype, device,
+    # stream
+    "vt_out_residual_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # q, k, v, <strides>, out, <strides>, lse, batch, heads, seq, head_dim,
+    # dtype, device, stream
+    "vt_flash_fwd": [_P] * 3 + _L3 + [_P] + _L3 + [_P] + [_I] * 6 + [_P],
+    # q, k, v, <strides>, dout, <strides>, lse, delta, dq, dk, dv, <strides>,
+    # batch, heads, seq, head_dim, dtype, device, stream
+    "vt_flash_bwd": [_P] * 3 + _L3 + [_P] + _L3 + [_P] * 5 + _L3 + [_I] * 6 + [_P],
 }
 
 # workspace size queries (bytes) of the kernels that carve their scratch
@@ -87,6 +100,10 @@ WORKSPACE_SIGNATURES = {
     "vt_ln_mlp_out_residual_bwd_train_workspace": [_I] * 5,
     # batch, seq, d, heads, head_dim, dtype
     "vt_ln_qkv_attn_bwd_workspace": [_I] * 6,
+    # rows, d, f, dtype
+    "vt_ln_mlp_residual_bwd_workspace": [_I] * 4,
+    # rows, d_ctx, d, dtype
+    "vt_out_residual_bwd_workspace": [_I] * 4,
 }
 
 
@@ -182,9 +199,8 @@ def check(status: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {status} ({msg})")
 
 
-def check_operands(kernel: str, x: torch.Tensor, *others: torch.Tensor) -> None:
-    """Every operand on x's CUDA device, in x's dtype (fp32 or bf16), and
-    contiguous — what the kernels take; anything else raises."""
+def check_dtype_device(kernel: str, x: torch.Tensor, *others: torch.Tensor) -> None:
+    """Every operand on x's CUDA device and in x's dtype (fp32 or bf16)."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel}: expected a CUDA or CPU tensor, got {x.device}")
     if x.dtype not in DTYPE_CODES:
@@ -194,8 +210,14 @@ def check_operands(kernel: str, x: torch.Tensor, *others: torch.Tensor) -> None:
             raise ValueError(f"{kernel}: operands on {t.device} and {x.device}")
         if t.dtype != x.dtype:
             raise TypeError(f"{kernel}: mixed dtypes {t.dtype} and {x.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel}: operands must be contiguous")
+
+
+def check_operands(kernel: str, x: torch.Tensor, *others: torch.Tensor) -> None:
+    """Every operand on x's CUDA device, in x's dtype (fp32 or bf16), and
+    contiguous — what the kernels take; anything else raises."""
+    check_dtype_device(kernel, x, *others)
+    if not all(t.is_contiguous() for t in (x, *others)):
+        raise ValueError(f"{kernel}: operands must be contiguous")
 
 
 def check_shape(kernel: str, name: str, t: torch.Tensor, shape) -> None:

@@ -36,12 +36,10 @@ from vit_tpu_torch.ops.kernels import _build
 from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import GELU_VARIANTS
 
 
-def ln_mlp_out_residual_bwd_plain(
-    dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, eps, gelu_variant: str = "exact",
-):
-    """Plain twin: fp32 compute with casts at the TPU kernel's rounding
-    points.  -> (dx1, dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo, dbo);
-    dx1 and dctx in the dtype, the rest fp32."""
+def mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant="exact"):
+    """The MLP half of the twins of K7 and K8 (K8 is K7 without the
+    out_proj tail): fp32 compute with casts at the TPU kernel's rounding
+    points.  -> (dx1 fp32, dgamma, dbeta, dw1, db1, dw2, db2), all fp32."""
     cd = dy.dtype
     fast = use_fast_erf(cd)
     dyf, gamma = dy.float(), ln_scale.float()
@@ -53,12 +51,25 @@ def ln_mlp_out_residual_bwd_plain(
     du_c = du.to(cd)
     dh2 = du_c.float() @ w1.float().t()
     dx1 = dyf + _ln_bwd_dx(dh2, xhat, inv, gamma)
+    return (
+        dx1, (dh2 * xhat).sum(0), dh2.sum(0), h2.float().t() @ du_c.float(), du.sum(0),
+        g.to(cd).float().t() @ dyf, dyf.sum(0),
+    )
+
+
+def ln_mlp_out_residual_bwd_plain(
+    dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, eps, gelu_variant: str = "exact",
+):
+    """Plain twin: fp32 compute with casts at the TPU kernel's rounding
+    points.  -> (dx1, dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo, dbo);
+    dx1 and dctx in the dtype, the rest fp32."""
+    cd = dy.dtype
+    dx1, dgamma, dbeta, dw1, db1, dw2, db2 = mlp_residual_bwd_plain(
+        dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant)
     dx1_c = dx1.to(cd)
     dctx = (dx1_c.float() @ wo.float().t()).to(cd)
     return (
-        dx1_c, dctx, (dh2 * xhat).sum(0), dh2.sum(0),
-        h2.float().t() @ du_c.float(), du.sum(0),
-        g.to(cd).float().t() @ dyf, dyf.sum(0),
+        dx1_c, dctx, dgamma, dbeta, dw1, db1, dw2, db2,
         ctx.float().t() @ dx1_c.float(), dx1.sum(0),
     )
 

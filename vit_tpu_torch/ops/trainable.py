@@ -15,19 +15,26 @@ The regularized block (``encoder_block_train``) runs K1 -> K10 -> K11
 forward and K12a -> K6 backward: dropout at torchvision's three in-block
 sites and stochastic depth, with the masks regenerated in each kernel from
 one seed per layer.
+
+Past ``fused_block.VMEM_ATTENTION_MAX_T`` tokens the block is
+``_long_seq_block_trainable``: LN1 and the QKV product in plain
+differentiable torch, flash attention (K13 forward, K14 backward), then
+``OutResidualFn`` (K4 forward, K9 backward) and ``LnMlpResidualFn`` (K5
+forward, K8 backward) — the counterparts of the JAX module's
+``_out_residual_diff`` and ``_ln_mlp_residual_diff``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from vit_tpu_torch.ops import fused_block
 from vit_tpu_torch.ops.fused_block import (
     DROP_SITE_ATTN_OUT,
     DROP_SITE_DP_ATTN,
     DROP_SITE_DP_MLP,
     DROP_SITE_MLP_INNER,
     DROP_SITE_MLP_OUT,
-    VMEM_ATTENTION_MAX_T,
     drop_path_scale_rows,
     dropout_mask,
 )
@@ -90,18 +97,77 @@ class FusedEncoderBlockFn(torch.autograd.Function):
         return (dx, None, None, None, None, *(dblk[k] for k in BLOCK_KEYS))
 
 
+class OutResidualFn(torch.autograd.Function):
+    """(ctx, res, wo, bo) -> res + ctx @ wo + bo, rounded: K4 forward, K9
+    backward.  The residual's gradient is the upstream gradient itself."""
+
+    @staticmethod
+    def forward(ctx, attn, res, wo, bo):
+        from vit_tpu_torch.ops.kernels.out_residual import out_residual
+
+        ctx.save_for_backward(attn, wo, bo)
+        return out_residual(attn, res, wo, bo)
+
+    @staticmethod
+    def backward(ctx, g):
+        from vit_tpu_torch.ops.kernels.out_residual_bwd import out_residual_bwd
+
+        attn, wo, bo = ctx.saved_tensors
+        dctx, dwo, dbo = out_residual_bwd(g.contiguous(), attn, wo)
+        return dctx, g, dwo.to(wo.dtype), dbo.to(bo.dtype)
+
+
+class LnMlpResidualFn(torch.autograd.Function):
+    """(x1, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_variant) -> x1 +
+    MLP(LN2(x1)): K5 forward, K8 backward; each gradient in its input's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x1, s, b, w1, b1, w2, b2, eps, gelu_variant):
+        from vit_tpu_torch.ops.kernels.ln_mlp_residual import ln_mlp_residual
+
+        ctx.save_for_backward(x1, s, b, w1, b1, w2, b2)
+        ctx.block_args = (eps, gelu_variant)
+        return ln_mlp_residual(x1, s, b, w1, b1, w2, b2, eps, gelu_variant)
+
+    @staticmethod
+    def backward(ctx, g):
+        from vit_tpu_torch.ops.kernels.ln_mlp_residual_bwd import ln_mlp_residual_bwd
+
+        x1, *params = ctx.saved_tensors
+        s, b, w1, b1, w2, _ = params
+        dx1, *grads = ln_mlp_residual_bwd(g.contiguous(), x1, s, b, w1, b1, w2, *ctx.block_args)
+        return (dx1, *(d.to(p.dtype) for d, p in zip(grads, params)), None, None)
+
+
+def _long_seq_block_trainable(x2d, blk, num_heads: int, seq_len: int, eps: float,
+                              gelu_variant: str = "exact"):
+    """The differentiable block past ``VMEM_ATTENTION_MAX_T``
+    (``vit_tpu/ops/pallas/trainable.py:_long_seq_block_trainable``): plain
+    LN1 + QKV, flash attention (K13/K14), then K4/K9 and K5/K8."""
+    from vit_tpu_torch.ops import reference as R
+    from vit_tpu_torch.ops.flash_attention import flash_context_from_packed_qkv
+
+    rows, d = x2d.shape
+    b = rows // seq_len
+    h = R.layer_norm(x2d.reshape(b, seq_len, d), blk["ln1_scale"], blk["ln1_bias"], eps)
+    qkv = R.linear(h, blk["wqkv"], blk["bqkv"])  # columns (H, 3, Dh)
+    ctx2 = flash_context_from_packed_qkv(qkv, b, seq_len, num_heads)
+    x1 = OutResidualFn.apply(ctx2, x2d, blk["wo"], blk["bo"])
+    return LnMlpResidualFn.apply(
+        x1, blk["ln2_scale"], blk["ln2_bias"], blk["w1"], blk["b1"], blk["w2"], blk["b2"],
+        eps, gelu_variant,
+    )
+
+
 def encoder_block_trainable(
     x2d, blk, num_heads: int, seq_len: int, eps: float, gelu_variant: str = "exact"
 ):
     """The ``fused_train`` table's encoder block on a flat (B*T, D)
-    activation.  Past ``VMEM_ATTENTION_MAX_T`` the JAX package trains
-    through the blockwise flash-attention VJP, which is not ported."""
-    if seq_len > VMEM_ATTENTION_MAX_T:
-        raise NotImplementedError(
-            f"seq_len {seq_len} > {VMEM_ATTENTION_MAX_T}: the JAX package "
-            "trains this through blockwise flash attention (K13/K14) and the "
-            "split backward (K8/K9), which are not ported yet (ROADMAP.md)"
-        )
+    activation; past ``fused_block.VMEM_ATTENTION_MAX_T`` (read at call
+    time), the long-sequence block."""
+    if seq_len > fused_block.VMEM_ATTENTION_MAX_T:
+        return _long_seq_block_trainable(x2d, blk, num_heads, seq_len, eps, gelu_variant)
     return FusedEncoderBlockFn.apply(
         x2d, num_heads, seq_len, eps, gelu_variant, *(blk[k] for k in BLOCK_KEYS)
     )
@@ -169,10 +235,11 @@ def encoder_block_train(
     ``dropout_p`` the config's rate and ``drop_path_rate`` the layer's
     stochastic-depth rate.  The dropout masks are regenerated in the kernels
     from the seed."""
-    if seq_len > VMEM_ATTENTION_MAX_T:
+    max_t = fused_block.VMEM_ATTENTION_MAX_T
+    if seq_len > max_t:
         raise ValueError(
             f"dropout/drop-path through the fused kernels supports seq_len <= "
-            f"{VMEM_ATTENTION_MAX_T} (got {seq_len}); train very long sequences "
+            f"{max_t} (got {seq_len}); train very long sequences "
             "with --ops eager"
         )
     dp_attn, dp_mlp = _drop_path_rows(x2d, seq_len, seed, drop_path_rate)
