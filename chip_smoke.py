@@ -68,14 +68,44 @@ Phases (a failed phase raises; nothing is caught):
      long train step, fused against eager, timed in turns;
  19. where the 1,024-token switch sits: the K1 + K2 block against the
      K3 + QKV GEMM + K13 + K2 block at T = 577 and T = 1,025 (batch 16,
-     bf16), timed in turns.
+     bf16), timed in turns;
+ 20. the W8A8 kernels (K15 ln_qkv_attn_q8, K16 out_ln_mlp_residual_q8, K17
+     ln_mlp_residual_q8) against their plain twins, bf16 and fp32, at B/16
+     shapes for batch 100 and a ragged batch of 3, and K15's stages 1-2
+     (ln_qkv_q8, the long block's int8 QKV stage) at @512 shapes, batch 16
+     and 3, all timed.  Each by two checks (``vit_tpu_torch/eval/
+     quant_stages.py`` derives the bounds): (a) every row quantizer's codes
+     and scales against the twin's quantizer on the kernel's own input
+     stage — each code within 1, at most 1e-3 of them different, scales
+     within 2^-20; bit for bit where the input is the fp32 ``mid`` scratch;
+     (b) every other stage against the twin's stage run on the kernel's own
+     codes and scales, at the tolerance above; and the output against the
+     whole twin's within 2^-6 (a few moved codes).  The int8 GEMM core
+     alone is timed at the three GEMM shapes beside ``torch._int_mm``;
+ 21. the classify CLI with ``--ops quant`` (otherwise as in 4), counts set to
+     0 just before and read just after (12 K15, 12 K16, 1 K3; none of K1,
+     K2, K13, K17);
+ 22. W8A8 correctness at full width: bf16 ``quant`` vs fp32 ``fused`` over
+     the batch of 100 by the comparator rule (the quant path's contract is
+     that labels survive), and fp32 ``quant`` on the card vs the same model
+     through the quant kernels' plain twins (8 images).  Twelve layers of
+     quantizers amplify every moved code, so the logits are held to the
+     comparator rule and to moving less than int8 itself moves them
+     against fp32 ``fused``; the kernels are held tightly in phase 20;
+ 23. the long W8A8 path: ``InferenceEngine`` at B/16 @512, batch 16, bf16,
+     ``quant``, counts set to 0 just before and read just after (12 of the
+     int8 QKV stage, 12 K13, 12 K16, 1 K3 — LN1 lives inside the QKV stage;
+     none of K1, K2, K15); bf16 vs fp32 ``quant`` by the comparator rule;
+ 24. images/s and peak device memory of ``quant``, ``fused`` and ``eager``,
+     bf16, at @224 batch 100 and @512 batch 16, timed in turns.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the card's name and power limit, and the one before
 that a JSON object with one entry per kernel: its time, its plain twin's,
 the least time the card could take for the same work (bytes over 3.35 TB/s
-or operations over the dtype's peak, whichever is larger), one PyTorch
+or operations over the dtype's peak — int8 operations over the int8 peak —
+whichever is larger), one PyTorch
 call's time where one computes the same function, and its launches on the
 main path.  Imports nothing of JAX.
 """
@@ -147,6 +177,17 @@ LONG_KERNELS = {
     "out_residual_bwd": ("K9", "vit_tpu_torch/csrc/out_residual_bwd.cu",
                          "vit_tpu/ops/pallas/backward.py:779"),
 }
+QUANT_KERNELS = {
+    "ln_qkv_attn_q8": ("K15", "vit_tpu_torch/csrc/ln_qkv_attn_q8.cu",
+                       "vit_tpu/ops/pallas/quant_kernels.py:152"),
+    "out_ln_mlp_residual_q8": ("K16", "vit_tpu_torch/csrc/out_ln_mlp_residual_q8.cu",
+                               "vit_tpu/ops/pallas/quant_kernels.py:195"),
+    "ln_mlp_residual_q8": ("K17", "vit_tpu_torch/csrc/ln_mlp_residual_q8.cu",
+                           "vit_tpu/ops/pallas/quant_kernels.py:260"),
+    # K15's stages 1-2 as the long W8A8 block launches them (plain jnp there)
+    "ln_qkv_q8": ("K15 stages 1-2", "vit_tpu_torch/csrc/ln_qkv_attn_q8.cu",
+                  "vit_tpu/ops/pallas/quant_kernels.py:38"),
+}
 LONG_IMAGE = 512  # ViT-B/16 @512: T = 1,025, past the 1,024-token switch
 LONG_BATCHES = (16, 3)
 LONG_T = 2048  # the flash cases' longest sequence, at batch LONG_T_BATCH
@@ -158,8 +199,9 @@ REG_SEED = 0x9E3779B9  # >= 2^31: the full uint32 range reaches the kernels
 REG_FLAGS = ["--dropout", str(REG_P), "--drop-path", str(REG_P)]
 
 # the card's peaks (H100 SXM data sheet): dense tensor-core bf16 and fp32
-# FMA outside the tensor cores, and HBM3 bandwidth
+# FMA outside the tensor cores, dense tensor-core int8, and HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -277,10 +319,12 @@ def kernel_cases(dev: torch.device):
     return cases
 
 
-def bound(flops: float, nbytes: float, dtype) -> tuple:
+def bound(flops: float, nbytes: float, dtype, int8_ops: float = 0.0) -> tuple:
     """(ms, 'bytes' or 'operations'): the least time the card could take to
-    move ``nbytes`` once and do ``flops`` at the dtype's peak."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    move ``nbytes`` once and do ``flops`` at the dtype's peak (and
+    ``int8_ops`` at the int8 tensor-core peak)."""
+    t_ops = flops / PEAK_FLOPS[dtype] + int8_ops / PEAK_INT8_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -547,9 +591,11 @@ def phase_regularizer_checks(dev: torch.device) -> None:
             raise RuntimeError("a regularized kernel at zero rates differs from its plain kernel")
 
 
-def phase_cli(params, workdir: str) -> dict:
-    """Phase 4: the classify CLI on the card, on ``params`` saved as an npz.
-    -> launch counts of its run."""
+def phase_cli(params, workdir: str, ops: str = "fused", kernels=("ln_qkv_attn",
+                                                                    "out_ln_mlp_residual")) -> dict:
+    """Phases 4 and 21: the classify CLI on the card with ``--ops ops``, on
+    ``params`` saved as an npz: 12 launches of each of ``kernels``, one of
+    K3, none of any other.  -> launch counts of its run."""
     from vit_tpu_torch.cli.main import main
     from vit_tpu_torch.eval import comparator
     from vit_tpu_torch.io import checkpoint
@@ -561,13 +607,13 @@ def phase_cli(params, workdir: str) -> dict:
     wrappers = _reset_counts()
     with contextlib.redirect_stdout(buf):
         rc = main([
-            "--weights", weights, "--synth", "100", "--ops", "fused", "--dtype", "bfloat16",
+            "--weights", weights, "--synth", "100", "--ops", ops, "--dtype", "bfloat16",
             "--device", "cuda", "--batch-pad", "100", "--json", "--output", result,
         ])
     launches = {name: fn.launches for name, fn in wrappers.items()}
     out = buf.getvalue().splitlines()
-    log("\n".join(["cli: " + line for line in out[:3] + out[-2:]]))
-    log(f"cli: rc {rc}, launches {launches}")
+    log("\n".join([f"cli --ops {ops}: " + line for line in out[:3] + out[-2:]]))
+    log(f"cli --ops {ops}: rc {rc}, launches {launches}")
     if rc != 0:
         raise RuntimeError(f"classify CLI exited {rc}")
     fmt = re.compile(r"^\[\d+\] label: \d+ / prob: \d+\.\d{6}")
@@ -576,15 +622,33 @@ def phase_cli(params, workdir: str) -> dict:
     if [r.index for r in comparator.parse_result_file(result)] != list(range(100)):
         raise RuntimeError("classify CLI's --output is not 100 well-formed lines")
     want = {name: 0 for name in wrappers}
-    want.update(ln_qkv_attn=12, out_ln_mlp_residual=12, layer_norm=1)
+    want.update({name: 12 for name in kernels}, layer_norm=1)
     if launches != want:
-        raise RuntimeError(f"expected 12/12/1 kernel launches per forward, got {launches}")
+        raise RuntimeError(f"--ops {ops}: expected 12/12/1 launches of {kernels} and layer_norm "
+                           f"per forward, got {launches}")
     return launches
 
 
 def _probs(logits: np.ndarray) -> np.ndarray:
     e = np.exp(logits - logits.max(-1, keepdims=True))
     return e / e.sum(-1, keepdims=True)
+
+
+def _comparator_rule(what: str, p: np.ndarray, p32: np.ndarray) -> None:
+    """bench.py's rule for a lower-precision path against fp32 probabilities
+    ``p32``: no label differs where fp32's top-1 beats its top-2 by more
+    than 0.01, and the top probability moves by at most 0.01."""
+    l32, lp = p32.argmax(-1), p.argmax(-1)
+    n = len(l32)
+    top2 = np.sort(p32, -1)[:, -2:]
+    decisive = (top2[:, 1] - top2[:, 0]) > 0.01
+    n_bad = int(((lp != l32) & decisive).sum())
+    prob_dev = float(np.abs(p[np.arange(n), lp] - p32[np.arange(n), l32]).max())
+    log(f"{what}, {n} images: {int(decisive.sum())} decisive, "
+        f"{n_bad} decisive label mismatches (tol 0), {int((lp != l32).sum())} mismatches in all, "
+        f"top-prob max|d|={prob_dev:.6g} (tol 0.01)")
+    if n_bad or not prob_dev <= 0.01:
+        raise RuntimeError(f"{what}: fails the comparator rule")
 
 
 def phase_correctness(params, images: np.ndarray, dev: torch.device) -> None:
@@ -618,51 +682,55 @@ def phase_correctness(params, images: np.ndarray, dev: torch.device) -> None:
     del fused32
     fused16 = InferenceEngine(cfg, params, "bfloat16", "fused", dev, batch_pad=1)
     p16 = _probs(fused16.logits(images).cpu().numpy())
-    l32, l16 = p32.argmax(-1), p16.argmax(-1)
-    n = len(l32)
-    top2 = np.sort(p32, -1)[:, -2:]
-    decisive = (top2[:, 1] - top2[:, 0]) > 0.01
-    n_bad = int(((l16 != l32) & decisive).sum())
-    prob_dev = float(np.abs(p16[np.arange(n), l16] - p32[np.arange(n), l32]).max())
-    log(f"bf16 fused vs fp32 fused, {n} images: {int(decisive.sum())} decisive, "
-        f"{n_bad} decisive label mismatches (tol 0), {int((l16 != l32).sum())} mismatches in all, "
-        f"top-prob max|d|={prob_dev:.6g} (tol 0.01)")
-    if n_bad or not prob_dev <= 0.01:
-        raise RuntimeError("bf16 fused path fails the comparator rule against fp32")
+    _comparator_rule("bf16 fused vs fp32 fused", p16, p32)
+
+
+def _inference_rates(cfg, params, x, ops_list, dev, card: str, what: str, rounds: int) -> dict:
+    """img/s of ``InferenceEngine.logits`` on the device batch ``x``, bf16,
+    for each op table of ``ops_list``, timed in turns (a b c c b a per
+    round), and the peak device memory of one forward of each: its own
+    params, ``x`` and its activations, whatever else is on the card."""
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    n = x.shape[0]
+    engines, peak = {}, {}
+    for ops in ops_list:
+        others = torch.cuda.memory_allocated() - x.numel() * x.element_size()
+        engines[ops] = InferenceEngine(cfg, params, "bfloat16", ops, dev, batch_pad=n)
+        engines[ops].logits(x)  # warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engines[ops].logits(x)
+        peak[ops] = (torch.cuda.max_memory_allocated() - others) / 2 ** 30
+    times = {ops: [] for ops in engines}
+    for _ in range(rounds):
+        for ops in (*ops_list, *ops_list[::-1]):
+            t0 = time.perf_counter()
+            engines[ops].logits(x)
+            torch.cuda.synchronize()
+            times[ops].append(time.perf_counter() - t0)
+    rates = {ops: n / statistics.median(t) for ops, t in times.items()}
+    for ops, ts in times.items():
+        log(f"{what} {ops} {cfg.name} batch {n} bf16: {rates[ops]:.6g} img/s (median of "
+            f"{len(ts)}, forward {statistics.median(ts) * 1e3:.6g} ms); peak device memory "
+            f"{peak[ops]:.6g} GiB; {card}")
+    return rates
 
 
 def phase_throughput(params, images: np.ndarray, dev: torch.device, card: str) -> dict:
     """Phase 6: images/s at batch 100 bf16, fused and eager timed in turns."""
     from vit_tpu_torch.config import VIT_B_16
-    from vit_tpu_torch.runtime.engine import InferenceEngine
 
-    engines = {
-        ops: InferenceEngine(VIT_B_16, params, "bfloat16", ops, dev, batch_pad=100)
-        for ops in ("fused", "eager")
-    }
     x = torch.from_numpy(images).to(dev, torch.bfloat16)
-    for engine in engines.values():  # warm up
-        engine.logits(x)
-    torch.cuda.synchronize()
-    times = {ops: [] for ops in engines}
-    for _ in range(5):
-        for ops in ("fused", "eager", "eager", "fused"):
-            t0 = time.perf_counter()
-            engines[ops].logits(x)
-            torch.cuda.synchronize()
-            times[ops].append(time.perf_counter() - t0)
-    rates = {ops: len(images) / statistics.median(t) for ops, t in times.items()}
-    for ops, rate in rates.items():
-        log(f"throughput {ops} bf16 batch {len(images)}: {rate:.6g} img/s "
-            f"(median of {len(times[ops])}; {card})")
-    return rates
+    return _inference_rates(VIT_B_16, params, x, ("fused", "eager"), dev, card, "throughput", 5)
 
 
 def all_wrappers() -> dict:
     """Every kernel wrapper of the port, by name (each carries ``launches``)."""
     from vit_tpu_torch.ops.kernels import wrapper
 
-    return {name: wrapper(name) for name in (*KERNELS, *TRAIN_KERNELS, *REG_KERNELS, *LONG_KERNELS)}
+    return {name: wrapper(name) for name in (*KERNELS, *TRAIN_KERNELS, *REG_KERNELS, *LONG_KERNELS,
+                                             *QUANT_KERNELS)}
 
 
 def _reset_counts() -> dict:
@@ -968,17 +1036,7 @@ def phase_long_inference(dev: torch.device) -> dict:
         f"max|d logit|={dev_eager:.6g} (tol 1e-3)")
     if not dev_eager <= 1e-3:
         raise RuntimeError("long fp32 fused logits outside 1e-3 of the eager path")
-    p32, p16 = _probs(f32), _probs(l16)
-    l32, lb = p32.argmax(-1), p16.argmax(-1)
-    n = len(l32)
-    top2 = np.sort(p32, -1)[:, -2:]
-    decisive = (top2[:, 1] - top2[:, 0]) > 0.01
-    n_bad = int(((lb != l32) & decisive).sum())
-    prob_dev = float(np.abs(p16[np.arange(n), lb] - p32[np.arange(n), l32]).max())
-    log(f"long bf16 fused vs fp32 fused, {n} images: {int(decisive.sum())} decisive, {n_bad} "
-        f"decisive label mismatches (tol 0), top-prob max|d|={prob_dev:.6g} (tol 0.01)")
-    if n_bad or not prob_dev <= 0.01:
-        raise RuntimeError("long bf16 fused path fails the comparator rule against fp32")
+    _comparator_rule("long bf16 fused vs fp32 fused", _probs(l16), _probs(f32))
     return launches
 
 
@@ -1039,31 +1097,11 @@ def phase_long_throughput(dev: torch.device, card: str) -> None:
     16 bf16, in turns), then the long train step's (fused_train vs eager)."""
     from vit_tpu_torch.config import VIT_B_16
     from vit_tpu_torch.io.images import synth_images
-    from vit_tpu_torch.runtime.engine import InferenceEngine
 
     cfg = VIT_B_16.with_image_size(LONG_IMAGE)
-    params = synth_params(cfg, 0)
     x = torch.from_numpy(synth_images(16, cfg, seed=8)).to(dev, torch.bfloat16)
-    engines, peak = {}, {}
-    for ops in ("fused", "eager"):
-        engines[ops] = InferenceEngine(cfg, params, "bfloat16", ops, dev, batch_pad=16)
-        engines[ops].logits(x)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        engines[ops].logits(x)
-        peak[ops] = torch.cuda.max_memory_allocated() / 2 ** 30
-    times = {ops: [] for ops in engines}
-    for _ in range(4):
-        for ops in ("fused", "eager", "eager", "fused"):
-            t0 = time.perf_counter()
-            engines[ops].logits(x)
-            torch.cuda.synchronize()
-            times[ops].append(time.perf_counter() - t0)
-    for ops, ts in times.items():
-        log(f"long classify throughput {ops} {cfg.name} batch 16 bf16: "
-            f"{16 / statistics.median(ts):.6g} img/s (median of {len(ts)}, forward "
-            f"{statistics.median(ts) * 1e3:.6g} ms); peak device memory {peak[ops]:.6g} GiB; {card}")
-    del engines
+    _inference_rates(cfg, synth_params(cfg, 0), x, ("fused", "eager"), dev, card,
+                     "long classify throughput", 4)
     torch.cuda.empty_cache()
     _train_rates(dev, card, {"fused_train": ("fused_train", False), "eager": ("eager", False)},
                  "long train throughput", base=cfg, b=16)
@@ -1107,6 +1145,209 @@ def phase_switch(dev: torch.device, card: str) -> None:
         a, b = (statistics.median(v) for v in ms.values())
         log(f"switch at T {t}, B/16 batch 16 bf16: K1+K2 block {a:.6g} ms, K3+GEMM+K13+K2 "
             f"block {b:.6g} ms (ratio {b / a:.6g}); outputs max|d|={err:.6g}; {card}")
+
+
+def quant_kernel_cases(dev: torch.device):
+    """-> {kernel: [case]} for K15-K17 at B/16 shapes (batch 100 and 3) and
+    for K15's stages 1-2 at @512 shapes (batch 16 and 3).  A case holds the
+    wrapper, its ``_stages`` function, its plain twin, the stage checks
+    (``eval/quant_stages.py``), and the int8 operations and FLOPs its
+    function needs."""
+    from vit_tpu_torch.eval import quant_stages as qs
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_q8 as k17
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_q8 as k15
+    from vit_tpu_torch.ops.kernels import out_ln_mlp_residual_q8 as k16
+
+    d, h, f, t = B16["d"], B16["heads"], B16["f"], B16["t"]
+    t512 = (LONG_IMAGE // 16) ** 2 + 1
+    rn = _rand(dev, 10)
+    cases = {name: [] for name in QUANT_KERNELS}
+
+    def add(name, mod, dtype, b, rows, args, int8_ops, flops, out="out", plain=None, check=None):
+        cases[name].append(dict(
+            tag=_tag(dtype, b, rows), dtype=dtype, batch=b, args=args, out=out,
+            kernel=getattr(mod, name), stages=getattr(mod, f"_{name}_stages"),
+            plain=plain or getattr(mod, f"{name}_plain"), int8_ops=int8_ops, flops=flops,
+            check=check or getattr(qs, f"check_{name}")))
+
+    # the stages' twin returns (hq, hs, qkv); its checks take K15's operands
+    qkv_plain = lambda *a: k15.ln_qkv_q8_plain(*a)[2]  # noqa: E731
+    qkv_check = lambda st, end, *a: qs.check_ln_qkv_attn_q8(  # noqa: E731
+        st, end, *a[:6], None, None, a[6])
+
+    for dtype in (torch.bfloat16, torch.float32):
+        s1, b1n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+        wq, ws = quant.quantize_weight(rn(d, 3 * d, scale=d ** -0.5))
+        bqkv = rn(3 * d, scale=0.1, dtype=dtype)
+        wo, bo = rn(d, d, scale=d ** -0.5, dtype=dtype), rn(d, scale=0.1, dtype=dtype)
+        (w1q, w1s), bb1 = quant.quantize_weight(rn(d, f, scale=d ** -0.5)), rn(f, scale=0.1, dtype=dtype)
+        (w2q, w2s), bb2 = quant.quantize_weight(rn(f, d, scale=f ** -0.5)), rn(d, scale=0.1, dtype=dtype)
+        mlp = (s1, b1n, w1q, w1s, bb1, w2q, w2s, bb2, 1e-6, "exact")
+        for b in BATCHES:
+            rows = b * t
+            x = rn(rows, d, scale=2.0, dtype=dtype)
+            a15 = (x, s1, b1n, wq, ws, bqkv, h, t, 1e-6)
+            ctx = k15.ln_qkv_attn_q8_plain(*a15)
+            add("ln_qkv_attn_q8", k15, dtype, b, rows, a15, 2 * rows * d * 3 * d,
+                4 * b * t * t * d, out="ctx")
+            add("out_ln_mlp_residual_q8", k16, dtype, b, rows, (ctx, x, wo, bo, *mlp),
+                4 * rows * d * f, 2 * rows * d * d)
+            add("ln_mlp_residual_q8", k17, dtype, b, rows, (x, *mlp), 4 * rows * d * f, 0)
+        for b in LONG_BATCHES:
+            rows = b * t512
+            x = rn(rows, d, scale=2.0, dtype=dtype)
+            add("ln_qkv_q8", k15, dtype, b, rows, (x, s1, b1n, wq, ws, bqkv, 1e-6),
+                2 * rows * d * 3 * d, 0, out="qkv", plain=qkv_plain, check=qkv_check)
+    return cases
+
+
+def phase_quant_kernels(cases: dict) -> dict:
+    """Phase 20: each W8A8 kernel's stages against its twin's by the two
+    checks, then the timings.  -> {kernel: summary at bf16, the path's
+    batch}; ``max_abs_err`` is the output's deviation from the whole twin's
+    (moved codes included)."""
+    summary = {}
+    for name, kcases in cases.items():
+        for c in kcases:
+            args, dtype = c["args"], c["dtype"]
+            st, end = c["stages"](*args), c["plain"](*args)
+            torch.cuda.synchronize()
+            report = c["check"](st, end, *args)
+            err = (st[c["out"]].float() - end.float()).abs().max().item()
+            nbytes = _nbytes([a for a in args if torch.is_tensor(a)]) + _nbytes([st[c["out"]]])
+            del st, end
+            ms, plain_ms = cuda_ms(lambda: c["kernel"](*args)), cuda_ms(lambda: c["plain"](*args))
+            bound_ms, bound_by = bound(c["flops"], nbytes, dtype, c["int8_ops"])
+            log(f"{QUANT_KERNELS[name][0]} {name} {c['tag']}: stages "
+                + ", ".join(f"{k} {v:.3g}" for k, v in report.items())
+                + f"; vs the whole twin max|d|={err:.6g}; kernel {ms:.6g} ms, plain "
+                f"{plain_ms:.6g} ms, library none, bound {bound_ms:.6g} ms ({bound_by})")
+            if dtype == torch.bfloat16 and c["batch"] == kcases[0]["batch"]:
+                summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return summary
+
+
+def phase_int8_gemm(dev: torch.device, card: str) -> None:
+    """The int8 GEMM core alone at the W8A8 path's three GEMM shapes (batch
+    100), exact against the float64 reference, timed beside
+    ``torch._int_mm`` (a yardstick for later work; the port never calls it)."""
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels.ln_qkv_attn_q8 import gemm_q8_dequant
+
+    d, f, rows = B16["d"], B16["f"], 100 * B16["t"]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for what, (m, k, n) in (("QKV", (rows, d, 3 * d)), ("FC1", (rows, d, f)), ("FC2", (rows, f, d))):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        sa, sb = torch.rand(m, generator=gen, device=dev) + 0.1, torch.rand(n, generator=gen, device=dev) + 0.1
+        if not torch.equal(gemm_q8_dequant(a, sa, b, sb), quant.int8_matmul_reference(a, sa, b, sb)):
+            raise RuntimeError(f"int8 GEMM core {what} ({m} x {k} x {n}) is not exact")
+        ms = cuda_ms(lambda: gemm_q8_dequant(a, sa, b, sb))
+        try:  # a private torch function: its absence or refusal fails nothing here
+            lib = cuda_ms(lambda: torch._int_mm(a, b))
+            yardstick = f"{lib:.6g} ms ({2 * m * k * n / lib / 1e9:.6g} TOP/s)"
+        except (AttributeError, RuntimeError) as e:
+            yardstick = f"unavailable ({type(e).__name__})"
+        log(f"int8 GEMM core {what} {m} x {k} x {n}: exact; {ms:.6g} ms "
+            f"({2 * m * k * n / ms / 1e9:.6g} TOP/s), torch._int_mm {yardstick}; {card}")
+
+
+def _quant_twin_ops():
+    """The ``quant`` op table with every kernel replaced by its plain twin."""
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.ops.kernels.layer_norm import layer_norm_plain
+    from vit_tpu_torch.ops.kernels.ln_qkv_attn_q8 import ln_qkv_attn_q8_plain
+    from vit_tpu_torch.ops.kernels.out_ln_mlp_residual_q8 import out_ln_mlp_residual_q8_plain
+
+    def block(x2d, blk, num_heads, seq_len, eps, gelu_variant="exact"):
+        ctx = ln_qkv_attn_q8_plain(x2d, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"],
+                                   blk["wqkv_scale"], blk["bqkv"], num_heads, seq_len, eps)
+        return out_ln_mlp_residual_q8_plain(
+            ctx, x2d, blk["wo"], blk["bo"], blk["ln2_scale"], blk["ln2_bias"], blk["w1"],
+            blk["w1_scale"], blk["b1"], blk["w2"], blk["w2_scale"], blk["b2"], eps, gelu_variant)
+
+    return dataclasses.replace(get_ops("quant"), name="quant_twin", layer_norm=layer_norm_plain,
+                               encoder_block=block)
+
+
+def phase_quant_correctness(params, images: np.ndarray, dev: torch.device) -> None:
+    """Phase 22: bf16 quant vs fp32 fused (comparator rule: labels survive
+    int8), and fp32 quant vs the same model through the kernels' twins."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = VIT_B_16
+    fused32 = InferenceEngine(cfg, params, "float32", "fused", dev, batch_pad=1)
+    f32 = fused32.logits(images).cpu().numpy()
+    del fused32
+    quant16 = InferenceEngine(cfg, params, "bfloat16", "quant", dev, batch_pad=1)
+    q16 = quant16.logits(images).cpu().numpy()
+    del quant16
+    if q16.shape != (len(images), cfg.num_classes) or not np.isfinite(q16).all():
+        raise RuntimeError(f"bf16 quant logits: shape {q16.shape} or non-finite")
+    log(f"bf16 quant vs fp32 fused, {len(images)} images: max|d logit|="
+        f"{float(np.abs(q16 - f32).max()):.6g} (int8 noise over 12 layers; not gated)")
+    _comparator_rule("bf16 quant vs fp32 fused", _probs(q16), _probs(f32))
+
+    quant32 = InferenceEngine(cfg, params, "float32", "quant", dev, batch_pad=1)
+    x = torch.from_numpy(images[:8]).to(dev)
+    k32 = quant32.logits(x)
+    with torch.inference_mode():
+        t32 = vit.forward(quant32.params, x, cfg, _quant_twin_ops())
+    k32, t32 = k32.cpu().numpy(), t32.cpu().numpy()
+    err, noise = float(np.abs(k32 - t32).max()), float(np.abs(k32 - f32[:8]).max())
+    log(f"fp32 quant kernels vs their twins (card), 8 images: max|d logit|={err:.6g} (tol "
+        f"{noise:.6g}, what int8 itself moves these logits against fp32 fused)")
+    if not err <= noise:
+        raise RuntimeError("fp32 quant logits further from the twins' model than from fp32")
+    _comparator_rule("fp32 quant kernels vs their twins", _probs(k32), _probs(t32))
+
+
+def phase_quant_long(dev: torch.device) -> dict:
+    """Phase 23: the long W8A8 path through ``InferenceEngine``.  -> launch
+    counts of one bf16 forward of 16 images."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = VIT_B_16.with_image_size(LONG_IMAGE)
+    params = synth_params(cfg, 0)
+    images = synth_images(16, cfg, seed=5)
+    quant16 = InferenceEngine(cfg, params, "bfloat16", "quant", dev, batch_pad=16)
+    wrappers = _reset_counts()
+    l16 = quant16.logits(images).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = _expect_counts(
+        wrappers, {"ln_qkv_q8": 12, "flash_attention_fwd": 12, "out_ln_mlp_residual_q8": 12,
+                   "layer_norm": 1},
+        f"long classify {cfg.name} (T {cfg.seq_len}) batch 16 bf16 quant, one forward")
+    del quant16
+    if l16.shape != (16, cfg.num_classes) or not np.isfinite(l16).all():
+        raise RuntimeError(f"long bf16 quant logits: shape {l16.shape} or non-finite")
+    quant32 = InferenceEngine(cfg, params, "float32", "quant", dev, batch_pad=1)
+    q32 = quant32.logits(images).cpu().numpy()
+    del quant32
+    torch.cuda.empty_cache()
+    _comparator_rule("long bf16 quant vs fp32 quant", _probs(l16), _probs(q32))
+    return launches
+
+
+def phase_quant_throughput(params, images: np.ndarray, dev: torch.device, card: str) -> None:
+    """Phase 24: quant, fused and eager in turns, bf16, at @224 batch 100
+    and @512 batch 16, with the peak device memory of one forward of each."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+
+    ops = ("quant", "fused", "eager")
+    x = torch.from_numpy(images).to(dev, torch.bfloat16)
+    _inference_rates(VIT_B_16, params, x, ops, dev, card, "quant throughput", 4)
+    torch.cuda.empty_cache()
+    cfg = VIT_B_16.with_image_size(LONG_IMAGE)
+    x = torch.from_numpy(synth_images(16, cfg, seed=8)).to(dev, torch.bfloat16)
+    _inference_rates(cfg, synth_params(cfg, 0), x, ops, dev, card, "quant long throughput", 4)
 
 
 def main() -> None:
@@ -1170,15 +1411,33 @@ def main() -> None:
     phase_long_throughput(dev, card)
     torch.cuda.empty_cache()
     phase_switch(dev, card)
+    torch.cuda.empty_cache()
+
+    summary.update(phase_quant_kernels(quant_kernel_cases(dev)))
+    phase_int8_gemm(dev, card)
+    torch.cuda.empty_cache()
+    params = synth_params(VIT_B_16, 0)
+    images = synth_images(100, VIT_B_16, seed=1)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        launches["classify_quant"] = phase_cli(
+            params, workdir, "quant", ("ln_qkv_attn_q8", "out_ln_mlp_residual_q8"))
+    phase_quant_correctness(params, images, dev)
+    torch.cuda.empty_cache()
+    launches["classify_quant_long"] = phase_quant_long(dev)
+    torch.cuda.empty_cache()
+    phase_quant_throughput(params, images, dev, card)
 
     # launches: the classify CLI's run for K1-K3, the train CLI's for K4-K7,
     # the regularized train CLI's for K10-K12a, the long classify forward's
-    # for K13, the long train step's for K14, K8, K9; "paths" has every
-    # reading
+    # for K13, the long train step's for K14, K8, K9, the quant classify
+    # CLI's for K15-K17 (K17: no path of the port reaches it before token
+    # merging, so 0), the long quant forward's for K15's stages 1-2; "paths"
+    # has every reading
     path_of = {**{k: "classify" for k in KERNELS}, **{k: "train" for k in TRAIN_KERNELS},
                **{k: "train_regularized" for k in REG_KERNELS},
-               **{k: "train_long" for k in LONG_KERNELS}, "flash_attention_fwd": "classify_long"}
-    all_kernels = {**KERNELS, **TRAIN_KERNELS, **REG_KERNELS, **LONG_KERNELS}
+               **{k: "train_long" for k in LONG_KERNELS}, "flash_attention_fwd": "classify_long",
+               **{k: "classify_quant" for k in QUANT_KERNELS}, "ln_qkv_q8": "classify_quant_long"}
+    all_kernels = {**KERNELS, **TRAIN_KERNELS, **REG_KERNELS, **LONG_KERNELS, **QUANT_KERNELS}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[path_of[name]][name],

@@ -63,6 +63,11 @@ from vit_tpu_torch.ops.kernels.ln_mlp_residual_bwd import (
     ln_mlp_residual_bwd_plain,
 )
 from vit_tpu_torch.ops.kernels.out_residual_bwd import out_residual_bwd, out_residual_bwd_plain
+from vit_tpu_torch.eval import quant_stages
+from vit_tpu_torch.ops import quant
+from vit_tpu_torch.ops.kernels import ln_mlp_residual_q8 as k17
+from vit_tpu_torch.ops.kernels import ln_qkv_attn_q8 as k15
+from vit_tpu_torch.ops.kernels import out_ln_mlp_residual_q8 as k16
 
 REL_TOL = {torch.float32: 2.0 ** -16, torch.bfloat16: 2.0 ** -6}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -516,3 +521,153 @@ def test_long_block_grads_match_eager_autograd(dev, monkeypatch):
     for i, (g, w) in enumerate(zip(got, want)):
         err, bound = (g - w).abs().max().item(), 1e-3 * max(1.0, w.abs().max().item())
         assert err <= bound, f"grad {i}: max|d| {err} > {bound}"
+
+
+# -- the W8A8 kernels K15-K17 ---------------------------------------------------
+# Held to their twins stage by stage (vit_tpu_torch/eval/quant_stages.py has
+# the two checks and where their bounds come from): a kernel and its twin
+# quantize an LN output that differs in its last bits, so a code on a
+# rounding boundary may move, and an end-to-end comparison at the fp32
+# tolerance would fail for a reason that is no fault.
+
+
+def _q8_weight(dev, seed, k, n):
+    q = quant.quantize_weight(_rn(dev, seed, k, n, scale=k ** -0.5))
+    return q.w_q, q.scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(5, 64, 48), (591, 768, 2304), (300, 3072, 768),
+                                   (129, 144, 272)])
+def test_gemm_q8_core_is_exact(dev, m, k, n):
+    # int32 sums and a dequantization of separate fp32 roundings: the
+    # kernel's product equals the float64 reference bit for bit, +-127
+    # operands at K = 3,072 (sums past 2^24) included
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    a[0], b[:, 0] = 127, 127
+    sa, sb = _rn(dev, 1, m).abs() + 0.1, _rn(dev, 2, n).abs() + 0.1
+    got = k15.gemm_q8_dequant(a, sa, b, sb)
+    assert torch.equal(got, quant.int8_matmul_reference(a, sa, b, sb))
+    assert torch.equal(got, k15.gemm_q8_dequant(a, sa, b, sb))
+
+
+def _k15_args(dev, dtype, b, t, d, h):
+    return (_rn(dev, 0, b * t, d, scale=2.0, dtype=dtype),
+            _rn(dev, 1, d, scale=0.2, shift=1.0, dtype=dtype), _rn(dev, 2, d, scale=0.2, dtype=dtype),
+            *_q8_weight(dev, 3, d, 3 * d), _rn(dev, 4, 3 * d, scale=0.1, dtype=dtype), h, t, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "b,t,d,h", [(2, 5, 64, 4), (3, 197, 768, 12), (2, 65, 256, 8), (1, 77, 768, 6)],
+    ids=["tiny_dh16", "b16_t197_ragged_rows", "t65_dh32", "wide_dh128"],
+)
+def test_ln_qkv_attn_q8(dev, dtype, b, t, d, h):
+    args = _k15_args(dev, dtype, b, t, d, h)
+    st = k15._ln_qkv_attn_q8_stages(*args)
+    quant_stages.check_ln_qkv_attn_q8(st, k15.ln_qkv_attn_q8_plain(*args), *args)
+    again = k15._ln_qkv_attn_q8_stages(*args)
+    assert all(torch.equal(st[k], again[k]) for k in st)  # two runs, the same bits
+    # stages 1-2 alone, as the long block calls them
+    alone = k15._ln_qkv_q8_stages(*args[:6], 1e-6)
+    assert all(torch.equal(st[k], alone[k]) for k in alone)
+
+
+def _mlp_q8_args(dev, dtype, rows, d, f, variant):
+    return (_rn(dev, 1, rows, d, scale=2.0, dtype=dtype),
+            _rn(dev, 4, d, scale=0.2, shift=1.0, dtype=dtype), _rn(dev, 5, d, scale=0.2, dtype=dtype),
+            *_q8_weight(dev, 6, d, f), _rn(dev, 7, f, scale=0.1, dtype=dtype),
+            *_q8_weight(dev, 8, f, d), _rn(dev, 9, d, scale=0.1, dtype=dtype), 1e-6, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", ["exact", "tanh"])
+@pytest.mark.parametrize("rows,d,f", [(10, 64, 256), (591, 768, 3072), (133, 384, 1536)])
+def test_out_ln_mlp_residual_q8(dev, dtype, variant, rows, d, f):
+    res, *mlp = _mlp_q8_args(dev, dtype, rows, d, f, variant)
+    args = (_rn(dev, 0, rows, d, dtype=dtype), res, _rn(dev, 2, d, d, scale=d ** -0.5, dtype=dtype),
+            _rn(dev, 3, d, scale=0.1, dtype=dtype), *mlp)
+    st = k16._out_ln_mlp_residual_q8_stages(*args)
+    quant_stages.check_out_ln_mlp_residual_q8(st, k16.out_ln_mlp_residual_q8_plain(*args), *args)
+    again = k16._out_ln_mlp_residual_q8_stages(*args)
+    assert all(torch.equal(st[k], again[k]) for k in st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", ["exact", "tanh"])
+@pytest.mark.parametrize("rows,d,f", [(10, 64, 256), (591, 768, 3072), (133, 384, 1536)])
+def test_ln_mlp_residual_q8(dev, dtype, variant, rows, d, f):
+    args = _mlp_q8_args(dev, dtype, rows, d, f, variant)
+    st = k17._ln_mlp_residual_q8_stages(*args)
+    quant_stages.check_ln_mlp_residual_q8(st, k17.ln_mlp_residual_q8_plain(*args), *args)
+    again = k17._ln_mlp_residual_q8_stages(*args)
+    assert all(torch.equal(st[k], again[k]) for k in st)
+
+
+@pytest.mark.cuda
+def test_q8_zero_rows_and_ties(dev):
+    # all-zero rows (zero gain and bias, zero W1 and b1) give codes 0 and
+    # the floor scale at both quantizers, and the output b2 + x
+    rows, d, f = 37, 64, 256
+    x, _, _, w1q, w1s, b1, w2q, w2s, b2, eps, variant = _mlp_q8_args(dev, torch.float32, rows, d,
+                                                                    f, "exact")
+    zd = torch.zeros(d, device=dev)
+    st = k17._ln_mlp_residual_q8_stages(x, zd, zd, torch.zeros_like(w1q), w1s, torch.zeros_like(b1),
+                                        w2q, w2s, b2, eps, variant)
+    for q, s in (("hq", "hs"), ("mq", "ms")):
+        assert st[q].abs().max() == 0 and (st[s] == 1e-12).all()
+    assert torch.equal(st["out"], b2 + x)
+    # exact ties round half to even: LN's bias carries the values (gain 0),
+    # the row's absmax 127 makes the scale exactly 1
+    ties = torch.zeros(d, device=dev)
+    ties[:7] = torch.tensor([127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5], device=dev)
+    st = k17._ln_mlp_residual_q8_stages(x, zd, ties, w1q, w1s, b1, w2q, w2s, b2, eps, variant)
+    assert st["hq"][:, :7].tolist() == [[127, 0, 2, 2, 0, -2, -2]] * rows
+    assert (st["hs"] == 1).all()
+
+
+@pytest.mark.cuda
+def test_q8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    args = list(_k15_args(dev, torch.float32, 2, 5, 64, 4))
+    with pytest.raises(TypeError, match="int8"):
+        k15.ln_qkv_attn_q8(*args[:3], args[3].float(), *args[4:])
+    with pytest.raises(TypeError, match="float32"):
+        k15.ln_qkv_attn_q8(*args[:4], args[4].bfloat16(), *args[5:])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        k15.ln_qkv_q8(args[0][:, :56].contiguous(), args[1][:56], args[2][:56],
+                      args[3][:56].contiguous(), args[4], args[5], 1e-6)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        k15.ln_qkv_attn_q8(args[0].bfloat16(), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("long", [False, True], ids=["short", "long_blocks"])
+def test_quant_forward_launches_and_keeps_labels(dev, long, monkeypatch):
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops import fused_block
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.ops.kernels import wrapper
+
+    if long:
+        monkeypatch.setattr(fused_block, "VMEM_ATTENTION_MAX_T", 4)
+    cfg = dataclasses.replace(VIT_B_16, depth=2, embed_dim=128, num_heads=2,
+                              image_size=64, num_classes=11, name="vit_card_test")
+    params = {k: v.to(dev) if torch.is_tensor(v) else {n: t.to(dev) for n, t in v.items()}
+              for k, v in vit.init_params(torch.Generator().manual_seed(1), cfg).items()}
+    x = torch.from_numpy(synth_images(3, cfg, seed=2)).to(dev)
+    names = ("ln_qkv_attn_q8", "ln_qkv_q8", "flash_attention_fwd", "out_ln_mlp_residual_q8",
+             "ln_mlp_residual_q8", "layer_norm", "ln_qkv_attn", "out_ln_mlp_residual")
+    for name in names:
+        wrapper(name).launches = 0
+    got = vit.forward(quant.quantize_params(params), x, cfg, get_ops("quant"))
+    want = (0, 2, 2, 2, 0, 1, 0, 0) if long else (2, 0, 0, 2, 0, 1, 0, 0)
+    assert tuple(wrapper(name).launches for name in names) == want
+    ref = vit.forward(params, x, cfg, get_ops("eager"))
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+    # int8 noise over two layers: the JAX package's own bar for its tiny model
+    assert (got - ref).abs().max().item() < 0.15

@@ -116,7 +116,7 @@ def test_engine_rejects_unknown_dtype_and_ops(tiny_cfg, tree):
     with pytest.raises(ValueError, match="dtype"):
         InferenceEngine(tiny_cfg, tree, dtype="float16", device="cpu")
     with pytest.raises(ValueError, match="ROADMAP"):
-        InferenceEngine(tiny_cfg, tree, ops="quant", device="cpu")
+        InferenceEngine(tiny_cfg, tree, ops="qat", device="cpu")
 
 
 # -- CLI ---------------------------------------------------------------------

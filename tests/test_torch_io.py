@@ -271,8 +271,8 @@ def test_comparator_matches_jax(tmp_path):
 def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     """chip_smoke, then on the CPU: the train CLI (fused_train, --save; and
     regularized, eager and fused_train), and the classify CLI on its npz, on
-    a Weight_*.bin directory, on a .pth, on --images and with --golden: no
-    vit_tpu or jax module gets loaded."""
+    a Weight_*.bin directory, on a .pth, on --images, with --golden and with
+    --ops quant: no vit_tpu or jax module gets loaded."""
     from vit_tpu.io import weights as jweights
     from vit_tpu.io.torch_convert import save_pth
 
@@ -304,6 +304,9 @@ assert classify.main([*run, "--weights", d + "/model.pth", "--images", d + "/a_w
                       d + "/b_tall.png", "--output", d + "/img.txt"]) == 0
 assert classify.main([*run, "--weights", d + "/model.pth", "--images", d,
                       "--golden", d + "/img.txt"]) == 0
+for dtype in ("bfloat16", "float32"):
+    assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2", "--ops", "quant",
+                          "--dtype", dtype]) == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib"))
 assert not loaded, loaded
 """

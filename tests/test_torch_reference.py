@@ -136,8 +136,9 @@ def test_get_ops():
 
     assert get_ops("eager") is EAGER_OPS
     assert get_ops("fused").name == "fused"
+    assert get_ops("quant").name == "quant"
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        get_ops("quant")
+        get_ops("qat")
 
 
 def _eager_vs_jax(cfg, seed):

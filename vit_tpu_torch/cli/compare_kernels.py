@@ -7,7 +7,8 @@ runs PARENT_DIR, ., ., PARENT_DIR per round (each checkout builds its own
 kernels into its own ``build/``) and prints each process's times, then the
 median per checkout.  K1 and K2 run at B/16 batch 100 (the classify path),
 K4, K5 and K7 at batch 64 (the train step), K10, K11 and K12a too where the
-checkout has them (dropout and drop-path 0.1); bf16, CUDA events, median of
+checkout has them (dropout and drop-path 0.1), and the W8A8 K15, K16 and
+K17 at batch 100 where it has those; bf16, CUDA events, median of
 20 launches after 5.  ``--sass SOURCE ...`` first compares the machine
 code each checkout compiles from those sources.  Needs a card.
 """
@@ -71,6 +72,15 @@ if k("out_residual_train") is not None:
     times["K11"] = ms(lambda: k("ln_mlp_residual_train")(x, s, bb, w1, b1, w2, b2, dpm, 7, 0.1, eps))
     times["K12a"] = ms(lambda: k("ln_mlp_out_residual_bwd_train")(
         dy, x, ctx, s, bb, w1, b1, w2, wo, dpm, dpa, 7, 0.1, eps))
+if k("ln_qkv_attn_q8") is not None:
+    from vit_tpu_torch.ops.quant import quantize_weight
+    rows = 100 * t
+    x, ctx = rn(rows, d, scale=2.0), rn(rows, d)
+    (wq, ws), (w1q, w1s), (w2q, w2s) = (quantize_weight(w) for w in (wqkv, w1, w2))
+    mlp = (s, bb, w1q, w1s, b1, w2q, w2s, b2, eps, "exact")
+    times["K15"] = ms(lambda: k("ln_qkv_attn_q8")(x, s, bb, wq, ws, bqkv, h, t, eps))
+    times["K16"] = ms(lambda: k("out_ln_mlp_residual_q8")(ctx, x, wo, bo, *mlp))
+    times["K17"] = ms(lambda: k("ln_mlp_residual_q8")(x, *mlp))
 print(json.dumps(times))
 """
 

@@ -13,6 +13,10 @@ Usage::
     vit-tpu-torch --weights ./Network --input ./Data/input-100.bin \
                   --output ./Data/result.txt --golden ./Data/answer_result.txt
     vit-tpu-torch --weights ./Network --synth 8 --allow-synth-weights --device cpu
+    vit-tpu-torch --weights ./Network --synth 8 --allow-synth-weights --ops quant
+
+``--ops quant`` is W8A8 inference: the engine quantizes the QKV and MLP
+weights of the loaded fp32 tree to int8 and runs the int8 kernels.
 
 ``--tp/--dp/--tome/--attn-rollout/--profile/--interpolate-pos-from`` of the
 JAX package's CLI wait for their slices of the port.
@@ -57,9 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument(
-        "--ops", default="auto", choices=["auto", "eager", "fused"],
-        help="compute path: fused (CUDA kernels), eager (plain PyTorch); "
-        "auto = fused on cuda, eager on cpu",
+        "--ops", default="auto", choices=["auto", "eager", "fused", "quant"],
+        help="compute path: fused (CUDA kernels), quant (W8A8 int8 CUDA kernels), "
+        "eager (plain PyTorch); auto = fused on cuda, eager on cpu",
     )
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--gelu", default="exact", choices=["exact", "tanh"])

@@ -1,6 +1,8 @@
-// Tile helpers shared by the attention forward (K1) and backward (K6):
+// Tile helpers shared by the attention forward (K1, K15) and backward (K6):
 // 64 x 64 score tiles from two fp32 shared-memory row tiles, and
-// half-warp reductions over a query row.
+// half-warp reductions over a query row; and the forward stage itself
+// (attention_kernel, launch_attention_any), which K1 and its int8 twin K15
+// both instantiate from this one definition.
 #pragma once
 
 #include "common.cuh"
@@ -82,6 +84,123 @@ __device__ __forceinline__ void softmax_stats(const T* __restrict__ base, int ld
       l[i] = l[i] * expf(m[i] - mn) + half_warp_sum(ps);
       m[i] = mn;
     }
+  }
+}
+
+// ---- the attention forward stage of K1 and K15: packed QKV -> context.
+
+template <int DH>
+constexpr size_t attention_smem_bytes() {
+  // Qs [Q][DH+1], Ks [K][DH+1], Vs [K][DH], Ps [Q][K+1], all fp32
+  return sizeof(float) *
+         (kAtQ * (DH + 1) + kAtK * (DH + 1) + kAtK * DH + kAtQ * (kAtK + 1));
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kAtThreads)
+attention_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int seq, int heads,
+                 float inv_sqrt_dh) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                       // [kAtQ][DH + 1]
+  float* Ks = Qs + kAtQ * (DH + 1);       // [kAtK][DH + 1]
+  float* Vs = Ks + kAtK * (DH + 1);       // [kAtK][DH]
+  float* Ps = Vs + kAtK * DH;             // [kAtQ][kAtK + 1]
+
+  const int q0 = blockIdx.x * kAtQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int ld = 3 * heads * DH;  // packed row pitch (3D)
+  const T* base = qkv + (size_t)b * seq * ld + (size_t)h * 3 * DH;
+
+  // q * (1/sqrt(dh)) with the scale and the product rounded to the dtype,
+  // as the TPU kernel scales q in its working dtype
+  const float scale = round_to<T>(inv_sqrt_dh);
+  for (int i = tid; i < kAtQ * DH; i += kAtThreads) {
+    const int r = i / DH, c = i % DH, t = q0 + r;
+    Qs[r * (DH + 1) + c] = t < seq ? round_to<T>(to_f(base[(size_t)t * ld + c]) * scale) : 0.f;
+  }
+
+  // pass 1: running row max m and sum of exp(s - m) over all keys
+  float m[4], l[4];
+  softmax_stats<T, DH>(base, ld, seq, Qs, Ks, tid, tx, ty, m, l);
+  float s[4][4];
+  float inv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) inv[i] = 1.0f / l[i];
+
+  // pass 2: p = round(exp(s - m) * inv), o += p @ v in fp32
+  constexpr int kDj = DH / 16;  // output columns per thread: tx + 16j
+  float o[4][kDj];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kDj; ++j) o[i][j] = 0.f;
+  for (int k0 = 0; k0 < seq; k0 += kAtK) {
+    __syncthreads();  // previous tile's Ks/Vs/Ps consumed
+    for (int i = tid; i < kAtK * DH; i += kAtThreads) {
+      const int r = i / DH, c = i % DH, t = k0 + r;
+      const bool ok = t < seq;
+      Ks[r * (DH + 1) + c] = ok ? to_f(base[(size_t)t * ld + DH + c]) : 0.f;
+      Vs[r * DH + c] = ok ? to_f(base[(size_t)t * ld + 2 * DH + c]) : 0.f;
+    }
+    __syncthreads();
+    score_tile<DH>(Qs, Ks, tx, ty, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = k0 + tx + 16 * j < seq;
+        Ps[(ty + 16 * i) * (kAtK + 1) + tx + 16 * j] =
+            ok ? round_to<T>(expf(s[i][j] - m[i]) * inv[i]) : 0.f;
+      }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kAtK; ++kk) {
+      float pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (kAtK + 1) + kk];
+#pragma unroll
+      for (int j = 0; j < kDj; ++j) {
+        const float vv = Vs[kk * DH + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pv[i], vv, o[i][j]);
+      }
+    }
+  }
+
+  const int dctx = heads * DH;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty + 16 * i;
+    if (t >= seq) continue;
+    T* out = ctx + ((size_t)b * seq + t) * dctx + (size_t)h * DH;
+#pragma unroll
+    for (int j = 0; j < kDj; ++j) out[tx + 16 * j] = from_f<T>(o[i][j]);
+  }
+}
+
+template <typename T, int DH>
+cudaError_t launch_attention(const T* qkv, T* ctx, int batch, int seq, int heads,
+                             cudaStream_t stream) {
+  constexpr size_t smem = attention_smem_bytes<DH>();
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const float inv_sqrt_dh = (float)(1.0 / sqrt((double)DH));  // as the host computes it
+  dim3 grid(cdiv(seq, kAtQ), heads, batch);
+  attention_kernel<T, DH><<<grid, kAtThreads, smem, stream>>>(qkv, ctx, seq, heads, inv_sqrt_dh);
+  return cudaGetLastError();
+}
+
+// the head dims the attention stage is instantiated for
+template <typename T>
+cudaError_t launch_attention_any(const T* qkv, T* ctx, int batch, int seq, int heads, int head_dim,
+                                 cudaStream_t stream) {
+  switch (head_dim) {
+    case 16: return launch_attention<T, 16>(qkv, ctx, batch, seq, heads, stream);
+    case 32: return launch_attention<T, 32>(qkv, ctx, batch, seq, heads, stream);
+    case 64: return launch_attention<T, 64>(qkv, ctx, batch, seq, heads, stream);
+    case 128: return launch_attention<T, 128>(qkv, ctx, batch, seq, heads, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -18,6 +18,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from vit_tpu_torch.ops.quant import _QUANT_SCALE_KEYS
+
 
 def device_or_raise(device) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device without a card
@@ -34,7 +36,9 @@ def device_or_raise(device) -> torch.device:
 def params_from_numpy(tree: Mapping[str, Any], device="cuda", dtype=None):
     """Nested dict of numpy arrays -> the same dict of torch tensors on
     ``device``.  Floating leaves are cast to ``dtype`` when given; other
-    leaves keep their dtype."""
+    leaves keep their dtype, and so do a quantized tree's fp32 scales
+    (``wqkv_scale``, ``w1_scale``, ``w2_scale``, by name as in
+    ``ops/quant.cast_quantized_params``; int8 weights stay int8)."""
     device = device_or_raise(device)
     out = {}
     for key, value in tree.items():
@@ -42,7 +46,7 @@ def params_from_numpy(tree: Mapping[str, Any], device="cuda", dtype=None):
             out[key] = params_from_numpy(value, device, dtype)
             continue
         t = torch.from_numpy(np.ascontiguousarray(value))
-        if dtype is not None and t.is_floating_point():
+        if dtype is not None and t.is_floating_point() and key not in _QUANT_SCALE_KEYS:
             t = t.to(dtype)
         out[key] = t.to(device)
     return out
@@ -50,7 +54,8 @@ def params_from_numpy(tree: Mapping[str, Any], device="cuda", dtype=None):
 
 def params_to_numpy(tree: Mapping[str, Any]):
     """Inverse of :func:`params_from_numpy`.  bf16 leaves come back as
-    float32 arrays (numpy has no bfloat16; the widening is exact)."""
+    float32 arrays (numpy has no bfloat16; the widening is exact); int8
+    leaves as int8."""
     out = {}
     for key, value in tree.items():
         if isinstance(value, Mapping):

@@ -2,9 +2,10 @@
 
 Counterpart of ``vit_tpu.ops.dispatch``: one model parameterized by an op
 table.  ``eager`` plays the role of ``xla``; ``fused`` is the per-layer
-inference kernel path and ``fused_train`` the differentiable one.  The
-other tables of the JAX package (``pallas``, ``quant``, ``qat``) wait for
-their slices of the port (ROADMAP.md).
+inference kernel path, ``quant`` its W8A8 twin (int8 QKV and MLP GEMMs)
+and ``fused_train`` the differentiable one.  The other tables of the JAX
+package (``pallas``, ``qat``) wait for their slices of the port
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -48,20 +49,23 @@ EAGER_OPS = OpsImpl(
 
 
 def get_ops(impl: str = "eager") -> OpsImpl:
-    """Return the op table for ``impl`` in {'eager', 'fused', 'fused_train'}.
+    """Return the op table for ``impl`` in {'eager', 'fused', 'quant',
+    'fused_train'}.
 
     'eager' is the plain PyTorch reference path; 'fused' runs each encoder
-    block as two CUDA kernels and the final LayerNorm as a third;
-    'fused_train' runs each block as three forward and two backward CUDA
-    kernels under autograd.  The kernel modules are imported lazily, so
+    block as two CUDA kernels and the final LayerNorm as a third; 'quant'
+    does the same over int8 QKV and MLP weights (params from
+    ``ops/quant.quantize_params``); 'fused_train' runs each block as three
+    forward and two backward CUDA kernels under autograd.  The kernel modules are imported lazily, so
     eager use never touches them."""
     if impl == "eager":
         return EAGER_OPS
-    if impl in ("fused", "fused_train"):
+    tables = {"fused": "FUSED_OPS", "quant": "QUANT_OPS", "fused_train": "TRAINABLE_FUSED_OPS"}
+    if impl in tables:
         from vit_tpu_torch.ops import fused
 
-        return fused.FUSED_OPS if impl == "fused" else fused.TRAINABLE_FUSED_OPS
+        return getattr(fused, tables[impl])
     raise ValueError(
-        f"unknown ops impl {impl!r}; expected 'eager', 'fused' or 'fused_train' (the JAX "
-        "package's other op tables are still to be ported — see ROADMAP.md)"
+        f"unknown ops impl {impl!r}; expected 'eager', 'fused', 'quant' or 'fused_train' "
+        "(the JAX package's other op tables are still to be ported — see ROADMAP.md)"
     )

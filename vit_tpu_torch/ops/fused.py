@@ -1,5 +1,5 @@
-"""The kernel op tables — counterparts of ``vit_tpu.ops.pallas.FUSED_OPS``
-and ``TRAINABLE_FUSED_OPS``.
+"""The kernel op tables — counterparts of ``vit_tpu.ops.pallas.FUSED_OPS``,
+``TRAINABLE_FUSED_OPS`` and ``QUANT_OPS``.
 
 ``fused`` (inference):
   - ``encoder_block``: K1 + K2 (``ops/fused_block.py``); past 1,024 tokens
@@ -7,6 +7,11 @@ and ``TRAINABLE_FUSED_OPS``.
   - ``layer_norm``: K3, the final LayerNorm over all (B, T, D) rows;
   - ``patch_embed``: the plain reference (one large GEMM, which the JAX
     package also leaves to XLA).
+
+``quant`` (W8A8 inference, on params from ``ops/quant.quantize_params``):
+  - ``encoder_block``: K15 + K16 (``ops/quant_block.py``); past 1,024
+    tokens the int8 QKV stage + K13 + K16;
+  - ``layer_norm`` and ``patch_embed``: as on ``fused``.
 
 ``fused_train`` (training):
   - ``encoder_block``: K1 -> K4 -> K5 forward, K7 -> K6 backward
@@ -23,6 +28,7 @@ from vit_tpu_torch.ops import reference
 from vit_tpu_torch.ops.dispatch import OpsImpl
 from vit_tpu_torch.ops.fused_block import fused_encoder_block
 from vit_tpu_torch.ops.kernels.layer_norm import layer_norm
+from vit_tpu_torch.ops.quant_block import fused_encoder_block_q8
 from vit_tpu_torch.ops.trainable import encoder_block_train, encoder_block_trainable
 
 FUSED_OPS = OpsImpl(
@@ -30,6 +36,13 @@ FUSED_OPS = OpsImpl(
     layer_norm=layer_norm,
     patch_embed=reference.patch_embed,
     encoder_block=fused_encoder_block,
+)
+
+QUANT_OPS = OpsImpl(
+    name="quant",
+    layer_norm=layer_norm,
+    patch_embed=reference.patch_embed,
+    encoder_block=fused_encoder_block_q8,
 )
 
 TRAINABLE_FUSED_OPS = OpsImpl(
@@ -42,4 +55,4 @@ TRAINABLE_FUSED_OPS = OpsImpl(
     encoder_block_train=encoder_block_train,
 )
 
-__all__ = ["FUSED_OPS", "TRAINABLE_FUSED_OPS"]
+__all__ = ["FUSED_OPS", "QUANT_OPS", "TRAINABLE_FUSED_OPS"]

@@ -5,7 +5,7 @@ build and binding: ``_build.py``."""
 import importlib
 
 # the module of a wrapper whose name is not its module's
-_MODULE_OF = {"flash_attention_fwd": "flash_attention"}
+_MODULE_OF = {"flash_attention_fwd": "flash_attention", "ln_qkv_q8": "ln_qkv_attn_q8"}
 
 
 def wrapper(name: str):

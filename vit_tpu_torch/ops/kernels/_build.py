@@ -90,6 +90,21 @@ SIGNATURES = {
     # q, k, v, <strides>, dout, <strides>, lse, delta, dq, dk, dv, <strides>,
     # batch, heads, seq, head_dim, dtype, device, stream
     "vt_flash_bwd": [_P] * 3 + _L3 + [_P] + _L3 + [_P] * 5 + _L3 + [_I] * 6 + [_P],
+    # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, rows, d, d3, eps, dtype,
+    # device, stream
+    "vt_ln_qkv_q8": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P],
+    # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, ctx,
+    # batch, seq, d, heads, head_dim, eps, dtype, device, stream
+    "vt_ln_qkv_attn_q8": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
+    # ctx, res, wo, bo, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, x1, hq,
+    # hs, mid, mq, ms, out, rows, d_ctx, d, f, eps, gelu_variant, dtype,
+    # device, stream
+    "vt_out_ln_mlp_residual_q8": [_P] * 19 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, hq, hs, mid, mq, ms,
+    # out, rows, d, f, eps, gelu_variant, dtype, device, stream
+    "vt_ln_mlp_residual_q8": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # a, sa, b, sb, out, m, n, k, device, stream
+    "vt_gemm_q8_dequant": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 # workspace size queries (bytes) of the kernels that carve their scratch
@@ -218,6 +233,31 @@ def check_operands(kernel: str, x: torch.Tensor, *others: torch.Tensor) -> None:
     check_dtype_device(kernel, x, *others)
     if not all(t.is_contiguous() for t in (x, *others)):
         raise ValueError(f"{kernel}: operands must be contiguous")
+
+
+# int8 values per load of the int8 GEMM core (csrc/gemm_q8.cuh kQ8Vec)
+Q8_VEC = 16
+
+
+def check_q8_operands(kernel: str, x: torch.Tensor, like_x=(), int8=(), scales=()) -> None:
+    """The W8A8 kernels' operands: ``like_x`` as :func:`check_operands`
+    wants them; every ``int8`` matrix int8, both of its dimensions multiples
+    of 16 and its memory 16-byte aligned (the int8 tiles fill with 16-byte
+    loads); every ``scales`` vector float32; all contiguous, on x's device."""
+    check_operands(kernel, x, *like_x)
+    for t, dtype in (*((t, torch.int8) for t in int8), *((t, torch.float32) for t in scales)):
+        if t.device != x.device:
+            raise ValueError(f"{kernel}: operands on {t.device} and {x.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: expected a {dtype} operand, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: operands must be contiguous")
+    for t in int8:
+        if t.dim() != 2 or t.shape[0] % Q8_VEC or t.shape[1] % Q8_VEC or t.data_ptr() % Q8_VEC:
+            raise ValueError(
+                f"{kernel}: an int8 matrix of shape {tuple(t.shape)} — both dimensions must "
+                f"be multiples of {Q8_VEC} and the memory {Q8_VEC}-byte aligned"
+            )
 
 
 def check_shape(kernel: str, name: str, t: torch.Tensor, shape) -> None:

@@ -36,8 +36,28 @@ import torch
 from vit_tpu_torch.ops.fused_block import _ln
 from vit_tpu_torch.ops.kernels import _build
 
-# head dims the attention stage is instantiated for (csrc/ln_qkv_attn.cu)
+# head dims the attention stage is instantiated for (csrc/attention.cuh)
 HEAD_DIMS = (16, 32, 64, 128)
+
+
+def packed_attention_plain(qkv: torch.Tensor, num_heads: int, seq_len: int) -> torch.Tensor:
+    """The attention stage's plain twin: packed QKV (B*T, 3D) in the working
+    dtype -> context (B*T, D), fp32 compute with casts at the TPU kernel's
+    rounding points (``_head_context``)."""
+    dtype = qkv.dtype
+    rows, d3 = qkv.shape
+    dh = d3 // (3 * num_heads)
+    b = rows // seq_len
+    qkv = qkv.reshape(b, seq_len, num_heads, 3, dh).permute(3, 0, 2, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, T, dh)
+    scale = torch.tensor(1.0 / dh ** 0.5, dtype=dtype)
+    q = (q.float() * scale.float()).to(dtype)
+    s = q.float() @ k.float().transpose(-1, -2)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    inv = 1.0 / p.sum(dim=-1, keepdim=True)
+    p = (p * inv).to(dtype)
+    ctx = (p.float() @ v.float()).to(dtype)  # (B, H, T, dh)
+    return ctx.permute(0, 2, 1, 3).reshape(rows, num_heads * dh)
 
 
 def ln_qkv_attn_plain(
@@ -53,22 +73,9 @@ def ln_qkv_attn_plain(
     """Plain twin: fp32 compute with casts at the TPU kernel's rounding
     points."""
     dtype = x2d.dtype
-    rows, _ = x2d.shape
-    d3 = wqkv.shape[-1]
-    dh = d3 // (3 * num_heads)
-    b = rows // seq_len
     h = _ln(x2d, ln_scale, ln_bias, eps).to(dtype)
     qkv = (h.float() @ wqkv.float() + bqkv.float()).to(dtype)
-    qkv = qkv.reshape(b, seq_len, num_heads, 3, dh).permute(3, 0, 2, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, T, dh)
-    scale = torch.tensor(1.0 / dh ** 0.5, dtype=dtype)
-    q = (q.float() * scale.float()).to(dtype)
-    s = q.float() @ k.float().transpose(-1, -2)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    inv = 1.0 / p.sum(dim=-1, keepdim=True)
-    p = (p * inv).to(dtype)
-    ctx = (p.float() @ v.float()).to(dtype)  # (B, H, T, dh)
-    return ctx.permute(0, 2, 1, 3).reshape(rows, num_heads * dh)
+    return packed_attention_plain(qkv, num_heads, seq_len)
 
 
 def ln_qkv_attn(

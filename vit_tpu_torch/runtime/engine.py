@@ -34,7 +34,9 @@ class InferenceEngine:
         loader).
       dtype: compute dtype, 'bfloat16' (fast path) or 'float32'.  Logits
         and softmax are always fp32.
-      ops: 'fused' (CUDA kernels; their plain twins on the CPU) or 'eager'.
+      ops: 'fused' (CUDA kernels; their plain twins on the CPU), 'quant'
+        (the W8A8 kernels: the QKV and MLP weights are quantized to int8
+        here, from the fp32 tree) or 'eager'.
       device: 'cuda', 'cuda:N' or 'cpu'.
       batch_pad: round batch sizes up to a multiple of this.
       gelu_variant: 'exact' (erf) or 'tanh'.
@@ -64,7 +66,14 @@ class InferenceEngine:
 
     def _prepare_params(self, params):
         """Loader-fresh pytree -> params on this engine's device, floating
-        leaves in the compute dtype."""
+        leaves in the compute dtype.  On 'quant' the big GEMM weights are
+        quantized from full precision first, then the remaining fp leaves
+        are cast (int8 weights and their fp32 scales untouched)."""
+        if self._ops.name == "quant":
+            from vit_tpu_torch.ops import quant
+
+            params = quant.quantize_params(params_from_numpy(params, self.device))
+            return quant.cast_quantized_params(params, self.compute_dtype)
         return params_from_numpy(params, self.device, self.compute_dtype)
 
     def swap_params(self, params) -> None:
