@@ -99,6 +99,37 @@ Phases (a failed phase raises; nothing is caught):
  24. images/s and peak device memory of ``quant``, ``fused`` and ``eager``,
      bf16, at @224 batch 100 and @512 batch 16, timed in turns.
 
+ 25. token merging's kernels at B/16 width on merged token counts (ToMe r =
+     13): K1 with the log-size bias and the k-mean (batch 100 at T 158 and
+     3 at T 41), K6 with the bias and without the residual join, K12b
+     ln_mlp_residual_bwd_train and K12c out_residual_bwd_train (batch 64 at
+     T 171 and 3 at T 41; dropout and drop-path 0.1), each against its twin,
+     bf16 and fp32, timed; K15 with both hooks by the W8A8 stage checks (its
+     k-mean bit for bit the mean key of its own dequantized QKV);
+ 26. head width 80 at a ViT-H/14-like shape (D 1,280, 16 heads, T 257,
+     batch 8): K1, K6, K13, K14 against their twins and K15 by the stage
+     checks;
+ 27. the classify CLI with ``--tome 13`` on ``fused`` (12 K1, 12 K4, 12 K5;
+     no K2, K3) and on ``quant`` (12 K15, 12 K4, 12 K17), counts set to 0
+     just before and read just after;
+ 28. the train CLI with ``--tome 13`` (otherwise as in 8, at AdamW 1e-4),
+     plain (12 each of K1, K4, K5, K6, K9, K8 per step) and with
+     ``--dropout 0.1 --drop-path 0.1`` (12 each of K1, K10, K11, K6, K12c,
+     K12b), each loss falling over its steps;
+ 29. ToMe correctness at full width: fp32 ``fused`` against ``forward_eager``
+     on the kernel's own matching (``vit_tpu_torch/eval/tome_stages.py``:
+     each merge's k-mean within 2^-16, logits within 1e-3); bf16 ``fused``
+     and ``quant`` against fp32 ``fused`` ToMe by the comparator rule; fp32
+     ``fused_train`` ToMe gradients against eager autograd on the kernel's
+     own matching, every leaf, plain and regularized;
+ 30. ToMe img/s of ``fused`` and ``quant`` at r = 0, 13, 16 (batch 100
+     bf16) and the train step at r = 0 and 13 (batch 64 bf16 mixed, plain
+     and regularized), timed in turns.
+
+``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
+regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26);
+without it every phase runs.
+
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the card's name and power limit, and the one before
@@ -193,6 +224,17 @@ LONG_BATCHES = (16, 3)
 LONG_T = 2048  # the flash cases' longest sequence, at batch LONG_T_BATCH
 LONG_T_BATCH = 4
 SWITCH_T = (577, 1025)  # where the switch phase times both blocks
+
+TOME_KERNELS = {
+    "out_residual_bwd_train": ("K12c", "vit_tpu_torch/csrc/out_residual_bwd_train.cu",
+                               "vit_tpu/ops/pallas/backward.py:705"),
+    "ln_mlp_residual_bwd_train": ("K12b", "vit_tpu_torch/csrc/ln_mlp_residual_bwd_train.cu",
+                                  "vit_tpu/ops/pallas/backward.py:610"),
+}
+TOME_R = 13  # the merge count of the JAX package's ToMe benchmark
+TOME_RATE_R = (0, 13, 16)  # the classify rates' merge counts
+TOME_LR = 1e-4  # the ToMe train CLI runs' AdamW rate
+H14 = dict(d=1280, heads=16, t=257, batch=8)  # vit_h_14 @224's widths: dh 80
 
 REG_P = 0.1  # dropout, and the drop-path rate of the kernel cases
 REG_SEED = 0x9E3779B9  # >= 2^31: the full uint32 range reaches the kernels
@@ -591,11 +633,12 @@ def phase_regularizer_checks(dev: torch.device) -> None:
             raise RuntimeError("a regularized kernel at zero rates differs from its plain kernel")
 
 
-def phase_cli(params, workdir: str, ops: str = "fused", kernels=("ln_qkv_attn",
-                                                                    "out_ln_mlp_residual")) -> dict:
-    """Phases 4 and 21: the classify CLI on the card with ``--ops ops``, on
-    ``params`` saved as an npz: 12 launches of each of ``kernels``, one of
-    K3, none of any other.  -> launch counts of its run."""
+def phase_cli(params, workdir: str, ops: str = "fused",
+              kernels=("ln_qkv_attn", "out_ln_mlp_residual"), extra=(), final_ln: int = 1) -> dict:
+    """Phases 4, 21 and 27: the classify CLI on the card with ``--ops ops``
+    and ``extra`` flags, on ``params`` saved as an npz: 12 launches of each
+    of ``kernels``, ``final_ln`` of K3, none of any other.  -> launch counts
+    of its run."""
     from vit_tpu_torch.cli.main import main
     from vit_tpu_torch.eval import comparator
     from vit_tpu_torch.io import checkpoint
@@ -608,12 +651,13 @@ def phase_cli(params, workdir: str, ops: str = "fused", kernels=("ln_qkv_attn",
     with contextlib.redirect_stdout(buf):
         rc = main([
             "--weights", weights, "--synth", "100", "--ops", ops, "--dtype", "bfloat16",
-            "--device", "cuda", "--batch-pad", "100", "--json", "--output", result,
+            "--device", "cuda", "--batch-pad", "100", "--json", "--output", result, *extra,
         ])
     launches = {name: fn.launches for name, fn in wrappers.items()}
     out = buf.getvalue().splitlines()
-    log("\n".join([f"cli --ops {ops}: " + line for line in out[:3] + out[-2:]]))
-    log(f"cli --ops {ops}: rc {rc}, launches {launches}")
+    tag = " ".join(["cli --ops", ops, *extra])
+    log("\n".join([f"{tag}: " + line for line in out[:3] + out[-2:]]))
+    log(f"{tag}: rc {rc}, launches {launches}")
     if rc != 0:
         raise RuntimeError(f"classify CLI exited {rc}")
     fmt = re.compile(r"^\[\d+\] label: \d+ / prob: \d+\.\d{6}")
@@ -622,10 +666,10 @@ def phase_cli(params, workdir: str, ops: str = "fused", kernels=("ln_qkv_attn",
     if [r.index for r in comparator.parse_result_file(result)] != list(range(100)):
         raise RuntimeError("classify CLI's --output is not 100 well-formed lines")
     want = {name: 0 for name in wrappers}
-    want.update({name: 12 for name in kernels}, layer_norm=1)
+    want.update({name: 12 for name in kernels}, layer_norm=final_ln)
     if launches != want:
-        raise RuntimeError(f"--ops {ops}: expected 12/12/1 launches of {kernels} and layer_norm "
-                           f"per forward, got {launches}")
+        raise RuntimeError(f"{tag}: expected 12 launches of each of {kernels} and {final_ln} of "
+                           f"layer_norm per forward, got {launches}")
     return launches
 
 
@@ -730,7 +774,7 @@ def all_wrappers() -> dict:
     from vit_tpu_torch.ops.kernels import wrapper
 
     return {name: wrapper(name) for name in (*KERNELS, *TRAIN_KERNELS, *REG_KERNELS, *LONG_KERNELS,
-                                             *QUANT_KERNELS)}
+                                             *QUANT_KERNELS, *TOME_KERNELS)}
 
 
 def _reset_counts() -> dict:
@@ -930,8 +974,8 @@ def phase_reg_correctness(dev: torch.device) -> None:
 
 def _train_rates(dev, card: str, runs: dict, phase: str, base=None, b: int = 64) -> dict:
     """Train img/s at ``base`` (default B/16 @224) batch ``b`` bf16 mixed
-    (no remat) of each run ``label: (ops, regularized)``, timed in turns,
-    and the peak device memory of each alone on the card."""
+    (no remat) of each run ``label: (ops, regularized[, tome_r])``, timed in
+    turns, and the peak device memory of each alone on the card."""
     from vit_tpu_torch.config import VIT_B_16
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import vit
@@ -942,14 +986,15 @@ def _train_rates(dev, card: str, runs: dict, phase: str, base=None, b: int = 64)
     x = torch.from_numpy(synth_images(b, base, seed=4)).to(dev)
     y = torch.arange(b, device=dev) * 7 % base.num_classes
 
-    def make(ops, regularized):
+    def make(ops, regularized, tome_r=0):
         cfg = (dataclasses.replace(base, dropout=REG_P, drop_path=REG_P) if regularized
                else base)
         params = trainer.as_trainable(vit.init_params(torch.Generator().manual_seed(0), cfg), dev)
         opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-4)
         step = trainer.make_train_step(cfg, opt, get_ops(ops), remat=False,
                                        compute_dtype=torch.bfloat16, use_dropout=regularized,
-                                       rng=torch.Generator().manual_seed(0))
+                                       rng=torch.Generator().manual_seed(0),
+                                       forward_fn=_tome_train_forward(cfg, ops, tome_r))
         return lambda: float(step(params, x, y))
 
     peak = {}
@@ -1202,11 +1247,11 @@ def quant_kernel_cases(dev: torch.device):
     return cases
 
 
-def phase_quant_kernels(cases: dict) -> dict:
-    """Phase 20: each W8A8 kernel's stages against its twin's by the two
-    checks, then the timings.  -> {kernel: summary at bf16, the path's
-    batch}; ``max_abs_err`` is the output's deviation from the whole twin's
-    (moved codes included)."""
+def phase_quant_kernels(cases: dict, labels: dict = QUANT_KERNELS) -> dict:
+    """Phases 20, 25 and 26: each W8A8 kernel's stages against its twin's by
+    the two checks, then the timings.  -> {kernel: summary at bf16, the
+    path's batch}; ``max_abs_err`` is the output's deviation from the whole
+    twin's (moved codes included)."""
     summary = {}
     for name, kcases in cases.items():
         for c in kcases:
@@ -1219,7 +1264,7 @@ def phase_quant_kernels(cases: dict) -> dict:
             del st, end
             ms, plain_ms = cuda_ms(lambda: c["kernel"](*args)), cuda_ms(lambda: c["plain"](*args))
             bound_ms, bound_by = bound(c["flops"], nbytes, dtype, c["int8_ops"])
-            log(f"{QUANT_KERNELS[name][0]} {name} {c['tag']}: stages "
+            log(f"{labels[name][0]} {name} {c['tag']}: stages "
                 + ", ".join(f"{k} {v:.3g}" for k, v in report.items())
                 + f"; vs the whole twin max|d|={err:.6g}; kernel {ms:.6g} ms, plain "
                 f"{plain_ms:.6g} ms, library none, bound {bound_ms:.6g} ms ({bound_by})")
@@ -1350,37 +1395,343 @@ def phase_quant_throughput(params, images: np.ndarray, dev: torch.device, card: 
     _inference_rates(cfg, synth_params(cfg, 0), x, ops, dev, card, "quant long throughput", 4)
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise RuntimeError("torch.cuda.is_available() is False: chip_smoke needs an NVIDIA card")
+# -- token merging (ToMe) and head width 80 -----------------------------------
+
+
+def _tome_train_forward(cfg, ops: str, tome_r: int):
+    """The trainer's ``forward_fn`` for merged-token training at ``tome_r``
+    on the train CLI's schedule (None at 0: the plain forward)."""
+    if not tome_r:
+        return None
+    from vit_tpu_torch.models import tome
+
+    impl = tome.forward_train if ops == "fused_train" else tome.forward_eager
+    counts = tome.schedule(cfg, tome_r, tome.TRAIN_MERGE_CHUNK)
+    return lambda p, x, rng: impl(p, x, cfg, tome_r, counts=counts, dropout_rng=rng)
+
+
+def _merged_counts(r: int, chunk: int) -> list:
+    """The token counts B/16's layers run at under ToMe r, in order."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.models import tome
+
+    t, out = VIT_B_16.seq_len, []
+    for rl in tome.schedule(VIT_B_16, r, chunk):
+        out.append(t)
+        t -= rl
+    return out
+
+
+def _log_size(dev, b: int, t: int) -> torch.Tensor:
+    """log of random token sizes 1-5, (b, t) fp32: a merged layer's bias."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    return torch.log(torch.randint(1, 6, (b, t), generator=g, device=dev).float())
+
+
+def tome_kernel_cases(dev: torch.device):
+    """-> ({kernel: [case]}, labels) for phase 25 at B/16 width on merged
+    token counts: K1 with both hooks at batch 100 (T 158, the r = 13
+    inference schedule's first merged layer) and 3 (T 41, its last); K6
+    with log_size and no residual join, K12b and K12c at batch 64 (T 171,
+    the training schedule's first merged layer) and 3 (T 41), at dropout
+    and drop-path REG_P.  Bounds count the rows a drop-path scale keeps."""
+    from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd_train as k12b
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_bwd as k6
+    from vit_tpu_torch.ops.kernels import out_residual_bwd_train as k12c
+
+    d, h, f = B16["d"], B16["heads"], B16["f"]
+    t_inf, t_train = _merged_counts(TOME_R, 3), _merged_counts(TOME_R, 2)
+    rn = _rand(dev, 13)
+    labels = {"ln_qkv_attn+hooks": ("K1 log_size kmean",), "ln_qkv_attn_bwd+hooks": (
+        "K6 log_size dres=None",), **TOME_KERNELS}
+    cases = {name: [] for name in labels}
+    hooked_k1 = lambda *a: k1.ln_qkv_attn(*a[:8], log_size=a[8], return_kmean=True)  # noqa: E731
+    plain_k1 = lambda *a: k1.ln_qkv_attn_plain(*a[:8], log_size=a[8], return_kmean=True)  # noqa: E731
+    hooked_k6 = lambda *a: k6.ln_qkv_attn_bwd(*a[:10], log_size=a[10])  # noqa: E731
+    plain_k6 = lambda *a: k6.ln_qkv_attn_bwd_plain(*a[:10], log_size=a[10])  # noqa: E731
+    for dtype in (torch.bfloat16, torch.float32):
+        s1, b1n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+        wqkv, bqkv = rn(d, 3 * d, scale=d ** -0.5, dtype=dtype), rn(3 * d, scale=0.1, dtype=dtype)
+        s2, b2n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+        wo = rn(d, d, scale=d ** -0.5, dtype=dtype)
+        w1, bb1 = rn(d, f, scale=d ** -0.5, dtype=dtype), rn(f, scale=0.1, dtype=dtype)
+        w2 = rn(f, d, scale=f ** -0.5, dtype=dtype)
+        for b, t in ((100, t_inf[3]), (3, t_inf[-1])):
+            rows = b * t
+            x = rn(rows, d, scale=2.0, dtype=dtype)
+            cases["ln_qkv_attn+hooks"].append(case(
+                _tag(dtype, b, rows) + f" T {t}", dtype, b, hooked_k1, plain_k1,
+                (x, s1, b1n, wqkv, bqkv, h, t, 1e-6, _log_size(dev, b, t)),
+                2 * rows * d * 3 * d + 4 * b * t * t * d))
+        for b, t in ((64, t_train[2]), (3, t_train[-1])):
+            rows = b * t
+            tag = _tag(dtype, b, rows) + f" T {t}"
+            x, x1, dy, ctx = (rn(rows, d, scale=sc, dtype=dtype) for sc in (2.0, 2.0, 1.0, 1.0))
+            dp_a = drop_path_scale_rows(REG_SEED, 4, b, t, REG_P, device=dev)
+            dp_m = drop_path_scale_rows(REG_SEED, 5, b, t, REG_P, device=dev)
+            kept_a, kept_m = (int((dp != 0).sum()) for dp in (dp_a, dp_m))
+            cases["ln_qkv_attn_bwd+hooks"].append(case(
+                tag, dtype, b, hooked_k6, plain_k6,
+                (dy, None, x, s1, b1n, wqkv, bqkv, h, t, 1e-6, _log_size(dev, b, t)),
+                6 * rows * d * 3 * d + 10 * b * t * t * d))
+            cases["ln_mlp_residual_bwd_train"].append(case(
+                tag, dtype, b, k12b.ln_mlp_residual_bwd_train, k12b.ln_mlp_residual_bwd_train_plain,
+                (dy, x1, s2, b2n, w1, bb1, w2, dp_m, REG_SEED, REG_P, 1e-6, "exact"),
+                10 * kept_m * d * f))
+            cases["out_residual_bwd_train"].append(case(
+                tag, dtype, b, k12c.out_residual_bwd_train, k12c.out_residual_bwd_train_plain,
+                (dy, ctx, wo, dp_a, REG_SEED, REG_P), 4 * kept_a * d * d))
+    return cases, labels
+
+
+def tome_quant_cases(dev: torch.device):
+    """-> {kernel: [case]} for phase 25's K15 with both hooks at B/16 width,
+    batch 100 T 158 and batch 3 T 41, by the W8A8 stage checks (the k-mean
+    against the mean key of the kernel's own dequantized QKV, bit for
+    bit)."""
+    from vit_tpu_torch.eval import quant_stages as qs
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_q8 as k15
+
+    d, h, t_inf = B16["d"], B16["heads"], _merged_counts(TOME_R, 3)
+    rn = _rand(dev, 14)
+    cases = {"ln_qkv_attn_q8+hooks": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        s1, b1n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+        wq, ws = quant.quantize_weight(rn(d, 3 * d, scale=d ** -0.5))
+        bqkv = rn(3 * d, scale=0.1, dtype=dtype)
+        for b, t in ((100, t_inf[3]), (3, t_inf[-1])):
+            rows = b * t
+            args = (rn(rows, d, scale=2.0, dtype=dtype), s1, b1n, wq, ws, bqkv, h, t, 1e-6,
+                    _log_size(dev, b, t), True)
+            cases["ln_qkv_attn_q8+hooks"].append(dict(
+                tag=_tag(dtype, b, rows) + f" T {t}", dtype=dtype, batch=b, args=args, out="ctx",
+                kernel=lambda *a: k15.ln_qkv_attn_q8(*a[:9], log_size=a[9], return_kmean=True),
+                stages=k15._ln_qkv_attn_q8_stages,
+                plain=lambda *a: k15.ln_qkv_attn_q8_plain(*a[:9], log_size=a[9]),
+                int8_ops=2 * rows * d * 3 * d, flops=4 * b * t * t * d,
+                check=qs.check_ln_qkv_attn_q8))
+    return cases
+
+
+def dh80_cases(dev: torch.device):
+    """-> ({kernel: [case]}, labels, {K15: [case]}) for phase 26: head width
+    80 at a ViT-H/14-like shape (D 1,280, 16 heads, T 257, batch 8, bf16
+    and fp32): K1, K6, K13 and K14 (on strided views of a packed QKV), and
+    K15 by the W8A8 stage checks."""
+    from vit_tpu_torch.eval import quant_stages as qs
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.flash_attention import packed_views
+    from vit_tpu_torch.ops.kernels import flash_attention as k13
+    from vit_tpu_torch.ops.kernels import flash_attention_bwd as k14
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_bwd as k6
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_q8 as k15
+
+    d, h, t, b = H14["d"], H14["heads"], H14["t"], H14["batch"]
+    dh, rows = d // h, b * t
+    rn = _rand(dev, 15)
+    labels = {f"{name} dh80": (f"{k} dh80",) for name, k in (
+        ("ln_qkv_attn", "K1"), ("ln_qkv_attn_bwd", "K6"), ("flash_attention_fwd", "K13"),
+        ("flash_attention_bwd", "K14"), ("ln_qkv_attn_q8", "K15"))}
+    cases = {name: [] for name in labels if "q8" not in name}
+    q8 = {"ln_qkv_attn_q8 dh80": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = _tag(dtype, b, rows) + f" T {t} dh {dh}"
+        x, dy, dctx = rn(rows, d, scale=2.0, dtype=dtype), rn(rows, d, dtype=dtype), rn(rows, d, dtype=dtype)
+        s1, b1n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+        wqkv, bqkv = rn(d, 3 * d, scale=d ** -0.5, dtype=dtype), rn(3 * d, scale=0.1, dtype=dtype)
+        cases["ln_qkv_attn dh80"].append(case(
+            tag, dtype, b, k1.ln_qkv_attn, k1.ln_qkv_attn_plain,
+            (x, s1, b1n, wqkv, bqkv, h, t, 1e-6), 2 * rows * d * 3 * d + 4 * b * t * t * d))
+        cases["ln_qkv_attn_bwd dh80"].append(case(
+            tag, dtype, b, k6.ln_qkv_attn_bwd, k6.ln_qkv_attn_bwd_plain,
+            (dctx, dy, x, s1, b1n, wqkv, bqkv, h, t, 1e-6),
+            6 * rows * d * 3 * d + 10 * b * t * t * d))
+        q, k, v = packed_views(rn(rows, 3 * d, dtype=dtype), b, t, h, 3)
+        out, lse = k13.flash_attention_fwd_plain(q, k, v, True)
+        cases["flash_attention_fwd dh80"].append(case(
+            tag, dtype, b, lambda *a: k13.flash_attention_fwd(*a, return_lse=True),
+            lambda *a: k13.flash_attention_fwd_plain(*a, True), (q, k, v), 4 * b * h * t * t * dh))
+        cases["flash_attention_bwd dh80"].append(case(
+            tag, dtype, b, k14.flash_attention_bwd, k14.flash_attention_bwd_plain,
+            (q, k, v, out, lse, rn(b, h, t, dh, dtype=dtype)), 10 * b * h * t * t * dh))
+        wq, ws = quant.quantize_weight(rn(d, 3 * d, scale=d ** -0.5))
+        args = (x, s1, b1n, wq, ws, bqkv, h, t, 1e-6)
+        q8["ln_qkv_attn_q8 dh80"].append(dict(
+            tag=tag, dtype=dtype, batch=b, args=args, out="ctx", kernel=k15.ln_qkv_attn_q8,
+            stages=k15._ln_qkv_attn_q8_stages, plain=k15.ln_qkv_attn_q8_plain,
+            int8_ops=2 * rows * d * 3 * d, flops=4 * b * t * t * d,
+            check=qs.check_ln_qkv_attn_q8))
+    return cases, labels, q8
+
+
+def phase_tome_correctness(params, images: np.ndarray, dev: torch.device) -> None:
+    """Phase 29: (a) fp32 ToMe ``fused`` against ``forward_eager`` on the
+    kernel's own matching (``eval/tome_stages.py``): every merge's k-mean
+    within 2^-16 of its scale, the logits within 1e-3; (b) bf16 ``fused``
+    and bf16 ``quant`` ToMe against fp32 ``fused`` ToMe by the comparator
+    rule; (c) fp32 ToMe ``fused_train`` gradients against eager autograd on
+    the kernel's own matching, every leaf within 1e-3 of its scale, plain
+    and at dropout and drop-path REG_P (the same seeds, so the same masks)."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.eval import tome_stages
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.io.params import params_from_numpy
+    from vit_tpu_torch.models import tome
+    from vit_tpu_torch.runtime import trainer
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg, r = VIT_B_16, TOME_R
+    p32 = params_from_numpy(params, dev, torch.float32)
+    x8 = torch.from_numpy(images[:8]).to(dev)
+    rep = tome_stages.check_against_eager(tome.forward_fused, p32, x8, cfg, r, 2.0 ** -16, 1e-3)
+    log(f"ToMe r={r} fp32 fused vs eager on the kernel's own matching, 8 images: {rep['merges']} "
+        f"merges, k-mean max|d| {rep['kmean']:.6g} of its scale (tol 2^-16), max|d logit|="
+        f"{rep['logits']:.6g} (tol 1e-3)")
+    del p32
+    probs = {}
+    for dtype, ops in (("float32", "fused"), ("bfloat16", "fused"), ("bfloat16", "quant")):
+        eng = InferenceEngine(cfg, params, dtype, ops, dev, batch_pad=len(images), tome_r=r)
+        logits = eng.logits(images).cpu().numpy()
+        if logits.shape != (len(images), cfg.num_classes) or not np.isfinite(logits).all():
+            raise RuntimeError(f"ToMe {dtype} {ops} logits: shape {logits.shape} or non-finite")
+        probs[dtype, ops] = _probs(logits)
+        del eng
+    _comparator_rule(f"ToMe r={r} bf16 fused vs fp32 fused", probs["bfloat16", "fused"],
+                     probs["float32", "fused"])
+    _comparator_rule(f"ToMe r={r} bf16 quant vs fp32 fused", probs["bfloat16", "quant"],
+                     probs["float32", "fused"])
+    torch.cuda.empty_cache()
+
+    x = torch.from_numpy(synth_images(4, cfg, seed=3)).to(dev)
+    y = torch.tensor([3, 141, 592, 653], device=dev)
+    for regularized in (False, True):
+        rcfg = dataclasses.replace(cfg, dropout=REG_P, drop_path=REG_P) if regularized else cfg
+        counts = tome.schedule(rcfg, r, tome.TRAIN_MERGE_CHUNK)
+
+        def grads(fn):
+            tree = trainer.as_trainable(params_from_numpy(params, "cpu"), dev, torch.float32)
+            rng = torch.Generator().manual_seed(5) if regularized else None
+            logits, out = fn(tree, rng)
+            loss = trainer.cross_entropy_loss(logits, y)
+            loss.backward()
+            return loss.item(), {path: t.grad for path, t in _paths(tree)}, out
+
+        lf, gf, metrics = grads(lambda p, rng: tome_stages.kernel_metrics(
+            tome.forward_train, p, x, rcfg, r, counts=counts, dropout_rng=rng))
+        le, ge, _ = grads(lambda p, rng: tome_stages.eager_on_metrics(
+            p, x, rcfg, r, metrics, counts=counts, dropout_rng=rng))
+        worst, worst_leaf = _worst_leaf(gf, ge)
+        what = "regularized " if regularized else ""
+        log(f"ToMe r={r} {what}train grads fp32 fused_train vs eager autograd on the kernel's own "
+            f"matching, B/16, 4 images: loss {lf:.6g} vs {le:.6g}; {len(ge)} leaves, worst "
+            f"{worst_leaf} at {worst:.3g} of its bound (1e-3 x max(1, max|g|))")
+        if worst > 1.0 or set(gf) != set(ge) or not np.isfinite(lf):
+            raise RuntimeError(f"ToMe {what}fused_train gradients outside 1e-3 of eager autograd")
+        del gf, ge
+        torch.cuda.empty_cache()
+
+
+def phase_tome_throughput(params, images: np.ndarray, dev: torch.device, card: str) -> None:
+    """Phase 30: classify img/s of ``fused`` and ``quant`` at ToMe r = 0,
+    13 and 16 (batch 100 bf16, ``InferenceEngine``), timed in turns with
+    the peak device memory of one forward of each; then the train step at
+    r = 0 and 13 (batch 64 bf16 mixed, the train schedule), plain and at
+    dropout and drop-path REG_P."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    x = torch.from_numpy(images).to(dev, torch.bfloat16)
+    n = x.shape[0]
+    engines, peak = {}, {}
+    for ops in ("fused", "quant"):
+        for r in TOME_RATE_R:
+            label = f"{ops} r={r}"
+            engines[label] = InferenceEngine(VIT_B_16, params, "bfloat16", ops, dev, batch_pad=n,
+                                             tome_r=r)
+            engines[label].logits(x)  # warm up
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            engines[label].logits(x)
+            peak[label] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    order = list(engines)
+    times = {label: [] for label in order}
+    for _ in range(3):
+        for label in order + order[::-1]:
+            t0 = time.perf_counter()
+            engines[label].logits(x)
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    for label, ts in times.items():
+        log(f"ToMe throughput {label} vit_b_16 batch {n} bf16: {n / statistics.median(ts):.6g} "
+            f"img/s (median of {len(ts)}, forward {statistics.median(ts) * 1e3:.6g} ms); "
+            f"activation peak above the params {peak[label]:.6g} GiB; {card}")
+    del engines
+    # one merge event of the r = 13 forward alone: the matching and the
+    # matrix (plain torch, no gradient) and the fp32 merge GEMM
+    from vit_tpu_torch.models import tome
+
+    t, r = VIT_B_16.seq_len, 3 * TOME_R
+    rn = _rand(dev, 16)
+    xm, km = rn(n, t, B16["d"], dtype=torch.bfloat16), rn(n, t, B16["d"] // B16["heads"],
+                                                          dtype=torch.bfloat16)
+    sizes = torch.ones(n, t, device=dev)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: tome._merge(xm, km, sizes, r, 1))
+        gemm = cuda_ms(lambda: torch.matmul(torch.ones(n, t - r, t, device=dev), xm.float()))
+    log(f"ToMe merge event batch {n} T {t} -> {t - r} bf16: {ms:.6g} ms (the fp32 merge GEMM "
+        f"alone {gemm:.6g} ms); {card}")
+    torch.cuda.empty_cache()
+    _train_rates(dev, card, {
+        "fused_train r=0": ("fused_train", False), f"fused_train r={TOME_R}": (
+            "fused_train", False, TOME_R),
+        "fused_train regularized r=0": ("fused_train", True),
+        f"fused_train regularized r={TOME_R}": ("fused_train", True, TOME_R),
+    }, "ToMe train throughput")
+
+
+def phase_tome_train_cli(workdir: str, extra, kernels) -> dict:
+    """Phase 28: the train CLI with ``--tome TOME_R`` and ``extra`` flags,
+    12 launches per step of each of ``kernels`` and none of any other, and a
+    loss that falls over the steps (AdamW at TOME_LR: the CLI's default 1e-3
+    is too hot at B/16 width, where a step of it can throw the loss up).
+    -> launch counts of the run."""
+    launches, losses = _train_cli(workdir, ["--tome", str(TOME_R), "--lr", str(TOME_LR), *extra])
+    want = {name: 0 for name in launches}
+    want.update({name: 12 * TRAIN_STEPS for name in kernels})
+    if launches != want:
+        raise RuntimeError(f"expected {want} kernel launches over {TRAIN_STEPS} steps, "
+                           f"got {launches}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"ToMe train CLI {extra}: the loss did not fall ({losses})")
+    return launches
+
+
+PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80")
+
+
+def group_classify(dev, card, summary, launches) -> None:
+    """Phases 3-6."""
     from vit_tpu_torch.config import VIT_B_16
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.ops.kernels import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    card = gpu_name_and_power()
-    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.device_count()} device(s)")
-
-    t0 = time.perf_counter()
-    reused = _build.library_path().exists()
-    _build.load_library()
-    log(f"kernel build: {time.perf_counter() - t0:.3f} s "
-        f"({'reused' if reused else 'built'} {_build.library_path().name})")
-
-    summary = phase_kernels(kernel_cases(dev), KERNELS, 100)
+    summary.update(phase_kernels(kernel_cases(dev), KERNELS, 100))
     params = synth_params(VIT_B_16, 0)
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
-        launches = {"classify": phase_cli(params, workdir)}
-
+        launches["classify"] = phase_cli(params, workdir)
     images = synth_images(100, VIT_B_16, seed=1)
     phase_correctness(params, images, dev)
     phase_throughput(params, images, dev, card)
-    del params, images
-    torch.cuda.empty_cache()
+
+
+def group_train(dev, card, summary, launches) -> None:
+    """Phases 7-10."""
+    from vit_tpu_torch.ops.kernels import _build
 
     summary.update(phase_kernels(train_kernel_cases(dev), TRAIN_KERNELS, 64))
     torch.cuda.empty_cache()
@@ -1389,7 +1740,11 @@ def main() -> None:
     phase_train_correctness(dev)
     torch.cuda.empty_cache()
     phase_train_throughput(dev, card)
-    torch.cuda.empty_cache()
+
+
+def group_regularized(dev, card, summary, launches) -> None:
+    """Phases 11-14."""
+    from vit_tpu_torch.ops.kernels import _build
 
     summary.update(phase_kernels(reg_kernel_cases(dev), REG_KERNELS, 64))
     phase_regularizer_checks(dev)
@@ -1400,8 +1755,10 @@ def main() -> None:
     phase_reg_correctness(dev)
     torch.cuda.empty_cache()
     phase_reg_throughput(dev, card)
-    torch.cuda.empty_cache()
 
+
+def group_long(dev, card, summary, launches) -> None:
+    """Phases 15-19."""
     summary.update(phase_kernels(long_kernel_cases(dev), LONG_KERNELS, LONG_BATCHES[0]))
     torch.cuda.empty_cache()
     launches["classify_long"] = phase_long_inference(dev)
@@ -1411,7 +1768,13 @@ def main() -> None:
     phase_long_throughput(dev, card)
     torch.cuda.empty_cache()
     phase_switch(dev, card)
-    torch.cuda.empty_cache()
+
+
+def group_quant(dev, card, summary, launches) -> None:
+    """Phases 20-24."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.ops.kernels import _build
 
     summary.update(phase_quant_kernels(quant_kernel_cases(dev)))
     phase_int8_gemm(dev, card)
@@ -1427,22 +1790,106 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_quant_throughput(params, images, dev, card)
 
+
+def group_tome(dev, card, summary, launches) -> None:
+    """Phases 25 and 27-30."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.ops.kernels import _build
+
+    cases, labels = tome_kernel_cases(dev)
+    summary.update(phase_kernels(cases, labels, 64))
+    del cases
+    phase_quant_kernels(tome_quant_cases(dev), {"ln_qkv_attn_q8+hooks": ("K15 log_size kmean",)})
+    torch.cuda.empty_cache()
+    params = synth_params(VIT_B_16, 0)
+    tome = ["--tome", str(TOME_R)]
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        launches["classify_tome"] = phase_cli(
+            params, workdir, "fused", ("ln_qkv_attn", "out_residual", "ln_mlp_residual"), tome, 0)
+        launches["classify_quant_tome"] = phase_cli(
+            params, workdir, "quant", ("ln_qkv_attn_q8", "out_residual", "ln_mlp_residual_q8"),
+            tome, 0)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        launches["train_tome"] = phase_tome_train_cli(workdir, [], (
+            "ln_qkv_attn", "out_residual", "ln_mlp_residual", "ln_qkv_attn_bwd",
+            "out_residual_bwd", "ln_mlp_residual_bwd"))
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        launches["train_tome_regularized"] = phase_tome_train_cli(workdir, REG_FLAGS, (
+            "ln_qkv_attn", "out_residual_train", "ln_mlp_residual_train", "ln_qkv_attn_bwd",
+            *TOME_KERNELS))
+    torch.cuda.empty_cache()
+    images = synth_images(100, VIT_B_16, seed=1)
+    phase_tome_correctness(params, images, dev)
+    torch.cuda.empty_cache()
+    phase_tome_throughput(params, images, dev, card)
+
+
+def group_dh80(dev, card, summary, launches) -> None:
+    """Phase 26."""
+    cases, labels, q8 = dh80_cases(dev)
+    phase_kernels(cases, labels, H14["batch"])
+    phase_quant_kernels(q8, labels)
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    p = argparse.ArgumentParser(description="Drive the port on one NVIDIA card and check it.")
+    p.add_argument("--only", metavar="PHASE[,PHASE]",
+                   help=f"run only these groups of phases, of {', '.join(PHASES)} (a rerun; "
+                   "without it every phase runs)")
+    args = p.parse_args(argv)
+    only = PHASES if args.only is None else tuple(args.only.split(","))
+    if not set(only) <= set(PHASES):
+        p.error(f"--only takes {', '.join(PHASES)}; got {args.only}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False: chip_smoke needs an NVIDIA card")
+    from vit_tpu_torch.ops.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = gpu_name_and_power()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} device(s)")
+
+    t0 = time.perf_counter()
+    reused = _build.library_path().exists()
+    _build.load_library()
+    log(f"kernel build: {time.perf_counter() - t0:.3f} s "
+        f"({'reused' if reused else 'built'} {_build.library_path().name})")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    summary, launches = {}, {}
+    groups = {"classify": group_classify, "train": group_train, "regularized": group_regularized,
+              "long": group_long, "quant": group_quant, "tome": group_tome, "dh80": group_dh80}
+    for name in PHASES:
+        if name in only:
+            t0 = time.perf_counter()
+            groups[name](dev, card, summary, launches)
+            torch.cuda.empty_cache()
+            log(f"phases {name}: {time.perf_counter() - t0:.3f} s")
+
     # launches: the classify CLI's run for K1-K3, the train CLI's for K4-K7,
     # the regularized train CLI's for K10-K12a, the long classify forward's
     # for K13, the long train step's for K14, K8, K9, the quant classify
-    # CLI's for K15-K17 (K17: no path of the port reaches it before token
-    # merging, so 0), the long quant forward's for K15's stages 1-2; "paths"
-    # has every reading
+    # CLI's for K15 and K16, the ToMe quant classify CLI's for K17, the long
+    # quant forward's for K15's stages 1-2, the regularized ToMe train CLI's
+    # for K12b and K12c; "paths" has every reading
     path_of = {**{k: "classify" for k in KERNELS}, **{k: "train" for k in TRAIN_KERNELS},
                **{k: "train_regularized" for k in REG_KERNELS},
                **{k: "train_long" for k in LONG_KERNELS}, "flash_attention_fwd": "classify_long",
-               **{k: "classify_quant" for k in QUANT_KERNELS}, "ln_qkv_q8": "classify_quant_long"}
-    all_kernels = {**KERNELS, **TRAIN_KERNELS, **REG_KERNELS, **LONG_KERNELS, **QUANT_KERNELS}
+               **{k: "classify_quant" for k in QUANT_KERNELS}, "ln_qkv_q8": "classify_quant_long",
+               "ln_mlp_residual_q8": "classify_quant_tome",
+               **{k: "train_tome_regularized" for k in TOME_KERNELS}}
+    all_kernels = {**KERNELS, **TRAIN_KERNELS, **REG_KERNELS, **LONG_KERNELS, **QUANT_KERNELS,
+                   **TOME_KERNELS}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[path_of[name]][name],
+         "launches": launches.get(path_of[name], {}).get(name),
          "paths": {path: counts[name] for path, counts in launches.items()}, **summary[name]}
-        for name, (_, src, replaces) in all_kernels.items()
+        for name, (_, src, replaces) in all_kernels.items() if name in summary
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

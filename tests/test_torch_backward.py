@@ -255,8 +255,9 @@ def test_hooks_of_later_slices_raise():
     k6 = [torch.from_numpy(a) for a in _k6_arrays(10, 64, 7)]
     with pytest.raises(NotImplementedError, match="qkv"):
         ln_qkv_attn_bwd(*k6, 4, 5, EPS, qkv=torch.zeros(10, 192))
-    with pytest.raises(NotImplementedError, match="log_size"):
-        ln_qkv_attn_bwd(*k6, 4, 5, EPS, log_size=torch.zeros(2, 5))
+    # token merging's log_size and the form without dres are ported: they run
+    dx, *_ = ln_qkv_attn_bwd(k6[0], None, *k6[2:], 4, 5, EPS, log_size=torch.zeros(2, 5))
+    assert dx.shape == k6[2].shape
 
 
 def test_block_backward_runs_merged_k7_at_every_width(monkeypatch):

@@ -113,8 +113,9 @@ def test_layer_norm(dev, dtype, shape):
 @pytest.mark.parametrize(
     "b,t,d,h",
     [(2, 5, 64, 4), (3, 197, 768, 12), (1, 1024, 128, 4), (2, 65, 256, 8),
-     (2, 198, 384, 3), (1, 77, 768, 6)],
-    ids=["tiny_dh16", "b16_t197", "t1024_dh32", "t65_dh32", "deit_t198_dh128", "wide_dh128"],
+     (2, 198, 384, 3), (1, 77, 768, 6), (2, 257, 160, 2)],
+    ids=["tiny_dh16", "b16_t197", "t1024_dh32", "t65_dh32", "deit_t198_dh128", "wide_dh128",
+         "h14_t257_dh80"],
 )
 def test_ln_qkv_attn(dev, dtype, b, t, d, h):
     args = (
@@ -254,8 +255,9 @@ def _k6_args(dev, dtype, b, t, d, h):
 @pytest.mark.parametrize(
     "b,t,d,h",
     [(2, 5, 64, 4), (3, 197, 768, 12), (1, 1024, 128, 4), (2, 65, 256, 8),
-     (2, 198, 384, 3), (1, 1024, 384, 3)],
-    ids=["tiny_dh16", "b16_t197", "t1024_dh32", "t65_dh32", "deit_t198_dh128", "t1024_dh128"],
+     (2, 198, 384, 3), (1, 1024, 384, 3), (2, 257, 160, 2)],
+    ids=["tiny_dh16", "b16_t197", "t1024_dh32", "t65_dh32", "deit_t198_dh128", "t1024_dh128",
+         "h14_t257_dh80"],
 )
 def test_ln_qkv_attn_bwd(dev, dtype, b, t, d, h):
     args = _k6_args(dev, dtype, b, t, d, h)
@@ -379,6 +381,7 @@ def test_fused_block_grads_match_eager_autograd(dev):
 FLASH_CASES = {
     "t100_dh32": (2, 2, 100, 32), "t64_dh16": (1, 3, 64, 16), "t160_dh64": (2, 2, 160, 64),
     "t77_dh128": (1, 2, 77, 128), "b16_t1025": (1, 12, 1025, 64), "t2048": (1, 2, 2048, 64),
+    "h14_t257_dh80": (2, 16, 257, 80),
 }
 
 
@@ -562,8 +565,9 @@ def _k15_args(dev, dtype, b, t, d, h):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize(
-    "b,t,d,h", [(2, 5, 64, 4), (3, 197, 768, 12), (2, 65, 256, 8), (1, 77, 768, 6)],
-    ids=["tiny_dh16", "b16_t197_ragged_rows", "t65_dh32", "wide_dh128"],
+    "b,t,d,h", [(2, 5, 64, 4), (3, 197, 768, 12), (2, 65, 256, 8), (1, 77, 768, 6),
+                (2, 257, 160, 2)],
+    ids=["tiny_dh16", "b16_t197_ragged_rows", "t65_dh32", "wide_dh128", "h14_t257_dh80"],
 )
 def test_ln_qkv_attn_q8(dev, dtype, b, t, d, h):
     args = _k15_args(dev, dtype, b, t, d, h)
@@ -671,3 +675,170 @@ def test_quant_forward_launches_and_keeps_labels(dev, long, monkeypatch):
     assert torch.equal(got.argmax(-1), ref.argmax(-1))
     # int8 noise over two layers: the JAX package's own bar for its tiny model
     assert (got - ref).abs().max().item() < 0.15
+
+
+# -- token merging: the hooks of K1/K15/K6, K12b and K12c, the ToMe paths --------
+
+# merged token counts of B/16 r = 13 (chunk 3 and chunk 2 schedules) and the
+# ragged tails, at B/16 width; and a ViT-H/14-like dh 80
+TOME_CASES = {"b3_t158": (3, 158, 768, 12), "b2_t41": (2, 41, 768, 12),
+              "b3_t171_dh64": (3, 171, 768, 12), "h14_t257_dh80": (2, 257, 160, 2)}
+
+
+def _log_size(dev, b, t):
+    g = torch.Generator(device=dev).manual_seed(50)
+    return torch.log(torch.randint(1, 6, (b, t), generator=g, device=dev).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(TOME_CASES))
+def test_ln_qkv_attn_tome_hooks(dev, dtype, case):
+    b, t, d, h = TOME_CASES[case]
+    args = (_rn(dev, 0, b * t, d, scale=2.0, dtype=dtype),
+            _rn(dev, 1, d, scale=0.2, shift=1.0, dtype=dtype), _rn(dev, 2, d, scale=0.2, dtype=dtype),
+            _rn(dev, 3, d, 3 * d, scale=d ** -0.5, dtype=dtype),
+            _rn(dev, 4, 3 * d, scale=0.1, dtype=dtype), h, t, 1e-6)
+    ls = _log_size(dev, b, t)
+    ctx, kmean = ln_qkv_attn(*args, log_size=ls, return_kmean=True)
+    want_ctx, want_kmean = ln_qkv_attn_plain(*args, log_size=ls, return_kmean=True)
+    _check(ctx, want_ctx)
+    _check(kmean, want_kmean)
+    # a zero bias adds exactly nothing; the hooks off are the plain kernel
+    zero, _ = ln_qkv_attn(*args, log_size=torch.zeros_like(ls), return_kmean=True)
+    assert torch.equal(zero, ln_qkv_attn(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(TOME_CASES))
+def test_ln_qkv_attn_q8_tome_hooks(dev, dtype, case):
+    b, t, d, h = TOME_CASES[case]
+    args = _k15_args(dev, dtype, b, t, d, h)
+    ls = _log_size(dev, b, t)
+    st = k15._ln_qkv_attn_q8_stages(*args, ls, True)
+    end = k15.ln_qkv_attn_q8_plain(*args, log_size=ls)
+    report = quant_stages.check_ln_qkv_attn_q8(st, end, *args, ls, True)
+    assert report["kmean"] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(TOME_CASES))
+def test_ln_qkv_attn_bwd_tome(dev, dtype, case):
+    # K6 with the log-size bias and without the residual join
+    b, t, d, h = TOME_CASES[case]
+    dctx, _, *rest = _k6_args(dev, dtype, b, t, d, h)
+    ls = _log_size(dev, b, t)
+    _check_all(ln_qkv_attn_bwd(dctx, None, *rest, log_size=ls),
+               ln_qkv_attn_bwd_plain(dctx, None, *rest, log_size=ls))
+
+
+def _k12_cases():
+    return [(b * t, t) for b, t in ((3, 171), (2, 41), (64, 158))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("rows,t", _k12_cases(), ids=["b3_t171", "b2_t41", "b64_t158"])
+def test_split_regularized_backward(dev, dtype, p, rows, t):
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd_train as k12b
+    from vit_tpu_torch.ops.kernels import out_residual_bwd_train as k12c
+
+    d, f, seed = 768, 3072, 2 ** 31 + 5
+    dp_a = drop_path_scale_rows(seed, 4, rows // t, t, 0.1, device=dev)
+    dp_m = drop_path_scale_rows(seed, 5, rows // t, t, 0.1, device=dev)
+    dy, x1, ctx, s, bn, w1, b1, w2, wo, *_ = _k7_args(dev, dtype, rows, d, f, "exact")
+    a12b = (dy, x1, s, bn, w1, b1, w2, dp_m, seed, p, 1e-6, "exact")
+    _check_all(k12b.ln_mlp_residual_bwd_train(*a12b), k12b.ln_mlp_residual_bwd_train_plain(*a12b))
+    a12c = (dy, ctx, wo, dp_a, seed, p)
+    _check_all(k12c.out_residual_bwd_train(*a12c), k12c.out_residual_bwd_train_plain(*a12c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_regularized_backward_at_zero_rates_is_k8_k9(dev, dtype):
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd_train as k12b
+    from vit_tpu_torch.ops.kernels import out_residual_bwd_train as k12c
+
+    rows, d, f = 591, 768, 3072
+    ones = torch.ones(rows, device=dev)
+    dy, x1, ctx, s, bn, w1, b1, w2, wo, *_ = _k7_args(dev, dtype, rows, d, f, "exact")
+    for a, b in zip(k12b.ln_mlp_residual_bwd_train(dy, x1, s, bn, w1, b1, w2, ones, 7, 0.0, 1e-6),
+                    ln_mlp_residual_bwd(dy, x1, s, bn, w1, b1, w2, 1e-6)):
+        assert torch.equal(a, b)
+    for a, b in zip(k12c.out_residual_bwd_train(dy, ctx, wo, ones, 7, 0.0),
+                    out_residual_bwd(dy, ctx, wo)):
+        assert torch.equal(a, b)
+
+
+def _tome_cfg():
+    # 65 tokens, so the schedules merge (r = 4: [12, 0, 0] and [8, 0, 4])
+    return dataclasses.replace(VIT_B_16, depth=3, embed_dim=128, num_heads=2, image_size=64,
+                               patch_size=8, num_classes=11, name="vit_tome_card_test")
+
+
+def _params_on(dev, cfg, seed=1):
+    from vit_tpu_torch.models import vit
+
+    return {k: v.to(dev) if torch.is_tensor(v) else {n: t.to(dev) for n, t in v.items()}
+            for k, v in vit.init_params(torch.Generator().manual_seed(seed), cfg).items()}
+
+
+@pytest.mark.cuda
+def test_tome_forwards_launch_and_match_eager(dev):
+    from vit_tpu_torch.eval import tome_stages
+    from vit_tpu_torch.models import tome
+    from vit_tpu_torch.ops.kernels import wrapper
+
+    cfg = _tome_cfg()
+    params = _params_on(dev, cfg)
+    x = torch.from_numpy(synth_images(3, cfg, seed=2)).to(dev)
+    names = ("ln_qkv_attn", "out_residual", "ln_mlp_residual", "out_ln_mlp_residual",
+             "layer_norm", "ln_qkv_attn_q8", "ln_mlp_residual_q8", "out_ln_mlp_residual_q8")
+    for name in names:
+        wrapper(name).launches = 0
+    report = tome_stages.check_against_eager(tome.forward_fused, params, x, cfg, 4, 2.0 ** -16,
+                                             1e-4)
+    assert report["merges"] == 1
+    assert tuple(wrapper(n).launches for n in names) == (3, 3, 3, 0, 0, 0, 0, 0)
+    got = tome.forward_quant(quant.quantize_params(params), x, cfg, 4)
+    assert tuple(wrapper(n).launches for n in names) == (3, 6, 3, 0, 0, 3, 3, 0)  # K4 again
+    ref = tome.forward_eager(params, x, cfg, 4)
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+    assert (got - ref).abs().max().item() < 0.15  # int8 noise, as the plain quant test
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "dropout_droppath"])
+def test_tome_train_grads_match_eager_autograd(dev, regularized):
+    from vit_tpu_torch.models import tome
+    from vit_tpu_torch.ops.kernels import wrapper
+    from vit_tpu_torch.runtime import trainer
+
+    cfg = _tome_cfg()
+    if regularized:
+        cfg = dataclasses.replace(cfg, dropout=0.1, drop_path=0.1)
+    x = torch.from_numpy(synth_images(3, cfg, seed=2)).to(dev)
+    weight = _rn(dev, 60, 3, cfg.num_classes)
+    counts = tome.schedule(cfg, 4, tome.TRAIN_MERGE_CHUNK)
+
+    def grads(fn):
+        params = trainer.as_trainable(_params_on(dev, cfg), dev)
+        rng = torch.Generator().manual_seed(3) if regularized else None
+        (fn(params, x, cfg, 4, counts=counts, dropout_rng=rng) * weight).sum().backward()
+        return dict(enumerate(t.grad for t in trainer.leaves(params)))
+
+    names = ("ln_qkv_attn", "ln_qkv_attn_bwd", "out_residual", "out_residual_bwd",
+             "ln_mlp_residual", "ln_mlp_residual_bwd", "out_residual_train",
+             "out_residual_bwd_train", "ln_mlp_residual_train", "ln_mlp_residual_bwd_train")
+    for name in names:
+        wrapper(name).launches = 0
+    got = grads(tome.forward_train)
+    want = (3, 3, 0, 0, 0, 0, 3, 3, 3, 3) if regularized else (3, 3, 3, 3, 3, 3, 0, 0, 0, 0)
+    assert tuple(wrapper(n).launches for n in names) == want
+    # the merge on the card: same k-mean, same matching (3 images, fp32)
+    for k, w in grads(tome.forward_eager).items():
+        err, bound = (got[k] - w).abs().max().item(), 1e-3 * max(1.0, w.abs().max().item())
+        assert err <= bound, f"leaf {k}: max|d| {err} > {bound}"

@@ -270,9 +270,10 @@ def test_comparator_matches_jax(tmp_path):
 
 def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     """chip_smoke, then on the CPU: the train CLI (fused_train, --save; and
-    regularized, eager and fused_train), and the classify CLI on its npz, on
-    a Weight_*.bin directory, on a .pth, on --images, with --golden and with
-    --ops quant: no vit_tpu or jax module gets loaded."""
+    regularized, eager and fused_train; and with --tome, plain and
+    regularized), and the classify CLI on its npz, on a Weight_*.bin
+    directory, on a .pth, on --images, with --golden, with --ops quant and
+    with --tome on fused and quant: no vit_tpu or jax module gets loaded."""
     from vit_tpu.io import weights as jweights
     from vit_tpu.io.torch_convert import save_pth
 
@@ -307,6 +308,15 @@ assert classify.main([*run, "--weights", d + "/model.pth", "--images", d,
 for dtype in ("bfloat16", "float32"):
     assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2", "--ops", "quant",
                           "--dtype", dtype]) == 0
+tome = config.ViTConfig(image_size=64, patch_size=8, embed_dim=64, depth=2, num_heads=4,
+                        num_classes=11, name="vit_tome_test")  # 65 tokens: merges happen
+config.CONFIGS[tome.name] = tome
+run = ["--config", tome.name, "--device", "cpu", "--tome", "4"]
+for extra in ([], ["--dropout", "0.1", "--drop-path", "0.1"]):
+    assert train.main([*run, "--steps", "1", "--batch", "2", "--ops", "fused_train",
+                       "--save", d + "/t.npz", *extra]) == 0
+for ops in ("fused", "quant"):
+    assert classify.main([*run, "--weights", d + "/t.npz", "--synth", "2", "--ops", ops]) == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib"))
 assert not loaded, loaded
 """

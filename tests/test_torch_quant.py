@@ -547,11 +547,13 @@ def test_q8_wrappers_refuse_other_devices(kernel):
 
 
 def test_token_merging_hooks_wait_for_their_slice():
+    # the token-merging hooks are ported: a zero log-size bias adds nothing,
+    # and the k-mean is the mean key over heads (test_torch_tome.py holds
+    # both hooks to the JAX package)
     _, args = _cpu_cases()["ln_qkv_attn_q8"]
-    with pytest.raises(NotImplementedError, match="token-merging"):
-        K15.ln_qkv_attn_q8(*args, return_kmean=True)
-    with pytest.raises(NotImplementedError, match="token-merging"):
-        K15.ln_qkv_attn_q8(*args, log_size=torch.zeros(2, 5))
+    ctx, kmean = K15.ln_qkv_attn_q8(*args, log_size=torch.zeros(2, 5), return_kmean=True)
+    assert torch.equal(ctx, K15.ln_qkv_attn_q8(*args))
+    assert kmean.shape == (ctx.shape[0], ctx.shape[1] // args[6])
 
 
 def test_kernel_registry_finds_the_q8_wrappers():

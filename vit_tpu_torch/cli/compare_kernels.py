@@ -10,7 +10,10 @@ K4, K5 and K7 at batch 64 (the train step), K10, K11 and K12a too where the
 checkout has them (dropout and drop-path 0.1), and the W8A8 K15, K16 and
 K17 at batch 100 where it has those; bf16, CUDA events, median of
 20 launches after 5.  ``--sass SOURCE ...`` first compares the machine
-code each checkout compiles from those sources.  Needs a card.
+code each checkout compiles from those sources: every kernel of A must
+compile to the same instructions in B, and B may add kernels of its own (a
+new template instance, a hook's variant).  ``--rounds 0`` compares the
+machine code only.  Needs a card.
 """
 
 from __future__ import annotations
@@ -98,10 +101,10 @@ def _functions(dump: str) -> dict:
 
 
 def same_sass(a: str, b: str, sources) -> dict:
-    """{source: True when both checkouts compile it to the same machine
-    code} — nvcc with the build's flags to a cubin, then ``cuobjdump
-    -sass``, compared kernel by kernel (the same kernels, each with the
-    same instructions, in whatever order the cubin lists them)."""
+    """{source: (kernels of A whose machine code differs in B or is missing
+    there, kernels B adds)} — nvcc with the build's flags to a cubin, then
+    ``cuobjdump -sass``, compared kernel by kernel (each with the same
+    instructions, in whatever order the cubin lists them)."""
     import tempfile
     from pathlib import Path
 
@@ -110,18 +113,23 @@ def same_sass(a: str, b: str, sources) -> dict:
     nvcc = _build.find_nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
     out = {}
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
+        cubins = {(src, i): f"{tmp}/{i}_{Path(src).stem}.cubin"
+                  for src in sources for i in range(2)}
+        procs = [subprocess.Popen([nvcc, *flags, "-cubin", "-o", cubin,
+                                   str(Path((a, b)[i]) / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for (src, i), cubin in cubins.items()]  # all compiles at once
+        for p in procs:
+            log = p.communicate()[0]
+            if p.returncode:
+                raise RuntimeError(f"{' '.join(p.args)} failed:\n{log.decode()}")
         for src in sources:
-            sass = []
-            for i, root in enumerate((a, b)):
-                cubin = f"{tmp}/{i}_{Path(src).stem}.cubin"
-                flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
-                subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, str(Path(root) / src)],
-                               check=True, capture_output=True)
-                dump = subprocess.run([cuobjdump, "-sass", cubin], check=True,
-                                      capture_output=True, text=True).stdout
-                sass.append(_functions(dump))
-            out[src] = sass[0] == sass[1]
+            old, new = (_functions(subprocess.run([cuobjdump, "-sass", cubins[src, i]],
+                                                  check=True, capture_output=True,
+                                                  text=True).stdout) for i in range(2))
+            out[src] = ([k for k in old if new.get(k) != old[k]], [k for k in new if k not in old])
     return out
 
 
@@ -135,8 +143,9 @@ def main(argv=None) -> int:
                    "(e.g. vit_tpu_torch/csrc/out_residual.cu) between the two checkouts")
     args = p.parse_args(argv)
     if args.sass:
-        for src, same in same_sass(*args.roots, args.sass).items():
-            print(f"sass {src}: {'identical' if same else 'DIFFERENT'}", flush=True)
+        for src, (changed, added) in same_sass(*args.roots, args.sass).items():
+            verdict = f"DIFFERENT {changed}" if changed else "identical"
+            print(f"sass {src}: {verdict}; {len(added)} kernel(s) added", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
@@ -153,6 +162,8 @@ def main(argv=None) -> int:
             print(f"round {r} {root}: " + ", ".join(f"{n} {v:.6g} ms" for n, v in times.items()),
                   flush=True)
     for root, runs in readings.items():
+        if not runs:
+            continue
         med = {n: statistics.median(run[n] for run in runs) for n in runs[0]}
         print(f"median {root} ({len(runs)} processes; {card}): "
               + ", ".join(f"{n} {v:.6g} ms" for n, v in med.items()), flush=True)

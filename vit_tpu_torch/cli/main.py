@@ -17,9 +17,12 @@ Usage::
 
 ``--ops quant`` is W8A8 inference: the engine quantizes the QKV and MLP
 weights of the loaded fp32 tree to int8 and runs the int8 kernels.
+``--tome R`` merges R token pairs per layer (ToMe, ``models/tome.py``) on
+``fused``, ``quant`` or ``eager``.
 
-``--tp/--dp/--tome/--attn-rollout/--profile/--interpolate-pos-from`` of the
-JAX package's CLI wait for their slices of the port.
+``--tp/--dp/--attn-rollout/--profile/--interpolate-pos-from`` of the JAX
+package's CLI wait for their slices of the port (their ``--tome`` refusals
+come with them).
 """
 
 from __future__ import annotations
@@ -78,6 +81,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--labels", help="label names: text file or C source array")
     p.add_argument("--top", type=int, default=1, help="print top-K classes per image")
+    p.add_argument(
+        "--tome", type=int, default=0, metavar="R",
+        help="ToMe token merging: merge the R most similar token pairs "
+        "per layer (Bolya et al. 2022) — higher throughput at a "
+        "controlled approximation cost; needs --ops fused, quant or eager",
+    )
     p.add_argument("--json", action="store_true", help="machine-readable summary")
     return p
 
@@ -95,6 +104,13 @@ def main(argv=None) -> int:
     ops = args.ops
     if ops == "auto":
         ops = "fused" if args.device == "cuda" else "eager"
+    if args.tome < 0:
+        print("error: --tome must be >= 0", file=sys.stderr)
+        return 2
+    if args.tome and ops not in ("fused", "quant", "eager"):
+        print("error: --tome (token merging) needs --ops fused, quant, or eager",
+              file=sys.stderr)
+        return 2
 
     t_load0 = time.perf_counter()
     source_names = None
@@ -118,7 +134,7 @@ def main(argv=None) -> int:
 
     engine = InferenceEngine(
         cfg, params, dtype=args.dtype, ops=ops, device=args.device,
-        batch_pad=args.batch_pad, gelu_variant=args.gelu,
+        batch_pad=args.batch_pad, gelu_variant=args.gelu, tome_r=args.tome,
     )
 
     t0 = time.perf_counter()

@@ -1,7 +1,7 @@
 """Argument parser for the training CLI (vit-tpu-torch-train).
 
 The flags of ``vit_tpu.cli.train_args`` that the one-device PyTorch port
-runs; the mesh, augmentation, distillation, MAE, ToMe, EMA, resume and
+runs; the mesh, augmentation, distillation, MAE, EMA, resume and
 streaming-data flags wait for their slices of the port (ROADMAP.md).
 """
 
@@ -82,6 +82,17 @@ def build_parser() -> argparse.ArgumentParser:
         "--drop-path", type=float, default=0.0, metavar="R",
         help="stochastic depth: per-sample residual-branch drop, rate "
         "scaled linearly from 0 at the first block to R at the last",
+    )
+    p.add_argument(
+        "--tome", type=int, default=None, metavar="R",
+        help="train with token merging active (ToMe): merge R token pairs "
+        "per layer on the chunked schedule; --ops fused_train (the split "
+        "kernels around the merge-matrix GEMM) or eager",
+    )
+    p.add_argument(
+        "--tome-chunk", type=int, default=None, metavar="N",
+        help="override the ToMe merge-schedule bucketing for training "
+        "(default models/tome.TRAIN_MERGE_CHUNK = 2)",
     )
     p.add_argument(
         "--log-jsonl", metavar="PATH",

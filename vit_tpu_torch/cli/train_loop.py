@@ -11,21 +11,30 @@ import time
 import numpy as np
 import torch
 
+# the staged batches' bound, as the JAX package's loop has it
+STAGED_BYTES = int(512e6)
+
 
 def run(args, st) -> int:
     """Drive ``st`` (a train_setup.TrainSetup) for args.steps steps."""
     from vit_tpu_torch.io import checkpoint as ckpt
     from vit_tpu_torch.io.params import params_to_numpy
 
-    staged = {}  # static data cycles a few aligned batches: upload each once
+    # static data cycles a few aligned batches: upload each once, up to
+    # STAGED_BYTES of them, so a large static set cannot crowd training out
+    # of device memory (the rest are uploaded at every use)
+    staged = {}
+    batch_bytes = st.images[: args.batch].nbytes + st.labels[: args.batch].nbytes
+    max_staged = max(1, STAGED_BYTES // max(batch_bytes, 1))
     for s in range(args.steps):
         i0 = (s * args.batch) % st.n_static
-        if i0 not in staged:
-            staged[i0] = (
-                torch.from_numpy(st.images[i0 : i0 + args.batch]).to(st.device),
-                torch.from_numpy(st.labels[i0 : i0 + args.batch]).to(st.device),
-            )
-        xb, yb = staged[i0]
+        if i0 in staged:
+            xb, yb = staged[i0]
+        else:
+            xb = torch.from_numpy(st.images[i0 : i0 + args.batch]).to(st.device)
+            yb = torch.from_numpy(st.labels[i0 : i0 + args.batch]).to(st.device)
+            if len(staged) < max_staged:
+                staged[i0] = (xb, yb)
         if st.lr_at is not None:
             for group in st.optimizer.param_groups:
                 group["lr"] = st.lr_at(s)

@@ -112,6 +112,39 @@ def _load_data(args, cfg):
     return images, labels
 
 
+def _tome_forward(args, cfg, ops_name: str):
+    """--tome/--tome-chunk -> the merged-token forward ``(params, images,
+    dropout_rng) -> logits`` for the trainer, or None without --tome."""
+    if args.tome_chunk is not None and not args.tome:
+        # tell "--tome absent" from an explicit "--tome 0"
+        raise SetupError(
+            "error: --tome-chunk requires --tome > 0"
+            if args.tome is not None
+            else "error: --tome-chunk requires --tome"
+        )
+    if not args.tome:
+        return None
+    from vit_tpu_torch.models import tome
+
+    if ops_name not in ("fused_train", "eager"):
+        raise SetupError("error: --tome training requires --ops fused_train or eager")
+    chunk = tome.TRAIN_MERGE_CHUNK if args.tome_chunk is None else args.tome_chunk
+    if chunk < 1:
+        raise SetupError("error: --tome-chunk must be >= 1")
+    try:
+        counts = tome.schedule(cfg, args.tome, chunk)
+    except ValueError as e:
+        raise SetupError(f"error: {e}") from e
+    impl = tome.forward_train if ops_name == "fused_train" else tome.forward_eager
+    print(f"tome training: r={args.tome} (chunk {chunk}, final {cfg.seq_len - sum(counts)} "
+          "tokens)")
+
+    def forward(params, images, dropout_rng):
+        return impl(params, images, cfg, args.tome, counts=counts, dropout_rng=dropout_rng)
+
+    return forward
+
+
 def prepare(args) -> TrainSetup:
     from vit_tpu_torch.config import resolve_config
     from vit_tpu_torch.io.load_any import load_params_any
@@ -153,6 +186,7 @@ def prepare(args) -> TrainSetup:
             )
         cfg = dataclasses.replace(cfg, dropout=args.dropout, drop_path=args.drop_path)
         print(f"dropout: {args.dropout}  drop_path: {args.drop_path}")
+    tome_forward = _tome_forward(args, cfg, ops_name)
 
     if args.init_weights:
         try:
@@ -163,6 +197,11 @@ def prepare(args) -> TrainSetup:
         params = params_from_numpy(tree, "cpu", torch.float32)
         if args.num_classes:
             params["head"] = vit.init_head(torch.Generator().manual_seed(args.seed ^ 0x4EAD), cfg)
+            if "head_dist" in params:
+                # a distilled backbone: apply_head averages the two heads, so
+                # the distillation head takes the new class count too
+                params["head_dist"] = vit.init_head(
+                    torch.Generator().manual_seed(args.seed ^ 0xD157), cfg)
             print(f"transfer learning: fresh {cfg.embed_dim} x {args.num_classes} head")
     else:
         params = vit.init_params(torch.Generator().manual_seed(args.seed), cfg)
@@ -182,6 +221,7 @@ def prepare(args) -> TrainSetup:
         label_smoothing=args.label_smoothing, grad_accum=args.grad_accum,
         grad_clip=args.grad_clip, use_dropout=use_dropout,
         rng=torch.Generator().manual_seed(args.seed) if use_dropout else None,
+        forward_fn=tome_forward,
     )
 
     images, labels = _load_data(args, cfg)

@@ -2,10 +2,18 @@
 // 64 x 64 score tiles from two fp32 shared-memory row tiles, and
 // half-warp reductions over a query row; and the forward stage itself
 // (attention_kernel, launch_attention_any), which K1 and its int8 twin K15
-// both instantiate from this one definition.
+// both instantiate from this one definition, with token merging's two hooks:
+// the per-key log-size bias (attention_bias_kernel; fused_block.py:183-184)
+// and the mean key over heads (kmean_kernel; fused_block.py:219-226).
+//
+// The head width DH is a template argument, 16 x kDj: 16, 32, 64, 80 (ViT-H,
+// vit_h_14) and 128.  The tiles' loops run over DH columns with odd fp32
+// pitches (DH + 1), so 80 needs no padding.
 #pragma once
 
 #include "common.cuh"
+
+#include <algorithm>
 
 namespace vt {
 
@@ -48,14 +56,32 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// s[i][j] += bias[k0 + tx + 16j]: the log-size bias of the key tile at k0
+// (keys past seq are masked by the caller)
+__device__ __forceinline__ void add_key_bias(const float* __restrict__ bias, int k0, int seq,
+                                             int tx, float s[4][4]) {
+  float bv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int t = k0 + tx + 16 * j;
+    bv[j] = t < seq ? bias[t] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] += bv[j];
+}
+
 // Running row max m and sum of exp(s - m) over all `seq` keys for the
 // query rows held in Qs (pass 1 of K1, and K6's recompute): key tiles of
 // the packed (head, {q,k,v}, dh) columns at `base` (pitch ld) stream
-// through Ks; keys past seq are excluded.
-template <typename T, int DH>
+// through Ks; keys past seq are excluded.  kBias adds the image's fp32
+// log-size row `bias` (seq,) to the scores before the row max.
+template <typename T, int DH, bool kBias = false>
 __device__ __forceinline__ void softmax_stats(const T* __restrict__ base, int ld, int seq,
                                               const float* Qs, float* Ks, int tid, int tx,
-                                              int ty, float m[4], float l[4]) {
+                                              int ty, float m[4], float l[4],
+                                              const float* __restrict__ bias = nullptr) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
@@ -70,6 +96,7 @@ __device__ __forceinline__ void softmax_stats(const T* __restrict__ base, int ld
     }
     __syncthreads();
     score_tile<DH>(Qs, Ks, tx, ty, s);
+    if constexpr (kBias) add_key_bias(bias, k0, seq, tx, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float tmax = -INFINITY;
@@ -96,10 +123,11 @@ constexpr size_t attention_smem_bytes() {
          (kAtQ * (DH + 1) + kAtK * (DH + 1) + kAtK * DH + kAtQ * (kAtK + 1));
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kAtThreads)
-attention_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int seq, int heads,
-                 float inv_sqrt_dh) {
+// one block's work; kBias adds log_size[b, key] to the scores
+template <typename T, int DH, bool kBias>
+__device__ __forceinline__ void attention_block(const T* __restrict__ qkv, T* __restrict__ ctx,
+                                                const float* __restrict__ log_size, int seq,
+                                                int heads, float inv_sqrt_dh) {
   extern __shared__ float smem[];
   float* Qs = smem;                       // [kAtQ][DH + 1]
   float* Ks = Qs + kAtQ * (DH + 1);       // [kAtK][DH + 1]
@@ -110,6 +138,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int seq, int he
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int ld = 3 * heads * DH;  // packed row pitch (3D)
   const T* base = qkv + (size_t)b * seq * ld + (size_t)h * 3 * DH;
+  const float* bias = kBias ? log_size + (size_t)b * seq : nullptr;
 
   // q * (1/sqrt(dh)) with the scale and the product rounded to the dtype,
   // as the TPU kernel scales q in its working dtype
@@ -121,7 +150,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int seq, int he
 
   // pass 1: running row max m and sum of exp(s - m) over all keys
   float m[4], l[4];
-  softmax_stats<T, DH>(base, ld, seq, Qs, Ks, tid, tx, ty, m, l);
+  softmax_stats<T, DH, kBias>(base, ld, seq, Qs, Ks, tid, tx, ty, m, l, bias);
   float s[4][4];
   float inv[4];
 #pragma unroll
@@ -144,6 +173,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int seq, int he
     }
     __syncthreads();
     score_tile<DH>(Qs, Ks, tx, ty, s);
+    if constexpr (kBias) add_key_bias(bias, k0, seq, tx, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -179,29 +209,80 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int seq, int he
 }
 
 template <typename T, int DH>
-cudaError_t launch_attention(const T* qkv, T* ctx, int batch, int seq, int heads,
-                             cudaStream_t stream) {
+__global__ void __launch_bounds__(kAtThreads)
+attention_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int seq, int heads,
+                 float inv_sqrt_dh) {
+  attention_block<T, DH, false>(qkv, ctx, nullptr, seq, heads, inv_sqrt_dh);
+}
+
+// token merging's proportional attention: softmax(q k^T / sqrt(dh) + log s)
+template <typename T, int DH>
+__global__ void __launch_bounds__(kAtThreads)
+attention_bias_kernel(const T* __restrict__ qkv, T* __restrict__ ctx,
+                      const float* __restrict__ log_size, int seq, int heads,
+                      float inv_sqrt_dh) {
+  attention_block<T, DH, true>(qkv, ctx, log_size, seq, heads, inv_sqrt_dh);
+}
+
+// kmean[r, c] = round((sum over heads, in head order, of k[r, h, c]) * inv_heads)
+// in fp32 from the packed (head, {q,k,v}, dh) QKV: token merging's
+// similarity metric, the mean attention key over heads
+template <typename T>
+__global__ void __launch_bounds__(256)
+kmean_kernel(const T* __restrict__ qkv, T* __restrict__ kmean, int rows, int heads, int dh,
+             float inv_heads) {
+  const size_t n = (size_t)rows * dh;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t r = i / dh, c = i % dh;
+    const T* k = qkv + r * 3 * heads * dh + dh + c;
+    float acc = to_f(k[0]);
+    for (int h = 1; h < heads; ++h) acc += to_f(k[(size_t)h * 3 * dh]);
+    kmean[i] = from_f<T>(acc * inv_heads);
+  }
+}
+
+template <typename T, int DH>
+cudaError_t launch_attention(const T* qkv, T* ctx, const float* log_size, int batch, int seq,
+                             int heads, cudaStream_t stream) {
   constexpr size_t smem = attention_smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const float inv_sqrt_dh = (float)(1.0 / sqrt((double)DH));  // as the host computes it
   dim3 grid(cdiv(seq, kAtQ), heads, batch);
+  if (log_size) {
+    VT_TRY(cudaFuncSetAttribute(attention_bias_kernel<T, DH>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    attention_bias_kernel<T, DH><<<grid, kAtThreads, smem, stream>>>(qkv, ctx, log_size, seq,
+                                                                     heads, inv_sqrt_dh);
+    return cudaGetLastError();
+  }
+  VT_TRY(cudaFuncSetAttribute(attention_kernel<T, DH>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   attention_kernel<T, DH><<<grid, kAtThreads, smem, stream>>>(qkv, ctx, seq, heads, inv_sqrt_dh);
   return cudaGetLastError();
 }
 
-// the head dims the attention stage is instantiated for
+// the attention stage at the head dims it is instantiated for; `log_size`
+// (batch, seq) fp32 or null, and `kmean` (batch * seq, head_dim) or null
+// (token merging's hooks)
 template <typename T>
 cudaError_t launch_attention_any(const T* qkv, T* ctx, int batch, int seq, int heads, int head_dim,
-                                 cudaStream_t stream) {
+                                 cudaStream_t stream, const float* log_size = nullptr,
+                                 T* kmean = nullptr) {
   switch (head_dim) {
-    case 16: return launch_attention<T, 16>(qkv, ctx, batch, seq, heads, stream);
-    case 32: return launch_attention<T, 32>(qkv, ctx, batch, seq, heads, stream);
-    case 64: return launch_attention<T, 64>(qkv, ctx, batch, seq, heads, stream);
-    case 128: return launch_attention<T, 128>(qkv, ctx, batch, seq, heads, stream);
+    case 16: VT_TRY((launch_attention<T, 16>(qkv, ctx, log_size, batch, seq, heads, stream))); break;
+    case 32: VT_TRY((launch_attention<T, 32>(qkv, ctx, log_size, batch, seq, heads, stream))); break;
+    case 64: VT_TRY((launch_attention<T, 64>(qkv, ctx, log_size, batch, seq, heads, stream))); break;
+    case 80: VT_TRY((launch_attention<T, 80>(qkv, ctx, log_size, batch, seq, heads, stream))); break;
+    case 128: VT_TRY((launch_attention<T, 128>(qkv, ctx, log_size, batch, seq, heads, stream))); break;
     default: return cudaErrorInvalidValue;
   }
+  if (!kmean) return cudaSuccess;
+  const int rows = batch * seq;
+  const size_t n = (size_t)rows * head_dim;
+  const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
+  kmean_kernel<T><<<blocks, 256, 0, stream>>>(qkv, kmean, rows, heads, head_dim,
+                                              (float)(1.0 / heads));
+  return cudaGetLastError();
 }
 
 }  // namespace vt

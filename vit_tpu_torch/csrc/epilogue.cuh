@@ -5,6 +5,7 @@
 
 #include "common.cuh"
 
+#include <algorithm>
 #include <type_traits>
 
 namespace vt {
@@ -127,9 +128,10 @@ struct GeluGradDropEpi {
 };
 
 // Gated gradient operand, element (i, j) of a row-major (rows, cols)
-// matrix x: (x * dp[i]) * m_site, in fp32 — K12a's dy_m = (dy dp_mlp)
-// m_out and dz = (dx1 dp_attn) m_attn, summed as is (db2, db_o) and
-// written rounded once for the GEMMs.
+// matrix x: (x * dp[i]) * m_site, in fp32 — K12a's (and K12b's) dy_m =
+// (dy dp_mlp) m_out and K12a's (and K12c's) dz = (dx1 dp_attn) m_attn,
+// summed as is (db2, db_o) and written rounded once for the GEMMs
+// (launch_gate_rows).
 template <typename TSrc, bool kDrop>
 struct Gate {
   const TSrc* x;
@@ -143,5 +145,24 @@ struct Gate {
     return v;
   }
 };
+
+// out[r, c] = round(gate(r, c)) over a row-major (rows, cols) matrix
+template <typename T, typename TSrc, bool kDrop>
+__global__ void __launch_bounds__(256)
+gate_rows_kernel(Gate<TSrc, kDrop> gate, T* __restrict__ out, int rows, int cols) {
+  const size_t n = (size_t)rows * cols;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = from_f<T>(gate((int)(i / cols), (int)(i % cols)));
+}
+
+template <typename T, typename TSrc, bool kDrop>
+cudaError_t launch_gate_rows(Gate<TSrc, kDrop> gate, T* out, int rows, int cols,
+                             cudaStream_t stream) {
+  const size_t n = (size_t)rows * cols;
+  const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
+  gate_rows_kernel<<<blocks, 256, 0, stream>>>(gate, out, rows, cols);
+  return cudaGetLastError();
+}
 
 }  // namespace vt

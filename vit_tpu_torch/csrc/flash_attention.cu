@@ -147,6 +147,7 @@ cudaError_t flash_fwd(const T* q, const T* k, const T* v, View4 sin, T* out, Vie
     case 16: return launch_flash_fwd<T, 16>(q, k, v, sin, out, sout, lse, batch, heads, seq, stream);
     case 32: return launch_flash_fwd<T, 32>(q, k, v, sin, out, sout, lse, batch, heads, seq, stream);
     case 64: return launch_flash_fwd<T, 64>(q, k, v, sin, out, sout, lse, batch, heads, seq, stream);
+    case 80: return launch_flash_fwd<T, 80>(q, k, v, sin, out, sout, lse, batch, heads, seq, stream);
     case 128: return launch_flash_fwd<T, 128>(q, k, v, sin, out, sout, lse, batch, heads, seq, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -208,6 +208,7 @@ cudaError_t flash_bwd(const T* q, const T* k, const T* v, const T* dout, const f
     case 16: return VT_K14(16);
     case 32: return VT_K14(32);
     case 64: return VT_K14(64);
+    case 80: return VT_K14(80);
     case 128: return VT_K14(128);
     default: return cudaErrorInvalidValue;
   }

@@ -28,25 +28,6 @@
 
 namespace vt {
 
-// out[r, c] = round(gate(r, c)) over a row-major (rows, cols) matrix
-template <typename T, typename TSrc, bool kDrop>
-__global__ void __launch_bounds__(256)
-gate_rows_kernel(Gate<TSrc, kDrop> gate, T* __restrict__ out, int rows, int cols) {
-  const size_t n = (size_t)rows * cols;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    out[i] = from_f<T>(gate((int)(i / cols), (int)(i % cols)));
-}
-
-template <typename T, typename TSrc, bool kDrop>
-cudaError_t launch_gate_rows(Gate<TSrc, kDrop> gate, T* out, int rows, int cols,
-                             cudaStream_t stream) {
-  const size_t n = (size_t)rows * cols;
-  const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
-  gate_rows_kernel<<<blocks, 256, 0, stream>>>(gate, out, rows, cols);
-  return cudaGetLastError();
-}
-
 template <typename T, bool kDrop>
 cudaError_t ln_mlp_out_residual_bwd_train(
     const T* dy, const T* x1, const T* ctx, const T* ln_scale, const T* ln_bias, const T* w1,

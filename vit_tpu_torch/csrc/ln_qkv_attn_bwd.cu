@@ -1,8 +1,10 @@
 // K6: backward of LN1 -> packed QKV -> attention, joined with the first
 // residual's gradient: dx = dres + d(LN1 + QKV + attention)/dx.
 // Replaces vit_tpu/ops/pallas/backward.py:ln_qkv_attn_bwd
-// (_ln_qkv_attn_bwd_kernel, with dres and without the qkv stash or the
-// ToMe log-size bias).
+// (_ln_qkv_attn_bwd_kernel, without the qkv stash).  With token merging's
+// `log_size` (B, T) fp32 the recomputed scores add it before the row max,
+// as the forward did (attention_bwd_bias_kernel); without the residual join
+// (dres=None) the wrapper passes zeros for dres, which adds exactly nothing.
 //
 // The TPU kernel recomputes one image's LN1, packed QKV and per-head probs
 // in VMEM, holds the (T, 3D) dQKV in a VMEM scratch, and accumulates dW_qkv
@@ -36,10 +38,13 @@ constexpr size_t attention_bwd_smem_bytes() {
   return sizeof(float) * (4 * kAtQ * (DH + 1) + 2 * kAtQ * (kAtK + 1));
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kAtThreads)
-attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
-                     float* __restrict__ dqkv, int seq, int heads, float inv_sqrt_dh) {
+// one block's work; kBias adds log_size[b, key] to the recomputed scores
+template <typename T, int DH, bool kBias>
+__device__ __forceinline__ void attention_bwd_block(const T* __restrict__ qkv,
+                                                    const T* __restrict__ dctx,
+                                                    const float* __restrict__ log_size,
+                                                    float* __restrict__ dqkv, int seq, int heads,
+                                                    float inv_sqrt_dh) {
   extern __shared__ float smem[];
   constexpr int P = DH + 1, PS = kAtK + 1;
   float* Qs = smem;           // q_s of the query tile
@@ -55,6 +60,7 @@ attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
   const T* base = qkv + (size_t)b * seq * ld + (size_t)h * 3 * DH;
   const T* gbase = dctx + (size_t)b * seq * gld + (size_t)h * DH;
   float* dbase = dqkv + (size_t)b * seq * ld + (size_t)h * 3 * DH;
+  const float* bias = kBias ? log_size + (size_t)b * seq : nullptr;
   const float scale = round_to<T>(inv_sqrt_dh);
   constexpr int kDj = DH / 16;  // columns per thread: tx + 16j
 
@@ -76,7 +82,7 @@ attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
       Gs[r * P + c] = ok ? to_f(gbase[(size_t)t * gld + c]) : 0.f;
     }
     float m[4], l[4], inv[4];
-    softmax_stats<T, DH>(base, ld, seq, Qs, Ks, tid, tx, ty, m, l);
+    softmax_stats<T, DH, kBias>(base, ld, seq, Qs, Ks, tid, tx, ty, m, l, bias);
 #pragma unroll
     for (int i = 0; i < 4; ++i) inv[i] = 1.0f / l[i];
 
@@ -87,6 +93,7 @@ attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
       load_kv(k0);
       __syncthreads();
       score_tile<DH>(Qs, Ks, tx, ty, s);
+      if constexpr (kBias) add_key_bias(bias, k0, seq, tx, s);
       score_tile<DH>(Gs, Vs, tx, ty, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -107,6 +114,7 @@ attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
       load_kv(k0);
       __syncthreads();
       score_tile<DH>(Qs, Ks, tx, ty, s);
+      if constexpr (kBias) add_key_bias(bias, k0, seq, tx, s);
       score_tile<DH>(Gs, Vs, tx, ty, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -179,14 +187,37 @@ attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
 }
 
 template <typename T, int DH>
-cudaError_t launch_attention_bwd(const T* qkv, const T* dctx, float* dqkv, int batch, int seq,
-                                 int heads, cudaStream_t stream) {
+__global__ void __launch_bounds__(kAtThreads)
+attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
+                     float* __restrict__ dqkv, int seq, int heads, float inv_sqrt_dh) {
+  attention_bwd_block<T, DH, false>(qkv, dctx, nullptr, dqkv, seq, heads, inv_sqrt_dh);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kAtThreads)
+attention_bwd_bias_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
+                          const float* __restrict__ log_size, float* __restrict__ dqkv, int seq,
+                          int heads, float inv_sqrt_dh) {
+  attention_bwd_block<T, DH, true>(qkv, dctx, log_size, dqkv, seq, heads, inv_sqrt_dh);
+}
+
+template <typename T, int DH>
+cudaError_t launch_attention_bwd(const T* qkv, const T* dctx, const float* log_size, float* dqkv,
+                                 int batch, int seq, int heads, cudaStream_t stream) {
   constexpr size_t smem = attention_bwd_smem_bytes<DH>();
+  const float inv_sqrt_dh = (float)(1.0 / sqrt((double)DH));  // as the host computes it
+  const dim3 grid(heads, batch);
+  if (log_size) {
+    VT_TRY(cudaFuncSetAttribute(attention_bwd_bias_kernel<T, DH>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    attention_bwd_bias_kernel<T, DH><<<grid, kAtThreads, smem, stream>>>(
+        qkv, dctx, log_size, dqkv, seq, heads, inv_sqrt_dh);
+    return cudaGetLastError();
+  }
   VT_TRY(cudaFuncSetAttribute(attention_bwd_kernel<T, DH>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  const float inv_sqrt_dh = (float)(1.0 / sqrt((double)DH));  // as the host computes it
-  attention_bwd_kernel<T, DH><<<dim3(heads, batch), kAtThreads, smem, stream>>>(
-      qkv, dctx, dqkv, seq, heads, inv_sqrt_dh);
+  attention_bwd_kernel<T, DH><<<grid, kAtThreads, smem, stream>>>(qkv, dctx, dqkv, seq, heads,
+                                                                  inv_sqrt_dh);
   return cudaGetLastError();
 }
 
@@ -211,7 +242,8 @@ K6Scratch<T> k6_scratch(Arena& a, int rows, int d, int d3) {
 
 template <typename T>
 cudaError_t ln_qkv_attn_bwd(const T* dctx, const T* dres, const T* x, const T* ln_scale,
-                            const T* ln_bias, const T* wqkv, const T* bqkv, T* dx, float* dgamma,
+                            const T* ln_bias, const T* wqkv, const T* bqkv,
+                            const float* log_size, T* dx, float* dgamma,
                             float* dbeta, float* dwqkv, float* dbqkv, void* workspace, int batch,
                             int seq, int d, int heads, int head_dim, float eps,
                             cudaStream_t stream) {
@@ -223,13 +255,17 @@ cudaError_t ln_qkv_attn_bwd(const T* dctx, const T* dres, const T* x, const T* l
   VT_TRY(launch_gemm<T>(LoadLn<T, T>{x, d, s.mean, s.rstd, ln_scale, ln_bias},
                         Load<T>{wqkv, d3}, rows, d3, d, BiasEpi<T, T>{bqkv, s.qkv, d3}, stream));
   VT_TRY(cudaMemsetAsync(s.dqkv, 0, sizeof(float) * (size_t)rows * d3, stream));
+#define VT_K6_ATTN(DH) \
+  VT_TRY((launch_attention_bwd<T, DH>(s.qkv, dctx, log_size, s.dqkv, batch, seq, heads, stream)))
   switch (head_dim) {
-    case 16: VT_TRY((launch_attention_bwd<T, 16>(s.qkv, dctx, s.dqkv, batch, seq, heads, stream))); break;
-    case 32: VT_TRY((launch_attention_bwd<T, 32>(s.qkv, dctx, s.dqkv, batch, seq, heads, stream))); break;
-    case 64: VT_TRY((launch_attention_bwd<T, 64>(s.qkv, dctx, s.dqkv, batch, seq, heads, stream))); break;
-    case 128: VT_TRY((launch_attention_bwd<T, 128>(s.qkv, dctx, s.dqkv, batch, seq, heads, stream))); break;
+    case 16: VT_K6_ATTN(16); break;
+    case 32: VT_K6_ATTN(32); break;
+    case 64: VT_K6_ATTN(64); break;
+    case 80: VT_K6_ATTN(80); break;
+    case 128: VT_K6_ATTN(128); break;
     default: return cudaErrorInvalidValue;
   }
+#undef VT_K6_ATTN
   VT_TRY(launch_colsum(ColOf<float>{s.dqkv, d3}, rows, d3, s.cpart, dbqkv, stream));
   VT_TRY(launch_gemm<T>(Load<T, float>{s.dqkv, d3}, Load<T, T, true>{wqkv, d3}, rows, d, d3,
                         StoreEpi<float>{s.dh1, d}, stream));
@@ -259,7 +295,8 @@ size_t vt_ln_qkv_attn_bwd_workspace(int batch, int seq, int d, int heads, int he
 }
 
 int vt_ln_qkv_attn_bwd(const void* dctx, const void* dres, const void* x, const void* ln_scale,
-                       const void* ln_bias, const void* wqkv, const void* bqkv, void* dx,
+                       const void* ln_bias, const void* wqkv, const void* bqkv,
+                       const void* log_size, void* dx,
                        void* dgamma, void* dbeta, void* dwqkv, void* dbqkv, void* workspace,
                        int batch, int seq, int d, int heads, int head_dim, float eps, int dtype,
                        int device, void* stream) {
@@ -268,7 +305,8 @@ int vt_ln_qkv_attn_bwd(const void* dctx, const void* dres, const void* x, const 
   cudaStream_t s = (cudaStream_t)stream;
 #define VT_K6(T)                                                                              \
   vt::ln_qkv_attn_bwd<T>((const T*)dctx, (const T*)dres, (const T*)x, (const T*)ln_scale,     \
-                         (const T*)ln_bias, (const T*)wqkv, (const T*)bqkv, (T*)dx,           \
+                         (const T*)ln_bias, (const T*)wqkv, (const T*)bqkv,                   \
+                         (const float*)log_size, (T*)dx,                                      \
                          (float*)dgamma, (float*)dbeta, (float*)dwqkv, (float*)dbqkv,         \
                          workspace, batch, seq, d, heads, head_dim, eps, s)
   if (dtype == vt::kFloat32) return (int)VT_K6(float);

@@ -10,7 +10,9 @@
 //      dtype), the row's int8 codes hq and its scale hs (quant_rows.cuh)
 //   2. the int8 GEMM hq @ Wq with exact int32 sums (gemm_q8.cuh); epilogue
 //      (acc hs) ws + b in fp32, rounded once to the dtype into the packed QKV
-//   3. K1's attention stage, unchanged (attention.cuh)
+//   3. K1's attention stage, unchanged (attention.cuh), with its token-merging
+//      hooks: the log-size bias on the key logits and the mean key over
+//      heads, read from the dequantized packed QKV
 // Stages 1-2 are an entry point of their own (vt_ln_qkv_q8): the
 // long-sequence W8A8 block runs them before the flash-attention kernel, so
 // both blocks share one definition of the QKV grouping.
@@ -35,11 +37,11 @@ cudaError_t ln_qkv_q8(const T* x, const T* ln_scale, const T* ln_bias, const int
 template <typename T>
 cudaError_t ln_qkv_attn_q8(const T* x, const T* ln_scale, const T* ln_bias, const int8_t* wq,
                            const float* ws, const T* bqkv, int8_t* hq, float* hs, T* qkv, T* ctx,
-                           int batch, int seq, int d, int heads, int head_dim, float eps,
-                           cudaStream_t stream) {
+                           const float* log_size, T* kmean, int batch, int seq, int d, int heads,
+                           int head_dim, float eps, cudaStream_t stream) {
   VT_TRY(ln_qkv_q8<T>(x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, batch * seq, d,
                       3 * heads * head_dim, eps, stream));
-  return launch_attention_any<T>(qkv, ctx, batch, seq, heads, head_dim, stream);
+  return launch_attention_any<T>(qkv, ctx, batch, seq, heads, head_dim, stream, log_size, kmean);
 }
 
 }  // namespace vt
@@ -68,9 +70,9 @@ extern "C" int vt_ln_qkv_q8(const void* x, const void* ln_scale, const void* ln_
 
 extern "C" int vt_ln_qkv_attn_q8(const void* x, const void* ln_scale, const void* ln_bias,
                                  const void* wq, const void* ws, const void* bqkv, void* hq,
-                                 void* hs, void* qkv, void* ctx, int batch, int seq, int d,
-                                 int heads, int head_dim, float eps, int dtype, int device,
-                                 void* stream) {
+                                 void* hs, void* qkv, void* ctx, const void* log_size,
+                                 void* kmean, int batch, int seq, int d, int heads, int head_dim,
+                                 float eps, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -78,15 +80,17 @@ extern "C" int vt_ln_qkv_attn_q8(const void* x, const void* ln_scale, const void
     typedef float T;
     return (int)vt::ln_qkv_attn_q8<T>((const T*)x, (const T*)ln_scale, (const T*)ln_bias,
                                       (const int8_t*)wq, (const float*)ws, (const T*)bqkv,
-                                      (int8_t*)hq, (float*)hs, (T*)qkv, (T*)ctx, batch, seq, d,
-                                      heads, head_dim, eps, s);
+                                      (int8_t*)hq, (float*)hs, (T*)qkv, (T*)ctx,
+                                      (const float*)log_size, (T*)kmean, batch, seq, d, heads,
+                                      head_dim, eps, s);
   }
   if (dtype == vt::kBFloat16) {
     typedef vt::bf16 T;
     return (int)vt::ln_qkv_attn_q8<T>((const T*)x, (const T*)ln_scale, (const T*)ln_bias,
                                       (const int8_t*)wq, (const float*)ws, (const T*)bqkv,
-                                      (int8_t*)hq, (float*)hs, (T*)qkv, (T*)ctx, batch, seq, d,
-                                      heads, head_dim, eps, s);
+                                      (int8_t*)hq, (float*)hs, (T*)qkv, (T*)ctx,
+                                      (const float*)log_size, (T*)kmean, batch, seq, d, heads,
+                                      head_dim, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }

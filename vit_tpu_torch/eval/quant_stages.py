@@ -43,7 +43,7 @@ from vit_tpu_torch.ops.kernels.ln_mlp_residual_q8 import (
     fc1_gelu_q8_plain,
     fc2_residual_q8_plain,
 )
-from vit_tpu_torch.ops.kernels.ln_qkv_attn import packed_attention_plain
+from vit_tpu_torch.ops.kernels.ln_qkv_attn import kmean_plain, packed_attention_plain
 from vit_tpu_torch.ops.kernels.out_ln_mlp_residual_q8 import out_proj_residual_plain
 from vit_tpu_torch.ops.quant import int8_matmul_reference, quantize_activations
 
@@ -92,19 +92,26 @@ def _codes(report: dict, name: str, q, s, want_q, want_s, exact: bool = False) -
 
 
 def check_ln_qkv_attn_q8(st: dict, end, x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads,
-                         seq_len, eps) -> dict:
+                         seq_len, eps, log_size=None, return_kmean=False) -> dict:
     """K15's stages ``st`` (``_ln_qkv_attn_q8_stages``) on these operands,
     and ``end``, the whole twin's context — or the stages of
-    ``_ln_qkv_q8_stages`` and the twin's packed QKV.  -> {check:
-    deviation}; raises ``AssertionError`` where a bound fails."""
+    ``_ln_qkv_q8_stages`` and the twin's packed QKV.  With token merging's
+    hooks, the context is the twin's under the same ``log_size`` and the
+    k-mean the twin's of the kernel's own packed QKV, bit for bit (an fp32
+    sum in a fixed order).  -> {check: deviation}; raises
+    ``AssertionError`` where a bound fails."""
     dtype, report = x2d.dtype, {}
     _codes(report, "hq", st["hq"], st["hs"],
            *quantize_activations(_ln(x2d, ln_scale, ln_bias, eps)))
     qkv = int8_matmul_reference(st["hq"], st["hs"], wq, w_scale, bqkv.float()).to(dtype)
     _close(report, "qkv", st["qkv"], qkv, STAGE_RTOL[dtype])
     if "ctx" in st:
-        _close(report, "ctx", st["ctx"], packed_attention_plain(st["qkv"], num_heads, seq_len),
-               STAGE_RTOL[dtype])
+        _close(report, "ctx", st["ctx"],
+               packed_attention_plain(st["qkv"], num_heads, seq_len, log_size), STAGE_RTOL[dtype])
+    if "kmean" in st:
+        if not torch.equal(st["kmean"], kmean_plain(st["qkv"], num_heads)):
+            raise AssertionError("kmean: differs from the mean key of the kernel's own QKV")
+        report["kmean"] = 0.0
     _close(report, "end to end", st.get("ctx", st["qkv"]), end, END_RTOL)
     return report
 

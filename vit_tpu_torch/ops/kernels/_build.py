@@ -50,9 +50,9 @@ _DROP = [_U, _U, _F, _I]
 SIGNATURES = {
     # x, scale, bias, out, rows, d, eps, dtype, device, stream
     "vt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-    # x, ln_scale, ln_bias, wqkv, bqkv, stats, qkv, ctx,
+    # x, ln_scale, ln_bias, wqkv, bqkv, stats, qkv, ctx, log_size, kmean,
     # batch, seq, d, heads, head_dim, eps, dtype, device, stream
-    "vt_ln_qkv_attn": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+    "vt_ln_qkv_attn": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
     # ctx, res, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, x1, stats, g, out,
     # rows, d_ctx, d, f, eps, gelu_variant, dtype, device, stream
     "vt_out_ln_mlp_residual": [_P] * 14 + [_I] * 4 + [_F, _I, _I, _I, _P],
@@ -65,10 +65,10 @@ SIGNATURES = {
     # dbeta, dw1, db1, dw2, db2, dwo, dbo, workspace,
     # rows, d, f, d_ctx, eps, gelu_variant, dtype, device, stream
     "vt_ln_mlp_out_residual_bwd": [_P] * 20 + [_I] * 4 + [_F, _I, _I, _I, _P],
-    # dctx, dres, x, ln_scale, ln_bias, wqkv, bqkv, dx, dgamma, dbeta, dwqkv,
-    # dbqkv, workspace, batch, seq, d, heads, head_dim, eps, dtype, device,
-    # stream
-    "vt_ln_qkv_attn_bwd": [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P],
+    # dctx, dres, x, ln_scale, ln_bias, wqkv, bqkv, log_size, dx, dgamma,
+    # dbeta, dwqkv, dbqkv, workspace, batch, seq, d, heads, head_dim, eps,
+    # dtype, device, stream
+    "vt_ln_qkv_attn_bwd": [_P] * 14 + [_I] * 5 + [_F, _I, _I, _P],
     # ctx, res, wo, bo, dp, out, rows, d_ctx, d, <dropout>, dtype, device, stream
     "vt_out_residual_train": [_P] * 6 + [_I] * 3 + _DROP + [_I, _I, _P],
     # x, ln_scale, ln_bias, w1, b1, w2, b2, dp, stats, g, out,
@@ -84,6 +84,13 @@ SIGNATURES = {
     # dx1, ctx, wo, dctx, dwo, dbo, workspace, rows, d_ctx, d, dtype, device,
     # stream
     "vt_out_residual_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # dy, x1, ln_scale, ln_bias, w1, b1, w2, dp_mlp, dx1, dgamma, dbeta, dw1,
+    # db1, dw2, db2, workspace, rows, d, f, eps, gelu_variant, <dropout>,
+    # dtype, device, stream
+    "vt_ln_mlp_residual_bwd_train": [_P] * 16 + [_I] * 3 + [_F, _I] + _DROP + [_I, _I, _P],
+    # dx1, ctx, wo, dp_attn, dctx, dwo, dbo, workspace, rows, d_ctx, d,
+    # <dropout>, dtype, device, stream
+    "vt_out_residual_bwd_train": [_P] * 8 + [_I] * 3 + _DROP + [_I, _I, _P],
     # q, k, v, <strides>, out, <strides>, lse, batch, heads, seq, head_dim,
     # dtype, device, stream
     "vt_flash_fwd": [_P] * 3 + _L3 + [_P] + _L3 + [_P] + [_I] * 6 + [_P],
@@ -93,9 +100,9 @@ SIGNATURES = {
     # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, rows, d, d3, eps, dtype,
     # device, stream
     "vt_ln_qkv_q8": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P],
-    # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, ctx,
+    # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, ctx, log_size, kmean,
     # batch, seq, d, heads, head_dim, eps, dtype, device, stream
-    "vt_ln_qkv_attn_q8": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
+    "vt_ln_qkv_attn_q8": [_P] * 12 + [_I] * 5 + [_F, _I, _I, _P],
     # ctx, res, wo, bo, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, x1, hq,
     # hs, mid, mq, ms, out, rows, d_ctx, d, f, eps, gelu_variant, dtype,
     # device, stream
@@ -117,8 +124,10 @@ WORKSPACE_SIGNATURES = {
     "vt_ln_qkv_attn_bwd_workspace": [_I] * 6,
     # rows, d, f, dtype
     "vt_ln_mlp_residual_bwd_workspace": [_I] * 4,
+    "vt_ln_mlp_residual_bwd_train_workspace": [_I] * 4,
     # rows, d_ctx, d, dtype
     "vt_out_residual_bwd_workspace": [_I] * 4,
+    "vt_out_residual_bwd_train_workspace": [_I] * 4,
 }
 
 
@@ -270,6 +279,11 @@ def check_row_scale(kernel: str, name: str, dp: torch.Tensor, x: torch.Tensor) -
     if dp.device != x.device or dp.dtype != torch.float32 or not dp.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous float32 on {x.device}")
     check_shape(kernel, name, dp, (x.shape[0],))
+
+
+def ptr_or_null(t) -> int:
+    """An optional operand's pointer: 0 (NULL) for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def stream_of(t: torch.Tensor) -> int:

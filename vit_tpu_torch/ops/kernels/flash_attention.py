@@ -31,7 +31,7 @@ import torch
 from vit_tpu_torch.ops.kernels import _build
 
 # head dims the kernels are instantiated for (csrc/flash_attention*.cu)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 # keys per tile: the kernel's online-softmax step, which the twin mirrors
 BLOCK_K = 64
 

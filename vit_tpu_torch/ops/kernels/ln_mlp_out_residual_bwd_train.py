@@ -30,18 +30,11 @@ from __future__ import annotations
 
 import torch
 
-from vit_tpu_torch.ops.backward import _gelu_grad, _ln_bwd_dx, _ln_stats
-from vit_tpu_torch.ops.fused_block import (
-    DROP_SITE_ATTN_OUT,
-    DROP_SITE_MLP_INNER,
-    DROP_SITE_MLP_OUT,
-    _gelu,
-    dropout_launch_args,
-    dropout_mask,
-    use_fast_erf,
-)
+from vit_tpu_torch.ops.fused_block import dropout_launch_args
 from vit_tpu_torch.ops.kernels import _build
+from vit_tpu_torch.ops.kernels.ln_mlp_residual_bwd_train import mlp_residual_bwd_train_plain
 from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import GELU_VARIANTS
+from vit_tpu_torch.ops.kernels.out_residual_bwd_train import out_residual_bwd_train_plain
 
 
 def ln_mlp_out_residual_bwd_train_plain(
@@ -49,38 +42,13 @@ def ln_mlp_out_residual_bwd_train_plain(
     gelu_variant: str = "exact",
 ):
     """Plain twin: fp32 compute with casts at the TPU kernel's rounding
-    points and its products' order.  -> (dx1, dctx, dgamma, dbeta, dw1,
-    db1, dw2, db2, dwo, dbo); dx1 and dctx in the dtype, the rest fp32."""
-    cd, dev = dy.dtype, dy.device
-    rows, d = dy.shape
-    f = w1.shape[-1]
-    fast = use_fast_erf(cd)
-    dyf, gamma = dy.float(), ln_scale.float()
-    dy_m = dyf * dp_mlp.float()[:, None]
-    if dropout_p > 0:
-        dy_m = dy_m * dropout_mask(seed, DROP_SITE_MLP_OUT, 0, (rows, d), dropout_p, dev)
-    xhat, inv = _ln_stats(x1.float(), eps)
-    h2 = (xhat * gamma + ln_bias.float()).to(cd)
-    u = h2.float() @ w1.float() + b1.float()
-    g = _gelu(u, gelu_variant, fast_erf=fast)
-    dg = dy_m.to(cd).float() @ w2.float().t()
-    if dropout_p > 0:
-        m_in = dropout_mask(seed, DROP_SITE_MLP_INNER, 0, (rows, f), dropout_p, dev)
-        g, dg = g * m_in, dg * m_in
-    du = dg * _gelu_grad(u, gelu_variant, fast_erf=fast)
-    du_c = du.to(cd)
-    dh2 = du_c.float() @ w1.float().t()
-    dx1 = dyf + _ln_bwd_dx(dh2, xhat, inv, gamma)
-    dz = dx1 * dp_attn.float()[:, None]
-    if dropout_p > 0:
-        dz = dz * dropout_mask(seed, DROP_SITE_ATTN_OUT, 0, (rows, d), dropout_p, dev)
-    dz_c = dz.to(cd)
-    return (
-        dx1.to(cd), (dz_c.float() @ wo.float().t()).to(cd), (dh2 * xhat).sum(0), dh2.sum(0),
-        h2.float().t() @ du_c.float(), du.sum(0),
-        g.to(cd).float().t() @ dy_m.to(cd).float(), dy_m.sum(0),
-        ctx.float().t() @ dz_c.float(), dz.sum(0),
-    )
+    points and its products' order — K12b's twin, then K12c's on the
+    unrounded dx1.  -> (dx1, dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo,
+    dbo); dx1 and dctx in the dtype, the rest fp32."""
+    dx1, dgamma, dbeta, dw1, db1, dw2, db2 = mlp_residual_bwd_train_plain(
+        dy, x1, ln_scale, ln_bias, w1, b1, w2, dp_mlp, seed, dropout_p, eps, gelu_variant)
+    dctx, dwo, dbo = out_residual_bwd_train_plain(dx1, ctx, wo, dp_attn, seed, dropout_p)
+    return dx1.to(dy.dtype), dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo, dbo
 
 
 def ln_mlp_out_residual_bwd_train(

@@ -4,8 +4,8 @@ K16 shares (``csrc/mlp_q8.cuh``).
 
 Replaces ``vit_tpu/ops/pallas/quant_kernels.py:ln_mlp_residual_q8`` (def
 :260, pallas_call at :274; body ``_ln_mlp_q8_kernel`` :235): K16 without the
-out_proj head.  It exists for token merging, whose merge sits between the
-out_proj and the MLP; no path of the port reaches it before that slice.
+out_proj head.  Token merging's W8A8 forward (``models/tome.forward_quant``)
+runs it, because the merge sits between the out_proj and the MLP.
 
 W1 and W2 arrive as int8 [in, out] with fp32 per-column scales.  What
 bounds it on the H100: two int8 GEMMs (B/16 batch 100: 19,700 rows, D =

@@ -25,6 +25,14 @@ instead, in two stages:
      scores, max-subtracted softmax normalised by a reciprocal multiply,
      p rounded before p @ v, fp32 accumulation, output rounded.
 
+Token merging's two hooks (``models/tome.py``): ``log_size`` (B, T) fp32
+is added to every query row's key logits after the scaled q·kᵀ and before
+the row max (proportional attention); ``return_kmean`` also returns the
+mean key over heads (B*T, dh) — the fp32 sum in head order times 1/H,
+rounded to the dtype — read by a third small kernel from the packed-QKV
+scratch the attention stage reads (the TPU kernel reads it from VMEM).
+Without either, the launches are exactly those of the hook-less kernel.
+
 bf16 GEMMs run on the tensor cores (WMMA, fp32 accumulators); fp32 runs
 plain fp32 FMA, never TF32.
 """
@@ -37,13 +45,15 @@ from vit_tpu_torch.ops.fused_block import _ln
 from vit_tpu_torch.ops.kernels import _build
 
 # head dims the attention stage is instantiated for (csrc/attention.cuh)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 
 
-def packed_attention_plain(qkv: torch.Tensor, num_heads: int, seq_len: int) -> torch.Tensor:
+def packed_attention_plain(qkv: torch.Tensor, num_heads: int, seq_len: int,
+                           log_size=None) -> torch.Tensor:
     """The attention stage's plain twin: packed QKV (B*T, 3D) in the working
     dtype -> context (B*T, D), fp32 compute with casts at the TPU kernel's
-    rounding points (``_head_context``)."""
+    rounding points (``_head_context``); ``log_size`` (B, T) fp32 is added to
+    the key logits before the row max."""
     dtype = qkv.dtype
     rows, d3 = qkv.shape
     dh = d3 // (3 * num_heads)
@@ -53,11 +63,35 @@ def packed_attention_plain(qkv: torch.Tensor, num_heads: int, seq_len: int) -> t
     scale = torch.tensor(1.0 / dh ** 0.5, dtype=dtype)
     q = (q.float() * scale.float()).to(dtype)
     s = q.float() @ k.float().transpose(-1, -2)
+    if log_size is not None:
+        s = s + log_size.float().reshape(b, 1, 1, seq_len)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     inv = 1.0 / p.sum(dim=-1, keepdim=True)
     p = (p * inv).to(dtype)
     ctx = (p.float() @ v.float()).to(dtype)  # (B, H, T, dh)
     return ctx.permute(0, 2, 1, 3).reshape(rows, num_heads * dh)
+
+
+def kmean_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The k-mean stage's plain twin: packed QKV (B*T, 3D) -> the mean key
+    over heads (B*T, dh), an fp32 sum in head order times 1/H, rounded to
+    the dtype."""
+    rows, d3 = qkv.shape
+    k = qkv.reshape(rows, num_heads, 3, d3 // (3 * num_heads))[:, :, 1].float()
+    acc = k[:, 0]
+    for h in range(1, num_heads):
+        acc = acc + k[:, h]
+    return (acc * (1.0 / num_heads)).to(qkv.dtype)
+
+
+def _check_log_size(name: str, log_size, x2d: torch.Tensor, seq_len: int) -> None:
+    """log_size: (B, T) float32, contiguous, on x's device."""
+    if log_size is None:
+        return
+    if log_size.device != x2d.device or log_size.dtype != torch.float32 \
+            or not log_size.is_contiguous():
+        raise ValueError(f"{name}: log_size must be contiguous float32 on {x2d.device}")
+    _build.check_shape(name, "log_size", log_size, (x2d.shape[0] // seq_len, seq_len))
 
 
 def ln_qkv_attn_plain(
@@ -69,13 +103,16 @@ def ln_qkv_attn_plain(
     num_heads: int,
     seq_len: int,
     eps: float,
-) -> torch.Tensor:
+    log_size=None,
+    return_kmean: bool = False,
+):
     """Plain twin: fp32 compute with casts at the TPU kernel's rounding
     points."""
     dtype = x2d.dtype
     h = _ln(x2d, ln_scale, ln_bias, eps).to(dtype)
     qkv = (h.float() @ wqkv.float() + bqkv.float()).to(dtype)
-    return packed_attention_plain(qkv, num_heads, seq_len)
+    ctx = packed_attention_plain(qkv, num_heads, seq_len, log_size)
+    return (ctx, kmean_plain(qkv, num_heads)) if return_kmean else ctx
 
 
 def ln_qkv_attn(
@@ -87,12 +124,15 @@ def ln_qkv_attn(
     num_heads: int,
     seq_len: int,
     eps: float,
-) -> torch.Tensor:
-    """(B*T, D) -> attention context (B*T, D).  CPU tensors take the plain
-    twin; CUDA tensors launch the kernel."""
+    log_size=None,
+    return_kmean: bool = False,
+):
+    """(B*T, D) -> attention context (B*T, D), or (context, kmean (B*T, dh))
+    with ``return_kmean``; ``log_size`` (B, T) fp32 biases the key logits.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel."""
     if x2d.device.type == "cpu":
         return ln_qkv_attn_plain(
-            x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads, seq_len, eps
+            x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads, seq_len, eps, log_size, return_kmean
         )
     name = "ln_qkv_attn"
     _build.check_operands(name, x2d, ln_scale, ln_bias, wqkv, bqkv)
@@ -110,22 +150,25 @@ def ln_qkv_attn(
     _build.check_shape(name, "ln_bias", ln_bias, (d,))
     _build.check_shape(name, "wqkv", wqkv, (d, d3))
     _build.check_shape(name, "bqkv", bqkv, (d3,))
+    _check_log_size(name, log_size, x2d, seq_len)
     stats = torch.empty(2 * rows, dtype=torch.float32, device=x2d.device)
     qkv = torch.empty(rows, d3, dtype=x2d.dtype, device=x2d.device)
     ctx = torch.empty(rows, d3 // 3, dtype=x2d.dtype, device=x2d.device)
+    kmean = torch.empty(rows, dh, dtype=x2d.dtype, device=x2d.device) if return_kmean else None
     lib = _build.load_library()
     _build.check(
         lib.vt_ln_qkv_attn(
             x2d.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             wqkv.data_ptr(), bqkv.data_ptr(), stats.data_ptr(),
-            qkv.data_ptr(), ctx.data_ptr(), rows // seq_len, seq_len, d,
+            qkv.data_ptr(), ctx.data_ptr(), _build.ptr_or_null(log_size),
+            _build.ptr_or_null(kmean), rows // seq_len, seq_len, d,
             num_heads, dh, eps, _build.DTYPE_CODES[x2d.dtype],
             x2d.device.index, _build.stream_of(x2d),
         ),
         name,
     )
     ln_qkv_attn.launches += 1
-    return ctx
+    return (ctx, kmean) if return_kmean else ctx
 
 
 ln_qkv_attn.launches = 0

@@ -2,8 +2,12 @@
 residual's gradient, CUDA (``csrc/ln_qkv_attn_bwd.cu``).
 
 Replaces ``vit_tpu/ops/pallas/backward.py:ln_qkv_attn_bwd`` (pallas_call at
-:967; body ``_ln_qkv_attn_bwd_kernel`` :818) with ``dres`` and without the
-``qkv`` stash or ToMe's ``log_size`` (hooks of later slices; they raise).
+:967; body ``_ln_qkv_attn_bwd_kernel`` :818), with or without ``dres`` and
+with token merging's ``log_size``; the ``qkv`` stash has no caller and
+raises.  ``log_size`` (B, T) fp32 is added to the recomputed key logits
+before the row max, so the probs are the forward's (``backward.py:861``);
+``dres=None`` (the standalone VJP of K1) joins a zero residual gradient,
+which adds exactly nothing.
 
 What bounds it on the H100: three GEMMs (B/16 batch 64: the QKV recompute,
 dh1 = dQKV W^T and dW_qkv, 3 x 45 GFLOP) on the tensor cores, and the
@@ -32,15 +36,16 @@ import torch
 
 from vit_tpu_torch.ops.backward import _ln_bwd_dx, _ln_stats
 from vit_tpu_torch.ops.kernels import _build
-from vit_tpu_torch.ops.kernels.ln_qkv_attn import HEAD_DIMS
+from vit_tpu_torch.ops.kernels.ln_qkv_attn import HEAD_DIMS, _check_log_size
 
 
 def ln_qkv_attn_bwd_plain(
     dctx, dres, x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads: int, seq_len: int, eps: float,
+    log_size=None,
 ):
     """Plain twin: fp32 compute with casts at the TPU kernel's rounding
     points.  -> (dx, dgamma, dbeta, dwqkv, dbqkv); dx in the dtype, the
-    rest fp32."""
+    rest fp32.  ``dres=None`` leaves out the residual join."""
     cd = x2d.dtype
     rows, _ = x2d.shape
     d3 = wqkv.shape[-1]
@@ -55,6 +60,8 @@ def ln_qkv_attn_bwd_plain(
     scale = 1.0 / dh ** 0.5
     q_s = (q * torch.tensor(scale, dtype=cd).float()).to(cd).float()
     s = q_s @ k.transpose(-1, -2)
+    if log_size is not None:
+        s = s + log_size.float().reshape(b, 1, 1, seq_len)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e * (1.0 / e.sum(dim=-1, keepdim=True))
     g = dctx.reshape(b, seq_len, num_heads, dh).permute(0, 2, 1, 3).to(cd).float()
@@ -67,7 +74,8 @@ def ln_qkv_attn_bwd_plain(
     dqkv = dqkv.permute(0, 2, 1, 3, 4).reshape(rows, d3)
     dqkv_c = dqkv.to(cd).float()
     dh1 = dqkv_c @ wqkv.float().t()
-    dx = (dres.float() + _ln_bwd_dx(dh1, xhat, inv, gamma)).to(cd)
+    dx_ln = _ln_bwd_dx(dh1, xhat, inv, gamma)
+    dx = (dx_ln if dres is None else dres.float() + dx_ln).to(cd)
     return dx, (dh1 * xhat).sum(0), dh1.sum(0), h1.float().t() @ dqkv_c, dqkv.sum(0)
 
 
@@ -76,20 +84,19 @@ def ln_qkv_attn_bwd(
     qkv=None, log_size=None,
 ):
     """VJP of ``ln_qkv_attn`` joined with the residual: dx = dres +
-    d(LN1 + QKV + attention)/dx.  CPU tensors take the plain twin; CUDA
-    tensors launch the kernel.  ``qkv`` (stash) and ``log_size`` (ToMe)
-    belong to later slices of the port and raise."""
+    d(LN1 + QKV + attention)/dx, or without the join when ``dres`` is None;
+    ``log_size`` (B, T) fp32 when the forward had token merging's bias.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel.  The
+    ``qkv`` stash has no caller and raises."""
     name = "ln_qkv_attn_bwd"
-    if qkv is not None or log_size is not None:
-        raise NotImplementedError(
-            f"{name}: the qkv= stash and ToMe's log_size= are not ported yet (ROADMAP.md)"
-        )
-    if dres is None:
-        raise NotImplementedError(f"{name}: the form without the residual join is not ported")
+    if qkv is not None:
+        raise NotImplementedError(f"{name}: the qkv= stash is not ported (no caller; ROADMAP.md)")
     if x2d.device.type == "cpu":
         return ln_qkv_attn_bwd_plain(
-            dctx, dres, x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads, seq_len, eps
+            dctx, dres, x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads, seq_len, eps, log_size
         )
+    if dres is None:
+        dres = torch.zeros_like(x2d)
     _build.check_operands(name, x2d, dctx, dres, ln_scale, ln_bias, wqkv, bqkv)
     rows, d = x2d.shape
     d3 = wqkv.shape[-1]
@@ -109,6 +116,7 @@ def ln_qkv_attn_bwd(
     _build.check_shape(name, "ln_bias", ln_bias, (d,))
     _build.check_shape(name, "wqkv", wqkv, (d, d3))
     _build.check_shape(name, "bqkv", bqkv, (d3,))
+    _check_log_size(name, log_size, x2d, seq_len)
     dev, code = x2d.device, _build.DTYPE_CODES[x2d.dtype]
     f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     outs = (torch.empty(rows, d, dtype=x2d.dtype, device=dev), f32(d), f32(d), f32(d, d3), f32(d3))
@@ -119,7 +127,7 @@ def ln_qkv_attn_bwd(
     _build.check(
         lib.vt_ln_qkv_attn_bwd(
             *(t.data_ptr() for t in (dctx, dres, x2d, ln_scale, ln_bias, wqkv, bqkv)),
-            *(t.data_ptr() for t in outs), ws.data_ptr(), batch, seq_len, d, num_heads, dh,
+            _build.ptr_or_null(log_size), *(t.data_ptr() for t in outs), ws.data_ptr(), batch, seq_len, d, num_heads, dh,
             eps, code, dev.index, _build.stream_of(x2d),
         ),
         name,

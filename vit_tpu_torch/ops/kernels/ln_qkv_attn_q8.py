@@ -31,8 +31,10 @@ h differs in its last bits and a code that sat on a rounding boundary moves
 by one; the card checks (``eval/quant_stages.py``) therefore compare stage
 by stage, each twin stage fed the kernel's own previous stage.
 
-``log_size``/``return_kmean`` (the TPU kernel's token-merging hooks) wait
-for the token-merging slice of the port and raise.
+Token merging's hooks are K1's (``ln_qkv_attn.py``) on the same attention
+stage: ``log_size`` biases the key logits, ``return_kmean`` also returns
+the mean key over heads, read from the dequantized packed QKV — the q8
+path's keys, as in the TPU kernel.
 """
 
 from __future__ import annotations
@@ -41,7 +43,12 @@ import torch
 
 from vit_tpu_torch.ops.fused_block import _ln
 from vit_tpu_torch.ops.kernels import _build
-from vit_tpu_torch.ops.kernels.ln_qkv_attn import HEAD_DIMS, packed_attention_plain
+from vit_tpu_torch.ops.kernels.ln_qkv_attn import (
+    HEAD_DIMS,
+    _check_log_size,
+    kmean_plain,
+    packed_attention_plain,
+)
 from vit_tpu_torch.ops.quant import int8_matmul_reference, quantize_activations
 
 
@@ -55,23 +62,28 @@ def ln_qkv_q8_plain(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps):
 
 def ln_qkv_attn_q8_plain(
     x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads: int, seq_len: int, eps: float,
-) -> torch.Tensor:
+    log_size=None, return_kmean: bool = False,
+):
     """Plain twin: fp32 compute with casts at the TPU kernel's rounding
     points."""
     qkv = ln_qkv_q8_plain(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps)[2]
-    return packed_attention_plain(qkv, num_heads, seq_len)
+    ctx = packed_attention_plain(qkv, num_heads, seq_len, log_size)
+    return (ctx, kmean_plain(qkv, num_heads)) if return_kmean else ctx
 
 
-def _stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps, attention=None):
+def _stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps, attention=None, log_size=None,
+            return_kmean=False):
     """-> {hq, hs, qkv} of stages 1-2, and with ``attention = (num_heads,
-    seq_len)`` also {ctx} of the whole of K15: the kernel's scratches and
-    output on the card (one launch of the one or the other C entry point),
-    the twin's on the CPU."""
+    seq_len)`` also {ctx} of the whole of K15 (and {kmean} with
+    ``return_kmean``): the kernel's scratches and outputs on the card (one
+    launch of the one or the other C entry point), the twin's on the CPU."""
     if x2d.device.type == "cpu":
         st = dict(zip(("hq", "hs", "qkv"),
                       ln_qkv_q8_plain(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps)))
         if attention:
-            st["ctx"] = packed_attention_plain(st["qkv"], *attention)
+            st["ctx"] = packed_attention_plain(st["qkv"], *attention, log_size)
+            if return_kmean:
+                st["kmean"] = kmean_plain(st["qkv"], attention[0])
         return st
     fn = ln_qkv_attn_q8 if attention else ln_qkv_q8
     name = fn.__name__
@@ -100,9 +112,14 @@ def _stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps, attention=None):
         dh = d3 // (3 * num_heads)
         if dh not in HEAD_DIMS:
             raise ValueError(f"{name}: head_dim {dh} not in {HEAD_DIMS}")
+        _check_log_size(name, log_size, x2d, seq_len)
         st["ctx"] = torch.empty(rows, d3 // 3, dtype=x2d.dtype, device=dev)
-        status = lib.vt_ln_qkv_attn_q8(*operands, st["ctx"].data_ptr(), rows // seq_len, seq_len,
-                                       d, num_heads, dh, *tail)
+        if return_kmean:
+            st["kmean"] = torch.empty(rows, dh, dtype=x2d.dtype, device=dev)
+        status = lib.vt_ln_qkv_attn_q8(*operands, st["ctx"].data_ptr(),
+                                       _build.ptr_or_null(log_size),
+                                       _build.ptr_or_null(st.get("kmean")), rows // seq_len,
+                                       seq_len, d, num_heads, dh, *tail)
     else:
         status = lib.vt_ln_qkv_q8(*operands, rows, d, d3, *tail)
     _build.check(status, name)
@@ -129,25 +146,24 @@ def ln_qkv_attn_q8(
     x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads: int, seq_len: int, eps: float,
     log_size=None, return_kmean: bool = False,
 ) -> torch.Tensor:
-    """(B*T, D) -> attention context (B*T, D) over an int8 W_qkv.  CPU
-    tensors take the plain twin; CUDA tensors launch the kernel."""
-    if log_size is not None or return_kmean:
-        raise NotImplementedError(
-            "ln_qkv_attn_q8: log_size/return_kmean are the token-merging hooks; they wait "
-            "for the token-merging slice of the port (ROADMAP.md)"
-        )
-    return _ln_qkv_attn_q8_stages(
-        x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads, seq_len, eps
-    )["ctx"]
+    """(B*T, D) -> attention context (B*T, D) over an int8 W_qkv, or
+    (context, kmean (B*T, dh)) with ``return_kmean``; ``log_size`` (B, T)
+    fp32 biases the key logits.  CPU tensors take the plain twin; CUDA
+    tensors launch the kernel."""
+    st = _ln_qkv_attn_q8_stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads, seq_len,
+                                eps, log_size, return_kmean)
+    return (st["ctx"], st["kmean"]) if return_kmean else st["ctx"]
 
 
 ln_qkv_attn_q8.launches = 0
 
 
-def _ln_qkv_attn_q8_stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads, seq_len, eps):
-    """The stage scratches and output of :func:`ln_qkv_attn_q8`, for the
+def _ln_qkv_attn_q8_stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads, seq_len, eps,
+                           log_size=None, return_kmean=False):
+    """The stage scratches and outputs of :func:`ln_qkv_attn_q8`, for the
     card checks."""
-    return _stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps, (num_heads, seq_len))
+    return _stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps, (num_heads, seq_len),
+                   log_size, return_kmean)
 
 
 def gemm_q8_dequant(x_q, s_x, w_q, s_w) -> torch.Tensor:

@@ -96,19 +96,33 @@ def attention(
     wo: torch.Tensor,
     bo: torch.Tensor,
     num_heads: int,
-) -> torch.Tensor:
+    *,
+    logit_bias: Optional[torch.Tensor] = None,
+    return_kmean: bool = False,
+):
     """Multi-head self-attention, inference form.
 
     ``wqkv`` (D, 3D) packed in (head, {q,k,v}, head_dim) column order,
     ``wo`` (D, D) pre-transposed.  Scores and softmax in fp32; the
-    probabilities round to the working dtype before ``p @ v``."""
+    probabilities round to the working dtype before ``p @ v``.
+
+    ``logit_bias`` (..., T) fp32, when given, adds a per-key bias to the
+    scaled logits (token merging's proportional attention: softmax(q kᵀ /
+    sqrt(dh) + log s), ``ops/tome.py``).  ``return_kmean`` also returns the
+    mean attention key over heads (..., T, head_dim), token merging's
+    similarity metric."""
     qkv = linear(x, wqkv, bqkv)
     q, k, v = split_packed_qkv(qkv, num_heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("...hqd,...hkd->...hqk", _acc(q), _acc(k)) * scale
+    if logit_bias is not None:
+        scores = scores + logit_bias[..., None, None, :].to(scores.dtype)
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("...hqk,...hkd->...hqd", _acc(probs.to(x.dtype)), _acc(v))
-    return linear(merge_heads(ctx.to(x.dtype)), wo, bo)
+    out = linear(merge_heads(ctx.to(x.dtype)), wo, bo)
+    if return_kmean:
+        return out, _acc(k).mean(dim=-3).to(x.dtype)  # heads axis of (..., H, T, Dh)
+    return out
 
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:

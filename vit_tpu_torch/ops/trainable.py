@@ -16,6 +16,13 @@ forward and K12a -> K6 backward: dropout at torchvision's three in-block
 sites and stochastic depth, with the masks regenerated in each kernel from
 one seed per layer.
 
+Token merging's training (``models/tome.forward_train``) runs the block as
+split pieces around the merge GEMM: ``TomeLnQkvAttnFn`` (K1 with its hooks
+forward, K6 with ``log_size`` and no residual join backward), then
+``OutResidualFn``/``LnMlpResidualFn`` or, with dropout, their regularized
+forms ``OutResidualTrainFn`` (K10 forward, K12c backward) and
+``LnMlpResidualTrainFn`` (K11 forward, K12b backward).
+
 Past ``fused_block.VMEM_ATTENTION_MAX_T`` tokens the block is
 ``_long_seq_block_trainable``: LN1 and the QKV product in plain
 differentiable torch, flash attention (K13 forward, K14 backward), then
@@ -138,6 +145,103 @@ class LnMlpResidualFn(torch.autograd.Function):
         s, b, w1, b1, w2, _ = params
         dx1, *grads = ln_mlp_residual_bwd(g.contiguous(), x1, s, b, w1, b1, w2, *ctx.block_args)
         return (dx1, *(d.to(p.dtype) for d, p in zip(grads, params)), None, None)
+
+
+# -- the split pieces of token-merging training (models/tome.forward_train) --
+# The merge sits between out_proj and the MLP, so the block runs as three
+# differentiable pieces with the merge GEMM between the second and third.
+
+
+class TomeLnQkvAttnFn(torch.autograd.Function):
+    """(x2d, ln_scale, ln_bias, wqkv, bqkv, log_size, num_heads, seq_len,
+    eps, return_kmean) -> ctx, or (ctx, kmean): K1 with token merging's
+    hooks forward, K6 with ``log_size`` and without the residual join
+    backward (``vit_tpu/ops/pallas/trainable.py:tome_ln_qkv_attn_diff``).
+    The k-mean and the sizes get no gradient: the matching is treated as a
+    constant, as in the ToMe paper's training."""
+
+    @staticmethod
+    def forward(ctx, x2d, ln_scale, ln_bias, wqkv, bqkv, log_size, num_heads, seq_len, eps,
+                return_kmean):
+        from vit_tpu_torch.ops.kernels.ln_qkv_attn import ln_qkv_attn
+
+        out = ln_qkv_attn(x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads, seq_len, eps,
+                          log_size=log_size, return_kmean=return_kmean)
+        ctx.save_for_backward(x2d, ln_scale, ln_bias, wqkv, bqkv, log_size)
+        ctx.block_args = (num_heads, seq_len, eps)
+        if return_kmean:
+            ctx.mark_non_differentiable(out[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        from vit_tpu_torch.ops.kernels.ln_qkv_attn_bwd import ln_qkv_attn_bwd
+
+        x2d, s, b, w, bias, log_size = ctx.saved_tensors
+        dx, ds, db, dw, dbias = ln_qkv_attn_bwd(g.contiguous(), None, x2d, s, b, w, bias,
+                                                *ctx.block_args, log_size=log_size)
+        return (dx, ds.to(s.dtype), db.to(b.dtype), dw.to(w.dtype), dbias.to(bias.dtype),
+                None, None, None, None, None)
+
+
+def tome_ln_qkv_attn(x2d, ln_scale, ln_bias, wqkv, bqkv, log_size, num_heads: int,
+                     seq_len: int, eps: float, return_kmean: bool):
+    """Differentiable [LN1 + QKV + attention (+ log-size bias)] -> ctx, or
+    (ctx, kmean) (:class:`TomeLnQkvAttnFn`)."""
+    return TomeLnQkvAttnFn.apply(x2d, ln_scale, ln_bias, wqkv, bqkv, log_size, num_heads,
+                                 seq_len, eps, bool(return_kmean))
+
+
+class OutResidualTrainFn(torch.autograd.Function):
+    """(ctx, res, wo, bo, dp_attn, seed, dropout_p) -> res + dp_attn *
+    dropout(ctx @ wo + bo): K10 forward, K12c backward.  The residual's
+    gradient is the upstream gradient itself; the row scale and the seed
+    get none."""
+
+    @staticmethod
+    def forward(ctx, attn, res, wo, bo, dp_attn, seed, dropout_p):
+        from vit_tpu_torch.ops.kernels.out_residual_train import out_residual_train
+
+        ctx.save_for_backward(attn, wo, bo, dp_attn)
+        ctx.reg = (seed, dropout_p)
+        return out_residual_train(attn, res, wo, bo, dp_attn, seed, dropout_p)
+
+    @staticmethod
+    def backward(ctx, g):
+        from vit_tpu_torch.ops.kernels.out_residual_bwd_train import out_residual_bwd_train
+
+        attn, wo, bo, dp_attn = ctx.saved_tensors
+        dctx, dwo, dbo = out_residual_bwd_train(g.contiguous(), attn, wo, dp_attn, *ctx.reg)
+        return dctx, g, dwo.to(wo.dtype), dbo.to(bo.dtype), None, None, None
+
+
+class LnMlpResidualTrainFn(torch.autograd.Function):
+    """(x1, ln_scale, ln_bias, w1, b1, w2, b2, dp_mlp, seed, dropout_p, eps,
+    gelu_variant) -> x1 + dp_mlp * dropout(MLP(LN2(x1))) with the inner
+    dropout: K11 forward, K12b backward; each gradient in its input's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x1, s, b, w1, b1, w2, b2, dp_mlp, seed, dropout_p, eps, gelu_variant):
+        from vit_tpu_torch.ops.kernels.ln_mlp_residual_train import ln_mlp_residual_train
+
+        ctx.save_for_backward(x1, s, b, w1, b1, w2, b2, dp_mlp)
+        ctx.block_args = (seed, dropout_p, eps, gelu_variant)
+        return ln_mlp_residual_train(x1, s, b, w1, b1, w2, b2, dp_mlp, seed, dropout_p, eps,
+                                     gelu_variant)
+
+    @staticmethod
+    def backward(ctx, g):
+        from vit_tpu_torch.ops.kernels.ln_mlp_residual_bwd_train import (
+            ln_mlp_residual_bwd_train,
+        )
+
+        x1, *params, dp_mlp = ctx.saved_tensors
+        s, b, w1, b1, w2, _ = params
+        dx1, *grads = ln_mlp_residual_bwd_train(g.contiguous(), x1, s, b, w1, b1, w2, dp_mlp,
+                                                *ctx.block_args)
+        return (dx1, *(d.to(p.dtype) for d, p in zip(grads, params)), None, None, None, None,
+                None)
 
 
 def _long_seq_block_trainable(x2d, blk, num_heads: int, seq_len: int, eps: float,

@@ -6,8 +6,9 @@ Batches are padded to a multiple of ``batch_pad`` as in the JAX engine
 shapes, and so their timings, stable across request sizes).
 
 ``device="cuda"`` needs a card and raises without one; it never runs on
-the CPU instead.  Meshes (``mesh``) and token merging (``tome_r``) wait
-for their slices of the port.
+the CPU instead.  ``tome_r`` classifies through token merging
+(``models/tome.py``) on ``fused``, ``quant`` or ``eager``.  Meshes
+(``mesh``) wait for their slice of the port.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ class InferenceEngine:
       device: 'cuda', 'cuda:N' or 'cpu'.
       batch_pad: round batch sizes up to a multiple of this.
       gelu_variant: 'exact' (erf) or 'tanh'.
+      tome_r: ToMe token merging — merge this many token pairs per layer
+        on the default schedule (0: none, the plain forward).
     """
 
     def __init__(
@@ -51,6 +54,7 @@ class InferenceEngine:
         device="cuda",
         batch_pad: int = 32,
         gelu_variant: str = "exact",
+        tome_r: int = 0,
     ):
         if dtype not in _DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {tuple(_DTYPES)}")
@@ -62,6 +66,17 @@ class InferenceEngine:
         self.device = device_or_raise(device)
         self._ops = get_ops(ops)
         self._gelu_variant = gelu_variant
+        self.tome_r = int(tome_r)
+        self._tome_forward = None
+        if self.tome_r:
+            from vit_tpu_torch.models import tome
+
+            tome.check_config(cfg, self.tome_r)  # r >= 0, the T ceiling
+            forwards = {"fused": tome.forward_fused, "quant": tome.forward_quant,
+                        "eager": tome.forward_eager}
+            if self._ops.name not in forwards:
+                raise ValueError("tome_r (token merging) supports ops='fused', 'quant' or 'eager'")
+            self._tome_forward = forwards[self._ops.name]
         self.params = self._prepare_params(params)
 
     def _prepare_params(self, params):
@@ -104,9 +119,12 @@ class InferenceEngine:
     def logits(self, images) -> torch.Tensor:
         """(B, C, H, W) -> (B, num_classes) fp32 logits (unpadded)."""
         x, n = self._stage(images)
-        out = vit.forward(
-            self.params, x, self.cfg, self._ops, gelu_variant=self._gelu_variant
-        )
+        if self._tome_forward is not None:
+            out = self._tome_forward(self.params, x, self.cfg, self.tome_r, self._gelu_variant)
+        else:
+            out = vit.forward(
+                self.params, x, self.cfg, self._ops, gelu_variant=self._gelu_variant
+            )
         return out[:n]
 
     def probabilities(self, images) -> torch.Tensor:
@@ -115,6 +133,13 @@ class InferenceEngine:
     @torch.inference_mode()
     def features(self, images) -> torch.Tensor:
         """(B, C, H, W) -> (B, D) final-LN CLS embeddings."""
+        if self.tome_r:
+            # the feature probe runs the full-token forward: on a merged
+            # engine it would come from another model than classify()'s
+            raise ValueError(
+                "features() on a tome_r engine would use full tokens while "
+                "classify() merges — build a tome_r=0 engine for embeddings"
+            )
         x, n = self._stage(images)
         out = vit.forward(
             self.params, x, self.cfg, self._ops,

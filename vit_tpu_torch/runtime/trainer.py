@@ -51,7 +51,7 @@ def cross_entropy_loss(
 
 
 def _make_loss_fn(cfg: ViTConfig, ops: OpsImpl, remat: bool, compute_dtype=None,
-                  label_smoothing: float = 0.0):
+                  label_smoothing: float = 0.0, forward_fn=None):
     """(params, images, labels[, rng]) -> scalar loss.  With
     ``compute_dtype`` (mixed precision) the params and images are cast
     inside the loss, so the gradients land in the fp32 master weights
@@ -60,13 +60,17 @@ def _make_loss_fn(cfg: ViTConfig, ops: OpsImpl, remat: bool, compute_dtype=None,
     ``rng``, a host generator, turns on dropout and drop-path: each call
     draws one seed from it, and the forward draws its masks from a
     generator made from that seed, so a recomputed forward draws the same
-    masks."""
+    masks.  ``forward_fn`` ``(params, images, dropout_rng) -> logits``
+    overrides the model forward (the merged-token forward of token-merging
+    training, ``models/tome.py``)."""
 
     def fwd(p, x, seed):
         if compute_dtype is not None:
             p = vit.cast_params(p, compute_dtype)
             x = x.to(compute_dtype)
         rng = None if seed is None else torch.Generator().manual_seed(seed)
+        if forward_fn is not None:
+            return forward_fn(p, x, rng)
         return vit.forward(p, x, cfg, ops, dropout_rng=rng)
 
     def loss_fn(params, images, labels, rng=None):
@@ -118,6 +122,7 @@ def make_train_step(
     grad_clip: float = 0.0,
     use_dropout: bool = False,
     rng: Optional[torch.Generator] = None,
+    forward_fn: Optional[Callable] = None,
 ):
     """Build ``(params, images, labels) -> loss``, one optimizer update per
     call on ``optimizer``'s leaves (which must be ``params``' leaves).
@@ -129,10 +134,11 @@ def make_train_step(
     ``grad_accum`` as in :func:`_value_and_grad_accum`.  ``use_dropout``
     applies cfg.dropout and cfg.drop_path in the forward, with a fresh
     generator per step drawn from ``rng`` (a host ``torch.Generator``, the
-    counterpart of the JAX step's rng argument)."""
+    counterpart of the JAX step's rng argument).  ``forward_fn`` as in
+    :func:`_make_loss_fn`."""
     if use_dropout and rng is None:
         raise ValueError("use_dropout needs rng, a torch.Generator (e.g. seeded from --seed)")
-    loss_fn = _make_loss_fn(cfg, ops, remat, compute_dtype, label_smoothing)
+    loss_fn = _make_loss_fn(cfg, ops, remat, compute_dtype, label_smoothing, forward_fn)
 
     def train_step(params, images, labels) -> torch.Tensor:
         step_rng = None
