@@ -126,9 +126,32 @@ Phases (a failed phase raises; nothing is caught):
      bf16) and the train step at r = 0 and 13 (batch 64 bf16 mixed, plain
      and regularized), timed in turns.
 
+ 31. the per-op kernels (K21 scaled_dot_product_attention on strided views
+     of a packed QKV, as the per-op attention calls it; K22 mlp) against
+     their plain twins, bf16 and fp32, at B/16 shapes for batch 100 and a
+     ragged batch of 3, K21 also at phase 26's head width 80, all timed, K21
+     beside ``F.scaled_dot_product_attention`` on the same q, k, v;
+ 32. the classify CLI with ``--ops per_op`` (25 K3, 12 K21, 12 K22; none of
+     K1, K2, K13), counts set to 0 just before and read just after; then
+     ``--profile`` on ``per_op`` and on ``fused``: its six phase lines
+     print, and K21/K22 run 12 x 3 more times in the profile;
+ 33. per-op correctness and speed: fp32 ``per_op`` vs fp32 ``eager`` (8
+     images, <= 1e-3), bf16 ``per_op`` vs fp32 ``fused`` by the comparator
+     rule; ``per_op`` at @512 batch 16 (12 K13, no K21); img/s of
+     ``per_op``, ``fused`` and ``eager`` at batch 100 bf16, in turns;
+ 34. K20 (the fused AdamW) against its twin on every leaf of B/16's fp32
+     params, and on one bf16 leaf, over 3 steps: p, mu and nu within 2^-20
+     of each leaf's largest |value| (a bf16 p within one rounding); the
+     time of a step over the 20 leaves beside ``torch.optim.AdamW``'s fused
+     and foreach steps on the same tensors;
+ 35. the train CLI with ``--optimizer fused_adamw`` (otherwise as in 8, at
+     AdamW 1e-4): 20 K20 per step beside 12 each of K1, K4-K7, a loss that
+     falls; then the train step's img/s with ``fused_adamw`` against
+     ``adamw``, in turns.
+
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
-regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26);
-without it every phase runs.
+regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
+per_op 31-33, adamw 34-35); without it every phase runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -235,6 +258,19 @@ TOME_R = 13  # the merge count of the JAX package's ToMe benchmark
 TOME_RATE_R = (0, 13, 16)  # the classify rates' merge counts
 TOME_LR = 1e-4  # the ToMe train CLI runs' AdamW rate
 H14 = dict(d=1280, heads=16, t=257, batch=8)  # vit_h_14 @224's widths: dh 80
+
+PER_OP_KERNELS = {
+    "scaled_dot_product_attention": ("K21", "vit_tpu_torch/csrc/scaled_dot_product_attention.cu",
+                                     "vit_tpu/ops/pallas/attention_kernel.py:56"),
+    "mlp": ("K22", "vit_tpu_torch/csrc/mlp.cu", "vit_tpu/ops/pallas/mlp_kernel.py:65"),
+}
+ADAMW_KERNELS = {
+    "adamw_update": ("K20", "vit_tpu_torch/csrc/adamw.cu",
+                     "vit_tpu/ops/pallas/adamw_kernel.py:53"),
+}
+ADAMW_STEPS = 3  # the kernel-vs-twin steps of phase 34
+B16_LEAVES = (20, 86_567_656)  # ViT-B/16's params: leaves, elements
+TRAIN_LR = 1e-4  # the fused AdamW train CLI run's rate, as the ToMe runs'
 
 REG_P = 0.1  # dropout, and the drop-path rate of the kernel cases
 REG_SEED = 0x9E3779B9  # >= 2^31: the full uint32 range reaches the kernels
@@ -633,12 +669,19 @@ def phase_regularizer_checks(dev: torch.device) -> None:
             raise RuntimeError("a regularized kernel at zero rates differs from its plain kernel")
 
 
+PROFILE_PHASES = ("patch_embed+pos", "layer_norm_1", "attention", "layer_norm_2", "mlp",
+                  "final_ln+head")
+PROFILE_ITERS = 3  # InferenceEngine.phase_report's default
+
+
 def phase_cli(params, workdir: str, ops: str = "fused",
-              kernels=("ln_qkv_attn", "out_ln_mlp_residual"), extra=(), final_ln: int = 1) -> dict:
-    """Phases 4, 21 and 27: the classify CLI on the card with ``--ops ops``
-    and ``extra`` flags, on ``params`` saved as an npz: 12 launches of each
-    of ``kernels``, ``final_ln`` of K3, none of any other.  -> launch counts
-    of its run."""
+              kernels=("ln_qkv_attn", "out_ln_mlp_residual"), extra=(), final_ln: int = 1,
+              more=None) -> dict:
+    """Phases 4, 21, 27 and 32: the classify CLI on the card with ``--ops
+    ops`` and ``extra`` flags, on ``params`` saved as an npz: 12 launches of
+    each of ``kernels``, ``final_ln`` of K3, ``more`` ({kernel: launches})
+    on top, none of any other; with ``--profile`` among ``extra``, the six
+    phase lines of ``phase_report``.  -> launch counts of its run."""
     from vit_tpu_torch.cli.main import main
     from vit_tpu_torch.eval import comparator
     from vit_tpu_torch.io import checkpoint
@@ -667,9 +710,18 @@ def phase_cli(params, workdir: str, ops: str = "fused",
         raise RuntimeError("classify CLI's --output is not 100 well-formed lines")
     want = {name: 0 for name in wrappers}
     want.update({name: 12 for name in kernels}, layer_norm=final_ln)
+    for name, n in (more or {}).items():
+        want[name] += n
     if launches != want:
-        raise RuntimeError(f"{tag}: expected 12 launches of each of {kernels} and {final_ln} of "
-                           f"layer_norm per forward, got {launches}")
+        raise RuntimeError(f"{tag}: expected launches {want}, got {launches}")
+    if "--profile" in extra:
+        rows = [line.split() for line in out if " ms total " in line]
+        log("\n".join(f"{tag}: " + " ".join(r) for r in rows))
+        per_layer = PROFILE_ITERS * 12
+        counts = {r[0]: int(r[-1].removeprefix("x")) for r in rows}
+        if counts != {name: PROFILE_ITERS if name in ("patch_embed+pos", "final_ln+head")
+                      else per_layer for name in PROFILE_PHASES}:
+            raise RuntimeError(f"{tag}: phase lines {counts}, expected the six phases")
     return launches
 
 
@@ -774,7 +826,8 @@ def all_wrappers() -> dict:
     from vit_tpu_torch.ops.kernels import wrapper
 
     return {name: wrapper(name) for name in (*KERNELS, *TRAIN_KERNELS, *REG_KERNELS, *LONG_KERNELS,
-                                             *QUANT_KERNELS, *TOME_KERNELS)}
+                                             *QUANT_KERNELS, *TOME_KERNELS, *PER_OP_KERNELS,
+                                             *ADAMW_KERNELS)}
 
 
 def _reset_counts() -> dict:
@@ -974,8 +1027,9 @@ def phase_reg_correctness(dev: torch.device) -> None:
 
 def _train_rates(dev, card: str, runs: dict, phase: str, base=None, b: int = 64) -> dict:
     """Train img/s at ``base`` (default B/16 @224) batch ``b`` bf16 mixed
-    (no remat) of each run ``label: (ops, regularized[, tome_r])``, timed in
-    turns, and the peak device memory of each alone on the card."""
+    (no remat) of each run ``label: (ops, regularized[, tome_r[,
+    optimizer]])`` (optimizer 'adamw', torch's, or 'fused_adamw', K20),
+    timed in turns, and the peak device memory of each alone on the card."""
     from vit_tpu_torch.config import VIT_B_16
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import vit
@@ -986,11 +1040,12 @@ def _train_rates(dev, card: str, runs: dict, phase: str, base=None, b: int = 64)
     x = torch.from_numpy(synth_images(b, base, seed=4)).to(dev)
     y = torch.arange(b, device=dev) * 7 % base.num_classes
 
-    def make(ops, regularized, tome_r=0):
+    def make(ops, regularized, tome_r=0, optimizer="adamw"):
         cfg = (dataclasses.replace(base, dropout=REG_P, drop_path=REG_P) if regularized
                else base)
         params = trainer.as_trainable(vit.init_params(torch.Generator().manual_seed(0), cfg), dev)
-        opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-4)
+        make_opt = trainer.FusedAdamW if optimizer == "fused_adamw" else torch.optim.AdamW
+        opt = make_opt(list(trainer.leaves(params)), lr=1e-4)
         step = trainer.make_train_step(cfg, opt, get_ops(ops), remat=False,
                                        compute_dtype=torch.bfloat16, use_dropout=regularized,
                                        rng=torch.Generator().manual_seed(0),
@@ -1711,7 +1766,184 @@ def phase_tome_train_cli(workdir: str, extra, kernels) -> dict:
     return launches
 
 
-PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80")
+# -- the per-op tier (K21, K22) and the fused AdamW (K20) ---------------------
+
+
+def per_op_kernel_cases(dev: torch.device):
+    """-> ({kernel: [case]}, labels) for phase 31: K21 on strided views of a
+    packed QKV (as the per-op attention calls it) and K22 at B/16 shapes for
+    batch 100 and 3, bf16 and fp32, K21 also at phase 26's head width 80
+    (batch 8).  K21's library call is ``F.scaled_dot_product_attention`` on
+    the same views."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops.flash_attention import packed_views
+    from vit_tpu_torch.ops.kernels import attention as k21
+    from vit_tpu_torch.ops.kernels import mlp as k22
+
+    d, h, f, t = B16["d"], B16["heads"], B16["f"], B16["t"]
+    rn = _rand(dev, 31)
+    labels = {**PER_OP_KERNELS, "scaled_dot_product_attention dh80": ("K21 dh80",)}
+    cases = {name: [] for name in labels}
+
+    def sdpa_case(tag, dtype, b, t, d, h):
+        q, k, v = packed_views(rn(b * t, 3 * d, dtype=dtype), b, t, h, 3)
+        return case(tag, dtype, b, k21.scaled_dot_product_attention,
+                    k21.scaled_dot_product_attention_plain, (q, k, v), 4 * b * t * t * d,
+                    library=lambda: F.scaled_dot_product_attention(q, k, v))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        w1, bb1 = rn(d, f, scale=d ** -0.5, dtype=dtype), rn(f, scale=0.1, dtype=dtype)
+        w2, bb2 = rn(f, d, scale=f ** -0.5, dtype=dtype), rn(d, scale=0.1, dtype=dtype)
+        for b in BATCHES:
+            rows = b * t
+            tag = _tag(dtype, b, rows)
+            cases["scaled_dot_product_attention"].append(sdpa_case(tag, dtype, b, t, d, h))
+            cases["mlp"].append(case(tag, dtype, b, k22.mlp, k22.mlp_plain,
+                                     (rn(rows, d, scale=2.0, dtype=dtype), w1, bb1, w2, bb2),
+                                     4 * rows * d * f))
+        b, t80, d80, h80 = H14["batch"], H14["t"], H14["d"], H14["heads"]
+        cases["scaled_dot_product_attention dh80"].append(sdpa_case(
+            _tag(dtype, b, b * t80) + f" T {t80} dh {d80 // h80}", dtype, b, t80, d80, h80))
+    return cases, labels
+
+
+def phase_per_op_correctness(params, images: np.ndarray, dev: torch.device) -> dict:
+    """Phase 33 (correctness): fp32 ``per_op`` vs fp32 ``eager`` (8 images,
+    <= 1e-3), bf16 ``per_op`` vs fp32 ``fused`` by the comparator rule, and
+    ``per_op`` at @512 batch 16 bf16, where the per-op attention routes to
+    K13.  -> launch counts of that forward."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = VIT_B_16
+    logits = {}
+    for dtype, ops, n in (("float32", "per_op", 8), ("float32", "eager", 8),
+                          ("float32", "fused", 100), ("bfloat16", "per_op", 100)):
+        eng = InferenceEngine(cfg, params, dtype, ops, dev, batch_pad=1)
+        logits[dtype, ops] = eng.logits(images[:n]).cpu().numpy()
+        del eng
+        if not np.isfinite(logits[dtype, ops]).all():
+            raise RuntimeError(f"{dtype} {ops} logits non-finite")
+    d = float(np.abs(logits["float32", "per_op"] - logits["float32", "eager"]).max())
+    log(f"fp32 per_op vs fp32 eager (card, TF32 off), 8 images: max|d logit|={d:.6g} (tol 1e-3)")
+    if not d <= 1e-3:
+        raise RuntimeError("fp32 per_op logits outside 1e-3 of the eager path")
+    _comparator_rule("bf16 per_op vs fp32 fused", _probs(logits["bfloat16", "per_op"]),
+                     _probs(logits["float32", "fused"]))
+    torch.cuda.empty_cache()
+
+    cfg = VIT_B_16.with_image_size(LONG_IMAGE)
+    eng = InferenceEngine(cfg, synth_params(cfg, 0), "bfloat16", "per_op", dev, batch_pad=16)
+    x = synth_images(16, cfg, seed=5)
+    wrappers = _reset_counts()
+    l16 = eng.logits(x).cpu().numpy()
+    launches = _expect_counts(
+        wrappers, {"layer_norm": 25, "flash_attention_fwd": 12, "mlp": 12},
+        f"long per_op {cfg.name} (T {cfg.seq_len}) batch 16 bf16, one forward")
+    if l16.shape != (16, cfg.num_classes) or not np.isfinite(l16).all():
+        raise RuntimeError(f"long per_op logits: shape {l16.shape} or non-finite")
+    return launches
+
+
+def _adamw_case(dev, p_dtype):
+    """B/16's 20 leaves (fp32), or its largest leaf alone (bf16 p and g),
+    with fp32 moments and ADAMW_STEPS gradients, made on the card."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.runtime import trainer
+
+    params = [t.to(dev, p_dtype) for t in trainer.leaves(
+        vit.init_params(torch.Generator().manual_seed(0), VIT_B_16))]
+    if p_dtype != torch.float32:
+        params = [max(params, key=torch.numel)]
+    rn = _rand(dev, 34)
+    grads = [[rn(*p.shape, scale=1e-2, dtype=p_dtype) for p in params]
+             for _ in range(ADAMW_STEPS)]
+    return params, grads
+
+
+def phase_adamw_kernel(dev: torch.device, card: str) -> dict:
+    """Phase 34: K20 against its twin over ADAMW_STEPS steps, on every leaf
+    of B/16's fp32 params and on its largest leaf in bf16: p, mu and nu
+    within 2^-20 of each leaf's largest |value| (only FMA contraction
+    differs: the build has no fast-math), a bf16 p within one rounding
+    (2^-7); then the time of one step over the 20 leaves — kernel, twin,
+    ``torch.optim.AdamW(fused=True).step()`` (the library call) and its
+    default foreach step on the same tensors.  -> {adamw_update: summary}."""
+    from vit_tpu_torch.ops.kernels import adamw as k20
+
+    lr, wd = 1e-3, 0.05
+    err = 0.0
+    for p_dtype in (torch.float32, torch.bfloat16):
+        params, grads = _adamw_case(dev, p_dtype)
+        state = [[t.clone() for t in params]] + [
+            [torch.zeros(t.shape, device=dev) for t in params] for _ in range(2)]
+        twin = [[t.clone() for t in ts] for ts in state]
+        for step, g in enumerate(grads, 1):
+            k20.adamw_update(g, *state, step, lr, weight_decay=wd)
+            k20.adamw_update_plain(g, *twin, step, lr, weight_decay=wd)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for what, got, want in zip(("p", "mu", "nu"), state, twin):
+            for i, (a, b) in enumerate(zip(got, want)):
+                rel = 2.0 ** -20 if a.dtype == torch.float32 else 2.0 ** -7
+                e = (a.float() - b.float()).abs().max().item()
+                tol = rel * b.float().abs().max().item()
+                if not (e <= tol and torch.isfinite(a).all()):
+                    raise RuntimeError(f"K20 {p_dtype} leaf {i} {what}: max|d|={e:.6g} > {tol:.6g}")
+                err, worst = max(err, e), max(worst, e / tol if tol else 0.0)
+        n = sum(t.numel() for t in params)
+        log(f"K20 adamw_update p {str(p_dtype).removeprefix('torch.')}, {len(params)} leaves, "
+            f"{n} elements, {ADAMW_STEPS} steps: p, mu, nu against the twin at most {worst:.3g} "
+            f"of their tolerance")
+        del state, twin
+
+    params, grads = _adamw_case(dev, torch.float32)
+    g = grads[0]
+    n = sum(t.numel() for t in params)
+    if (len(params), n) != B16_LEAVES:
+        raise RuntimeError(f"B/16 has {len(params)} leaves of {n} parameters, expected {B16_LEAVES}")
+    mu, nu = ([torch.zeros(t.shape, device=dev) for t in params] for _ in range(2))
+    ms = cuda_ms(lambda: k20.adamw_update(g, params, mu, nu, 1, lr, weight_decay=wd))
+    plain_ms = cuda_ms(lambda: k20.adamw_update_plain(g, params, mu, nu, 1, lr, weight_decay=wd))
+    lib = {}
+    for kind in ("fused", "foreach"):
+        leaves = [t.clone().requires_grad_(True) for t in params]
+        for t, gt in zip(leaves, g):
+            t.grad = gt
+        opt = torch.optim.AdamW(leaves, lr=lr, weight_decay=wd, **{kind: True})
+        lib[kind] = cuda_ms(opt.step)
+        del opt, leaves
+    nbytes = _nbytes([*g, *params, *mu, *nu]) + _nbytes([*params, *mu, *nu])
+    bound_ms, bound_by = bound(15 * n, nbytes, torch.float32)
+    log(f"K20 adamw_update step, B/16 fp32, 20 leaves ({n} elements): kernel {ms:.6g} ms "
+        f"(20 launches), plain {plain_ms:.6g} ms, torch.optim.AdamW fused {lib['fused']:.6g} ms, "
+        f"foreach {lib['foreach']:.6g} ms, bound {bound_ms:.6g} ms ({bound_by}); {card}")
+    return {"adamw_update": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": lib["fused"]}}
+
+
+def phase_adamw_train_cli(workdir: str) -> dict:
+    """Phase 35: the train CLI with ``--optimizer fused_adamw`` at TRAIN_LR
+    (otherwise as phase 8): 20 K20 launches per step (one per leaf) beside
+    phase 8's 12 each of K1, K4-K7, and a loss that falls.  -> launch
+    counts of the run."""
+    launches, losses = _train_cli(workdir, ["--optimizer", "fused_adamw", "--lr", str(TRAIN_LR)])
+    want = {name: 0 for name in launches}
+    want.update({name: 12 * TRAIN_STEPS for name in ("ln_qkv_attn", *TRAIN_KERNELS)})
+    want["adamw_update"] = 20 * TRAIN_STEPS
+    if launches != want:
+        raise RuntimeError(f"expected {want} kernel launches over {TRAIN_STEPS} steps, "
+                           f"got {launches}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"fused AdamW train CLI: the loss did not fall ({losses})")
+    return launches
+
+
+PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw")
 
 
 def group_classify(dev, card, summary, launches) -> None:
@@ -1832,6 +2064,45 @@ def group_dh80(dev, card, summary, launches) -> None:
     phase_quant_kernels(q8, labels)
 
 
+def group_per_op(dev, card, summary, launches) -> None:
+    """Phases 31-33."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.ops.kernels import _build
+
+    cases, labels = per_op_kernel_cases(dev)
+    summary.update(phase_kernels(cases, labels, 100))
+    del cases
+    torch.cuda.empty_cache()
+    params = synth_params(VIT_B_16, 0)
+    per_op = tuple(PER_OP_KERNELS)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        launches["classify_per_op"] = phase_cli(params, workdir, "per_op", per_op, (), 25)
+        profiled = {name: 12 * PROFILE_ITERS for name in per_op}
+        phase_cli(params, workdir, "per_op", per_op, ["--profile"], 25, profiled)
+        phase_cli(params, workdir, "fused", more=profiled, extra=["--profile"])
+    images = synth_images(100, VIT_B_16, seed=1)
+    launches["classify_per_op_long"] = phase_per_op_correctness(params, images, dev)
+    torch.cuda.empty_cache()
+    x = torch.from_numpy(images).to(dev, torch.bfloat16)
+    _inference_rates(VIT_B_16, params, x, ("per_op", "fused", "eager"), dev, card,
+                     "per_op throughput", 4)
+
+
+def group_adamw(dev, card, summary, launches) -> None:
+    """Phases 34-35."""
+    from vit_tpu_torch.ops.kernels import _build
+
+    summary.update(phase_adamw_kernel(dev, card))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        launches["train_fused_adamw"] = phase_adamw_train_cli(workdir)
+    torch.cuda.empty_cache()
+    _train_rates(dev, card, {"fused_train fused_adamw": ("fused_train", False, 0, "fused_adamw"),
+                             "fused_train adamw": ("fused_train", False)},
+                 "fused AdamW train throughput")
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -1863,7 +2134,8 @@ def main(argv=None) -> None:
 
     summary, launches = {}, {}
     groups = {"classify": group_classify, "train": group_train, "regularized": group_regularized,
-              "long": group_long, "quant": group_quant, "tome": group_tome, "dh80": group_dh80}
+              "long": group_long, "quant": group_quant, "tome": group_tome, "dh80": group_dh80,
+              "per_op": group_per_op, "adamw": group_adamw}
     for name in PHASES:
         if name in only:
             t0 = time.perf_counter()
@@ -1876,15 +2148,18 @@ def main(argv=None) -> None:
     # for K13, the long train step's for K14, K8, K9, the quant classify
     # CLI's for K15 and K16, the ToMe quant classify CLI's for K17, the long
     # quant forward's for K15's stages 1-2, the regularized ToMe train CLI's
-    # for K12b and K12c; "paths" has every reading
+    # for K12b and K12c, the per-op classify CLI's for K21 and K22, the
+    # fused AdamW train CLI's for K20; "paths" has every reading
     path_of = {**{k: "classify" for k in KERNELS}, **{k: "train" for k in TRAIN_KERNELS},
                **{k: "train_regularized" for k in REG_KERNELS},
                **{k: "train_long" for k in LONG_KERNELS}, "flash_attention_fwd": "classify_long",
                **{k: "classify_quant" for k in QUANT_KERNELS}, "ln_qkv_q8": "classify_quant_long",
                "ln_mlp_residual_q8": "classify_quant_tome",
-               **{k: "train_tome_regularized" for k in TOME_KERNELS}}
+               **{k: "train_tome_regularized" for k in TOME_KERNELS},
+               **{k: "classify_per_op" for k in PER_OP_KERNELS},
+               **{k: "train_fused_adamw" for k in ADAMW_KERNELS}}
     all_kernels = {**KERNELS, **TRAIN_KERNELS, **REG_KERNELS, **LONG_KERNELS, **QUANT_KERNELS,
-                   **TOME_KERNELS}
+                   **TOME_KERNELS, **PER_OP_KERNELS, **ADAMW_KERNELS}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches.get(path_of[name], {}).get(name),

@@ -842,3 +842,158 @@ def test_tome_train_grads_match_eager_autograd(dev, regularized):
     for k, w in grads(tome.forward_eager).items():
         err, bound = (got[k] - w).abs().max().item(), 1e-3 * max(1.0, w.abs().max().item())
         assert err <= bound, f"leaf {k}: max|d| {err} > {bound}"
+
+
+# -- the per-op tier (K21, K22) and the fused AdamW (K20) ----------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "b,t,d,h", [(2, 29, 48, 3), (3, 197, 768, 12), (2, 100, 256, 2), (2, 257, 160, 2)],
+    ids=["tiny_dh16", "b16_t197", "t100_dh128", "h14_t257_dh80"],
+)
+def test_scaled_dot_product_attention_packed_views(dev, dtype, b, t, d, h):
+    from vit_tpu_torch.ops.flash_attention import packed_views
+    from vit_tpu_torch.ops.kernels import attention as k21
+
+    qkv = _rn(dev, 0, b * t, 3 * d, scale=2.0, dtype=dtype)
+    q, k, v = packed_views(qkv, b, t, h, 3)  # strided, as the per-op attention calls it
+    ctx = torch.zeros(b * t, d, dtype=dtype, device=dev)
+    out = packed_views(ctx, b, t, h, 1)[0]
+    k21.scaled_dot_product_attention.launches = 0
+    assert k21.scaled_dot_product_attention(q, k, v, out=out) is out
+    assert k21.scaled_dot_product_attention.launches == 1
+    _check(out, k21.scaled_dot_product_attention_plain(q, k, v))
+    # separate contiguous q, k, v with a leading shape, into a new output
+    q5, k5, v5 = (x.contiguous().reshape(1, b, h, t, d // h) for x in (q, k, v))
+    _check(k21.scaled_dot_product_attention(q5, k5, v5),
+           k21.scaled_dot_product_attention_plain(q5, k5, v5))
+
+
+@pytest.mark.cuda
+def test_scaled_dot_product_attention_rejects_what_it_does_not_take(dev):
+    from vit_tpu_torch.ops.kernels import attention as k21
+
+    x = torch.zeros(1, 2, 5, 48, device=dev)  # head width 48
+    with pytest.raises(ValueError, match="head_dim"):
+        k21.scaled_dot_product_attention(x, x, x)
+    y = torch.zeros(1, 2, 16, 5, device=dev).transpose(-1, -2)  # dh not contiguous
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        k21.scaled_dot_product_attention(y, y, y)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        k21.scaled_dot_product_attention(x[..., :16], x[..., :16], x[..., :16].bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", ["exact", "tanh"])
+@pytest.mark.parametrize("shape,f", [((67, 64), 256), ((3, 197, 768), 3072), ((591, 384), 1536)],
+                         ids=["r67", "b3_t197", "r591"])
+def test_mlp(dev, dtype, variant, shape, f):
+    from vit_tpu_torch.ops.kernels import mlp as k22
+
+    d = shape[-1]
+    args = (_rn(dev, 0, *shape, scale=2.0, dtype=dtype),
+            _rn(dev, 1, d, f, scale=d ** -0.5, dtype=dtype), _rn(dev, 2, f, scale=0.1, dtype=dtype),
+            _rn(dev, 3, f, d, scale=f ** -0.5, dtype=dtype), _rn(dev, 4, d, scale=0.1, dtype=dtype))
+    k22.mlp.launches = 0
+    _check(k22.mlp(*args, gelu_variant=variant), k22.mlp_plain(*args, gelu_variant=variant))
+    assert k22.mlp.launches == 1
+
+
+def _adamw_leaves(dev, p_dtype, g_dtype, seed):
+    """Leaves of 1,000 (not a multiple of the TPU's 128), 768 (small), 2^15
+    and 105 (odd) elements, and one of 1,000 that starts one element into
+    its memory (a contiguous view at an offset)."""
+    shapes = [(1000,), (768,), (64, 512), (3, 5, 7), (1001,)]
+
+    def leaf(seed, shape, **kw):
+        t = _rn(dev, seed, *shape, **kw)
+        return t[1:] if shape == (1001,) else t
+
+    p = [leaf(seed + i, s, dtype=p_dtype) for i, s in enumerate(shapes)]
+    mu = [leaf(seed + 10 + i, s, scale=0.1) for i, s in enumerate(shapes)]
+    nu = [leaf(seed + 20 + i, s, scale=0.1).abs() for i, s in enumerate(shapes)]
+    return p, mu, nu, [leaf(seed + 30 + i, s, dtype=g_dtype) for i, s in enumerate(shapes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_dtype,g_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.bfloat16)])
+def test_adamw_update(dev, p_dtype, g_dtype):
+    """Three steps against the twin on the same tensors: p, mu and nu within
+    2^-20 of each leaf's largest value (fp32; only FMA contraction differs)
+    and, for a bf16 p, one bf16 rounding of p."""
+    from vit_tpu_torch.ops.kernels import adamw as k20
+
+    p, mu, nu, g = _adamw_leaves(dev, p_dtype, g_dtype, 0)
+    wp, wm, wv = ([t.clone() for t in ts] for ts in (p, mu, nu))
+    k20.adamw_update.launches = 0
+    for step in (1, 2, 3):
+        k20.adamw_update(g, p, mu, nu, step, 1e-3, weight_decay=0.05)
+        k20.adamw_update_plain(g, wp, wm, wv, step, 1e-3, weight_decay=0.05)
+    assert k20.adamw_update.launches == 3 * len(p)
+    for got, want in zip((*p, *mu, *nu), (*wp, *wm, *wv)):
+        assert got.dtype == want.dtype
+        rel = 2.0 ** -20 if got.dtype == torch.float32 else 2.0 ** -7
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= rel * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_adamw_update_rejects_what_it_does_not_take(dev):
+    from vit_tpu_torch.ops.kernels import adamw as k20
+
+    p = torch.zeros(8, 4, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        k20.adamw_update([p.t()], [p.t()], [p.t()], [p.t()], 1, 1e-3)
+    with pytest.raises(TypeError, match="float32"):
+        k20.adamw_update([p], [p], [p.bfloat16()], [p], 1, 1e-3)
+
+
+@pytest.mark.cuda
+def test_per_op_forward_launches_and_matches_eager(dev):
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.ops.kernels import wrapper
+
+    cfg = dataclasses.replace(VIT_B_16, depth=2, embed_dim=128, num_heads=2,
+                              image_size=64, num_classes=11, name="vit_card_test")
+    params = _params_on(dev, cfg)
+    x = torch.from_numpy(synth_images(3, cfg, seed=2)).to(dev)
+    names = ("layer_norm", "scaled_dot_product_attention", "mlp", "ln_qkv_attn",
+             "out_ln_mlp_residual", "flash_attention_fwd")
+    for name in names:
+        wrapper(name).launches = 0
+    with torch.inference_mode():
+        got = vit.forward(params, x, cfg, get_ops("per_op"))
+        want = vit.forward(params, x, cfg, get_ops("eager"))
+    assert tuple(wrapper(n).launches for n in names) == (5, 2, 2, 0, 0, 0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_fused_adamw_step_launches_per_leaf(dev):
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.ops.kernels import adamw as k20
+    from vit_tpu_torch.runtime import trainer
+
+    cfg = dataclasses.replace(VIT_B_16, depth=2, embed_dim=128, num_heads=2,
+                              image_size=64, num_classes=11, name="vit_card_test")
+    x = torch.from_numpy(synth_images(4, cfg, seed=2)).to(dev)
+    y = torch.arange(4, device=dev)
+    runs = {}
+    for name in ("fused", "plain"):
+        params = trainer.as_trainable(_params_on(dev, cfg), dev)
+        if name == "fused":
+            opt = trainer.FusedAdamW(list(trainer.leaves(params)), lr=1e-3, weight_decay=0.05)
+        else:
+            opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-3, weight_decay=0.05)
+        step = trainer.make_train_step(cfg, opt, get_ops("fused_train"), remat=False)
+        k20.adamw_update.launches = 0
+        losses = [float(step(params, x, y)) for _ in range(3)]
+        runs[name] = (losses, k20.adamw_update.launches)
+    assert runs["fused"][1] == 3 * 20 and runs["plain"][1] == 0  # 20 leaves
+    np.testing.assert_allclose(runs["fused"][0], runs["plain"][0], atol=1e-4, rtol=0)

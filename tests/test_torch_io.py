@@ -270,10 +270,11 @@ def test_comparator_matches_jax(tmp_path):
 
 def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     """chip_smoke, then on the CPU: the train CLI (fused_train, --save; and
-    regularized, eager and fused_train; and with --tome, plain and
-    regularized), and the classify CLI on its npz, on a Weight_*.bin
-    directory, on a .pth, on --images, with --golden, with --ops quant and
-    with --tome on fused and quant: no vit_tpu or jax module gets loaded."""
+    regularized, eager and fused_train; with --optimizer fused_adamw; and
+    with --tome, plain and regularized), and the classify CLI on its npz, on
+    a Weight_*.bin directory, on a .pth, on --images, with --golden, with
+    --ops quant, with --ops per_op --profile and with --tome on fused and
+    quant: no vit_tpu or jax module gets loaded."""
     from vit_tpu.io import weights as jweights
     from vit_tpu.io.torch_convert import save_pth
 
@@ -297,6 +298,8 @@ assert train.main([*run, "--steps", "1", "--batch", "2", "--ops", "fused_train",
 for ops in ("eager", "fused_train"):
     assert train.main([*run, "--steps", "1", "--batch", "2", "--ops", ops,
                        "--dropout", "0.1", "--drop-path", "0.1"]) == 0
+assert train.main([*run, "--steps", "2", "--batch", "2", "--ops", "fused_train",
+                   "--optimizer", "fused_adamw", "--schedule", "warmup_cosine"]) == 0
 assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2", "--ops", "fused",
                       "--output", d + "/r.txt"]) == 0
 assert classify.main([*run, "--weights", d + "/Network", "--allow-synth-weights",
@@ -308,6 +311,8 @@ assert classify.main([*run, "--weights", d + "/model.pth", "--images", d,
 for dtype in ("bfloat16", "float32"):
     assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2", "--ops", "quant",
                           "--dtype", dtype]) == 0
+assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2", "--ops", "per_op",
+                      "--profile"]) == 0
 tome = config.ViTConfig(image_size=64, patch_size=8, embed_dim=64, depth=2, num_heads=4,
                         num_classes=11, name="vit_tome_test")  # 65 tokens: merges happen
 config.CONFIGS[tome.name] = tome

@@ -254,7 +254,8 @@ def test_build_hash_covers_every_source():
         "out_residual_train.cu", "ln_mlp_residual_train.cu", "ln_mlp_out_residual_bwd_train.cu",
         "flash_attention.cu", "flash_attention_bwd.cu", "ln_mlp_residual_bwd.cu",
         "out_residual_bwd.cu", "ln_qkv_attn_q8.cu", "out_ln_mlp_residual_q8.cu",
-        "ln_mlp_residual_q8.cu", "ln_mlp_residual_bwd_train.cu", "out_residual_bwd_train.cu"}
+        "ln_mlp_residual_q8.cu", "ln_mlp_residual_bwd_train.cu", "out_residual_bwd_train.cu",
+        "scaled_dot_product_attention.cu", "mlp.cu", "adamw.cu"}
     assert {p.name for p in cuh} == {"common.cuh", "gemm.cuh", "epilogue.cuh", "attention.cuh",
                                       "ln_mlp_out_residual_bwd.cuh", "flash.cuh", "gemm_q8.cuh",
                                       "quant_rows.cuh", "mlp_q8.cuh"}

@@ -349,12 +349,15 @@ def _probs(logits):
 
 def test_quant_ops_table():
     from vit_tpu_torch.ops import fused
+    from vit_tpu_torch.ops.kernels.attention import attention
     from vit_tpu_torch.ops.kernels.layer_norm import layer_norm
+    from vit_tpu_torch.ops.kernels.mlp import mlp
 
     ops = get_ops("quant")
     assert ops is fused.QUANT_OPS and ops.name == "quant"
     assert ops.encoder_block is TQB.fused_encoder_block_q8 and ops.layer_norm is layer_norm
-    assert ops.attention is None and ops.mlp is None and ops.encoder_block_train is None
+    # the per-op K21/K22, as the JAX quant table has them (phase_report's slots)
+    assert ops.attention is attention and ops.mlp is mlp and ops.encoder_block_train is None
     with pytest.raises(ValueError, match="ROADMAP"):
         get_ops("qat")
 

@@ -17,12 +17,15 @@ Usage::
 
 ``--ops quant`` is W8A8 inference: the engine quantizes the QKV and MLP
 weights of the loaded fp32 tree to int8 and runs the int8 kernels.
-``--tome R`` merges R token pairs per layer (ToMe, ``models/tome.py``) on
-``fused``, ``quant`` or ``eager``.
+``--ops per_op`` runs one kernel per layer op (the JAX package's ``--ops
+pallas``): K3 LayerNorms, K21 attention, K22 MLP.  ``--tome R`` merges R
+token pairs per layer (ToMe, ``models/tome.py``) on ``fused``, ``quant`` or
+``eager``.  ``--profile`` prints the engine's per-phase timing after the
+results (``InferenceEngine.phase_report``).
 
-``--tp/--dp/--attn-rollout/--profile/--interpolate-pos-from`` of the JAX
-package's CLI wait for their slices of the port (their ``--tome`` refusals
-come with them).
+``--tp/--dp/--attn-rollout/--interpolate-pos-from`` of the JAX package's
+CLI wait for their slices of the port (their ``--tome`` refusals come with
+them).
 """
 
 from __future__ import annotations
@@ -64,9 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument(
-        "--ops", default="auto", choices=["auto", "eager", "fused", "quant"],
+        "--ops", default="auto", choices=["auto", "eager", "per_op", "fused", "quant"],
         help="compute path: fused (CUDA kernels), quant (W8A8 int8 CUDA kernels), "
-        "eager (plain PyTorch); auto = fused on cuda, eager on cpu",
+        "per_op (one CUDA kernel per layer op, the JAX package's --ops pallas: a "
+        "debugging surface), eager (plain PyTorch); auto = fused on cuda, eager on cpu",
     )
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--gelu", default="exact", choices=["exact", "tanh"])
@@ -88,6 +92,11 @@ def build_parser() -> argparse.ArgumentParser:
         "controlled approximation cost; needs --ops fused, quant or eager",
     )
     p.add_argument("--json", action="store_true", help="machine-readable summary")
+    p.add_argument(
+        "--profile", action="store_true",
+        help="print a per-phase timing breakdown (reference's per-encoder "
+        "printfs, ViT_opencl.c:745-779, done as an aggregate report)",
+    )
     return p
 
 
@@ -109,6 +118,16 @@ def main(argv=None) -> int:
         return 2
     if args.tome and ops not in ("fused", "quant", "eager"):
         print("error: --tome (token merging) needs --ops fused, quant, or eager",
+              file=sys.stderr)
+        return 2
+    if args.tome and args.profile:
+        print("error: --profile probes the full-token model, which would diverge from "
+              "--tome's merged predictions — run it without --tome", file=sys.stderr)
+        return 2
+    if ops == "quant" and args.profile:
+        # knowable now: the probe needs fp weights (the engine raises the
+        # same incompatibility, but only after load and inference)
+        print("error: --profile needs fp weights; use --ops eager/per_op/fused",
               file=sys.stderr)
         return 2
 
@@ -175,6 +194,9 @@ def main(argv=None) -> int:
             print(f"MISMATCH {m}", file=sys.stderr)
         n_lines = len(want) if args.compare_count is None else args.compare_count
         print(f"comparator: {n_errors} error(s) over {n_lines} line(s)")
+
+    if args.profile:
+        print(engine.phase_report(images))
 
     print(
         f"model: {cfg.name}  images: {len(pred)}  ops: {ops}  dtype: {args.dtype}  "

@@ -60,6 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="bf16 compute with fp32 master weights and optimizer state",
     )
     p.add_argument(
+        "--optimizer", default="adamw", choices=["adamw", "fused_adamw"],
+        help="adamw (torch.optim.AdamW) or fused_adamw (the in-place fused AdamW "
+        "kernel, one launch per leaf; requires --ops fused_train)",
+    )
+    p.add_argument(
         "--grad-clip", type=float, default=0.0, metavar="NORM",
         help="clip gradients to this global L2 norm before the update",
     )

@@ -36,7 +36,9 @@ class TrainSetup:
     step: Callable
     params: dict
     optimizer: torch.optim.Optimizer
-    lr_at: Optional[Callable[[int], float]]  # step -> lr, None when constant
+    # step -> lr for the loop to set, None when constant or when the
+    # optimizer evaluates its own schedule (FusedAdamW)
+    lr_at: Optional[Callable[[int], float]]
     images: np.ndarray
     labels: np.ndarray
     n_static: int  # len(images) after ragged-batch truncation
@@ -208,10 +210,24 @@ def prepare(args) -> TrainSetup:
     params = trainer.as_trainable(params, device, torch.float32)
 
     lr_at = warmup_cosine(args.lr, args.steps) if args.schedule == "warmup_cosine" else None
-    optimizer = torch.optim.AdamW(
-        adamw_param_groups(params, args.weight_decay, args.wd_exempt_norm_bias),
-        lr=lr_at(0) if lr_at else args.lr,
-    )
+    if args.optimizer == "fused_adamw":
+        # the JAX package's refusals, in its order and words
+        if args.wd_exempt_norm_bias:
+            raise SetupError("error: --wd-exempt-norm-bias requires --optimizer adamw")
+        if args.grad_clip:
+            raise SetupError("error: --grad-clip requires --optimizer adamw")
+        if ops_name != "fused_train":
+            raise SetupError("error: --optimizer fused_adamw requires --ops fused_train and tp=1")
+        # K20 on every leaf; the optimizer evaluates the schedule itself, at
+        # its 1-based count, so the loop leaves its lr alone
+        optimizer = trainer.FusedAdamW(list(trainer.leaves(params)), lr=lr_at or args.lr,
+                                       weight_decay=args.weight_decay)
+        lr_at = None
+    else:
+        optimizer = torch.optim.AdamW(
+            adamw_param_groups(params, args.weight_decay, args.wd_exempt_norm_bias),
+            lr=lr_at(0) if lr_at else args.lr,
+        )
     if args.wd_exempt_norm_bias:
         print("weight decay: GEMM kernels only (norm/bias/embeddings exempt)")
     if args.grad_clip:

@@ -1,10 +1,14 @@
-// Tile helpers shared by the attention forward (K1, K15) and backward (K6):
-// 64 x 64 score tiles from two fp32 shared-memory row tiles, and
-// half-warp reductions over a query row; and the forward stage itself
-// (attention_kernel, launch_attention_any), which K1 and its int8 twin K15
-// both instantiate from this one definition, with token merging's two hooks:
-// the per-key log-size bias (attention_bias_kernel; fused_block.py:183-184)
-// and the mean key over heads (kmean_kernel; fused_block.py:219-226).
+// Tile helpers shared by the attention forward (K1, K15, K21) and backward
+// (K6): 64 x 64 score tiles from two fp32 shared-memory row tiles, and
+// half-warp reductions over a query row; and the forward body itself
+// (attention_tile), which reads q, k and v and writes the context through
+// an io functor: PackedIo over the packed (B*T, 3D) QKV, which K1 and its
+// int8 twin K15 both instantiate (attention_kernel, launch_attention_any)
+// with token merging's two hooks — the per-key log-size bias
+// (attention_bias_kernel; fused_block.py:183-184) and the mean key over
+// heads (kmean_kernel; fused_block.py:219-226) — and StridedIo over three
+// (batch, head, token, dh) views and an output view, which K21
+// (scaled_dot_product_attention.cu) instantiates.
 //
 // The head width DH is a template argument, 16 x kDj: 16, 32, 64, 80 (ViT-H,
 // vit_h_14) and 128.  The tiles' loops run over DH columns with odd fp32
@@ -18,6 +22,56 @@
 namespace vt {
 
 constexpr int kAtQ = 64, kAtK = 64, kAtThreads = 256;
+
+// element strides of a (batch, head, token, head_dim) view whose last axis
+// is contiguous: the packed (B*T, 3D) QKV, the (B*T, D) context, or a
+// contiguous (B, H, T, dh) tensor
+struct View4 {
+  long long b, h, t;
+  __device__ __forceinline__ long long at(int bi, int hi) const {
+    return (long long)bi * b + (long long)hi * h;
+  }
+};
+
+// Where one (image, head)'s attention reads element c of token t's q, k
+// and v rows, and where it writes token t's context row.
+
+// the packed (B*T, 3D) QKV in (head, {q,k,v}, dh) column order and the
+// (B*T, D) context (K1, K15)
+template <typename T, int DH>
+struct PackedIo {
+  const T* base;  // token 0's q of this (image, head)
+  int ld;         // packed row pitch (3D)
+  T* ctx;
+  int b, h, seq, dctx;
+  __device__ __forceinline__ T q(int t, int c) const { return base[(size_t)t * ld + c]; }
+  __device__ __forceinline__ T k(int t, int c) const { return base[(size_t)t * ld + DH + c]; }
+  __device__ __forceinline__ T v(int t, int c) const { return base[(size_t)t * ld + 2 * DH + c]; }
+  __device__ __forceinline__ T* out(int t) const {
+    return ctx + ((size_t)b * seq + t) * dctx + (size_t)h * DH;
+  }
+};
+
+// q, k, v and the output as four strided (batch, head, token, dh) views,
+// each at this (image, head) with its own token stride (K21)
+template <typename T>
+struct StridedIo {
+  const T *qb, *kb, *vb;
+  T* ob;
+  long long qt, kt, vt, ot;
+  __device__ __forceinline__ T q(int t, int c) const { return qb[t * qt + c]; }
+  __device__ __forceinline__ T k(int t, int c) const { return kb[t * kt + c]; }
+  __device__ __forceinline__ T v(int t, int c) const { return vb[t * vt + c]; }
+  __device__ __forceinline__ T* out(int t) const { return ob + t * ot; }
+};
+
+// the key rows alone, for the backward's recompute of the softmax (K6)
+template <typename T, int DH>
+struct PackedKeys {
+  const T* base;
+  int ld;
+  __device__ __forceinline__ T k(int t, int c) const { return base[(size_t)t * ld + DH + c]; }
+};
 
 // s[i][j] = sum_d A[ty + 16i][d] * B[tx + 16j][d] over rows of pitch DH + 1.
 // Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16i of A and
@@ -73,15 +127,14 @@ __device__ __forceinline__ void add_key_bias(const float* __restrict__ bias, int
 }
 
 // Running row max m and sum of exp(s - m) over all `seq` keys for the
-// query rows held in Qs (pass 1 of K1, and K6's recompute): key tiles of
-// the packed (head, {q,k,v}, dh) columns at `base` (pitch ld) stream
-// through Ks; keys past seq are excluded.  kBias adds the image's fp32
-// log-size row `bias` (seq,) to the scores before the row max.
-template <typename T, int DH, bool kBias = false>
-__device__ __forceinline__ void softmax_stats(const T* __restrict__ base, int ld, int seq,
-                                              const float* Qs, float* Ks, int tid, int tx,
-                                              int ty, float m[4], float l[4],
-                                              const float* __restrict__ bias = nullptr) {
+// query rows held in Qs (pass 1 of the forward, and K6's recompute): key
+// tiles read through io.k stream through Ks; keys past seq are excluded.
+// kBias adds the image's fp32 log-size row `bias` (seq,) to the scores
+// before the row max.
+template <typename T, int DH, bool kBias, class Io>
+__device__ __forceinline__ void softmax_stats_io(const Io& io, int seq, const float* Qs,
+                                                 float* Ks, int tid, int tx, int ty, float m[4],
+                                                 float l[4], const float* __restrict__ bias) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
@@ -92,7 +145,7 @@ __device__ __forceinline__ void softmax_stats(const T* __restrict__ base, int ld
     __syncthreads();  // Qs written / previous tile consumed
     for (int i = tid; i < kAtK * DH; i += kAtThreads) {
       const int r = i / DH, c = i % DH, t = k0 + r;
-      Ks[r * (DH + 1) + c] = t < seq ? to_f(base[(size_t)t * ld + DH + c]) : 0.f;
+      Ks[r * (DH + 1) + c] = t < seq ? to_f(io.k(t, c)) : 0.f;
     }
     __syncthreads();
     score_tile<DH>(Qs, Ks, tx, ty, s);
@@ -114,7 +167,18 @@ __device__ __forceinline__ void softmax_stats(const T* __restrict__ base, int ld
   }
 }
 
-// ---- the attention forward stage of K1 and K15: packed QKV -> context.
+// the same over the key columns of the packed (head, {q,k,v}, dh) QKV at
+// `base` (pitch ld)
+template <typename T, int DH, bool kBias = false>
+__device__ __forceinline__ void softmax_stats(const T* __restrict__ base, int ld, int seq,
+                                              const float* Qs, float* Ks, int tid, int tx,
+                                              int ty, float m[4], float l[4],
+                                              const float* __restrict__ bias = nullptr) {
+  softmax_stats_io<T, DH, kBias>(PackedKeys<T, DH>{base, ld}, seq, Qs, Ks, tid, tx, ty, m, l,
+                                 bias);
+}
+
+// ---- the attention forward: q, k, v -> context (K1, K15, K21).
 
 template <int DH>
 constexpr size_t attention_smem_bytes() {
@@ -123,34 +187,32 @@ constexpr size_t attention_smem_bytes() {
          (kAtQ * (DH + 1) + kAtK * (DH + 1) + kAtK * DH + kAtQ * (kAtK + 1));
 }
 
-// one block's work; kBias adds log_size[b, key] to the scores
-template <typename T, int DH, bool kBias>
-__device__ __forceinline__ void attention_block(const T* __restrict__ qkv, T* __restrict__ ctx,
-                                                const float* __restrict__ log_size, int seq,
-                                                int heads, float inv_sqrt_dh) {
+// one block's work: the 64 query rows of tile blockIdx.x of one (image,
+// head), read and written through `io`; kBias adds the image's log-size row
+// `bias` (seq,) to the scores
+template <typename T, int DH, bool kBias, class Io>
+__device__ __forceinline__ void attention_tile(const Io& io, const float* __restrict__ bias,
+                                               int seq, float inv_sqrt_dh) {
   extern __shared__ float smem[];
   float* Qs = smem;                       // [kAtQ][DH + 1]
   float* Ks = Qs + kAtQ * (DH + 1);       // [kAtK][DH + 1]
   float* Vs = Ks + kAtK * (DH + 1);       // [kAtK][DH]
   float* Ps = Vs + kAtK * DH;             // [kAtQ][kAtK + 1]
 
-  const int q0 = blockIdx.x * kAtQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kAtQ;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int ld = 3 * heads * DH;  // packed row pitch (3D)
-  const T* base = qkv + (size_t)b * seq * ld + (size_t)h * 3 * DH;
-  const float* bias = kBias ? log_size + (size_t)b * seq : nullptr;
 
   // q * (1/sqrt(dh)) with the scale and the product rounded to the dtype,
   // as the TPU kernel scales q in its working dtype
   const float scale = round_to<T>(inv_sqrt_dh);
   for (int i = tid; i < kAtQ * DH; i += kAtThreads) {
     const int r = i / DH, c = i % DH, t = q0 + r;
-    Qs[r * (DH + 1) + c] = t < seq ? round_to<T>(to_f(base[(size_t)t * ld + c]) * scale) : 0.f;
+    Qs[r * (DH + 1) + c] = t < seq ? round_to<T>(to_f(io.q(t, c)) * scale) : 0.f;
   }
 
   // pass 1: running row max m and sum of exp(s - m) over all keys
   float m[4], l[4];
-  softmax_stats<T, DH, kBias>(base, ld, seq, Qs, Ks, tid, tx, ty, m, l, bias);
+  softmax_stats_io<T, DH, kBias>(io, seq, Qs, Ks, tid, tx, ty, m, l, bias);
   float s[4][4];
   float inv[4];
 #pragma unroll
@@ -168,8 +230,8 @@ __device__ __forceinline__ void attention_block(const T* __restrict__ qkv, T* __
     for (int i = tid; i < kAtK * DH; i += kAtThreads) {
       const int r = i / DH, c = i % DH, t = k0 + r;
       const bool ok = t < seq;
-      Ks[r * (DH + 1) + c] = ok ? to_f(base[(size_t)t * ld + DH + c]) : 0.f;
-      Vs[r * DH + c] = ok ? to_f(base[(size_t)t * ld + 2 * DH + c]) : 0.f;
+      Ks[r * (DH + 1) + c] = ok ? to_f(io.k(t, c)) : 0.f;
+      Vs[r * DH + c] = ok ? to_f(io.v(t, c)) : 0.f;
     }
     __syncthreads();
     score_tile<DH>(Qs, Ks, tx, ty, s);
@@ -197,15 +259,28 @@ __device__ __forceinline__ void attention_block(const T* __restrict__ qkv, T* __
     }
   }
 
-  const int dctx = heads * DH;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= seq) continue;
-    T* out = ctx + ((size_t)b * seq + t) * dctx + (size_t)h * DH;
+    T* out = io.out(t);
 #pragma unroll
     for (int j = 0; j < kDj; ++j) out[tx + 16 * j] = from_f<T>(o[i][j]);
   }
+}
+
+// K1/K15's block: (image, head) = (blockIdx.z, blockIdx.y) of the packed
+// QKV; kBias adds log_size[b, key] to the scores
+template <typename T, int DH, bool kBias>
+__device__ __forceinline__ void attention_block(const T* __restrict__ qkv, T* __restrict__ ctx,
+                                                const float* __restrict__ log_size, int seq,
+                                                int heads, float inv_sqrt_dh) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int ld = 3 * heads * DH;  // packed row pitch (3D)
+  const PackedIo<T, DH> io{qkv + (size_t)b * seq * ld + (size_t)h * 3 * DH, ld, ctx, b, h, seq,
+                           heads * DH};
+  attention_tile<T, DH, kBias>(io, kBias ? log_size + (size_t)b * seq : nullptr, seq,
+                               inv_sqrt_dh);
 }
 
 template <typename T, int DH>

@@ -29,16 +29,6 @@ constexpr int kFl = 64;          // query and key rows per tile
 constexpr int kFlThreads = 256;  // 8 warps
 constexpr int kFlWarps = kFlThreads / 32;
 
-// element strides of a (batch, head, token, head_dim) view whose last axis
-// is contiguous: the packed (B*T, 3D) QKV, the (B*T, D) context, or a
-// contiguous (B, H, T, dh) tensor
-struct View4 {
-  long long b, h, t;
-  __device__ __forceinline__ long long at(int bi, int hi) const {
-    return (long long)bi * b + (long long)hi * h;
-  }
-};
-
 template <typename T>
 struct FlTile {
   static constexpr bool kBf16 = std::is_same<T, bf16>::value;

@@ -5,7 +5,8 @@ build and binding: ``_build.py``."""
 import importlib
 
 # the module of a wrapper whose name is not its module's
-_MODULE_OF = {"flash_attention_fwd": "flash_attention", "ln_qkv_q8": "ln_qkv_attn_q8"}
+_MODULE_OF = {"flash_attention_fwd": "flash_attention", "ln_qkv_q8": "ln_qkv_attn_q8",
+              "scaled_dot_product_attention": "attention", "adamw_update": "adamw"}
 
 
 def wrapper(name: str):

@@ -112,6 +112,14 @@ SIGNATURES = {
     "vt_ln_mlp_residual_q8": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _I, _P],
     # a, sa, b, sb, out, m, n, k, device, stream
     "vt_gemm_q8_dequant": [_P] * 5 + [_I] * 4 + [_P],
+    # q, <strides>, k, <strides>, v, <strides>, out, <strides>, batch, heads,
+    # seq, head_dim, dtype, device, stream
+    "vt_scaled_dot_product_attention": ([_P] + _L3) * 4 + [_I] * 6 + [_P],
+    # x, w1, b1, w2, b2, g, out, rows, d, f, gelu_variant, dtype, device, stream
+    "vt_mlp": [_P] * 7 + [_I] * 6 + [_P],
+    # g, p, m, v, n, lr, b1, 1 - b1, b2, 1 - b2, eps, weight_decay, bc1, bc2,
+    # p dtype, g dtype, device, stream
+    "vt_adamw": [_P] * 4 + [ctypes.c_longlong] + [_F] * 9 + [_I] * 3 + [_P],
 }
 
 # workspace size queries (bytes) of the kernels that carve their scratch

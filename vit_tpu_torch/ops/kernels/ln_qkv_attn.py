@@ -43,9 +43,7 @@ import torch
 
 from vit_tpu_torch.ops.fused_block import _ln
 from vit_tpu_torch.ops.kernels import _build
-
-# head dims the attention stage is instantiated for (csrc/attention.cuh)
-HEAD_DIMS = (16, 32, 64, 80, 128)
+from vit_tpu_torch.ops.kernels.attention import HEAD_DIMS, scaled_dot_product_attention_plain
 
 
 def packed_attention_plain(qkv: torch.Tensor, num_heads: int, seq_len: int,
@@ -54,21 +52,12 @@ def packed_attention_plain(qkv: torch.Tensor, num_heads: int, seq_len: int,
     dtype -> context (B*T, D), fp32 compute with casts at the TPU kernel's
     rounding points (``_head_context``); ``log_size`` (B, T) fp32 is added to
     the key logits before the row max."""
-    dtype = qkv.dtype
     rows, d3 = qkv.shape
     dh = d3 // (3 * num_heads)
     b = rows // seq_len
     qkv = qkv.reshape(b, seq_len, num_heads, 3, dh).permute(3, 0, 2, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, T, dh)
-    scale = torch.tensor(1.0 / dh ** 0.5, dtype=dtype)
-    q = (q.float() * scale.float()).to(dtype)
-    s = q.float() @ k.float().transpose(-1, -2)
-    if log_size is not None:
-        s = s + log_size.float().reshape(b, 1, 1, seq_len)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    inv = 1.0 / p.sum(dim=-1, keepdim=True)
-    p = (p * inv).to(dtype)
-    ctx = (p.float() @ v.float()).to(dtype)  # (B, H, T, dh)
+    # (B, H, T, dh) each; K21's twin, the same rounding points
+    ctx = scaled_dot_product_attention_plain(qkv[0], qkv[1], qkv[2], log_size)
     return ctx.permute(0, 2, 1, 3).reshape(rows, num_heads * dh)
 
 

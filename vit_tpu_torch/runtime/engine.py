@@ -7,8 +7,10 @@ shapes, and so their timings, stable across request sizes).
 
 ``device="cuda"`` needs a card and raises without one; it never runs on
 the CPU instead.  ``tome_r`` classifies through token merging
-(``models/tome.py``) on ``fused``, ``quant`` or ``eager``.  Meshes
-(``mesh``) wait for their slice of the port.
+(``models/tome.py``) on ``fused``, ``quant`` or ``eager``.
+``phase_report`` times the forward phase by phase through the op table's
+per-op ``attention``/``mlp``.  Meshes (``mesh``) wait for their slice of
+the port.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ class InferenceEngine:
         and softmax are always fp32.
       ops: 'fused' (CUDA kernels; their plain twins on the CPU), 'quant'
         (the W8A8 kernels: the QKV and MLP weights are quantized to int8
-        here, from the fp32 tree) or 'eager'.
+        here, from the fp32 tree), 'per_op' (one kernel per layer op, the
+        JAX package's 'pallas') or 'eager'.
       device: 'cuda', 'cuda:N' or 'cpu'.
       batch_pad: round batch sizes up to a multiple of this.
       gelu_variant: 'exact' (erf) or 'tanh'.
@@ -152,6 +155,56 @@ class InferenceEngine:
         probs = self.probabilities(images).cpu().numpy()
         labels = probs.argmax(-1)
         return labels, probs[np.arange(len(labels)), labels]
+
+    @torch.inference_mode()
+    def phase_report(self, images, iters: int = 3) -> str:
+        """Per-phase timing breakdown (patch embed, each encoder phase,
+        head) over ``iters`` forwards, as the JAX engine's: the unfused op
+        path — the reference LayerNorm, the table's per-op ``attention`` and
+        ``mlp`` (K21 and K22 on ``per_op`` and ``fused``) — so the phases are
+        separable, each ending in a device synchronize."""
+        from vit_tpu_torch.runtime.profiler import PhaseTimer
+
+        R = reference
+        if self._ops.name == "quant":
+            raise NotImplementedError(
+                "phase_report needs separable fp ops; use ops='eager'/'per_op'/'fused'"
+            )
+        timer = PhaseTimer()
+        cfg = self.cfg
+        x, _ = self._stage(images)
+        p = self.params
+        eps = cfg.layernorm_eps
+
+        def sync(v):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return v
+
+        for _ in range(iters):
+            with timer.phase("patch_embed+pos"):
+                h = sync(R.add_cls_and_pos(
+                    self._ops.patch_embed(x, p["patch_embed"]["kernel"],
+                                          p["patch_embed"]["bias"], cfg.patch_size),
+                    vit.prefix_tokens(p), p["pos_embed"],
+                ))
+            for blk in vit.layers(p["blocks"])[: cfg.depth]:
+                with timer.phase("layer_norm_1"):
+                    ln1 = sync(R.layer_norm(h, blk["ln1_scale"], blk["ln1_bias"], eps))
+                with timer.phase("attention"):
+                    a = sync(self._ops.attention(ln1, blk["wqkv"], blk["bqkv"], blk["wo"],
+                                                 blk["bo"], cfg.num_heads))
+                h = h + a
+                with timer.phase("layer_norm_2"):
+                    ln2 = sync(R.layer_norm(h, blk["ln2_scale"], blk["ln2_bias"], eps))
+                with timer.phase("mlp"):
+                    m = sync(self._ops.mlp(ln2, blk["w1"], blk["b1"], blk["w2"], blk["b2"],
+                                           gelu_variant=self._gelu_variant))
+                h = h + m
+            with timer.phase("final_ln+head"):
+                hn = R.layer_norm(h, p["ln_final"]["scale"], p["ln_final"]["bias"], eps)
+                sync(vit.apply_head(hn, p))
+        return timer.report()
 
     # -- internals --------------------------------------------------------
 

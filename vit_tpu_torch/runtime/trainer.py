@@ -5,7 +5,9 @@ mesh, distillation, MAE and EMA paths wait for their slices of the port).
 Params are a dict of leaf tensors with ``requires_grad``; a
 ``torch.optim`` optimizer over those leaves takes the place of an optax
 transformation and its state, and updates them in place — the
-counterpart of ``jax.jit(..., donate_argnums=(0, 1))``.  The step runs
+counterpart of ``jax.jit(..., donate_argnums=(0, 1))``.  :class:`FusedAdamW`
+is the fused AdamW step (K20, one kernel launch per leaf), the
+counterpart of ``make_train_step_fused_adamw``'s update.  The step runs
 eagerly: no ``torch.compile``.
 """
 
@@ -150,6 +152,86 @@ def make_train_step(
             torch.nn.utils.clip_grad_norm_(list(leaves(params)), grad_clip)
         optimizer.step()
         return loss
+
+    return train_step
+
+
+class FusedAdamW(torch.optim.Optimizer):
+    """AdamW through the fused in-place kernel (K20,
+    ``ops/kernels/adamw.adamw_update``), with the JAX package's fused state:
+    one step count for every leaf (``count``) and fp32 moments ``mu``/``nu``
+    per leaf.  ``lr`` is a number or a schedule ``count -> lr`` evaluated at
+    count + 1, the 1-based step, as ``make_train_step_fused_adamw`` does in
+    the JAX package (optax's adamw evaluates it at count).  Weight decay
+    applies to every leaf of a group (no mask).  A leaf without a gradient
+    is skipped, as torch's optimizers skip it."""
+
+    def __init__(self, params, lr=1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0, count: int = 0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+        self.count = int(count)
+
+    def _moments(self, p: torch.Tensor):
+        """(mu, nu) of leaf ``p``, fp32 zeros at first use."""
+        st = self.state[p]
+        if not st:
+            st["mu"] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            st["nu"] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return st["mu"], st["nu"]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        from vit_tpu_torch.ops.kernels.adamw import adamw_update
+
+        loss = None if closure is None else closure()
+        t = self.count + 1
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            mu, nu = zip(*map(self._moments, ps)) if ps else ((), ())
+            lr = group["lr"](t) if callable(group["lr"]) else group["lr"]
+            adamw_update([p.grad for p in ps], ps, list(mu), list(nu), t, lr, group["b1"],
+                         group["b2"], group["eps"], group["weight_decay"])
+        self.count = t
+        return loss
+
+
+def init_fused_adamw_state(params):
+    """(count, mu, nu) state for :func:`make_train_step_fused_adamw`: count
+    0 and fp32 zero moments shaped like ``params`` (a nested dict)."""
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict)
+                else torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+                for k, v in tree.items()}
+
+    return 0, zeros(params), zeros(params)
+
+
+def make_train_step_fused_adamw(
+    cfg: ViTConfig,
+    lr,
+    ops: OpsImpl = EAGER_OPS,
+    remat: bool = False,
+    compute_dtype=None,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+):
+    """Train step with the fused in-place AdamW (:class:`FusedAdamW`, K20)
+    in place of an optimizer object, as the JAX function's: ``(params,
+    opt_state, images, labels) -> (params, opt_state, loss)`` with
+    ``opt_state = (count, mu, nu)`` from :func:`init_fused_adamw_state`,
+    built on :func:`make_train_step`.  params, mu and nu are updated in
+    place.  ``lr`` is a number or a schedule evaluated at count + 1."""
+
+    def train_step(params, opt_state, images, labels):
+        count, mu, nu = opt_state
+        opt = FusedAdamW(list(leaves(params)), lr, b1, b2, eps, weight_decay, count)
+        for p, m, v in zip(leaves(params), leaves(mu), leaves(nu)):
+            opt.state[p].update(mu=m, nu=v)
+        step = make_train_step(cfg, opt, ops, remat, compute_dtype)
+        loss = step(params, images, labels)
+        return params, (opt.count, mu, nu), loss
 
     return train_step
 
