@@ -149,9 +149,35 @@ Phases (a failed phase raises; nothing is caught):
      falls; then the train step's img/s with ``fused_adamw`` against
      ``adamw``, in turns.
 
+ 36. tensor parallelism's kernels at rank 0's shard of B/16 for tp = 2 and 4
+     (F/tp hidden columns, 12/tp heads), batch 100 and 3, bf16 and fp32,
+     each against its twin and timed: K5's partial form, K1 and K15 over
+     the shard's local heads, K18a ln_fc1_gelu_q8 and K18b fc2_q8_partial
+     (by the W8A8 stage checks; K18b's codes and int32 sums bit for bit);
+     then K18 composed over 2 and 4 shards in one process (K18a per shard,
+     the row maxima's maximum, K18b per shard, the int32 sum, the dequant)
+     against K17 on the same x: mid, the row scales, the codes and the
+     int32 sums bit for bit, the output within one rounding;
+ 37. the kernel study: K19 ln_qkv_attn_q8a with int8 p·v and with p·v in
+     the dtype, beside K15, at batch 100 and 3 bf16, by the stage checks
+     (the q, k, v and p codes within 1 on the kernel's own packed QKV and
+     scores; the context against the twin's on the kernel's codes), timed;
+     then ``python3 -m vit_tpu_torch.cli.bench_kernels --batch 100`` over
+     its eight kernels (12 launches per stack of layers, 13 stacks each);
+ 38. two ranks sharing the card over gloo, started by ``torchrun`` with a
+     time limit (``--rank-worker``): the classify CLI with ``--ops quant
+     --tp 2`` (12 K15, 12 K18a, 12 K18b, 1 K3 per rank), ``--ops fused --tp
+     2`` (12 K1, 12 K5 partial, 1 K3) and ``--ops fused --dp 2`` (12 K1 and
+     12 K2 on 50 images each), counts set to 0 just before and read just
+     after on every rank; their result lines against the single-card CLI's
+     by the comparator rule; fp32 ``fused`` tp 2 and dp 2 logits within
+     1e-4 of the single card's; the time per forward of two ranks sharing
+     one card; the tensor-parallel forward @512 batch 16 (12 K13, 12 K5
+     partial, 1 K3 per rank).
+
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
 regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
-per_op 31-33, adamw 34-35); without it every phase runs.
+per_op 31-33, adamw 34-35, parallel 36-38); without it every phase runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -269,6 +295,19 @@ ADAMW_KERNELS = {
                      "vit_tpu/ops/pallas/adamw_kernel.py:53"),
 }
 ADAMW_STEPS = 3  # the kernel-vs-twin steps of phase 34
+TP_KERNELS = {
+    "ln_fc1_gelu_q8": ("K18a", "vit_tpu_torch/csrc/ln_fc1_gelu_q8.cu",
+                       "vit_tpu/ops/pallas/quant_kernels.py:394"),
+    "fc2_q8_partial": ("K18b", "vit_tpu_torch/csrc/fc2_q8_partial.cu",
+                       "vit_tpu/ops/pallas/quant_kernels.py:440"),
+}
+STUDY_KERNELS = {
+    "ln_qkv_attn_q8a": ("K19", "vit_tpu_torch/csrc/ln_qkv_attn_q8a.cu",
+                        "vit_tpu/ops/pallas/quant_kernels.py:357"),
+}
+TP_SIZES = (2, 4)  # the shard shapes of phase 36
+RANKS = 2  # phase 38's ranks, sharing the one card over gloo
+RANKS_TIMEOUT = 420  # s: a rank that hangs fails phase 38
 B16_LEAVES = (20, 86_567_656)  # ViT-B/16's params: leaves, elements
 TRAIN_LR = 1e-4  # the fused AdamW train CLI run's rate, as the ToMe runs'
 
@@ -441,7 +480,7 @@ def phase_kernels(cases: dict, labels: dict, summary_batch: int) -> dict:
                 f"(at most {worst:.3g} of its tol) kernel {ms:.6g} ms, plain {plain_ms:.6g} ms, "
                 f"library {'none' if lib_ms is None else f'{lib_ms:.6g} ms'}, bound "
                 f"{bound_ms:.6g} ms ({bound_by})")
-            if dtype == torch.bfloat16 and c["batch"] == summary_batch:
+            if c.get("summary", dtype == torch.bfloat16 and c["batch"] == summary_batch):
                 summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
             del got, want
@@ -827,7 +866,7 @@ def all_wrappers() -> dict:
 
     return {name: wrapper(name) for name in (*KERNELS, *TRAIN_KERNELS, *REG_KERNELS, *LONG_KERNELS,
                                              *QUANT_KERNELS, *TOME_KERNELS, *PER_OP_KERNELS,
-                                             *ADAMW_KERNELS)}
+                                             *ADAMW_KERNELS, *TP_KERNELS, *STUDY_KERNELS)}
 
 
 def _reset_counts() -> dict:
@@ -840,8 +879,12 @@ def _reset_counts() -> dict:
 
 def _expect_counts(wrappers: dict, want: dict, what: str) -> dict:
     """Read every count; fail unless ``want`` (the rest 0)."""
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    expected = {name: 0 for name in wrappers}
+    return _expect_counts_of({name: fn.launches for name, fn in wrappers.items()}, want, what)
+
+
+def _expect_counts_of(launches: dict, want: dict, what: str) -> dict:
+    """Fail unless the counts ``launches`` are ``want`` (the rest 0)."""
+    expected = {name: 0 for name in launches}
     expected.update(want)
     log(f"{what}: launches {launches}")
     if launches != expected:
@@ -1323,7 +1366,7 @@ def phase_quant_kernels(cases: dict, labels: dict = QUANT_KERNELS) -> dict:
                 + ", ".join(f"{k} {v:.3g}" for k, v in report.items())
                 + f"; vs the whole twin max|d|={err:.6g}; kernel {ms:.6g} ms, plain "
                 f"{plain_ms:.6g} ms, library none, bound {bound_ms:.6g} ms ({bound_by})")
-            if dtype == torch.bfloat16 and c["batch"] == kcases[0]["batch"]:
+            if c.get("summary", dtype == torch.bfloat16 and c["batch"] == kcases[0]["batch"]):
                 summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     return summary
@@ -1943,7 +1986,432 @@ def phase_adamw_train_cli(workdir: str) -> dict:
     return launches
 
 
-PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw")
+# -- tensor/data parallelism (K5 partial, K18) and the kernel study (K19) ------
+
+
+def tp_kernel_cases(dev: torch.device):
+    """-> (K5-partial and local-head K1 cases for ``phase_kernels``, K18a,
+    K18b and local-head K15 cases for ``phase_quant_kernels``, labels) for
+    phase 36: rank 0's shard at tp = 2 and 4 (F/tp hidden columns, heads/tp
+    heads) of B/16 at batch 100 and 3, bf16 and fp32.  K18b's row scales
+    come from the whole hidden row, as the tensor-parallel MLP hands them."""
+    from vit_tpu_torch.eval import quant_stages as qs
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import fc2_q8_partial as k18b
+    from vit_tpu_torch.ops.kernels import ln_fc1_gelu_q8 as k18a
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_q8 as k15
+
+    d, h, f, t = B16["d"], B16["heads"], B16["f"], B16["t"]
+    rn = _rand(dev, 36)
+    labels = {**TP_KERNELS, **{f"ln_mlp_residual partial tp{tp}": (f"K5 partial tp{tp}",)
+                               for tp in TP_SIZES},
+              **{f"ln_qkv_attn {h // tp} heads": (f"K1 tp{tp}",) for tp in TP_SIZES},
+              **{f"ln_qkv_attn_q8 {h // tp} heads": (f"K15 tp{tp}",) for tp in TP_SIZES}}
+    fp_cases = {name: [] for name in labels if name.startswith("ln_mlp") or
+                name.startswith("ln_qkv_attn ")}
+    q8_cases = {name: [] for name in labels if name not in fp_cases}
+
+    def k5_partial(x, s, b, w1, b1, w2, eps, variant):
+        return k5.ln_mlp_residual(x, s, b, w1, b1, w2, None, eps, variant, partial=True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        s2, b2n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+        w1, bb1 = rn(d, f, scale=d ** -0.5, dtype=dtype), rn(f, scale=0.1, dtype=dtype)
+        w2 = rn(f, d, scale=f ** -0.5, dtype=dtype)
+        (w1q, w1s), (w2q, _) = (quant.quantize_weight(rn(d, f, scale=d ** -0.5)),
+                                quant.quantize_weight(rn(f, d, scale=f ** -0.5)))
+        wqkv, bqkv = rn(d, 3 * d, scale=d ** -0.5, dtype=dtype), rn(3 * d, scale=0.1, dtype=dtype)
+        wq, ws = quant.quantize_weight(rn(d, 3 * d, scale=d ** -0.5))
+        fast = dtype == torch.bfloat16  # the tensor-parallel MLP's erf form
+        for b in BATCHES:
+            rows = b * t
+            x = rn(rows, d, scale=2.0, dtype=dtype)
+            whole = k18a.ln_fc1_gelu_q8_plain(x, s2, b2n, w1q, w1s, bb1, 1e-6, "exact", fast)
+            mmax = whole.abs().amax(-1, keepdim=True)
+            ms = torch.clamp(mmax / torch.full_like(mmax, 127.0), min=1e-12)
+            for tp in TP_SIZES:
+                fl, c3 = f // tp, slice(0, 3 * d // tp)
+                c = slice(0, fl)
+                tag = f"{_tag(dtype, b, rows)} tp {tp} (rank 0: F/tp {fl}, {h // tp} heads)"
+                on_path = dtype == torch.bfloat16 and b == BATCHES[0] and tp == 2
+                a5 = (x, s2, b2n, w1[:, c].contiguous(), bb1[c].contiguous(), w2[c].contiguous(),
+                      1e-6, "exact")
+                fp_cases[f"ln_mlp_residual partial tp{tp}"].append(dict(
+                    case(tag, dtype, b, k5_partial, k5.ln_mlp_partial_plain, a5,
+                         4 * rows * d * fl), summary=False))
+                a1 = (x, s2, b2n, wqkv[:, c3].contiguous(), bqkv[c3].contiguous(), h // tp, t,
+                      1e-6)
+                fp_cases[f"ln_qkv_attn {h // tp} heads"].append(dict(
+                    case(tag, dtype, b, k1.ln_qkv_attn, k1.ln_qkv_attn_plain, a1,
+                         2 * rows * d * 3 * d // tp + 4 * b * t * t * d // tp), summary=False))
+                a18a = (x, s2, b2n, w1q[:, c].contiguous(), w1s[c].contiguous(),
+                        bb1[c].contiguous(), 1e-6, "exact", fast)
+                q8_cases["ln_fc1_gelu_q8"].append(dict(
+                    tag=tag, dtype=dtype, batch=b, args=a18a, out="mid", summary=on_path,
+                    kernel=k18a.ln_fc1_gelu_q8, stages=k18a._ln_fc1_gelu_q8_stages,
+                    plain=k18a.ln_fc1_gelu_q8_plain, check=qs.check_ln_fc1_gelu_q8,
+                    int8_ops=2 * rows * d * fl, flops=0))
+                a18b = (whole[:, c].contiguous(), ms, w2q[c].contiguous())
+                q8_cases["fc2_q8_partial"].append(dict(
+                    tag=tag, dtype=dtype, batch=b, args=a18b, out="out", summary=on_path,
+                    kernel=k18b.fc2_q8_partial, stages=k18b._fc2_q8_partial_stages,
+                    plain=k18b.fc2_q8_partial_plain, check=qs.check_fc2_q8_partial,
+                    int8_ops=2 * rows * fl * d, flops=0))
+                a15 = (x, s2, b2n, wq[:, c3].contiguous(), ws[c3].contiguous(),
+                       bqkv[c3].contiguous(), h // tp, t, 1e-6)
+                q8_cases[f"ln_qkv_attn_q8 {h // tp} heads"].append(dict(
+                    tag=tag, dtype=dtype, batch=b, args=a15, out="ctx", summary=False,
+                    kernel=k15.ln_qkv_attn_q8, stages=k15._ln_qkv_attn_q8_stages,
+                    plain=k15.ln_qkv_attn_q8_plain, check=qs.check_ln_qkv_attn_q8,
+                    int8_ops=2 * rows * d * 3 * d // tp, flops=4 * b * t * t * d // tp))
+    return fp_cases, q8_cases, labels
+
+
+def phase_k18_composed(dev: torch.device) -> None:
+    """Phase 36 (composition): K18a on each of tp shards, the row maxima's
+    maximum, K18b on each shard and the int32 sum over shards, in one
+    process, against K17 on the same x (B/16 batch 100): mid, the row
+    scales and the int32 FC2 sums bit for bit those of K17's stages (its
+    hq/hs are K18a's own stage 1, checked in the cases), the output within
+    one rounding of the dtype."""
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_q8 as k17
+    from vit_tpu_torch.ops.kernels.fc2_q8_partial import _fc2_q8_partial_stages
+    from vit_tpu_torch.ops.kernels.ln_fc1_gelu_q8 import _ln_fc1_gelu_q8_stages
+
+    d, f, rows = B16["d"], B16["f"], BATCHES[0] * B16["t"]
+    rn = _rand(dev, 37)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = rn(rows, d, scale=2.0, dtype=dtype)
+        s2, b2n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+        (w1q, w1s), (w2q, w2s) = (quant.quantize_weight(rn(d, f, scale=d ** -0.5)),
+                                  quant.quantize_weight(rn(f, d, scale=f ** -0.5)))
+        bb1, bb2 = rn(f, scale=0.1, dtype=dtype), rn(d, scale=0.1, dtype=dtype)
+        st = k17._ln_mlp_residual_q8_stages(x, s2, b2n, w1q, w1s, bb1, w2q, w2s, bb2, 1e-6)
+        for tp in TP_SIZES:
+            cols = [slice(r * f // tp, (r + 1) * f // tp) for r in range(tp)]
+            a = [_ln_fc1_gelu_q8_stages(x, s2, b2n, w1q[:, c].contiguous(), w1s[c].contiguous(),
+                                        bb1[c].contiguous(), 1e-6, "exact",
+                                        dtype == torch.bfloat16) for c in cols]
+            mmax = torch.stack([s["mid"].abs().amax(-1, keepdim=True) for s in a]).amax(0)
+            ms = torch.clamp(mmax / torch.full_like(mmax, 127.0), min=1e-12)
+            bs = [_fc2_q8_partial_stages(s["mid"], ms, w2q[c].contiguous())
+                  for s, c in zip(a, cols)]
+            acc = sum(s["out"] for s in bs)
+            out = ((acc.float() * ms * w2s + bb2.float()) + x.float()).to(dtype)
+            same = {
+                "hq": all(torch.equal(s["hq"], st["hq"]) for s in a),
+                "hs": all(torch.equal(s["hs"], st["hs"]) for s in a),
+                "mid": torch.equal(torch.cat([s["mid"] for s in a], 1), st["mid"]),
+                "ms": torch.equal(ms[:, 0], st["ms"]),
+                "mq": torch.equal(torch.cat([s["mq"] for s in bs], 1), st["mq"]),
+                "int32 sums": torch.equal(acc, quant.int8_dot(st["mq"], w2q).to(torch.int32)),
+            }
+            ulp = 2.0 ** (-23 if dtype == torch.float32 else -7)  # one rounding of the dtype
+            err = ((out.float() - st["out"].float()).abs()
+                   / st["out"].float().abs().clamp(min=1.0)).max().item()
+            log(f"K18 composed over tp {tp} vs K17, {_tag(dtype, BATCHES[0], rows)}: "
+                + ", ".join(f"{k} {'bit for bit' if v else 'DIFFERS'}" for k, v in same.items())
+                + f"; output max rel|d| {err:.6g} (one rounding: {ulp:.3g})")
+            if not all(same.values()) or not err <= ulp:
+                raise RuntimeError(f"K18 over tp {tp} ({dtype}) is not K17's arithmetic")
+        del st
+
+
+def study_kernel_cases(dev: torch.device):
+    """-> ({kernel: [case]}, labels) for phase 37: K19 with int8 p·v and
+    with p·v in the dtype, and K15 beside them, at B/16 batch 100 and 3,
+    bf16, held by the stage checks."""
+    from vit_tpu_torch.eval import quant_stages as qs
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_q8 as k15
+
+    d, h, t = B16["d"], B16["heads"], B16["t"]
+    rn = _rand(dev, 38)
+    labels = {**STUDY_KERNELS, "ln_qkv_attn_q8a quant_pv=False": ("K19 int8 q·kᵀ only",),
+              "ln_qkv_attn_q8": QUANT_KERNELS["ln_qkv_attn_q8"]}
+    cases = {name: [] for name in labels}
+    dtype = torch.bfloat16
+    s1, b1n = rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype)
+    wq, ws = quant.quantize_weight(rn(d, 3 * d, scale=d ** -0.5))
+    bqkv = rn(3 * d, scale=0.1, dtype=dtype)
+    for b in BATCHES:
+        rows = b * t
+        args = (rn(rows, d, scale=2.0, dtype=dtype), s1, b1n, wq, ws, bqkv, h, t, 1e-6)
+        qkv_ops, att = 2 * rows * d * 3 * d, 2 * b * t * t * d
+        for name, qpv in (("ln_qkv_attn_q8a", True), ("ln_qkv_attn_q8a quant_pv=False", False)):
+            cases[name].append(dict(
+                tag=_tag(dtype, b, rows), dtype=dtype, batch=b, args=args, out="ctx",
+                summary=qpv and b == BATCHES[0],
+                kernel=lambda *a, q=qpv: k15.ln_qkv_attn_q8a(*a, quant_pv=q),
+                stages=lambda *a, q=qpv: k15._ln_qkv_attn_q8a_stages(*a, quant_pv=q,
+                                                                     return_p=q),
+                plain=lambda *a, q=qpv: k15.ln_qkv_attn_q8a_plain(*a, quant_pv=q),
+                check=lambda st, end, *a, q=qpv: qs.check_ln_qkv_attn_q8a(st, end, *a,
+                                                                         quant_pv=q),
+                int8_ops=qkv_ops + (2 if qpv else 1) * att, flops=0 if qpv else att))
+        cases["ln_qkv_attn_q8"].append(dict(
+            tag=_tag(dtype, b, rows), dtype=dtype, batch=b, args=args, out="ctx", summary=False,
+            kernel=k15.ln_qkv_attn_q8, stages=k15._ln_qkv_attn_q8_stages,
+            plain=k15.ln_qkv_attn_q8_plain, check=qs.check_ln_qkv_attn_q8, int8_ops=qkv_ops,
+            flops=2 * att))
+    return cases, labels
+
+
+def phase_kernel_study(card: str) -> dict:
+    """Phase 37 (the study): ``python3 -m vit_tpu_torch.cli.bench_kernels
+    --batch 100`` over every kernel of its list, counts set to 0 just
+    before and read just after.  -> launch counts of the run."""
+    from vit_tpu_torch.cli import bench_kernels
+
+    stacks = 12 * (bench_kernels.WARMUP + bench_kernels.ITERS)
+    buf = io.StringIO()
+    wrappers = _reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_kernels.main(["--batch", "100", "--which", ",".join(bench_kernels.WHICH)])
+    for line in buf.getvalue().splitlines():
+        log(f"bench_kernels --batch 100: {line}; {card}")
+    if rc != 0:
+        raise RuntimeError(f"bench_kernels exited {rc}")
+    return _expect_counts(
+        wrappers, {"ln_qkv_attn": 2 * stacks, "ln_qkv_attn_q8": stacks,
+                   "ln_qkv_attn_q8a": 2 * stacks, "out_residual": stacks,
+                   "ln_mlp_residual": stacks, "out_ln_mlp_residual_q8": stacks},
+        "kernel study (bench_kernels, a b c a8 c8 a8qk a8a awide)")
+
+
+# phase 38's CLI runs on two ranks: their flags and each rank's launches
+RANK_RUNS = {
+    "classify_quant_tp": (["--ops", "quant", "--tp", "2"],
+                          {"ln_qkv_attn_q8": 12, "ln_fc1_gelu_q8": 12, "fc2_q8_partial": 12,
+                           "layer_norm": 1}),
+    "classify_tp": (["--ops", "fused", "--tp", "2"],
+                    {"ln_qkv_attn": 12, "ln_mlp_residual": 12, "layer_norm": 1}),
+    "classify_dp": (["--ops", "fused", "--dp", "2"],
+                    {"ln_qkv_attn": 12, "out_ln_mlp_residual": 12, "layer_norm": 1}),
+}
+LONG_TP_LAUNCHES = {"flash_attention_fwd": 12, "ln_mlp_residual": 12, "layer_norm": 1}
+RANK_ENGINES = {  # name: (ops, dtype, mesh)
+    "fused tp2 fp32": ("fused", "float32", {"dp": 1, "tp": 2}),
+    "fused dp2 fp32": ("fused", "float32", {"dp": 2, "tp": 1}),
+    "quant tp2 bf16": ("quant", "bfloat16", {"dp": 1, "tp": 2}),
+    "fused tp2 bf16": ("fused", "bfloat16", {"dp": 1, "tp": 2}),
+    "fused dp2 bf16": ("fused", "bfloat16", {"dp": 2, "tp": 1}),
+}
+
+
+class _RowSpy:
+    """A kernel wrapper that records the rows of each call; its launch
+    count is the wrapper's own (the wrapper adds to it by its module name)."""
+
+    def __init__(self, fn):
+        self.fn, self.rows = fn, []
+
+    def __call__(self, x2d, *args, **kwargs):
+        self.rows.append(x2d.shape[0])
+        return self.fn(x2d, *args, **kwargs)
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+
+def rank_worker(workdir: str) -> None:
+    """One rank of phase 38 (``torchrun`` starts ``RANKS`` of them from
+    ``phase_parallel``): the three CLI runs of ``RANK_RUNS``, each with
+    every count set to 0 just before and read just after (and, on the dp
+    run, the rows each K1 launch takes); the engines of ``RANK_ENGINES`` on
+    the CLI's 100 images (logits, and the bf16 ones' time per forward);
+    the tensor-parallel forward @512 batch 16 with its counts.  Writes
+    ``rank<r>.json`` (and, on rank 0, the logits) into ``workdir``."""
+    import torch.distributed as dist
+
+    from vit_tpu_torch.cli.main import main as classify
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.io.load_any import load_params_any
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
+    from vit_tpu_torch.parallel import make_mesh
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    weights = f"{workdir}/params.npz"
+    report = {"rc": {}, "launches": {}, "stdout": {}, "ms": {}}
+    real_k1, k1_spy = k1.ln_qkv_attn, _RowSpy(k1.ln_qkv_attn)
+    for path, (flags, _) in RANK_RUNS.items():
+        buf = io.StringIO()
+        wrappers = _reset_counts()
+        k1.ln_qkv_attn = k1_spy if path == "classify_dp" else real_k1
+        with contextlib.redirect_stdout(buf):
+            rc = classify(["--weights", weights, "--synth", "100", "--dtype", "bfloat16",
+                           "--device", "cuda", "--batch-pad", "100", "--json", "--dist-backend",
+                           "gloo", "--output", f"{workdir}/{path}.txt", *flags])
+        k1.ln_qkv_attn = real_k1
+        report["rc"][path] = rc
+        report["launches"][path] = {name: fn.launches for name, fn in wrappers.items()}
+        out = buf.getvalue().splitlines()
+        report["stdout"][path] = out[:2] + out[-2:]
+    report["k1_rows_dp"] = k1_spy.rows
+    rank, dev = dist.get_rank(), torch.device("cuda", torch.cuda.current_device())
+    params = load_params_any(weights, VIT_B_16)
+    images = synth_images(100, VIT_B_16, seed=0)  # the CLI's --synth 100
+    logits = {}
+    for name, (ops, dtype, axes) in RANK_ENGINES.items():
+        eng = InferenceEngine(VIT_B_16, params, dtype, ops, dev, batch_pad=100,
+                              mesh=make_mesh(axes))
+        logits[name] = eng.logits(images).float().cpu().numpy()
+        if dtype == "bfloat16":
+            x = torch.from_numpy(images).to(dev, torch.bfloat16)
+            times = []
+            for _ in range(5):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.logits(x)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            report["ms"][name] = statistics.median(times) * 1e3
+        del eng
+        torch.cuda.empty_cache()
+    cfg = VIT_B_16.with_image_size(LONG_IMAGE)
+    eng = InferenceEngine(cfg, synth_params(cfg, 0), "bfloat16", "fused", dev, batch_pad=16,
+                          mesh=make_mesh({"dp": 1, "tp": 2}))
+    x = synth_images(16, cfg, seed=5)
+    wrappers = _reset_counts()
+    l16 = eng.logits(x).float().cpu().numpy()
+    torch.cuda.synchronize()
+    report["launches"]["classify_tp_long"] = {name: fn.launches for name, fn in wrappers.items()}
+    report["long_finite"] = bool(np.isfinite(l16).all()) and l16.shape == (16, cfg.num_classes)
+    with open(f"{workdir}/rank{rank}.json", "w") as fh:
+        json.dump(report, fh)
+    if rank == 0:
+        np.savez(f"{workdir}/logits.npz", **{k.replace(" ", "_"): v for k, v in logits.items()})
+
+
+def _line_rule(what: str, path: str, ref_path: str, p32: np.ndarray) -> None:
+    """The comparator rule on two result files: no label differs where the
+    fp32 probabilities ``p32`` are decisive (top-1 beats top-2 by more than
+    0.01), and the top probabilities differ by at most 0.01."""
+    from vit_tpu_torch.eval import comparator
+
+    got, ref = comparator.parse_result_file(path), comparator.parse_result_file(ref_path)
+    if [r.index for r in got] != list(range(len(p32))):
+        raise RuntimeError(f"{what}: {path} is not {len(p32)} well-formed lines")
+    top2 = np.sort(p32, -1)[:, -2:]
+    decisive = (top2[:, 1] - top2[:, 0]) > 0.01
+    bad = sum(1 for g, r, dcs in zip(got, ref, decisive) if dcs and g.label != r.label)
+    dev = max(abs(g.prob - r.prob) for g, r in zip(got, ref))
+    log(f"{what}, {len(got)} lines: {int(decisive.sum())} decisive, {bad} decisive label "
+        f"mismatches (tol 0), top-prob max|d|={dev:.6g} (tol 0.01)")
+    if bad or not dev <= 0.01:
+        raise RuntimeError(f"{what}: fails the comparator rule")
+
+
+def phase_parallel(params, dev: torch.device, card: str, workdir: str) -> dict:
+    """Phase 38: two ranks share the card over gloo, started by ``torchrun``
+    with a time limit (a rank that hangs, or fails, fails the phase):
+    ``rank_worker``'s CLI runs with their launch counts on every rank
+    (``RANK_RUNS``; the dp run's K1 launches on 50 images each), their
+    result lines against the single-card CLI's by the comparator rule, fp32
+    ``fused`` tp and dp logits within 1e-4 of the single card's, the bf16
+    time per forward (two ranks sharing one card: not a scaling figure), and
+    the tensor-parallel forward @512 (12 K13 per rank).  -> launch counts of
+    rank 0, by path."""
+    import os
+    import signal
+    import sys
+
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    refs = {}
+    for ops, kernels in (("quant", ("ln_qkv_attn_q8", "out_ln_mlp_residual_q8")),
+                         ("fused", ("ln_qkv_attn", "out_ln_mlp_residual"))):
+        phase_cli(params, workdir, ops, kernels)  # saves params.npz, writes result.txt
+        refs[ops] = f"{workdir}/single_{ops}.txt"
+        os.replace(f"{workdir}/result.txt", refs[ops])
+    images = synth_images(100, VIT_B_16, seed=0)  # the CLI's --synth 100
+    f32 = InferenceEngine(VIT_B_16, params, "float32", "fused", dev, batch_pad=100)
+    l32 = f32.logits(images).cpu().numpy()
+    del f32
+    torch.cuda.empty_cache()
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(RANKS), os.path.abspath(__file__), "--rank-worker", workdir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True, env=dict(os.environ, OMP_NUM_THREADS="4"))
+    try:
+        out, _ = proc.communicate(timeout=RANKS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)  # torchrun and every rank it started
+        proc.communicate()
+        raise RuntimeError(f"{RANKS} ranks did not finish in {RANKS_TIMEOUT} s: a rank hung")
+    lines = [ln for ln in out.splitlines() if "socket.cpp" not in ln]
+    log("\n".join(f"ranks: {ln}" for ln in (lines if proc.returncode else lines[-12:])))
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun with {RANKS} ranks exited {proc.returncode}")
+    log(f"{RANKS} ranks over gloo on one card: {time.perf_counter() - t0:.3f} s")
+    reports = [json.load(open(f"{workdir}/rank{r}.json")) for r in range(RANKS)]
+    for r, rep in enumerate(reports):
+        for path, (_, want) in RANK_RUNS.items():
+            if rep["rc"][path] != 0:
+                raise RuntimeError(f"rank {r} {path}: the CLI exited {rep['rc'][path]}")
+            _expect_counts_of(rep["launches"][path], want, f"rank {r} {path} (cli bf16 b100)")
+        _expect_counts_of(rep["launches"]["classify_tp_long"], LONG_TP_LAUNCHES,
+                          f"rank {r} classify_tp_long (@512 batch 16 bf16 fused tp 2)")
+        if rep["k1_rows_dp"] != [50 * B16["t"]] * 12:
+            raise RuntimeError(f"rank {r} classify_dp: K1 took {rep['k1_rows_dp']} rows")
+        if not rep["long_finite"]:
+            raise RuntimeError(f"rank {r}: @512 tp logits non-finite or misshapen")
+    log("\n".join(f"ranks: {path}: " + " / ".join(reports[0]["stdout"][path])
+                  for path in RANK_RUNS))
+    p32 = _probs(l32)
+    _line_rule("bf16 quant tp 2 vs single-card quant (CLI lines)",
+               f"{workdir}/classify_quant_tp.txt", refs["quant"], p32)
+    for path in ("classify_tp", "classify_dp"):
+        _line_rule(f"bf16 fused {path} vs single-card fused (CLI lines)",
+                   f"{workdir}/{path}.txt", refs["fused"], p32)
+    logits = dict(np.load(f"{workdir}/logits.npz"))
+    for name in ("fused_tp2_fp32", "fused_dp2_fp32"):
+        d = float(np.abs(logits[name] - l32).max())
+        log(f"{name} vs single-card fp32 fused, 100 images: max|d logit|={d:.6g} (tol 1e-4)")
+        if not d <= 1e-4:
+            raise RuntimeError(f"{name} logits outside 1e-4 of the single card's")
+    for name, ms in reports[0]["ms"].items():
+        log(f"{name} B/16 batch 100: {ms:.6g} ms per forward, {RANKS} ranks sharing one card "
+            f"over gloo (not a scaling figure); {card}")
+    return {path: reports[0]["launches"][path] for path in (*RANK_RUNS, "classify_tp_long")}
+
+
+def group_parallel(dev, card, summary, launches) -> None:
+    """Phases 36-38."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.ops.kernels import _build
+
+    fp_cases, q8_cases, labels = tp_kernel_cases(dev)
+    phase_kernels(fp_cases, labels, BATCHES[0])
+    summary.update(phase_quant_kernels(q8_cases, labels))
+    del fp_cases, q8_cases
+    torch.cuda.empty_cache()
+    phase_k18_composed(dev)
+    torch.cuda.empty_cache()
+    cases, labels = study_kernel_cases(dev)
+    summary.update({k: v for k, v in phase_quant_kernels(cases, labels).items()
+                    if k in STUDY_KERNELS})
+    del cases
+    torch.cuda.empty_cache()
+    launches["kernel_study"] = phase_kernel_study(card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        launches.update(phase_parallel(synth_params(VIT_B_16, 0), dev, card, workdir))
+
+
+PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw",
+          "parallel")
 
 
 def group_classify(dev, card, summary, launches) -> None:
@@ -2110,7 +2578,12 @@ def main(argv=None) -> None:
     p.add_argument("--only", metavar="PHASE[,PHASE]",
                    help=f"run only these groups of phases, of {', '.join(PHASES)} (a rerun; "
                    "without it every phase runs)")
+    p.add_argument("--rank-worker", metavar="DIR",
+                   help="run one rank of phase 38 (torchrun starts these), writing into DIR")
     args = p.parse_args(argv)
+    if args.rank_worker:
+        rank_worker(args.rank_worker)
+        return
     only = PHASES if args.only is None else tuple(args.only.split(","))
     if not set(only) <= set(PHASES):
         p.error(f"--only takes {', '.join(PHASES)}; got {args.only}")
@@ -2135,7 +2608,7 @@ def main(argv=None) -> None:
     summary, launches = {}, {}
     groups = {"classify": group_classify, "train": group_train, "regularized": group_regularized,
               "long": group_long, "quant": group_quant, "tome": group_tome, "dh80": group_dh80,
-              "per_op": group_per_op, "adamw": group_adamw}
+              "per_op": group_per_op, "adamw": group_adamw, "parallel": group_parallel}
     for name in PHASES:
         if name in only:
             t0 = time.perf_counter()
@@ -2149,7 +2622,8 @@ def main(argv=None) -> None:
     # CLI's for K15 and K16, the ToMe quant classify CLI's for K17, the long
     # quant forward's for K15's stages 1-2, the regularized ToMe train CLI's
     # for K12b and K12c, the per-op classify CLI's for K21 and K22, the
-    # fused AdamW train CLI's for K20; "paths" has every reading
+    # fused AdamW train CLI's for K20, rank 0's of the quant --tp 2 CLI for
+    # K18a and K18b, the kernel study's for K19; "paths" has every reading
     path_of = {**{k: "classify" for k in KERNELS}, **{k: "train" for k in TRAIN_KERNELS},
                **{k: "train_regularized" for k in REG_KERNELS},
                **{k: "train_long" for k in LONG_KERNELS}, "flash_attention_fwd": "classify_long",
@@ -2157,9 +2631,12 @@ def main(argv=None) -> None:
                "ln_mlp_residual_q8": "classify_quant_tome",
                **{k: "train_tome_regularized" for k in TOME_KERNELS},
                **{k: "classify_per_op" for k in PER_OP_KERNELS},
-               **{k: "train_fused_adamw" for k in ADAMW_KERNELS}}
+               **{k: "train_fused_adamw" for k in ADAMW_KERNELS},
+               **{k: "classify_quant_tp" for k in TP_KERNELS},
+               **{k: "kernel_study" for k in STUDY_KERNELS}}
     all_kernels = {**KERNELS, **TRAIN_KERNELS, **REG_KERNELS, **LONG_KERNELS, **QUANT_KERNELS,
-                   **TOME_KERNELS, **PER_OP_KERNELS, **ADAMW_KERNELS}
+                   **TOME_KERNELS, **PER_OP_KERNELS, **ADAMW_KERNELS, **TP_KERNELS,
+                   **STUDY_KERNELS}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches.get(path_of[name], {}).get(name),

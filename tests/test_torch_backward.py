@@ -244,11 +244,17 @@ def test_wrappers_refuse_other_devices(kernel):
 
 
 def test_hooks_of_later_slices_raise():
-    k5 = [torch.from_numpy(a) for a in _k5_arrays(10, 64, 256, 5)]
-    with pytest.raises(NotImplementedError, match="partial"):
-        ln_mlp_residual(*k5, EPS, partial=True)
+    arrays = _k5_arrays(10, 64, 256, 5)
+    k5 = [torch.from_numpy(a) for a in arrays]
     with pytest.raises(NotImplementedError, match="return_u"):
         ln_mlp_residual(*k5, EPS, return_u=True)
+    # tensor parallelism's partial form is ported: fp32 g @ W2, no b2, no residual
+    for dtype in DTYPES:
+        jx, tx = _pairs(arrays, dtype)
+        want = JF.ln_mlp_residual(*jx, EPS, interpret=True, partial=True)
+        got = ln_mlp_residual(*tx, EPS, partial=True)
+        assert got.dtype == torch.float32 and want.dtype == jnp.float32
+        np.testing.assert_allclose(_f32(got), _f32(want), **FWD_TOL[dtype])
     k7 = [torch.from_numpy(a) for a in _k7_arrays(10, 64, 256, 6)]
     with pytest.raises(NotImplementedError, match="u= stash"):
         ln_mlp_out_residual_bwd(*k7, EPS, u=torch.zeros(10, 256))

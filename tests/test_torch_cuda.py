@@ -997,3 +997,124 @@ def test_fused_adamw_step_launches_per_leaf(dev):
         runs[name] = (losses, k20.adamw_update.launches)
     assert runs["fused"][1] == 3 * 20 and runs["plain"][1] == 0  # 20 leaves
     np.testing.assert_allclose(runs["fused"][0], runs["plain"][0], atol=1e-4, rtol=0)
+
+
+# -- tensor parallelism (K5's partial form, K18) and the int8-attention study (K19) --
+
+# ViT-B/16's shard widths at tp = 2 and 4 (F/tp hidden columns, heads/tp
+# heads), and a tiny one
+TP_SHAPES = {"b16_tp2": (591, 768, 1536, 6), "b16_tp4": (591, 768, 768, 3),
+             "tiny_tp2": (10, 64, 128, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", ["exact", "tanh"])
+@pytest.mark.parametrize("shape", list(TP_SHAPES))
+def test_ln_mlp_residual_partial(dev, dtype, variant, shape):
+    from vit_tpu_torch.ops.kernels.ln_mlp_residual import ln_mlp_partial_plain
+
+    rows, d, f, _ = TP_SHAPES[shape]
+    x, s, b, w1, b1, w2, b2 = _mlp_args(dev, dtype, rows, d, f)
+    got = ln_mlp_residual(x, s, b, w1, b1, w2, b2, 1e-6, variant, partial=True)
+    assert got.dtype == torch.float32
+    # the bf16 kernel rounds g at the twin's points: its tolerance is bf16's
+    _check(got, ln_mlp_partial_plain(x, s, b, w1, b1, w2, 1e-6, variant), dtype)
+    # the block's form on the same operands is the partial + b2 + x, rounded
+    whole = ln_mlp_residual(x, s, b, w1, b1, w2, b2, 1e-6, variant)
+    _check(whole, (got + b2.float() + x.float()).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", list(TP_SHAPES))
+def test_k18_kernels_at_shard_shapes(dev, dtype, shape):
+    from vit_tpu_torch.ops.kernels import fc2_q8_partial as k18b
+    from vit_tpu_torch.ops.kernels import ln_fc1_gelu_q8 as k18a
+
+    rows, d, f, _ = TP_SHAPES[shape]
+    x, s, b, w1q, w1s, b1, w2q, *_ = _mlp_q8_args(dev, dtype, rows, d, f, "exact")
+    for fast_erf in (False, True):
+        args = (x, s, b, w1q, w1s, b1, 1e-6, "exact", fast_erf)
+        st = k18a._ln_fc1_gelu_q8_stages(*args)
+        quant_stages.check_ln_fc1_gelu_q8(st, k18a.ln_fc1_gelu_q8_plain(*args), *args)
+    mid = st["mid"]
+    ms = torch.clamp(mid.abs().amax(-1, keepdim=True) / torch.full((1, 1), 127.0, device=dev),
+                     min=1e-12)
+    st2 = k18b._fc2_q8_partial_stages(mid, ms, w2q)
+    quant_stages.check_fc2_q8_partial(st2, k18b.fc2_q8_partial_plain(mid, ms, w2q), mid, ms, w2q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tp", [2, 4])
+def test_k18_composed_over_shards_is_k17(dev, dtype, tp):
+    """K18a per shard, the row maxima's maximum, K18b per shard and the int32
+    sum over shards, in one process: K17's stages bit for bit, the output
+    within one rounding of the dtype."""
+    from vit_tpu_torch.ops.kernels.fc2_q8_partial import fc2_q8_partial
+    from vit_tpu_torch.ops.kernels.ln_fc1_gelu_q8 import ln_fc1_gelu_q8
+
+    rows, d, f = 591, 768, 3072
+    x, s, b, w1q, w1s, b1, w2q, w2s, b2, eps, variant = _mlp_q8_args(dev, dtype, rows, d, f,
+                                                                    "exact")
+    st = k17._ln_mlp_residual_q8_stages(x, s, b, w1q, w1s, b1, w2q, w2s, b2, eps, variant)
+    cols = [slice(r * f // tp, (r + 1) * f // tp) for r in range(tp)]
+    fast = dtype == torch.bfloat16
+    mids = [ln_fc1_gelu_q8(x, s, b, w1q[:, c].contiguous(), w1s[c].contiguous(),
+                           b1[c].contiguous(), eps, variant, fast_erf=fast) for c in cols]
+    assert torch.equal(torch.cat(mids, 1), st["mid"])
+    mmax = torch.stack([m.abs().amax(-1, keepdim=True) for m in mids]).amax(0)
+    ms = torch.clamp(mmax / torch.full_like(mmax, 127.0), min=1e-12)
+    assert torch.equal(ms[:, 0], st["ms"])
+    acc = sum(fc2_q8_partial(m, ms, w2q[c].contiguous()) for m, c in zip(mids, cols))
+    assert torch.equal(acc, quant.int8_dot(st["mq"], w2q).to(torch.int32))
+    out = ((acc.float() * ms * w2s + b2.float()) + x.float()).to(dtype)
+    ulp = 2.0 ** (-23 if dtype == torch.float32 else -7)  # one rounding of the dtype
+    assert ((out.float() - st["out"].float()).abs()
+            <= ulp * st["out"].float().abs().clamp(min=1.0)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tp", [2, 4])
+def test_k1_k15_at_local_heads(dev, dtype, tp):
+    """K1 and K15 over a tp shard's whole heads (d3 = 3D/tp, the context
+    D/tp wide): each rank's columns of the whole attention context."""
+    b, t, d, h = 3, 197, 768, 12
+    x = _rn(dev, 0, b * t, d, scale=2.0, dtype=dtype)
+    s, bb = _rn(dev, 1, d, scale=0.2, shift=1.0, dtype=dtype), _rn(dev, 2, d, scale=0.2, dtype=dtype)
+    w = _rn(dev, 3, d, 3 * d, scale=d ** -0.5, dtype=dtype)
+    bq = _rn(dev, 4, 3 * d, scale=0.1, dtype=dtype)
+    wq, ws = _q8_weight(dev, 5, d, 3 * d)
+    cols = 3 * d // tp
+    for r in range(tp):
+        c = slice(r * cols, (r + 1) * cols)
+        local = (x, s, bb, w[:, c].contiguous(), bq[c].contiguous(), h // tp, t, 1e-6)
+        got = ln_qkv_attn(*local)
+        assert got.shape == (b * t, d // tp)
+        _check(got, ln_qkv_attn_plain(*local))
+        args = (x, s, bb, wq[:, c].contiguous(), ws[c].contiguous(), bq[c].contiguous(), h // tp,
+                t, 1e-6)
+        st = k15._ln_qkv_attn_q8_stages(*args)
+        quant_stages.check_ln_qkv_attn_q8(st, k15.ln_qkv_attn_q8_plain(*args), *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("quant_pv", [True, False], ids=["q8_pv", "dtype_pv"])
+@pytest.mark.parametrize(
+    "b,t,d,h", [(2, 5, 64, 4), (3, 197, 768, 12), (2, 65, 256, 8), (1, 77, 768, 6),
+                (2, 257, 160, 2)],
+    ids=["tiny_dh16", "b16_t197", "t65_dh32", "wide_dh128", "h14_t257_dh80"],
+)
+def test_ln_qkv_attn_q8a(dev, dtype, quant_pv, b, t, d, h):
+    args = _k15_args(dev, dtype, b, t, d, h)
+    st = k15._ln_qkv_attn_q8a_stages(*args, quant_pv=quant_pv, return_p=True)
+    quant_stages.check_ln_qkv_attn_q8a(st, k15.ln_qkv_attn_q8a_plain(*args, quant_pv=quant_pv),
+                                       *args, quant_pv=quant_pv)
+    again = k15._ln_qkv_attn_q8a_stages(*args, quant_pv=quant_pv)
+    assert torch.equal(st["ctx"], again["ctx"])  # the p codes' write changes nothing
+    assert torch.equal(st["qkv"], k15._ln_qkv_attn_q8_stages(*args)["qkv"])  # K15's stages 1-2
+    with pytest.raises(ValueError, match="no ToMe hooks"):
+        k15.ln_qkv_attn_q8a(*args, log_size=_log_size(dev, b, t))

@@ -6,6 +6,7 @@ Values are compared exactly: both sides run the same numpy code paths."""
 
 import ast
 import dataclasses
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -274,7 +275,8 @@ def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     with --tome, plain and regularized), and the classify CLI on its npz, on
     a Weight_*.bin directory, on a .pth, on --images, with --golden, with
     --ops quant, with --ops per_op --profile and with --tome on fused and
-    quant: no vit_tpu or jax module gets loaded."""
+    quant, and under torch.distributed.run on 2 ranks with --tp 2 (fused and
+    quant): no vit_tpu or jax module gets loaded."""
     from vit_tpu.io import weights as jweights
     from vit_tpu.io.torch_convert import save_pth
 
@@ -329,3 +331,25 @@ assert not loaded, loaded
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "comparator: 0 error(s) over 2 line(s)" in out.stdout
+    rank = tmp_path / "rank.py"
+    rank.write_text(f"""
+import sys
+sys.path.insert(0, {str(REPO)!r})
+from vit_tpu_torch import config
+from vit_tpu_torch.cli import main as classify
+cfg = config.ViTConfig(image_size=32, patch_size=16, embed_dim=64, depth=2, num_heads=4,
+                       num_classes=11, name="vit_tiny_test")
+config.CONFIGS[cfg.name] = cfg
+for ops in ("fused", "quant"):
+    assert classify.main(["--config", cfg.name, "--device", "cpu", "--tp", "2", "--ops", ops,
+                          "--weights", {str(tmp_path / "p.npz")!r}, "--synth", "2"]) == 0
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib"))
+assert not loaded, loaded
+""")
+    env = {k: v for k, v in os.environ.items() if k != "WORLD_SIZE"}
+    out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node", "2", str(rank)], timeout=120, cwd=tmp_path,
+                         capture_output=True, text=True, env=dict(env, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("mesh: {'dp': 1, 'tp': 2} over 2 rank(s), backend gloo") == 2
+    assert out.stdout.count("[1] label:") == 2  # rank 0's lines only

@@ -14,8 +14,12 @@ counterpart's path and names so a reader finds each twin:
     under ``vit_tpu.ops.pallas`` (the ``fused_train`` block, plain and
     regularized)
   - ``vit_tpu_torch.models.vit``     <- ``vit_tpu.models.vit``
-  - ``vit_tpu_torch.runtime``        <- ``vit_tpu.runtime`` (engine, trainer)
-  - ``vit_tpu_torch.cli``            <- ``vit_tpu.cli`` (classify, train)
+  - ``vit_tpu_torch.runtime``        <- ``vit_tpu.runtime`` (engine, trainer,
+    distributed)
+  - ``vit_tpu_torch.parallel``       <- ``vit_tpu.parallel`` (mesh, sharding
+    rules, tensor- and data-parallel inference)
+  - ``vit_tpu_torch.cli``            <- ``vit_tpu.cli`` (classify, train) and
+    ``scripts/bench_kernels.py`` (``cli.bench_kernels``)
   - ``vit_tpu_torch.config``, ``io``, ``eval`` <- ``vit_tpu.config``,
     ``vit_tpu.io``, ``vit_tpu.eval.comparator``
 

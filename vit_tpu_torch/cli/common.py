@@ -1,0 +1,55 @@
+"""The classify CLI's mesh preamble — counterpart of ``vit_tpu.cli.common``'s
+``resolve_mesh``.
+
+``--tp``/``--dp`` run the CLI SPMD under ``torchrun --nproc-per-node N``:
+one process per rank, each joining the process group
+(``runtime/distributed.py``), building its :class:`~vit_tpu_torch.parallel.
+mesh.Mesh` and classifying the whole batch with its shard of the work.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+
+class MeshError(ValueError):
+    """A mesh the flags ask for cannot be built here (the CLI exits 2)."""
+
+
+def resolve_mesh(dp, tp: int, device: str = "cuda", backend=None, out=None):
+    """--dp/--tp flags -> (this rank's Mesh, its device), or (None, device)
+    for the single-device default.
+
+    The ranks come from ``torchrun``'s environment and must be exactly
+    dp x tp (unset --dp: the world size over tp); otherwise
+    :class:`MeshError`.  On the card each rank takes card LOCAL_RANK
+    modulo the cards of its host — its own card under NCCL, or one card
+    shared by every rank under gloo.  Rank 0 prints the mesh and the
+    backend."""
+    if not (tp > 1 or dp):
+        return None, device
+    if "WORLD_SIZE" not in os.environ or "MASTER_ADDR" not in os.environ:
+        raise MeshError(
+            f"--tp {tp}/--dp {dp} need one process per rank: run the CLI under "
+            "`torchrun --nproc-per-node N` (no torchrun world found)"
+        )
+    from vit_tpu_torch.parallel import make_mesh, mesh_shape_for
+    from vit_tpu_torch.runtime import distributed
+
+    world = int(os.environ["WORLD_SIZE"])
+    try:
+        shape = mesh_shape_for(world, tp=tp, dp=dp)
+    except ValueError as e:
+        raise MeshError(f"--tp {tp}/--dp {dp} over a torchrun world of {world}: {e}") from e
+    if device == "cuda" and torch.cuda.is_available():
+        device = f"cuda:{distributed.local_rank() % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    chosen = distributed.initialize(backend=backend, device_type=torch.device(device).type)
+    mesh = make_mesh(shape)
+    if mesh.rank == 0:
+        print(f"mesh: {shape} over {world} rank(s), backend {chosen}",
+              file=out if out is not None else sys.stdout)
+    return mesh, device

@@ -23,9 +23,20 @@ token pairs per layer (ToMe, ``models/tome.py``) on ``fused``, ``quant`` or
 ``eager``.  ``--profile`` prints the engine's per-phase timing after the
 results (``InferenceEngine.phase_report``).
 
-``--tp/--dp/--attn-rollout/--interpolate-pos-from`` of the JAX package's
-CLI wait for their slices of the port (their ``--tome`` refusals come with
-them).
+``--tp N``/``--dp M`` run the CLI over N x M ranks, one process each,
+under ``torchrun``::
+
+    torchrun --nproc-per-node 2 -m vit_tpu_torch.cli.main --weights ./Network \
+        --synth 8 --allow-synth-weights --tp 2 --device cpu
+
+``--tp`` splits the heads and the MLP hidden axis of ``fused`` and
+``quant`` over its ranks, ``--dp`` the batch (``InferenceEngine(mesh=)``).
+The backend is NCCL where every rank has its own card, gloo on the CPU or
+with ``--dist-backend gloo`` (ranks sharing one card).  Rank 0 prints and
+writes the results; every rank exits with the same code.
+
+``--attn-rollout/--interpolate-pos-from`` of the JAX package's CLI wait for
+their slices of the port (their ``--tome`` refusals come with them).
 """
 
 from __future__ import annotations
@@ -70,9 +81,23 @@ def build_parser() -> argparse.ArgumentParser:
         "--ops", default="auto", choices=["auto", "eager", "per_op", "fused", "quant"],
         help="compute path: fused (CUDA kernels), quant (W8A8 int8 CUDA kernels), "
         "per_op (one CUDA kernel per layer op, the JAX package's --ops pallas: a "
-        "debugging surface), eager (plain PyTorch); auto = fused on cuda, eager on cpu",
+        "debugging surface), eager (plain PyTorch); auto = fused on cuda or with --tp, "
+        "eager otherwise",
     )
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument(
+        "--tp", type=int, default=1,
+        help="tensor-parallel size (heads/MLP split over the ranks; run under torchrun)",
+    )
+    p.add_argument(
+        "--dp", type=int, default=None,
+        help="data-parallel size (default: ranks/tp when tp>1)",
+    )
+    p.add_argument(
+        "--dist-backend", default=None, choices=["nccl", "gloo"],
+        help="torch.distributed backend of --tp/--dp (default: nccl where every rank has a "
+        "card of its own, gloo on the CPU; gloo lets ranks share one card)",
+    )
     p.add_argument("--gelu", default="exact", choices=["exact", "tanh"])
     p.add_argument("--batch-pad", type=int, default=32)
     p.add_argument(
@@ -103,22 +128,30 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from vit_tpu_torch.cli.common import MeshError, resolve_mesh
     from vit_tpu_torch.config import resolve_config
-    from vit_tpu_torch.io import images as iio
-    from vit_tpu_torch.io import results
-    from vit_tpu_torch.io.load_any import load_params_any
-    from vit_tpu_torch.runtime.engine import InferenceEngine
 
     cfg = resolve_config(args.config, args.num_classes)
     ops = args.ops
     if ops == "auto":
-        ops = "fused" if args.device == "cuda" else "eager"
+        ops = "fused" if args.device == "cuda" or args.tp > 1 else "eager"
     if args.tome < 0:
         print("error: --tome must be >= 0", file=sys.stderr)
         return 2
     if args.tome and ops not in ("fused", "quant", "eager"):
         print("error: --tome (token merging) needs --ops fused, quant, or eager",
               file=sys.stderr)
+        return 2
+    if args.tome and args.tp > 1:
+        print(
+            "error: --tome shards data-parallel only (no --tp): the merge "
+            "keeps whole tokens per device",
+            file=sys.stderr,
+        )
+        return 2
+    if args.profile and args.tp > 1:
+        print("error: --profile runs the whole weights, which a --tp rank does not hold "
+              "(not ported: ROADMAP.md item 14)", file=sys.stderr)
         return 2
     if args.tome and args.profile:
         print("error: --profile probes the full-token model, which would diverge from "
@@ -130,6 +163,30 @@ def main(argv=None) -> int:
         print("error: --profile needs fp weights; use --ops eager/per_op/fused",
               file=sys.stderr)
         return 2
+    try:
+        mesh, device = resolve_mesh(args.dp, args.tp, args.device, args.dist_backend)
+    except (MeshError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    rc = _classify(args, cfg, ops, mesh, device, mesh is None or mesh.rank == 0)
+    if mesh is not None:  # every rank exits with the worst rank's code
+        import torch
+        import torch.distributed as dist
+
+        worst = torch.tensor([rc], dtype=torch.int32, device=device)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        rc = int(worst.item())
+    return rc
+
+
+def _classify(args, cfg, ops, mesh, device, lead: bool) -> int:
+    """Load, classify and report; ``lead`` (rank 0) prints and writes."""
+    from vit_tpu_torch.io import images as iio
+    from vit_tpu_torch.io import results
+    from vit_tpu_torch.io.load_any import load_params_any
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    say = print if lead else (lambda *a, **k: None)
 
     t_load0 = time.perf_counter()
     source_names = None
@@ -152,8 +209,8 @@ def main(argv=None) -> int:
     t_load = time.perf_counter() - t_load0
 
     engine = InferenceEngine(
-        cfg, params, dtype=args.dtype, ops=ops, device=args.device,
-        batch_pad=args.batch_pad, gelu_variant=args.gelu, tome_r=args.tome,
+        cfg, params, dtype=args.dtype, ops=ops, device=device,
+        batch_pad=args.batch_pad, gelu_variant=args.gelu, tome_r=args.tome, mesh=mesh,
     )
 
     t0 = time.perf_counter()
@@ -174,9 +231,9 @@ def main(argv=None) -> int:
             line += f"   ({label_names[pred[i]]})"
         if source_names is not None:
             line += f"   {source_names[i]}"
-        print(line)
+        say(line)
 
-    if args.output:
+    if args.output and lead:
         results.write_result_file(pred, top_prob, args.output)
 
     n_errors = 0
@@ -191,20 +248,20 @@ def main(argv=None) -> int:
         mismatches = comparator.compare_results(got, want, count=args.compare_count)
         n_errors = len(mismatches)
         for m in mismatches:
-            print(f"MISMATCH {m}", file=sys.stderr)
+            say(f"MISMATCH {m}", file=sys.stderr)
         n_lines = len(want) if args.compare_count is None else args.compare_count
-        print(f"comparator: {n_errors} error(s) over {n_lines} line(s)")
+        say(f"comparator: {n_errors} error(s) over {n_lines} line(s)")
 
     if args.profile:
-        print(engine.phase_report(images))
+        say(engine.phase_report(images))
 
-    print(
+    say(
         f"model: {cfg.name}  images: {len(pred)}  ops: {ops}  dtype: {args.dtype}  "
         f"device: {engine.device}  load: {t_load:.2f}s  inference: {elapsed:.3f}s "
         f"({len(pred) / elapsed:.1f} img/s incl. first-call kernel build)"
     )
     if args.json:
-        print(
+        say(
             json.dumps(
                 {
                     "images": int(len(pred)),

@@ -1,4 +1,4 @@
-"""Hold the W8A8 kernels (K15-K17) to their plain twins stage by stage.
+"""Hold the W8A8 kernels (K15-K19) to their plain twins stage by stage.
 
 A kernel and its twin reduce LayerNorm's mean and variance in different
 orders, so the fp32 h they quantize differs in its last bits, and a code
@@ -24,6 +24,12 @@ allocate anyway (their ``_*_stages`` functions):
 The output is also held to the whole twin's, at ``END_RTOL``, the size of
 a few moved codes.
 
+K19's attention codes (q, k and v per head, and p at the fixed scale 127)
+are quantizers on the kernel's own packed QKV and scores: the same check
+(a), and its context against the twin's on the kernel's codes (b).  K18b
+takes its row scales from the caller, so its codes and int32 sums must
+equal the twin's on the same ``mid`` bit for bit.
+
 Where the bounds come from.  The kernel's rstd is ``rsqrtf`` (within 2
 ulps) of a variance summed in another order than torch's, so h, and with it
 the row's absmax and scale, differs by a few ulps: ``SCALE_RTOL`` is 8 ulps
@@ -38,14 +44,16 @@ from __future__ import annotations
 
 import torch
 
-from vit_tpu_torch.ops.fused_block import _ln
+from vit_tpu_torch.ops.fused_block import _gelu, _ln
+from vit_tpu_torch.ops.kernels.fc2_q8_partial import requantize_plain
 from vit_tpu_torch.ops.kernels.ln_mlp_residual_q8 import (
     fc1_gelu_q8_plain,
     fc2_residual_q8_plain,
 )
 from vit_tpu_torch.ops.kernels.ln_qkv_attn import kmean_plain, packed_attention_plain
 from vit_tpu_torch.ops.kernels.out_ln_mlp_residual_q8 import out_proj_residual_plain
-from vit_tpu_torch.ops.quant import int8_matmul_reference, quantize_activations
+from vit_tpu_torch.ops.kernels.ln_qkv_attn_q8 import attention_q8_codes_plain, attention_q8_plain
+from vit_tpu_torch.ops.quant import int8_dot, int8_matmul_reference, quantize_activations
 
 # relative to the largest |value| of the twin's result (at least 1): fp32 —
 # only summation order and FMA contraction differ; bf16 — both round at the
@@ -68,12 +76,14 @@ def _close(report: dict, name: str, got, want, rtol: float) -> None:
 
 
 def _codes(report: dict, name: str, q, s, want_q, want_s, exact: bool = False) -> None:
-    """Check (a) for one row quantizer."""
-    if q.dtype != torch.int8 or s.dtype != torch.float32 or q.shape != want_q.shape:
-        raise AssertionError(f"{name}: codes {q.dtype} {tuple(q.shape)}, scales {s.dtype}")
+    """Check (a) for one row quantizer (``s`` None: a fixed scale)."""
+    if q.dtype != torch.int8 or q.shape != want_q.shape or (
+            s is not None and s.dtype != torch.float32):
+        raise AssertionError(f"{name}: codes {q.dtype} {tuple(q.shape)}, scales "
+                             f"{None if s is None else s.dtype}")
     step = (q.int() - want_q.int()).abs()
     share = (step != 0).float().mean().item()
-    srel = ((s - want_s).abs() / want_s).max().item()
+    srel = 0.0 if s is None else ((s - want_s).abs() / want_s).max().item()
     report[f"{name} flipped"] = share
     report[f"{name} scale rel"] = srel
     if q.int().abs().max().item() > 127:
@@ -148,3 +158,52 @@ def check_ln_mlp_residual_q8(st: dict, end, x2d, ln_scale, ln_bias, w1q, w1s, b1
     """K17's stages ``st`` (``_ln_mlp_residual_q8_stages``)."""
     return check_mlp_q8(st, end, x2d, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, eps,
                         gelu_variant, x2d.dtype)
+
+
+def check_ln_qkv_attn_q8a(st: dict, end, x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads,
+                          seq_len, eps, quant_pv=True) -> dict:
+    """K19's stages ``st`` (``_ln_qkv_attn_q8a_stages``, with ``p8`` when
+    ``quant_pv``) and ``end``, the whole twin's context: stages 1-2 as
+    K15's; the q, k (and v, p) codes by check (a) on the kernel's packed QKV
+    and scores; the context against the twin's on the kernel's codes (and
+    p codes), by check (b)."""
+    report = check_ln_qkv_attn_q8({k: st[k] for k in ("hq", "hs", "qkv")}, st["qkv"], x2d,
+                                  ln_scale, ln_bias, wq, w_scale, bqkv, num_heads, seq_len, eps)
+    del report["end to end"]  # the packed QKV against itself
+    want = attention_q8_codes_plain(st["qkv"], num_heads, seq_len, quant_pv)
+    for name in ("q", "k", "v")[: 3 if quant_pv else 2]:
+        _codes(report, f"{name}8", st[f"{name}8"], st[f"{name}s"], want[f"{name}8"],
+               want[f"{name}s"])
+    ctx, p8 = attention_q8_plain(st, st["qkv"], num_heads, seq_len, quant_pv)
+    if quant_pv:
+        _codes(report, "p8", st["p8"], None, p8, None)
+        ctx, _ = attention_q8_plain(st, st["qkv"], num_heads, seq_len, quant_pv, p8=st["p8"])
+    _close(report, "ctx", st["ctx"], ctx, STAGE_RTOL[x2d.dtype])
+    _close(report, "end to end", st["ctx"], end, END_RTOL)
+    return report
+
+
+def check_ln_fc1_gelu_q8(st: dict, end, x2d, ln_scale, ln_bias, w1q, w1s, b1, eps,
+                         gelu_variant="exact", fast_erf=False) -> dict:
+    """K18a's stages ``st`` (``_ln_fc1_gelu_q8_stages``) and ``end``, the
+    whole twin's ``mid``."""
+    report = {}
+    _codes(report, "hq", st["hq"], st["hs"],
+           *quantize_activations(_ln(x2d, ln_scale, ln_bias, eps)))
+    mid = _gelu(int8_matmul_reference(st["hq"], st["hs"], w1q, w1s.float(), b1.float()),
+                gelu_variant, fast_erf=fast_erf)
+    _close(report, "mid", st["mid"], mid, STAGE_RTOL[torch.float32])
+    _close(report, "end to end", st["mid"], end, END_RTOL)
+    return report
+
+
+def check_fc2_q8_partial(st: dict, end, mid, ms, w2q) -> dict:
+    """K18b's stages ``st`` (``_fc2_q8_partial_stages``) and ``end``, the
+    twin's int32 sums: codes and sums bit for bit."""
+    if not torch.equal(st["mq"], requantize_plain(mid, ms)):
+        raise AssertionError("mq: codes differ from the twin's on the same mid and row scales")
+    if st["out"].dtype != torch.int32 or not torch.equal(st["out"], end):
+        raise AssertionError("out: int32 sums differ from the twin's")
+    if not torch.equal(st["out"], int8_dot(st["mq"], w2q).to(torch.int32)):
+        raise AssertionError("out: int32 sums differ from the exact product of the codes")
+    return {"mq": 0.0, "out": 0.0}

@@ -6,7 +6,8 @@ import importlib
 
 # the module of a wrapper whose name is not its module's
 _MODULE_OF = {"flash_attention_fwd": "flash_attention", "ln_qkv_q8": "ln_qkv_attn_q8",
-              "scaled_dot_product_attention": "attention", "adamw_update": "adamw"}
+              "scaled_dot_product_attention": "attention", "adamw_update": "adamw",
+              "ln_qkv_attn_q8a": "ln_qkv_attn_q8"}
 
 
 def wrapper(name: str):

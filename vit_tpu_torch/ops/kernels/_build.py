@@ -61,6 +61,9 @@ SIGNATURES = {
     # x, ln_scale, ln_bias, w1, b1, w2, b2, stats, g, out,
     # rows, d, f, eps, gelu_variant, dtype, device, stream
     "vt_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # x, ln_scale, ln_bias, w1, b1, w2, stats, g, out,
+    # rows, d, f, eps, gelu_variant, dtype, device, stream
+    "vt_ln_mlp_partial": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _I, _P],
     # dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, dx1, dctx, dgamma,
     # dbeta, dw1, db1, dw2, db2, dwo, dbo, workspace,
     # rows, d, f, d_ctx, eps, gelu_variant, dtype, device, stream
@@ -112,6 +115,15 @@ SIGNATURES = {
     "vt_ln_mlp_residual_q8": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _I, _P],
     # a, sa, b, sb, out, m, n, k, device, stream
     "vt_gemm_q8_dequant": [_P] * 5 + [_I] * 4 + [_P],
+    # x, ln_scale, ln_bias, w1q, w1s, b1, hq, hs, mid, rows, d, f, eps,
+    # gelu_variant, fast_erf, dtype, device, stream
+    "vt_ln_fc1_gelu_q8": [_P] * 9 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+    # mid, ms, w2q, mq, out, rows, f, d, device, stream
+    "vt_fc2_q8_partial": [_P] * 5 + [_I] * 4 + [_P],
+    # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, q8, qs, k8, ks, v8, vs,
+    # p8, ctx, batch, seq, d, heads, head_dim, quant_pv, eps, dtype, device,
+    # stream
+    "vt_ln_qkv_attn_q8a": [_P] * 17 + [_I] * 6 + [_F, _I, _I, _P],
     # q, <strides>, k, <strides>, v, <strides>, out, <strides>, batch, heads,
     # seq, head_dim, dtype, device, stream
     "vt_scaled_dot_product_attention": ([_P] + _L3) * 4 + [_I] * 6 + [_P],

@@ -2,8 +2,14 @@
 (``csrc/ln_mlp_residual.cu``).
 
 Replaces ``vit_tpu/ops/pallas/fused_block.py:ln_mlp_residual`` (pallas_call
-at :469; body ``_ln_mlp_kernel`` :422), in its non-``partial`` form
-without ``return_u``.
+at :469; body ``_ln_mlp_kernel`` :422), without ``return_u``, in both its
+forms: the block's, and ``partial=True`` — tensor parallelism's
+(``parallel/tp_forward.py``): W1/b1 hold this shard's hidden columns and
+W2 the matching rows, and the kernel returns the fp32 partial ``g @ W2``
+with no b2 and no residual (``fused_block.py:435-436, :457``), which the
+shards sum.  The partial form is the same source with another FC2
+epilogue (a template argument, ``StoreEpi<float>``), so the block's form
+keeps its machine code; both count in ``ln_mlp_residual.launches``.
 
 What bounds it on the H100: two GEMMs (B/16 batch 64: 12,608 rows, D = 768,
 F = 3,072; 2 x 60 GFLOP) of tensor-core work.  The TPU kernel keeps W1 and
@@ -37,30 +43,42 @@ def ln_mlp_residual_plain(
     return (g.float() @ w2.float() + b2.float() + x2d.float()).to(dtype)
 
 
+def ln_mlp_partial_plain(x2d, ln_scale, ln_bias, w1, b1, w2, eps,
+                         gelu_variant: str = "exact") -> torch.Tensor:
+    """Plain twin of the partial form: fp32 ``g @ W2``, g rounded to the
+    dtype as in the block's form."""
+    dtype = x2d.dtype
+    h = _ln(x2d, ln_scale, ln_bias, eps).to(dtype)
+    u = h.float() @ w1.float() + b1.float()
+    g = _gelu(u, gelu_variant, fast_erf=use_fast_erf(dtype)).to(dtype)
+    return g.float() @ w2.float()
+
+
 def ln_mlp_residual(
     x2d, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_variant: str = "exact",
     partial: bool = False, return_u: bool = False,
 ) -> torch.Tensor:
-    """x + MLP(LN2(x)) over (B*T, D) rows.  CPU tensors take the plain
-    twin; CUDA tensors launch the kernel.  ``partial`` (tensor-parallel)
-    and ``return_u`` (pre-GELU stash) belong to later slices of the port
-    and raise."""
+    """x + MLP(LN2(x)) over (B*T, D) rows; with ``partial`` the fp32
+    ``MLP(LN2(x)) - b2`` of this shard's hidden columns (b2 is then not
+    read).  CPU tensors take the plain twin; CUDA tensors launch the
+    kernel.  ``return_u`` (the pre-GELU stash; no caller) raises."""
     name = "ln_mlp_residual"
-    if partial or return_u:
+    if return_u:
         raise NotImplementedError(
-            f"{name}: partial= (tensor parallel) and return_u= (the stash "
-            "hook) are not ported yet (ROADMAP.md)"
+            f"{name}: return_u= (the stash hook; no caller) is not ported yet (ROADMAP.md)"
         )
     if x2d.device.type == "cpu":
+        if partial:
+            return ln_mlp_partial_plain(x2d, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant)
         return ln_mlp_residual_plain(
             x2d, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_variant
         )
     if gelu_variant not in GELU_VARIANTS:
         raise ValueError(f"{name}: gelu_variant {gelu_variant!r} not in {tuple(GELU_VARIANTS)}")
-    _build.check_operands(name, x2d, ln_scale, ln_bias, w1, b1, w2, b2)
+    _build.check_operands(name, x2d, ln_scale, ln_bias, w1, b1, w2, *(() if partial else (b2,)))
     rows, d = x2d.shape
     f = w1.shape[-1]
-    for n, t in (("ln_scale", ln_scale), ("ln_bias", ln_bias), ("b2", b2)):
+    for n, t in (("ln_scale", ln_scale), ("ln_bias", ln_bias), *(() if partial else (("b2", b2),))):
         _build.check_shape(name, n, t, (d,))
     _build.check_shape(name, "w1", w1, (d, f))
     _build.check_shape(name, "b1", b1, (f,))
@@ -68,8 +86,21 @@ def ln_mlp_residual(
     dev = x2d.device
     stats = torch.empty(2 * rows, dtype=torch.float32, device=dev)
     g = torch.empty(rows, f, dtype=x2d.dtype, device=dev)
-    out = torch.empty(rows, d, dtype=x2d.dtype, device=dev)
     lib = _build.load_library()
+    if partial:
+        out = torch.empty(rows, d, dtype=torch.float32, device=dev)
+        _build.check(
+            lib.vt_ln_mlp_partial(
+                x2d.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
+                b1.data_ptr(), w2.data_ptr(), stats.data_ptr(), g.data_ptr(), out.data_ptr(),
+                rows, d, f, eps, GELU_VARIANTS[gelu_variant], _build.DTYPE_CODES[x2d.dtype],
+                dev.index, _build.stream_of(x2d),
+            ),
+            name,
+        )
+        ln_mlp_residual.launches += 1
+        return out
+    out = torch.empty(rows, d, dtype=x2d.dtype, device=dev)
     _build.check(
         lib.vt_ln_mlp_residual(
             x2d.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),

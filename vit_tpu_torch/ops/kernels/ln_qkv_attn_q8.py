@@ -35,6 +35,19 @@ Token merging's hooks are K1's (``ln_qkv_attn.py``) on the same attention
 stage: ``log_size`` biases the key logits, ``return_kmean`` also returns
 the mean key over heads, read from the dequantized packed QKV — the q8
 path's keys, as in the TPU kernel.
+
+K19 :func:`ln_qkv_attn_q8a` (``csrc/ln_qkv_attn_q8a.cu``) replaces
+``quant_kernels.py:ln_qkv_attn_q8a`` (def :357; the pallas_call at :133
+with ``attn_q8=True``, per-head math ``_head_context_q8`` :314): K15's
+stages 1-2, then attention with int8 dots — q codes per (row, head), k
+codes per (key, head) (the TPU kernel transposes k before quantizing, so
+each key has its own scale), an exact int32 q·kᵀ, e = exp(s - m), and with
+``quant_pv`` p8 = round(127 e) at the fixed scale, v codes per (image, head,
+column) and an exact int32 p8·v8 dequantized by (1/sum)(1/127) vs;
+``quant_pv=False`` keeps p·v in the working dtype.  The dots run as
+``__dp4a`` on the CUDA cores (right first; not the tensor cores).  Only the
+kernel study (``cli/bench_kernels.py``) calls it; it takes no token-merging
+hook, as the TPU kernel takes none.
 """
 
 from __future__ import annotations
@@ -49,7 +62,12 @@ from vit_tpu_torch.ops.kernels.ln_qkv_attn import (
     kmean_plain,
     packed_attention_plain,
 )
-from vit_tpu_torch.ops.quant import int8_matmul_reference, quantize_activations
+from vit_tpu_torch.ops.quant import (
+    _symmetric_int8,
+    int8_dot,
+    int8_matmul_reference,
+    quantize_activations,
+)
 
 
 def ln_qkv_q8_plain(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps):
@@ -71,6 +89,37 @@ def ln_qkv_attn_q8_plain(
     return (ctx, kmean_plain(qkv, num_heads)) if return_kmean else ctx
 
 
+def _qkv_q8_scratch(name, x2d, ln_scale, ln_bias, wq, w_scale, bqkv) -> dict:
+    """Raise on what stages 1-2 do not take; -> their scratches {hq, hs,
+    qkv} on x's device."""
+    _build.check_q8_operands(name, x2d, (ln_scale, ln_bias, bqkv), (wq,), (w_scale,))
+    rows, d = x2d.shape
+    d3 = wq.shape[-1]
+    _build.check_shape(name, "ln_scale", ln_scale, (d,))
+    _build.check_shape(name, "ln_bias", ln_bias, (d,))
+    _build.check_shape(name, "wq", wq, (d, d3))
+    _build.check_shape(name, "w_scale", w_scale, (d3,))
+    _build.check_shape(name, "bqkv", bqkv, (d3,))
+    dev = x2d.device
+    return {"hq": torch.empty(rows, d, dtype=torch.int8, device=dev),
+            "hs": torch.empty(rows, dtype=torch.float32, device=dev),
+            "qkv": torch.empty(rows, d3, dtype=x2d.dtype, device=dev)}
+
+
+def _head_dim(name, d3, rows, num_heads, seq_len) -> int:
+    """The head width of a packed QKV of width ``d3``; raises unless the
+    attention stage is instantiated for it."""
+    if d3 % (3 * num_heads) or rows % seq_len:
+        raise ValueError(
+            f"{name}: W_qkv width {d3} is not 3 x {num_heads} heads, or "
+            f"{rows} rows are not whole sequences of {seq_len}"
+        )
+    dh = d3 // (3 * num_heads)
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {dh} not in {HEAD_DIMS}")
+    return dh
+
+
 def _stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps, attention=None, log_size=None,
             return_kmean=False):
     """-> {hq, hs, qkv} of stages 1-2, and with ``attention = (num_heads,
@@ -87,31 +136,16 @@ def _stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps, attention=None, log_
         return st
     fn = ln_qkv_attn_q8 if attention else ln_qkv_q8
     name = fn.__name__
-    _build.check_q8_operands(name, x2d, (ln_scale, ln_bias, bqkv), (wq,), (w_scale,))
+    st = _qkv_q8_scratch(name, x2d, ln_scale, ln_bias, wq, w_scale, bqkv)
     rows, d = x2d.shape
     d3 = wq.shape[-1]
-    _build.check_shape(name, "ln_scale", ln_scale, (d,))
-    _build.check_shape(name, "ln_bias", ln_bias, (d,))
-    _build.check_shape(name, "wq", wq, (d, d3))
-    _build.check_shape(name, "w_scale", w_scale, (d3,))
-    _build.check_shape(name, "bqkv", bqkv, (d3,))
     dev = x2d.device
-    st = {"hq": torch.empty(rows, d, dtype=torch.int8, device=dev),
-          "hs": torch.empty(rows, dtype=torch.float32, device=dev),
-          "qkv": torch.empty(rows, d3, dtype=x2d.dtype, device=dev)}
     operands = [t.data_ptr() for t in (x2d, ln_scale, ln_bias, wq, w_scale, bqkv, *st.values())]
     tail = (eps, _build.DTYPE_CODES[x2d.dtype], dev.index, _build.stream_of(x2d))
     lib = _build.load_library()
     if attention:
         num_heads, seq_len = attention
-        if d3 % (3 * num_heads) or rows % seq_len:
-            raise ValueError(
-                f"{name}: W_qkv width {d3} is not 3 x {num_heads} heads, or "
-                f"{rows} rows are not whole sequences of {seq_len}"
-            )
-        dh = d3 // (3 * num_heads)
-        if dh not in HEAD_DIMS:
-            raise ValueError(f"{name}: head_dim {dh} not in {HEAD_DIMS}")
+        dh = _head_dim(name, d3, rows, num_heads, seq_len)
         _check_log_size(name, log_size, x2d, seq_len)
         st["ctx"] = torch.empty(rows, d3 // 3, dtype=x2d.dtype, device=dev)
         if return_kmean:
@@ -164,6 +198,129 @@ def _ln_qkv_attn_q8_stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads,
     card checks."""
     return _stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps, (num_heads, seq_len),
                    log_size, return_kmean)
+
+
+# -- K19: int8 attention dots ---------------------------------------------------
+
+
+def attention_q8_codes_plain(qkv, num_heads: int, seq_len: int, quant_pv: bool = True) -> dict:
+    """Stage 3a's twin: the packed QKV (B*T, 3D) -> codes and scales of the
+    attention operands, in the kernel's layouts: q8/k8 (B*T, D) int8 with
+    qs/ks (B*T, H) fp32 (per row and head, over dh), and with ``quant_pv``
+    v8 (B*T, D) with vs (B, H, dh) (per image, head and column, over the
+    image's tokens)."""
+    rows, d3 = qkv.shape
+    dh = d3 // (3 * num_heads)
+    b = rows // seq_len
+    q, k, v = qkv.float().reshape(b, seq_len, num_heads, 3, dh).unbind(3)  # (B, T, H, dh)
+    (q8, qs), (k8, ks) = quantize_activations(q), quantize_activations(k)
+    out = {"q8": q8.reshape(rows, -1), "qs": qs.reshape(rows, num_heads),
+           "k8": k8.reshape(rows, -1), "ks": ks.reshape(rows, num_heads)}
+    if quant_pv:
+        v8, vs = _symmetric_int8(v, v.abs().amax(dim=1, keepdim=True))
+        out.update(v8=v8.reshape(rows, -1), vs=vs.reshape(b, num_heads, dh))
+    return out
+
+
+def attention_q8_plain(codes: dict, qkv, num_heads: int, seq_len: int, quant_pv: bool = True,
+                       p8=None):
+    """Stage 3b's twin on given codes (``_head_context_q8``): -> (context
+    (B*T, D) in qkv's dtype, p8 (B, H, T, T) int8, or None without
+    ``quant_pv``).  A given ``p8`` (the kernel's) replaces the twin's own in
+    p8·v8; the row sums stay the twin's."""
+    rows, d3 = qkv.shape
+    dh = d3 // (3 * num_heads)
+    b = rows // seq_len
+
+    def heads(a):  # (B*T, H*w) -> (B, H, T, w)
+        return a.reshape(b, seq_len, num_heads, -1).permute(0, 2, 1, 3)
+
+    scale = torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32)
+    qs, ks = heads(codes["qs"]), heads(codes["ks"]).transpose(-1, -2)  # (B,H,T,1), (B,H,1,T)
+    s = int8_dot(heads(codes["q8"]), heads(codes["k8"]).transpose(-1, -2)).float()
+    s = s * (qs * scale) * ks
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    total = e.sum(-1, keepdim=True)
+    inv = torch.ones_like(total) / total
+    if quant_pv:
+        if p8 is None:
+            p8 = torch.round(e * 127.0).to(torch.int8)  # the fixed scale: e <= 1
+        ctx = int8_dot(p8, heads(codes["v8"])).float() * (inv * (1.0 / 127.0))
+        ctx = ctx * codes["vs"][:, :, None, :]
+    else:
+        v = heads(qkv.reshape(b, seq_len, num_heads, 3, dh)[:, :, :, 2].reshape(rows, -1))
+        ctx, p8 = (e * inv).to(qkv.dtype).float() @ v.float(), None
+    return ctx.permute(0, 2, 1, 3).reshape(rows, -1).to(qkv.dtype), p8
+
+
+def ln_qkv_attn_q8a_plain(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads: int,
+                          seq_len: int, eps: float, quant_pv: bool = True) -> torch.Tensor:
+    """Plain twin of K19: fp32 compute with the TPU kernel's quantization
+    grouping and rounding points."""
+    qkv = ln_qkv_q8_plain(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps)[2]
+    codes = attention_q8_codes_plain(qkv, num_heads, seq_len, quant_pv)
+    return attention_q8_plain(codes, qkv, num_heads, seq_len, quant_pv)[0]
+
+
+def _ln_qkv_attn_q8a_stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads, seq_len, eps,
+                            quant_pv=True, return_p=False) -> dict:
+    """-> {hq, hs, qkv, q8, qs, k8, ks, ctx} (and {v8, vs} with ``quant_pv``,
+    {p8} with ``return_p`` too): the kernel's scratches and output on the
+    card (one launch), the twin's on the CPU."""
+    name = "ln_qkv_attn_q8a"
+    if x2d.device.type == "cpu":
+        st = dict(zip(("hq", "hs", "qkv"),
+                      ln_qkv_q8_plain(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps)))
+        st.update(attention_q8_codes_plain(st["qkv"], num_heads, seq_len, quant_pv))
+        st["ctx"], p8 = attention_q8_plain(st, st["qkv"], num_heads, seq_len, quant_pv)
+        if return_p and quant_pv:
+            st["p8"] = p8
+        return st
+    st = _qkv_q8_scratch(name, x2d, ln_scale, ln_bias, wq, w_scale, bqkv)
+    rows, d = x2d.shape
+    d3 = wq.shape[-1]
+    dh = _head_dim(name, d3, rows, num_heads, seq_len)
+    dev, b = x2d.device, rows // seq_len
+
+    def new(*shape, dtype=torch.int8):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    st.update(q8=new(rows, d3 // 3), qs=new(rows, num_heads, dtype=torch.float32),
+              k8=new(rows, d3 // 3), ks=new(rows, num_heads, dtype=torch.float32))
+    if quant_pv:
+        st.update(v8=new(rows, d3 // 3), vs=new(b, num_heads, dh, dtype=torch.float32))
+        if return_p:
+            st["p8"] = new(b, num_heads, seq_len, seq_len)
+    st["ctx"] = new(rows, d3 // 3, dtype=x2d.dtype)
+    ptr = lambda key: _build.ptr_or_null(st.get(key))  # noqa: E731
+    _build.check(
+        _build.load_library().vt_ln_qkv_attn_q8a(
+            *(t.data_ptr() for t in (x2d, ln_scale, ln_bias, wq, w_scale, bqkv)),
+            *(ptr(k) for k in ("hq", "hs", "qkv", "q8", "qs", "k8", "ks", "v8", "vs", "p8",
+                               "ctx")),
+            b, seq_len, d, num_heads, dh, int(bool(quant_pv)), eps,
+            _build.DTYPE_CODES[x2d.dtype], dev.index, _build.stream_of(x2d),
+        ),
+        name,
+    )
+    ln_qkv_attn_q8a.launches += 1
+    return st
+
+
+def ln_qkv_attn_q8a(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads: int, seq_len: int,
+                    eps: float, quant_pv: bool = True, log_size=None,
+                    return_kmean: bool = False) -> torch.Tensor:
+    """(B*T, D) -> attention context (B*T, D): K15 with int8 q·kᵀ and, with
+    ``quant_pv``, int8 p·v.  Token merging's hooks raise, as the TPU
+    kernel's do.  CPU tensors take the plain twin; CUDA tensors launch the
+    kernel."""
+    if log_size is not None or return_kmean:
+        raise ValueError("the int8-attention study kernel has no ToMe hooks")
+    return _ln_qkv_attn_q8a_stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads,
+                                   seq_len, eps, quant_pv)["ctx"]
+
+
+ln_qkv_attn_q8a.launches = 0
 
 
 def gemm_q8_dequant(x_q, s_x, w_q, s_w) -> torch.Tensor:

@@ -1,0 +1,101 @@
+"""Tensor-parallel sharding rules for the ViT params tree — counterpart of
+``vit_tpu.parallel.sharding``'s ``param_pspecs`` and ``shard_params``.
+
+Megatron-style over heads and the MLP hidden axis (``tp``):
+
+  * wqkv (L, D, 3D) column-parallel on the packed output axis — the
+    loader's (head, {q,k,v}, head_dim) column order makes a contiguous block
+    of 3D/tp columns whole heads;
+  * wo (L, D, D) row-parallel on its input axis (each shard contributes a
+    partial out_proj, summed across shards);
+  * w1 (L, D, F) column-parallel, w2 (L, F, D) row-parallel;
+  * the int8 tree's per-column scales follow their weight's output axis:
+    wqkv_scale and w1_scale split, w2_scale whole;
+  * LN params, embeddings, the class and distillation tokens and both heads
+    whole on every rank.
+
+A rule is a tuple with one entry per axis of the leaf, the mesh axis that
+splits it or None (the JAX package's ``PartitionSpec``).  The batch is the
+``dp`` axis, split by the forward (``shard_forward.py``); params are whole
+over ``dp``.  ZeRO-1 and FSDP (``zero1_pspec``, ``fsdp_param_shardings``)
+come with the port's parallel training.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from vit_tpu_torch.parallel.mesh import Mesh
+
+
+def _pspec(axis_names, *spec) -> tuple:
+    # drop axis names the mesh doesn't have (the same rules serve dp-only
+    # or tp-only meshes)
+    return tuple(s if s in axis_names else None for s in spec)
+
+
+def param_pspecs(axis_names, params: Any) -> Any:
+    """The rule tree matching ``params`` (the fp tree or the quantized one,
+    whose int8 weights carry ``*_scale`` companions)."""
+    rep1 = _pspec(axis_names)  # whole on every rank
+
+    block_rules = {
+        "ln1_scale": _pspec(axis_names, None, None),
+        "ln1_bias": _pspec(axis_names, None, None),
+        "wqkv": _pspec(axis_names, None, None, "tp"),   # column-parallel QKV
+        "bqkv": _pspec(axis_names, None, "tp"),
+        "wo": _pspec(axis_names, None, "tp", None),     # row-parallel out_proj
+        "bo": _pspec(axis_names, None, None),
+        "ln2_scale": _pspec(axis_names, None, None),
+        "ln2_bias": _pspec(axis_names, None, None),
+        "w1": _pspec(axis_names, None, None, "tp"),     # column-parallel MLP in
+        "b1": _pspec(axis_names, None, "tp"),
+        "w2": _pspec(axis_names, None, "tp", None),     # row-parallel MLP out
+        "b2": _pspec(axis_names, None, None),
+        # quantization scales (present only on the quantized tree)
+        "wqkv_scale": _pspec(axis_names, None, "tp"),
+        "w1_scale": _pspec(axis_names, None, "tp"),
+        "w2_scale": _pspec(axis_names, None, None),
+    }
+    present = {k: v for k, v in block_rules.items() if k in params.get("blocks", {})}
+    out = {
+        "cls_token": rep1,
+        "patch_embed": {"kernel": rep1, "bias": rep1},
+        "pos_embed": rep1,
+        "blocks": present,
+        "ln_final": {"scale": rep1, "bias": rep1},
+    }
+    if "head" in params:
+        out["head"] = {"kernel": rep1, "bias": rep1}
+    if "dist_token" in params:  # DeiT: whole, like CLS and the head
+        out["dist_token"] = rep1
+        out["head_dist"] = {"kernel": rep1, "bias": rep1}
+    return out
+
+
+def _local(leaf: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        n, k = mesh.size(axis), mesh.index(axis)
+        if leaf.shape[dim] % n:
+            raise ValueError(f"axis {dim} of a {tuple(leaf.shape)} leaf does not split "
+                             f"over {axis}={n}")
+        step = leaf.shape[dim] // n
+        leaf = leaf.narrow(dim, k * step, step)
+    return leaf.contiguous()
+
+
+def shard_params(params: Any, mesh: Mesh) -> Any:
+    """This rank's part of ``params``: every leaf cut along the axes of its
+    rule at this rank's coordinates (a contiguous copy; a leaf its rule
+    keeps whole is the same tensor)."""
+    specs = param_pspecs(mesh.axis_names, params)
+
+    def rec(tree, spec):
+        return {k: rec(v, spec[k]) if isinstance(v, dict) else _local(v, spec[k], mesh)
+                for k, v in tree.items()}
+
+    return rec(params, specs)

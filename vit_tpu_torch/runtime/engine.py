@@ -9,8 +9,15 @@ shapes, and so their timings, stable across request sizes).
 the CPU instead.  ``tome_r`` classifies through token merging
 (``models/tome.py``) on ``fused``, ``quant`` or ``eager``.
 ``phase_report`` times the forward phase by phase through the op table's
-per-op ``attention``/``mlp``.  Meshes (``mesh``) wait for their slice of
-the port.
+per-op ``attention``/``mlp``.
+
+``mesh`` (``parallel.make_mesh``) runs the forward SPMD over the ranks of
+``torch.distributed``, one engine per rank, each given the whole batch: a
+mesh with ``tp`` = 1 splits the batch over ``dp`` for any op table
+(``parallel/shard_forward.py``); ``tp`` > 1 on ``fused`` or ``quant`` also
+splits the heads and the MLP hidden axis over ``tp``
+(``parallel/tp_forward.py``), each rank holding its shard of the prepared
+weights.  Every rank returns the whole batch's logits.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ class InferenceEngine:
       gelu_variant: 'exact' (erf) or 'tanh'.
       tome_r: ToMe token merging — merge this many token pairs per layer
         on the default schedule (0: none, the plain forward).
+      mesh: this rank's ``parallel.Mesh`` (None: one process, one device);
+        the batch splits over 'dp', the weights over 'tp'.
     """
 
     def __init__(
@@ -58,6 +67,7 @@ class InferenceEngine:
         batch_pad: int = 32,
         gelu_variant: str = "exact",
         tome_r: int = 0,
+        mesh=None,
     ):
         if dtype not in _DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {tuple(_DTYPES)}")
@@ -70,7 +80,9 @@ class InferenceEngine:
         self._ops = get_ops(ops)
         self._gelu_variant = gelu_variant
         self.tome_r = int(tome_r)
+        self.mesh = mesh
         self._tome_forward = None
+        tp = mesh.size("tp") if mesh is not None else 1
         if self.tome_r:
             from vit_tpu_torch.models import tome
 
@@ -79,8 +91,41 @@ class InferenceEngine:
                         "eager": tome.forward_eager}
             if self._ops.name not in forwards:
                 raise ValueError("tome_r (token merging) supports ops='fused', 'quant' or 'eager'")
+            if tp != 1:
+                raise ValueError(
+                    "tome_r shards data-parallel only (no tp): the merge "
+                    "keeps whole tokens per device"
+                )
             self._tome_forward = forwards[self._ops.name]
+        self._tp_shard = False
+        if tp > 1:
+            # the kernel paths split heads and the MLP hidden axis over tp
+            # with all-reduces (parallel/tp_forward.py) on 'fused' and
+            # 'quant'; the JAX package's 'xla' tier gets tp from GSPMD,
+            # which the port does not have
+            if self._ops.name in ("fused", "quant"):
+                if cfg.num_heads % tp or cfg.mlp_dim % tp:
+                    raise ValueError(
+                        f"tp={tp} must divide num_heads={cfg.num_heads} and "
+                        f"mlp_dim={cfg.mlp_dim}"
+                    )
+                self._tp_shard = True
+            elif self._ops.name == "eager":
+                raise NotImplementedError(
+                    "ops='eager' with tp > 1: the JAX package partitions its plain tier with "
+                    "GSPMD, which the port does not have; tensor parallelism runs on "
+                    "'fused' or 'quant' (ROADMAP.md item 14)"
+                )
+            else:
+                raise ValueError(
+                    f"ops={self._ops.name!r} shards data-parallel only "
+                    "(the per-op pallas tier exists for kernel debugging, "
+                    "not production); tensor-parallel meshes need "
+                    "ops='xla' (GSPMD), 'fused', or 'quant' (shard_map "
+                    "kernel TP)"
+                )
         self.params = self._prepare_params(params)
+        self._forward = self._sharded(return_features=False)
 
     def _prepare_params(self, params):
         """Loader-fresh pytree -> params on this engine's device, floating
@@ -91,8 +136,35 @@ class InferenceEngine:
             from vit_tpu_torch.ops import quant
 
             params = quant.quantize_params(params_from_numpy(params, self.device))
-            return quant.cast_quantized_params(params, self.compute_dtype)
-        return params_from_numpy(params, self.device, self.compute_dtype)
+            params = quant.cast_quantized_params(params, self.compute_dtype)
+        else:
+            params = params_from_numpy(params, self.device, self.compute_dtype)
+        if self._tp_shard:  # this rank's shard of the prepared tree
+            from vit_tpu_torch.parallel.sharding import shard_params
+
+            params = shard_params(params, self.mesh)
+        return params
+
+    def _sharded(self, return_features: bool):
+        """-> forward(params, images) on this engine's op table and mesh."""
+        cfg, gelu = self.cfg, self._gelu_variant
+        if self._tp_shard:
+            from vit_tpu_torch.parallel.tp_forward import shard_forward_tp
+
+            return shard_forward_tp(cfg, self.mesh, self._ops.name, gelu,
+                                    return_features=return_features)
+        if self._tome_forward is not None:
+            def fwd(p, x):
+                return self._tome_forward(p, x, cfg, self.tome_r, gelu)
+        else:
+            def fwd(p, x):
+                return vit.forward(p, x, cfg, self._ops, gelu_variant=gelu,
+                                   return_features=return_features)
+        if self.mesh is None:
+            return fwd
+        from vit_tpu_torch.parallel.shard_forward import shard_forward_dp
+
+        return shard_forward_dp(fwd, self.mesh)
 
     def swap_params(self, params) -> None:
         """Replace the weights with a checkpoint of the same config (same
@@ -122,13 +194,7 @@ class InferenceEngine:
     def logits(self, images) -> torch.Tensor:
         """(B, C, H, W) -> (B, num_classes) fp32 logits (unpadded)."""
         x, n = self._stage(images)
-        if self._tome_forward is not None:
-            out = self._tome_forward(self.params, x, self.cfg, self.tome_r, self._gelu_variant)
-        else:
-            out = vit.forward(
-                self.params, x, self.cfg, self._ops, gelu_variant=self._gelu_variant
-            )
-        return out[:n]
+        return self._forward(self.params, x)[:n]
 
     def probabilities(self, images) -> torch.Tensor:
         return reference.softmax(self.logits(images))
@@ -144,11 +210,7 @@ class InferenceEngine:
                 "classify() merges — build a tome_r=0 engine for embeddings"
             )
         x, n = self._stage(images)
-        out = vit.forward(
-            self.params, x, self.cfg, self._ops,
-            gelu_variant=self._gelu_variant, return_features=True,
-        )
-        return out[:n]
+        return self._sharded(return_features=True)(self.params, x)[:n]
 
     def classify(self, images) -> Tuple[np.ndarray, np.ndarray]:
         """-> (labels, top_probs) as numpy arrays."""
@@ -169,6 +231,11 @@ class InferenceEngine:
         if self._ops.name == "quant":
             raise NotImplementedError(
                 "phase_report needs separable fp ops; use ops='eager'/'per_op'/'fused'"
+            )
+        if self._tp_shard:
+            raise NotImplementedError(
+                "phase_report runs the whole weights; on a tp > 1 engine each rank holds a "
+                "shard (the JAX package's GSPMD probe is not ported, ROADMAP.md item 14)"
             )
         timer = PhaseTimer()
         cfg = self.cfg
@@ -209,13 +276,15 @@ class InferenceEngine:
     # -- internals --------------------------------------------------------
 
     def _stage(self, images) -> Tuple[torch.Tensor, int]:
-        """Pad the batch up to a multiple of ``batch_pad`` and cast to the
-        compute dtype on the engine's device.  Tensors already on the
-        device are padded and cast there."""
+        """Pad the batch up to a multiple of ``batch_pad`` (and of the mesh's
+        ``dp``) and cast to the compute dtype on the engine's device.
+        Tensors already on the device are padded and cast there."""
         if not isinstance(images, torch.Tensor):
             images = torch.from_numpy(np.ascontiguousarray(images))
         n = images.shape[0]
         grain = self.batch_pad
+        if self.mesh is not None:
+            grain = math.lcm(grain, self.mesh.size("dp"))
         padded = max(grain, math.ceil(n / grain) * grain)
         x = images.to(device=self.device, dtype=self.compute_dtype)
         if padded != n:
