@@ -129,8 +129,9 @@ Phases (a failed phase raises; nothing is caught):
  31. the per-op kernels (K21 scaled_dot_product_attention on strided views
      of a packed QKV, as the per-op attention calls it; K22 mlp) against
      their plain twins, bf16 and fp32, at B/16 shapes for batch 100 and a
-     ragged batch of 3, K21 also at phase 26's head width 80, all timed, K21
-     beside ``F.scaled_dot_product_attention`` on the same q, k, v;
+     ragged batch of 3, K21 also at phase 26's head width 80, at @384 (T
+     577, batch 32) and at T 1,024 (batch 8, the switch to K13), all timed,
+     K21 beside ``F.scaled_dot_product_attention`` on the same q, k, v;
  32. the classify CLI with ``--ops per_op`` (25 K3, 12 K21, 12 K22; none of
      K1, K2, K13), counts set to 0 just before and read just after; then
      ``--profile`` on ``per_op`` and on ``fused``: its six phase lines
@@ -194,6 +195,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -830,6 +832,7 @@ def _inference_rates(cfg, params, x, ops_list, dev, card: str, what: str, rounds
     n = x.shape[0]
     engines, peak = {}, {}
     for ops in ops_list:
+        gc.collect()  # earlier phases' garbage freed here would make the peak read negative
         others = torch.cuda.memory_allocated() - x.numel() * x.element_size()
         engines[ops] = InferenceEngine(cfg, params, "bfloat16", ops, dev, batch_pad=n)
         engines[ops].logits(x)  # warm up
@@ -1816,7 +1819,8 @@ def per_op_kernel_cases(dev: torch.device):
     """-> ({kernel: [case]}, labels) for phase 31: K21 on strided views of a
     packed QKV (as the per-op attention calls it) and K22 at B/16 shapes for
     batch 100 and 3, bf16 and fp32, K21 also at phase 26's head width 80
-    (batch 8).  K21's library call is ``F.scaled_dot_product_attention`` on
+    (batch 8), at @384 (T 577, batch 32) and at the switch to K13 (T 1,024,
+    batch 8).  K21's library call is ``F.scaled_dot_product_attention`` on
     the same views."""
     import torch.nn.functional as F
 
@@ -1826,7 +1830,9 @@ def per_op_kernel_cases(dev: torch.device):
 
     d, h, f, t = B16["d"], B16["heads"], B16["f"], B16["t"]
     rn = _rand(dev, 31)
-    labels = {**PER_OP_KERNELS, "scaled_dot_product_attention dh80": ("K21 dh80",)}
+    long_t = {"t577": (32, (384 // 16) ** 2 + 1), "t1024": (8, 1024)}
+    labels = {**PER_OP_KERNELS, "scaled_dot_product_attention dh80": ("K21 dh80",),
+              **{f"scaled_dot_product_attention {n}": (f"K21 {n}",) for n in long_t}}
     cases = {name: [] for name in labels}
 
     def sdpa_case(tag, dtype, b, t, d, h):
@@ -1848,6 +1854,9 @@ def per_op_kernel_cases(dev: torch.device):
         b, t80, d80, h80 = H14["batch"], H14["t"], H14["d"], H14["heads"]
         cases["scaled_dot_product_attention dh80"].append(sdpa_case(
             _tag(dtype, b, b * t80) + f" T {t80} dh {d80 // h80}", dtype, b, t80, d80, h80))
+        for n, (b, tl) in long_t.items():
+            cases[f"scaled_dot_product_attention {n}"].append(sdpa_case(
+                _tag(dtype, b, b * tl) + f" T {tl}", dtype, b, tl, d, h))
     return cases, labels
 
 

@@ -381,7 +381,7 @@ def test_fused_block_grads_match_eager_autograd(dev):
 FLASH_CASES = {
     "t100_dh32": (2, 2, 100, 32), "t64_dh16": (1, 3, 64, 16), "t160_dh64": (2, 2, 160, 64),
     "t77_dh128": (1, 2, 77, 128), "b16_t1025": (1, 12, 1025, 64), "t2048": (1, 2, 2048, 64),
-    "h14_t257_dh80": (2, 16, 257, 80),
+    "h14_t257_dh80": (2, 16, 257, 80), "t1_dh64": (2, 3, 1, 64), "t65_dh64": (2, 2, 65, 64),
 }
 
 
@@ -426,6 +426,41 @@ def test_flash_attention_bwd(dev, dtype, case):
     out, lse = flash_attention_fwd_plain(q, k, v, True)
     _check_all(flash_attention_bwd(q, k, v, out, lse, do),
                flash_attention_bwd_plain(q, k, v, out, lse, do))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_bwd_is_deterministic(dev, dtype):
+    # no atomics, fixed-order sums: two runs on strided views of a packed
+    # QKV give the same bits
+    from vit_tpu_torch.ops.flash_attention import packed_views
+
+    b, h, t, dh = FLASH_CASES["b16_t1025"]
+    q, k, v = packed_views(_rn(dev, 62, b * t, 3 * h * dh, dtype=dtype), b, t, h, 3)
+    do = _rn(dev, 63, b, h, t, dh, dtype=dtype)
+    out, lse = flash_attention_fwd(q, k, v, return_lse=True)
+    first = [g.clone() for g in flash_attention_bwd(q, k, v, out, lse, do)]
+    for a, b_ in zip(first, flash_attention_bwd(q, k, v, out, lse, do)):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_refuses_unaligned_views(dev):
+    # 16-byte loads and stores: a base or token stride off the 16-byte grid raises
+    from vit_tpu_torch.ops.flash_attention import packed_views
+
+    b, h, t, dh = 1, 2, 70, 64
+    q, k, v = _qkv4(dev, torch.bfloat16, b, h, t, dh)
+    do = _rn(dev, 50, b, h, t, dh, dtype=torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, return_lse=True)
+    flat = _rn(dev, 64, b * h * t * dh + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + b * h * t * dh].view(b, h, t, dh)  # base 2 bytes off
+    with pytest.raises(ValueError, match="do must start on a 16-byte boundary"):
+        flash_attention_bwd(q, k, v, out, lse, shifted)
+    wide = _rn(dev, 65, b * t, 3 * h * dh + 4, dtype=torch.bfloat16)  # token stride 392 bytes
+    qs, ks, vs = packed_views(wide[:, :3 * h * dh], b, t, h, 3)
+    with pytest.raises(ValueError, match="q must start on a 16-byte boundary"):
+        flash_attention_bwd(qs, ks, vs, out, lse, do)
 
 
 @pytest.mark.cuda
@@ -869,6 +904,65 @@ def test_scaled_dot_product_attention_packed_views(dev, dtype, b, t, d, h):
     q5, k5, v5 = (x.contiguous().reshape(1, b, h, t, d // h) for x in (q, k, v))
     _check(k21.scaled_dot_product_attention(q5, k5, v5),
            k21.scaled_dot_product_attention_plain(q5, k5, v5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("t", [1, 15, 17, 63, 65, 197, 577, 1024])
+def test_scaled_dot_product_attention_ragged(dev, dtype, dh, t):
+    # T around every 16-row warp edge and 64-row tile edge, up to the switch
+    # to K13, at every head width, on strided views of a packed QKV
+    from vit_tpu_torch.ops.flash_attention import packed_views
+    from vit_tpu_torch.ops.kernels import attention as k21
+
+    b, h = 2, 2
+    qkv = _rn(dev, t + dh, b * t, 3 * h * dh, scale=2.0, dtype=dtype)
+    q, k, v = packed_views(qkv, b, t, h, 3)
+    ctx = torch.zeros(b * t, h * dh, dtype=dtype, device=dev)
+    out = packed_views(ctx, b, t, h, 1)[0]
+    launches = k21.scaled_dot_product_attention.launches
+    k21.scaled_dot_product_attention(q, k, v, out=out)
+    assert k21.scaled_dot_product_attention.launches == launches + 1
+    _check(out, k21.scaled_dot_product_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scaled_dot_product_attention_extreme_logits(dev, dtype):
+    # scores near 30^2 * 64 / 8 must stay finite; fp32 held to 2^-10 as in
+    # test_flash_attention_fwd_extreme_logits (an fp32 ulp of such a score
+    # reaches p through exp)
+    from vit_tpu_torch.ops.kernels import attention as k21
+
+    q, k, v = _qkv4(dev, dtype, 2, 2, 197, 64)
+    q, k = q * 30, k * 30
+    out = k21.scaled_dot_product_attention(q, k, v)
+    want = k21.scaled_dot_product_attention_plain(q, k, v)
+    assert torch.isfinite(out).all()
+    tol = {torch.float32: 2.0 ** -10, torch.bfloat16: REL_TOL[torch.bfloat16]}[dtype]
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_scaled_dot_product_attention_refuses_unaligned_views(dev):
+    from vit_tpu_torch.ops.flash_attention import packed_views
+    from vit_tpu_torch.ops.kernels import attention as k21
+
+    b, h, t, dh = 2, 2, 40, 64
+    flat = _rn(dev, 66, b * h * t * dh + 8, dtype=torch.bfloat16)
+    x = flat[:b * h * t * dh].view(b, h, t, dh)
+    shifted = flat[4:4 + b * h * t * dh].view(b, h, t, dh)  # base 8 bytes off
+    with pytest.raises(ValueError, match="k must start on a 16-byte boundary"):
+        k21.scaled_dot_product_attention(x, shifted, x)
+    wide = _rn(dev, 67, b * t, 3 * h * dh + 2, dtype=torch.bfloat16)  # token stride 772 bytes
+    q, k, v = packed_views(wide[:, :3 * h * dh], b, t, h, 3)
+    with pytest.raises(ValueError, match="q must start on a 16-byte boundary"):
+        k21.scaled_dot_product_attention(q, k, v)
+    out = torch.empty(b, t, h, dh + 1, dtype=torch.bfloat16, device=dev)[..., :dh]
+    with pytest.raises(ValueError, match="out must start on a 16-byte boundary"):
+        k21.scaled_dot_product_attention(x, x, x, out=out.permute(0, 2, 1, 3))
 
 
 @pytest.mark.cuda

@@ -259,5 +259,5 @@ def test_build_hash_covers_every_source():
         "fc2_q8_partial.cu", "ln_qkv_attn_q8a.cu"}
     assert {p.name for p in cuh} == {"common.cuh", "gemm.cuh", "epilogue.cuh", "attention.cuh",
                                       "ln_mlp_out_residual_bwd.cuh", "flash.cuh", "gemm_q8.cuh",
-                                      "quant_rows.cuh", "mlp_q8.cuh"}
+                                      "quant_rows.cuh", "mlp_q8.cuh", "mma_bf16.cuh"}
     assert _build.library_path().name == f"libvit_tpu_torch_{_build.source_hash()}.so"

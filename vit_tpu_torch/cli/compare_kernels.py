@@ -7,13 +7,17 @@ runs PARENT_DIR, ., ., PARENT_DIR per round (each checkout builds its own
 kernels into its own ``build/``) and prints each process's times, then the
 median per checkout.  K1 and K2 run at B/16 batch 100 (the classify path),
 K4, K5 and K7 at batch 64 (the train step), K10, K11 and K12a too where the
-checkout has them (dropout and drop-path 0.1), and the W8A8 K15, K16 and
-K17 at batch 100 where it has those; bf16, CUDA events, median of
-20 launches after 5.  ``--sass SOURCE ...`` first compares the machine
-code each checkout compiles from those sources: every kernel of A must
-compile to the same instructions in B, and B may add kernels of its own (a
-new template instance, a hook's variant).  ``--rounds 0`` compares the
-machine code only.  Needs a card.
+checkout has them (dropout and drop-path 0.1), the W8A8 K15, K16 and K17 at
+batch 100 where it has those, K21 (the per-op attention) at batch 100 T 197
+and K14 (the flash-attention backward) at @512 batch 16 (T 1,025), both on
+strided views of a packed QKV as their paths give them, where it has those;
+bf16, CUDA events, median of 20 launches after 5.  ``--sass SOURCE ...``
+first compares the machine code each checkout compiles from those sources,
+kernel by kernel: those of A that B compiles to the same instructions,
+those it compiles differently, those it no longer has (a redesigned
+kernel's old form), and those it adds (a new template instance, a hook's
+variant, a redesigned kernel).  ``--rounds 0`` compares the machine code
+only.  Needs a card.
 """
 
 from __future__ import annotations
@@ -47,10 +51,10 @@ def ms(fn):
         out.append(a.elapsed_time(b))
     return statistics.median(out)
 
-def k(name):
+def k(name, module=None):
     try:
-        return getattr(importlib.import_module(f"vit_tpu_torch.ops.kernels.{name}"), name)
-    except ModuleNotFoundError:
+        return getattr(importlib.import_module(f"vit_tpu_torch.ops.kernels.{module or name}"), name)
+    except (ModuleNotFoundError, AttributeError):
         return None
 
 s, bb = rn(d, scale=0.2, shift=1.0), rn(d, scale=0.2)
@@ -84,6 +88,23 @@ if k("ln_qkv_attn_q8") is not None:
     times["K15"] = ms(lambda: k("ln_qkv_attn_q8")(x, s, bb, wq, ws, bqkv, h, t, eps))
     times["K16"] = ms(lambda: k("out_ln_mlp_residual_q8")(ctx, x, wo, bo, *mlp))
     times["K17"] = ms(lambda: k("ln_mlp_residual_q8")(x, *mlp))
+k21, k14 = k("scaled_dot_product_attention", "attention"), k("flash_attention_bwd")
+if k21 is not None or k14 is not None:
+    from vit_tpu_torch.ops.flash_attention import packed_views
+if k21 is not None:
+    b = 100
+    q, kk, v = packed_views(rn(b * t, 3 * d), b, t, h, 3)
+    o = packed_views(torch.empty(b * t, d, dtype=torch.bfloat16, device=dev), b, t, h, 1)[0]
+    times["K21"] = ms(lambda: k21(q, kk, v, out=o))
+if k14 is not None:
+    b, t = 16, 1025
+    qkv, g = rn(b * t, 3 * d), rn(b * t, d)
+    q, kk, v = packed_views(qkv, b, t, h, 3)
+    o = packed_views(torch.empty(b * t, d, dtype=torch.bfloat16, device=dev), b, t, h, 1)[0]
+    _, lse = k("flash_attention_fwd", "flash_attention")(q, kk, v, out=o, return_lse=True)
+    (do,) = packed_views(g, b, t, h, 1)
+    grads = packed_views(torch.empty_like(qkv), b, t, h, 3)
+    times["K14"] = ms(lambda: k14(q, kk, v, o, lse, do, *grads))
 print(json.dumps(times))
 """
 
@@ -101,10 +122,10 @@ def _functions(dump: str) -> dict:
 
 
 def same_sass(a: str, b: str, sources) -> dict:
-    """{source: (kernels of A whose machine code differs in B or is missing
-    there, kernels B adds)} — nvcc with the build's flags to a cubin, then
-    ``cuobjdump -sass``, compared kernel by kernel (each with the same
-    instructions, in whatever order the cubin lists them)."""
+    """{source: (kernels of A whose machine code differs in B, kernels of A
+    missing in B, kernels B adds)} — nvcc with the build's flags to a
+    cubin, then ``cuobjdump -sass``, compared kernel by kernel (each with
+    the same instructions, in whatever order the cubin lists them)."""
     import tempfile
     from pathlib import Path
 
@@ -129,7 +150,8 @@ def same_sass(a: str, b: str, sources) -> dict:
             old, new = (_functions(subprocess.run([cuobjdump, "-sass", cubins[src, i]],
                                                   check=True, capture_output=True,
                                                   text=True).stdout) for i in range(2))
-            out[src] = ([k for k in old if new.get(k) != old[k]], [k for k in new if k not in old])
+            out[src] = ([k for k in old if k in new and new[k] != old[k]],
+                        [k for k in old if k not in new], [k for k in new if k not in old])
     return out
 
 
@@ -143,9 +165,9 @@ def main(argv=None) -> int:
                    "(e.g. vit_tpu_torch/csrc/out_residual.cu) between the two checkouts")
     args = p.parse_args(argv)
     if args.sass:
-        for src, (changed, added) in same_sass(*args.roots, args.sass).items():
-            verdict = f"DIFFERENT {changed}" if changed else "identical"
-            print(f"sass {src}: {verdict}; {len(added)} kernel(s) added", flush=True)
+        for src, (changed, removed, added) in same_sass(*args.roots, args.sass).items():
+            verdict = f"DIFFERENT {changed}" if changed else "every kept kernel identical"
+            print(f"sass {src}: {verdict}; removed {removed}; added {added}", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)

@@ -289,6 +289,29 @@ def check_q8_operands(kernel: str, x: torch.Tensor, like_x=(), int8=(), scales=(
             )
 
 
+# bytes per lane of the tensor-core attention tiles' loads and stores
+# (csrc/mma_bf16.cuh: cp.async and the output stores)
+VEC_BYTES = 16
+
+
+def check_aligned(kernel: str, **views: torch.Tensor) -> None:
+    """Each view's base address and its strides other than the last axis's
+    (a (batch, head, token, dh) view's batch, head and token strides) are
+    multiples of 16 bytes: K21 and K14 read and write 16 bytes per lane.
+    Axes of length 1 are never stepped, so their strides do not count.
+    Anything else raises ``ValueError`` naming the operand."""
+    for name, t in views.items():
+        size = t.element_size()
+        steps = [s * size for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1]
+        if t.data_ptr() % VEC_BYTES or any(s % VEC_BYTES for s in steps):
+            raise ValueError(
+                f"{kernel}: {name} must start on a {VEC_BYTES}-byte boundary with strides of "
+                f"whole {VEC_BYTES}-byte units; got address {t.data_ptr()} (mod {VEC_BYTES}: "
+                f"{t.data_ptr() % VEC_BYTES}) and strides {tuple(t.stride())} of {size}-byte "
+                "elements"
+            )
+
+
 def check_shape(kernel: str, name: str, t: torch.Tensor, shape) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -12,13 +12,19 @@ them to XLA outside Pallas.
 What bounds it on the H100: device memory at ViT shapes (B/16 @224 batch
 100: q, k, v and the output are 121 MB in bf16 against 11.9 GFLOP).  The
 TPU kernel holds one (batch, head)'s (T, T) scores in VMEM; the CUDA kernel
-is K1's attention stage (``csrc/attention.cuh``) reading q, k and v through
-their (batch, head, token) strides — the packed QKV in place — and writing
-the context through the output's, so no head transpose is copied.  One
-block per (image, head, 64-query tile), 64-key tiles streamed twice
-through shared memory; rounding points as the TPU kernel's: q·(1/sqrt(dh))
-in the dtype, fp32 scores and row max, reciprocal-multiply normalisation,
-p rounded to v's dtype before p·v, fp32 accumulation, output rounded.
+reads q, k and v through their (batch, head, token) strides — the packed
+QKV in place — and writes the context through the output's, so no head
+transpose is copied.  One block per (image, head, 64-query tile), 64-key
+tiles streamed twice (row max and sum, then p·v).  In bf16 both products
+run on the tensor cores (``csrc/mma_bf16.cuh``: ``mma.sync`` tiles held in
+registers, fed by 16-byte ``cp.async`` copies, p repacked from the score
+accumulators into the A operand of p·v); fp32 runs K1's SIMT attention
+stage (``csrc/attention.cuh``; FMA, never TF32).  Rounding points as the
+TPU kernel's: q·(1/sqrt(dh)) in the dtype, fp32 scores and the exact row
+max, reciprocal-multiply normalisation, p rounded to v's dtype before p·v,
+fp32 accumulation, output rounded.  Every operand's base address and
+strides must be multiples of 16 bytes (``_build.check_aligned``); anything
+else raises.
 
 Past ``fused_block.VMEM_ATTENTION_MAX_T`` tokens (read at call time) it
 routes to K13 (``flash_attention_fwd``), as the JAX function routes to its
@@ -58,7 +64,7 @@ def scaled_dot_product_attention_plain(q, k, v, logit_bias=None) -> torch.Tensor
 def _flat_views(*views):
     """(..., H, T, dh) inputs -> (B, H, T, dh), B the product of the leading
     axes: views over the same memory, or copies where no view exists."""
-    return [t.reshape(-1, *t.shape[-3:]) for t in views]
+    return [t if t.dim() == 4 else t.reshape(-1, *t.shape[-3:]) for t in views]
 
 
 def scaled_dot_product_attention(q, k, v, out=None) -> torch.Tensor:
@@ -96,6 +102,7 @@ def scaled_dot_product_attention(q, k, v, out=None) -> torch.Tensor:
             raise ValueError(f"{name}: a (..., H, T, dh) operand needs a contiguous last axis, "
                              f"got strides {x.stride()}")
         strides.append(x.stride()[:3])
+    _build.check_aligned(name, q=q4, k=k4, v=v4, out=o4)
     b, h, _, _ = q4.shape
     lib = _build.load_library()
     _build.check(

@@ -12,11 +12,19 @@ at 989 TFLOP/s); the two-kernel form computes seven (q_s Kᵀ and dO Vᵀ in
 both kernels).  As on the TPU, no accumulator is shared between blocks:
 the dK/dV kernel owns a 64-key tile and streams the query tiles, the dQ
 kernel owns a 64-query tile and streams the key tiles, each summing in a
-fixed order, without atomics, so two runs give the same bits.  Each block
-recomputes p = exp(s - lse) per tile in shared memory; nothing of size
-(T, T) reaches device memory.  delta = rowsum(dO · O) in fp32 is one torch
-reduction before the kernels, as it is an XLA reduce outside the TPU
-kernels.
+fixed order, without atomics, so two runs give the same bits.  In bf16
+every product runs on ``mma.sync`` tiles held in registers
+(``csrc/mma_bf16.cuh``), fed by a 2-stage 16-byte ``cp.async`` ring: the
+dK/dV kernel computes the transposed tiles Sᵀ and dPᵀ so that pᵀ and dSᵀ
+leave the accumulators as the A operands of dV and dK, and the dQ kernel
+repacks dS as the A operand of dQ; p and dS never pass through shared
+memory, nothing of size (T, T) reaches device memory.  fp32 runs the SIMT
+tiles of ``csrc/flash.cuh`` (FMA, never TF32).  The base address and
+strides of every (batch, head, token, dh) view the kernels read or write
+(q, k, v, dO and the gradients) must be multiples of 16 bytes
+(``_build.check_aligned``); anything else raises.  delta =
+rowsum(dO · O) in fp32 is one torch reduction before the kernels, as it
+is an XLA reduce outside the TPU kernels.
 
 Rounding points (the TPU kernel's): q_s = round(q · round(1/sqrt(dh)));
 p and dS = p (dP - delta) fp32, each rounded to the dtype before its
@@ -72,6 +80,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, dq=None, dk=None, dv=None):
     sq, sk, sv, so, sdo, *sg = view_strides(name, q.shape, q, k, v, out, do, *grads)
     if not sq == sk == sv or not sg[0] == sg[1] == sg[2]:
         raise ValueError(f"{name}: q, k, v (and dq, dk, dv) must share their strides")
+    _build.check_aligned(name, q=q, k=k, v=v, do=do, dq=grads[0], dk=grads[1], dv=grads[2])
     b, h, t, dh = q.shape
     if lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"{name}: lse must be contiguous float32 on {q.device}")
