@@ -54,7 +54,10 @@ Phases (a failed phase raises; nothing is caught):
      also at T = 2,048 batch 4; K13/K14 through strided views of the
      packed QKV, as the path calls them, each timed beside
      ``F.scaled_dot_product_attention`` (its forward for K13, its backward
-     as forward + backward less forward for K14);
+     as forward + backward less forward for K14), each with its share of
+     its bound and its TFLOP/s; and the bf16 K13 (on ``mma.sync`` register
+     tiles) at T 1, 15, 16, 17, 63, 64, 65, 197, 1,025 and 2,048 at every
+     head width, out and lse;
  16. the long classify path: ``InferenceEngine`` at B/16 @512, batch 16,
      bf16, ``fused``, with every count set to 0 just before and read just
      after (13 K3, 12 K13, 12 K2, no K1 per forward); fp32 fused vs fp32
@@ -142,11 +145,12 @@ Phases (a failed phase raises; nothing is caught):
      ``per_op``, ``fused`` and ``eager`` at batch 100 bf16, in turns;
  34. K20 (the fused AdamW) against its twin on every leaf of B/16's fp32
      params, and on one bf16 leaf, over 3 steps: p, mu and nu within 2^-20
-     of each leaf's largest |value| (a bf16 p within one rounding); the
-     time of a step over the 20 leaves beside ``torch.optim.AdamW``'s fused
-     and foreach steps on the same tensors;
+     of each leaf's largest |value| (a bf16 p within one rounding); one
+     launch for a step over the 20 leaves, its time in turns with
+     ``torch.optim.AdamW``'s fused step (CUDA events, and device time in a
+     profiler trace), and beside its foreach step, on the same tensors;
  35. the train CLI with ``--optimizer fused_adamw`` (otherwise as in 8, at
-     AdamW 1e-4): 20 K20 per step beside 12 each of K1, K4-K7, a loss that
+     AdamW 1e-4): 1 K20 per step beside 12 each of K1, K4-K7, a loss that
      falls; then the train step's img/s with ``fused_adamw`` against
      ``adamw``, in turns.
 
@@ -275,6 +279,7 @@ LONG_BATCHES = (16, 3)
 LONG_T = 2048  # the flash cases' longest sequence, at batch LONG_T_BATCH
 LONG_T_BATCH = 4
 SWITCH_T = (577, 1025)  # where the switch phase times both blocks
+K13_EDGE_T = (1, 15, 16, 17, 63, 64, 65, 197, 1025, 2048)  # phase 15's warp and tile edges
 
 TOME_KERNELS = {
     "out_residual_bwd_train": ("K12c", "vit_tpu_torch/csrc/out_residual_bwd_train.cu",
@@ -297,6 +302,7 @@ ADAMW_KERNELS = {
                      "vit_tpu/ops/pallas/adamw_kernel.py:53"),
 }
 ADAMW_STEPS = 3  # the kernel-vs-twin steps of phase 34
+ADAMW_TURNS = 2  # rounds of kernel, fused, fused, kernel in phase 34's timing
 TP_KERNELS = {
     "ln_fc1_gelu_q8": ("K18a", "vit_tpu_torch/csrc/ln_fc1_gelu_q8.cu",
                        "vit_tpu/ops/pallas/quant_kernels.py:394"),
@@ -478,10 +484,11 @@ def phase_kernels(cases: dict, labels: dict, summary_batch: int) -> dict:
             lib_ms = (cuda_ms(c["library"]) if c["library"]
                       else c["library_ms"]() if c["library_ms"] else None)
             bound_ms, bound_by = bound(c["flops"], _nbytes(c["inputs"]) + _nbytes(got), dtype)
+            rate = f", {c['flops'] / ms / 1e9:.4g} TFLOP/s" if c["flops"] else ""
             log(f"{labels[name][0]} {name} {tag}: {len(got)} output(s), max|d|={err:.6g} "
                 f"(at most {worst:.3g} of its tol) kernel {ms:.6g} ms, plain {plain_ms:.6g} ms, "
                 f"library {'none' if lib_ms is None else f'{lib_ms:.6g} ms'}, bound "
-                f"{bound_ms:.6g} ms ({bound_by})")
+                f"{bound_ms:.6g} ms ({bound_by}, {bound_ms / ms:.1%} of the kernel's){rate}")
             if c.get("summary", dtype == torch.bfloat16 and c["batch"] == summary_batch):
                 summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
@@ -627,6 +634,34 @@ def long_kernel_cases(dev: torch.device):
                 tag, dtype, b, k9.out_residual_bwd, k9.out_residual_bwd_plain,
                 (dy, ctx, wo), 4 * rows * d * d))
     return cases
+
+
+def phase_k13_edges(dev: torch.device) -> None:
+    """Phase 15, continued: the bf16 K13 on its register tiles at T around
+    every 16-row warp edge and 64-row tile edge up to 2,048, at every head
+    width, batch 3 on strided views of a packed QKV writing a packed
+    context: out and lse within TOLERANCE of the twin's (not timed)."""
+    from vit_tpu_torch.ops.flash_attention import packed_views
+    from vit_tpu_torch.ops.kernels import flash_attention as k13
+
+    rn = _rand(dev, 15)
+    worst, b, h, dtype = 0.0, 3, 2, torch.bfloat16
+    for dh in k13.HEAD_DIMS:
+        for t in K13_EDGE_T:
+            q, k, v = packed_views(rn(b * t, 3 * h * dh, scale=2.0, dtype=dtype), b, t, h, 3)
+            ctx = torch.zeros(b * t, h * dh, dtype=dtype, device=dev)
+            (out,) = packed_views(ctx, b, t, h, 1)
+            _, lse = k13.flash_attention_fwd(q, k, v, out=out, return_lse=True)
+            want, want_lse = k13.flash_attention_fwd_plain(q, k, v, True)
+            for what, got, ref in (("out", out, want), ("lse", lse, want_lse)):
+                e = (got.float() - ref.float()).abs().max().item()
+                tol = TOLERANCE[dtype] * max(1.0, ref.float().abs().max().item())
+                if not (e <= tol and torch.isfinite(got).all()):
+                    raise RuntimeError(f"K13 bf16 T {t} dh {dh} {what}: max|d|={e:.6g} > {tol:.6g}")
+                worst = max(worst, e / tol)
+    log(f"K13 flash_attention_fwd bf16 at T {', '.join(map(str, K13_EDGE_T))} x dh "
+        f"{', '.join(map(str, k13.HEAD_DIMS))} (batch {b}, {h} heads): out and lse at most "
+        f"{worst:.3g} of their tolerance")
 
 
 def _kept(frac: float, n: int, p: float, site: str) -> str:
@@ -1921,9 +1956,11 @@ def phase_adamw_kernel(dev: torch.device, card: str) -> dict:
     of B/16's fp32 params and on its largest leaf in bf16: p, mu and nu
     within 2^-20 of each leaf's largest |value| (only FMA contraction
     differs: the build has no fast-math), a bf16 p within one rounding
-    (2^-7); then the time of one step over the 20 leaves — kernel, twin,
-    ``torch.optim.AdamW(fused=True).step()`` (the library call) and its
-    default foreach step on the same tensors.  -> {adamw_update: summary}."""
+    (2^-7); then one step over the 20 leaves: one launch, and its time —
+    kernel and ``torch.optim.AdamW(fused=True).step()`` (the library call)
+    in turns, each also as device time in a profiler trace, then the twin
+    and torch's foreach step, all on the same tensors.  -> {adamw_update:
+    summary}."""
     from vit_tpu_torch.ops.kernels import adamw as k20
 
     lr, wd = 1e-3, 0.05
@@ -1958,35 +1995,66 @@ def phase_adamw_kernel(dev: torch.device, card: str) -> dict:
     if (len(params), n) != B16_LEAVES:
         raise RuntimeError(f"B/16 has {len(params)} leaves of {n} parameters, expected {B16_LEAVES}")
     mu, nu = ([torch.zeros(t.shape, device=dev) for t in params] for _ in range(2))
-    ms = cuda_ms(lambda: k20.adamw_update(g, params, mu, nu, 1, lr, weight_decay=wd))
-    plain_ms = cuda_ms(lambda: k20.adamw_update_plain(g, params, mu, nu, 1, lr, weight_decay=wd))
-    lib = {}
+    runs = {"kernel": lambda: k20.adamw_update(g, params, mu, nu, 1, lr, weight_decay=wd)}
+    k20.adamw_update.launches = 0
+    runs["kernel"]()
+    per_step = k20.adamw_update.launches
+    if per_step != 1:
+        raise RuntimeError(f"K20: {per_step} launches for one step over B/16's leaves, expected 1")
     for kind in ("fused", "foreach"):
         leaves = [t.clone().requires_grad_(True) for t in params]
         for t, gt in zip(leaves, g):
             t.grad = gt
-        opt = torch.optim.AdamW(leaves, lr=lr, weight_decay=wd, **{kind: True})
-        lib[kind] = cuda_ms(opt.step)
-        del opt, leaves
+        runs[kind] = torch.optim.AdamW(leaves, lr=lr, weight_decay=wd, **{kind: True}).step
+    turns = {"kernel": [], "fused": []}
+    for _ in range(ADAMW_TURNS):  # in turns: kernel, fused, fused, kernel
+        for kind in ("kernel", "fused", "fused", "kernel"):
+            turns[kind].append(cuda_ms(runs[kind]))
+    ms, fused_ms = (statistics.median(turns[k]) for k in ("kernel", "fused"))
+    foreach_ms = cuda_ms(runs["foreach"])
+    plain_ms = cuda_ms(lambda: k20.adamw_update_plain(g, params, mu, nu, 1, lr, weight_decay=wd))
+    device = {kind: _device_ms(runs[kind]) for kind in ("kernel", "fused")}
     nbytes = _nbytes([*g, *params, *mu, *nu]) + _nbytes([*params, *mu, *nu])
     bound_ms, bound_by = bound(15 * n, nbytes, torch.float32)
     log(f"K20 adamw_update step, B/16 fp32, 20 leaves ({n} elements): kernel {ms:.6g} ms "
-        f"(20 launches), plain {plain_ms:.6g} ms, torch.optim.AdamW fused {lib['fused']:.6g} ms, "
-        f"foreach {lib['foreach']:.6g} ms, bound {bound_ms:.6g} ms ({bound_by}); {card}")
+        f"({per_step} launch; turns {', '.join(f'{t:.6g}' for t in turns['kernel'])}; device "
+        f"{device['kernel']:.6g} ms), plain {plain_ms:.6g} ms, torch.optim.AdamW fused "
+        f"{fused_ms:.6g} ms (turns {', '.join(f'{t:.6g}' for t in turns['fused'])}; device "
+        f"{device['fused']:.6g} ms), foreach {foreach_ms:.6g} ms, bound {bound_ms:.6g} ms "
+        f"({bound_by}, {bound_ms / ms:.1%} of it); {card}")
     return {"adamw_update": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by,
-                             "library_ms": lib["fused"]}}
+                             "library_ms": fused_ms}}
+
+
+def _device_ms(fn, steps: int = 10) -> float:
+    """Device time of ``fn`` in ms: the sum of its kernels' durations over
+    ``steps`` calls in a torch.profiler trace, per call.  Annotations that
+    the trace also places on the device timeline (``Optimizer.step``'s
+    record_function) span kernels and are not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
 
 
 def phase_adamw_train_cli(workdir: str) -> dict:
     """Phase 35: the train CLI with ``--optimizer fused_adamw`` at TRAIN_LR
-    (otherwise as phase 8): 20 K20 launches per step (one per leaf) beside
-    phase 8's 12 each of K1, K4-K7, and a loss that falls.  -> launch
-    counts of the run."""
+    (otherwise as phase 8): one K20 launch per step (one table of the 20
+    leaves) beside phase 8's 12 each of K1, K4-K7, and a loss that falls.
+    -> launch counts of the run."""
     launches, losses = _train_cli(workdir, ["--optimizer", "fused_adamw", "--lr", str(TRAIN_LR)])
     want = {name: 0 for name in launches}
     want.update({name: 12 * TRAIN_STEPS for name in ("ln_qkv_attn", *TRAIN_KERNELS)})
-    want["adamw_update"] = 20 * TRAIN_STEPS
+    want["adamw_update"] = TRAIN_STEPS
     if launches != want:
         raise RuntimeError(f"expected {want} kernel launches over {TRAIN_STEPS} steps, "
                            f"got {launches}")
@@ -2469,6 +2537,7 @@ def group_regularized(dev, card, summary, launches) -> None:
 def group_long(dev, card, summary, launches) -> None:
     """Phases 15-19."""
     summary.update(phase_kernels(long_kernel_cases(dev), LONG_KERNELS, LONG_BATCHES[0]))
+    phase_k13_edges(dev)
     torch.cuda.empty_cache()
     launches["classify_long"] = phase_long_inference(dev)
     torch.cuda.empty_cache()

@@ -106,6 +106,80 @@ def test_wrapper_refuses_other_devices():
         KW.adamw_update([m], [m], [m], [m], 1, 1e-3)
 
 
+def _quad(n, p_dtype=torch.float32, g_dtype=torch.float32, offsets=(0, 0, 0, 0)):
+    """(g, p, m, v) CPU leaves of n elements, each starting its offset in
+    elements into its own memory (the allocator aligns bases to 64 bytes)."""
+    dtypes = (g_dtype, p_dtype, torch.float32, torch.float32)
+    return tuple(torch.zeros(n + o, dtype=dt)[o:] for dt, o in zip(dtypes, offsets))
+
+
+def _indices(tables, leaves):
+    """Each table as (p dtype, g dtype, [index of each leaf in ``leaves``]),
+    after checking its columns against those leaves."""
+    pos = {leaf[1].data_ptr(): i for i, leaf in enumerate(leaves)}
+    out = []
+    for dev, pd, gd, cols in tables:
+        idx = [pos[ptr] for ptr in cols[1]]
+        assert len(cols) == 6 and all(len(c) == len(idx) for c in cols)
+        for j, i in enumerate(idx):
+            assert dev == leaves[i][1].device and cols[4][j] == leaves[i][1].numel()
+            assert [c[j] for c in cols[:4]] == [t.data_ptr() for t in leaves[i]]
+        out.append((pd, gd, idx))
+    return out
+
+
+def test_leaf_tables_group_by_dtype_pair_in_order():
+    # one table per (p dtype, g dtype) pair, the pairs in order of first
+    # appearance and each table's leaves in the given order
+    f32, bf16 = torch.float32, torch.bfloat16
+    leaves = [_quad(8), _quad(8, bf16, bf16), _quad(5), _quad(8, f32, bf16), _quad(3, bf16, bf16),
+              _quad(1)]
+    got = _indices(KW.leaf_tables(leaves), leaves)
+    assert got == [(f32, f32, [0, 2, 5]), (bf16, bf16, [1, 4]), (f32, bf16, [3])]
+    assert KW.leaf_tables([]) == []
+
+
+@pytest.mark.parametrize("n,sizes", [(100, [48, 48, 4]), (48, [48]), (49, [48, 1]), (7, [7])])
+def test_leaf_tables_split_a_group_past_capacity(n, sizes):
+    # the kernel's table holds as many leaves as the wrapper puts in one
+    src = (KW._build.CSRC / "adamw.cu").read_text()
+    assert f"kAdamWLeaves = {KW.TABLE_LEAVES};" in src and KW.TABLE_LEAVES == 48
+    leaves = [_quad(4 + i) for i in range(n)]
+    got = _indices(KW.leaf_tables(leaves), leaves)
+    assert [len(idx) for *_, idx in got] == sizes
+    assert [i for *_, idx in got for i in idx] == list(range(n))  # in order, each once
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_leaf_tables_alignment_flags(p_dtype):
+    # a leaf is aligned when all four bases are on 16 bytes: an offset of 16
+    # bytes keeps it, one element or less than 16 bytes in any operand loses it
+    whole = 16 // torch.tensor([], dtype=p_dtype).element_size()
+    cases = {(0, 0, 0, 0): True, (whole, whole, 4, 4): True, (1, 0, 0, 0): False,
+             (0, 1, 0, 0): False, (0, 0, 1, 0): False, (0, 0, 0, 2): False,
+             (whole // 2, 0, 0, 0): False}
+    leaves = [_quad(1001, p_dtype, p_dtype, off) for off in cases]
+    ((*_, cols),) = KW.leaf_tables(leaves)
+    assert list(cols[5]) == list(cases.values())
+    assert _indices(KW.leaf_tables(leaves), leaves) == [(p_dtype, p_dtype, list(range(7)))]
+
+
+def test_leaf_tables_b16_step_is_one_table():
+    # ViT-B/16's 20 fp32 leaves (at a narrow width: the count is the depth's
+    # and width's alike) fit one table: one launch per step
+    import dataclasses
+
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.models import vit as tvit
+
+    cfg = dataclasses.replace(VIT_B_16, depth=2, embed_dim=32, num_heads=2, image_size=32,
+                              num_classes=11)
+    ps = list(ttrainer.leaves(tvit.init_params(torch.Generator().manual_seed(0), cfg)))
+    assert len(ps) == 20
+    tables = KW.leaf_tables([(p, p, torch.zeros_like(p), torch.zeros_like(p)) for p in ps])
+    assert len(tables) == 1 and len(tables[0][3][0]) == 20
+
+
 def test_fused_adamw_optimizer_state():
     p = [torch.zeros(3, requires_grad=True), torch.ones(2, 2, requires_grad=True)]
     opt = ttrainer.FusedAdamW(p, lr=lambda count: 0.1 * count, weight_decay=0.0)

@@ -1,15 +1,18 @@
-"""The 16-byte operand rule of K21 and K14 on the CPU.
+"""The 16-byte operand rule of K21, K13 and K14 on the CPU.
 
-K21 (``scaled_dot_product_attention``) and K14 (``flash_attention_bwd``)
-read and write 16 bytes per lane on the card, so their wrappers refuse any
-(batch, head, token, dh) view whose base address or strides are off the
-16-byte grid (``_build.check_aligned``).  These tests hold the helper to
-that rule on CPU tensors, and show that every view the port's own callers
-hand to the two wrappers passes it: ``attention()``'s packed views (alone
-and inside the ``per_op`` forward), ``FlashAttentionFn`` and
-``FlashContextFn``'s packed QKV, dQKV and context, at the tiny test config's
-widths and at ViT-B/16's.  The callers run on the CPU (the wrappers take
-their plain twins there); a spy records what they pass.
+K21 (``scaled_dot_product_attention``), K13 (``flash_attention_fwd``, bf16)
+and K14 (``flash_attention_bwd``) read and write 16 bytes per lane on the
+card, so their wrappers refuse any (batch, head, token, dh) view whose base
+address or strides are off the 16-byte grid (``_build.check_aligned``).
+These tests hold the helper to that rule on CPU tensors, and show that
+every view the port's own callers hand to the three wrappers passes it:
+``attention()``'s packed views (alone, inside the ``per_op`` forward, and
+past the switch to K13), ``FlashAttentionFn`` and ``FlashContextFn``'s
+packed QKV, dQKV and context — the latter through every long block that
+reaches it (``fused``, ``fused_train``, ``quant`` and the tensor-parallel
+context at local heads) — at the tiny test config's widths and at
+ViT-B/16's, and at head widths 64 and 80.  The callers run on the CPU (the
+wrappers take their plain twins there); a spy records what they pass.
 """
 
 import numpy as np
@@ -24,6 +27,7 @@ from vit_tpu_torch.ops.flash_attention import (
 )
 from vit_tpu_torch.ops.kernels import _build
 from vit_tpu_torch.ops.kernels import attention as k21
+from vit_tpu_torch.ops.kernels import flash_attention as k13
 from vit_tpu_torch.ops.kernels import flash_attention_bwd as k14
 
 DTYPES = [torch.float32, torch.bfloat16]
@@ -170,3 +174,87 @@ def test_flash_attention_fn_views_pass(monkeypatch, width, dtype):
     flash_attention(q, k, v).backward(_t((2, h, t, dh), dtype, 11))
     assert len(calls) == 1
     _build.check_aligned("flash_attention_bwd", **_k14_views(*calls[0]))
+
+
+# (D, heads) of the views K13 is handed: the tiny test config's (dh 16),
+# tiny widths at dh 64 and 80, ViT-B/16's (dh 64) and ViT-H/14's (dh 80)
+K13_WIDTHS = {"tiny": (64, 4), "tiny_dh64": (128, 2), "tiny_dh80": (160, 2), "b16": (768, 12),
+              "h14_dh80": (1280, 16)}
+EPS = 1e-6
+
+
+def _block_params(d, dtype, quant=False):
+    """One encoder block's params at width D (MLP width D), in ``dtype``;
+    int8 QKV and MLP weights with their scales when ``quant``."""
+    from vit_tpu_torch.ops.quant import quantize_weight
+
+    shapes = {"ln1_scale": (d,), "ln1_bias": (d,), "wqkv": (d, 3 * d), "bqkv": (3 * d,),
+              "wo": (d, d), "bo": (d,), "ln2_scale": (d,), "ln2_bias": (d,), "w1": (d, d),
+              "b1": (d,), "w2": (d, d), "b2": (d,)}
+    blk = {k: _t(shape, dtype, 20 + i) * (d ** -0.5 if len(shape) == 2 else 0.2)
+           for i, (k, shape) in enumerate(shapes.items())}
+    if quant:
+        for k in ("wqkv", "w1", "w2"):
+            w_q, scale = quantize_weight(blk[k])
+            blk[k], blk[k + "_scale"] = w_q, scale
+    return blk
+
+
+def _k13_caller(caller, x2d, b, t, d, h, dtype):
+    """Run one of the port's callers of K13 on (B·T, D) rows past the switch."""
+    from vit_tpu_torch.ops import fused_block, quant_block, trainable
+    from vit_tpu_torch.parallel import tp_forward
+
+    if caller == "flash_attention_fn":
+        q, k, v = (_t((b, h, t, d // h), dtype, 30 + i).requires_grad_(True) for i in range(3))
+        return flash_attention(q, k, v)
+    if caller == "per_op_attention":
+        blk = _block_params(d, dtype)
+        return k21.attention(x2d.view(b, t, d), blk["wqkv"], blk["bqkv"], blk["wo"], blk["bo"], h)
+    if caller == "fused_block":
+        return fused_block.fused_encoder_block(x2d, _block_params(d, dtype), h, t, EPS)
+    if caller == "trainable":
+        blk = {k: p.requires_grad_(True) for k, p in _block_params(d, dtype).items()}
+        return trainable.encoder_block_trainable(x2d, blk, h, t, EPS)
+    if caller == "quant_block":
+        return quant_block.fused_encoder_block_q8(x2d, _block_params(d, dtype, True), h, t, EPS)
+    # rank 0's context at tp 2: its half of the heads' packed QKV columns
+    quant = caller == "tp_long_quant"
+    blk = _block_params(d, dtype, quant)
+    blk["wqkv"], blk["bqkv"] = blk["wqkv"][:, :3 * d // 2], blk["bqkv"][:3 * d // 2]
+    if quant:
+        blk["wqkv_scale"] = blk["wqkv_scale"][:3 * d // 2]
+    return tp_forward._ctx_long_seq_tp(x2d, blk, h // 2, t, EPS, quant)
+
+
+K13_CALLERS = ["flash_attention_fn", "per_op_attention", "fused_block", "trainable",
+               "quant_block", "tp_long", "tp_long_quant"]
+
+
+@pytest.mark.parametrize("caller", K13_CALLERS)
+@pytest.mark.parametrize("width", list(K13_WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_k13_caller_views_pass(monkeypatch, caller, width, dtype):
+    # every caller past the switch (T = 5 > 4), at every width: K13's
+    # operands on the 16-byte grid, packed views read and written in place
+    from vit_tpu_torch.ops import fused_block
+
+    monkeypatch.setattr(fused_block, "VMEM_ATTENTION_MAX_T", 4)
+    d, h = K13_WIDTHS[width]
+    b, t = 2, 5
+    calls = _spy(monkeypatch, k13, "flash_attention_fwd")
+    out = _k13_caller(caller, _t((b * t, d), dtype, 1), b, t, d, h, dtype)
+    assert torch.isfinite(out.float()).all()
+    assert len(calls) == 1
+    args, kwargs = calls[0]
+    views = dict(zip("qkv", args[:3]))
+    if kwargs.get("out") is not None:
+        views["out"] = kwargs["out"]
+    heads = h // 2 if caller.startswith("tp_long") else h
+    shape = (b * h, 1, t, d // h) if caller == "flash_attention_fn" else (b, heads, t, d // h)
+    assert all(x.shape == shape and x.stride(-1) == 1 for x in views.values())
+    if caller != "flash_attention_fn":  # the packed QKV read in place, the context written so
+        assert views["q"].stride(2) == 3 * heads * (d // h)
+        assert views["out"].stride(2) == heads * (d // h)
+    assert kwargs.get("return_lse", False) == (caller in ("flash_attention_fn", "trainable"))
+    _build.check_aligned("flash_attention_fwd", **views)

@@ -8,10 +8,15 @@ kernels into its own ``build/``) and prints each process's times, then the
 median per checkout.  K1 and K2 run at B/16 batch 100 (the classify path),
 K4, K5 and K7 at batch 64 (the train step), K10, K11 and K12a too where the
 checkout has them (dropout and drop-path 0.1), the W8A8 K15, K16 and K17 at
-batch 100 where it has those, K21 (the per-op attention) at batch 100 T 197
-and K14 (the flash-attention backward) at @512 batch 16 (T 1,025), both on
-strided views of a packed QKV as their paths give them, where it has those;
-bf16, CUDA events, median of 20 launches after 5.  ``--sass SOURCE ...``
+batch 100 where it has those, K21 (the per-op attention) at batch 100 T 197,
+and K14 and K13 (the flash-attention backward and forward) at @512 batch 16
+(T 1,025), on strided views of a packed QKV as their paths give them, K13
+beside ``F.scaled_dot_product_attention``'s forward, and K20 (the fused
+AdamW) as one step over ViT-B/16's 20 fp32 leaves beside
+``torch.optim.AdamW(fused=True).step()``, where it has those; bf16, CUDA
+events, median of 20 launches after 5.  The two optimizer steps also
+report their device time (the kernels' durations in a torch.profiler
+trace) and their host time per call.  ``--sass SOURCE ...``
 first compares the machine code each checkout compiles from those sources,
 kernel by kernel: those of A that B compiles to the same instructions,
 those it compiles differently, those it no longer has (a redesigned
@@ -32,7 +37,7 @@ import sys
 # vit_tpu_torch is the one imported; uses only wrapper signatures that every
 # checkout since the training slice shares
 TIMER = r"""
-import importlib, json, statistics, torch
+import importlib, json, statistics, time, torch
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(0)
@@ -50,6 +55,30 @@ def ms(fn):
         a.record(); fn(); b.record(); b.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+def device_ms(fn, steps=10):
+    # the kernels' own durations in a profiler trace, per call (annotations
+    # such as Optimizer.step's also sit on the device timeline: not counted)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(); torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events()
+          if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    return sum(e.time_range.elapsed_us() for e in ks) / 1e3 / steps
+
+def host_ms(fn, n=50):
+    # the host's time per call, enqueueing without waiting for the device
+    fn(); torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e3
 
 def k(name, module=None):
     try:
@@ -89,7 +118,9 @@ if k("ln_qkv_attn_q8") is not None:
     times["K16"] = ms(lambda: k("out_ln_mlp_residual_q8")(ctx, x, wo, bo, *mlp))
     times["K17"] = ms(lambda: k("ln_mlp_residual_q8")(x, *mlp))
 k21, k14 = k("scaled_dot_product_attention", "attention"), k("flash_attention_bwd")
-if k21 is not None or k14 is not None:
+k13, k20 = k("flash_attention_fwd", "flash_attention"), k("adamw_update", "adamw")
+if k21 is not None or k14 is not None or k13 is not None:
+    import torch.nn.functional as F
     from vit_tpu_torch.ops.flash_attention import packed_views
 if k21 is not None:
     b = 100
@@ -105,6 +136,31 @@ if k14 is not None:
     (do,) = packed_views(g, b, t, h, 1)
     grads = packed_views(torch.empty_like(qkv), b, t, h, 3)
     times["K14"] = ms(lambda: k14(q, kk, v, o, lse, do, *grads))
+if k13 is not None:
+    b, t = 16, 1025
+    q, kk, v = packed_views(rn(b * t, 3 * d), b, t, h, 3)
+    o = packed_views(torch.empty(b * t, d, dtype=torch.bfloat16, device=dev), b, t, h, 1)[0]
+    times["K13"] = ms(lambda: k13(q, kk, v, out=o, return_lse=True))
+    times["SDPA fwd"] = ms(lambda: F.scaled_dot_product_attention(q, kk, v))
+if k20 is not None:
+    import dataclasses
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.models.vit import init_params
+    from vit_tpu_torch.runtime.trainer import leaves
+    one = init_params(torch.Generator().manual_seed(0), dataclasses.replace(VIT_B_16, depth=1))
+    one["blocks"] = {n: x.expand(VIT_B_16.depth, *x.shape[1:]) for n, x in one["blocks"].items()}
+    ps = [x.to(dev).contiguous() for x in leaves(one)]  # B/16's 20 fp32 leaves
+    gs = [torch.randn(x.shape, generator=gen, device=dev) * 1e-2 for x in ps]
+    mu, nu = ([torch.zeros_like(x) for x in ps] for _ in range(2))
+    ref = [x.clone().requires_grad_(True) for x in ps]
+    for x, gx in zip(ref, gs):
+        x.grad = gx
+    steps = {"K20": lambda: k20(gs, ps, mu, nu, 1, 1e-3, weight_decay=0.05),
+             "AdamW fused": torch.optim.AdamW(ref, lr=1e-3, weight_decay=0.05, fused=True).step}
+    for name, step in steps.items():
+        times[name] = ms(step)
+        times[f"{name} device"] = device_ms(step)
+        times[f"{name} host"] = host_ms(step)
 print(json.dumps(times))
 """
 

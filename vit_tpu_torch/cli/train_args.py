@@ -62,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--optimizer", default="adamw", choices=["adamw", "fused_adamw"],
         help="adamw (torch.optim.AdamW) or fused_adamw (the in-place fused AdamW "
-        "kernel, one launch per leaf; requires --ops fused_train)",
+        "kernel, one launch per step; requires --ops fused_train)",
     )
     p.add_argument(
         "--grad-clip", type=float, default=0.0, metavar="NORM",

@@ -36,6 +36,8 @@
 #include "flash.cuh"
 #include "mma_bf16.cuh"
 
+#include <type_traits>
+
 namespace vt {
 
 // ---- fp32 on flash.cuh's SIMT tiles (TileAcc), the two kernels below
@@ -44,13 +46,13 @@ namespace vt {
 template <typename T, int DH>
 struct BwdSmem {
   T *q, *dout, *k, *v, *p, *ds;
-  float *s, *dp, *lse, *delta, *scratch;
+  float *s, *dp, *lse, *delta;
 
   // fp32 tiles are SIMT: p and ds overwrite s and dp in place (each
   // element read, then written, by the same thread)
   __host__ __device__ static BwdSmem carve(SmemCarve& c) {
-    static_assert(!FlTile<T>::kBf16, "bf16 runs the mma.sync kernels");
-    constexpr int LD = FlTile<T>::ld(DH), LS = FlTile<T>::ldf(kFl);
+    static_assert(std::is_same<T, float>::value, "bf16 runs the mma.sync kernels");
+    constexpr int LD = fl_ld(DH), LS = fl_ld(kFl);
     BwdSmem m;
     m.q = c.take<T>(kFl * LD);
     m.dout = c.take<T>(kFl * LD);
@@ -62,7 +64,6 @@ struct BwdSmem {
     m.ds = (T*)m.dp;
     m.lse = c.take<float>(kFl);
     m.delta = c.take<float>(kFl);
-    m.scratch = c.take<float>(kFlWarps * 256);
     return m;
   }
 
@@ -85,7 +86,7 @@ __device__ __forceinline__ void load_query_tile(const BwdSmem<T, DH>& sm, const 
                                                 const T* dob, const float* lse,
                                                 const float* delta, long long row_base,
                                                 int q0, const BwdArgs& a) {
-  constexpr int LD = FlTile<T>::ld(DH);
+  constexpr int LD = fl_ld(DH);
   load_rows<T, DH, true>(qb, a.sin.t, q0, a.seq, sm.q, LD, round_to<T>(a.inv_sqrt_dh));
   load_rows<T, DH>(dob, a.sdo.t, q0, a.seq, sm.dout, LD);
   for (int r = threadIdx.x; r < kFl; r += kFlThreads) {
@@ -99,17 +100,17 @@ __device__ __forceinline__ void load_query_tile(const BwdSmem<T, DH>& sm, const 
 // and round(dS) in place of them; the tiles must be loaded and synced
 template <typename T, int DH, bool kP>
 __device__ __forceinline__ void probs_and_dscores(const BwdSmem<T, DH>& sm, int q0, int k0,
-                                                  int seq, float* scratch) {
-  constexpr int LD = FlTile<T>::ld(DH), LP = FlTile<T>::ld(kFl), LS = FlTile<T>::ldf(kFl);
+                                                  int seq) {
+  constexpr int LD = fl_ld(DH), LP = fl_ld(kFl), LS = fl_ld(kFl);
   {
     TileAcc<T, kFl> s;
     s.zero();
     s.template mma<DH, false, true>(sm.q, LD, sm.k, LD);
-    store_tile(s, sm.s, LS, scratch);
+    store_tile(s, sm.s, LS);
     TileAcc<T, kFl> dp;
     dp.zero();
     dp.template mma<DH, false, true>(sm.dout, LD, sm.v, LD);
-    store_tile(dp, sm.dp, LS, scratch);
+    store_tile(dp, sm.dp, LS);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < kFl * kFl; i += kFlThreads) {
@@ -132,10 +133,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   extern __shared__ __align__(128) unsigned char fl_smem[];
   SmemCarve carver{fl_smem};
   const BwdSmem<T, DH> sm = BwdSmem<T, DH>::carve(carver);
-  constexpr int LD = FlTile<T>::ld(DH), LP = FlTile<T>::ld(kFl);
+  constexpr int LD = fl_ld(DH), LP = fl_ld(kFl);
 
   const int k0 = blockIdx.x * kFl, h = blockIdx.y, b = blockIdx.z;
-  float* scratch = sm.scratch + (threadIdx.x >> 5) * 256;
   const long long base = a.sin.at(b, h), row_base = ((long long)b * a.heads + h) * a.seq;
   load_rows<T, DH>(k + base, a.sin.t, k0, a.seq, sm.k, LD);
   load_rows<T, DH>(v + base, a.sin.t, k0, a.seq, sm.v, LD);
@@ -147,7 +147,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     __syncthreads();  // the previous query tile's operands consumed
     load_query_tile(sm, q + base, dout + a.sdo.at(b, h), lse, delta, row_base, q0, a);
     __syncthreads();
-    probs_and_dscores<T, DH, true>(sm, q0, k0, a.seq, scratch);
+    probs_and_dscores<T, DH, true>(sm, q0, k0, a.seq);
     dva.template mma<kFl, true, false>(sm.p, LP, sm.dout, LD);  // round(p)^T dO
     dka.template mma<kFl, true, false>(sm.ds, LP, sm.q, LD);    // round(dS)^T q_s
   }
@@ -156,10 +156,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   T *dkb = dk + gbase, *dvb = dv + gbase;
   const long long st = a.sgrad.t;
   const int seq = a.seq;
-  dka.for_each(scratch, [&](int r, int c, float val) {
+  dka.for_each([&](int r, int c, float val) {
     if (k0 + r < seq) dkb[(long long)(k0 + r) * st + c] = from_f<T>(val);
   });
-  dva.for_each(scratch, [&](int r, int c, float val) {
+  dva.for_each([&](int r, int c, float val) {
     if (k0 + r < seq) dvb[(long long)(k0 + r) * st + c] = from_f<T>(val);
   });
 }
@@ -172,10 +172,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   extern __shared__ __align__(128) unsigned char fl_smem[];
   SmemCarve carver{fl_smem};
   const BwdSmem<T, DH> sm = BwdSmem<T, DH>::carve(carver);
-  constexpr int LD = FlTile<T>::ld(DH), LP = FlTile<T>::ld(kFl);
+  constexpr int LD = fl_ld(DH), LP = fl_ld(kFl);
 
   const int q0 = blockIdx.x * kFl, h = blockIdx.y, b = blockIdx.z;
-  float* scratch = sm.scratch + (threadIdx.x >> 5) * 256;
   const long long base = a.sin.at(b, h), row_base = ((long long)b * a.heads + h) * a.seq;
   load_query_tile(sm, q + base, dout + a.sdo.at(b, h), lse, delta, row_base, q0, a);
 
@@ -186,7 +185,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     load_rows<T, DH>(k + base, a.sin.t, k0, a.seq, sm.k, LD);
     load_rows<T, DH>(v + base, a.sin.t, k0, a.seq, sm.v, LD);
     __syncthreads();
-    probs_and_dscores<T, DH, false>(sm, q0, k0, a.seq, scratch);
+    probs_and_dscores<T, DH, false>(sm, q0, k0, a.seq);
     dqa.template mma<kFl, false, false>(sm.ds, LP, sm.k, LD);  // round(dS) K
   }
 
@@ -194,7 +193,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const long long st = a.sgrad.t;
   const int seq = a.seq;
   const float scale = a.inv_sqrt_dh;
-  dqa.for_each(scratch, [&](int r, int c, float val) {
+  dqa.for_each([&](int r, int c, float val) {
     if (q0 + r < seq) dqb[(long long)(q0 + r) * st + c] = from_f<T>(val * scale);
   });
 }

@@ -129,9 +129,9 @@ SIGNATURES = {
     "vt_scaled_dot_product_attention": ([_P] + _L3) * 4 + [_I] * 6 + [_P],
     # x, w1, b1, w2, b2, g, out, rows, d, f, gelu_variant, dtype, device, stream
     "vt_mlp": [_P] * 7 + [_I] * 6 + [_P],
-    # g, p, m, v, n, lr, b1, 1 - b1, b2, 1 - b2, eps, weight_decay, bc1, bc2,
-    # p dtype, g dtype, device, stream
-    "vt_adamw": [_P] * 4 + [ctypes.c_longlong] + [_F] * 9 + [_I] * 3 + [_P],
+    # g[], p[], m[], v[], n[], aligned[], leaves, lr, b1, 1 - b1, b2, 1 - b2,
+    # eps, weight_decay, bc1, bc2, p dtype, g dtype, device, stream
+    "vt_adamw": [_P] * 6 + [_I] + [_F] * 9 + [_I] * 3 + [_P],
 }
 
 # workspace size queries (bytes) of the kernels that carve their scratch
@@ -290,14 +290,15 @@ def check_q8_operands(kernel: str, x: torch.Tensor, like_x=(), int8=(), scales=(
 
 
 # bytes per lane of the tensor-core attention tiles' loads and stores
-# (csrc/mma_bf16.cuh: cp.async and the output stores)
+# (csrc/mma_bf16.cuh: cp.async and the output stores), and the base
+# alignment of K20's vector path (csrc/adamw.cu)
 VEC_BYTES = 16
 
 
 def check_aligned(kernel: str, **views: torch.Tensor) -> None:
     """Each view's base address and its strides other than the last axis's
     (a (batch, head, token, dh) view's batch, head and token strides) are
-    multiples of 16 bytes: K21 and K14 read and write 16 bytes per lane.
+    multiples of 16 bytes: K21, K13 and K14 read and write 16 bytes per lane.
     Axes of length 1 are never stepped, so their strides do not count.
     Anything else raises ``ValueError`` naming the operand."""
     for name, t in views.items():

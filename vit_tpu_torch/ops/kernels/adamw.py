@@ -1,4 +1,4 @@
-"""K20: the fused in-place AdamW update, one kernel launch per leaf, CUDA
+"""K20: the fused in-place AdamW update, one kernel launch per step, CUDA
 (``csrc/adamw.cu``).
 
 Replaces ``vit_tpu/ops/pallas/adamw_kernel.py:_leaf_update`` (pallas_call
@@ -17,12 +17,17 @@ What bounds it on the H100: device memory — read g, p, m, v and write p,
 m, v once, 28 bytes per fp32 element (ViT-B/16's 20 leaves, 86,567,656
 parameters: 2.42 GB, 0.724 ms at 3.35 TB/s).  The TPU kernel aliases its
 outputs onto p, m and v; here the tensors are updated in place.  The JAX
-function sends leaves under 2^15 elements, or not a multiple of the TPU's
-128 lanes, to jnp; on the card every leaf launches the kernel, which masks
-its own ragged edge, so a B/16 step makes 20 launches.
+function makes one pallas_call per leaf and sends leaves under 2^15
+elements, or not a multiple of the TPU's 128 lanes, to jnp.  On the card
+the leaves are grouped by (device, p dtype, g dtype) into tables of up to
+``TABLE_LEAVES`` leaves (:func:`leaf_tables`), and each table is one launch
+that masks every leaf's ragged edge itself: a B/16 step is one launch and
+one host call, not 20.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -32,14 +37,14 @@ from vit_tpu_torch.ops.kernels import _build
 
 def _leaves(tree):
     """The tensors of a nested dict (insertion order) or a list."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
+    if not isinstance(tree, (dict, list, tuple)):
         yield tree
+        return
+    for v in tree.values() if isinstance(tree, dict) else tree:
+        if isinstance(v, (dict, list, tuple)):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def step_scalars(step: int, lr, b1: float, b2: float):
@@ -77,20 +82,44 @@ def adamw_update_plain(grads, params, mu, nu, step: int, lr, b1=0.9, b2=0.999, e
 
 def _check_leaf(name: str, g, p, m, v) -> None:
     """p and g fp32 or bf16, m and v fp32, one shape, one CUDA device, all
-    contiguous."""
-    if p.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA or CPU tensor, got {p.device}")
-    for t in (g, m, v):
-        if t.device != p.device:
-            raise ValueError(f"{name}: operands on {t.device} and {p.device}")
-        _build.check_shape(name, "operand", t, p.shape)
+    contiguous (one pass of cheap tests; the messages name what failed)."""
+    dev, shape = p.device, p.shape
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA or CPU tensor, got {dev}")
+    if not g.device == m.device == v.device == dev:
+        raise ValueError(f"{name}: operands on {g.device}, {dev}, {m.device}, {v.device}")
+    if not g.shape == m.shape == v.shape == shape:
+        for t in (g, m, v):
+            _build.check_shape(name, "operand", t, shape)
     for n, t in (("param", p), ("grad", g)):
         if t.dtype not in _build.DTYPE_CODES:
             raise TypeError(f"{name}: {n} dtype {t.dtype} not supported (float32, bfloat16)")
     if m.dtype != torch.float32 or v.dtype != torch.float32:
         raise TypeError(f"{name}: the moments must be float32, got {m.dtype} and {v.dtype}")
-    if not all(t.is_contiguous() for t in (g, p, m, v)):
+    if not (g.is_contiguous() and p.is_contiguous() and m.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: operands must be contiguous")
+
+
+# leaves per launch (csrc/adamw.cu kAdamWLeaves: the table travels in the
+# kernel's parameters)
+TABLE_LEAVES = 48
+
+
+def leaf_tables(leaves) -> list:
+    """[(g, p, m, v)] -> one entry per kernel launch, ``(device, p dtype,
+    g dtype, columns)``: the leaves grouped by (device, p dtype, g dtype)
+    in order of first appearance, each group cut into runs of at most
+    ``TABLE_LEAVES`` leaves in the given order.  ``columns`` are the run's g, p,
+    m and v addresses, element counts, and alignment flags — True where all
+    four addresses are multiples of 16 bytes, so the kernel moves that leaf
+    4 elements per load."""
+    groups = {}
+    for g, p, m, v in leaves:
+        ptrs = (g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr())
+        aligned = (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % _build.VEC_BYTES == 0
+        groups.setdefault((p.device, p.dtype, g.dtype), []).append((*ptrs, p.numel(), aligned))
+    return [(*key, tuple(zip(*rows[i:i + TABLE_LEAVES])))
+            for key, rows in groups.items() for i in range(0, len(rows), TABLE_LEAVES)]
 
 
 def adamw_update(grads, params, mu, nu, step: int, lr, b1=0.9, b2=0.999, eps=1e-8,
@@ -98,10 +127,12 @@ def adamw_update(grads, params, mu, nu, step: int, lr, b1=0.9, b2=0.999, eps=1e-
     """One AdamW step over matching dicts or lists of leaves, in place: ->
     (params, mu, nu).  ``step`` is the 1-based step number, ``lr`` a
     number; mu and nu are fp32 leaves shaped like the params.  A leaf on
-    the CPU takes the plain twin; a leaf on the card launches the kernel."""
+    the CPU takes the plain twin; the leaves on the card launch the kernel
+    once per :func:`leaf_tables` entry."""
     name = "adamw_update"
     s_lr, bc1, bc2 = step_scalars(step, lr, b1, b2)
     consts = [float(s_lr), b1, 1.0 - b1, b2, 1.0 - b2, eps, weight_decay, float(bc1), float(bc2)]
+    on_card = []
     with torch.no_grad():
         for g, p, m, v in zip(_leaves(grads), _leaves(params), _leaves(mu), _leaves(nu),
                               strict=True):
@@ -109,12 +140,17 @@ def adamw_update(grads, params, mu, nu, step: int, lr, b1=0.9, b2=0.999, eps=1e-
                 _leaf_plain(g, p, m, v, s_lr, bc1, bc2, b1, b2, eps, weight_decay)
                 continue
             _check_leaf(name, g, p, m, v)
+            if p.numel():
+                on_card.append((g, p, m, v))
+        for dev, p_dtype, g_dtype, cols in leaf_tables(on_card):
+            k = len(cols[0])
             lib = _build.load_library()
             _build.check(
                 lib.vt_adamw(
-                    g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(), *consts,
-                    _build.DTYPE_CODES[p.dtype], _build.DTYPE_CODES[g.dtype], p.device.index,
-                    _build.stream_of(p),
+                    *((ctypes.c_void_p * k)(*c) for c in cols[:4]),
+                    (ctypes.c_longlong * k)(*cols[4]), (ctypes.c_int * k)(*cols[5]), k, *consts,
+                    _build.DTYPE_CODES[p_dtype], _build.DTYPE_CODES[g_dtype], dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream,
                 ),
                 name,
             )

@@ -10,16 +10,22 @@ What bounds it on the H100: 4·B·H·T²·dh operations of tensor-core work
 (50 MB in bf16, 0.015 ms).  The TPU kernel carries the running max, sum
 and output accumulator in VMEM across a sequential grid over key blocks;
 here one block owns a 64-query tile of one (image, head) and loops over
-64-key tiles itself: q_s Kᵀ and round(p) V on the tensor cores (WMMA,
-fp32 accumulation; fp32 inputs use FMA, never TF32), the online softmax
-in fp32 between them, all in shared memory, so nothing of size (T, T)
-reaches device memory.  q, k and v are strided (batch, head, token, dh)
-views: the packed (B·T, 3D) QKV is read in place and the context written
-straight into (B·T, D), with no head transposes.
+64-key tiles itself, so nothing of size (T, T) reaches device memory.  In
+bf16 both products run on the tensor cores from registers
+(``csrc/mma_bf16.cuh``: ``mma.sync`` tiles fed by 16-byte ``cp.async``
+copies through a two-stage ring; the scores, the online softmax and the
+output accumulator never leave registers, and p is repacked from the score
+accumulators into the A operand of p·v); fp32 runs CUDA-core FMA tiles
+(``csrc/flash.cuh``; never TF32).  q, k and v are strided (batch, head,
+token, dh) views: the packed (B·T, 3D) QKV is read in place and the
+context written straight into (B·T, D), with no head transposes.  Every
+bf16 view's base address and strides must be multiples of 16 bytes
+(``_build.check_aligned``); anything else raises.
 
 Rounding points (the TPU kernel's): q scaled by round(1/sqrt(dh)) in the
 working dtype; scores, max, sum and accumulator fp32; p rounded to v's
-dtype before p·v; out = acc · (1/l), rounded once; lse = m + log(l).
+dtype before p·v; out = acc · (1/l), rounded once; lse = m + log(l), from
+the same l.
 """
 
 from __future__ import annotations
@@ -95,6 +101,8 @@ def flash_attention_fwd(q, k, v, out=None, return_lse: bool = False):
     sq, sk, sv, so = view_strides(name, q.shape, q, k, v, out)
     if not sq == sk == sv:
         raise ValueError(f"{name}: q, k and v must share their strides")
+    if q.dtype == torch.bfloat16:
+        _build.check_aligned(name, q=q, k=k, v=v, out=out)
     b, h, t, dh = q.shape
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device) if return_lse else None
     lib = _build.load_library()

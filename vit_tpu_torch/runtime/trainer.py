@@ -6,7 +6,7 @@ Params are a dict of leaf tensors with ``requires_grad``; a
 ``torch.optim`` optimizer over those leaves takes the place of an optax
 transformation and its state, and updates them in place — the
 counterpart of ``jax.jit(..., donate_argnums=(0, 1))``.  :class:`FusedAdamW`
-is the fused AdamW step (K20, one kernel launch per leaf), the
+is the fused AdamW step (K20, one kernel launch per leaf dtype), the
 counterpart of ``make_train_step_fused_adamw``'s update.  The step runs
 eagerly: no ``torch.compile``.
 """
