@@ -6,7 +6,10 @@ Phases (a failed phase raises; nothing is caught):
   2. build the CUDA kernels from ``vit_tpu_torch/csrc``;
   3. each kernel (K1 ln_qkv_attn, K2 out_ln_mlp_residual, K3 layer_norm)
      against its plain PyTorch twin on the card, bf16 and fp32, at ViT-B/16
-     shapes for batch 100 and a ragged batch of 3, with both timed;
+     shapes for batch 100 and a ragged batch of 3, with both timed; and the
+     bf16 GEMM core of K1 and K2 (``csrc/gemm_mma.cuh``) alone at the main
+     path's four GEMM shapes (M 19,700), against fp32 ``torch.matmul`` of
+     the same bf16 operands, timed beside one bf16 ``torch.matmul``;
   4. the classify CLI in-process on synthetic B/16 reference weights:
      ``--synth 100 --ops fused --dtype bfloat16 --device cuda``, with every
      launch count set to 0 just before and read just after (12 K1, 12 K2,
@@ -15,7 +18,9 @@ Phases (a failed phase raises; nothing is caught):
      (8 images), vs the eager path in float64 on the CPU (2 images), and
      bf16 fused vs fp32 fused over the batch of 100 (decisive labels, top
      probability);
-  6. images/s at batch 100 bf16, fused and eager, timed in turns;
+  6. images/s at batch 100 bf16, fused and eager, timed in turns, and a
+     torch.profiler trace of one fused forward: device time by kernel and
+     the device's busy share of the forward's wall time;
   7. the training kernels (K4 out_residual, K5 ln_mlp_residual, K6
      ln_qkv_attn_bwd, K7 ln_mlp_out_residual_bwd) against their plain
      twins, every output (dx, dctx, each weight and bias gradient), bf16 and
@@ -890,12 +895,48 @@ def _inference_rates(cfg, params, x, ops_list, dev, card: str, what: str, rounds
     return rates
 
 
+def _profile_forward(cfg, params, x, ops: str, dev, card: str) -> None:
+    """One ``InferenceEngine.logits`` forward in a torch.profiler trace:
+    its wall time, its kernels' device time by name (annotations on the
+    device timeline not counted, as in ``_device_ms``) and the device's
+    busy share of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    engine = InferenceEngine(cfg, params, "bfloat16", ops, dev, batch_pad=x.shape[0])
+    engine.logits(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.logits(x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    log(f"profile {ops} {cfg.name} batch {x.shape[0]} bf16: forward {wall:.6g} ms wall (profiler "
+        f"on), device kernels {busy:.6g} ms ({busy / wall:.1%} busy, idle {1 - busy / wall:.1%}); "
+        f"{card}")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  {ms:.6g} ms ({ms / busy:.1%}) in {n} launches: {name[:110]}")
+
+
 def phase_throughput(params, images: np.ndarray, dev: torch.device, card: str) -> dict:
-    """Phase 6: images/s at batch 100 bf16, fused and eager timed in turns."""
+    """Phase 6: images/s at batch 100 bf16, fused and eager timed in turns;
+    then one fused forward in a profiler trace."""
     from vit_tpu_torch.config import VIT_B_16
 
     x = torch.from_numpy(images).to(dev, torch.bfloat16)
-    return _inference_rates(VIT_B_16, params, x, ("fused", "eager"), dev, card, "throughput", 5)
+    rates = _inference_rates(VIT_B_16, params, x, ("fused", "eager"), dev, card, "throughput", 5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _profile_forward(VIT_B_16, params, x, "fused", dev, card)
+    return rates
 
 
 def all_wrappers() -> dict:
@@ -1408,6 +1449,41 @@ def phase_quant_kernels(cases: dict, labels: dict = QUANT_KERNELS) -> dict:
                 summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     return summary
+
+
+# (what, K, N) of the main path's bf16 GEMMs at ViT-B/16 @224 batch 100
+GEMM_CORE_SHAPES = (("QKV", 768, 2304), ("out_proj", 768, 768), ("FC1", 768, 3072),
+                    ("FC2", 3072, 768))
+
+
+def phase_gemm_core(dev: torch.device, card: str) -> None:
+    """Phase 3's GEMM lines: the bf16 core of K1 and K2 alone at the main
+    path's four shapes (M 19,700), its fp32 sums within 2^-14 of the largest
+    |value| of fp32 ``torch.matmul`` on the same bf16 operands (the tensor
+    cores' accumulation truncates once per k16 step: up to K / 16 fp32
+    ulps), timed beside one bf16 ``torch.matmul`` (a yardstick; the port
+    never calls it)."""
+    from vit_tpu_torch.ops.kernels.gemm_bf16 import gemm_bf16
+
+    m = 100 * B16["t"]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for what, k, n in GEMM_CORE_SHAPES:
+        a = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        b = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).bfloat16()
+        got, want = gemm_bf16(a, b), a.float() @ b.float()
+        err = (got - want).abs().max().item()
+        tol = 2.0 ** -14 * max(1.0, want.abs().max().item())
+        if not err <= tol:
+            raise RuntimeError(f"bf16 GEMM core {what} ({m} x {k} x {n}): max|d|={err:.6g} > "
+                               f"tol {tol:.6g} against fp32 torch.matmul")
+        del got, want
+        ms, lib = cuda_ms(lambda: gemm_bf16(a, b)), cuda_ms(lambda: a @ b)
+        flop = 2 * m * k * n
+        bound_ms, bound_by = bound(flop, _nbytes((a, b)) + 4 * m * n, torch.bfloat16)
+        log(f"bf16 GEMM core {what} {m} x {k} x {n}: max|d|={err:.6g} (tol {tol:.6g}); "
+            f"{ms:.6g} ms ({flop / ms / 1e9:.6g} TFLOP/s), library_ms torch.matmul bf16 "
+            f"{lib:.6g} ms ({flop / lib / 1e9:.6g} TFLOP/s), bound {bound_ms:.6g} ms "
+            f"({bound_by}); {card}")
 
 
 def phase_int8_gemm(dev: torch.device, card: str) -> None:
@@ -2498,6 +2574,8 @@ def group_classify(dev, card, summary, launches) -> None:
     from vit_tpu_torch.ops.kernels import _build
 
     summary.update(phase_kernels(kernel_cases(dev), KERNELS, 100))
+    phase_gemm_core(dev, card)
+    torch.cuda.empty_cache()
     params = synth_params(VIT_B_16, 0)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         launches["classify"] = phase_cli(params, workdir)

@@ -165,6 +165,138 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         layer_norm(x.half(), s.half(), s.half())
 
 
+# -- the bf16 GEMM core of K1 and K2 (csrc/gemm_mma.cuh), alone and in place --
+
+# (M, K, N): the main path's four GEMMs at B/16 batch 100 and @512 batch 16,
+# ragged rows (batch 3, ToMe's merged counts), DeiT-T's N = D = 192, W_qkv
+# at two heads of width 80 (480) and at tp 4 and 2 (576, 1,152), K tails
+# past a multiple of the 64-deep k-step, and one whole tile
+GEMM_CORE_CASES = [(19700, 768, 2304), (19700, 768, 768), (19700, 768, 3072),
+                   (19700, 3072, 768), (16400, 768, 3072), (591, 768, 192), (591, 160, 480),
+                   (2 * 158, 768, 576), (3 * 171, 768, 1152), (123, 200, 480), (5, 40, 8),
+                   (300, 3080, 776), (128, 32, 128), (129, 96, 136)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", GEMM_CORE_CASES)
+def test_gemm_bf16_core(dev, m, k, n):
+    # fp32 sums of the same bf16 products in another order; the tensor
+    # cores' fp32 accumulation truncates (rounds toward zero) once per k16
+    # step, so up to K / 16 fp32 ulps apart: 2^-14 of the largest |value|
+    # covers K 3,080
+    from vit_tpu_torch.ops.kernels.gemm_bf16 import gemm_bf16
+
+    a = _rn(dev, 0, m, k, dtype=torch.bfloat16)
+    b = _rn(dev, 1, k, n, scale=k ** -0.5, shift=0.05, dtype=torch.bfloat16)
+    got, want = gemm_bf16(a, b), a.float() @ b.float()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 2.0 ** -14 * max(1.0, want.abs().max().item()), err
+
+
+def _k1_args(dev, dtype, b, t, d, heads, dh):
+    return (_rn(dev, 0, b * t, d, scale=2.0, dtype=dtype),
+            _rn(dev, 1, d, scale=0.2, shift=1.0, dtype=dtype),
+            _rn(dev, 2, d, scale=0.2, dtype=dtype),
+            _rn(dev, 3, d, 3 * heads * dh, scale=d ** -0.5, dtype=dtype),
+            _rn(dev, 4, 3 * heads * dh, scale=0.1, dtype=dtype), heads, t, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "b,t,d,heads,dh",
+    [(16, 1025, 768, 12, 64), (3, 197, 768, 3, 64), (3, 197, 768, 6, 64), (2, 65, 200, 2, 80),
+     (2, 41, 776, 4, 32)],
+    ids=["rows16400", "tp4_n576", "tp2_n1152", "ktail_d200_n480", "ktail_d776_dh32"],
+)
+def test_ln_qkv_attn_gemm_edges(dev, dtype, b, t, d, heads, dh):
+    # W_qkv (D, 3 H dh) wider or narrower than D: the [in, out] weight read
+    # in the wrong major order would pass no shape check and fail here
+    args = _k1_args(dev, dtype, b, t, d, heads, dh)
+    _check(ln_qkv_attn(*args), ln_qkv_attn_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d_ctx,d,f", [(16400, 768, 768, 3072), (19700, 768, 768, 3072),
+                                            (591, 384, 768, 3072), (591, 576, 192, 776),
+                                            (41, 200, 136, 520)])
+def test_out_ln_mlp_residual_gemm_edges(dev, dtype, rows, d_ctx, d, f):
+    # W_o (d_ctx, D) not square, N = 192 (DeiT-T), K tails in all three GEMMs
+    args = (
+        _rn(dev, 0, rows, d_ctx, dtype=dtype),
+        _rn(dev, 1, rows, d, scale=2.0, dtype=dtype),
+        _rn(dev, 2, d_ctx, d, scale=d_ctx ** -0.5, dtype=dtype),
+        _rn(dev, 3, d, scale=0.1, dtype=dtype),
+        _rn(dev, 4, d, scale=0.2, shift=1.0, dtype=dtype),
+        _rn(dev, 5, d, scale=0.2, dtype=dtype),
+        _rn(dev, 6, d, f, scale=d ** -0.5, dtype=dtype),
+        _rn(dev, 7, f, scale=0.1, dtype=dtype),
+        _rn(dev, 8, f, d, scale=f ** -0.5, dtype=dtype),
+        _rn(dev, 9, d, scale=0.1, dtype=dtype),
+        1e-6, "exact",
+    )
+    _check(out_ln_mlp_residual(*args), out_ln_mlp_residual_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("t", [41, 158, 171])
+def test_ln_qkv_attn_hooked_merged_t(dev, t, dh):
+    # ToMe's merged counts at every head width: the log-size bias before the
+    # row max, the k-mean; a zero bias is the hook-less kernel bit for bit
+    args = _k1_args(dev, torch.bfloat16, 3, t, 2 * dh, 2, dh)
+    ls = _log_size(dev, 3, t)
+    ctx, kmean = ln_qkv_attn(*args, log_size=ls, return_kmean=True)
+    want_ctx, want_kmean = ln_qkv_attn_plain(*args, log_size=ls, return_kmean=True)
+    _check(ctx, want_ctx)
+    _check(kmean, want_kmean)
+    zero, _ = ln_qkv_attn(*args, log_size=torch.zeros_like(ls), return_kmean=True)
+    assert torch.equal(zero, ln_qkv_attn(*args))
+
+
+@pytest.mark.cuda
+def test_gemm_core_refuses_unaligned_operands(dev):
+    from vit_tpu_torch.ops.kernels.gemm_bf16 import gemm_bf16
+
+    bf = torch.bfloat16
+
+    def off(*shape):  # contiguous, one element past the 16-byte grid
+        n = int(np.prod(shape))
+        return torch.zeros(n + 1, device=dev, dtype=bf)[1:].view(*shape)
+
+    x, s = torch.zeros(10, 64, device=dev, dtype=bf), torch.ones(64, device=dev, dtype=bf)
+    w, b = torch.zeros(64, 192, device=dev, dtype=bf), torch.zeros(192, device=dev, dtype=bf)
+    ln_qkv_attn(x, s, s, w, b, 4, 5, 1e-6)  # aligned: runs
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ln_qkv_attn(x, s, s, off(64, 192), b, 4, 5, 1e-6)
+    x60, s60 = torch.zeros(10, 60, device=dev, dtype=bf), torch.ones(60, device=dev, dtype=bf)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ln_qkv_attn(x60, s60, s60, torch.zeros(60, 192, device=dev, dtype=bf), b, 4, 5, 1e-6)
+    mats = {"ctx": x, "wo": torch.zeros(64, 64, device=dev, dtype=bf),
+            "w1": torch.zeros(64, 256, device=dev, dtype=bf),
+            "w2": torch.zeros(256, 64, device=dev, dtype=bf)}
+    b1 = torch.zeros(256, device=dev, dtype=bf)
+
+    def k2(m, b1=b1):
+        return out_ln_mlp_residual(m["ctx"], x, m["wo"], s, s, s, m["w1"], b1, m["w2"], s, 1e-6)
+
+    k2(mats)  # aligned: runs
+    for name, t in mats.items():
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            k2({**mats, name: off(*t.shape)})
+    odd = {**mats, "w1": torch.zeros(64, 260, device=dev, dtype=bf),
+           "w2": torch.zeros(260, 64, device=dev, dtype=bf)}
+    with pytest.raises(ValueError, match="multiples of 8"):
+        k2(odd, torch.zeros(260, device=dev, dtype=bf))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gemm_bf16(torch.zeros(5, 40, device=dev, dtype=bf),
+                  torch.zeros(40, 100, device=dev, dtype=bf))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        gemm_bf16(off(5, 40), torch.zeros(40, 64, device=dev, dtype=bf))
+
+
 @pytest.mark.cuda
 def test_fused_forward_launches_and_matches_eager(dev):
     from vit_tpu_torch.models import vit

@@ -256,8 +256,9 @@ def test_build_hash_covers_every_source():
         "out_residual_bwd.cu", "ln_qkv_attn_q8.cu", "out_ln_mlp_residual_q8.cu",
         "ln_mlp_residual_q8.cu", "ln_mlp_residual_bwd_train.cu", "out_residual_bwd_train.cu",
         "scaled_dot_product_attention.cu", "mlp.cu", "adamw.cu", "ln_fc1_gelu_q8.cu",
-        "fc2_q8_partial.cu", "ln_qkv_attn_q8a.cu"}
+        "fc2_q8_partial.cu", "ln_qkv_attn_q8a.cu", "gemm_bf16.cu"}
     assert {p.name for p in cuh} == {"common.cuh", "gemm.cuh", "epilogue.cuh", "attention.cuh",
                                       "ln_mlp_out_residual_bwd.cuh", "flash.cuh", "gemm_q8.cuh",
-                                      "quant_rows.cuh", "mlp_q8.cuh", "mma_bf16.cuh"}
+                                      "quant_rows.cuh", "mlp_q8.cuh", "mma_bf16.cuh",
+                                      "gemm_mma.cuh", "sdpa_mma.cuh"}
     assert _build.library_path().name == f"libvit_tpu_torch_{_build.source_hash()}.so"

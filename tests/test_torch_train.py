@@ -536,6 +536,24 @@ def test_profile_train_flop_counts():
     assert layer_flop(VIT_B_16, 64) == want
 
 
+def test_profile_train_device_sum_drops_annotations():
+    # stand-ins for key_averages() rows: two kernels, an op row that repeats
+    # its kernel's device time, and a device-side annotation spanning both
+    from types import SimpleNamespace as Row
+
+    from vit_tpu_torch.cli.profile_train import device_kernel_us
+
+    rows = [Row(key="gemm_mma_kernel", self_cpu_time_total=0, self_device_time_total=300,
+                is_user_annotation=False),
+            Row(key="sdpa_mma_kernel", self_cpu_time_total=0, self_device_time_total=100),
+            Row(key="aten::mm", self_cpu_time_total=40, self_device_time_total=300,
+                is_user_annotation=False),
+            Row(key="Optimizer.step#AdamW.step", self_cpu_time_total=0,
+                self_device_time_total=400, is_user_annotation=True)]
+    assert device_kernel_us(rows, "self_device_time_total") == 400
+    assert device_kernel_us(rows[:2], "self_device_time_total") == 400
+
+
 def test_profile_train_needs_a_card(monkeypatch):
     from vit_tpu_torch.cli.profile_train import main
 

@@ -14,7 +14,8 @@ and K14 and K13 (the flash-attention backward and forward) at @512 batch 16
 beside ``F.scaled_dot_product_attention``'s forward, and K20 (the fused
 AdamW) as one step over ViT-B/16's 20 fp32 leaves beside
 ``torch.optim.AdamW(fused=True).step()``, where it has those; bf16, CUDA
-events, median of 20 launches after 5.  The two optimizer steps also
+events, median of 20 launches after 5; K1 also with token merging's hooks at
+batch 100 T 158 where the checkout has them.  The two optimizer steps also
 report their device time (the kernels' durations in a torch.profiler
 trace) and their host time per call.  ``--sass SOURCE ...``
 first compares the machine code each checkout compiles from those sources,
@@ -96,6 +97,12 @@ rows = 100 * t
 x, ctx = rn(rows, d, scale=2.0), rn(rows, d)
 times["K1"] = ms(lambda: k("ln_qkv_attn")(x, s, bb, wqkv, bqkv, h, t, eps))
 times["K2"] = ms(lambda: k("out_ln_mlp_residual")(ctx, x, wo, bo, s, bb, w1, b1, w2, b2, eps, "exact"))
+if k("kmean_plain", "ln_qkv_attn") is not None:  # the ToMe hooks, at a merged T
+    tm = 158
+    xm = rn(100 * tm, d, scale=2.0)
+    ls = torch.log(torch.randint(1, 6, (100, tm), generator=gen, device=dev).float())
+    times["K1 hooked"] = ms(lambda: k("ln_qkv_attn")(xm, s, bb, wqkv, bqkv, h, tm, eps,
+                                                    log_size=ls, return_kmean=True))
 rows = 64 * t
 x, ctx, dy = rn(rows, d, scale=2.0), rn(rows, d), rn(rows, d)
 times["K4"] = ms(lambda: k("out_residual")(ctx, x, wo, bo))
@@ -192,8 +199,9 @@ def same_sass(a: str, b: str, sources) -> dict:
     out = {}
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
+        # a source one checkout lacks (a new kernel's) has no kernels there
         cubins = {(src, i): f"{tmp}/{i}_{Path(src).stem}.cubin"
-                  for src in sources for i in range(2)}
+                  for src in sources for i in range(2) if (Path((a, b)[i]) / src).is_file()}
         procs = [subprocess.Popen([nvcc, *flags, "-cubin", "-o", cubin,
                                    str(Path((a, b)[i]) / src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -205,7 +213,8 @@ def same_sass(a: str, b: str, sources) -> dict:
         for src in sources:
             old, new = (_functions(subprocess.run([cuobjdump, "-sass", cubins[src, i]],
                                                   check=True, capture_output=True,
-                                                  text=True).stdout) for i in range(2))
+                                                  text=True).stdout)
+                        if (src, i) in cubins else {} for i in range(2))
             out[src] = ([k for k in old if k in new and new[k] != old[k]],
                         [k for k in old if k not in new], [k for k in new if k not in old])
     return out

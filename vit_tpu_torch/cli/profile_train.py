@@ -57,6 +57,16 @@ def layer_flop(cfg, batch: int) -> dict:
     return flop
 
 
+def device_kernel_us(rows, key: str) -> float:
+    """The device time of the kernels among ``key_averages()`` rows, in us:
+    the rows with no CPU time (op and autograd rows repeat their kernels'
+    device time), less the user annotations the trace also places on the
+    device timeline (torch's ``Optimizer.step`` record_function spans the
+    optimizer's kernels), as ``chip_smoke._device_ms`` counts."""
+    return sum(getattr(e, key) for e in rows
+               if e.self_cpu_time_total == 0 and not getattr(e, "is_user_annotation", False))
+
+
 def _time_wrappers(events: dict) -> None:
     """Replace each kernel wrapper by one that records CUDA events around it."""
     import sys
@@ -155,10 +165,9 @@ def main(argv=None) -> int:
         averages = prof.key_averages()
         key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
                else "self_cuda_time_total")
-        # device kernels are the rows with no CPU time; op and autograd rows
-        # repeat their kernels' device time
-        device_us = sum(getattr(e, key) for e in averages if e.self_cpu_time_total == 0)
-        print(f"  profiler: device kernels {device_us / 1e3:.6g} ms in one step")
+        device_us = device_kernel_us(averages, key)
+        print(f"  profiler: device kernels {device_us / 1e3:.6g} ms in one step, "
+              f"{device_us / 1e3 / wall:.1%} of the step's wall")
         print(averages.table(sort_by=key, row_limit=18, max_name_column_width=70))
         del params, opt, step
         torch.cuda.empty_cache()

@@ -3,25 +3,37 @@
 // (_ln_qkv_attn_kernel, _head_context).
 //
 // The TPU kernel holds W_qkv and one image's packed QKV in VMEM.  A Hopper
-// block has 227 KB of shared memory, so this is two stages over a packed
-// QKV scratch in device memory:
-//   1. LN1 row statistics, then the tiled GEMM (gemm.cuh) with LN1 applied
-//      in the A-tile load; epilogue adds the bias and rounds to the dtype.
-//   2. attention: one block per (image, head, 64-query tile), q/k/v read
-//      with strides from the packed (head, {q,k,v}, dh) columns, 64-key
-//      tiles streamed through shared memory twice (pass 1: row max and sum
-//      of exp with online rescaling; pass 2: p = exp(s - m) * (1/sum)
-//      rounded to the dtype, then p @ v), so every T fits and the rounding
-//      points are the TPU kernel's.  Ragged query and key edges are masked;
-//      keys past T load zeros and get p = 0.
-// Token merging's hooks (attention.cuh): with `log_size` (B, T) fp32 the
-// attention blocks add it to the key logits before the row max; with
-// `kmean` a third stage writes the mean key over heads (B*T, dh) from the
-// packed-QKV scratch.  Both null: stages 1-2 as without the hooks.
+// block has 227 KB of shared memory, so this is stages over a packed QKV
+// scratch in device memory.  What bounds it on the H100: operations (B/16
+// batch 100: the QKV GEMM's 70 GFLOP and attention's 12).
+//
+// bf16 (the main path), on the tensor cores:
+//   1. LN1 once per row into a bf16 scratch h (gemm_mma.cuh's
+//      launch_ln_rows: fp32 statistics and affine, one rounding);
+//   2. the packed QKV GEMM on gemm_mma.cuh's pipelined cp.async + wgmma
+//      core, h @ W_qkv + b_qkv rounded to bf16 (BiasEpi);
+//   3. attention on sdpa_mma.cuh's register tiles, K21's body: one block
+//      per (image, head, 64-query tile) reading q/k/v in place from the
+//      packed (head, {q,k,v}, dh) columns as strided views, two passes
+//      over 64-key tiles (exact row max and sum, then p rounded before
+//      p @ v), the context in 16-byte stores.
+// fp32 keeps the parent's stages: LN1 row statistics, gemm.cuh's FMA core
+// with LN1 applied in the A-tile load (never TF32), and attention.cuh's
+// SIMT attention (attention_tile), which rounds at the same points.
+//
+// Token merging's hooks: with `log_size` (B, T) fp32 the attention adds it
+// to the key logits before the row max (the bf16 body's kBias flag, the
+// fp32 attention_bias_kernel); with `kmean` one more kernel writes the
+// mean key over heads (B*T, dh) from the packed-QKV scratch (kmean_kernel).
+// Both null: the stages as without the hooks.
 #include "attention.cuh"
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm.cuh"
+#include "gemm_mma.cuh"
+#include "sdpa_mma.cuh"
+
+#include <algorithm>
 
 namespace vt {
 
@@ -41,30 +53,94 @@ cudaError_t ln_qkv_attn(const T* x, const T* ln_scale, const T* ln_bias, const T
   return launch_attention_any<T>(qkv, ctx, batch, seq, heads, head_dim, stream, log_size, kmean);
 }
 
+// one block's attention in bf16: query tile blockIdx.x of (image, head) =
+// (blockIdx.z, blockIdx.y), q/k/v read from the packed QKV's columns and
+// the context written into the (B*T, H*dh) rows, both in place
+template <int DH, bool kBias>
+__global__ void __launch_bounds__(kMmaThreads)
+qkv_attention_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx,
+                         const float* __restrict__ log_size, int seq, int heads,
+                         float inv_sqrt_dh) {
+  const long long ld = 3LL * heads * DH, dctx = (long long)heads * DH;
+  const View4 sqkv{seq * ld, 3 * DH, ld}, so{seq * dctx, DH, dctx};
+  sdpa_mma_tile<DH, kBias>(qkv, sqkv, qkv + DH, sqkv, qkv + 2 * DH, sqkv, ctx, so, log_size, seq,
+                           inv_sqrt_dh);
+}
+
+template <int DH, bool kBias>
+cudaError_t launch_qkv_attention_mma(const bf16* qkv, bf16* ctx, const float* log_size,
+                                     int batch, int seq, int heads, cudaStream_t stream) {
+  constexpr size_t smem = mma_tiles_bytes<DH>(5);
+  const float inv_sqrt_dh = (float)(1.0 / sqrt((double)DH));  // as the host computes it
+  VT_TRY(cudaFuncSetAttribute(qkv_attention_mma_kernel<DH, kBias>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  qkv_attention_mma_kernel<DH, kBias><<<dim3(cdiv(seq, kMmaRows), heads, batch), kMmaThreads,
+                                        smem, stream>>>(qkv, ctx, log_size, seq, heads,
+                                                        inv_sqrt_dh);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t qkv_attention_mma(const bf16* qkv, bf16* ctx, const float* log_size, int batch,
+                              int seq, int heads, cudaStream_t stream) {
+  return log_size ? launch_qkv_attention_mma<DH, true>(qkv, ctx, log_size, batch, seq, heads,
+                                                       stream)
+                  : launch_qkv_attention_mma<DH, false>(qkv, ctx, nullptr, batch, seq, heads,
+                                                        stream);
+}
+
+// bf16: h = LN1(x) (rows, d), the packed QKV on the tensor-core core, then
+// attention on the register tiles
+cudaError_t ln_qkv_attn_mma(const bf16* x, const bf16* ln_scale, const bf16* ln_bias,
+                            const bf16* wqkv, const bf16* bqkv, bf16* h, bf16* qkv, bf16* ctx,
+                            const float* log_size, bf16* kmean, int batch, int seq, int d,
+                            int heads, int head_dim, float eps, cudaStream_t stream) {
+  const int rows = batch * seq, d3 = 3 * heads * head_dim;
+  if (rows <= 0) return cudaSuccess;
+  VT_TRY(launch_ln_rows(x, ln_scale, ln_bias, h, rows, d, eps, stream));
+  VT_TRY(launch_gemm_mma(h, d, wqkv, d3, rows, d3, d, BiasEpi<bf16, bf16>{bqkv, qkv, d3},
+                         stream));
+  switch (head_dim) {
+    case 16: VT_TRY(qkv_attention_mma<16>(qkv, ctx, log_size, batch, seq, heads, stream)); break;
+    case 32: VT_TRY(qkv_attention_mma<32>(qkv, ctx, log_size, batch, seq, heads, stream)); break;
+    case 64: VT_TRY(qkv_attention_mma<64>(qkv, ctx, log_size, batch, seq, heads, stream)); break;
+    case 80: VT_TRY(qkv_attention_mma<80>(qkv, ctx, log_size, batch, seq, heads, stream)); break;
+    case 128: VT_TRY(qkv_attention_mma<128>(qkv, ctx, log_size, batch, seq, heads, stream)); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (!kmean) return cudaSuccess;
+  const size_t n = (size_t)rows * head_dim;
+  const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
+  kmean_kernel<bf16><<<blocks, 256, 0, stream>>>(qkv, kmean, rows, heads, head_dim,
+                                                 (float)(1.0 / heads));
+  return cudaGetLastError();
+}
+
 }  // namespace vt
 
+// `stats` (2 * rows fp32) is fp32's scratch, `h` (rows, d) bf16's; the
+// other may be null
 extern "C" int vt_ln_qkv_attn(const void* x, const void* ln_scale, const void* ln_bias,
-                              const void* wqkv, const void* bqkv, void* stats, void* qkv,
-                              void* ctx, const void* log_size, void* kmean, int batch,
-                              int seq, int d, int heads, int head_dim, float eps, int dtype,
-                              int device, void* stream) {
+                              const void* wqkv, const void* bqkv, void* stats, void* h,
+                              void* qkv, void* ctx, const void* log_size, void* kmean,
+                              int batch, int seq, int d, int heads, int head_dim, float eps,
+                              int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  float* st = (float*)stats;
   if (dtype == vt::kFloat32) {
     typedef float T;
     return (int)vt::ln_qkv_attn<T>((const T*)x, (const T*)ln_scale, (const T*)ln_bias,
-                                   (const T*)wqkv, (const T*)bqkv, st, (T*)qkv, (T*)ctx,
-                                   (const float*)log_size, (T*)kmean, batch, seq, d, heads,
-                                   head_dim, eps, s);
+                                   (const T*)wqkv, (const T*)bqkv, (float*)stats, (T*)qkv,
+                                   (T*)ctx, (const float*)log_size, (T*)kmean, batch, seq, d,
+                                   heads, head_dim, eps, s);
   }
   if (dtype == vt::kBFloat16) {
     typedef vt::bf16 T;
-    return (int)vt::ln_qkv_attn<T>((const T*)x, (const T*)ln_scale, (const T*)ln_bias,
-                                   (const T*)wqkv, (const T*)bqkv, st, (T*)qkv, (T*)ctx,
-                                   (const float*)log_size, (T*)kmean, batch, seq, d, heads,
-                                   head_dim, eps, s);
+    return (int)vt::ln_qkv_attn_mma((const T*)x, (const T*)ln_scale, (const T*)ln_bias,
+                                    (const T*)wqkv, (const T*)bqkv, (T*)h, (T*)qkv, (T*)ctx,
+                                    (const float*)log_size, (T*)kmean, batch, seq, d, heads,
+                                    head_dim, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,17 +3,25 @@
 // (_out_ln_mlp_kernel).
 //
 // The TPU kernel keeps W_o, W1, W2 and every intermediate in VMEM.  Here
-// three tiled GEMMs (gemm.cuh) stream weight tiles, with the elementwise
-// steps in their loads and epilogues and two device scratches:
+// three tiled GEMMs stream weight tiles, with the elementwise steps in
+// their epilogues and device scratches between them:
 //   1. x1 = ctx @ W_o + b_o + res         -> fp32 scratch, never rounded
-//   2. LN2 row statistics of x1 (fp32)
-//   3. g = GELU(LN2(x1) @ W1 + b1)        -> LN2 applied and rounded to the
-//      dtype in the A-tile load; bias + GELU in fp32; g rounded to the dtype
+//   2. LN2 of x1 (fp32 statistics and affine), rounded to the dtype
+//   3. g = GELU(LN2(x1) @ W1 + b1)        -> bias + GELU in fp32; g rounded
+//      to the dtype
 //   4. out = g @ W2 + b2 + x1             -> rounded to the dtype
 // GELU's erf is the A-S form in fp32 and the tanh form in bf16.
+//
+// What bounds it on the H100: operations (B/16 batch 100: 23 + 93 + 93
+// GFLOP).  bf16 (the main path) runs the three GEMMs on gemm_mma.cuh's
+// pipelined cp.async + wgmma core, with step 2 a row pass that writes
+// LN2(x1) once into a bf16 scratch h2 (rows, d) the FC1 GEMM copies as is.
+// fp32 keeps the parent's stages: row statistics of x1, then gemm.cuh's
+// FMA core (never TF32) with LN2 applied in FC1's A-tile load.
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm.cuh"
+#include "gemm_mma.cuh"
 
 namespace vt {
 
@@ -37,13 +45,31 @@ cudaError_t out_ln_mlp_residual(const T* ctx, const T* res, const T* wo, const T
                         BiasResidualEpi<T, float, T>{b2, x1, out, d}, stream);
 }
 
+// bf16 on the tensor-core core: h2 (rows, d) holds LN2(x1)
+cudaError_t out_ln_mlp_residual_mma(const bf16* ctx, const bf16* res, const bf16* wo,
+                                    const bf16* bo, const bf16* ln_scale, const bf16* ln_bias,
+                                    const bf16* w1, const bf16* b1, const bf16* w2,
+                                    const bf16* b2, float* x1, bf16* h2, bf16* g, bf16* out,
+                                    int rows, int d_ctx, int d, int f, float eps, int variant,
+                                    cudaStream_t stream) {
+  if (rows <= 0) return cudaSuccess;
+  VT_TRY(launch_gemm_mma(ctx, d_ctx, wo, d, rows, d, d_ctx,
+                         BiasResidualEpi<bf16, bf16, float>{bo, res, x1, d}, stream));
+  VT_TRY(launch_ln_rows(x1, ln_scale, ln_bias, h2, rows, d, eps, stream));
+  VT_TRY(launch_gemm_mma(h2, d, w1, f, rows, f, d, BiasGeluEpi<bf16>{b1, g, f, variant}, stream));
+  return launch_gemm_mma(g, f, w2, d, rows, d, f,
+                         BiasResidualEpi<bf16, float, bf16>{b2, x1, out, d}, stream);
+}
+
 }  // namespace vt
 
+// `stats` (2 * rows fp32) is fp32's scratch, `h` (rows, d) bf16's; the
+// other may be null
 extern "C" int vt_out_ln_mlp_residual(const void* ctx, const void* res, const void* wo,
                                       const void* bo, const void* ln_scale, const void* ln_bias,
                                       const void* w1, const void* b1, const void* w2,
-                                      const void* b2, void* x1, void* stats, void* g, void* out,
-                                      int rows, int d_ctx, int d, int f, float eps,
+                                      const void* b2, void* x1, void* stats, void* h, void* g,
+                                      void* out, int rows, int d_ctx, int d, int f, float eps,
                                       int gelu_variant, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -57,10 +83,10 @@ extern "C" int vt_out_ln_mlp_residual(const void* ctx, const void* res, const vo
   }
   if (dtype == vt::kBFloat16) {
     typedef vt::bf16 T;
-    return (int)vt::out_ln_mlp_residual<T>(
+    return (int)vt::out_ln_mlp_residual_mma(
         (const T*)ctx, (const T*)res, (const T*)wo, (const T*)bo, (const T*)ln_scale,
         (const T*)ln_bias, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (float*)x1,
-        (float*)stats, (T*)g, (T*)out, rows, d_ctx, d, f, eps, gelu_variant, s);
+        (T*)h, (T*)g, (T*)out, rows, d_ctx, d, f, eps, gelu_variant, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -50,12 +50,14 @@ _DROP = [_U, _U, _F, _I]
 SIGNATURES = {
     # x, scale, bias, out, rows, d, eps, dtype, device, stream
     "vt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-    # x, ln_scale, ln_bias, wqkv, bqkv, stats, qkv, ctx, log_size, kmean,
+    # x, ln_scale, ln_bias, wqkv, bqkv, stats, h, qkv, ctx, log_size, kmean,
     # batch, seq, d, heads, head_dim, eps, dtype, device, stream
-    "vt_ln_qkv_attn": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
-    # ctx, res, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, x1, stats, g, out,
-    # rows, d_ctx, d, f, eps, gelu_variant, dtype, device, stream
-    "vt_out_ln_mlp_residual": [_P] * 14 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    "vt_ln_qkv_attn": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
+    # ctx, res, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, x1, stats, h, g,
+    # out, rows, d_ctx, d, f, eps, gelu_variant, dtype, device, stream
+    "vt_out_ln_mlp_residual": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # a, b, c, m, n, k, device, stream
+    "vt_gemm_bf16": [_P] * 3 + [_I] * 4 + [_P],
     # ctx, res, wo, bo, out, rows, d_ctx, d, dtype, device, stream
     "vt_out_residual": [_P] * 5 + [_I] * 5 + [_P],
     # x, ln_scale, ln_bias, w1, b1, w2, b2, stats, g, out,
@@ -298,7 +300,8 @@ VEC_BYTES = 16
 def check_aligned(kernel: str, **views: torch.Tensor) -> None:
     """Each view's base address and its strides other than the last axis's
     (a (batch, head, token, dh) view's batch, head and token strides) are
-    multiples of 16 bytes: K21, K13 and K14 read and write 16 bytes per lane.
+    multiples of 16 bytes: K21, K13, K14 and the bf16 GEMM core of K1 and
+    K2 read and write 16 bytes per lane.
     Axes of length 1 are never stepped, so their strides do not count.
     Anything else raises ``ValueError`` naming the operand."""
     for name, t in views.items():
@@ -311,6 +314,23 @@ def check_aligned(kernel: str, **views: torch.Tensor) -> None:
                 f"{t.data_ptr() % VEC_BYTES}) and strides {tuple(t.stride())} of {size}-byte "
                 "elements"
             )
+
+
+# bf16 elements per 16-byte copy of the GEMM core of K1 and K2
+# (csrc/gemm_mma.cuh)
+TILE_VEC = 8
+
+
+def check_tiles(kernel: str, widths=(), **mats: torch.Tensor) -> None:
+    """The bf16 GEMM core's operands: each matrix in ``mats`` on the 16-byte
+    grid (:func:`check_aligned`) and its last axis, like each ``(name,
+    elements)`` of ``widths`` (the widths that set a scratch's row pitch), a
+    multiple of 8 elements.  Anything else raises ``ValueError``."""
+    for name, n in (*((name, t.shape[-1]) for name, t in mats.items()), *widths):
+        if n % TILE_VEC:
+            raise ValueError(f"{kernel}: {name} is {n} elements wide; the bf16 GEMM core "
+                             f"takes widths in multiples of {TILE_VEC}")
+    check_aligned(kernel, **mats)
 
 
 def check_shape(kernel: str, name: str, t: torch.Tensor, shape) -> None:

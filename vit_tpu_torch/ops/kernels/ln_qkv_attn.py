@@ -4,26 +4,33 @@
 Replaces ``vit_tpu/ops/pallas/fused_block.py:ln_qkv_attn`` (pallas_call at
 :291; body ``_ln_qkv_attn_kernel`` :193 and ``_head_context`` :165).
 
-What bounds it on the H100: the QKV GEMM (B/16 batch 100: 19,700 x 768 x
-2,304, 70 GFLOP) is tensor-core work; attention (T = 197, dh = 64) is a
-further 12 GFLOP in many small per-head tiles.  The TPU kernel keeps
-W_qkv (3.4 MB bf16) and one image's packed QKV resident in 96 MB of VMEM;
-a Hopper block has 227 KB of shared memory, so the design streams tiles
-instead, in two stages:
+What bounds it on the H100: operations.  The QKV GEMM (B/16 batch 100:
+19,700 x 768 x 2,304, 70 GFLOP) is tensor-core work; attention (T = 197,
+dh = 64) is a further 12 GFLOP in many small per-head tiles.  The TPU
+kernel keeps W_qkv (3.4 MB bf16) and one image's packed QKV resident in
+96 MB of VMEM; a Hopper block has 227 KB of shared memory, so the design
+streams tiles through device-memory scratches instead.  bf16, the main
+path, in three stages:
 
-  1. per-row LN1 statistics (fp32 mean, rstd), then a tiled GEMM whose
-     A-tile load applies LN1 and rounds to the working dtype, writing the
-     packed QKV (+ bias, rounded) to a device scratch (B*T, 3D) — 90.8 MB
-     per layer at batch 100 bf16 that the TPU never wrote (the first
-     fusion target for later work);
-  2. one block per (image, head, 64-query tile) that reads q/k/v straight
-     out of the packed (head, {q,k,v}, dh) columns with strides (no
-     (B, H, T, dh) reshuffle), streams 64-key tiles twice — once for the
-     row max and sum of exp, once for p = exp(s - m) / sum rounded to the
-     dtype and p @ v — so any T fits in shared memory and the rounding
-     points are the TPU kernel's: q * (1/sqrt(dh)) in the dtype, fp32
-     scores, max-subtracted softmax normalised by a reciprocal multiply,
-     p rounded before p @ v, fp32 accumulation, output rounded.
+  1. LN1 once per row (fp32 statistics and affine) into a bf16 scratch h
+     (B*T, D), the value the TPU kernel rounds to the dtype;
+  2. the packed QKV GEMM on the pipelined ``cp.async`` + ``wgmma`` core
+     (``csrc/gemm_mma.cuh``), + bias, rounded, into a (B*T, 3D) scratch —
+     90.8 MB per layer at batch 100 that the TPU never wrote;
+  3. attention on K21's register tiles (``csrc/sdpa_mma.cuh``): one block
+     per (image, head, 64-query tile) that reads q/k/v straight out of the
+     packed (head, {q,k,v}, dh) columns as strided views, streams 64-key
+     tiles twice — once for the row max and sum of exp, once for p =
+     exp(s - m) / sum rounded to the dtype and p @ v — so any T fits and
+     the rounding points are the TPU kernel's: q * (1/sqrt(dh)) in the
+     dtype, fp32 scores, max-subtracted softmax normalised by a reciprocal
+     multiply, p rounded before p @ v, fp32 accumulation, output rounded.
+
+Every operand the GEMM core copies 16 bytes at a time is checked: W_qkv on
+the 16-byte grid, D and 3D multiples of 8 elements (``check_tile_operands``).
+fp32 keeps the first design: LN1 row statistics, a tiled fp32 FMA GEMM
+(never TF32) with LN1 applied in the A-tile load, and a SIMT attention
+with the same rounding points.
 
 Token merging's two hooks (``models/tome.py``): ``log_size`` (B, T) fp32
 is added to every query row's key logits after the scaled q·kᵀ and before
@@ -32,9 +39,6 @@ mean key over heads (B*T, dh) — the fp32 sum in head order times 1/H,
 rounded to the dtype — read by a third small kernel from the packed-QKV
 scratch the attention stage reads (the TPU kernel reads it from VMEM).
 Without either, the launches are exactly those of the hook-less kernel.
-
-bf16 GEMMs run on the tensor cores (WMMA, fp32 accumulators); fp32 runs
-plain fp32 FMA, never TF32.
 """
 
 from __future__ import annotations
@@ -81,6 +85,13 @@ def _check_log_size(name: str, log_size, x2d: torch.Tensor, seq_len: int) -> Non
             or not log_size.is_contiguous():
         raise ValueError(f"{name}: log_size must be contiguous float32 on {x2d.device}")
     _build.check_shape(name, "log_size", log_size, (x2d.shape[0] // seq_len, seq_len))
+
+
+def check_tile_operands(x2d, ln_scale, ln_bias, wqkv, *_, **__) -> None:
+    """bf16: the operands the GEMM core copies 16 bytes at a time — W_qkv,
+    and the width D of LN1's scratch (the GEMM's A rows) — on the 16-byte
+    grid; the wrapper's arguments, raises ``ValueError`` otherwise."""
+    _build.check_tiles("ln_qkv_attn", (("D", x2d.shape[-1]),), wqkv=wqkv)
 
 
 def ln_qkv_attn_plain(
@@ -140,7 +151,12 @@ def ln_qkv_attn(
     _build.check_shape(name, "wqkv", wqkv, (d, d3))
     _build.check_shape(name, "bqkv", bqkv, (d3,))
     _check_log_size(name, log_size, x2d, seq_len)
-    stats = torch.empty(2 * rows, dtype=torch.float32, device=x2d.device)
+    stats = h = None  # fp32's LN1 statistics, or bf16's LN1(x) rows
+    if x2d.dtype == torch.bfloat16:
+        check_tile_operands(x2d, ln_scale, ln_bias, wqkv)
+        h = torch.empty(rows, d, dtype=x2d.dtype, device=x2d.device)
+    else:
+        stats = torch.empty(2 * rows, dtype=torch.float32, device=x2d.device)
     qkv = torch.empty(rows, d3, dtype=x2d.dtype, device=x2d.device)
     ctx = torch.empty(rows, d3 // 3, dtype=x2d.dtype, device=x2d.device)
     kmean = torch.empty(rows, dh, dtype=x2d.dtype, device=x2d.device) if return_kmean else None
@@ -148,8 +164,8 @@ def ln_qkv_attn(
     _build.check(
         lib.vt_ln_qkv_attn(
             x2d.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            wqkv.data_ptr(), bqkv.data_ptr(), stats.data_ptr(),
-            qkv.data_ptr(), ctx.data_ptr(), _build.ptr_or_null(log_size),
+            wqkv.data_ptr(), bqkv.data_ptr(), _build.ptr_or_null(stats),
+            _build.ptr_or_null(h), qkv.data_ptr(), ctx.data_ptr(), _build.ptr_or_null(log_size),
             _build.ptr_or_null(kmean), rows // seq_len, seq_len, d,
             num_heads, dh, eps, _build.DTYPE_CODES[x2d.dtype],
             x2d.device.index, _build.stream_of(x2d),
