@@ -7,9 +7,15 @@ Phases (a failed phase raises; nothing is caught):
   3. each kernel (K1 ln_qkv_attn, K2 out_ln_mlp_residual, K3 layer_norm)
      against its plain PyTorch twin on the card, bf16 and fp32, at ViT-B/16
      shapes for batch 100 and a ragged batch of 3, with both timed; and the
-     bf16 GEMM core of K1 and K2 (``csrc/gemm_mma.cuh``) alone at the main
-     path's four GEMM shapes (M 19,700), against fp32 ``torch.matmul`` of
-     the same bf16 operands, timed beside one bf16 ``torch.matmul``;
+     bf16 GEMM core of K1, K2, K8 and K12b (``csrc/gemm_mma.cuh``) alone at
+     the main path's four GEMM shapes (M 19,700) and at the four products
+     of the MLP backward at @512 batch 16 (16,400 rows: dY W2ᵀ and du W1ᵀ
+     with the weight read K-major, the weight gradients h2ᵀ du and gᵀ dY
+     with the activation read MN-major and the rows split), against fp32
+     ``torch.matmul`` of the same bf16 operands, timed beside one bf16
+     ``torch.matmul`` on them; and the two weight gradients at 16,400 and
+     10,944 (64 x 171) rows timed at several split counts of their depth
+     beside the kernels' own;
   4. the classify CLI in-process on synthetic B/16 reference weights:
      ``--synth 100 --ops fused --dtype bfloat16 --device cuda``, with every
      launch count set to 0 just before and read just after (12 K1, 12 K2,
@@ -111,9 +117,11 @@ Phases (a failed phase raises; nothing is caught):
      13): K1 with the log-size bias and the k-mean (batch 100 at T 158 and
      3 at T 41), K6 with the bias and without the residual join, K12b
      ln_mlp_residual_bwd_train and K12c out_residual_bwd_train (batch 64 at
-     T 171 and 3 at T 41; dropout and drop-path 0.1), each against its twin,
-     bf16 and fp32, timed; K15 with both hooks by the W8A8 stage checks (its
-     k-mean bit for bit the mean key of its own dequantized QKV);
+     T 171 and 3 at T 41; dropout and drop-path 0.1) and K8
+     ln_mlp_residual_bwd (the plain ToMe step's, at the same counts), each
+     against its twin, bf16 and fp32, timed; K15 with both hooks by the
+     W8A8 stage checks (its k-mean bit for bit the mean key of its own
+     dequantized QKV);
  26. head width 80 at a ViT-H/14-like shape (D 1,280, 16 heads, T 257,
      batch 8): K1, K6, K13, K14 against their twins and K15 by the stage
      checks;
@@ -1452,38 +1460,91 @@ def phase_quant_kernels(cases: dict, labels: dict = QUANT_KERNELS) -> dict:
 
 
 # (what, K, N) of the main path's bf16 GEMMs at ViT-B/16 @224 batch 100
-GEMM_CORE_SHAPES = (("QKV", 768, 2304), ("out_proj", 768, 768), ("FC1", 768, 3072),
-                    ("FC2", 3072, 768))
+# (what, M, K, N, trans_a, trans_b, splits): the classify path's four GEMMs
+# at B/16 batch 100 (M 19,700), then the MLP backward's four at @512 batch
+# 16 (16,400 rows; K8's and K12b's): dY W2ᵀ and du_c W1ᵀ with the [in, out]
+# weight read K-major, dW1 = h2ᵀ du_c and dW2 = gᵀ dY with the activation
+# read MN-major and the rows split as the kernels split them
+GEMM_CORE_SHAPES = (("QKV", 19700, 768, 2304, False, False, 1),
+                    ("out_proj", 19700, 768, 768, False, False, 1),
+                    ("FC1", 19700, 768, 3072, False, False, 1),
+                    ("FC2", 19700, 3072, 768, False, False, 1),
+                    ("dY W2^T", 16400, 768, 3072, False, True, 1),
+                    ("du W1^T", 16400, 3072, 768, False, True, 1),
+                    ("dW1 h2^T du", 768, 16400, 3072, True, False, 0),
+                    ("dW2 g^T dY", 3072, 16400, 768, True, False, 0))
 
 
 def phase_gemm_core(dev: torch.device, card: str) -> None:
-    """Phase 3's GEMM lines: the bf16 core of K1 and K2 alone at the main
-    path's four shapes (M 19,700), its fp32 sums within 2^-14 of the largest
-    |value| of fp32 ``torch.matmul`` on the same bf16 operands (the tensor
-    cores' accumulation truncates once per k16 step: up to K / 16 fp32
-    ulps), timed beside one bf16 ``torch.matmul`` (a yardstick; the port
-    never calls it)."""
-    from vit_tpu_torch.ops.kernels.gemm_bf16 import gemm_bf16
+    """Phase 3's GEMM lines: the bf16 core of K1, K2, K8 and K12b alone at
+    GEMM_CORE_SHAPES, in each operand form, its fp32 sums within 2^-14 of
+    the largest |value| of fp32 ``torch.matmul`` on the same bf16 operands
+    (the tensor cores' accumulation truncates once per k16 step: up to
+    K / 16 fp32 ulps of a split's depth), timed beside one bf16
+    ``torch.matmul`` on the same operands, transposed views as they lie (a
+    yardstick; the port never calls it)."""
+    from vit_tpu_torch.ops.kernels.gemm_bf16 import gemm_bf16, gemm_bf16_plain
 
-    m = 100 * B16["t"]
     gen = torch.Generator(device=dev).manual_seed(12)
-    for what, k, n in GEMM_CORE_SHAPES:
-        a = torch.randn(m, k, generator=gen, device=dev).bfloat16()
-        b = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).bfloat16()
-        got, want = gemm_bf16(a, b), a.float() @ b.float()
+    for what, m, k, n, trans_a, trans_b, splits in GEMM_CORE_SHAPES:
+        a = torch.randn(*((k, m) if trans_a else (m, k)), generator=gen, device=dev).bfloat16()
+        b = (torch.randn(*((n, k) if trans_b else (k, n)), generator=gen, device=dev)
+             * k ** -0.5).bfloat16()
+        a_op, b_op = (a.T if trans_a else a), (b.T if trans_b else b)
+        got, want = gemm_bf16(a, b, trans_a, trans_b, splits), gemm_bf16_plain(a, b, trans_a,
+                                                                                trans_b)
         err = (got - want).abs().max().item()
         tol = 2.0 ** -14 * max(1.0, want.abs().max().item())
         if not err <= tol:
             raise RuntimeError(f"bf16 GEMM core {what} ({m} x {k} x {n}): max|d|={err:.6g} > "
                                f"tol {tol:.6g} against fp32 torch.matmul")
         del got, want
-        ms, lib = cuda_ms(lambda: gemm_bf16(a, b)), cuda_ms(lambda: a @ b)
+        ms = cuda_ms(lambda: gemm_bf16(a, b, trans_a, trans_b, splits))
+        lib = cuda_ms(lambda: a_op @ b_op)
         flop = 2 * m * k * n
         bound_ms, bound_by = bound(flop, _nbytes((a, b)) + 4 * m * n, torch.bfloat16)
-        log(f"bf16 GEMM core {what} {m} x {k} x {n}: max|d|={err:.6g} (tol {tol:.6g}); "
+        form = (" (a read MN-major)" * trans_a + " (b read K-major)" * trans_b
+                + " (rows split)" * (splits != 1))
+        log(f"bf16 GEMM core {what}{form} {m} x {k} x {n}: max|d|={err:.6g} (tol {tol:.6g}); "
             f"{ms:.6g} ms ({flop / ms / 1e9:.6g} TFLOP/s), library_ms torch.matmul bf16 "
             f"{lib:.6g} ms ({flop / lib / 1e9:.6g} TFLOP/s), bound {bound_ms:.6g} ms "
-            f"({bound_by}); {card}")
+            f"({bound_by}, {bound_ms / ms:.1%} of the core's); {card}")
+
+
+# the weight gradients' depths: @512 batch 16 (K8) and batch 64 at ToMe's
+# first merged layer, T 171 (K12b); and the split counts timed beside the
+# kernels' own rule (0)
+WGRAD_ROWS = (16 * 1025, 64 * 171)
+WGRAD_SPLITS = (0, 1, 2, 3, 5, 7, 9, 11, 22)
+
+
+def phase_wgrad_splits(dev: torch.device, card: str) -> None:
+    """Phase 3's split lines: the core's split-K weight gradients (dW1 =
+    h2ᵀ du, 768 x 3,072, and dW2 = gᵀ dY, 3,072 x 768) at WGRAD_ROWS, each
+    timed at every split count of WGRAD_SPLITS, partial sums included, each
+    within phase 3's 2^-14 of fp32 ``torch.matmul``."""
+    from vit_tpu_torch.ops.kernels.gemm_bf16 import gemm_bf16, gemm_bf16_plain
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    d, f = B16["d"], B16["f"]
+    for rows in WGRAD_ROWS:
+        for what, m, n in (("dW1", d, f), ("dW2", f, d)):
+            a = torch.randn(rows, m, generator=gen, device=dev).bfloat16()
+            b = (torch.randn(rows, n, generator=gen, device=dev) * rows ** -0.5).bfloat16()
+            want = gemm_bf16_plain(a, b, True)
+            tol = 2.0 ** -14 * max(1.0, want.abs().max().item())
+            times = []
+            for splits in WGRAD_SPLITS:
+                err = (gemm_bf16(a, b, True, False, splits) - want).abs().max().item()
+                if not err <= tol:
+                    raise RuntimeError(f"bf16 GEMM core {what} rows {rows} splits {splits}: "
+                                       f"max|d|={err:.6g} > tol {tol:.6g}")
+                times.append(cuda_ms(lambda: gemm_bf16(a, b, True, False, splits)))
+            log(f"bf16 GEMM core {what} {m} x {rows} x {n} (a read MN-major) by split count: "
+                + ", ".join(f"{'rule' if sp == 0 else sp} {t:.6g} ms"
+                            for sp, t in zip(WGRAD_SPLITS, times))
+                + f"; {card}")
+            del a, b, want
 
 
 def phase_int8_gemm(dev: torch.device, card: str) -> None:
@@ -1646,8 +1707,10 @@ def tome_kernel_cases(dev: torch.device):
     inference schedule's first merged layer) and 3 (T 41, its last); K6
     with log_size and no residual join, K12b and K12c at batch 64 (T 171,
     the training schedule's first merged layer) and 3 (T 41), at dropout
-    and drop-path REG_P.  Bounds count the rows a drop-path scale keeps."""
+    and drop-path REG_P; K8 (the plain ToMe step's MLP backward) at the
+    same counts.  Bounds count the rows a drop-path scale keeps."""
     from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd as k8
     from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd_train as k12b
     from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
     from vit_tpu_torch.ops.kernels import ln_qkv_attn_bwd as k6
@@ -1657,7 +1720,7 @@ def tome_kernel_cases(dev: torch.device):
     t_inf, t_train = _merged_counts(TOME_R, 3), _merged_counts(TOME_R, 2)
     rn = _rand(dev, 13)
     labels = {"ln_qkv_attn+hooks": ("K1 log_size kmean",), "ln_qkv_attn_bwd+hooks": (
-        "K6 log_size dres=None",), **TOME_KERNELS}
+        "K6 log_size dres=None",), **TOME_KERNELS, "ln_mlp_residual_bwd+merged": ("K8 merged",)}
     cases = {name: [] for name in labels}
     hooked_k1 = lambda *a: k1.ln_qkv_attn(*a[:8], log_size=a[8], return_kmean=True)  # noqa: E731
     plain_k1 = lambda *a: k1.ln_qkv_attn_plain(*a[:8], log_size=a[8], return_kmean=True)  # noqa: E731
@@ -1695,6 +1758,9 @@ def tome_kernel_cases(dev: torch.device):
             cases["out_residual_bwd_train"].append(case(
                 tag, dtype, b, k12c.out_residual_bwd_train, k12c.out_residual_bwd_train_plain,
                 (dy, ctx, wo, dp_a, REG_SEED, REG_P), 4 * kept_a * d * d))
+            cases["ln_mlp_residual_bwd+merged"].append(case(
+                tag, dtype, b, k8.ln_mlp_residual_bwd, k8.ln_mlp_residual_bwd_plain,
+                (dy, x1, s2, b2n, w1, bb1, w2, 1e-6, "exact"), 10 * rows * d * f))
     return cases, labels
 
 
@@ -2575,6 +2641,7 @@ def group_classify(dev, card, summary, launches) -> None:
 
     summary.update(phase_kernels(kernel_cases(dev), KERNELS, 100))
     phase_gemm_core(dev, card)
+    phase_wgrad_splits(dev, card)
     torch.cuda.empty_cache()
     params = synth_params(VIT_B_16, 0)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:

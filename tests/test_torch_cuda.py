@@ -297,6 +297,56 @@ def test_gemm_core_refuses_unaligned_operands(dev):
         gemm_bf16(off(5, 40), torch.zeros(40, 64, device=dev, dtype=bf))
 
 
+# The core's backward forms (K8, K12b), each alone against fp32
+# torch.matmul: dY Wᵀ with W read K-major at ragged row counts (1, 123,
+# ToMe's 64 x 171, @512 b16's 16,400) against the non-square [in, out]
+# weights W2 (F, D) and W1 (D, F) and a ragged one; the weight gradients
+# hᵀ dY with h read MN-major over those row counts as the depth, split as
+# the kernels split them (0), in forced counts, and in one pass where the
+# depth is short.  Widths of the stored operands are
+# multiples of 8; M, N and K are ragged against the 128 x 128 x 64 tile.
+GEMM_ROWS = (1, 123, 64 * 171, 16400)
+GEMM_KMAJOR_B_CASES = [(m, k, n) for m in GEMM_ROWS
+                       for k, n in ((768, 3072), (3072, 768), (200, 136))]
+GEMM_MNMAJOR_A_CASES = ([(m, k, n, 0) for k in GEMM_ROWS
+                         for m, n in ((768, 3072), (3072, 768), (136, 200))]
+                        + [(m, k, n, 1) for k in GEMM_ROWS[:2] for m, n in ((768, 3072), (136, 200))]
+                        + [(768, 64 * 171, 3072, 3), (3072, 16400, 768, 7), (136, 16400, 200, 32)])
+
+
+def _gemm_form_check(a, b, trans_a, trans_b, splits):
+    # the same rule as the default form's (test_gemm_bf16_core): 2^-14 of
+    # the largest |value|; a split's partials add in fp32 in split order
+    from vit_tpu_torch.ops.kernels.gemm_bf16 import gemm_bf16, gemm_bf16_plain
+
+    got = gemm_bf16(a, b, trans_a, trans_b, splits)
+    want = gemm_bf16_plain(a, b, trans_a, trans_b)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 2.0 ** -14 * max(1.0, want.abs().max().item()), err
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", GEMM_KMAJOR_B_CASES)
+def test_gemm_bf16_core_kmajor_b(dev, m, k, n):
+    a = _rn(dev, 0, m, k, dtype=torch.bfloat16)
+    w = _rn(dev, 1, n, k, scale=k ** -0.5, shift=0.05, dtype=torch.bfloat16)  # b = wᵀ
+    _gemm_form_check(a, w, False, True, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,splits", GEMM_MNMAJOR_A_CASES)
+def test_gemm_bf16_core_mnmajor_a_split(dev, m, k, n, splits):
+    h = _rn(dev, 0, k, m, dtype=torch.bfloat16)  # a = hᵀ: k rows of width m
+    g = _rn(dev, 1, k, n, scale=k ** -0.5, shift=0.05, dtype=torch.bfloat16)
+    got = _gemm_form_check(h, g, True, False, splits)
+    if splits != 1:  # a fixed-order sum: the same bits again
+        from vit_tpu_torch.ops.kernels.gemm_bf16 import gemm_bf16
+
+        assert torch.equal(got, gemm_bf16(h, g, True, False, splits))
+
+
 @pytest.mark.cuda
 def test_fused_forward_launches_and_matches_eager(dev):
     from vit_tpu_torch.models import vit
@@ -714,16 +764,71 @@ def test_out_residual_bwd(dev, dtype, rows, d):
 
 @pytest.mark.cuda
 def test_split_and_flash_backward_are_deterministic(dev):
+    from vit_tpu_torch.ops.kernels.ln_mlp_residual_bwd_train import ln_mlp_residual_bwd_train
+
     q, k, v = _qkv4(dev, torch.bfloat16, 1, 12, 1025, 64)
     do = _rn(dev, 50, 1, 12, 1025, 64, dtype=torch.bfloat16)
     out, lse = flash_attention_fwd(q, k, v, return_lse=True)
     k8 = _k8_args(dev, torch.bfloat16, 591, 768, 3072, "exact")
     k9 = k8[:2] + (k8[4][:, :768].contiguous(),)
+    dp_m = drop_path_scale_rows(2 ** 31 + 5, 5, 3, 197, 0.1, device=dev)
+    k12b = (*k8[:7], dp_m, 2 ** 31 + 5, 0.1, 1e-6, "exact")
     for fn, args in ((ln_mlp_residual_bwd, k8), (out_residual_bwd, k9),
-                     (flash_attention_bwd, (q, k, v, out, lse, do))):
+                     (flash_attention_bwd, (q, k, v, out, lse, do)),
+                     (ln_mlp_residual_bwd_train, k12b)):
         first = [t.clone() for t in fn(*args)]
         for a, b in zip(first, fn(*args)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("regularized", [False, True], ids=["k8", "k12b"])
+@pytest.mark.parametrize("b,t", [(3, 41), (64, 171)])
+def test_split_mlp_backward_at_merged_counts(dev, dtype, regularized, b, t):
+    # K8 and K12b (p = 0.1, drop-path 0.1) at ToMe r = 13's merged token
+    # counts, rows ragged against the 128-row tile and the 64-row k-step
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd_train as k12b
+
+    rows, seed = b * t, 2 ** 31 + 5
+    args = _k8_args(dev, dtype, rows, 768, 3072, "exact")
+    if regularized:
+        dp_m = drop_path_scale_rows(seed, 5, b, t, 0.1, device=dev)
+        args = (*args[:7], dp_m, seed, 0.1, 1e-6, "exact")
+        _check_all(k12b.ln_mlp_residual_bwd_train(*args),
+                   k12b.ln_mlp_residual_bwd_train_plain(*args))
+    else:
+        _check_all(ln_mlp_residual_bwd(*args), ln_mlp_residual_bwd_plain(*args))
+
+
+@pytest.mark.cuda
+def test_split_mlp_backward_refuses_unaligned_operands(dev):
+    # bf16 K8 and K12b read dy, w1, w2 through TMA tensor maps: an operand
+    # off the 16-byte grid, or D or F not a multiple of 8, raises before any
+    # launch (no fallback to the FMA core, the twin or the CPU)
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd_train as k12b
+
+    bf = torch.bfloat16
+
+    def off(t):  # the same values, one element past the 16-byte grid
+        flat = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)[1:]
+        return flat.copy_(t.reshape(-1)).view(t.shape)
+
+    args = _k8_args(dev, bf, 10, 64, 256, "exact")
+    ones = torch.ones(10, device=dev)
+    ln_mlp_residual_bwd(*args)  # aligned: runs
+    k12b.ln_mlp_residual_bwd_train(*args[:7], ones, 7, 0.1, 1e-6)
+    for i, name in ((0, "dy"), (1, "x1"), (4, "w1"), (6, "w2")):
+        bad = (*args[:i], off(args[i]), *args[i + 1:])
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            ln_mlp_residual_bwd(*bad)
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            k12b.ln_mlp_residual_bwd_train(*bad[:7], ones, 7, 0.1, 1e-6)
+    odd = _k8_args(dev, bf, 10, 60, 252, "exact")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ln_mlp_residual_bwd(*odd)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        k12b.ln_mlp_residual_bwd_train(*odd[:7], ones, 7, 0.0, 1e-6)
 
 
 @pytest.mark.cuda

@@ -260,5 +260,5 @@ def test_build_hash_covers_every_source():
     assert {p.name for p in cuh} == {"common.cuh", "gemm.cuh", "epilogue.cuh", "attention.cuh",
                                       "ln_mlp_out_residual_bwd.cuh", "flash.cuh", "gemm_q8.cuh",
                                       "quant_rows.cuh", "mlp_q8.cuh", "mma_bf16.cuh",
-                                      "gemm_mma.cuh", "sdpa_mma.cuh"}
+                                      "gemm_mma.cuh", "sdpa_mma.cuh", "mlp_bwd_mma.cuh"}
     assert _build.library_path().name == f"libvit_tpu_torch_{_build.source_hash()}.so"

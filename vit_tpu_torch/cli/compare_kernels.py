@@ -7,7 +7,10 @@ runs PARENT_DIR, ., ., PARENT_DIR per round (each checkout builds its own
 kernels into its own ``build/``) and prints each process's times, then the
 median per checkout.  K1 and K2 run at B/16 batch 100 (the classify path),
 K4, K5 and K7 at batch 64 (the train step), K10, K11 and K12a too where the
-checkout has them (dropout and drop-path 0.1), the W8A8 K15, K16 and K17 at
+checkout has them (dropout and drop-path 0.1), K8 at @512 batch 16 (16,400
+rows, the long train step's) and K12b at batch 64 T 171 (the regularized
+ToMe step's first merged layer, dropout and drop-path 0.1) where it has
+those, the W8A8 K15, K16 and K17 at
 batch 100 where it has those, K21 (the per-op attention) at batch 100 T 197,
 and K14 and K13 (the flash-attention backward and forward) at @512 batch 16
 (T 1,025), on strided views of a packed QKV as their paths give them, K13
@@ -115,6 +118,17 @@ if k("out_residual_train") is not None:
     times["K11"] = ms(lambda: k("ln_mlp_residual_train")(x, s, bb, w1, b1, w2, b2, dpm, 7, 0.1, eps))
     times["K12a"] = ms(lambda: k("ln_mlp_out_residual_bwd_train")(
         dy, x, ctx, s, bb, w1, b1, w2, wo, dpm, dpa, 7, 0.1, eps))
+k8, k12b = k("ln_mlp_residual_bwd"), k("ln_mlp_residual_bwd_train")
+if k8 is not None:
+    x8, dy8 = rn(16 * 1025, d, scale=2.0), rn(16 * 1025, d)
+    times["K8"] = ms(lambda: k8(dy8, x8, s, bb, w1, b1, w2, eps, "exact"))
+    del x8, dy8
+if k12b is not None:
+    from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
+    xm, dym = rn(64 * 171, d, scale=2.0), rn(64 * 171, d)
+    dpm = drop_path_scale_rows(7, 5, 64, 171, 0.1, device=dev)
+    times["K12b"] = ms(lambda: k12b(dym, xm, s, bb, w1, b1, w2, dpm, 7, 0.1, eps))
+    del xm, dym
 if k("ln_qkv_attn_q8") is not None:
     from vit_tpu_torch.ops.quant import quantize_weight
     rows = 100 * t
@@ -173,14 +187,17 @@ print(json.dumps(times))
 
 
 def _functions(dump: str) -> dict:
-    """``cuobjdump -sass`` output -> {kernel name: its instructions}."""
+    """``cuobjdump -sass`` output -> {kernel name: its instructions}, each
+    line with its runs of blanks collapsed: cuobjdump pads every line of a
+    cubin to the width of its longest instruction, so a kernel's lines move
+    when another kernel joins its source."""
     out, name = {}, None
     for line in dump.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             out[name] = []
         elif name is not None and "/*" in line:
-            out[name].append(line)
+            out[name].append(" ".join(line.split()))
     return out
 
 

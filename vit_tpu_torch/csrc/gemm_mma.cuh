@@ -2,8 +2,23 @@
 // and B (K, N) bf16 row-major in device memory (B is a weight in [in, out]
 // layout), fp32 accumulators, and an epilogue functor (epilogue.cuh) that
 // receives each accumulator with its (row, col).  K1 (ln_qkv_attn.cu) and
-// K2 (out_ln_mlp_residual.cu) run their bf16 GEMMs on it; every other
-// kernel keeps gemm.cuh.
+// K2 (out_ln_mlp_residual.cu) run their bf16 GEMMs on it, and so do the
+// bf16 K8 and K12b (mlp_bwd_mma.cuh) in the operand forms a backward needs;
+// every other kernel keeps gemm.cuh.
+//
+// Operand forms (template flags of launch_gemm_mma; the default form is
+// gemm_mma_kernel, the others gemm_mma_form_kernel, one body):
+//  - kTransA, A read MN-major: A(m, k) = a[k][m] with a (K, M) row-major,
+//    an activation transposed (h^T of a weight gradient, K its rows): TMA
+//    boxes of 64 k-rows x 64 m-columns, two atoms a stage as B's, and
+//    wgmma's transposed-A form (bf16 may transpose from shared memory);
+//  - kKMajorB, B read K-major: B(k, n) = b[n][k] with b (N, K) row-major,
+//    an [in, out] weight transposed (dY W^T): TMA boxes of 128 n-rows x 64
+//    k laid out as A's tiles, and wgmma's plain-B form;
+//  - split-K (launch_wgrad_mma): gridDim.z takes a range of whole k-steps
+//    of the depth (a weight gradient's rows) and writes its own fp32
+//    partial tile; sum_partials_kernel (gemm.cuh) adds them in split
+//    order, so a result never changes from run to run.
 //
 // What bounds a GEMM on the H100: operations (ViT-B/16 @224 batch 100: M =
 // 19,700 rows against K and N of 768-3,072, hundreds of flops per byte).
@@ -41,9 +56,12 @@
 
 #include "common.cuh"
 #include "epilogue.cuh"
+#include "gemm.cuh"
 #include "mma_bf16.cuh"
 
 #include <cuda.h>
+
+#include <algorithm>
 
 namespace vt {
 
@@ -68,10 +86,12 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// d += a b over 64 x 16 x 128: a K-major, b MN-major (transposed), both
-// from shared memory; d is this thread's 64 accumulators, laid out per n8
-// tile j as mma.sync's C fragment: d[4j .. 4j+1] at (16 warp + g, 8j + 2c
-// .. + 1), d[4j+2 .. 4j+3] at row + 8 (lane = 4 g + c)
+// d += a b over 64 x 16 x 128, both from shared memory: a K-major (or
+// MN-major with kTransA), b MN-major (or K-major with kTransB = 0); d is
+// this thread's 64 accumulators, laid out per n8 tile j as mma.sync's C
+// fragment: d[4j .. 4j+1] at (16 warp + g, 8j + 2c .. + 1), d[4j+2 .. 4j+3]
+// at row + 8 (lane = 4 g + c)
+template <int kTransA = 0, int kTransB = 1>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -79,7 +99,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -91,7 +111,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
 // the accumulators are written by wgmma behind the compiler's back: pin
@@ -186,21 +206,30 @@ constexpr int kGmPrefetchSteps = 6;
 template <class Epi>
 __device__ __forceinline__ void prefetch_epilogue(const Epi&, int, int, int, int) {}
 
-template <typename TB, typename TRes, typename TOut>
-__device__ __forceinline__ void prefetch_epilogue(const BiasResidualEpi<TB, TRes, TOut>& e,
-                                                  int row0, int col0, int M, int N) {
-  constexpr int kLine = 128 / sizeof(TRes), kLines = kGmBN / kLine;  // 128-byte lines per row
+// the tile's rows of a row-major (M, N) matrix p (pitch ld) into L2
+template <typename X>
+__device__ __forceinline__ void prefetch_tile_rows(const X* p, int ld, int row0, int col0, int M,
+                                                   int N) {
+  constexpr int kLine = 128 / sizeof(X), kLines = kGmBN / kLine;  // 128-byte lines per row
   for (int i = threadIdx.x; i < kGmBM * kLines; i += kGmThreads) {
     const int r = row0 + i / kLines, c = col0 + i % kLines * kLine;
-    if (r < M && c < N)
-      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(e.res + (size_t)r * e.ld + c));
+    if (r < M && c < N) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p + (size_t)r * ld + c));
   }
 }
 
-template <class Epi>
-__global__ void __launch_bounds__(kGmThreads, 2)
-gemm_mma_kernel(const __grid_constant__ CUtensorMap tma_a,
-                const __grid_constant__ CUtensorMap tma_b, int M, int N, int K, Epi epi) {
+template <typename TB, typename TRes, typename TOut>
+__device__ __forceinline__ void prefetch_epilogue(const BiasResidualEpi<TB, TRes, TOut>& e,
+                                                  int row0, int col0, int M, int N) {
+  prefetch_tile_rows(e.res, e.ld, row0, col0, M, N);
+}
+
+// The tile of output rows blockIdx.y, columns blockIdx.x in the operand
+// forms the flags name (the header comment); with kSplit, over k-steps
+// [blockIdx.z * k_chunk, + k_chunk) of the depth only (k_chunk a multiple of
+// kGmBK, so a split's last box ends where the next split's first begins).
+template <bool kTransA, bool kKMajorB, bool kSplit, class Epi>
+__device__ __forceinline__ void gemm_mma_tile(const CUtensorMap& tma_a, const CUtensorMap& tma_b,
+                                              int M, int N, int K, int k_chunk, const Epi& epi) {
   extern __shared__ __align__(1024) unsigned char gm_smem[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(gm_smem) + 1023) & ~(uintptr_t)1023);
@@ -209,17 +238,34 @@ gemm_mma_kernel(const __grid_constant__ CUtensorMap tma_a,
   uint64_t* empty = full + kGmStages;
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int row0 = blockIdx.y * kGmBM, col0 = blockIdx.x * kGmBN;
-  const int ktiles = cdiv(K, kGmBK);
+  int k_begin = 0, ktiles;
+  if constexpr (kSplit) {
+    k_begin = blockIdx.z * k_chunk;
+    ktiles = cdiv(min(K - k_begin, k_chunk), kGmBK);
+  } else {
+    ktiles = cdiv(K, kGmBK);
+  }
 
   // k-step kt lives in stage kt % kGmStages, in phase (kt / kGmStages) & 1
   auto issue = [&](int kt) {
     const int s = kt % kGmStages;
+    int k0 = kt * kGmBK;
+    if constexpr (kSplit) k0 += k_begin;
     bf16* As = ring + s * (kGmA + kGmB);
     bf16* Bs = As + kGmA;
     mbar_expect_tx(&full[s], kGmStageBytes);
-    tma_load_2d(As, &tma_a, kt * kGmBK, row0, &full[s]);
-    tma_load_2d(Bs, &tma_b, col0, kt * kGmBK, &full[s]);  // two 64-column atoms
-    tma_load_2d(Bs + 64 * 64, &tma_b, col0 + 64, kt * kGmBK, &full[s]);
+    if constexpr (kTransA) {  // two 64-column atoms of a (K, M)
+      tma_load_2d(As, &tma_a, row0, k0, &full[s]);
+      tma_load_2d(As + 64 * 64, &tma_a, row0 + 64, k0, &full[s]);
+    } else {
+      tma_load_2d(As, &tma_a, k0, row0, &full[s]);
+    }
+    if constexpr (kKMajorB) {  // 128 rows of b (N, K), as A's tile
+      tma_load_2d(Bs, &tma_b, k0, col0, &full[s]);
+    } else {  // two 64-column atoms
+      tma_load_2d(Bs, &tma_b, col0, k0, &full[s]);
+      tma_load_2d(Bs + 64 * 64, &tma_b, col0 + 64, k0, &full[s]);
+    }
   };
   if (tid == 0) {
     for (int s = 0; s < kGmStages; ++s) {
@@ -248,9 +294,16 @@ gemm_mma_kernel(const __grid_constant__ CUtensorMap tma_a,
     const bf16* Bs = As + kGmA;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kGmBK / 16; ++kk)  // A: 32 bytes along its rows; B: 16 k-rows
-      wgmma_m64n128k16(d, wgmma_desc(As + wg * 64 * 64 + 16 * kk, 16, 1024),
-                       wgmma_desc(Bs + kk * 16 * 64, 64 * 64 * 2, 1024));
+    for (int kk = 0; kk < kGmBK / 16; ++kk) {
+      // A: 32 bytes along its rows, or (MN-major) 16 k-rows of this
+      // warpgroup's atom; B: 16 k-rows of both atoms, or (K-major) 32 bytes
+      // along its 128 rows
+      const uint64_t da = kTransA ? wgmma_desc(As + wg * 64 * 64 + kk * 16 * 64, 64 * 64 * 2, 1024)
+                                  : wgmma_desc(As + wg * 64 * 64 + 16 * kk, 16, 1024);
+      const uint64_t db = kKMajorB ? wgmma_desc(Bs + 16 * kk, 16, 1024)
+                                   : wgmma_desc(Bs + kk * 16 * 64, 64 * 64 * 2, 1024);
+      wgmma_m64n128k16<kTransA ? 1 : 0, kKMajorB ? 0 : 1>(d, da, db);
+    }
     wgmma_commit();
     wgmma_wait_all();
     if ((tid & 127) == 0) mbar_arrive(&empty[s]);  // this warpgroup is done with the stage
@@ -270,6 +323,23 @@ gemm_mma_kernel(const __grid_constant__ CUtensorMap tma_a,
           make_float2(d[4 * j + 2 * hr], d[4 * j + 2 * hr + 1]);
   __syncthreads();
   epilogue_rows(epi, Cs, row0, col0, M, N);
+}
+
+// the default form: A K-major, B the [in, out] weight read MN-major
+template <class Epi>
+__global__ void __launch_bounds__(kGmThreads, 2)
+gemm_mma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                const __grid_constant__ CUtensorMap tma_b, int M, int N, int K, Epi epi) {
+  gemm_mma_tile<false, false, false>(tma_a, tma_b, M, N, K, K, epi);
+}
+
+// the other forms, and split-K
+template <bool kTransA, bool kKMajorB, bool kSplit, class Epi>
+__global__ void __launch_bounds__(kGmThreads, 2)
+gemm_mma_form_kernel(const __grid_constant__ CUtensorMap tma_a,
+                     const __grid_constant__ CUtensorMap tma_b, int M, int N, int K, int k_chunk,
+                     Epi epi) {
+  gemm_mma_tile<kTransA, kKMajorB, kSplit>(tma_a, tma_b, M, N, K, k_chunk, epi);
 }
 
 // the driver's cuTensorMapEncodeTiled, reached through the runtime (no
@@ -309,19 +379,99 @@ inline cudaError_t tma_map(CUtensorMap* map, const bf16* p, int inner, int outer
              : cudaErrorInvalidValue;
 }
 
-// C = A @ B over (M, K) x (K, N) on `stream`; every width a multiple of 8
-// and every row 16-byte aligned (the wrappers check)
-template <class Epi>
+// A's and B's tensor maps in the forms the flags name: lda and ldb are the
+// row pitches of the matrices as they lie in memory
+template <bool kTransA, bool kKMajorB>
+inline cudaError_t tma_maps(CUtensorMap* tma_a, CUtensorMap* tma_b, const bf16* A, int lda,
+                            const bf16* B, int ldb, int M, int N, int K) {
+  VT_TRY(kTransA ? tma_map(tma_a, A, M, K, lda, kGmBK) : tma_map(tma_a, A, K, M, lda, kGmBM));
+  return kKMajorB ? tma_map(tma_b, B, K, N, ldb, kGmBN) : tma_map(tma_b, B, N, K, ldb, kGmBK);
+}
+
+// C = A @ B over (M, K) x (K, N) on `stream`, A as (M, K) or with kTransA
+// (K, M), B as (K, N) or with kKMajorB (N, K) in memory; every width a
+// multiple of 8 and every row 16-byte aligned (the wrappers check)
+template <bool kTransA = false, bool kKMajorB = false, class Epi>
 inline cudaError_t launch_gemm_mma(const bf16* A, int lda, const bf16* B, int ldb, int M, int N,
                                    int K, Epi epi, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   CUtensorMap tma_a, tma_b;
-  VT_TRY(tma_map(&tma_a, A, K, M, lda, kGmBM));
-  VT_TRY(tma_map(&tma_b, B, N, K, ldb, kGmBK));
-  VT_TRY(cudaFuncSetAttribute(gemm_mma_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)kGmSmemBytes));
+  VT_TRY((tma_maps<kTransA, kKMajorB>(&tma_a, &tma_b, A, lda, B, ldb, M, N, K)));
   const dim3 grid(cdiv(N, kGmBN), cdiv(M, kGmBM));
-  gemm_mma_kernel<Epi><<<grid, kGmThreads, kGmSmemBytes, stream>>>(tma_a, tma_b, M, N, K, epi);
+  if constexpr (!kTransA && !kKMajorB) {
+    VT_TRY(cudaFuncSetAttribute(gemm_mma_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kGmSmemBytes));
+    gemm_mma_kernel<Epi><<<grid, kGmThreads, kGmSmemBytes, stream>>>(tma_a, tma_b, M, N, K, epi);
+  } else {
+    auto kernel = gemm_mma_form_kernel<kTransA, kKMajorB, false, Epi>;
+    VT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kGmSmemBytes));
+    kernel<<<grid, kGmThreads, kGmSmemBytes, stream>>>(tma_a, tma_b, M, N, K, K, epi);
+  }
+  return cudaGetLastError();
+}
+
+// ---- split-K weight gradients: fp32 out (M, N) = A @ B, K the rows.
+//
+// A weight gradient of ViT-B/16 has 6 x 24 = 144 tiles (768 x 3,072 either
+// way round), fewer than the 264 blocks the card holds at once (2 on each
+// of 132 SMs), so the depth is split.  The split is a function of the
+// shape only (a run's partition and its summation order never change): the
+// count of whole-k-step chunks that minimises (waves of kGmSlots blocks) x
+// (k-steps per block + kGmSplitCost, a block's fixed cost: pipeline fill,
+// epilogue and its partial's share of the sum), the fewer splits on a tie.
+constexpr int kGmSlots = 2 * 132, kGmMaxSplits = 32, kGmSplitCost = 8;
+
+struct MmaSplit {
+  int splits;   // gridDim.z
+  int k_chunk;  // depth per split, a multiple of kGmBK
+};
+
+// `want` > 0 forces that many splits (as near as whole k-steps allow)
+inline MmaSplit mma_wgrad_split(int M, int N, int K, int want = 0) {
+  const int steps = std::max(1, cdiv(K, kGmBK)), tiles = cdiv(M, kGmBM) * cdiv(N, kGmBN);
+  int per = cdiv(steps, std::max(1, want));  // k-steps per split
+  if (want <= 0) {
+    long best = -1;
+    for (int s = 1; s <= std::min(steps, kGmMaxSplits); ++s) {
+      const int p = cdiv(steps, s);
+      const long cost = (long)cdiv(tiles * cdiv(steps, p), kGmSlots) * (p + kGmSplitCost);
+      if (best < 0 || cost < best) best = cost, per = p;
+    }
+  }
+  return {cdiv(steps, per), per * kGmBK};
+}
+
+// fp32 floats of partials launch_wgrad_mma needs (0 when it does not split)
+inline size_t mma_partial_floats(int M, int N, int K, int want = 0) {
+  const MmaSplit s = mma_wgrad_split(M, N, K, want);
+  return s.splits > 1 ? (size_t)s.splits * M * N : 0;
+}
+
+// out = A @ B in fp32, A and B in the forms the flags name; `partials` as
+// mma_partial_floats sizes it
+template <bool kTransA, bool kKMajorB = false>
+inline cudaError_t launch_wgrad_mma(const bf16* A, int lda, const bf16* B, int ldb, int M, int N,
+                                    int K, float* out, float* partials, cudaStream_t stream,
+                                    int want = 0) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K <= 0) return cudaMemsetAsync(out, 0, (size_t)M * N * sizeof(float), stream);
+  const MmaSplit sp = mma_wgrad_split(M, N, K, want);
+  if (sp.splits == 1)
+    return launch_gemm_mma<kTransA, kKMajorB>(A, lda, B, ldb, M, N, K, StoreEpi<float>{out, N},
+                                              stream);
+  CUtensorMap tma_a, tma_b;
+  VT_TRY((tma_maps<kTransA, kKMajorB>(&tma_a, &tma_b, A, lda, B, ldb, M, N, K)));
+  auto kernel = gemm_mma_form_kernel<kTransA, kKMajorB, true, StorePartialEpi>;
+  VT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kGmSmemBytes));
+  const dim3 grid(cdiv(N, kGmBN), cdiv(M, kGmBM), sp.splits);
+  kernel<<<grid, kGmThreads, kGmSmemBytes, stream>>>(tma_a, tma_b, M, N, K, sp.k_chunk,
+                                                     StorePartialEpi{partials, M, N});
+  VT_TRY(cudaGetLastError());
+  const size_t n = (size_t)M * N;
+  const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
+  sum_partials_kernel<<<blocks, 256, 0, stream>>>(partials, sp.splits, n, out);
   return cudaGetLastError();
 }
 

@@ -3,23 +3,27 @@
 // with _mlp_bwd_core and _mlp_grad_accum), in its residual form without
 // the pre-GELU stash.
 //
-// It is K7 without the out_proj tail: the MLP half of
-// ln_mlp_out_residual_bwd.cuh (LN2 statistics, u = LN2(x1) W1 + b1 in
+// The MLP half of K7's backward (LN2 statistics, u = LN2(x1) W1 + b1 in
 // fp32, the GELU backward, dh2, dx1 = dy + LN-bwd(dh2) rounded, the column
-// sums db1, db2, dgamma, dbeta and the split-K weight gradients dW1, dW2),
-// over a scratch without K7's fp32 dx1.  Every reduction over rows is a
-// fixed-order pass: no atomics.
+// sums db1, db2, dgamma, dbeta and the split-K weight gradients dW1, dW2).
+// bf16, the path's dtype, runs mlp_bwd_mma.cuh's chain on the TMA + wgmma
+// core (LayerNorm once per row into a bf16 h2 scratch, the transposed
+// operands in the core's K-major-B and MN-major-A forms); fp32 runs
+// ln_mlp_out_residual_bwd.cuh's mlp_residual_bwd on gemm.cuh's FMA core
+// (never TF32), over a scratch without K7's fp32 dx1.  Every reduction
+// over rows is a fixed-order pass: no atomics.
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm.cuh"
 #include "ln_mlp_out_residual_bwd.cuh"
+#include "mlp_bwd_mma.cuh"
 
 extern "C" {
 
 size_t vt_ln_mlp_residual_bwd_workspace(int rows, int d, int f, int dtype) {
   vt::Arena a{nullptr};
   if (dtype == vt::kBFloat16)
-    vt::k8_scratch<vt::bf16>(a, rows, d, f);
+    vt::mlp_bwd_mma_scratch(a, rows, d, f);
   else
     vt::k8_scratch<float>(a, rows, d, f);
   return a.off;
@@ -34,15 +38,22 @@ int vt_ln_mlp_residual_bwd(const void* dy, const void* x1, const void* ln_scale,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   vt::Arena arena{(char*)workspace};
-#define VT_K8(T)                                                                             \
-  vt::mlp_residual_bwd<T>(vt::k8_scratch<T>(arena, rows, d, f), (const T*)dy, (const T*)x1,  \
-                          (const T*)ln_scale, (const T*)ln_bias, (const T*)w1, (const T*)b1, \
-                          (const T*)w2, (T*)dx1, (float*)dgamma, (float*)dbeta, (float*)dw1, \
-                          (float*)db1, (float*)dw2, (float*)db2, rows, d, f, eps,            \
-                          gelu_variant, s)
-  if (dtype == vt::kFloat32) return (int)VT_K8(float);
-  if (dtype == vt::kBFloat16) return (int)VT_K8(vt::bf16);
-#undef VT_K8
+  if (dtype == vt::kFloat32) {
+    typedef float T;
+    return (int)vt::mlp_residual_bwd<T>(
+        vt::k8_scratch<T>(arena, rows, d, f), (const T*)dy, (const T*)x1, (const T*)ln_scale,
+        (const T*)ln_bias, (const T*)w1, (const T*)b1, (const T*)w2, (T*)dx1, (float*)dgamma,
+        (float*)dbeta, (float*)dw1, (float*)db1, (float*)dw2, (float*)db2, rows, d, f, eps,
+        gelu_variant, s);
+  }
+  if (dtype == vt::kBFloat16) {
+    typedef vt::bf16 T;
+    return (int)vt::mlp_residual_bwd_mma<false, false>(
+        vt::mlp_bwd_mma_scratch(arena, rows, d, f), (const T*)dy, (const T*)x1,
+        (const T*)ln_scale, (const T*)ln_bias, (const T*)w1, (const T*)b1, (const T*)w2, nullptr,
+        vt::Dropout{}, (T*)dx1, (float*)dgamma, (float*)dbeta, (float*)dw1, (float*)db1,
+        (float*)dw2, (float*)db2, rows, d, f, eps, gelu_variant, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

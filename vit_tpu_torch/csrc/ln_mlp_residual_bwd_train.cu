@@ -18,10 +18,14 @@
 // rounded: into K8's fp32 dh2 scratch, first before the dh2 GEMM overwrites
 // it, then again after dh2's column sums are done with it.  No scratch
 // beyond K8's; the gates are a template flag (none compiled in at p = 0).
+// bf16, the path's dtype, runs K8's chain with the gates compiled in
+// (mlp_bwd_mma.cuh: the TMA + wgmma core); fp32 runs the chain below on
+// gemm.cuh's FMA core (never TF32).
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm.cuh"
 #include "ln_mlp_out_residual_bwd.cuh"
+#include "mlp_bwd_mma.cuh"
 
 namespace vt {
 
@@ -69,7 +73,7 @@ extern "C" {
 size_t vt_ln_mlp_residual_bwd_train_workspace(int rows, int d, int f, int dtype) {
   vt::Arena a{nullptr};
   if (dtype == vt::kBFloat16)
-    vt::k8_scratch<vt::bf16>(a, rows, d, f);
+    vt::mlp_bwd_mma_scratch(a, rows, d, f);
   else
     vt::k8_scratch<float>(a, rows, d, f);
   return a.off;
@@ -94,9 +98,19 @@ int vt_ln_mlp_residual_bwd_train(const void* dy, const void* x1, const void* ln_
       eps, gelu_variant, s)
   if (dtype == vt::kFloat32)
     return (int)(dropout ? VT_K12B(float, true) : VT_K12B(float, false));
-  if (dtype == vt::kBFloat16)
-    return (int)(dropout ? VT_K12B(vt::bf16, true) : VT_K12B(vt::bf16, false));
 #undef VT_K12B
+  if (dtype == vt::kBFloat16) {
+    typedef vt::bf16 T;
+    vt::Arena arena{(char*)workspace};
+#define VT_K12B(D)                                                                             \
+  vt::mlp_residual_bwd_mma<true, D>(                                                           \
+      vt::mlp_bwd_mma_scratch(arena, rows, d, f), (const T*)dy, (const T*)x1,                  \
+      (const T*)ln_scale, (const T*)ln_bias, (const T*)w1, (const T*)b1, (const T*)w2,         \
+      (const float*)dp_mlp, drop, (T*)dx1, (float*)dgamma, (float*)dbeta, (float*)dw1,         \
+      (float*)db1, (float*)dw2, (float*)db2, rows, d, f, eps, gelu_variant, s)
+    return (int)(dropout ? VT_K12B(true) : VT_K12B(false));
+#undef VT_K12B
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -56,8 +56,8 @@ SIGNATURES = {
     # ctx, res, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, x1, stats, h, g,
     # out, rows, d_ctx, d, f, eps, gelu_variant, dtype, device, stream
     "vt_out_ln_mlp_residual": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _I, _P],
-    # a, b, c, m, n, k, device, stream
-    "vt_gemm_bf16": [_P] * 3 + [_I] * 4 + [_P],
+    # a, b, c, partials, m, n, k, trans_a, trans_b, splits, device, stream
+    "vt_gemm_bf16": [_P] * 4 + [_I] * 7 + [_P],
     # ctx, res, wo, bo, out, rows, d_ctx, d, dtype, device, stream
     "vt_out_residual": [_P] * 5 + [_I] * 5 + [_P],
     # x, ln_scale, ln_bias, w1, b1, w2, b2, stats, g, out,
@@ -149,6 +149,8 @@ WORKSPACE_SIGNATURES = {
     "vt_ln_mlp_residual_bwd_train_workspace": [_I] * 4,
     # rows, d_ctx, d, dtype
     "vt_out_residual_bwd_workspace": [_I] * 4,
+    # m, n, k, splits
+    "vt_gemm_bf16_workspace": [_I] * 4,
     "vt_out_residual_bwd_train_workspace": [_I] * 4,
 }
 
@@ -300,8 +302,9 @@ VEC_BYTES = 16
 def check_aligned(kernel: str, **views: torch.Tensor) -> None:
     """Each view's base address and its strides other than the last axis's
     (a (batch, head, token, dh) view's batch, head and token strides) are
-    multiples of 16 bytes: K21, K13, K14 and the bf16 GEMM core of K1 and
-    K2 read and write 16 bytes per lane.
+    multiples of 16 bytes: K21, K13 and K14 read and write 16 bytes per
+    lane, and the TMA tensor maps of the bf16 GEMM core (K1, K2, K8, K12b)
+    take such bases and row pitches only.
     Axes of length 1 are never stepped, so their strides do not count.
     Anything else raises ``ValueError`` naming the operand."""
     for name, t in views.items():
@@ -316,8 +319,8 @@ def check_aligned(kernel: str, **views: torch.Tensor) -> None:
             )
 
 
-# bf16 elements per 16-byte copy of the GEMM core of K1 and K2
-# (csrc/gemm_mma.cuh)
+# bf16 elements per 16-byte row step of the TMA + wgmma GEMM core of K1, K2,
+# K8 and K12b (csrc/gemm_mma.cuh)
 TILE_VEC = 8
 
 

@@ -9,13 +9,20 @@ Replaces ``vit_tpu/ops/pallas/backward.py:ln_mlp_residual_bwd``
 What bounds it on the H100: 10·rows·D·F operations of tensor-core work in
 five GEMMs (ViT-B/16 @512 batch 16: 16,400 rows, D = 768, F = 3,072;
 387 GFLOP, 0.39 ms at 989 TFLOP/s), two of them weight gradients whose
-depth is the ragged row axis.  It is K7 without the out_proj tail and
-shares K7's code (``csrc/ln_mlp_out_residual_bwd.cuh``): a chain of tiled
-GEMMs over all rows with device scratch between them, the elementwise
-steps in their loads and epilogues, and every reduction over rows as its
+depth is the ragged row axis.  It is K7 without the out_proj tail: a chain
+of tiled GEMMs over all rows with device scratch between them, the
+elementwise steps in their epilogues, and every reduction over rows as its
 own fixed-order pass (split-K partials and 128-row column-sum partials
 summed in order; no atomics), where the TPU kernel carried its
-accumulators in VMEM across a sequential grid.
+accumulators in VMEM across a sequential grid.  bf16, the path's dtype,
+runs the chain on the TMA + ``wgmma`` core (``csrc/mlp_bwd_mma.cuh`` over
+``csrc/gemm_mma.cuh``): LN2(x1) once per row into a bf16 scratch, W2ᵀ and
+W1ᵀ read K-major, h2ᵀ and gᵀ read MN-major, the weight gradients split
+over rows; every operand the core reads through a tensor map (dy, w1, w2)
+and x1 on the 16-byte grid, D and F multiples of 8 elements
+(``check_tile_operands``).  fp32 keeps K7's code
+(``csrc/ln_mlp_out_residual_bwd.cuh``) on the FMA core, LN2 in the tile
+loads.
 
 Rounding points (the TPU kernel's): x-hat and 1/sigma from the rounded x1
 in fp32; h2 rounded; u fp32; g = GELU(u) rounded only as dW2's operand;
@@ -40,6 +47,13 @@ def ln_mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps,
     the rest fp32."""
     dx1, *grads = mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant)
     return (dx1.to(dy.dtype), *grads)
+
+
+def check_tile_operands(dy, x1, ln_scale, ln_bias, w1, b1, w2, *_, **__) -> None:
+    """bf16: dy, x1 and the two weights on the 16-byte grid, their widths
+    (D, and F through w1) multiples of 8 elements; the wrapper's arguments,
+    raises ``ValueError`` otherwise."""
+    _build.check_tiles("ln_mlp_residual_bwd", dy=dy, x1=x1, w1=w1, w2=w2)
 
 
 def ln_mlp_residual_bwd(
@@ -70,6 +84,8 @@ def ln_mlp_residual_bwd(
     _build.check_shape(name, "w1", w1, (d, f))
     _build.check_shape(name, "b1", b1, (f,))
     _build.check_shape(name, "w2", w2, (f, d))
+    if dy.dtype == torch.bfloat16:
+        check_tile_operands(dy, x1, ln_scale, ln_bias, w1, b1, w2)
     dev, code = dy.device, _build.DTYPE_CODES[dy.dtype]
     f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     outs = (torch.empty(rows, d, dtype=dy.dtype, device=dev),

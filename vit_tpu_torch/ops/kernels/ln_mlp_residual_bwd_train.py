@@ -23,7 +23,9 @@ are this layer's merged B·t_l, so K11's forward masks come back bit for
 bit.  dy_m is written rounded into K8's fp32 dh2 scratch while it is free
 (twice: before the dh2 GEMM and after dh2's column sums), so no scratch is
 added; the dropout gate is a template flag, so ``dropout_p == 0`` runs K8's
-arithmetic on dy·dp_mlp.
+arithmetic on dy·dp_mlp.  bf16, the path's dtype, runs K8's chain on the
+TMA + ``wgmma`` core with the gates compiled in (``csrc/mlp_bwd_mma.cuh``),
+under K8's operand rule (``check_tile_operands``); fp32 keeps the FMA core.
 """
 
 from __future__ import annotations
@@ -84,6 +86,13 @@ def ln_mlp_residual_bwd_train_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, dp_ml
     return (dx1.to(dy.dtype), *grads)
 
 
+def check_tile_operands(dy, x1, ln_scale, ln_bias, w1, b1, w2, *_, **__) -> None:
+    """bf16: K8's operand rule (dy, x1, w1, w2 on the 16-byte grid, D and F
+    multiples of 8 elements) on the wrapper's arguments; raises
+    ``ValueError`` otherwise."""
+    _build.check_tiles("ln_mlp_residual_bwd_train", dy=dy, x1=x1, w1=w1, w2=w2)
+
+
 def ln_mlp_residual_bwd_train(dy, x1, ln_scale, ln_bias, w1, b1, w2, dp_mlp, seed, dropout_p,
                               eps, gelu_variant: str = "exact"):
     """VJP of the regularized ``ln_mlp_residual_train`` (K11) over (B*T, D)
@@ -107,6 +116,8 @@ def ln_mlp_residual_bwd_train(dy, x1, ln_scale, ln_bias, w1, b1, w2, dp_mlp, see
     _build.check_shape(name, "b1", b1, (f,))
     _build.check_shape(name, "w2", w2, (f, d))
     _build.check_row_scale(name, "dp_mlp", dp_mlp, dy)
+    if dy.dtype == torch.bfloat16:
+        check_tile_operands(dy, x1, ln_scale, ln_bias, w1, b1, w2)
     dev, code = dy.device, _build.DTYPE_CODES[dy.dtype]
     f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     outs = (torch.empty(rows, d, dtype=dy.dtype, device=dev),
