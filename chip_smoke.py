@@ -7,15 +7,15 @@ Phases (a failed phase raises; nothing is caught):
   3. each kernel (K1 ln_qkv_attn, K2 out_ln_mlp_residual, K3 layer_norm)
      against its plain PyTorch twin on the card, bf16 and fp32, at ViT-B/16
      shapes for batch 100 and a ragged batch of 3, with both timed; and the
-     bf16 GEMM core of K1, K2, K8 and K12b (``csrc/gemm_mma.cuh``) alone at
-     the main path's four GEMM shapes (M 19,700) and at the four products
+     bf16 GEMM core of K1, K2, K7, K8, K12a and K12b (``csrc/gemm_mma.cuh``)
+     alone at the main path's four GEMM shapes (M 19,700) and at the four products
      of the MLP backward at @512 batch 16 (16,400 rows: dY W2ᵀ and du W1ᵀ
      with the weight read K-major, the weight gradients h2ᵀ du and gᵀ dY
      with the activation read MN-major and the rows split), against fp32
      ``torch.matmul`` of the same bf16 operands, timed beside one bf16
-     ``torch.matmul`` on them; and the two weight gradients at 16,400 and
-     10,944 (64 x 171) rows timed at several split counts of their depth
-     beside the kernels' own;
+     ``torch.matmul`` on them; and the two MLP weight gradients at 16,400
+     and 10,944 (64 x 171) rows and dW_o (768 x 768) at 12,608 (64 x 197)
+     timed at several split counts of their depth beside the kernels' own;
   4. the classify CLI in-process on synthetic B/16 reference weights:
      ``--synth 100 --ops fused --dtype bfloat16 --device cuda``, with every
      launch count set to 0 just before and read just after (12 K1, 12 K2,
@@ -30,7 +30,8 @@ Phases (a failed phase raises; nothing is caught):
   7. the training kernels (K4 out_residual, K5 ln_mlp_residual, K6
      ln_qkv_attn_bwd, K7 ln_mlp_out_residual_bwd) against their plain
      twins, every output (dx, dctx, each weight and bias gradient), bf16 and
-     fp32, at B/16 shapes for batch 64 and 3, with both timed;
+     fp32, at B/16 shapes for batch 64 and 3, with both timed; and the bf16
+     K7's MLP outputs equal to K8's bit for bit at batch 64 (one chain);
   8. the train CLI in-process: ``--config vit_b_16 --steps 5 --batch 64
      --ops fused_train --mixed-precision --device cuda``, with every launch
      count set to 0 just before and read just after (12 each of K1, K4, K5,
@@ -758,6 +759,31 @@ def phase_regularizer_checks(dev: torch.device) -> None:
             raise RuntimeError("a regularized kernel at zero rates differs from its plain kernel")
 
 
+def phase_k7_shares_k8(dev: torch.device) -> None:
+    """Phase 7's chain check at B/16 batch 64, bf16: K7 runs K8's chain
+    (``csrc/mlp_bwd_mma.cuh``) with the out_proj tail after it, so its MLP
+    outputs (dx1, dgamma, dbeta, dW1, db1, dW2, db2) equal K8's on the same
+    inputs bit for bit."""
+    from vit_tpu_torch.ops.kernels import ln_mlp_out_residual_bwd as k7
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd as k8
+
+    d, f, t, b, bf = B16["d"], B16["f"], B16["t"], 64, torch.bfloat16
+    rows = b * t
+    rn = _rand(dev, 4)
+    dy, x1, ctx = rn(rows, d, dtype=bf), rn(rows, d, scale=2.0, dtype=bf), rn(rows, d, dtype=bf)
+    s2, b2n = rn(d, scale=0.2, shift=1.0, dtype=bf), rn(d, scale=0.2, dtype=bf)
+    w1, bb1 = rn(d, f, scale=d ** -0.5, dtype=bf), rn(f, scale=0.1, dtype=bf)
+    w2, wo = rn(f, d, scale=f ** -0.5, dtype=bf), rn(d, d, scale=d ** -0.5, dtype=bf)
+    got = k7.ln_mlp_out_residual_bwd(dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, 1e-6)
+    want = k8.ln_mlp_residual_bwd(dy, x1, s2, b2n, w1, bb1, w2, 1e-6)
+    names = ("dx1", "dgamma", "dbeta", "dW1", "db1", "dW2", "db2")
+    differ = [n for n, a, c in zip(names, (got[0], *got[2:8]), want) if not torch.equal(a, c)]
+    log(f"K7 == K8 bfloat16 batch {b} (rows {rows}): the MLP outputs {', '.join(names)} "
+        f"{'differ: ' + ', '.join(differ) if differ else 'equal'} (bit for bit)")
+    if differ:
+        raise RuntimeError(f"K7's MLP outputs {differ} differ from K8's on the same inputs")
+
+
 PROFILE_PHASES = ("patch_embed+pos", "layer_norm_1", "attention", "layer_norm_2", "mlp",
                   "final_ln+head")
 PROFILE_ITERS = 3  # InferenceEngine.phase_report's default
@@ -1476,8 +1502,8 @@ GEMM_CORE_SHAPES = (("QKV", 19700, 768, 2304, False, False, 1),
 
 
 def phase_gemm_core(dev: torch.device, card: str) -> None:
-    """Phase 3's GEMM lines: the bf16 core of K1, K2, K8 and K12b alone at
-    GEMM_CORE_SHAPES, in each operand form, its fp32 sums within 2^-14 of
+    """Phase 3's GEMM lines: the bf16 core of K1, K2, K7/K12a and K8/K12b
+    alone at GEMM_CORE_SHAPES, in each operand form, its fp32 sums within 2^-14 of
     the largest |value| of fp32 ``torch.matmul`` on the same bf16 operands
     (the tensor cores' accumulation truncates once per k16 step: up to
     K / 16 fp32 ulps of a split's depth), timed beside one bf16
@@ -1511,40 +1537,41 @@ def phase_gemm_core(dev: torch.device, card: str) -> None:
             f"({bound_by}, {bound_ms / ms:.1%} of the core's); {card}")
 
 
-# the weight gradients' depths: @512 batch 16 (K8) and batch 64 at ToMe's
-# first merged layer, T 171 (K12b); and the split counts timed beside the
-# kernels' own rule (0)
-WGRAD_ROWS = (16 * 1025, 64 * 171)
+# (what, rows, M, N): the weight gradients at their depths: dW1 = h2ᵀ du
+# and dW2 = gᵀ dY at @512 batch 16 (K8) and batch 64 at ToMe's first merged
+# layer, T 171 (K12b); dW_o = ctxᵀ dx1 at @224 batch 64 (K7, K12a); and the
+# split counts timed beside the kernels' own rule (0)
+WGRAD_CASES = tuple((what, rows, m, n) for rows in (16 * 1025, 64 * 171)
+                    for what, m, n in (("dW1", 768, 3072), ("dW2", 3072, 768))
+                    ) + (("dW_o", 64 * 197, 768, 768),)
 WGRAD_SPLITS = (0, 1, 2, 3, 5, 7, 9, 11, 22)
 
 
 def phase_wgrad_splits(dev: torch.device, card: str) -> None:
-    """Phase 3's split lines: the core's split-K weight gradients (dW1 =
-    h2ᵀ du, 768 x 3,072, and dW2 = gᵀ dY, 3,072 x 768) at WGRAD_ROWS, each
-    timed at every split count of WGRAD_SPLITS, partial sums included, each
-    within phase 3's 2^-14 of fp32 ``torch.matmul``."""
+    """Phase 3's split lines: the core's split-K weight gradients of
+    WGRAD_CASES (A read MN-major, the rows its depth), each timed at every
+    split count of WGRAD_SPLITS, partial sums included, each within phase
+    3's 2^-14 of fp32 ``torch.matmul``."""
     from vit_tpu_torch.ops.kernels.gemm_bf16 import gemm_bf16, gemm_bf16_plain
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    d, f = B16["d"], B16["f"]
-    for rows in WGRAD_ROWS:
-        for what, m, n in (("dW1", d, f), ("dW2", f, d)):
-            a = torch.randn(rows, m, generator=gen, device=dev).bfloat16()
-            b = (torch.randn(rows, n, generator=gen, device=dev) * rows ** -0.5).bfloat16()
-            want = gemm_bf16_plain(a, b, True)
-            tol = 2.0 ** -14 * max(1.0, want.abs().max().item())
-            times = []
-            for splits in WGRAD_SPLITS:
-                err = (gemm_bf16(a, b, True, False, splits) - want).abs().max().item()
-                if not err <= tol:
-                    raise RuntimeError(f"bf16 GEMM core {what} rows {rows} splits {splits}: "
-                                       f"max|d|={err:.6g} > tol {tol:.6g}")
-                times.append(cuda_ms(lambda: gemm_bf16(a, b, True, False, splits)))
-            log(f"bf16 GEMM core {what} {m} x {rows} x {n} (a read MN-major) by split count: "
-                + ", ".join(f"{'rule' if sp == 0 else sp} {t:.6g} ms"
-                            for sp, t in zip(WGRAD_SPLITS, times))
-                + f"; {card}")
-            del a, b, want
+    for what, rows, m, n in WGRAD_CASES:
+        a = torch.randn(rows, m, generator=gen, device=dev).bfloat16()
+        b = (torch.randn(rows, n, generator=gen, device=dev) * rows ** -0.5).bfloat16()
+        want = gemm_bf16_plain(a, b, True)
+        tol = 2.0 ** -14 * max(1.0, want.abs().max().item())
+        times = []
+        for splits in WGRAD_SPLITS:
+            err = (gemm_bf16(a, b, True, False, splits) - want).abs().max().item()
+            if not err <= tol:
+                raise RuntimeError(f"bf16 GEMM core {what} rows {rows} splits {splits}: "
+                                   f"max|d|={err:.6g} > tol {tol:.6g}")
+            times.append(cuda_ms(lambda: gemm_bf16(a, b, True, False, splits)))
+        log(f"bf16 GEMM core {what} {m} x {rows} x {n} (a read MN-major) by split count: "
+            + ", ".join(f"{'rule' if sp == 0 else sp} {t:.6g} ms"
+                        for sp, t in zip(WGRAD_SPLITS, times))
+            + f"; {card}")
+        del a, b, want
 
 
 def phase_int8_gemm(dev: torch.device, card: str) -> None:
@@ -2656,6 +2683,7 @@ def group_train(dev, card, summary, launches) -> None:
     from vit_tpu_torch.ops.kernels import _build
 
     summary.update(phase_kernels(train_kernel_cases(dev), TRAIN_KERNELS, 64))
+    phase_k7_shares_k8(dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         launches["train"] = phase_train_cli(workdir)

@@ -416,7 +416,7 @@ def _k7_args(dev, dtype, rows, d, f, variant):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("variant", ["exact", "tanh"])
 @pytest.mark.parametrize("rows,d,f", [(10, 64, 256), (591, 768, 3072), (133, 384, 1536),
-                                      (1000, 128, 512)])
+                                      (1000, 128, 512), (12608, 768, 3072)])
 def test_ln_mlp_out_residual_bwd(dev, dtype, variant, rows, d, f):
     args = _k7_args(dev, dtype, rows, d, f, variant)
     _check_all(ln_mlp_out_residual_bwd(*args), ln_mlp_out_residual_bwd_plain(*args))
@@ -829,6 +829,64 @@ def test_split_mlp_backward_refuses_unaligned_operands(dev):
         ln_mlp_residual_bwd(*odd)
     with pytest.raises(ValueError, match="multiples of 8"):
         k12b.ln_mlp_residual_bwd_train(*odd[:7], ones, 7, 0.0, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "tanh"])
+@pytest.mark.parametrize("rows", [591, 12608])
+def test_merged_mlp_out_backward_mlp_outputs_are_k8s(dev, variant, rows):
+    # the bf16 K7 runs K8's chain with the out_proj tail after it: its MLP
+    # outputs (dx1, dgamma, dbeta, dW1, db1, dW2, db2) are K8's bit for bit
+    # (rows 12,608: ViT-B/16 @224 batch 64)
+    k7 = _k7_args(dev, torch.bfloat16, rows, 768, 3072, variant)
+    got = ln_mlp_out_residual_bwd(*k7)
+    want = ln_mlp_residual_bwd(*k7[:2], *k7[3:8], 1e-6, variant)
+    for a, b in zip((got[0], *got[2:8]), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_merged_mlp_out_backward_is_deterministic_at_b64(dev):
+    # bf16 K7 and K12a (p = 0.1, drop-path 0.1) at @224 batch 64, two runs
+    # bit for bit: split-K partials and column sums in a fixed order
+    rows, seed = 64 * 197, 2 ** 31 + 7
+    k7 = _k7_args(dev, torch.bfloat16, rows, 768, 3072, "exact")
+    dp_a, dp_m = (drop_path_scale_rows(seed, site, 64, 197, 0.1, device=dev) for site in (4, 5))
+    k12a = (*k7[:9], dp_m, dp_a, seed, 0.1, 1e-6)
+    for fn, args in ((ln_mlp_out_residual_bwd, k7), (ln_mlp_out_residual_bwd_train, k12a)):
+        first = [t.clone() for t in fn(*args)]
+        for a, b in zip(first, fn(*args)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_merged_mlp_out_backward_refuses_unaligned_operands(dev):
+    # bf16 K7 and K12a read dy, ctx, w1, w2 and wo through TMA tensor maps:
+    # an operand off the 16-byte grid, or D, F or d_ctx not a multiple of 8,
+    # raises before any launch (no fallback to the FMA core, the twin or the
+    # CPU)
+    bf = torch.bfloat16
+
+    def off(t):  # the same values, one element past the 16-byte grid
+        flat = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)[1:]
+        return flat.copy_(t.reshape(-1)).view(t.shape)
+
+    ones = torch.ones(10, device=dev)
+    reg = lambda a: (*a[:9], ones, ones, 7, 0.1, 1e-6)  # noqa: E731
+    args = _k7_args(dev, bf, 10, 64, 256, "exact")
+    ln_mlp_out_residual_bwd(*args)  # aligned: runs
+    ln_mlp_out_residual_bwd_train(*reg(args))
+    for i, name in ((0, "dy"), (1, "x1"), (2, "ctx"), (5, "w1"), (7, "w2"), (8, "wo")):
+        bad = (*args[:i], off(args[i]), *args[i + 1:])
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            ln_mlp_out_residual_bwd(*bad)
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            ln_mlp_out_residual_bwd_train(*reg(bad))
+    odd = _k7_args(dev, bf, 10, 60, 252, "exact")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ln_mlp_out_residual_bwd(*odd)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ln_mlp_out_residual_bwd_train(*reg(odd))
 
 
 @pytest.mark.cuda

@@ -1,13 +1,16 @@
-// The backward pieces shared by K7 (ln_mlp_out_residual_bwd.cu), its
+// The backward pieces of the fp32 K7 (ln_mlp_out_residual_bwd.cu), its
 // regularized form K12a (ln_mlp_out_residual_bwd_train.cu) and the split
-// forms K8 (ln_mlp_residual_bwd.cu) and K9 (out_residual_bwd.cu):
+// forms K8 (ln_mlp_residual_bwd.cu) and K12b, and of K9
+// (out_residual_bwd.cu) in both dtypes, on gemm.cuh's FMA core (the bf16 K7,
+// K8, K12a and K12b run mlp_bwd_mma.cuh's chain instead):
 //  - the device scratch: LN2 row statistics, the fp32 (rows, F) u/du
 //    buffer, g and du_c in the dtype, fp32 dh2 and dx1, and the partials of
 //    the column sums and the split-K weight gradients — carved from one
 //    workspace (Arena) the wrapper allocates;
 //  - the MLP half, d[LN2 + MLP + residual] (K7's steps 1-5 and their
 //    reductions; all of K8);
-//  - the out_proj half, d[out_proj + residual] (K7's tail; all of K9).
+//  - the out_proj half, d[out_proj + residual] (K7's tail; all of K9);
+//  - the GELU backward epilogue, which the bf16 chain shares.
 #pragma once
 
 #include "epilogue.cuh"

@@ -3,8 +3,8 @@
 // ln_mlp_out_residual_bwd_train (_ln_mlp_out_bwd_train_kernel with
 // _mlp_bwd_core's inner_mask and _mlp_grad_accum).
 //
-// K7's chain of tiled GEMMs (ln_mlp_out_residual_bwd.cu), with the
-// regularizer gates regenerated from the forward's seed, never stored:
+// K7's chain (ln_mlp_out_residual_bwd.cu), with the regularizer gates
+// regenerated from the forward's seed, never stored:
 //   dy_m = (dy * dp_mlp[r]) * m_out            (fp32; GEMMs read round(dy_m))
 //   g    = round(gelu(u) * m_inner)            (dW2's operand)
 //   du   = ((round(dy_m) @ W2^T) * m_inner) * gelu'(u),  du_c = round(du)
@@ -14,17 +14,23 @@
 //   dW1 = h2^T du_c, db1 = sum du, dW2 = round(g)^T round(dy_m),
 //   db2 = sum dy_m, dgamma/dbeta as in K7, dW_o = ctx^T round(dz),
 //   db_o = sum dz
-// dy_m and dz are hashed once per element: summed in fp32 by the column
-// sums (Gate), and written rounded into K7's fp32 (rows, D) scratches while
-// those are free (round(dy_m) into dh2's before the dh2 GEMM, then round(dz)
-// into dh2's and round(dy_m) again into dx1's once their readers are done),
-// so every GEMM reads plain tiles: no new scratch.  The gates are a template
-// flag (none compiled in at p = 0); the scratch and the reductions are K7's,
-// so zero rates reproduce K7 bit for bit.
+// dy_m and dz are hashed once per element where they are summed in fp32
+// by the column sums (Gate) and once where they are written rounded into
+// K7's fp32 (rows, D) scratches while those are free, so every GEMM reads
+// plain tiles: no new scratch.  bf16, the path's dtype, runs K7's chain
+// with the gates compiled in (mlp_bwd_mma.cuh: the TMA + wgmma core;
+// round(dy_m) into dh2's scratch before the dh2 GEMM and again after dh2's
+// column sums, round(dz) into its second half).  fp32 runs the chain below
+// on gemm.cuh's FMA core (never TF32): round(dy_m) into dh2's scratch before
+// the dh2 GEMM, then round(dz) into dh2's and round(dy_m) again into dx1's
+// once their readers are done.  The gates are a template flag (none
+// compiled in at p = 0); the scratch and the reductions are K7's, so zero
+// rates reproduce K7 bit for bit.
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm.cuh"
 #include "ln_mlp_out_residual_bwd.cuh"
+#include "mlp_bwd_mma.cuh"
 
 namespace vt {
 
@@ -81,7 +87,7 @@ extern "C" {
 size_t vt_ln_mlp_out_residual_bwd_train_workspace(int rows, int d, int f, int d_ctx, int dtype) {
   vt::Arena a{nullptr};
   if (dtype == vt::kBFloat16)
-    vt::k7_scratch<vt::bf16>(a, rows, d, f, d_ctx);
+    vt::mlp_bwd_mma_scratch(a, rows, d, f, d_ctx);
   else
     vt::k7_scratch<float>(a, rows, d, f, d_ctx);
   return a.off;
@@ -107,9 +113,21 @@ int vt_ln_mlp_out_residual_bwd_train(
       rows, d, f, d_ctx, eps, gelu_variant, s)
   if (dtype == vt::kFloat32)
     return (int)(dropout ? VT_K12A(float, true) : VT_K12A(float, false));
-  if (dtype == vt::kBFloat16)
-    return (int)(dropout ? VT_K12A(vt::bf16, true) : VT_K12A(vt::bf16, false));
 #undef VT_K12A
+  if (dtype == vt::kBFloat16) {
+    typedef vt::bf16 T;
+    vt::Arena arena{(char*)workspace};
+    const vt::OutProjBwd out{(const T*)ctx, (const T*)wo, (const float*)dp_attn, (T*)dctx,
+                             (float*)dwo, (float*)dbo, d_ctx};
+#define VT_K12A(D)                                                                             \
+  vt::mlp_residual_bwd_mma<true, D, true>(                                                     \
+      vt::mlp_bwd_mma_scratch(arena, rows, d, f, d_ctx), (const T*)dy, (const T*)x1,           \
+      (const T*)ln_scale, (const T*)ln_bias, (const T*)w1, (const T*)b1, (const T*)w2,         \
+      (const float*)dp_mlp, drop, (T*)dx1, (float*)dgamma, (float*)dbeta, (float*)dw1,         \
+      (float*)db1, (float*)dw2, (float*)db2, rows, d, f, eps, gelu_variant, s, out)
+    return (int)(dropout ? VT_K12A(true) : VT_K12A(false));
+#undef VT_K12A
+  }
   return (int)cudaErrorInvalidValue;
 }
 

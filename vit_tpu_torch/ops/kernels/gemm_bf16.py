@@ -1,4 +1,4 @@
-"""The bf16 GEMM core of K1, K2, K8 and K12b alone, CUDA
+"""The bf16 GEMM core of K1, K2, K7, K8, K12a and K12b alone, CUDA
 (``csrc/gemm_bf16.cu`` over ``csrc/gemm_mma.cuh``): c = op(a) @ op(b) with
 bf16 row-major operands, fp32 accumulation, c fp32 unrounded.  op(a) is a
 (M, K), or with ``trans_a`` the transpose of a (K, M) (the core's MN-major

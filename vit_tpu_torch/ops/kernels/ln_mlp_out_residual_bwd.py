@@ -5,25 +5,34 @@ Replaces ``vit_tpu/ops/pallas/backward.py:ln_mlp_out_residual_bwd``
 (pallas_call at :380; body ``_ln_mlp_out_bwd_kernel`` :296 with
 ``_mlp_bwd_core`` :111 and ``_mlp_grad_accum`` :159).
 
-What bounds it on the H100: eight GEMMs of tensor-core work (B/16 batch 64:
-12,608 rows, D = 768, F = 3,072; about 270 GFLOP, three of them weight
-gradients whose depth is the ragged row axis).  The TPU kernel walks row
-blocks in order and keeps W1, W2, W_o and the fp32 weight-gradient
+What bounds it on the H100: operations, 10·rows·D·F + 4·rows·D·d_ctx of
+tensor-core work in seven GEMMs (ViT-B/16 @224 batch 64: 12,608 rows, D =
+d_ctx = 768, F = 3,072; 327 GFLOP, 0.33 ms at 989 TFLOP/s), three of them
+weight gradients whose depth is the ragged row axis.  The TPU kernel walks
+row blocks in order and keeps W1, W2, W_o and the fp32 weight-gradient
 accumulators in VMEM across grid steps.  Hopper blocks run in no order, so
 the design is a chain of tiled GEMMs over all rows with device scratch
-between them (the fp32 (rows, F) u/du buffer is 155 MB at batch 64 — a
-fusion target for later work), the elementwise steps in the GEMMs' loads
-and epilogues, and every reduction over rows as its own deterministic pass:
-weight gradients split their depth into fixed chunks whose fp32 partials a
-second pass sums in order, and each column sum (db1, db2, dgamma, dbeta,
-db_o) sums 128-row partials in order.  No float atomics: two runs give
-bit-identical gradients.
+between them (the fp32 (rows, F) u/du buffer is 155 MB at batch 64), the
+elementwise steps in their epilogues, and every reduction over rows as its
+own fixed-order pass: weight gradients split their depth into fixed chunks
+whose fp32 partials a second pass sums in order, and each column sum (db1,
+db2, dgamma, dbeta, db_o) sums 128-row partials in order.  No float
+atomics: two runs give bit-identical gradients.  bf16, the path's dtype,
+runs K8's chain with the out_proj tail on the TMA + ``wgmma`` core
+(``csrc/mlp_bwd_mma.cuh`` over ``csrc/gemm_mma.cuh``): LN2(x1) once per row
+into a bf16 scratch, W2ᵀ, W1ᵀ and W_oᵀ read K-major, h2ᵀ, gᵀ and ctxᵀ read
+MN-major, the weight gradients split over rows; every operand the core
+reads through a tensor map (dy, ctx, w1, w2, wo) and x1 on the 16-byte
+grid, D, F and d_ctx multiples of 8 elements (``check_tile_operands``).
+fp32 keeps the FMA core (``csrc/ln_mlp_out_residual_bwd.cuh``), LN2 in the
+tile loads.
 
 Rounding points (the TPU kernel's): x-hat and 1/sigma from the rounded x1
 in fp32; h2 rounded; u fp32, never rounded; g = GELU(u) fp32, rounded only
-as dW2's operand; du = (dy W2^T) gelu'(u) fp32, rounded to du_c; dh2 =
-du_c W1^T; dx1 = dy + LN-bwd(dh2) fp32, written in the dtype; dctx =
-round(dx1) W_o^T.  bf16 differentiates the tanh-form erf, fp32 the A-S form.
+as dW2's operand; du = (dy W2ᵀ) gelu'(u) fp32, rounded to du_c; dh2 =
+du_c W1ᵀ; dx1 = dy + LN-bwd(dh2) fp32, written in the dtype; dctx =
+round(dx1) W_oᵀ, rounded; dW_o = ctxᵀ round(dx1); db_o sums the fp32 dx1.
+bf16 differentiates the tanh-form erf, fp32 the A-S form.
 """
 
 from __future__ import annotations
@@ -74,6 +83,13 @@ def ln_mlp_out_residual_bwd_plain(
     )
 
 
+def check_tile_operands(dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, *_, **__) -> None:
+    """bf16: dy, x1, ctx and the three weights on the 16-byte grid, their
+    widths (D, d_ctx through ctx, F through w1) multiples of 8 elements;
+    the wrapper's arguments, raises ``ValueError`` otherwise."""
+    _build.check_tiles("ln_mlp_out_residual_bwd", dy=dy, x1=x1, ctx=ctx, w1=w1, w2=w2, wo=wo)
+
+
 def ln_mlp_out_residual_bwd(
     dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, eps, gelu_variant: str = "exact",
     u=None,
@@ -103,6 +119,8 @@ def ln_mlp_out_residual_bwd(
     _build.check_shape(name, "b1", b1, (f,))
     _build.check_shape(name, "w2", w2, (f, d))
     _build.check_shape(name, "wo", wo, (d_ctx, d))
+    if dy.dtype == torch.bfloat16:
+        check_tile_operands(dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo)
     dev, code = dy.device, _build.DTYPE_CODES[dy.dtype]
     f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     outs = (

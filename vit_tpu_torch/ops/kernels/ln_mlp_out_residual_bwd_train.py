@@ -5,10 +5,10 @@ Replaces ``vit_tpu/ops/pallas/backward.py:ln_mlp_out_residual_bwd_train``
 (pallas_call at :515; body ``_ln_mlp_out_bwd_train_kernel`` :430 with
 ``_mlp_bwd_core`` :111).
 
-What bounds it on the H100: K7's eight GEMMs (B/16 batch 64: 327 GFLOP of
-tensor-core work).  The design is K7's chain, with the forward's masks
-regenerated from the seed at the same points (nothing mask-shaped is
-stored between forward and backward):
+What bounds it on the H100: operations, K7's seven GEMMs (B/16 @224 batch
+64: 327 GFLOP of tensor-core work).  The design is K7's chain, with the
+forward's masks regenerated from the seed at the same points (nothing
+mask-shaped is stored between forward and backward):
 
   dy_m = (dy * dp_mlp) * m_out     FC2's backward reads round(dy_m)
   g    = round(gelu(u) * m_in)     dW2's operand
@@ -16,12 +16,16 @@ stored between forward and backward):
   dx1  = dy + LN-bwd(round(du) @ W1^T)        ungated residual path
   dz   = (dx1_f32 * dp_attn) * m_attn         out_proj's backward reads round(dz)
 
-dz gates K7's fp32 dx1 scratch, not the rounded output.  Each gated
-operand is hashed once per element: summed in fp32 for db2 and db_o, and
-written rounded into K7's (rows, D) scratches while they are free, so the
-GEMMs read plain tiles (hashing in the tile loads re-hashed each element
-once per output tile column and cost 29% over K7); no new scratch, and
-the reductions stay K7's deterministic passes.  The dropout gate is a
+dz gates K7's fp32 dx1 scratch, not the rounded output; db2 sums dy_m and
+db_o sums dz in fp32, and dctx = round(round(dz) W_oᵀ), dW_o = ctxᵀ
+round(dz).  Each gated operand is hashed once per element where it is
+summed and once where it is written rounded into K7's fp32 (rows, D)
+scratches while they are free, so the GEMMs read plain tiles (hashing in
+the tile loads re-hashed each element once per output tile column); no new
+scratch, and the reductions stay K7's deterministic passes.  bf16, the
+path's dtype, runs K7's chain on the TMA + ``wgmma`` core with the gates
+compiled in (``csrc/mlp_bwd_mma.cuh``), under K7's operand rule
+(``check_tile_operands``); fp32 keeps the FMA core.  The dropout gate is a
 template flag, so ``dropout_p == 0`` runs K7's arithmetic exactly (bit for
 bit at drop-path rates of 0).
 """
@@ -49,6 +53,14 @@ def ln_mlp_out_residual_bwd_train_plain(
         dy, x1, ln_scale, ln_bias, w1, b1, w2, dp_mlp, seed, dropout_p, eps, gelu_variant)
     dctx, dwo, dbo = out_residual_bwd_train_plain(dx1, ctx, wo, dp_attn, seed, dropout_p)
     return dx1.to(dy.dtype), dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo, dbo
+
+
+def check_tile_operands(dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, *_, **__) -> None:
+    """bf16: K7's operand rule (dy, x1, ctx, w1, w2, wo on the 16-byte
+    grid, D, d_ctx and F multiples of 8 elements) on the wrapper's
+    arguments; raises ``ValueError`` otherwise."""
+    _build.check_tiles("ln_mlp_out_residual_bwd_train", dy=dy, x1=x1, ctx=ctx, w1=w1, w2=w2,
+                       wo=wo)
 
 
 def ln_mlp_out_residual_bwd_train(
@@ -81,6 +93,8 @@ def ln_mlp_out_residual_bwd_train(
     _build.check_shape(name, "wo", wo, (d_ctx, d))
     _build.check_row_scale(name, "dp_mlp", dp_mlp, dy)
     _build.check_row_scale(name, "dp_attn", dp_attn, dy)
+    if dy.dtype == torch.bfloat16:
+        check_tile_operands(dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo)
     dev, code = dy.device, _build.DTYPE_CODES[dy.dtype]
     f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     outs = (
