@@ -30,8 +30,11 @@ Phases (a failed phase raises; nothing is caught):
   7. the training kernels (K4 out_residual, K5 ln_mlp_residual, K6
      ln_qkv_attn_bwd, K7 ln_mlp_out_residual_bwd) against their plain
      twins, every output (dx, dctx, each weight and bias gradient), bf16 and
-     fp32, at B/16 shapes for batch 64 and 3, with both timed; and the bf16
-     K7's MLP outputs equal to K8's bit for bit at batch 64 (one chain);
+     fp32, at B/16 shapes for batch 64 and 3, with both timed and each line
+     with its share of its bound; the bf16 K7's MLP outputs equal to K8's
+     bit for bit at batch 64 (one chain); and the bf16 K6 split by CUDA
+     kernel in a profiler trace (batch 64, plain at T 197 and with token
+     merging's bias at T 171);
   8. the train CLI in-process: ``--config vit_b_16 --steps 5 --batch 64
      --ops fused_train --mixed-precision --device cuda``, with every launch
      count set to 0 just before and read just after (12 each of K1, K4, K5,
@@ -782,6 +785,57 @@ def phase_k7_shares_k8(dev: torch.device) -> None:
         f"{'differ: ' + ', '.join(differ) if differ else 'equal'} (bit for bit)")
     if differ:
         raise RuntimeError(f"K7's MLP outputs {differ} differ from K8's on the same inputs")
+
+
+def _kernel_split(fn, label: str, card: str, calls: int = 10) -> None:
+    """The device kernels one call of ``fn`` launches, in launch order, each
+    with its device time per call (a torch.profiler trace over ``calls``
+    calls) and its share of the call's kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    order, by_name = [], {}
+    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start):
+        if e.name not in by_name:
+            order.append(e.name)
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    total = sum(ms for ms, _ in by_name.values()) / calls
+    log(f"{label}: device kernels {total:.6g} ms per call, in launch order; {card}")
+    for name in order:
+        ms, n = by_name[name]
+        log(f"  {ms / calls:.6g} ms ({ms / calls / total:.1%}) in {n // calls} launch(es): "
+            f"{name[:120]}")
+
+
+def phase_k6_split(dev: torch.device, card: str) -> None:
+    """Phase 7's split of the bf16 K6 by CUDA kernel at B/16 batch 64: the
+    row passes, the three GEMMs, the attention backward's statistics, dK/dV
+    and dQ kernels and the column sums, plain (T 197) and with token
+    merging's bias and no residual join (T 171)."""
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_bwd as k6
+
+    d, h, b, bf = B16["d"], B16["heads"], 64, torch.bfloat16
+    rn = _rand(dev, 6)
+    s1, b1n = rn(d, scale=0.2, shift=1.0, dtype=bf), rn(d, scale=0.2, dtype=bf)
+    wqkv, bqkv = rn(d, 3 * d, scale=d ** -0.5, dtype=bf), rn(3 * d, scale=0.1, dtype=bf)
+    for t, hooked in ((B16["t"], False), (_merged_counts(TOME_R, 2)[2], True)):
+        rows = b * t
+        dctx, dres, x = rn(rows, d, dtype=bf), rn(rows, d, dtype=bf), rn(rows, d, scale=2.0,
+                                                                         dtype=bf)
+        kw = {"log_size": _log_size(dev, b, t)} if hooked else {}
+        args = (dctx, None if hooked else dres, x, s1, b1n, wqkv, bqkv, h, t, 1e-6)
+        _kernel_split(lambda: k6.ln_qkv_attn_bwd(*args, **kw),
+                      f"K6 ln_qkv_attn_bwd bfloat16 batch {b} T {t}"
+                      f"{' log_size dres=None' if hooked else ''} by kernel", card)
 
 
 PROFILE_PHASES = ("patch_embed+pos", "layer_norm_1", "attention", "layer_norm_2", "mlp",
@@ -2684,6 +2738,7 @@ def group_train(dev, card, summary, launches) -> None:
 
     summary.update(phase_kernels(train_kernel_cases(dev), TRAIN_KERNELS, 64))
     phase_k7_shares_k8(dev)
+    phase_k6_split(dev, card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         launches["train"] = phase_train_cli(workdir)

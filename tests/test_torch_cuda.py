@@ -437,9 +437,9 @@ def _k6_args(dev, dtype, b, t, d, h):
 @pytest.mark.parametrize(
     "b,t,d,h",
     [(2, 5, 64, 4), (3, 197, 768, 12), (1, 1024, 128, 4), (2, 65, 256, 8),
-     (2, 198, 384, 3), (1, 1024, 384, 3), (2, 257, 160, 2)],
+     (2, 198, 384, 3), (1, 1024, 384, 3), (2, 257, 160, 2), (64, 197, 768, 12)],
     ids=["tiny_dh16", "b16_t197", "t1024_dh32", "t65_dh32", "deit_t198_dh128", "t1024_dh128",
-         "h14_t257_dh80"],
+         "h14_t257_dh80", "b64_t197"],
 )
 def test_ln_qkv_attn_bwd(dev, dtype, b, t, d, h):
     args = _k6_args(dev, dtype, b, t, d, h)
@@ -1131,6 +1131,77 @@ def test_ln_qkv_attn_bwd_tome(dev, dtype, case):
     ls = _log_size(dev, b, t)
     _check_all(ln_qkv_attn_bwd(dctx, None, *rest, log_size=ls),
                ln_qkv_attn_bwd_plain(dctx, None, *rest, log_size=ls))
+
+
+# -- the bf16 K6 on the tensor cores: the chain on csrc/gemm_mma.cuh and the
+# attention backward on K14's register tiles (csrc/flash_bwd_mma.cuh) -------
+
+# T at every 16-row warp edge and 64-row tile edge, and the 1,024 limit
+K6_RAGGED_T = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1024)
+HEAD_WIDTHS = (16, 32, 64, 80, 128)
+
+
+def _k6_dh_args(dev, b, t, dh, heads=2):
+    return _k6_args(dev, torch.bfloat16, b, t, heads * dh, heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", HEAD_WIDTHS)
+@pytest.mark.parametrize("t", K6_RAGGED_T)
+def test_ln_qkv_attn_bwd_mma_ragged(dev, t, dh):
+    args = _k6_dh_args(dev, 1 if t == 1024 else 3, t, dh)
+    _check_all(ln_qkv_attn_bwd(*args), ln_qkv_attn_bwd_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", HEAD_WIDTHS)
+@pytest.mark.parametrize("t", [171, 41])
+def test_ln_qkv_attn_bwd_mma_hooked(dev, t, dh):
+    # ToMe's merged counts: the log-size bias, no residual join; a zero
+    # bias is the unhooked kernel bit for bit
+    b = 3
+    dctx, _, *rest = _k6_dh_args(dev, b, t, dh)
+    ls = _log_size(dev, b, t)
+    _check_all(ln_qkv_attn_bwd(dctx, None, *rest, log_size=ls),
+               ln_qkv_attn_bwd_plain(dctx, None, *rest, log_size=ls))
+    zero = ln_qkv_attn_bwd(dctx, None, *rest, log_size=torch.zeros_like(ls))
+    for a, b_ in zip(zero, ln_qkv_attn_bwd(dctx, None, *rest)):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hooked", [False, True], ids=["plain", "hooked"])
+def test_ln_qkv_attn_bwd_mma_is_deterministic(dev, hooked):
+    # each block owns its rows, no float atomics: two runs, the same bits
+    b, t = 64, 197
+    dctx, dres, *rest = _k6_args(dev, torch.bfloat16, b, t, 768, 12)
+    kw = {"log_size": _log_size(dev, b, t)} if hooked else {}
+    args = (dctx, None if hooked else dres, *rest)
+    first = [x.clone() for x in ln_qkv_attn_bwd(*args, **kw)]
+    for a, b_ in zip(first, ln_qkv_attn_bwd(*args, **kw)):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_ln_qkv_attn_bwd_refuses_unaligned_operands(dev):
+    bf = torch.bfloat16
+
+    def off(*shape):  # contiguous, one element past the 16-byte grid
+        n = int(np.prod(shape))
+        return torch.zeros(n + 1, device=dev, dtype=bf)[1:].view(*shape)
+
+    args = list(_k6_args(dev, bf, 2, 5, 64, 4))
+    ln_qkv_attn_bwd(*args)  # aligned: runs
+    for i, name in ((0, "dctx"), (2, "x"), (5, "wqkv")):
+        bad = list(args)
+        bad[i] = off(*args[i].shape)
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            ln_qkv_attn_bwd(*bad)
+    # D = 60: x and the LN1 rows are not a whole number of 16-byte steps
+    z = lambda *shape: torch.zeros(*shape, device=dev, dtype=bf)  # noqa: E731
+    odd = (z(10, 64), z(10, 60), z(10, 60), z(60), z(60), z(60, 192), z(192), 4, 5, 1e-6)
+    with pytest.raises(ValueError, match="x is 60 elements wide"):
+        ln_qkv_attn_bwd(*odd)
 
 
 def _k12_cases():

@@ -6,7 +6,8 @@ repo, each in its own process, in turns, on one card:
 runs PARENT_DIR, ., ., PARENT_DIR per round (each checkout builds its own
 kernels into its own ``build/``) and prints each process's times, then the
 median per checkout.  K1 and K2 run at B/16 batch 100 (the classify path),
-K4, K5 and K7 at batch 64 (the train step), K10, K11 and K12a too where the
+K4, K5, K7 and K6 at batch 64 (the train step; K6 also with token merging's
+bias and no residual join at batch 64 T 171), K10, K11 and K12a too where the
 checkout has them (dropout and drop-path 0.1), K8 at @512 batch 16 (16,400
 rows, the long train step's) and K12b at batch 64 T 171 (the regularized
 ToMe step's first merged layer, dropout and drop-path 0.1) where it has
@@ -111,6 +112,13 @@ x, ctx, dy = rn(rows, d, scale=2.0), rn(rows, d), rn(rows, d)
 times["K4"] = ms(lambda: k("out_residual")(ctx, x, wo, bo))
 times["K5"] = ms(lambda: k("ln_mlp_residual")(x, s, bb, w1, b1, w2, b2, eps, "exact"))
 times["K7"] = ms(lambda: k("ln_mlp_out_residual_bwd")(dy, x, ctx, s, bb, w1, b1, w2, wo, eps, "exact"))
+k6 = k("ln_qkv_attn_bwd")
+times["K6"] = ms(lambda: k6(ctx, dy, x, s, bb, wqkv, bqkv, h, t, eps))
+tm = 171  # the ToMe train step's first merged layer: the bias, no residual join
+xm, dm = rn(64 * tm, d, scale=2.0), rn(64 * tm, d)
+ls = torch.log(torch.randint(1, 6, (64, tm), generator=gen, device=dev).float())
+times["K6 hooked"] = ms(lambda: k6(dm, None, xm, s, bb, wqkv, bqkv, h, tm, eps, log_size=ls))
+del xm, dm
 if k("out_residual_train") is not None:
     from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
     dpa, dpm = (drop_path_scale_rows(7, site, 64, t, 0.1, device=dev) for site in (4, 5))

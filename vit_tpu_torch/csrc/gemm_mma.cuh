@@ -3,8 +3,8 @@
 // layout), fp32 accumulators, and an epilogue functor (epilogue.cuh) that
 // receives each accumulator with its (row, col).  K1 (ln_qkv_attn.cu) and
 // K2 (out_ln_mlp_residual.cu) run their bf16 GEMMs on it, and so do the
-// bf16 K7, K8, K12a and K12b (mlp_bwd_mma.cuh) in the operand forms a
-// backward needs; every other kernel keeps gemm.cuh.
+// bf16 K6 (ln_qkv_attn_bwd.cu), K7, K8, K12a and K12b (mlp_bwd_mma.cuh) in
+// the operand forms a backward needs; every other kernel keeps gemm.cuh.
 //
 // Operand forms (template flags of launch_gemm_mma; the default form is
 // gemm_mma_kernel, the others gemm_mma_form_kernel, one body):

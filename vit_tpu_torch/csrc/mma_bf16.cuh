@@ -1,6 +1,7 @@
 // Warp-level bf16 tensor-core tiles for Hopper (sm_90a) in inline PTX,
 // shared by K21 (scaled_dot_product_attention.cu), K13
-// (flash_attention.cu) and K14 (flash_attention_bwd.cu): mma.sync
+// (flash_attention.cu), K14 and K6's attention backward
+// (flash_bwd_mma.cuh): mma.sync
 // m16n8k16 with fp32 accumulators, ldmatrix (plain and .trans) from padded
 // shared-memory tiles, 16-byte cp.async copies in commit/wait groups, the
 // accumulator-to-A-fragment repack, quad reductions, and 16-byte stores of

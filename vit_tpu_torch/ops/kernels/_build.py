@@ -302,10 +302,9 @@ VEC_BYTES = 16
 def check_aligned(kernel: str, **views: torch.Tensor) -> None:
     """Each view's base address and its strides other than the last axis's
     (a (batch, head, token, dh) view's batch, head and token strides) are
-    multiples of 16 bytes: K21, K13 and K14 read and write 16 bytes per
-    lane, and the TMA tensor maps of the bf16 GEMM core (K1, K2, K7, K8,
-    K12a, K12b)
-    take such bases and row pitches only.
+    multiples of 16 bytes: K21, K13, K14 and K6's attention read and write
+    16 bytes per lane, and the TMA tensor maps of the bf16 GEMM core (K1,
+    K2, K6, K7, K8, K12a, K12b) take such bases and row pitches only.
     Axes of length 1 are never stepped, so their strides do not count.
     Anything else raises ``ValueError`` naming the operand."""
     for name, t in views.items():
@@ -321,7 +320,7 @@ def check_aligned(kernel: str, **views: torch.Tensor) -> None:
 
 
 # bf16 elements per 16-byte row step of the TMA + wgmma GEMM core of K1, K2,
-# K7, K8, K12a and K12b (csrc/gemm_mma.cuh)
+# K6, K7, K8, K12a and K12b (csrc/gemm_mma.cuh)
 TILE_VEC = 8
 
 

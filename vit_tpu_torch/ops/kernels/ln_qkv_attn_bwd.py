@@ -9,22 +9,32 @@ before the row max, so the probs are the forward's (``backward.py:861``);
 ``dres=None`` (the standalone VJP of K1) joins a zero residual gradient,
 which adds exactly nothing.
 
-What bounds it on the H100: three GEMMs (B/16 batch 64: the QKV recompute,
-dh1 = dQKV W^T and dW_qkv, 3 x 45 GFLOP) on the tensor cores, and the
-attention backward (T = 197, dh = 64: about 7 T^2 dh multiply-adds per
-image and head, in fp32 on the CUDA cores).  The TPU kernel recomputes one
-image's QKV and probs in VMEM and holds dQKV in a VMEM scratch; here the
-recomputed QKV is a dtype scratch and dQKV an fp32 one (116 MB at batch 64)
-in device memory.  The attention backward runs one block per (head,
-image) that loops over 64-query tiles; per tile it recomputes the softmax
-statistics, then sum_k p dp, then per 64-key tile dq (registers) and dk/dv,
-which it adds into the dQKV rows that only it owns.  So any T up to 1024
-fits (one head's fp32 dK/dV at T = 1024 is 512 KB, past shared memory),
-with no atomics: the sums run in a fixed order.  db, dgamma, dbeta and
-dW_qkv are deterministic two-pass reductions over rows, as in K7.
+What bounds it on the H100: operations.  B/16 batch 64 (12,608 rows):
+three GEMMs of 2 rows D 3D each (the QKV recompute, dh1 = dQKV Wᵀ and
+dW_qkv; 134 GFLOP) and the attention backward's five T² dh products per
+image and head (19.1 GFLOP), then ~0.3 GB of row traffic.  The TPU kernel
+recomputes one image's QKV and probs in VMEM and holds dQKV in a VMEM
+scratch; Hopper blocks run in no order, so this is a chain of launches with
+device scratch between them, every reduction over rows a fixed-order pass:
+no float atomics, two runs give the same bits.  bf16, the path's dtype:
+LN1(x) once per row into a bf16 scratch; the QKV GEMM (K1's) and dh1 =
+round(dQKV) W_qkvᵀ (W_qkv read K-major) and dW_qkv = h1ᵀ round(dQKV) (h1
+read MN-major, the rows split) on the TMA + ``wgmma`` core
+(``csrc/gemm_mma.cuh``); the attention backward on ``mma.sync`` register
+tiles in three launches of one block per (image, head, 64-row tile) that
+read q, k, v and dctx in place: the row statistics (lse and delta = Σₖ p
+dp, two passes over the keys), then K14's dK/dV (keys outer) and dQ
+(queries outer) bodies (``csrc/flash_bwd_mma.cuh``) with the key-bias hook
+and a flush that writes each block's own rows of the fp32 dQKV and of
+round(dQKV).  Every operand the core reads through a tensor map or 16-byte
+copies (dctx, x, w_qkv) on the 16-byte grid, D a multiple of 8 elements
+(``check_tile_operands``).  fp32 keeps the FMA core with LN1 in the tile
+loads and a SIMT attention backward, one block per (head, image) looping
+over 64-query tiles, adding dk/dv into dQKV rows only it owns.
 
 Rounding points (the TPU kernel's): h1 rounded; qkv = round(h1 W + b);
-q_s = round(q * round(scale)); p = e * (1 / sum e) fp32, p_c = round(p);
+q_s = round(q * round(scale)); p = e * (1 / sum e) fp32 (the bf16 kernel:
+exp(s - lse), within |lse| 2⁻²⁴ of it), p_c = round(p);
 dv = p_c^T dctx_h; dp = dctx_h v^T; ds = p (dp - rowsum(dp p)); dq =
 (round(ds) k) * scale; dk = round(ds)^T q_s; dqkv fp32; dh1 = round(dqkv)
 W^T; dx = dres + LN-bwd(dh1).
@@ -79,6 +89,13 @@ def ln_qkv_attn_bwd_plain(
     return dx, (dh1 * xhat).sum(0), dh1.sum(0), h1.float().t() @ dqkv_c, dqkv.sum(0)
 
 
+def check_tile_operands(dctx, dres, x2d, ln_scale, ln_bias, wqkv, *_, **__) -> None:
+    """bf16: dctx, x and w_qkv on the 16-byte grid, their widths (d_ctx, D,
+    3D) multiples of 8 elements; the wrapper's arguments, raises
+    ``ValueError`` otherwise."""
+    _build.check_tiles("ln_qkv_attn_bwd", dctx=dctx, x=x2d, wqkv=wqkv)
+
+
 def ln_qkv_attn_bwd(
     dctx, dres, x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads: int, seq_len: int, eps: float,
     qkv=None, log_size=None,
@@ -117,6 +134,8 @@ def ln_qkv_attn_bwd(
     _build.check_shape(name, "wqkv", wqkv, (d, d3))
     _build.check_shape(name, "bqkv", bqkv, (d3,))
     _check_log_size(name, log_size, x2d, seq_len)
+    if x2d.dtype == torch.bfloat16:
+        check_tile_operands(dctx, dres, x2d, ln_scale, ln_bias, wqkv)
     dev, code = x2d.device, _build.DTYPE_CODES[x2d.dtype]
     f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     outs = (torch.empty(rows, d, dtype=x2d.dtype, device=dev), f32(d), f32(d), f32(d, d3), f32(d3))
