@@ -7,7 +7,8 @@ Phases (a failed phase raises; nothing is caught):
   3. each kernel (K1 ln_qkv_attn, K2 out_ln_mlp_residual, K3 layer_norm)
      against its plain PyTorch twin on the card, bf16 and fp32, at ViT-B/16
      shapes for batch 100 and a ragged batch of 3, with both timed; and the
-     bf16 GEMM core of K1, K2, K7, K8, K12a and K12b (``csrc/gemm_mma.cuh``)
+     bf16 GEMM core of K1, K2, K5, K7, K8, K11, K12a and K12b
+     (``csrc/gemm_mma.cuh``)
      alone at the main path's four GEMM shapes (M 19,700) and at the four products
      of the MLP backward at @512 batch 16 (16,400 rows: dY W2ᵀ and du W1ᵀ
      with the weight read K-major, the weight gradients h2ᵀ du and gᵀ dY
@@ -31,10 +32,12 @@ Phases (a failed phase raises; nothing is caught):
      ln_qkv_attn_bwd, K7 ln_mlp_out_residual_bwd) against their plain
      twins, every output (dx, dctx, each weight and bias gradient), bf16 and
      fp32, at B/16 shapes for batch 64 and 3, with both timed and each line
-     with its share of its bound; the bf16 K7's MLP outputs equal to K8's
-     bit for bit at batch 64 (one chain); and the bf16 K6 split by CUDA
-     kernel in a profiler trace (batch 64, plain at T 197 and with token
-     merging's bias at T 171);
+     with its share of its bound, and K5 also with ``return_u`` (the
+     pre-GELU stash beside out); the bf16 K7's MLP outputs equal to K8's
+     bit for bit at batch 64 (one chain); and the bf16 K5, K11 and K6 split
+     by CUDA kernel in a profiler trace (batch 64: K5's LN2 rows, FC1 and
+     FC2, K11 likewise at dropout and drop-path 0.1; K6 plain at T 197 and
+     with token merging's bias at T 171);
   8. the train CLI in-process: ``--config vit_b_16 --steps 5 --batch 64
      --ops fused_train --mixed-precision --device cuda``, with every launch
      count set to 0 just before and read just after (12 each of K1, K4, K5,
@@ -47,7 +50,8 @@ Phases (a failed phase raises; nothing is caught):
  11. the regularized kernels (K10 out_residual_train, K11
      ln_mlp_residual_train, K12a ln_mlp_out_residual_bwd_train) against
      their plain twins at dropout 0.1 and drop-path 0.1, every output, bf16
-     and fp32, batch 64 and 3, timed beside K4, K5 and K7; K10's exact zeros
+     and fp32, batch 64 and 3, timed beside K4, K5 and K7, each line with
+     its share of its bound; K10's exact zeros
      against the twin's (the mask pattern); K10/K11/K12a at zero rates bit
      for bit equal to K4/K5/K7; the kept fraction of each dropout site, read
      off the kernels' outputs, within 4 sigma of 1 - p;
@@ -548,6 +552,12 @@ def train_kernel_cases(dev: torch.device):
             for name, (a, flops) in args.items():
                 cases[name].append(case(_tag(dtype, b, rows), dtype, b, getattr(mods[name], name),
                                         getattr(mods[name], f"{name}_plain"), a, flops))
+            # K5's return_u (the pre-GELU stash beside out), off the main path
+            a5 = args["ln_mlp_residual"][0]
+            cases["ln_mlp_residual"].append(dict(case(
+                f"{_tag(dtype, b, rows)} return_u", dtype, b,
+                lambda *a: k5.ln_mlp_residual(*a, return_u=True), k5.ln_mlp_residual_u_plain,
+                a5, 4 * rows * d * f), summary=False))
     return cases
 
 
@@ -814,6 +824,29 @@ def _kernel_split(fn, label: str, card: str, calls: int = 10) -> None:
         ms, n = by_name[name]
         log(f"  {ms / calls:.6g} ms ({ms / calls / total:.1%}) in {n // calls} launch(es): "
             f"{name[:120]}")
+
+
+def phase_k5_split(dev: torch.device, card: str) -> None:
+    """Phase 7's split of the bf16 K5 and K11 by CUDA kernel at B/16 batch
+    64: the LN2 row pass, FC1 and FC2 on the tensor-core core (K11 at
+    dropout and drop-path REG_P)."""
+    from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_train as k11
+
+    d, f, t, b, bf = B16["d"], B16["f"], B16["t"], 64, torch.bfloat16
+    rows = b * t
+    rn = _rand(dev, 5)
+    args = (rn(rows, d, scale=2.0, dtype=bf), rn(d, scale=0.2, shift=1.0, dtype=bf),
+            rn(d, scale=0.2, dtype=bf), rn(d, f, scale=d ** -0.5, dtype=bf),
+            rn(f, scale=0.1, dtype=bf), rn(f, d, scale=f ** -0.5, dtype=bf),
+            rn(d, scale=0.1, dtype=bf))
+    dp = drop_path_scale_rows(REG_SEED, 5, b, t, REG_P, device=dev)
+    _kernel_split(lambda: k5.ln_mlp_residual(*args, 1e-6),
+                  f"K5 ln_mlp_residual bfloat16 batch {b} (rows {rows}) by kernel", card)
+    _kernel_split(lambda: k11.ln_mlp_residual_train(*args, dp, REG_SEED, REG_P, 1e-6),
+                  f"K11 ln_mlp_residual_train bfloat16 batch {b} (rows {rows}) p {REG_P} "
+                  "by kernel", card)
 
 
 def phase_k6_split(dev: torch.device, card: str) -> None:
@@ -2738,6 +2771,7 @@ def group_train(dev, card, summary, launches) -> None:
 
     summary.update(phase_kernels(train_kernel_cases(dev), TRAIN_KERNELS, 64))
     phase_k7_shares_k8(dev)
+    phase_k5_split(dev, card)
     phase_k6_split(dev, card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:

@@ -245,16 +245,23 @@ def test_wrappers_refuse_other_devices(kernel):
 
 def test_hooks_of_later_slices_raise():
     arrays = _k5_arrays(10, 64, 256, 5)
-    k5 = [torch.from_numpy(a) for a in arrays]
-    with pytest.raises(NotImplementedError, match="return_u"):
-        ln_mlp_residual(*k5, EPS, return_u=True)
-    # tensor parallelism's partial form is ported: fp32 g @ W2, no b2, no residual
     for dtype in DTYPES:
         jx, tx = _pairs(arrays, dtype)
+        # tensor parallelism's partial form is ported: fp32 g @ W2, no b2, no residual
         want = JF.ln_mlp_residual(*jx, EPS, interpret=True, partial=True)
         got = ln_mlp_residual(*tx, EPS, partial=True)
         assert got.dtype == torch.float32 and want.dtype == jnp.float32
         np.testing.assert_allclose(_f32(got), _f32(want), **FWD_TOL[dtype])
+        # and so is the pre-GELU stash, in both forms: (out, u), u in x's dtype
+        for partial in (False, True):
+            want_out, want_u = JF.ln_mlp_residual(*jx, EPS, interpret=True, partial=partial,
+                                                  return_u=True)
+            got_out, got_u = ln_mlp_residual(*tx, EPS, partial=partial, return_u=True)
+            assert got_u.dtype == getattr(torch, dtype) and want_u.dtype == jnp.dtype(dtype)
+            assert got_out.dtype == (torch.float32 if partial else getattr(torch, dtype))
+            assert got_u.shape == (10, 256) and want_u.shape == (10, 256)
+            np.testing.assert_allclose(_f32(got_out), _f32(want_out), **FWD_TOL[dtype])
+            np.testing.assert_allclose(_f32(got_u), _f32(want_u), **FWD_TOL[dtype])
     k7 = [torch.from_numpy(a) for a in _k7_arrays(10, 64, 256, 6)]
     with pytest.raises(NotImplementedError, match="u= stash"):
         ln_mlp_out_residual_bwd(*k7, EPS, u=torch.zeros(10, 256))

@@ -406,6 +406,156 @@ def test_ln_mlp_residual(dev, dtype, variant, rows, d, f):
     _check(ln_mlp_residual(*args), ln_mlp_residual_plain(*args))
 
 
+# the bf16 K5 and K11 on the TMA + wgmma core: row counts at the core's
+# 128-row tile edges, ToMe's merged counts (b3 x T 41, b64 x T 171, b100 x
+# T 158) and @224 batch 64 (12,608 rows)
+K5_MMA_ROWS = [1, 127, 128, 129, 3 * 41, 64 * 171, 100 * 158, 64 * 197]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", K5_MMA_ROWS)
+def test_ln_mlp_residual_mma_rows(dev, rows):
+    # K5's block form, its partial form at the tp 2 and tp 4 shard widths,
+    # the return_u stash, and K11 at p 0.1 with drop-path 0.1, each against
+    # its twin at B/16 width
+    from vit_tpu_torch.ops.kernels.ln_mlp_residual import (
+        ln_mlp_partial_plain,
+        ln_mlp_residual_u_plain,
+    )
+
+    bf, d, f = torch.bfloat16, 768, 3072
+    args = _mlp_args(dev, bf, rows, d, f)
+    _check(ln_mlp_residual(*args, 1e-6), ln_mlp_residual_plain(*args, 1e-6))
+    for tp in (2, 4):
+        x, s, b, w1, b1, w2, _ = args
+        shard = (w1[:, :f // tp].contiguous(), b1[:f // tp].contiguous(),
+                 w2[:f // tp].contiguous())
+        got = ln_mlp_residual(x, s, b, *shard, None, 1e-6, partial=True)
+        _check(got, ln_mlp_partial_plain(x, s, b, *shard, 1e-6), bf)
+    for partial in (False, True):
+        out, u = ln_mlp_residual(*args, 1e-6, partial=partial, return_u=True)
+        want_out, want_u = ln_mlp_residual_u_plain(*args, 1e-6, partial=partial)
+        _check(out, want_out, bf)
+        _check(u, want_u)
+    dp = drop_path_scale_rows(2 ** 31 + 3, 5, rows, 1, 0.1, device=dev)
+    k11 = (*args, dp, 2 ** 31 + 3, 0.1, 1e-6)
+    _check(ln_mlp_residual_train(*k11), ln_mlp_residual_train_plain(*k11))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", ["exact", "tanh"])
+@pytest.mark.parametrize("rows,d,f", [(10, 64, 256), (591, 768, 3072)])
+def test_ln_mlp_residual_return_u(dev, dtype, variant, rows, d, f):
+    # the stash u = round(h W1 + b1) beside the block's and the partial form's out
+    from vit_tpu_torch.ops.kernels.ln_mlp_residual import ln_mlp_residual_u_plain
+
+    args = (*_mlp_args(dev, dtype, rows, d, f), 1e-6, variant)
+    for partial in (False, True):
+        out, u = ln_mlp_residual(*args, partial=partial, return_u=True)
+        want_out, want_u = ln_mlp_residual_u_plain(*args, partial=partial)
+        assert u.dtype == dtype and out.dtype == (torch.float32 if partial else dtype)
+        _check(out, want_out, dtype)
+        _check(u, want_u)
+        # the out beside the stash is the form's out without it
+        assert torch.equal(out, ln_mlp_residual(*args, partial=partial))
+
+
+@pytest.mark.cuda
+def test_ln_mlp_residual_train_masks_at_b64(dev):
+    # bf16 K11 at p 0.1 (@224 batch 64): with x = 0, W1 = 0, b1 = 3 (gelu(u)
+    # one constant), W2 = [I; 0] and b2 = 0, out = round(gelu(3) m_in) m_out dp
+    # on the first D inner columns: its zeros are the twin's mask pattern;
+    # and a sample whose drop-path scale is 0 keeps its residual rows as they were
+    bf, d, f, b, t, seed = torch.bfloat16, 768, 3072, 64, 197, 2 ** 31 + 3
+    rows = b * t
+    x, s, bn, w1, b1, w2, b2 = _mlp_args(dev, bf, rows, d, f)
+    dp = drop_path_scale_rows(seed, 5, b, t, 0.1, device=dev)
+    assert (dp == 0).any() and (dp != 0).any()
+    eye = torch.zeros(f, d, dtype=bf, device=dev)
+    eye[:d] = torch.eye(d, dtype=bf, device=dev)
+    ones = torch.ones(rows, device=dev)
+    zeros_in = (torch.zeros(rows, d, dtype=bf, device=dev), s, bn,
+                torch.zeros(d, f, dtype=bf, device=dev), torch.full((f,), 3.0, dtype=bf,
+                                                                      device=dev),
+                eye, torch.zeros(d, dtype=bf, device=dev), ones, seed, 0.1, 1e-6)
+    got, want = ln_mlp_residual_train(*zeros_in), ln_mlp_residual_train_plain(*zeros_in)
+    assert torch.equal(got == 0, want == 0)
+    assert 0.75 < (got != 0).float().mean().item() < 0.87  # kept twice at p 0.1: 0.81
+    k11 = (x, s, bn, w1, b1, w2, b2, dp, seed, 0.1, 1e-6)
+    got = ln_mlp_residual_train(*k11)
+    _check(got, ln_mlp_residual_train_plain(*k11))
+    dropped = dp == 0
+    assert torch.equal(got[dropped], x[dropped])
+    assert not torch.equal(got[~dropped], x[~dropped])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [129, 64 * 197])
+def test_ln_mlp_residual_train_mma_at_zero_rates_is_k5(dev, rows):
+    # bf16 K11 with the gates compiled out and dp all ones reads K5's h bits
+    # through the same core: K5 bit for bit
+    args = _mlp_args(dev, torch.bfloat16, rows, 768, 3072)
+    ones = torch.ones(rows, device=dev)
+    assert torch.equal(ln_mlp_residual_train(*args, ones, 7, 0.0, 1e-6),
+                       ln_mlp_residual(*args, 1e-6))
+
+
+@pytest.mark.cuda
+def test_ln_mlp_residual_mma_is_deterministic_at_b64(dev):
+    # bf16 K5 (block, partial at tp 2, with the stash) and K11 (p 0.1,
+    # drop-path 0.1) at @224 batch 64, two runs bit for bit
+    rows, seed = 64 * 197, 2 ** 31 + 7
+    args = _mlp_args(dev, torch.bfloat16, rows, 768, 3072)
+    x, s, b, w1, b1, w2, _ = args
+    shard = (w1[:, :1536].contiguous(), b1[:1536].contiguous(), w2[:1536].contiguous())
+    dp = drop_path_scale_rows(seed, 5, 64, 197, 0.1, device=dev)
+    runs = [
+        lambda: (ln_mlp_residual(*args, 1e-6),),
+        lambda: (ln_mlp_residual(x, s, b, *shard, None, 1e-6, partial=True),),
+        lambda: ln_mlp_residual(*args, 1e-6, return_u=True),
+        lambda: (ln_mlp_residual_train(*args, dp, seed, 0.1, 1e-6),),
+    ]
+    for run in runs:
+        first = [t.clone() for t in run()]
+        for a, c in zip(first, run()):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_ln_mlp_residual_refuses_unaligned_operands(dev):
+    # bf16 K5 and K11 read x (through its copy h), w1 and w2 through TMA
+    # tensor maps: an operand off the 16-byte grid, or D or F not a multiple
+    # of 8, raises before any launch (no fallback to the FMA core, the twin
+    # or the CPU)
+    bf = torch.bfloat16
+
+    def off(t):  # the same values, one element past the 16-byte grid
+        flat = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)[1:]
+        return flat.copy_(t.reshape(-1)).view(t.shape)
+
+    ones = torch.ones(10, device=dev)
+    args = _mlp_args(dev, bf, 10, 64, 256)
+    ln_mlp_residual(*args, 1e-6)  # aligned: runs
+    ln_mlp_residual_train(*args, ones, 7, 0.1, 1e-6)
+    for i, name in ((0, "x"), (3, "w1"), (5, "w2")):
+        bad = (*args[:i], off(args[i]), *args[i + 1:])
+        for call in (lambda: ln_mlp_residual(*bad, 1e-6),
+                     lambda: ln_mlp_residual(*bad, 1e-6, partial=True),
+                     lambda: ln_mlp_residual(*bad, 1e-6, return_u=True),
+                     lambda: ln_mlp_residual_train(*bad, ones, 7, 0.1, 1e-6)):
+            with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+                call()
+    for d, f in ((60, 256), (64, 252)):
+        odd = _mlp_args(dev, bf, 10, d, f)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ln_mlp_residual(*odd, 1e-6)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ln_mlp_residual(*odd, 1e-6, partial=True)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ln_mlp_residual_train(*odd, ones, 7, 0.0, 1e-6)
+
+
 def _k7_args(dev, dtype, rows, d, f, variant):
     x1, s, b, w1, b1, w2, _ = _mlp_args(dev, dtype, rows, d, f)
     return (_rn(dev, 10, rows, d, dtype=dtype), x1, _rn(dev, 11, rows, d, dtype=dtype), s, b,

@@ -6,7 +6,8 @@ repo, each in its own process, in turns, on one card:
 runs PARENT_DIR, ., ., PARENT_DIR per round (each checkout builds its own
 kernels into its own ``build/``) and prints each process's times, then the
 median per checkout.  K1 and K2 run at B/16 batch 100 (the classify path),
-K4, K5, K7 and K6 at batch 64 (the train step; K6 also with token merging's
+and K5's partial form there too at rank 0's shard of tp 2 (F/2 hidden
+columns) where the checkout has it; K4, K5, K7 and K6 at batch 64 (the train step; K6 also with token merging's
 bias and no residual join at batch 64 T 171), K10, K11 and K12a too where the
 checkout has them (dropout and drop-path 0.1), K8 at @512 batch 16 (16,400
 rows, the long train step's) and K12b at batch 64 T 171 (the regularized
@@ -42,7 +43,7 @@ import sys
 # vit_tpu_torch is the one imported; uses only wrapper signatures that every
 # checkout since the training slice shares
 TIMER = r"""
-import importlib, json, statistics, time, torch
+import importlib, inspect, json, statistics, time, torch
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(0)
@@ -101,6 +102,10 @@ rows = 100 * t
 x, ctx = rn(rows, d, scale=2.0), rn(rows, d)
 times["K1"] = ms(lambda: k("ln_qkv_attn")(x, s, bb, wqkv, bqkv, h, t, eps))
 times["K2"] = ms(lambda: k("out_ln_mlp_residual")(ctx, x, wo, bo, s, bb, w1, b1, w2, b2, eps, "exact"))
+k5 = k("ln_mlp_residual")
+if "partial" in inspect.signature(k5).parameters:  # rank 0's shard at tp 2
+    sh = (w1[:, :f // 2].contiguous(), b1[:f // 2].contiguous(), w2[:f // 2].contiguous())
+    times["K5 partial tp2"] = ms(lambda: k5(x, s, bb, *sh, None, eps, "exact", partial=True))
 if k("kmean_plain", "ln_qkv_attn") is not None:  # the ToMe hooks, at a merged T
     tm = 158
     xm = rn(100 * tm, d, scale=2.0)

@@ -58,6 +58,25 @@ struct BiasGeluEpi {
   }
 };
 
+// BiasGeluEpi that also stashes the pre-GELU activation: u[r, c] =
+// round(acc + b1[c]) beside g (K5's return_u; the TPU kernel's
+// `u.astype(x.dtype)`)
+template <typename T>
+struct BiasGeluStashEpi {
+  const T* b1;
+  T* g;
+  T* u;
+  int ld;
+  int variant;
+  __device__ __forceinline__ void operator()(int r, int c, float acc) const {
+    constexpr bool fast_erf = std::is_same<T, bf16>::value;
+    const size_t i = (size_t)r * ld + c;
+    const float v = acc + to_f(b1[c]);
+    u[i] = from_f<T>(v);
+    g[i] = from_f<T>(gelu(v, variant, fast_erf));
+  }
+};
+
 // ---- the regularized kernels' gates (K10, K11, K12a).  kDrop is a
 // template flag: with p = 0 the hash is never compiled in, and dp (the
 // (rows,) fp32 stochastic-depth scale) multiplies by 1 where a row is kept.

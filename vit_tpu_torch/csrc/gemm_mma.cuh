@@ -1,8 +1,9 @@
 // Bf16 tensor-core GEMM core for Hopper (sm_90a): C = A @ B with A (M, K)
 // and B (K, N) bf16 row-major in device memory (B is a weight in [in, out]
 // layout), fp32 accumulators, and an epilogue functor (epilogue.cuh) that
-// receives each accumulator with its (row, col).  K1 (ln_qkv_attn.cu) and
-// K2 (out_ln_mlp_residual.cu) run their bf16 GEMMs on it, and so do the
+// receives each accumulator with its (row, col).  K1 (ln_qkv_attn.cu), K2
+// (out_ln_mlp_residual.cu), K5 (ln_mlp_residual.cu) and K11
+// (ln_mlp_residual_train.cu) run their bf16 GEMMs on it, and so do the
 // bf16 K6 (ln_qkv_attn_bwd.cu), K7, K8, K12a and K12b (mlp_bwd_mma.cuh) in
 // the operand forms a backward needs; every other kernel keeps gemm.cuh.
 //
@@ -45,8 +46,9 @@
 //    the functor along rows, a warp on 32 neighbouring columns, so its
 //    stores and its residual and bias loads coalesce; whole tiles run
 //    unrolled with no bounds test.  A functor's loads each wait behind its
-//    previous store, so a residual the epilogue will read (BiasResidualEpi)
-//    is prefetched into L2 during the main loop's last k-steps.  The two
+//    previous store, so a residual the epilogue will read (BiasResidualEpi,
+//    BiasDropResidualEpi) is prefetched into L2 during the main loop's
+//    last k-steps.  The two
 //    blocks of an SM overlap one's epilogue with the other's main loop.
 // LayerNorm is not applied in the tile loads: launch_ln_rows normalises
 // each row once into a bf16 scratch that the GEMM then copies as is.  A
@@ -200,8 +202,9 @@ __device__ __forceinline__ void epilogue_rows(const Epi& epi, const float* Cs, i
 // What an epilogue functor will read one element at a time, behind its
 // own store, into L2 during the main loop's last kGmPrefetchSteps k-steps
 // (earlier, a long K lets it fall out again): nothing for most functors;
-// BiasResidualEpi's residual rows of the tile (from device memory they
-// would cost a full miss per element, one after the other).
+// BiasResidualEpi's and BiasDropResidualEpi's residual rows of the tile
+// (from device memory they would cost a full miss per element, one after
+// the other), and the latter's drop-path scales.
 constexpr int kGmPrefetchSteps = 6;
 template <class Epi>
 __device__ __forceinline__ void prefetch_epilogue(const Epi&, int, int, int, int) {}
@@ -221,6 +224,18 @@ template <typename TB, typename TRes, typename TOut>
 __device__ __forceinline__ void prefetch_epilogue(const BiasResidualEpi<TB, TRes, TOut>& e,
                                                   int row0, int col0, int M, int N) {
   prefetch_tile_rows(e.res, e.ld, row0, col0, M, N);
+}
+
+// the gated form (K11's FC2): the residual rows, and the tile's 128 fp32
+// drop-path scales (four 128-byte lines)
+template <typename T, bool kDrop>
+__device__ __forceinline__ void prefetch_epilogue(const BiasDropResidualEpi<T, kDrop>& e,
+                                                  int row0, int col0, int M, int N) {
+  prefetch_tile_rows(e.res, e.ld, row0, col0, M, N);
+  constexpr int kLine = 128 / sizeof(float);
+  const int r = row0 + threadIdx.x * kLine;
+  if (threadIdx.x < kGmBM / kLine && r < M)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(e.dp + r));
 }
 
 // The tile of output rows blockIdx.y, columns blockIdx.x in the operand

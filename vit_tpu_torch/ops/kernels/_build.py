@@ -60,12 +60,12 @@ SIGNATURES = {
     "vt_gemm_bf16": [_P] * 4 + [_I] * 7 + [_P],
     # ctx, res, wo, bo, out, rows, d_ctx, d, dtype, device, stream
     "vt_out_residual": [_P] * 5 + [_I] * 5 + [_P],
-    # x, ln_scale, ln_bias, w1, b1, w2, b2, stats, g, out,
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, stats, h, g, u, out,
     # rows, d, f, eps, gelu_variant, dtype, device, stream
-    "vt_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _I, _P],
-    # x, ln_scale, ln_bias, w1, b1, w2, stats, g, out,
+    "vt_ln_mlp_residual": [_P] * 12 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # x, ln_scale, ln_bias, w1, b1, w2, stats, h, g, u, out,
     # rows, d, f, eps, gelu_variant, dtype, device, stream
-    "vt_ln_mlp_partial": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    "vt_ln_mlp_partial": [_P] * 11 + [_I] * 3 + [_F, _I, _I, _I, _P],
     # dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, dx1, dctx, dgamma,
     # dbeta, dw1, db1, dw2, db2, dwo, dbo, workspace,
     # rows, d, f, d_ctx, eps, gelu_variant, dtype, device, stream
@@ -76,9 +76,9 @@ SIGNATURES = {
     "vt_ln_qkv_attn_bwd": [_P] * 14 + [_I] * 5 + [_F, _I, _I, _P],
     # ctx, res, wo, bo, dp, out, rows, d_ctx, d, <dropout>, dtype, device, stream
     "vt_out_residual_train": [_P] * 6 + [_I] * 3 + _DROP + [_I, _I, _P],
-    # x, ln_scale, ln_bias, w1, b1, w2, b2, dp, stats, g, out,
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, dp, stats, h, g, out,
     # rows, d, f, eps, gelu_variant, <dropout>, dtype, device, stream
-    "vt_ln_mlp_residual_train": [_P] * 11 + [_I] * 3 + [_F, _I] + _DROP + [_I, _I, _P],
+    "vt_ln_mlp_residual_train": [_P] * 12 + [_I] * 3 + [_F, _I] + _DROP + [_I, _I, _P],
     # dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, dp_mlp, dp_attn, dx1,
     # dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo, dbo, workspace,
     # rows, d, f, d_ctx, eps, gelu_variant, <dropout>, dtype, device, stream
@@ -304,7 +304,8 @@ def check_aligned(kernel: str, **views: torch.Tensor) -> None:
     (a (batch, head, token, dh) view's batch, head and token strides) are
     multiples of 16 bytes: K21, K13, K14 and K6's attention read and write
     16 bytes per lane, and the TMA tensor maps of the bf16 GEMM core (K1,
-    K2, K6, K7, K8, K12a, K12b) take such bases and row pitches only.
+    K2, K5, K6, K7, K8, K11, K12a, K12b) take such bases and row pitches
+    only.
     Axes of length 1 are never stepped, so their strides do not count.
     Anything else raises ``ValueError`` naming the operand."""
     for name, t in views.items():
@@ -320,7 +321,7 @@ def check_aligned(kernel: str, **views: torch.Tensor) -> None:
 
 
 # bf16 elements per 16-byte row step of the TMA + wgmma GEMM core of K1, K2,
-# K6, K7, K8, K12a and K12b (csrc/gemm_mma.cuh)
+# K5, K6, K7, K8, K11, K12a and K12b (csrc/gemm_mma.cuh)
 TILE_VEC = 8
 
 
