@@ -102,8 +102,10 @@ Phases (a failed phase raises; nothing is caught):
      within 2^-20; bit for bit where the input is the fp32 ``mid`` scratch;
      (b) every other stage against the twin's stage run on the kernel's own
      codes and scales, at the tolerance above; and the output against the
-     whole twin's within 2^-6 (a few moved codes).  The int8 GEMM core
-     alone is timed at the three GEMM shapes beside ``torch._int_mm``;
+     whole twin's within 2^-6 (a few moved codes).  The bf16 K16 split by
+     CUDA kernel at batch 100.  The two int8 GEMM cores alone (the TMA +
+     ``wgmma`` core of the bf16 K16, the WMMA core of the others), each
+     exact, timed at the three GEMM shapes beside ``torch._int_mm``;
  21. the classify CLI with ``--ops quant`` (otherwise as in 4), counts set to
      0 just before and read just after (12 K15, 12 K16, 1 K3; none of K1,
      K2, K13, K17);
@@ -156,6 +158,7 @@ Phases (a failed phase raises; nothing is caught):
      ragged batch of 3, K21 also at phase 26's head width 80, at @384 (T
      577, batch 32) and at T 1,024 (batch 8, the switch to K13), all timed,
      K21 beside ``F.scaled_dot_product_attention`` on the same q, k, v;
+     the bf16 K22 split by CUDA kernel at batch 100;
  32. the classify CLI with ``--ops per_op`` (25 K3, 12 K21, 12 K22; none of
      K1, K2, K13), counts set to 0 just before and read just after; then
      ``--profile`` on ``per_op`` and on ``fused``: its six phase lines
@@ -800,7 +803,11 @@ def phase_k7_shares_k8(dev: torch.device) -> None:
 def _kernel_split(fn, label: str, card: str, calls: int = 10) -> None:
     """The device kernels one call of ``fn`` launches, in launch order, each
     with its device time per call (a torch.profiler trace over ``calls``
-    calls) and its share of the call's kernel time."""
+    calls) and its share of the call's kernel time.  A kernel's launches
+    per call are its launches in the trace over ``calls``, rounded up, and
+    its time per call its mean per launch times that: a trace that lost
+    some of a kernel's records (it then says how many it holds) still gives
+    its time per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -818,12 +825,14 @@ def _kernel_split(fn, label: str, card: str, calls: int = 10) -> None:
             order.append(e.name)
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    total = sum(ms for ms, _ in by_name.values()) / calls
+    per_call = {name: (ms / n * -(-n // calls), -(-n // calls), n)
+                for name, (ms, n) in by_name.items()}
+    total = sum(ms for ms, _, _ in per_call.values())
     log(f"{label}: device kernels {total:.6g} ms per call, in launch order; {card}")
     for name in order:
-        ms, n = by_name[name]
-        log(f"  {ms / calls:.6g} ms ({ms / calls / total:.1%}) in {n // calls} launch(es): "
-            f"{name[:120]}")
+        ms, launches, n = per_call[name]
+        seen = "" if n == launches * calls else f" ({n} in the trace of {calls} calls)"
+        log(f"  {ms:.6g} ms ({ms / total:.1%}) in {launches} launch(es){seen}: {name[:120]}")
 
 
 def phase_k5_split(dev: torch.device, card: str) -> None:
@@ -847,6 +856,38 @@ def phase_k5_split(dev: torch.device, card: str) -> None:
     _kernel_split(lambda: k11.ln_mlp_residual_train(*args, dp, REG_SEED, REG_P, 1e-6),
                   f"K11 ln_mlp_residual_train bfloat16 batch {b} (rows {rows}) p {REG_P} "
                   "by kernel", card)
+
+
+def phase_k16_split(dev: torch.device, card: str) -> None:
+    """Phase 20's split of the bf16 K16 by CUDA kernel at B/16 batch 100:
+    the two K-major weight copies, the out_proj on the bf16 core, LN2 +
+    quantize, FC1 on the int8 core, the mid quantizer, FC2."""
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import out_ln_mlp_residual_q8 as k16
+
+    d, f, rows, bf = B16["d"], B16["f"], 100 * B16["t"], torch.bfloat16
+    rn = _rand(dev, 16)
+    args = (rn(rows, d, dtype=bf), rn(rows, d, scale=2.0, dtype=bf),
+            rn(d, d, scale=d ** -0.5, dtype=bf), rn(d, scale=0.1, dtype=bf),
+            rn(d, scale=0.2, shift=1.0, dtype=bf), rn(d, scale=0.2, dtype=bf),
+            *quant.quantize_weight(rn(d, f, scale=d ** -0.5)), rn(f, scale=0.1, dtype=bf),
+            *quant.quantize_weight(rn(f, d, scale=f ** -0.5)), rn(d, scale=0.1, dtype=bf), 1e-6)
+    _kernel_split(lambda: k16.out_ln_mlp_residual_q8(*args),
+                  f"K16 out_ln_mlp_residual_q8 bfloat16 batch 100 (rows {rows}) by kernel", card)
+
+
+def phase_k22_split(dev: torch.device, card: str) -> None:
+    """Phase 31's split of the bf16 K22 by CUDA kernel at B/16 batch 100:
+    FC1 + GELU and FC2 on the bf16 core."""
+    from vit_tpu_torch.ops.kernels import mlp as k22
+
+    d, f, b, t, bf = B16["d"], B16["f"], 100, B16["t"], torch.bfloat16
+    rn = _rand(dev, 22)
+    args = (rn(b, t, d, scale=2.0, dtype=bf), rn(d, f, scale=d ** -0.5, dtype=bf),
+            rn(f, scale=0.1, dtype=bf), rn(f, d, scale=f ** -0.5, dtype=bf),
+            rn(d, scale=0.1, dtype=bf))
+    _kernel_split(lambda: k22.mlp(*args), f"K22 mlp bfloat16 batch {b} (rows {b * t}) by kernel",
+                  card)
 
 
 def phase_k6_split(dev: torch.device, card: str) -> None:
@@ -1662,11 +1703,15 @@ def phase_wgrad_splits(dev: torch.device, card: str) -> None:
 
 
 def phase_int8_gemm(dev: torch.device, card: str) -> None:
-    """The int8 GEMM core alone at the W8A8 path's three GEMM shapes (batch
-    100), exact against the float64 reference, timed beside
-    ``torch._int_mm`` (a yardstick for later work; the port never calls it)."""
+    """The int8 GEMM cores alone at the W8A8 path's three GEMM shapes (batch
+    100): the TMA + ``wgmma`` core of the bf16 K16 (B read K-major, from
+    the copy K16's transpose kernel makes) beside the WMMA core of K15, K17,
+    K18a/b and K19, each exact against the float64 reference, timed beside
+    ``torch._int_mm`` (a yardstick; the port never calls it), whose int32
+    sums dequantized the reference's way must equal them too."""
     from vit_tpu_torch.ops import quant
     from vit_tpu_torch.ops.kernels.ln_qkv_attn_q8 import gemm_q8_dequant
+    from vit_tpu_torch.ops.kernels.out_ln_mlp_residual_q8 import gemm_q8_mma_dequant, kmajor_q8
 
     d, f, rows = B16["d"], B16["f"], 100 * B16["t"]
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1674,16 +1719,33 @@ def phase_int8_gemm(dev: torch.device, card: str) -> None:
         a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
         b = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
         sa, sb = torch.rand(m, generator=gen, device=dev) + 0.1, torch.rand(n, generator=gen, device=dev) + 0.1
-        if not torch.equal(gemm_q8_dequant(a, sa, b, sb), quant.int8_matmul_reference(a, sa, b, sb)):
-            raise RuntimeError(f"int8 GEMM core {what} ({m} x {k} x {n}) is not exact")
+        bt = kmajor_q8(b)
+        want = quant.int8_matmul_reference(a, sa, b, sb)
+        for core, got in (("WMMA", gemm_q8_dequant(a, sa, b, sb)),
+                          ("TMA + wgmma", gemm_q8_mma_dequant(a, sa, bt, sb))):
+            if not torch.equal(got, want):
+                raise RuntimeError(f"int8 GEMM core ({core}) {what} ({m} x {k} x {n}) is not exact")
+        del got, want
+        ops = 2 * m * k * n
         ms = cuda_ms(lambda: gemm_q8_dequant(a, sa, b, sb))
+        ms_mma = cuda_ms(lambda: gemm_q8_mma_dequant(a, sa, bt, sb))
+        ms_tr = cuda_ms(lambda: kmajor_q8(b))
         try:  # a private torch function: its absence or refusal fails nothing here
+            sums = torch._int_mm(a, b)
             lib = cuda_ms(lambda: torch._int_mm(a, b))
-            yardstick = f"{lib:.6g} ms ({2 * m * k * n / lib / 1e9:.6g} TOP/s)"
         except (AttributeError, RuntimeError) as e:
             yardstick = f"unavailable ({type(e).__name__})"
-        log(f"int8 GEMM core {what} {m} x {k} x {n}: exact; {ms:.6g} ms "
-            f"({2 * m * k * n / ms / 1e9:.6g} TOP/s), torch._int_mm {yardstick}; {card}")
+        else:
+            if not torch.equal((sums.float() * sa[:, None]) * sb[None, :],
+                               gemm_q8_mma_dequant(a, sa, bt, sb)):
+                raise RuntimeError(f"int8 GEMM core {what}: differs from torch._int_mm's sums")
+            yardstick = f"{lib:.6g} ms ({ops / lib / 1e9:.6g} TOP/s), the same bits"
+            del sums
+        bound_ms, _ = bound(0, _nbytes((a, b, sa, sb)) + 4 * m * n, torch.bfloat16, ops)
+        log(f"int8 GEMM core {what} {m} x {k} x {n}: exact; TMA + wgmma {ms_mma:.6g} ms "
+            f"({ops / ms_mma / 1e9:.6g} TOP/s, {bound_ms / ms_mma:.1%} of bound; K-major copy "
+            f"of B {ms_tr:.6g} ms), WMMA {ms:.6g} ms ({ops / ms / 1e9:.6g} TOP/s), "
+            f"torch._int_mm {yardstick}; {card}")
 
 
 def _quant_twin_ops():
@@ -2817,6 +2879,7 @@ def group_quant(dev, card, summary, launches) -> None:
     from vit_tpu_torch.ops.kernels import _build
 
     summary.update(phase_quant_kernels(quant_kernel_cases(dev)))
+    phase_k16_split(dev, card)
     phase_int8_gemm(dev, card)
     torch.cuda.empty_cache()
     params = synth_params(VIT_B_16, 0)
@@ -2881,6 +2944,7 @@ def group_per_op(dev, card, summary, launches) -> None:
     cases, labels = per_op_kernel_cases(dev)
     summary.update(phase_kernels(cases, labels, 100))
     del cases
+    phase_k22_split(dev, card)
     torch.cuda.empty_cache()
     params = synth_params(VIT_B_16, 0)
     per_op = tuple(PER_OP_KERNELS)

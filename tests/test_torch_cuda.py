@@ -1105,6 +1105,52 @@ def test_gemm_q8_core_is_exact(dev, m, k, n):
     assert torch.equal(got, k15.gemm_q8_dequant(a, sa, b, sb))
 
 
+def _int_mm_dequant(a, sa, b, sb):
+    """torch._int_mm's int32 sums dequantized as the reference does: a
+    yardstick the port never calls."""
+    return torch._int_mm(a, b).float() * sa[:, None] * sb[None, :]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(5, 64, 48), (591, 768, 2304), (300, 3072, 768),
+                                   (129, 144, 272), (19700, 768, 2304), (19700, 768, 3072),
+                                   (19700, 3072, 768), (127, 3072, 3072)])
+def test_gemm_q8_mma_core_is_exact(dev, m, k, n):
+    # the int8 TMA + wgmma core (B read K-major) against the float64
+    # reference, gemm_q8.cuh's WMMA core and torch._int_mm, bit for bit: the
+    # B/16 shapes at batch 100 (QKV, FC1, FC2), ragged M, K = 3,072 with
+    # +-127 operands (sums past 2^24), N and K tails inside a tile
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    a[0], b[:, 0] = 127, 127
+    a[-1], b[:, -1] = -127, 127
+    sa, sb = _rn(dev, 1, m).abs() + 0.1, _rn(dev, 2, n).abs() + 0.1
+    bt = k16.kmajor_q8(b)
+    assert torch.equal(bt, b.t().contiguous())
+    got = k16.gemm_q8_mma_dequant(a, sa, bt, sb)
+    assert torch.equal(got, quant.int8_matmul_reference(a, sa, b, sb))
+    assert torch.equal(got, k15.gemm_q8_dequant(a, sa, b, sb))
+    if m > 16:  # torch._int_mm takes more than 16 rows
+        assert torch.equal(got, _int_mm_dequant(a, sa, b, sb))
+    assert torch.equal(got, k16.gemm_q8_mma_dequant(a, sa, bt, sb))
+
+
+@pytest.mark.cuda
+def test_gemm_q8_mma_core_refuses_what_it_does_not_take(dev):
+    a = torch.zeros(20, 64, dtype=torch.int8, device=dev)
+    s = torch.ones(20, device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        k16.gemm_q8_mma_dequant(a[:, :56].contiguous(), s, torch.zeros(32, 56, dtype=torch.int8,
+                                                                       device=dev), s[:16])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        k16.kmajor_q8(torch.zeros(64, 40, dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        off = torch.zeros(20 * 64 + 1, dtype=torch.int8, device=dev)[1:].view(20, 64)
+        k16.gemm_q8_mma_dequant(off, s, torch.zeros(32, 64, dtype=torch.int8, device=dev),
+                                s[:16].repeat(2))
+
+
 def _k15_args(dev, dtype, b, t, d, h):
     return (_rn(dev, 0, b * t, d, scale=2.0, dtype=dtype),
             _rn(dev, 1, d, scale=0.2, shift=1.0, dtype=dtype), _rn(dev, 2, d, scale=0.2, dtype=dtype),
@@ -1148,6 +1194,52 @@ def test_out_ln_mlp_residual_q8(dev, dtype, variant, rows, d, f):
     quant_stages.check_out_ln_mlp_residual_q8(st, k16.out_ln_mlp_residual_q8_plain(*args), *args)
     again = k16._out_ln_mlp_residual_q8_stages(*args)
     assert all(torch.equal(st[k], again[k]) for k in st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "tanh"])
+@pytest.mark.parametrize("rows,d,f", [(1, 768, 3072), (127, 768, 3072), (129, 768, 3072),
+                                      (591, 768, 3072), (19700, 768, 3072), (37, 1280, 5120),
+                                      (37, 2304, 9216)],
+                         ids=["rows1", "rows127", "rows129", "rows591", "rows19700", "h14",
+                              "wide"])
+def test_out_ln_mlp_residual_q8_mma_stages(dev, variant, rows, d, f):
+    # the bf16 K16 on the two TMA + wgmma cores, stage by stage (x1; hq/hs
+    # by the quantizer rule; mid on the kernel's own hq; mq/ms bit for bit
+    # on its own mid; out on its own mq): at B/16 widths one row, ragged
+    # rows, batch 3 and batch 100; at H/14's widths (the row passes' wider
+    # register tiles) and past them (their two-read fallbacks); the K-major
+    # weight copies are the transposes; two runs give the same bits
+    res, *mlp = _mlp_q8_args(dev, torch.bfloat16, rows, d, f, variant)
+    args = (_rn(dev, 0, rows, d, dtype=torch.bfloat16), res,
+            _rn(dev, 2, d, d, scale=d ** -0.5, dtype=torch.bfloat16),
+            _rn(dev, 3, d, scale=0.1, dtype=torch.bfloat16), *mlp)
+    st = k16._out_ln_mlp_residual_q8_stages(*args)
+    quant_stages.check_out_ln_mlp_residual_q8(st, k16.out_ln_mlp_residual_q8_plain(*args), *args)
+    w1q, w2q = args[6], args[9]
+    assert torch.equal(st["w1t"], w1q.t().contiguous())
+    assert torch.equal(st["w2t"], w2q.t().contiguous())
+    again = k16._out_ln_mlp_residual_q8_stages(*args)
+    assert all(torch.equal(st[k], again[k]) for k in st)
+
+
+@pytest.mark.cuda
+def test_out_ln_mlp_residual_q8_refuses_unaligned_operands(dev):
+    # bf16 K16 reads ctx and W_o through the bf16 core's tensor maps: an
+    # operand off the 16-byte grid, or a width not a multiple of 8, raises
+    # before any launch; the int8 weights keep the rule of 16
+    bf = torch.bfloat16
+    res, *mlp = _mlp_q8_args(dev, bf, 10, 64, 256, "exact")
+    args = (_rn(dev, 0, 10, 64, dtype=bf), res, _rn(dev, 2, 64, 64, scale=0.125, dtype=bf),
+            _rn(dev, 3, 64, scale=0.1, dtype=bf), *mlp)
+    k16.out_ln_mlp_residual_q8(*args)
+    for i, name in ((0, "ctx"), (2, "wo")):
+        bad = (*args[:i], _off_grid(args[i]), *args[i + 1:])
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            k16.out_ln_mlp_residual_q8(*bad)
+    narrow = (args[0][:, :60].contiguous(), args[1], args[2][:60].contiguous(), *args[3:])
+    with pytest.raises(ValueError, match="ctx is 60 elements wide"):
+        k16.out_ln_mlp_residual_q8(*narrow)
 
 
 @pytest.mark.cuda
@@ -1579,6 +1671,52 @@ def test_mlp(dev, dtype, variant, shape, f):
     k22.mlp.launches = 0
     _check(k22.mlp(*args, gelu_variant=variant), k22.mlp_plain(*args, gelu_variant=variant))
     assert k22.mlp.launches == 1
+
+
+def _off_grid(t):
+    """The same values, contiguous, one element past the 16-byte grid."""
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)[1:]
+    return flat.copy_(t.reshape(-1)).view(t.shape)
+
+
+def _k22_args(dev, dtype, shape, f):
+    d = shape[-1]
+    return (_rn(dev, 0, *shape, scale=2.0, dtype=dtype),
+            _rn(dev, 1, d, f, scale=d ** -0.5, dtype=dtype), _rn(dev, 2, f, scale=0.1, dtype=dtype),
+            _rn(dev, 3, f, d, scale=f ** -0.5, dtype=dtype), _rn(dev, 4, d, scale=0.1, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "tanh"])
+@pytest.mark.parametrize("rows", [1, 127, 128, 129, 591, 19700], ids=lambda r: f"rows{r}")
+def test_mlp_mma_rows(dev, variant, rows):
+    # the bf16 K22 on the TMA + wgmma core at B/16 widths: one row, a row
+    # short of and past a 128-row tile, batch 3 and batch 100 (the per-op
+    # forward's 19,700 rows); two runs give the same bits
+    from vit_tpu_torch.ops.kernels import mlp as k22
+
+    args = _k22_args(dev, torch.bfloat16, (rows, 768), 3072)
+    got = k22.mlp(*args, gelu_variant=variant)
+    _check(got, k22.mlp_plain(*args, gelu_variant=variant))
+    assert torch.equal(got, k22.mlp(*args, gelu_variant=variant))
+
+
+@pytest.mark.cuda
+def test_mlp_refuses_unaligned_operands(dev):
+    # bf16 K22 reads x, w1 and w2 through TMA tensor maps: an operand off
+    # the 16-byte grid, or D or F not a multiple of 8, raises before any
+    # launch (no fallback to the FMA core, the twin or the CPU)
+    from vit_tpu_torch.ops.kernels import mlp as k22
+
+    args = _k22_args(dev, torch.bfloat16, (10, 64), 256)
+    k22.mlp(*args)
+    for i, name in ((0, "x"), (1, "w1"), (3, "w2")):
+        bad = (*args[:i], _off_grid(args[i]), *args[i + 1:])
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            k22.mlp(*bad)
+    for d, f in ((60, 256), (64, 252)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            k22.mlp(*_k22_args(dev, torch.bfloat16, (10, d), f))
 
 
 def _adamw_leaves(dev, p_dtype, g_dtype, seed):

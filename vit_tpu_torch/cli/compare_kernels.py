@@ -13,7 +13,8 @@ checkout has them (dropout and drop-path 0.1), K8 at @512 batch 16 (16,400
 rows, the long train step's) and K12b at batch 64 T 171 (the regularized
 ToMe step's first merged layer, dropout and drop-path 0.1) where it has
 those, the W8A8 K15, K16 and K17 at
-batch 100 where it has those, K21 (the per-op attention) at batch 100 T 197,
+batch 100 where it has those, K21 and K22 (the per-op attention and MLP) at
+batch 100 T 197,
 and K14 and K13 (the flash-attention backward and forward) at @512 batch 16
 (T 1,025), on strided views of a packed QKV as their paths give them, K13
 beside ``F.scaled_dot_product_attention``'s forward, and K20 (the fused
@@ -161,6 +162,11 @@ if k21 is not None:
     q, kk, v = packed_views(rn(b * t, 3 * d), b, t, h, 3)
     o = packed_views(torch.empty(b * t, d, dtype=torch.bfloat16, device=dev), b, t, h, 1)[0]
     times["K21"] = ms(lambda: k21(q, kk, v, out=o))
+    del q, kk, v, o
+k22 = k("mlp")
+if k22 is not None:  # the per-op MLP on the LN2 output, (batch, T, D)
+    x = rn(100, t, d, scale=2.0)
+    times["K22"] = ms(lambda: k22(x, w1, b1, w2, b2))
 if k14 is not None:
     b, t = 16, 1025
     qkv, g = rn(b * t, 3 * d), rn(b * t, d)

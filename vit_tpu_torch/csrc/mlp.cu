@@ -6,17 +6,19 @@
 // never writes the (rows, F) hidden activation.  Bound on the H100 by
 // tensor-core work (B/16 @224 batch 100: 19,700 x 768 x 3,072 twice, 186
 // GFLOP); a Hopper block has 227 KB of shared memory, so this is K5's MLP
-// without its LayerNorm and residual: two tiled GEMMs (gemm.cuh) over a
-// (rows, F) scratch `g` in device memory (121 MB at batch 100 bf16), which
-// the TPU kept in VMEM:
+// without its LayerNorm and residual: two tiled GEMMs over a (rows, F)
+// scratch `g` in device memory (121 MB at batch 100 bf16), which the TPU
+// kept in VMEM:
 //   1. g = round(GELU(x @ W1 + b1)): bias and GELU in fp32 in the epilogue
 //      (A-S erf in fp32, tanh-form erf in bf16; or the tanh variant)
 //   2. out = round(g @ W2 + b2)
-// bf16 runs on the tensor cores (WMMA, fp32 accumulators); fp32 runs plain
-// fp32 FMA, never TF32.
+// bf16 (the per-op tier's dtype on the card) runs both GEMMs on
+// gemm_mma.cuh's TMA + wgmma core, K5's bf16 chain without its LN2 row pass
+// and its residual; fp32 keeps gemm.cuh's FMA core, never TF32.
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm.cuh"
+#include "gemm_mma.cuh"
 
 namespace vt {
 
@@ -29,6 +31,14 @@ cudaError_t mlp(const T* x, const T* w1, const T* b1, const T* w2, const T* b2, 
                         stream);
 }
 
+// bf16 on the tensor-core core
+cudaError_t mlp_mma(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2,
+                    bf16* g, bf16* out, int rows, int d, int f, int variant, cudaStream_t stream) {
+  if (rows <= 0) return cudaSuccess;
+  VT_TRY(launch_gemm_mma(x, d, w1, f, rows, f, d, BiasGeluEpi<bf16>{b1, g, f, variant}, stream));
+  return launch_gemm_mma(g, f, w2, d, rows, d, f, BiasEpi<bf16, bf16>{b2, out, d}, stream);
+}
+
 }  // namespace vt
 
 extern "C" int vt_mlp(const void* x, const void* w1, const void* b1, const void* w2,
@@ -37,11 +47,15 @@ extern "C" int vt_mlp(const void* x, const void* w1, const void* b1, const void*
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-#define VT_K22(T)                                                                          \
-  vt::mlp<T>((const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)g, \
-             (T*)out, rows, d, f, gelu_variant, s)
-  if (dtype == vt::kFloat32) return (int)VT_K22(float);
-  if (dtype == vt::kBFloat16) return (int)VT_K22(vt::bf16);
-#undef VT_K22
+  if (dtype == vt::kFloat32) {
+    typedef float T;
+    return (int)vt::mlp<T>((const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
+                           (T*)g, (T*)out, rows, d, f, gelu_variant, s);
+  }
+  if (dtype == vt::kBFloat16) {
+    typedef vt::bf16 T;
+    return (int)vt::mlp_mma((const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
+                            (T*)g, (T*)out, rows, d, f, gelu_variant, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -108,10 +108,14 @@ SIGNATURES = {
     # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, ctx, log_size, kmean,
     # batch, seq, d, heads, head_dim, eps, dtype, device, stream
     "vt_ln_qkv_attn_q8": [_P] * 12 + [_I] * 5 + [_F, _I, _I, _P],
-    # ctx, res, wo, bo, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, x1, hq,
-    # hs, mid, mq, ms, out, rows, d_ctx, d, f, eps, gelu_variant, dtype,
-    # device, stream
-    "vt_out_ln_mlp_residual_q8": [_P] * 19 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # ctx, res, wo, bo, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, w1t,
+    # w2t, x1, hq, hs, mid, mq, ms, out, rows, d_ctx, d, f, eps, gelu_variant,
+    # dtype, device, stream
+    "vt_out_ln_mlp_residual_q8": [_P] * 21 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # a, sa, bt, sb, out, m, n, k, device, stream
+    "vt_gemm_q8_mma_dequant": [_P] * 5 + [_I] * 4 + [_P],
+    # src, dst, rows, cols, device, stream
+    "vt_transpose_q8": [_P] * 2 + [_I] * 3 + [_P],
     # x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, hq, hs, mid, mq, ms,
     # out, rows, d, f, eps, gelu_variant, dtype, device, stream
     "vt_ln_mlp_residual_q8": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _I, _P],
@@ -285,6 +289,15 @@ def check_q8_operands(kernel: str, x: torch.Tensor, like_x=(), int8=(), scales=(
             raise TypeError(f"{kernel}: expected a {dtype} operand, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: operands must be contiguous")
+    check_q8_matrices(kernel, *int8)
+
+
+def check_q8_matrices(kernel: str, *int8: torch.Tensor) -> None:
+    """Each int8 matrix two-dimensional, both of its dimensions multiples of
+    16 and its memory 16-byte aligned: the int8 cores' tiles fill with
+    16-byte loads (``csrc/gemm_q8.cuh``) or TMA boxes over 16-byte row
+    pitches (``csrc/gemm_mma_q8.cuh``).  Anything else raises
+    ``ValueError``."""
     for t in int8:
         if t.dim() != 2 or t.shape[0] % Q8_VEC or t.shape[1] % Q8_VEC or t.data_ptr() % Q8_VEC:
             raise ValueError(
@@ -304,8 +317,8 @@ def check_aligned(kernel: str, **views: torch.Tensor) -> None:
     (a (batch, head, token, dh) view's batch, head and token strides) are
     multiples of 16 bytes: K21, K13, K14 and K6's attention read and write
     16 bytes per lane, and the TMA tensor maps of the bf16 GEMM core (K1,
-    K2, K5, K6, K7, K8, K11, K12a, K12b) take such bases and row pitches
-    only.
+    K2, K5, K6, K7, K8, K11, K12a, K12b, K22 and K16's out_proj) take such
+    bases and row pitches only.
     Axes of length 1 are never stepped, so their strides do not count.
     Anything else raises ``ValueError`` naming the operand."""
     for name, t in views.items():
@@ -321,7 +334,7 @@ def check_aligned(kernel: str, **views: torch.Tensor) -> None:
 
 
 # bf16 elements per 16-byte row step of the TMA + wgmma GEMM core of K1, K2,
-# K5, K6, K7, K8, K11, K12a and K12b (csrc/gemm_mma.cuh)
+# K5, K6, K7, K8, K11, K12a, K12b, K22 and K16's out_proj (csrc/gemm_mma.cuh)
 TILE_VEC = 8
 
 

@@ -9,12 +9,14 @@ What bounds it on the H100: tensor-core work (B/16 @224 batch 100: two
 19,700 x 768 x 3,072 GEMMs, 186 GFLOP).  The TPU kernel keeps W1 and W2
 resident in VMEM and never writes the hidden activation; a Hopper block
 has 227 KB of shared memory, so the design is K5's MLP without its LN2 and
-residual — two tiled GEMMs (``csrc/gemm.cuh``) over a (rows, F) scratch
-``g`` in device memory (121 MB at batch 100 bf16): x @ W1 into an epilogue
-that adds b1 and takes GELU in fp32 and rounds g to x's dtype, then g @ W2
-into one that adds b2 and rounds.  GELU: the A-S erf in fp32, the
-tanh-form erf in bf16 (``fused_block.use_fast_erf``), or the tanh variant;
-fp32 GEMMs never use TF32.
+residual — two GEMMs over a (rows, F) scratch ``g`` in device memory (121
+MB at batch 100 bf16): x @ W1 into an epilogue that adds b1 and takes GELU
+in fp32 and rounds g to x's dtype, then g @ W2 into one that adds b2 and
+rounds.  bf16 runs both on the TMA + ``wgmma`` core (``csrc/gemm_mma.cuh``),
+so x, W1 and W2 must lie on the 16-byte grid with D and F multiples of 8
+elements (``check_tile_operands``); fp32 keeps the FMA core
+(``csrc/gemm.cuh``), never TF32.  GELU: the A-S erf in fp32, the tanh-form
+erf in bf16 (``fused_block.use_fast_erf``), or the tanh variant.
 """
 
 from __future__ import annotations
@@ -33,6 +35,14 @@ def mlp_plain(x, w1, b1, w2, b2, gelu_variant: str = "exact") -> torch.Tensor:
     u = x.float() @ w1.float() + b1.float()
     g = _gelu(u, gelu_variant, fast_erf=use_fast_erf(dtype)).to(dtype)
     return (g.float() @ w2.float() + b2.float()).to(dtype)
+
+
+def check_tile_operands(x, w1, b1, w2, *_, **__) -> None:
+    """bf16: the operands the GEMM core reads through TMA tensor maps — x
+    (as (rows, D)) and the two weights, whose widths D and F also set the g
+    scratch's and the output's pitches — on the 16-byte grid; the wrapper's
+    arguments, raises ``ValueError`` otherwise."""
+    _build.check_tiles("mlp", x=x.reshape(-1, x.shape[-1]), w1=w1, w2=w2)
 
 
 def mlp(x, w1, b1, w2, b2, gelu_variant: str = "exact", inner_dropout=None) -> torch.Tensor:
@@ -58,6 +68,8 @@ def mlp(x, w1, b1, w2, b2, gelu_variant: str = "exact", inner_dropout=None) -> t
     _build.check_shape(name, "b2", b2, (d,))
     if x.shape[-1] != d:
         raise ValueError(f"{name}: x has {x.shape[-1]} features, W1 takes {d}")
+    if x.dtype == torch.bfloat16:
+        check_tile_operands(x, w1, b1, w2)
     rows = x.numel() // d
     dev = x.device
     g = torch.empty(rows, f, dtype=x.dtype, device=dev)
