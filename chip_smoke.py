@@ -102,10 +102,11 @@ Phases (a failed phase raises; nothing is caught):
      within 2^-20; bit for bit where the input is the fp32 ``mid`` scratch;
      (b) every other stage against the twin's stage run on the kernel's own
      codes and scales, at the tolerance above; and the output against the
-     whole twin's within 2^-6 (a few moved codes).  The bf16 K16 split by
-     CUDA kernel at batch 100.  The two int8 GEMM cores alone (the TMA +
-     ``wgmma`` core of the bf16 K16, the WMMA core of the others), each
-     exact, timed at the three GEMM shapes beside ``torch._int_mm``;
+     whole twin's within 2^-6 (a few moved codes).  The bf16 K15, K16 and
+     K17 split by CUDA kernel at batch 100.  The two int8 GEMM cores alone
+     (the TMA + ``wgmma`` core of the bf16 K15-K17, the WMMA core of the
+     others), each exact, timed at the three GEMM shapes beside
+     ``torch._int_mm``;
  21. the classify CLI with ``--ops quant`` (otherwise as in 4), counts set to
      0 just before and read just after (12 K15, 12 K16, 1 K3; none of K1,
      K2, K13, K17);
@@ -807,24 +808,29 @@ def _kernel_split(fn, label: str, card: str, calls: int = 10) -> None:
     per call are its launches in the trace over ``calls``, rounded up, and
     its time per call its mean per launch times that: a trace that lost
     some of a kernel's records (it then says how many it holds) still gives
-    its time per call."""
+    its time per call, and one that holds no device record at all is taken
+    again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    order, by_name = [], {}
-    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and not getattr(e, "is_user_annotation", False)),
-                    key=lambda e: e.time_range.start):
-        if e.name not in by_name:
-            order.append(e.name)
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        order, by_name = [], {}
+        for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)),
+                        key=lambda e: e.time_range.start):
+            if e.name not in by_name:
+                order.append(e.name)
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        if by_name:
+            break
+        log(f"{label}: trace {attempt} holds no device kernel record")
     per_call = {name: (ms / n * -(-n // calls), -(-n // calls), n)
                 for name, (ms, n) in by_name.items()}
     total = sum(ms for ms, _, _ in per_call.values())
@@ -874,6 +880,40 @@ def phase_k16_split(dev: torch.device, card: str) -> None:
             *quant.quantize_weight(rn(f, d, scale=f ** -0.5)), rn(d, scale=0.1, dtype=bf), 1e-6)
     _kernel_split(lambda: k16.out_ln_mlp_residual_q8(*args),
                   f"K16 out_ln_mlp_residual_q8 bfloat16 batch 100 (rows {rows}) by kernel", card)
+
+
+def phase_k15_split(dev: torch.device, card: str) -> None:
+    """Phase 20's split of the bf16 K15 by CUDA kernel at B/16 batch 100:
+    the K-major copy of Wq, LN1 + quantize, the QKV GEMM on the int8 core,
+    attention on K1's register tiles."""
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_q8 as k15
+
+    d, h, t, bf = B16["d"], B16["heads"], B16["t"], torch.bfloat16
+    rows = 100 * t
+    rn = _rand(dev, 15)
+    args = (rn(rows, d, scale=2.0, dtype=bf), rn(d, scale=0.2, shift=1.0, dtype=bf),
+            rn(d, scale=0.2, dtype=bf), *quant.quantize_weight(rn(d, 3 * d, scale=d ** -0.5)),
+            rn(3 * d, scale=0.1, dtype=bf), h, t, 1e-6)
+    _kernel_split(lambda: k15.ln_qkv_attn_q8(*args),
+                  f"K15 ln_qkv_attn_q8 bfloat16 batch 100 (rows {rows}) by kernel", card)
+
+
+def phase_k17_split(dev: torch.device, card: str) -> None:
+    """Phase 20's split of the bf16 K17 by CUDA kernel at B/16 batch 100:
+    the two K-major weight copies, LN2 + quantize, FC1 on the int8 core, the
+    mid quantizer, FC2."""
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_q8 as k17
+
+    d, f, rows, bf = B16["d"], B16["f"], 100 * B16["t"], torch.bfloat16
+    rn = _rand(dev, 17)
+    args = (rn(rows, d, scale=2.0, dtype=bf), rn(d, scale=0.2, shift=1.0, dtype=bf),
+            rn(d, scale=0.2, dtype=bf), *quant.quantize_weight(rn(d, f, scale=d ** -0.5)),
+            rn(f, scale=0.1, dtype=bf), *quant.quantize_weight(rn(f, d, scale=f ** -0.5)),
+            rn(d, scale=0.1, dtype=bf), 1e-6)
+    _kernel_split(lambda: k17.ln_mlp_residual_q8(*args),
+                  f"K17 ln_mlp_residual_q8 bfloat16 batch 100 (rows {rows}) by kernel", card)
 
 
 def phase_k22_split(dev: torch.device, card: str) -> None:
@@ -1704,14 +1744,16 @@ def phase_wgrad_splits(dev: torch.device, card: str) -> None:
 
 def phase_int8_gemm(dev: torch.device, card: str) -> None:
     """The int8 GEMM cores alone at the W8A8 path's three GEMM shapes (batch
-    100): the TMA + ``wgmma`` core of the bf16 K16 (B read K-major, from
-    the copy K16's transpose kernel makes) beside the WMMA core of K15, K17,
-    K18a/b and K19, each exact against the float64 reference, timed beside
-    ``torch._int_mm`` (a yardstick; the port never calls it), whose int32
-    sums dequantized the reference's way must equal them too."""
+    100): the TMA + ``wgmma`` core of the bf16 K15-K17 (B read K-major,
+    from the copy their transpose kernel makes) beside the WMMA core of
+    K18a/b, K19 and the fp32 K15-K17, each exact against the float64
+    reference, timed beside ``torch._int_mm`` (a yardstick; the port never
+    calls it), whose int32 sums dequantized the reference's way must equal
+    them too."""
     from vit_tpu_torch.ops import quant
     from vit_tpu_torch.ops.kernels.ln_qkv_attn_q8 import gemm_q8_dequant
-    from vit_tpu_torch.ops.kernels.out_ln_mlp_residual_q8 import gemm_q8_mma_dequant, kmajor_q8
+    from vit_tpu_torch.ops.kernels.kmajor_q8 import kmajor_q8
+    from vit_tpu_torch.ops.kernels.out_ln_mlp_residual_q8 import gemm_q8_mma_dequant
 
     d, f, rows = B16["d"], B16["f"], 100 * B16["t"]
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -2879,7 +2921,9 @@ def group_quant(dev, card, summary, launches) -> None:
     from vit_tpu_torch.ops.kernels import _build
 
     summary.update(phase_quant_kernels(quant_kernel_cases(dev)))
+    phase_k15_split(dev, card)
     phase_k16_split(dev, card)
+    phase_k17_split(dev, card)
     phase_int8_gemm(dev, card)
     torch.cuda.empty_cache()
     params = synth_params(VIT_B_16, 0)

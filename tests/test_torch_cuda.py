@@ -66,8 +66,10 @@ from vit_tpu_torch.ops.kernels.out_residual_bwd import out_residual_bwd, out_res
 from vit_tpu_torch.eval import quant_stages
 from vit_tpu_torch.ops import quant
 from vit_tpu_torch.ops.kernels import ln_mlp_residual_q8 as k17
+from vit_tpu_torch.ops.kernels.ln_fc1_gelu_q8 import _ln_fc1_gelu_q8_stages
 from vit_tpu_torch.ops.kernels import ln_qkv_attn_q8 as k15
 from vit_tpu_torch.ops.kernels import out_ln_mlp_residual_q8 as k16
+from vit_tpu_torch.ops.kernels.kmajor_q8 import kmajor_q8
 
 REL_TOL = {torch.float32: 2.0 ** -16, torch.bfloat16: 2.0 ** -6}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -1126,7 +1128,7 @@ def test_gemm_q8_mma_core_is_exact(dev, m, k, n):
     a[0], b[:, 0] = 127, 127
     a[-1], b[:, -1] = -127, 127
     sa, sb = _rn(dev, 1, m).abs() + 0.1, _rn(dev, 2, n).abs() + 0.1
-    bt = k16.kmajor_q8(b)
+    bt = kmajor_q8(b)
     assert torch.equal(bt, b.t().contiguous())
     got = k16.gemm_q8_mma_dequant(a, sa, bt, sb)
     assert torch.equal(got, quant.int8_matmul_reference(a, sa, b, sb))
@@ -1144,7 +1146,7 @@ def test_gemm_q8_mma_core_refuses_what_it_does_not_take(dev):
         k16.gemm_q8_mma_dequant(a[:, :56].contiguous(), s, torch.zeros(32, 56, dtype=torch.int8,
                                                                        device=dev), s[:16])
     with pytest.raises(ValueError, match="multiples of 16"):
-        k16.kmajor_q8(torch.zeros(64, 40, dtype=torch.int8, device=dev))
+        kmajor_q8(torch.zeros(64, 40, dtype=torch.int8, device=dev))
     with pytest.raises(ValueError, match="16-byte aligned"):
         off = torch.zeros(20 * 64 + 1, dtype=torch.int8, device=dev)[1:].view(20, 64)
         k16.gemm_q8_mma_dequant(off, s, torch.zeros(32, 64, dtype=torch.int8, device=dev),
@@ -1240,6 +1242,105 @@ def test_out_ln_mlp_residual_q8_refuses_unaligned_operands(dev):
     narrow = (args[0][:, :60].contiguous(), args[1], args[2][:60].contiguous(), *args[3:])
     with pytest.raises(ValueError, match="ctx is 60 elements wide"):
         k16.out_ln_mlp_residual_q8(*narrow)
+
+
+# (batch, T, D, heads) of the bf16 K15: one row, ragged rows, batch 3 and
+# batch 100 at B/16's T 197, then every head width (16, 32, 80, 128)
+K15_MMA_CASES = {"rows1": (1, 1, 768, 12), "b1_t197": (1, 197, 768, 12),
+                 "b3_t197": (3, 197, 768, 12), "b100_t197": (100, 197, 768, 12),
+                 "dh16": (3, 197, 768, 48), "dh32": (3, 197, 768, 24),
+                 "h14_t257_dh80": (2, 257, 1280, 16), "dh128": (3, 197, 768, 6)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hooks", ["none", "log_size", "kmean", "both"])
+@pytest.mark.parametrize("case", list(K15_MMA_CASES))
+def test_ln_qkv_attn_q8_mma_stages(dev, case, hooks):
+    # the bf16 K15 (Wq's K-major copy, the row codes, the int8 QKV GEMM on
+    # the TMA + wgmma core, K1's bf16 attention tiles), stage by stage: hq/hs
+    # by the quantizer rule, the packed QKV on the kernel's own codes, the
+    # context on its own packed QKV (with the log-size bias where given),
+    # the k-mean bit for bit the mean key of its own packed QKV; the K-major
+    # copy is the transpose; two runs give the same bits
+    b, t, d, h = K15_MMA_CASES[case]
+    args = _k15_args(dev, torch.bfloat16, b, t, d, h)
+    ls = _log_size(dev, b, t) if hooks in ("log_size", "both") else None
+    kmean = hooks in ("kmean", "both")
+    st = k15._ln_qkv_attn_q8_stages(*args, ls, kmean)
+    assert ("kmean" in st) == kmean
+    report = quant_stages.check_ln_qkv_attn_q8(st, k15.ln_qkv_attn_q8_plain(*args, log_size=ls),
+                                               *args, ls, kmean)
+    assert report.get("kmean", 0.0) == 0.0
+    assert torch.equal(st["wqt"], args[3].t().contiguous())
+    again = k15._ln_qkv_attn_q8_stages(*args, ls, kmean)
+    assert all(torch.equal(st[k], again[k]) for k in st)
+    # stages 1-2 alone, as the long block calls them
+    alone = k15._ln_qkv_q8_stages(*args[:6], 1e-6)
+    assert all(torch.equal(st[k], alone[k]) for k in alone)
+
+
+@pytest.mark.cuda
+def test_ln_qkv_attn_q8_mma_refuses_unaligned_operands(dev):
+    # the bf16 K15 copies Wq with 16-byte loads and reads its codes through
+    # TMA boxes: Wq off the 16-byte grid, or D not a multiple of 16, raises
+    # before any launch
+    args = _k15_args(dev, torch.bfloat16, 2, 5, 64, 4)
+    k15.ln_qkv_attn_q8(*args)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k15.ln_qkv_attn_q8(*args[:3], _off_grid(args[3]), *args[4:])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        k15.ln_qkv_q8(args[0][:, :56].contiguous(), args[1][:56], args[2][:56],
+                      args[3][:56].contiguous(), args[4], args[5], 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "tanh"])
+@pytest.mark.parametrize("rows,d,f", [(1, 768, 3072), (127, 768, 3072), (129, 768, 3072),
+                                      (591, 768, 3072), (19700, 768, 3072), (37, 1280, 5120),
+                                      (37, 2304, 9216)],
+                         ids=["rows1", "rows127", "rows129", "rows591", "rows19700", "h14",
+                              "wide"])
+def test_ln_mlp_residual_q8_mma_stages(dev, variant, rows, d, f):
+    # the bf16 K17 on K16's chain from LN2 on, stage by stage (hq/hs by the
+    # quantizer rule; mid on its own hq; mq/ms bit for bit on its own mid;
+    # out on its own mq): at B/16 widths one row, ragged rows, batch 3 and
+    # batch 100; at H/14's widths and past them (the mid pass's two-read
+    # fallback); the K-major weight copies are the transposes; LN2's codes
+    # are K18a's row pass's bit for bit; two runs give the same bits
+    args = _mlp_q8_args(dev, torch.bfloat16, rows, d, f, variant)
+    st = k17._ln_mlp_residual_q8_stages(*args)
+    quant_stages.check_ln_mlp_residual_q8(st, k17.ln_mlp_residual_q8_plain(*args), *args)
+    w1q, w2q = args[3], args[6]
+    assert torch.equal(st["w1t"], w1q.t().contiguous())
+    assert torch.equal(st["w2t"], w2q.t().contiguous())
+    x, s2, b2n, w1q, w1s, b1 = args[:6]
+    a = _ln_fc1_gelu_q8_stages(x, s2, b2n, w1q, w1s, b1, 1e-6, variant, True)
+    assert torch.equal(st["hq"], a["hq"]) and torch.equal(st["hs"], a["hs"])
+    again = k17._ln_mlp_residual_q8_stages(*args)
+    assert all(torch.equal(st[k], again[k]) for k in st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [591, 19700])
+def test_ln_mlp_residual_q8_mma_is_k16_chain(dev, rows):
+    # the bf16 K17 runs K16's chain from LN2 on: K16 on ctx = 0, W_o = 0,
+    # b_o = 0 and res = x has x1 = x.float(), and wherever the two LN2 row
+    # passes give a row the same codes and scale (K16's sums LN2's
+    # statistics in registers in another order, so a code on a rounding
+    # boundary may move by one: the stage checks' rule), that row's mid,
+    # ms, mq and output are K17's bit for bit
+    bf = torch.bfloat16
+    x, *mlp = _mlp_q8_args(dev, bf, rows, 768, 3072, "exact")
+    zeros = torch.zeros_like(x)
+    st16 = k16._out_ln_mlp_residual_q8_stages(zeros, x, torch.zeros(768, 768, dtype=bf, device=dev),
+                                              torch.zeros(768, dtype=bf, device=dev), *mlp)
+    st17 = k17._ln_mlp_residual_q8_stages(x, *mlp)
+    assert torch.equal(st16["x1"], x.float())
+    same = (st16["hq"] == st17["hq"]).all(-1) & (st16["hs"] == st17["hs"])
+    flipped = (st16["hq"] != st17["hq"]).float().mean().item()
+    assert flipped <= quant_stages.FLIP_SHARE and same.any()
+    for k in ("mid", "ms", "mq", "out"):
+        assert torch.equal(st16[k][same], st17[k][same]), k
 
 
 @pytest.mark.cuda

@@ -33,6 +33,7 @@ from vit_tpu.ops import quant as JQ
 from vit_tpu_torch.config import VIT_B_16
 from vit_tpu_torch.ops import quant as TQ
 from vit_tpu_torch.ops.kernels import mlp as k22
+from vit_tpu_torch.ops.kernels.kmajor_q8 import kmajor_q8
 from vit_tpu_torch.ops.kernels import out_ln_mlp_residual_q8 as k16
 
 DTYPES = [torch.float32, torch.bfloat16]
@@ -262,7 +263,7 @@ def test_kmajor_copies_of_the_jax_leaves(width):
         s_x = (np.abs(rng.normal(size=5)) + 0.1).astype(np.float32)
         for layer in range(2):
             w, s = torch.from_numpy(leaves[layer].copy()), torch.from_numpy(scales[layer].copy())
-            wt = k16.kmajor_q8(w)
+            wt = kmajor_q8(w)
             assert wt.dtype == torch.int8 and wt.is_contiguous()
             np.testing.assert_array_equal(wt.numpy(), leaves[layer].T)
             want = np.asarray(JQ.int8_matmul_reference(

@@ -2,10 +2,12 @@
 // int8 row-major and B given K-major, as bt (N, K) int8 row-major, exact
 // int32 accumulators, and an epilogue functor of gemm_q8.cuh that receives
 // each int32 sum with its (row, col) — where the dequantization runs.  The
-// bf16 K16 (out_ln_mlp_residual_q8.cu) runs its two int8 GEMMs on it; K15,
-// K17, K18a, K18b and K19 keep gemm_q8.cuh (WMMA 16x16x16), and this is a
-// header of its own so that neither gemm_q8.cuh's nor gemm_mma.cuh's
-// kernels compile differently.
+// bf16 K15 (ln_qkv_attn_q8.cu: the QKV GEMM) and the bf16 K16 and K17
+// (out_ln_mlp_residual_q8.cu, ln_mlp_residual_q8.cu: FC1 and FC2, through
+// mlp_q8_mma below) run their int8 GEMMs on it; K18a, K18b, K19 and the fp32
+// K15-K17 keep gemm_q8.cuh (WMMA 16x16x16), and this is a header of its own
+// so that neither gemm_q8.cuh's nor gemm_mma.cuh's kernels compile
+// differently.
 //
 // What bounds an int8 GEMM on the H100: operations (ViT-B/16 @224 batch
 // 100: 19,700 rows against 768 x 3,072 either way, 93 G integer operations
@@ -33,8 +35,8 @@
 //    an FC2 functor reads is prefetched into L2 during the last k-steps.
 // K and N must be multiples of 16 (the tensor maps' 16-byte row pitches);
 // the operands' bases 16-byte aligned (the wrappers check).  Below the
-// core: the weight transpose that makes B's K-major copy, and the bf16
-// K16's two row quantizers.
+// core: the weight transpose that makes B's K-major copy, the bf16 K16's
+// two row quantizers, and the bf16 W8A8 MLP that K16 and K17 share.
 #pragma once
 
 #include "common.cuh"
@@ -375,6 +377,35 @@ inline cudaError_t launch_quant_rows_reg(const float* v, int8_t* q, float* qs, i
   else
     return launch_quant_rows(v, q, qs, rows, n, stream);
   return cudaGetLastError();
+}
+
+// ---- the bf16 W8A8 MLP from LN2 on, over the residual x1 (K16's tail on
+// its fp32 x1, K17 on its bf16 x): W1q and W2q copied K-major into w1t
+// (f, d) and w2t (d, f); LN2's codes hq, hs of x1; mid = GELU((hq @ W1q) hs
+// w1s + b1) in fp32; mid's codes mq, ms (one read of mid); out = (mq @ W2q)
+// ms w2s + b2 + x1, rounded to bf16.  LN2's pass: fp32 x1 through K16's
+// register pass; bf16 x through quant_rows.cuh's ln_quant_rows_kernel,
+// whose statistics are warp_row_stats' own, so K17's codes stay those of
+// K18a's stage 1 bit for bit (the register pass sums in another order and
+// may move a code by one).  Each instance compiles only its own pass.
+template <typename TRes>
+cudaError_t mlp_q8_mma(const TRes* x1, const bf16* ln_scale, const bf16* ln_bias,
+                       const int8_t* w1q, const float* w1s, const bf16* b1, const int8_t* w2q,
+                       const float* w2s, const bf16* b2, int8_t* w1t, int8_t* w2t, int8_t* hq,
+                       float* hs, float* mid, int8_t* mq, float* ms, bf16* out, int rows, int d,
+                       int f, float eps, int variant, cudaStream_t stream) {
+  if (rows <= 0) return cudaSuccess;
+  VT_TRY(launch_transpose_q8(w1q, w1t, d, f, stream));
+  VT_TRY(launch_transpose_q8(w2q, w2t, f, d, stream));
+  if constexpr (std::is_same<TRes, float>::value)
+    VT_TRY(launch_ln_quant_rows_reg(x1, ln_scale, ln_bias, hq, hs, rows, d, eps, stream));
+  else
+    VT_TRY(launch_ln_quant_rows(x1, ln_scale, ln_bias, hq, hs, rows, d, eps, stream));
+  VT_TRY(launch_gemm_mma_q8(hq, w1t, rows, f, d,
+                            DequantBiasGeluEpi<bf16>{hs, w1s, b1, mid, f, variant}, stream));
+  VT_TRY(launch_quant_rows_reg(mid, mq, ms, rows, f, stream));
+  return launch_gemm_mma_q8(mq, w2t, rows, d, f,
+                            DequantBiasResidualEpi<bf16, TRes>{ms, w2s, b2, x1, out, d}, stream);
 }
 
 }  // namespace vt

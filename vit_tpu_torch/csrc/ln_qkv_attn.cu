@@ -12,7 +12,8 @@
 //      launch_ln_rows: fp32 statistics and affine, one rounding);
 //   2. the packed QKV GEMM on gemm_mma.cuh's pipelined cp.async + wgmma
 //      core, h @ W_qkv + b_qkv rounded to bf16 (BiasEpi);
-//   3. attention on sdpa_mma.cuh's register tiles, K21's body: one block
+//   3. attention on sdpa_mma.cuh's register tiles, K21's body
+//      (qkv_attention_mma.cuh, shared with the bf16 K15): one block
 //      per (image, head, 64-query tile) reading q/k/v in place from the
 //      packed (head, {q,k,v}, dh) columns as strided views, two passes
 //      over 64-key tiles (exact row max and sum, then p rounded before
@@ -31,9 +32,7 @@
 #include "epilogue.cuh"
 #include "gemm.cuh"
 #include "gemm_mma.cuh"
-#include "sdpa_mma.cuh"
-
-#include <algorithm>
+#include "qkv_attention_mma.cuh"
 
 namespace vt {
 
@@ -53,42 +52,6 @@ cudaError_t ln_qkv_attn(const T* x, const T* ln_scale, const T* ln_bias, const T
   return launch_attention_any<T>(qkv, ctx, batch, seq, heads, head_dim, stream, log_size, kmean);
 }
 
-// one block's attention in bf16: query tile blockIdx.x of (image, head) =
-// (blockIdx.z, blockIdx.y), q/k/v read from the packed QKV's columns and
-// the context written into the (B*T, H*dh) rows, both in place
-template <int DH, bool kBias>
-__global__ void __launch_bounds__(kMmaThreads)
-qkv_attention_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx,
-                         const float* __restrict__ log_size, int seq, int heads,
-                         float inv_sqrt_dh) {
-  const long long ld = 3LL * heads * DH, dctx = (long long)heads * DH;
-  const View4 sqkv{seq * ld, 3 * DH, ld}, so{seq * dctx, DH, dctx};
-  sdpa_mma_tile<DH, kBias>(qkv, sqkv, qkv + DH, sqkv, qkv + 2 * DH, sqkv, ctx, so, log_size, seq,
-                           inv_sqrt_dh);
-}
-
-template <int DH, bool kBias>
-cudaError_t launch_qkv_attention_mma(const bf16* qkv, bf16* ctx, const float* log_size,
-                                     int batch, int seq, int heads, cudaStream_t stream) {
-  constexpr size_t smem = mma_tiles_bytes<DH>(5);
-  const float inv_sqrt_dh = (float)(1.0 / sqrt((double)DH));  // as the host computes it
-  VT_TRY(cudaFuncSetAttribute(qkv_attention_mma_kernel<DH, kBias>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  qkv_attention_mma_kernel<DH, kBias><<<dim3(cdiv(seq, kMmaRows), heads, batch), kMmaThreads,
-                                        smem, stream>>>(qkv, ctx, log_size, seq, heads,
-                                                        inv_sqrt_dh);
-  return cudaGetLastError();
-}
-
-template <int DH>
-cudaError_t qkv_attention_mma(const bf16* qkv, bf16* ctx, const float* log_size, int batch,
-                              int seq, int heads, cudaStream_t stream) {
-  return log_size ? launch_qkv_attention_mma<DH, true>(qkv, ctx, log_size, batch, seq, heads,
-                                                       stream)
-                  : launch_qkv_attention_mma<DH, false>(qkv, ctx, nullptr, batch, seq, heads,
-                                                        stream);
-}
-
 // bf16: h = LN1(x) (rows, d), the packed QKV on the tensor-core core, then
 // attention on the register tiles
 cudaError_t ln_qkv_attn_mma(const bf16* x, const bf16* ln_scale, const bf16* ln_bias,
@@ -100,20 +63,7 @@ cudaError_t ln_qkv_attn_mma(const bf16* x, const bf16* ln_scale, const bf16* ln_
   VT_TRY(launch_ln_rows(x, ln_scale, ln_bias, h, rows, d, eps, stream));
   VT_TRY(launch_gemm_mma(h, d, wqkv, d3, rows, d3, d, BiasEpi<bf16, bf16>{bqkv, qkv, d3},
                          stream));
-  switch (head_dim) {
-    case 16: VT_TRY(qkv_attention_mma<16>(qkv, ctx, log_size, batch, seq, heads, stream)); break;
-    case 32: VT_TRY(qkv_attention_mma<32>(qkv, ctx, log_size, batch, seq, heads, stream)); break;
-    case 64: VT_TRY(qkv_attention_mma<64>(qkv, ctx, log_size, batch, seq, heads, stream)); break;
-    case 80: VT_TRY(qkv_attention_mma<80>(qkv, ctx, log_size, batch, seq, heads, stream)); break;
-    case 128: VT_TRY(qkv_attention_mma<128>(qkv, ctx, log_size, batch, seq, heads, stream)); break;
-    default: return cudaErrorInvalidValue;
-  }
-  if (!kmean) return cudaSuccess;
-  const size_t n = (size_t)rows * head_dim;
-  const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
-  kmean_kernel<bf16><<<blocks, 256, 0, stream>>>(qkv, kmean, rows, heads, head_dim,
-                                                 (float)(1.0 / heads));
-  return cudaGetLastError();
+  return qkv_attention_mma_any(qkv, ctx, log_size, kmean, batch, seq, heads, head_dim, stream);
 }
 
 }  // namespace vt

@@ -1,6 +1,7 @@
-// The W8A8 MLP shared by K16 (out_ln_mlp_residual_q8, after its out_proj
-// stage, on fp32 x1) and K17 (ln_mlp_residual_q8, on the dtype's x):
-// quant_kernels.py:_out_ln_mlp_q8_kernel's tail and _ln_mlp_q8_kernel.
+// The fp32 W8A8 MLP shared by K16 (out_ln_mlp_residual_q8, after its
+// out_proj stage, on fp32 x1) and K17 (ln_mlp_residual_q8, on x):
+// quant_kernels.py:_out_ln_mlp_q8_kernel's tail and _ln_mlp_q8_kernel, on
+// gemm_q8.cuh's WMMA core (bf16 runs gemm_mma_q8.cuh's mlp_q8_mma).
 //   1. LN2 of x1 in fp32, per-row int8 codes hq and scales hs
 //   2. mid = GELU((hq @ W1q) hs w1s + b1), int8 GEMM with exact int32 sums;
 //      mid stays fp32 in a (rows, F) device scratch, because the next

@@ -16,8 +16,10 @@
 // sequence first copies W1q and W2q transposed into the w1t and w2t
 // scratches (2.4 MB each at B/16).  The two row quantizers are K16's own
 // passes, which hold each row in registers and so read the fp32 x1 and mid
-// once each.  fp32 keeps the first design: gemm.cuh's FMA out_proj (never
-// TF32), then mlp_q8.cuh's WMMA int8 MLP, the one K17 runs.
+// once each; stages 2-5 are gemm_mma_q8.cuh's mlp_q8_mma, which the bf16
+// K17 runs on its own x.  fp32 keeps the first design: gemm.cuh's FMA
+// out_proj (never TF32), then mlp_q8.cuh's WMMA int8 MLP, the one the fp32
+// K17 runs.
 //
 // vt_gemm_q8_mma_dequant is the int8 core alone, (A @ B) sa sb in fp32 with
 // B given K-major, and vt_transpose_q8 the weight copy alone, for their
@@ -56,16 +58,10 @@ cudaError_t out_ln_mlp_residual_q8_mma(const bf16* ctx, const bf16* res, const b
                                        int rows, int d_ctx, int d, int f, float eps, int variant,
                                        cudaStream_t stream) {
   if (rows <= 0) return cudaSuccess;
-  VT_TRY(launch_transpose_q8(w1q, w1t, d, f, stream));
-  VT_TRY(launch_transpose_q8(w2q, w2t, f, d, stream));
   VT_TRY(launch_gemm_mma(ctx, d_ctx, wo, d, rows, d, d_ctx,
                          BiasResidualEpi<bf16, bf16, float>{bo, res, x1, d}, stream));
-  VT_TRY(launch_ln_quant_rows_reg(x1, ln_scale, ln_bias, hq, hs, rows, d, eps, stream));
-  VT_TRY(launch_gemm_mma_q8(hq, w1t, rows, f, d,
-                            DequantBiasGeluEpi<bf16>{hs, w1s, b1, mid, f, variant}, stream));
-  VT_TRY(launch_quant_rows_reg(mid, mq, ms, rows, f, stream));
-  return launch_gemm_mma_q8(mq, w2t, rows, d, f,
-                            DequantBiasResidualEpi<bf16, float>{ms, w2s, b2, x1, out, d}, stream);
+  return mlp_q8_mma<float>(x1, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, w1t, w2t, hq, hs,
+                           mid, mq, ms, out, rows, d, f, eps, variant, stream);
 }
 
 }  // namespace vt

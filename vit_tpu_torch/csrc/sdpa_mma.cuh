@@ -1,7 +1,8 @@
 // The bf16 attention body on mma.sync register tiles (mma_bf16.cuh),
 // shared by K21's sdpa_mma_kernel (scaled_dot_product_attention.cu) and
-// K1's qkv_attention_mma_kernel (ln_qkv_attn.cu): softmax(q kᵀ / sqrt(dh)
-// [+ log s]) v over four strided (batch, head, token, dh) views, with the
+// qkv_attention_mma_kernel (qkv_attention_mma.cuh, the attention stage of
+// K1 and the bf16 K15): softmax(q kᵀ / sqrt(dh) [+ log s]) v over four
+// strided (batch, head, token, dh) views, with the
 // TPU kernels' rounding points -- q * round(1/sqrt(dh)) rounded to bf16,
 // fp32 scores and the exact row max over all T keys (pass 1), p = exp(s -
 // m) * (1/sum) rounded to bf16 before p @ v (pass 2), fp32 accumulation,

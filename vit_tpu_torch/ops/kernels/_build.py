@@ -102,12 +102,12 @@ SIGNATURES = {
     # q, k, v, <strides>, dout, <strides>, lse, delta, dq, dk, dv, <strides>,
     # batch, heads, seq, head_dim, dtype, device, stream
     "vt_flash_bwd": [_P] * 3 + _L3 + [_P] + _L3 + [_P] * 5 + _L3 + [_I] * 6 + [_P],
-    # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, rows, d, d3, eps, dtype,
-    # device, stream
-    "vt_ln_qkv_q8": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P],
-    # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, ctx, log_size, kmean,
-    # batch, seq, d, heads, head_dim, eps, dtype, device, stream
-    "vt_ln_qkv_attn_q8": [_P] * 12 + [_I] * 5 + [_F, _I, _I, _P],
+    # x, ln_scale, ln_bias, wq, ws, bqkv, wqt, hq, hs, qkv, rows, d, d3, eps,
+    # dtype, device, stream
+    "vt_ln_qkv_q8": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _P],
+    # x, ln_scale, ln_bias, wq, ws, bqkv, wqt, hq, hs, qkv, ctx, log_size,
+    # kmean, batch, seq, d, heads, head_dim, eps, dtype, device, stream
+    "vt_ln_qkv_attn_q8": [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P],
     # ctx, res, wo, bo, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, w1t,
     # w2t, x1, hq, hs, mid, mq, ms, out, rows, d_ctx, d, f, eps, gelu_variant,
     # dtype, device, stream
@@ -116,9 +116,9 @@ SIGNATURES = {
     "vt_gemm_q8_mma_dequant": [_P] * 5 + [_I] * 4 + [_P],
     # src, dst, rows, cols, device, stream
     "vt_transpose_q8": [_P] * 2 + [_I] * 3 + [_P],
-    # x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, hq, hs, mid, mq, ms,
-    # out, rows, d, f, eps, gelu_variant, dtype, device, stream
-    "vt_ln_mlp_residual_q8": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, w1t, w2t, hq, hs, mid,
+    # mq, ms, out, rows, d, f, eps, gelu_variant, dtype, device, stream
+    "vt_ln_mlp_residual_q8": [_P] * 17 + [_I] * 3 + [_F, _I, _I, _I, _P],
     # a, sa, b, sb, out, m, n, k, device, stream
     "vt_gemm_q8_dequant": [_P] * 5 + [_I] * 4 + [_P],
     # x, ln_scale, ln_bias, w1q, w1s, b1, hq, hs, mid, rows, d, f, eps,

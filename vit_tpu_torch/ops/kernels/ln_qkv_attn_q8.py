@@ -8,7 +8,7 @@ W_qkv arrives as int8 [in, out] with fp32 per-column scales
 (``ops/quant.py``).  What bounds it on the H100: the QKV GEMM (B/16 batch
 100: 19,700 x 768 x 2,304, 70 G integer operations) is tensor-core work at
 the int8 rate, attention (T = 197, dh = 64) a further 12 GFLOP in the
-working dtype.  Three stages over device scratches, one C entry point:
+working dtype.  Stages over device scratches, one C entry point:
 
   1. per row: LN1 in fp32 from fp32 statistics — h is NOT rounded to the
      working dtype, unlike K1 — the row's absmax, its scale hs =
@@ -16,10 +16,21 @@ working dtype.  Three stages over device scratches, one C entry point:
      clip(round(h / hs), -127, 127), with a true divide and
      round-half-to-even (``csrc/quant_rows.cuh``): a (rows, D) int8 and a
      (rows,) fp32 scratch;
-  2. the int8 GEMM hq @ Wq on the tensor cores with exact int32 sums
-     (``csrc/gemm_q8.cuh``); epilogue (acc * hs) * ws + b in fp32, rounded
-     once to the working dtype into the packed-QKV scratch K1 also writes;
-  3. K1's attention stage, unchanged (``csrc/attention.cuh``).
+  2. the int8 GEMM hq @ Wq on the tensor cores with exact int32 sums;
+     epilogue (acc * hs) * ws + b in fp32, rounded once to the working
+     dtype into the packed-QKV scratch K1 also writes;
+  3. K1's attention stage over that packed QKV.
+
+bf16, the main path, runs stage 2 on the int8 TMA + ``wgmma`` core
+(``csrc/gemm_mma_q8.cuh``), which reads both operands K-major: the sequence
+first copies Wq transposed into an int8 scratch (``kmajor_q8.py``'s kernel;
+the parameters keep the JAX package's [in, out] layout), and stage 3 is
+K1's bf16 attention on ``mma.sync`` register tiles
+(``csrc/qkv_attention_mma.cuh``).  Its operand rule
+(``check_tile_operands``): Wq 16-byte aligned with both dimensions
+multiples of 16.  fp32 keeps the first design: the WMMA int8 core
+(``csrc/gemm_q8.cuh``) and K1's fp32 SIMT attention
+(``csrc/attention.cuh``).  Both dtypes share stage 1.
 
 Stages 1-2 are an entry point of their own, :func:`ln_qkv_q8`: the
 long-sequence W8A8 block (``ops/quant_block.py``) runs them before K13, so
@@ -56,6 +67,7 @@ import torch
 
 from vit_tpu_torch.ops.fused_block import _ln
 from vit_tpu_torch.ops.kernels import _build
+from vit_tpu_torch.ops.kernels.kmajor_q8 import kmajor_q8_scratch
 from vit_tpu_torch.ops.kernels.ln_qkv_attn import (
     HEAD_DIMS,
     _check_log_size,
@@ -106,6 +118,15 @@ def _qkv_q8_scratch(name, x2d, ln_scale, ln_bias, wq, w_scale, bqkv) -> dict:
             "qkv": torch.empty(rows, d3, dtype=x2d.dtype, device=dev)}
 
 
+def check_tile_operands(x2d, ln_scale, ln_bias, wq, *_, **__) -> None:
+    """bf16: what the int8 TMA + ``wgmma`` core reads — Wq two-dimensional,
+    16-byte aligned, both dimensions multiples of 16 (its K-major copy, the
+    code scratch's pitch D, the GEMM's width 3D; a 3D that is a multiple of
+    16 also gives the attention tiles' 16-byte rows of the packed QKV); the
+    wrapper's arguments, raises ``ValueError`` otherwise."""
+    _build.check_q8_matrices("ln_qkv_attn_q8", wq)
+
+
 def _head_dim(name, d3, rows, num_heads, seq_len) -> int:
     """The head width of a packed QKV of width ``d3``; raises unless the
     attention stage is instantiated for it."""
@@ -125,7 +146,8 @@ def _stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps, attention=None, log_
     """-> {hq, hs, qkv} of stages 1-2, and with ``attention = (num_heads,
     seq_len)`` also {ctx} of the whole of K15 (and {kmean} with
     ``return_kmean``): the kernel's scratches and outputs on the card (one
-    launch of the one or the other C entry point), the twin's on the CPU."""
+    launch of the one or the other C entry point; bf16 adds {wqt}, the
+    K-major copy of Wq its GEMM reads), the twin's on the CPU."""
     if x2d.device.type == "cpu":
         st = dict(zip(("hq", "hs", "qkv"),
                       ln_qkv_q8_plain(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps)))
@@ -137,10 +159,15 @@ def _stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps, attention=None, log_
     fn = ln_qkv_attn_q8 if attention else ln_qkv_q8
     name = fn.__name__
     st = _qkv_q8_scratch(name, x2d, ln_scale, ln_bias, wq, w_scale, bqkv)
+    if x2d.dtype == torch.bfloat16:
+        check_tile_operands(x2d, ln_scale, ln_bias, wq)
+        st["wqt"], = kmajor_q8_scratch(wq)
     rows, d = x2d.shape
     d3 = wq.shape[-1]
     dev = x2d.device
-    operands = [t.data_ptr() for t in (x2d, ln_scale, ln_bias, wq, w_scale, bqkv, *st.values())]
+    operands = [*(t.data_ptr() for t in (x2d, ln_scale, ln_bias, wq, w_scale, bqkv)),
+                _build.ptr_or_null(st.get("wqt")),
+                *(st[k].data_ptr() for k in ("hq", "hs", "qkv"))]
     tail = (eps, _build.DTYPE_CODES[x2d.dtype], dev.index, _build.stream_of(x2d))
     lib = _build.load_library()
     if attention:

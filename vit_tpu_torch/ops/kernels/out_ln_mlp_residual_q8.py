@@ -21,11 +21,12 @@ bf16, the main path: stage 1 on the bf16 TMA + ``wgmma`` core
 (``csrc/gemm_mma.cuh``: ctx and W_o on the 16-byte grid, widths multiples
 of 8), stages 3 and 5 on the int8 one (``csrc/gemm_mma_q8.cuh``), which
 reads both operands K-major: the sequence first copies W1q and W2q
-transposed into two int8 scratches (``kmajor_q8``'s kernel; the
+transposed into two int8 scratches (``kmajor_q8.py``'s kernel; the
 parameters keep the JAX package's [in, out] layout), and stage 4 is K16's
-own row pass that reads mid once.  fp32 keeps the first design: the FMA
-out_proj and the WMMA int8 MLP that K17 runs (``ln_mlp_residual_q8.py``
-has its stages).
+own row pass that reads mid once.  Stages 2-5 are the chain the bf16 K17
+runs on its own x (``csrc/gemm_mma_q8.cuh``'s ``mlp_q8_mma``).  fp32 keeps
+the first design: the FMA out_proj and the WMMA int8 MLP that the fp32 K17
+runs (``ln_mlp_residual_q8.py`` has its stages).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from vit_tpu_torch.ops.kernels import _build
+from vit_tpu_torch.ops.kernels.kmajor_q8 import kmajor_q8_scratch
 from vit_tpu_torch.ops.kernels.ln_mlp_residual_q8 import (
     check_mlp_q8_operands,
     mlp_q8_plain,
@@ -40,30 +42,6 @@ from vit_tpu_torch.ops.kernels.ln_mlp_residual_q8 import (
 )
 from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import GELU_VARIANTS
 from vit_tpu_torch.ops.quant import int8_matmul_reference
-
-
-def kmajor_q8_plain(w_q) -> torch.Tensor:
-    """The K-major copy of an int8 [in, out] weight: its transpose, (out,
-    in) row-major."""
-    return w_q.t().contiguous()
-
-
-def kmajor_q8(w_q) -> torch.Tensor:
-    """The K-major copy that K16's int8 GEMMs read, made by the kernel K16
-    launches first (``vt_transpose_q8``) on a CUDA tensor, by the plain
-    twin on a CPU one."""
-    if w_q.device.type == "cpu":
-        return kmajor_q8_plain(w_q)
-    name = "kmajor_q8"
-    if w_q.dtype != torch.int8 or not w_q.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous int8 matrix, got {w_q.dtype}")
-    _build.check_q8_matrices(name, w_q)
-    rows, cols = w_q.shape
-    out = torch.empty(cols, rows, dtype=torch.int8, device=w_q.device)
-    _build.check(_build.load_library().vt_transpose_q8(
-        w_q.data_ptr(), out.data_ptr(), rows, cols, w_q.device.index, _build.stream_of(w_q)),
-        name)
-    return out
 
 
 def gemm_q8_mma_dequant(x_q, s_x, w_t, s_w) -> torch.Tensor:
@@ -144,8 +122,7 @@ def _out_ln_mlp_residual_q8_stages(ctx, res, wo, bo, ln_scale, ln_bias, w1q, w1s
           **mlp_q8_scratch(rows, d, f, ctx.dtype, dev)}
     if ctx.dtype == torch.bfloat16:
         check_tile_operands(ctx, res, wo, bo, ln_scale, ln_bias, w1q, w1s, b1, w2q)
-        st["w1t"] = torch.empty(f, d, dtype=torch.int8, device=dev)
-        st["w2t"] = torch.empty(d, f, dtype=torch.int8, device=dev)
+        st["w1t"], st["w2t"] = kmajor_q8_scratch(w1q, w2q)
     _build.check(
         _build.load_library().vt_out_ln_mlp_residual_q8(
             ctx.data_ptr(), res.data_ptr(), wo.data_ptr(), bo.data_ptr(), ln_scale.data_ptr(),
