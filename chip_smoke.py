@@ -7,16 +7,17 @@ Phases (a failed phase raises; nothing is caught):
   3. each kernel (K1 ln_qkv_attn, K2 out_ln_mlp_residual, K3 layer_norm)
      against its plain PyTorch twin on the card, bf16 and fp32, at ViT-B/16
      shapes for batch 100 and a ragged batch of 3, with both timed; and the
-     bf16 GEMM core of K1, K2, K5, K7, K8, K11, K12a and K12b
+     bf16 GEMM core of K1, K2, K5, K7, K8, K9, K11, K12a, K12b and K12c
      (``csrc/gemm_mma.cuh``)
      alone at the main path's four GEMM shapes (M 19,700) and at the four products
      of the MLP backward at @512 batch 16 (16,400 rows: dY W2ᵀ and du W1ᵀ
      with the weight read K-major, the weight gradients h2ᵀ du and gᵀ dY
      with the activation read MN-major and the rows split), against fp32
      ``torch.matmul`` of the same bf16 operands, timed beside one bf16
-     ``torch.matmul`` on them; and the two MLP weight gradients at 16,400
-     and 10,944 (64 x 171) rows and dW_o (768 x 768) at 12,608 (64 x 197)
-     timed at several split counts of their depth beside the kernels' own;
+     ``torch.matmul`` on them; and the two MLP weight gradients and dW_o
+     (768 x 768) at 16,400 and 10,944 (64 x 171) rows, and dW_o at 12,608
+     (64 x 197), timed at several split counts of their depth beside the
+     kernels' own rule, with the count the rule picks;
   4. the classify CLI in-process on synthetic B/16 reference weights:
      ``--synth 100 --ops fused --dtype bfloat16 --device cuda``, with every
      launch count set to 0 just before and read just after (12 K1, 12 K2,
@@ -34,7 +35,9 @@ Phases (a failed phase raises; nothing is caught):
      fp32, at B/16 shapes for batch 64 and 3, with both timed and each line
      with its share of its bound, and K5 also with ``return_u`` (the
      pre-GELU stash beside out); the bf16 K7's MLP outputs equal to K8's
-     bit for bit at batch 64 (one chain); and the bf16 K5, K11 and K6 split
+     bit for bit at batch 64 (one chain); K9 on K7's own bf16 dx1 giving
+     K7's dctx and dW_o bit for bit (one out_proj tail), and two runs of
+     K9 the same bits; and the bf16 K5, K11 and K6 split
      by CUDA kernel in a profiler trace (batch 64: K5's LN2 rows, FC1 and
      FC2, K11 likewise at dropout and drop-path 0.1; K6 plain at T 197 and
      with token merging's bias at T 171);
@@ -52,8 +55,8 @@ Phases (a failed phase raises; nothing is caught):
      their plain twins at dropout 0.1 and drop-path 0.1, every output, bf16
      and fp32, batch 64 and 3, timed beside K4, K5 and K7, each line with
      its share of its bound; K10's exact zeros
-     against the twin's (the mask pattern); K10/K11/K12a at zero rates bit
-     for bit equal to K4/K5/K7; the kept fraction of each dropout site, read
+     against the twin's (the mask pattern); K10/K11/K12a/K12c at zero rates
+     bit for bit equal to K4/K5/K7/K9; the kept fraction of each dropout site, read
      off the kernels' outputs, within 4 sigma of 1 - p;
  12. the train CLI with ``--dropout 0.1 --drop-path 0.1`` (otherwise as in
      8), with the counts set to 0 just before and read just after (12 each
@@ -74,9 +77,12 @@ Phases (a failed phase raises; nothing is caught):
      packed QKV, as the path calls them, each timed beside
      ``F.scaled_dot_product_attention`` (its forward for K13, its backward
      as forward + backward less forward for K14), each with its share of
-     its bound and its TFLOP/s; and the bf16 K13 (on ``mma.sync`` register
+     its bound and its TFLOP/s; the bf16 K13 (on ``mma.sync`` register
      tiles) at T 1, 15, 16, 17, 63, 64, 65, 197, 1,025 and 2,048 at every
-     head width, out and lse;
+     head width, out and lse; and the bf16 K9 split by CUDA kernel (@512
+     batch 16 and batch 64 at T 171: the column sum, the dctx GEMM, the
+     split weight gradient and its partial sum) and K12c at batch 64 T 171,
+     dropout and drop-path 0.1 (its gate rows first);
  16. the long classify path: ``InferenceEngine`` at B/16 @512, batch 16,
      bf16, ``fused``, with every count set to 0 just before and read just
      after (13 K3, 12 K13, 12 K2, no K1 per forward); fp32 fused vs fp32
@@ -706,7 +712,7 @@ def _kept(frac: float, n: int, p: float, site: str) -> str:
 
 def phase_regularizer_checks(dev: torch.device) -> None:
     """Phase 11's exact checks at B/16 batch 64: K10's zeros are the twin's;
-    at zero rates K10/K11/K12a equal K4/K5/K7 bit for bit; each dropout
+    at zero rates K10/K11/K12a/K12c equal K4/K5/K7/K9 bit for bit; each dropout
     site's kept fraction, read off a kernel output, is within 4 sigma of
     1 - p (the drop-path sites from the row scales the kernels read)."""
     from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
@@ -715,6 +721,8 @@ def phase_regularizer_checks(dev: torch.device) -> None:
     from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
     from vit_tpu_torch.ops.kernels import ln_mlp_residual_train as k11
     from vit_tpu_torch.ops.kernels import out_residual as k4
+    from vit_tpu_torch.ops.kernels import out_residual_bwd as k9
+    from vit_tpu_torch.ops.kernels import out_residual_bwd_train as k12c
     from vit_tpu_torch.ops.kernels import out_residual_train as k10
 
     d, f, t, b = B16["d"], B16["f"], B16["t"], 64
@@ -769,9 +777,12 @@ def phase_regularizer_checks(dev: torch.device) -> None:
                 k12.ln_mlp_out_residual_bwd_train(dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, ones,
                                                   ones, REG_SEED, 0.0, 1e-6),
                 k7.ln_mlp_out_residual_bwd(dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, 1e-6))),
+            all(torch.equal(a, c) for a, c in zip(
+                k12c.out_residual_bwd_train(dy, ctx, wo, ones, REG_SEED, 0.0),
+                k9.out_residual_bwd(dy, ctx, wo))),
         ]
         log(f"zero rates {name} batch {b}: K10 == K4 {same[0]}, K11 == K5 {same[1]}, "
-            f"K12a == K7 {same[2]} (bit for bit)")
+            f"K12a == K7 {same[2]}, K12c == K9 {same[3]} (bit for bit)")
         if not all(same):
             raise RuntimeError("a regularized kernel at zero rates differs from its plain kernel")
 
@@ -799,6 +810,41 @@ def phase_k7_shares_k8(dev: torch.device) -> None:
         f"{'differ: ' + ', '.join(differ) if differ else 'equal'} (bit for bit)")
     if differ:
         raise RuntimeError(f"K7's MLP outputs {differ} differ from K8's on the same inputs")
+
+
+def phase_k9_shares_k7(dev: torch.device) -> None:
+    """Phase 7's tail check at B/16 batch 64, bf16: K9 runs the bf16 K7's
+    out_proj tail (``out_proj_bwd_mma``), so on K7's own bf16 dx1 its dctx
+    and dW_o equal K7's bit for bit; db_o only within tolerance, because
+    K9 sums the bf16 dx1 it is given where K7 sums its fp32 dx1 before the
+    rounding.  Two runs of K9 give the same bits (fixed-order reductions,
+    a split picked from the shape alone)."""
+    from vit_tpu_torch.ops.kernels import ln_mlp_out_residual_bwd as k7
+    from vit_tpu_torch.ops.kernels import out_residual_bwd as k9
+
+    d, f, t, b, bf = B16["d"], B16["f"], B16["t"], 64, torch.bfloat16
+    rows = b * t
+    rn = _rand(dev, 9)
+    dy, x1, ctx = rn(rows, d, dtype=bf), rn(rows, d, scale=2.0, dtype=bf), rn(rows, d, dtype=bf)
+    s2, b2n = rn(d, scale=0.2, shift=1.0, dtype=bf), rn(d, scale=0.2, dtype=bf)
+    w1, bb1 = rn(d, f, scale=d ** -0.5, dtype=bf), rn(f, scale=0.1, dtype=bf)
+    w2, wo = rn(f, d, scale=f ** -0.5, dtype=bf), rn(d, d, scale=d ** -0.5, dtype=bf)
+    got7 = k7.ln_mlp_out_residual_bwd(dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, 1e-6)
+    dx1, dctx7, dwo7, dbo7 = got7[0], got7[1], got7[8], got7[9]
+    dctx, dwo, dbo = k9.out_residual_bwd(dx1, ctx, wo)
+    again = k9.out_residual_bwd(dx1, ctx, wo)
+    differ = [n for n, a, c in (("dctx", dctx, dctx7), ("dW_o", dwo, dwo7))
+              if not torch.equal(a, c)]
+    e = (dbo - dbo7).abs().max().item()
+    tol = TOLERANCE[bf] * max(1.0, dbo7.abs().max().item())
+    rerun = all(torch.equal(a, c) for a, c in zip((dctx, dwo, dbo), again))
+    verdict = "differ: " + ", ".join(differ) if differ else "equal K7's"
+    log(f"K9 on K7's dx1 bfloat16 batch {b} (rows {rows}): dctx, dW_o {verdict} (bit for "
+        f"bit); db_o max|d|={e:.6g} <= {tol:.6g} (K9 sums the bf16 dx1, K7 its fp32 dx1); two "
+        f"runs of K9 {'the same bits' if rerun else 'DIFFER'}")
+    if differ or not e <= tol or not rerun:
+        raise RuntimeError(f"K9 on K7's dx1: {differ or ''} db_o {e:.6g} (tol {tol:.6g}); "
+                           f"two runs equal {rerun}")
 
 
 def _kernel_split(fn, label: str, card: str, calls: int = 10) -> None:
@@ -950,6 +996,32 @@ def phase_k6_split(dev: torch.device, card: str) -> None:
         _kernel_split(lambda: k6.ln_qkv_attn_bwd(*args, **kw),
                       f"K6 ln_qkv_attn_bwd bfloat16 batch {b} T {t}"
                       f"{' log_size dres=None' if hooked else ''} by kernel", card)
+
+
+def phase_k9_split(dev: torch.device, card: str) -> None:
+    """Phase 15's split of the bf16 K9 by CUDA kernel at @512 batch 16
+    (16,400 rows) and at ToMe's batch 64 T 171 (10,944 rows), and of K12c
+    there at dropout and drop-path REG_P: the gate rows (K12c), the column
+    sum and its finish, the dctx GEMM, the split weight gradient and its
+    partial sum."""
+    from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
+    from vit_tpu_torch.ops.kernels import out_residual_bwd as k9
+    from vit_tpu_torch.ops.kernels import out_residual_bwd_train as k12c
+
+    d, bf = B16["d"], torch.bfloat16
+    rn = _rand(dev, 19)
+    wo = rn(d, d, scale=d ** -0.5, dtype=bf)
+    t_tome = _merged_counts(TOME_R, 2)[2]
+    for b, t in ((LONG_BATCHES[0], (LONG_IMAGE // 16) ** 2 + 1), (64, t_tome)):
+        rows = b * t
+        dx1, ctx = rn(rows, d, dtype=bf), rn(rows, d, dtype=bf)
+        _kernel_split(lambda: k9.out_residual_bwd(dx1, ctx, wo),
+                      f"K9 out_residual_bwd bfloat16 batch {b} T {t} (rows {rows}) by kernel", card)
+    # K12c on the ToMe rows' dx1 and ctx, the loop's last
+    dp = drop_path_scale_rows(REG_SEED, 4, 64, t_tome, REG_P, device=dev)
+    _kernel_split(lambda: k12c.out_residual_bwd_train(dx1, ctx, wo, dp, REG_SEED, REG_P),
+                  f"K12c out_residual_bwd_train bfloat16 batch 64 T {t_tome} (rows {rows}) "
+                  f"p {REG_P} by kernel", card)
 
 
 PROFILE_PHASES = ("patch_embed+pos", "layer_norm_1", "attention", "layer_norm_2", "mlp",
@@ -1710,7 +1782,8 @@ def phase_gemm_core(dev: torch.device, card: str) -> None:
 # layer, T 171 (K12b); dW_o = ctxᵀ dx1 at @224 batch 64 (K7, K12a); and the
 # split counts timed beside the kernels' own rule (0)
 WGRAD_CASES = tuple((what, rows, m, n) for rows in (16 * 1025, 64 * 171)
-                    for what, m, n in (("dW1", 768, 3072), ("dW2", 3072, 768))
+                    for what, m, n in (("dW1", 768, 3072), ("dW2", 3072, 768),
+                                       ("dW_o", 768, 768))
                     ) + (("dW_o", 64 * 197, 768, 768),)
 WGRAD_SPLITS = (0, 1, 2, 3, 5, 7, 9, 11, 22)
 
@@ -1719,7 +1792,10 @@ def phase_wgrad_splits(dev: torch.device, card: str) -> None:
     """Phase 3's split lines: the core's split-K weight gradients of
     WGRAD_CASES (A read MN-major, the rows its depth), each timed at every
     split count of WGRAD_SPLITS, partial sums included, each within phase
-    3's 2^-14 of fp32 ``torch.matmul``."""
+    3's 2^-14 of fp32 ``torch.matmul``, with the split count the kernels'
+    rule (``gemm_mma.cuh:mma_wgrad_split``, split 0) picks: its partials'
+    size over one fp32 (m, n) product."""
+    from vit_tpu_torch.ops.kernels import _build
     from vit_tpu_torch.ops.kernels.gemm_bf16 import gemm_bf16, gemm_bf16_plain
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -1735,7 +1811,9 @@ def phase_wgrad_splits(dev: torch.device, card: str) -> None:
                 raise RuntimeError(f"bf16 GEMM core {what} rows {rows} splits {splits}: "
                                    f"max|d|={err:.6g} > tol {tol:.6g}")
             times.append(cuda_ms(lambda: gemm_bf16(a, b, True, False, splits)))
-        log(f"bf16 GEMM core {what} {m} x {rows} x {n} (a read MN-major) by split count: "
+        picks = max(1, _build.load_library().vt_gemm_bf16_workspace(m, n, rows, 0) // (4 * m * n))
+        log(f"bf16 GEMM core {what} {m} x {rows} x {n} (a read MN-major; the rule picks "
+            f"{picks}) by split count: "
             + ", ".join(f"{'rule' if sp == 0 else sp} {t:.6g} ms"
                         for sp, t in zip(WGRAD_SPLITS, times))
             + f"; {card}")
@@ -2875,6 +2953,7 @@ def group_train(dev, card, summary, launches) -> None:
 
     summary.update(phase_kernels(train_kernel_cases(dev), TRAIN_KERNELS, 64))
     phase_k7_shares_k8(dev)
+    phase_k9_shares_k7(dev)
     phase_k5_split(dev, card)
     phase_k6_split(dev, card)
     torch.cuda.empty_cache()
@@ -2904,6 +2983,7 @@ def group_long(dev, card, summary, launches) -> None:
     """Phases 15-19."""
     summary.update(phase_kernels(long_kernel_cases(dev), LONG_KERNELS, LONG_BATCHES[0]))
     phase_k13_edges(dev)
+    phase_k9_split(dev, card)
     torch.cuda.empty_cache()
     launches["classify_long"] = phase_long_inference(dev)
     torch.cuda.empty_cache()

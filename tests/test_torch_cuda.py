@@ -1041,6 +1041,98 @@ def test_merged_mlp_out_backward_refuses_unaligned_operands(dev):
         ln_mlp_out_residual_bwd_train(*reg(odd))
 
 
+# the bf16 K9 and K12c on the TMA + wgmma core (K7's out_proj tail): rows at
+# every 64-row k-step and 128-row tile edge, ToMe's merged 3 x 41 and 64 x
+# 171 and @512's 16 x 1,025; square, non-square and dh 80 widths
+OUT_BWD_ROWS = [1, 63, 64, 65, 123, 127, 128, 129, 10944, 16400]
+OUT_BWD_WIDTHS = [(768, 768), (384, 768), (768, 256), (1280, 1280)]
+
+
+def _out_bwd_args(dev, rows, d_ctx, d, dtype=torch.bfloat16):
+    return (_rn(dev, 60, rows, d, dtype=dtype), _rn(dev, 61, rows, d_ctx, dtype=dtype),
+            _rn(dev, 62, d_ctx, d, scale=d_ctx ** -0.5, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", OUT_BWD_ROWS)
+@pytest.mark.parametrize("d_ctx,d", OUT_BWD_WIDTHS)
+def test_out_residual_bwd_mma(dev, rows, d_ctx, d):
+    from vit_tpu_torch.ops.kernels import out_residual_bwd_train as k12c
+
+    args = _out_bwd_args(dev, rows, d_ctx, d)
+    _check_all(out_residual_bwd(*args), out_residual_bwd_plain(*args))
+    seed = 2 ** 31 + 3
+    reg = (*args, drop_path_scale_rows(seed, 4, rows, 1, 0.1, device=dev), seed, 0.1)
+    _check_all(k12c.out_residual_bwd_train(*reg), k12c.out_residual_bwd_train_plain(*reg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [591, 12608])
+def test_out_residual_bwd_on_k7s_dx1_is_k7s_tail(dev, rows):
+    # the bf16 K9 is the bf16 K7's out_proj tail: on K7's own bf16 dx1 its
+    # dctx and dW_o are K7's bit for bit; db_o only within tolerance, as K9
+    # sums the bf16 dx1 and K7 its fp32 dx1
+    k7 = _k7_args(dev, torch.bfloat16, rows, 768, 3072, "exact")
+    got7 = ln_mlp_out_residual_bwd(*k7)
+    dctx, dwo, dbo = out_residual_bwd(got7[0], k7[2], k7[8])
+    assert torch.equal(dctx, got7[1]) and torch.equal(dwo, got7[8])
+    _check(dbo, got7[9], torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,t", [(123, 41), (10944, 171), (16400, 1025)])
+def test_out_residual_bwd_mma_is_deterministic_and_k12c_at_zero_rates(dev, rows, t):
+    # two runs of the bf16 K9 and K12c (p 0.1) bit for bit (the split picked
+    # from the shape alone, fixed-order sums), and K12c at p = 0, dp = 1
+    # equal to K9 bit for bit
+    from vit_tpu_torch.ops.kernels import out_residual_bwd_train as k12c
+
+    seed = 2 ** 31 + 3
+    args = _out_bwd_args(dev, rows, 768, 768)
+    reg = (*args, drop_path_scale_rows(seed, 4, rows // t, t, 0.1, device=dev), seed, 0.1)
+    for fn, a in ((out_residual_bwd, args), (k12c.out_residual_bwd_train, reg)):
+        first = [x.clone() for x in fn(*a)]
+        for x, y in zip(first, fn(*a)):
+            assert torch.equal(x, y)
+    ones = torch.ones(rows, device=dev)
+    for x, y in zip(k12c.out_residual_bwd_train(*args, ones, seed, 0.0), out_residual_bwd(*args)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_out_residual_bwd_refuses_unaligned_operands(dev):
+    # bf16 K9 and K12c read dx1 (K12c: its gated copy), ctx and wo through
+    # TMA tensor maps: an operand off the 16-byte grid, or D or d_ctx not a
+    # multiple of 8, raises before any launch (no fallback to the FMA core,
+    # the twin or the CPU); fp32 takes them
+    from vit_tpu_torch.ops.kernels import out_residual_bwd_train as k12c
+
+    def off(t):  # the same values, one element past the 16-byte grid
+        flat = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)[1:]
+        return flat.copy_(t.reshape(-1)).view(t.shape)
+
+    ones = torch.ones(10, device=dev)
+    args = _out_bwd_args(dev, 10, 64, 64)
+    out_residual_bwd(*args)  # aligned: runs
+    k12c.out_residual_bwd_train(*args, ones, 7, 0.1)
+    for i, name in ((0, "dx1"), (1, "ctx"), (2, "wo")):
+        bad = (*args[:i], off(args[i]), *args[i + 1:])
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            out_residual_bwd(*bad)
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            k12c.out_residual_bwd_train(*bad, ones, 7, 0.1)
+        f32 = tuple(x.float() for x in bad)
+        _check_all(out_residual_bwd(*f32), out_residual_bwd_plain(*f32))
+    for d_ctx, d in ((64, 60), (60, 64)):
+        odd = _out_bwd_args(dev, 10, d_ctx, d)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            out_residual_bwd(*odd)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            k12c.out_residual_bwd_train(*odd, ones, 7, 0.0)
+        f32 = tuple(x.float() for x in odd)
+        _check_all(out_residual_bwd(*f32), out_residual_bwd_plain(*f32))
+
+
 @pytest.mark.cuda
 def test_long_block_grads_match_eager_autograd(dev, monkeypatch):
     # the long-sequence trainable block (K13/K14, K4/K9, K5/K8) against

@@ -12,7 +12,9 @@ bias and no residual join at batch 64 T 171), K10, K11 and K12a too where the
 checkout has them (dropout and drop-path 0.1), K8 at @512 batch 16 (16,400
 rows, the long train step's) and K12b at batch 64 T 171 (the regularized
 ToMe step's first merged layer, dropout and drop-path 0.1) where it has
-those, the W8A8 K15, K16 and K17 at
+those, K9 at @512 batch 16 and at batch 64 T 171 (the long and the ToMe
+steps' out_proj backward) and K12c at batch 64 T 171 (dropout and
+drop-path 0.1), the W8A8 K15, K16 and K17 at
 batch 100 where it has those, K21 and K22 (the per-op attention and MLP) at
 batch 100 T 197,
 and K14 and K13 (the flash-attention backward and forward) at @512 batch 16
@@ -23,7 +25,14 @@ AdamW) as one step over ViT-B/16's 20 fp32 leaves beside
 events, median of 20 launches after 5; K1 also with token merging's hooks at
 batch 100 T 158 where the checkout has them.  The two optimizer steps also
 report their device time (the kernels' durations in a torch.profiler
-trace) and their host time per call.  ``--sass SOURCE ...``
+trace) and their host time per call.  ``--steps`` times the paths instead
+of the kernels, each checkout's own code end to end: the bf16 ``fused``
+forward at B/16 @224 batch 100 (``InferenceEngine.logits``) and the bf16
+mixed ``fused_train`` steps at @224 batch 64, at ToMe r = 13 plain and at
+dropout and drop-path 0.1, and at @512 batch 16, each as its host wall
+time (median of 12 after 3, ending in a synchronize) and its device
+kernels' time (a profiler trace of 3), the latter steadier where the host
+is shared.  ``--sass SOURCE ...``
 first compares the machine code each checkout compiles from those sources,
 kernel by kernel: those of A that B compiles to the same instructions,
 those it compiles differently, those it no longer has (a redesigned
@@ -143,6 +152,16 @@ if k12b is not None:
     dpm = drop_path_scale_rows(7, 5, 64, 171, 0.1, device=dev)
     times["K12b"] = ms(lambda: k12b(dym, xm, s, bb, w1, b1, w2, dpm, 7, 0.1, eps))
     del xm, dym
+k9, k12c = k("out_residual_bwd"), k("out_residual_bwd_train")
+if k9 is not None:  # dx1 and ctx at the long step's and the ToMe step's rows
+    for b9, t9 in ((16, 1025), (64, 171)):
+        dx9, ctx9 = rn(b9 * t9, d), rn(b9 * t9, d)
+        times[f"K9 b{b9} T {t9}"] = ms(lambda: k9(dx9, ctx9, wo))
+    if k12c is not None:
+        from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
+        dpa = drop_path_scale_rows(7, 4, 64, 171, 0.1, device=dev)
+        times["K12c b64 T 171"] = ms(lambda: k12c(dx9, ctx9, wo, dpa, 7, 0.1))
+    del dx9, ctx9
 if k("ln_qkv_attn_q8") is not None:
     from vit_tpu_torch.ops.quant import quantize_weight
     rows = 100 * t
@@ -205,6 +224,76 @@ print(json.dumps(times))
 """
 
 
+# --steps: one process's end-to-end times (public entry points only)
+STEPS = r"""
+import dataclasses, json, statistics, time, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from vit_tpu_torch.config import VIT_B_16
+from vit_tpu_torch.io.images import synth_images
+from vit_tpu_torch.io.params import params_to_numpy
+from vit_tpu_torch.models import tome, vit
+from vit_tpu_torch.ops.dispatch import get_ops
+from vit_tpu_torch.runtime import trainer
+from vit_tpu_torch.runtime.engine import InferenceEngine
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+times = {}
+
+def wall_and_device(name, fn):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events()
+          if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    times[name] = statistics.median(walls)
+    times[name + " device"] = sum(e.time_range.elapsed_us() for e in ks) / 3e3
+
+def init(cfg):
+    return vit.init_params(torch.Generator().manual_seed(0), cfg)
+
+x = torch.from_numpy(synth_images(100, VIT_B_16, seed=1)).to(dev, torch.bfloat16)
+eng = InferenceEngine(VIT_B_16, params_to_numpy(init(VIT_B_16)), "bfloat16", "fused", dev,
+                      batch_pad=100)
+wall_and_device("fused b100 forward", lambda: eng.logits(x))
+del eng, x
+
+def train(name, cfg, b, regularized=False, tome_r=0):
+    if regularized:
+        cfg = dataclasses.replace(cfg, dropout=0.1, drop_path=0.1)
+    x = torch.from_numpy(synth_images(b, cfg, seed=4)).to(dev)
+    y = torch.arange(b, device=dev) * 7 % cfg.num_classes
+    params = trainer.as_trainable(init(cfg), dev)
+    fwd = None
+    if tome_r:
+        counts = tome.schedule(cfg, tome_r, tome.TRAIN_MERGE_CHUNK)
+        fwd = lambda p, xb, rng: tome.forward_train(p, xb, cfg, tome_r, counts=counts,
+                                                     dropout_rng=rng)
+    opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-4)
+    step = trainer.make_train_step(cfg, opt, get_ops("fused_train"), remat=False,
+                                   compute_dtype=torch.bfloat16, use_dropout=regularized,
+                                   rng=torch.Generator().manual_seed(0), forward_fn=fwd)
+    wall_and_device(name, lambda: float(step(params, x, y)))
+    torch.cuda.empty_cache()
+
+train("b64 step", VIT_B_16, 64)
+train("b64 ToMe r=13 step", VIT_B_16, 64, tome_r=13)
+train("b64 ToMe r=13 regularized step", VIT_B_16, 64, True, 13)
+train("@512 b16 step", VIT_B_16.with_image_size(512), 16)
+print(json.dumps(times))
+"""
+
+
 def _functions(dump: str) -> dict:
     """``cuobjdump -sass`` output -> {kernel name: its instructions}, each
     line with its runs of blanks collapsed: cuobjdump pads every line of a
@@ -261,6 +350,8 @@ def main(argv=None) -> int:
                                 description=__doc__.split("\n")[0])
     p.add_argument("roots", nargs=2, metavar="DIR", help="two checkouts: A B (timed A B B A)")
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--steps", action="store_true",
+                   help="time the fused forward and the train steps instead of the kernels")
     p.add_argument("--sass", nargs="*", default=[], metavar="SOURCE",
                    help="also compare the machine code of these sources "
                    "(e.g. vit_tpu_torch/csrc/out_residual.cu) between the two checkouts")
@@ -276,7 +367,8 @@ def main(argv=None) -> int:
     readings = {a: [], b: []}
     for r in range(args.rounds):
         for root in (a, b, b, a):
-            out = subprocess.run([sys.executable, "-c", TIMER], cwd=root, capture_output=True,
+            out = subprocess.run([sys.executable, "-c", STEPS if args.steps else TIMER], cwd=root,
+                                 capture_output=True,
                                  text=True, timeout=900)
             if out.returncode != 0:
                 raise RuntimeError(f"timing {root} failed:\n{out.stderr[-4000:]}")

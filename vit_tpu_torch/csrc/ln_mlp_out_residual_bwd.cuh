@@ -1,16 +1,19 @@
 // The backward pieces of the fp32 K7 (ln_mlp_out_residual_bwd.cu), its
-// regularized form K12a (ln_mlp_out_residual_bwd_train.cu) and the split
-// forms K8 (ln_mlp_residual_bwd.cu) and K12b, and of K9
-// (out_residual_bwd.cu) in both dtypes, on gemm.cuh's FMA core (the bf16 K7,
-// K8, K12a and K12b run mlp_bwd_mma.cuh's chain instead):
+// regularized form K12a (ln_mlp_out_residual_bwd_train.cu), the split forms
+// K8 (ln_mlp_residual_bwd.cu) and K12b, and K9 (out_residual_bwd.cu) and
+// K12c, on gemm.cuh's FMA core; every bf16 instance of these kernels runs
+// mlp_bwd_mma.cuh's chain on the TMA + wgmma core instead:
 //  - the device scratch: LN2 row statistics, the fp32 (rows, F) u/du
 //    buffer, g and du_c in the dtype, fp32 dh2 and dx1, and the partials of
 //    the column sums and the split-K weight gradients — carved from one
 //    workspace (Arena) the wrapper allocates;
 //  - the MLP half, d[LN2 + MLP + residual] (K7's steps 1-5 and their
-//    reductions; all of K8);
-//  - the out_proj half, d[out_proj + residual] (K7's tail; all of K9);
+//    reductions; all of the fp32 K8);
+//  - the out_proj half, d[out_proj + residual] (the fp32 K7's tail; all of
+//    the fp32 K9 and K12c);
 //  - the GELU backward epilogue, which the bf16 chain shares.
+// What bounds them on the H100: the FMA core, never TF32 (fp32 keeps the
+// TPU kernels' arithmetic; 67 TFLOP/s at best outside the tensor cores).
 #pragma once
 
 #include "epilogue.cuh"
@@ -121,9 +124,9 @@ cudaError_t mlp_residual_bwd(const K7Scratch<T>& s, const T* dy, const T* x1, co
   return cudaSuccess;
 }
 
-// The out_proj half: dctx = round(dx1) @ W_o^T, rounded; db_o = column sums
-// of `dx1_col` (K7: its fp32 dx1; K9: its dx1 operand); dW_o = ctx^T
-// round(dx1).  cpart and wpart as sized by colsum_partial_floats(rows, d)
+// The fp32 out_proj half: dctx = round(dx1) @ W_o^T, rounded; db_o =
+// column sums of `dx1_col` (K7: its fp32 dx1; K9: its dx1 operand; K12c:
+// its gate); dW_o = ctx^T round(dx1).  cpart and wpart as sized by colsum_partial_floats(rows, d)
 // and wgrad_partial_floats<T>(d_ctx, d, rows).
 template <typename T, class Col>
 cudaError_t out_residual_bwd(const T* dx1, Col dx1_col, const T* ctx, const T* wo, T* dctx,

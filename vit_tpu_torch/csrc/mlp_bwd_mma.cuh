@@ -2,9 +2,11 @@
 // (ln_mlp_residual_bwd.cu), K12a (ln_mlp_out_residual_bwd_train.cu) and K12b
 // (ln_mlp_residual_bwd_train.cu): the backward of [LN2 + MLP + residual],
 // and with kOut of [out_proj + residual] after it, on gemm_mma.cuh's TMA +
-// wgmma core.  The fp32 instances keep ln_mlp_out_residual_bwd.cuh's
-// mlp_residual_bwd and out_residual_bwd (and K12a's and K12b's own chains)
-// on gemm.cuh's FMA core.
+// wgmma core.  That out_proj tail is one host function, out_proj_bwd_mma,
+// which is also all of the bf16 K9 (out_residual_bwd.cu) and K12c
+// (out_residual_bwd_train.cu).  The fp32 instances keep
+// ln_mlp_out_residual_bwd.cuh's mlp_residual_bwd and out_residual_bwd (and
+// K12a's and K12b's own chains) on gemm.cuh's FMA core.
 //
 // What bounds it on the H100: operations, 10 rows D F in the MLP half's five
 // GEMMs and 4 rows D d_ctx in the tail's two (B/16 @224 batch 64: 12,608
@@ -28,6 +30,10 @@
 //   8. kOut, the out_proj tail: db_o = sum dz over the fp32 dx1, dctx =
 //      round(round(dz) W_o^T) with W_o (d_ctx, D) read K-major, and dW_o =
 //      ctx^T round(dz), ctx read MN-major, split as in 7; dz = dx1 (K7).
+//      On its own (K9, K12c) the tail is bound by its 4 rows D d_ctx
+//      operations too (@512 batch 16: 16,400 rows, 38.7 GFLOP, 0.039 ms);
+//      dW_o has only 36 output tiles at 768 x 768, so the depth split is
+//      what fills the card (7 splits at 16,400 and at 10,944 rows).
 // The rounding points are the TPU kernel's (backward.py:111 _mlp_bwd_core,
 // :159 _mlp_grad_accum, :323-345 the out_proj tail).  No atomics: two runs
 // give the same bits.
@@ -91,6 +97,24 @@ struct OutProjBwd {
   int d_ctx;
 };
 
+// The out_proj tail, d[out_proj + residual] (kOut's step 8; all of the
+// bf16 K9 and K12c): db_o = the column sums of `dz_col` (fixed order),
+// dctx = round(dzg W_o^T) with W_o (d_ctx, D) read K-major, dW_o = ctx^T
+// dzg with ctx (rows, d_ctx) read MN-major and the rows split as
+// mma_wgrad_split picks from the shape.  cpart and wpart as
+// colsum_partial_floats(rows, d) and mma_partial_floats(d_ctx, d, rows)
+// size them.
+template <class Col>
+inline cudaError_t out_proj_bwd_mma(const bf16* dzg, Col dz_col, const bf16* ctx, const bf16* wo,
+                                    bf16* dctx, float* dwo, float* dbo, float* cpart,
+                                    float* wpart, int rows, int d_ctx, int d,
+                                    cudaStream_t stream) {
+  VT_TRY(launch_colsum(dz_col, rows, d, cpart, dbo, stream));
+  VT_TRY((launch_gemm_mma<false, true>(dzg, d, wo, d, rows, d_ctx, d,
+                                       StoreEpi<bf16>{dctx, d_ctx}, stream)));
+  return launch_wgrad_mma<true>(ctx, d_ctx, dzg, d, d_ctx, d, rows, dwo, wpart, stream);
+}
+
 // the GELU backward reads u one element at a time behind its own stores:
 // its rows of the tile into L2 during the main loop's last k-steps (found
 // by the core's prefetch_epilogue call through argument-dependent lookup)
@@ -150,20 +174,18 @@ cudaError_t mlp_residual_bwd_mma(const MlpBwdMmaScratch& s, const bf16* dy, cons
   VT_TRY(launch_wgrad_mma<true>(s.h2, d, s.du_c, f, d, f, rows, dw1, s.wpart, stream));
   VT_TRY(launch_wgrad_mma<true>(s.g, f, dyg, d, f, d, rows, dw2, s.wpart, stream));
   if constexpr (kOut) {
-    // the GEMMs' dZ operand: the bf16 dx1, or round(dz) in dh2's second half
-    bf16* const dz_c = (bf16*)s.dh2 + (size_t)rows * d;
-    const bf16* const dzg = kReg ? dz_c : dx1;
+    // the GEMMs' dZ operand: round(dz) in dh2's second half, or the bf16
+    // dx1; db_o sums dz, or the fp32 dx1
     if constexpr (kReg) {
+      bf16* const dz_c = (bf16*)s.dh2 + (size_t)rows * d;
       const Gate<float, kDrop> dz{s.dx1f, d, out.dp_attn, drop, kSiteAttnOut};
-      VT_TRY(launch_colsum(dz, rows, d, s.cpart, out.dbo, stream));
       VT_TRY(launch_gate_rows(dz, dz_c, rows, d, stream));
+      return out_proj_bwd_mma(dz_c, dz, out.ctx, out.wo, out.dctx, out.dwo, out.dbo, s.cpart,
+                              s.wpart, rows, out.d_ctx, d, stream);
     } else {
-      VT_TRY(launch_colsum(ColOf<float>{s.dx1f, d}, rows, d, s.cpart, out.dbo, stream));
+      return out_proj_bwd_mma(dx1, ColOf<float>{s.dx1f, d}, out.ctx, out.wo, out.dctx, out.dwo,
+                              out.dbo, s.cpart, s.wpart, rows, out.d_ctx, d, stream);
     }
-    VT_TRY((launch_gemm_mma<false, true>(dzg, d, out.wo, d, rows, out.d_ctx, d,
-                                         StoreEpi<bf16>{out.dctx, out.d_ctx}, stream)));
-    VT_TRY(launch_wgrad_mma<true>(out.ctx, out.d_ctx, dzg, d, out.d_ctx, d, rows, out.dwo,
-                                  s.wpart, stream));
   }
   return cudaSuccess;
 }

@@ -1,16 +1,24 @@
 // K9: split backward of [out_proj + residual] (the split B').  Replaces
 // vit_tpu/ops/pallas/backward.py:out_residual_bwd (_out_res_bwd_kernel).
 //
-// The out_proj half of ln_mlp_out_residual_bwd.cuh, the tail K7 runs on
-// its own dx1: dctx = dx1 W_o^T rounded (a GEMM reading W_o transposed in
-// its tile load), db_o = sum of dx1 in fp32 (128-row partials summed in
-// order), dW_o = ctx^T dx1 in fp32 (the split-K weight-gradient GEMM and
-// its ordered second pass).  The residual's gradient is dx1 itself, which
-// the caller passes on.
+// K7's out_proj tail on its own dx1: dctx = round(dx1 W_o^T), db_o = sum
+// of dx1 in fp32 (128-row partials summed in order; the bf16 values of
+// dx1, where K7 sums its fp32 dx1), dW_o = ctx^T dx1 in fp32 (a split-K
+// weight gradient summed in split order).  The residual's gradient is dx1
+// itself, which the caller passes on.  bf16, the path's dtype, runs
+// mlp_bwd_mma.cuh's out_proj_bwd_mma, the tail of the bf16 K7: both GEMMs
+// on gemm_mma.cuh's TMA + wgmma core, W_o read K-major for dctx, ctx read
+// MN-major for dW_o with the rows split as the shape alone decides.  fp32
+// runs ln_mlp_out_residual_bwd.cuh's out_residual_bwd on gemm.cuh's FMA
+// core (W_o transposed in its tile load, never TF32).  No atomics: two runs
+// give the same bits.
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm.cuh"
 #include "ln_mlp_out_residual_bwd.cuh"
+#include "mlp_bwd_mma.cuh"
+
+#include <type_traits>
 
 namespace vt {
 
@@ -22,7 +30,10 @@ template <typename T>
 K9Scratch k9_scratch(Arena& a, int rows, int d_ctx, int d) {
   K9Scratch s;
   s.cpart = a.take<float>(colsum_partial_floats(rows, d));
-  s.wpart = a.take<float>(wgrad_partial_floats<T>(d_ctx, d, rows));
+  if constexpr (std::is_same<T, bf16>::value)
+    s.wpart = a.take<float>(mma_partial_floats(d_ctx, d, rows));
+  else
+    s.wpart = a.take<float>(wgrad_partial_floats<T>(d_ctx, d, rows));
   return s;
 }
 
@@ -32,8 +43,12 @@ cudaError_t out_residual_bwd_k9(const T* dx1, const T* ctx, const T* wo, T* dctx
                                 cudaStream_t stream) {
   Arena arena{(char*)workspace};
   const K9Scratch s = k9_scratch<T>(arena, rows, d_ctx, d);
-  return out_residual_bwd<T>(dx1, ColOf<T>{dx1, d}, ctx, wo, dctx, dwo, dbo, s.cpart, s.wpart,
-                             rows, d_ctx, d, stream);
+  if constexpr (std::is_same<T, bf16>::value)
+    return out_proj_bwd_mma(dx1, ColOf<T>{dx1, d}, ctx, wo, dctx, dwo, dbo, s.cpart, s.wpart,
+                            rows, d_ctx, d, stream);
+  else
+    return out_residual_bwd<T>(dx1, ColOf<T>{dx1, d}, ctx, wo, dctx, dwo, dbo, s.cpart, s.wpart,
+                               rows, d_ctx, d, stream);
 }
 
 }  // namespace vt

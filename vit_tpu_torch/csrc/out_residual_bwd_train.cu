@@ -10,10 +10,18 @@
 // dtype scratch the GEMMs read as plain tiles) and once where db_o sums it
 // in fp32.  The residual's gradient is dx1 itself, ungated; the caller
 // passes it on.  The gate is a template flag (no hash compiled in at p = 0).
+// bf16, the path's dtype, runs K9's out_proj_bwd_mma (mlp_bwd_mma.cuh: the
+// TMA + wgmma core) on the scratch, so at zero rates (dp = 1) it reads
+// dx1's bits through K9's forms and split and gives K9's outputs bit for
+// bit; fp32 runs ln_mlp_out_residual_bwd.cuh's out_residual_bwd on
+// gemm.cuh's FMA core.
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "gemm.cuh"
 #include "ln_mlp_out_residual_bwd.cuh"
+#include "mlp_bwd_mma.cuh"
+
+#include <type_traits>
 
 namespace vt {
 
@@ -28,7 +36,10 @@ K12cScratch<T> k12c_scratch(Arena& a, int rows, int d_ctx, int d) {
   K12cScratch<T> s;
   s.dz_c = a.take<T>((size_t)rows * d);
   s.cpart = a.take<float>(colsum_partial_floats(rows, d));
-  s.wpart = a.take<float>(wgrad_partial_floats<T>(d_ctx, d, rows));
+  if constexpr (std::is_same<T, bf16>::value)
+    s.wpart = a.take<float>(mma_partial_floats(d_ctx, d, rows));
+  else
+    s.wpart = a.take<float>(wgrad_partial_floats<T>(d_ctx, d, rows));
   return s;
 }
 
@@ -41,8 +52,12 @@ cudaError_t out_residual_bwd_train(const T* dx1, const T* ctx, const T* wo, cons
   const K12cScratch<T> s = k12c_scratch<T>(arena, rows, d_ctx, d);
   const Gate<T, kDrop> dz{dx1, d, dp_attn, drop, kSiteAttnOut};
   VT_TRY(launch_gate_rows(dz, s.dz_c, rows, d, stream));
-  return out_residual_bwd<T>(s.dz_c, dz, ctx, wo, dctx, dwo, dbo, s.cpart, s.wpart, rows, d_ctx,
-                             d, stream);
+  if constexpr (std::is_same<T, bf16>::value)
+    return out_proj_bwd_mma(s.dz_c, dz, ctx, wo, dctx, dwo, dbo, s.cpart, s.wpart, rows, d_ctx,
+                            d, stream);
+  else
+    return out_residual_bwd<T>(s.dz_c, dz, ctx, wo, dctx, dwo, dbo, s.cpart, s.wpart, rows,
+                               d_ctx, d, stream);
 }
 
 }  // namespace vt

@@ -19,8 +19,13 @@ ragged row axis.
 
 dz is written rounded once into a (rows, D) scratch the GEMMs read as plain
 tiles, and summed in fp32 from a second hash for db_o, K9's deterministic
-passes (no atomics).  The residual's gradient is dx1 itself, ungated; the
-caller passes it on.
+passes (no atomics).  bf16, the path's dtype, then runs K9's bf16 tail on
+the TMA + ``wgmma`` core (``out_proj_bwd_mma``, ``csrc/mlp_bwd_mma.cuh``)
+under K9's operand rule (``check_tile_operands``: dx1, ctx and wo on the
+16-byte grid, D and d_ctx multiples of 8 elements), so at zero rates it
+reads dx1's bits through K9's forms and split and gives K9's outputs bit
+for bit; fp32 keeps ``gemm.cuh``'s FMA core.  The residual's gradient is
+dx1 itself, ungated; the caller passes it on.
 """
 
 from __future__ import annotations
@@ -47,6 +52,13 @@ def out_residual_bwd_train_plain(dx1, ctx, wo, dp_attn, seed, dropout_p):
             dz.sum(0))
 
 
+def check_tile_operands(dx1, ctx, wo, *_, **__) -> None:
+    """bf16: dx1, ctx and wo on the 16-byte grid, their widths (D, d_ctx)
+    multiples of 8 elements; the wrapper's arguments, raises
+    ``ValueError`` otherwise."""
+    _build.check_tiles("out_residual_bwd_train", dx1=dx1, ctx=ctx, wo=wo)
+
+
 def out_residual_bwd_train(dx1, ctx, wo, dp_attn, seed, dropout_p):
     """VJP of the regularized ``out_residual_train`` (K10) over (B*T, D)
     rows, from the upstream gradient ``dx1``, the saved ctx, the (rows,)
@@ -61,6 +73,8 @@ def out_residual_bwd_train(dx1, ctx, wo, dp_attn, seed, dropout_p):
     _build.check_shape(name, "ctx", ctx, (rows, d_ctx))
     _build.check_shape(name, "wo", wo, (d_ctx, d))
     _build.check_row_scale(name, "dp_attn", dp_attn, dx1)
+    if dx1.dtype == torch.bfloat16:
+        check_tile_operands(dx1, ctx, wo)
     dev, code = dx1.device, _build.DTYPE_CODES[dx1.dtype]
     outs = (torch.empty(rows, d_ctx, dtype=dx1.dtype, device=dev),
             torch.empty(d_ctx, d, dtype=torch.float32, device=dev),
