@@ -7,7 +7,7 @@ Phases (a failed phase raises; nothing is caught):
   3. each kernel (K1 ln_qkv_attn, K2 out_ln_mlp_residual, K3 layer_norm)
      against its plain PyTorch twin on the card, bf16 and fp32, at ViT-B/16
      shapes for batch 100 and a ragged batch of 3, with both timed; and the
-     bf16 GEMM core of K1, K2, K5, K7, K8, K9, K11, K12a, K12b and K12c
+     bf16 GEMM core of K1, K2, K4-K12c, K16 and K22
      (``csrc/gemm_mma.cuh``)
      alone at the main path's four GEMM shapes (M 19,700) and at the four products
      of the MLP backward at @512 batch 16 (16,400 rows: dY W2ᵀ and du W1ᵀ
@@ -37,10 +37,12 @@ Phases (a failed phase raises; nothing is caught):
      pre-GELU stash beside out); the bf16 K7's MLP outputs equal to K8's
      bit for bit at batch 64 (one chain); K9 on K7's own bf16 dx1 giving
      K7's dctx and dW_o bit for bit (one out_proj tail), and two runs of
-     K9 the same bits; and the bf16 K5, K11 and K6 split
+     K9 the same bits; and the bf16 K5, K11, K6, K4 and K10 split
      by CUDA kernel in a profiler trace (batch 64: K5's LN2 rows, FC1 and
      FC2, K11 likewise at dropout and drop-path 0.1; K6 plain at T 197 and
-     with token merging's bias at T 171);
+     with token merging's bias at T 171; K4 and K10, one GEMM on the TMA +
+     ``wgmma`` core each, at batch 64 T 197, @512 batch 16 and batch 100 T
+     158, K10 at dropout and drop-path 0.1);
   8. the train CLI in-process: ``--config vit_b_16 --steps 5 --batch 64
      --ops fused_train --mixed-precision --device cuda``, with every launch
      count set to 0 just before and read just after (12 each of K1, K4, K5,
@@ -156,8 +158,9 @@ Phases (a failed phase raises; nothing is caught):
      ``fused_train`` ToMe gradients against eager autograd on the kernel's
      own matching, every leaf, plain and regularized;
  30. ToMe img/s of ``fused`` and ``quant`` at r = 0, 13, 16 (batch 100
-     bf16) and the train step at r = 0 and 13 (batch 64 bf16 mixed, plain
-     and regularized), timed in turns.
+     bf16), one r = 13 forward of each in a profiler trace (device time by
+     kernel, busy share), and the train step at r = 0 and 13 (batch 64
+     bf16 mixed, plain and regularized), timed in turns.
 
  31. the per-op kernels (K21 scaled_dot_product_attention on strided views
      of a packed QKV, as the per-op attention calls it; K22 mlp) against
@@ -1024,6 +1027,32 @@ def phase_k9_split(dev: torch.device, card: str) -> None:
                   f"p {REG_P} by kernel", card)
 
 
+def phase_k4_split(dev: torch.device, card: str) -> None:
+    """Phase 7's split of the bf16 K4 and K10 by CUDA kernel: one GEMM on the
+    TMA + ``wgmma`` core each, at B/16 batch 64 T 197 (12,608 rows, the @224
+    step's), @512 batch 16 (16,400, the long step's) and batch 100 T 158
+    (15,800, ToMe r = 13's first merged classify layer); K10 at dropout and
+    drop-path REG_P."""
+    from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
+    from vit_tpu_torch.ops.kernels import out_residual as k4
+    from vit_tpu_torch.ops.kernels import out_residual_train as k10
+
+    d, bf = B16["d"], torch.bfloat16
+    rn = _rand(dev, 4)
+    wo, bo = rn(d, d, scale=d ** -0.5, dtype=bf), rn(d, scale=0.1, dtype=bf)
+    for b, t in ((64, B16["t"]), (LONG_BATCHES[0], (LONG_IMAGE // 16) ** 2 + 1),
+                 (100, _merged_counts(TOME_R, 3)[1])):
+        rows = b * t
+        ctx, res = rn(rows, d, dtype=bf), rn(rows, d, scale=2.0, dtype=bf)
+        dp = drop_path_scale_rows(REG_SEED, 4, b, t, REG_P, device=dev)
+        _kernel_split(lambda: k4.out_residual(ctx, res, wo, bo),
+                      f"K4 out_residual bfloat16 batch {b} T {t} (rows {rows}) by kernel", card)
+        _kernel_split(lambda: k10.out_residual_train(ctx, res, wo, bo, dp, REG_SEED, REG_P),
+                      f"K10 out_residual_train bfloat16 batch {b} T {t} (rows {rows}) p {REG_P} "
+                      "by kernel", card)
+        del ctx, res
+
+
 PROFILE_PHASES = ("patch_embed+pos", "layer_norm_1", "attention", "layer_norm_2", "mlp",
                   "final_ln+head")
 PROFILE_ITERS = 3  # InferenceEngine.phase_report's default
@@ -1169,17 +1198,18 @@ def _inference_rates(cfg, params, x, ops_list, dev, card: str, what: str, rounds
     return rates
 
 
-def _profile_forward(cfg, params, x, ops: str, dev, card: str) -> None:
-    """One ``InferenceEngine.logits`` forward in a torch.profiler trace:
-    its wall time, its kernels' device time by name (annotations on the
-    device timeline not counted, as in ``_device_ms``) and the device's
-    busy share of the wall."""
+def _profile_forward(cfg, params, x, ops: str, dev, card: str, tome_r: int = 0) -> None:
+    """One ``InferenceEngine.logits`` forward (at ToMe ``tome_r``) in a
+    torch.profiler trace: its wall time, its kernels' device time by name
+    (annotations on the device timeline not counted, as in ``_device_ms``)
+    and the device's busy share of the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from vit_tpu_torch.runtime.engine import InferenceEngine
 
-    engine = InferenceEngine(cfg, params, "bfloat16", ops, dev, batch_pad=x.shape[0])
+    engine = InferenceEngine(cfg, params, "bfloat16", ops, dev, batch_pad=x.shape[0],
+                             tome_r=tome_r)
     engine.logits(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1193,7 +1223,8 @@ def _profile_forward(cfg, params, x, ops: str, dev, card: str) -> None:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
-    log(f"profile {ops} {cfg.name} batch {x.shape[0]} bf16: forward {wall:.6g} ms wall (profiler "
+    what = f"{ops} ToMe r={tome_r}" if tome_r else ops
+    log(f"profile {what} {cfg.name} batch {x.shape[0]} bf16: forward {wall:.6g} ms wall (profiler "
         f"on), device kernels {busy:.6g} ms ({busy / wall:.1%} busy, idle {1 - busy / wall:.1%}); "
         f"{card}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -2212,7 +2243,8 @@ def phase_tome_correctness(params, images: np.ndarray, dev: torch.device) -> Non
 def phase_tome_throughput(params, images: np.ndarray, dev: torch.device, card: str) -> None:
     """Phase 30: classify img/s of ``fused`` and ``quant`` at ToMe r = 0,
     13 and 16 (batch 100 bf16, ``InferenceEngine``), timed in turns with
-    the peak device memory of one forward of each; then the train step at
+    the peak device memory of one forward of each; one r = 13 forward of
+    each in a profiler trace (device time by kernel); then the train step at
     r = 0 and 13 (batch 64 bf16 mixed, the train schedule), plain and at
     dropout and drop-path REG_P."""
     from vit_tpu_torch.config import VIT_B_16
@@ -2259,7 +2291,12 @@ def phase_tome_throughput(params, images: np.ndarray, dev: torch.device, card: s
         gemm = cuda_ms(lambda: torch.matmul(torch.ones(n, t - r, t, device=dev), xm.float()))
     log(f"ToMe merge event batch {n} T {t} -> {t - r} bf16: {ms:.6g} ms (the fp32 merge GEMM "
         f"alone {gemm:.6g} ms); {card}")
+    del xm, km
     torch.cuda.empty_cache()
+    for ops in ("fused", "quant"):  # where the r = 13 forward's device time goes
+        _profile_forward(VIT_B_16, params, x, ops, dev, card, TOME_R)
+        gc.collect()
+        torch.cuda.empty_cache()
     _train_rates(dev, card, {
         "fused_train r=0": ("fused_train", False), f"fused_train r={TOME_R}": (
             "fused_train", False, TOME_R),
@@ -2956,6 +2993,7 @@ def group_train(dev, card, summary, launches) -> None:
     phase_k9_shares_k7(dev)
     phase_k5_split(dev, card)
     phase_k6_split(dev, card)
+    phase_k4_split(dev, card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         launches["train"] = phase_train_cli(workdir)

@@ -383,11 +383,91 @@ def _check_all(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,d", [(10, 64), (591, 768), (12608, 768), (133, 384)])
+@pytest.mark.parametrize("rows,d", [(10, 64), (591, 768), (12608, 768), (133, 384),
+                                    (15800, 768), (10944, 768)])
 def test_out_residual(dev, dtype, rows, d):
+    # the last two: ToMe's merged rows, b100 x 158 (classify) and b64 x 171 (train)
     args = (_rn(dev, 0, rows, d, dtype=dtype), _rn(dev, 1, rows, d, scale=2.0, dtype=dtype),
             _rn(dev, 2, d, d, scale=d ** -0.5, dtype=dtype), _rn(dev, 3, d, scale=0.1, dtype=dtype))
     _check(out_residual(*args), out_residual_plain(*args))
+
+
+# the bf16 K4 and K10 on the TMA + wgmma core: rows around the 128-row tile
+# edge and @512 b16's 16,400; square, non-square and D 1,280 widths
+OUT_FWD_ROWS = [1, 127, 128, 129, 16400]
+OUT_FWD_WIDTHS = [(768, 768), (384, 768), (768, 256), (1280, 1280)]
+
+
+def _out_fwd_args(dev, rows, d_ctx, d, dtype=torch.bfloat16):
+    return (_rn(dev, 70, rows, d_ctx, dtype=dtype), _rn(dev, 71, rows, d, scale=2.0, dtype=dtype),
+            _rn(dev, 72, d_ctx, d, scale=d_ctx ** -0.5, dtype=dtype),
+            _rn(dev, 73, d, scale=0.1, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", OUT_FWD_ROWS)
+@pytest.mark.parametrize("d_ctx,d", OUT_FWD_WIDTHS)
+def test_out_residual_mma(dev, rows, d_ctx, d):
+    # K4, and K10 at dropout and drop-path 0.1 and at drop-path only
+    args = _out_fwd_args(dev, rows, d_ctx, d)
+    _check(out_residual(*args), out_residual_plain(*args))
+    seed = 2 ** 31 + 3
+    dp = drop_path_scale_rows(seed, 4, rows, 1, 0.1, device=dev)
+    for p in (0.1, 0.0):
+        reg = (*args, dp, seed, p)
+        _check(out_residual_train(*reg), out_residual_train_plain(*reg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,t", [(123, 41), (10944, 171), (12608, 197), (15800, 158)])
+def test_out_residual_mma_is_deterministic_and_k10_at_zero_rates(dev, rows, t):
+    # two runs of the bf16 K4 and K10 (p 0.1) bit for bit; K10 at p = 0,
+    # dp = 1 equal to K4 bit for bit (the same accumulators through the same
+    # core; v * 1.0f is exact); K10's zeros on a zero residual the twin's
+    # (the attention-out mask pattern)
+    seed = 2 ** 31 + 3
+    args = _out_fwd_args(dev, rows, 768, 768)
+    reg = (*args, drop_path_scale_rows(seed, 4, rows // t, t, 0.1, device=dev), seed, 0.1)
+    for fn, a in ((out_residual, args), (out_residual_train, reg)):
+        assert torch.equal(fn(*a), fn(*a))
+    ones = torch.ones(rows, device=dev)
+    assert torch.equal(out_residual_train(*args, ones, seed, 0.0), out_residual(*args))
+    zero = (args[0], torch.zeros_like(args[1]), *args[2:], ones, seed, 0.1)
+    assert torch.equal(out_residual_train(*zero) == 0, out_residual_train_plain(*zero) == 0)
+
+
+@pytest.mark.cuda
+def test_out_residual_refuses_unaligned_operands(dev):
+    # bf16 K4 and K10 read ctx and wo through TMA tensor maps: either off the
+    # 16-byte grid, or D or d_ctx not a multiple of 8, raises before any
+    # launch (no fallback to the FMA core, the twin or the CPU); the residual
+    # is read by the epilogue alone and may lie anywhere; fp32 takes them all
+    def off(t):  # the same values, one element past the 16-byte grid
+        flat = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)[1:]
+        return flat.copy_(t.reshape(-1)).view(t.shape)
+
+    ones = torch.ones(10, device=dev)
+    args = _out_fwd_args(dev, 10, 64, 64)
+    for i, name in ((0, "ctx"), (2, "wo")):
+        bad = (*args[:i], off(args[i]), *args[i + 1:])
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            out_residual(*bad)
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            out_residual_train(*bad, ones, 7, 0.1)
+        f32 = tuple(x.float() for x in bad)
+        _check(out_residual(*f32), out_residual_plain(*f32))
+    res_off = (args[0], off(args[1]), *args[2:])
+    _check(out_residual(*res_off), out_residual_plain(*res_off))
+    reg = (*res_off, ones, 7, 0.1)
+    _check(out_residual_train(*reg), out_residual_train_plain(*reg))
+    for d_ctx, d in ((64, 60), (60, 64)):
+        odd = _out_fwd_args(dev, 10, d_ctx, d)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            out_residual(*odd)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            out_residual_train(*odd, ones, 7, 0.0)
+        f32 = tuple(x.float() for x in odd)
+        _check(out_residual(*f32), out_residual_plain(*f32))
 
 
 def _mlp_args(dev, dtype, rows, d, f):

@@ -1,5 +1,5 @@
-"""Time the kernels that share ``csrc/gemm.cuh`` in several checkouts of the
-repo, each in its own process, in turns, on one card:
+"""Time the port's kernels in two checkouts of the repo, each in its own
+process, in turns, on one card:
 
     python3 -m vit_tpu_torch.cli.compare_kernels PARENT_DIR . [--rounds 2]
 
@@ -27,12 +27,13 @@ batch 100 T 158 where the checkout has them.  The two optimizer steps also
 report their device time (the kernels' durations in a torch.profiler
 trace) and their host time per call.  ``--steps`` times the paths instead
 of the kernels, each checkout's own code end to end: the bf16 ``fused``
-forward at B/16 @224 batch 100 (``InferenceEngine.logits``) and the bf16
-mixed ``fused_train`` steps at @224 batch 64, at ToMe r = 13 plain and at
-dropout and drop-path 0.1, and at @512 batch 16, each as its host wall
-time (median of 12 after 3, ending in a synchronize) and its device
-kernels' time (a profiler trace of 3), the latter steadier where the host
-is shared.  ``--sass SOURCE ...``
+forward at B/16 @224 batch 100 (``InferenceEngine.logits``), the
+``fused`` and ``quant`` ones at ToMe r = 13, and the bf16 mixed
+``fused_train`` steps at @224 batch 64 plain and at dropout and drop-path
+0.1, at ToMe r = 13 plain and at dropout and drop-path 0.1, and at @512
+batch 16, each as its host wall time (median of 12 after 3, ending in a
+synchronize) and its device kernels' time (a profiler trace of 3), the
+latter steadier where the host is shared.  ``--sass SOURCE ...``
 first compares the machine code each checkout compiles from those sources,
 kernel by kernel: those of A that B compiles to the same instructions,
 those it compiles differently, those it no longer has (a redesigned
@@ -263,10 +264,14 @@ def init(cfg):
     return vit.init_params(torch.Generator().manual_seed(0), cfg)
 
 x = torch.from_numpy(synth_images(100, VIT_B_16, seed=1)).to(dev, torch.bfloat16)
-eng = InferenceEngine(VIT_B_16, params_to_numpy(init(VIT_B_16)), "bfloat16", "fused", dev,
-                      batch_pad=100)
-wall_and_device("fused b100 forward", lambda: eng.logits(x))
-del eng, x
+weights = params_to_numpy(init(VIT_B_16))
+for ops, tome_r in (("fused", 0), ("fused", 13), ("quant", 13)):
+    eng = InferenceEngine(VIT_B_16, weights, "bfloat16", ops, dev, batch_pad=100, tome_r=tome_r)
+    wall_and_device(f"{ops} b100 forward" + (f" ToMe r={tome_r}" if tome_r else ""),
+                    lambda: eng.logits(x))
+    del eng
+    torch.cuda.empty_cache()
+del x, weights
 
 def train(name, cfg, b, regularized=False, tome_r=0):
     if regularized:
@@ -287,6 +292,7 @@ def train(name, cfg, b, regularized=False, tome_r=0):
     torch.cuda.empty_cache()
 
 train("b64 step", VIT_B_16, 64)
+train("b64 regularized step", VIT_B_16, 64, True)
 train("b64 ToMe r=13 step", VIT_B_16, 64, tome_r=13)
 train("b64 ToMe r=13 regularized step", VIT_B_16, 64, True, 13)
 train("@512 b16 step", VIT_B_16.with_image_size(512), 16)

@@ -1,6 +1,7 @@
-// GEMM epilogue functors shared by the kernels (gemm.cuh calls each with
-// an fp32 accumulator and its (row, col)).  Additions run in fp32 in the
-// TPU kernels' order; each output rounds once, to its own type.
+// GEMM epilogue functors shared by the kernels (gemm.cuh and gemm_mma.cuh
+// call each with an fp32 accumulator and its (row, col)).  Additions run
+// in fp32 in the TPU kernels' order; each output rounds once, to its own
+// type.
 #pragma once
 
 #include "common.cuh"

@@ -1,30 +1,26 @@
-// Tiled GEMM core shared by every kernel: C = A @ B with A (M, K) and
-// B (K, N) each produced element by element by a loader functor (plain,
-// transposed, rounded from fp32, or with LayerNorm applied on the fly),
-// fp32 accumulation, and an epilogue functor that receives each fp32
-// accumulator with its (row, col).
+// Tiled fp32 GEMM core: C = A @ B with A (M, K) and B (K, N) each produced
+// element by element by a loader functor (plain, transposed, rounded from
+// another type, or with LayerNorm applied on the fly), fp32 accumulation,
+// and an epilogue functor that receives each fp32 accumulator with its
+// (row, col).  Every kernel's fp32 form runs its GEMMs here (K1, K2, K4-K12c,
+// K16, K22); bf16 runs on gemm_mma.cuh's TMA + wgmma core, and the int8
+// GEMMs on gemm_q8.cuh and gemm_mma_q8.cuh.
 //
-//  - bf16: tensor cores through WMMA (16x16x16, fp32 accumulators); block
-//    tile 128 x 128 x 32, 8 warps each owning a 64 x 32 slab.
-//  - fp32: CUDA-core fp32 FMA (never TF32); block tile 64 x 64 x 16,
-//    256 threads each owning 4 x 4 outputs.
-//
-// Tiles are single-buffered and loaded through registers, where the
-// loaders apply their transform; each loader says which of its two indices
-// runs along contiguous memory, and the tile fill walks that one across
-// neighbouring threads.  Rows, columns and depth past the matrix load
-// zeros (the depth tail matters where K is the ragged row axis of a weight
-// gradient), and the epilogue is skipped there.  cp.async/TMA pipelining
-// and wgmma are later work.
+// CUDA-core fp32 FMA (never TF32): block tile 64 x 64 x 16, 256 threads
+// each owning 4 x 4 outputs.  Tiles are single-buffered and loaded through
+// registers, where the loaders apply their transform; each loader says
+// which of its two indices runs along contiguous memory, and the tile fill
+// walks that one across neighbouring threads.  Rows, columns and depth
+// past the matrix load zeros (the depth tail matters where K is the ragged
+// row axis of a weight gradient), and the epilogue is skipped there.
 //
 // Weight gradients (launch_wgrad) split the depth K over gridDim.z when
 // the output has few tiles; each split writes its own fp32 partial and a
 // second pass sums the partials in split order — deterministic, no atomics.
+// The column sums and sum_partials_kernel here serve gemm_mma.cuh too.
 #pragma once
 
 #include "common.cuh"
-
-#include <mma.h>
 
 #include <algorithm>
 #include <type_traits>
@@ -92,78 +88,6 @@ __device__ __forceinline__ void fill_tile(const Ld& ld, T* tile, int pitch, int 
   }
 }
 
-// ---- bf16 tensor-core GEMM.
-
-constexpr int kTcBM = 128, kTcBN = 128, kTcBK = 32, kTcThreads = 256;
-// Row pitches padded by 8 elements (16 B): every 16-row fragment offset
-// stays 32-byte aligned as WMMA requires, and rows shift across banks.
-constexpr int kTcLdA = kTcBK + 8;  // 40 bf16 = 80 B
-constexpr int kTcLdB = kTcBN + 8;  // 136 bf16 = 272 B
-
-// Depth range of this block: all of K, or with kSplitK [blockIdx.z *
-// k_chunk, min(K, ... + k_chunk)).
-template <bool kSplitK, class ALoad, class BLoad, class Epi>
-__global__ void __launch_bounds__(kTcThreads)
-gemm_bf16_kernel(ALoad a, BLoad b, int M, int N, int K, int k_chunk, Epi epi) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[kTcBM * kTcLdA];
-  __shared__ __align__(128) bf16 Bs[kTcBK * kTcLdB];
-  __shared__ __align__(128) float Cs[kTcThreads / 32][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2;  // 0..1: 64-row slab
-  const int wn = warp & 3;   // 0..3: 32-column slab
-  const int row0 = blockIdx.y * kTcBM, col0 = blockIdx.x * kTcBN;
-  const int kb = kSplitK ? blockIdx.z * k_chunk : 0;
-  const int ke = kSplitK ? min(K, kb + k_chunk) : K;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = kb; k0 < ke; k0 += kTcBK) {
-    fill_tile<kTcBM, kTcBK, kTcThreads, false>(a, As, kTcLdA, row0, k0, M, ke, tid);
-    fill_tile<kTcBK, kTcBN, kTcThreads, false>(b, Bs, kTcLdB, k0, col0, ke, N, tid);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTcBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 64 + i * 16) * kTcLdA + kk, kTcLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * kTcLdB + wn * 32 + j * 16, kTcLdB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each warp spills one 16x16 accumulator at a time to its own
-  // shared scratch, then applies the functor element by element
-  float* cs = Cs[warp];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = row0 + wm * 64 + i * 16 + e / 16;
-        const int c = col0 + wn * 32 + j * 16 + e % 16;
-        if (r < M && c < N) epi(r, c, cs[e]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
 // ---- fp32 CUDA-core GEMM.
 
 constexpr int kFpBM = 64, kFpBN = 64, kFpBK = 16, kFpThreads = 256;
@@ -212,30 +136,18 @@ gemm_f32_kernel(ALoad a, BLoad b, int M, int N, int K, int k_chunk, Epi epi) {
     }
 }
 
-template <typename T>
-struct GemmTile {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int BM = kBf16 ? kTcBM : kFpBM;
-  static constexpr int BN = kBf16 ? kTcBN : kFpBN;
-  static constexpr int BK = kBf16 ? kTcBK : kFpBK;
-};
-
 template <typename T, bool kSplitK, class ALoad, class BLoad, class Epi>
 inline cudaError_t launch_gemm_chunked(ALoad a, BLoad b, int M, int N, int K, int k_chunk,
                                        int splits, Epi epi, cudaStream_t stream) {
-  static_assert(std::is_same<T, float>::value || std::is_same<T, bf16>::value,
-                "GEMM dtype must be float or bf16");
+  static_assert(std::is_same<T, float>::value,
+                "gemm.cuh is the fp32 core: bf16 GEMMs run on gemm_mma.cuh");
   if (M <= 0 || N <= 0) return cudaSuccess;
-  dim3 grid(cdiv(N, GemmTile<T>::BN), cdiv(M, GemmTile<T>::BM), splits);
-  if constexpr (GemmTile<T>::kBf16) {
-    gemm_bf16_kernel<kSplitK><<<grid, kTcThreads, 0, stream>>>(a, b, M, N, K, k_chunk, epi);
-  } else {
-    gemm_f32_kernel<kSplitK><<<grid, kFpThreads, 0, stream>>>(a, b, M, N, K, k_chunk, epi);
-  }
+  dim3 grid(cdiv(N, kFpBN), cdiv(M, kFpBM), splits);
+  gemm_f32_kernel<kSplitK><<<grid, kFpThreads, 0, stream>>>(a, b, M, N, K, k_chunk, epi);
   return cudaGetLastError();
 }
 
-// C = A @ B over (M, K) x (K, N) on `stream`, for T = float or bf16.
+// C = A @ B over (M, K) x (K, N) on `stream`, T = float.
 template <typename T, class ALoad, class BLoad, class Epi>
 inline cudaError_t launch_gemm(ALoad a, BLoad b, int M, int N, int K, Epi epi,
                                cudaStream_t stream) {
@@ -254,10 +166,10 @@ struct WgradSplit {
 // partition (and its summation order) never changes.
 template <typename T>
 inline WgradSplit wgrad_split(int M, int N, int K) {
-  const int BK = GemmTile<T>::BK;
-  const int tiles = cdiv(M, GemmTile<T>::BM) * cdiv(N, GemmTile<T>::BN);
-  const int splits = std::max(1, std::min(cdiv(264, tiles), cdiv(K, 8 * BK)));
-  const int k_chunk = std::max(BK, cdiv(cdiv(K, splits), BK) * BK);
+  static_assert(std::is_same<T, float>::value, "the fp32 core's split; bf16: mma_wgrad_split");
+  const int tiles = cdiv(M, kFpBM) * cdiv(N, kFpBN);
+  const int splits = std::max(1, std::min(cdiv(264, tiles), cdiv(K, 8 * kFpBK)));
+  const int k_chunk = std::max(kFpBK, cdiv(cdiv(K, splits), kFpBK) * kFpBK);
   return {std::max(1, cdiv(K, k_chunk)), k_chunk};
 }
 

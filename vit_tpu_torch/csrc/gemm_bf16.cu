@@ -1,4 +1,4 @@
-// The bf16 GEMM core of K1, K2, K7, K8, K12a and K12b (gemm_mma.cuh) alone, for its
+// The bf16 GEMM core of K1, K2, K4-K12c, K16 and K22 (gemm_mma.cuh) alone, for its
 // card tests and its timing beside torch.matmul: c (M, N) fp32 = op(a) @
 // op(b), bf16 row-major operands, fp32 accumulation, each sum stored
 // unrounded.  op(a) is a (M, K), or with trans_a a^T of a (K, M) (the core's

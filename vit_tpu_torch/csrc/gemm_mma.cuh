@@ -2,15 +2,15 @@
 // and B (K, N) bf16 row-major in device memory (B is a weight in [in, out]
 // layout), fp32 accumulators, and an epilogue functor (epilogue.cuh) that
 // receives each accumulator with its (row, col).  K1 (ln_qkv_attn.cu), K2
-// (out_ln_mlp_residual.cu), K5 (ln_mlp_residual.cu), K11
-// (ln_mlp_residual_train.cu), K22 (mlp.cu) and K16's out_proj
-// (out_ln_mlp_residual_q8.cu) run their bf16 GEMMs on its default form;
-// the bf16 K6 (ln_qkv_attn_bwd.cu), K7, K8, K12a and K12b
-// (mlp_bwd_mma.cuh's chain) and K9 and K12c (its out_proj tail,
-// out_proj_bwd_mma) in the operand forms a backward needs.
+// (out_ln_mlp_residual.cu), K4 (out_residual.cu), K5 (ln_mlp_residual.cu),
+// K10 (out_residual_train.cu), K11 (ln_mlp_residual_train.cu), K22
+// (mlp.cu) and K16's out_proj (out_ln_mlp_residual_q8.cu) run their bf16
+// GEMMs on its default form; the bf16 K6 (ln_qkv_attn_bwd.cu), K7, K8,
+// K12a and K12b (mlp_bwd_mma.cuh's chain) and K9 and K12c (its out_proj
+// tail, out_proj_bwd_mma) in the operand forms a backward needs.
 // gemm_mma_q8.cuh runs the bf16 K15-K17's int8 GEMMs on its ring.  The
-// fp32 kernels, K4, K10 and the K18/K19 study and tp kernels keep gemm.cuh
-// or gemm_q8.cuh.
+// fp32 kernels keep gemm.cuh (FMA) and gemm_q8.cuh, as do the K18/K19 tp
+// and study kernels.
 //
 // Operand forms (template flags of launch_gemm_mma; the default form is
 // gemm_mma_kernel, the others gemm_mma_form_kernel, one body):
@@ -231,8 +231,8 @@ __device__ __forceinline__ void prefetch_epilogue(const BiasResidualEpi<TB, TRes
   prefetch_tile_rows(e.res, e.ld, row0, col0, M, N);
 }
 
-// the gated form (K11's FC2): the residual rows, and the tile's 128 fp32
-// drop-path scales (four 128-byte lines)
+// the gated form (K11's FC2, K10): the residual rows, and the tile's 128
+// fp32 drop-path scales (four 128-byte lines)
 template <typename T, bool kDrop>
 __device__ __forceinline__ void prefetch_epilogue(const BiasDropResidualEpi<T, kDrop>& e,
                                                   int row0, int col0, int M, int N) {

@@ -317,7 +317,7 @@ def check_aligned(kernel: str, **views: torch.Tensor) -> None:
     (a (batch, head, token, dh) view's batch, head and token strides) are
     multiples of 16 bytes: K21, K13, K14 and K6's attention read and write
     16 bytes per lane, and the TMA tensor maps of the bf16 GEMM core (K1,
-    K2, K5, K6, K7, K8, K9, K11, K12a, K12b, K12c, K22 and K16's out_proj)
+    K2, K4-K12c, K22 and K16's out_proj)
     take such bases and row pitches only.
     Axes of length 1 are never stepped, so their strides do not count.
     Anything else raises ``ValueError`` naming the operand."""
@@ -334,8 +334,7 @@ def check_aligned(kernel: str, **views: torch.Tensor) -> None:
 
 
 # bf16 elements per 16-byte row step of the TMA + wgmma GEMM core of K1, K2,
-# K5, K6, K7, K8, K9, K11, K12a, K12b, K12c, K22 and K16's out_proj
-# (csrc/gemm_mma.cuh)
+# K4-K12c, K22 and K16's out_proj (csrc/gemm_mma.cuh)
 TILE_VEC = 8
 
 
