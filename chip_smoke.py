@@ -196,7 +196,8 @@ Phases (a failed phase raises; nothing is caught):
      then K18 composed over 2 and 4 shards in one process (K18a per shard,
      the row maxima's maximum, K18b per shard, the int32 sum, the dequant)
      against K17 on the same x: mid, the row scales, the codes and the
-     int32 sums bit for bit, the output within one rounding;
+     int32 sums bit for bit, the output within one rounding; then the
+     bf16 K18a and K18b split by CUDA kernel at batch 100 for tp 2 and 4;
  37. the kernel study: K19 ln_qkv_attn_q8a with int8 p·v and with p·v in
      the dtype, beside K15, at batch 100 and 3 bf16, by the stage checks
      (the q, k, v and p codes within 1 on the kernel's own packed QKV and
@@ -1051,6 +1052,38 @@ def phase_k4_split(dev: torch.device, card: str) -> None:
                       f"K10 out_residual_train bfloat16 batch {b} T {t} (rows {rows}) p {REG_P} "
                       "by kernel", card)
         del ctx, res
+
+
+def phase_k18_split(dev: torch.device, card: str) -> None:
+    """Phase 36's split of the bf16 K18a and of K18b by CUDA kernel at rank
+    0's shard of B/16 batch 100 for tp 2 and 4: K18a's K-major W1q copy,
+    LN2 + quantize rows and FC1 on the int8 core (``fast_erf``, the
+    tensor-parallel MLP's form); K18b's K-major W2q copy, the requantize
+    rows and FC2 with its int32 store."""
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import fc2_q8_partial as k18b
+    from vit_tpu_torch.ops.kernels import ln_fc1_gelu_q8 as k18a
+
+    d, f, rows, bf = B16["d"], B16["f"], BATCHES[0] * B16["t"], torch.bfloat16
+    rn = _rand(dev, 18)
+    x, s2, b2n = (rn(rows, d, scale=2.0, dtype=bf), rn(d, scale=0.2, shift=1.0, dtype=bf),
+                  rn(d, scale=0.2, dtype=bf))
+    (w1q, w1s), bb1 = quant.quantize_weight(rn(d, f, scale=d ** -0.5)), rn(f, scale=0.1, dtype=bf)
+    w2q, _ = quant.quantize_weight(rn(f, d, scale=f ** -0.5))
+    for tp in TP_SIZES:
+        c = slice(0, f // tp)
+        a18a = (x, s2, b2n, w1q[:, c].contiguous(), w1s[c].contiguous(), bb1[c].contiguous(),
+                1e-6, "exact", True)
+        mid = k18a.ln_fc1_gelu_q8(*a18a)
+        mmax = mid.abs().amax(-1, keepdim=True)
+        ms = torch.clamp(mmax / torch.full_like(mmax, 127.0), min=1e-12)
+        w2 = w2q[c].contiguous()
+        tag = f"bfloat16 batch {BATCHES[0]} (rows {rows}) tp {tp} (rank 0: F/tp {f // tp})"
+        _kernel_split(lambda: k18a.ln_fc1_gelu_q8(*a18a), f"K18a ln_fc1_gelu_q8 {tag} by kernel",
+                      card)
+        _kernel_split(lambda: k18b.fc2_q8_partial(mid, ms, w2),
+                      f"K18b fc2_q8_partial {tag} by kernel", card)
+        del mid
 
 
 PROFILE_PHASES = ("patch_embed+pos", "layer_norm_1", "attention", "layer_norm_2", "mlp",
@@ -2950,6 +2983,8 @@ def group_parallel(dev, card, summary, launches) -> None:
     del fp_cases, q8_cases
     torch.cuda.empty_cache()
     phase_k18_composed(dev)
+    torch.cuda.empty_cache()
+    phase_k18_split(dev, card)
     torch.cuda.empty_cache()
     cases, labels = study_kernel_cases(dev)
     summary.update({k: v for k, v in phase_quant_kernels(cases, labels).items()

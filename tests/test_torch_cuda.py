@@ -2215,6 +2215,110 @@ def test_k18_composed_over_shards_is_k17(dev, dtype, tp):
             <= ulp * st["out"].float().abs().clamp(min=1.0)).all()
 
 
+def _k18_shard(dev, rows, d, f):
+    """The bf16 K18a's operands at a shard width f = F/tp (fast erf, the
+    tensor-parallel MLP's form), and K18b's W2q rows of that shard."""
+    x, s, b, w1q, w1s, b1, w2q, *_ = _mlp_q8_args(dev, torch.bfloat16, rows, d, f, "exact")
+    return (x, s, b, w1q, w1s, b1, 1e-6, "exact", True), w2q
+
+
+def _row_scales(mid):
+    mmax = mid.abs().amax(-1, keepdim=True)
+    return torch.clamp(mmax / torch.full_like(mmax, 127.0), min=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(TP_SHAPES))
+def test_k18_kmajor_copies_and_two_runs(dev, shape):
+    # the bf16 K18a and K18b read this shard's W1q and W2q through K-major
+    # copies (their transposes), and give the same bits in two runs
+    from vit_tpu_torch.ops.kernels import fc2_q8_partial as k18b
+    from vit_tpu_torch.ops.kernels import ln_fc1_gelu_q8 as k18a
+
+    rows, d, f, _ = TP_SHAPES[shape]
+    a18a, w2q = _k18_shard(dev, rows, d, f)
+    st = [k18a._ln_fc1_gelu_q8_stages(*a18a) for _ in range(2)]
+    assert torch.equal(st[0]["w1t"], a18a[3].t().contiguous())
+    mid = st[0]["mid"]
+    ms = _row_scales(mid)
+    st2 = [k18b._fc2_q8_partial_stages(mid, ms, w2q) for _ in range(2)]
+    assert torch.equal(st2[0]["w2t"], w2q.t().contiguous())
+    for a, b in (st, st2):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    # fp32 keeps the WMMA core: no K-major copy
+    x32 = (a18a[0].float(), *(t.float() for t in a18a[1:3]), *a18a[3:5], a18a[5].float())
+    assert "w1t" not in k18a._ln_fc1_gelu_q8_stages(*x32, *a18a[6:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_erf", [False, True], ids=["erf", "fast_erf"])
+@pytest.mark.parametrize("rows", [19700, 123, 1])
+def test_k18a_bf16_is_the_wmma_design(dev, rows, fast_erf):
+    # the bf16 K18a at B/16 b100 tp 2's shard (F/tp 1,536) and ragged rows:
+    # its stages against the twin's, and hq, hs and mid bit for bit those
+    # of the fp32 K18a (gemm_q8.cuh's WMMA core, the first design) on the
+    # same values widened: the int32 sums are exact and the epilogue the
+    # same functor
+    from vit_tpu_torch.ops.kernels import ln_fc1_gelu_q8 as k18a
+
+    a18a, _ = _k18_shard(dev, rows, 768, 1536)
+    args = (*a18a[:8], fast_erf)
+    st = k18a._ln_fc1_gelu_q8_stages(*args)
+    quant_stages.check_ln_fc1_gelu_q8(st, k18a.ln_fc1_gelu_q8_plain(*args), *args)
+    wide = (args[0].float(), args[1].float(), args[2].float(), *args[3:5], args[5].float(),
+            *args[6:])
+    st32 = k18a._ln_fc1_gelu_q8_stages(*wide)
+    for k in ("hq", "hs", "mid"):
+        assert torch.equal(st[k], st32[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("rows", [1, 123, 591, 19700])
+def test_k18b_codes_and_sums_are_the_twins(dev, tp, rows):
+    # K18b at B/16 shard widths and ragged rows: codes and int32 sums bit
+    # for bit the twin's, on a mid with exact ties and a row of zeros
+    from vit_tpu_torch.ops.kernels import fc2_q8_partial as k18b
+
+    f = 3072 // tp
+    mid = _rn(dev, 11, rows, f, scale=0.7)
+    mid[0] = ((torch.arange(f, device=dev) % 254).float() - 126.5) * 2.0 ** -7
+    mid[0, 0] = 127 * 2.0 ** -7  # row 0's scale is 2^-7: its other values are ties
+    if rows > 1:
+        mid[-1] = 0
+    ms = _row_scales(mid)
+    w2q, _ = _q8_weight(dev, 12, f, 768)
+    st = k18b._fc2_q8_partial_stages(mid, ms, w2q)
+    quant_stages.check_fc2_q8_partial(st, k18b.fc2_q8_partial_plain(mid, ms, w2q), mid, ms, w2q)
+
+
+@pytest.mark.cuda
+def test_k18_wrappers_refuse_off_grid_operands(dev):
+    from vit_tpu_torch.ops.kernels import fc2_q8_partial as k18b
+    from vit_tpu_torch.ops.kernels import ln_fc1_gelu_q8 as k18a
+
+    a18a, w2q = _k18_shard(dev, 10, 64, 128)
+    mid = k18a.ln_fc1_gelu_q8(*a18a)
+    ms = _row_scales(mid)
+    launches = (k18a.ln_fc1_gelu_q8.launches, k18b.fc2_q8_partial.launches)
+
+    def off(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(*t.shape).copy_(t)
+
+    with pytest.raises(ValueError, match="ln_fc1_gelu_q8: .*16-byte aligned"):
+        k18a.ln_fc1_gelu_q8(*a18a[:3], off(a18a[3]), *a18a[4:])
+    with pytest.raises(ValueError, match="ln_fc1_gelu_q8: .*multiples of 16"):
+        k18a.ln_fc1_gelu_q8(*a18a[:3], a18a[3][:, :120].contiguous(), a18a[4][:120].contiguous(),
+                            a18a[5][:120].contiguous(), *a18a[6:])
+    with pytest.raises(ValueError, match="fc2_q8_partial: mid must start on a 16-byte"):
+        k18b.fc2_q8_partial(off(mid), ms, w2q)
+    with pytest.raises(ValueError, match="fc2_q8_partial: mid must be a contiguous float32"):
+        k18b.fc2_q8_partial(mid.bfloat16(), ms, w2q)
+    with pytest.raises(ValueError, match="fc2_q8_partial: .*16-byte aligned"):
+        k18b.fc2_q8_partial(mid, ms, off(w2q))
+    assert (k18a.ln_fc1_gelu_q8.launches, k18b.fc2_q8_partial.launches) == launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tp", [2, 4])

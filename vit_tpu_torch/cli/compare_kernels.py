@@ -15,7 +15,9 @@ ToMe step's first merged layer, dropout and drop-path 0.1) where it has
 those, K9 at @512 batch 16 and at batch 64 T 171 (the long and the ToMe
 steps' out_proj backward) and K12c at batch 64 T 171 (dropout and
 drop-path 0.1), the W8A8 K15, K16 and K17 at
-batch 100 where it has those, K21 and K22 (the per-op attention and MLP) at
+batch 100 where it has those, K18a (bf16, the tanh-form erf) and K18b at
+rank 0's shard of batch 100 for tp 2 and 4 (these five also as device
+time, the kernels' durations in a profiler trace), K21 and K22 (the per-op attention and MLP) at
 batch 100 T 197,
 and K14 and K13 (the flash-attention backward and forward) at @512 batch 16
 (T 1,025), on strided views of a packed QKV as their paths give them, K13
@@ -27,8 +29,8 @@ batch 100 T 158 where the checkout has them.  The two optimizer steps also
 report their device time (the kernels' durations in a torch.profiler
 trace) and their host time per call.  ``--steps`` times the paths instead
 of the kernels, each checkout's own code end to end: the bf16 ``fused``
-forward at B/16 @224 batch 100 (``InferenceEngine.logits``), the
-``fused`` and ``quant`` ones at ToMe r = 13, and the bf16 mixed
+and ``quant`` forwards at B/16 @224 batch 100 (``InferenceEngine.logits``),
+the same at ToMe r = 13, and the bf16 mixed
 ``fused_train`` steps at @224 batch 64 plain and at dropout and drop-path
 0.1, at ToMe r = 13 plain and at dropout and drop-path 0.1, and at @512
 batch 16, each as its host wall time (median of 12 after 3, ending in a
@@ -169,9 +171,29 @@ if k("ln_qkv_attn_q8") is not None:
     x, ctx = rn(rows, d, scale=2.0), rn(rows, d)
     (wq, ws), (w1q, w1s), (w2q, w2s) = (quantize_weight(w) for w in (wqkv, w1, w2))
     mlp = (s, bb, w1q, w1s, b1, w2q, w2s, b2, eps, "exact")
-    times["K15"] = ms(lambda: k("ln_qkv_attn_q8")(x, s, bb, wq, ws, bqkv, h, t, eps))
-    times["K16"] = ms(lambda: k("out_ln_mlp_residual_q8")(ctx, x, wo, bo, *mlp))
-    times["K17"] = ms(lambda: k("ln_mlp_residual_q8")(x, *mlp))
+    for name, fn in (("K15", lambda: k("ln_qkv_attn_q8")(x, s, bb, wq, ws, bqkv, h, t, eps)),
+                     ("K16", lambda: k("out_ln_mlp_residual_q8")(ctx, x, wo, bo, *mlp)),
+                     ("K17", lambda: k("ln_mlp_residual_q8")(x, *mlp))):
+        times[name] = ms(fn)
+        times[f"{name} device"] = device_ms(fn)
+k18a, k18b = k("ln_fc1_gelu_q8"), k("fc2_q8_partial")
+if k18a is not None and k18b is not None:  # rank 0's shard of the tp W8A8 MLP
+    from vit_tpu_torch.ops.quant import quantize_weight
+    x = rn(100 * t, d, scale=2.0)
+    (w1q, w1s), (w2q, _) = quantize_weight(w1), quantize_weight(w2)
+    for tp in (2, 4):
+        c = slice(0, f // tp)
+        a18 = (x, s, bb, w1q[:, c].contiguous(), w1s[c].contiguous(), b1[c].contiguous(), eps,
+               "exact", True)
+        mid = k18a(*a18)
+        mmax = mid.abs().amax(-1, keepdim=True)
+        mscale = torch.clamp(mmax / torch.full_like(mmax, 127.0), min=1e-12)
+        w2c = w2q[c].contiguous()
+        for name, fn in ((f"K18a tp{tp}", lambda: k18a(*a18)),
+                         (f"K18b tp{tp}", lambda: k18b(mid, mscale, w2c))):
+            times[name] = ms(fn)
+            times[f"{name} device"] = device_ms(fn)
+        del mid
 k21, k14 = k("scaled_dot_product_attention", "attention"), k("flash_attention_bwd")
 k13, k20 = k("flash_attention_fwd", "flash_attention"), k("adamw_update", "adamw")
 if k21 is not None or k14 is not None or k13 is not None:
@@ -265,7 +287,7 @@ def init(cfg):
 
 x = torch.from_numpy(synth_images(100, VIT_B_16, seed=1)).to(dev, torch.bfloat16)
 weights = params_to_numpy(init(VIT_B_16))
-for ops, tome_r in (("fused", 0), ("fused", 13), ("quant", 13)):
+for ops, tome_r in (("fused", 0), ("quant", 0), ("fused", 13), ("quant", 13)):
     eng = InferenceEngine(VIT_B_16, weights, "bfloat16", ops, dev, batch_pad=100, tome_r=tome_r)
     wall_and_device(f"{ops} b100 forward" + (f" ToMe r={tome_r}" if tome_r else ""),
                     lambda: eng.logits(x))

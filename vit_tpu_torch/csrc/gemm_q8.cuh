@@ -1,8 +1,9 @@
-// int8 GEMM core of the W8A8 kernels (K15-K17): C = A @ B with A (M, K) and
-// B (K, N) int8 row-major in device memory, exact int32 accumulation on the
-// tensor cores (WMMA 16x16x16, signed char operands, int accumulators), and
-// an epilogue functor that receives each int32 accumulator with its
-// (row, col) — where the dequantization by the row and column scales runs.
+// int8 GEMM core of the fp32 W8A8 kernels (K15-K17, K18a) and of K19: C =
+// A @ B with A (M, K) and B (K, N) int8 row-major in device memory, exact
+// int32 accumulation on the tensor cores (WMMA 16x16x16, signed char
+// operands, int accumulators), and an epilogue functor that receives each
+// int32 accumulator with its (row, col) — where the dequantization by the
+// row and column scales runs.
 //
 // Block tile 128 x 128 x 64, 8 warps each owning a 64 x 32 slab, as the bf16
 // core of gemm.cuh (which stays as it is: this is a header of its own so
@@ -11,7 +12,8 @@
 // multiples of 16 and both base pointers 16-byte aligned (the wrappers
 // check).  Rows past M and depth past K load zeros, which add nothing to
 // the sums; the epilogue is skipped past M and N.  Tiles are
-// single-buffered; cp.async/TMA pipelining and wgmma are later work.
+// single-buffered; the bf16 W8A8 kernels (K15-K17, K18a) and K18b run
+// gemm_mma_q8.cuh's TMA + wgmma core instead, with this header's functors.
 #pragma once
 
 #include "common.cuh"

@@ -101,6 +101,15 @@ def _codes(report: dict, name: str, q, s, want_q, want_s, exact: bool = False) -
         raise AssertionError(f"{name}: a row scale differs by {srel:.3g} (bound {SCALE_RTOL:.3g})")
 
 
+def _kmajor(report: dict, st: dict, name: str, w_q) -> None:
+    """A K-major weight copy among the stages (bf16 on the card): the
+    transpose of the [in, out] weight, bit for bit."""
+    if name in st:
+        if not torch.equal(st[name], w_q.t()):
+            raise AssertionError(f"{name}: not the transpose of the int8 weight")
+        report[name] = 0.0
+
+
 def check_ln_qkv_attn_q8(st: dict, end, x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads,
                          seq_len, eps, log_size=None, return_kmean=False) -> dict:
     """K15's stages ``st`` (``_ln_qkv_attn_q8_stages``) on these operands,
@@ -186,8 +195,10 @@ def check_ln_qkv_attn_q8a(st: dict, end, x2d, ln_scale, ln_bias, wq, w_scale, bq
 def check_ln_fc1_gelu_q8(st: dict, end, x2d, ln_scale, ln_bias, w1q, w1s, b1, eps,
                          gelu_variant="exact", fast_erf=False) -> dict:
     """K18a's stages ``st`` (``_ln_fc1_gelu_q8_stages``) and ``end``, the
-    whole twin's ``mid``."""
+    whole twin's ``mid``; the bf16 kernel's K-major copy of W1q, where the
+    stages hold it, its transpose."""
     report = {}
+    _kmajor(report, st, "w1t", w1q)
     _codes(report, "hq", st["hq"], st["hs"],
            *quantize_activations(_ln(x2d, ln_scale, ln_bias, eps)))
     mid = _gelu(int8_matmul_reference(st["hq"], st["hs"], w1q, w1s.float(), b1.float()),
@@ -199,11 +210,14 @@ def check_ln_fc1_gelu_q8(st: dict, end, x2d, ln_scale, ln_bias, w1q, w1s, b1, ep
 
 def check_fc2_q8_partial(st: dict, end, mid, ms, w2q) -> dict:
     """K18b's stages ``st`` (``_fc2_q8_partial_stages``) and ``end``, the
-    twin's int32 sums: codes and sums bit for bit."""
+    twin's int32 sums: codes and sums bit for bit; the kernel's K-major copy
+    of W2q, where the stages hold it, its transpose."""
+    report = {}
+    _kmajor(report, st, "w2t", w2q)
     if not torch.equal(st["mq"], requantize_plain(mid, ms)):
         raise AssertionError("mq: codes differ from the twin's on the same mid and row scales")
     if st["out"].dtype != torch.int32 or not torch.equal(st["out"], end):
         raise AssertionError("out: int32 sums differ from the twin's")
     if not torch.equal(st["out"], int8_dot(st["mq"], w2q).to(torch.int32)):
         raise AssertionError("out: int32 sums differ from the exact product of the codes")
-    return {"mq": 0.0, "out": 0.0}
+    return {**report, "mq": 0.0, "out": 0.0}

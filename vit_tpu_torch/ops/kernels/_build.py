@@ -121,11 +121,11 @@ SIGNATURES = {
     "vt_ln_mlp_residual_q8": [_P] * 17 + [_I] * 3 + [_F, _I, _I, _I, _P],
     # a, sa, b, sb, out, m, n, k, device, stream
     "vt_gemm_q8_dequant": [_P] * 5 + [_I] * 4 + [_P],
-    # x, ln_scale, ln_bias, w1q, w1s, b1, hq, hs, mid, rows, d, f, eps,
+    # x, ln_scale, ln_bias, w1q, w1s, b1, w1t, hq, hs, mid, rows, d, f, eps,
     # gelu_variant, fast_erf, dtype, device, stream
-    "vt_ln_fc1_gelu_q8": [_P] * 9 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
-    # mid, ms, w2q, mq, out, rows, f, d, device, stream
-    "vt_fc2_q8_partial": [_P] * 5 + [_I] * 4 + [_P],
+    "vt_ln_fc1_gelu_q8": [_P] * 10 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+    # mid, ms, w2q, w2t, mq, out, rows, f, d, device, stream
+    "vt_fc2_q8_partial": [_P] * 6 + [_I] * 4 + [_P],
     # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, q8, qs, k8, ks, v8, vs,
     # p8, ctx, batch, seq, d, heads, head_dim, quant_pv, eps, dtype, device,
     # stream

@@ -1,14 +1,16 @@
 """The K-major copy of an int8 [in, out] weight, CUDA (``transpose_q8_kernel``
-in ``csrc/gemm_mma_q8.cuh``), shared by the bf16 K15, K16 and K17.
+in ``csrc/gemm_mma_q8.cuh``), shared by the bf16 K15, K16, K17 and K18a
+and by K18b.
 
-Replaces no TPU kernel: the int8 TMA + ``wgmma`` core those three run reads
+Replaces no TPU kernel: the int8 TMA + ``wgmma`` core those five run reads
 both operands K-major (``wgmma`` transposes from shared memory only for
 16-bit types), while the parameters keep the JAX package's [in, out]
 layout.  Each kernel's launch sequence first copies the weights it reads
 into scratches its wrapper allocates (:func:`kmajor_q8_scratch`);
 :func:`kmajor_q8` is the same kernel alone, for its exactness test and its
 timing.  What bounds it on the H100: bytes (the weight read once and
-written once: 1.8 MB for ViT-B/16's W_qkv, 2.4 MB for W1 or W2).
+written once: 1.8 MB for ViT-B/16's W_qkv, 2.4 MB for W1 or W2, 1.2 MB for
+a tp 2 shard of either).
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ def kmajor_q8_plain(w_q) -> torch.Tensor:
 
 
 def kmajor_q8(w_q) -> torch.Tensor:
-    """The K-major copy that the bf16 K15-K17's int8 GEMMs read, made by the
-    kernel their launch sequences start with (``vt_transpose_q8``) on a
-    CUDA tensor, by the plain twin on a CPU one."""
+    """The K-major copy that the int8 GEMMs of the bf16 K15-K17 and K18a and
+    of K18b read, made by the kernel their launch sequences start with
+    (``vt_transpose_q8``) on a CUDA tensor, by the plain twin on a CPU one."""
     if w_q.device.type == "cpu":
         return kmajor_q8_plain(w_q)
     name = "kmajor_q8"
