@@ -6,8 +6,9 @@ Phases (a failed phase raises; nothing is caught):
   2. build the CUDA kernels from ``vit_tpu_torch/csrc``;
   3. each kernel (K1 ln_qkv_attn, K2 out_ln_mlp_residual, K3 layer_norm)
      against its plain PyTorch twin on the card, bf16 and fp32, at ViT-B/16
-     shapes for batch 100 and a ragged batch of 3, with both timed; and the
-     bf16 GEMM core of K1, K2, K4-K12c, K16 and K22
+     shapes for batch 100 and a ragged batch of 3, with both timed (K3 also
+     as profiler device time, beside ``F.layer_norm``'s: its wrapper's host
+     cost dominates an events reading); and the bf16 GEMM core of K1, K2, K4-K12c, K16 and K22
      (``csrc/gemm_mma.cuh``)
      alone at the main path's four GEMM shapes (M 19,700) and at the four products
      of the MLP backward at @512 batch 16 (16,400 rows: dY W2ᵀ and du W1ᵀ
@@ -202,7 +203,7 @@ Phases (a failed phase raises; nothing is caught):
      the dtype, beside K15, at batch 100 and 3 bf16, by the stage checks
      (the q, k, v and p codes within 1 on the kernel's own packed QKV and
      scores; the context against the twin's on the kernel's codes), timed;
-     then ``python3 -m vit_tpu_torch.cli.bench_kernels --batch 100`` over
+     the bf16 K19 in both forms split by CUDA kernel at batch 100; then ``python3 -m vit_tpu_torch.cli.bench_kernels --batch 100`` over
      its eight kernels (12 launches per stack of layers, 13 stacks each);
  38. two ranks sharing the card over gloo, started by ``torchrun`` with a
      time limit (``--rank-worker``): the classify CLI with ``--ops quant
@@ -419,14 +420,17 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def case(tag, dtype, batch, fn, plain, args, flops, library=None, library_ms=None) -> dict:
+def case(tag, dtype, batch, fn, plain, args, flops, library=None, library_ms=None,
+         device=False) -> dict:
     """One kernel-vs-twin case: the kernel and its twin on ``args``, the
     operations its function needs, and one PyTorch call computing the same
     function, where there is one (``library``, timed here; or
-    ``library_ms``, a function that times it)."""
+    ``library_ms``, a function that times it).  ``device``: also the
+    kernel's and the library call's device time (profiler), where the
+    wrapper's host cost dominates a CUDA-events reading."""
     return dict(tag=tag, dtype=dtype, batch=batch, kernel=lambda: fn(*args),
                 plain=lambda: plain(*args), inputs=[a for a in args if torch.is_tensor(a)],
-                flops=flops, library=library, library_ms=library_ms)
+                flops=flops, library=library, library_ms=library_ms, device=device)
 
 
 def _tag(dtype, b, rows):
@@ -475,7 +479,7 @@ def kernel_cases(dev: torch.device):
                 2 * rows * d * d + 4 * rows * d * f))
             cases["layer_norm"].append(case(
                 tag, dtype, b, k3.layer_norm, k3.layer_norm_plain, a3, 0,
-                library=lambda a=a3: F.layer_norm(a[0], (d,), a[1], a[2], a[3])))
+                library=lambda a=a3: F.layer_norm(a[0], (d,), a[1], a[2], a[3]), device=True))
     return cases
 
 
@@ -520,13 +524,23 @@ def phase_kernels(cases: dict, labels: dict, summary_batch: int) -> dict:
                       else c["library_ms"]() if c["library_ms"] else None)
             bound_ms, bound_by = bound(c["flops"], _nbytes(c["inputs"]) + _nbytes(got), dtype)
             rate = f", {c['flops'] / ms / 1e9:.4g} TFLOP/s" if c["flops"] else ""
+            dev_ms = ({"device_ms": _device_ms(c["kernel"]),
+                       "library_device_ms": _device_ms(c["library"]) if c["library"] else None}
+                      if c.get("device") else {})
+            device = ""
+            if dev_ms:
+                k_dev, lib_dev = dev_ms["device_ms"], dev_ms["library_device_ms"]
+                device = (f"; device {k_dev:.6g} ms ({bound_ms / k_dev:.1%} of bound), library "
+                          f"device {'none' if lib_dev is None else f'{lib_dev:.6g} ms'}")
             log(f"{labels[name][0]} {name} {tag}: {len(got)} output(s), max|d|={err:.6g} "
                 f"(at most {worst:.3g} of its tol) kernel {ms:.6g} ms, plain {plain_ms:.6g} ms, "
                 f"library {'none' if lib_ms is None else f'{lib_ms:.6g} ms'}, bound "
-                f"{bound_ms:.6g} ms ({bound_by}, {bound_ms / ms:.1%} of the kernel's){rate}")
+                f"{bound_ms:.6g} ms ({bound_by}, {bound_ms / ms:.1%} of the kernel's){rate}"
+                f"{device}")
             if c.get("summary", dtype == torch.bfloat16 and c["batch"] == summary_batch):
                 summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+                                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                                 **dev_ms}
             del got, want
     return summary
 
@@ -1084,6 +1098,26 @@ def phase_k18_split(dev: torch.device, card: str) -> None:
         _kernel_split(lambda: k18b.fc2_q8_partial(mid, ms, w2),
                       f"K18b fc2_q8_partial {tag} by kernel", card)
         del mid
+
+
+def phase_k19_split(dev: torch.device, card: str) -> None:
+    """Phase 37's split of the bf16 K19 by CUDA kernel at B/16 batch 100,
+    with int8 p·v and with p·v in bf16: K15's stages 1-2 (the K-major copy
+    of Wq, LN1 + quantize, the QKV GEMM on the int8 core), the code passes
+    of q and k (and v), the attention on int8 register tiles."""
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_q8 as k15
+
+    d, h, t, bf = B16["d"], B16["heads"], B16["t"], torch.bfloat16
+    rows = BATCHES[0] * t
+    rn = _rand(dev, 19)
+    args = (rn(rows, d, scale=2.0, dtype=bf), rn(d, scale=0.2, shift=1.0, dtype=bf),
+            rn(d, scale=0.2, dtype=bf), *quant.quantize_weight(rn(d, 3 * d, scale=d ** -0.5)),
+            rn(3 * d, scale=0.1, dtype=bf), h, t, 1e-6)
+    for qpv in (True, False):
+        _kernel_split(lambda: k15.ln_qkv_attn_q8a(*args, quant_pv=qpv),
+                      f"K19 ln_qkv_attn_q8a quant_pv={qpv} bfloat16 batch {BATCHES[0]} "
+                      f"(rows {rows}) by kernel", card)
 
 
 PROFILE_PHASES = ("patch_embed+pos", "layer_norm_1", "attention", "layer_norm_2", "mlp",
@@ -2990,6 +3024,8 @@ def group_parallel(dev, card, summary, launches) -> None:
     summary.update({k: v for k, v in phase_quant_kernels(cases, labels).items()
                     if k in STUDY_KERNELS})
     del cases
+    torch.cuda.empty_cache()
+    phase_k19_split(dev, card)
     torch.cuda.empty_cache()
     launches["kernel_study"] = phase_kernel_study(card)
     torch.cuda.empty_cache()

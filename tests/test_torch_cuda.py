@@ -25,7 +25,7 @@ import torch
 from vit_tpu_torch.config import VIT_B_16
 from vit_tpu_torch.io.images import synth_images
 from vit_tpu_torch.ops.fused_block import drop_path_scale_rows
-from vit_tpu_torch.ops.kernels.layer_norm import layer_norm, layer_norm_plain
+from vit_tpu_torch.ops.kernels.layer_norm import layer_norm, layer_norm_plain, register_vecs
 from vit_tpu_torch.ops.kernels.ln_mlp_out_residual_bwd import (
     ln_mlp_out_residual_bwd,
     ln_mlp_out_residual_bwd_plain,
@@ -100,14 +100,75 @@ def _check(got, want, compute_dtype=None):
     assert err <= tol, f"max|d| {err} > {tol}"
 
 
+def _kernel_names(fn, calls: int = 5) -> set:
+    """The CUDA kernels a call of ``fn`` launches, by name: a profiler trace
+    over ``calls`` calls (a trace may drop a kernel's first records, so one
+    call alone can miss a kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+def _ln_operands(dev, dtype, shape):
+    return (_rn(dev, 0, *shape, scale=3.0, shift=1.0, dtype=dtype),
+            _rn(dev, 1, shape[-1], scale=0.2, shift=1.0, dtype=dtype),
+            _rn(dev, 2, shape[-1], scale=0.2, dtype=dtype))
+
+
+def _ln_kernel_ran(names, vecs, dtype):
+    """K3's register pass of ``vecs`` vectors per lane (0: the two-read row
+    kernel) is the one kernel among ``names``."""
+    want = f"layer_norm_reg_kernel<{vecs}>" if vecs else "layer_norm_kernel<"
+    assert len(names) == 1 and want in next(iter(names)), names
+    if not vecs:
+        assert ("bfloat16" in next(iter(names))) == (dtype == torch.bfloat16)
+
+
+# widths at each edge of the register pass's tiles (256 x 2, 4, 8 values)
+# and just past them, below them, and off the multiple of 8
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(1, 64), (3, 37, 128), (19700, 768), (7, 1280)])
+@pytest.mark.parametrize("shape", [(1, 64), (3, 37, 128), (19700, 768), (7, 1280), (16400, 768),
+                                   (5, 8), (9, 512), (9, 520), (9, 1024), (9, 1032), (5, 2048),
+                                   (5, 2056), (4, 772), (33, 1000)])
 def test_layer_norm(dev, dtype, shape):
-    x = _rn(dev, 0, *shape, scale=3.0, shift=1.0, dtype=dtype)
-    s = _rn(dev, 1, shape[-1], scale=0.2, shift=1.0, dtype=dtype)
-    b = _rn(dev, 2, shape[-1], scale=0.2, dtype=dtype)
+    x, s, b = _ln_operands(dev, dtype, shape)
+    d = shape[-1]
+    vecs = register_vecs(x, s, b)
+    want = next(v for v in (2, 4, 8) if d <= 256 * v) if d % 8 == 0 and d <= 2048 else 0
+    assert vecs == (want if dtype == torch.bfloat16 else 0)
+    _ln_kernel_ran(_kernel_names(lambda: layer_norm(x, s, b, 1e-6)), vecs, dtype)
     _check(layer_norm(x, s, b, 1e-6), layer_norm_plain(x, s, b, 1e-6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["x", "scale", "bias"])
+@pytest.mark.parametrize("offset", [1, 8], ids=["off_grid", "16_bytes_in"])
+def test_layer_norm_storage_offset(dev, dtype, which, offset):
+    # an operand that is a view at a storage offset: off the 16-byte grid it
+    # takes the two-read row kernel; a whole 16 bytes in (bf16), the
+    # register pass
+    ops = list(_ln_operands(dev, dtype, (123, 768)))
+    t = ops[which]
+    buf = torch.zeros(t.numel() + offset, dtype=dtype, device=dev)
+    ops[which] = buf[offset:].view(t.shape).copy_(t)
+    assert ops[which].storage_offset() == offset and ops[which].is_contiguous()
+    vecs = register_vecs(*ops)
+    on_grid = offset * ops[which].element_size() % 16 == 0
+    assert vecs == (4 if dtype == torch.bfloat16 and on_grid else 0)
+    _ln_kernel_ran(_kernel_names(lambda: layer_norm(*ops, 1e-6)), vecs, dtype)
+    _check(layer_norm(*ops, 1e-6), layer_norm_plain(*ops, 1e-6))
+    _check(layer_norm(*ops, 1e-6), layer_norm(t if which == 0 else ops[0],
+                                              t if which == 1 else ops[1],
+                                              t if which == 2 else ops[2], 1e-6))
 
 
 @pytest.mark.cuda
@@ -2349,8 +2410,9 @@ def test_k1_k15_at_local_heads(dev, dtype, tp):
 @pytest.mark.parametrize("quant_pv", [True, False], ids=["q8_pv", "dtype_pv"])
 @pytest.mark.parametrize(
     "b,t,d,h", [(2, 5, 64, 4), (3, 197, 768, 12), (2, 65, 256, 8), (1, 77, 768, 6),
-                (2, 257, 160, 2)],
-    ids=["tiny_dh16", "b16_t197", "t65_dh32", "wide_dh128", "h14_t257_dh80"],
+                (2, 257, 160, 2), (3, 1, 128, 2), (2, 129, 256, 4)],
+    ids=["tiny_dh16", "b16_t197", "t65_dh32", "wide_dh128", "h14_t257_dh80", "t1_dh64",
+         "t129_dh64"],
 )
 def test_ln_qkv_attn_q8a(dev, dtype, quant_pv, b, t, d, h):
     args = _k15_args(dev, dtype, b, t, d, h)
@@ -2362,3 +2424,32 @@ def test_ln_qkv_attn_q8a(dev, dtype, quant_pv, b, t, d, h):
     assert torch.equal(st["qkv"], k15._ln_qkv_attn_q8_stages(*args)["qkv"])  # K15's stages 1-2
     with pytest.raises(ValueError, match="no ToMe hooks"):
         k15.ln_qkv_attn_q8a(*args, log_size=_log_size(dev, b, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_pv", [True, False], ids=["q8_pv", "dtype_pv"])
+def test_ln_qkv_attn_q8a_bf16_kernels(dev, quant_pv):
+    # the bf16 K19 runs K15's stages 1-2 (the K-major copy, the row codes,
+    # the int8 TMA + wgmma core), the vectorized code passes and the
+    # mma.sync s8 attention; none of the WMMA GEMM, the one-thread code
+    # passes or the __dp4a tiles the fp32 form keeps
+    args = _k15_args(dev, torch.bfloat16, 3, 197, 768, 12)
+    names = " ".join(sorted(_kernel_names(lambda: k15.ln_qkv_attn_q8a(*args, quant_pv=quant_pv))))
+    for want in ("transpose_q8_kernel", "ln_quant_rows_kernel", "gemm_mma_q8_kernel",
+                 "quant_qk_vec_kernel", "attention_s8_kernel"):
+        assert want in names, names
+    assert ("quant_v_vec_kernel" in names) == quant_pv
+    for old in ("gemm_q8_kernel", "quant_qk_kernel", "quant_v_kernel", "attention_q8_kernel"):
+        assert old not in names, names
+
+
+@pytest.mark.cuda
+def test_ln_qkv_attn_q8a_rejects_off_grid_wq(dev):
+    args = list(_k15_args(dev, torch.bfloat16, 2, 5, 64, 4))
+    wq = args[3]
+    args[3] = torch.empty(wq.numel() + 1, dtype=torch.int8, device=dev)[1:].view(
+        wq.shape).copy_(wq)
+    launches = k15.ln_qkv_attn_q8a.launches
+    with pytest.raises(ValueError, match="ln_qkv_attn_q8a: .*16-byte aligned"):
+        k15.ln_qkv_attn_q8a(*args)
+    assert k15.ln_qkv_attn_q8a.launches == launches

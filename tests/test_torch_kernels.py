@@ -262,5 +262,6 @@ def test_build_hash_covers_every_source():
                                       "quant_rows.cuh", "mlp_q8.cuh", "mma_bf16.cuh",
                                       "gemm_mma.cuh", "sdpa_mma.cuh", "mlp_bwd_mma.cuh",
                                       "flash_bwd_mma.cuh", "gemm_mma_q8.cuh",
-                                      "qkv_attention_mma.cuh"}
+                                      "qkv_attention_mma.cuh", "ln_qkv_q8_mma.cuh",
+                                      "mma_s8.cuh"}
     assert _build.library_path().name == f"libvit_tpu_torch_{_build.source_hash()}.so"

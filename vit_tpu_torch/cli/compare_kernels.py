@@ -6,6 +6,8 @@ process, in turns, on one card:
 runs PARENT_DIR, ., ., PARENT_DIR per round (each checkout builds its own
 kernels into its own ``build/``) and prints each process's times, then the
 median per checkout.  K1 and K2 run at B/16 batch 100 (the classify path),
+K3 at 19,700 and 16,400 rows (the final LayerNorm @224 batch 100 and @512
+batch 16; also as device time),
 and K5's partial form there too at rank 0's shard of tp 2 (F/2 hidden
 columns) where the checkout has it; K4, K5, K7 and K6 at batch 64 (the train step; K6 also with token merging's
 bias and no residual join at batch 64 T 171), K10, K11 and K12a too where the
@@ -15,8 +17,9 @@ ToMe step's first merged layer, dropout and drop-path 0.1) where it has
 those, K9 at @512 batch 16 and at batch 64 T 171 (the long and the ToMe
 steps' out_proj backward) and K12c at batch 64 T 171 (dropout and
 drop-path 0.1), the W8A8 K15, K16 and K17 at
-batch 100 where it has those, K18a (bf16, the tanh-form erf) and K18b at
-rank 0's shard of batch 100 for tp 2 and 4 (these five also as device
+batch 100 where it has those, K19 (the kernel study's int8-attention
+kernel) there with int8 p·v and with p·v in bf16, K18a (bf16, the tanh-form erf) and K18b at
+rank 0's shard of batch 100 for tp 2 and 4 (these seven also as device
 time, the kernels' durations in a profiler trace), K21 and K22 (the per-op attention and MLP) at
 batch 100 T 197,
 and K14 and K13 (the flash-attention backward and forward) at @512 batch 16
@@ -115,6 +118,12 @@ rows = 100 * t
 x, ctx = rn(rows, d, scale=2.0), rn(rows, d)
 times["K1"] = ms(lambda: k("ln_qkv_attn")(x, s, bb, wqkv, bqkv, h, t, eps))
 times["K2"] = ms(lambda: k("out_ln_mlp_residual")(ctx, x, wo, bo, s, bb, w1, b1, w2, b2, eps, "exact"))
+k3 = k("layer_norm")
+for rows_ln in (100 * t, 16 * 1025):  # the final LayerNorm @224 batch 100 and @512 batch 16
+    xl = rn(rows_ln, d, scale=2.0)
+    times[f"K3 rows {rows_ln}"] = ms(lambda: k3(xl, s, bb, eps))
+    times[f"K3 rows {rows_ln} device"] = device_ms(lambda: k3(xl, s, bb, eps))
+    del xl
 k5 = k("ln_mlp_residual")
 if "partial" in inspect.signature(k5).parameters:  # rank 0's shard at tp 2
     sh = (w1[:, :f // 2].contiguous(), b1[:f // 2].contiguous(), w2[:f // 2].contiguous())
@@ -174,6 +183,11 @@ if k("ln_qkv_attn_q8") is not None:
     for name, fn in (("K15", lambda: k("ln_qkv_attn_q8")(x, s, bb, wq, ws, bqkv, h, t, eps)),
                      ("K16", lambda: k("out_ln_mlp_residual_q8")(ctx, x, wo, bo, *mlp)),
                      ("K17", lambda: k("ln_mlp_residual_q8")(x, *mlp))):
+        times[name] = ms(fn)
+        times[f"{name} device"] = device_ms(fn)
+    k19 = k("ln_qkv_attn_q8a", "ln_qkv_attn_q8")
+    for name, qpv in (("K19", True), ("K19 q.k only", False)):
+        fn = lambda: k19(x, s, bb, wq, ws, bqkv, h, t, eps, quant_pv=qpv)
         times[name] = ms(fn)
         times[f"{name} device"] = device_ms(fn)
 k18a, k18b = k("ln_fc1_gelu_q8"), k("fc2_q8_partial")

@@ -2,11 +2,11 @@
 // int8 row-major and B given K-major, as bt (N, K) int8 row-major, exact
 // int32 accumulators, and an epilogue functor of gemm_q8.cuh that receives
 // each int32 sum with its (row, col) — where the dequantization runs.  The
-// bf16 K15 (ln_qkv_attn_q8.cu: the QKV GEMM), the bf16 K16 and K17
+// bf16 K15 and K19 (ln_qkv_q8_mma.cuh: the QKV GEMM), the bf16 K16 and K17
 // (out_ln_mlp_residual_q8.cu, ln_mlp_residual_q8.cu: FC1 and FC2, through
 // mlp_q8_mma below), the bf16 K18a (ln_fc1_gelu_q8.cu: FC1 over a shard's
 // columns) and K18b (fc2_q8_partial.cu: FC2 over a shard's rows, int32 out)
-// run their int8 GEMMs on it; K19 and the fp32 K15-K17 and K18a keep
+// run their int8 GEMMs on it; the fp32 K15-K17, K18a and K19 keep
 // gemm_q8.cuh (WMMA 16x16x16), and this is a header of its own so that
 // neither gemm_q8.cuh's nor gemm_mma.cuh's kernels compile differently.
 //

@@ -33,6 +33,7 @@
 #include "common.cuh"
 #include "gemm_mma_q8.cuh"
 #include "gemm_q8.cuh"
+#include "ln_qkv_q8_mma.cuh"
 #include "qkv_attention_mma.cuh"
 #include "quant_rows.cuh"
 
@@ -56,20 +57,8 @@ cudaError_t ln_qkv_attn_q8(const T* x, const T* ln_scale, const T* ln_bias, cons
   return launch_attention_any<T>(qkv, ctx, batch, seq, heads, head_dim, stream, log_size, kmean);
 }
 
-// bf16: Wq's K-major copy into wqt (d3, d), the row codes, the int8 QKV GEMM
-// on the TMA + wgmma core
-cudaError_t ln_qkv_q8_mma(const bf16* x, const bf16* ln_scale, const bf16* ln_bias,
-                          const int8_t* wq, const float* ws, const bf16* bqkv, int8_t* wqt,
-                          int8_t* hq, float* hs, bf16* qkv, int rows, int d, int d3, float eps,
-                          cudaStream_t stream) {
-  if (rows <= 0) return cudaSuccess;
-  VT_TRY(launch_transpose_q8(wq, wqt, d, d3, stream));
-  VT_TRY(launch_ln_quant_rows(x, ln_scale, ln_bias, hq, hs, rows, d, eps, stream));
-  return launch_gemm_mma_q8(hq, wqt, rows, d3, d, DequantBiasEpi<bf16>{hs, ws, bqkv, qkv, d3},
-                            stream);
-}
-
-// bf16: stages 1-2 as above, then K1's bf16 attention stage and its hooks
+// bf16: stages 1-2 (ln_qkv_q8_mma.cuh, K19's too), then K1's bf16 attention
+// stage and its hooks
 cudaError_t ln_qkv_attn_q8_mma(const bf16* x, const bf16* ln_scale, const bf16* ln_bias,
                                const int8_t* wq, const float* ws, const bf16* bqkv, int8_t* wqt,
                                int8_t* hq, float* hs, bf16* qkv, bf16* ctx,

@@ -52,7 +52,11 @@ from vit_tpu_torch.ops.kernels.ln_mlp_residual_q8 import (
 )
 from vit_tpu_torch.ops.kernels.ln_qkv_attn import kmean_plain, packed_attention_plain
 from vit_tpu_torch.ops.kernels.out_ln_mlp_residual_q8 import out_proj_residual_plain
-from vit_tpu_torch.ops.kernels.ln_qkv_attn_q8 import attention_q8_codes_plain, attention_q8_plain
+from vit_tpu_torch.ops.kernels.ln_qkv_attn_q8 import (
+    attention_q8_codes_plain,
+    attention_q8_plain,
+    v8_keys_major,
+)
 from vit_tpu_torch.ops.quant import int8_dot, int8_matmul_reference, quantize_activations
 
 # relative to the largest |value| of the twin's result (at least 1): fp32 —
@@ -173,13 +177,17 @@ def check_ln_qkv_attn_q8a(st: dict, end, x2d, ln_scale, ln_bias, wq, w_scale, bq
                           seq_len, eps, quant_pv=True) -> dict:
     """K19's stages ``st`` (``_ln_qkv_attn_q8a_stages``, with ``p8`` when
     ``quant_pv``) and ``end``, the whole twin's context: stages 1-2 as
-    K15's; the q, k (and v, p) codes by check (a) on the kernel's packed QKV
-    and scores; the context against the twin's on the kernel's codes (and
-    p codes), by check (b)."""
+    K15's (the bf16 kernel's K-major copy of Wq its transpose); the q, k
+    (and v, p) codes by check (a) on the kernel's packed QKV and scores, v's
+    in the dtype's layout (``v8_keys_major``: bf16's keys-contiguous, its
+    padding zero codes); the context against the twin's on the kernel's
+    codes (and p codes), by check (b)."""
     report = check_ln_qkv_attn_q8({k: st[k] for k in ("hq", "hs", "qkv")}, st["qkv"], x2d,
                                   ln_scale, ln_bias, wq, w_scale, bqkv, num_heads, seq_len, eps)
     del report["end to end"]  # the packed QKV against itself
-    want = attention_q8_codes_plain(st["qkv"], num_heads, seq_len, quant_pv)
+    _kmajor(report, st, "wqt", wq)
+    want = attention_q8_codes_plain(st["qkv"], num_heads, seq_len, quant_pv,
+                                    v8_keys_major(x2d.dtype))
     for name in ("q", "k", "v")[: 3 if quant_pv else 2]:
         _codes(report, f"{name}8", st[f"{name}8"], st[f"{name}s"], want[f"{name}8"],
                want[f"{name}s"])

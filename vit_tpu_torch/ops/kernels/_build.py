@@ -48,8 +48,8 @@ _L3 = [ctypes.c_longlong] * 3  # a (batch, head, token, dh) view's element strid
 # dropout on (fused_block.dropout_launch_args)
 _DROP = [_U, _U, _F, _I]
 SIGNATURES = {
-    # x, scale, bias, out, rows, d, eps, dtype, device, stream
-    "vt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # x, scale, bias, out, rows, d, eps, vecs, dtype, device, stream
+    "vt_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     # x, ln_scale, ln_bias, wqkv, bqkv, stats, h, qkv, ctx, log_size, kmean,
     # batch, seq, d, heads, head_dim, eps, dtype, device, stream
     "vt_ln_qkv_attn": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
@@ -126,10 +126,10 @@ SIGNATURES = {
     "vt_ln_fc1_gelu_q8": [_P] * 10 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
     # mid, ms, w2q, w2t, mq, out, rows, f, d, device, stream
     "vt_fc2_q8_partial": [_P] * 6 + [_I] * 4 + [_P],
-    # x, ln_scale, ln_bias, wq, ws, bqkv, hq, hs, qkv, q8, qs, k8, ks, v8, vs,
-    # p8, ctx, batch, seq, d, heads, head_dim, quant_pv, eps, dtype, device,
-    # stream
-    "vt_ln_qkv_attn_q8a": [_P] * 17 + [_I] * 6 + [_F, _I, _I, _P],
+    # x, ln_scale, ln_bias, wq, ws, bqkv, wqt, hq, hs, qkv, q8, qs, k8, ks, v8,
+    # vs, p8, ctx, batch, seq, d, heads, head_dim, quant_pv, eps, dtype,
+    # device, stream
+    "vt_ln_qkv_attn_q8a": [_P] * 18 + [_I] * 6 + [_F, _I, _I, _P],
     # q, <strides>, k, <strides>, v, <strides>, out, <strides>, batch, heads,
     # seq, head_dim, dtype, device, stream
     "vt_scaled_dot_product_attention": ([_P] + _L3) * 4 + [_I] * 6 + [_P],

@@ -55,10 +55,16 @@ codes per (key, head) (the TPU kernel transposes k before quantizing, so
 each key has its own scale), an exact int32 q·kᵀ, e = exp(s - m), and with
 ``quant_pv`` p8 = round(127 e) at the fixed scale, v codes per (image, head,
 column) and an exact int32 p8·v8 dequantized by (1/sum)(1/127) vs;
-``quant_pv=False`` keeps p·v in the working dtype.  The dots run as
-``__dp4a`` on the CUDA cores (right first; not the tensor cores).  Only the
-kernel study (``cli/bench_kernels.py``) calls it; it takes no token-merging
-hook, as the TPU kernel takes none.
+``quant_pv=False`` keeps p·v in the working dtype.  Only the kernel study
+(``cli/bench_kernels.py``) calls it; it takes no token-merging hook, as the
+TPU kernel takes none.  The bf16 form runs on the cores the bf16 K15 runs
+on: K15's stages 1-2 through the same host function (so the packed QKV is
+K15's bit for bit, and the same operand rule, ``check_tile_operands``),
+vectorized code passes, and the dots on ``mma.sync`` m16n8k32 s8 register
+tiles; its v codes lie keys-contiguous, (B, H, dh, T padded to 16)
+(:func:`v8_keys_major`), the K-major B operand of p·v.  fp32 keeps the first
+design: the WMMA QKV GEMM and ``__dp4a`` dots on the CUDA cores, v codes in
+(B*T, D) rows.
 """
 
 from __future__ import annotations
@@ -118,13 +124,14 @@ def _qkv_q8_scratch(name, x2d, ln_scale, ln_bias, wq, w_scale, bqkv) -> dict:
             "qkv": torch.empty(rows, d3, dtype=x2d.dtype, device=dev)}
 
 
-def check_tile_operands(x2d, ln_scale, ln_bias, wq, *_, **__) -> None:
+def check_tile_operands(x2d, ln_scale, ln_bias, wq, *_, kernel="ln_qkv_attn_q8", **__) -> None:
     """bf16: what the int8 TMA + ``wgmma`` core reads — Wq two-dimensional,
     16-byte aligned, both dimensions multiples of 16 (its K-major copy, the
     code scratch's pitch D, the GEMM's width 3D; a 3D that is a multiple of
     16 also gives the attention tiles' 16-byte rows of the packed QKV); the
-    wrapper's arguments, raises ``ValueError`` otherwise."""
-    _build.check_q8_matrices("ln_qkv_attn_q8", wq)
+    wrapper's arguments (K15's, or K19's with ``kernel="ln_qkv_attn_q8a"``),
+    raises ``ValueError`` otherwise."""
+    _build.check_q8_matrices(kernel, wq)
 
 
 def _head_dim(name, d3, rows, num_heads, seq_len) -> int:
@@ -230,12 +237,26 @@ def _ln_qkv_attn_q8_stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads,
 # -- K19: int8 attention dots ---------------------------------------------------
 
 
-def attention_q8_codes_plain(qkv, num_heads: int, seq_len: int, quant_pv: bool = True) -> dict:
+# the bf16 kernel's v codes: each (image, head, column)'s keys contiguous,
+# padded with zero codes to a multiple of this (16-byte rows)
+V8_KEY_PAD = 16
+
+
+def v8_keys_major(dtype) -> bool:
+    """Whether K19 in ``dtype`` writes v's codes keys-contiguous, (B, H, dh,
+    T padded to ``V8_KEY_PAD``): bf16 does (its p·v reads them as a K-major
+    operand); fp32 writes (B*T, D) rows."""
+    return dtype == torch.bfloat16
+
+
+def attention_q8_codes_plain(qkv, num_heads: int, seq_len: int, quant_pv: bool = True,
+                             keys_major: bool = False) -> dict:
     """Stage 3a's twin: the packed QKV (B*T, 3D) -> codes and scales of the
     attention operands, in the kernel's layouts: q8/k8 (B*T, D) int8 with
     qs/ks (B*T, H) fp32 (per row and head, over dh), and with ``quant_pv``
-    v8 (B*T, D) with vs (B, H, dh) (per image, head and column, over the
-    image's tokens)."""
+    v8 with vs (B, H, dh) (per image, head and column, over the image's
+    tokens): v8 (B*T, D), or with ``keys_major`` (B, H, dh, T padded to
+    ``V8_KEY_PAD`` with zero codes), the bf16 kernel's layout."""
     rows, d3 = qkv.shape
     dh = d3 // (3 * num_heads)
     b = rows // seq_len
@@ -245,7 +266,12 @@ def attention_q8_codes_plain(qkv, num_heads: int, seq_len: int, quant_pv: bool =
            "k8": k8.reshape(rows, -1), "ks": ks.reshape(rows, num_heads)}
     if quant_pv:
         v8, vs = _symmetric_int8(v, v.abs().amax(dim=1, keepdim=True))
-        out.update(v8=v8.reshape(rows, -1), vs=vs.reshape(b, num_heads, dh))
+        if keys_major:
+            pad = -seq_len % V8_KEY_PAD
+            v8 = torch.nn.functional.pad(v8.permute(0, 2, 3, 1), (0, pad)).contiguous()
+        else:
+            v8 = v8.reshape(rows, -1)
+        out.update(v8=v8, vs=vs.reshape(b, num_heads, dh))
     return out
 
 
@@ -272,7 +298,9 @@ def attention_q8_plain(codes: dict, qkv, num_heads: int, seq_len: int, quant_pv:
     if quant_pv:
         if p8 is None:
             p8 = torch.round(e * 127.0).to(torch.int8)  # the fixed scale: e <= 1
-        ctx = int8_dot(p8, heads(codes["v8"])).float() * (inv * (1.0 / 127.0))
+        v8 = codes["v8"]  # (B*T, D) rows, or keys-major (B, H, dh, T padded)
+        v8 = v8[..., :seq_len].transpose(-1, -2) if v8.dim() == 4 else heads(v8)
+        ctx = int8_dot(p8, v8).float() * (inv * (1.0 / 127.0))
         ctx = ctx * codes["vs"][:, :, None, :]
     else:
         v = heads(qkv.reshape(b, seq_len, num_heads, 3, dh)[:, :, :, 2].reshape(rows, -1))
@@ -292,18 +320,23 @@ def ln_qkv_attn_q8a_plain(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads: 
 def _ln_qkv_attn_q8a_stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads, seq_len, eps,
                             quant_pv=True, return_p=False) -> dict:
     """-> {hq, hs, qkv, q8, qs, k8, ks, ctx} (and {v8, vs} with ``quant_pv``,
-    {p8} with ``return_p`` too): the kernel's scratches and output on the
-    card (one launch), the twin's on the CPU."""
+    {p8} with ``return_p`` too; v8 in the layout of :func:`v8_keys_major`):
+    the kernel's scratches and output on the card (one launch; bf16 adds
+    {wqt}, the K-major copy of Wq its GEMM reads), the twin's on the CPU."""
     name = "ln_qkv_attn_q8a"
+    keys_major = v8_keys_major(x2d.dtype)
     if x2d.device.type == "cpu":
         st = dict(zip(("hq", "hs", "qkv"),
                       ln_qkv_q8_plain(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, eps)))
-        st.update(attention_q8_codes_plain(st["qkv"], num_heads, seq_len, quant_pv))
+        st.update(attention_q8_codes_plain(st["qkv"], num_heads, seq_len, quant_pv, keys_major))
         st["ctx"], p8 = attention_q8_plain(st, st["qkv"], num_heads, seq_len, quant_pv)
         if return_p and quant_pv:
             st["p8"] = p8
         return st
     st = _qkv_q8_scratch(name, x2d, ln_scale, ln_bias, wq, w_scale, bqkv)
+    if x2d.dtype == torch.bfloat16:
+        check_tile_operands(x2d, ln_scale, ln_bias, wq, kernel=name)
+        st["wqt"], = kmajor_q8_scratch(wq)
     rows, d = x2d.shape
     d3 = wq.shape[-1]
     dh = _head_dim(name, d3, rows, num_heads, seq_len)
@@ -315,7 +348,9 @@ def _ln_qkv_attn_q8a_stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads
     st.update(q8=new(rows, d3 // 3), qs=new(rows, num_heads, dtype=torch.float32),
               k8=new(rows, d3 // 3), ks=new(rows, num_heads, dtype=torch.float32))
     if quant_pv:
-        st.update(v8=new(rows, d3 // 3), vs=new(b, num_heads, dh, dtype=torch.float32))
+        v8 = (new(b, num_heads, dh, seq_len + -seq_len % V8_KEY_PAD) if keys_major
+              else new(rows, d3 // 3))
+        st.update(v8=v8, vs=new(b, num_heads, dh, dtype=torch.float32))
         if return_p:
             st["p8"] = new(b, num_heads, seq_len, seq_len)
     st["ctx"] = new(rows, d3 // 3, dtype=x2d.dtype)
@@ -323,8 +358,8 @@ def _ln_qkv_attn_q8a_stages(x2d, ln_scale, ln_bias, wq, w_scale, bqkv, num_heads
     _build.check(
         _build.load_library().vt_ln_qkv_attn_q8a(
             *(t.data_ptr() for t in (x2d, ln_scale, ln_bias, wq, w_scale, bqkv)),
-            *(ptr(k) for k in ("hq", "hs", "qkv", "q8", "qs", "k8", "ks", "v8", "vs", "p8",
-                               "ctx")),
+            *(ptr(k) for k in ("wqt", "hq", "hs", "qkv", "q8", "qs", "k8", "ks", "v8", "vs",
+                               "p8", "ctx")),
             b, seq_len, d, num_heads, dh, int(bool(quant_pv)), eps,
             _build.DTYPE_CODES[x2d.dtype], dev.index, _build.stream_of(x2d),
         ),
