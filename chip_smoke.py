@@ -216,9 +216,36 @@ Phases (a failed phase raises; nothing is caught):
      one card; the tensor-parallel forward @512 batch 16 (12 K13, 12 K5
      partial, 1 K3 per rank).
 
+ 39. the dynamic-batching ``InferenceServer`` on the card (max_batch 64,
+     batch_pad 32, 5 ms; B/16 @224 ``fused`` bf16): 200 requests of 1-64
+     images from ``default_rng(0)`` submitted by 4 threads, every third
+     with ``return_probs``, each answer against the same engine's classify
+     of that request alone by phase 38's comparator rule, every
+     probabilities row summing to 1; the counts set to 0 after warmup and
+     read after (12 K1, 12 K2, 1 K3 per batch; fewer batches than
+     requests); then fp32 (48 requests: labels equal, top within 1e-5),
+     ``quant`` (32: 12 K15, 12 K16, 1 K3 per batch) and ToMe r = 13 on
+     ``fused`` (32: 12 K1, 12 K4, 12 K5);
+ 40. ``vit-tpu-torch-serve --selftest 400`` in-process, saturated and
+     ``--staged``, then ``--selftest-rate`` at 50, 70 and 90% of the
+     saturated request rate, one line each (img/s, images per batch,
+     p50/p99, offered rate, the card); the static forward at batch 64
+     beside them; the saturated server's device busy share over 20 batches
+     (profiler device time over wall);
+ 41. the HTTP daemon on an ephemeral port: ``POST /classify`` with 8 images
+     in the bin format and with one PNG (bit for bit the engine's),
+     ``X-Deadline-Ms: 0`` answered 504, ``/healthz``, ``/metrics`` (the JAX
+     daemon's names), ``POST /reload`` to seed-1 weights (then a seed-1
+     engine's answers), its counts (12 K1, 12 K2, 1 K3 per batch); then
+     ``InferenceEngine.attention_maps`` with ``rollout`` in fp32 on the card
+     under ``torch.set_float32_matmul_precision("high")``, within 1e-5 of a
+     float64 CPU composition of the same probabilities and within 1e-5 of
+     the map's largest value, a TF32 matmul chain's deviation beside it.
+
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
 regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
-per_op 31-33, adamw 34-35, parallel 36-38); without it every phase runs.
+per_op 31-33, adamw 34-35, parallel 36-38, serve 39-41); without it every
+phase runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -243,6 +270,7 @@ import re
 import statistics
 import subprocess
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3033,8 +3061,380 @@ def group_parallel(dev, card, summary, launches) -> None:
         launches.update(phase_parallel(synth_params(VIT_B_16, 0), dev, card, workdir))
 
 
+# the serving group (phases 39-41): InferenceServer and vit-tpu-torch-serve
+SERVE_MAX_BATCH = 64  # the serve CLI's defaults
+SERVE_PAD = 32
+SERVE_DELAY_MS = 5.0
+SERVE_POOL = 256  # the requests are slices of one pool of synthetic images
+SERVE_THREADS = 4  # phase 39's submitting threads
+SERVE_WAIT = 300  # s: the bound on every wait of phases 39-41
+# phase 39's runs: name -> (ops, dtype, ToMe r, requests, K per batch, check)
+SERVE_RUNS = {
+    "serve": ("fused", "bfloat16", 0, 200,
+              {"ln_qkv_attn": 12, "out_ln_mlp_residual": 12, "layer_norm": 1}, "rule"),
+    "serve_fp32": ("fused", "float32", 0, 48,
+                   {"ln_qkv_attn": 12, "out_ln_mlp_residual": 12, "layer_norm": 1}, "fp32"),
+    "serve_quant": ("quant", "bfloat16", 0, 32,
+                    {"ln_qkv_attn_q8": 12, "out_ln_mlp_residual_q8": 12, "layer_norm": 1}, "rule"),
+    "serve_tome": ("fused", "bfloat16", TOME_R, 32,
+                   {"ln_qkv_attn": 12, "out_residual": 12, "ln_mlp_residual": 12}, "rule"),
+}
+SELFTEST_REQUESTS = 400
+# the /metrics names, the JAX daemon's
+METRIC_NAMES = sorted(f"vit_tpu_{name}" for name in (
+    "requests_total", "images_total", "batches_total", "images_per_batch",
+    "deadline_expired_total", "request_latency_seconds_bucket", "request_latency_seconds_sum",
+    "request_latency_seconds_count", "request_latency_p50_seconds",
+    "request_latency_p99_seconds"))
+SELFTEST_SHARES = (0.5, 0.7, 0.9)  # of the saturated request rate, paced
+SERVE_BUSY_BATCHES = 20
+
+
+def _serve_stream():
+    """Phase 39's traffic: 200 requests of 1-64 images from default_rng(0),
+    each a slice (offset, size) of the pool."""
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(1, SERVE_MAX_BATCH + 1, 200)
+    return [(int(rng.integers(0, SERVE_POOL - n + 1)), int(n)) for n in sizes]
+
+
+def _serve_run(name: str, params, pool: np.ndarray, p32_pool: np.ndarray, dev, card: str) -> dict:
+    """One run of phase 39: an ``InferenceServer`` (max_batch 64, batch_pad 32,
+    5 ms) warmed up, each request's answer from the same engine alone, the
+    counts set to 0, the stream submitted by 4 threads (every third request
+    with ``return_probs``), the counts read; then the answers against the
+    engine's.  -> launch counts of the served stream."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io import results
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+    from vit_tpu_torch.runtime.serving import InferenceServer
+
+    ops, dtype, tome_r, count, per_batch, check = SERVE_RUNS[name]
+    stream = _serve_stream()[:count]
+    requests = [pool[o:o + n] for o, n in stream]
+    engine = InferenceEngine(VIT_B_16, params, dtype, ops, dev, batch_pad=SERVE_PAD,
+                             tome_r=tome_r)
+    server = InferenceServer(engine, max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_DELAY_MS,
+                             max_queue_images=1 << 31)
+    t0 = time.perf_counter()
+    server.warmup()
+    warm = time.perf_counter() - t0
+    want = [engine.classify(r) for r in requests]
+    futures = [None] * len(requests)
+
+    def client(k):
+        for i in range(k, len(requests), SERVE_THREADS):
+            futures[i] = server.submit(requests[i], return_probs=(i % 3 == 0))
+
+    wrappers = _reset_counts()
+    with server:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVE_WAIT)
+        if any(t.is_alive() for t in threads) or None in futures:
+            raise RuntimeError(f"{name}: a client thread did not submit its requests")
+        got = [f.result(timeout=SERVE_WAIT) for f in futures]
+        wall = time.perf_counter() - t0
+    stats = server.stats
+    what = (f"{name} ({ops} {dtype}{f' ToMe r={tome_r}' if tome_r else ''}, {len(requests)} "
+            f"requests, {sum(n for _, n in stream)} images, {stats.batches} batches)")
+    launches = _expect_counts(wrappers, {k: n * stats.batches for k, n in per_batch.items()},
+                              what)
+    log(f"{what}: warmup {warm:.6g} s, served in {wall:.6g} s, {stats.images_per_batch:.6g} "
+        f"images/batch; {card}")
+    if not stats.batches < len(requests):
+        raise RuntimeError(f"{what}: no two requests shared a batch")
+    for i, (_, _, probs) in enumerate(got):
+        if (probs is None) != (i % 3 != 0):
+            raise RuntimeError(f"{what}: request {i}'s probabilities "
+                               f"{'missing' if probs is None else 'unasked'}")
+        if probs is not None:
+            sums = np.abs(probs.sum(-1) - 1.0).max()
+            if not (probs.shape == (stream[i][1], VIT_B_16.num_classes) and sums <= 1e-5):
+                raise RuntimeError(f"{what}: request {i}'s probabilities {probs.shape}, "
+                                   f"rows sum to 1 within {sums}")
+    labels = np.concatenate([g[0] for g in got])
+    top = np.concatenate([g[1] for g in got])
+    want_labels = np.concatenate([w[0] for w in want])
+    want_top = np.concatenate([w[1] for w in want])
+    if check == "fp32":
+        d = float(np.abs(top - want_top).max())
+        bad = int((labels != want_labels).sum())
+        log(f"{what} vs the engine alone: {bad} label mismatches (tol 0), top-prob max|d|={d:.6g} "
+            f"(tol 1e-5)")
+        if bad or not d <= 1e-5:
+            raise RuntimeError(f"{what}: answers differ from the engine's")
+    else:
+        with tempfile.TemporaryDirectory(dir=_build_dir()) as tmp:
+            results.write_result_file(labels, top, f"{tmp}/served.txt")
+            results.write_result_file(want_labels, want_top, f"{tmp}/alone.txt")
+            p32 = np.concatenate([p32_pool[o:o + n] for o, n in stream])
+            _line_rule(f"{what} vs the engine alone", f"{tmp}/served.txt", f"{tmp}/alone.txt",
+                       p32)
+    return launches
+
+
+def _build_dir():
+    from vit_tpu_torch.ops.kernels import _build
+
+    return _build.BUILD_DIR
+
+
+def phase_server(params, dev, card: str) -> dict:
+    """Phase 39: the server on the card against the engine (``SERVE_RUNS``).
+    -> launch counts by path."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    pool = synth_images(SERVE_POOL, VIT_B_16, seed=2)
+    f32 = InferenceEngine(VIT_B_16, params, "float32", "fused", dev, batch_pad=SERVE_PAD)
+    p32_pool = f32.probabilities(pool).cpu().numpy()
+    del f32
+    launches = {}
+    for name in SERVE_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches[name] = _serve_run(name, params, pool, p32_pool, dev, card)
+    return launches
+
+
+def phase_serve_selftest(params, dev, card: str, workdir: str) -> None:
+    """Phase 40: ``vit-tpu-torch-serve --selftest 400`` in-process (bf16
+    ``fused``, the CLI's defaults), saturated and ``--staged``, then paced
+    at 50/70/90% of the saturated request rate; one line each.  Then the
+    static forward at batch 64 on the same tensors, and the saturated
+    server's device busy share over 20 batches (profiler kernel time over
+    wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_tpu_torch.cli import serve
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io import checkpoint
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+    from vit_tpu_torch.runtime.serving import InferenceServer, ServerStats
+
+    weights = f"{workdir}/params.npz"
+    checkpoint.save_npz(params, weights)
+
+    def selftest(extra, what):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(["--weights", weights, "--device", "cuda", "--dtype", "bfloat16",
+                             "--ops", "fused", "--selftest", str(SELFTEST_REQUESTS), *extra])
+        if rc != 0:
+            raise RuntimeError(f"vit-tpu-torch-serve {' '.join(extra)} exited {rc}")
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        log(f"serve selftest {what}: {out['value']} img/s, {out['images']} images in "
+            f"{out['requests']} requests, {out['images_per_batch']} images/batch "
+            f"({out['batches']} batches), p50 {out['latency_p50_ms']} ms, p99 "
+            f"{out['latency_p99_ms']} ms, offered {out.get('offered_rps', 'all at t=0')} "
+            f"requests/s; {card}")
+        return out
+
+    sat = selftest([], "saturated")
+    staged = selftest(["--staged"], "saturated --staged")
+    rps = sat["requests"] * sat["value"] / sat["images"]
+    for share in SELFTEST_SHARES:
+        selftest(["--selftest-rate", f"{share * rps:.6g}"],
+                 f"paced at {share:.0%} of saturated ({share * rps:.6g} requests/s)")
+
+    engine = InferenceEngine(VIT_B_16, params, "bfloat16", "fused", dev, batch_pad=SERVE_PAD)
+    x = torch.from_numpy(synth_images(SERVE_MAX_BATCH, VIT_B_16, seed=3)).to(dev, torch.bfloat16)
+    static = SERVE_MAX_BATCH / (cuda_ms(lambda: engine.logits(x)) / 1e3)
+    log(f"static fused forward, batch {SERVE_MAX_BATCH} bf16: {static:.6g} img/s; the staged "
+        f"server reaches {staged['value'] / static:.1%} of it; {card}")
+    server = InferenceServer(engine, max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_DELAY_MS,
+                             max_queue_images=1 << 31)
+    server.warmup()
+    with server:
+        server.classify(x, timeout=SERVE_WAIT)
+        server.stats = ServerStats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            futures = [server.submit(x) for _ in range(SERVE_BUSY_BATCHES)]
+            for f in futures:
+                f.result(timeout=SERVE_WAIT)
+            wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    if server.stats.batches != SERVE_BUSY_BATCHES:
+        raise RuntimeError(f"busy share: {server.stats.batches} batches, "
+                           f"expected {SERVE_BUSY_BATCHES}")
+    log(f"saturated server, {SERVE_BUSY_BATCHES} staged batches of {SERVE_MAX_BATCH} bf16 fused: "
+        f"{wall:.6g} ms wall (profiler on), device {busy:.6g} ms ({busy / wall:.1%} busy, idle "
+        f"{1 - busy / wall:.1%}), {SERVE_BUSY_BATCHES * SERVE_MAX_BATCH / wall * 1e3:.6g} img/s; "
+        f"{card}")
+
+
+def _http(port: int, method: str, path: str, body=None, headers=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_WAIT)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _same_answers(what: str, payload: dict, want: tuple) -> None:
+    """The daemon's JSON results equal (labels, top) bit for bit: the same
+    kernels at the same padded size."""
+    labels = [r["label"] for r in payload["results"]]
+    probs = np.array([r["prob"] for r in payload["results"]], np.float32)
+    d = float(np.abs(probs - want[1]).max())
+    log(f"{what}: labels {labels[:8]}, top-prob max|d| vs the engine {d:.6g} (tol 0)")
+    if labels != [int(v) for v in want[0]] or d != 0:
+        raise RuntimeError(f"{what}: the daemon's answers differ from the engine's")
+
+
+def phase_serve_http(params, dev, card: str, workdir: str) -> dict:
+    """Phase 41: the HTTP daemon on an ephemeral port (bf16 ``fused``,
+    ``--allow-reload``): a bin body of 8 images and one PNG against the
+    engine; ``X-Deadline-Ms: 0`` answered 504; ``/healthz``, ``/metrics``;
+    ``/reload`` to seed-1 weights, after which the answers are a seed-1
+    engine's; counts set to 0 once it listens and read at the end.  Then
+    the rollout in fp32 on the card under TF32 settings against a float64
+    CPU composition of the same probabilities.  -> launch counts."""
+    import queue
+    from PIL import Image
+
+    from vit_tpu_torch.cli import serve
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io import checkpoint
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.io.preprocess import preprocess_image
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    w0, w1 = f"{workdir}/params.npz", f"{workdir}/params_seed1.npz"
+    params1 = synth_params(VIT_B_16, 1)
+    checkpoint.save_npz(params, w0)
+    checkpoint.save_npz(params1, w1)
+    imgs = synth_images(8, VIT_B_16, seed=5)
+    body = np.array(imgs.shape, dtype="<i4").tobytes() + imgs.astype("<f4").tobytes()
+    rgb = (np.random.default_rng(9).random((256, 320, 3)) * 255).astype(np.uint8)
+    png = io.BytesIO()
+    Image.fromarray(rgb).save(png, format="PNG")
+    png_img = preprocess_image(Image.open(io.BytesIO(png.getvalue())), VIT_B_16.image_size)[None]
+    e0 = InferenceEngine(VIT_B_16, params, "bfloat16", "fused", dev, batch_pad=SERVE_PAD)
+    want0, want_png = e0.classify(imgs), e0.classify(png_img)
+    del e0
+    e1 = InferenceEngine(VIT_B_16, params1, "bfloat16", "fused", dev, batch_pad=SERVE_PAD)
+    want1 = e1.classify(imgs)
+    del e1
+
+    args = serve.build_parser().parse_args(["--weights", w0, "--port", "0", "--allow-reload",
+                                            "--device", "cuda", "--ops", "fused",
+                                            "--dtype", "bfloat16"])
+    cfg, ops, server = serve._build_server(args)
+    listening = queue.Queue()
+    t = threading.Thread(target=serve._http_daemon, args=(args, cfg, ops, server),
+                         kwargs={"on_listen": listening.put}, daemon=True)
+    t.start()
+    httpd = listening.get(timeout=SERVE_WAIT)
+    port = httpd.server_address[1]
+    wrappers = _reset_counts()
+    try:
+        codes = {}
+        codes["bin"], out = _http(port, "POST", "/classify", body)
+        _same_answers("http POST /classify, 8 images (bin)", json.loads(out), want0)
+        codes["png"], out = _http(port, "POST", "/classify", png.getvalue(),
+                                  {"Content-Type": "image/png"})
+        _same_answers("http POST /classify, one PNG", json.loads(out), want_png)
+        codes["deadline"], out = _http(port, "POST", "/classify", body, {"X-Deadline-Ms": "0"})
+        codes["healthz"], health = _http(port, "GET", "/healthz")
+        codes["metrics"], metrics = _http(port, "GET", "/metrics")
+        codes["reload"], out = _http(port, "POST", "/reload", json.dumps({"weights": w1}))
+        codes["after reload"], out = _http(port, "POST", "/classify", body)
+        _same_answers("http POST /classify after /reload to seed 1", json.loads(out), want1)
+        batches = server.stats.batches
+    finally:
+        httpd.shutdown()
+        t.join(timeout=SERVE_WAIT)
+    if t.is_alive():
+        raise RuntimeError("the HTTP daemon did not stop")
+    launches = _expect_counts(wrappers, {"ln_qkv_attn": 12 * batches,
+                                         "out_ln_mlp_residual": 12 * batches,
+                                         "layer_norm": batches},
+                              f"serve_http (bf16 fused, {batches} batches)")
+    health = json.loads(health)
+    names = sorted({ln.split("{")[0].split()[0] for ln in metrics.decode().splitlines()
+                    if ln and not ln.startswith("#")})
+    log(f"http codes {codes}; /healthz {health}; /metrics names {names}")
+    want_codes = {"bin": 200, "png": 200, "deadline": 504, "healthz": 200, "metrics": 200,
+                  "reload": 200, "after reload": 200}
+    if codes != want_codes or batches != 3 or health["requests"] != 2 \
+            or health["deadline_expired"] != 1 or names != METRIC_NAMES:
+        raise RuntimeError(f"http daemon: codes {codes} (want {want_codes}), {batches} batches, "
+                           f"/healthz {health}, metric names {names}")
+
+    # the rollout's chain under TF32 settings: true fp32, against float64
+    engine = InferenceEngine(VIT_B_16, params, "float32", "fused", dev)
+    x = synth_images(2, VIT_B_16, seed=4)
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        roll = engine.attention_maps(x, rollout=True).cpu().numpy()
+        probs = engine.attention_maps(x)
+        a32 = probs.mean(dim=2)
+        a32 = 0.5 * a32 + 0.5 * torch.eye(a32.shape[-1], device=dev)
+        a32 = a32 / a32.sum(-1, keepdim=True)
+        r32 = torch.eye(a32.shape[-1], device=dev).expand(a32.shape[1:])
+        for layer in a32:
+            r32 = torch.matmul(layer, r32)  # TF32 under "high"
+        tf32 = r32[:, 0, 1:].cpu().numpy().reshape(roll.shape)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    a = probs.double().cpu().mean(dim=2)
+    t_ = a.shape[-1]
+    a = 0.5 * a + 0.5 * torch.eye(t_, dtype=torch.float64)
+    a = a / a.sum(-1, keepdim=True)
+    r = torch.eye(t_, dtype=torch.float64).expand(a.shape[1:])
+    for layer in a:
+        r = layer @ r
+    want = r[:, 0, 1:].numpy().reshape(roll.shape)
+    # random weights attend nearly uniformly, so the map's values are ~1/T
+    # and 1e-5 absolute is loose: hold it to 1e-5 of its largest value too
+    # (a TF32 chain's 10-bit mantissa, ~1e-3 relative a product, is printed
+    # beside it)
+    scale = float(np.abs(want).max())
+    d, d_tf32 = float(np.abs(roll - want).max()), float(np.abs(tf32 - want).max())
+    rows = float((probs.sum(-1) - 1).abs().max())
+    log(f"rollout fp32 on the card under set_float32_matmul_precision('high'), 2 images "
+        f"{roll.shape}, largest value {scale:.6g}: max|d| vs float64 composition {d:.6g} "
+        f"({d / scale:.3g} of the largest; tol 1e-5 and 1e-5 of it); a TF32 matmul chain on the "
+        f"same probabilities {d_tf32:.6g} ({d_tf32 / scale:.3g}); probability rows sum to 1 "
+        f"within {rows:.3g}")
+    shape = (VIT_B_16.depth, 2, VIT_B_16.num_heads, VIT_B_16.seq_len, VIT_B_16.seq_len)
+    if not (d <= 1e-5 and d <= 1e-5 * scale and rows <= 1e-5 and tuple(probs.shape) == shape):
+        raise RuntimeError("rollout outside 1e-5 of the float64 composition")
+    return launches
+
+
+def group_serve(dev, card, summary, launches) -> None:
+    """Phases 39-41."""
+    from vit_tpu_torch.config import VIT_B_16
+
+    params = synth_params(VIT_B_16, 0)
+    launches.update(phase_server(params, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+        phase_serve_selftest(params, dev, card, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["serve_http"] = phase_serve_http(params, dev, card, workdir)
+
+
 PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw",
-          "parallel")
+          "parallel", "serve")
 
 
 def group_classify(dev, card, summary, launches) -> None:
@@ -3245,7 +3645,8 @@ def main(argv=None) -> None:
     summary, launches = {}, {}
     groups = {"classify": group_classify, "train": group_train, "regularized": group_regularized,
               "long": group_long, "quant": group_quant, "tome": group_tome, "dh80": group_dh80,
-              "per_op": group_per_op, "adamw": group_adamw, "parallel": group_parallel}
+              "per_op": group_per_op, "adamw": group_adamw, "parallel": group_parallel,
+              "serve": group_serve}
     for name in PHASES:
         if name in only:
             t0 = time.perf_counter()

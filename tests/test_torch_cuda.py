@@ -2453,3 +2453,79 @@ def test_ln_qkv_attn_q8a_rejects_off_grid_wq(dev):
     with pytest.raises(ValueError, match="ln_qkv_attn_q8a: .*16-byte aligned"):
         k15.ln_qkv_attn_q8a(*args)
     assert k15.ln_qkv_attn_q8a.launches == launches
+
+
+# -- serving: the InferenceServer on the card ----------------------------------
+
+
+def _serving_engine(dev, ops):
+    from vit_tpu_torch.io.params import params_to_numpy
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = dataclasses.replace(VIT_B_16, depth=2, embed_dim=128, num_heads=2,
+                              image_size=64, num_classes=11, name="vit_card_test")
+    tree = params_to_numpy(vit.init_params(torch.Generator().manual_seed(1), cfg))
+    return cfg, InferenceEngine(cfg, tree, "float32", ops, dev, batch_pad=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops", ["fused", "quant"])
+def test_server_answers_match_engine(dev, ops, monkeypatch):
+    """Coalesced requests, numpy and device-resident, through the two-stage
+    pipeline (depth 2): each answer is the engine's classify of that request
+    alone, and no host synchronization runs while the server serves (the
+    completer waits on each batch's own event)."""
+    from vit_tpu_torch.runtime import serving
+
+    cfg, eng = _serving_engine(dev, ops)
+    sizes = [int(n) for n in np.random.default_rng(0).integers(1, 9, 24)]
+    reqs = [synth_images(n, cfg, seed=i) for i, n in enumerate(sizes)]
+    want = [eng.classify(r) for r in reqs]
+    staged = [torch.from_numpy(r).to(dev) if i % 2 else r for i, r in enumerate(reqs)]
+    srv = serving.InferenceServer(eng, max_batch=16, max_delay_ms=5.0, pipeline_depth=2)
+    srv.warmup()
+
+    def refuse(*a, **k):
+        raise AssertionError("a host synchronization while serving")
+
+    with srv:
+        monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+        monkeypatch.setattr(torch.Tensor, "cpu", refuse)
+        monkeypatch.setattr(torch.Tensor, "item", refuse)
+        futures = [srv.submit(r, return_probs=(i % 3 == 0)) for i, r in enumerate(staged)]
+        got = [f.result(timeout=120) for f in futures]
+        monkeypatch.undo()
+    assert srv.stats.batches < len(reqs) and srv._pending == 0
+    for i, ((labels, top, probs), (want_labels, want_top)) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(labels, want_labels)
+        np.testing.assert_allclose(top, want_top, atol=1e-5, rtol=0)
+        if i % 3 == 0:
+            assert probs.shape == (sizes[i], cfg.num_classes)
+            np.testing.assert_allclose(probs.sum(-1), 1.0, atol=1e-5)
+            np.testing.assert_array_equal(probs.argmax(-1), labels)
+        else:
+            assert probs is None
+
+
+@pytest.mark.cuda
+def test_readback_is_pinned_per_batch(dev):
+    """Each batch's outputs go into pinned host tensors of its own, copied
+    without blocking, with an event of its own recorded after them."""
+    from vit_tpu_torch.runtime import serving
+
+    batches = []
+    for seed in range(2):  # two batches in flight, as at pipeline depth 2
+        probs = torch.softmax(_rn(dev, seed, 64, 1000), -1)
+        labels = probs.argmax(-1)
+        top = probs.gather(-1, labels[:, None])[:, 0]
+        batches.append(((labels, top, probs), serving.start_async_readback(labels, top, probs)))
+    assert batches[0][1].labels.data_ptr() != batches[1][1].labels.data_ptr()
+    for (labels, top, probs), rb in batches:
+        assert rb.labels.is_pinned() and rb.top.is_pinned() and rb.probs.is_pinned()
+        assert isinstance(rb.event, torch.cuda.Event)
+        got = rb.wait()
+        for g, w in zip(got, (labels, top, probs)):
+            np.testing.assert_array_equal(g, w.cpu().numpy())
+    rb = serving.start_async_readback(labels, top)
+    assert rb.probs is None and rb.wait()[2] is None

@@ -274,9 +274,10 @@ def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     regularized, eager and fused_train; with --optimizer fused_adamw; and
     with --tome, plain and regularized), and the classify CLI on its npz, on
     a Weight_*.bin directory, on a .pth, on --images, with --golden, with
-    --ops quant, with --ops per_op --profile and with --tome on fused and
-    quant, and under torch.distributed.run on 2 ranks with --tp 2 (fused and
-    quant): no vit_tpu or jax module gets loaded."""
+    --ops quant, with --ops per_op --profile, with --attn-rollout and with
+    --tome on fused and quant, and under torch.distributed.run on 2 ranks
+    with --tp 2 (fused and quant); the serve CLI's --selftest, saturated and
+    paced: no vit_tpu or jax module gets loaded."""
     from vit_tpu.io import weights as jweights
     from vit_tpu.io.torch_convert import save_pth
 
@@ -315,6 +316,12 @@ for dtype in ("bfloat16", "float32"):
                           "--dtype", dtype]) == 0
 assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2", "--ops", "per_op",
                       "--profile"]) == 0
+assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2",
+                      "--attn-rollout", d + "/roll.npz"]) == 0
+from vit_tpu_torch.cli import serve
+for extra in ([], ["--selftest-rate", "200"]):
+    assert serve.main([*run, "--weights", d + "/p.npz", "--selftest", "4", "--max-batch", "4",
+                       "--batch-pad", "4", *extra]) == 0
 tome = config.ViTConfig(image_size=64, patch_size=8, embed_dim=64, depth=2, num_heads=4,
                         num_classes=11, name="vit_tome_test")  # 65 tokens: merges happen
 config.CONFIGS[tome.name] = tome

@@ -35,8 +35,11 @@ The backend is NCCL where every rank has its own card, gloo on the CPU or
 with ``--dist-backend gloo`` (ranks sharing one card).  Rank 0 prints and
 writes the results; every rank exits with the same code.
 
-``--attn-rollout/--interpolate-pos-from`` of the JAX package's CLI wait for
-their slices of the port (their ``--tome`` refusals come with them).
+``--attn-rollout PATH`` saves the batch's attention-rollout heatmaps
+(``InferenceEngine.attention_maps``) to an ``.npz`` (``maps`` (B, grid,
+grid), ``labels``); it needs fp weights and the full-token model (no
+``quant``, no ``--tome``).  ``--interpolate-pos-from`` of the JAX package's
+CLI waits for its slice of the port.
 """
 
 from __future__ import annotations
@@ -111,6 +114,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--labels", help="label names: text file or C source array")
     p.add_argument("--top", type=int, default=1, help="print top-K classes per image")
     p.add_argument(
+        "--attn-rollout", metavar="PATH",
+        help="save attention-rollout relevance heatmaps (Abnar & Zuidema) "
+        "for the batch to an .npz (maps: (B, grid, grid), labels); "
+        "needs fp ops (not quant)",
+    )
+    p.add_argument(
         "--tome", type=int, default=0, metavar="R",
         help="ToMe token merging: merge the R most similar token pairs "
         "per layer (Bolya et al. 2022) — higher throughput at a "
@@ -149,19 +158,25 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
         return 2
-    if args.profile and args.tp > 1:
-        print("error: --profile runs the whole weights, which a --tp rank does not hold "
-              "(not ported: ROADMAP.md item 14)", file=sys.stderr)
+    # the probes: --attn-rollout and --profile, named in their refusals
+    probes = [flag for flag, on in (("--attn-rollout", args.attn_rollout),
+                                    ("--profile", args.profile)) if on]
+    one = len(probes) == 1
+    what = "/".join(probes)
+    if probes and args.tp > 1:
+        print(f"error: {what} run{'s' if one else ''} the whole weights, which a --tp rank "
+              "does not hold (not ported: ROADMAP.md item 14)", file=sys.stderr)
         return 2
-    if args.tome and args.profile:
-        print("error: --profile probes the full-token model, which would diverge from "
-              "--tome's merged predictions — run it without --tome", file=sys.stderr)
+    if args.tome and probes:
+        print(f"error: {what} probe{'s' if one else ''} the full-token model, which would "
+              f"diverge from --tome's merged predictions — run {'it' if one else 'them'} "
+              "without --tome", file=sys.stderr)
         return 2
-    if ops == "quant" and args.profile:
-        # knowable now: the probe needs fp weights (the engine raises the
+    if ops == "quant" and probes:
+        # knowable now: the probes need fp weights (the engine raises the
         # same incompatibility, but only after load and inference)
-        print("error: --profile needs fp weights; use --ops eager/per_op/fused",
-              file=sys.stderr)
+        print(f"error: {what} need{'s' if one else ''} fp weights; use --ops "
+              "eager/per_op/fused", file=sys.stderr)
         return 2
     try:
         mesh, device = resolve_mesh(args.dp, args.tp, args.device, args.dist_backend)
@@ -235,6 +250,12 @@ def _classify(args, cfg, ops, mesh, device, lead: bool) -> int:
 
     if args.output and lead:
         results.write_result_file(pred, top_prob, args.output)
+
+    if args.attn_rollout:
+        maps = engine.attention_maps(images, rollout=True).cpu().numpy()
+        if lead:
+            np.savez(args.attn_rollout, maps=maps, labels=pred)
+        say(f"saved attention-rollout maps {maps.shape} to {args.attn_rollout}")
 
     n_errors = 0
     if args.golden:

@@ -1,7 +1,8 @@
 """Image batches — counterpart of ``vit_tpu.io.images``: the reference's
 ``input-100.bin`` format (4 x int32 little-endian header ``(n, c, h, w)``,
-then ``n*c*h*w`` fp32 values in NCHW order) and the seeded synthetic batch
-that stands in for it."""
+then ``n*c*h*w`` fp32 values in NCHW order), from a file or from memory (the
+serving daemon's request body), and the seeded synthetic batch that stands
+in for it."""
 
 from __future__ import annotations
 
@@ -21,6 +22,26 @@ def load_image_bin(path) -> np.ndarray:
     if data.size != n * c * h * w:
         raise ValueError(f"{path}: expected {n * c * h * w} fp32 values, got {data.size}")
     return data.reshape(n, c, h, w)
+
+
+def parse_image_bytes(data: bytes) -> np.ndarray:
+    """In-memory variant of :func:`load_image_bin` (an HTTP request body in
+    the serving daemon): the same int32[4]-header + fp32-NCHW wire format.
+    A short or inconsistent body raises ``ValueError``."""
+    # length-check before frombuffer, whose own errors for short or ragged
+    # bodies would mask the format message
+    if len(data) < 16:
+        raise ValueError("truncated header (Network.c:36-44 format)")
+    n, c, h, w = (int(v) for v in np.frombuffer(data, dtype="<i4", count=4))
+    if min(n, c, h, w) < 0:
+        raise ValueError(f"negative header field ({n}, {c}, {h}, {w})")
+    want = n * c * h * w
+    if len(data) - 16 != 4 * want:
+        raise ValueError(
+            f"expected {want} fp32 values ({4 * want} bytes), got {len(data) - 16} bytes"
+        )
+    body = np.frombuffer(data, dtype="<f4", offset=16, count=want)
+    return body.reshape(n, c, h, w).copy()
 
 
 def synth_images(n: int, cfg, seed: int = 0) -> np.ndarray:

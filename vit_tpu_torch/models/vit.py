@@ -7,7 +7,9 @@ packed QKV in (head, {q,k,v}, head_dim) column order.  ``lax.scan`` over
 the stacked layers becomes a Python loop over ``unbind`` views of the
 stacked tensors, whose backward stacks the per-layer gradients back.
 
-The attention probe waits for its slice of the port.
+``attention_maps`` and ``attention_rollout`` are the interpretability probe:
+each layer's softmax rows through the plain reference ops, and the
+CLS->patch relevance composed from them (Abnar & Zuidema 2020).
 """
 
 from __future__ import annotations
@@ -209,6 +211,55 @@ def forward(
     if return_features:
         return x[..., 0, :].float()
     return apply_head(x, params, separate=separate_heads)
+
+
+def attention_maps(
+    params: Params, images: torch.Tensor, cfg: ViTConfig, gelu_variant: str = "exact"
+) -> torch.Tensor:
+    """Interpretability probe: (B, C, H, W) -> per-layer attention
+    probabilities (depth, B, H, T, T), fp32 (fp64 for fp64 params).
+
+    Runs the plain reference ops, not the kernels (an oracle-grade tool, not
+    a throughput path), and stacks each layer's softmax rows."""
+    x = images.to(params["pos_embed"].dtype)
+    x = reference.patch_embed(
+        x, params["patch_embed"]["kernel"], params["patch_embed"]["bias"], cfg.patch_size
+    )
+    x = reference.add_cls_and_pos(x, prefix_tokens(params), params["pos_embed"])
+    maps = []
+    for blk in layers(params["blocks"]):
+        h = reference.layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.layernorm_eps)
+        h, probs = reference.attention(h, blk["wqkv"], blk["bqkv"], blk["wo"], blk["bo"],
+                                       cfg.num_heads, return_probs=True)
+        x = x + h
+        h = reference.layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], cfg.layernorm_eps)
+        x = x + reference.mlp(h, blk["w1"], blk["b1"], blk["w2"], blk["b2"], gelu_variant)
+        maps.append(probs)
+    return torch.stack(maps)
+
+
+def attention_rollout(probs: torch.Tensor, num_prefix_tokens: int = 1) -> torch.Tensor:
+    """Attention rollout (Abnar & Zuidema 2020): per-layer probabilities
+    (depth, B, H, T, T) -> CLS->patch relevance (B, T - num_prefix_tokens).
+
+    Heads average, each layer mixes with the identity (residual flow) and
+    renormalizes, layers compose by matrix product; the CLS row restricted
+    to the patch columns (the prefix tokens dropped: CLS, and DeiT's
+    distillation token) is the input-patch relevance map.
+
+    Only that row of the product A_L ... A_1 is kept, so it is composed as a
+    row vector through the layers, last to first, each step an elementwise
+    product and a sum in the probabilities' dtype: true fp32, which no
+    ``torch.set_float32_matmul_precision`` setting (TF32) reaches."""
+    a = probs.mean(dim=2)  # (depth, B, T, T)
+    t = a.shape[-1]
+    a = 0.5 * a + 0.5 * torch.eye(t, dtype=a.dtype, device=a.device)
+    a = a / a.sum(dim=-1, keepdim=True)
+    row = torch.zeros(a.shape[1:-1], dtype=a.dtype, device=a.device)  # (B, T)
+    row[:, 0] = 1.0
+    for layer in a.flip(0):
+        row = (row[..., :, None] * layer).sum(dim=-2)
+    return row[:, num_prefix_tokens:]
 
 
 def logits_fn(cfg: ViTConfig, ops: OpsImpl = EAGER_OPS, **kw):

@@ -99,6 +99,7 @@ def attention(
     *,
     logit_bias: Optional[torch.Tensor] = None,
     return_kmean: bool = False,
+    return_probs: bool = False,
 ):
     """Multi-head self-attention, inference form.
 
@@ -110,7 +111,9 @@ def attention(
     scaled logits (token merging's proportional attention: softmax(q kᵀ /
     sqrt(dh) + log s), ``ops/tome.py``).  ``return_kmean`` also returns the
     mean attention key over heads (..., T, head_dim), token merging's
-    similarity metric."""
+    similarity metric.  ``return_probs`` also returns the softmax rows
+    (..., H, T, T) in the accumulation dtype, from before their rounding to
+    the working dtype (the attention probe, ``models/vit.attention_maps``)."""
     qkv = linear(x, wqkv, bqkv)
     q, k, v = split_packed_qkv(qkv, num_heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -120,6 +123,8 @@ def attention(
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("...hqk,...hkd->...hqd", _acc(probs.to(x.dtype)), _acc(v))
     out = linear(merge_heads(ctx.to(x.dtype)), wo, bo)
+    if return_probs:
+        return out, probs
     if return_kmean:
         return out, _acc(k).mean(dim=-3).to(x.dtype)  # heads axis of (..., H, T, Dh)
     return out

@@ -18,11 +18,11 @@ import torch
 from vit_tpu_torch.parallel.mesh import Mesh
 
 
-def shard_forward_dp(forward: Callable, mesh: Mesh) -> Callable:
-    """Wrap ``forward(params, images) -> (n, ...)`` to run on this rank's
-    slice of the batch over ``dp`` and return the whole batch's output.  A
-    mesh without a ``dp`` axis (or of one rank on it) runs ``forward`` on
-    the whole batch."""
+def shard_forward_dp(forward: Callable, mesh: Mesh, batch_axis: int = 0) -> Callable:
+    """Wrap ``forward(params, images)``, whose output holds the batch on
+    ``batch_axis``, to run on this rank's slice of the batch over ``dp`` and
+    return the whole batch's output.  A mesh without a ``dp`` axis (or of
+    one rank on it) runs ``forward`` on the whole batch."""
     dp = mesh.size("dp")
     if dp == 1:
         return forward
@@ -34,8 +34,10 @@ def shard_forward_dp(forward: Callable, mesh: Mesh) -> Callable:
         step = n // dp
         lo = mesh.index("dp") * step
         part = forward(params, images[lo:lo + step])
-        out = part.new_zeros((n, *part.shape[1:]))
-        out[lo:lo + step] = part
+        shape = list(part.shape)
+        shape[batch_axis] = n
+        out = part.new_zeros(shape)
+        out.narrow(batch_axis, lo, step).copy_(part)
         return mesh.all_reduce(out, "dp")
 
     return fn

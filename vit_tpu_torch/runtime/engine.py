@@ -9,7 +9,8 @@ shapes, and so their timings, stable across request sizes).
 the CPU instead.  ``tome_r`` classifies through token merging
 (``models/tome.py``) on ``fused``, ``quant`` or ``eager``.
 ``phase_report`` times the forward phase by phase through the op table's
-per-op ``attention``/``mlp``.
+per-op ``attention``/``mlp``; ``attention_maps`` is the interpretability
+probe (per-layer attention probabilities, or their rollout).
 
 ``mesh`` (``parallel.make_mesh``) runs the forward SPMD over the ranks of
 ``torch.distributed``, one engine per rank, each given the whole batch: a
@@ -219,6 +220,47 @@ class InferenceEngine:
         return labels, probs[np.arange(len(labels)), labels]
 
     @torch.inference_mode()
+    def attention_maps(self, images, rollout: bool = False) -> torch.Tensor:
+        """Interpretability probe: per-layer attention probabilities
+        (depth, B, H, T, T) — or, with ``rollout``, the Abnar & Zuidema
+        CLS->patch relevance (B, grid, grid).  Runs the plain reference ops
+        (``models/vit.attention_maps``), not the kernels; on a dp mesh each
+        rank probes its slice of the batch (the probabilities' axis 1)."""
+        if self.tome_r:
+            raise ValueError(
+                "attention_maps() on a tome_r engine would probe the "
+                "full-token model while classify() merges — build a "
+                "tome_r=0 engine for interpretability"
+            )
+        if self._ops.name == "quant":
+            raise ValueError(
+                "attention_maps needs fp weights; build the engine with "
+                "ops='eager'/'per_op'/'fused'"
+            )
+        if self._tp_shard:
+            raise NotImplementedError(
+                "attention_maps runs the whole weights; on a tp > 1 engine each rank holds a "
+                "shard (the JAX package's GSPMD probe is not ported, ROADMAP.md item 14)"
+            )
+        cfg, gelu = self.cfg, self._gelu_variant
+
+        def probe(p, x):
+            return vit.attention_maps(p, x, cfg, gelu)
+
+        if self.mesh is not None:
+            from vit_tpu_torch.parallel.shard_forward import shard_forward_dp
+
+            probe = shard_forward_dp(probe, self.mesh, batch_axis=1)
+        # grain 1: the probabilities are O(B·T²) (605 MB an image at @512);
+        # padding one image to a serving batch_pad would multiply that ~32x
+        x, n = self._stage(images, grain=1)
+        probs = probe(self.params, x)[:, :n]
+        if rollout:
+            g = cfg.grid_size
+            return vit.attention_rollout(probs, cfg.num_prefix_tokens).reshape(n, g, g)
+        return probs
+
+    @torch.inference_mode()
     def phase_report(self, images, iters: int = 3) -> str:
         """Per-phase timing breakdown (patch embed, each encoder phase,
         head) over ``iters`` forwards, as the JAX engine's: the unfused op
@@ -275,14 +317,15 @@ class InferenceEngine:
 
     # -- internals --------------------------------------------------------
 
-    def _stage(self, images) -> Tuple[torch.Tensor, int]:
-        """Pad the batch up to a multiple of ``batch_pad`` (and of the mesh's
-        ``dp``) and cast to the compute dtype on the engine's device.
-        Tensors already on the device are padded and cast there."""
+    def _stage(self, images, grain=None) -> Tuple[torch.Tensor, int]:
+        """Pad the batch up to a multiple of ``grain`` (default ``batch_pad``;
+        and of the mesh's ``dp``) and cast to the compute dtype on the
+        engine's device.  Tensors already on the device are padded and cast
+        there.  One-off probes pass ``grain=1``."""
         if not isinstance(images, torch.Tensor):
             images = torch.from_numpy(np.ascontiguousarray(images))
         n = images.shape[0]
-        grain = self.batch_pad
+        grain = self.batch_pad if grain is None else grain
         if self.mesh is not None:
             grain = math.lcm(grain, self.mesh.size("dp"))
         padded = max(grain, math.ceil(n / grain) * grain)
