@@ -242,10 +242,36 @@ Phases (a failed phase raises; nothing is caught):
      float64 CPU composition of the same probabilities and within 1e-5 of
      the map's largest value, a TF32 matmul chain's deviation beside it.
 
+ 42. MAE pretraining (decoder 512,8,16; B/16 encoder on the 49 visible
+     patches): the loss and every leaf's gradient, encoder and decoder,
+     fp32 ``fused_train`` against eager on 4 images with the same masks
+     (1e-3 x max(1, max|g|)), the bf16 mixed loss against fp32 (2e-2); the
+     train CLI with ``--mae --save-backbone`` (20 each of K1, K4, K5, K6,
+     K7 per step: 12 encoder and 8 decoder blocks; no K2 or K3), then
+     ``--init-weights`` of the saved backbone for 2 steps (12 each); the MAE
+     step's img/s at batch 64 bf16 mixed, ``fused_train`` and eager in
+     turns beside the supervised ``fused_train`` step, with peak memory;
+     one MAE ``fused_train`` step in a profiler trace (device time by
+     kernel, busy share);
+ 43. DeiT distillation (``deit_b_16`` student; teacher ``vit_b_16`` from
+     ``init_params`` seed 1, as an .npz): the fused teacher's fp32 logits
+     against the eager teacher's; hard and soft (tau 2) distillation's loss
+     and every leaf's gradient, both heads, fp32 ``fused_train`` against
+     eager on one set of teacher logits; the train CLI with
+     ``--distill-teacher`` (the student's 12 each of K1, K4-K7, the fused
+     teacher's 12 K1, 12 K2, 1 K3 per step) and with
+     ``--distill-teacher-int8`` (the teacher's 12 K15, 12 K16, 1 K3); the
+     step's img/s with either teacher beside the plain ``deit_b_16`` step;
+ 44. QAT: the train CLI with ``--ops qat`` at AdamW 1e-4 (no kernel
+     launches; the loss falls over 3 steps); QAT then deploy: the fp32
+     ``qat`` forward against the fp32 ``quant`` kernels' (12 K15, 12 K16,
+     1 K3) on the same weights at batch 100, by the comparator rule; the
+     QAT step's img/s beside the eager step's.  TF32 is off throughout.
+
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
 regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
-per_op 31-33, adamw 34-35, parallel 36-38, serve 39-41); without it every
-phase runs.
+per_op 31-33, adamw 34-35, parallel 36-38, serve 39-41, mae 42, distill
+43, qat 44); without it every phase runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -266,6 +292,7 @@ import gc
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1295,21 +1322,29 @@ def _inference_rates(cfg, params, x, ops_list, dev, card: str, what: str, rounds
 
 def _profile_forward(cfg, params, x, ops: str, dev, card: str, tome_r: int = 0) -> None:
     """One ``InferenceEngine.logits`` forward (at ToMe ``tome_r``) in a
-    torch.profiler trace: its wall time, its kernels' device time by name
-    (annotations on the device timeline not counted, as in ``_device_ms``)
-    and the device's busy share of the wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler trace (``_profile_call``)."""
     from vit_tpu_torch.runtime.engine import InferenceEngine
 
     engine = InferenceEngine(cfg, params, "bfloat16", ops, dev, batch_pad=x.shape[0],
                              tome_r=tome_r)
-    engine.logits(x)
+    what = f"{ops} ToMe r={tome_r}" if tome_r else ops
+    _profile_call(lambda: engine.logits(x), f"{what} {cfg.name} batch {x.shape[0]} bf16",
+                  "forward", card)
+
+
+def _profile_call(fn, what: str, unit: str, card: str) -> None:
+    """One call of ``fn`` (after one warm-up call) in a torch.profiler
+    trace: its wall time, its kernels' device time by name (annotations on
+    the device timeline not counted, as in ``_device_ms``) and the device's
+    busy share of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.logits(x)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -1318,8 +1353,7 @@ def _profile_forward(cfg, params, x, ops: str, dev, card: str, tome_r: int = 0) 
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
-    what = f"{ops} ToMe r={tome_r}" if tome_r else ops
-    log(f"profile {what} {cfg.name} batch {x.shape[0]} bf16: forward {wall:.6g} ms wall (profiler "
+    log(f"profile {what}: {unit} {wall:.6g} ms wall (profiler "
         f"on), device kernels {busy:.6g} ms ({busy / wall:.1%} busy, idle {1 - busy / wall:.1%}); "
         f"{card}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -1371,18 +1405,20 @@ def _expect_counts_of(launches: dict, want: dict, what: str) -> dict:
     return launches
 
 
-def _train_cli(workdir: str, extra) -> tuple:
-    """The train CLI on the card (B/16, 5 steps, batch 64, fused_train, bf16
-    mixed) with ``extra`` flags; every count set to 0 just before and read
-    just after.  -> (launch counts, losses)."""
+def _train_cli(workdir: str, extra, steps: int = TRAIN_STEPS) -> tuple:
+    """The train CLI on the card (B/16, ``steps`` steps, batch 64,
+    fused_train, bf16 mixed) with ``extra`` flags (a later flag overrides
+    an earlier one); every count set to 0 just before and read just after.
+    -> (launch counts, losses)."""
     from vit_tpu_torch.cli.train import main
 
-    log_path = f"{workdir}/train{len(extra)}.jsonl"
+    fd, log_path = tempfile.mkstemp(prefix="train", suffix=".jsonl", dir=workdir)
+    os.close(fd)
     buf = io.StringIO()
     wrappers = _reset_counts()
     with contextlib.redirect_stdout(buf):
         rc = main([
-            "--config", "vit_b_16", "--steps", str(TRAIN_STEPS), "--batch", "64",
+            "--config", "vit_b_16", "--steps", str(steps), "--batch", "64",
             "--ops", "fused_train", "--mixed-precision", "--device", "cuda",
             "--log-jsonl", log_path, *extra,
         ])
@@ -1394,8 +1430,8 @@ def _train_cli(workdir: str, extra) -> tuple:
         raise RuntimeError(f"train CLI {extra} exited {rc}")
     with open(log_path) as fh:
         losses = [json.loads(line)["loss"] for line in fh]
-    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
-        raise RuntimeError(f"train CLI {extra} logged {losses}, expected {TRAIN_STEPS} finite losses")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise RuntimeError(f"train CLI {extra} logged {losses}, expected {steps} finite losses")
     return launches, losses
 
 
@@ -1574,9 +1610,17 @@ def _train_rates(dev, card: str, runs: dict, phase: str, base=None, b: int = 64)
                                        forward_fn=_tome_train_forward(cfg, ops, tome_r))
         return lambda: float(step(params, x, y))
 
+    return _step_rates({label: (lambda spec=spec: make(*spec)) for label, spec in runs.items()},
+                       b, phase, base.name, card)
+
+
+def _step_rates(makers: dict, b: int, phase: str, model: str, card: str) -> tuple:
+    """Train img/s of each run ``label: factory`` (the factory returns a
+    step of ``b`` images that waits for the device), timed in turns, and
+    the peak device memory of each alone on the card."""
     peak = {}
-    for label, spec in runs.items():  # alone on the card, for its peak
-        run = make(*spec)
+    for label, make in makers.items():  # alone on the card, for its peak
+        run = make()
         run()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1584,7 +1628,7 @@ def _train_rates(dev, card: str, runs: dict, phase: str, base=None, b: int = 64)
         peak[label] = torch.cuda.max_memory_allocated() / 2 ** 30
         del run
         torch.cuda.empty_cache()
-    steps = {label: make(*spec) for label, spec in runs.items()}
+    steps = {label: make() for label, make in makers.items()}
     for run in steps.values():  # warm up
         run()
         run()
@@ -1597,7 +1641,7 @@ def _train_rates(dev, card: str, runs: dict, phase: str, base=None, b: int = 64)
             times[label].append(time.perf_counter() - t0)
     rates = {label: b / statistics.median(t) for label, t in times.items()}
     for label, rate in rates.items():
-        log(f"{phase} {label} {base.name} batch {b} bf16 mixed: {rate:.6g} img/s "
+        log(f"{phase} {label} {model} batch {b} bf16 mixed: {rate:.6g} img/s "
             f"(median of {len(times[label])}, step {statistics.median(times[label]) * 1e3:.6g} ms); "
             f"peak device memory {peak[label]:.6g} GiB; {card}")
     return rates, peak
@@ -3433,8 +3477,299 @@ def group_serve(dev, card, summary, launches) -> None:
         launches["serve_http"] = phase_serve_http(params, dev, card, workdir)
 
 
+# -- MAE pretraining, DeiT distillation and QAT (phases 42-44) -----------------
+
+QAT_STEPS = 3
+
+
+def _expect_cli(launches: dict, per_step: dict, steps: int, what: str) -> dict:
+    """Fail unless the CLI run's counts are ``per_step`` x ``steps`` (the rest 0)."""
+    return _expect_counts_of(launches, {name: n * steps for name, n in per_step.items()}, what)
+
+
+def _mae_grads(cfg, mae_cfg, tree, x, noise, ops: str, compute_dtype, dev):
+    """-> (loss, {leaf path: grad}) of one MAE backward on the masks of ``noise``."""
+    from vit_tpu_torch.models import mae
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.runtime import trainer
+
+    params = trainer.as_trainable(tree, dev, torch.float32)
+    p = params if compute_dtype is None else vit.cast_params(params, compute_dtype)
+    loss = mae.forward_loss(p, x, None, cfg, mae_cfg, get_ops(ops), noise=noise)
+    loss.backward()
+    return loss.item(), {path: t.grad for path, t in _paths(params)}
+
+
+def phase_mae_correctness(dev: torch.device) -> None:
+    """Phase 42: the MAE loss and every leaf's gradient (encoder and
+    decoder), fp32 fused_train against eager on the same masks, and the bf16
+    mixed loss against fp32 (phase 9's rules)."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.models import mae
+
+    cfg, mae_cfg = VIT_B_16, mae.MAEConfig()
+    tree = mae.init_mae_params(torch.Generator().manual_seed(0), cfg, mae_cfg)
+    x = torch.from_numpy(synth_images(4, cfg, seed=3)).to(dev)
+    noise = torch.rand((4, cfg.num_patches), generator=torch.Generator(dev).manual_seed(1),
+                       device=dev)
+    lf, gf = _mae_grads(cfg, mae_cfg, tree, x, noise, "fused_train", None, dev)
+    le, ge = _mae_grads(cfg, mae_cfg, tree, x, noise, "eager", None, dev)
+    worst, worst_leaf = _worst_leaf(gf, ge)
+    log(f"mae grads fp32 fused_train vs eager autograd (card, TF32 off), B/16 + decoder "
+        f"{mae_cfg.decoder_dim}x{mae_cfg.decoder_depth} ({mae_cfg.decoder_heads} heads), 4 images, "
+        f"the same masks: loss {lf:.6g} vs {le:.6g}; {len(ge)} leaves, worst {worst_leaf} at "
+        f"{worst:.3g} of its bound (1e-3 x max(1, max|g|))")
+    if worst > 1.0 or set(gf) != set(ge) or not abs(lf - le) <= 1e-3 * max(1.0, abs(le)):
+        raise RuntimeError("MAE fused_train loss or gradients outside 1e-3 of eager autograd")
+    del gf, ge
+    lb, _ = _mae_grads(cfg, mae_cfg, tree, x, noise, "fused_train", torch.bfloat16, dev)
+    log(f"mae loss bf16 mixed vs fp32 fused_train: {lb:.6g} vs {lf:.6g}, |d|={abs(lb - lf):.6g} "
+        f"(tol 2e-2)")
+    if not abs(lb - lf) <= 2e-2:
+        raise RuntimeError("MAE bf16 mixed-precision loss outside 2e-2 of fp32")
+
+
+def phase_mae_cli(workdir: str) -> tuple:
+    """Phase 42: the train CLI with ``--mae --save-backbone`` (20 each of
+    K1, K4, K5, K6, K7 per step: 12 encoder and 8 decoder blocks; no K2 or
+    K3), then ``--init-weights`` of the saved backbone (12 each a step).
+    -> launch counts of the two runs."""
+    backbone = f"{workdir}/backbone.npz"
+    path = ("ln_qkv_attn", *TRAIN_KERNELS)
+    launches, losses = _train_cli(workdir, ["--mae", "--save-backbone", backbone])
+    _expect_cli(launches, {name: 20 for name in path}, TRAIN_STEPS, "train cli --mae")
+    log(f"mae pretraining losses {losses}")
+    tuned, _ = _train_cli(workdir, ["--init-weights", backbone], steps=2)
+    _expect_cli(tuned, {name: 12 for name in path}, 2, "train cli --init-weights backbone")
+    return launches, tuned
+
+
+def phase_mae_throughput(dev: torch.device, card: str) -> None:
+    """Phase 42: MAE step img/s at batch 64 bf16 mixed, fused_train and
+    eager, beside the supervised fused_train step, timed in turns, with the
+    peak memory of each; then one MAE fused_train step in a profiler trace."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.models import mae, vit
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.runtime import trainer
+
+    cfg, mae_cfg, b = VIT_B_16, mae.MAEConfig(), 64
+    x = torch.from_numpy(synth_images(b, cfg, seed=4)).to(dev)
+    y = torch.arange(b, device=dev) * 7 % cfg.num_classes
+
+    def mae_step(ops):
+        params = trainer.as_trainable(
+            mae.init_mae_params(torch.Generator().manual_seed(0), cfg, mae_cfg), dev)
+        opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-4)
+        step = trainer.make_mae_train_step(cfg, mae_cfg, opt, torch.Generator(dev).manual_seed(0),
+                                           get_ops(ops), compute_dtype=torch.bfloat16)
+        return lambda: float(step(params, x, None))
+
+    def supervised():
+        params = trainer.as_trainable(vit.init_params(torch.Generator().manual_seed(0), cfg), dev)
+        opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-4)
+        step = trainer.make_train_step(cfg, opt, get_ops("fused_train"), remat=False,
+                                       compute_dtype=torch.bfloat16)
+        return lambda: float(step(params, x, y))
+
+    _step_rates({"mae fused_train": lambda: mae_step("fused_train"),
+                 "mae eager": lambda: mae_step("eager"), "supervised fused_train": supervised},
+                b, "mae train throughput", cfg.name, card)
+    torch.cuda.empty_cache()
+    _profile_call(mae_step("fused_train"), f"mae fused_train {cfg.name} batch {b} bf16 mixed",
+                  "step", card)
+
+
+def _teacher_npz(workdir: str) -> str:
+    """The teacher of phase 43: ``vit_b_16`` from ``init_params`` seed 1, as
+    an .npz."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io import checkpoint as ckpt
+    from vit_tpu_torch.io.params import params_to_numpy
+    from vit_tpu_torch.models import vit
+
+    path = f"{workdir}/teacher.npz"
+    ckpt.save_npz(params_to_numpy(vit.init_params(torch.Generator().manual_seed(1), VIT_B_16)),
+                  path)
+    return path
+
+
+def phase_distill_correctness(dev: torch.device) -> None:
+    """Phase 43: the distillation step's loss and every leaf's gradient
+    (both heads included), fp32 fused_train against eager, hard and soft,
+    on one set of teacher logits (a moved argmax would otherwise change the
+    targets); the fused teacher's fp32 logits against the eager teacher's."""
+    from vit_tpu_torch.config import DEIT_B_16, VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.io.params import params_from_numpy
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.runtime import trainer
+
+    x = torch.from_numpy(synth_images(4, DEIT_B_16, seed=3)).to(dev)
+    y = torch.tensor([3, 141, 592, 653], device=dev)
+    teacher = params_from_numpy(synth_params(VIT_B_16, 1), dev)
+    with torch.no_grad():
+        t_fused = vit.forward(teacher, x, VIT_B_16, get_ops("fused"))
+        t_eager = vit.forward(teacher, x, VIT_B_16)
+    d = (t_fused - t_eager).abs().max().item()
+    log(f"distill teacher fp32 fused vs eager (card, TF32 off), 4 images: max|d logit|={d:.6g} "
+        f"(tol 1e-3)")
+    if not d <= 1e-3:
+        raise RuntimeError("the fused teacher's logits are outside 1e-3 of the eager teacher's")
+    tree = params_from_numpy(synth_params(DEIT_B_16, 0), "cpu")
+    for hard in (True, False):
+        got = {}
+        for ops in ("fused_train", "eager"):
+            params = trainer.as_trainable(tree, dev, torch.float32)
+            step = trainer.make_distill_train_step(
+                DEIT_B_16, torch.optim.SGD(list(trainer.leaves(params)), lr=0.0),
+                lambda images: t_fused, get_ops(ops), remat=False, hard=hard, tau=2.0)
+            loss = float(step(params, x, y))  # lr 0: the gradients stay in .grad
+            got[ops] = loss, {path: t.grad for path, t in _paths(params)}
+            del params, step
+        (lf, gf), (le, ge) = got["fused_train"], got["eager"]
+        worst, worst_leaf = _worst_leaf(gf, ge)
+        mode = "hard" if hard else "soft (tau 2)"
+        log(f"distill {mode} grads fp32 fused_train vs eager autograd, deit_b_16, 4 images: loss "
+            f"{lf:.6g} vs {le:.6g}; {len(ge)} leaves, worst {worst_leaf} at {worst:.3g} of its "
+            f"bound (1e-3 x max(1, max|g|)); head_dist max|g| "
+            f"{ge['head_dist/kernel'].abs().max().item():.6g}")
+        if (worst > 1.0 or set(gf) != set(ge) or not abs(lf - le) <= 1e-3 * max(1.0, abs(le))
+                or not ge["head_dist/kernel"].abs().max().item() > 0):
+            raise RuntimeError(f"distill {mode}: fused_train outside 1e-3 of eager autograd")
+        del got, gf, ge
+
+
+def phase_distill_cli(workdir: str, teacher: str) -> tuple:
+    """Phase 43: the train CLI on ``deit_b_16`` with ``--distill-teacher``
+    (the student's 12 each of K1, K4-K7 and the fused teacher's 12 K1, 12
+    K2 and 1 K3 a step), then with ``--distill-teacher-int8`` (the teacher's
+    12 K15, 12 K16 and 1 K3 a step).  -> launch counts of the two runs."""
+    student = {name: 12 for name in ("ln_qkv_attn", *TRAIN_KERNELS)}
+    base = ["--config", "deit_b_16", "--distill-teacher", teacher]
+    fused, _ = _train_cli(workdir, base)
+    _expect_cli(fused, {**student, "ln_qkv_attn": 24, "out_ln_mlp_residual": 12,
+                        "layer_norm": 1}, TRAIN_STEPS, "train cli --distill-teacher")
+    int8, _ = _train_cli(workdir, [*base, "--distill-teacher-int8"])
+    _expect_cli(int8, {**student, "ln_qkv_attn_q8": 12, "out_ln_mlp_residual_q8": 12,
+                       "layer_norm": 1}, TRAIN_STEPS, "train cli --distill-teacher-int8")
+    return fused, int8
+
+
+def phase_distill_throughput(dev: torch.device, card: str, teacher: str) -> None:
+    """Phase 43: the distillation step's img/s at batch 64 bf16 mixed with
+    the fused and the int8 teacher, beside the plain deit_b_16 step, timed
+    in turns, with the peak memory of each."""
+    from vit_tpu_torch.cli.train_args import build_parser
+    from vit_tpu_torch.cli.train_setup import _teacher
+    from vit_tpu_torch.config import DEIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.runtime import trainer
+
+    cfg, b = DEIT_B_16, 64
+    x = torch.from_numpy(synth_images(b, cfg, seed=4)).to(dev)
+    y = torch.arange(b, device=dev) * 7 % cfg.num_classes
+
+    def run(int8=None):
+        params = trainer.as_trainable(vit.init_params(torch.Generator().manual_seed(0), cfg), dev)
+        opt = torch.optim.AdamW(list(trainer.leaves(params)), lr=1e-4)
+        if int8 is None:
+            step = trainer.make_train_step(cfg, opt, get_ops("fused_train"), remat=False,
+                                           compute_dtype=torch.bfloat16)
+        else:
+            args = build_parser().parse_args(
+                ["--config", cfg.name, "--distill-teacher", teacher, "--mixed-precision",
+                 *(["--distill-teacher-int8"] if int8 else [])])
+            with contextlib.redirect_stdout(io.StringIO()):
+                t_fwd = _teacher(args, cfg, "fused_train", dev, torch.bfloat16)
+            step = trainer.make_distill_train_step(cfg, opt, t_fwd, get_ops("fused_train"),
+                                                   remat=False, compute_dtype=torch.bfloat16)
+        return lambda: float(step(params, x, y))
+
+    _step_rates({"distill fused teacher": lambda: run(False),
+                 "distill int8 teacher": lambda: run(True), "plain": run},
+                b, "distill train throughput", cfg.name, card)
+
+
+def phase_qat(params, dev: torch.device, card: str, workdir: str) -> dict:
+    """Phase 44: the train CLI with ``--ops qat`` (no kernel launches, a
+    loss that falls), QAT then deploy (the fp32 ``qat`` forward against the
+    fp32 ``quant`` kernels' on the same weights at batch 100, by the
+    comparator rule), and the QAT step's img/s beside the eager step's.
+    -> launch counts of the CLI run and of the deployed forward."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    launches, losses = _train_cli(workdir, ["--ops", "qat", "--lr", str(TRAIN_LR)],
+                                  steps=QAT_STEPS)
+    _expect_counts_of(launches, {}, "train cli --ops qat")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"QAT train CLI: the loss did not fall ({losses})")
+    log(f"qat train losses {losses}")
+    images = synth_images(100, VIT_B_16, seed=1)
+    qat = InferenceEngine(VIT_B_16, params, "float32", "qat", dev, batch_pad=1)
+    wrappers = _reset_counts()
+    pq = _probs(qat.logits(images).cpu().numpy())
+    _expect_counts(wrappers, {}, "qat forward")
+    del qat
+    quant = InferenceEngine(VIT_B_16, params, "float32", "quant", dev, batch_pad=1)
+    wrappers = _reset_counts()
+    p8 = _probs(quant.logits(images).cpu().numpy())
+    deployed = _expect_counts(wrappers, {"ln_qkv_attn_q8": 12, "out_ln_mlp_residual_q8": 12,
+                                         "layer_norm": 1}, "deployed quant forward")
+    del quant
+    _comparator_rule("qat then deploy: fp32 quant kernels vs fp32 qat forward", p8, pq)
+    torch.cuda.empty_cache()
+    _train_rates(dev, card, {"qat": ("qat", False), "eager": ("eager", False)},
+                 "qat train throughput")
+    return launches, deployed
+
+
+def group_mae(dev, card, summary, launches) -> None:
+    """Phase 42."""
+    from vit_tpu_torch.ops.kernels import _build
+
+    phase_mae_correctness(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        launches["train_mae"], launches["train_mae_finetune"] = phase_mae_cli(workdir)
+    torch.cuda.empty_cache()
+    phase_mae_throughput(dev, card)
+
+
+def group_distill(dev, card, summary, launches) -> None:
+    """Phase 43."""
+    from vit_tpu_torch.ops.kernels import _build
+
+    phase_distill_correctness(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        teacher = _teacher_npz(workdir)
+        launches["train_distill"], launches["train_distill_int8"] = phase_distill_cli(
+            workdir, teacher)
+        torch.cuda.empty_cache()
+        phase_distill_throughput(dev, card, teacher)
+
+
+def group_qat(dev, card, summary, launches) -> None:
+    """Phase 44."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.ops.kernels import _build
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        launches["train_qat"], launches["qat_deploy_quant"] = phase_qat(
+            synth_params(VIT_B_16, 0), dev, card, workdir)
+
+
 PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw",
-          "parallel", "serve")
+          "parallel", "serve", "mae", "distill", "qat")
 
 
 def group_classify(dev, card, summary, launches) -> None:
@@ -3646,7 +3981,7 @@ def main(argv=None) -> None:
     groups = {"classify": group_classify, "train": group_train, "regularized": group_regularized,
               "long": group_long, "quant": group_quant, "tome": group_tome, "dh80": group_dh80,
               "per_op": group_per_op, "adamw": group_adamw, "parallel": group_parallel,
-              "serve": group_serve}
+              "serve": group_serve, "mae": group_mae, "distill": group_distill, "qat": group_qat}
     for name in PHASES:
         if name in only:
             t0 = time.perf_counter()

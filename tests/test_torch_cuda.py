@@ -2529,3 +2529,45 @@ def test_readback_is_pinned_per_batch(dev):
             np.testing.assert_array_equal(g, w.cpu().numpy())
     rb = serving.start_async_readback(labels, top)
     assert rb.probs is None and rb.wait()[2] is None
+
+
+# -- MAE's shapes: the decoder (D 512, 16 heads of width 32, F 2,048, T 197)
+# and the B/16 encoder on the visible tokens (T 50 at the 0.75 mask), each at
+# batch 4 and a ragged 3 --------------------------------------------------------
+
+MAE_SHAPES = {"decoder_b4": (4, 197, 512, 16, 2048), "decoder_b3": (3, 197, 512, 16, 2048),
+              "encoder_b4": (4, 50, 768, 12, 3072), "encoder_b3": (3, 50, 768, 12, 3072)}
+
+
+def _mae_kernel_case(dev, dtype, kernel, b, t, d, h, f):
+    """(kernel, plain twin, args, backward) of one training kernel at one
+    MAE shape."""
+    rows = b * t
+    if kernel == "K1":
+        args = (_rn(dev, 0, rows, d, scale=2.0, dtype=dtype),
+                _rn(dev, 1, d, scale=0.2, shift=1.0, dtype=dtype),
+                _rn(dev, 2, d, scale=0.2, dtype=dtype),
+                _rn(dev, 3, d, 3 * d, scale=d ** -0.5, dtype=dtype),
+                _rn(dev, 4, 3 * d, scale=0.1, dtype=dtype), h, t, 1e-6)
+        return ln_qkv_attn, ln_qkv_attn_plain, args, False
+    if kernel == "K4":
+        args = (_rn(dev, 0, rows, d, dtype=dtype), _rn(dev, 1, rows, d, scale=2.0, dtype=dtype),
+                _rn(dev, 2, d, d, scale=d ** -0.5, dtype=dtype),
+                _rn(dev, 3, d, scale=0.1, dtype=dtype))
+        return out_residual, out_residual_plain, args, False
+    if kernel == "K5":
+        return (ln_mlp_residual, ln_mlp_residual_plain,
+                (*_mlp_args(dev, dtype, rows, d, f), 1e-6, "exact"), False)
+    if kernel == "K6":
+        return ln_qkv_attn_bwd, ln_qkv_attn_bwd_plain, _k6_args(dev, dtype, b, t, d, h), True
+    return (ln_mlp_out_residual_bwd, ln_mlp_out_residual_bwd_plain,
+            _k7_args(dev, dtype, rows, d, f, "exact"), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(MAE_SHAPES))
+@pytest.mark.parametrize("kernel", ["K1", "K4", "K5", "K6", "K7"])
+def test_training_kernels_at_mae_shapes(dev, dtype, case, kernel):
+    fn, plain, args, backward = _mae_kernel_case(dev, dtype, kernel, *MAE_SHAPES[case])
+    (_check_all if backward else _check)(fn(*args), plain(*args))

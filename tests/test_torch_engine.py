@@ -115,8 +115,9 @@ def test_engine_cuda_without_card_raises(tiny_cfg, tree, monkeypatch):
 def test_engine_rejects_unknown_dtype_and_ops(tiny_cfg, tree):
     with pytest.raises(ValueError, match="dtype"):
         InferenceEngine(tiny_cfg, tree, dtype="float16", device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        InferenceEngine(tiny_cfg, tree, ops="qat", device="cpu")
+    with pytest.raises(ValueError, match="unknown ops impl 'int4'"):
+        InferenceEngine(tiny_cfg, tree, ops="int4", device="cpu")
+    assert InferenceEngine(tiny_cfg, tree, ops="qat", device="cpu")._ops.name == "qat"
 
 
 # -- CLI ---------------------------------------------------------------------

@@ -271,8 +271,10 @@ def test_comparator_matches_jax(tmp_path):
 
 def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     """chip_smoke, then on the CPU: the train CLI (fused_train, --save; and
-    regularized, eager and fused_train; with --optimizer fused_adamw; and
-    with --tome, plain and regularized), and the classify CLI on its npz, on
+    regularized, eager and fused_train; with --optimizer fused_adamw; with
+    --ops qat; with --mae and --save-backbone; with --distill-teacher on
+    the fused and the int8 teacher; and with --tome, plain and
+    regularized), and the classify CLI on its npz, on
     a Weight_*.bin directory, on a .pth, on --images, with --golden, with
     --ops quant, with --ops per_op --profile, with --attn-rollout and with
     --tome on fused and quant, and under torch.distributed.run on 2 ranks
@@ -303,6 +305,17 @@ for ops in ("eager", "fused_train"):
                        "--dropout", "0.1", "--drop-path", "0.1"]) == 0
 assert train.main([*run, "--steps", "2", "--batch", "2", "--ops", "fused_train",
                    "--optimizer", "fused_adamw", "--schedule", "warmup_cosine"]) == 0
+assert train.main([*run, "--steps", "1", "--batch", "2", "--ops", "qat"]) == 0
+assert train.main([*run, "--steps", "1", "--batch", "2", "--ops", "fused_train", "--mae",
+                   "--mask-ratio", "0.5", "--mae-decoder", "32,1,2",
+                   "--save-backbone", d + "/bb.npz"]) == 0
+deit = config.ViTConfig(image_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=4,
+                        num_classes=11, distilled=True, name="deit_tiny_test")
+config.CONFIGS[deit.name] = deit
+for extra in ([], ["--distill-teacher-int8"]):
+    assert train.main(["--config", deit.name, "--device", "cpu", "--steps", "1", "--batch", "2",
+                       "--ops", "fused_train", "--distill-teacher", d + "/bb.npz",
+                       "--distill-config", cfg.name, *extra]) == 0
 assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2", "--ops", "fused",
                       "--output", d + "/r.txt"]) == 0
 assert classify.main([*run, "--weights", d + "/Network", "--allow-synth-weights",

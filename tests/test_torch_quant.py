@@ -358,8 +358,9 @@ def test_quant_ops_table():
     assert ops.encoder_block is TQB.fused_encoder_block_q8 and ops.layer_norm is layer_norm
     # the per-op K21/K22, as the JAX quant table has them (phase_report's slots)
     assert ops.attention is attention and ops.mlp is mlp and ops.encoder_block_train is None
-    with pytest.raises(ValueError, match="ROADMAP"):
-        get_ops("qat")
+    with pytest.raises(ValueError, match="unknown ops impl 'int4'"):
+        get_ops("int4")
+    assert get_ops("qat").name == "qat"
 
 
 @pytest.mark.parametrize("long", [False, True], ids=["short", "long_blocks"])

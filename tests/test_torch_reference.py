@@ -137,8 +137,9 @@ def test_get_ops():
     assert get_ops("eager") is EAGER_OPS
     assert get_ops("fused").name == "fused"
     assert get_ops("quant").name == "quant"
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        get_ops("qat")
+    with pytest.raises(ValueError, match="unknown ops impl 'int4'"):
+        get_ops("int4")
+    assert get_ops("qat").name == "qat"
 
 
 def _eager_vs_jax(cfg, seed):

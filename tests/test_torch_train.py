@@ -464,12 +464,18 @@ def test_train_cli_has_no_flags_of_later_slices():
     from vit_tpu_torch.cli.train_args import build_parser
 
     flags = {o for a in build_parser()._actions for o in a.option_strings}
-    for later in ("--tp", "--dp", "--augment", "--resume", "--mae",
+    for later in ("--tp", "--dp", "--augment", "--resume",
                   "--ema-decay", "--save-state"):
         assert later not in flags
     assert {"--dropout", "--drop-path"} <= flags  # the regularized slice's
     assert {"--tome", "--tome-chunk"} <= flags  # token merging's
     assert "--optimizer" in flags  # the fused AdamW's
+    # pretraining and distillation's
+    assert {"--mae", "--mask-ratio", "--mae-decoder", "--no-norm-pix", "--save-backbone",
+            "--distill-teacher", "--distill-teacher-int8", "--distill-config",
+            "--distill-alpha", "--distill-soft", "--distill-tau"} <= flags
+    ops = next(a for a in build_parser()._actions if "--ops" in a.option_strings)
+    assert "qat" in ops.choices
 
 
 def test_forward_dropout_rng_raises(tiny_cfg, jparams, batch):

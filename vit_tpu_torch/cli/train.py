@@ -4,8 +4,13 @@ Cross-entropy training of a ViT with AdamW, on the ``fused_train`` CUDA
 kernels (forward K1/K4/K5, backward K7/K6; with ``--dropout``/
 ``--drop-path``, forward K1/K10/K11, backward K12a/K6) or plain PyTorch
 autograd (``eager``); ``--optimizer fused_adamw`` updates the weights with
-the fused AdamW kernel (K20) in place of ``torch.optim.AdamW``.  Data is an
-input-100.bin-format batch plus an int32 label file, or synthetic.
+the fused AdamW kernel (K20) in place of ``torch.optim.AdamW``.  ``--ops
+qat`` trains through fake-int8 QKV and MLP GEMMs (plain PyTorch); ``--mae``
+pretrains a masked autoencoder (the encoder on the visible tokens and the
+decoder's blocks on the same kernels); ``--distill-teacher`` trains a
+DeiT student against a frozen teacher on ``fused`` (or, with
+``--distill-teacher-int8``, ``quant``).  Data is an input-100.bin-format
+batch plus an int32 label file, or synthetic.
 
 Usage::
 
@@ -14,6 +19,11 @@ Usage::
         --dropout 0.1 --drop-path 0.1
     vit-tpu-torch-train --config vit_b_16 --steps 20 --batch 64 --mixed-precision \\
         --optimizer fused_adamw
+    vit-tpu-torch-train --config vit_b_16 --steps 20 --batch 64 --mixed-precision \
+        --mae --save-backbone backbone.npz
+    vit-tpu-torch-train --config deit_b_16 --steps 20 --batch 64 --mixed-precision \
+        --distill-teacher teacher.npz [--distill-teacher-int8]
+    vit-tpu-torch-train --config vit_b_16 --steps 20 --batch 64 --ops qat
     vit-tpu-torch-train --config vit_b_16 --steps 2 --batch 4 --device cpu
 
 Flag definitions in cli/train_args.py, run construction in

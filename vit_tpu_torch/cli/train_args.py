@@ -1,8 +1,8 @@
 """Argument parser for the training CLI (vit-tpu-torch-train).
 
 The flags of ``vit_tpu.cli.train_args`` that the one-device PyTorch port
-runs; the mesh, augmentation, distillation, MAE, EMA, resume and
-streaming-data flags wait for their slices of the port (ROADMAP.md).
+runs; the mesh, augmentation, EMA, resume and streaming-data flags wait for
+their slices of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,13 +46,76 @@ def build_parser() -> argparse.ArgumentParser:
         "the head is re-initialized at (D, K)",
     )
     p.add_argument("--save", help="save final params to this .npz")
+    p.add_argument(
+        "--distill-teacher", metavar="WEIGHTS",
+        help="DeiT distillation: train the student's distillation head "
+        "against this frozen teacher (any weight source; the teacher "
+        "forward runs inside the step).  Requires a distilled --config "
+        "(deit_*) and --ops eager, qat or fused_train",
+    )
+    p.add_argument(
+        "--distill-teacher-int8", action="store_true",
+        help="run the frozen teacher through the W8A8 quant kernels (the "
+        "teacher's targets get the int8 path's labels-preserved/looser-"
+        "logits contract).  Requires --ops fused_train",
+    )
+    p.add_argument(
+        "--distill-config", default=None, metavar="NAME",
+        help="teacher config name (default: the student config's "
+        "non-distilled twin — same geometry, single CLS head)",
+    )
+    p.add_argument(
+        "--distill-alpha", type=float, default=0.5, metavar="A",
+        help="distillation mix: (1-A)*CE(cls, labels) + A*KD(dist, teacher)",
+    )
+    p.add_argument(
+        "--distill-soft", action="store_true",
+        help="soft KD (temperature-scaled KL) instead of the paper's "
+        "default hard distillation (CE against the teacher's argmax)",
+    )
+    p.add_argument(
+        "--distill-tau", type=float, default=1.0, metavar="T",
+        help="softmax temperature for --distill-soft",
+    )
+    p.add_argument(
+        "--mae", action="store_true",
+        help="MAE self-supervised pretraining (models/mae.py): mask "
+        "--mask-ratio of the patches, encode the visible ones, reconstruct "
+        "the masked pixels through a lightweight decoder.  No labels are "
+        "consumed (any provided are ignored).  Pair with --save-backbone to "
+        "produce the fine-tuning checkpoint for --init-weights",
+    )
+    p.add_argument(
+        "--mask-ratio", type=float, default=0.75, metavar="R",
+        help="with --mae: fraction of patches hidden from the encoder "
+        "(0.75 is the paper's optimum; the encoder then runs on ~25%% of "
+        "the tokens)",
+    )
+    p.add_argument(
+        "--mae-decoder", default="512,8,16", metavar="DIM,DEPTH,HEADS",
+        help="with --mae: decoder geometry (paper default 512,8,16; the "
+        "decoder exists only during pretraining)",
+    )
+    p.add_argument(
+        "--no-norm-pix", action="store_true",
+        help="with --mae: reconstruct raw pixels instead of per-patch "
+        "normalized pixels (norm-pix is the paper's better default)",
+    )
+    p.add_argument(
+        "--save-backbone", metavar="PATH",
+        help="with --mae: save the pretrained encoder as a standard "
+        "classifier .npz (decoder dropped, fresh random head) — feed it "
+        "to --init-weights [--num-classes K] to fine-tune",
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-remat", action="store_true")
     p.add_argument(
-        "--ops", default="auto", choices=["auto", "eager", "fused_train"],
-        help="eager (plain PyTorch autograd) or fused_train (CUDA kernels "
-        "forward and backward; their plain twins on the CPU). auto = "
-        "fused_train on cuda, eager on cpu",
+        "--ops", default="auto", choices=["auto", "eager", "fused_train", "qat"],
+        help="eager (plain PyTorch autograd), fused_train (CUDA kernels "
+        "forward and backward; their plain twins on the CPU), or qat "
+        "(fake-int8 forward with straight-through backward — trains weights "
+        "for the int8 deployment path). auto = fused_train on cuda, eager "
+        "on cpu",
     )
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument(
@@ -80,8 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--dropout", type=float, default=0.0, metavar="P",
         help="training dropout at torchvision's four sites (input + pos "
-        "embedding, post-attention, intra-MLP, post-MLP); --ops eager or "
-        "fused_train (in-kernel masks)",
+        "embedding, post-attention, intra-MLP, post-MLP); --ops eager, qat "
+        "or fused_train (in-kernel masks)",
     )
     p.add_argument(
         "--drop-path", type=float, default=0.0, metavar="R",

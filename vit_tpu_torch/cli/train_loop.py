@@ -1,6 +1,6 @@
 """The vit-tpu-torch-train step loop: per-step dispatch, the ``step N  loss
 L  T s`` lines and ``--log-jsonl`` records of ``vit_tpu.cli.train_loop``,
-and the final ``--save``."""
+and the final ``--save`` and ``--save-backbone``."""
 
 from __future__ import annotations
 
@@ -54,4 +54,12 @@ def run(args, st) -> int:
     if args.save:
         ckpt.save_npz(params_to_numpy(st.params), args.save)
         print(f"saved params to {args.save}")
+    if args.save_backbone:
+        from vit_tpu_torch.models import mae
+
+        bb = mae.extract_backbone(st.params, torch.Generator().manual_seed(args.seed ^ 0xBB),
+                                  st.cfg)
+        ckpt.save_npz(params_to_numpy(bb), args.save_backbone)
+        print(f"saved pretrained backbone (fresh {st.cfg.embed_dim} x {st.cfg.num_classes} "
+              f"head) to {args.save_backbone}")
     return 0

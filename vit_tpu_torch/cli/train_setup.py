@@ -130,6 +130,11 @@ def _tome_forward(args, cfg, ops_name: str):
 
     if ops_name not in ("fused_train", "eager"):
         raise SetupError("error: --tome training requires --ops fused_train or eager")
+    if args.mae or args.distill_teacher:
+        raise SetupError(
+            "error: --tome training does not compose with --mae/--distill-teacher (the "
+            "merged-token forward has no hooks for them)"
+        )
     chunk = tome.TRAIN_MERGE_CHUNK if args.tome_chunk is None else args.tome_chunk
     if chunk < 1:
         raise SetupError("error: --tome-chunk must be >= 1")
@@ -145,6 +150,134 @@ def _tome_forward(args, cfg, ops_name: str):
         return impl(params, images, cfg, args.tome, counts=counts, dropout_rng=dropout_rng)
 
     return forward
+
+
+def _mae_config(args, cfg, ops_name: str):
+    """--mae and its flags -> an ``MAEConfig``, or None without --mae (the
+    MAE-only flags are then refused, not ignored)."""
+    if not args.mae:
+        if args.save_backbone:
+            raise SetupError("error: --save-backbone requires --mae")
+        mae_only = [name for name, off in (
+            ("--mask-ratio", args.mask_ratio == 0.75),
+            ("--mae-decoder", args.mae_decoder == "512,8,16"),
+            ("--no-norm-pix", not args.no_norm_pix),
+        ) if not off]
+        if mae_only:
+            raise SetupError(f"error: {'/'.join(mae_only)} require --mae")
+        return None
+    from vit_tpu_torch.models import mae
+
+    if (args.distill_teacher or args.label_smoothing or args.dropout or args.drop_path
+            or args.grad_accum > 1 or args.num_classes or args.init_weights
+            or args.optimizer == "fused_adamw"):
+        raise SetupError(
+            "error: --mae is self-supervised pretraining — it excludes the label-dependent "
+            "and layout-specific flags (--distill-teacher/--label-smoothing/--dropout/"
+            "--drop-path/--grad-accum/--num-classes/--init-weights/--optimizer "
+            "fused_adamw); use --save-backbone + --init-weights for downstream fine-tuning"
+        )
+    if ops_name not in ("eager", "fused_train"):
+        raise SetupError(f"error: --mae supports --ops eager or fused_train (got {ops_name})")
+    try:
+        dim, depth, heads = (int(v) for v in args.mae_decoder.split(","))
+    except ValueError:
+        raise SetupError(
+            f"error: --mae-decoder must be DIM,DEPTH,HEADS (got {args.mae_decoder!r})"
+        ) from None
+    mae_cfg = mae.MAEConfig(mask_ratio=args.mask_ratio, decoder_dim=dim, decoder_depth=depth,
+                            decoder_heads=heads, norm_pix_loss=not args.no_norm_pix)
+    try:
+        mae.check_config(cfg)
+        keep = mae_cfg.len_keep(cfg)
+        mae_cfg.decoder_cfg(cfg)
+    except ValueError as e:
+        raise SetupError(f"error: {e}") from e
+    print(f"mae: mask_ratio {args.mask_ratio} ({keep}/{cfg.num_patches} patches visible), "
+          f"decoder {dim}x{depth} ({heads} heads), norm_pix {not args.no_norm_pix}")
+    return mae_cfg
+
+
+def _teacher(args, cfg, ops_name: str, device, compute_dtype):
+    """--distill-teacher and its flags -> the frozen teacher's ``images ->
+    logits``, or None without --distill-teacher.  The teacher runs on
+    ``fused`` under ``fused_train``, on ``quant`` with
+    --distill-teacher-int8 (quantized from fp32 first, then cast, as the
+    engine prepares it), else on ``eager``."""
+    if args.distill_teacher_int8 and not args.distill_teacher:
+        raise SetupError(
+            "error: --distill-teacher-int8 modifies the teacher path — pass "
+            "--distill-teacher WEIGHTS too"
+        )
+    if not args.distill_teacher:
+        return None
+    from vit_tpu_torch.config import get_config
+    from vit_tpu_torch.io.load_any import load_params_any
+    from vit_tpu_torch.io.params import params_from_numpy
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.dispatch import get_ops
+
+    if not cfg.distilled:
+        raise SetupError(
+            f"error: --distill-teacher needs a distilled student --config (deit_*), got "
+            f"{cfg.name}"
+        )
+    if ops_name not in ("eager", "qat", "fused_train"):
+        raise SetupError("error: --distill-teacher requires --ops eager, qat, or fused_train")
+    if args.grad_accum > 1 or args.dropout or args.drop_path:
+        raise SetupError(
+            "error: --distill-teacher composes with none of --grad-accum/--dropout/--drop-path"
+        )
+    t_cfg = (get_config(args.distill_config) if args.distill_config
+             else dataclasses.replace(cfg, distilled=False, name=f"{cfg.name}_teacher"))
+    if t_cfg.num_classes != cfg.num_classes:
+        t_cfg = dataclasses.replace(t_cfg, num_classes=cfg.num_classes)
+    if t_cfg.image_size != cfg.image_size:
+        raise SetupError(
+            f"error: teacher config {t_cfg.name} is {t_cfg.image_size}px but the student "
+            f"trains at {cfg.image_size}px"
+        )
+    try:
+        t_tree = load_params_any(args.distill_teacher, t_cfg,
+                                 allow_synth=args.allow_synth_weights)
+    except ValueError as e:
+        raise SetupError(f"error: {e}") from e
+    # an .npz load skips config validation: a teacher trained with another
+    # head width would otherwise hand out argmax labels outside the
+    # student's class range
+    t_classes = int(np.asarray(t_tree["head"]["bias"]).shape[0])
+    if t_classes != cfg.num_classes:
+        raise SetupError(
+            f"error: teacher head has {t_classes} classes but the student trains "
+            f"{cfg.num_classes} — the distillation targets must share the student's label space"
+        )
+    if args.distill_teacher_int8 and ops_name != "fused_train":
+        raise SetupError("error: --distill-teacher-int8 requires --ops fused_train")
+    t_params = params_from_numpy(t_tree, device, torch.float32)
+    t_tag = ""
+    if args.distill_teacher_int8:
+        # quantize from full precision FIRST, then cast the other leaves
+        t_params = quant.quantize_params(t_params)
+        if compute_dtype is not None:
+            t_params = quant.cast_quantized_params(t_params, compute_dtype)
+        t_ops = get_ops("quant")
+        t_tag = " [teacher on W8A8 kernels]"
+    else:
+        if compute_dtype is not None:
+            t_params = vit.cast_params(t_params, compute_dtype)
+        t_ops = get_ops("fused" if ops_name == "fused_train" else "eager")
+        if ops_name == "fused_train":
+            t_tag = " [teacher on fused kernels]"
+    mode = (f"soft KD (tau={args.distill_tau})" if args.distill_soft
+            else "hard (CE vs teacher argmax)")
+    print(f"distillation: teacher {t_cfg.name} from {args.distill_teacher}, "
+          f"alpha={args.distill_alpha}, {mode}" + t_tag)
+
+    def teacher_fwd(images):
+        return vit.forward(t_params, images, t_cfg, t_ops)
+
+    return teacher_fwd
 
 
 def prepare(args) -> TrainSetup:
@@ -176,9 +309,10 @@ def prepare(args) -> TrainSetup:
         raise SetupError(f"error: --grad-accum {args.grad_accum} must divide --batch {args.batch}")
     use_dropout = bool(args.dropout or args.drop_path)
     if use_dropout:
-        # eager: masks drawn in the plain blocks; fused_train: regenerated in
-        # the kernels from one seed per layer (ops/trainable.py).  --ops
-        # takes no table without regularizer hooks (argparse refuses fused).
+        # eager and qat: masks drawn in the plain blocks; fused_train:
+        # regenerated in the kernels from one seed per layer
+        # (ops/trainable.py).  --ops takes no table without regularizer
+        # hooks (argparse refuses fused).
         max_t = fused_block.VMEM_ATTENTION_MAX_T
         if ops_name == "fused_train" and cfg.seq_len > max_t:
             raise SetupError(
@@ -189,8 +323,14 @@ def prepare(args) -> TrainSetup:
         cfg = dataclasses.replace(cfg, dropout=args.dropout, drop_path=args.drop_path)
         print(f"dropout: {args.dropout}  drop_path: {args.drop_path}")
     tome_forward = _tome_forward(args, cfg, ops_name)
+    mae_cfg = _mae_config(args, cfg, ops_name)
+    teacher_fwd = _teacher(args, cfg, ops_name, device, compute_dtype)
 
-    if args.init_weights:
+    if mae_cfg is not None:
+        from vit_tpu_torch.models import mae
+
+        params = mae.init_mae_params(torch.Generator().manual_seed(args.seed), cfg, mae_cfg)
+    elif args.init_weights:
         try:
             tree = load_params_any(args.init_weights, load_cfg, round_to_6dp=True,
                                    allow_synth=args.allow_synth_weights)
@@ -232,13 +372,26 @@ def prepare(args) -> TrainSetup:
         print("weight decay: GEMM kernels only (norm/bias/embeddings exempt)")
     if args.grad_clip:
         print(f"grad-clip: global norm {args.grad_clip}")
-    step = trainer.make_train_step(
-        cfg, optimizer, get_ops(ops_name), remat=remat, compute_dtype=compute_dtype,
-        label_smoothing=args.label_smoothing, grad_accum=args.grad_accum,
-        grad_clip=args.grad_clip, use_dropout=use_dropout,
-        rng=torch.Generator().manual_seed(args.seed) if use_dropout else None,
-        forward_fn=tome_forward,
-    )
+    ops = get_ops(ops_name)
+    if mae_cfg is not None:
+        # the masks of every step from one generator on the device
+        gen = torch.Generator(device=device).manual_seed(args.seed ^ 0xA46)
+        step = trainer.make_mae_train_step(cfg, mae_cfg, optimizer, gen, ops,
+                                           compute_dtype=compute_dtype, grad_clip=args.grad_clip)
+    elif teacher_fwd is not None:
+        step = trainer.make_distill_train_step(
+            cfg, optimizer, teacher_fwd, ops, remat=remat, compute_dtype=compute_dtype,
+            alpha=args.distill_alpha, hard=not args.distill_soft, tau=args.distill_tau,
+            label_smoothing=args.label_smoothing, grad_clip=args.grad_clip,
+        )
+    else:
+        step = trainer.make_train_step(
+            cfg, optimizer, ops, remat=remat, compute_dtype=compute_dtype,
+            label_smoothing=args.label_smoothing, grad_accum=args.grad_accum,
+            grad_clip=args.grad_clip, use_dropout=use_dropout,
+            rng=torch.Generator().manual_seed(args.seed) if use_dropout else None,
+            forward_fn=tome_forward,
+        )
 
     images, labels = _load_data(args, cfg)
     if len(images) < args.batch:

@@ -98,9 +98,7 @@ def load_params_any(source, cfg: ViTConfig = VIT_B_16, round_to_6dp: bool = True
         from vit_tpu_torch.io import checkpoint as ckpt
 
         tree = ckpt.load_params_from_state(p) if ckpt.is_train_state(p) else ckpt.load_npz(p)
-        if "decoder" in tree and "head" not in tree:
-            raise ValueError(f"{source} is an MAE pretraining checkpoint (no classifier head)")
-        return tree
+        return _no_mae(tree, source)
     if suffix in (".pth", ".pt"):
         _check_native_checkpoint(cfg, source)
         return load_pth(p, cfg)
@@ -108,6 +106,21 @@ def load_params_any(source, cfg: ViTConfig = VIT_B_16, round_to_6dp: bool = True
         f"unrecognized weight source {source!r}: expected a Weight_*.bin "
         "directory, a .npz, or a .pth/.pt"
     )
+
+
+def _no_mae(tree, source):
+    """An MAE pretraining tree (decoder, no classifier head) cannot serve as
+    classifier weights: refuse it at load, with the conversion recipe,
+    rather than with a KeyError('head') later in the forward."""
+    from vit_tpu_torch.models.mae import is_mae_params
+
+    if is_mae_params(tree):
+        raise ValueError(
+            f"{source} is an MAE pretraining checkpoint (decoder present, no classifier "
+            "head): extract the fine-tuning backbone first — vit-tpu-torch-train --mae "
+            "--save-backbone PATH, then use PATH here"
+        )
+    return tree
 
 
 def _check_native_checkpoint(cfg, source):

@@ -3,9 +3,9 @@
 Counterpart of ``vit_tpu.ops.dispatch``: one model parameterized by an op
 table.  ``eager`` plays the role of ``xla`` and ``per_op`` that of
 ``pallas`` (one kernel per layer op); ``fused`` is the per-layer
-inference kernel path, ``quant`` its W8A8 twin (int8 QKV and MLP GEMMs)
-and ``fused_train`` the differentiable one.  The JAX package's ``qat``
-table waits for its slice of the port (ROADMAP.md).
+inference kernel path, ``quant`` its W8A8 twin (int8 QKV and MLP GEMMs),
+``fused_train`` the differentiable one, and ``qat`` the fake-int8
+training table (``ops/qat.py``, plain PyTorch as in the JAX package).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ EAGER_OPS = OpsImpl(
 
 def get_ops(impl: str = "eager") -> OpsImpl:
     """Return the op table for ``impl`` in {'eager', 'per_op', 'fused',
-    'quant', 'fused_train'}.
+    'quant', 'fused_train', 'qat'}.
 
     'eager' is the plain PyTorch reference path; 'per_op' is the per-op
     kernel tier (the JAX package's 'pallas': K3 LayerNorms, K21 attention,
@@ -60,10 +60,16 @@ def get_ops(impl: str = "eager") -> OpsImpl:
     block as two CUDA kernels and the final LayerNorm as a third; 'quant'
     does the same over int8 QKV and MLP weights (params from
     ``ops/quant.quantize_params``); 'fused_train' runs each block as three
-    forward and two backward CUDA kernels under autograd.  The kernel
-    modules are imported lazily, so eager use never touches them."""
+    forward and two backward CUDA kernels under autograd; 'qat' is the
+    plain reference with the QKV and MLP GEMMs fake-quantized to int8
+    (straight-through backward).  The kernel modules are imported lazily,
+    so eager use never touches them."""
     if impl == "eager":
         return EAGER_OPS
+    if impl == "qat":
+        from vit_tpu_torch.ops.qat import QAT_OPS
+
+        return QAT_OPS
     tables = {"per_op": "PER_OP_OPS", "fused": "FUSED_OPS", "quant": "QUANT_OPS",
               "fused_train": "TRAINABLE_FUSED_OPS"}
     if impl in tables:
@@ -71,6 +77,6 @@ def get_ops(impl: str = "eager") -> OpsImpl:
 
         return getattr(fused, tables[impl])
     raise ValueError(
-        f"unknown ops impl {impl!r}; expected 'eager', 'per_op', 'fused', 'quant' or "
-        "'fused_train' (the JAX package's 'qat' table is still to be ported — see ROADMAP.md)"
+        f"unknown ops impl {impl!r}; expected 'eager', 'per_op', 'fused', 'quant', "
+        "'fused_train' or 'qat'"
     )

@@ -48,7 +48,8 @@ class InferenceEngine:
       ops: 'fused' (CUDA kernels; their plain twins on the CPU), 'quant'
         (the W8A8 kernels: the QKV and MLP weights are quantized to int8
         here, from the fp32 tree), 'per_op' (one kernel per layer op, the
-        JAX package's 'pallas') or 'eager'.
+        JAX package's 'pallas'), 'eager', or 'qat' (the fake-int8 plain
+        ops a QAT run trains through).
       device: 'cuda', 'cuda:N' or 'cpu'.
       batch_pad: round batch sizes up to a multiple of this.
       gelu_variant: 'exact' (erf) or 'tanh'.

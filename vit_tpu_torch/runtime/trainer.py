@@ -1,7 +1,8 @@
-"""Training step: cross-entropy over a params dict, on one device.
+"""Training steps over a params dict, on one device: cross-entropy, DeiT
+distillation against a frozen teacher, and MAE pretraining.
 
 Counterpart of ``vit_tpu.runtime.trainer`` (its single-device pieces; the
-mesh, distillation, MAE and EMA paths wait for their slices of the port).
+mesh and EMA paths wait for their slices of the port).
 Params are a dict of leaf tensors with ``requires_grad``; a
 ``torch.optim`` optimizer over those leaves takes the place of an optax
 transformation and its state, and updates them in place — the
@@ -87,6 +88,123 @@ def _make_loss_fn(cfg: ViTConfig, ops: OpsImpl, remat: bool, compute_dtype=None,
     return loss_fn
 
 
+def distillation_loss(
+    cls_logits: torch.Tensor,
+    dist_logits: torch.Tensor,
+    labels: torch.Tensor,
+    teacher_logits: torch.Tensor,
+    alpha: float = 0.5,
+    hard: bool = True,
+    tau: float = 1.0,
+    label_smoothing: float = 0.0,
+) -> torch.Tensor:
+    """DeiT distillation objective (Touvron et al. 2021): the CLS head
+    trains on the true labels, the distillation head on the teacher.
+
+    ``hard`` (the paper's best variant) takes the teacher's argmax as a hard
+    label: L = (1-alpha)*CE(cls, y) + alpha*CE(dist, argmax(teacher)), the
+    first maximum on a tie (``torch.argmax``'s rule, and ``jnp.argmax``'s).
+    ``hard=False`` is soft KD:
+    alpha * tau^2 * KL(teacher_tau || dist_tau), in fp32.  The teacher
+    logits carry no graph (the teacher is frozen)."""
+    ce = cross_entropy_loss(cls_logits, labels, label_smoothing)
+    if hard:
+        kd = cross_entropy_loss(dist_logits, teacher_logits.argmax(dim=-1))
+    else:
+        t = torch.log_softmax(teacher_logits.float() / tau, dim=-1)
+        s = torch.log_softmax(dist_logits.float() / tau, dim=-1)
+        kd = (tau * tau) * (t.exp() * (t - s)).sum(dim=-1).mean()
+    return (1.0 - alpha) * ce + alpha * kd
+
+
+def make_distill_train_step(
+    cfg: ViTConfig,
+    optimizer: torch.optim.Optimizer,
+    teacher_fwd: Callable,
+    ops: OpsImpl = EAGER_OPS,
+    remat: bool = True,
+    compute_dtype=None,
+    alpha: float = 0.5,
+    hard: bool = True,
+    tau: float = 1.0,
+    label_smoothing: float = 0.0,
+    grad_clip: float = 0.0,
+):
+    """Build ``(params, images, labels) -> loss`` training a DeiT-distilled
+    student against a frozen teacher, one optimizer update per call
+    (``grad_clip`` as in :func:`make_train_step`).
+
+    ``teacher_fwd``: ``images -> logits`` over the frozen teacher (any
+    config and op table, typically ``vit.forward`` over a loaded tree on
+    ``fused`` or ``quant``); it runs under ``torch.no_grad``, so it records
+    no graph.  The student runs ``vit.forward(..., separate_heads=True)``
+    on ``ops``; it must be a distilled config (dual heads)."""
+    if not cfg.distilled:
+        raise ValueError(
+            f"distillation training needs a distilled student config "
+            f"(got {cfg.name}; use deit_*)"
+        )
+
+    def fwd(p, x):
+        if compute_dtype is not None:
+            p = vit.cast_params(p, compute_dtype)
+            x = x.to(compute_dtype)
+        return vit.forward(p, x, cfg, ops, separate_heads=True)
+
+    def loss_fn(params, images, labels):
+        with torch.no_grad():
+            t_logits = teacher_fwd(images)
+        if remat:
+            cls_logits, dist_logits = torch.utils.checkpoint.checkpoint(
+                fwd, params, images, use_reentrant=False)
+        else:
+            cls_logits, dist_logits = fwd(params, images)
+        return distillation_loss(cls_logits, dist_logits, labels, t_logits, alpha=alpha,
+                                 hard=hard, tau=tau, label_smoothing=label_smoothing)
+
+    def train_step(params, images, labels) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, images, labels)
+        loss.backward()
+        _update(params, optimizer, grad_clip)
+        return loss.detach()
+
+    return train_step
+
+
+def make_mae_train_step(
+    cfg: ViTConfig,
+    mae_cfg,
+    optimizer: torch.optim.Optimizer,
+    gen: torch.Generator,
+    ops: OpsImpl = EAGER_OPS,
+    compute_dtype=None,
+    grad_clip: float = 0.0,
+):
+    """Build the MAE pretraining step ``(params, images, labels) -> loss``
+    (``models/mae.py``), the loop's calling shape; the labels are ignored,
+    the targets being the images' own masked pixels.  Each step draws its
+    masks from ``gen``, a generator on the images' device.  ``grad_clip``
+    as in :func:`make_train_step`.
+
+    No remat: at the default 75% mask the encoder runs on a quarter of the
+    tokens, and the ``fused_train`` backward kernels recompute from their
+    stashed inputs already.  With ``compute_dtype`` the params are cast
+    inside the loss (the encoder casts the images)."""
+    from vit_tpu_torch.models import mae
+
+    def train_step(params, images, labels=None) -> torch.Tensor:
+        del labels
+        optimizer.zero_grad(set_to_none=True)
+        p = params if compute_dtype is None else vit.cast_params(params, compute_dtype)
+        loss = mae.forward_loss(p, images, gen, cfg, mae_cfg, ops)
+        loss.backward()
+        _update(params, optimizer, grad_clip)
+        return loss.detach()
+
+    return train_step
+
+
 def _value_and_grad_accum(loss_fn, params, images, labels, k: int, rng=None) -> torch.Tensor:
     """The mean loss (detached), with the gradients of the mean in each
     leaf's ``.grad``.  ``k`` > 1 splits the batch into k equal microbatches
@@ -148,12 +266,18 @@ def make_train_step(
             step_rng = torch.Generator().manual_seed(int(torch.randint(0, 2 ** 62, (), generator=rng)))
         optimizer.zero_grad(set_to_none=True)
         loss = _value_and_grad_accum(loss_fn, params, images, labels, grad_accum, step_rng)
-        if grad_clip:
-            torch.nn.utils.clip_grad_norm_(list(leaves(params)), grad_clip)
-        optimizer.step()
+        _update(params, optimizer, grad_clip)
         return loss
 
     return train_step
+
+
+def _update(params, optimizer: torch.optim.Optimizer, grad_clip: float) -> None:
+    """One optimizer update from the leaves' gradients, clipped first to
+    the global L2 norm ``grad_clip`` when it is > 0."""
+    if grad_clip:
+        torch.nn.utils.clip_grad_norm_(list(leaves(params)), grad_clip)
+    optimizer.step()
 
 
 class FusedAdamW(torch.optim.Optimizer):
