@@ -267,11 +267,30 @@ Phases (a failed phase raises; nothing is caught):
      ``qat`` forward against the fp32 ``quant`` kernels' (12 K15, 12 K16,
      1 K3) on the same weights at batch 100, by the comparator rule; the
      QAT step's img/s beside the eager step's.  TF32 is off throughout.
+ 45. parallel training (in the parallel group, after 38): K8
+     ``ln_mlp_residual_bwd(residual=False)`` (the tensor-parallel form)
+     against its twin at rank 0's shard of B/16's MLP for tp 2 and 4 (F/tp
+     1,536 and 768) at b16 x T 197 rows, bf16 and fp32, timed, with device
+     time and bound; then two ranks sharing the card over gloo, started by
+     ``torchrun`` with a time limit (``--rank-train-worker``): the fp32
+     gradients of one tp 2 step @224 batch 16, gathered, against the
+     single-card ``fused_train`` step's (1e-3 x max(1, max|g|) per leaf);
+     the train CLI (B/16, ``--ops fused_train``) with ``--tp 2`` batch 16,
+     bf16 mixed and fp32, 3 steps (12 K1, 12 K5 partial, 12 K6, 12 K8
+     ``residual=False`` per rank and step; no K2, K4 or K7), ``--dp 2``
+     batch 32 bf16 with ``--optimizer fused_adamw``, 3 steps (12 each of K1,
+     K4-K7 and 1 K20; the params of both ranks equal bit for bit after),
+     ``--dp 2 --dropout 0.1``, 1 step (12 K1, K10, K11, K12a, K6), ``--dp
+     2 --mae`` and ``--dp 2 --config deit_b_16 --distill-teacher``, 2 steps
+     each, every count set to 0 just before and read just after on every
+     rank; the tp 2 step @512 batch 2 (12 K13, K14, K5 partial, K8
+     ``residual=False`` per rank); the time per step of two ranks sharing
+     one card (not a scaling figure).
 
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
 regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
-per_op 31-33, adamw 34-35, parallel 36-38, serve 39-41, mae 42, distill
-43, qat 44); without it every phase runs.
+per_op 31-33, adamw 34-35, parallel 36-38 and 45, serve 39-41, mae 42,
+distill 43, qat 44); without it every phase runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -407,6 +426,16 @@ STUDY_KERNELS = {
 TP_SIZES = (2, 4)  # the shard shapes of phase 36
 RANKS = 2  # phase 38's ranks, sharing the one card over gloo
 RANKS_TIMEOUT = 420  # s: a rank that hangs fails phase 38
+TRAIN_RANKS_TIMEOUT = 300  # s: a rank that hangs fails phase 45
+# phase 45: K8's tensor-parallel form, a kernels-line entry of its own (its
+# launches are K8's count on the tensor-parallel train paths)
+K8_PARTIAL_KERNELS = {
+    "ln_mlp_residual_bwd residual=False": ("K8 residual=False",
+                                           "vit_tpu_torch/csrc/ln_mlp_residual_bwd.cu",
+                                           "vit_tpu/ops/pallas/backward.py:218"),
+}
+K8_PARTIAL_ROWS = 16 * 197  # b16 x T 197: a tp 2 train step's rows at @224
+TP_TRAIN_BATCH, DP_TRAIN_BATCH = 16, 32
 B16_LEAVES = (20, 86_567_656)  # ViT-B/16's params: leaves, elements
 TRAIN_LR = 1e-4  # the fused AdamW train CLI run's rate, as the ToMe runs'
 
@@ -3078,8 +3107,320 @@ def phase_parallel(params, dev: torch.device, card: str, workdir: str) -> dict:
     return {path: reports[0]["launches"][path] for path in (*RANK_RUNS, "classify_tp_long")}
 
 
+# phase 45's runs, per rank and step: name -> (train CLI flags, steps,
+# launches per step, K5 partial, K8 residual=False)
+TRAIN_RANK_RUNS = {
+    "train_tp": (["--tp", "2", "--batch", str(TP_TRAIN_BATCH), "--mixed-precision"], 3,
+                 {"ln_qkv_attn": 12, "ln_mlp_residual": 12, "ln_qkv_attn_bwd": 12,
+                  "ln_mlp_residual_bwd": 12}, True),
+    "train_tp_fp32": (["--tp", "2", "--batch", str(TP_TRAIN_BATCH)], 3,
+                      {"ln_qkv_attn": 12, "ln_mlp_residual": 12, "ln_qkv_attn_bwd": 12,
+                       "ln_mlp_residual_bwd": 12}, True),
+    "train_dp": (["--dp", "2", "--batch", str(DP_TRAIN_BATCH), "--mixed-precision",
+                  "--optimizer", "fused_adamw"], 3,
+                 {"ln_qkv_attn": 12, "out_residual": 12, "ln_mlp_residual": 12,
+                  "ln_qkv_attn_bwd": 12, "ln_mlp_out_residual_bwd": 12, "adamw_update": 1},
+                 False),
+    "train_dp_regularized": (["--dp", "2", "--batch", str(DP_TRAIN_BATCH), "--mixed-precision",
+                              "--dropout", str(REG_P)], 1,
+                             {"ln_qkv_attn": 12, "out_residual_train": 12,
+                              "ln_mlp_residual_train": 12, "ln_mlp_out_residual_bwd_train": 12,
+                              "ln_qkv_attn_bwd": 12}, False),
+    "train_mae_dp": (["--dp", "2", "--batch", str(DP_TRAIN_BATCH), "--mixed-precision", "--mae"],
+                     2,
+                     {name: 20 for name in ("ln_qkv_attn", *TRAIN_KERNELS)}, False),
+    "train_distill_dp": (["--dp", "2", "--batch", str(DP_TRAIN_BATCH), "--mixed-precision",
+                          "--config", "deit_b_16", "--distill-teacher", "TEACHER"], 2,
+                         {"ln_qkv_attn": 24, "out_ln_mlp_residual": 12, "layer_norm": 1,
+                          **{name: 12 for name in TRAIN_KERNELS}}, False),
+}
+TP_LONG_TRAIN_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
+                      "ln_mlp_residual": 12, "ln_mlp_residual_bwd": 12}
+
+
+class _FlagSpy(_RowSpy):
+    """A kernel wrapper that records the value of one keyword of each call
+    (``default`` where it is not passed)."""
+
+    def __init__(self, fn, flag: str, default: bool):
+        super().__init__(fn)
+        self.flag, self.default, self.values = flag, default, []
+
+    def __call__(self, *args, **kwargs):
+        self.values.append(bool(kwargs.get(self.flag, self.default)))
+        return self.fn(*args, **kwargs)
+
+
+def _train_rank_cli(workdir: str, flags, steps: int, mesh_spies) -> dict:
+    """One phase 45 run of the train CLI on this rank (its argument
+    parsing, mesh, setup and loop: ``vit_tpu_torch.cli.train.main`` in
+    pieces, so that the params stay readable), every count set to 0 just
+    before the loop and read just after.  -> the rank's report."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from vit_tpu_torch.cli.train_args import build_parser
+    from vit_tpu_torch.cli.train_loop import run
+    from vit_tpu_torch.cli.train_setup import build_mesh, prepare
+    from vit_tpu_torch.runtime.trainer import leaves
+
+    argv = ["--config", "vit_b_16", "--steps", str(steps), "--ops", "fused_train",
+            "--device", "cuda", "--dist-backend", "gloo", "--log-jsonl", f"{workdir}/log.jsonl",
+            *flags]
+    args = build_parser().parse_args(argv)
+    mesh, device = build_mesh(args)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        st = prepare(args, mesh, device)
+        for spy in mesh_spies:
+            spy.values.clear()
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        rc = run(args, st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    digest = hashlib.sha256()
+    for t in leaves(st.params):
+        digest.update(t.detach().cpu().numpy().tobytes())
+    report = {"rc": rc, "launches": {name: fn.launches for name, fn in wrappers.items()},
+              "flags": {spy.flag: [sum(spy.values), len(spy.values)] for spy in mesh_spies},
+              "stdout": buf.getvalue().splitlines()[-3:], "wall_s": wall,
+              "params_sha256": digest.hexdigest(), "rank": dist.get_rank()}
+    if dist.get_rank() == 0:
+        with open(f"{workdir}/log.jsonl") as fh:
+            report["steps"] = [json.loads(line) for line in fh]
+        os.remove(f"{workdir}/log.jsonl")
+    return report
+
+
+def _grad_tree(tree):
+    return {k: _grad_tree(v) if isinstance(v, dict) else v.grad for k, v in tree.items()}
+
+
+def train_rank_worker(workdir: str) -> None:
+    """One rank of phase 45 (``torchrun`` starts ``RANKS`` of them): the
+    fp32 gradients of one tensor-parallel step, gathered; the train CLI
+    runs of ``TRAIN_RANK_RUNS``; the tensor-parallel step @512 batch 2.
+    Writes ``train_rank<r>.json`` (and, on rank 0, the gradients) into
+    ``workdir``."""
+    import torch.distributed as dist
+
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd as k8
+    from vit_tpu_torch.parallel import make_mesh
+    from vit_tpu_torch.parallel.sharding import shard_params, unshard_params
+    from vit_tpu_torch.runtime import distributed, trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", distributed.local_rank() % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    distributed.initialize(backend="gloo")
+    rank = dist.get_rank()
+    # the flags of K5 and K8 on the tensor-parallel paths
+    spies = [_FlagSpy(k5.ln_mlp_residual, "partial", False),
+             _FlagSpy(k8.ln_mlp_residual_bwd, "residual", True)]
+    k5.ln_mlp_residual, k8.ln_mlp_residual_bwd = spies
+    report = {"runs": {}}
+
+    # the fp32 gradients of one step (SGD at lr 0 keeps them), gathered
+    mesh = make_mesh({"dp": 1, "tp": 2})
+    x, y = _tp_grad_batch(dev)
+    params = trainer.as_trainable(
+        shard_params(vit.init_params(torch.Generator().manual_seed(0), VIT_B_16), mesh), dev)
+    step = trainer.make_train_step_kernel_tp(VIT_B_16, torch.optim.SGD(
+        list(trainer.leaves(params)), lr=0.0), mesh)
+    report["tp_grad_loss"] = float(step(params, x, y))
+    grads = unshard_params(_grad_tree(params), mesh)
+    if rank == 0:
+        np.savez(f"{workdir}/tp_grads.npz", **{p: g.cpu().numpy() for p, g in _paths(grads)})
+    del params, grads, step
+    torch.cuda.empty_cache()
+
+    teacher = f"{workdir}/teacher.npz"
+    for name, (flags, steps, _, _) in TRAIN_RANK_RUNS.items():
+        flags = [teacher if f == "TEACHER" else f for f in flags]
+        report["runs"][name] = _train_rank_cli(workdir, flags, steps, spies)
+        torch.cuda.empty_cache()
+
+    # the tensor-parallel step @512 batch 2: K13/K14 at the local heads
+    cfg = VIT_B_16.with_image_size(LONG_IMAGE)
+    params = trainer.as_trainable(
+        shard_params(vit.init_params(torch.Generator().manual_seed(0), cfg), mesh), dev)
+    step = trainer.make_train_step_kernel_tp(cfg, torch.optim.SGD(
+        list(trainer.leaves(params)), lr=1e-4), mesh, compute_dtype=torch.bfloat16)
+    xl = torch.from_numpy(synth_images(2, cfg, seed=5)).to(dev)
+    yl = torch.arange(2, device=dev)
+    for spy in spies:
+        spy.values.clear()
+    wrappers = _reset_counts()
+    loss = float(step(params, xl, yl))
+    torch.cuda.synchronize()
+    report["runs"]["train_tp_long"] = {
+        "rc": 0 if np.isfinite(loss) else 1,
+        "launches": {n: fn.launches for n, fn in wrappers.items()},
+        "flags": {spy.flag: [sum(spy.values), len(spy.values)] for spy in spies}, "loss": loss}
+    with open(f"{workdir}/train_rank{rank}.json", "w") as fh:
+        json.dump(report, fh)
+
+
+def _tp_grad_batch(dev):
+    """Phase 45's gradient batch: 16 synthetic B/16 images and labels."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+
+    x = torch.from_numpy(synth_images(TP_TRAIN_BATCH, VIT_B_16, seed=3)).to(dev)
+    y = torch.from_numpy(np.random.default_rng(3).integers(0, 1000, TP_TRAIN_BATCH)).to(dev)
+    return x, y
+
+
+def k8_partial_cases(dev: torch.device):
+    """-> ({kernel: [case]}, labels) for phase 45: K8 ``residual=False`` at
+    rank 0's shard of B/16's MLP for tp 2 and 4 (F/tp 1,536 and 768) at
+    b16 x T 197 rows, bf16 and fp32, against its twin, with device time."""
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd as k8
+
+    d, f = B16["d"], B16["f"]
+    rn = _rand(dev, 45)
+    name = next(iter(K8_PARTIAL_KERNELS))
+    labels = {name: K8_PARTIAL_KERNELS[name]}
+    cases = {name: []}
+
+    def partial(*args):
+        return k8.ln_mlp_residual_bwd(*args, residual=False)
+
+    def partial_plain(*args):
+        return k8.ln_mlp_residual_bwd_plain(*args, residual=False)
+
+    rows = K8_PARTIAL_ROWS
+    for dtype in (torch.bfloat16, torch.float32):
+        for tp in TP_SIZES:
+            fl = f // tp
+            args = (rn(rows, d, dtype=dtype), rn(rows, d, scale=2.0, dtype=dtype),
+                    rn(d, scale=0.2, shift=1.0, dtype=dtype), rn(d, scale=0.2, dtype=dtype),
+                    rn(d, fl, scale=d ** -0.5, dtype=dtype), rn(fl, scale=0.1, dtype=dtype),
+                    rn(fl, d, scale=fl ** -0.5, dtype=dtype), 1e-6, "exact")
+            tag = f"{_tag(dtype, TP_TRAIN_BATCH, rows)} tp {tp} (rank 0: F/tp {fl})"
+            cases[name].append(dict(
+                case(tag, dtype, TP_TRAIN_BATCH, partial, partial_plain, args,
+                     10 * rows * d * fl, device=True),
+                summary=dtype == torch.bfloat16 and tp == 2))
+    return cases, labels
+
+
+def phase_parallel_train(dev: torch.device, card: str, workdir: str) -> dict:
+    """Phase 45: parallel training.  K8 ``residual=False`` against its twin
+    at tp 2 and 4 shard shapes; then two ranks sharing the card over gloo
+    (``torchrun`` with a time limit, ``--rank-train-worker``): the fp32
+    gradients of one tp 2 step @224 batch 16, gathered, against the
+    single-card ``fused_train`` step's (1e-3 x max(1, max|g|) per leaf); the
+    train CLI runs of ``TRAIN_RANK_RUNS`` with every rank's counts per step
+    (tp: 12 K1, 12 K5 partial, 12 K6, 12 K8 ``residual=False``; no K2, K4 or
+    K7), the dp 2 ``fused_adamw`` params equal bit for bit on both ranks;
+    the tp step @512 batch 2 (12 K13, K14, K5 partial, K8 residual=False);
+    the time per step of two ranks sharing one card.  -> (summary of K8
+    residual=False, launch counts of rank 0 by path)."""
+    import signal
+    import sys
+
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.models import vit
+
+    cases, labels = k8_partial_cases(dev)
+    summary = phase_kernels(cases, labels, TP_TRAIN_BATCH)
+    del cases
+    torch.cuda.empty_cache()
+
+    _teacher_npz(workdir)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(RANKS), os.path.abspath(__file__), "--rank-train-worker", workdir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True, env=dict(os.environ, OMP_NUM_THREADS="4"))
+    try:
+        out, _ = proc.communicate(timeout=TRAIN_RANKS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)  # torchrun and every rank it started
+        proc.communicate()
+        raise RuntimeError(f"{RANKS} training ranks did not finish in {TRAIN_RANKS_TIMEOUT} s: "
+                           "a rank hung")
+    lines = [ln for ln in out.splitlines() if "socket.cpp" not in ln]
+    log("\n".join(f"train ranks: {ln}" for ln in (lines if proc.returncode else lines[-8:])))
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun with {RANKS} training ranks exited {proc.returncode}")
+    log(f"{RANKS} training ranks over gloo on one card: {time.perf_counter() - t0:.3f} s")
+    reports = [json.load(open(f"{workdir}/train_rank{r}.json")) for r in range(RANKS)]
+
+    for r, rep in enumerate(reports):
+        for path, (_, steps, per_step, tp) in TRAIN_RANK_RUNS.items():
+            run = rep["runs"][path]
+            if run["rc"] != 0:
+                raise RuntimeError(f"rank {r} {path}: the train CLI exited {run['rc']}")
+            _expect_cli(run["launches"], per_step, steps, f"rank {r} {path} (B/16, {steps} steps)")
+            _expect_flags(run["flags"], 12 * steps if tp else 0, f"rank {r} {path}")
+            log(f"rank {r} {path}: per step {_per_step(run['launches'], steps)}")
+        long = rep["runs"]["train_tp_long"]
+        _expect_counts_of(long["launches"], TP_LONG_TRAIN_STEP,
+                          f"rank {r} train_tp_long (@512 batch 2 bf16 tp 2, 1 step)")
+        _expect_flags(long["flags"], 12, f"rank {r} train_tp_long")
+        if not np.isfinite(long["loss"]):
+            raise RuntimeError(f"rank {r} train_tp_long: non-finite loss")
+    for path in TRAIN_RANK_RUNS:
+        log(f"{path} rank 0: " + " / ".join(reports[0]["runs"][path]["stdout"]))
+    sha = [rep["runs"]["train_dp"]["params_sha256"] for rep in reports]
+    log(f"train_dp (fused_adamw, 3 steps): params sha256 rank 0 {sha[0][:16]}, rank 1 "
+        f"{sha[1][:16]}: {'equal' if sha[0] == sha[1] else 'DIFFERENT'}")
+    if sha[0] != sha[1]:
+        raise RuntimeError("dp 2: the params differ between the ranks after the steps")
+
+    # the gathered tp 2 gradients against the single-card fused_train step's
+    x, y = _tp_grad_batch(dev)
+    tree = vit.init_params(torch.Generator().manual_seed(0), VIT_B_16)
+    loss1, want = _grads(VIT_B_16, tree, x, y, "fused_train", None, dev)
+    got = {k: torch.from_numpy(v).to(dev) for k, v in np.load(f"{workdir}/tp_grads.npz").items()}
+    worst, worst_leaf = _worst_leaf(got, want)
+    loss_tp = reports[0]["tp_grad_loss"]
+    log(f"tp 2 fp32 grads (two ranks, gathered) vs single-card fused_train, B/16 batch "
+        f"{TP_TRAIN_BATCH}: loss {loss_tp:.6g} vs {loss1:.6g}; {len(want)} leaves, worst "
+        f"{worst_leaf} at {worst:.3g} of its bound (1e-3 x max(1, max|g|))")
+    if worst > 1.0 or set(got) != set(want) or not abs(loss_tp - loss1) <= 1e-3:
+        raise RuntimeError("tp 2 gradients or loss outside 1e-3 of the single-card step's")
+
+    for path in ("train_tp", "train_tp_fp32", "train_dp"):
+        ms = [rec["ms"] for rec in reports[0]["runs"][path]["steps"][1:]]
+        batch = TP_TRAIN_BATCH if path.startswith("train_tp") else DP_TRAIN_BATCH
+        log(f"{path}: {statistics.median(ms):.6g} ms per step (median of steps 1-"
+            f"{len(ms)}; {batch} images a step, {RANKS} ranks sharing one card over gloo: not a "
+            f"scaling figure); {card}")
+    launches = {path: reports[0]["runs"][path]["launches"]
+                for path in (*TRAIN_RANK_RUNS, "train_tp_long")}
+    return summary, launches
+
+
+def _per_step(launches: dict, steps: int) -> dict:
+    return {name: n / steps for name, n in launches.items() if n}
+
+
+def _expect_flags(flags: dict, n: int, what: str) -> None:
+    """Fail unless K5's partial form and K8's residual=False form ran ``n``
+    times each (and the other forms of K5 and K8 none, on a tp run)."""
+    partial, residual = flags["partial"], flags["residual"]
+    off = residual[1] - residual[0]  # K8 launches with residual=False
+    log(f"{what}: K5 partial {partial[0]} of {partial[1]}, K8 residual=False {off} of "
+        f"{residual[1]}")
+    if n and (partial != [n, n] or residual != [0, n]):
+        raise RuntimeError(f"{what}: expected {n} K5 partial and {n} K8 residual=False launches "
+                           f"and no other form, got K5 {partial}, K8 {residual}")
+    if not n and (partial[0] or off):
+        raise RuntimeError(f"{what}: a tensor-parallel form ran on a dp run")
+
+
 def group_parallel(dev, card, summary, launches) -> None:
-    """Phases 36-38."""
+    """Phases 36-38 and 45."""
     from vit_tpu_torch.config import VIT_B_16
     from vit_tpu_torch.ops.kernels import _build
 
@@ -3103,6 +3444,11 @@ def group_parallel(dev, card, summary, launches) -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         launches.update(phase_parallel(synth_params(VIT_B_16, 0), dev, card, workdir))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        k8_summary, train_launches = phase_parallel_train(dev, card, workdir)
+    summary.update(k8_summary)
+    launches.update(train_launches)
 
 
 # the serving group (phases 39-41): InferenceServer and vit-tpu-torch-serve
@@ -3952,9 +4298,14 @@ def main(argv=None) -> None:
                    "without it every phase runs)")
     p.add_argument("--rank-worker", metavar="DIR",
                    help="run one rank of phase 38 (torchrun starts these), writing into DIR")
+    p.add_argument("--rank-train-worker", metavar="DIR",
+                   help="run one rank of phase 45 (torchrun starts these), writing into DIR")
     args = p.parse_args(argv)
     if args.rank_worker:
         rank_worker(args.rank_worker)
+        return
+    if args.rank_train_worker:
+        train_rank_worker(args.rank_train_worker)
         return
     only = PHASES if args.only is None else tuple(args.only.split(","))
     if not set(only) <= set(PHASES):
@@ -3996,7 +4347,8 @@ def main(argv=None) -> None:
     # quant forward's for K15's stages 1-2, the regularized ToMe train CLI's
     # for K12b and K12c, the per-op classify CLI's for K21 and K22, the
     # fused AdamW train CLI's for K20, rank 0's of the quant --tp 2 CLI for
-    # K18a and K18b, the kernel study's for K19; "paths" has every reading
+    # K18a and K18b, the kernel study's for K19, rank 0's of the bf16 --tp 2
+    # train CLI for K8 residual=False; "paths" has every reading
     path_of = {**{k: "classify" for k in KERNELS}, **{k: "train" for k in TRAIN_KERNELS},
                **{k: "train_regularized" for k in REG_KERNELS},
                **{k: "train_long" for k in LONG_KERNELS}, "flash_attention_fwd": "classify_long",
@@ -4006,14 +4358,21 @@ def main(argv=None) -> None:
                **{k: "classify_per_op" for k in PER_OP_KERNELS},
                **{k: "train_fused_adamw" for k in ADAMW_KERNELS},
                **{k: "classify_quant_tp" for k in TP_KERNELS},
-               **{k: "kernel_study" for k in STUDY_KERNELS}}
+               **{k: "kernel_study" for k in STUDY_KERNELS},
+               **{k: "train_tp" for k in K8_PARTIAL_KERNELS}}
     all_kernels = {**KERNELS, **TRAIN_KERNELS, **REG_KERNELS, **LONG_KERNELS, **QUANT_KERNELS,
                    **TOME_KERNELS, **PER_OP_KERNELS, **ADAMW_KERNELS, **TP_KERNELS,
-                   **STUDY_KERNELS}
+                   **STUDY_KERNELS, **K8_PARTIAL_KERNELS}
+    # K8's tensor-parallel form counts as K8 (its wrapper's count), on the
+    # tensor-parallel train paths only, where K8 runs in no other form
+    counter = {name: "ln_mlp_residual_bwd" if name in K8_PARTIAL_KERNELS else name
+               for name in all_kernels}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches.get(path_of[name], {}).get(name),
-         "paths": {path: counts[name] for path, counts in launches.items()}, **summary[name]}
+         "launches": launches.get(path_of[name], {}).get(counter[name]),
+         "paths": {path: counts[counter[name]] for path, counts in launches.items()
+                   if name not in K8_PARTIAL_KERNELS or path.startswith("train_tp")},
+         **summary[name]}
         for name, (_, src, replaces) in all_kernels.items() if name in summary
     ]
     log(json.dumps({"kernels": kernels}))

@@ -1124,6 +1124,59 @@ def test_split_mlp_backward_refuses_unaligned_operands(dev):
         k12b.ln_mlp_residual_bwd_train(*odd[:7], ones, 7, 0.0, 1e-6)
 
 
+# K8's tensor-parallel form (residual=False): rank 0's shard of B/16's MLP
+# at tp 2 and 4 (F/tp 1,536 and 768), rows around the 128-row tile and at
+# batch 16 and 64 of T 197
+K8_PARTIAL_ROWS = [1, 127, 128, 129, 3152, 12608]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("f", [1536, 768])
+@pytest.mark.parametrize("rows", K8_PARTIAL_ROWS)
+def test_ln_mlp_residual_bwd_partial(dev, dtype, f, rows):
+    args = _k8_args(dev, dtype, rows, 768, f, "exact")
+    _check_all(ln_mlp_residual_bwd(*args, residual=False),
+               ln_mlp_residual_bwd_plain(*args, residual=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("f", [1536, 768])
+def test_ln_mlp_residual_bwd_partial_weight_grads_are_the_residual_forms(dev, dtype, f):
+    # the flag moves dx1 only: the six weight gradients and db2 are the
+    # residual form's bit for bit, and two runs give the same bits
+    args = _k8_args(dev, dtype, 3152, 768, f, "exact")
+    joined = ln_mlp_residual_bwd(*args)
+    first = [t.clone() for t in ln_mlp_residual_bwd(*args, residual=False)]
+    for a, b in zip(first[1:], joined[1:]):
+        assert torch.equal(a, b)
+    for a, b in zip(first, ln_mlp_residual_bwd(*args, residual=False)):
+        assert torch.equal(a, b)
+    # and dx1 is the joined one less dy, within one rounding of the dtype
+    want = (joined[0].float() - args[0].float())
+    tol = REL_TOL[dtype] * max(1.0, want.abs().max().item())
+    assert (first[0].float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_ln_mlp_residual_bwd_partial_refuses_unaligned_operands(dev):
+    bf = torch.bfloat16
+
+    def off(t):
+        flat = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)[1:]
+        return flat.copy_(t.reshape(-1)).view(t.shape)
+
+    args = _k8_args(dev, bf, 129, 768, 1536, "exact")
+    ln_mlp_residual_bwd(*args, residual=False)  # aligned: runs
+    for i, name in ((0, "dy"), (1, "x1"), (4, "w1"), (6, "w2")):
+        bad = (*args[:i], off(args[i]), *args[i + 1:])
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+            ln_mlp_residual_bwd(*bad, residual=False)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ln_mlp_residual_bwd(*_k8_args(dev, bf, 10, 60, 252, "exact"), residual=False)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["exact", "tanh"])
 @pytest.mark.parametrize("rows", [591, 12608])

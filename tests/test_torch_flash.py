@@ -209,8 +209,16 @@ def test_split_backward_forms_that_raise():
     z = torch.zeros(4, 8)
     with pytest.raises(NotImplementedError, match="u="):
         ln_mlp_residual_bwd(z, z, z[0], z[0], z, z[0], z, EPS, u=z)
-    with pytest.raises(NotImplementedError, match="residual=False"):
-        ln_mlp_residual_bwd(z, z, z[0], z[0], z, z[0], z, EPS, residual=False)
+    # residual=False (tensor parallelism's form) is ported: dy's identity
+    # term leaves dx1, every other output stays
+    dy, x1 = _t(_np(70, 4, 8)), _t(_np(71, 4, 8))
+    w1, w2 = _t(_np(72, 8, 16, scale=0.3)), _t(_np(73, 16, 8, scale=0.3))
+    s, b, b1 = _t(_np(74, 8, shift=1.0)), _t(_np(75, 8)), _t(_np(76, 16))
+    with_res = ln_mlp_residual_bwd(dy, x1, s, b, w1, b1, w2, EPS)
+    without = ln_mlp_residual_bwd(dy, x1, s, b, w1, b1, w2, EPS, residual=False)
+    torch.testing.assert_close(without[0], with_res[0] - dy, rtol=0, atol=1e-6)
+    for a, c in zip(without[1:], with_res[1:]):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
 
 
 def test_split_backward_cpu_wrappers_run_the_twins():

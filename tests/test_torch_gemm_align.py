@@ -25,6 +25,8 @@ from vit_tpu_torch.ops.kernels import _build
 from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
 from vit_tpu_torch.ops.kernels import out_ln_mlp_residual as k2
 
+from torch_spy_record import record
+
 DTYPES = [torch.float32, torch.bfloat16]
 EPS = 1e-6
 
@@ -147,10 +149,9 @@ def _tome_cfg(width):
                                name=f"vit_tome_align_{width}")
 
 
-@pytest.mark.parametrize("train", [False, True], ids=["forward_fused", "forward_train"])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_tome_operands_pass(monkeypatch, train, width, dtype):
+def _tome_run(monkeypatch, train, width, dtype):
+    """models/tome.forward_fused, or forward_train and its backward, with
+    K1's and K2's spies -> (cfg, K1 calls, K2 calls)."""
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import tome, vit
 
@@ -166,6 +167,22 @@ def test_tome_operands_pass(monkeypatch, train, width, dtype):
         tome.forward_train(params, images, cfg, 4).float().sum().backward()
     else:
         assert torch.isfinite(tome.forward_fused(params, images, cfg, 4).float()).all()
+    return cfg, k1_calls, k2_calls
+
+
+@pytest.fixture(scope="module")
+def tome_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_tome_run, [(train, "b16", dtype) for train in (False, True)
+                              for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["forward_fused", "forward_train"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_tome_operands_pass(monkeypatch, request, train, width, dtype):
+    cfg, k1_calls, k2_calls = (request.getfixturevalue("tome_b16")[train, width, dtype]
+                               if width == "b16" else _tome_run(monkeypatch, train, width, dtype))
     _check_calls(k1_calls, k2_calls, cfg.depth, 0)
     # layer 2 runs on merged tokens: the hooked K1, its log-size row beside
     # the checked operands

@@ -27,6 +27,8 @@ from vit_tpu_torch.ops.kernels import gemm_bf16 as core
 from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd as k8
 from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd_train as k12b
 
+from torch_spy_record import record
+
 DTYPES = [torch.float32, torch.bfloat16]
 EPS = 1e-6
 # (D, heads, MLP width): the tiny test config's and ViT-B/16's
@@ -137,10 +139,9 @@ def _tome_cfg(width, dropout=0.0, drop_path=0.0):
                                drop_path=drop_path, name=f"vit_tome_mlp_bwd_{width}")
 
 
-@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_tome_train_operands_pass(monkeypatch, regularized, width, dtype):
+def _tome_train_run(monkeypatch, regularized, width, dtype):
+    """models/tome.forward_train and its backward with K8's and K12b's
+    spies -> (cfg, K8 calls, K12b calls)."""
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import tome, vit
 
@@ -153,6 +154,25 @@ def test_tome_train_operands_pass(monkeypatch, regularized, width, dtype):
     k8_calls, k12b_calls = _spies(monkeypatch)
     rng = torch.Generator().manual_seed(3) if regularized else None
     tome.forward_train(params, images, cfg, 4, dropout_rng=rng).float().sum().backward()
+    return cfg, k8_calls, k12b_calls
+
+
+@pytest.fixture(scope="module")
+def tome_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_tome_train_run, [(reg, "b16", dtype) for reg in (False, True)
+                                    for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_tome_train_operands_pass(monkeypatch, request, regularized, width, dtype):
+    from vit_tpu_torch.models import tome
+
+    cfg, k8_calls, k12b_calls = (request.getfixturevalue("tome_b16")[regularized, width, dtype]
+                                 if width == "b16"
+                                 else _tome_train_run(monkeypatch, regularized, width, dtype))
     # every layer's MLP half, each after its layer's merge: ragged row counts
     _check_calls(k8_calls, k12b_calls, *((0, cfg.depth) if regularized else (cfg.depth, 0)))
     counts = tome.schedule(cfg, 4, tome.TRAIN_MERGE_CHUNK)

@@ -29,6 +29,8 @@ from vit_tpu_torch.config import VIT_B_16
 from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
 from vit_tpu_torch.ops.kernels import ln_mlp_residual_train as k11
 
+from torch_spy_record import record
+
 DTYPES = [torch.float32, torch.bfloat16]
 EPS = 1e-6
 # (D, heads, MLP width): the tiny test config's and ViT-B/16's
@@ -183,11 +185,9 @@ def test_long_block_operands_pass(monkeypatch, width, dtype):
     _check_calls(k5_calls, k11_calls, 1, 0)
 
 
-@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_tome_train_operands_pass(monkeypatch, regularized, width, dtype):
-    # LnMlpResidualFn (K5) and LnMlpResidualTrainFn (K11) after each merge
+def _tome_train_run(monkeypatch, regularized, width, dtype):
+    """models/tome.forward_train with K5's and K11's spies -> (cfg, K5
+    calls, K11 calls)."""
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import tome, vit
 
@@ -197,6 +197,26 @@ def test_tome_train_operands_pass(monkeypatch, regularized, width, dtype):
     k5_calls, k11_calls = _spies(monkeypatch)
     rng = torch.Generator().manual_seed(3) if regularized else None
     tome.forward_train(params, images, cfg, 4, dropout_rng=rng)
+    return cfg, k5_calls, k11_calls
+
+
+@pytest.fixture(scope="module")
+def tome_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_tome_train_run, [(reg, "b16", dtype) for reg in (False, True)
+                                    for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_tome_train_operands_pass(monkeypatch, request, regularized, width, dtype):
+    # LnMlpResidualFn (K5) and LnMlpResidualTrainFn (K11) after each merge
+    from vit_tpu_torch.models import tome
+
+    cfg, k5_calls, k11_calls = (request.getfixturevalue("tome_b16")[regularized, width, dtype]
+                                if width == "b16"
+                                else _tome_train_run(monkeypatch, regularized, width, dtype))
     _check_calls(k5_calls, k11_calls, *((0, cfg.depth) if regularized else (cfg.depth, 0)))
     counts = tome.schedule(cfg, 4, tome.TRAIN_MERGE_CHUNK)
     rows = [args[0].shape[0] for args, _ in (k11_calls if regularized else k5_calls)]

@@ -31,6 +31,8 @@ from vit_tpu_torch.ops.kernels import _build
 from vit_tpu_torch.ops.kernels import out_residual_bwd as k9
 from vit_tpu_torch.ops.kernels import out_residual_bwd_train as k12c
 
+from torch_spy_record import record
+
 DTYPES = [torch.float32, torch.bfloat16]
 EPS = 1e-6
 # (D, heads, MLP width): the tiny test config's and ViT-B/16's
@@ -257,13 +259,9 @@ def test_fused_train_long_model_operands_pass(monkeypatch, width, dtype):
 TOME_REG = {"plain": (0.0, 0.0), "regularized": (0.1, 0.1), "drop_path": (0.0, 0.1)}
 
 
-@pytest.mark.parametrize("reg", list(TOME_REG))
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_tome_train_operands_pass(monkeypatch, reg, width, dtype):
-    # 65 tokens; r = 4 with the training chunk of 2 merges 8 at layer 0:
-    # ctx is each layer's context at its merged count, dx1 the merge GEMM's
-    # backward plus the MLP half's
+def _tome_train_run(monkeypatch, reg, width, dtype):
+    """models/tome.forward_train and its backward with K9's and K12c's spies
+    -> (cfg, K9 calls, K12c calls)."""
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import tome, vit
 
@@ -274,6 +272,27 @@ def test_tome_train_operands_pass(monkeypatch, reg, width, dtype):
     k9_calls, k12c_calls = _spies(monkeypatch)
     rng = torch.Generator().manual_seed(3) if reg != "plain" else None
     tome.forward_train(params, images, cfg, 4, dropout_rng=rng).float().sum().backward()
+    return cfg, k9_calls, k12c_calls
+
+
+@pytest.fixture(scope="module")
+def tome_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_tome_train_run, [(reg, "b16", dtype) for reg in TOME_REG for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("reg", list(TOME_REG))
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_tome_train_operands_pass(monkeypatch, request, reg, width, dtype):
+    # 65 tokens; r = 4 with the training chunk of 2 merges 8 at layer 0:
+    # ctx is each layer's context at its merged count, dx1 the merge GEMM's
+    # backward plus the MLP half's
+    from vit_tpu_torch.models import tome
+
+    cfg, k9_calls, k12c_calls = (request.getfixturevalue("tome_b16")[reg, width, dtype]
+                                 if width == "b16"
+                                 else _tome_train_run(monkeypatch, reg, width, dtype))
     n12c = cfg.depth if reg == "regularized" else 0
     _check_calls(k9_calls, k12c_calls, cfg.depth - n12c, n12c)
     counts = tome.schedule(cfg, 4, tome.TRAIN_MERGE_CHUNK)

@@ -33,6 +33,8 @@ from vit_tpu_torch.ops.kernels import _build
 from vit_tpu_torch.ops.kernels import out_residual as k4
 from vit_tpu_torch.ops.kernels import out_residual_train as k10
 
+from torch_spy_record import record
+
 DTYPES = [torch.float32, torch.bfloat16]
 EPS = 1e-6
 # (D, heads, MLP width): the tiny test config's and ViT-B/16's
@@ -294,18 +296,35 @@ def test_tome_classify_operands_pass(monkeypatch, ops, width, dtype):
 TOME_REG = {"plain": (0.0, 0.0), "regularized": (0.1, 0.1), "drop_path": (0.0, 0.1)}
 
 
-@pytest.mark.parametrize("reg", list(TOME_REG))
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_tome_train_operands_pass(monkeypatch, reg, width, dtype):
-    # models/tome.forward_train: OutResidualFn (K4) or OutResidualTrainFn
-    # (K10) before each layer's merge; r = 4 with the training chunk of 2
+def _tome_train_run(monkeypatch, reg, width, dtype):
+    """models/tome.forward_train with K4's and K10's spies -> (cfg, K4
+    calls, K10 calls)."""
     from vit_tpu_torch.models import tome
 
     cfg = _model_cfg(width, 64, *TOME_REG[reg])
     k4_calls, k10_calls = _spies(monkeypatch)
     rng = torch.Generator().manual_seed(3) if reg != "plain" else None
     tome.forward_train(_params(cfg, dtype, True), _images(cfg, dtype), cfg, 4, dropout_rng=rng)
+    return cfg, k4_calls, k10_calls
+
+
+@pytest.fixture(scope="module")
+def tome_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_tome_train_run, [(reg, "b16", dtype) for reg in TOME_REG for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("reg", list(TOME_REG))
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_tome_train_operands_pass(monkeypatch, request, reg, width, dtype):
+    # models/tome.forward_train: OutResidualFn (K4) or OutResidualTrainFn
+    # (K10) before each layer's merge; r = 4 with the training chunk of 2
+    from vit_tpu_torch.models import tome
+
+    cfg, k4_calls, k10_calls = (request.getfixturevalue("tome_b16")[reg, width, dtype]
+                                if width == "b16"
+                                else _tome_train_run(monkeypatch, reg, width, dtype))
     n10 = cfg.depth if reg == "regularized" else 0
     _check_calls(k4_calls, k10_calls, cfg.depth - n10, n10, dtype)
     counts = tome.schedule(cfg, 4, tome.TRAIN_MERGE_CHUNK)

@@ -33,6 +33,8 @@ from vit_tpu_torch.config import VIT_B_16
 from vit_tpu_torch.ops.backward import _ln_bwd_dx, _ln_stats
 from vit_tpu_torch.ops.kernels import ln_qkv_attn_bwd as k6
 
+from torch_spy_record import record
+
 DTYPES = [torch.float32, torch.bfloat16]
 EPS = 1e-6
 # (D, heads, MLP width): the tiny test config's and ViT-B/16's
@@ -178,11 +180,9 @@ def test_fused_train_model_operands_pass(monkeypatch, regularized, width, dtype)
     _check_calls(calls, cfg.depth, 2 * cfg.seq_len)
 
 
-@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_tome_train_operands_pass(monkeypatch, regularized, width, dtype):
-    # ToMe's VJP of K1 (TomeLnQkvAttnFn): dres=None and the log-size bias
+def _tome_train_run(monkeypatch, regularized, width, dtype):
+    """models/tome.forward_train and its backward with K6's spy -> (cfg,
+    K6 calls)."""
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import tome
 
@@ -193,6 +193,25 @@ def test_tome_train_operands_pass(monkeypatch, regularized, width, dtype):
     calls = _spy(monkeypatch)
     rng = torch.Generator().manual_seed(3) if regularized else None
     tome.forward_train(params, images, cfg, 4, dropout_rng=rng).float().sum().backward()
+    return cfg, calls
+
+
+@pytest.fixture(scope="module")
+def tome_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_tome_train_run, [(reg, "b16", dtype) for reg in (False, True)
+                                    for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_tome_train_operands_pass(monkeypatch, request, regularized, width, dtype):
+    # ToMe's VJP of K1 (TomeLnQkvAttnFn): dres=None and the log-size bias
+    from vit_tpu_torch.models import tome
+
+    cfg, calls = (request.getfixturevalue("tome_b16")[regularized, width, dtype]
+                  if width == "b16" else _tome_train_run(monkeypatch, regularized, width, dtype))
     # both layers through the hooked VJP: the first before any merge, with
     # no bias, the second over the merged tokens with their log-sizes
     _check_calls(calls, cfg.depth, hooked=True)

@@ -464,9 +464,10 @@ def test_train_cli_has_no_flags_of_later_slices():
     from vit_tpu_torch.cli.train_args import build_parser
 
     flags = {o for a in build_parser()._actions for o in a.option_strings}
-    for later in ("--tp", "--dp", "--augment", "--resume",
-                  "--ema-decay", "--save-state"):
+    for later in ("--augment", "--resume", "--ema-decay", "--save-state", "--zero1", "--fsdp",
+                  "--pp", "--sp"):
         assert later not in flags
+    assert {"--tp", "--dp", "--dist-backend"} <= flags  # parallel training's
     assert {"--dropout", "--drop-path"} <= flags  # the regularized slice's
     assert {"--tome", "--tome-chunk"} <= flags  # token merging's
     assert "--optimizer" in flags  # the fused AdamW's

@@ -1,4 +1,4 @@
-"""Training CLI — counterpart of ``vit_tpu.cli.train`` on one device.
+"""Training CLI — counterpart of ``vit_tpu.cli.train``.
 
 Cross-entropy training of a ViT with AdamW, on the ``fused_train`` CUDA
 kernels (forward K1/K4/K5, backward K7/K6; with ``--dropout``/
@@ -11,6 +11,14 @@ decoder's blocks on the same kernels); ``--distill-teacher`` trains a
 DeiT student against a frozen teacher on ``fused`` (or, with
 ``--distill-teacher-int8``, ``quant``).  Data is an input-100.bin-format
 batch plus an int32 label file, or synthetic.
+
+``--tp``/``--dp`` run SPMD under ``torchrun``, one process per rank: ``--tp``
+trains tensor-parallel through the fused kernels (K1/K6 at the local
+heads, K5 partial/K8 ``residual=False`` over the local hidden columns),
+``--dp`` splits each batch over the ranks on any op table (MAE and
+distillation too).  Every rank draws the same global batch and keeps its
+dp slice; rank 0 alone prints, logs and saves (whole params); every rank
+exits with the worst rank's code.
 
 Usage::
 
@@ -25,6 +33,10 @@ Usage::
         --distill-teacher teacher.npz [--distill-teacher-int8]
     vit-tpu-torch-train --config vit_b_16 --steps 20 --batch 64 --ops qat
     vit-tpu-torch-train --config vit_b_16 --steps 2 --batch 4 --device cpu
+    torchrun --standalone --nproc-per-node 2 -m vit_tpu_torch.cli.train \
+        --config vit_b_16 --steps 3 --batch 16 --tp 2 --dist-backend gloo
+    torchrun --standalone --nproc-per-node 2 -m vit_tpu_torch.cli.train \
+        --config vit_b_16 --steps 2 --batch 4 --dp 2 --device cpu
 
 Flag definitions in cli/train_args.py, run construction in
 cli/train_setup.py, the step loop in cli/train_loop.py.
@@ -42,15 +54,34 @@ __all__ = ["build_parser", "main"]
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    import contextlib
+    import io
+
     from vit_tpu_torch.cli import train_loop
-    from vit_tpu_torch.cli.train_setup import SetupError, prepare
+    from vit_tpu_torch.cli.train_setup import SetupError, build_mesh, prepare
 
     try:
-        setup = prepare(args)
+        mesh, device = build_mesh(args)
     except SetupError as e:
         print(str(e), file=sys.stderr)
         return e.code
-    return train_loop.run(args, setup)
+    lead = mesh is None or mesh.rank == 0
+    # rank 0 alone prints
+    with contextlib.redirect_stdout(sys.stdout if lead else io.StringIO()):
+        try:
+            rc = train_loop.run(args, prepare(args, mesh, device))
+        except SetupError as e:
+            if lead:
+                print(str(e), file=sys.stderr)
+            rc = e.code
+    if mesh is not None:  # every rank exits with the worst rank's code
+        import torch
+        import torch.distributed as dist
+
+        worst = torch.tensor([rc], dtype=torch.int32, device=device)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        rc = int(worst.item())
+    return rc
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """Argument parser for the training CLI (vit-tpu-torch-train).
 
-The flags of ``vit_tpu.cli.train_args`` that the one-device PyTorch port
-runs; the mesh, augmentation, EMA, resume and streaming-data flags wait for
-their slices of the port (ROADMAP.md).
+The flags of ``vit_tpu.cli.train_args`` that the PyTorch port runs, with
+``--tp``/``--dp`` under ``torchrun`` (one process per rank) and
+``--dist-backend`` in place of the coordinator flags; the ZeRO-1, FSDP,
+pipeline, sequence-parallel, multihost, augmentation, EMA, resume and
+streaming-data flags wait for their slices of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -106,6 +108,14 @@ def build_parser() -> argparse.ArgumentParser:
         help="with --mae: save the pretrained encoder as a standard "
         "classifier .npz (decoder dropped, fresh random head) — feed it "
         "to --init-weights [--num-classes K] to fine-tune",
+    )
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel size")
+    p.add_argument("--dp", type=int, default=None, help="data-parallel size")
+    p.add_argument(
+        "--dist-backend", default=None, choices=["nccl", "gloo"],
+        help="torch.distributed backend of --tp/--dp, run under `torchrun "
+        "--nproc-per-node N` (default: nccl where every rank has a card of its "
+        "own, gloo on the CPU; gloo lets ranks share one card)",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-remat", action="store_true")

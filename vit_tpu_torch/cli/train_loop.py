@@ -1,6 +1,7 @@
 """The vit-tpu-torch-train step loop: per-step dispatch, the ``step N  loss
 L  T s`` lines and ``--log-jsonl`` records of ``vit_tpu.cli.train_loop``,
-and the final ``--save`` and ``--save-backbone``."""
+and the final ``--save`` and ``--save-backbone``.  On a mesh each rank
+steps on its dp slice of the global batch, and rank 0 alone writes."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import time
 import numpy as np
 import torch
 
-# the staged batches' bound, as the JAX package's loop has it
+# the staged batches' bound, as the JAX package's loop has it (per rank)
 STAGED_BYTES = int(512e6)
 
 
@@ -20,19 +21,24 @@ def run(args, st) -> int:
     from vit_tpu_torch.io import checkpoint as ckpt
     from vit_tpu_torch.io.params import params_to_numpy
 
+    mesh = st.mesh
+    lead = mesh is None or mesh.rank == 0
+    # every rank draws the same global batch and keeps its dp slice
+    local = args.batch // (mesh.size("dp") if mesh is not None else 1)
+    lo = mesh.index("dp") * local if mesh is not None else 0
     # static data cycles a few aligned batches: upload each once, up to
     # STAGED_BYTES of them, so a large static set cannot crowd training out
     # of device memory (the rest are uploaded at every use)
     staged = {}
-    batch_bytes = st.images[: args.batch].nbytes + st.labels[: args.batch].nbytes
+    batch_bytes = st.images[:local].nbytes + st.labels[:local].nbytes
     max_staged = max(1, STAGED_BYTES // max(batch_bytes, 1))
     for s in range(args.steps):
-        i0 = (s * args.batch) % st.n_static
+        i0 = (s * args.batch) % st.n_static + lo
         if i0 in staged:
             xb, yb = staged[i0]
         else:
-            xb = torch.from_numpy(st.images[i0 : i0 + args.batch]).to(st.device)
-            yb = torch.from_numpy(st.labels[i0 : i0 + args.batch]).to(st.device)
+            xb = torch.from_numpy(st.images[i0 : i0 + local]).to(st.device)
+            yb = torch.from_numpy(st.labels[i0 : i0 + local]).to(st.device)
             if len(staged) < max_staged:
                 staged[i0] = (xb, yb)
         if st.lr_at is not None:
@@ -42,23 +48,27 @@ def run(args, st) -> int:
         loss = float(st.step(st.params, xb, yb))  # waits for the device
         dt = time.perf_counter() - t0
         print(f"step {s:4d}  loss {loss:.4f}  {dt:.2f}s")
-        if args.log_jsonl:
+        if args.log_jsonl and lead:
             with open(args.log_jsonl, "a") as fh:
                 fh.write(json.dumps({
                     "step": s, "loss": round(loss, 6), "ms": round(dt * 1e3, 2),
                     "images_per_sec": round(args.batch / dt, 2),
                 }) + "\n")
-        if not np.isfinite(loss):
+        if not np.isfinite(loss):  # the same dp-averaged loss on every rank
             print("non-finite loss; aborting", file=sys.stderr)
             return 1
-    if args.save:
-        ckpt.save_npz(params_to_numpy(st.params), args.save)
+    params = st.params
+    if mesh is not None and mesh.size("tp") > 1:
+        from vit_tpu_torch.parallel.sharding import unshard_params
+
+        params = unshard_params(params, mesh)  # every rank takes part
+    if args.save and lead:
+        ckpt.save_npz(params_to_numpy(params), args.save)
         print(f"saved params to {args.save}")
-    if args.save_backbone:
+    if args.save_backbone and lead:
         from vit_tpu_torch.models import mae
 
-        bb = mae.extract_backbone(st.params, torch.Generator().manual_seed(args.seed ^ 0xBB),
-                                  st.cfg)
+        bb = mae.extract_backbone(params, torch.Generator().manual_seed(args.seed ^ 0xBB), st.cfg)
         ckpt.save_npz(params_to_numpy(bb), args.save_backbone)
         print(f"saved pretrained backbone (fresh {st.cfg.embed_dim} x {st.cfg.num_classes} "
               f"head) to {args.save_backbone}")

@@ -1,8 +1,11 @@
-"""Training-run construction for the vit-tpu-torch-train CLI: device, op
-table, params, optimizer, step and data.  Counterpart of
-``vit_tpu.cli.train_setup`` for one device; ``prepare(args)`` returns a
+"""Training-run construction for the vit-tpu-torch-train CLI: mesh,
+device, op table, params, optimizer, step and data.  Counterpart of
+``vit_tpu.cli.train_setup``; ``prepare(args)`` returns a
 :class:`TrainSetup`, and invalid flags raise :class:`SetupError` (the CLI
-prints the message and exits 2).
+prints the message and exits 2), in the JAX package's order and words.
+What the JAX package runs through GSPMD tensor parallelism (``--tp`` on
+``eager`` or ``qat``, and so distillation and MAE with ``--tp``) raises
+``NotImplementedError`` (ROADMAP.md item 14).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from vit_tpu_torch.ops import fused_block
+from vit_tpu_torch.parallel.mesh import Mesh
 
 
 class SetupError(Exception):
@@ -42,6 +46,9 @@ class TrainSetup:
     images: np.ndarray
     labels: np.ndarray
     n_static: int  # len(images) after ragged-batch truncation
+    # this rank's place under --tp/--dp (None: one device); the params are
+    # its shard, and each step takes its dp slice of the global batch
+    mesh: Optional[Mesh] = None
 
 
 _DECAY_KEYS = {"kernel", "wqkv", "wo", "w1", "w2"}
@@ -114,7 +121,7 @@ def _load_data(args, cfg):
     return images, labels
 
 
-def _tome_forward(args, cfg, ops_name: str):
+def _tome_forward(args, cfg, ops_name: str, tp: int = 1):
     """--tome/--tome-chunk -> the merged-token forward ``(params, images,
     dropout_rng) -> logits`` for the trainer, or None without --tome."""
     if args.tome_chunk is not None and not args.tome:
@@ -128,8 +135,8 @@ def _tome_forward(args, cfg, ops_name: str):
         return None
     from vit_tpu_torch.models import tome
 
-    if ops_name not in ("fused_train", "eager"):
-        raise SetupError("error: --tome training requires --ops fused_train or eager")
+    if ops_name not in ("fused_train", "eager") or tp > 1:
+        raise SetupError("error: --tome training requires --ops fused_train or eager on a dp mesh")
     if args.mae or args.distill_teacher:
         raise SetupError(
             "error: --tome training does not compose with --mae/--distill-teacher (the "
@@ -152,7 +159,7 @@ def _tome_forward(args, cfg, ops_name: str):
     return forward
 
 
-def _mae_config(args, cfg, ops_name: str):
+def _mae_config(args, cfg, ops_name: str, tp: int = 1):
     """--mae and its flags -> an ``MAEConfig``, or None without --mae (the
     MAE-only flags are then refused, not ignored)."""
     if not args.mae:
@@ -179,6 +186,10 @@ def _mae_config(args, cfg, ops_name: str):
         )
     if ops_name not in ("eager", "fused_train"):
         raise SetupError(f"error: --mae supports --ops eager or fused_train (got {ops_name})")
+    if ops_name == "fused_train" and tp > 1:
+        raise SetupError(
+            "error: --mae with --tp>1 requires --ops eager (the MAE kernel path is dp-only)"
+        )
     try:
         dim, depth, heads = (int(v) for v in args.mae_decoder.split(","))
     except ValueError:
@@ -198,7 +209,7 @@ def _mae_config(args, cfg, ops_name: str):
     return mae_cfg
 
 
-def _teacher(args, cfg, ops_name: str, device, compute_dtype):
+def _teacher(args, cfg, ops_name: str, device, compute_dtype, tp: int = 1):
     """--distill-teacher and its flags -> the frozen teacher's ``images ->
     logits``, or None without --distill-teacher.  The teacher runs on
     ``fused`` under ``fused_train``, on ``quant`` with
@@ -225,6 +236,11 @@ def _teacher(args, cfg, ops_name: str, device, compute_dtype):
         )
     if ops_name not in ("eager", "qat", "fused_train"):
         raise SetupError("error: --distill-teacher requires --ops eager, qat, or fused_train")
+    if ops_name == "fused_train" and tp > 1:
+        raise SetupError(
+            "error: --distill-teacher with --tp > 1 requires --ops eager or qat (the kernel-TP "
+            "train step has no teacher leg); fused_train distillation runs on a dp mesh"
+        )
     if args.grad_accum > 1 or args.dropout or args.drop_path:
         raise SetupError(
             "error: --distill-teacher composes with none of --grad-accum/--dropout/--drop-path"
@@ -280,39 +296,77 @@ def _teacher(args, cfg, ops_name: str, device, compute_dtype):
     return teacher_fwd
 
 
-def prepare(args) -> TrainSetup:
-    from vit_tpu_torch.config import resolve_config
-    from vit_tpu_torch.io.load_any import load_params_any
-    from vit_tpu_torch.io.params import params_from_numpy
-    from vit_tpu_torch.models import vit
-    from vit_tpu_torch.ops.dispatch import get_ops
-    from vit_tpu_torch.runtime import trainer
+def build_mesh(args) -> tuple:
+    """--tp/--dp/--dist-backend -> (this rank's Mesh, or None for one
+    device; its torch.device).  The ranks come from ``torchrun``
+    (``cli/common.resolve_mesh``): each takes card LOCAL_RANK modulo the
+    card count, and gloo only when asked for."""
+    from vit_tpu_torch.cli import common
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda: torch.cuda.is_available() is False (no NVIDIA card "
             "or a CPU-only PyTorch); pass --device cpu to train on the CPU"
         )
-    device = torch.device(args.device)
+    try:
+        mesh, device = common.resolve_mesh(args.dp, args.tp, args.device, args.dist_backend)
+    except (common.MeshError, RuntimeError) as e:
+        raise SetupError(f"error: {e}") from e
+    return mesh, torch.device(device)
+
+
+def _not_ported_tp(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} with --tp > 1: the JAX package runs it through GSPMD tensor parallelism, "
+        "which is not ported (ROADMAP.md item 14); use --ops fused_train, or --dp"
+    )
+
+
+def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
+    """-> the run's :class:`TrainSetup`.  ``mesh`` and ``device`` as
+    :func:`build_mesh` returns them (built here when not given)."""
+    from vit_tpu_torch.config import resolve_config
+    from vit_tpu_torch.io.load_any import load_params_any
+    from vit_tpu_torch.io.params import params_from_numpy
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.parallel.sharding import shard_params
+    from vit_tpu_torch.runtime import trainer
+
+    if device is None:
+        mesh, device = build_mesh(args)
+    dp, tp = (mesh.size("dp"), mesh.size("tp")) if mesh is not None else (1, 1)
     load_cfg = resolve_config(args.config)  # --init-weights loads under its own head
     cfg = resolve_config(args.config, args.num_classes)
     ops_name = args.ops
     if ops_name == "auto":
-        ops_name = "fused_train" if device.type == "cuda" else "eager"
+        if args.distill_teacher and tp > 1:
+            # the kernel-TP step has no teacher leg (the JAX package's rule)
+            ops_name = "eager"
+        else:
+            ops_name = "fused_train" if device.type == "cuda" else "eager"
+    if args.batch % dp:
+        raise SetupError(f"error: --batch {args.batch} must be divisible by dp={dp}")
     compute_dtype = torch.bfloat16 if args.mixed_precision else None
     # fused_train's backward kernels recompute from (x, ctx, x1) already;
     # recomputing the whole forward on top would run it twice
     remat = not args.no_remat and ops_name != "fused_train"
     print(f"device: {device}  ops: {ops_name}  mixed_precision: "
           f"{bool(args.mixed_precision)}  remat: {remat}")
-    if args.batch % args.grad_accum:
-        raise SetupError(f"error: --grad-accum {args.grad_accum} must divide --batch {args.batch}")
+    if (args.batch // dp) % args.grad_accum:
+        raise SetupError(f"error: --grad-accum {args.grad_accum} must divide --batch {args.batch}"
+                         + (f" / dp={dp}" if dp > 1 else ""))
     use_dropout = bool(args.dropout or args.drop_path)
     if use_dropout:
         # eager and qat: masks drawn in the plain blocks; fused_train:
         # regenerated in the kernels from one seed per layer
         # (ops/trainable.py).  --ops takes no table without regularizer
-        # hooks (argparse refuses fused).
+        # hooks (argparse refuses fused); --tp has no regularized kernels.
+        if tp > 1:
+            raise SetupError(
+                "error: --dropout/--drop-path require --ops eager, qat, or fused_train on a dp "
+                "mesh (no --tp)"
+            )
         max_t = fused_block.VMEM_ATTENTION_MAX_T
         if ops_name == "fused_train" and cfg.seq_len > max_t:
             raise SetupError(
@@ -322,9 +376,11 @@ def prepare(args) -> TrainSetup:
             )
         cfg = dataclasses.replace(cfg, dropout=args.dropout, drop_path=args.drop_path)
         print(f"dropout: {args.dropout}  drop_path: {args.drop_path}")
-    tome_forward = _tome_forward(args, cfg, ops_name)
-    mae_cfg = _mae_config(args, cfg, ops_name)
-    teacher_fwd = _teacher(args, cfg, ops_name, device, compute_dtype)
+    tome_forward = _tome_forward(args, cfg, ops_name, tp)
+    mae_cfg = _mae_config(args, cfg, ops_name, tp)
+    teacher_fwd = _teacher(args, cfg, ops_name, device, compute_dtype, tp)
+    if args.grad_accum > 1 and tp > 1:
+        raise SetupError("error: --grad-accum supports the dp paths only (no --tp)")
 
     if mae_cfg is not None:
         from vit_tpu_torch.models import mae
@@ -347,7 +403,6 @@ def prepare(args) -> TrainSetup:
             print(f"transfer learning: fresh {cfg.embed_dim} x {args.num_classes} head")
     else:
         params = vit.init_params(torch.Generator().manual_seed(args.seed), cfg)
-    params = trainer.as_trainable(params, device, torch.float32)
 
     lr_at = warmup_cosine(args.lr, args.steps) if args.schedule == "warmup_cosine" else None
     if args.optimizer == "fused_adamw":
@@ -356,8 +411,19 @@ def prepare(args) -> TrainSetup:
             raise SetupError("error: --wd-exempt-norm-bias requires --optimizer adamw")
         if args.grad_clip:
             raise SetupError("error: --grad-clip requires --optimizer adamw")
-        if ops_name != "fused_train":
+        if ops_name != "fused_train" or tp > 1:
             raise SetupError("error: --optimizer fused_adamw requires --ops fused_train and tp=1")
+    if tp > 1:
+        if ops_name != "fused_train":
+            raise _not_ported_tp(f"--ops {ops_name}")
+        for what, n in (("num_heads", cfg.num_heads), ("mlp_dim", cfg.mlp_dim)):
+            if n % tp:
+                raise SetupError(f"error: tp={tp} must divide {what}={n}")
+        # each rank keeps and updates its own shard (the same seed on every
+        # rank makes the same whole tree first)
+        params = shard_params(params, mesh)
+    params = trainer.as_trainable(params, device, torch.float32)
+    if args.optimizer == "fused_adamw":
         # K20 on every leaf; the optimizer evaluates the schedule itself, at
         # its 1-based count, so the loop leaves its lr alone
         optimizer = trainer.FusedAdamW(list(trainer.leaves(params)), lr=lr_at or args.lr,
@@ -374,19 +440,26 @@ def prepare(args) -> TrainSetup:
         print(f"grad-clip: global norm {args.grad_clip}")
     ops = get_ops(ops_name)
     if mae_cfg is not None:
-        # the masks of every step from one generator on the device
+        # the masks of every step from one generator on the device (on a
+        # mesh, folded with the rank's dp index by the step)
         gen = torch.Generator(device=device).manual_seed(args.seed ^ 0xA46)
         step = trainer.make_mae_train_step(cfg, mae_cfg, optimizer, gen, ops,
-                                           compute_dtype=compute_dtype, grad_clip=args.grad_clip)
+                                           compute_dtype=compute_dtype, grad_clip=args.grad_clip,
+                                           mesh=mesh)
     elif teacher_fwd is not None:
         step = trainer.make_distill_train_step(
             cfg, optimizer, teacher_fwd, ops, remat=remat, compute_dtype=compute_dtype,
             alpha=args.distill_alpha, hard=not args.distill_soft, tau=args.distill_tau,
+            label_smoothing=args.label_smoothing, grad_clip=args.grad_clip, mesh=mesh,
+        )
+    elif tp > 1:
+        step = trainer.make_train_step_kernel_tp(
+            cfg, optimizer, mesh, remat=remat, compute_dtype=compute_dtype,
             label_smoothing=args.label_smoothing, grad_clip=args.grad_clip,
         )
     else:
-        step = trainer.make_train_step(
-            cfg, optimizer, ops, remat=remat, compute_dtype=compute_dtype,
+        step = trainer.make_train_step_dp(
+            cfg, optimizer, mesh, ops, remat=remat, compute_dtype=compute_dtype,
             label_smoothing=args.label_smoothing, grad_accum=args.grad_accum,
             grad_clip=args.grad_clip, use_dropout=use_dropout,
             rng=torch.Generator().manual_seed(args.seed) if use_dropout else None,
@@ -402,5 +475,5 @@ def prepare(args) -> TrainSetup:
     return TrainSetup(
         cfg=cfg, device=device, ops_name=ops_name, step=step, params=params,
         optimizer=optimizer, lr_at=lr_at, images=images[:n_static],
-        labels=labels[:n_static], n_static=n_static,
+        labels=labels[:n_static], n_static=n_static, mesh=mesh,
     )

@@ -191,13 +191,16 @@ struct Dropout {
 // LayerNorm input gradient, one warp per row (backward.py:_ln_bwd_dx, plus
 // the residual join): with xhat = (x - mean) rstd and g = dh * gamma,
 //   dx = dres + rstd * (g - mean(g) - xhat * mean(g * xhat))
-// in fp32; written in T, and in fp32 too when dx_f32 is given.
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-ln_bwd_rows_kernel(const float* __restrict__ dh, const T* __restrict__ x,
-                   const float* __restrict__ mean, const float* __restrict__ rstd,
-                   const T* __restrict__ gamma, const T* __restrict__ dres, T* __restrict__ dx,
-                   float* __restrict__ dx_f32, int rows, int d) {
+// in fp32; written in T, and in fp32 too when dx_f32 is given.  kRes false
+// leaves the join out (dx = LN-bwd alone): a kernel of its own, so the
+// joining kernel keeps its machine code.
+template <typename T, bool kRes>
+__device__ __forceinline__ void ln_bwd_row(const float* __restrict__ dh, const T* __restrict__ x,
+                                           const float* __restrict__ mean,
+                                           const float* __restrict__ rstd,
+                                           const T* __restrict__ gamma,
+                                           const T* __restrict__ dres, T* __restrict__ dx,
+                                           float* __restrict__ dx_f32, int rows, int d) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // whole warps exit together
@@ -213,18 +216,42 @@ ln_bwd_rows_kernel(const float* __restrict__ dh, const T* __restrict__ x,
   for (int j = lane; j < d; j += 32) {
     const float g = dh[base + j] * to_f(gamma[j]);
     const float xhat = (to_f(x[base + j]) - m) * r;
-    const float v = to_f(dres[base + j]) + r * (g - m1 - xhat * m2);
+    const float v = kRes ? to_f(dres[base + j]) + r * (g - m1 - xhat * m2)
+                         : r * (g - m1 - xhat * m2);
     dx[base + j] = from_f<T>(v);
     if (dx_f32) dx_f32[base + j] = v;
   }
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+ln_bwd_rows_kernel(const float* __restrict__ dh, const T* __restrict__ x,
+                   const float* __restrict__ mean, const float* __restrict__ rstd,
+                   const T* __restrict__ gamma, const T* __restrict__ dres, T* __restrict__ dx,
+                   float* __restrict__ dx_f32, int rows, int d) {
+  ln_bwd_row<T, true>(dh, x, mean, rstd, gamma, dres, dx, dx_f32, rows, d);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+ln_bwd_rows_nores_kernel(const float* __restrict__ dh, const T* __restrict__ x,
+                         const float* __restrict__ mean, const float* __restrict__ rstd,
+                         const T* __restrict__ gamma, T* __restrict__ dx,
+                         float* __restrict__ dx_f32, int rows, int d) {
+  ln_bwd_row<T, false>(dh, x, mean, rstd, gamma, nullptr, dx, dx_f32, rows, d);
+}
+
+// dres null: no residual join (the nores kernel)
+template <typename T>
 inline cudaError_t launch_ln_bwd_rows(const float* dh, const T* x, const float* mean,
                                       const float* rstd, const T* gamma, const T* dres, T* dx,
                                       float* dx_f32, int rows, int d, cudaStream_t stream) {
-  ln_bwd_rows_kernel<T><<<cdiv(rows, kRowThreads / 32), kRowThreads, 0, stream>>>(
-      dh, x, mean, rstd, gamma, dres, dx, dx_f32, rows, d);
+  if (dres)
+    ln_bwd_rows_kernel<T><<<cdiv(rows, kRowThreads / 32), kRowThreads, 0, stream>>>(
+        dh, x, mean, rstd, gamma, dres, dx, dx_f32, rows, d);
+  else
+    ln_bwd_rows_nores_kernel<T><<<cdiv(rows, kRowThreads / 32), kRowThreads, 0, stream>>>(
+        dh, x, mean, rstd, gamma, dx, dx_f32, rows, d);
   return cudaGetLastError();
 }
 

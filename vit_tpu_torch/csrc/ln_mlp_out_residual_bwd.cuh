@@ -88,8 +88,8 @@ struct GeluGradEpi {
 //   3. dg = dy @ W2^T; epilogue: g = round(gelu(u)), du = dg * gelu'(u)
 //      (fp32, written over u), du_c = round(du)
 //   4. dh2 = du_c @ W1^T -> fp32 (rows, D)
-//   5. dx1 = dy + LN-bwd(dh2) in fp32, written in the dtype (and in fp32
-//      into s.dx1f when it is not null)
+//   5. dx1 = dy + LN-bwd(dh2) in fp32 (LN-bwd alone without the residual),
+//      written in the dtype (and in fp32 into s.dx1f when it is not null)
 //   6. column sums db1 = sum du, db2 = sum dy, dgamma = sum dh2 * xhat,
 //      dbeta = sum dh2
 //   7. weight gradients dW1 = h2^T du_c (h2 = LN2(x1) rounded, recomputed
@@ -99,7 +99,7 @@ cudaError_t mlp_residual_bwd(const K7Scratch<T>& s, const T* dy, const T* x1, co
                              const T* ln_bias, const T* w1, const T* b1, const T* w2, T* dx1,
                              float* dgamma, float* dbeta, float* dw1, float* db1, float* dw2,
                              float* db2, int rows, int d, int f, float eps, int variant,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, bool residual = true) {
   const LoadLn<T, T> h2{x1, d, s.mean, s.rstd, ln_scale, ln_bias};
   const LoadLn<T, T, true> h2_t{x1, d, s.mean, s.rstd, ln_scale, ln_bias};
 
@@ -109,8 +109,8 @@ cudaError_t mlp_residual_bwd(const K7Scratch<T>& s, const T* dy, const T* x1, co
                         GeluGradEpi<T>{s.u, s.g, s.du_c, f, variant}, stream));
   VT_TRY(launch_gemm<T>(Load<T>{s.du_c, f}, Load<T, T, true>{w1, f}, rows, d, f,
                         StoreEpi<float>{s.dh2, d}, stream));
-  VT_TRY(launch_ln_bwd_rows<T>(s.dh2, x1, s.mean, s.rstd, ln_scale, dy, dx1, s.dx1f, rows, d,
-                               stream));
+  VT_TRY(launch_ln_bwd_rows<T>(s.dh2, x1, s.mean, s.rstd, ln_scale, residual ? dy : nullptr, dx1,
+                               s.dx1f, rows, d, stream));
 
   VT_TRY(launch_colsum(ColOf<float>{s.u, f}, rows, f, s.cpart, db1, stream));  // u holds du
   VT_TRY(launch_colsum(ColOf<T>{dy, d}, rows, d, s.cpart, db2, stream));

@@ -22,7 +22,8 @@
 //      g = round(gelu(u) [m_in]), du = (acc [m_in]) gelu'(u) over u, du_c =
 //      round(du);
 //   5. dh2 = du_c W1^T, B K-major, fp32;
-//   6. dx1 = dy + LN-bwd(dh2) rounded (and, with kOut, in fp32 too); the
+//   6. dx1 = dy + LN-bwd(dh2) rounded (LN-bwd alone with residual false,
+//      K8's tensor-parallel form; and, with kOut, in fp32 too); the
 //      column sums db1 = sum du, db2 = sum dy_m, dgamma = sum dh2 xhat, dbeta
 //      = sum dh2 (fixed-order passes);
 //   7. dW1 = h2^T du_c and dW2 = round(g)^T round(dy_m): A MN-major, the depth
@@ -137,7 +138,7 @@ cudaError_t mlp_residual_bwd_mma(const MlpBwdMmaScratch& s, const bf16* dy, cons
                                  Dropout drop, bf16* dx1, float* dgamma, float* dbeta, float* dw1,
                                  float* db1, float* dw2, float* db2, int rows, int d, int f,
                                  float eps, int variant, cudaStream_t stream,
-                                 const OutProjBwd& out = {}) {
+                                 const OutProjBwd& out = {}, bool residual = true) {
   const Gate<bf16, kDrop> dy_m{dy, d, dp_mlp, drop, kSiteMlpOut};
   // the GEMMs' dY operand: dy, or round(dy_m) in the dh2 scratch
   const bf16* const dyg = kReg ? (const bf16*)s.dh2 : dy;
@@ -157,8 +158,8 @@ cudaError_t mlp_residual_bwd_mma(const MlpBwdMmaScratch& s, const bf16* dy, cons
   }
   VT_TRY((launch_gemm_mma<false, true>(s.du_c, f, w1, f, rows, d, f, StoreEpi<float>{s.dh2, d},
                                        stream)));
-  VT_TRY(launch_ln_bwd_rows<bf16>(s.dh2, x1, s.mean, s.rstd, ln_scale, dy, dx1,
-                                  kOut ? s.dx1f : nullptr, rows, d, stream));
+  VT_TRY(launch_ln_bwd_rows<bf16>(s.dh2, x1, s.mean, s.rstd, ln_scale, residual ? dy : nullptr,
+                                  dx1, kOut ? s.dx1f : nullptr, rows, d, stream));
 
   VT_TRY(launch_colsum(ColOf<float>{s.u, f}, rows, f, s.cpart, db1, stream));  // u holds du
   if constexpr (kReg) {

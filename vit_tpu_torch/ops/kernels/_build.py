@@ -84,8 +84,9 @@ SIGNATURES = {
     # rows, d, f, d_ctx, eps, gelu_variant, <dropout>, dtype, device, stream
     "vt_ln_mlp_out_residual_bwd_train": [_P] * 22 + [_I] * 4 + [_F, _I] + _DROP + [_I, _I, _P],
     # dy, x1, ln_scale, ln_bias, w1, b1, w2, dx1, dgamma, dbeta, dw1, db1,
-    # dw2, db2, workspace, rows, d, f, eps, gelu_variant, dtype, device, stream
-    "vt_ln_mlp_residual_bwd": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # dw2, db2, workspace, rows, d, f, eps, gelu_variant, residual, dtype,
+    # device, stream
+    "vt_ln_mlp_residual_bwd": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _I, _I, _P],
     # dx1, ctx, wo, dctx, dwo, dbo, workspace, rows, d_ctx, d, dtype, device,
     # stream
     "vt_out_residual_bwd": [_P] * 7 + [_I] * 5 + [_P],

@@ -45,10 +45,13 @@ from vit_tpu_torch.ops.kernels import _build
 from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import GELU_VARIANTS
 
 
-def mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant="exact"):
+def mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant="exact",
+                           residual: bool = True):
     """The MLP half of the twins of K7 and K8 (K8 is K7 without the
     out_proj tail): fp32 compute with casts at the TPU kernel's rounding
-    points.  -> (dx1 fp32, dgamma, dbeta, dw1, db1, dw2, db2), all fp32."""
+    points.  -> (dx1 fp32, dgamma, dbeta, dw1, db1, dw2, db2), all fp32.
+    ``residual=False`` leaves dy's identity term out of dx1 (K8's
+    tensor-parallel form); the rest is unchanged."""
     cd = dy.dtype
     fast = use_fast_erf(cd)
     dyf, gamma = dy.float(), ln_scale.float()
@@ -59,7 +62,9 @@ def mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_vari
     du = (dyf @ w2.float().t()) * _gelu_grad(u, gelu_variant, fast_erf=fast)
     du_c = du.to(cd)
     dh2 = du_c.float() @ w1.float().t()
-    dx1 = dyf + _ln_bwd_dx(dh2, xhat, inv, gamma)
+    dx1 = _ln_bwd_dx(dh2, xhat, inv, gamma)
+    if residual:
+        dx1 = dyf + dx1
     return (
         dx1, (dh2 * xhat).sum(0), dh2.sum(0), h2.float().t() @ du_c.float(), du.sum(0),
         g.to(cd).float().t() @ dyf, dyf.sum(0),

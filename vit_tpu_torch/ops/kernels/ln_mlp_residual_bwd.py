@@ -3,8 +3,15 @@
 
 Replaces ``vit_tpu/ops/pallas/backward.py:ln_mlp_residual_bwd``
 (pallas_call at :253; body ``_ln_mlp_bwd_kernel`` :182 with
-``_mlp_bwd_core`` :111 and ``_mlp_grad_accum`` :159), in its
-``residual=True`` form without the pre-GELU stash ``u``.
+``_mlp_bwd_core`` :111 and ``_mlp_grad_accum`` :159), in both its
+``residual`` forms, without the pre-GELU stash ``u``.  ``residual=False``
+is the VJP of K5's tensor-parallel partial form (the caller
+``vit_tpu/parallel/tp_forward.py:_lmp_bwd``): dx1 is the LayerNorm backward
+alone, without dy's identity term (the kernel body's one line at :198);
+the weight gradients and db2 are as before, and the caller drops db2.  The
+flag is host-side: the LN-backward row pass launches its no-join kernel
+(``ln_bwd_rows_nores_kernel``, ``csrc/common.cuh``), so K7, K8 with the
+residual, K12a and K12b keep their machine code.
 
 What bounds it on the H100: 10·rows·D·F operations of tensor-core work in
 five GEMMs (ViT-B/16 @512 batch 16: 16,400 rows, D = 768, F = 3,072;
@@ -27,7 +34,8 @@ loads.
 Rounding points (the TPU kernel's): x-hat and 1/sigma from the rounded x1
 in fp32; h2 rounded; u fp32; g = GELU(u) rounded only as dW2's operand;
 du = (dy W2ᵀ) gelu'(u) fp32, rounded to du_c; dh2 = du_c W1ᵀ; dx1 = dy +
-LN-bwd(dh2) in fp32, written in the dtype.  bf16 differentiates the
+LN-bwd(dh2) (LN-bwd(dh2) without the residual) in fp32, written in the
+dtype.  bf16 differentiates the
 tanh-form erf, fp32 the A-S form.
 """
 
@@ -41,11 +49,12 @@ from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import GELU_VARIANTS
 
 
 def ln_mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps,
-                              gelu_variant: str = "exact"):
+                              gelu_variant: str = "exact", residual: bool = True):
     """Plain twin: fp32 compute with casts at the TPU kernel's rounding
     points.  -> (dx1, dgamma, dbeta, dw1, db1, dw2, db2); dx1 in the dtype,
     the rest fp32."""
-    dx1, *grads = mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant)
+    dx1, *grads = mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant,
+                                         residual)
     return (dx1.to(dy.dtype), *grads)
 
 
@@ -62,17 +71,16 @@ def ln_mlp_residual_bwd(
 ):
     """VJP of ``ln_mlp_residual`` (K5) over (B*T, D) rows, from the upstream
     gradient ``dy`` and the saved x1 -> (dx1, dgamma, dbeta, dw1, db1, dw2,
-    db2).  CPU tensors take the plain twin; CUDA tensors launch the kernel.
-    ``u=`` (the pre-GELU stash) and ``residual=False`` (the tensor-parallel
-    partial form) belong to later slices and raise."""
+    db2).  ``residual=False`` is the tensor-parallel partial form (dx1 without
+    dy's identity term).  CPU tensors take the plain twin; CUDA tensors
+    launch the kernel.  ``u=`` (the pre-GELU stash) belongs to a later slice
+    and raises."""
     name = "ln_mlp_residual_bwd"
-    if u is not None or not residual:
-        raise NotImplementedError(
-            f"{name}: u= (the stash hook) and residual=False (tensor parallel) are not "
-            "ported yet (ROADMAP.md)"
-        )
+    if u is not None:
+        raise NotImplementedError(f"{name}: u= (the stash hook) is not ported yet (ROADMAP.md)")
     if dy.device.type == "cpu":
-        return ln_mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant)
+        return ln_mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant,
+                                         residual)
     if gelu_variant not in GELU_VARIANTS:
         raise ValueError(f"{name}: gelu_variant {gelu_variant!r} not in {tuple(GELU_VARIANTS)}")
     _build.check_operands(name, dy, x1, ln_scale, ln_bias, w1, b1, w2)
@@ -96,7 +104,8 @@ def ln_mlp_residual_bwd(
         lib.vt_ln_mlp_residual_bwd(
             *(t.data_ptr() for t in (dy, x1, ln_scale, ln_bias, w1, b1, w2)),
             *(t.data_ptr() for t in outs), ws.data_ptr(), rows, d, f, eps,
-            GELU_VARIANTS[gelu_variant], code, dev.index, _build.stream_of(dy),
+            GELU_VARIANTS[gelu_variant], int(bool(residual)), code, dev.index,
+            _build.stream_of(dy),
         ),
         name,
     )

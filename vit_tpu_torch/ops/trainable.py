@@ -158,7 +158,11 @@ class TomeLnQkvAttnFn(torch.autograd.Function):
     hooks forward, K6 with ``log_size`` and without the residual join
     backward (``vit_tpu/ops/pallas/trainable.py:tome_ln_qkv_attn_diff``).
     The k-mean and the sizes get no gradient: the matching is treated as a
-    constant, as in the ToMe paper's training."""
+    constant, as in the ToMe paper's training.  With ``log_size`` None and
+    no k-mean it is the plain pair, K1 at a rank's local heads and K6 with
+    ``dres=None``: the tensor-parallel block's
+    (``parallel/tp_forward.fused_block_tp``, the JAX package's
+    ``_ln_qkv_attn_diff``)."""
 
     @staticmethod
     def forward(ctx, x2d, ln_scale, ln_bias, wqkv, bqkv, log_size, num_heads, seq_len, eps,

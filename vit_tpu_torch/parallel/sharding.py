@@ -18,16 +18,30 @@ A rule is a tuple with one entry per axis of the leaf, the mesh axis that
 splits it or None (the JAX package's ``PartitionSpec``).  The batch is the
 ``dp`` axis, split by the forward (``shard_forward.py``); params are whole
 over ``dp``.  ZeRO-1 and FSDP (``zero1_pspec``, ``fsdp_param_shardings``)
-come with the port's parallel training.
+are still to come (ROADMAP.md item 14).
+
+Training over shards (``runtime/trainer.py``): each rank's optimizer
+updates its own shards.  The gradients of ``TP_PARTIAL_GRADS`` are a
+rank's part and are summed over ``tp`` (``sum_partial_grads``); the global
+gradient norm counts a split leaf's squares on every rank and a whole
+leaf's once (``global_grad_norm``), which ``optax.clip_by_global_norm``
+sees on global arrays in the JAX package; ``unshard_params`` gathers the
+whole tree.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Iterator
 
 import torch
 
 from vit_tpu_torch.parallel.mesh import Mesh
+
+# the block leaves whose gradients a tp rank holds in part: LN1 and LN2 sit
+# before the column-parallel kernels, whose VJPs (K6, K8, or the long
+# block's plain LN1 + QKV) differentiate only this rank's heads or hidden
+# columns
+TP_PARTIAL_GRADS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
 
 
 def _pspec(axis_names, *spec) -> tuple:
@@ -99,3 +113,67 @@ def shard_params(params: Any, mesh: Mesh) -> Any:
                 for k, v in tree.items()}
 
     return rec(params, specs)
+
+
+def _pairs(tree: Any, spec: Any) -> Iterator[tuple]:
+    """(leaf, rule) over a params tree and its rule tree, in the tree's order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _pairs(v, spec[k])
+        else:
+            yield v, spec[k]
+
+
+def _whole(leaf: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    for dim, axis in enumerate(spec):
+        if axis is None or mesh.size(axis) == 1:
+            continue
+        step = leaf.shape[dim]
+        shape = list(leaf.shape)
+        shape[dim] = step * mesh.size(axis)
+        # each rank writes its shard into zeros; the SUM is exact, and an
+        # all-reduce is what gloo runs on CUDA tensors (no all_gather)
+        out = leaf.new_zeros(shape)
+        out.narrow(dim, mesh.index(axis) * step, step).copy_(leaf)
+        leaf = mesh.all_reduce(out, axis)
+    return leaf
+
+
+def unshard_params(params: Any, mesh: Mesh) -> Any:
+    """The whole tree, on every rank, from each rank's part (the inverse of
+    :func:`shard_params`; detached).  Every rank must call it: the split
+    leaves meet in all-reduces."""
+    specs = param_pspecs(mesh.axis_names, params)
+
+    def rec(tree, spec):
+        return {k: rec(v, spec[k]) if isinstance(v, dict) else _whole(v.detach(), spec[k], mesh)
+                for k, v in tree.items()}
+
+    return rec(params, specs)
+
+
+def sum_partial_grads(params: Any, mesh: Mesh) -> None:
+    """Sum the gradients of ``TP_PARTIAL_GRADS`` over ``tp`` in place, in one
+    all-reduce; a no-op where tp has one rank."""
+    if mesh.size("tp") == 1:
+        return
+    grads = [params["blocks"][k].grad for k in TP_PARTIAL_GRADS
+             if params["blocks"][k].grad is not None]
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), "tp")
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def global_grad_norm(params: Any, mesh: Mesh) -> torch.Tensor:
+    """The L2 norm of the whole gradient tree: a split leaf's squares summed
+    over the ranks that hold its parts, a whole leaf's counted once (every
+    rank holds the same)."""
+    sq = {True: [], False: []}
+    for leaf, spec in _pairs(params, param_pspecs(mesh.axis_names, params)):
+        if leaf.grad is not None:
+            split = any(a is not None and mesh.size(a) > 1 for a in spec)
+            sq[split].append(leaf.grad.float().pow(2).sum().reshape(1))
+    dev = (sq[True] or sq[False])[0].device
+    split = torch.cat(sq[True]).sum().reshape(1) if sq[True] else torch.zeros(1, device=dev)
+    whole = torch.cat(sq[False]).sum() if sq[False] else torch.zeros((), device=dev)
+    return torch.sqrt(mesh.all_reduce(split, "tp")[0] + whole)

@@ -1,6 +1,5 @@
-"""Tensor-parallel inference through the fused and W8A8 kernels —
-counterpart of ``vit_tpu.parallel.tp_forward`` (its forward; training
-through these blocks comes with the port's parallel training).
+"""Tensor-parallel inference and training through the fused and W8A8
+kernels — counterpart of ``vit_tpu.parallel.tp_forward``.
 
 SPMD over a :class:`~vit_tpu_torch.parallel.mesh.Mesh`: every rank runs
 this code on its own shard of the weights (``sharding.shard_params``), and
@@ -25,6 +24,20 @@ the ``tp`` group's all-reduces complete each block:
 Two all-reduces of the (B_local*T, D) fp32 activation per layer (a third,
 of one float per row, on ``quant``).  ``dp`` composes: the batch splits
 over it (``shard_forward.py``) while the weights are whole over it.
+
+The fp path is trainable, as the JAX package's is through its custom VJPs:
+``LnMlpPartialFn`` pairs K5's partial form with K8 ``residual=False``, and
+``trainable.TomeLnQkvAttnFn`` (no hooks) pairs K1 with K6 ``dres=None``.
+``shard_map``'s transpose places the sums over ``tp`` for JAX; here they
+are placed by hand.  Each rank's K6 and K8 give a *partial* dx (from its
+own heads or hidden columns), so the activation entering K1 and K5 takes
+an all-reduce SUM over ``tp`` in the backward (``_CopyToTP``: identity
+forward), and the two row-parallel exits are an all-reduce forward and the
+identity backward (``_SumOverTP``).  The LayerNorm scales and biases get
+partial gradients the same way; the step sums them over ``tp`` once, after
+the backward (``sharding.TP_PARTIAL_GRADS``).  bo, b2, the embeddings, the
+final LayerNorm and the head are computed after the sums, identically on
+every rank: their gradients are whole and are not summed.
 """
 
 from __future__ import annotations
@@ -35,6 +48,60 @@ from vit_tpu_torch.config import ViTConfig
 from vit_tpu_torch.ops import fused_block
 from vit_tpu_torch.ops import reference
 from vit_tpu_torch.parallel.mesh import Mesh
+
+
+class _CopyToTP(torch.autograd.Function):
+    """The identity forward; the gradient summed over ``tp`` backward (the
+    input of a column-parallel kernel, whose VJP is this rank's part)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(memory_format=torch.contiguous_format), "tp"), None
+
+
+class _SumOverTP(torch.autograd.Function):
+    """An all-reduce SUM over ``tp`` in place forward; the identity backward
+    (a row-parallel exit: every rank's partial, completed)."""
+
+    @staticmethod
+    def forward(ctx, part, mesh):
+        ctx.mark_dirty(part)
+        return mesh.all_reduce(part, "tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class LnMlpPartialFn(torch.autograd.Function):
+    """(x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant) -> this rank's
+    fp32 MLP partial, no b2 and no residual: K5 ``partial=True`` forward, K8
+    ``residual=False`` backward (``_ln_mlp_partial_diff`` and ``_lmp_bwd``
+    in the JAX package).  K8's db2 is dropped: b2 is added after the sum.
+    Each gradient in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x1, s, b, w1, b1, w2, eps, gelu_variant):
+        from vit_tpu_torch.ops.kernels.ln_mlp_residual import ln_mlp_residual
+
+        ctx.save_for_backward(x1, s, b, w1, b1, w2)
+        ctx.block_args = (eps, gelu_variant)
+        return ln_mlp_residual(x1, s, b, w1, b1, w2, None, eps, gelu_variant, partial=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        from vit_tpu_torch.ops.kernels.ln_mlp_residual_bwd import ln_mlp_residual_bwd
+
+        x1, *params = ctx.saved_tensors
+        s, b, w1, b1, w2 = params
+        dx1, *grads, _db2 = ln_mlp_residual_bwd(g.to(x1.dtype).contiguous(), x1, s, b, w1, b1,
+                                                w2, *ctx.block_args, residual=False)
+        return (dx1, *(d.to(p.dtype) for d, p in zip(grads, params)), None, None)
 
 
 def _ctx_long_seq_tp(x2d, blk, heads_local: int, seq_len: int, eps: float, quant: bool):
@@ -61,31 +128,30 @@ def fused_block_tp(x2d: torch.Tensor, blk, heads_local: int, seq_len: int, eps: 
                    gelu_variant: str, mesh: Mesh, quant: bool) -> torch.Tensor:
     """One pre-LN encoder block, this rank's slice: local-head attention,
     out_proj and MLP completed by all-reduces over ``tp`` (module
-    docstring).  The switch to the long-sequence context is read at call
-    time."""
+    docstring); differentiable on the fp path.  The switch to the
+    long-sequence context is read at call time."""
+    from vit_tpu_torch.ops.trainable import TomeLnQkvAttnFn
+
     dtype = x2d.dtype
+    x_in = x2d if quant else _CopyToTP.apply(x2d, mesh)
     if seq_len > fused_block.VMEM_ATTENTION_MAX_T:
-        ctx = _ctx_long_seq_tp(x2d, blk, heads_local, seq_len, eps, quant)
+        ctx = _ctx_long_seq_tp(x_in, blk, heads_local, seq_len, eps, quant)
     elif quant:
         from vit_tpu_torch.ops.kernels.ln_qkv_attn_q8 import ln_qkv_attn_q8
 
         ctx = ln_qkv_attn_q8(x2d, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"],
                              blk["wqkv_scale"], blk["bqkv"], heads_local, seq_len, eps)
     else:
-        from vit_tpu_torch.ops.kernels.ln_qkv_attn import ln_qkv_attn
-
-        ctx = ln_qkv_attn(x2d, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"], blk["bqkv"],
-                          heads_local, seq_len, eps)
+        ctx = TomeLnQkvAttnFn.apply(x_in, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"],
+                                    blk["bqkv"], None, heads_local, seq_len, eps, False)
     # row-parallel out_proj: fp32 partial -> sum over tp -> bias + residual
-    part = mesh.all_reduce(torch.matmul(ctx.float(), blk["wo"].float()), "tp")
+    part = _SumOverTP.apply(torch.matmul(ctx.float(), blk["wo"].float()), mesh)
     x2d = (part + blk["bo"].float() + x2d.float()).to(dtype)
     if quant:
         return _mlp_q8_tp(x2d, blk, eps, gelu_variant, mesh)
-    from vit_tpu_torch.ops.kernels.ln_mlp_residual import ln_mlp_residual
-
-    part2 = ln_mlp_residual(x2d, blk["ln2_scale"], blk["ln2_bias"], blk["w1"], blk["b1"],
-                            blk["w2"], blk["b2"], eps, gelu_variant, partial=True)
-    part2 = mesh.all_reduce(part2, "tp")
+    part2 = LnMlpPartialFn.apply(_CopyToTP.apply(x2d, mesh), blk["ln2_scale"], blk["ln2_bias"],
+                                 blk["w1"], blk["b1"], blk["w2"], eps, gelu_variant)
+    part2 = _SumOverTP.apply(part2, mesh)
     return (part2 + blk["b2"].float() + x2d.float()).to(dtype)
 
 
@@ -136,9 +202,12 @@ def _mlp_q8_tp_ref(x2d, blk, eps: float, variant: str, mesh: Mesh) -> torch.Tens
 
 
 def _local_forward(params, images, cfg: ViTConfig, heads_local: int, gelu_variant: str,
-                   quant: bool, mesh: Mesh, return_features: bool = False) -> torch.Tensor:
+                   quant: bool, mesh: Mesh, return_features: bool = False,
+                   train: bool = False) -> torch.Tensor:
     """This rank's forward: whole embeddings and head, tensor-parallel
-    encoder blocks (``models/vit.forward``'s fused branch)."""
+    encoder blocks (``models/vit.forward``'s fused branch).  ``train`` runs
+    the final LayerNorm in plain differentiable torch (K3 has no backward),
+    as the JAX package's ``_local_forward`` does."""
     from vit_tpu_torch.models import vit
 
     x = images.to(params["pos_embed"].dtype)
@@ -152,11 +221,39 @@ def _local_forward(params, images, cfg: ViTConfig, heads_local: int, gelu_varian
                             quant)
     from vit_tpu_torch.ops.kernels.layer_norm import layer_norm
 
-    x = layer_norm(x2.reshape(b, t, d), params["ln_final"]["scale"],
-                   params["ln_final"]["bias"], cfg.layernorm_eps)
+    x = (reference.layer_norm if train else layer_norm)(
+        x2.reshape(b, t, d), params["ln_final"]["scale"], params["ln_final"]["bias"],
+        cfg.layernorm_eps)
     if return_features:
         return x[..., 0, :].float()
     return vit.apply_head(x, params)
+
+
+def _check_tp(cfg: ViTConfig, mesh: Mesh) -> int:
+    """-> tp, after the JAX package's checks of the mesh and the widths."""
+    if "tp" not in mesh.axis_names:
+        raise ValueError(f"mesh {mesh.axis_names} has no 'tp' axis")
+    tp = mesh.shape["tp"]
+    if cfg.num_heads % tp:
+        raise ValueError(f"tp={tp} must divide num_heads={cfg.num_heads}")
+    if cfg.mlp_dim % tp:
+        raise ValueError(f"tp={tp} must divide mlp_dim={cfg.mlp_dim}")
+    return tp
+
+
+def train_forward_tp(cfg: ViTConfig, mesh: Mesh, gelu_variant: str = "exact"):
+    """-> ``forward(local_params, local_images) -> local logits``, the
+    differentiable ``fused`` path over a (dp x) tp mesh: this rank's shard
+    of the weights (``sharding.shard_params``) and its own slice of the
+    batch (the trainer averages over ``dp``).  The counterpart of the
+    forward that ``jit_train_step_kernel_tp`` differentiates."""
+    heads_local = cfg.num_heads // _check_tp(cfg, mesh)
+
+    def forward(params, images):
+        return _local_forward(params, images, cfg, heads_local, gelu_variant, False, mesh,
+                              train=True)
+
+    return forward
 
 
 def shard_forward_tp(cfg: ViTConfig, mesh: Mesh, ops_name: str, gelu_variant: str = "exact",
@@ -168,13 +265,7 @@ def shard_forward_tp(cfg: ViTConfig, mesh: Mesh, ops_name: str, gelu_variant: st
     whole batch out on every rank."""
     from vit_tpu_torch.parallel.shard_forward import shard_forward_dp
 
-    if "tp" not in mesh.axis_names:
-        raise ValueError(f"mesh {mesh.axis_names} has no 'tp' axis")
-    tp = mesh.shape["tp"]
-    if cfg.num_heads % tp:
-        raise ValueError(f"tp={tp} must divide num_heads={cfg.num_heads}")
-    if cfg.mlp_dim % tp:
-        raise ValueError(f"tp={tp} must divide mlp_dim={cfg.mlp_dim}")
+    tp = _check_tp(cfg, mesh)
     if ops_name not in ("fused", "quant"):
         raise ValueError(f"shard_forward_tp supports ops 'fused'/'quant', got {ops_name!r}")
     heads_local, quant = cfg.num_heads // tp, ops_name == "quant"

@@ -1,8 +1,13 @@
-"""Training steps over a params dict, on one device: cross-entropy, DeiT
-distillation against a frozen teacher, and MAE pretraining.
+"""Training steps over a params dict: cross-entropy, DeiT distillation
+against a frozen teacher, and MAE pretraining, on one device or over a
+rank mesh (``parallel/mesh.py``).
 
-Counterpart of ``vit_tpu.runtime.trainer`` (its single-device pieces; the
-mesh and EMA paths wait for their slices of the port).
+Counterpart of ``vit_tpu.runtime.trainer`` (EMA waits for its slice of the
+port).  On a mesh every rank runs the step SPMD on its own slice of the
+batch: the loss and the gradients are averaged over ``dp`` in one
+all-reduce (``pmean``), and with ``tp`` the forward is the
+tensor-parallel kernel path (``parallel/tp_forward.py``), each rank's
+optimizer updating its own shards (:func:`make_train_step_kernel_tp`).
 Params are a dict of leaf tensors with ``requires_grad``; a
 ``torch.optim`` optimizer over those leaves takes the place of an optax
 transformation and its state, and updates them in place — the
@@ -24,6 +29,7 @@ from vit_tpu_torch.config import ViTConfig
 from vit_tpu_torch.io.params import device_or_raise
 from vit_tpu_torch.models import vit
 from vit_tpu_torch.ops.dispatch import EAGER_OPS, OpsImpl
+from vit_tpu_torch.parallel.mesh import Mesh
 
 
 def leaves(params) -> Iterator[torch.Tensor]:
@@ -117,6 +123,34 @@ def distillation_loss(
     return (1.0 - alpha) * ce + alpha * kd
 
 
+def _make_distill_loss_fn(cfg: ViTConfig, ops: OpsImpl, remat: bool, compute_dtype,
+                          teacher_fwd: Callable, alpha: float, hard: bool, tau: float,
+                          label_smoothing: float = 0.0):
+    """(params, images, labels[, rng]) -> the distillation loss: the frozen
+    teacher under ``torch.no_grad`` (no graph), the student's
+    separate-head forward on ``ops`` (``_make_distill_loss_fn`` in the JAX
+    package).  ``rng`` is ignored: distillation composes with no dropout."""
+
+    def fwd(p, x):
+        if compute_dtype is not None:
+            p = vit.cast_params(p, compute_dtype)
+            x = x.to(compute_dtype)
+        return vit.forward(p, x, cfg, ops, separate_heads=True)
+
+    def loss_fn(params, images, labels, rng=None):
+        with torch.no_grad():
+            t_logits = teacher_fwd(images)
+        if remat:
+            cls_logits, dist_logits = torch.utils.checkpoint.checkpoint(
+                fwd, params, images, use_reentrant=False)
+        else:
+            cls_logits, dist_logits = fwd(params, images)
+        return distillation_loss(cls_logits, dist_logits, labels, t_logits, alpha=alpha,
+                                 hard=hard, tau=tau, label_smoothing=label_smoothing)
+
+    return loss_fn
+
+
 def make_distill_train_step(
     cfg: ViTConfig,
     optimizer: torch.optim.Optimizer,
@@ -129,6 +163,7 @@ def make_distill_train_step(
     tau: float = 1.0,
     label_smoothing: float = 0.0,
     grad_clip: float = 0.0,
+    mesh: Optional[Mesh] = None,
 ):
     """Build ``(params, images, labels) -> loss`` training a DeiT-distilled
     student against a frozen teacher, one optimizer update per call
@@ -138,38 +173,14 @@ def make_distill_train_step(
     config and op table, typically ``vit.forward`` over a loaded tree on
     ``fused`` or ``quant``); it runs under ``torch.no_grad``, so it records
     no graph.  The student runs ``vit.forward(..., separate_heads=True)``
-    on ``ops``; it must be a distilled config (dual heads)."""
-    if not cfg.distilled:
-        raise ValueError(
-            f"distillation training needs a distilled student config "
-            f"(got {cfg.name}; use deit_*)"
-        )
-
-    def fwd(p, x):
-        if compute_dtype is not None:
-            p = vit.cast_params(p, compute_dtype)
-            x = x.to(compute_dtype)
-        return vit.forward(p, x, cfg, ops, separate_heads=True)
-
-    def loss_fn(params, images, labels):
-        with torch.no_grad():
-            t_logits = teacher_fwd(images)
-        if remat:
-            cls_logits, dist_logits = torch.utils.checkpoint.checkpoint(
-                fwd, params, images, use_reentrant=False)
-        else:
-            cls_logits, dist_logits = fwd(params, images)
-        return distillation_loss(cls_logits, dist_logits, labels, t_logits, alpha=alpha,
-                                 hard=hard, tau=tau, label_smoothing=label_smoothing)
-
-    def train_step(params, images, labels) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, images, labels)
-        loss.backward()
-        _update(params, optimizer, grad_clip)
-        return loss.detach()
-
-    return train_step
+    on ``ops``; it must be a distilled config (dual heads).  ``mesh``: the
+    data-parallel step (:func:`make_train_step_dp`), the teacher on each
+    rank's own images."""
+    return make_train_step_dp(
+        cfg, optimizer, mesh, ops, remat=remat, compute_dtype=compute_dtype,
+        label_smoothing=label_smoothing, grad_clip=grad_clip,
+        distill=dict(teacher_fwd=teacher_fwd, alpha=alpha, hard=hard, tau=tau),
+    )
 
 
 def make_mae_train_step(
@@ -180,12 +191,16 @@ def make_mae_train_step(
     ops: OpsImpl = EAGER_OPS,
     compute_dtype=None,
     grad_clip: float = 0.0,
+    mesh: Optional[Mesh] = None,
 ):
     """Build the MAE pretraining step ``(params, images, labels) -> loss``
     (``models/mae.py``), the loop's calling shape; the labels are ignored,
     the targets being the images' own masked pixels.  Each step draws its
     masks from ``gen``, a generator on the images' device.  ``grad_clip``
-    as in :func:`make_train_step`.
+    as in :func:`make_train_step`.  ``mesh``: data parallel, each rank on
+    its own images with its masks drawn from ``gen``'s seed folded with its
+    ``dp`` index (``jit_mae_step_dp_shard_map``), the loss and gradients
+    averaged over ``dp``.
 
     No remat: at the default 75% mask the encoder runs on a quarter of the
     tokens, and the ``fused_train`` backward kernels recompute from their
@@ -193,14 +208,17 @@ def make_mae_train_step(
     inside the loss (the encoder casts the images)."""
     from vit_tpu_torch.models import mae
 
+    if mesh is not None and mesh.size("dp") > 1:
+        gen = torch.Generator(device=gen.device).manual_seed(
+            fold_in(gen.initial_seed(), mesh.index("dp")))
+
     def train_step(params, images, labels=None) -> torch.Tensor:
         del labels
         optimizer.zero_grad(set_to_none=True)
         p = params if compute_dtype is None else vit.cast_params(params, compute_dtype)
         loss = mae.forward_loss(p, images, gen, cfg, mae_cfg, ops)
         loss.backward()
-        _update(params, optimizer, grad_clip)
-        return loss.detach()
+        return _finish(params, loss.detach(), optimizer, grad_clip, mesh)
 
     return train_step
 
@@ -231,6 +249,14 @@ def _value_and_grad_accum(loss_fn, params, images, labels, k: int, rng=None) -> 
     return total / k
 
 
+def fold_in(seed: int, i: int) -> int:
+    """A seed for index ``i`` of a mesh axis from ``seed``: the i-th draw of
+    a generator seeded with it (the counterpart of ``jax.random.fold_in``:
+    each rank its own stream, deterministic in (seed, i))."""
+    draws = torch.randint(0, 2 ** 62, (i + 1,), generator=torch.Generator().manual_seed(seed))
+    return int(draws[i])
+
+
 def make_train_step(
     cfg: ViTConfig,
     optimizer: torch.optim.Optimizer,
@@ -256,27 +282,139 @@ def make_train_step(
     generator per step drawn from ``rng`` (a host ``torch.Generator``, the
     counterpart of the JAX step's rng argument).  ``forward_fn`` as in
     :func:`_make_loss_fn`."""
+    return make_train_step_dp(cfg, optimizer, None, ops, remat, compute_dtype, label_smoothing,
+                              grad_accum, grad_clip, use_dropout, rng, forward_fn)
+
+
+def make_train_step_dp(
+    cfg: ViTConfig,
+    optimizer: torch.optim.Optimizer,
+    mesh: Optional[Mesh],
+    ops: OpsImpl = EAGER_OPS,
+    remat: bool = True,
+    compute_dtype=None,
+    label_smoothing: float = 0.0,
+    grad_accum: int = 1,
+    grad_clip: float = 0.0,
+    use_dropout: bool = False,
+    rng: Optional[torch.Generator] = None,
+    forward_fn: Optional[Callable] = None,
+    distill: Optional[dict] = None,
+):
+    """The data-parallel step, ``(params, local images, local labels) ->
+    loss``: the counterpart of ``jit_train_step_dp_shard_map`` (and, on the
+    plain tables, of ``jit_train_step_for_mesh`` on a dp-only mesh).  Each
+    rank takes value and grad on its own slice of the batch (``grad_accum``
+    microbatches of it); the loss and every gradient are averaged over
+    ``dp`` in one all-reduce, and each rank's optimizer then applies the
+    same update, so the params stay equal on every rank.  With
+    ``use_dropout`` the per-step seed is folded with the rank's ``dp``
+    index (:func:`fold_in`): each rank draws its own masks.  ``distill``
+    (teacher_fwd, alpha, hard, tau) swaps the loss for DeiT distillation.
+    ``mesh`` None is the single-device step (:func:`make_train_step`).
+    The other arguments as in :func:`make_train_step`."""
     if use_dropout and rng is None:
         raise ValueError("use_dropout needs rng, a torch.Generator (e.g. seeded from --seed)")
-    loss_fn = _make_loss_fn(cfg, ops, remat, compute_dtype, label_smoothing, forward_fn)
+    if distill is not None:
+        if not cfg.distilled:
+            raise ValueError(
+                f"distillation training needs a distilled student config "
+                f"(got {cfg.name}; use deit_*)"
+            )
+        if use_dropout or forward_fn is not None:
+            raise ValueError("distillation composes with neither dropout nor forward_fn")
+        loss_fn = _make_distill_loss_fn(cfg, ops, remat, compute_dtype, label_smoothing=
+                                        label_smoothing, **distill)
+    else:
+        loss_fn = _make_loss_fn(cfg, ops, remat, compute_dtype, label_smoothing, forward_fn)
+    dp = 1 if mesh is None else mesh.size("dp")
 
     def train_step(params, images, labels) -> torch.Tensor:
         step_rng = None
-        if use_dropout:  # a fresh generator per step
-            step_rng = torch.Generator().manual_seed(int(torch.randint(0, 2 ** 62, (), generator=rng)))
+        if use_dropout:  # a fresh generator per step, one stream per dp rank
+            seed = int(torch.randint(0, 2 ** 62, (), generator=rng))
+            step_rng = torch.Generator().manual_seed(
+                fold_in(seed, mesh.index("dp")) if dp > 1 else seed)
         optimizer.zero_grad(set_to_none=True)
         loss = _value_and_grad_accum(loss_fn, params, images, labels, grad_accum, step_rng)
-        _update(params, optimizer, grad_clip)
-        return loss
+        return _finish(params, loss, optimizer, grad_clip, mesh)
 
     return train_step
 
 
-def _update(params, optimizer: torch.optim.Optimizer, grad_clip: float) -> None:
+def make_train_step_kernel_tp(
+    cfg: ViTConfig,
+    optimizer: torch.optim.Optimizer,
+    mesh: Mesh,
+    remat: bool = False,
+    compute_dtype=None,
+    gelu_variant: str = "exact",
+    label_smoothing: float = 0.0,
+    grad_clip: float = 0.0,
+):
+    """Tensor-parallel training through the fused kernels, ``(local params,
+    local images, local labels) -> loss``: the counterpart of
+    ``jit_train_step_kernel_tp``.  The forward is
+    ``tp_forward.train_forward_tp`` over this rank's shard
+    (``sharding.shard_params``; K1/K6 at the local heads, K5 partial/K8
+    ``residual=False`` over the local hidden columns, K13/K14 past the
+    switch); ``dp`` composes over it.  After the backward the partial
+    LayerNorm gradients are summed over ``tp``, everything is averaged
+    over ``dp``, ``grad_clip`` takes the global norm over the shards, and
+    each rank's optimizer updates its own shards.  ``remat`` recomputes the
+    forward (its all-reduces too) in the backward."""
+    from vit_tpu_torch.parallel.tp_forward import train_forward_tp
+
+    forward = train_forward_tp(cfg, mesh, gelu_variant)
+    return make_train_step_dp(cfg, optimizer, mesh, remat=remat, compute_dtype=compute_dtype,
+                              label_smoothing=label_smoothing, grad_clip=grad_clip,
+                              forward_fn=lambda p, x, _rng: forward(p, x))
+
+
+def _pmean_dp(params, loss: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The loss and every gradient averaged over ``dp`` in place, in one
+    all-reduce of one flat fp32 buffer (``pmean``).  -> the loss."""
+    n = mesh.size("dp")
+    if n == 1:
+        return loss
+    grads = [t.grad for t in leaves(params) if t.grad is not None]
+    flat = torch.cat([loss.float().reshape(1), *(g.float().reshape(-1) for g in grads)])
+    flat = mesh.all_reduce(flat, "dp").div_(n)
+    for g, part in zip(grads, flat[1:].split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+    return flat[0].clone()
+
+
+def _finish(params, loss: torch.Tensor, optimizer: torch.optim.Optimizer, grad_clip: float,
+            mesh: Optional[Mesh]) -> torch.Tensor:
+    """After the backward: on a mesh, the ``dp`` mean of the loss and the
+    gradients and the ``tp`` sum of the partial ones; then the update.
+    -> the loss."""
+    if mesh is not None:
+        from vit_tpu_torch.parallel.sharding import sum_partial_grads
+
+        loss = _pmean_dp(params, loss, mesh)
+        sum_partial_grads(params, mesh)
+    _update(params, optimizer, grad_clip, mesh)
+    return loss
+
+
+def _update(params, optimizer: torch.optim.Optimizer, grad_clip: float,
+            mesh: Optional[Mesh] = None) -> None:
     """One optimizer update from the leaves' gradients, clipped first to
-    the global L2 norm ``grad_clip`` when it is > 0."""
+    the global L2 norm ``grad_clip`` when it is > 0; over ``tp`` shards
+    the norm is the whole tree's (``sharding.global_grad_norm``), clipped
+    as ``clip_grad_norm_`` clips."""
     if grad_clip:
-        torch.nn.utils.clip_grad_norm_(list(leaves(params)), grad_clip)
+        if mesh is None or mesh.size("tp") == 1:
+            torch.nn.utils.clip_grad_norm_(list(leaves(params)), grad_clip)
+        else:
+            from vit_tpu_torch.parallel.sharding import global_grad_norm
+
+            coef = torch.clamp(grad_clip / (global_grad_norm(params, mesh) + 1e-6), max=1.0)
+            for t in leaves(params):
+                if t.grad is not None:
+                    t.grad.mul_(coef)
     optimizer.step()
 
 
