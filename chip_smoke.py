@@ -287,10 +287,30 @@ Phases (a failed phase raises; nothing is caught):
      ``residual=False`` per rank); the time per step of two ranks sharing
      one card (not a scaling figure).
 
+ 46. data and evaluation: the native reader built from ``native/vitio.cpp``
+     (``vit_tpu_torch/io/native.py``); 256 B/16 @224 images in 3 shards with
+     label files (the fp32 ``eager`` engine's top-1), read through the
+     native gather reader and through numpy memmaps, bit for bit the written
+     images; ``vit-tpu-torch-eval --data-dir`` bf16 at batch 100 (100, 100
+     and a ragged 56) on ``--ops fused`` (12 K1, 12 K2, 1 K3 per batch),
+     ``--ops quant`` (12 K15, 12 K16, 1 K3) and ``--tome 13`` (12 K1, 12 K4,
+     12 K5), counts set to 0 just before and read just after, each run's
+     top-1 and top-5 those of the same engine's ``classify`` on the same
+     batches; ``--image-dir`` over 4 class folders of 8 PNGs at 256 x 320;
+     the shards' evaluation streamed through ``prefetch_to_device`` against
+     the same batches already on the card, in turns; the train CLI with
+     ``--data-dir`` (B/16 batch 64, ``fused_train``, ``--optimizer
+     fused_adamw``, 3 steps; 12 each of K1, K4-K7 and 1 K20 per step) and
+     ``--eval-data-dir --eval-every 2 --eval-batches 1``, its step times
+     beside the static-batch CLI's; the oracle's float64 logits on 4 images
+     against fp32 ``eager`` and ``fused`` on the card (1e-3); the profiler's
+     ``roofline`` and ``forward_timing`` of the batch-100 ``fused`` forward
+     and ``train_step_timing`` of the batch-64 step.
+
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
 regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
 per_op 31-33, adamw 34-35, parallel 36-38 and 45, serve 39-41, mae 42,
-distill 43, qat 44); without it every phase runs.
+distill 43, qat 44, data 46); without it every phase runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -318,6 +338,7 @@ import subprocess
 import tempfile
 import threading
 import time
+import unittest.mock
 
 import numpy as np
 import torch
@@ -1434,11 +1455,12 @@ def _expect_counts_of(launches: dict, want: dict, what: str) -> dict:
     return launches
 
 
-def _train_cli(workdir: str, extra, steps: int = TRAIN_STEPS) -> tuple:
+def _train_cli(workdir: str, extra, steps: int = TRAIN_STEPS, records=None) -> tuple:
     """The train CLI on the card (B/16, ``steps`` steps, batch 64,
     fused_train, bf16 mixed) with ``extra`` flags (a later flag overrides
     an earlier one); every count set to 0 just before and read just after.
-    -> (launch counts, losses)."""
+    -> (launch counts, losses); ``records`` (a list) gets every record of
+    its ``--log-jsonl``."""
     from vit_tpu_torch.cli.train import main
 
     fd, log_path = tempfile.mkstemp(prefix="train", suffix=".jsonl", dir=workdir)
@@ -1458,7 +1480,10 @@ def _train_cli(workdir: str, extra, steps: int = TRAIN_STEPS) -> tuple:
     if rc != 0:
         raise RuntimeError(f"train CLI {extra} exited {rc}")
     with open(log_path) as fh:
-        losses = [json.loads(line)["loss"] for line in fh]
+        logged = [json.loads(line) for line in fh]
+    if records is not None:
+        records.extend(logged)
+    losses = [r["loss"] for r in logged if "loss" in r]
     if len(losses) != steps or not np.isfinite(losses).all():
         raise RuntimeError(f"train CLI {extra} logged {losses}, expected {steps} finite losses")
     return launches, losses
@@ -4114,8 +4139,297 @@ def group_qat(dev, card, summary, launches) -> None:
             synth_params(VIT_B_16, 0), dev, card, workdir)
 
 
+# -- data and evaluation (phase 46) ----------------------------------------------
+
+DATA_SHARDS = (86, 85, 85)  # phase 46's B/16 @224 images per shard: 256, ~154 MB
+DATA_BATCH = 100  # the eval CLI's batch: 100, 100 and a ragged 56
+DATA_STEPS = 3  # the --data-dir train CLI's steps (batch 64)
+FOLDER_CLASSES, FOLDER_PER_CLASS, FOLDER_WH = 4, 8, (256, 320)  # PNG width x height
+EVAL_RUNS = {  # name: (eval CLI flags, launches per batch)
+    "eval_fused": (["--ops", "fused"], {"ln_qkv_attn": 12, "out_ln_mlp_residual": 12,
+                                        "layer_norm": 1}),
+    "eval_quant": (["--ops", "quant"], {"ln_qkv_attn_q8": 12, "out_ln_mlp_residual_q8": 12,
+                                        "layer_norm": 1}),
+    "eval_tome": (["--ops", "fused", "--tome", str(TOME_R)],
+                  {"ln_qkv_attn": 12, "out_residual": 12, "ln_mlp_residual": 12}),
+}
+
+
+def _write_shards(root: str, images: np.ndarray, labels: np.ndarray) -> None:
+    """``images`` as input-100.bin-format shards of DATA_SHARDS images, each
+    with its int32 ``.labels.bin``."""
+    lo = 0
+    for i, n in enumerate(DATA_SHARDS):
+        with open(f"{root}/shard{i}.bin", "wb") as fh:
+            np.array((n, *images.shape[1:]), "<i4").tofile(fh)
+            images[lo : lo + n].astype("<f4").tofile(fh)
+        labels[lo : lo + n].astype("<i4").tofile(f"{root}/shard{i}.labels.bin")
+        lo += n
+
+
+def _engine_reference(cfg, params, images, labels, dev, ops: str, tome_r: int = 0) -> tuple:
+    """(top-1, top-5, ties) of ``labels`` from a bf16 engine's own forward
+    over the eval CLI's batches (DATA_BATCH, batch_pad DATA_BATCH): its
+    ``classify`` labels, ranked as ``eval/accuracy.py`` ranks the float32
+    probabilities (``np.argsort``'s last of the five largest).  Where the
+    two top-1s differ the probabilities must tie (bf16 logits often do on
+    random weights); ``ties`` counts those images."""
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    bs = min(DATA_BATCH, len(images))
+    engine = InferenceEngine(cfg, params, "bfloat16", ops, dev, batch_pad=bs, tome_r=tome_r)
+    hits1 = hits5 = ties = 0
+    for i in range(0, len(images), bs):
+        x, y = images[i : i + bs], labels[i : i + bs]
+        top1, top_prob = engine.classify(x)
+        probs = engine.probabilities(x).cpu().numpy().astype(np.float32)
+        top5 = np.argsort(probs, axis=-1)[:, -5:]
+        rows = np.arange(len(y))
+        if not np.array_equal(probs[rows, top5[:, -1]], top_prob):
+            raise RuntimeError(f"{ops}: classify's top probability is not the ranked top-1's")
+        ties += int((top5[:, -1] != top1).sum())
+        hits1 += int((top5[:, -1] == y).sum())
+        hits5 += int((top5 == y[:, None]).any(-1).sum())
+    return hits1 / len(images), hits5 / len(images), ties
+
+
+def phase_data_reader(workdir: str, params, dev, card: str) -> tuple:
+    """Phase 46 (the reader): the native reader built from
+    ``native/vitio.cpp``; 256 B/16 @224 images in 3 shards, labelled with the
+    fp32 ``eager`` engine's top-1; native reads against numpy's bit for bit.
+    -> (images, labels)."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io import native
+    from vit_tpu_torch.io.dataset import BinShardDataset
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    if not native.gather_available():
+        raise RuntimeError("the native reader did not build (no C++ compiler?)")
+    log(f"native reader: {native.library_path().name}, {time.perf_counter() - t0:.3f} s "
+        "(build and load)")
+    images = synth_images(sum(DATA_SHARDS), VIT_B_16, seed=5)
+    eager = InferenceEngine(VIT_B_16, params, "float32", "eager", dev, batch_pad=DATA_BATCH)
+    labels = np.concatenate([eager.classify(images[i : i + DATA_BATCH])[0]
+                             for i in range(0, len(images), DATA_BATCH)]).astype(np.int32)
+    del eager
+    _write_shards(workdir, images, labels)
+    ds = BinShardDataset(workdir, require_labels=True, num_classes=VIT_B_16.num_classes)
+    take = np.random.default_rng(0).permutation(len(ds))
+    reads, secs = {}, {"native": [], "numpy": []}
+    for _ in range(2):  # in turns
+        for reader in ("native", "numpy", "numpy", "native"):
+            with unittest.mock.patch.object(native, "gather_available",
+                                            lambda: reader == "native"):
+                t0 = time.perf_counter()
+                reads[reader] = ds.read(take)
+                secs[reader].append(time.perf_counter() - t0)
+    if not (reads["native"].tobytes() == reads["numpy"].tobytes() == images[take].tobytes()
+            and np.array_equal(ds.labels(), labels)):
+        raise RuntimeError("native shard reads differ from numpy's")
+    mb = images.nbytes / 1e6
+    rate = {k: mb / statistics.median(v) for k, v in secs.items()}
+    log(f"data: {len(ds)} images in {len(ds.paths)} shards ({mb:.1f} MB), the native gather "
+        f"reader's reads == numpy memmap reads == the written images bit for bit; a shuffled "
+        f"BinShardDataset.read of all (median of 4, in turns, host, page cache warm): native "
+        f"{rate['native']:.6g} MB/s, numpy {rate['numpy']:.6g} MB/s; labels: the fp32 eager "
+        f"top-1")
+    return images, labels
+
+
+def phase_eval_cli(workdir: str, params, images, labels, dev, card: str) -> dict:
+    """Phase 46 (evaluation): ``vit-tpu-torch-eval --data-dir`` bf16 at
+    batch DATA_BATCH on ``fused``, ``quant`` and ToMe r = TOME_R, counts set
+    to 0 just before and read just after; each run's top-1 and top-5 equal
+    those of the same engine's ``classify``; then ``--image-dir``.
+    -> launch counts by path."""
+    from vit_tpu_torch.cli.eval import main
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io import checkpoint
+    from vit_tpu_torch.io.dataset import ImageFolderDataset
+
+    weights = f"{workdir}/params.npz"
+    checkpoint.save_npz(params, weights)
+    batches = -(-len(images) // DATA_BATCH)
+
+    def run(flags, per_batch, n_batches, imgs, labs, source):
+        buf = io.StringIO()
+        wrappers = _reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = main(["--weights", weights, *source, "--batch", str(DATA_BATCH), "--dtype",
+                       "bfloat16", "--device", "cuda", "--json", *flags])
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        if rc != 0:
+            raise RuntimeError(f"eval CLI {flags} exited {rc}")
+        got = json.loads(buf.getvalue().splitlines()[-1])
+        _expect_counts_of(launches, {k: n * n_batches for k, n in per_batch.items()},
+                          f"eval cli {' '.join(flags)} ({n_batches} batches)")
+        tome = int(flags[flags.index("--tome") + 1]) if "--tome" in flags else 0
+        *want, ties = _engine_reference(VIT_B_16, params, imgs, labs, dev, flags[1], tome)
+        log(f"eval cli {' '.join(source[:1] + flags)}: {got['n']} images, top-1 {got['top1']} "
+            f"top-5 {got['top5']} mean top-prob {got['mean_top_prob']:.6g}; the engine's "
+            f"classify: top-1 {want[0]} top-5 {want[1]} ({ties} top-1 ties ranked as numpy "
+            f"ranks them); {got['images_per_sec']} img/s (shard reads and the first forward "
+            f"included); {card}")
+        if got["n"] != len(imgs) or [got["top1"], got["top5"]] != want:
+            raise RuntimeError(f"eval CLI {flags}: {got} != the engine's {want}")
+        return launches
+
+    out = {name: run(flags, per_batch, batches, images, labels, ["--data-dir", workdir])
+           for name, (flags, per_batch) in EVAL_RUNS.items()}
+    from PIL import Image
+
+    rng = np.random.default_rng(3)
+    folder = f"{workdir}/classes"
+    for c in range(FOLDER_CLASSES):
+        os.makedirs(f"{folder}/c{c}")
+        for j in range(FOLDER_PER_CLASS):
+            Image.fromarray(rng.integers(0, 256, (FOLDER_WH[1], FOLDER_WH[0], 3),
+                                         dtype=np.uint8)).save(f"{folder}/c{c}/{j}.png")
+    ds = ImageFolderDataset(folder, VIT_B_16.image_size)
+    flags, per_batch = EVAL_RUNS["eval_fused"]
+    out["eval_image_dir"] = run(flags, per_batch, 1, ds.read(range(len(ds))),
+                                ds.labels(), ["--image-dir", folder])
+    return out
+
+
+def phase_eval_stream(workdir: str, params, dev, card: str) -> None:
+    """Phase 46 (the prefetch): ``evaluate_batches`` over the shards streamed
+    through ``prefetch_to_device`` against the same batches already on the
+    card, bf16 ``fused``, timed in turns."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.eval import accuracy
+    from vit_tpu_torch.io.dataset import BinShardDataset
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+    from vit_tpu_torch.runtime.prefetch import prefetch_to_device
+
+    ds = BinShardDataset(workdir, require_labels=True)
+    engine = InferenceEngine(VIT_B_16, params, "bfloat16", "fused", dev, batch_pad=DATA_BATCH)
+    spans = [range(i, min(i + DATA_BATCH, len(ds))) for i in range(0, len(ds), DATA_BATCH)]
+    staged = [(torch.from_numpy(ds.read(r)).to(dev), ds.labels()[r.start : r.stop]) for r in spans]
+
+    def streamed():
+        stream = prefetch_to_device(((ds.read(r), ds.labels()[r.start : r.stop]) for r in spans),
+                                    size=2, device=dev)
+        try:
+            return accuracy.evaluate_batches(engine, stream)
+        finally:
+            stream.close()
+
+    runs = {"streamed": streamed, "staged": lambda: accuracy.evaluate_batches(engine, staged)}
+    reports = {k: fn() for k, fn in runs.items()}  # warm
+    if reports["streamed"] != reports["staged"]:
+        raise RuntimeError(f"streamed eval {reports['streamed']} != staged {reports['staged']}")
+    times = {k: [] for k in runs}
+    for _ in range(3):
+        for k in (*runs, *reversed(runs)):
+            t0 = time.perf_counter()
+            runs[k]()
+            times[k].append(time.perf_counter() - t0)
+    rates = {k: len(ds) / statistics.median(t) for k, t in times.items()}
+    log(f"eval stream B/16 bf16 fused, {len(ds)} images in batches of {DATA_BATCH}: prefetched "
+        f"from the shards {rates['streamed']:.6g} img/s, already on the card "
+        f"{rates['staged']:.6g} img/s (median of 6 each, in turns); {card}")
+
+
+def phase_data_train_cli(workdir: str, card: str) -> dict:
+    """Phase 46 (training): the train CLI with ``--data-dir`` (B/16 b64
+    ``fused_train``, ``--optimizer fused_adamw``, DATA_STEPS steps) and
+    ``--eval-data-dir --eval-every 2 --eval-batches 1``: 12 each of K1,
+    K4-K7 and 1 K20 per step (the held-out eval is the fp32 eager forward:
+    no launch); its step times beside the static-batch CLI's.
+    -> launch counts of the run."""
+    base = ["--optimizer", "fused_adamw", "--lr", str(TRAIN_LR)]
+    records: list = []
+    launches, losses = _train_cli(workdir, [*base, "--data-dir", workdir, "--data-threads", "8",
+                                            "--eval-data-dir", workdir, "--eval-every", "2",
+                                            "--eval-batches", "1"], DATA_STEPS, records)
+    want = {name: 12 * DATA_STEPS for name in ("ln_qkv_attn", *TRAIN_KERNELS)}
+    want["adamw_update"] = DATA_STEPS
+    _expect_counts_of(launches, want, f"train cli --data-dir ({DATA_STEPS} steps)")
+    evals = [r for r in records if "eval_top1" in r]
+    if [r["step"] for r in evals] != [1, DATA_STEPS] or not evals[-1].get("final"):
+        raise RuntimeError(f"train cli --eval-data-dir: eval records {evals}")
+    static: list = []
+    _train_cli(workdir, base, DATA_STEPS, static)
+    ms = {what: [r["ms"] for r in recs if "ms" in r]
+          for what, recs in (("data-dir", records), ("static", static))}
+    log(f"train cli B/16 batch 64 fused_train fused_adamw, step ms (the first includes its "
+        f"warm-up): --data-dir {ms['data-dir']}, static batch {ms['static']}; losses {losses}; "
+        f"eval top-1 {[r['eval_top1'] for r in evals]} (64 held-out images); {card}")
+    return launches
+
+
+def phase_oracle_and_timing(params, dev, card: str) -> None:
+    """Phase 46 (the gate and the recipes): the oracle's float64 logits on 4
+    images against fp32 ``eager`` and ``fused`` on the card (1e-3, BASELINE's
+    gate); ``roofline`` and ``forward_timing`` of the b100 bf16 ``fused``
+    forward, ``train_step_timing`` of the b64 bf16 mixed ``fused_train``
+    step."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.models import oracle, vit
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.runtime import profiler, trainer
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = VIT_B_16
+    images = synth_images(100, cfg, seed=1)
+    t0 = time.perf_counter()
+    want = oracle.forward(params, images[:4], cfg)
+    t_oracle = time.perf_counter() - t0
+    devs = {}
+    for ops in ("eager", "fused"):
+        engine = InferenceEngine(cfg, params, "float32", ops, dev, batch_pad=1)
+        devs[ops] = float(np.abs(engine.logits(images[:4]).cpu().numpy() - want).max())
+        del engine
+    log(f"oracle (float64, CPU, {t_oracle:.3g} s) vs fp32 on the card, 4 images, TF32 off: max|d "
+        f"logit| eager {devs['eager']:.6g}, fused {devs['fused']:.6g} (gate 1e-3)")
+    if not max(devs.values()) <= 1e-3:
+        raise RuntimeError(f"fp32 logits outside 1e-3 of the oracle: {devs}")
+
+    engine = InferenceEngine(cfg, params, "bfloat16", "fused", dev, batch_pad=100)
+    x = torch.from_numpy(images).to(dev)
+    med, lo, hi = profiler.forward_timing(lambda: engine.logits(x), iters=10)
+    r = profiler.roofline(cfg, 100, med)
+    log(f"forward_timing fused B/16 batch 100 bf16: {med * 1e3:.6g} ms (min {lo * 1e3:.6g}, max "
+        f"{hi * 1e3:.6g}; 3 samples of 10); roofline {r['tflops_per_sec']:.6g} TFLOP/s, mfu "
+        f"{r['mfu']:.4%} of h100_bf16, {r['images_per_sec']:.6g} img/s; {card}")
+    del engine, x
+    torch.cuda.empty_cache()
+    params_t = trainer.as_trainable(vit.init_params(torch.Generator().manual_seed(0), cfg), dev)
+    opt = torch.optim.AdamW(list(trainer.leaves(params_t)), lr=1e-4)
+    step = trainer.make_train_step(cfg, opt, get_ops("fused_train"), remat=False,
+                                   compute_dtype=torch.bfloat16)
+    xb = torch.from_numpy(synth_images(64, cfg, seed=4)).to(dev)
+    yb = torch.arange(64, device=dev) * 7 % cfg.num_classes
+    med, lo, hi, loss = profiler.train_step_timing(step, params_t, xb, yb, iters=5)
+    log(f"train_step_timing fused_train B/16 batch 64 bf16 mixed, AdamW: {med * 1e3:.6g} ms "
+        f"(min {lo * 1e3:.6g}, max {hi * 1e3:.6g}; 3 samples of 5), {64 / med:.6g} img/s, "
+        f"last loss {loss:.6g}; {card}")
+
+
+def group_data(dev, card, summary, launches) -> None:
+    """Phase 46."""
+    from vit_tpu_torch.config import VIT_B_16
+
+    params = synth_params(VIT_B_16, 0)
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+        images, labels = phase_data_reader(workdir, params, dev, card)
+        torch.cuda.empty_cache()
+        launches.update(phase_eval_cli(workdir, params, images, labels, dev, card))
+        del images
+        torch.cuda.empty_cache()
+        phase_eval_stream(workdir, params, dev, card)
+        torch.cuda.empty_cache()
+        launches["train_data"] = phase_data_train_cli(workdir, card)
+    torch.cuda.empty_cache()
+    phase_oracle_and_timing(params, dev, card)
+
+
 PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw",
-          "parallel", "serve", "mae", "distill", "qat")
+          "parallel", "serve", "mae", "distill", "qat", "data")
 
 
 def group_classify(dev, card, summary, launches) -> None:
@@ -4332,7 +4646,8 @@ def main(argv=None) -> None:
     groups = {"classify": group_classify, "train": group_train, "regularized": group_regularized,
               "long": group_long, "quant": group_quant, "tome": group_tome, "dh80": group_dh80,
               "per_op": group_per_op, "adamw": group_adamw, "parallel": group_parallel,
-              "serve": group_serve, "mae": group_mae, "distill": group_distill, "qat": group_qat}
+              "serve": group_serve, "mae": group_mae, "distill": group_distill, "qat": group_qat,
+              "data": group_data}
     for name in PHASES:
         if name in only:
             t0 = time.perf_counter()

@@ -2624,3 +2624,65 @@ def _mae_kernel_case(dev, dtype, kernel, b, t, d, h, f):
 def test_training_kernels_at_mae_shapes(dev, dtype, case, kernel):
     fn, plain, args, backward = _mae_kernel_case(dev, dtype, kernel, *MAE_SHAPES[case])
     (_check_all if backward else _check)(fn(*args), plain(*args))
+
+
+# -- the input prefetch's stream discipline (runtime/prefetch.py) -------------------
+
+
+@pytest.mark.cuda
+def test_prefetch_consumer_waits_and_keeps_what_it_reads(dev):
+    """A consumer whose stream lags far behind the side stream's copies
+    still reads every batch whole: its stream waits on each batch's event,
+    and ``record_stream`` keeps the caching allocator from handing a freed
+    batch's memory to a later copy before the consumer's reads of it run."""
+    from vit_tpu_torch.runtime.prefetch import prefetch_to_device
+
+    n, shape = 10, (16, 3, 224, 224)
+    items = [(np.full(shape, i, np.float32), np.full(16, i, np.int32)) for i in range(n)]
+    sums = []
+    for x, y in prefetch_to_device(iter(items), size=2, device=dev):
+        assert x.device == dev and y.device == dev and y.dtype == torch.int32
+        torch.cuda._sleep(20_000_000)  # the consumer's stream lags the copies
+        sums.append((x.double().sum(), y.sum()))
+        del x, y  # freed while the reads above are still queued
+    torch.cuda.synchronize(dev)
+    per = float(np.prod(shape))
+    assert [(float(a), int(b)) for a, b in sums] == [(i * per, 16 * i) for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_prefetch_refills_a_pinned_buffer_only_after_its_copy(dev):
+    """One pinned buffer, its first copy queued behind a busy side stream:
+    staging the next batch into it waits for that copy, so the first batch
+    arrives with its own values."""
+    from vit_tpu_torch.runtime.prefetch import _PinnedSlots
+
+    slots, stream = _PinnedSlots(1), torch.cuda.Stream(dev)
+    out = []
+    for value in (1.0, 2.0):
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(50_000_000)
+        copies = []
+        out.append(slots.stage(torch.full((1 << 22,), value), dev, stream, copies))
+        event = torch.cuda.Event()
+        event.record(stream)
+        slots.done(copies, event)
+    torch.cuda.synchronize(dev)
+    assert bool((out[0] == 1.0).all()) and bool((out[1] == 2.0).all())
+
+
+@pytest.mark.cuda
+def test_prefetch_producer_runs_on_the_consumers_device(dev):
+    """Threads do not inherit the current device: the producer sets it."""
+    from vit_tpu_torch.runtime.prefetch import prefetch_to_device
+
+    for index in range(torch.cuda.device_count()):
+        target, seen = torch.device("cuda", index), []
+
+        def items():  # drawn in the producer thread
+            for _ in range(2):
+                seen.append(torch.cuda.current_device())
+                yield np.ones(4, np.float32)
+
+        got = list(prefetch_to_device(items(), device=target))
+        assert seen == [index, index] and [x.device for x in got] == [target, target]

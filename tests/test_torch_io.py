@@ -279,7 +279,9 @@ def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     --ops quant, with --ops per_op --profile, with --attn-rollout and with
     --tome on fused and quant, and under torch.distributed.run on 2 ranks
     with --tp 2 (fused and quant); the serve CLI's --selftest, saturated and
-    paced: no vit_tpu or jax module gets loaded."""
+    paced; the train CLI's --data-dir with --eval-data-dir and its
+    --image-dir; the eval CLI on shards (fused, quant) and on an image folder
+    with --tome: no vit_tpu or jax module gets loaded."""
     from vit_tpu.io import weights as jweights
     from vit_tpu.io.torch_convert import save_pth
 
@@ -335,6 +337,30 @@ from vit_tpu_torch.cli import serve
 for extra in ([], ["--selftest-rate", "200"]):
     assert serve.main([*run, "--weights", d + "/p.npz", "--selftest", "4", "--max-batch", "4",
                        "--batch-pad", "4", *extra]) == 0
+import os
+import numpy as np
+from PIL import Image
+from vit_tpu_torch.cli import eval as evaluate
+from vit_tpu_torch.io.images import synth_images
+os.makedirs(d + "/shards")
+x = synth_images(6, cfg, seed=3)
+with open(d + "/shards/s.bin", "wb") as fh:
+    np.array(x.shape, "<i4").tofile(fh)
+    x.astype("<f4").tofile(fh)
+(np.arange(6) % 11).astype("<i4").tofile(d + "/shards/s.labels.bin")
+for c in ("a", "b"):
+    os.makedirs(d + "/classes/" + c)
+    for j in range(2):
+        Image.new("RGB", (40, 36 + j), (60 * j, 90, 30)).save(d + "/classes/" + c + "/%d.png" % j)
+assert train.main([*run, "--steps", "2", "--batch", "2", "--ops", "fused_train",
+                   "--data-dir", d + "/shards", "--eval-data-dir", d + "/shards",
+                   "--eval-every", "1"]) == 0
+assert train.main([*run, "--steps", "1", "--batch", "2", "--image-dir", d + "/classes"]) == 0
+for ops in ("fused", "quant"):
+    assert evaluate.main([*run, "--weights", d + "/p.npz", "--data-dir", d + "/shards",
+                          "--ops", ops, "--batch", "4"]) == 0
+assert evaluate.main([*run, "--weights", d + "/p.npz", "--image-dir", d + "/classes",
+                      "--tome", "1", "--ops", "fused"]) == 0
 tome = config.ViTConfig(image_size=64, patch_size=8, embed_dim=64, depth=2, num_heads=4,
                         num_classes=11, name="vit_tome_test")  # 65 tokens: merges happen
 config.CONFIGS[tome.name] = tome

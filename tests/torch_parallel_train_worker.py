@@ -8,8 +8,9 @@ Reads the params, images and labels of every case from ``IN.npz`` (made
 with numpy and the JAX package's initializers by the test, which hands the
 same arrays to the JAX package), runs the port's tensor- and
 data-parallel train steps and the train CLI on the CPU, and writes every
-result to ``OUT.<rank>.npz``.  With ``--cli ARGS...`` it is one rank of
-the train CLI on the tiny test configs instead (the 4-rank run).
+result to ``OUT.<rank>.npz``.  With ``--cli ARGS... [--and ARGS...]`` it
+is one rank of the train CLI on the tiny test configs instead, one run
+after another (the 4-rank run, the data runs).
 Imports nothing of JAX.
 """
 
@@ -214,11 +215,20 @@ def main(inp: str, out: str) -> None:
 
 
 def cli(argv) -> int:
-    """One rank of the train CLI with the tiny test configs registered."""
+    """One rank of the train CLI with the tiny test configs registered;
+    ``--and`` separates runs made in turn (-> the worst exit code)."""
     from vit_tpu_torch.cli.train import main as train_main
 
     config.CONFIGS[TINY.name] = TINY
-    return train_main(argv)
+    runs, rc = [[]], 0
+    for arg in argv:
+        if arg == "--and":
+            runs.append([])
+        else:
+            runs[-1].append(arg)
+    for run in runs:
+        rc = max(rc, train_main(run))
+    return rc
 
 
 if __name__ == "__main__":

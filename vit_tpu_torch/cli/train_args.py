@@ -3,8 +3,8 @@
 The flags of ``vit_tpu.cli.train_args`` that the PyTorch port runs, with
 ``--tp``/``--dp`` under ``torchrun`` (one process per rank) and
 ``--dist-backend`` in place of the coordinator flags; the ZeRO-1, FSDP,
-pipeline, sequence-parallel, multihost, augmentation, EMA, resume and
-streaming-data flags wait for their slices of the port (ROADMAP.md).
+pipeline, sequence-parallel, multihost, augmentation, EMA and resume flags
+wait for their slices of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,6 +33,25 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--input", help="input-100.bin-format images (else synthetic)")
     p.add_argument("--labels", help="raw int32 label file matching --input")
+    p.add_argument(
+        "--data-dir", metavar="DIR",
+        help="stream shuffled minibatches from a directory of "
+        "input-100.bin-format shards, each with a <stem>.labels.bin int32 "
+        "file (io/dataset.py: native threaded gather reads + a side-stream "
+        "host->device prefetch); overrides --input/--labels",
+    )
+    p.add_argument(
+        "--image-dir", metavar="DIR",
+        help="train from an ImageNet-style folder-per-class tree of raw "
+        "image files (root/<class>/*.jpg, classes = sorted subdir names); "
+        "decoded full-frame to the model resolution (the train-mode "
+        "transform) and streamed through the same prefetch as --data-dir",
+    )
+    p.add_argument(
+        "--data-threads", type=int, default=8,
+        help="reader threads for the native gather loader (--data-dir) or "
+        "the image decoder pool (--image-dir)",
+    )
     p.add_argument(
         "--init-weights",
         help="warm-start from a Weight_*.bin dir, .npz or .pth (Orbax "
@@ -171,6 +190,21 @@ def build_parser() -> argparse.ArgumentParser:
         "--tome-chunk", type=int, default=None, metavar="N",
         help="override the ToMe merge-schedule bucketing for training "
         "(default models/tome.TRAIN_MERGE_CHUNK = 2)",
+    )
+    p.add_argument(
+        "--eval-data-dir", metavar="DIR",
+        help="held-out labeled .bin shards (same format as --data-dir) "
+        "evaluated every --eval-every steps: top-1 on --eval-batches "
+        "batches with the current params, through the fp32 eager forward "
+        "(TF32 off)",
+    )
+    p.add_argument(
+        "--eval-every", type=int, default=0, metavar="N",
+        help="with --eval-data-dir: evaluate every N steps (and at the end)",
+    )
+    p.add_argument(
+        "--eval-batches", type=int, default=4,
+        help="batches of --batch images per held-out evaluation",
     )
     p.add_argument(
         "--log-jsonl", metavar="PATH",

@@ -10,10 +10,11 @@ What the JAX package runs through GSPMD tensor parallelism (``--tp`` on
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import sys
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -43,12 +44,18 @@ class TrainSetup:
     # step -> lr for the loop to set, None when constant or when the
     # optimizer evaluates its own schedule (FusedAdamW)
     lr_at: Optional[Callable[[int], float]]
-    images: np.ndarray
-    labels: np.ndarray
-    n_static: int  # len(images) after ragged-batch truncation
+    images: Optional[np.ndarray]  # static data (None when streaming)
+    labels: Optional[np.ndarray]
+    n_static: int  # len(images) after ragged-batch truncation (0 when streaming)
+    # --data-dir/--image-dir: the prefetched (images, labels) of this
+    # rank's rows of each global batch, on the device (else None)
+    stream: Optional[Iterator] = None
+    # --eval-data-dir: params -> held-out top-1 (else None)
+    run_eval: Optional[Callable] = None
     # this rank's place under --tp/--dp (None: one device); the params are
     # its shard, and each step takes its dp slice of the global batch
     mesh: Optional[Mesh] = None
+    start_step: int = 0  # the first step's number (0: resume is a later slice)
 
 
 _DECAY_KEYS = {"kernel", "wqkv", "wo", "w1", "w2"}
@@ -121,6 +128,97 @@ def _load_data(args, cfg):
     return images, labels
 
 
+def _build_data(args, cfg, mesh: Optional[Mesh], device, start_step: int):
+    """--data-dir/--image-dir -> a prefetch stream of this rank's rows of
+    each global batch, on ``device``: the batches a one-device run with the
+    same seed draws (``EpochStream.batch_indices`` from ``start_step`` on),
+    each rank reading only its dp rows (tp ranks the same rows).  None
+    without either flag."""
+    if not (args.data_dir or args.image_dir):
+        return None
+    from vit_tpu_torch.io import native
+    from vit_tpu_torch.io.dataset import BinShardDataset, ImageFolderDataset
+    from vit_tpu_torch.runtime.prefetch import prefetch_to_device
+
+    if args.data_dir:
+        ds = BinShardDataset(args.data_dir, require_labels=True, threads=args.data_threads,
+                             num_classes=cfg.num_classes)
+        data_desc = (f"{len(ds)} images in {len(ds.paths)} shard(s), "
+                     f"{'native' if native.gather_available() else 'numpy'} reader")
+    else:
+        # mode='train': the full frame, no center crop
+        ds = ImageFolderDataset(args.image_dir, cfg.image_size, threads=args.data_threads,
+                                mode="train")
+        if len(ds.class_names) > cfg.num_classes:
+            raise SetupError(f"error: {len(ds.class_names)} class folders > "
+                             f"{cfg.num_classes} model classes ({cfg.name})")
+        data_desc = f"{len(ds)} raw images in {len(ds.class_names)} class folders, PIL decoder"
+    if len(ds) < args.batch:
+        raise SetupError(f"error: {len(ds)} image(s) < --batch {args.batch}; "
+                         "reduce --batch or provide more data")
+    print(f"data: {data_desc}, {args.data_threads} threads")
+    local = args.batch // (mesh.size("dp") if mesh is not None else 1)
+    lo = mesh.index("dp") * local if mesh is not None else 0
+    labels = ds.labels()
+
+    def rows():
+        for take in ds.batch_indices(args.batch, shuffle=True, seed=args.seed,
+                                     skip_batches=start_step):
+            mine = take[lo : lo + local]
+            yield ds.read(mine), labels[mine]
+
+    return prefetch_to_device(rows(), size=2, device=device)
+
+
+@contextlib.contextmanager
+def _fp32_matmuls():
+    """fp32 matmuls in full fp32 on the card (TF32 off), restored after."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def _build_eval(args, cfg, mesh: Optional[Mesh], device):
+    """--eval-data-dir -> ``run_eval(params) -> top-1``: the first n_eval
+    images of the held-out shards (whole batches, at most --eval-batches),
+    scored by the fp32 eager forward with TF32 off, as the JAX package
+    scores them with its fp32 ``xla``-tier forward.  Under --tp every rank
+    gathers the whole tree first (a collective: every rank evaluates)."""
+    if not args.eval_every:
+        raise SetupError("error: --eval-data-dir requires --eval-every N")
+    from vit_tpu_torch.io.dataset import BinShardDataset
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.parallel.sharding import unshard_params
+
+    eval_ds = BinShardDataset(args.eval_data_dir, require_labels=True,
+                              num_classes=cfg.num_classes)
+    n_eval = min(len(eval_ds), args.eval_batches * args.batch)
+    n_eval -= n_eval % args.batch
+    if n_eval == 0:
+        raise SetupError(f"error: {len(eval_ds)} eval image(s) < --batch {args.batch}")
+    eval_x = eval_ds.read(range(n_eval))
+    eval_y = eval_ds.labels()[:n_eval]
+    eager = get_ops("eager")
+
+    def run_eval(params) -> float:
+        if mesh is not None and mesh.size("tp") > 1:
+            params = unshard_params(params, mesh)
+        correct = 0
+        with torch.no_grad(), _fp32_matmuls():
+            for i in range(0, n_eval, args.batch):
+                x = torch.from_numpy(eval_x[i : i + args.batch]).to(device)
+                logits = vit.forward(params, x, cfg, eager).cpu().numpy()
+                correct += int((logits.argmax(-1) == eval_y[i : i + args.batch]).sum())
+        return correct / n_eval
+
+    print(f"eval: {n_eval} held-out images every {args.eval_every} steps")
+    return run_eval
+
+
 def _tome_forward(args, cfg, ops_name: str, tp: int = 1):
     """--tome/--tome-chunk -> the merged-token forward ``(params, images,
     dropout_rng) -> logits`` for the trainer, or None without --tome."""
@@ -176,13 +274,14 @@ def _mae_config(args, cfg, ops_name: str, tp: int = 1):
     from vit_tpu_torch.models import mae
 
     if (args.distill_teacher or args.label_smoothing or args.dropout or args.drop_path
-            or args.grad_accum > 1 or args.num_classes or args.init_weights
-            or args.optimizer == "fused_adamw"):
+            or args.grad_accum > 1 or args.num_classes or args.eval_data_dir
+            or args.init_weights or args.optimizer == "fused_adamw"):
         raise SetupError(
             "error: --mae is self-supervised pretraining — it excludes the label-dependent "
             "and layout-specific flags (--distill-teacher/--label-smoothing/--dropout/"
-            "--drop-path/--grad-accum/--num-classes/--init-weights/--optimizer "
-            "fused_adamw); use --save-backbone + --init-weights for downstream fine-tuning"
+            "--drop-path/--grad-accum/--num-classes/--eval-data-dir/--init-weights/"
+            "--optimizer fused_adamw); use --save-backbone + --init-weights for downstream "
+            "fine-tuning"
         )
     if ops_name not in ("eager", "fused_train"):
         raise SetupError(f"error: --mae supports --ops eager or fused_train (got {ops_name})")
@@ -466,14 +565,23 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
             forward_fn=tome_forward,
         )
 
-    images, labels = _load_data(args, cfg)
-    if len(images) < args.batch:
-        raise SetupError(
-            f"error: {len(images)} image(s) < --batch {args.batch}; reduce --batch"
-        )
-    n_static = (len(images) // args.batch) * args.batch  # drop the ragged tail
+    start_step = 0
+    stream = _build_data(args, cfg, mesh, device, start_step)
+    images = labels = None
+    n_static = 0
+    if stream is None:
+        images, labels = _load_data(args, cfg)
+        if len(images) < args.batch:
+            raise SetupError(
+                f"error: {len(images)} image(s) < --batch {args.batch}; reduce --batch"
+            )
+        n_static = (len(images) // args.batch) * args.batch  # drop the ragged tail
+        images, labels = images[:n_static], labels[:n_static]
+    # the stream's producer starts at the loop's first batch: nothing to
+    # stop if this raises
+    run_eval = _build_eval(args, cfg, mesh, device) if args.eval_data_dir else None
     return TrainSetup(
         cfg=cfg, device=device, ops_name=ops_name, step=step, params=params,
-        optimizer=optimizer, lr_at=lr_at, images=images[:n_static],
-        labels=labels[:n_static], n_static=n_static, mesh=mesh,
+        optimizer=optimizer, lr_at=lr_at, stream=stream, images=images, labels=labels,
+        n_static=n_static, run_eval=run_eval, mesh=mesh, start_step=start_step,
     )

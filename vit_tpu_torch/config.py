@@ -58,6 +58,17 @@ class ViTConfig:
     def patch_dim(self) -> int:
         return self.in_channels * self.patch_size * self.patch_size
 
+    def flops_per_image(self) -> int:
+        """Forward-pass matmul FLOPs (2*MACs) for one image — roofline input."""
+        t, d, h = self.seq_len, self.embed_dim, self.mlp_dim
+        conv = 2 * self.num_patches * self.patch_dim * d
+        qkv = 2 * t * d * 3 * d
+        attn = 2 * 2 * t * t * d  # QK^T and S@V, summed over heads
+        out_proj = 2 * t * d * d
+        mlp = 2 * 2 * t * d * h
+        head = 2 * d * self.num_classes
+        return conv + self.depth * (qkv + attn + out_proj + mlp) + head
+
     def with_image_size(self, image_size: int) -> "ViTConfig":
         if image_size % self.patch_size != 0:
             raise ValueError(
