@@ -307,10 +307,32 @@ Phases (a failed phase raises; nothing is caught):
      ``roofline`` and ``forward_timing`` of the batch-100 ``fused`` forward
      and ``train_step_timing`` of the batch-64 step.
 
+ 47. the training loop's state and recipe: the train CLI (B/16 batch 64
+     ``fused_train``, bf16 mixed, ``--optimizer fused_adamw``) on 256 B/16
+     images in 3 shards with ``--augment crop,flip,mixup,cutmix --ema-decay
+     0.999 --eval-data-dir``: 4 steps straight with ``--save-state
+     --save-every 2``, then the same run sent SIGTERM in its second step
+     (checkpointed at step 2, rc 0) and resumed for 2 steps, the two final
+     archives and EMA sidecars equal leaf for leaf, bit for bit, where two
+     planted resumes (draws restarted at step 0; no EMA sidecar) are not
+     (12 each of K1, K4-K7
+     and 1 K20 per step, counts set to 0 just before each run and read just
+     after); ``--freeze-backbone --grad-clip 1`` (the backbone the init bit
+     for bit, 12 each of K1, K4-K7 per step), ``--skip-nonfinite`` on a
+     static batch pair whose second holds NaNs (steps 1 and 3 skipped, the
+     archive's counters (1, False, 2) and adam count 2); two ranks over
+     gloo (``--rank-recipe-worker``): a tp 2 save and a tp 2 resume of the
+     one-card archive at depth 2, fp32, both against the one-card runs'
+     archives (params and EMA by the L2 norm of the difference against
+     that of the move, moments by their largest difference), bounds that a
+     planted one-card step on another batch breaks; the recipe step's wall and device time beside the plain
+     step's, the augmentation's and the EMA's device time, and the time to
+     write a B/16 train state.
+
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
 regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
 per_op 31-33, adamw 34-35, parallel 36-38 and 45, serve 39-41, mae 42,
-distill 43, qat 44, data 46); without it every phase runs.
+distill 43, qat 44, data 46, recipe 47); without it every phase runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -1455,12 +1477,14 @@ def _expect_counts_of(launches: dict, want: dict, what: str) -> dict:
     return launches
 
 
-def _train_cli(workdir: str, extra, steps: int = TRAIN_STEPS, records=None) -> tuple:
+def _train_cli(workdir: str, extra, steps: int = TRAIN_STEPS, records=None, logged=None,
+               finite: bool = True) -> tuple:
     """The train CLI on the card (B/16, ``steps`` steps, batch 64,
     fused_train, bf16 mixed) with ``extra`` flags (a later flag overrides
     an earlier one); every count set to 0 just before and read just after.
     -> (launch counts, losses); ``records`` (a list) gets every record of
-    its ``--log-jsonl``."""
+    its ``--log-jsonl``.  It must log ``logged`` losses (default
+    ``steps``), all finite unless ``finite`` is False."""
     from vit_tpu_torch.cli.train import main
 
     fd, log_path = tempfile.mkstemp(prefix="train", suffix=".jsonl", dir=workdir)
@@ -1480,12 +1504,13 @@ def _train_cli(workdir: str, extra, steps: int = TRAIN_STEPS, records=None) -> t
     if rc != 0:
         raise RuntimeError(f"train CLI {extra} exited {rc}")
     with open(log_path) as fh:
-        logged = [json.loads(line) for line in fh]
+        logged_records = [json.loads(line) for line in fh]
     if records is not None:
-        records.extend(logged)
-    losses = [r["loss"] for r in logged if "loss" in r]
-    if len(losses) != steps or not np.isfinite(losses).all():
-        raise RuntimeError(f"train CLI {extra} logged {losses}, expected {steps} finite losses")
+        records.extend(logged_records)
+    losses = [r["loss"] for r in logged_records if "loss" in r]
+    want = steps if logged is None else logged
+    if len(losses) != want or (finite and not np.isfinite(losses).all()):
+        raise RuntimeError(f"train CLI {extra} logged {losses}, expected {want} finite losses")
     return launches, losses
 
 
@@ -3349,9 +3374,6 @@ def phase_parallel_train(dev: torch.device, card: str, workdir: str) -> dict:
     the tp step @512 batch 2 (12 K13, K14, K5 partial, K8 residual=False);
     the time per step of two ranks sharing one card.  -> (summary of K8
     residual=False, launch counts of rank 0 by path)."""
-    import signal
-    import sys
-
     from vit_tpu_torch.config import VIT_B_16
     from vit_tpu_torch.models import vit
 
@@ -3361,23 +3383,7 @@ def phase_parallel_train(dev: torch.device, card: str, workdir: str) -> dict:
     torch.cuda.empty_cache()
 
     _teacher_npz(workdir)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(RANKS), os.path.abspath(__file__), "--rank-train-worker", workdir]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True, env=dict(os.environ, OMP_NUM_THREADS="4"))
-    try:
-        out, _ = proc.communicate(timeout=TRAIN_RANKS_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)  # torchrun and every rank it started
-        proc.communicate()
-        raise RuntimeError(f"{RANKS} training ranks did not finish in {TRAIN_RANKS_TIMEOUT} s: "
-                           "a rank hung")
-    lines = [ln for ln in out.splitlines() if "socket.cpp" not in ln]
-    log("\n".join(f"train ranks: {ln}" for ln in (lines if proc.returncode else lines[-8:])))
-    if proc.returncode != 0:
-        raise RuntimeError(f"torchrun with {RANKS} training ranks exited {proc.returncode}")
-    log(f"{RANKS} training ranks over gloo on one card: {time.perf_counter() - t0:.3f} s")
+    _run_ranks("--rank-train-worker", workdir, TRAIN_RANKS_TIMEOUT, "training ranks")
     reports = [json.load(open(f"{workdir}/train_rank{r}.json")) for r in range(RANKS)]
 
     for r, rep in enumerate(reports):
@@ -3424,6 +3430,30 @@ def phase_parallel_train(dev: torch.device, card: str, workdir: str) -> dict:
     launches = {path: reports[0]["runs"][path]["launches"]
                 for path in (*TRAIN_RANK_RUNS, "train_tp_long")}
     return summary, launches
+
+
+def _run_ranks(mode: str, workdir: str, timeout: int, what: str) -> None:
+    """``torchrun`` of RANKS ranks of this script in ``mode`` (sharing the
+    card over gloo), killed with its process group after ``timeout`` s."""
+    import signal
+    import sys
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(RANKS), os.path.abspath(__file__), mode, workdir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True, env=dict(os.environ, OMP_NUM_THREADS="4"))
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)  # torchrun and every rank it started
+        proc.communicate()
+        raise RuntimeError(f"{RANKS} {what} did not finish in {timeout} s: a rank hung")
+    lines = [ln for ln in out.splitlines() if "socket.cpp" not in ln]
+    log("\n".join(f"{what}: {ln}" for ln in (lines if proc.returncode else lines[-8:])))
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun with {RANKS} {what} exited {proc.returncode}")
+    log(f"{RANKS} {what} over gloo on one card: {time.perf_counter() - t0:.3f} s")
 
 
 def _per_step(launches: dict, steps: int) -> dict:
@@ -4428,8 +4458,477 @@ def group_data(dev, card, summary, launches) -> None:
     phase_oracle_and_timing(params, dev, card)
 
 
+# -- the training loop's state and recipe (phase 47) --------------------------------
+
+RECIPE_STEPS = 4  # the straight run's steps; the preempted run stops at 2
+RECIPE_EMA_DECAY = 0.999
+RECIPE_FLAGS = ["--optimizer", "fused_adamw", "--lr", str(TRAIN_LR), "--augment",
+                "crop,flip,mixup,cutmix", "--ema-decay", str(RECIPE_EMA_DECAY), "--eval-every", "2",
+                "--eval-batches", "1", "--data-threads", "8"]
+RECIPE_STEP = {"ln_qkv_attn": 12, **{name: 12 for name in TRAIN_KERNELS}, "adamw_update": 1}
+RECIPE_TP_DEPTH = 2  # the tp 2 save and resume's depth (B/16 widths)
+RECIPE_TP_CONFIG = "vit_b_16_depth2"
+RECIPE_TP_FLAGS = ["--config", RECIPE_TP_CONFIG, "--batch", str(TP_TRAIN_BATCH), "--ops",
+                   "fused_train", "--lr", str(TRAIN_LR), "--ema-decay", str(RECIPE_EMA_DECAY),
+                   "--seed", "3"]
+RECIPE_RANKS_TIMEOUT = 240  # s: a rank that hangs fails phase 47
+# The tp 2 archives against the one-card ones (fp32, TF32 off: their
+# gradients differ by the order of the tp sums alone).  Adam moves a param
+# by about lr a step whatever its gradient's size (the first step by
+# lr * sign(g)), so the few elements of a weight whose gradient is as small
+# as its rounding move +-lr by a coin: a param or EMA leaf is held by the L2
+# norm of its difference, within RECIPE_TP_TOL of the L2 norm of its move
+# from the run's start.  The key bias's gradient is zero in exact
+# arithmetic (softmax is blind to a constant added to every key), so it is
+# rounding alone and its sign is a coin: its columns are held to the Adam
+# bound, lr a step (in the EMA, 1 - decay of the params' gap summed over
+# the steps: at most (1 - decay) steps^2 lr).  Moments within
+# RECIPE_MOMENT_TOL of each leaf's largest magnitude.  One step on another
+# batch must break the params', the moments' and the EMA's bounds: a
+# planted run shows it.
+RECIPE_TP_TOL = 1e-2
+RECIPE_MOMENT_TOL = 1e-3
+
+
+def _register_tp_config() -> None:
+    from vit_tpu_torch.config import CONFIGS, VIT_B_16
+
+    CONFIGS[RECIPE_TP_CONFIG] = dataclasses.replace(VIT_B_16, depth=RECIPE_TP_DEPTH,
+                                                    name=RECIPE_TP_CONFIG)
+
+
+@contextlib.contextmanager
+def _patched_steps(sigterm_in: int = -1, shift: int = 0):
+    """The train CLI's steps send this process SIGTERM in step
+    ``sigterm_in`` (the loop's handler finishes the step, checkpoints and
+    exits), and draw their randomness as step ``step - shift`` (``shift``
+    > 0 plants a resume whose draws restart at step 0)."""
+    import signal
+
+    from vit_tpu_torch.runtime import trainer
+
+    orig = trainer.make_train_step_dp
+
+    def make(*args, **kwargs):
+        inner = orig(*args, **kwargs)
+
+        def step(params, x, y, step=None):
+            if step == sigterm_in:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return inner(params, x, y, step=step - shift)
+
+        return step
+
+    with unittest.mock.patch.object(trainer, "make_train_step_dp", make):
+        yield
+
+
+def _archive(path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _differing_leaves(got: dict, want: dict) -> list:
+    """The keys of two archives (train states or params trees) whose leaves
+    are not bit for bit equal: the key, dtype, shape and every value."""
+    if sorted(got) != sorted(want):
+        return sorted(set(got) ^ set(want))
+    return [k for k, w in want.items()
+            if got[k].dtype != w.dtype or not np.array_equal(got[k], w)]
+
+
+def _expect_identical(got: dict, want: dict, what: str) -> None:
+    differ = _differing_leaves(got, want)
+    if differ:
+        raise RuntimeError(f"{what}: {len(differ)} of {len(want)} leaves not bit for bit "
+                           f"equal: {differ[:6]}")
+
+
+def _key_bias_columns(cfg) -> np.ndarray:
+    """bqkv's key columns in the packed (head, {q,k,v}, head_dim) order."""
+    dh = cfg.embed_dim // cfg.num_heads
+    return np.concatenate([np.arange(h * 3 * dh + dh, h * 3 * dh + 2 * dh)
+                           for h in range(cfg.num_heads)])
+
+
+def _tp_mismatches(got: dict, want: dict, start: dict, cfg, steps: int) -> tuple:
+    """A tp archive ``got`` (a train state or an EMA tree) against the
+    one-card ``want`` of the same step, both run on from ``start`` (its
+    archive of the same kind) for ``steps`` steps, under the bounds above
+    (a moment's and the key bias's on the largest difference, a param's and
+    an EMA leaf's on the L2 norm).
+    -> (the leaves out of bounds, {class: (worst ratio to its bound, key)})."""
+    if sorted(got) != sorted(want):
+        return [f"keys {sorted(set(got) ^ set(want))}"], {}
+    state = "__step__" in want
+    cols = _key_bias_columns(cfg)
+    bad, worst = [], {}
+
+    def hold(key, cls, g, w, bound, norm=False):
+        diff = g.astype(np.float64) - w
+        d = float(np.linalg.norm(diff) if norm else np.abs(diff).max()) if g.size else 0.0
+        ratio = d / bound if bound > 0 else (0.0 if d == 0 else math.inf)
+        if ratio > worst.get(cls, (-1.0,))[0]:
+            worst[cls] = (ratio, key)
+        if not ratio <= 1.0:
+            bad.append(f"{key} ({cls}) {d:.6g} > {bound:.6g}")
+
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            bad.append(f"{k} {g.dtype}{g.shape} != {w.dtype}{w.shape}")
+        elif w.dtype.kind in "bi":
+            if not np.array_equal(g, w):
+                bad.append(f"{k} {g} != {w}")
+        elif k.startswith("opt."):  # a moment (the key bias's: rounding, far inside)
+            hold(k, "moments", g, w, RECIPE_MOMENT_TOL * float(np.abs(w).max()))
+        else:
+            cls = "params" if state else "ema"
+            s = start[k]
+            if k.endswith("blocks/bqkv"):
+                adam = steps * TRAIN_LR if state else (1 - RECIPE_EMA_DECAY) * steps ** 2 * TRAIN_LR
+                hold(k, f"{cls} key bias", g[:, cols], w[:, cols],
+                     adam + 2 * float(np.spacing(np.abs(w[:, cols]).max())))
+                g, w, s = (np.delete(a, cols, axis=1) for a in (g, w, s))
+            hold(k, cls, g, w, RECIPE_TP_TOL * float(np.linalg.norm(w.astype(np.float64) - s)),
+                 norm=True)
+    return bad, worst
+
+
+def _worst_text(worst: dict) -> str:
+    return ", ".join(f"{cls} {r:.3g} ({k})" for cls, (r, k) in sorted(worst.items()))
+
+
+def phase_recipe_resume(workdir: str, card: str) -> dict:
+    """Phase 47 (resume): the recipe's train CLI 4 steps straight with
+    ``--save-state --save-every 2``; the same run sent SIGTERM in its
+    second step (rc 0, checkpointed at step 2); that archive resumed for 2
+    steps; the straight and resumed archives and EMA sidecars equal leaf
+    for leaf, bit for bit.  Two planted faults must break that equality: a
+    resume whose draws restart at step 0, and a resume without the EMA
+    sidecar.  -> launch counts by path."""
+    import shutil
+
+    from vit_tpu_torch.cli.train_loop import ema_sidecar
+    from vit_tpu_torch.io import checkpoint
+
+    base = [*RECIPE_FLAGS, "--data-dir", workdir, "--eval-data-dir", workdir]
+    straight, first, resumed = (f"{workdir}/{n}.npz" for n in ("straight", "first", "resumed"))
+    records: list = []
+    out = {}
+    out["train_recipe"], losses = _train_cli(
+        workdir, [*base, "--save-state", straight, "--save-every", "2"], RECIPE_STEPS, records)
+    _expect_counts_of(out["train_recipe"], {k: n * RECIPE_STEPS for k, n in RECIPE_STEP.items()},
+                      f"train cli recipe ({RECIPE_STEPS} steps)")
+    evals = [r for r in records if "eval_top1" in r]
+    if [r["step"] for r in evals] != [1, 3]:
+        raise RuntimeError(f"train cli recipe: eval records {evals}")
+    with _patched_steps(sigterm_in=1):
+        preempted, first_losses = _train_cli(workdir, [*base, "--save-state", first],
+                                             RECIPE_STEPS, logged=2)
+    _expect_counts_of(preempted, {k: n * 2 for k, n in RECIPE_STEP.items()},
+                      "train cli recipe, SIGTERM in step 2")
+    if checkpoint.peek_step(first) != 2:
+        raise RuntimeError(f"SIGTERM: the archive is at step {checkpoint.peek_step(first)}, not 2")
+    out["train_recipe_resumed"], resumed_losses = _train_cli(
+        workdir, [*base, "--resume", first, "--save-state", resumed], 2)
+    _expect_counts_of(out["train_recipe_resumed"], {k: n * 2 for k, n in RECIPE_STEP.items()},
+                      "train cli recipe resumed (2 steps)")
+    want, want_ema = _archive(straight), _archive(ema_sidecar(straight))
+    _expect_identical(_archive(resumed), want, "resumed vs straight")
+    _expect_identical(_archive(ema_sidecar(resumed)), want_ema, "resumed EMA vs straight EMA")
+    # the planted faults: each must make the check fail
+    redrawn, bare, bare_out = (f"{workdir}/{n}.npz" for n in ("redrawn", "bare", "bare_out"))
+    with _patched_steps(shift=2):
+        _train_cli(workdir, [*base, "--resume", first, "--save-state", redrawn], 2)
+    shutil.copy(first, bare)  # the archive without its EMA sidecar
+    _train_cli(workdir, [*base, "--resume", bare, "--save-state", bare_out], 2)
+    planted = {
+        "draws restarted at step 0": _differing_leaves(_archive(redrawn), want),
+        "EMA sidecar dropped (its EMA)": _differing_leaves(_archive(ema_sidecar(bare_out)),
+                                                           want_ema),
+    }
+    caught = {name: len(d) for name, d in planted.items()}
+    if not all(caught.values()):
+        raise RuntimeError(f"the resume check cannot see a planted fault: leaves differing "
+                           f"{caught}")
+    log(f"recipe resume (B/16 b64 bf16 fused_train fused_adamw, augment crop,flip,mixup,cutmix, "
+        f"EMA 0.999, --data-dir): straight losses {losses}, step ms (the first includes its "
+        f"warm-up) {[r['ms'] for r in records if 'ms' in r]}; SIGTERM in step 2 -> checkpointed "
+        f"at step 2, rc 0; resumed {resumed_losses}; step-4 archive resumed vs straight: every "
+        f"one of {len(want)} leaves bit for bit, EMA sidecar every one of {len(want_ema)}; "
+        f"planted faults caught (leaves that differ): {caught}; eval top-1 (ema) "
+        f"{[r['eval_top1'] for r in evals]}; {card}")
+    return out
+
+
+def phase_recipe_variants(workdir: str, card: str) -> dict:
+    """Phase 47 (freeze and skip): ``--freeze-backbone --grad-clip 1`` for 2
+    steps (every backbone leaf the init bit for bit, the head moved);
+    ``--skip-nonfinite`` over a static pair of batches whose second holds a
+    NaN in every image (steps 1 and 3 skipped: the archive's counters (1,
+    False, 2) and adam count 2, every param finite).  -> launch counts."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io import checkpoint
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.io.load_any import load_params_any
+    from vit_tpu_torch.utils import flatten_tree
+
+    out = {}
+    init, saved = f"{workdir}/init.npz", f"{workdir}/frozen.npz"
+    checkpoint.save_npz(synth_params(VIT_B_16, 0), init)
+    out["train_recipe_freeze"], losses = _train_cli(
+        workdir, ["--init-weights", init, "--freeze-backbone", "--grad-clip", "1.0", "--lr",
+                  str(TRAIN_LR), "--save", saved], 2)
+    _expect_counts_of(out["train_recipe_freeze"],
+                      {k: 24 for k in ("ln_qkv_attn", *TRAIN_KERNELS)}, "train cli freeze")
+    want = flatten_tree(load_params_any(init, VIT_B_16, round_to_6dp=True))
+    got = flatten_tree(checkpoint.load_npz(saved))
+    moved = [k for k in want if not np.array_equal(got[k], want[k])]
+    if sorted(moved) != ["head/bias", "head/kernel"]:
+        raise RuntimeError(f"--freeze-backbone: leaves that moved {moved}, expected the head's")
+    log(f"train cli --freeze-backbone --grad-clip 1 (B/16 b64 bf16, AdamW {TRAIN_LR}): losses "
+        f"{losses}; {len(want) - 2} backbone leaves the init bit for bit, the head's 2 moved; "
+        f"{card}")
+
+    x = synth_images(128, VIT_B_16, seed=9)
+    x[64:, 0, 0, 0] = np.nan  # the second batch: a NaN in every image
+    y = (np.arange(128) * 7 % VIT_B_16.num_classes).astype("<i4")
+    with open(f"{workdir}/nan.bin", "wb") as fh:
+        np.array(x.shape, "<i4").tofile(fh)
+        x.astype("<f4").tofile(fh)
+    y.tofile(f"{workdir}/nan.labels.bin")
+    state = f"{workdir}/skip.npz"
+    out["train_recipe_skip"], losses = _train_cli(
+        workdir, ["--input", f"{workdir}/nan.bin", "--labels", f"{workdir}/nan.labels.bin",
+                  "--skip-nonfinite", "--lr", str(TRAIN_LR), "--save-state", state], 4,
+        finite=False)
+    _expect_counts_of(out["train_recipe_skip"],
+                      {k: 48 for k in ("ln_qkv_attn", *TRAIN_KERNELS)}, "train cli skip")
+    arc = _archive(state)
+    counters = (int(arc["opt.0"]), bool(arc["opt.1"]), int(arc["opt.2"]), int(arc["opt.3"]))
+    finite = all(np.isfinite(v).all() for k, v in arc.items() if k.startswith("params."))
+    log(f"train cli --skip-nonfinite (B/16 b64 bf16, a NaN in every image of the second static "
+        f"batch): losses {losses}; archive notfinite_count, last_finite, total_notfinite, adam "
+        f"count {counters}; params finite {finite}; {card}")
+    if (np.isfinite(losses).tolist() != [True, False, True, False] or counters != (1, False, 2, 2)
+            or not finite):
+        raise RuntimeError(f"--skip-nonfinite: losses {losses}, counters {counters}, finite "
+                           f"params {finite}")
+    return out
+
+
+def recipe_rank_worker(workdir: str) -> None:
+    """One rank of phase 47's tensor-parallel runs (``torchrun`` starts
+    RANKS of them): tp 2 from the seed for 2 steps with ``--save-state``,
+    and tp 2 resuming the one-card archive for 2 more; writes
+    ``recipe_rank<r>.json``."""
+    import torch.distributed as dist
+
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd as k8
+    from vit_tpu_torch.runtime import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", distributed.local_rank() % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    distributed.initialize(backend="gloo")
+    _register_tp_config()
+    spies = [_FlagSpy(k5.ln_mlp_residual, "partial", False),
+             _FlagSpy(k8.ln_mlp_residual_bwd, "residual", True)]
+    k5.ln_mlp_residual, k8.ln_mlp_residual_bwd = spies
+    tp = ["--tp", "2", "--steps", "2"]
+    report = {
+        "train_recipe_tp": _train_rank_cli(
+            workdir, [*RECIPE_TP_FLAGS, *tp, "--save-state", f"{workdir}/tp_k.npz"], 2, spies),
+        "train_recipe_tp_resumed": _train_rank_cli(
+            workdir, [*RECIPE_TP_FLAGS, *tp, "--resume", f"{workdir}/one_k.npz", "--save-state",
+                      f"{workdir}/tp_km.npz"], 2, spies),
+    }
+    with open(f"{workdir}/recipe_rank{dist.get_rank()}.json", "w") as fh:
+        json.dump(report, fh)
+
+
+def phase_recipe_tp(workdir: str, card: str) -> dict:
+    """Phase 47 (tensor parallel): one card runs B/16 at depth 2, fp32: its
+    init saved (0 steps), 2 steps with ``--save-state``, and 2 more resumed;
+    two ranks over gloo run tp 2 from the seed and tp 2 resuming the
+    one-card step-2 archive, each 2 steps (per rank and step 2 each of K1,
+    K5 partial, K6, K8 ``residual=False``); each tp archive and EMA sidecar
+    (whole: rank 0 gathers the params and the moments) against the one-card
+    ones of its step, under RECIPE_TP_TOL and RECIPE_MOMENT_TOL.  A planted
+    one-card resume whose third step trains on another batch must break
+    the params', the moments' and the EMA's bounds.  -> rank 0's launch
+    counts by path."""
+    from vit_tpu_torch.cli.train import main
+    from vit_tpu_torch.cli.train_loop import ema_sidecar
+    from vit_tpu_torch.config import CONFIGS
+
+    _register_tp_config()
+    cfg = CONFIGS[RECIPE_TP_CONFIG]
+    one = ["--device", "cuda", *RECIPE_TP_FLAGS]
+    at = {n: f"{workdir}/{n}.npz" for n in ("init", "one_k", "one_km", "other3", "planted")}
+    with contextlib.redirect_stdout(io.StringIO()):
+        rcs = [main([*one, "--steps", "0", "--save-state", at["init"]]),
+               main([*one, "--steps", "2", "--save-state", at["one_k"]]),
+               main([*one, "--steps", "2", "--resume", at["one_k"], "--save-state",
+                     at["one_km"]]),
+               # the planted run: step 3 on the batch of another seed, step 4 on its own
+               main([*one, "--steps", "1", "--seed", "4", "--resume", at["one_k"],
+                     "--save-state", at["other3"]]),
+               main([*one, "--steps", "1", "--resume", at["other3"], "--save-state",
+                     at["planted"]])]
+    if rcs != [0] * 5:
+        raise RuntimeError(f"the one-card depth-{RECIPE_TP_DEPTH} runs exited {rcs}")
+    _run_ranks("--rank-recipe-worker", workdir, RECIPE_RANKS_TIMEOUT, "recipe ranks")
+    reports = [json.load(open(f"{workdir}/recipe_rank{r}.json")) for r in range(RANKS)]
+    per_step = {"ln_qkv_attn": RECIPE_TP_DEPTH, "ln_mlp_residual": RECIPE_TP_DEPTH,
+                "ln_qkv_attn_bwd": RECIPE_TP_DEPTH, "ln_mlp_residual_bwd": RECIPE_TP_DEPTH}
+    for r, rep in enumerate(reports):
+        for path, run in rep.items():
+            if run["rc"] != 0:
+                raise RuntimeError(f"rank {r} {path}: the train CLI exited {run['rc']}")
+            _expect_cli(run["launches"], per_step, 2, f"rank {r} {path} (depth 2, 2 steps)")
+            _expect_flags(run["flags"], 2 * RECIPE_TP_DEPTH, f"rank {r} {path}")
+
+    def held(got: str, want: str, start: str) -> tuple:
+        """Two runs of 2 steps from ``start``: -> (the state's and the EMA's
+        leaves out of bounds, the worst ratios)."""
+        state = _tp_mismatches(_archive(got), _archive(want), _archive(start), cfg, 2)
+        ema = _tp_mismatches(*(_archive(ema_sidecar(p)) for p in (got, want, start)), cfg, 2)
+        return state[0] + ema[0], {**state[1], **ema[1]}
+
+    for tp, one_k, start, step in (("tp_k", "one_k", "init", 2), ("tp_km", "one_km", "one_k", 4)):
+        bad, worst = held(f"{workdir}/{tp}.npz", at[one_k], at[start])
+        log(f"recipe tp 2 (B/16 widths, depth {RECIPE_TP_DEPTH}, b{TP_TRAIN_BATCH} fp32, AdamW "
+            f"{TRAIN_LR}, EMA 0.999) {tp}.npz vs the one-card {one_k}.npz (step {step}, 2 steps "
+            f"from {start}.npz): worst share of each bound {_worst_text(worst)}; {card}")
+        if bad:
+            raise RuntimeError(f"{tp} vs {one_k}: {len(bad)} leaves out of bounds: {bad[:6]}")
+    bad, worst = held(at["planted"], at["one_km"], at["one_k"])
+    log(f"recipe tp check, planted (one card, step 3 on another batch) vs one_km.npz: worst "
+        f"share of each bound {_worst_text(worst)}; {len(bad)} leaves out of bounds; {card}")
+    blind = [cls for cls in ("params", "moments", "ema") if not worst.get(cls, (0.0,))[0] > 1.0]
+    if blind:
+        raise RuntimeError(f"the tp check's {blind} bounds cannot see a step on another batch: "
+                           f"{_worst_text(worst)}")
+    return {path: reports[0][path]["launches"] for path in reports[0]}
+
+
+def phase_recipe_times(workdir: str, dev: torch.device, card: str) -> None:
+    """Phase 47 (times): the B/16 b64 bf16 ``fused_train`` step with K20,
+    plain and with the recipe (augment crop,flip,mixup,cutmix inside the
+    step and the EMA 0.999 after it): host wall per step (median, in
+    turns) and profiler device time; the augmentation's and the EMA's
+    device time alone; the time to gather and write a B/16 train state
+    (FusedAdamW's moments and the EMA)."""
+    from vit_tpu_torch.cli.train_setup import _detached
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io import checkpoint
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.io.params import params_to_numpy
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.dispatch import get_ops
+    from vit_tpu_torch.runtime import trainer
+    from vit_tpu_torch.runtime.augment import make_augment_fn
+
+    cfg = VIT_B_16
+    x = torch.from_numpy(synth_images(64, cfg, seed=4)).to(dev)
+    y = torch.arange(64, device=dev) * 7 % cfg.num_classes
+    augment = make_augment_fn(["crop", "flip", "mixup", "cutmix"], cfg.num_classes)
+
+    def make(recipe: bool):
+        params = trainer.as_trainable(vit.init_params(torch.Generator().manual_seed(0), cfg), dev)
+        opt = trainer.FusedAdamW(list(trainer.leaves(params)), lr=TRAIN_LR)
+        step = trainer.make_train_step(cfg, opt, get_ops("fused_train"), remat=False,
+                                       compute_dtype=torch.bfloat16,
+                                       rng=torch.Generator().manual_seed(0),
+                                       augment_fn=augment if recipe else None)
+        ema = _detached(params)
+        update = trainer.make_ema_update(0.999)
+        calls = iter(range(10 ** 6))
+
+        def run():
+            loss = step(params, x, y, step=next(calls))
+            if recipe:
+                update(ema, params)
+            return float(loss)
+
+        return run, params, opt, ema, update
+
+    runs = {"plain": make(False), "recipe": make(True)}
+    for run, *_ in runs.values():
+        run()
+        run()
+    walls = {k: [] for k in runs}
+    for _ in range(4):
+        for k in ("plain", "recipe", "recipe", "plain"):
+            t0 = time.perf_counter()
+            runs[k][0]()
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+    device = {k: _device_ms(runs[k][0], steps=5) for k in runs}
+    gen = torch.Generator().manual_seed(1)
+    aug_ms = _device_ms(lambda: augment(gen, x, y), steps=10)
+    enqueue = []  # host ms to queue the augmentation, the card idle before
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        augment(gen, x, y)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    _, params, opt, ema, update = runs["recipe"]
+    ema_ms = _device_ms(lambda: update(ema, params), steps=10)
+    ema_event_ms = cuda_ms(lambda: update(ema, params))
+    # the EMA reads the EMA and the params and writes the EMA, fp32
+    ema_bound = 3 * 4 * B16_LEAVES[1] / HBM_BYTES_PER_S * 1e3
+    wall = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"recipe step B/16 b64 bf16 fused_train fused_adamw: plain {wall['plain']:.6g} ms wall "
+        f"(median of 8, in turns), {device['plain']:.6g} ms device; with augment "
+        f"crop,flip,mixup,cutmix and EMA 0.999 {wall['recipe']:.6g} ms wall, "
+        f"{device['recipe']:.6g} ms device ({64 / wall['recipe'] * 1e3:.6g} img/s vs "
+        f"{64 / wall['plain'] * 1e3:.6g}); the augmentation alone {aug_ms:.6g} ms device (b64, "
+        f"mean over mixup and cutmix draws), {statistics.median(enqueue):.6g} ms host to queue "
+        f"it (median of 10); the EMA alone {ema_ms:.6g} ms device, {ema_event_ms:.6g} ms by "
+        f"CUDA events (median of 10), bound {ema_bound:.6g} ({B16_LEAVES[1]:,} fp32 elements); "
+        f"{card}")
+    t0 = time.perf_counter()
+    leaves = trainer.opt_state_leaves(opt, params)
+    tree = params_to_numpy(params)
+    t1 = time.perf_counter()
+    path = f"{workdir}/state.npz"
+    checkpoint.save_train_state(tree, leaves, 10, path)
+    checkpoint.save_npz(params_to_numpy(ema), f"{workdir}/state.ema.npz")
+    t2 = time.perf_counter()
+    size = os.path.getsize(path) + os.path.getsize(f"{workdir}/state.ema.npz")
+    log(f"B/16 train state write (FusedAdamW): {t1 - t0:.6g} s to gather params and moments to "
+        f"the host, {t2 - t1:.6g} s to write the archive and the EMA sidecar ({size / 1e6:.6g} "
+        f"MB, {len(leaves)} optimizer leaves) into the build directory (page cache, not synced); "
+        f"{card}")
+
+
+def group_recipe(dev, card, summary, launches) -> None:
+    """Phase 47."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+        images = synth_images(sum(DATA_SHARDS), VIT_B_16, seed=7)
+        labels = np.random.default_rng(7).integers(0, VIT_B_16.num_classes, len(images))
+        _write_shards(workdir, images, labels)
+        del images
+        launches.update(phase_recipe_resume(workdir, card))
+        torch.cuda.empty_cache()
+        launches.update(phase_recipe_variants(workdir, card))
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+        launches.update(phase_recipe_tp(workdir, card))
+        torch.cuda.empty_cache()
+        phase_recipe_times(workdir, dev, card)
+
+
 PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw",
-          "parallel", "serve", "mae", "distill", "qat", "data")
+          "parallel", "serve", "mae", "distill", "qat", "data", "recipe")
 
 
 def group_classify(dev, card, summary, launches) -> None:
@@ -4614,12 +5113,17 @@ def main(argv=None) -> None:
                    help="run one rank of phase 38 (torchrun starts these), writing into DIR")
     p.add_argument("--rank-train-worker", metavar="DIR",
                    help="run one rank of phase 45 (torchrun starts these), writing into DIR")
+    p.add_argument("--rank-recipe-worker", metavar="DIR",
+                   help="run one rank of phase 47 (torchrun starts these), writing into DIR")
     args = p.parse_args(argv)
     if args.rank_worker:
         rank_worker(args.rank_worker)
         return
     if args.rank_train_worker:
         train_rank_worker(args.rank_train_worker)
+        return
+    if args.rank_recipe_worker:
+        recipe_rank_worker(args.rank_recipe_worker)
         return
     only = PHASES if args.only is None else tuple(args.only.split(","))
     if not set(only) <= set(PHASES):
@@ -4647,7 +5151,7 @@ def main(argv=None) -> None:
               "long": group_long, "quant": group_quant, "tome": group_tome, "dh80": group_dh80,
               "per_op": group_per_op, "adamw": group_adamw, "parallel": group_parallel,
               "serve": group_serve, "mae": group_mae, "distill": group_distill, "qat": group_qat,
-              "data": group_data}
+              "data": group_data, "recipe": group_recipe}
     for name in PHASES:
         if name in only:
             t0 = time.perf_counter()

@@ -142,11 +142,9 @@ def _model_cfg(width, dropout=0.0, drop_path=0.0, image_size=32):
                                dropout=dropout, drop_path=drop_path, name=f"vit_mlp_fwd_{width}")
 
 
-@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_fused_train_model_operands_pass(monkeypatch, regularized, width, dtype):
-    # FusedEncoderBlockFn (K5) and FusedEncoderBlockTrainFn (K11), one per layer
+def _model_run(monkeypatch, regularized, width, dtype):
+    """The ``fused_train`` model's forward with K5's and K11's spies ->
+    (cfg, K5 calls, K11 calls)."""
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops import get_ops
@@ -157,6 +155,23 @@ def test_fused_train_model_operands_pass(monkeypatch, regularized, width, dtype)
     k5_calls, k11_calls = _spies(monkeypatch)
     rng = torch.Generator().manual_seed(3) if regularized else None
     vit.forward(params, images, cfg, get_ops("fused_train"), dropout_rng=rng).float().sum()
+    return cfg, k5_calls, k11_calls
+
+
+@pytest.fixture(scope="module")
+def model_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_model_run, [(reg, "b16", dtype) for reg in (False, True) for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_fused_train_model_operands_pass(monkeypatch, request, regularized, width, dtype):
+    # FusedEncoderBlockFn (K5) and FusedEncoderBlockTrainFn (K11), one per layer
+    cfg, k5_calls, k11_calls = (request.getfixturevalue("model_b16")[regularized, width, dtype]
+                                if width == "b16"
+                                else _model_run(monkeypatch, regularized, width, dtype))
     _check_calls(k5_calls, k11_calls, *((0, cfg.depth) if regularized else (cfg.depth, 0)))
     assert all(args[0].shape[0] == 2 * cfg.seq_len for args, _ in k5_calls + k11_calls)
 

@@ -27,6 +27,8 @@ from vit_tpu_torch.config import VIT_B_16
 from vit_tpu_torch.ops.kernels import ln_mlp_out_residual_bwd as k7
 from vit_tpu_torch.ops.kernels import ln_mlp_out_residual_bwd_train as k12a
 
+from torch_spy_record import record
+
 DTYPES = [torch.float32, torch.bfloat16]
 EPS = 1e-6
 # (D, heads, MLP width): the tiny test config's and ViT-B/16's
@@ -152,10 +154,9 @@ def _model_cfg(width, dropout=0.0, drop_path=0.0):
                                drop_path=drop_path, name=f"vit_mlp_out_bwd_{width}")
 
 
-@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_fused_train_model_operands_pass(monkeypatch, regularized, width, dtype):
+def _model_run(monkeypatch, regularized, width, dtype):
+    """The ``fused_train`` model's forward and backward with K7's and
+    K12a's spies -> (cfg, K7 calls, K12a calls)."""
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops import get_ops
@@ -170,6 +171,22 @@ def test_fused_train_model_operands_pass(monkeypatch, regularized, width, dtype)
     rng = torch.Generator().manual_seed(3) if regularized else None
     logits = vit.forward(params, images, cfg, get_ops("fused_train"), dropout_rng=rng)
     logits.float().sum().backward()
+    return cfg, k7_calls, k12a_calls
+
+
+@pytest.fixture(scope="module")
+def model_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_model_run, [(reg, "b16", dtype) for reg in (False, True) for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_fused_train_model_operands_pass(monkeypatch, request, regularized, width, dtype):
+    cfg, k7_calls, k12a_calls = (request.getfixturevalue("model_b16")[regularized, width, dtype]
+                                 if width == "b16"
+                                 else _model_run(monkeypatch, regularized, width, dtype))
     # one K7 (or K12a) per layer, each over the whole batch's rows
     _check_calls(k7_calls, k12a_calls, *((0, cfg.depth) if regularized else (cfg.depth, 0)),
                  2 * cfg.seq_len)

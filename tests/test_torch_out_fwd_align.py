@@ -225,12 +225,9 @@ def _images(cfg, dtype):
     return torch.from_numpy(synth_images(2, cfg, seed=2)).to(dtype)
 
 
-@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_fused_train_model_operands_pass(monkeypatch, regularized, width, dtype):
-    # FusedEncoderBlockFn (K4) and FusedEncoderBlockTrainFn (K10), one per
-    # layer, on K1's context
+def _model_run(monkeypatch, regularized, width, dtype):
+    """The ``fused_train`` model's forward with K4's and K10's spies ->
+    (cfg, K4 calls, K10 calls)."""
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops import get_ops
 
@@ -239,6 +236,24 @@ def test_fused_train_model_operands_pass(monkeypatch, regularized, width, dtype)
     rng = torch.Generator().manual_seed(3) if regularized else None
     vit.forward(_params(cfg, dtype, True), _images(cfg, dtype), cfg, get_ops("fused_train"),
                 dropout_rng=rng)
+    return cfg, k4_calls, k10_calls
+
+
+@pytest.fixture(scope="module")
+def model_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_model_run, [(reg, "b16", dtype) for reg in (False, True) for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_fused_train_model_operands_pass(monkeypatch, request, regularized, width, dtype):
+    # FusedEncoderBlockFn (K4) and FusedEncoderBlockTrainFn (K10), one per
+    # layer, on K1's context
+    cfg, k4_calls, k10_calls = (request.getfixturevalue("model_b16")[regularized, width, dtype]
+                                if width == "b16"
+                                else _model_run(monkeypatch, regularized, width, dtype))
     _check_calls(k4_calls, k10_calls, *((0, cfg.depth) if regularized else (cfg.depth, 0)),
                  dtype)
     assert all(args[0].shape[0] == 2 * cfg.seq_len for args, _ in k4_calls + k10_calls)

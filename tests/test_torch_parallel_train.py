@@ -401,7 +401,8 @@ def test_mae_dp2_matches_the_single_rank_step(group):
 
 
 def test_mae_dp_folds_the_mask_seed(monkeypatch):
-    # each dp rank draws its own masks from the seed folded with its index
+    # each dp rank draws its own masks from the step's seed (step 0's: the
+    # run's seed folded with 0) folded with its index
     gens = []
     monkeypatch.setattr(tmae, "forward_loss", lambda p, x, gen, *a: gens.append(gen) or
                         (x.sum() * 0).requires_grad_())
@@ -412,7 +413,8 @@ def test_mae_dp_folds_the_mask_seed(monkeypatch):
         step({}, torch.zeros(1))
     seeds = [g.initial_seed() for g in gens]
     assert seeds[0] != seeds[1] and 0xA46 not in seeds
-    assert seeds == [ttrainer.fold_in(0xA46, 0), ttrainer.fold_in(0xA46, 1)]
+    step0 = ttrainer.fold_in(0xA46, 0)
+    assert seeds == [ttrainer.fold_in(step0, 0), ttrainer.fold_in(step0, 1)]
 
 
 def test_dropout_masks_differ_between_dp_ranks(group):

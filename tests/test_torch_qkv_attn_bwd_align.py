@@ -160,10 +160,9 @@ def _params(cfg, dtype):
             for k, v in params.items()}
 
 
-@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_fused_train_model_operands_pass(monkeypatch, regularized, width, dtype):
+def _model_run(monkeypatch, regularized, width, dtype):
+    """The ``fused_train`` model's forward and backward with K6's spy ->
+    (cfg, K6 calls)."""
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops import get_ops
@@ -176,6 +175,21 @@ def test_fused_train_model_operands_pass(monkeypatch, regularized, width, dtype)
     rng = torch.Generator().manual_seed(3) if regularized else None
     logits = vit.forward(params, images, cfg, get_ops("fused_train"), dropout_rng=rng)
     logits.float().sum().backward()
+    return cfg, calls
+
+
+@pytest.fixture(scope="module")
+def model_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_model_run, [(reg, "b16", dtype) for reg in (False, True) for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("regularized", [False, True], ids=["plain", "regularized"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_fused_train_model_operands_pass(monkeypatch, request, regularized, width, dtype):
+    cfg, calls = (request.getfixturevalue("model_b16")[regularized, width, dtype]
+                  if width == "b16" else _model_run(monkeypatch, regularized, width, dtype))
     # one K6 per layer, over the whole batch's rows
     _check_calls(calls, cfg.depth, 2 * cfg.seq_len)
 

@@ -196,9 +196,9 @@ def test_staged_batches_are_bounded(tiny_cfg, monkeypatch, capsys):
     images = np.zeros((6, 3, 4, 4), np.float32)
     labels = np.zeros(6, np.int32)
     st = train_setup.TrainSetup(cfg=tiny_cfg, device=torch.device("cpu"), ops_name="eager",
-                                step=lambda p, x, y: torch.zeros(()), params={},
-                                optimizer=None, lr_at=None, images=images, labels=labels,
-                                n_static=6)
+                                step=lambda p, x, y, step=None: torch.zeros(()), params={},
+                                optimizer=None, trained={}, lr_at=None, images=images,
+                                labels=labels, n_static=6)
     uploads = []
     real = torch.from_numpy
 

@@ -464,9 +464,12 @@ def test_train_cli_has_no_flags_of_later_slices():
     from vit_tpu_torch.cli.train_args import build_parser
 
     flags = {o for a in build_parser()._actions for o in a.option_strings}
-    for later in ("--augment", "--resume", "--ema-decay", "--save-state", "--zero1", "--fsdp",
-                  "--pp", "--sp"):
+    for later in ("--zero1", "--fsdp", "--pp", "--sp"):
         assert later not in flags
+    # the training loop's state and recipe's
+    assert {"--save-state", "--save-every", "--resume", "--ema-decay", "--save-ema", "--augment",
+            "--mixup-alpha", "--cutmix-alpha", "--freeze-backbone", "--skip-nonfinite",
+            "--save-reference"} <= flags
     assert {"--tp", "--dp", "--dist-backend"} <= flags  # parallel training's
     assert {"--dropout", "--drop-path"} <= flags  # the regularized slice's
     assert {"--tome", "--tome-chunk"} <= flags  # token merging's

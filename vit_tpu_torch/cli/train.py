@@ -20,6 +20,15 @@ distillation too).  Every rank draws the same global batch and keeps its
 dp slice; rank 0 alone prints, logs and saves (whole params); every rank
 exits with the worst rank's code.
 
+``--save-state`` (every ``--save-every`` steps, at the end, and on SIGTERM
+before exiting) writes the JAX package's train-state archive, which
+``--resume`` continues in either package; ``--ema-decay`` tracks an
+average of the params (held-out evaluation scores it); ``--augment``
+crops, flips and mixes each batch on the device inside the step;
+``--freeze-backbone`` trains the head(s) alone; ``--skip-nonfinite``
+skips an update whose gradients are not finite; ``--save-reference``
+exports ``Weight_*.bin`` files.
+
 Usage::
 
     vit-tpu-torch-train --config vit_b_16 --steps 20 --batch 64 --mixed-precision
@@ -27,6 +36,9 @@ Usage::
         --dropout 0.1 --drop-path 0.1
     vit-tpu-torch-train --config vit_b_16 --steps 20 --batch 64 --mixed-precision \\
         --optimizer fused_adamw
+    vit-tpu-torch-train --config vit_b_16 --steps 1000 --batch 64 --mixed-precision \\
+        --data-dir SHARDS --augment crop,flip,mixup,cutmix --ema-decay 0.999 \\
+        --save-state run.npz --save-every 100 [--resume run.npz]
     vit-tpu-torch-train --config vit_b_16 --steps 20 --batch 64 --mixed-precision \
         --mae --save-backbone backbone.npz
     vit-tpu-torch-train --config deit_b_16 --steps 20 --batch 64 --mixed-precision \

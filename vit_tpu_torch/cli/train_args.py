@@ -3,8 +3,8 @@
 The flags of ``vit_tpu.cli.train_args`` that the PyTorch port runs, with
 ``--tp``/``--dp`` under ``torchrun`` (one process per rank) and
 ``--dist-backend`` in place of the coordinator flags; the ZeRO-1, FSDP,
-pipeline, sequence-parallel, multihost, augmentation, EMA and resume flags
-wait for their slices of the port (ROADMAP.md).
+pipeline, sequence-parallel and multihost flags wait for their slices of
+the port (ROADMAP.md item 14).
 """
 
 from __future__ import annotations
@@ -66,7 +66,33 @@ def build_parser() -> argparse.ArgumentParser:
         help="train K classes; with --init-weights the backbone is kept and "
         "the head is re-initialized at (D, K)",
     )
+    p.add_argument(
+        "--freeze-backbone", action="store_true",
+        help="linear probe: update only the classification head(s) (head, "
+        "and head_dist on distilled configs); the backbone gets no update and "
+        "no weight decay; pairs with --init-weights and --num-classes",
+    )
     p.add_argument("--save", help="save final params to this .npz")
+    p.add_argument(
+        "--save-reference", metavar="DIR",
+        help="export final params as reference-format Weight_{idx}_{name}"
+        ".bin files (torchvision layout; loadable by the reference C "
+        "engine and by --init-weights)",
+    )
+    p.add_argument(
+        "--save-state", metavar="PATH",
+        help="checkpoint the FULL training state (params+optimizer+step) "
+        "to this .npz at the end and every --save-every steps (either "
+        "package resumes the other's)",
+    )
+    p.add_argument(
+        "--save-every", type=int, default=0, metavar="N",
+        help="with --save-state: also checkpoint every N steps",
+    )
+    p.add_argument(
+        "--resume", metavar="PATH",
+        help="resume a --save-state checkpoint (params, optimizer, step)",
+    )
     p.add_argument(
         "--distill-teacher", metavar="WEIGHTS",
         help="DeiT distillation: train the student's distillation head "
@@ -128,6 +154,15 @@ def build_parser() -> argparse.ArgumentParser:
         "classifier .npz (decoder dropped, fresh random head) — feed it "
         "to --init-weights [--num-classes K] to fine-tune",
     )
+    p.add_argument(
+        "--ema-decay", type=float, default=0.0, metavar="D",
+        help="track an exponential moving average of the params "
+        "(ema = D*ema + (1-D)*params per step); saved via --save-ema",
+    )
+    p.add_argument(
+        "--save-ema", metavar="PATH",
+        help="with --ema-decay: save the EMA params to this .npz at the end",
+    )
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel size")
     p.add_argument("--dp", type=int, default=None, help="data-parallel size")
     p.add_argument(
@@ -161,8 +196,28 @@ def build_parser() -> argparse.ArgumentParser:
         help="clip gradients to this global L2 norm before the update",
     )
     p.add_argument(
+        "--skip-nonfinite", action="store_true",
+        help="skip optimizer updates when grads are non-finite "
+        "(optax.apply_if_finite's rule) instead of aborting on a bad loss",
+    )
+    p.add_argument(
+        "--augment", metavar="LIST", default=None,
+        help="comma-separated augmentations applied on the device inside "
+        "the train step (runtime/augment.py): any of flip,crop,mixup,"
+        "cutmix (e.g. --augment crop,flip,mixup). mixup+cutmix alternate "
+        "50/50 per step. dp paths only (not with --tp>1)",
+    )
+    p.add_argument(
         "--label-smoothing", type=float, default=0.0, metavar="EPS",
         help="label-smoothing epsilon for the cross-entropy loss",
+    )
+    p.add_argument(
+        "--mixup-alpha", type=float, default=0.2,
+        help="Beta(a,a) parameter for --augment mixup",
+    )
+    p.add_argument(
+        "--cutmix-alpha", type=float, default=1.0,
+        help="Beta(a,a) parameter for --augment cutmix",
     )
     p.add_argument(
         "--grad-accum", type=int, default=1, metavar="K",
@@ -195,8 +250,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--eval-data-dir", metavar="DIR",
         help="held-out labeled .bin shards (same format as --data-dir) "
         "evaluated every --eval-every steps: top-1 on --eval-batches "
-        "batches with the current params, through the fp32 eager forward "
-        "(TF32 off)",
+        "batches with the current params (the EMA params when --ema-decay "
+        "is on), through the fp32 eager forward (TF32 off)",
     )
     p.add_argument(
         "--eval-every", type=int, default=0, metavar="N",

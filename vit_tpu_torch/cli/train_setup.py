@@ -1,6 +1,6 @@
 """Training-run construction for the vit-tpu-torch-train CLI: mesh,
-device, op table, params, optimizer, step and data.  Counterpart of
-``vit_tpu.cli.train_setup``; ``prepare(args)`` returns a
+device, op table, params, optimizer, resume, step, data and EMA.
+Counterpart of ``vit_tpu.cli.train_setup``; ``prepare(args)`` returns a
 :class:`TrainSetup`, and invalid flags raise :class:`SetupError` (the CLI
 prints the message and exits 2), in the JAX package's order and words.
 What the JAX package runs through GSPMD tensor parallelism (``--tp`` on
@@ -41,6 +41,9 @@ class TrainSetup:
     step: Callable
     params: dict
     optimizer: torch.optim.Optimizer
+    # the part of params that the optimizer updates (all of it, or the
+    # head(s) under --freeze-backbone), in params' shape
+    trained: dict
     # step -> lr for the loop to set, None when constant or when the
     # optimizer evaluates its own schedule (FusedAdamW)
     lr_at: Optional[Callable[[int], float]]
@@ -55,7 +58,16 @@ class TrainSetup:
     # this rank's place under --tp/--dp (None: one device); the params are
     # its shard, and each step takes its dp slice of the global batch
     mesh: Optional[Mesh] = None
-    start_step: int = 0  # the first step's number (0: resume is a later slice)
+    start_step: int = 0  # the first step's number (--resume: the archive's step)
+    # --skip-nonfinite: apply_if_finite's rule and counters (else None)
+    guard: Optional[object] = None
+    # --ema-decay: the averaged params (this rank's shards) and their
+    # in-place update (else None)
+    ema: Optional[dict] = None
+    ema_update: Optional[Callable] = None
+    # the optimizer state holds a schedule count (optax.adamw with a
+    # schedule): a train-state archive has it as its last leaf
+    schedule: bool = False
 
 
 _DECAY_KEYS = {"kernel", "wqkv", "wo", "w1", "w2"}
@@ -103,6 +115,40 @@ def warmup_cosine(lr: float, steps: int) -> Callable[[int], float]:
         return lr * 0.5 * (1.0 + math.cos(math.pi * c / decay))
 
     return lr_at
+
+
+def _trained(params, freeze_backbone: bool) -> dict:
+    """The leaves the optimizer updates: all, or under --freeze-backbone the
+    classification head(s) alone (``head``, and ``head_dist`` of a distilled
+    tree, which ``apply_head`` averages with it)."""
+    if not freeze_backbone:
+        return params
+    return {k: params[k] for k in ("head", "head_dist") if k in params}
+
+
+def _augment(args, cfg, tp: int):
+    """--augment and its alphas -> ``runtime/augment.make_augment_fn``'s
+    function, or None without --augment."""
+    if not args.augment:
+        return None
+    from vit_tpu_torch.runtime.augment import make_augment_fn
+
+    if tp > 1:
+        raise SetupError("error: --augment/--grad-accum support the dp paths only (no --tp)")
+    try:
+        fn = make_augment_fn([a.strip() for a in args.augment.split(",") if a.strip()],
+                             cfg.num_classes, label_smoothing=args.label_smoothing,
+                             mixup_alpha=args.mixup_alpha, cutmix_alpha=args.cutmix_alpha)
+    except ValueError as e:
+        raise SetupError(f"error: {e}") from e
+    print(f"augment: {args.augment} (on the device, inside the step)")
+    return fn
+
+
+def _detached(tree) -> dict:
+    """Detached copies of a tree's tensors (the EMA's start)."""
+    return {k: _detached(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
 
 
 def _load_data(args, cfg):
@@ -273,14 +319,16 @@ def _mae_config(args, cfg, ops_name: str, tp: int = 1):
         return None
     from vit_tpu_torch.models import mae
 
-    if (args.distill_teacher or args.label_smoothing or args.dropout or args.drop_path
-            or args.grad_accum > 1 or args.num_classes or args.eval_data_dir
-            or args.init_weights or args.optimizer == "fused_adamw"):
+    if (args.distill_teacher or args.augment or args.label_smoothing or args.dropout
+            or args.drop_path or args.grad_accum > 1 or args.num_classes
+            or args.freeze_backbone or args.eval_data_dir or args.init_weights
+            or args.save_reference or args.optimizer == "fused_adamw"):
         raise SetupError(
             "error: --mae is self-supervised pretraining — it excludes the label-dependent "
-            "and layout-specific flags (--distill-teacher/--label-smoothing/--dropout/"
-            "--drop-path/--grad-accum/--num-classes/--eval-data-dir/--init-weights/"
-            "--optimizer fused_adamw); use --save-backbone + --init-weights for downstream "
+            "and layout-specific flags (--distill-teacher/--augment/--label-smoothing/"
+            "--dropout/--drop-path/--grad-accum/--num-classes/--freeze-backbone/"
+            "--eval-data-dir/--init-weights/--save-reference/--optimizer fused_adamw); use "
+            "--resume for warm starts and --save-backbone + --init-weights for downstream "
             "fine-tuning"
         )
     if ops_name not in ("eager", "fused_train"):
@@ -340,9 +388,10 @@ def _teacher(args, cfg, ops_name: str, device, compute_dtype, tp: int = 1):
             "error: --distill-teacher with --tp > 1 requires --ops eager or qat (the kernel-TP "
             "train step has no teacher leg); fused_train distillation runs on a dp mesh"
         )
-    if args.grad_accum > 1 or args.dropout or args.drop_path:
+    if args.grad_accum > 1 or args.dropout or args.drop_path or args.augment:
         raise SetupError(
-            "error: --distill-teacher composes with none of --grad-accum/--dropout/--drop-path"
+            "error: --distill-teacher composes with none of --grad-accum/--dropout/--drop-path/"
+            "--augment"
         )
     t_cfg = (get_config(args.distill_config) if args.distill_config
              else dataclasses.replace(cfg, distilled=False, name=f"{cfg.name}_teacher"))
@@ -425,6 +474,7 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
     """-> the run's :class:`TrainSetup`.  ``mesh`` and ``device`` as
     :func:`build_mesh` returns them (built here when not given)."""
     from vit_tpu_torch.config import resolve_config
+    from vit_tpu_torch.io import checkpoint as ckpt
     from vit_tpu_torch.io.load_any import load_params_any
     from vit_tpu_torch.io.params import params_from_numpy
     from vit_tpu_torch.models import vit
@@ -480,6 +530,9 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
     teacher_fwd = _teacher(args, cfg, ops_name, device, compute_dtype, tp)
     if args.grad_accum > 1 and tp > 1:
         raise SetupError("error: --grad-accum supports the dp paths only (no --tp)")
+    augment_fn = _augment(args, cfg, tp)
+    if args.save_ema and not args.ema_decay:
+        raise SetupError("error: --save-ema requires --ema-decay")
 
     if mae_cfg is not None:
         from vit_tpu_torch.models import mae
@@ -503,15 +556,42 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
     else:
         params = vit.init_params(torch.Generator().manual_seed(args.seed), cfg)
 
-    lr_at = warmup_cosine(args.lr, args.steps) if args.schedule == "warmup_cosine" else None
-    if args.optimizer == "fused_adamw":
+    try:
+        resumed_at = ckpt.peek_step(args.resume) if args.resume else 0
+    except ValueError as e:
+        raise SetupError(f"error: {e}") from e
+    # the loop runs --steps more steps from the restored step, so the
+    # schedule's horizon reaches past it (at a bare --steps every resumed
+    # step would fall past the decay's end, at lr 0)
+    lr_at = (warmup_cosine(args.lr, args.steps + resumed_at)
+             if args.schedule == "warmup_cosine" else None)
+    fused = args.optimizer == "fused_adamw"
+    if fused:
         # the JAX package's refusals, in its order and words
         if args.wd_exempt_norm_bias:
             raise SetupError("error: --wd-exempt-norm-bias requires --optimizer adamw")
         if args.grad_clip:
             raise SetupError("error: --grad-clip requires --optimizer adamw")
+        if args.freeze_backbone:
+            raise SetupError("error: --freeze-backbone requires --optimizer adamw")
+        if args.skip_nonfinite:
+            raise SetupError("error: --skip-nonfinite requires --optimizer adamw")
         if ops_name != "fused_train" or tp > 1:
             raise SetupError("error: --optimizer fused_adamw requires --ops fused_train and tp=1")
+    guard = trainer.NonFiniteGuard() if args.skip_nonfinite else None
+    schedule = lr_at is not None and not fused
+    start_step, opt_leaves = 0, None
+    if args.resume:
+        # params, optimizer and step, held against this run's optimizer
+        # layout (the whole tree's shapes: under --tp each rank then keeps
+        # its shards)
+        template = trainer.opt_state_shapes(_trained(params, args.freeze_backbone), schedule,
+                                            guard)
+        try:
+            tree, opt_leaves, start_step = ckpt.load_train_state(args.resume, template)
+        except ValueError as e:
+            raise SetupError(f"error: {e}") from e
+        params = params_from_numpy(tree, "cpu", torch.float32)
     if tp > 1:
         if ops_name != "fused_train":
             raise _not_ported_tp(f"--ops {ops_name}")
@@ -522,50 +602,74 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
         # rank makes the same whole tree first)
         params = shard_params(params, mesh)
     params = trainer.as_trainable(params, device, torch.float32)
-    if args.optimizer == "fused_adamw":
+    trained = _trained(params, args.freeze_backbone)
+    if fused:
         # K20 on every leaf; the optimizer evaluates the schedule itself, at
         # its 1-based count, so the loop leaves its lr alone
         optimizer = trainer.FusedAdamW(list(trainer.leaves(params)), lr=lr_at or args.lr,
                                        weight_decay=args.weight_decay)
         lr_at = None
     else:
+        # the schedule's lr is set by the loop from the applied updates
         optimizer = torch.optim.AdamW(
-            adamw_param_groups(params, args.weight_decay, args.wd_exempt_norm_bias),
+            adamw_param_groups(trained, args.weight_decay, args.wd_exempt_norm_bias),
             lr=lr_at(0) if lr_at else args.lr,
         )
     if args.wd_exempt_norm_bias:
         print("weight decay: GEMM kernels only (norm/bias/embeddings exempt)")
     if args.grad_clip:
         print(f"grad-clip: global norm {args.grad_clip}")
+    if args.freeze_backbone:
+        print("freeze-backbone: training the classification head(s) only (distilled configs "
+              "train head AND head_dist — apply_head averages them)")
+    if opt_leaves is not None:
+        trainer.restore_opt_state(optimizer, trained, opt_leaves, mesh, schedule, guard)
+        print(f"resumed from {args.resume} at step {start_step}")
     ops = get_ops(ops_name)
+    # every step's randomness (augmentation, dropout, MAE's masks) from
+    # seeds of (this seed, the step's number, the dp index)
+    draw_seed = args.seed ^ 0xA46
     if mae_cfg is not None:
-        # the masks of every step from one generator on the device (on a
-        # mesh, folded with the rank's dp index by the step)
-        gen = torch.Generator(device=device).manual_seed(args.seed ^ 0xA46)
+        gen = torch.Generator(device=device).manual_seed(draw_seed)
         step = trainer.make_mae_train_step(cfg, mae_cfg, optimizer, gen, ops,
                                            compute_dtype=compute_dtype, grad_clip=args.grad_clip,
-                                           mesh=mesh)
+                                           mesh=mesh, guard=guard, trained=trained)
     elif teacher_fwd is not None:
         step = trainer.make_distill_train_step(
             cfg, optimizer, teacher_fwd, ops, remat=remat, compute_dtype=compute_dtype,
             alpha=args.distill_alpha, hard=not args.distill_soft, tau=args.distill_tau,
             label_smoothing=args.label_smoothing, grad_clip=args.grad_clip, mesh=mesh,
+            guard=guard, trained=trained,
         )
     elif tp > 1:
         step = trainer.make_train_step_kernel_tp(
             cfg, optimizer, mesh, remat=remat, compute_dtype=compute_dtype,
-            label_smoothing=args.label_smoothing, grad_clip=args.grad_clip,
+            label_smoothing=args.label_smoothing, grad_clip=args.grad_clip, guard=guard,
+            trained=trained,
         )
     else:
         step = trainer.make_train_step_dp(
             cfg, optimizer, mesh, ops, remat=remat, compute_dtype=compute_dtype,
             label_smoothing=args.label_smoothing, grad_accum=args.grad_accum,
             grad_clip=args.grad_clip, use_dropout=use_dropout,
-            rng=torch.Generator().manual_seed(args.seed) if use_dropout else None,
-            forward_fn=tome_forward,
+            rng=(torch.Generator().manual_seed(draw_seed)
+                 if use_dropout or augment_fn is not None else None),
+            forward_fn=tome_forward, augment_fn=augment_fn, guard=guard, trained=trained,
         )
 
-    start_step = 0
+    ema = ema_update = None
+    if args.ema_decay:
+        from vit_tpu_torch.cli.train_loop import ema_sidecar
+
+        ema = _detached(params)
+        if args.resume and ema_sidecar(args.resume).exists():
+            tree = params_from_numpy(ckpt.load_npz(ema_sidecar(args.resume)), device,
+                                     torch.float32)
+            ema = shard_params(tree, mesh) if tp > 1 else tree
+            print(f"resumed EMA from {ema_sidecar(args.resume)}")
+        ema_update = trainer.make_ema_update(args.ema_decay)
+        print(f"ema: decay {args.ema_decay}")
+
     stream = _build_data(args, cfg, mesh, device, start_step)
     images = labels = None
     n_static = 0
@@ -582,6 +686,7 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
     run_eval = _build_eval(args, cfg, mesh, device) if args.eval_data_dir else None
     return TrainSetup(
         cfg=cfg, device=device, ops_name=ops_name, step=step, params=params,
-        optimizer=optimizer, lr_at=lr_at, stream=stream, images=images, labels=labels,
-        n_static=n_static, run_eval=run_eval, mesh=mesh, start_step=start_step,
+        optimizer=optimizer, trained=trained, lr_at=lr_at, stream=stream, images=images,
+        labels=labels, n_static=n_static, run_eval=run_eval, mesh=mesh, start_step=start_step, guard=guard,
+        ema=ema, ema_update=ema_update, schedule=schedule,
     )

@@ -1,6 +1,7 @@
-"""Reader for the reference's ``Weight_{idx}_{name}.bin`` directories.
+"""Reader and writer of the reference's ``Weight_{idx}_{name}.bin``
+directories.
 
-Counterpart of the read side of ``vit_tpu.io.weights``, numpy only: scan
+Counterpart of ``vit_tpu.io.weights``, numpy only.  Reading: scan
 the directory, parse each index from its file name, read each file as
 little-endian fp32, apply the reference's 6-decimal load-time rounding
 (``roundf(x*1e6)/1e6``, behind a parity switch), and repack the indexed
@@ -9,7 +10,9 @@ torchvision-layout tensors into the params tree of
 encoder layers stack on a leading axis, and the packed in_proj columns go
 from torchvision's (3, heads, head_dim) blocks to (heads, {q,k,v},
 head_dim).  Missing files (a checkpoint with stripped blobs) are filled
-from a seeded generator when ``allow_synth``.
+from a seeded generator when ``allow_synth``.  Writing
+(``--save-reference``) is the inverse: :func:`tensors_from_params`, then
+:func:`save_reference_weights` (raw little-endian fp32, no header).
 
 Index layout for depth L: 0 class_token, 1 conv_proj_weight, 2
 conv_proj_bias, 3 pos_embedding; layer l at 4 + 12 l: ln_1 w/b, in_proj
@@ -202,3 +205,69 @@ def load_reference_weights(
         )
     tensors = load_reference_tensors(Path(weight_dir), cfg, round_to_6dp, allow_synth, synth_seed)
     return params_from_tensors(tensors, cfg)
+
+
+def tensors_from_params(params, cfg: ViTConfig = VIT_B_16) -> Dict[int, np.ndarray]:
+    """Inverse of :func:`params_from_tensors`: a params tree (numpy, or
+    torch tensors) -> the indexed torchvision-layout tensors, matrices back
+    to [out, in], the packed QKV rows back to (3, H, Dh)-major, the layers
+    unstacked.  DeiT params are refused: the layout has no distillation
+    token."""
+    if "dist_token" in params:
+        raise ValueError(
+            "DeiT-distilled params (dist_token/head_dist) cannot round-trip "
+            "the torchvision-ViT 152-tensor layout (reference Weight_*.bin "
+            "and .pth exports) — it has no distillation token; export to "
+            ".npz/Orbax instead"
+        )
+    d, hd, nh, L = cfg.embed_dim, cfg.head_dim, cfg.num_heads, cfg.depth
+    blocks = params["blocks"]
+
+    def np32(a):
+        if hasattr(a, "detach"):  # a torch tensor
+            a = a.detach().cpu().float().numpy()
+        return np.asarray(a, dtype=np.float32)
+
+    def qkv_unorder(w):
+        """rows (H, {q,k,v}, Dh)-major -> torchvision's (3, H, Dh)-major."""
+        return w.reshape(nh, 3, hd, *w.shape[1:]).transpose(1, 0, *range(2, w.ndim + 2)).reshape(
+            w.shape)
+
+    out: Dict[int, np.ndarray] = {
+        0: np32(params["cls_token"]),
+        1: np32(params["patch_embed"]["kernel"]).T.reshape(d, cfg.in_channels, cfg.patch_size,
+                                                           cfg.patch_size),
+        2: np32(params["patch_embed"]["bias"]),
+        3: np32(params["pos_embed"]),
+    }
+    for l in range(L):
+        base = 4 + WEIGHTS_PER_LAYER * l
+        out[base + 0] = np32(blocks["ln1_scale"][l])
+        out[base + 1] = np32(blocks["ln1_bias"][l])
+        out[base + 2] = qkv_unorder(np32(blocks["wqkv"][l]).T.copy())
+        out[base + 3] = qkv_unorder(np32(blocks["bqkv"][l]))
+        out[base + 4] = np32(blocks["wo"][l]).T.copy()
+        out[base + 5] = np32(blocks["bo"][l])
+        out[base + 6] = np32(blocks["ln2_scale"][l])
+        out[base + 7] = np32(blocks["ln2_bias"][l])
+        out[base + 8] = np32(blocks["w1"][l]).T.copy()
+        out[base + 9] = np32(blocks["b1"][l])
+        out[base + 10] = np32(blocks["w2"][l]).T.copy()
+        out[base + 11] = np32(blocks["b2"][l])
+    base = 4 + WEIGHTS_PER_LAYER * L
+    out[base + 0] = np32(params["ln_final"]["scale"])
+    out[base + 1] = np32(params["ln_final"]["bias"])
+    out[base + 2] = np32(params["head"]["kernel"]).T.copy()
+    out[base + 3] = np32(params["head"]["bias"])
+    return out
+
+
+def save_reference_weights(tensors: Dict[int, np.ndarray], weight_dir,
+                           cfg: ViTConfig = VIT_B_16) -> None:
+    """Write indexed tensors as ``weight_dir/Weight_{idx}_{name}.bin``: raw
+    little-endian fp32, no header (the directory is made if missing)."""
+    weight_dir = Path(weight_dir)
+    weight_dir.mkdir(parents=True, exist_ok=True)
+    names = {idx: name for idx, name, _ in reference_tensor_specs(cfg)}
+    for idx, arr in tensors.items():
+        np.asarray(arr, dtype="<f4").tofile(weight_dir / f"Weight_{idx}_{names[idx]}.bin")
