@@ -329,10 +329,34 @@ Phases (a failed phase raises; nothing is caught):
      step's, the augmentation's and the EMA's device time, and the time to
      write a B/16 train state.
 
+ 48. pipeline and sequence parallelism, ranks sharing the card over gloo
+     (``torchrun`` with a time limit, ``--rank-pp-sp-worker``; counts set to
+     0 just before each run and read just after, on every rank): the cyclic
+     shift bit for bit in fp32 and bf16 (signed zero, inf, NaN); two ranks:
+     the pp 2 ``fused`` forward @224 b100 bf16 in 4 microbatches (24 K1 and
+     24 K2 per rank: 6 layers x 4 microbatches) against the one-card
+     ``fused`` engine (0.027, and the comparator rule); the train CLI with
+     ``--pp 2 --microbatches 4`` fp32 b16 (24 each of K1, K4-K7 per rank and
+     step), ``--pp 2 --microbatches 1 --dropout 0.1 --drop-path 0.1`` (6
+     each of K1, K10, K11, K12a, K6) and ``--sp 2`` bf16 mixed (12 each of
+     K4, K5, K8, K9), their losses against the one-card CLI's; the fp32
+     gradients of one pp 2 step (plain and regularized, the masks of the
+     one-card step's seeds) and one sp 2 ``fused_train`` step, gathered,
+     against the one-card ``fused_train`` and eager steps' (1e-3 x max(1,
+     max|g|), loss 1e-4); the sp 2 bf16 mixed loss @224 b16 and @512 b2
+     (513 tokens a shard) against the one-card eager step's (2e-2); the sp
+     2 eager fp32 forward against the one-card forward (1e-4); four ranks:
+     pp 2 x tp 2 at depth 4, the ``quant`` forward bf16 b16 (4 each of K15,
+     K18a, K18b per rank) by the comparator rule and the ``fused_train``
+     gradients (4 each of K1, K5 partial, K6, K8 ``residual=False``); the pp
+     forward's and the pp and sp steps' wall and device ms beside the one
+     card's (two ranks sharing one card: not scaling figures).
+
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
 regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
 per_op 31-33, adamw 34-35, parallel 36-38 and 45, serve 39-41, mae 42,
-distill 43, qat 44, data 46, recipe 47); without it every phase runs.
+distill 43, qat 44, data 46, recipe 47, pp_sp 48); without it every phase
+runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -3432,14 +3456,14 @@ def phase_parallel_train(dev: torch.device, card: str, workdir: str) -> dict:
     return summary, launches
 
 
-def _run_ranks(mode: str, workdir: str, timeout: int, what: str) -> None:
-    """``torchrun`` of RANKS ranks of this script in ``mode`` (sharing the
-    card over gloo), killed with its process group after ``timeout`` s."""
+def _run_ranks(mode: str, workdir: str, timeout: int, what: str, ranks: int = RANKS) -> None:
+    """``torchrun`` of ``ranks`` ranks of this script in ``mode`` (sharing
+    the card over gloo), killed with its process group after ``timeout`` s."""
     import signal
     import sys
 
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(RANKS), os.path.abspath(__file__), mode, workdir]
+           str(ranks), os.path.abspath(__file__), mode, workdir]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             start_new_session=True, env=dict(os.environ, OMP_NUM_THREADS="4"))
@@ -3448,12 +3472,12 @@ def _run_ranks(mode: str, workdir: str, timeout: int, what: str) -> None:
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)  # torchrun and every rank it started
         proc.communicate()
-        raise RuntimeError(f"{RANKS} {what} did not finish in {timeout} s: a rank hung")
+        raise RuntimeError(f"{ranks} {what} did not finish in {timeout} s: a rank hung")
     lines = [ln for ln in out.splitlines() if "socket.cpp" not in ln]
     log("\n".join(f"{what}: {ln}" for ln in (lines if proc.returncode else lines[-8:])))
     if proc.returncode != 0:
-        raise RuntimeError(f"torchrun with {RANKS} {what} exited {proc.returncode}")
-    log(f"{RANKS} {what} over gloo on one card: {time.perf_counter() - t0:.3f} s")
+        raise RuntimeError(f"torchrun with {ranks} {what} exited {proc.returncode}")
+    log(f"{ranks} {what} over gloo on one card: {time.perf_counter() - t0:.3f} s")
 
 
 def _per_step(launches: dict, steps: int) -> dict:
@@ -4927,8 +4951,428 @@ def group_recipe(dev, card, summary, launches) -> None:
         phase_recipe_times(workdir, dev, card)
 
 
+# phase 48: pipeline and sequence parallelism, ranks sharing the card over gloo
+PP_SP_TIMEOUT = 300  # s: a rank that hangs fails phase 48
+PP_FWD_BATCH, PP_BATCH, PP_MB = 100, 16, 4  # the fused forward's, the train step's; microbatches
+PP_SP_STEPS = 2  # the train CLI's steps on the pp and sp runs
+SP_BATCH, SP_LONG_BATCH, SP_FWD_BATCH = 16, 2, 8
+PPTP_DEPTH, PPTP_BATCH, PPTP_MB = 4, 16, 2  # pp 2 x tp 2 (4 ranks) at B/16 widths
+PP_REG_SEED = 48
+# per rank (and step): 6 layers a stage x the microbatches that stage computes
+PP_LAYERS = 12 // RANKS
+PP_RUNS = {  # name: (mesh flags, flags, launches per step, steps, ops of the one-card run)
+    "train_pp": (["--pp", "2", "--microbatches", str(PP_MB)], ["--batch", str(PP_BATCH)],
+                 {"ln_qkv_attn": PP_LAYERS * PP_MB,
+                  **{name: PP_LAYERS * PP_MB for name in TRAIN_KERNELS}}, PP_SP_STEPS,
+                 "fused_train"),
+    "train_pp_regularized": (["--pp", "2", "--microbatches", "1"],
+                             ["--batch", str(PP_BATCH), *REG_FLAGS],
+                             {"ln_qkv_attn": PP_LAYERS, "ln_qkv_attn_bwd": PP_LAYERS,
+                              **{name: PP_LAYERS for name in REG_KERNELS}}, 1, "fused_train"),
+    "train_sp": (["--sp", "2"], ["--batch", str(SP_BATCH), "--mixed-precision"],
+                 {name: 12 for name in ("out_residual", "ln_mlp_residual", "out_residual_bwd",
+                                        "ln_mlp_residual_bwd")}, PP_SP_STEPS, "eager"),
+}
+# the CLI losses against the one-card run's: fp32 steps 0 (the same params) and
+# 1 (after an AdamW step whose rounding-level gradients move by a sign); bf16
+# mixed against eager, the reference's bf16 spread
+PP_LOSS_TOL = {"train_pp": (1e-4, 1e-3), "train_pp_regularized": (1e-4,),
+               "train_sp": (2e-2, 2e-2)}
+PP_FWD_LAUNCHES = {"ln_qkv_attn": PP_LAYERS * PP_MB, "out_ln_mlp_residual": PP_LAYERS * PP_MB}
+SP_STEP = PP_RUNS["train_sp"][2]
+PPTP_LAYERS = PPTP_DEPTH // 2
+PPTP_QUANT = {name: PPTP_LAYERS * PPTP_MB for name in ("ln_qkv_attn_q8", *TP_KERNELS)}
+PPTP_TRAIN = {name: PPTP_LAYERS * PPTP_MB for name in ("ln_qkv_attn", "ln_mlp_residual",
+                                                        "ln_qkv_attn_bwd", "ln_mlp_residual_bwd")}
+
+
+def _pp_sp_batch(dev, cfg, n: int, seed: int):
+    from vit_tpu_torch.io.images import synth_images
+
+    x = torch.from_numpy(synth_images(n, cfg, seed=seed)).to(dev)
+    y = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.num_classes, n)).to(dev)
+    return x, y
+
+
+def _sgd0(params):
+    """SGD at lr 0: the step leaves the params and keeps the gradients."""
+    from vit_tpu_torch.runtime.trainer import leaves
+
+    return torch.optim.SGD(list(leaves(params)), lr=0.0)
+
+
+def _step_times(step, dev, rounds: int = 3) -> tuple:
+    """(median wall ms of ``rounds`` synchronized steps after one warmup, the
+    profiler's device ms of one step); on a mesh the ranks start together."""
+    import torch.distributed as dist
+
+    walls = []
+    for _ in range(rounds + 1):
+        if dist.is_initialized():
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls[1:]) * 1e3, _device_ms(step, 2)
+
+
+def _grads_of(workdir, name, rank, tree, mesh) -> None:
+    """Gather the gradient tree over ``mesh`` (a collective) and, on rank 0,
+    save it as ``name``.npz."""
+    from vit_tpu_torch.parallel.sharding import unshard_params
+
+    grads = unshard_params(_grad_tree(tree), mesh)
+    if rank == 0:
+        np.savez(f"{workdir}/{name}.npz", **{p: g.float().cpu().numpy() for p, g in _paths(grads)})
+
+
+def _lib_step(report, name, make_step, tree, x, y, want):
+    """One library train step with every count set to 0 just before and
+    read just after -> its loss into ``report``."""
+    wrappers = _reset_counts()
+    loss = float(make_step(tree)(tree, x, y))
+    torch.cuda.synchronize()
+    report["runs"][name] = {"rc": 0 if np.isfinite(loss) else 1, "loss": loss,
+                            "launches": {n: fn.launches for n, fn in wrappers.items()}}
+    report["want"][name] = want
+
+
+def _one_card_losses(workdir: str, flags, steps: int) -> list:
+    """The losses of the one-card train CLI (B/16) with ``flags``."""
+    from vit_tpu_torch.cli.train import main
+
+    path = f"{workdir}/one_card.jsonl"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = main(["--config", "vit_b_16", "--steps", str(steps), "--device", "cuda",
+                   "--log-jsonl", path, *flags])
+    if rc != 0:
+        raise RuntimeError(f"the one-card train CLI {flags} exited {rc}")
+    with open(path) as fh:
+        losses = [json.loads(line)["loss"] for line in fh]
+    os.remove(path)
+    return losses
+
+
+def pp_sp_rank_worker(workdir: str) -> None:
+    """One rank of phase 48 (``torchrun`` starts 2, then 4): on 2 ranks the
+    shift's bits, the pp 2 ``fused`` forward, the train CLI runs of
+    ``PP_RUNS``, the gradients of the pp 2 (plain and regularized) and sp 2
+    ``fused_train`` steps, the sp steps' bf16 losses @224 and @512, the sp 2
+    eager forward and the steps' times; on 4 ranks the pp 2 x tp 2 ``quant``
+    forward and ``fused_train`` gradients at depth 4.  Writes
+    ``pp_sp_rank<r>_of<n>.json`` (rank 0: the logits and gradients)."""
+    import torch.distributed as dist
+
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.params import params_from_numpy
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops import quant
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd as k8
+    from vit_tpu_torch.parallel import make_mesh
+    from vit_tpu_torch.parallel.mesh import shift
+    from vit_tpu_torch.parallel.pipeline import make_pp_train_step, shard_forward_pp
+    from vit_tpu_torch.parallel.sequence import make_sp_train_step, shard_forward_sp
+    from vit_tpu_torch.parallel.sharding import shard_params
+    from vit_tpu_torch.runtime import distributed, trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", distributed.local_rank() % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    distributed.initialize(backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    report = {"runs": {}, "want": {}, "flags": {}, "ms": {}}
+    cfg = VIT_B_16
+
+    def init(c, mesh):
+        tree = vit.init_params(torch.Generator().manual_seed(0), c)
+        return trainer.as_trainable(shard_params(tree, mesh) if mesh is not None else tree, dev)
+
+    if world == 4:
+        # pp 2 x tp 2 at depth 4: the quant forward and the fused_train gradients
+        c4 = dataclasses.replace(cfg, depth=PPTP_DEPTH, name="vit_b_16_depth4")
+        mesh = make_mesh({"pp": 2, "tp": 2})
+        q = quant.cast_quantized_params(quant.quantize_params(
+            params_from_numpy(synth_params(c4, 0), dev, torch.float32)), torch.bfloat16)
+        x, y = _pp_sp_batch(dev, c4, PPTP_BATCH, 11)
+        fwd = shard_forward_pp(c4, mesh, PPTP_MB, ops_name="quant")
+        local = shard_params(q, mesh)
+        wrappers = _reset_counts()
+        logits = fwd(local, x.to(torch.bfloat16)).float().cpu().numpy()
+        torch.cuda.synchronize()
+        report["runs"]["classify_quant_tp_pp"] = {
+            "rc": 0, "launches": {n: fn.launches for n, fn in wrappers.items()}}
+        report["want"]["classify_quant_tp_pp"] = PPTP_QUANT
+        del q, local
+        spies = [_FlagSpy(k5.ln_mlp_residual, "partial", False),
+                 _FlagSpy(k8.ln_mlp_residual_bwd, "residual", True)]
+        k5.ln_mlp_residual, k8.ln_mlp_residual_bwd = spies
+        tree = init(c4, mesh)
+        _lib_step(report, "train_tp_pp", lambda p: make_pp_train_step(
+            c4, _sgd0(p), mesh, PPTP_MB, ops_name="fused_train"), tree, x, y, PPTP_TRAIN)
+        report["flags"]["train_tp_pp"] = {s.flag: [sum(s.values), len(s.values)] for s in spies}
+        _grads_of(workdir, "grads_tp_pp", rank, tree, mesh)
+        if rank == 0:
+            np.save(f"{workdir}/logits_quant_tp_pp.npy", logits)
+        with open(f"{workdir}/pp_sp_rank{rank}_of4.json", "w") as fh:
+            json.dump(report, fh)
+        return
+
+    # 1. the cyclic shift, fp32 and bf16 (signed zero, inf, NaN): what each
+    # rank sent and received, as raw bits
+    pp = make_mesh({"pp": 2})
+    sent = torch.arange(-8, 8, dtype=torch.float32, device=dev).reshape(4, 4) * (rank + 1)
+    sent[0, :3] = torch.tensor([-0.0, float("inf"), float("nan")])
+    report["shift"] = {}
+    for t, ints in ((sent, torch.int32), (sent.to(torch.bfloat16), torch.int16)):
+        got = shift(t, pp, "pp", 1)
+        back = shift(got, pp, "pp", -1)
+        report["shift"][str(t.dtype)] = [t.view(ints).flatten().tolist(),
+                                         got.view(ints).flatten().tolist(),
+                                         back.view(ints).flatten().tolist()]
+
+    # 2. the pp 2 fused forward, B/16 @224 batch 100 bf16, 4 microbatches
+    from vit_tpu_torch.io.images import synth_images
+
+    pbf = vit.cast_params(params_from_numpy(synth_params(cfg, 0), dev, torch.float32),
+                          torch.bfloat16)
+    local = shard_params(pbf, pp)
+    x100 = torch.from_numpy(synth_images(PP_FWD_BATCH, cfg, seed=1)).to(dev, torch.bfloat16)
+    fwd = shard_forward_pp(cfg, pp, PP_MB, ops_name="fused")
+    fwd(local, x100)
+    torch.cuda.synchronize()
+    wrappers = _reset_counts()
+    logits = fwd(local, x100).float().cpu().numpy()
+    torch.cuda.synchronize()
+    report["runs"]["classify_pp"] = {"rc": 0, "launches": {n: f.launches
+                                                           for n, f in wrappers.items()}}
+    report["want"]["classify_pp"] = PP_FWD_LAUNCHES
+    report["ms"]["classify_pp"] = _step_times(lambda: fwd(local, x100), dev)
+    if rank == 0:
+        np.save(f"{workdir}/logits_pp.npy", logits)
+    del pbf, local, x100
+    torch.cuda.empty_cache()
+
+    # 3. the train CLI: pp 2 fp32 (plain, regularized) and sp 2 bf16 mixed
+    for name, (mesh_flags, flags, _, steps, _) in PP_RUNS.items():
+        report["runs"][name] = _train_rank_cli(workdir, [*mesh_flags, *flags], steps, [])
+        torch.cuda.empty_cache()
+
+    # 4. gradients of one step (SGD at lr 0), gathered: pp 2 plain and
+    # regularized, sp 2 fp32; the sp steps' bf16 losses @224 and @512
+    x, y = _pp_sp_batch(dev, cfg, PP_BATCH, 3)
+    tree = init(cfg, pp)
+    pp_step = make_pp_train_step(cfg, _sgd0(tree), pp, PP_MB, ops_name="fused_train")
+    _lib_step(report, "grads_pp", lambda p: pp_step, tree, x, y, PP_RUNS["train_pp"][2])
+    _grads_of(workdir, "grads_pp", rank, tree, pp)
+    report["ms"]["train_pp"] = _step_times(lambda: pp_step(tree, x, y), dev)
+    del tree, pp_step
+    reg = dataclasses.replace(cfg, dropout=REG_P, drop_path=REG_P)
+    tree = init(reg, pp)
+    _lib_step(report, "grads_pp_regularized", lambda p: make_pp_train_step(
+        reg, _sgd0(p), pp, 1, ops_name="fused_train", use_dropout=True,
+        rng=torch.Generator().manual_seed(PP_REG_SEED)), tree, x, y,
+        PP_RUNS["train_pp_regularized"][2])
+    _grads_of(workdir, "grads_pp_regularized", rank, tree, pp)
+    del tree
+    sp = make_mesh({"sp": 2})
+    tree = init(cfg, None)
+    _lib_step(report, "grads_sp", lambda p: make_sp_train_step(
+        cfg, _sgd0(p), sp, ops_name="fused_train"), tree, x, y, SP_STEP)
+    if rank == 0:
+        np.savez(f"{workdir}/grads_sp.npz",
+                 **{p: g.float().cpu().numpy() for p, g in _paths(_grad_tree(tree))})
+    sp_step = make_sp_train_step(cfg, _sgd0(tree), sp, ops_name="fused_train",
+                                 compute_dtype=torch.bfloat16)
+    _lib_step(report, "loss_sp_bf16", lambda p: sp_step, tree, x, y, SP_STEP)
+    report["ms"]["train_sp"] = _step_times(lambda: sp_step(tree, x, y), dev)
+    del tree, sp_step
+    torch.cuda.empty_cache()
+    c512 = cfg.with_image_size(LONG_IMAGE)
+    xl, yl = _pp_sp_batch(dev, c512, SP_LONG_BATCH, 5)
+    tree = init(c512, None)
+    _lib_step(report, "train_sp_long", lambda p: make_sp_train_step(
+        c512, _sgd0(p), sp, ops_name="fused_train", compute_dtype=torch.bfloat16), tree, xl, yl,
+        SP_STEP)
+    del tree
+    torch.cuda.empty_cache()
+
+    # 5. the sp 2 eager forward, fp32 @224
+    p32 = params_from_numpy(synth_params(cfg, 0), dev, torch.float32)
+    x8 = torch.from_numpy(synth_images(SP_FWD_BATCH, cfg, seed=1)).to(dev)
+    with torch.no_grad():
+        logits = shard_forward_sp(cfg, sp)(p32, x8).cpu().numpy()
+    if rank == 0:
+        np.save(f"{workdir}/logits_sp.npy", logits)
+    with open(f"{workdir}/pp_sp_rank{rank}_of2.json", "w") as fh:
+        json.dump(report, fh)
+
+
+def _check_pp_sp_report(rep: dict, r: int, n: int) -> None:
+    for name, run in rep["runs"].items():
+        if run["rc"] != 0:
+            raise RuntimeError(f"rank {r} of {n} {name}: exited {run['rc']} or non-finite")
+        if name in PP_RUNS:
+            steps = PP_RUNS[name][3]
+            _expect_cli(run["launches"], PP_RUNS[name][2], steps, f"rank {r} {name} (B/16, "
+                        f"{steps} step(s))")
+            log(f"rank {r} {name}: per step {_per_step(run['launches'], steps)}")
+        else:
+            _expect_counts_of(run["launches"], rep["want"][name], f"rank {r} of {n} {name}")
+
+
+def phase_pp_sp(dev: torch.device, card: str, workdir: str) -> dict:
+    """Phase 48: pipeline and sequence parallelism, ranks sharing the card
+    over gloo (``torchrun`` with a time limit, ``--rank-pp-sp-worker``):
+    counts per rank and step against the design, the pp and sp results
+    against the one-card paths', the steps' times beside the one-card
+    steps'.  -> launch counts of rank 0 by path."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.io.params import params_from_numpy
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.runtime import trainer
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = VIT_B_16
+    _run_ranks("--rank-pp-sp-worker", workdir, PP_SP_TIMEOUT, "pp/sp ranks")
+    _run_ranks("--rank-pp-sp-worker", workdir, PP_SP_TIMEOUT, "pp x tp ranks", ranks=4)
+    reports = {(r, n): json.load(open(f"{workdir}/pp_sp_rank{r}_of{n}.json"))
+               for n in (2, 4) for r in range(n)}
+    for (r, n), rep in reports.items():
+        _check_pp_sp_report(rep, r, n)
+        if n == 4:
+            _expect_flags(rep["flags"]["train_tp_pp"], PPTP_LAYERS * PPTP_MB,
+                          f"rank {r} of 4 train_tp_pp")
+    for dtype in ("torch.float32", "torch.bfloat16"):
+        bits = [reports[r, 2]["shift"][dtype] for r in range(2)]
+        # rank r receives rank r - 1's tensor, and the shift back returns its own
+        same = all(bits[r][1] == bits[1 - r][0] and bits[r][2] == bits[r][0] for r in range(2))
+        log(f"shift over gloo on the card, {dtype} (signed zero, inf, NaN): received == sent "
+            f"{'bit for bit' if same else 'NOT bit for bit'} on both ranks")
+        if not same:
+            raise RuntimeError(f"the shift over gloo on the card changed {dtype} bits")
+
+    # the pp 2 fused forward against the one-card fused engine, bf16
+    params = synth_params(cfg, 0)
+    images = synth_images(PP_FWD_BATCH, cfg, seed=1)
+    one = InferenceEngine(cfg, params, "bfloat16", "fused", dev, batch_pad=PP_FWD_BATCH)
+    want = one.logits(images).float().cpu().numpy()
+    got = np.load(f"{workdir}/logits_pp.npy")
+    dev_pp = float(np.abs(got - want).max())
+    log(f"pp 2 fused bf16 @224 b{PP_FWD_BATCH} m {PP_MB} vs one-card fused bf16: max|d logit|="
+        f"{dev_pp:.6g} (tol 0.027, the reference's bf16 spread)")
+    _comparator_rule("pp 2 fused bf16 vs one-card fused bf16", _probs(got), _probs(want))
+    one_ms = _step_times(lambda: one.logits(images), dev)
+    del one
+    torch.cuda.empty_cache()
+    if not dev_pp <= 0.027:
+        raise RuntimeError("pp 2 fused logits outside the bf16 spread of the one-card engine's")
+
+    def hold(name, cfg_, x, y, ops, compute_dtype=None, rng_seed=None):
+        tree = vit.init_params(torch.Generator().manual_seed(0), cfg_)
+        loss1, ref = _grads(cfg_, tree, x, y, ops, compute_dtype, dev, rng_seed)
+        got = {k: torch.from_numpy(v).to(dev) for k, v in np.load(f"{workdir}/{name}.npz").items()}
+        worst, leaf = _worst_leaf(got, ref)
+        loss = reports[0, 4 if name == "grads_tp_pp" else 2]["runs"][
+            "train_tp_pp" if name == "grads_tp_pp" else name]["loss"]
+        log(f"{name}: fp32 grads (gathered) vs one-card {ops}: loss {loss:.7g} vs {loss1:.7g} "
+            f"(|d| {abs(loss - loss1):.3g}, tol 1e-4); {len(ref)} leaves, worst {leaf or '(none)'} at "
+            f"{worst:.3g} of its bound (1e-3 x max(1, max|g|))")
+        if worst > 1.0 or set(got) != set(ref) or not abs(loss - loss1) <= 1e-4:
+            raise RuntimeError(f"{name}: gradients or loss outside the one-card step's bounds")
+
+    x, y = _pp_sp_batch(dev, cfg, PP_BATCH, 3)
+    hold("grads_pp", cfg, x, y, "fused_train")
+    hold("grads_pp_regularized", dataclasses.replace(cfg, dropout=REG_P, drop_path=REG_P), x, y,
+         "fused_train", rng_seed=trainer.fold_in(PP_REG_SEED, 0))
+    hold("grads_sp", cfg, x, y, "eager")
+    tree = vit.init_params(torch.Generator().manual_seed(0), cfg)
+    for name, c, (xb, yb) in (("loss_sp_bf16", cfg, (x, y)),
+                              ("train_sp_long", cfg.with_image_size(LONG_IMAGE),
+                               _pp_sp_batch(dev, cfg.with_image_size(LONG_IMAGE),
+                                            SP_LONG_BATCH, 5))):
+        t = tree if c is cfg else vit.init_params(torch.Generator().manual_seed(0), c)
+        loss1 = _grads(c, t, xb, yb, "eager", torch.bfloat16, dev)[0]
+        loss = reports[0, 2]["runs"][name]["loss"]
+        log(f"{name}: sp 2 fused_train bf16 mixed loss {loss:.7g} vs one-card eager {loss1:.7g} "
+            f"(|d| {abs(loss - loss1):.3g}, tol 2e-2)")
+        if not abs(loss - loss1) <= 2e-2:
+            raise RuntimeError(f"{name}: loss outside 2e-2 of the one-card eager step's")
+        torch.cuda.empty_cache()
+
+    # the pp 2 x tp 2 quant forward and fused_train gradients at depth 4
+    c4 = dataclasses.replace(cfg, depth=PPTP_DEPTH, name="vit_b_16_depth4")
+    x4, y4 = _pp_sp_batch(dev, c4, PPTP_BATCH, 11)
+    q1 = InferenceEngine(c4, synth_params(c4, 0), "bfloat16", "quant", dev, batch_pad=PPTP_BATCH)
+    _comparator_rule(f"pp 2 x tp 2 quant bf16 (depth {PPTP_DEPTH}) vs one-card quant bf16",
+                     _probs(np.load(f"{workdir}/logits_quant_tp_pp.npy")),
+                     _probs(q1.logits(x4.cpu().numpy()).float().cpu().numpy()))
+    del q1
+    hold("grads_tp_pp", c4, x4, y4, "fused_train")
+
+    # the sp 2 eager forward against the one-card eager forward, fp32
+    with torch.no_grad():
+        want = vit.forward(params_from_numpy(params, dev, torch.float32),
+                           torch.from_numpy(synth_images(SP_FWD_BATCH, cfg, seed=1)).to(dev),
+                           cfg).cpu().numpy()
+    dev_sp = float(np.abs(np.load(f"{workdir}/logits_sp.npy") - want).max())
+    log(f"sp 2 eager fp32 @224 b{SP_FWD_BATCH} vs one-card eager fp32: max|d logit|="
+        f"{dev_sp:.6g} (tol 1e-4)")
+    if not dev_sp <= 1e-4:
+        raise RuntimeError("sp 2 eager logits outside 1e-4 of the one-card forward's")
+
+    # the CLI runs' losses against the one-card CLI's on the same batches
+    for name, (_, flags, _, steps, ops) in PP_RUNS.items():
+        got = [rec["loss"] for rec in reports[0, 2]["runs"][name]["steps"]]
+        want = _one_card_losses(workdir, [*flags, "--ops", ops], steps)
+        log(f"{name}: the CLI's losses {got} vs one-card {ops} {want} (tol "
+            f"{PP_LOSS_TOL[name]})")
+        if len(got) != steps or not all(abs(a - b) <= tol for a, b, tol
+                                         in zip(got, want, PP_LOSS_TOL[name])):
+            raise RuntimeError(f"{name}: the CLI's losses outside the one-card run's bounds")
+        torch.cuda.empty_cache()
+
+    # times: two ranks sharing one card over gloo, not scaling figures
+    from vit_tpu_torch.ops.dispatch import get_ops
+
+    one_step = {}
+    for name, dtype in (("train_pp", None), ("train_sp", torch.bfloat16)):
+        tr = trainer.as_trainable(tree, dev)
+        step = trainer.make_train_step(cfg, _sgd0(tr), get_ops("fused_train"), remat=False,
+                                       compute_dtype=dtype)
+        one_step[name] = _step_times(lambda: step(tr, x, y), dev)
+        del tr, step
+        torch.cuda.empty_cache()
+    ms = reports[0, 2]["ms"]
+    log(f"pp 2 fused bf16 forward b{PP_FWD_BATCH}: {ms['classify_pp'][0]:.6g} ms wall, "
+        f"{ms['classify_pp'][1]:.6g} ms device (rank 0) against one card's {one_ms[0]:.6g} / "
+        f"{one_ms[1]:.6g}; two ranks sharing one card over gloo, not a scaling figure; {card}")
+    for name, what in (("train_pp", f"pp 2 fused_train fp32 step b{PP_BATCH} m {PP_MB}"),
+                       ("train_sp", f"sp 2 fused_train bf16 mixed step b{SP_BATCH}")):
+        log(f"{what}: {ms[name][0]:.6g} ms wall, {ms[name][1]:.6g} ms device (rank 0) against "
+            f"one card's {one_step[name][0]:.6g} / {one_step[name][1]:.6g}; two ranks sharing "
+            f"one card over gloo, not a scaling figure; {card}")
+    for name in PP_RUNS:
+        log(f"{name} rank 0: " + " / ".join(reports[0, 2]["runs"][name]["stdout"]))
+    launches = {name: reports[0, 2]["runs"][name]["launches"]
+                for name in ("classify_pp", *PP_RUNS, "train_sp_long")}
+    launches.update({name: reports[0, 4]["runs"][name]["launches"]
+                     for name in ("classify_quant_tp_pp", "train_tp_pp")})
+    return launches
+
+
+def group_pp_sp(dev, card, summary, launches) -> None:
+    """Phase 48."""
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+        launches.update(phase_pp_sp(dev, card, workdir))
+
+
 PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw",
-          "parallel", "serve", "mae", "distill", "qat", "data", "recipe")
+          "parallel", "serve", "mae", "distill", "qat", "data", "recipe", "pp_sp")
 
 
 def group_classify(dev, card, summary, launches) -> None:
@@ -5115,6 +5559,8 @@ def main(argv=None) -> None:
                    help="run one rank of phase 45 (torchrun starts these), writing into DIR")
     p.add_argument("--rank-recipe-worker", metavar="DIR",
                    help="run one rank of phase 47 (torchrun starts these), writing into DIR")
+    p.add_argument("--rank-pp-sp-worker", metavar="DIR",
+                   help="run one rank of phase 48 (torchrun starts these), writing into DIR")
     args = p.parse_args(argv)
     if args.rank_worker:
         rank_worker(args.rank_worker)
@@ -5124,6 +5570,9 @@ def main(argv=None) -> None:
         return
     if args.rank_recipe_worker:
         recipe_rank_worker(args.rank_recipe_worker)
+        return
+    if args.rank_pp_sp_worker:
+        pp_sp_rank_worker(args.rank_pp_sp_worker)
         return
     only = PHASES if args.only is None else tuple(args.only.split(","))
     if not set(only) <= set(PHASES):
@@ -5151,7 +5600,7 @@ def main(argv=None) -> None:
               "long": group_long, "quant": group_quant, "tome": group_tome, "dh80": group_dh80,
               "per_op": group_per_op, "adamw": group_adamw, "parallel": group_parallel,
               "serve": group_serve, "mae": group_mae, "distill": group_distill, "qat": group_qat,
-              "data": group_data, "recipe": group_recipe}
+              "data": group_data, "recipe": group_recipe, "pp_sp": group_pp_sp}
     for name in PHASES:
         if name in only:
             t0 = time.perf_counter()

@@ -144,10 +144,12 @@ def _jax_side(modules):
     return [m for m in modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib")]
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tests/test_torch_cuda.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tests/test_torch_cuda.py",
+                                    "tests/torch_pp_sp_worker.py"])
 def test_card_scripts_import_nothing_of_the_jax_package(script):
-    """What runs on the card names no module of JAX or of the JAX package,
-    at the top or inside a function."""
+    """What runs on the card (and the pipeline and sequence tests' rank
+    worker) names no module of JAX or of the JAX package, at the top or
+    inside a function."""
     modules = _imported_modules(REPO / script)
     assert not _jax_side(modules)
     assert any(m.startswith("vit_tpu_torch") for m in modules)
@@ -278,7 +280,9 @@ def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     a Weight_*.bin directory, on a .pth, on --images, with --golden, with
     --ops quant, with --ops per_op --profile, with --attn-rollout and with
     --tome on fused and quant, and under torch.distributed.run on 2 ranks
-    with --tp 2 (fused and quant); the serve CLI's --selftest, saturated and
+    with --tp 2 (fused and quant) and the train CLI with --pp 2 (eager and
+    fused_train) and --sp 2 (eager and fused_train); the serve CLI's
+    --selftest, saturated and
     paced; the train CLI's --data-dir with --eval-data-dir and its
     --image-dir; the eval CLI on shards (fused, quant) and on an image folder
     with --tome: no vit_tpu or jax module gets loaded."""
@@ -389,6 +393,11 @@ config.CONFIGS[cfg.name] = cfg
 for ops in ("fused", "quant"):
     assert classify.main(["--config", cfg.name, "--device", "cpu", "--tp", "2", "--ops", ops,
                           "--weights", {str(tmp_path / "p.npz")!r}, "--synth", "2"]) == 0
+from vit_tpu_torch.cli import train
+for flags in (["--pp", "2", "--microbatches", "1"], ["--sp", "2"]):
+    for ops in ("eager", "fused_train"):
+        assert train.main(["--config", cfg.name, "--device", "cpu", "--steps", "1", "--batch",
+                           "2", "--ops", ops, *flags]) == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib"))
 assert not loaded, loaded
 """)
@@ -399,3 +408,5 @@ assert not loaded, loaded
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.count("mesh: {'dp': 1, 'tp': 2} over 2 rank(s), backend gloo") == 2
     assert out.stdout.count("[1] label:") == 2  # rank 0's lines only
+    assert "pipeline: 2 stage(s), 1 microbatches" in out.stdout
+    assert "sequence parallel: ring size 2 (ops fused_train)" in out.stdout

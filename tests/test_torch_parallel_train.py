@@ -520,7 +520,7 @@ def fake_mesh(monkeypatch, tiny_cfg):
 
     monkeypatch.setitem(tconfig.CONFIGS, tiny_cfg.name, tiny_cfg)
     monkeypatch.setitem(tconfig.CONFIGS, W.DEIT.name, W.DEIT)
-    monkeypatch.setattr(common, "resolve_mesh", lambda dp, tp, device, backend=None: (
+    monkeypatch.setattr(common, "resolve_mesh", lambda dp, tp, device, backend=None, **_: (
         Mesh({"dp": dp or 1, "tp": tp}, 0, {}), device))
     # the exit code's all-reduce over the ranks: one rank here
     monkeypatch.setattr(torch.distributed, "all_reduce", lambda t, op=None, group=None: None)
@@ -533,17 +533,17 @@ BASE = ["--config", "vit_tiny_test", "--steps", "1", "--batch", "4", "--device",
     (["--dp", "2", "--batch", "5"], "error: --batch 5 must be divisible by dp=2"),
     (["--tp", "3", "--ops", "fused_train"], "error: tp=3 must divide num_heads=4"),
     (["--tp", "2", "--ops", "fused_train", "--dropout", "0.1"],
-     "error: --dropout/--drop-path require --ops eager, qat, or fused_train on a dp mesh "
-     "(no --tp)"),
+     "error: --dropout/--drop-path require --ops eager, qat, or fused_train on a dp or dp x pp "
+     "mesh (no --tp/--sp)"),
     (["--tp", "2", "--ops", "fused_train", "--drop-path", "0.1"],
-     "error: --dropout/--drop-path require --ops eager, qat, or fused_train on a dp mesh "
-     "(no --tp)"),
+     "error: --dropout/--drop-path require --ops eager, qat, or fused_train on a dp or dp x pp "
+     "mesh (no --tp/--sp)"),
     (["--tp", "2", "--ops", "fused_train", "--tome", "2"],
      "error: --tome training requires --ops fused_train or eager on a dp mesh"),
     (["--tp", "2", "--ops", "fused_train", "--mae"],
      "error: --mae with --tp>1 requires --ops eager (the MAE kernel path is dp-only)"),
     (["--tp", "2", "--ops", "fused_train", "--grad-accum", "2"],
-     "error: --grad-accum supports the dp paths only (no --tp)"),
+     "error: --augment/--grad-accum support the dp paths only (no --pp/--tp/--sp)"),
     (["--tp", "2", "--ops", "fused_train", "--optimizer", "fused_adamw"],
      "error: --optimizer fused_adamw requires --ops fused_train and tp=1"),
 ])

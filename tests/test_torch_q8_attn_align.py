@@ -38,6 +38,8 @@ from vit_tpu_torch.ops.kernels import ln_mlp_residual_q8 as k17
 from vit_tpu_torch.ops.kernels import ln_qkv_attn_q8 as k15
 from vit_tpu_torch.ops.kernels.kmajor_q8 import kmajor_q8
 
+from torch_spy_record import record
+
 DTYPES = [torch.float32, torch.bfloat16]
 EPS = 1e-6
 # (D, heads, MLP width): the tiny test config's and ViT-B/16's
@@ -150,12 +152,9 @@ def _images(cfg, dtype, n=2):
     return torch.from_numpy(synth_images(n, cfg, seed=2)).to(dtype)
 
 
-@pytest.mark.parametrize("long", [False, True], ids=["short", "long_blocks"])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_quant_forward_operands_pass(monkeypatch, long, width, dtype):
-    # K15 @224, and its stages 1-2 (ln_qkv_q8) past the switch, reached at
-    # 17 tokens by lowering it, as tests/test_torch_quant.py does
+def _quant_forward_run(monkeypatch, long, width, dtype):
+    """The ``quant`` forward with K15's (or its stages 1-2's) spy -> (cfg,
+    calls)."""
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops import fused_block, get_ops, quant_block
 
@@ -165,6 +164,24 @@ def test_quant_forward_operands_pass(monkeypatch, long, width, dtype):
     calls = _spy(monkeypatch, quant_block, "ln_qkv_q8" if long else "ln_qkv_attn_q8")
     with torch.inference_mode():
         vit.forward(_quant_params(cfg, dtype), _images(cfg, dtype), cfg, get_ops("quant"))
+    return cfg, calls
+
+
+@pytest.fixture(scope="module")
+def quant_forward_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_quant_forward_run, [(long, "b16", dtype) for long in (False, True)
+                                       for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("long", [False, True], ids=["short", "long_blocks"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_quant_forward_operands_pass(monkeypatch, request, long, width, dtype):
+    # K15 @224, and its stages 1-2 (ln_qkv_q8) past the switch, reached at
+    # 17 tokens by lowering it, as tests/test_torch_quant.py does
+    cfg, calls = (request.getfixturevalue("quant_forward_b16")[long, width, dtype]
+                  if width == "b16" else _quant_forward_run(monkeypatch, long, width, dtype))
     _check_k15(calls, cfg.depth, dtype, cfg.embed_dim)
     assert all(args[0].shape[0] == 2 * cfg.seq_len for args, _ in calls)
 
@@ -190,15 +207,9 @@ def test_tome_quant_forward_operands_pass(monkeypatch, width, dtype):
     assert any(kwargs.get("log_size") is not None for _, kwargs in k15_calls)
 
 
-@pytest.mark.parametrize("long", [False, True], ids=["short", "long_blocks"])
-@pytest.mark.parametrize("tp", [2, 4])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_tp_quant_operands_pass(monkeypatch, long, tp, width, dtype):
-    # parallel/tp_forward on `quant`: K15 at each rank's local heads (W_qkv
-    # d x 3D/tp: 1,152 and 576 columns at B/16), its stages 1-2 past the
-    # switch (sharding.shard_params at that rank's coordinates; a
-    # one-process mesh whose all-reduces do nothing)
+def _tp_quant_run(monkeypatch, long, tp, width, dtype):
+    """``shard_forward_tp`` on ``quant`` at every rank of tp with K15's (or
+    its stages 1-2's) spy -> (cfg, each rank's calls)."""
     from vit_tpu_torch.ops import fused_block
     from vit_tpu_torch.parallel.mesh import Mesh
     from vit_tpu_torch.parallel.sharding import shard_params
@@ -206,7 +217,7 @@ def test_tp_quant_operands_pass(monkeypatch, long, tp, width, dtype):
 
     cfg = _model_cfg(width)
     params, images = _quant_params(cfg, dtype), _images(cfg, dtype)
-    d = cfg.embed_dim
+    ranks = []
     for rank in range(tp):
         if long:
             monkeypatch.setattr(fused_block, "VMEM_ATTENTION_MAX_T", 4)
@@ -214,9 +225,34 @@ def test_tp_quant_operands_pass(monkeypatch, long, tp, width, dtype):
         mesh = Mesh({"tp": tp}, rank, {"tp": None})
         with torch.inference_mode():
             shard_forward_tp(cfg, mesh, "quant")(shard_params(params, mesh), images)
+        ranks.append(calls)
+        monkeypatch.undo()
+    return cfg, ranks
+
+
+@pytest.fixture(scope="module")
+def tp_quant_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_tp_quant_run, [(long, tp, "b16", dtype) for long in (False, True)
+                                  for tp in (2, 4) for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("long", [False, True], ids=["short", "long_blocks"])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_tp_quant_operands_pass(monkeypatch, request, long, tp, width, dtype):
+    # parallel/tp_forward on `quant`: K15 at each rank's local heads (W_qkv
+    # d x 3D/tp: 1,152 and 576 columns at B/16), its stages 1-2 past the
+    # switch (sharding.shard_params at that rank's coordinates; a
+    # one-process mesh whose all-reduces do nothing)
+    cfg, ranks = (request.getfixturevalue("tp_quant_b16")[long, tp, width, dtype]
+                  if width == "b16" else _tp_quant_run(monkeypatch, long, tp, width, dtype))
+    d = cfg.embed_dim
+    assert len(ranks) == tp
+    for calls in ranks:
         _check_k15(calls, cfg.depth, dtype, d)
         assert all(args[3].shape == (d, 3 * d // tp) for args, _ in calls)
-        monkeypatch.undo()
 
 
 def test_bench_kernels_operands_pass(monkeypatch):

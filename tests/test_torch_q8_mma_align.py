@@ -36,6 +36,8 @@ from vit_tpu_torch.ops.kernels import mlp as k22
 from vit_tpu_torch.ops.kernels.kmajor_q8 import kmajor_q8
 from vit_tpu_torch.ops.kernels import out_ln_mlp_residual_q8 as k16
 
+from torch_spy_record import record
+
 DTYPES = [torch.float32, torch.bfloat16]
 EPS = 1e-6
 # (D, heads, MLP width): the tiny test config's and ViT-B/16's
@@ -204,12 +206,8 @@ def test_phase_report_operands_pass(monkeypatch, ops, width):
         k22.check_tile_operands(*args, **kwargs)
 
 
-@pytest.mark.parametrize("long", [False, True], ids=["short", "long_blocks"])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_quant_forward_operands_pass(monkeypatch, long, width, dtype):
-    # K16 behind K15 (@224), and behind ln_qkv_q8 + K13 past the switch,
-    # reached at 17 tokens by lowering it, as tests/test_torch_quant.py does
+def _quant_forward_run(monkeypatch, long, width, dtype):
+    """The ``quant`` forward with K16's spy -> (cfg, calls)."""
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops import fused_block, get_ops, quant_block
 
@@ -220,6 +218,24 @@ def test_quant_forward_operands_pass(monkeypatch, long, width, dtype):
     calls = _spy(monkeypatch, quant_block, "out_ln_mlp_residual_q8")
     with torch.inference_mode():
         vit.forward(params, _images(cfg).to(dtype), cfg, get_ops("quant"))
+    return cfg, calls
+
+
+@pytest.fixture(scope="module")
+def quant_forward_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_quant_forward_run, [(long, "b16", dtype) for long in (False, True)
+                                       for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("long", [False, True], ids=["short", "long_blocks"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_quant_forward_operands_pass(monkeypatch, request, long, width, dtype):
+    # K16 behind K15 (@224), and behind ln_qkv_q8 + K13 past the switch,
+    # reached at 17 tokens by lowering it, as tests/test_torch_quant.py does
+    cfg, calls = (request.getfixturevalue("quant_forward_b16")[long, width, dtype]
+                  if width == "b16" else _quant_forward_run(monkeypatch, long, width, dtype))
     assert len(calls) == cfg.depth
     for args, kwargs in calls:
         assert args[0].shape == (2 * cfg.seq_len, cfg.embed_dim) and args[0].dtype == dtype

@@ -464,8 +464,9 @@ def test_train_cli_has_no_flags_of_later_slices():
     from vit_tpu_torch.cli.train_args import build_parser
 
     flags = {o for a in build_parser()._actions for o in a.option_strings}
-    for later in ("--zero1", "--fsdp", "--pp", "--sp"):
+    for later in ("--zero1", "--fsdp"):
         assert later not in flags
+    assert {"--pp", "--microbatches", "--sp"} <= flags  # pipeline and sequence parallelism's
     # the training loop's state and recipe's
     assert {"--save-state", "--save-every", "--resume", "--ema-decay", "--save-ema", "--augment",
             "--mixup-alpha", "--cutmix-alpha", "--freeze-backbone", "--skip-nonfinite",

@@ -1,14 +1,15 @@
 """The classify CLI's mesh preamble — counterpart of ``vit_tpu.cli.common``'s
 ``resolve_mesh``.
 
-``--tp``/``--dp`` run the CLI SPMD under ``torchrun --nproc-per-node N``:
-one process per rank, each joining the process group
-(``runtime/distributed.py``), building its :class:`~vit_tpu_torch.parallel.
-mesh.Mesh` and classifying the whole batch with its shard of the work.
+``--tp``/``--dp`` (and the train CLI's ``--pp``/``--sp``) run the CLI SPMD
+under ``torchrun --nproc-per-node N``: one process per rank, each joining
+the process group (``runtime/distributed.py``), building its
+:class:`~vit_tpu_torch.parallel.mesh.Mesh` and doing its shard of the work.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 
@@ -19,21 +20,34 @@ class MeshError(ValueError):
     """A mesh the flags ask for cannot be built here (the CLI exits 2)."""
 
 
-def resolve_mesh(dp, tp: int, device: str = "cuda", backend=None, out=None):
-    """--dp/--tp flags -> (this rank's Mesh, its device), or (None, device)
-    for the single-device default.
+def _train_shape(world: int, dp, tp: int, pp: int, sp: int) -> dict:
+    """The train CLI's ``{dp, sp}`` (``{sp}`` at dp 1) or ``{dp, pp[, tp]}``
+    mesh, the JAX package's, unset --dp filling the world."""
+    if sp > 1:
+        dp = dp or max(world // sp, 1)
+        return {"dp": dp, "sp": sp} if dp > 1 else {"sp": sp}
+    dp = dp or max(world // (pp * tp), 1)
+    return {"dp": dp, "pp": pp, **({"tp": tp} if tp > 1 else {})}
+
+
+def resolve_mesh(dp, tp: int, device: str = "cuda", backend=None, out=None, pp: int = 1,
+                 sp: int = 1):
+    """--dp/--tp (--pp/--sp) flags -> (this rank's Mesh, its device), or
+    (None, device) for the single-device default.
 
     The ranks come from ``torchrun``'s environment and must be exactly
-    dp x tp (unset --dp: the world size over tp); otherwise
-    :class:`MeshError`.  On the card each rank takes card LOCAL_RANK
+    dp x tp (unset --dp: the world size over tp), dp x pp x tp or dp x sp;
+    otherwise :class:`MeshError`.  On the card each rank takes card LOCAL_RANK
     modulo the cards of its host — its own card under NCCL, or one card
     shared by every rank under gloo.  Rank 0 prints the mesh and the
     backend."""
-    if not (tp > 1 or dp):
+    if not (tp > 1 or dp or pp > 1 or sp > 1):
         return None, device
+    flags = f"--tp {tp}/--dp {dp}" + (f"/--pp {pp}" if pp > 1 else "") + (
+        f"/--sp {sp}" if sp > 1 else "")
     if "WORLD_SIZE" not in os.environ or "MASTER_ADDR" not in os.environ:
         raise MeshError(
-            f"--tp {tp}/--dp {dp} need one process per rank: run the CLI under "
+            f"{flags} need one process per rank: run the CLI under "
             "`torchrun --nproc-per-node N` (no torchrun world found)"
         )
     from vit_tpu_torch.parallel import make_mesh, mesh_shape_for
@@ -41,9 +55,15 @@ def resolve_mesh(dp, tp: int, device: str = "cuda", backend=None, out=None):
 
     world = int(os.environ["WORLD_SIZE"])
     try:
-        shape = mesh_shape_for(world, tp=tp, dp=dp)
+        if pp > 1 or sp > 1:
+            shape = _train_shape(world, dp, tp, pp, sp)
+            need = math.prod(shape.values())
+            if need != world:
+                raise ValueError(f"mesh {shape} needs {need} ranks, have {world}")
+        else:
+            shape = mesh_shape_for(world, tp=tp, dp=dp)
     except ValueError as e:
-        raise MeshError(f"--tp {tp}/--dp {dp} over a torchrun world of {world}: {e}") from e
+        raise MeshError(f"{flags} over a torchrun world of {world}: {e}") from e
     if device == "cuda" and torch.cuda.is_available():
         device = f"cuda:{distributed.local_rank() % torch.cuda.device_count()}"
         torch.cuda.set_device(device)

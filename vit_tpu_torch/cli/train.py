@@ -16,7 +16,11 @@ batch plus an int32 label file, or synthetic.
 trains tensor-parallel through the fused kernels (K1/K6 at the local
 heads, K5 partial/K8 ``residual=False`` over the local hidden columns),
 ``--dp`` splits each batch over the ranks on any op table (MAE and
-distillation too).  Every rank draws the same global batch and keeps its
+distillation too), ``--pp`` pipelines the layer stack over stages in
+``--microbatches`` (``eager``, ``fused_train``; with ``--tp`` the
+tensor-parallel fused block), ``--sp`` splits the tokens over a ring
+(``eager`` with ring attention, ``fused_train`` with K4/K9 and K5/K8 on
+each shard).  Every rank draws the same global batch and keeps its
 dp slice; rank 0 alone prints, logs and saves (whole params); every rank
 exits with the worst rank's code.
 
@@ -49,6 +53,10 @@ Usage::
         --config vit_b_16 --steps 3 --batch 16 --tp 2 --dist-backend gloo
     torchrun --standalone --nproc-per-node 2 -m vit_tpu_torch.cli.train \
         --config vit_b_16 --steps 2 --batch 4 --dp 2 --device cpu
+    torchrun --standalone --nproc-per-node 2 -m vit_tpu_torch.cli.train \
+        --config vit_b_16 --steps 2 --batch 8 --pp 2 --microbatches 4 --dist-backend gloo
+    torchrun --standalone --nproc-per-node 2 -m vit_tpu_torch.cli.train \
+        --config vit_b_16 --steps 2 --batch 8 --sp 2 --ops fused_train --dist-backend gloo
 
 Flag definitions in cli/train_args.py, run construction in
 cli/train_setup.py, the step loop in cli/train_loop.py.

@@ -1,10 +1,10 @@
 """Argument parser for the training CLI (vit-tpu-torch-train).
 
 The flags of ``vit_tpu.cli.train_args`` that the PyTorch port runs, with
-``--tp``/``--dp`` under ``torchrun`` (one process per rank) and
-``--dist-backend`` in place of the coordinator flags; the ZeRO-1, FSDP,
-pipeline, sequence-parallel and multihost flags wait for their slices of
-the port (ROADMAP.md item 14).
+``--tp``/``--dp``/``--pp``/``--sp`` under ``torchrun`` (one process per
+rank) and ``--dist-backend`` in place of the coordinator flags; the ZeRO-1,
+FSDP and multihost flags wait for their slices of the port (ROADMAP.md
+item 14).
 """
 
 from __future__ import annotations
@@ -166,8 +166,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel size")
     p.add_argument("--dp", type=int, default=None, help="data-parallel size")
     p.add_argument(
+        "--pp", type=int, default=1,
+        help="pipeline-parallel stages over the layer stack; composes with "
+        "--dp/--tp into 3D parallelism (parallel/pipeline.py). Requires "
+        "--ops eager (dp x pp) or fused_train (dp x pp x tp)",
+    )
+    p.add_argument(
+        "--microbatches", type=int, default=None,
+        help="pipeline microbatches per step (default: 2 x pp)",
+    )
+    p.add_argument(
+        "--sp", type=int, default=1,
+        help="sequence-parallel size: tokens shard over an 'sp' ring, "
+        "attention runs as ring attention (parallel/sequence.py). Composes "
+        "with --dp; requires --ops eager or fused_train; excludes --pp/--tp",
+    )
+    p.add_argument(
         "--dist-backend", default=None, choices=["nccl", "gloo"],
-        help="torch.distributed backend of --tp/--dp, run under `torchrun "
+        help="torch.distributed backend of --tp/--dp/--pp/--sp, run under `torchrun "
         "--nproc-per-node N` (default: nccl where every rank has a card of its "
         "own, gloo on the CPU; gloo lets ranks share one card)",
     )
@@ -205,7 +221,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="comma-separated augmentations applied on the device inside "
         "the train step (runtime/augment.py): any of flip,crop,mixup,"
         "cutmix (e.g. --augment crop,flip,mixup). mixup+cutmix alternate "
-        "50/50 per step. dp paths only (not with --tp>1)",
+        "50/50 per step. dp paths only (not with --pp, --tp>1, or --sp)",
     )
     p.add_argument(
         "--label-smoothing", type=float, default=0.0, metavar="EPS",
@@ -222,7 +238,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--grad-accum", type=int, default=1, metavar="K",
         help="accumulate gradients over K microbatches per step (K must "
-        "divide --batch)",
+        "divide the per-dp-shard batch). dp paths only (not with --pp, --tp>1, or --sp)",
     )
     p.add_argument(
         "--dropout", type=float, default=0.0, metavar="P",

@@ -6,8 +6,9 @@ EMA params when ``--ema-decay`` is on), ``--save-state`` every
 ``--save-every`` steps and at the end, checkpointing on SIGTERM, and the
 final ``--save``, ``--save-backbone``, ``--save-ema`` and
 ``--save-reference``.  On a mesh each rank steps on its dp slice of the
-global batch, and rank 0 alone writes, the whole tree (under ``--tp``
-every rank gathers it first: a collective)."""
+global batch, and rank 0 alone writes, the whole tree (under ``--tp`` or
+``--pp`` every rank gathers it first: a collective; a pipelined run's
+archives are one-card archives)."""
 
 from __future__ import annotations
 
@@ -34,17 +35,15 @@ def run(args, st) -> int:
     from vit_tpu_torch.io import checkpoint as ckpt
     from vit_tpu_torch.io import weights as wio
     from vit_tpu_torch.io.params import params_to_numpy
+    from vit_tpu_torch.parallel.sharding import splits_params, unshard_params
     from vit_tpu_torch.runtime import trainer
 
     mesh = st.mesh
     lead = mesh is None or mesh.rank == 0
-    tp = mesh is not None and mesh.size("tp") > 1
 
     def whole(tree):
-        if not tp:
+        if not splits_params(mesh):
             return tree
-        from vit_tpu_torch.parallel.sharding import unshard_params
-
         return unshard_params(tree, mesh)  # every rank takes part
 
     def log_jsonl(record: dict) -> None:
@@ -53,7 +52,7 @@ def run(args, st) -> int:
                 fh.write(json.dumps(record) + "\n")
 
     def evaluate(s: int, final: bool = False) -> None:
-        # under --tp every rank takes part
+        # under --tp or --pp every rank takes part
         acc = st.run_eval(st.ema if st.ema is not None else st.params)
         which = "ema" if st.ema is not None else "params"
         print(f"{'final' if final else f'step {s:4d} '} eval top-1 {acc:.4f} ({which})")

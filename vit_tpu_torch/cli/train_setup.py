@@ -3,9 +3,12 @@ device, op table, params, optimizer, resume, step, data and EMA.
 Counterpart of ``vit_tpu.cli.train_setup``; ``prepare(args)`` returns a
 :class:`TrainSetup`, and invalid flags raise :class:`SetupError` (the CLI
 prints the message and exits 2), in the JAX package's order and words.
-What the JAX package runs through GSPMD tensor parallelism (``--tp`` on
-``eager`` or ``qat``, and so distillation and MAE with ``--tp``) raises
-``NotImplementedError`` (ROADMAP.md item 14).
+``--pp`` trains pipelined over the layer stack (``parallel/pipeline.py``,
+composing with ``--dp`` and ``--tp``), ``--sp`` over a ring of token shards
+(``parallel/sequence.py``, composing with ``--dp``).  What the JAX package
+runs through GSPMD tensor parallelism (``--tp`` on ``eager`` or ``qat``,
+and so distillation and MAE with ``--tp``) raises ``NotImplementedError``
+(ROADMAP.md item 14).
 """
 
 from __future__ import annotations
@@ -55,8 +58,9 @@ class TrainSetup:
     stream: Optional[Iterator] = None
     # --eval-data-dir: params -> held-out top-1 (else None)
     run_eval: Optional[Callable] = None
-    # this rank's place under --tp/--dp (None: one device); the params are
-    # its shard, and each step takes its dp slice of the global batch
+    # this rank's place under --tp/--dp/--pp/--sp (None: one device); the
+    # params are its part (its tp shards, its pp stage's layers), and each
+    # step takes its dp slice of the global batch
     mesh: Optional[Mesh] = None
     start_step: int = 0  # the first step's number (--resume: the archive's step)
     # --skip-nonfinite: apply_if_finite's rule and counters (else None)
@@ -126,15 +130,16 @@ def _trained(params, freeze_backbone: bool) -> dict:
     return {k: params[k] for k in ("head", "head_dist") if k in params}
 
 
-def _augment(args, cfg, tp: int):
+def _augment(args, cfg, dp_only: bool):
     """--augment and its alphas -> ``runtime/augment.make_augment_fn``'s
     function, or None without --augment."""
+    if (args.augment or args.grad_accum > 1) and not dp_only:
+        raise SetupError(
+            "error: --augment/--grad-accum support the dp paths only (no --pp/--tp/--sp)")
     if not args.augment:
         return None
     from vit_tpu_torch.runtime.augment import make_augment_fn
 
-    if tp > 1:
-        raise SetupError("error: --augment/--grad-accum support the dp paths only (no --tp)")
     try:
         fn = make_augment_fn([a.strip() for a in args.augment.split(",") if a.strip()],
                              cfg.num_classes, label_smoothing=args.label_smoothing,
@@ -178,7 +183,7 @@ def _build_data(args, cfg, mesh: Optional[Mesh], device, start_step: int):
     """--data-dir/--image-dir -> a prefetch stream of this rank's rows of
     each global batch, on ``device``: the batches a one-device run with the
     same seed draws (``EpochStream.batch_indices`` from ``start_step`` on),
-    each rank reading only its dp rows (tp ranks the same rows).  None
+    each rank reading only its dp rows (tp, pp and sp ranks the same rows).  None
     without either flag."""
     if not (args.data_dir or args.image_dir):
         return None
@@ -231,14 +236,14 @@ def _build_eval(args, cfg, mesh: Optional[Mesh], device):
     """--eval-data-dir -> ``run_eval(params) -> top-1``: the first n_eval
     images of the held-out shards (whole batches, at most --eval-batches),
     scored by the fp32 eager forward with TF32 off, as the JAX package
-    scores them with its fp32 ``xla``-tier forward.  Under --tp every rank
-    gathers the whole tree first (a collective: every rank evaluates)."""
+    scores them with its fp32 ``xla``-tier forward.  Under --tp or --pp every
+    rank gathers the whole tree first (a collective: every rank evaluates)."""
     if not args.eval_every:
         raise SetupError("error: --eval-data-dir requires --eval-every N")
     from vit_tpu_torch.io.dataset import BinShardDataset
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops.dispatch import get_ops
-    from vit_tpu_torch.parallel.sharding import unshard_params
+    from vit_tpu_torch.parallel.sharding import splits_params, unshard_params
 
     eval_ds = BinShardDataset(args.eval_data_dir, require_labels=True,
                               num_classes=cfg.num_classes)
@@ -251,7 +256,7 @@ def _build_eval(args, cfg, mesh: Optional[Mesh], device):
     eager = get_ops("eager")
 
     def run_eval(params) -> float:
-        if mesh is not None and mesh.size("tp") > 1:
+        if splits_params(mesh):
             params = unshard_params(params, mesh)
         correct = 0
         with torch.no_grad(), _fp32_matmuls():
@@ -265,7 +270,7 @@ def _build_eval(args, cfg, mesh: Optional[Mesh], device):
     return run_eval
 
 
-def _tome_forward(args, cfg, ops_name: str, tp: int = 1):
+def _tome_forward(args, cfg, ops_name: str, dp_only: bool = True):
     """--tome/--tome-chunk -> the merged-token forward ``(params, images,
     dropout_rng) -> logits`` for the trainer, or None without --tome."""
     if args.tome_chunk is not None and not args.tome:
@@ -279,7 +284,7 @@ def _tome_forward(args, cfg, ops_name: str, tp: int = 1):
         return None
     from vit_tpu_torch.models import tome
 
-    if ops_name not in ("fused_train", "eager") or tp > 1:
+    if ops_name not in ("fused_train", "eager") or not dp_only:
         raise SetupError("error: --tome training requires --ops fused_train or eager on a dp mesh")
     if args.mae or args.distill_teacher:
         raise SetupError(
@@ -320,13 +325,14 @@ def _mae_config(args, cfg, ops_name: str, tp: int = 1):
     from vit_tpu_torch.models import mae
 
     if (args.distill_teacher or args.augment or args.label_smoothing or args.dropout
-            or args.drop_path or args.grad_accum > 1 or args.num_classes
+            or args.drop_path or args.pp > 1 or args.sp > 1 or args.grad_accum > 1
+            or args.num_classes
             or args.freeze_backbone or args.eval_data_dir or args.init_weights
             or args.save_reference or args.optimizer == "fused_adamw"):
         raise SetupError(
             "error: --mae is self-supervised pretraining — it excludes the label-dependent "
             "and layout-specific flags (--distill-teacher/--augment/--label-smoothing/"
-            "--dropout/--drop-path/--grad-accum/--num-classes/--freeze-backbone/"
+            "--dropout/--drop-path/--pp/--sp/--grad-accum/--num-classes/--freeze-backbone/"
             "--eval-data-dir/--init-weights/--save-reference/--optimizer fused_adamw); use "
             "--resume for warm starts and --save-backbone + --init-weights for downstream "
             "fine-tuning"
@@ -388,6 +394,8 @@ def _teacher(args, cfg, ops_name: str, device, compute_dtype, tp: int = 1):
             "error: --distill-teacher with --tp > 1 requires --ops eager or qat (the kernel-TP "
             "train step has no teacher leg); fused_train distillation runs on a dp mesh"
         )
+    if args.pp > 1 or args.sp > 1:
+        raise SetupError("error: --distill-teacher composes with --dp/--tp only (no --pp/--sp)")
     if args.grad_accum > 1 or args.dropout or args.drop_path or args.augment:
         raise SetupError(
             "error: --distill-teacher composes with none of --grad-accum/--dropout/--drop-path/"
@@ -444,20 +452,46 @@ def _teacher(args, cfg, ops_name: str, device, compute_dtype, tp: int = 1):
     return teacher_fwd
 
 
+def _mesh_flags(args) -> None:
+    """The JAX package's ``_build_mesh`` refusals of --sp and --pp, in its
+    order and words; --sp on --ops auto takes the eager tier."""
+    if args.sp > 1:
+        if args.pp > 1 or args.tp > 1:
+            raise SetupError("error: --sp composes with --dp only (no --pp/--tp)")
+        if args.optimizer == "fused_adamw":
+            raise SetupError("error: --sp supports the plain optimizer (--optimizer adamw)")
+        if args.ops not in ("auto", "eager", "fused_train"):
+            raise SetupError(
+                "error: --sp requires --ops eager or fused_train (the ring itself is plain "
+                "PyTorch collectives; fused_train runs each shard's out_proj/MLP through the "
+                "split CUDA kernels)"
+            )
+        if args.ops == "auto":
+            args.ops = "eager"
+    elif args.pp > 1:
+        if args.mixed_precision or args.optimizer == "fused_adamw":
+            raise SetupError(
+                "error: --pp supports the plain optimizer at the params' dtype "
+                "(no --mixed-precision/--optimizer fused_adamw)"
+            )
+
+
 def build_mesh(args) -> tuple:
-    """--tp/--dp/--dist-backend -> (this rank's Mesh, or None for one
-    device; its torch.device).  The ranks come from ``torchrun``
+    """--tp/--dp/--pp/--sp/--dist-backend -> (this rank's Mesh, or None for
+    one device; its torch.device).  The ranks come from ``torchrun``
     (``cli/common.resolve_mesh``): each takes card LOCAL_RANK modulo the
     card count, and gloo only when asked for."""
     from vit_tpu_torch.cli import common
 
+    _mesh_flags(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda: torch.cuda.is_available() is False (no NVIDIA card "
             "or a CPU-only PyTorch); pass --device cpu to train on the CPU"
         )
     try:
-        mesh, device = common.resolve_mesh(args.dp, args.tp, args.device, args.dist_backend)
+        mesh, device = common.resolve_mesh(args.dp, args.tp, args.device, args.dist_backend,
+                                           pp=args.pp, sp=args.sp)
     except (common.MeshError, RuntimeError) as e:
         raise SetupError(f"error: {e}") from e
     return mesh, torch.device(device)
@@ -479,12 +513,13 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
     from vit_tpu_torch.io.params import params_from_numpy
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops.dispatch import get_ops
-    from vit_tpu_torch.parallel.sharding import shard_params
+    from vit_tpu_torch.parallel.sharding import shard_params, splits_params
     from vit_tpu_torch.runtime import trainer
 
     if device is None:
         mesh, device = build_mesh(args)
-    dp, tp = (mesh.size("dp"), mesh.size("tp")) if mesh is not None else (1, 1)
+    dp, tp, pp, sp = ((mesh.size("dp"), mesh.size("tp"), mesh.size("pp"), mesh.size("sp"))
+                      if mesh is not None else (1, 1, 1, 1))
     load_cfg = resolve_config(args.config)  # --init-weights loads under its own head
     cfg = resolve_config(args.config, args.num_classes)
     ops_name = args.ops
@@ -494,6 +529,14 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
             ops_name = "eager"
         else:
             ops_name = "fused_train" if device.type == "cuda" else "eager"
+    if pp > 1:  # the JAX package's _resolve_ops
+        if ops_name not in ("eager", "fused_train"):
+            raise SetupError("error: --pp supports --ops eager or fused_train")
+        if tp > 1 and ops_name != "fused_train":
+            raise SetupError("error: --pp with --tp requires --ops fused_train (the "
+                             "tensor-parallel fused block)")
+        if cfg.depth % pp:
+            raise SetupError(f"error: --pp {pp} must divide depth {cfg.depth}")
     if args.batch % dp:
         raise SetupError(f"error: --batch {args.batch} must be divisible by dp={dp}")
     compute_dtype = torch.bfloat16 if args.mixed_precision else None
@@ -510,11 +553,13 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
         # eager and qat: masks drawn in the plain blocks; fused_train:
         # regenerated in the kernels from one seed per layer
         # (ops/trainable.py).  --ops takes no table without regularizer
-        # hooks (argparse refuses fused); --tp has no regularized kernels.
-        if tp > 1:
+        # hooks (argparse refuses fused); --tp and --sp have no regularized
+        # kernels; under --pp the layers' seeds and rates split with the
+        # stages (parallel/pipeline.py).
+        if tp > 1 or sp > 1:
             raise SetupError(
                 "error: --dropout/--drop-path require --ops eager, qat, or fused_train on a dp "
-                "mesh (no --tp)"
+                "or dp x pp mesh (no --tp/--sp)"
             )
         max_t = fused_block.VMEM_ATTENTION_MAX_T
         if ops_name == "fused_train" and cfg.seq_len > max_t:
@@ -525,12 +570,11 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
             )
         cfg = dataclasses.replace(cfg, dropout=args.dropout, drop_path=args.drop_path)
         print(f"dropout: {args.dropout}  drop_path: {args.drop_path}")
-    tome_forward = _tome_forward(args, cfg, ops_name, tp)
+    dp_only = tp == pp == sp == 1
+    tome_forward = _tome_forward(args, cfg, ops_name, dp_only)
     mae_cfg = _mae_config(args, cfg, ops_name, tp)
     teacher_fwd = _teacher(args, cfg, ops_name, device, compute_dtype, tp)
-    if args.grad_accum > 1 and tp > 1:
-        raise SetupError("error: --grad-accum supports the dp paths only (no --tp)")
-    augment_fn = _augment(args, cfg, tp)
+    augment_fn = _augment(args, cfg, dp_only)
     if args.save_ema and not args.ema_decay:
         raise SetupError("error: --save-ema requires --ema-decay")
 
@@ -583,8 +627,8 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
     start_step, opt_leaves = 0, None
     if args.resume:
         # params, optimizer and step, held against this run's optimizer
-        # layout (the whole tree's shapes: under --tp each rank then keeps
-        # its shards)
+        # layout (the whole tree's shapes: under --tp/--pp each rank then
+        # keeps its part)
         template = trainer.opt_state_shapes(_trained(params, args.freeze_backbone), schedule,
                                             guard)
         try:
@@ -598,7 +642,8 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
         for what, n in (("num_heads", cfg.num_heads), ("mlp_dim", cfg.mlp_dim)):
             if n % tp:
                 raise SetupError(f"error: tp={tp} must divide {what}={n}")
-        # each rank keeps and updates its own shard (the same seed on every
+    if splits_params(mesh):
+        # each rank keeps and updates its own part (the same seed on every
         # rank makes the same whole tree first)
         params = shard_params(params, mesh)
     params = trainer.as_trainable(params, device, torch.float32)
@@ -641,6 +686,32 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
             label_smoothing=args.label_smoothing, grad_clip=args.grad_clip, mesh=mesh,
             guard=guard, trained=trained,
         )
+    elif sp > 1:
+        from vit_tpu_torch.parallel.sequence import make_sp_train_step
+
+        step = make_sp_train_step(
+            cfg, optimizer, mesh, label_smoothing=args.label_smoothing,
+            compute_dtype=compute_dtype, remat=remat, ops_name=ops_name,
+            grad_clip=args.grad_clip, guard=guard, trained=trained,
+        )
+        print(f"sequence parallel: ring size {sp} (ops {ops_name})")
+    elif pp > 1:
+        from vit_tpu_torch.parallel.pipeline import make_pp_train_step
+
+        m = args.microbatches or 2 * pp
+        local_b = args.batch // dp
+        if args.batch % dp or local_b % m:
+            raise SetupError(
+                f"error: dp={dp} must divide --batch {args.batch}, and --microbatches {m} "
+                f"must divide the per-shard batch {local_b}"
+            )
+        step = make_pp_train_step(
+            cfg, optimizer, mesh, m, ops_name=ops_name, label_smoothing=args.label_smoothing,
+            use_dropout=use_dropout,
+            rng=torch.Generator().manual_seed(draw_seed) if use_dropout else None,
+            grad_clip=args.grad_clip, guard=guard, trained=trained,
+        )
+        print(f"pipeline: {pp} stage(s), {m} microbatches")
     elif tp > 1:
         step = trainer.make_train_step_kernel_tp(
             cfg, optimizer, mesh, remat=remat, compute_dtype=compute_dtype,
@@ -665,7 +736,7 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
         if args.resume and ema_sidecar(args.resume).exists():
             tree = params_from_numpy(ckpt.load_npz(ema_sidecar(args.resume)), device,
                                      torch.float32)
-            ema = shard_params(tree, mesh) if tp > 1 else tree
+            ema = shard_params(tree, mesh) if splits_params(mesh) else tree
             print(f"resumed EMA from {ema_sidecar(args.resume)}")
         ema_update = trainer.make_ema_update(args.ema_decay)
         print(f"ema: decay {args.ema_decay}")

@@ -12,7 +12,14 @@ tp group and ranks 0 and 2 a dp group.
 
 Collectives here are ``all_reduce`` (SUM, MAX) and ``broadcast`` only:
 gloo, the backend of the CPU and of ranks that share one card, runs those
-on CUDA tensors but not ``all_gather``.
+on CUDA tensors but not ``all_gather``, ``send`` or ``recv`` (and NCCL puts
+no two ranks on one card).  So the cyclic shift of the pipeline and of the
+sequence ring (``ppermute`` in the JAX package) and the broadcast of one
+rank's tensor are each an all-reduce SUM of raw bytes: every rank writes its
+tensor's bytes into its slot of a zero-filled buffer, and a sum of bytes
+with zeros is the tensor bit for bit (:func:`shift`, :func:`broadcast_from`).
+:class:`Shift` is the differentiable shift: its backward shifts the
+gradient the other way, the transpose ``shard_map`` gives ``ppermute``.
 """
 
 from __future__ import annotations
@@ -112,3 +119,63 @@ def mesh_shape_for(
     if dp * tp != n_devices:
         raise ValueError(f"dp*tp = {dp * tp} != {n_devices}")
     return {"dp": dp, "tp": tp}
+
+
+def _sum_bytes(buf: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """All-reduce SUM of ``buf``'s raw bytes over ``axis`` (integer adds: a
+    slot that one rank filled and the others left zero comes back bit for
+    bit, signed zeros and NaN payloads too)."""
+    mesh.all_reduce(buf.view(torch.uint8), axis)
+    return buf
+
+
+def shift(t: torch.Tensor, mesh: Mesh, axis: str, offset: int = 1) -> torch.Tensor:
+    """The tensor of the rank ``offset`` places before this one on ``axis``
+    (cyclic: rank i's ``t`` lands on rank (i + offset) mod n), bit for bit.
+    Every rank of the axis must call it together, with tensors of one shape
+    and dtype.  The identity where the axis has one rank."""
+    n = mesh.size(axis)
+    if n == 1:
+        return t
+    slots = t.new_zeros((n, *t.shape))
+    slots[(mesh.index(axis) + offset) % n] = t
+    return _sum_bytes(slots, mesh, axis)[mesh.index(axis)]
+
+
+def broadcast_from(t: torch.Tensor, mesh: Mesh, axis: str, src: int) -> torch.Tensor:
+    """Rank ``src``'s ``t`` on every rank of ``axis``, bit for bit (the other
+    ranks' ``t`` only gives the shape and dtype)."""
+    if mesh.size(axis) == 1:
+        return t
+    buf = t.detach().clone() if mesh.index(axis) == src else torch.zeros_like(t)
+    return _sum_bytes(buf.contiguous(), mesh, axis)
+
+
+class Shift(torch.autograd.Function):
+    """:func:`shift` by one place forward; the gradient shifted back by one
+    place backward (``ppermute``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return shift(t.contiguous(), mesh, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shift(g.contiguous(), ctx.mesh, ctx.axis, -1), None, None
+
+
+class BroadcastFrom(torch.autograd.Function):
+    """:func:`broadcast_from` forward; backward, the gradient stays on
+    ``src`` alone (zero elsewhere).  Every rank then computes the same
+    function of the result, so each rank's gradient of it is already the
+    whole one: counted once, on the rank the tensor came from."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, src):
+        ctx.keep = mesh.index(axis) == src
+        return broadcast_from(t, mesh, axis, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None, None, None

@@ -1,5 +1,6 @@
-"""Tensor-parallel sharding rules for the ViT params tree — counterpart of
-``vit_tpu.parallel.sharding``'s ``param_pspecs`` and ``shard_params``.
+"""Sharding rules for the ViT params tree — counterpart of
+``vit_tpu.parallel.sharding``'s ``param_pspecs`` and ``shard_params``, and
+of ``vit_tpu.parallel.pipeline``'s ``pp_param_pspecs``.
 
 Megatron-style over heads and the MLP hidden axis (``tp``):
 
@@ -14,6 +15,11 @@ Megatron-style over heads and the MLP hidden axis (``tp``):
   * LN params, embeddings, the class and distillation tokens and both heads
     whole on every rank.
 
+Pipeline stages (``pp``) split every block leaf on its layer axis, L/pp
+layers a stage, composing with the tp rules on the other axes (the
+dp x pp x tp placement); the embeddings, the final LayerNorm and the heads
+stay whole.  Sequence parallelism (``sp``) splits no leaf: the tokens split.
+
 A rule is a tuple with one entry per axis of the leaf, the mesh axis that
 splits it or None (the JAX package's ``PartitionSpec``).  The batch is the
 ``dp`` axis, split by the forward (``shard_forward.py``); params are whole
@@ -21,12 +27,14 @@ over ``dp``.  ZeRO-1 and FSDP (``zero1_pspec``, ``fsdp_param_shardings``)
 are still to come (ROADMAP.md item 14).
 
 Training over shards (``runtime/trainer.py``): each rank's optimizer
-updates its own shards.  The gradients of ``TP_PARTIAL_GRADS`` are a
-rank's part and are summed over ``tp`` (``sum_partial_grads``); the global
-gradient norm counts a split leaf's squares on every rank and a whole
-leaf's once (``global_grad_norm``), which ``optax.clip_by_global_norm``
-sees on global arrays in the JAX package; ``unshard_params`` gathers the
-whole tree.
+updates its own shards.  A rank holds some gradients in part and
+:func:`sum_partial_grads` sums them over the axis that split the work:
+``TP_PARTIAL_GRADS`` over ``tp``, the embeddings over ``pp`` (stage 0
+alone computes them), every leaf but the heads over ``sp`` (each rank's
+tokens).  The global gradient norm sums a split leaf's squares over the
+axes that split it and counts a whole leaf's once (``global_grad_norm``),
+which ``optax.clip_by_global_norm`` sees on global arrays in the JAX
+package; ``unshard_params`` gathers the whole tree.
 """
 
 from __future__ import annotations
@@ -42,6 +50,11 @@ from vit_tpu_torch.parallel.mesh import Mesh
 # block's plain LN1 + QKV) differentiate only this rank's heads or hidden
 # columns
 TP_PARTIAL_GRADS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
+# the leaves that only pipeline stage 0 differentiates (the embeddings feed
+# the first stage alone), and the leaves every sequence shard differentiates
+# in whole (the heads read the prefix rows broadcast to every shard)
+PP_PARTIAL_GRADS = ("cls_token", "dist_token", "patch_embed", "pos_embed")
+SP_WHOLE_GRADS = ("head", "head_dist")
 
 
 def _pspec(axis_names, *spec) -> tuple:
@@ -55,23 +68,24 @@ def param_pspecs(axis_names, params: Any) -> Any:
     whose int8 weights carry ``*_scale`` companions)."""
     rep1 = _pspec(axis_names)  # whole on every rank
 
+    # the layer axis splits over the pipeline stages where the mesh has them
     block_rules = {
-        "ln1_scale": _pspec(axis_names, None, None),
-        "ln1_bias": _pspec(axis_names, None, None),
-        "wqkv": _pspec(axis_names, None, None, "tp"),   # column-parallel QKV
-        "bqkv": _pspec(axis_names, None, "tp"),
-        "wo": _pspec(axis_names, None, "tp", None),     # row-parallel out_proj
-        "bo": _pspec(axis_names, None, None),
-        "ln2_scale": _pspec(axis_names, None, None),
-        "ln2_bias": _pspec(axis_names, None, None),
-        "w1": _pspec(axis_names, None, None, "tp"),     # column-parallel MLP in
-        "b1": _pspec(axis_names, None, "tp"),
-        "w2": _pspec(axis_names, None, "tp", None),     # row-parallel MLP out
-        "b2": _pspec(axis_names, None, None),
+        "ln1_scale": _pspec(axis_names, "pp", None),
+        "ln1_bias": _pspec(axis_names, "pp", None),
+        "wqkv": _pspec(axis_names, "pp", None, "tp"),   # column-parallel QKV
+        "bqkv": _pspec(axis_names, "pp", "tp"),
+        "wo": _pspec(axis_names, "pp", "tp", None),     # row-parallel out_proj
+        "bo": _pspec(axis_names, "pp", None),
+        "ln2_scale": _pspec(axis_names, "pp", None),
+        "ln2_bias": _pspec(axis_names, "pp", None),
+        "w1": _pspec(axis_names, "pp", None, "tp"),     # column-parallel MLP in
+        "b1": _pspec(axis_names, "pp", "tp"),
+        "w2": _pspec(axis_names, "pp", "tp", None),     # row-parallel MLP out
+        "b2": _pspec(axis_names, "pp", None),
         # quantization scales (present only on the quantized tree)
-        "wqkv_scale": _pspec(axis_names, None, "tp"),
-        "w1_scale": _pspec(axis_names, None, "tp"),
-        "w2_scale": _pspec(axis_names, None, None),
+        "wqkv_scale": _pspec(axis_names, "pp", "tp"),
+        "w1_scale": _pspec(axis_names, "pp", "tp"),
+        "w2_scale": _pspec(axis_names, "pp", None),
     }
     present = {k: v for k, v in block_rules.items() if k in params.get("blocks", {})}
     out = {
@@ -87,6 +101,19 @@ def param_pspecs(axis_names, params: Any) -> Any:
         out["dist_token"] = rep1
         out["head_dist"] = {"kernel": rep1, "bias": rep1}
     return out
+
+
+def pp_param_pspecs(params: Any, axis_names=("pp",)) -> Any:
+    """The rules with the block stack split over ``pp`` on its layer axis,
+    composed with the tp rules when ``axis_names`` has ``tp`` (the JAX
+    package's signature; :func:`param_pspecs` itself places ``pp``)."""
+    return param_pspecs(axis_names, params)
+
+
+def splits_params(mesh) -> bool:
+    """Whether a rank on ``mesh`` holds a part of the tree (tp or pp over
+    more than one rank), so that what leaves the step whole is gathered."""
+    return mesh is not None and (mesh.size("tp") > 1 or mesh.size("pp") > 1)
 
 
 def _local(leaf: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
@@ -152,28 +179,53 @@ def unshard_params(params: Any, mesh: Mesh) -> Any:
     return rec(params, specs)
 
 
-def sum_partial_grads(params: Any, mesh: Mesh) -> None:
-    """Sum the gradients of ``TP_PARTIAL_GRADS`` over ``tp`` in place, in one
-    all-reduce; a no-op where tp has one rank."""
-    if mesh.size("tp") == 1:
-        return
-    grads = [params["blocks"][k].grad for k in TP_PARTIAL_GRADS
-             if params["blocks"][k].grad is not None]
-    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), "tp")
+def _sum_grads(leaves, mesh: Mesh, axis: str) -> None:
+    """Sum the leaves' gradients over ``axis`` in place, in one all-reduce; a
+    leaf this rank did not differentiate adds zeros and takes the sum."""
+    for t in leaves:
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+    grads = [t.grad for t in leaves]
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), axis)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 
 
+def _subtree_leaves(params: Any, keys) -> list:
+    out = []
+    for k in keys:
+        v = params.get(k)
+        out += [] if v is None else list(v.values()) if isinstance(v, dict) else [v]
+    return out
+
+
+def sum_partial_grads(params: Any, mesh: Mesh) -> None:
+    """Sum the gradients a rank holds in part over the axis that split the
+    work, in place, one all-reduce an axis: ``TP_PARTIAL_GRADS`` over
+    ``tp``; ``PP_PARTIAL_GRADS`` over ``pp``; every leaf but
+    ``SP_WHOLE_GRADS`` over ``sp``.  A no-op over an axis of one rank."""
+    if mesh.size("tp") > 1:
+        _sum_grads(_subtree_leaves(params["blocks"], TP_PARTIAL_GRADS), mesh, "tp")
+    if mesh.size("pp") > 1:
+        _sum_grads(_subtree_leaves(params, PP_PARTIAL_GRADS), mesh, "pp")
+    if mesh.size("sp") > 1:
+        _sum_grads(_subtree_leaves(params, [k for k in params if k not in SP_WHOLE_GRADS]),
+                   mesh, "sp")
+
+
 def global_grad_norm(params: Any, mesh: Mesh) -> torch.Tensor:
     """The L2 norm of the whole gradient tree: a split leaf's squares summed
-    over the ranks that hold its parts, a whole leaf's counted once (every
-    rank holds the same)."""
-    sq = {True: [], False: []}
+    over the ranks that hold its parts (over each axis that splits it), a
+    whole leaf's counted once (every rank holds the same)."""
+    by_axes = {}
     for leaf, spec in _pairs(params, param_pspecs(mesh.axis_names, params)):
         if leaf.grad is not None:
-            split = any(a is not None and mesh.size(a) > 1 for a in spec)
-            sq[split].append(leaf.grad.float().pow(2).sum().reshape(1))
-    dev = (sq[True] or sq[False])[0].device
-    split = torch.cat(sq[True]).sum().reshape(1) if sq[True] else torch.zeros(1, device=dev)
-    whole = torch.cat(sq[False]).sum() if sq[False] else torch.zeros((), device=dev)
-    return torch.sqrt(mesh.all_reduce(split, "tp")[0] + whole)
+            axes = tuple(a for a in spec if a is not None and mesh.size(a) > 1)
+            by_axes.setdefault(axes, []).append(leaf.grad.float().pow(2).sum().reshape(1))
+    total = None
+    for axes in sorted(by_axes):
+        part = torch.cat(by_axes[axes]).sum().reshape(1)
+        for axis in axes:
+            part = mesh.all_reduce(part, axis)
+        total = part[0] if total is None else total + part[0]
+    return torch.sqrt(total)

@@ -461,8 +461,8 @@ def _finish(params, loss: torch.Tensor, optimizer: torch.optim.Optimizer, grad_c
             mesh: Optional[Mesh], guard: Optional["NonFiniteGuard"] = None,
             trained: Optional[dict] = None) -> torch.Tensor:
     """After the backward: on a mesh, the ``dp`` mean of the loss and the
-    gradients and the ``tp`` sum of the partial ones; then the update.
-    -> the loss."""
+    gradients and the sums of the partial ones (``sharding.sum_partial_grads``:
+    over ``tp``, ``pp`` or ``sp``); then the update.  -> the loss."""
     if mesh is not None:
         from vit_tpu_torch.parallel.sharding import sum_partial_grads
 
@@ -480,18 +480,18 @@ def _update(params, optimizer: torch.optim.Optimizer, grad_clip: float,
     tests every leaf's gradient, frozen ones too); else clipped first to
     the global L2 norm ``grad_clip`` when it is > 0, the norm over
     ``trained`` (the leaves the optimizer updates; None: all of
-    ``params``), over ``tp`` shards the whole tree's
+    ``params``), over tp or pp shards the whole tree's
     (``sharding.global_grad_norm``), clipped as ``clip_grad_norm_`` clips."""
     if guard is not None and not guard.admit(
             [t.grad for t in leaves(params) if t.grad is not None], mesh):
         return
     if grad_clip:
         trained = params if trained is None else trained
-        if mesh is None or mesh.size("tp") == 1:
+        from vit_tpu_torch.parallel.sharding import global_grad_norm, splits_params
+
+        if not splits_params(mesh):
             torch.nn.utils.clip_grad_norm_(list(leaves(trained)), grad_clip)
         else:
-            from vit_tpu_torch.parallel.sharding import global_grad_norm
-
             coef = torch.clamp(grad_clip / (global_grad_norm(trained, mesh) + 1e-6), max=1.0)
             for t in leaves(trained):
                 if t.grad is not None:
@@ -517,10 +517,12 @@ class NonFiniteGuard:
 
     def admit(self, grads: Sequence[torch.Tensor], mesh: Optional[Mesh] = None) -> bool:
         """Count this step's gradients; -> whether its update applies.  Over
-        ``tp`` the ranks' shards decide together (one all-reduce)."""
+        ``tp`` and ``pp`` the ranks' shards decide together (an all-reduce an
+        axis)."""
         bad = torch.stack([~torch.isfinite(g).all() for g in grads]).sum().float().reshape(1)
-        if mesh is not None and mesh.size("tp") > 1:
-            bad = mesh.all_reduce(bad, "tp")
+        for axis in ("tp", "pp"):
+            if mesh is not None and mesh.size(axis) > 1:
+                bad = mesh.all_reduce(bad, axis)
         finite = bool(bad.item() == 0)  # the one host read of the guard
         self.last_finite = finite
         if finite:
@@ -603,7 +605,7 @@ def opt_state_leaves(optimizer: torch.optim.Optimizer, trained, mesh: Optional[M
                      schedule: bool = False,
                      guard: Optional[NonFiniteGuard] = None) -> List[np.ndarray]:
     """``optimizer``'s state as optax's leaves (:func:`opt_state_layout`),
-    whole (under ``tp`` every rank gathers the moments: a collective), for
+    whole (under tp or pp every rank gathers the moments: a collective), for
     ``io/checkpoint``.  ``trained`` is the part of the params that
     ``optimizer`` updates."""
     from vit_tpu_torch.utils import flatten_tree
@@ -619,7 +621,9 @@ def opt_state_leaves(optimizer: torch.optim.Optimizer, trained, mesh: Optional[M
     flat = flatten_tree(trained)
     trees = {what: {path: moment(p, k).detach() for path, p in flat.items()}
              for k, what in enumerate(("mu", "nu"))}
-    if mesh is not None and mesh.size("tp") > 1:
+    from vit_tpu_torch.parallel.sharding import splits_params
+
+    if splits_params(mesh):
         from vit_tpu_torch.parallel.sharding import unshard_params
         from vit_tpu_torch.utils import unflatten_tree
 
@@ -640,7 +644,7 @@ def restore_opt_state(optimizer: torch.optim.Optimizer, trained, opt_leaves: Seq
                       guard: Optional[NonFiniteGuard] = None) -> None:
     """Load :func:`opt_state_layout`'s leaves (``io/checkpoint.load_train_state``'s,
     checked against :func:`opt_state_shapes`) into ``optimizer`` and
-    ``guard``; under ``tp`` each rank keeps its shards of the moments.  A
+    ``guard``; under tp or pp each rank keeps its shards of the moments.  A
     trailing schedule count is the adam count and is not read."""
     from vit_tpu_torch.utils import flatten_tree, unflatten_tree
 
@@ -657,7 +661,9 @@ def restore_opt_state(optimizer: torch.optim.Optimizer, trained, opt_leaves: Seq
         guard.total_notfinite = int(scalars["total_notfinite"])
     count = int(scalars["count"])
     trees = {what: unflatten_tree(t) for what, t in trees.items()}
-    if mesh is not None and mesh.size("tp") > 1:
+    from vit_tpu_torch.parallel.sharding import splits_params
+
+    if splits_params(mesh):
         from vit_tpu_torch.parallel.sharding import shard_params
 
         trees = {what: shard_params(t, mesh) for what, t in trees.items()}
