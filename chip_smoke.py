@@ -206,15 +206,16 @@ Phases (a failed phase raises; nothing is caught):
      the bf16 K19 in both forms split by CUDA kernel at batch 100; then ``python3 -m vit_tpu_torch.cli.bench_kernels --batch 100`` over
      its eight kernels (12 launches per stack of layers, 13 stacks each);
  38. two ranks sharing the card over gloo, started by ``torchrun`` with a
-     time limit (``--rank-worker``): the classify CLI with ``--ops quant
-     --tp 2`` (12 K15, 12 K18a, 12 K18b, 1 K3 per rank), ``--ops fused --tp
-     2`` (12 K1, 12 K5 partial, 1 K3) and ``--ops fused --dp 2`` (12 K1 and
-     12 K2 on 50 images each), counts set to 0 just before and read just
-     after on every rank; their result lines against the single-card CLI's
-     by the comparator rule; fp32 ``fused`` tp 2 and dp 2 logits within
-     1e-4 of the single card's; the time per forward of two ranks sharing
-     one card; the tensor-parallel forward @512 batch 16 (12 K13, 12 K5
-     partial, 1 K3 per rank).
+     time limit (``--rank-worker``), at B/16 widths and depth 2
+     (``vit_b_16_depth2``: the ranks' time is gloo's, a fixed cost a
+     layer): the classify CLI with ``--ops quant --tp 2`` (2 K15, 2 K18a, 2
+     K18b, 1 K3 per rank), ``--ops fused --tp 2`` (2 K1, 2 K5 partial, 1 K3)
+     and ``--ops fused --dp 2`` (2 K1 and 2 K2 on 50 images each), counts
+     set to 0 just before and read just after on every rank; their result
+     lines against the single-card CLI's by the comparator rule; fp32
+     ``fused`` tp 2 and dp 2 logits within 1e-4 of the single card's; the
+     time per forward of two ranks sharing one card; the tensor-parallel
+     forward @512 batch 16 (2 K13, 2 K5 partial, 1 K3 per rank).
 
  39. the dynamic-batching ``InferenceServer`` on the card (max_batch 64,
      batch_pad 32, 5 ms; B/16 @224 ``fused`` bf16): 200 requests of 1-64
@@ -272,18 +273,20 @@ Phases (a failed phase raises; nothing is caught):
      against its twin at rank 0's shard of B/16's MLP for tp 2 and 4 (F/tp
      1,536 and 768) at b16 x T 197 rows, bf16 and fp32, timed, with device
      time and bound; then two ranks sharing the card over gloo, started by
-     ``torchrun`` with a time limit (``--rank-train-worker``): the fp32
-     gradients of one tp 2 step @224 batch 16, gathered, against the
-     single-card ``fused_train`` step's (1e-3 x max(1, max|g|) per leaf);
-     the train CLI (B/16, ``--ops fused_train``) with ``--tp 2`` batch 16,
-     bf16 mixed and fp32, 3 steps (12 K1, 12 K5 partial, 12 K6, 12 K8
-     ``residual=False`` per rank and step; no K2, K4 or K7), ``--dp 2``
-     batch 32 bf16 with ``--optimizer fused_adamw``, 3 steps (12 each of K1,
-     K4-K7 and 1 K20; the params of both ranks equal bit for bit after),
-     ``--dp 2 --dropout 0.1``, 1 step (12 K1, K10, K11, K12a, K6), ``--dp
-     2 --mae`` and ``--dp 2 --config deit_b_16 --distill-teacher``, 2 steps
-     each, every count set to 0 just before and read just after on every
-     rank; the tp 2 step @512 batch 2 (12 K13, K14, K5 partial, K8
+     ``torchrun`` with a time limit (``--rank-train-worker``), at B/16
+     widths and depth 2 as phase 38: the fp32 gradients of one tp 2 step
+     @224 batch 16, gathered, against the single-card ``fused_train``
+     step's (1e-3 x max(1, max|g|) per leaf); the train CLI (``--ops
+     fused_train``) with ``--tp 2`` batch 16, bf16 mixed and fp32, 3 steps
+     (2 K1, 2 K5 partial, 2 K6, 2 K8 ``residual=False`` per rank and step;
+     no K2, K4 or K7), ``--dp 2`` batch 32 bf16 with ``--optimizer
+     fused_adamw``, 3 steps (2 each of K1, K4-K7 and 1 K20; the params of
+     both ranks equal bit for bit after), ``--dp 2 --dropout 0.1``, 1 step
+     (2 K1, K10, K11, K12a, K6), ``--dp 2 --mae`` (10 each of K1, K4-K7: 2
+     encoder and 8 decoder blocks) and ``--dp 2 --config deit_b_16_depth2
+     --distill-teacher`` (a depth-2 ``vit_b_16`` teacher), 2 steps each,
+     every count set to 0 just before and read just after on every rank;
+     the tp 2 step @512 batch 2 (2 K13, K14, K5 partial, K8
      ``residual=False`` per rank); the time per step of two ranks sharing
      one card (not a scaling figure).
 
@@ -352,11 +355,38 @@ Phases (a failed phase raises; nothing is caught):
      forward's and the pp and sp steps' wall and device ms beside the one
      card's (two ranks sharing one card: not scaling figures).
 
+ 49. serving over a mesh, two ranks sharing the card over gloo (``torchrun``
+     with a time limit, ``--rank-serve-mesh-worker``; counts set to 0 just
+     before each run and read just after, on every rank): the
+     ``InferenceServer`` over tp 2 ``fused`` (12 K1 at the local heads, 12
+     K5 partial, 1 K3 per rank and batch), tp 2 ``quant`` (12 K15, 12 K18a,
+     12 K18b, 1 K3) and dp 2 ``fused`` (12 K1, 12 K2, 1 K3) on 64 requests
+     of phase 39's stream (max_batch 64, batch_pad 32; rank 0 serves, rank 1
+     follows: warmup's two padded sizes and every batch on both ranks), each
+     answer against the one-card engine's classify of that request alone by
+     phase 38's comparator rule, and fp32 tp 2 on 8 requests (probabilities
+     within 1e-4); the dp 2 ``LockstepServer`` (local_batch 32, 10 ms ticks):
+     one second with no traffic launches nothing, each rank's 24 requests of
+     its own seed answered from its own rows (12 K1, 12 K2, 1 K3 per rank and
+     tick), rank 1 stops while rank 0 has 10 requests queued and all 10 are
+     answered; the serve CLI's daemon with ``--tp 2`` (rank 0 answers POST
+     /classify, POST /reload to seed-1 weights, then the seed-1 one-card
+     engine's answers); the serve CLI with ``--multihost`` on two processes
+     joined by explicit ``--coordinator``/``--num-processes``/``--process-id``
+     (not torchrun), each daemon on ``--port 0``: POST /classify of 8 images
+     to each against the one-card engine, POST /reload answered 409, SIGTERM
+     drains both; the train CLI with ``--multihost`` on two such processes
+     (depth 2, bf16 mixed ``fused_train``, 3 steps on 256 images in 3 shards:
+     2 each of K1, K4-K7 per process and step), its losses those of the
+     ``--dp 2`` torchrun run; img/s, p50 and p99 of each server beside the
+     one-card server's on the same 64 requests (two ranks sharing one card:
+     not scaling figures).
+
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
 regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
 per_op 31-33, adamw 34-35, parallel 36-38 and 45, serve 39-41, mae 42,
-distill 43, qat 44, data 46, recipe 47, pp_sp 48); without it every phase
-runs.
+distill 43, qat 44, data 46, recipe 47, pp_sp 48, serve_mesh 49); without it
+every phase runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -492,6 +522,10 @@ STUDY_KERNELS = {
 }
 TP_SIZES = (2, 4)  # the shard shapes of phase 36
 RANKS = 2  # phase 38's ranks, sharing the one card over gloo
+# phases 38 and 45 run their rank runs at B/16 widths and depth 2 (the ranks
+# spend their time in gloo's host all-reduces, a fixed cost a layer)
+RANK_DEPTH = 2
+RANK_CONFIG, RANK_DEIT_CONFIG = "vit_b_16_depth2", "deit_b_16_depth2"
 RANKS_TIMEOUT = 420  # s: a rank that hangs fails phase 38
 TRAIN_RANKS_TIMEOUT = 300  # s: a rank that hangs fails phase 45
 # phase 45: K8's tensor-parallel form, a kernels-line entry of its own (its
@@ -1278,12 +1312,13 @@ PROFILE_ITERS = 3  # InferenceEngine.phase_report's default
 
 def phase_cli(params, workdir: str, ops: str = "fused",
               kernels=("ln_qkv_attn", "out_ln_mlp_residual"), extra=(), final_ln: int = 1,
-              more=None) -> dict:
-    """Phases 4, 21, 27 and 32: the classify CLI on the card with ``--ops
-    ops`` and ``extra`` flags, on ``params`` saved as an npz: 12 launches of
-    each of ``kernels``, ``final_ln`` of K3, ``more`` ({kernel: launches})
-    on top, none of any other; with ``--profile`` among ``extra``, the six
-    phase lines of ``phase_report``.  -> launch counts of its run."""
+              more=None, config: str = "vit_b_16", depth: int = 12) -> dict:
+    """Phases 4, 21, 27 and 32 (and phase 38's references): the classify
+    CLI on the card with ``--config config --ops ops`` and ``extra`` flags,
+    on ``params`` saved as an npz: ``depth`` launches of each of
+    ``kernels``, ``final_ln`` of K3, ``more`` ({kernel: launches}) on top,
+    none of any other; with ``--profile`` among ``extra``, the six phase
+    lines of ``phase_report``.  -> launch counts of its run."""
     from vit_tpu_torch.cli.main import main
     from vit_tpu_torch.eval import comparator
     from vit_tpu_torch.io import checkpoint
@@ -1295,8 +1330,9 @@ def phase_cli(params, workdir: str, ops: str = "fused",
     wrappers = _reset_counts()
     with contextlib.redirect_stdout(buf):
         rc = main([
-            "--weights", weights, "--synth", "100", "--ops", ops, "--dtype", "bfloat16",
-            "--device", "cuda", "--batch-pad", "100", "--json", "--output", result, *extra,
+            "--config", config, "--weights", weights, "--synth", "100", "--ops", ops,
+            "--dtype", "bfloat16", "--device", "cuda", "--batch-pad", "100", "--json",
+            "--output", result, *extra,
         ])
     launches = {name: fn.launches for name, fn in wrappers.items()}
     out = buf.getvalue().splitlines()
@@ -1311,7 +1347,7 @@ def phase_cli(params, workdir: str, ops: str = "fused",
     if [r.index for r in comparator.parse_result_file(result)] != list(range(100)):
         raise RuntimeError("classify CLI's --output is not 100 well-formed lines")
     want = {name: 0 for name in wrappers}
-    want.update({name: 12 for name in kernels}, layer_norm=final_ln)
+    want.update({name: depth for name in kernels}, layer_norm=final_ln)
     for name, n in (more or {}).items():
         want[name] += n
     if launches != want:
@@ -2979,14 +3015,16 @@ def phase_kernel_study(card: str) -> dict:
 # phase 38's CLI runs on two ranks: their flags and each rank's launches
 RANK_RUNS = {
     "classify_quant_tp": (["--ops", "quant", "--tp", "2"],
-                          {"ln_qkv_attn_q8": 12, "ln_fc1_gelu_q8": 12, "fc2_q8_partial": 12,
-                           "layer_norm": 1}),
+                          {"ln_qkv_attn_q8": RANK_DEPTH, "ln_fc1_gelu_q8": RANK_DEPTH,
+                           "fc2_q8_partial": RANK_DEPTH, "layer_norm": 1}),
     "classify_tp": (["--ops", "fused", "--tp", "2"],
-                    {"ln_qkv_attn": 12, "ln_mlp_residual": 12, "layer_norm": 1}),
+                    {"ln_qkv_attn": RANK_DEPTH, "ln_mlp_residual": RANK_DEPTH, "layer_norm": 1}),
     "classify_dp": (["--ops", "fused", "--dp", "2"],
-                    {"ln_qkv_attn": 12, "out_ln_mlp_residual": 12, "layer_norm": 1}),
+                    {"ln_qkv_attn": RANK_DEPTH, "out_ln_mlp_residual": RANK_DEPTH,
+                     "layer_norm": 1}),
 }
-LONG_TP_LAUNCHES = {"flash_attention_fwd": 12, "ln_mlp_residual": 12, "layer_norm": 1}
+LONG_TP_LAUNCHES = {"flash_attention_fwd": RANK_DEPTH, "ln_mlp_residual": RANK_DEPTH,
+                    "layer_norm": 1}
 RANK_ENGINES = {  # name: (ops, dtype, mesh)
     "fused tp2 fp32": ("fused", "float32", {"dp": 1, "tp": 2}),
     "fused dp2 fp32": ("fused", "float32", {"dp": 2, "tp": 1}),
@@ -3017,12 +3055,13 @@ def rank_worker(workdir: str) -> None:
     every count set to 0 just before and read just after (and, on the dp
     run, the rows each K1 launch takes); the engines of ``RANK_ENGINES`` on
     the CLI's 100 images (logits, and the bf16 ones' time per forward);
-    the tensor-parallel forward @512 batch 16 with its counts.  Writes
-    ``rank<r>.json`` (and, on rank 0, the logits) into ``workdir``."""
+    the tensor-parallel forward @512 batch 16 with its counts; all at B/16
+    widths and depth 2.  Writes ``rank<r>.json`` (and, on rank 0, the
+    logits) into ``workdir``."""
     import torch.distributed as dist
 
     from vit_tpu_torch.cli.main import main as classify
-    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.config import get_config
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.io.load_any import load_params_any
     from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
@@ -3031,6 +3070,8 @@ def rank_worker(workdir: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _register_tp_config()
+    cfg = get_config(RANK_CONFIG)
     weights = f"{workdir}/params.npz"
     report = {"rc": {}, "launches": {}, "stdout": {}, "ms": {}}
     real_k1, k1_spy = k1.ln_qkv_attn, _RowSpy(k1.ln_qkv_attn)
@@ -3039,9 +3080,10 @@ def rank_worker(workdir: str) -> None:
         wrappers = _reset_counts()
         k1.ln_qkv_attn = k1_spy if path == "classify_dp" else real_k1
         with contextlib.redirect_stdout(buf):
-            rc = classify(["--weights", weights, "--synth", "100", "--dtype", "bfloat16",
-                           "--device", "cuda", "--batch-pad", "100", "--json", "--dist-backend",
-                           "gloo", "--output", f"{workdir}/{path}.txt", *flags])
+            rc = classify(["--config", RANK_CONFIG, "--weights", weights, "--synth", "100",
+                           "--dtype", "bfloat16", "--device", "cuda", "--batch-pad", "100",
+                           "--json", "--dist-backend", "gloo", "--output",
+                           f"{workdir}/{path}.txt", *flags])
         k1.ln_qkv_attn = real_k1
         report["rc"][path] = rc
         report["launches"][path] = {name: fn.launches for name, fn in wrappers.items()}
@@ -3049,11 +3091,11 @@ def rank_worker(workdir: str) -> None:
         report["stdout"][path] = out[:2] + out[-2:]
     report["k1_rows_dp"] = k1_spy.rows
     rank, dev = dist.get_rank(), torch.device("cuda", torch.cuda.current_device())
-    params = load_params_any(weights, VIT_B_16)
-    images = synth_images(100, VIT_B_16, seed=0)  # the CLI's --synth 100
+    params = load_params_any(weights, cfg)
+    images = synth_images(100, cfg, seed=0)  # the CLI's --synth 100
     logits = {}
     for name, (ops, dtype, axes) in RANK_ENGINES.items():
-        eng = InferenceEngine(VIT_B_16, params, dtype, ops, dev, batch_pad=100,
+        eng = InferenceEngine(cfg, params, dtype, ops, dev, batch_pad=100,
                               mesh=make_mesh(axes))
         logits[name] = eng.logits(images).float().cpu().numpy()
         if dtype == "bfloat16":
@@ -3069,7 +3111,7 @@ def rank_worker(workdir: str) -> None:
             report["ms"][name] = statistics.median(times) * 1e3
         del eng
         torch.cuda.empty_cache()
-    cfg = VIT_B_16.with_image_size(LONG_IMAGE)
+    cfg = cfg.with_image_size(LONG_IMAGE)
     eng = InferenceEngine(cfg, synth_params(cfg, 0), "bfloat16", "fused", dev, batch_pad=16,
                           mesh=make_mesh({"dp": 1, "tp": 2}))
     x = synth_images(16, cfg, seed=5)
@@ -3105,7 +3147,8 @@ def _line_rule(what: str, path: str, ref_path: str, p32: np.ndarray) -> None:
 
 def phase_parallel(params, dev: torch.device, card: str, workdir: str) -> dict:
     """Phase 38: two ranks share the card over gloo, started by ``torchrun``
-    with a time limit (a rank that hangs, or fails, fails the phase):
+    with a time limit (a rank that hangs, or fails, fails the phase), at
+    B/16 widths and depth 2 (``params``, ``RANK_CONFIG``):
     ``rank_worker``'s CLI runs with their launch counts on every rank
     (``RANK_RUNS``; the dp run's K1 launches on 50 images each), their
     result lines against the single-card CLI's by the comparator rule, fp32
@@ -3117,18 +3160,21 @@ def phase_parallel(params, dev: torch.device, card: str, workdir: str) -> dict:
     import signal
     import sys
 
-    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.config import get_config
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.runtime.engine import InferenceEngine
 
+    _register_tp_config()
+    cfg = get_config(RANK_CONFIG)
     refs = {}
     for ops, kernels in (("quant", ("ln_qkv_attn_q8", "out_ln_mlp_residual_q8")),
                          ("fused", ("ln_qkv_attn", "out_ln_mlp_residual"))):
-        phase_cli(params, workdir, ops, kernels)  # saves params.npz, writes result.txt
+        # saves params.npz, writes result.txt
+        phase_cli(params, workdir, ops, kernels, config=RANK_CONFIG, depth=RANK_DEPTH)
         refs[ops] = f"{workdir}/single_{ops}.txt"
         os.replace(f"{workdir}/result.txt", refs[ops])
-    images = synth_images(100, VIT_B_16, seed=0)  # the CLI's --synth 100
-    f32 = InferenceEngine(VIT_B_16, params, "float32", "fused", dev, batch_pad=100)
+    images = synth_images(100, cfg, seed=0)  # the CLI's --synth 100
+    f32 = InferenceEngine(cfg, params, "float32", "fused", dev, batch_pad=100)
     l32 = f32.logits(images).cpu().numpy()
     del f32
     torch.cuda.empty_cache()
@@ -3157,7 +3203,7 @@ def phase_parallel(params, dev: torch.device, card: str, workdir: str) -> dict:
             _expect_counts_of(rep["launches"][path], want, f"rank {r} {path} (cli bf16 b100)")
         _expect_counts_of(rep["launches"]["classify_tp_long"], LONG_TP_LAUNCHES,
                           f"rank {r} classify_tp_long (@512 batch 16 bf16 fused tp 2)")
-        if rep["k1_rows_dp"] != [50 * B16["t"]] * 12:
+        if rep["k1_rows_dp"] != [50 * B16["t"]] * RANK_DEPTH:
             raise RuntimeError(f"rank {r} classify_dp: K1 took {rep['k1_rows_dp']} rows")
         if not rep["long_finite"]:
             raise RuntimeError(f"rank {r}: @512 tp logits non-finite or misshapen")
@@ -3176,40 +3222,45 @@ def phase_parallel(params, dev: torch.device, card: str, workdir: str) -> dict:
         if not d <= 1e-4:
             raise RuntimeError(f"{name} logits outside 1e-4 of the single card's")
     for name, ms in reports[0]["ms"].items():
-        log(f"{name} B/16 batch 100: {ms:.6g} ms per forward, {RANKS} ranks sharing one card "
+        log(f"{name} B/16 widths depth {RANK_DEPTH} batch 100: {ms:.6g} ms per forward, {RANKS} "
+            f"ranks sharing one card "
             f"over gloo (not a scaling figure); {card}")
     return {path: reports[0]["launches"][path] for path in (*RANK_RUNS, "classify_tp_long")}
 
 
 # phase 45's runs, per rank and step: name -> (train CLI flags, steps,
 # launches per step, K5 partial, K8 residual=False)
+_DEPTH_STEP = {name: RANK_DEPTH for name in ("ln_qkv_attn", "ln_mlp_residual", "ln_qkv_attn_bwd",
+                                              "ln_mlp_residual_bwd")}
 TRAIN_RANK_RUNS = {
     "train_tp": (["--tp", "2", "--batch", str(TP_TRAIN_BATCH), "--mixed-precision"], 3,
-                 {"ln_qkv_attn": 12, "ln_mlp_residual": 12, "ln_qkv_attn_bwd": 12,
-                  "ln_mlp_residual_bwd": 12}, True),
-    "train_tp_fp32": (["--tp", "2", "--batch", str(TP_TRAIN_BATCH)], 3,
-                      {"ln_qkv_attn": 12, "ln_mlp_residual": 12, "ln_qkv_attn_bwd": 12,
-                       "ln_mlp_residual_bwd": 12}, True),
+                 _DEPTH_STEP, True),
+    "train_tp_fp32": (["--tp", "2", "--batch", str(TP_TRAIN_BATCH)], 3, _DEPTH_STEP, True),
     "train_dp": (["--dp", "2", "--batch", str(DP_TRAIN_BATCH), "--mixed-precision",
                   "--optimizer", "fused_adamw"], 3,
-                 {"ln_qkv_attn": 12, "out_residual": 12, "ln_mlp_residual": 12,
-                  "ln_qkv_attn_bwd": 12, "ln_mlp_out_residual_bwd": 12, "adamw_update": 1},
-                 False),
+                 {"ln_qkv_attn": RANK_DEPTH, "out_residual": RANK_DEPTH,
+                  "ln_mlp_residual": RANK_DEPTH, "ln_qkv_attn_bwd": RANK_DEPTH,
+                  "ln_mlp_out_residual_bwd": RANK_DEPTH, "adamw_update": 1}, False),
     "train_dp_regularized": (["--dp", "2", "--batch", str(DP_TRAIN_BATCH), "--mixed-precision",
                               "--dropout", str(REG_P)], 1,
-                             {"ln_qkv_attn": 12, "out_residual_train": 12,
-                              "ln_mlp_residual_train": 12, "ln_mlp_out_residual_bwd_train": 12,
-                              "ln_qkv_attn_bwd": 12}, False),
+                             {"ln_qkv_attn": RANK_DEPTH, "out_residual_train": RANK_DEPTH,
+                              "ln_mlp_residual_train": RANK_DEPTH,
+                              "ln_mlp_out_residual_bwd_train": RANK_DEPTH,
+                              "ln_qkv_attn_bwd": RANK_DEPTH}, False),
+    # the encoder's blocks and the decoder's 8
     "train_mae_dp": (["--dp", "2", "--batch", str(DP_TRAIN_BATCH), "--mixed-precision", "--mae"],
-                     2,
-                     {name: 20 for name in ("ln_qkv_attn", *TRAIN_KERNELS)}, False),
+                     2, {name: RANK_DEPTH + 8 for name in ("ln_qkv_attn", *TRAIN_KERNELS)},
+                     False),
+    # the student's blocks and the fused teacher's
     "train_distill_dp": (["--dp", "2", "--batch", str(DP_TRAIN_BATCH), "--mixed-precision",
-                          "--config", "deit_b_16", "--distill-teacher", "TEACHER"], 2,
-                         {"ln_qkv_attn": 24, "out_ln_mlp_residual": 12, "layer_norm": 1,
-                          **{name: 12 for name in TRAIN_KERNELS}}, False),
+                          "--config", RANK_DEIT_CONFIG, "--distill-teacher", "TEACHER",
+                          "--distill-config", RANK_CONFIG], 2,
+                         {"ln_qkv_attn": 2 * RANK_DEPTH, "out_ln_mlp_residual": RANK_DEPTH,
+                          "layer_norm": 1, **{name: RANK_DEPTH for name in TRAIN_KERNELS}},
+                         False),
 }
-TP_LONG_TRAIN_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
-                      "ln_mlp_residual": 12, "ln_mlp_residual_bwd": 12}
+TP_LONG_TRAIN_STEP = {"flash_attention_fwd": RANK_DEPTH, "flash_attention_bwd": RANK_DEPTH,
+                      "ln_mlp_residual": RANK_DEPTH, "ln_mlp_residual_bwd": RANK_DEPTH}
 
 
 class _FlagSpy(_RowSpy):
@@ -3225,7 +3276,8 @@ class _FlagSpy(_RowSpy):
         return self.fn(*args, **kwargs)
 
 
-def _train_rank_cli(workdir: str, flags, steps: int, mesh_spies) -> dict:
+def _train_rank_cli(workdir: str, flags, steps: int, mesh_spies,
+                    config: str = "vit_b_16") -> dict:
     """One phase 45 run of the train CLI on this rank (its argument
     parsing, mesh, setup and loop: ``vit_tpu_torch.cli.train.main`` in
     pieces, so that the params stay readable), every count set to 0 just
@@ -3239,7 +3291,7 @@ def _train_rank_cli(workdir: str, flags, steps: int, mesh_spies) -> dict:
     from vit_tpu_torch.cli.train_setup import build_mesh, prepare
     from vit_tpu_torch.runtime.trainer import leaves
 
-    argv = ["--config", "vit_b_16", "--steps", str(steps), "--ops", "fused_train",
+    argv = ["--config", config, "--steps", str(steps), "--ops", "fused_train",
             "--device", "cuda", "--dist-backend", "gloo", "--log-jsonl", f"{workdir}/log.jsonl",
             *flags]
     args = build_parser().parse_args(argv)
@@ -3275,12 +3327,12 @@ def _grad_tree(tree):
 def train_rank_worker(workdir: str) -> None:
     """One rank of phase 45 (``torchrun`` starts ``RANKS`` of them): the
     fp32 gradients of one tensor-parallel step, gathered; the train CLI
-    runs of ``TRAIN_RANK_RUNS``; the tensor-parallel step @512 batch 2.
-    Writes ``train_rank<r>.json`` (and, on rank 0, the gradients) into
-    ``workdir``."""
+    runs of ``TRAIN_RANK_RUNS``; the tensor-parallel step @512 batch 2; all
+    at B/16 widths and depth 2.  Writes ``train_rank<r>.json`` (and, on rank
+    0, the gradients) into ``workdir``."""
     import torch.distributed as dist
 
-    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.config import get_config
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
@@ -3295,6 +3347,8 @@ def train_rank_worker(workdir: str) -> None:
     torch.cuda.set_device(dev)
     distributed.initialize(backend="gloo")
     rank = dist.get_rank()
+    _register_tp_config()
+    cfg = get_config(RANK_CONFIG)
     # the flags of K5 and K8 on the tensor-parallel paths
     spies = [_FlagSpy(k5.ln_mlp_residual, "partial", False),
              _FlagSpy(k8.ln_mlp_residual_bwd, "residual", True)]
@@ -3305,8 +3359,8 @@ def train_rank_worker(workdir: str) -> None:
     mesh = make_mesh({"dp": 1, "tp": 2})
     x, y = _tp_grad_batch(dev)
     params = trainer.as_trainable(
-        shard_params(vit.init_params(torch.Generator().manual_seed(0), VIT_B_16), mesh), dev)
-    step = trainer.make_train_step_kernel_tp(VIT_B_16, torch.optim.SGD(
+        shard_params(vit.init_params(torch.Generator().manual_seed(0), cfg), mesh), dev)
+    step = trainer.make_train_step_kernel_tp(cfg, torch.optim.SGD(
         list(trainer.leaves(params)), lr=0.0), mesh)
     report["tp_grad_loss"] = float(step(params, x, y))
     grads = unshard_params(_grad_tree(params), mesh)
@@ -3318,11 +3372,11 @@ def train_rank_worker(workdir: str) -> None:
     teacher = f"{workdir}/teacher.npz"
     for name, (flags, steps, _, _) in TRAIN_RANK_RUNS.items():
         flags = [teacher if f == "TEACHER" else f for f in flags]
-        report["runs"][name] = _train_rank_cli(workdir, flags, steps, spies)
+        report["runs"][name] = _train_rank_cli(workdir, flags, steps, spies, RANK_CONFIG)
         torch.cuda.empty_cache()
 
     # the tensor-parallel step @512 batch 2: K13/K14 at the local heads
-    cfg = VIT_B_16.with_image_size(LONG_IMAGE)
+    cfg = cfg.with_image_size(LONG_IMAGE)
     params = trainer.as_trainable(
         shard_params(vit.init_params(torch.Generator().manual_seed(0), cfg), mesh), dev)
     step = trainer.make_train_step_kernel_tp(cfg, torch.optim.SGD(
@@ -3398,7 +3452,7 @@ def phase_parallel_train(dev: torch.device, card: str, workdir: str) -> dict:
     the tp step @512 batch 2 (12 K13, K14, K5 partial, K8 residual=False);
     the time per step of two ranks sharing one card.  -> (summary of K8
     residual=False, launch counts of rank 0 by path)."""
-    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.config import get_config
     from vit_tpu_torch.models import vit
 
     cases, labels = k8_partial_cases(dev)
@@ -3406,7 +3460,9 @@ def phase_parallel_train(dev: torch.device, card: str, workdir: str) -> dict:
     del cases
     torch.cuda.empty_cache()
 
-    _teacher_npz(workdir)
+    _register_tp_config()
+    cfg = get_config(RANK_CONFIG)
+    _teacher_npz(workdir, cfg)
     _run_ranks("--rank-train-worker", workdir, TRAIN_RANKS_TIMEOUT, "training ranks")
     reports = [json.load(open(f"{workdir}/train_rank{r}.json")) for r in range(RANKS)]
 
@@ -3415,13 +3471,14 @@ def phase_parallel_train(dev: torch.device, card: str, workdir: str) -> dict:
             run = rep["runs"][path]
             if run["rc"] != 0:
                 raise RuntimeError(f"rank {r} {path}: the train CLI exited {run['rc']}")
-            _expect_cli(run["launches"], per_step, steps, f"rank {r} {path} (B/16, {steps} steps)")
-            _expect_flags(run["flags"], 12 * steps if tp else 0, f"rank {r} {path}")
+            _expect_cli(run["launches"], per_step, steps,
+                        f"rank {r} {path} (B/16 widths depth {RANK_DEPTH}, {steps} steps)")
+            _expect_flags(run["flags"], RANK_DEPTH * steps if tp else 0, f"rank {r} {path}")
             log(f"rank {r} {path}: per step {_per_step(run['launches'], steps)}")
         long = rep["runs"]["train_tp_long"]
         _expect_counts_of(long["launches"], TP_LONG_TRAIN_STEP,
                           f"rank {r} train_tp_long (@512 batch 2 bf16 tp 2, 1 step)")
-        _expect_flags(long["flags"], 12, f"rank {r} train_tp_long")
+        _expect_flags(long["flags"], RANK_DEPTH, f"rank {r} train_tp_long")
         if not np.isfinite(long["loss"]):
             raise RuntimeError(f"rank {r} train_tp_long: non-finite loss")
     for path in TRAIN_RANK_RUNS:
@@ -3434,12 +3491,13 @@ def phase_parallel_train(dev: torch.device, card: str, workdir: str) -> dict:
 
     # the gathered tp 2 gradients against the single-card fused_train step's
     x, y = _tp_grad_batch(dev)
-    tree = vit.init_params(torch.Generator().manual_seed(0), VIT_B_16)
-    loss1, want = _grads(VIT_B_16, tree, x, y, "fused_train", None, dev)
+    tree = vit.init_params(torch.Generator().manual_seed(0), cfg)
+    loss1, want = _grads(cfg, tree, x, y, "fused_train", None, dev)
     got = {k: torch.from_numpy(v).to(dev) for k, v in np.load(f"{workdir}/tp_grads.npz").items()}
     worst, worst_leaf = _worst_leaf(got, want)
     loss_tp = reports[0]["tp_grad_loss"]
-    log(f"tp 2 fp32 grads (two ranks, gathered) vs single-card fused_train, B/16 batch "
+    log(f"tp 2 fp32 grads (two ranks, gathered) vs single-card fused_train, B/16 widths depth "
+        f"{RANK_DEPTH} batch "
         f"{TP_TRAIN_BATCH}: loss {loss_tp:.6g} vs {loss1:.6g}; {len(want)} leaves, worst "
         f"{worst_leaf} at {worst:.3g} of its bound (1e-3 x max(1, max|g|))")
     if worst > 1.0 or set(got) != set(want) or not abs(loss_tp - loss1) <= 1e-3:
@@ -3500,7 +3558,7 @@ def _expect_flags(flags: dict, n: int, what: str) -> None:
 
 def group_parallel(dev, card, summary, launches) -> None:
     """Phases 36-38 and 45."""
-    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.config import get_config
     from vit_tpu_torch.ops.kernels import _build
 
     fp_cases, q8_cases, labels = tp_kernel_cases(dev)
@@ -3521,8 +3579,10 @@ def group_parallel(dev, card, summary, launches) -> None:
     torch.cuda.empty_cache()
     launches["kernel_study"] = phase_kernel_study(card)
     torch.cuda.empty_cache()
+    _register_tp_config()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
-        launches.update(phase_parallel(synth_params(VIT_B_16, 0), dev, card, workdir))
+        launches.update(phase_parallel(synth_params(get_config(RANK_CONFIG), 0), dev, card,
+                                       workdir))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         k8_summary, train_launches = phase_parallel_train(dev, card, workdir)
@@ -4008,17 +4068,17 @@ def phase_mae_throughput(dev: torch.device, card: str) -> None:
                   "step", card)
 
 
-def _teacher_npz(workdir: str) -> str:
-    """The teacher of phase 43: ``vit_b_16`` from ``init_params`` seed 1, as
-    an .npz."""
+def _teacher_npz(workdir: str, cfg=None) -> str:
+    """The teacher of phase 43: ``vit_b_16`` (or ``cfg``) from
+    ``init_params`` seed 1, as an .npz."""
     from vit_tpu_torch.config import VIT_B_16
     from vit_tpu_torch.io import checkpoint as ckpt
     from vit_tpu_torch.io.params import params_to_numpy
     from vit_tpu_torch.models import vit
 
     path = f"{workdir}/teacher.npz"
-    ckpt.save_npz(params_to_numpy(vit.init_params(torch.Generator().manual_seed(1), VIT_B_16)),
-                  path)
+    ckpt.save_npz(params_to_numpy(vit.init_params(torch.Generator().manual_seed(1),
+                                                  cfg or VIT_B_16)), path)
     return path
 
 
@@ -4515,10 +4575,14 @@ RECIPE_MOMENT_TOL = 1e-3
 
 
 def _register_tp_config() -> None:
-    from vit_tpu_torch.config import CONFIGS, VIT_B_16
+    """``vit_b_16_depth2`` (and the DeiT student ``deit_b_16_depth2``): B/16
+    widths at depth 2, for the rank runs of phases 38, 45, 47 and 49."""
+    from vit_tpu_torch.config import CONFIGS, DEIT_B_16, VIT_B_16
 
     CONFIGS[RECIPE_TP_CONFIG] = dataclasses.replace(VIT_B_16, depth=RECIPE_TP_DEPTH,
                                                     name=RECIPE_TP_CONFIG)
+    CONFIGS[RANK_DEIT_CONFIG] = dataclasses.replace(DEIT_B_16, depth=RANK_DEPTH,
+                                                    name=RANK_DEIT_CONFIG)
 
 
 @contextlib.contextmanager
@@ -5371,8 +5435,597 @@ def group_pp_sp(dev, card, summary, launches) -> None:
         launches.update(phase_pp_sp(dev, card, workdir))
 
 
+# -- serving over a mesh and the lockstep server (phase 49) ---------------------
+
+MESH_SERVE_TIMEOUT = 420  # s: a rank that hangs fails phase 49
+MESH_SERVE_REQUESTS = 64  # of phase 39's stream: 1-64 images each
+# tp 2 over gloo costs ~1 s a batch on one card (24 activation all-reduces
+# of up to 39 MB through host memory): the tp runs serve the stream's first 16
+MESH_SERVE_TP_REQUESTS = 16
+MESH_SERVE_FP32_REQUESTS = 8
+# the InferenceServer runs: name -> (mesh axes, ops, dtype, requests, launches per batch)
+MESH_SERVE_RUNS = {
+    "serve_tp": ({"dp": 1, "tp": 2}, "fused", "bfloat16", MESH_SERVE_TP_REQUESTS,
+                 {"ln_qkv_attn": 12, "ln_mlp_residual": 12, "layer_norm": 1}),
+    "serve_quant_tp": ({"dp": 1, "tp": 2}, "quant", "bfloat16", MESH_SERVE_TP_REQUESTS,
+                       {"ln_qkv_attn_q8": 12, "ln_fc1_gelu_q8": 12, "fc2_q8_partial": 12,
+                        "layer_norm": 1}),
+    "serve_dp": ({"dp": 2, "tp": 1}, "fused", "bfloat16", MESH_SERVE_REQUESTS,
+                 {"ln_qkv_attn": 12, "out_ln_mlp_residual": 12, "layer_norm": 1}),
+    "serve_tp_fp32": ({"dp": 1, "tp": 2}, "fused", "float32", MESH_SERVE_FP32_REQUESTS,
+                      {"ln_qkv_attn": 12, "ln_mlp_residual": 12, "layer_norm": 1}),
+}
+LOCKSTEP_BATCH = 32  # local_batch: each rank's images per tick
+LOCKSTEP_TICK_MS = 10.0
+LOCKSTEP_REQUESTS = 24  # per rank, 1-32 images each, from the rank's own seed
+LOCKSTEP_LATE = 10  # rank 0's requests queued when rank 1 stops
+LOCKSTEP_IDLE_S = 1.0
+LOCKSTEP_TICK = {"ln_qkv_attn": 12, "out_ln_mlp_residual": 12, "layer_norm": 1}
+MULTIHOST_LOCAL_BATCH = 8  # the serve CLI's --multihost daemons; 8 images a POST
+MULTIHOST_TRAIN = {"ln_qkv_attn": RECIPE_TP_DEPTH,
+                   **{name: RECIPE_TP_DEPTH for name in TRAIN_KERNELS}}
+MULTIHOST_STEPS = 3
+MULTIHOST_FLAGS = ["--config", RECIPE_TP_CONFIG, "--batch", str(TP_TRAIN_BATCH), "--ops",
+                   "fused_train", "--mixed-precision", "--steps", str(MULTIHOST_STEPS),
+                   "--device", "cuda", "--dist-backend", "gloo", "--lr", str(TRAIN_LR)]
+
+
+def _lockstep_stream(rank: int, late: bool = False) -> list:
+    """Rank ``rank``'s lockstep requests, (offset, size) slices of the pool:
+    LOCKSTEP_REQUESTS of 1-32 images from ``default_rng(100 + rank)``, or
+    rank 0's LOCKSTEP_LATE late ones."""
+    rng = np.random.default_rng(200 if late else 100 + rank)
+    sizes = rng.integers(1, LOCKSTEP_BATCH + 1, LOCKSTEP_LATE if late else LOCKSTEP_REQUESTS)
+    return [(int(rng.integers(0, SERVE_POOL - n + 1)), int(n)) for n in sizes]
+
+
+def _wait_files(paths, timeout: float = SERVE_WAIT) -> None:
+    """Wait until every file of ``paths`` exists (the ranks' rendezvous
+    while their servers run: no collective may run beside a tick loop)."""
+    end = time.monotonic() + timeout
+    while not all(os.path.exists(p) for p in paths):
+        if time.monotonic() > end:
+            raise RuntimeError(f"no {paths} after {timeout} s")
+        time.sleep(0.01)
+
+
+class _CallSpy:
+    """A server's ``_serve_fn`` that counts its calls (the forwards)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.fn(*args)
+
+
+def _stats_line(stats, images: int, wall: float) -> dict:
+    return {"images": images, "wall_s": wall, "img_s": images / wall, "batches": stats.batches,
+            "p50_ms": stats.latency.quantile(0.5) * 1e3,
+            "p99_ms": stats.latency.quantile(0.99) * 1e3}
+
+
+def serve_mesh_rank_worker(workdir: str) -> None:
+    """One rank of phase 49 (``torchrun`` starts ``RANKS`` of them): the
+    ``InferenceServer`` over the meshes of ``MESH_SERVE_RUNS`` (rank 0
+    serves phase 39's stream, rank 1 follows), the dp 2 ``LockstepServer``
+    (each rank its own requests; one idle second; rank 1 stops while rank
+    0 still has requests queued), the serve CLI's daemon on a tp 2 mesh
+    (POST /classify, /reload to seed 1, /classify) and the train CLI with
+    ``--dp 2`` at depth 2.  Every count is set to 0 just before each run
+    and read just after.  Writes ``serve_rank<r>.json`` and its answers
+    (``serve_rank<r>.npz``) into ``workdir``."""
+    import queue
+
+    import torch.distributed as dist
+
+    from vit_tpu_torch.cli import serve
+    from vit_tpu_torch.cli.train import main as train
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io.load_any import load_params_any
+    from vit_tpu_torch.parallel import make_mesh
+    from vit_tpu_torch.runtime import distributed
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+    from vit_tpu_torch.runtime.multihost_serving import LockstepServer
+    from vit_tpu_torch.runtime.serving import InferenceServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", distributed.local_rank() % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    distributed.initialize(backend="gloo")
+    rank = dist.get_rank()
+    params = load_params_any(f"{workdir}/params.npz", VIT_B_16)
+    pool = np.load(f"{workdir}/pool.npy")
+    stream = _serve_stream()
+    report, answers = {"runs": {}, "section_s": {}}, {}
+    t0 = time.perf_counter()
+
+    def section(name):  # the wall of each part of the worker, for the log
+        nonlocal t0
+        report["section_s"][name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    for name, (axes, ops, dtype, count, _) in MESH_SERVE_RUNS.items():
+        engine = InferenceEngine(VIT_B_16, params, dtype, ops, dev, batch_pad=SERVE_PAD,
+                                 mesh=make_mesh(axes))
+        server = InferenceServer(engine, max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_DELAY_MS,
+                                 max_queue_images=1 << 31)
+        spy = server._serve_fn = _CallSpy(server._serve_fn)
+        wrappers = _reset_counts()
+        run = {}
+        if server.leads:
+            server.warmup()  # every padded size, the follower joining each
+            fp32 = dtype == "float32"
+            with server:
+                t0 = time.perf_counter()
+                futures = [server.submit(pool[o:o + n], return_probs=fp32)
+                           for o, n in stream[:count]]
+                got = [f.result(timeout=SERVE_WAIT) for f in futures]
+                wall = time.perf_counter() - t0
+            run.update(_stats_line(server.stats, sum(n for _, n in stream[:count]), wall))
+            answers[f"{name}/labels"] = np.concatenate([g[0] for g in got])
+            answers[f"{name}/top"] = np.concatenate([g[1] for g in got])
+            if fp32:
+                answers[f"{name}/probs"] = np.concatenate([g[2] for g in got])
+        else:
+            server.follow()
+        torch.cuda.synchronize()
+        run.update(launches={n: fn.launches for n, fn in wrappers.items()}, forwards=spy.calls)
+        report["runs"][name] = run
+        del engine, server
+        gc.collect()
+        torch.cuda.empty_cache()
+        section(name)
+
+    # the lockstep server: dp 2, each rank its own requests
+    engine = InferenceEngine(VIT_B_16, params, "bfloat16", "fused", dev, batch_pad=SERVE_PAD,
+                             mesh=make_mesh({"dp": RANKS}))
+    server = LockstepServer(engine, local_batch=LOCKSTEP_BATCH, tick_ms=LOCKSTEP_TICK_MS,
+                            max_queue_images=1 << 31)  # each rank's stream queued at once
+    spy = server._serve_fn = _CallSpy(server._serve_fn)
+    server.warmup()  # every rank together, before start
+    torch.cuda.synchronize()
+    dist.barrier()
+    wrappers = _reset_counts()
+    server.start()
+    time.sleep(LOCKSTEP_IDLE_S)  # no traffic on any rank: ticks, no forward
+    torch.cuda.synchronize()
+    report["lockstep_idle"] = {"launches": {n: fn.launches for n, fn in wrappers.items()},
+                               "forwards": spy.calls - 1}  # less warmup's
+    wrappers, calls0 = _reset_counts(), spy.calls
+    open(f"{workdir}/lockstep_ready{rank}", "w").close()
+    _wait_files([f"{workdir}/lockstep_ready{r}" for r in range(RANKS)])
+    mine = _lockstep_stream(rank)
+    t0 = time.perf_counter()
+    futures = [server.submit(pool[o:o + n]) for o, n in mine]
+    got = [f.result(timeout=SERVE_WAIT) for f in futures]
+    wall = time.perf_counter() - t0
+    run = _stats_line(server.stats, sum(n for _, n in mine), wall)
+    answers["lockstep/labels"] = np.concatenate([g[0] for g in got])
+    answers["lockstep/top"] = np.concatenate([g[1] for g in got])
+    if rank == 0:  # rank 1 stops while these are queued
+        late = [server.submit(pool[o:o + n]) for o, n in _lockstep_stream(0, late=True)]
+        open(f"{workdir}/lockstep_queued", "w").close()
+        got = [f.result(timeout=SERVE_WAIT) for f in late]
+        answers["lockstep_late/labels"] = np.concatenate([g[0] for g in got])
+        answers["lockstep_late/top"] = np.concatenate([g[1] for g in got])
+    else:
+        _wait_files([f"{workdir}/lockstep_queued"])
+    t0 = time.perf_counter()
+    server.stop()  # returns once every rank has stopped
+    run["stop_wait_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    run.update(launches={n: fn.launches for n, fn in wrappers.items()},
+               forwards=spy.calls - calls0)
+    report["runs"]["serve_lockstep"] = run
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    section("serve_lockstep")
+
+    # the serve CLI's daemon on a tp 2 mesh: rank 0 answers HTTP, rank 1 follows
+    args = serve.build_parser().parse_args([
+        "--weights", f"{workdir}/params.npz", "--device", "cuda", "--ops", "fused", "--dtype",
+        "bfloat16", "--tp", str(RANKS), "--dist-backend", "gloo", "--allow-reload", "--port",
+        "0"])
+    wrappers = _reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cfg, ops, server = serve._build_server(args)
+    spy = server._serve_fn = _CallSpy(server._serve_fn)
+    run = {}
+    if server.leads:
+        imgs = pool[:8]
+        body = np.array(imgs.shape, dtype="<i4").tobytes() + imgs.astype("<f4").tobytes()
+        listening = queue.Queue()
+        with contextlib.redirect_stdout(io.StringIO()):
+            t = threading.Thread(target=serve._http_daemon, args=(args, cfg, ops, server),
+                                 kwargs={"on_listen": listening.put}, daemon=True)
+            t.start()
+            httpd = listening.get(timeout=SERVE_WAIT)
+            port = httpd.server_address[1]
+            try:
+                for step, path, payload in (
+                        ("classify", "/classify", body),
+                        ("reload", "/reload", json.dumps({"weights":
+                                                         f"{workdir}/params_seed1.npz"})),
+                        ("classify_seed1", "/classify", body)):
+                    code, out = _http(port, "POST", path, payload)
+                    run[f"{step}_code"] = code
+                    reply = json.loads(out)
+                    if "results" in reply:
+                        answers[f"daemon_{step}/labels"] = np.array(
+                            [r["label"] for r in reply["results"]])
+                        answers[f"daemon_{step}/top"] = np.array(
+                            [r["prob"] for r in reply["results"]], np.float32)
+            finally:
+                httpd.shutdown()
+                t.join(timeout=SERVE_WAIT)
+        run["stopped"] = not t.is_alive()
+    else:
+        server.follow()
+    torch.cuda.synchronize()
+    run.update(launches={n: fn.launches for n, fn in wrappers.items()}, forwards=spy.calls)
+    report["runs"]["serve_http_tp"] = run
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    section("serve_http_tp")
+
+    # the train CLI with --dp 2 at depth 2: the --multihost processes' reference
+    _register_tp_config()
+    wrappers = _reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = train([*MULTIHOST_FLAGS, "--dp", str(RANKS), "--data-dir", f"{workdir}/shards",
+                    "--log-jsonl", f"{workdir}/train_dp.jsonl"])
+    torch.cuda.synchronize()
+    report["runs"]["train_dp_depth2"] = {"rc": rc, "launches": {
+        n: fn.launches for n, fn in wrappers.items()}}
+    section("train_dp_depth2")
+    with open(f"{workdir}/serve_rank{rank}.json", "w") as fh:
+        json.dump(report, fh)
+    np.savez(f"{workdir}/serve_rank{rank}.npz", **answers)
+
+
+def cli_worker(spec: str) -> None:
+    """One process of phase 49's explicit-coordinator runs: the CLIs of
+    ``spec.json`` (``[{"cli": "serve" or "train", "argv": [...]}, ...]``) in
+    turn in this process (one process group: the first joins it), every
+    count set to 0 just before each and read just after, the exit codes
+    and counts into ``spec.out.json``."""
+    from vit_tpu_torch.cli import serve, train
+
+    with open(f"{spec}.json") as fh:
+        jobs = json.load(fh)
+    _register_tp_config()
+    out = []
+    for job in jobs:
+        wrappers = _reset_counts()
+        rc = (serve if job["cli"] == "serve" else train).main(job["argv"])
+        torch.cuda.synchronize()
+        out.append({"rc": rc, "launches": {n: fn.launches for n, fn in wrappers.items()}})
+        print(f"--cli-worker: {job['cli']} exited {rc}", flush=True)
+        if rc:
+            break
+    with open(f"{spec}.out.json", "w") as fh:
+        json.dump(out, fh)
+    if out[-1]["rc"]:
+        raise SystemExit(out[-1]["rc"])
+
+
+def _cli_processes(workdir: str, name: str, jobs):
+    """Start ``RANKS`` processes running ``jobs`` ([(cli, argv)]) with
+    --multihost, joined by explicit --coordinator/--num-processes/
+    --process-id (not torchrun), each through ``--cli-worker`` -> the Popen
+    objects."""
+    import socket
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for i in range(RANKS):
+        spec = f"{workdir}/{name}{i}"
+        flags = ["--multihost", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                 str(RANKS), "--process-id", str(i)]
+        with open(f"{spec}.json", "w") as fh:
+            json.dump([{"cli": cli, "argv": [*argv, *flags]} for cli, argv in jobs], fh)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cli-worker", spec],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True,
+            env=dict(os.environ, OMP_NUM_THREADS="4")))
+    return procs
+
+
+def _kill(procs) -> None:
+    import signal
+
+    for p in procs:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+
+
+def _finish(procs, timeout: float, what: str) -> list:
+    """Wait for ``procs`` -> their outputs; past ``timeout`` s every one is
+    killed with its process group and the phase fails."""
+    end = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(end - time.monotonic(), 1.0))
+            outs.append(out)
+    except subprocess.TimeoutExpired:
+        _kill(procs)
+        raise RuntimeError(f"{what} did not finish in {timeout} s: a process hung")
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if "socket.cpp" not in ln]
+        log("\n".join(f"{what} {i}: {ln}" for ln in (lines if p.returncode else lines[-3:])))
+        if p.returncode != 0:
+            raise RuntimeError(f"{what} process {i} exited {p.returncode}")
+    return outs
+
+
+def phase_multihost(workdir: str, pool, want: tuple, p32: np.ndarray) -> tuple:
+    """Two processes joined by explicit coordinator flags (not torchrun),
+    each running in turn: the serve CLI with --multihost, its daemon on
+    --port 0 (POST /classify with 8 images to each, against the one-card
+    engine by the comparator rule; POST /reload answered 409; SIGTERM to
+    both: each drains and the lockstep server's stop rendezvous lets both
+    return), then the train CLI with --multihost (depth 2, bf16 mixed
+    fused_train, the shards).  -> ([each process's serve and train launch
+    counts], rank 0's train losses)."""
+    import signal
+
+    from vit_tpu_torch.io import results
+
+    serve_argv = ["--weights", f"{workdir}/params.npz", "--device", "cuda", "--ops", "fused",
+                  "--dtype", "bfloat16", "--dist-backend", "gloo", "--local-batch",
+                  str(MULTIHOST_LOCAL_BATCH), "--allow-reload", "--port", "0"]
+    train_argv = [*MULTIHOST_FLAGS, "--data-dir", f"{workdir}/shards", "--log-jsonl",
+                  f"{workdir}/train_mh.jsonl"]
+    t0 = time.perf_counter()
+    procs = _cli_processes(workdir, "mh", [("serve", serve_argv), ("train", train_argv)])
+    ports, seen = [], [[] for _ in procs]
+    try:
+        for i, p in enumerate(procs):  # each daemon prints its port once it listens
+            end = time.monotonic() + MESH_SERVE_TIMEOUT
+            while True:
+                line = p.stdout.readline()
+                seen[i].append(line)
+                m = re.search(r"listening on http://[\d.]+:(\d+)", line)
+                if m:
+                    ports.append(int(m.group(1)))
+                    break
+                if not line or time.monotonic() > end:
+                    raise RuntimeError(f"--multihost daemon {i} did not listen: "
+                                       + "".join(seen[i][-10:]))
+        codes = {}
+        for i, port in enumerate(ports):
+            imgs = pool[8 * i:8 * i + 8]
+            body = np.array(imgs.shape, dtype="<i4").tobytes() + imgs.astype("<f4").tobytes()
+            codes[f"classify {i}"], out = _http(port, "POST", "/classify", body)
+            reply = json.loads(out)
+            with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+                results.write_result_file(np.array([r["label"] for r in reply["results"]]),
+                                          np.array([r["prob"] for r in reply["results"]]),
+                                          f"{tmp}/served.txt")
+                results.write_result_file(want[0][8 * i:8 * i + 8], want[1][8 * i:8 * i + 8],
+                                          f"{tmp}/alone.txt")
+                _line_rule(f"--multihost daemon {i}, POST /classify 8 images vs the one-card "
+                           "engine", f"{tmp}/served.txt", f"{tmp}/alone.txt",
+                           p32[8 * i:8 * i + 8])
+            codes[f"reload {i}"], _ = _http(port, "POST", "/reload",
+                                            json.dumps({"weights": f"{workdir}/params.npz"}))
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+    except BaseException:
+        _kill(procs)
+        raise
+    _finish(procs, MESH_SERVE_TIMEOUT, "--multihost process")
+    log(f"--multihost (2 processes, explicit coordinator): daemons' codes {codes}; serve then "
+        f"train in {time.perf_counter() - t0:.3f} s")
+    if codes != {"classify 0": 200, "reload 0": 409, "classify 1": 200, "reload 1": 409}:
+        raise RuntimeError(f"--multihost daemons: codes {codes}")
+    outs = [json.load(open(f"{workdir}/mh{i}.out.json")) for i in range(RANKS)]
+    with open(f"{workdir}/train_mh.jsonl") as fh:
+        return outs, [json.loads(ln)["loss"] for ln in fh]
+
+
+def phase_serve_mesh(dev: torch.device, card: str, workdir: str) -> dict:
+    """Phase 49: serving over a mesh, two ranks sharing the card over gloo
+    (``torchrun`` with a time limit, ``--rank-serve-mesh-worker``): the
+    ``InferenceServer`` on tp 2 ``fused`` and ``quant`` and dp 2 ``fused``
+    (64 requests of phase 39's stream) and fp32 tp 2 (8 requests), each
+    answer against the one-card engine's classify of that request alone by
+    the comparator rule (fp32: probabilities within 1e-4), the launches per
+    rank per batch; the dp 2 ``LockstepServer`` (each rank its own
+    requests; one idle second launches nothing; rank 1 stops while rank 0
+    has 10 requests queued, all answered); the tp 2 daemon (POST /classify,
+    /reload to seed 1); the serve CLI's ``--multihost`` daemons and the
+    train CLI's ``--multihost`` on two explicit-coordinator processes, the
+    latter's losses the ``--dp 2`` run's; img/s, p50 and p99 of each server
+    beside the one-card server's on the same requests.  -> launch counts of
+    rank 0 by path."""
+    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.io import checkpoint, results
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+    from vit_tpu_torch.runtime.serving import InferenceServer
+
+    params = synth_params(VIT_B_16, 0)
+    checkpoint.save_npz(params, f"{workdir}/params.npz")
+    checkpoint.save_npz(synth_params(VIT_B_16, 1), f"{workdir}/params_seed1.npz")
+    pool = synth_images(SERVE_POOL, VIT_B_16, seed=2)
+    np.save(f"{workdir}/pool.npy", pool)
+    os.makedirs(f"{workdir}/shards")
+    rng = np.random.default_rng(49)
+    _write_shards(f"{workdir}/shards", synth_images(sum(DATA_SHARDS), VIT_B_16, seed=49),
+                  rng.integers(0, VIT_B_16.num_classes, sum(DATA_SHARDS)))
+
+    # the one-card references: every pool image alone, and the one-card server
+    t_ref = time.perf_counter()
+    stream = _serve_stream()[:MESH_SERVE_REQUESTS]
+    one = {}
+    for ops, dtype, count in (("fused", "float32", MESH_SERVE_FP32_REQUESTS),
+                              ("fused", "bfloat16", MESH_SERVE_REQUESTS),
+                              ("quant", "bfloat16", MESH_SERVE_TP_REQUESTS)):
+        eng = InferenceEngine(VIT_B_16, params, dtype, ops, dev, batch_pad=SERVE_PAD)
+        one[ops, dtype] = [eng.classify(pool[o:o + n]) for o, n in stream[:count]]
+        if (ops, dtype) == ("fused", "float32"):
+            p32_pool = eng.probabilities(pool).cpu().numpy()
+            probs32 = [eng.probabilities(pool[o:o + n]).cpu().numpy()
+                       for o, n in stream[:MESH_SERVE_FP32_REQUESTS]]
+        if (ops, dtype) == ("fused", "bfloat16"):
+            lock_want = {r: [eng.classify(pool[o:o + n]) for o, n in _lockstep_stream(r)]
+                         for r in range(RANKS)}
+            late_want = [eng.classify(pool[o:o + n]) for o, n in _lockstep_stream(0, late=True)]
+            mh_want = eng.classify(pool[:8 * RANKS])
+            daemon_want = eng.classify(pool[:8])
+            server = InferenceServer(eng, max_batch=SERVE_MAX_BATCH,
+                                     max_delay_ms=SERVE_DELAY_MS, max_queue_images=1 << 31)
+            server.warmup()
+            with server:
+                t0 = time.perf_counter()
+                futures = [server.submit(pool[o:o + n]) for o, n in stream]
+                for f in futures:
+                    f.result(timeout=SERVE_WAIT)
+                wall = time.perf_counter() - t0
+            one_card = _stats_line(server.stats, sum(n for _, n in stream), wall)
+            del server
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    daemon_want1 = InferenceEngine(VIT_B_16, synth_params(VIT_B_16, 1), "bfloat16", "fused",
+                                   dev, batch_pad=SERVE_PAD).classify(pool[:8])
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 49's inputs and one-card references: {time.perf_counter() - t_ref:.3f} s")
+
+    _run_ranks("--rank-serve-mesh-worker", workdir, MESH_SERVE_TIMEOUT, "serving ranks")
+    reports = [json.load(open(f"{workdir}/serve_rank{r}.json")) for r in range(RANKS)]
+    answers = dict(np.load(f"{workdir}/serve_rank0.npz"))
+    log("serving ranks, s a part (rank 0): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in reports[0]["section_s"].items()))
+
+    def rule(what, labels, top, want, p32):
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            results.write_result_file(labels, top, f"{tmp}/served.txt")
+            results.write_result_file(np.concatenate([w[0] for w in want]),
+                                      np.concatenate([w[1] for w in want]), f"{tmp}/alone.txt")
+            _line_rule(what, f"{tmp}/served.txt", f"{tmp}/alone.txt", p32)
+
+    launches = {}
+    for name, (axes, ops, dtype, count, per_batch) in MESH_SERVE_RUNS.items():
+        runs = [rep["runs"][name] for rep in reports]
+        lead = runs[0]
+        forwards = lead["forwards"]  # warmup's padded sizes (32, 64) and the batches
+        what = (f"{name} ({ops} {dtype} over {axes}, {count} requests, {lead['images']} images, "
+                f"{lead['batches']} batches)")
+        if forwards != lead["batches"] + 2 or any(r["forwards"] != forwards for r in runs):
+            raise RuntimeError(f"{what}: forwards per rank {[r['forwards'] for r in runs]}, "
+                               f"expected {lead['batches']} batches + 2 warmup sizes")
+        for r, run in enumerate(runs):
+            _expect_counts_of(run["launches"], {k: n * forwards for k, n in per_batch.items()},
+                              f"rank {r} {what}, {forwards} forwards")
+        launches[name] = lead["launches"]
+        sub = stream[:count]
+        p32 = np.concatenate([p32_pool[o:o + n] for o, n in sub])
+        if dtype == "float32":
+            got = answers[f"{name}/probs"]
+            d = float(np.abs(got - np.concatenate(probs32)).max())
+            log(f"{what}: probabilities vs the one-card fp32 engine's max|d|={d:.6g} (tol 1e-4)")
+            if not d <= 1e-4:
+                raise RuntimeError(f"{what}: probabilities outside 1e-4 of the one card's")
+        rule(f"{what} vs the one-card engine alone", answers[f"{name}/labels"],
+             answers[f"{name}/top"], one[ops, dtype][:count], p32)
+        log(f"{name} server: {lead['img_s']:.6g} img/s, p50 {lead['p50_ms']:.6g} ms, p99 "
+            f"{lead['p99_ms']:.6g} ms ({lead['images']} images in {lead['wall_s']:.6g} s), "
+            f"{RANKS} ranks sharing one card over gloo (not a scaling figure); {card}")
+    log(f"one-card server, the same {MESH_SERVE_REQUESTS} requests (bf16 fused): "
+        f"{one_card['img_s']:.6g} img/s, p50 {one_card['p50_ms']:.6g} ms, p99 "
+        f"{one_card['p99_ms']:.6g} ms ({one_card['batches']} batches); {card}")
+
+    # the lockstep server
+    for r, rep in enumerate(reports):
+        idle = rep["lockstep_idle"]
+        _expect_counts_of(idle["launches"], {},
+                          f"rank {r} lockstep, {LOCKSTEP_IDLE_S} s with no traffic")
+        if idle["forwards"]:
+            raise RuntimeError(f"rank {r} lockstep: {idle['forwards']} forwards while idle")
+        run = rep["runs"]["serve_lockstep"]
+        _expect_counts_of(run["launches"], {k: n * run["forwards"] for k, n in
+                                            LOCKSTEP_TICK.items()},
+                          f"rank {r} serve_lockstep (dp 2, local_batch {LOCKSTEP_BATCH}, "
+                          f"{run['forwards']} ticks)")
+        mine = _lockstep_stream(r)
+        got = dict(np.load(f"{workdir}/serve_rank{r}.npz"))
+        rule(f"rank {r} lockstep, its {len(mine)} requests vs the one-card engine alone",
+             got["lockstep/labels"], got["lockstep/top"], lock_want[r],
+             np.concatenate([p32_pool[o:o + n] for o, n in mine]))
+        log(f"rank {r} lockstep server: {run['img_s']:.6g} img/s, p50 {run['p50_ms']:.6g} ms, "
+            f"p99 {run['p99_ms']:.6g} ms ({run['images']} images of its own, {run['batches']} "
+            f"ticks with its rows), stop waited {run['stop_wait_s']:.6g} s; {RANKS} ranks "
+            f"sharing one card over gloo (not a scaling figure); {card}")
+    late = _lockstep_stream(0, late=True)
+    rule(f"rank 0 lockstep, its {LOCKSTEP_LATE} requests queued when rank 1 stopped",
+         answers["lockstep_late/labels"], answers["lockstep_late/top"], late_want,
+         np.concatenate([p32_pool[o:o + n] for o, n in late]))
+    launches["serve_lockstep"] = reports[0]["runs"]["serve_lockstep"]["launches"]
+
+    # the tp 2 daemon
+    run = reports[0]["runs"]["serve_http_tp"]
+    codes = {k: run[f"{k}_code"] for k in ("classify", "reload", "classify_seed1")}
+    log(f"tp 2 daemon: codes {codes}, stopped {run['stopped']}")
+    if codes != {"classify": 200, "reload": 200, "classify_seed1": 200} or not run["stopped"]:
+        raise RuntimeError(f"tp 2 daemon: codes {codes}, stopped {run['stopped']}")
+    for step, want in (("classify", daemon_want), ("classify_seed1", daemon_want1)):
+        rule(f"tp 2 daemon POST /{step}, 8 images vs the one-card seed-"
+             f"{1 if step.endswith('1') else 0} engine", answers[f"daemon_{step}/labels"],
+             answers[f"daemon_{step}/top"], [want], p32_pool[:8])
+    for r, rep in enumerate(reports):
+        run = rep["runs"]["serve_http_tp"]
+        _expect_counts_of(run["launches"], {k: n * run["forwards"] for k, n in
+                                            MESH_SERVE_RUNS["serve_tp"][4].items()},
+                          f"rank {r} serve_http_tp ({run['forwards']} forwards: warmup and 2 "
+                          "POSTs)")
+    launches["serve_http_tp"] = reports[0]["runs"]["serve_http_tp"]["launches"]
+
+    # --multihost: the serve CLI's daemons, then the train CLI against --dp 2
+    outs, mh_losses = phase_multihost(workdir, pool, mh_want, p32_pool[:8 * RANKS])
+    for i, (served, trained) in enumerate(outs):
+        # warmup's tick, then the two classify ticks (each process joins both)
+        _expect_counts_of(served["launches"], {k: 3 * n for k, n in LOCKSTEP_TICK.items()},
+                          f"--multihost daemon {i} (warmup + 2 ticks of {MULTIHOST_LOCAL_BATCH})")
+        _expect_cli(trained["launches"], MULTIHOST_TRAIN, MULTIHOST_STEPS,
+                    f"--multihost train process {i} (depth 2, {MULTIHOST_STEPS} steps)")
+    launches["serve_multihost"] = outs[0][0]["launches"]
+    for r, rep in enumerate(reports):
+        run = rep["runs"]["train_dp_depth2"]
+        if run["rc"] != 0:
+            raise RuntimeError(f"rank {r} train --dp 2: exited {run['rc']}")
+        _expect_cli(run["launches"], MULTIHOST_TRAIN, MULTIHOST_STEPS,
+                    f"rank {r} train --dp 2 (depth 2, {MULTIHOST_STEPS} steps)")
+    with open(f"{workdir}/train_dp.jsonl") as fh:
+        dp_losses = [json.loads(ln)["loss"] for ln in fh]
+    log(f"train --multihost (2 processes, explicit coordinator) losses {mh_losses}; --dp 2 "
+        f"torchrun {dp_losses}")
+    if mh_losses != dp_losses or len(dp_losses) != MULTIHOST_STEPS:
+        raise RuntimeError("train --multihost: its losses differ from the --dp 2 run's")
+    launches["train_multihost"] = outs[0][1]["launches"]
+    return launches
+
+
+def group_serve_mesh(dev, card, summary, launches) -> None:
+    """Phase 49."""
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+        launches.update(phase_serve_mesh(dev, card, workdir))
+
+
 PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw",
-          "parallel", "serve", "mae", "distill", "qat", "data", "recipe", "pp_sp")
+          "parallel", "serve", "mae", "distill", "qat", "data", "recipe", "pp_sp", "serve_mesh")
 
 
 def group_classify(dev, card, summary, launches) -> None:
@@ -5561,6 +6214,10 @@ def main(argv=None) -> None:
                    help="run one rank of phase 47 (torchrun starts these), writing into DIR")
     p.add_argument("--rank-pp-sp-worker", metavar="DIR",
                    help="run one rank of phase 48 (torchrun starts these), writing into DIR")
+    p.add_argument("--rank-serve-mesh-worker", metavar="DIR",
+                   help="run one rank of phase 49 (torchrun starts these), writing into DIR")
+    p.add_argument("--cli-worker", metavar="SPEC",
+                   help="run one of phase 49's explicit-coordinator CLI processes (SPEC.json)")
     args = p.parse_args(argv)
     if args.rank_worker:
         rank_worker(args.rank_worker)
@@ -5573,6 +6230,12 @@ def main(argv=None) -> None:
         return
     if args.rank_pp_sp_worker:
         pp_sp_rank_worker(args.rank_pp_sp_worker)
+        return
+    if args.rank_serve_mesh_worker:
+        serve_mesh_rank_worker(args.rank_serve_mesh_worker)
+        return
+    if args.cli_worker:
+        cli_worker(args.cli_worker)
         return
     only = PHASES if args.only is None else tuple(args.only.split(","))
     if not set(only) <= set(PHASES):
@@ -5600,7 +6263,8 @@ def main(argv=None) -> None:
               "long": group_long, "quant": group_quant, "tome": group_tome, "dh80": group_dh80,
               "per_op": group_per_op, "adamw": group_adamw, "parallel": group_parallel,
               "serve": group_serve, "mae": group_mae, "distill": group_distill, "qat": group_qat,
-              "data": group_data, "recipe": group_recipe, "pp_sp": group_pp_sp}
+              "data": group_data, "recipe": group_recipe, "pp_sp": group_pp_sp,
+              "serve_mesh": group_serve_mesh}
     for name in PHASES:
         if name in only:
             t0 = time.perf_counter()

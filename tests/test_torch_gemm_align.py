@@ -191,13 +191,10 @@ def test_tome_operands_pass(monkeypatch, request, train, width, dtype):
     assert log_size.is_contiguous()
 
 
-@pytest.mark.parametrize("tp", [2, 4])
-@pytest.mark.parametrize("rank", [0, 1])
-@pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_tp_local_heads_operands_pass(monkeypatch, tp, rank, width, dtype):
-    # rank's shard of the block (W_qkv's columns of its heads: 3 D / tp wide,
-    # 1,152 and 576 at B/16), on a mesh whose all-reduces are no-ops
+def _tp_run(monkeypatch, tp, rank, width, dtype):
+    """rank's shard of the block (W_qkv's columns of its heads: 3 D / tp
+    wide, 1,152 and 576 at B/16) through ``fused_block_tp`` on a mesh whose
+    all-reduces are no-ops -> the K1 and K2 calls."""
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.parallel import tp_forward
     from vit_tpu_torch.parallel.mesh import Mesh
@@ -217,4 +214,21 @@ def test_tp_local_heads_operands_pass(monkeypatch, tp, rank, width, dtype):
     out = tp_forward.fused_block_tp(_t((b * t, d), dtype, 1), blk, h // tp, t, EPS, "exact", mesh,
                                     quant=False)
     assert torch.isfinite(out.float()).all()
+    return k1_calls, k2_calls
+
+
+@pytest.fixture(scope="module")
+def tp_b16():
+    """The B/16-width runs of the cases below, each once: their record."""
+    return record(_tp_run, [(tp, rank, "b16", dtype) for tp in (2, 4) for rank in (0, 1)
+                            for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_tp_local_heads_operands_pass(monkeypatch, request, tp, rank, width, dtype):
+    k1_calls, k2_calls = (request.getfixturevalue("tp_b16")[tp, rank, width, dtype]
+                          if width == "b16" else _tp_run(monkeypatch, tp, rank, width, dtype))
     _check_calls(k1_calls, k2_calls, 1, 0)

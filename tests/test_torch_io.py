@@ -145,11 +145,12 @@ def _jax_side(modules):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tests/test_torch_cuda.py",
-                                    "tests/torch_pp_sp_worker.py"])
+                                    "tests/torch_pp_sp_worker.py",
+                                    "tests/torch_serve_worker.py"])
 def test_card_scripts_import_nothing_of_the_jax_package(script):
-    """What runs on the card (and the pipeline and sequence tests' rank
-    worker) names no module of JAX or of the JAX package, at the top or
-    inside a function."""
+    """What runs on the card (and the pipeline, sequence and serving tests'
+    rank workers) names no module of JAX or of the JAX package, at the top
+    or inside a function."""
     modules = _imported_modules(REPO / script)
     assert not _jax_side(modules)
     assert any(m.startswith("vit_tpu_torch") for m in modules)
@@ -281,8 +282,8 @@ def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     --ops quant, with --ops per_op --profile, with --attn-rollout and with
     --tome on fused and quant, and under torch.distributed.run on 2 ranks
     with --tp 2 (fused and quant) and the train CLI with --pp 2 (eager and
-    fused_train) and --sp 2 (eager and fused_train); the serve CLI's
-    --selftest, saturated and
+    fused_train) and --sp 2 (eager and fused_train) and the serve CLI's
+    --selftest with --tp 2; the serve CLI's --selftest, saturated and
     paced; the train CLI's --data-dir with --eval-data-dir and its
     --image-dir; the eval CLI on shards (fused, quant) and on an image folder
     with --tome: no vit_tpu or jax module gets loaded."""
@@ -393,6 +394,10 @@ config.CONFIGS[cfg.name] = cfg
 for ops in ("fused", "quant"):
     assert classify.main(["--config", cfg.name, "--device", "cpu", "--tp", "2", "--ops", ops,
                           "--weights", {str(tmp_path / "p.npz")!r}, "--synth", "2"]) == 0
+from vit_tpu_torch.cli import serve
+assert serve.main(["--config", cfg.name, "--device", "cpu", "--tp", "2", "--ops", "fused",
+                   "--weights", {str(tmp_path / "p.npz")!r}, "--selftest", "3", "--max-batch",
+                   "4", "--batch-pad", "4"]) == 0
 from vit_tpu_torch.cli import train
 for flags in (["--pp", "2", "--microbatches", "1"], ["--sp", "2"]):
     for ops in ("eager", "fused_train"):
@@ -406,7 +411,9 @@ assert not loaded, loaded
                           "--nproc-per-node", "2", str(rank)], timeout=120, cwd=tmp_path,
                          capture_output=True, text=True, env=dict(env, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.count("mesh: {'dp': 1, 'tp': 2} over 2 rank(s), backend gloo") == 2
+    # rank 0's line of each --tp 2 run: the classify CLI's two, the serve CLI's
+    assert out.stdout.count("mesh: {'dp': 1, 'tp': 2} over 2 rank(s), backend gloo") == 3
     assert out.stdout.count("[1] label:") == 2  # rank 0's lines only
     assert "pipeline: 2 stage(s), 1 microbatches" in out.stdout
+    assert out.stdout.count('"metric": "serving images/sec') == 1  # rank 0's line only
     assert "sequence parallel: ring size 2 (ops fused_train)" in out.stdout

@@ -456,22 +456,37 @@ def test_serve_cli_selftest_on_cpu(configs, net, capsys):
 
 
 @pytest.mark.parametrize("extra,msg", [
-    (["--tp", "2"], "--tp"), (["--dp", "2"], "--dp"), (["--multihost"], "--multihost"),
-    (["--coordinator", "h:1"], "--coordinator"), (["--num-processes", "2"], "--num-processes"),
-    (["--process-id", "0"], "--process-id"), (["--local-batch", "8"], "--local-batch"),
-    (["--tick-ms", "10"], "--tick-ms"),
+    (["--tp", "2"], "--tp 2/--dp None need one process per rank"),
+    (["--dp", "2"], "--tp 1/--dp 2 need one process per rank"),
+    (["--multihost", "--tome", "2"],
+     "--tome needs --ops fused/quant/eager on a single-host dp mesh (no --tp/--multihost)"),
+    (["--multihost", "--coordinator", "127.0.0.1:1"], "--coordinator"),
+    (["--multihost", "--num-processes", "2"], "--num-processes"),
+    (["--multihost", "--process-id", "0"], "--process-id"),
+    (["--multihost", "--local-batch", "0"], "local_batch and pipeline_depth must be >= 1"),
+    (["--multihost", "--tick-ms", "0"], "tick_ms must be > 0"),
     (["--tome", "-1"], "--tome must be >= 0"),
     (["--tome", "2", "--ops", "per_op"], "--tome (token merging) needs --ops fused, quant"),
 ], ids=["tp", "dp", "multihost", "coordinator", "num_processes", "process_id", "local_batch",
         "tick_ms", "tome_negative", "tome_per_op"])
-def test_serve_cli_refusals_exit_2(configs, net, capsys, extra, msg):
+def test_serve_cli_refusals_exit_2(configs, net, capsys, monkeypatch, extra, msg):
+    """Each refusal exits 2 with its error and serves nothing: --tp/--dp
+    outside a torchrun world, --tome on --multihost (the JAX daemon's
+    rule), the coordinator flags of an explicit process group without the
+    other two, the lockstep server's bounds."""
     from vit_tpu_torch.cli.serve import main
+    from vit_tpu_torch.runtime import distributed
 
+    # a one-process --multihost run latches initialize(); keep that here
+    monkeypatch.setattr(distributed, "_initialized", False)
+    monkeypatch.setattr(distributed, "_initialized_explicit", False)
     assert main([*_run_base(net), "--device", "cpu", "--selftest", "2", *extra]) == 2
-    err = capsys.readouterr().err
-    assert msg in err
-    if msg.startswith("--") and "tome" not in msg:
-        assert "ROADMAP.md item 14" in err
+    out = capsys.readouterr()
+    assert msg in out.err and out.err.startswith("error: ")
+    assert "images/sec" not in out.out
+    if "--coordinator" in msg or "--num-processes" in msg or "--process-id" in msg:
+        assert "explicit initialize needs coordinator_address, num_processes and process_id" \
+            in out.err
 
 
 def test_serve_cli_cuda_without_a_card_fails(configs, net, capsys, monkeypatch):

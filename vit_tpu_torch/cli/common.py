@@ -5,6 +5,9 @@
 under ``torchrun --nproc-per-node N``: one process per rank, each joining
 the process group (``runtime/distributed.py``), building its
 :class:`~vit_tpu_torch.parallel.mesh.Mesh` and doing its shard of the work.
+``--multihost`` (the serve and train CLIs) joins the ranks from explicit
+coordinator flags, or from ``torchrun``'s environment, into one dp mesh
+over the world (:func:`resolve_multihost`).
 """
 
 from __future__ import annotations
@@ -64,12 +67,41 @@ def resolve_mesh(dp, tp: int, device: str = "cuda", backend=None, out=None, pp: 
             shape = mesh_shape_for(world, tp=tp, dp=dp)
     except ValueError as e:
         raise MeshError(f"{flags} over a torchrun world of {world}: {e}") from e
-    if device == "cuda" and torch.cuda.is_available():
-        device = f"cuda:{distributed.local_rank() % torch.cuda.device_count()}"
-        torch.cuda.set_device(device)
+    device = _rank_device(device, distributed.local_rank())
     chosen = distributed.initialize(backend=backend, device_type=torch.device(device).type)
     mesh = make_mesh(shape)
     if mesh.rank == 0:
         print(f"mesh: {shape} over {world} rank(s), backend {chosen}",
               file=out if out is not None else sys.stdout)
     return mesh, device
+
+
+def _rank_device(device: str, index: int) -> str:
+    """On the card: card ``index`` modulo the cards of this host, made the
+    current device (its own card under NCCL, one shared under gloo)."""
+    if device == "cuda" and torch.cuda.is_available():
+        device = f"cuda:{index % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    return device
+
+
+def resolve_multihost(coordinator=None, num_processes=None, process_id=None,
+                      device: str = "cuda", backend=None):
+    """--multihost -> (this rank's Mesh of one 'dp' axis over the world,
+    its device): the process group from ``coordinator`` ('host:port'),
+    ``num_processes`` and ``process_id``, or from ``torchrun``'s environment
+    when they are omitted (one process without either).  On the card each
+    process takes card LOCAL_RANK (else its process id) modulo the cards of
+    its host."""
+    from vit_tpu_torch.parallel import make_mesh
+    from vit_tpu_torch.runtime import distributed
+
+    index = (distributed.local_rank() if "LOCAL_RANK" in os.environ or process_id is None
+             else process_id)
+    device = _rank_device(device, index)
+    distributed.initialize(coordinator_address=coordinator, num_processes=num_processes,
+                           process_id=process_id, backend=backend,
+                           device_type=torch.device(device).type)
+    from vit_tpu_torch.parallel.mesh import world
+
+    return make_mesh({"dp": world()[1]}), device

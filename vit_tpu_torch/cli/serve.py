@@ -22,11 +22,23 @@ Usage::
         --device cpu
     # the same on the CPU (the kernels' plain twins)
 
-``--ops auto`` is ``fused`` on the card and ``eager`` on the CPU.  The
-multi-rank flags of the JAX daemon (``--tp``, ``--dp``, ``--multihost``
-and its lockstep server's flags) are refused: in the port a mesh is one
-process per rank under ``torchrun``, which a lockstep tick server would
-drive (ROADMAP.md item 14).
+``--ops auto`` is ``fused`` on the card and ``eager`` on the CPU.
+
+Over a mesh, one process per rank::
+
+    torchrun --standalone --nproc-per-node 2 -m vit_tpu_torch.cli.serve \
+        --weights ./Network --tp 2 --dist-backend gloo
+    # --tp/--dp: rank 0 runs the daemon (or the selftest) and answers HTTP;
+    # the other ranks follow its dispatches (runtime/serving.py)
+    vit-tpu-torch-serve --weights ./Network --multihost --coordinator HOST:PORT \
+        --num-processes 2 --process-id I [--local-batch 32 --tick-ms 10]
+    # run once per process (or under torchrun without the coordinator
+    # flags): a dp mesh over every process, the lockstep tick server
+    # (runtime/multihost_serving.py); every process's daemon answers its own
+    # requests, and POST /reload answers 409
+
+``--device cpu`` runs either on the CPU over gloo; ranks sharing one card
+need ``--dist-backend gloo`` (NCCL puts no two ranks on one card).
 """
 
 from __future__ import annotations
@@ -35,9 +47,9 @@ import argparse
 import json
 import sys
 
-# the JAX daemon's multi-rank flags, each refused here (ROADMAP.md item 14)
-_MESH_FLAGS = ("tp", "dp", "multihost", "coordinator", "num_processes", "process_id",
-               "local_batch", "tick_ms")
+
+class _Refused(Exception):
+    """Flags this run cannot serve with (the CLI exits 2)."""
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,9 +70,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8117)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size: not ported (ROADMAP.md item 14)")
-    p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel size: not ported (ROADMAP.md item 14)")
+                   help="tensor-parallel size (heads/MLP over a mesh; under torchrun, one "
+                   "process per rank)")
+    p.add_argument("--dp", type=int, default=None, help="data-parallel size")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend of --tp/--dp/--multihost (default: nccl "
+                   "with a card per rank, gloo on the CPU; gloo lets ranks share one card)")
     p.add_argument("--max-batch", type=int, default=64,
                    help="coalesce requests up to this many images")
     p.add_argument("--max-delay-ms", type=float, default=5.0,
@@ -101,13 +116,21 @@ def build_parser() -> argparse.ArgumentParser:
         "rebuilt; in-flight batches finish on the old weights. Off by "
         "default (the endpoint loads server-side file paths).",
     )
-    p.add_argument("--multihost", action="store_true",
-                   help="pod mode of the JAX daemon: not ported (ROADMAP.md item 14)")
-    p.add_argument("--coordinator", default=None, help="multihost: not ported")
-    p.add_argument("--num-processes", type=int, default=None, help="multihost: not ported")
-    p.add_argument("--process-id", type=int, default=None, help="multihost: not ported")
-    p.add_argument("--local-batch", type=int, default=None, help="multihost: not ported")
-    p.add_argument("--tick-ms", type=float, default=None, help="multihost: not ported")
+    p.add_argument(
+        "--multihost", action="store_true",
+        help="pod mode: join every process (one per card) into a global dp mesh and "
+        "serve via the lockstep tick server (every process runs this same command; "
+        "each process's daemon answers its local requests)",
+    )
+    p.add_argument("--coordinator", default=None,
+                   help="multihost coordinator address (host:port); from torchrun's "
+                   "environment when omitted")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--local-batch", type=int, default=32,
+                   help="multihost: images per process per tick (shape-static)")
+    p.add_argument("--tick-ms", type=float, default=10.0,
+                   help="multihost: lockstep tick period")
     return p
 
 
@@ -119,6 +142,13 @@ def resolve_ops(args) -> str:
 
 
 def _build_server(args):
+    """-> (cfg, ops, server): an ``InferenceServer`` (over the --tp/--dp
+    mesh, when given) or, with --multihost, a ``LockstepServer`` over a dp
+    mesh of every process.  Raises ``_Refused`` for flags this run cannot
+    serve with."""
+    import functools
+
+    from vit_tpu_torch.cli import common
     from vit_tpu_torch.config import resolve_config
     from vit_tpu_torch.io.load_any import load_params_any
     from vit_tpu_torch.runtime.engine import InferenceEngine
@@ -126,22 +156,48 @@ def _build_server(args):
 
     cfg = resolve_config(args.config, args.num_classes)
     ops = resolve_ops(args)
-    params = load_params_any(args.weights, cfg, allow_synth=args.allow_synth_weights)
-    engine = InferenceEngine(
-        cfg, params, dtype=args.dtype, ops=ops, device=args.device,
-        batch_pad=args.batch_pad, tome_r=args.tome,
-    )
-    server = InferenceServer(
-        engine, max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
-        max_queue_images=args.max_queue,
-    )
+    device = args.device
+    try:
+        if args.multihost:
+            # before anything else touches the card or the process group
+            try:
+                mesh, device = common.resolve_multihost(args.coordinator, args.num_processes,
+                                                        args.process_id, device,
+                                                        args.dist_backend)
+            except (ValueError, RuntimeError) as e:
+                raise _Refused(f"--multihost (--coordinator/--num-processes/--process-id): "
+                               f"{e}") from e
+            print(f"multihost: {mesh.size('dp')} host(s), global dp={mesh.size('dp')}, "
+                  f"local_batch={args.local_batch}")
+        else:
+            mesh, device = common.resolve_mesh(args.dp, args.tp, device, args.dist_backend)
+    except common.MeshError as e:
+        raise _Refused(str(e)) from e
+    load = functools.partial(load_params_any, cfg=cfg, allow_synth=args.allow_synth_weights)
+    params = load(args.weights)
+    try:
+        engine = InferenceEngine(cfg, params, dtype=args.dtype, ops=ops, device=device,
+                                 batch_pad=args.batch_pad, tome_r=args.tome, mesh=mesh)
+        if args.multihost:
+            from vit_tpu_torch.runtime.multihost_serving import LockstepServer
+
+            server = LockstepServer(engine, local_batch=args.local_batch,
+                                    tick_ms=args.tick_ms, max_queue_images=args.max_queue)
+        else:
+            server = InferenceServer(engine, max_batch=args.max_batch,
+                                     max_delay_ms=args.max_delay_ms,
+                                     max_queue_images=args.max_queue, load_params=load)
+    except ValueError as e:
+        raise _Refused(str(e)) from e
     return cfg, ops, server
 
 
 def selftest_sizes(args, rng) -> list:
     """The selftest's request sizes: with --staged, the padding grain, half
-    of max_batch or max_batch; else uniform in 1..max_batch."""
-    cap = args.max_batch
+    of the cap or the cap; else uniform in 1..cap.  The cap is max_batch, or
+    in multihost mode local_batch (a request must fit one tick's local
+    slice)."""
+    cap = args.local_batch if args.multihost else args.max_batch
     if args.staged:
         grain = args.batch_pad
         choices = sorted({min(grain, cap), max(min(grain, cap), cap // 2), cap})
@@ -263,11 +319,16 @@ def _http_daemon(args, cfg, ops, server, on_listen=None) -> int:
 
         def _reload(self):
             """POST /reload {"weights": PATH}: zero-downtime weight hot-swap
-            through server.swap_params (gated on --allow-reload; the path is
-            resolved server-side)."""
+            through server.reload (gated on --allow-reload; the path is
+            resolved server-side, on a mesh by every rank).  409 in
+            multihost mode: the lockstep server has no coordinated swap."""
             try:
                 if not args.allow_reload:
                     self._send(403, {"error": "reload disabled; start with --allow-reload"})
+                    return
+                if not hasattr(server, "swap_params"):
+                    self._send(409, {"error": "reload unsupported in multihost lockstep mode "
+                                              "(hosts would diverge)"})
                     return
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n) or b"{}")
@@ -276,10 +337,7 @@ def _http_daemon(args, cfg, ops, server, on_listen=None) -> int:
                 path = req.get("weights")
                 if not isinstance(path, str) or not path:
                     raise ValueError('body must be {"weights": "<path>"}')
-                from vit_tpu_torch.io.load_any import load_params_any
-
-                params = load_params_any(path, cfg, allow_synth=args.allow_synth_weights)
-                server.swap_params(params)
+                server.reload(path)  # on a mesh, on every rank
                 print(f"hot-swapped weights from {path}")
                 self._send(200, {"ok": True, "weights": path})
             except (ValueError, KeyError, FileNotFoundError) as e:
@@ -413,16 +471,12 @@ def _drain_on_sigterm(httpd):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    defaults = {"tp": 1, "multihost": False}  # the rest default to None
-    given = [f"--{name.replace('_', '-')}" for name in _MESH_FLAGS
-             if getattr(args, name) != defaults.get(name) and getattr(args, name) is not None]
-    if given:
-        print(f"error: {', '.join(given)}: multi-rank serving (a mesh under torchrun, the "
-              "lockstep multihost server) is not ported (ROADMAP.md item 14)",
-              file=sys.stderr)
-        return 2
     if args.tome < 0:
         print("error: --tome must be >= 0", file=sys.stderr)
+        return 2
+    if args.tome and (args.multihost or args.tp > 1):
+        print("error: --tome needs --ops fused/quant/eager on a single-host dp mesh (no "
+              "--tp/--multihost)", file=sys.stderr)
         return 2
     if args.tome and resolve_ops(args) not in ("fused", "quant", "eager"):
         print("error: --tome (token merging) needs --ops fused, quant, or eager",
@@ -439,10 +493,20 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    cfg, ops, server = _build_server(args)
-    if args.selftest is not None:
-        return _selftest(args, cfg, ops, server)
-    return _http_daemon(args, cfg, ops, server)
+    try:
+        cfg, ops, server = _build_server(args)
+    except _Refused as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if not getattr(server, "leads", True):
+        server.follow()  # a mesh rank past the lead joins its dispatches
+        return 0
+    try:
+        if args.selftest is not None:
+            return _selftest(args, cfg, ops, server)
+        return _http_daemon(args, cfg, ops, server)
+    finally:
+        server.stop()  # over a mesh, frees the followers even after a failure
 
 
 if __name__ == "__main__":

@@ -2,9 +2,9 @@
 
 The flags of ``vit_tpu.cli.train_args`` that the PyTorch port runs, with
 ``--tp``/``--dp``/``--pp``/``--sp`` under ``torchrun`` (one process per
-rank) and ``--dist-backend`` in place of the coordinator flags; the ZeRO-1,
-FSDP and multihost flags wait for their slices of the port (ROADMAP.md
-item 14).
+rank), ``--multihost`` with its coordinator flags (or under ``torchrun``),
+and ``--dist-backend``; the ZeRO-1 and FSDP flags wait for their slice of
+the port (ROADMAP.md item 14).
 """
 
 from __future__ import annotations
@@ -183,7 +183,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--dist-backend", default=None, choices=["nccl", "gloo"],
-        help="torch.distributed backend of --tp/--dp/--pp/--sp, run under `torchrun "
+        help="torch.distributed backend of --tp/--dp/--pp/--sp/--multihost, run under `torchrun "
         "--nproc-per-node N` (default: nccl where every rank has a card of its "
         "own, gloo on the CPU; gloo lets ranks share one card)",
     )
@@ -281,4 +281,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--log-jsonl", metavar="PATH",
         help="append one JSON line per step (step, loss, ms, images/sec)",
     )
+    p.add_argument(
+        "--multihost", action="store_true",
+        help="pod mode: join every process (one per card) into the process group and "
+        "train data-parallel over all of them; --batch is the GLOBAL batch, each "
+        "process streams its own rows of each batch of --data-dir (required). Run the "
+        "same command in every process",
+    )
+    p.add_argument("--coordinator", default=None,
+                   help="multihost coordinator address (host:port); from torchrun's "
+                   "environment when omitted")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p

@@ -5,10 +5,11 @@ Counterpart of ``vit_tpu.cli.train_setup``; ``prepare(args)`` returns a
 prints the message and exits 2), in the JAX package's order and words.
 ``--pp`` trains pipelined over the layer stack (``parallel/pipeline.py``,
 composing with ``--dp`` and ``--tp``), ``--sp`` over a ring of token shards
-(``parallel/sequence.py``, composing with ``--dp``).  What the JAX package
-runs through GSPMD tensor parallelism (``--tp`` on ``eager`` or ``qat``,
-and so distillation and MAE with ``--tp``) raises ``NotImplementedError``
-(ROADMAP.md item 14).
+(``parallel/sequence.py``, composing with ``--dp``); ``--multihost`` over a
+dp mesh of every process, each streaming its rows of the global batch, as a
+``--dp`` rank does.  What the JAX package runs through GSPMD tensor
+parallelism (``--tp`` on ``eager`` or ``qat``, and so distillation and MAE
+with ``--tp``) raises ``NotImplementedError`` (ROADMAP.md item 14).
 """
 
 from __future__ import annotations
@@ -394,6 +395,11 @@ def _teacher(args, cfg, ops_name: str, device, compute_dtype, tp: int = 1):
             "error: --distill-teacher with --tp > 1 requires --ops eager or qat (the kernel-TP "
             "train step has no teacher leg); fused_train distillation runs on a dp mesh"
         )
+    if args.multihost:
+        raise SetupError(
+            "error: --distill-teacher composes with --dp/--tp only (no --pp/--sp/--multihost/"
+            "--augment/--grad-accum/--dropout)"
+        )
     if args.pp > 1 or args.sp > 1:
         raise SetupError("error: --distill-teacher composes with --dp/--tp only (no --pp/--sp)")
     if args.grad_accum > 1 or args.dropout or args.drop_path or args.augment:
@@ -456,6 +462,8 @@ def _mesh_flags(args) -> None:
     """The JAX package's ``_build_mesh`` refusals of --sp and --pp, in its
     order and words; --sp on --ops auto takes the eager tier."""
     if args.sp > 1:
+        if args.multihost:
+            raise SetupError("error: --sp composes with --dp only (no --pp/--tp/--multihost)")
         if args.pp > 1 or args.tp > 1:
             raise SetupError("error: --sp composes with --dp only (no --pp/--tp)")
         if args.optimizer == "fused_adamw":
@@ -469,6 +477,8 @@ def _mesh_flags(args) -> None:
         if args.ops == "auto":
             args.ops = "eager"
     elif args.pp > 1:
+        if args.multihost:
+            raise SetupError("error: --pp with --multihost is not supported")
         if args.mixed_precision or args.optimizer == "fused_adamw":
             raise SetupError(
                 "error: --pp supports the plain optimizer at the params' dtype "
@@ -476,19 +486,51 @@ def _mesh_flags(args) -> None:
             )
 
 
+def _multihost_mesh(args) -> tuple:
+    """--multihost: the process group (``common.resolve_multihost``), then
+    the JAX package's refusals and its line, in its order and words -> (a
+    dp Mesh over every process, the device)."""
+    from vit_tpu_torch.cli import common
+
+    try:
+        mesh, device = common.resolve_multihost(args.coordinator, args.num_processes,
+                                                args.process_id, args.device, args.dist_backend)
+    except (ValueError, RuntimeError) as e:
+        raise SetupError(f"error: {e}") from e
+    if not (args.data_dir or args.image_dir):
+        raise SetupError("error: --multihost requires --data-dir or --image-dir (each host "
+                         "streams its own shard of the dataset)")
+    if args.tp != 1:
+        raise SetupError("error: --multihost supports dp only (tp=1): checkpoint round-trips "
+                         "assume host-replicated params")
+    procs = mesh.size("dp")
+    print(f"multihost: {procs} host(s), {procs} global device(s)")
+    if args.batch % procs:
+        raise SetupError(f"error: global --batch {args.batch} must divide across {procs} hosts")
+    if mesh.rank == 0:
+        print(f"mesh: {{'dp': {procs}}} over {procs} rank(s)")
+    return mesh, torch.device(device)
+
+
 def build_mesh(args) -> tuple:
     """--tp/--dp/--pp/--sp/--dist-backend -> (this rank's Mesh, or None for
     one device; its torch.device).  The ranks come from ``torchrun``
     (``cli/common.resolve_mesh``): each takes card LOCAL_RANK modulo the
-    card count, and gloo only when asked for."""
+    card count, and gloo only when asked for.  --multihost: a dp mesh over
+    every process (``_multihost_mesh``)."""
     from vit_tpu_torch.cli import common
 
-    _mesh_flags(args)
+    if not args.multihost:
+        _mesh_flags(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda: torch.cuda.is_available() is False (no NVIDIA card "
             "or a CPU-only PyTorch); pass --device cpu to train on the CPU"
         )
+    if args.multihost:
+        mesh, device = _multihost_mesh(args)
+        _mesh_flags(args)  # after the multihost line, as the JAX package's _build_mesh
+        return mesh, device
     try:
         mesh, device = common.resolve_mesh(args.dp, args.tp, args.device, args.dist_backend,
                                            pp=args.pp, sp=args.sp)

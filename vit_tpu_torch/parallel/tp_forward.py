@@ -257,12 +257,14 @@ def train_forward_tp(cfg: ViTConfig, mesh: Mesh, gelu_variant: str = "exact"):
 
 
 def shard_forward_tp(cfg: ViTConfig, mesh: Mesh, ops_name: str, gelu_variant: str = "exact",
-                     return_features: bool = False):
+                     return_features: bool = False, split_dp: bool = True):
     """-> ``forward(local_params, images)`` running the ``fused`` or
     ``quant`` kernel path over a (dp x) tp mesh: ``local_params`` this
     rank's shard (``sharding.shard_params``), ``images`` the whole batch on
     every rank (it splits over ``dp``), the logits (or features) of the
-    whole batch out on every rank."""
+    whole batch out on every rank.  ``split_dp=False``: ``images`` are this
+    rank's dp slice already, and its logits come out (the tp group's
+    all-reduces only)."""
     from vit_tpu_torch.parallel.shard_forward import shard_forward_dp
 
     tp = _check_tp(cfg, mesh)
@@ -274,4 +276,4 @@ def shard_forward_tp(cfg: ViTConfig, mesh: Mesh, ops_name: str, gelu_variant: st
         return _local_forward(p, x, cfg, heads_local, gelu_variant, quant, mesh,
                               return_features=return_features)
 
-    return shard_forward_dp(local_fn, mesh)
+    return shard_forward_dp(local_fn, mesh) if split_dp else local_fn

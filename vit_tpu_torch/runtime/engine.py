@@ -128,6 +128,9 @@ class InferenceEngine:
                 )
         self.params = self._prepare_params(params)
         self._forward = self._sharded(return_features=False)
+        # a lockstep server's forward: this rank's dp slice in, its logits
+        # out (no join over dp; tp's all-reduces only)
+        self._local_forward = self._sharded(return_features=False, split_dp=False)
 
     def _prepare_params(self, params):
         """Loader-fresh pytree -> params on this engine's device, floating
@@ -147,14 +150,15 @@ class InferenceEngine:
             params = shard_params(params, self.mesh)
         return params
 
-    def _sharded(self, return_features: bool):
-        """-> forward(params, images) on this engine's op table and mesh."""
+    def _sharded(self, return_features: bool, split_dp: bool = True):
+        """-> forward(params, images) on this engine's op table and mesh
+        (``split_dp=False``: on this rank's dp slice of the batch)."""
         cfg, gelu = self.cfg, self._gelu_variant
         if self._tp_shard:
             from vit_tpu_torch.parallel.tp_forward import shard_forward_tp
 
             return shard_forward_tp(cfg, self.mesh, self._ops.name, gelu,
-                                    return_features=return_features)
+                                    return_features=return_features, split_dp=split_dp)
         if self._tome_forward is not None:
             def fwd(p, x):
                 return self._tome_forward(p, x, cfg, self.tome_r, gelu)
@@ -162,7 +166,7 @@ class InferenceEngine:
             def fwd(p, x):
                 return vit.forward(p, x, cfg, self._ops, gelu_variant=gelu,
                                    return_features=return_features)
-        if self.mesh is None:
+        if self.mesh is None or not split_dp:
             return fwd
         from vit_tpu_torch.parallel.shard_forward import shard_forward_dp
 
@@ -171,6 +175,12 @@ class InferenceEngine:
     def swap_params(self, params) -> None:
         """Replace the weights with a checkpoint of the same config (same
         tree, shapes and dtypes); nothing is rebuilt."""
+        self.params = self._checked_params(params)
+
+    def _checked_params(self, params):
+        """``params`` prepared as ``swap_params`` would swap them in, or
+        ValueError where their tree, shapes or dtypes differ from the
+        loaded model's; the engine is left as it was."""
         new = self._prepare_params(params)
         new_leaves, old_leaves = _leaves(new), _leaves(self.params)
         if [k for k, _ in new_leaves] != [k for k, _ in old_leaves]:
@@ -188,7 +198,7 @@ class InferenceEngine:
                 "swap_params: new checkpoint's leaf shapes/dtypes differ from "
                 f"the loaded model: {mismatch[:3]}"
             )
-        self.params = new
+        return new
 
     # -- core API ---------------------------------------------------------
 

@@ -21,6 +21,21 @@ Throughput design:
 The dispatcher thread enters ``torch.inference_mode()`` and
 ``torch.cuda.device(engine.device)`` itself (both are per thread); the
 kernels launch on its current stream.
+
+Over a mesh engine (``--tp``/``--dp``: one process per rank, every rank
+entering every forward with the same batch, in the same order), the lead
+rank (every mesh coordinate 0: rank 0) owns the queue, the batching and
+the readback; every other rank calls :meth:`InferenceServer.follow`.
+Before each step the lead's dispatch thread sends a small header over the
+mesh (forward with its padded row count, reload with its path's length,
+or stop), then the staged batch or the path, each a broadcast from the
+lead along every mesh axis in turn (``mesh.broadcast_from``: a byte-sum
+all-reduce, so a follower's batch is the lead's bit for bit).  Only that
+thread, and each follower's ``follow`` loop, issues collectives.  A reload
+(:meth:`InferenceServer.reload`) runs at its place in the dispatch order:
+every rank loads the same path and re-shards it, an all-reduce MAX of a
+status decides, and on any rank's failure every rank keeps the old
+weights.
 """
 
 from __future__ import annotations
@@ -138,13 +153,13 @@ class DeadlineExceededError(RuntimeError):
     cancelled — the card has already paid for them."""
 
 
-def make_serve_fn(engine):
+def make_serve_fn(engine, forward=None):
     """(params, staged images) -> (labels, top_probs, probs), all on the
-    engine's device: its forward, then the fp32 softmax, the argmax (the
-    first maximum, as numpy breaks ties) and the top probability gathered
-    there, so the readback per batch is the labels and tops, not the
-    ``num_classes`` probabilities."""
-    forward = engine._forward
+    engine's device: its forward (or ``forward``), then the fp32 softmax,
+    the argmax (the first maximum, as numpy breaks ties) and the top
+    probability gathered there, so the readback per batch is the labels
+    and tops, not the ``num_classes`` probabilities."""
+    forward = engine._forward if forward is None else forward
 
     def serve(params, x):
         probs = reference.softmax(forward(params, x))
@@ -208,6 +223,36 @@ def device_context(engine) -> contextlib.ExitStack:
 def _sync(engine) -> None:
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
+
+
+# the mesh lead's header ops (InferenceServer over a mesh engine)
+_OP_FORWARD, _OP_RELOAD, _OP_STOP = 0, 1, 2
+
+
+def _mesh_ranks(mesh) -> int:
+    """The ranks a mesh spans (1 without one)."""
+    return 1 if mesh is None else int(np.prod([mesh.size(a) for a in mesh.axis_names]))
+
+
+def _from_lead(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The lead's ``t`` on every rank of ``mesh``, bit for bit: a broadcast
+    from index 0 along each axis in turn (the other ranks' ``t`` gives the
+    shape and dtype)."""
+    from vit_tpu_torch.parallel.mesh import broadcast_from
+
+    for axis in mesh.axis_names:
+        t = broadcast_from(t, mesh, axis, 0)
+    return t
+
+
+class _Reload:
+    """A reload queued at its place in the dispatch order."""
+
+    __slots__ = ("path", "future")
+
+    def __init__(self, path: str):
+        self.path = path
+        self.future: Future = Future()
 
 
 class _ServerBase:
@@ -394,7 +439,10 @@ class InferenceServer(_ServerBase):
     """Dynamic-batching server around an InferenceEngine.
 
     ``submit(images) -> Future[(labels, top_probs, probs)]`` is thread-safe;
-    ``classify`` is the blocking convenience wrapper.
+    ``classify`` is the blocking convenience wrapper.  ``load_params(path)
+    -> params`` is what :meth:`reload` loads a path with (every rank's
+    own, on a mesh).  Over a mesh engine of more than one rank the lead
+    serves and the other ranks :meth:`follow` it (module docstring).
     """
 
     def __init__(
@@ -404,6 +452,7 @@ class InferenceServer(_ServerBase):
         max_delay_ms: float = 5.0,
         pipeline_depth: int = 2,
         max_queue_images: "Optional[int]" = None,
+        load_params=None,
     ):
         if max_batch < 1:
             raise ValueError("max_batch and pipeline_depth must be >= 1")
@@ -413,6 +462,11 @@ class InferenceServer(_ServerBase):
         self.max_batch = max_batch
         self.max_delay = max_delay_ms / 1e3
         self._serve_fn = make_serve_fn(engine)
+        self._load_params = load_params
+        mesh = engine.mesh
+        self._mesh = mesh if _mesh_ranks(mesh) > 1 else None
+        self.leads = self._mesh is None or not any(mesh.index(a) for a in mesh.axis_names)
+        self._released = False  # the lead has sent its followers the stop
 
     def _validate(self, images) -> None:
         # a request past max_batch would run a padded size warmup never
@@ -429,23 +483,137 @@ class InferenceServer(_ServerBase):
         atomically.  No drain, nothing rebuilt: batches already dispatched
         finish on the old weights, the next gathered batch serves the new
         ones.  Raises ValueError (and keeps serving the old weights) on a
-        shape/structure mismatch."""
+        shape/structure mismatch.  Over a mesh every rank needs the new
+        weights: :meth:`reload` a path instead."""
+        if self._mesh is not None:
+            raise ValueError("swap_params: a mesh server's ranks each load the new weights; "
+                             "reload(path) instead")
         self.engine.swap_params(params)
+
+    def reload(self, path: str) -> None:
+        """``swap_params(load_params(path))``; over a mesh, at its place in
+        the dispatch order on every rank: each loads ``path`` and re-shards
+        it, and the weights change only where every rank succeeded (else
+        the lead raises its own error, or ValueError/RuntimeError for
+        another rank's, and every rank keeps the old weights)."""
+        if self._load_params is None:
+            raise ValueError("reload needs the server's load_params")
+        if self._mesh is None:
+            self.swap_params(self._load_params(path))
+            return
+        if not self.leads:
+            raise RuntimeError("reload on a follower rank: reload on the mesh's lead")
+        if not self._running:
+            with device_context(self.engine):
+                self._reload_all(path)
+            return
+        item = _Reload(path)
+        with self._pending_lock:
+            if not self._running:
+                raise RuntimeError("server not started")
+            self._q.put(item)
+        item.future.result()
+
+    def follow(self) -> None:
+        """A follower rank's loop: join every forward and reload the lead
+        sends, until it sends stop.  Call on every rank but the lead, in
+        place of ``start``/``warmup``."""
+        if self.leads:
+            raise RuntimeError("follow() on the mesh's lead: it serves (start)")
+        engine = self.engine
+        cfg = engine.cfg
+        with device_context(engine):
+            while True:
+                op, rows, nbytes = self._header().tolist()
+                if op == _OP_STOP:
+                    return
+                if op == _OP_RELOAD:
+                    path = torch.zeros(nbytes, dtype=torch.uint8, device=engine.device)
+                    path = bytes(_from_lead(path, self._mesh).cpu().numpy()).decode()
+                    self._reload_here(path)  # the lead answers for a failure
+                    continue
+                x = torch.empty((rows, cfg.in_channels, cfg.image_size, cfg.image_size),
+                                dtype=engine.compute_dtype, device=engine.device)
+                self._serve_fn(engine.params, _from_lead(x, self._mesh))
+
+    def start(self):
+        if not self.leads:
+            raise RuntimeError("start() on a follower rank of the mesh: call follow()")
+        if not self._running:
+            self._released = False  # this run's stop frees the followers again
+        return super().start()
+
+    def stop(self) -> None:
+        super().stop()
+        self._release()  # a lead that never started still frees its followers
+
+    # -- the mesh's header and steps ------------------------------------------
+
+    def _header(self, op: int = 0, rows: int = 0, nbytes: int = 0) -> torch.Tensor:
+        hdr = torch.tensor([op, rows, nbytes], dtype=torch.int64, device=self.engine.device)
+        return _from_lead(hdr, self._mesh)
+
+    def _release(self) -> None:
+        if self._mesh is not None and self.leads and not self._released:
+            self._released = True
+            with device_context(self.engine):
+                self._header(_OP_STOP)
+
+    def _run(self, x):
+        """The lead's forward of staged ``x``: over a mesh, its header and
+        ``x`` go to the followers first."""
+        if self._mesh is not None:
+            self._header(_OP_FORWARD, x.shape[0])
+            _from_lead(x, self._mesh)
+        return self._serve_fn(self.engine.params, x)
+
+    def _reload_all(self, path: str) -> None:
+        """The lead's reload over the mesh: header and path, then its own."""
+        data = path.encode()
+        self._header(_OP_RELOAD, 0, len(data))
+        _from_lead(torch.tensor(list(data), dtype=torch.uint8, device=self.engine.device),
+                   self._mesh)
+        err = self._reload_here(path)
+        if err is not None:
+            raise err
+
+    def _reload_here(self, path: str):
+        """Load and re-shard ``path`` on this rank; swap it in only where
+        every rank did (an all-reduce MAX of 0 ok, 1 a client error, 2 any
+        other).  -> None, or the error the lead raises: its own, else one
+        naming another rank's failure."""
+        err, code = None, 0
+        try:
+            new = self.engine._checked_params(self._load_params(path))
+        except (ValueError, KeyError, FileNotFoundError) as e:
+            err, code = e, 1
+        except Exception as e:
+            err, code = e, 2
+        worst = torch.tensor([code], dtype=torch.int32, device=self.engine.device)
+        for axis in self._mesh.axis_names:
+            self._mesh.all_reduce(worst, axis, "max")
+        worst = int(worst.item())
+        if worst == 0:
+            self.engine.params = new
+            return None
+        return err or (ValueError if worst == 1 else RuntimeError)(
+            f"reload of {path} failed on another rank; every rank keeps the old weights")
 
     # -- internals ----------------------------------------------------------
 
-    def _gather(self) -> Optional[List[_Request]]:
+    def _gather(self):
         """Collect requests up to (never past) max_batch images or
-        max_delay.  A request that would overflow the batch is carried to
-        the next one, so padded batch sizes stay within the warmed ones.
+        max_delay (or return ``_STOP``, or a queued reload, alone).  A
+        request that would overflow the batch is carried to the next one,
+        so padded batch sizes stay within the warmed ones.
         Requests whose submit deadline expired while queued are failed here
         instead of batched."""
         first = None
         while first is None:
             first = self._carry or self._q.get()
             self._carry = None
-            if first is _STOP:
-                return None
+            if first is _STOP or isinstance(first, _Reload):
+                return first
             if self._expired(first):
                 first = None
         reqs = [first]
@@ -462,6 +630,9 @@ class InferenceServer(_ServerBase):
             if nxt is _STOP:
                 self._q.put(_STOP)  # re-signal for the outer loop
                 break
+            if isinstance(nxt, _Reload):  # a reload ends the batch before it
+                self._carry = nxt
+                break
             if self._expired(nxt):
                 continue
             if total + len(nxt.images) > self.max_batch:
@@ -474,17 +645,23 @@ class InferenceServer(_ServerBase):
     def warmup(self) -> None:
         """Run every padded batch size the server can dispatch (each
         ``batch_pad`` multiple up to max_batch) once before serving traffic;
-        the first run also builds the kernels."""
+        the first run also builds the kernels.  Over a mesh the followers
+        join each (through the dispatch thread, once it runs)."""
         engine = self.engine
         cfg = engine.cfg
         grain = engine.batch_pad
         sizes = sorted({min(s, self.max_batch) for s in
                         range(grain, self.max_batch + grain, grain)})
+        if self._mesh is not None and self._running:
+            for s in sizes:  # in the dispatch order: one request a size
+                self.classify(np.zeros((s, cfg.in_channels, cfg.image_size, cfg.image_size),
+                                       np.float32))
+            return
         with device_context(engine):
             for s in sizes:
                 x = np.zeros((s, cfg.in_channels, cfg.image_size, cfg.image_size), np.float32)
                 staged, _ = engine._stage(x)
-                self._serve_fn(engine.params, staged)
+                self._run(staged)
             _sync(engine)
 
     def _join(self, reqs: List[_Request]):
@@ -506,13 +683,20 @@ class InferenceServer(_ServerBase):
         with device_context(engine):
             while True:
                 reqs = self._gather()
-                if reqs is None:
+                if reqs is _STOP:
                     break
+                if isinstance(reqs, _Reload):
+                    try:
+                        self._reload_all(reqs.path)
+                        reqs.future.set_result(None)
+                    except Exception as e:
+                        reqs.future.set_exception(e)
+                    continue
                 try:
                     x, _ = engine._stage(self._join(reqs))
                     # padded tail rows are never read (the completer's
                     # offsets cover real images only)
-                    labels, top, probs = self._serve_fn(engine.params, x)
+                    labels, top, probs = self._run(x)
                     if not any(r.return_probs for r in reqs):
                         probs = None
                     readback = start_async_readback(labels, top, probs)
@@ -521,6 +705,7 @@ class InferenceServer(_ServerBase):
                     for r in reqs:
                         self._resolve(r.future, exc=e)
                     self._release_pending(reqs)
+            self._release()
         self._inflight.put(_STOP)
 
 
