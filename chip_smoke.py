@@ -335,14 +335,15 @@ Phases (a failed phase raises; nothing is caught):
  48. pipeline and sequence parallelism, ranks sharing the card over gloo
      (``torchrun`` with a time limit, ``--rank-pp-sp-worker``; counts set to
      0 just before each run and read just after, on every rank): the cyclic
-     shift bit for bit in fp32 and bf16 (signed zero, inf, NaN); two ranks:
-     the pp 2 ``fused`` forward @224 b100 bf16 in 4 microbatches (24 K1 and
-     24 K2 per rank: 6 layers x 4 microbatches) against the one-card
-     ``fused`` engine (0.027, and the comparator rule); the train CLI with
-     ``--pp 2 --microbatches 4`` fp32 b16 (24 each of K1, K4-K7 per rank and
-     step), ``--pp 2 --microbatches 1 --dropout 0.1 --drop-path 0.1`` (6
-     each of K1, K10, K11, K12a, K6) and ``--sp 2`` bf16 mixed (12 each of
-     K4, K5, K8, K9), their losses against the one-card CLI's; the fp32
+     shift bit for bit in fp32 and bf16 (signed zero, inf, NaN); two ranks,
+     at B/16 widths and depth 2 (``vit_b_16_depth2``): the pp 2
+     ``fused`` forward @224 b100 bf16 in 4 microbatches (4 K1 and 4 K2 per
+     rank: 1 layer x 4 microbatches) against the one-card ``fused`` engine
+     (0.027, and the comparator rule); the train CLI with ``--pp 2
+     --microbatches 4`` fp32 b16 (4 each of K1, K4-K7 per rank and step),
+     ``--pp 2 --microbatches 1 --dropout 0.1 --drop-path 0.1`` (1 each of
+     K1, K10, K11, K12a, K6) and ``--sp 2`` bf16 mixed (2 each of K4, K5,
+     K8, K9), their losses against the one-card CLI's; the fp32
      gradients of one pp 2 step (plain and regularized, the masks of the
      one-card step's seeds) and one sp 2 ``fused_train`` step, gathered,
      against the one-card ``fused_train`` and eager steps' (1e-3 x max(1,
@@ -382,11 +383,40 @@ Phases (a failed phase raises; nothing is caught):
      one-card server's on the same 64 requests (two ranks sharing one card:
      not scaling figures).
 
+ 50. ZeRO-1, FSDP and tensor parallelism on the plain tiers, ranks sharing
+     the card over gloo (``torchrun`` with a time limit,
+     ``--rank-sharded-worker``; counts set to 0 just before each run and
+     read just after, on every rank): two ranks: the train CLI's ``--zero1``
+     against plain ``--dp 2`` (B/16 depth 12, batch 32, bf16 mixed, 3
+     steps; 12 each of K1, K4-K7 per rank and step, no K20): losses and the
+     ``--save-state`` archives' arrays bit for bit, each rank's optimizer
+     moment bytes (at most 0.55 of plain dp's) and peak memory (below plain
+     dp's by at least 0.9 of the moment bytes saved); ``--fsdp``
+     on ``eager`` and ``qat`` against plain dp 2 (depth 2, fp32: losses and
+     archives bit for bit, each rank's param bytes between steps at most
+     0.55 of plain dp's, and peak memory); ``--mae --zero1`` against ``--mae
+     --dp 2`` (depth 2, bf16 mixed: 10 each of K1, K4-K7 per rank and step,
+     the encoder's 2 and the decoder's 8); ``--tp 2`` on ``eager`` and
+     ``qat`` (depth 2, fp32) against one card's losses (1e-5 relative; ``qat``
+     within its flip budget 2^-6, its int8 codes flipping where the split
+     products round otherwise, and its step 0 within 4e-4 relative, which a
+     planted run without the MAX over tp of the post-GELU activation's and
+     ``w2``'s absmaxes must break); the
+     ``eager`` engine on tp 2 (8 images, fp32) against one card's (logits
+     1e-4, rollout 1e-5); the classify CLI's ``--profile --tp 2`` on
+     ``fused`` (its six phases; 2 K21 on the local heads and 2 K22 on the
+     local hidden columns per rank and iteration, beside the forward's 2 K1,
+     2 K5 partial, 1 K3); four ranks: ``--zero1`` on dp 2 x tp 2
+     (``fused_train``, depth 2, bf16 mixed: 2 each of K1, K5 partial, K6, K8
+     ``residual=False`` per rank and step) against the plain run (losses,
+     archives, launches), and ``dryrun_multichip(4)``: every leg the JAX
+     package runs at n = 4 ``ok``, the three it skips ``skipped``.
+
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
 regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
 per_op 31-33, adamw 34-35, parallel 36-38 and 45, serve 39-41, mae 42,
-distill 43, qat 44, data 46, recipe 47, pp_sp 48, serve_mesh 49); without it
-every phase runs.
+distill 43, qat 44, data 46, recipe 47, pp_sp 48, serve_mesh 49, sharded 50);
+without it every phase runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -3281,7 +3311,9 @@ def _train_rank_cli(workdir: str, flags, steps: int, mesh_spies,
     """One phase 45 run of the train CLI on this rank (its argument
     parsing, mesh, setup and loop: ``vit_tpu_torch.cli.train.main`` in
     pieces, so that the params stay readable), every count set to 0 just
-    before the loop and read just after.  -> the rank's report."""
+    before the loop and read just after.  -> the rank's report (with this
+    rank's param and optimizer-moment bytes after the loop and its peak
+    device memory over setup and loop)."""
     import hashlib
 
     import torch.distributed as dist
@@ -3289,13 +3321,14 @@ def _train_rank_cli(workdir: str, flags, steps: int, mesh_spies,
     from vit_tpu_torch.cli.train_args import build_parser
     from vit_tpu_torch.cli.train_loop import run
     from vit_tpu_torch.cli.train_setup import build_mesh, prepare
-    from vit_tpu_torch.runtime.trainer import leaves
+    from vit_tpu_torch.runtime.trainer import leaves, moment_bytes
 
     argv = ["--config", config, "--steps", str(steps), "--ops", "fused_train",
             "--device", "cuda", "--dist-backend", "gloo", "--log-jsonl", f"{workdir}/log.jsonl",
             *flags]
     args = build_parser().parse_args(argv)
     mesh, device = build_mesh(args)
+    torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         st = prepare(args, mesh, device)
@@ -3312,7 +3345,10 @@ def _train_rank_cli(workdir: str, flags, steps: int, mesh_spies,
     report = {"rc": rc, "launches": {name: fn.launches for name, fn in wrappers.items()},
               "flags": {spy.flag: [sum(spy.values), len(spy.values)] for spy in mesh_spies},
               "stdout": buf.getvalue().splitlines()[-3:], "wall_s": wall,
-              "params_sha256": digest.hexdigest(), "rank": dist.get_rank()}
+              "params_sha256": digest.hexdigest(), "rank": dist.get_rank(),
+              "param_bytes": sum(t.numel() * t.element_size() for t in leaves(st.params)),
+              "moment_bytes": moment_bytes(st.optimizer),
+              "peak_bytes": torch.cuda.max_memory_allocated()}
     if dist.get_rank() == 0:
         with open(f"{workdir}/log.jsonl") as fh:
             report["steps"] = [json.loads(line) for line in fh]
@@ -5022,19 +5058,25 @@ PP_SP_STEPS = 2  # the train CLI's steps on the pp and sp runs
 SP_BATCH, SP_LONG_BATCH, SP_FWD_BATCH = 16, 2, 8
 PPTP_DEPTH, PPTP_BATCH, PPTP_MB = 4, 16, 2  # pp 2 x tp 2 (4 ranks) at B/16 widths
 PP_REG_SEED = 48
-# per rank (and step): 6 layers a stage x the microbatches that stage computes
-PP_LAYERS = 12 // RANKS
+# the two-rank runs at B/16 widths and depth 2 (room in the bare run: the
+# ranks spend their time in gloo's host copies, a fixed cost a layer); per
+# rank (and step): 1 layer a stage x the microbatches it computes
+PP_DEPTH = RANK_DEPTH
+PP_LAYERS = PP_DEPTH // RANKS
 PP_RUNS = {  # name: (mesh flags, flags, launches per step, steps, ops of the one-card run)
-    "train_pp": (["--pp", "2", "--microbatches", str(PP_MB)], ["--batch", str(PP_BATCH)],
+    "train_pp": (["--pp", "2", "--microbatches", str(PP_MB)],
+                 ["--config", RANK_CONFIG, "--batch", str(PP_BATCH)],
                  {"ln_qkv_attn": PP_LAYERS * PP_MB,
                   **{name: PP_LAYERS * PP_MB for name in TRAIN_KERNELS}}, PP_SP_STEPS,
                  "fused_train"),
     "train_pp_regularized": (["--pp", "2", "--microbatches", "1"],
-                             ["--batch", str(PP_BATCH), *REG_FLAGS],
+                             ["--config", RANK_CONFIG, "--batch", str(PP_BATCH), *REG_FLAGS],
                              {"ln_qkv_attn": PP_LAYERS, "ln_qkv_attn_bwd": PP_LAYERS,
                               **{name: PP_LAYERS for name in REG_KERNELS}}, 1, "fused_train"),
-    "train_sp": (["--sp", "2"], ["--batch", str(SP_BATCH), "--mixed-precision"],
-                 {name: 12 for name in ("out_residual", "ln_mlp_residual", "out_residual_bwd",
+    "train_sp": (["--sp", "2"], ["--config", RANK_CONFIG, "--batch", str(SP_BATCH),
+                                 "--mixed-precision"],
+                 {name: PP_DEPTH for name in ("out_residual", "ln_mlp_residual",
+                                              "out_residual_bwd",
                                         "ln_mlp_residual_bwd")}, PP_SP_STEPS, "eager"),
 }
 # the CLI losses against the one-card run's: fp32 steps 0 (the same params) and
@@ -5129,7 +5171,7 @@ def pp_sp_rank_worker(workdir: str) -> None:
     ``pp_sp_rank<r>_of<n>.json`` (rank 0: the logits and gradients)."""
     import torch.distributed as dist
 
-    from vit_tpu_torch.config import VIT_B_16
+    from vit_tpu_torch.config import get_config
     from vit_tpu_torch.io.params import params_from_numpy
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops import quant
@@ -5149,7 +5191,8 @@ def pp_sp_rank_worker(workdir: str) -> None:
     distributed.initialize(backend="gloo")
     rank, world = dist.get_rank(), dist.get_world_size()
     report = {"runs": {}, "want": {}, "flags": {}, "ms": {}}
-    cfg = VIT_B_16
+    _register_tp_config()
+    cfg = get_config(RANK_CONFIG)
 
     def init(c, mesh):
         tree = vit.init_params(torch.Generator().manual_seed(0), c)
@@ -5281,7 +5324,8 @@ def _check_pp_sp_report(rep: dict, r: int, n: int) -> None:
             raise RuntimeError(f"rank {r} of {n} {name}: exited {run['rc']} or non-finite")
         if name in PP_RUNS:
             steps = PP_RUNS[name][3]
-            _expect_cli(run["launches"], PP_RUNS[name][2], steps, f"rank {r} {name} (B/16, "
+            _expect_cli(run["launches"], PP_RUNS[name][2], steps, f"rank {r} {name} (B/16 "
+                        f"depth {PP_DEPTH}, "
                         f"{steps} step(s))")
             log(f"rank {r} {name}: per step {_per_step(run['launches'], steps)}")
         else:
@@ -5293,15 +5337,17 @@ def phase_pp_sp(dev: torch.device, card: str, workdir: str) -> dict:
     over gloo (``torchrun`` with a time limit, ``--rank-pp-sp-worker``):
     counts per rank and step against the design, the pp and sp results
     against the one-card paths', the steps' times beside the one-card
-    steps'.  -> launch counts of rank 0 by path."""
-    from vit_tpu_torch.config import VIT_B_16
+    steps'.  The two-rank runs at B/16 widths and depth 2 (``PP_DEPTH``).
+    -> launch counts of rank 0 by path."""
+    from vit_tpu_torch.config import get_config
     from vit_tpu_torch.io.images import synth_images
     from vit_tpu_torch.io.params import params_from_numpy
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.runtime import trainer
     from vit_tpu_torch.runtime.engine import InferenceEngine
 
-    cfg = VIT_B_16
+    _register_tp_config()
+    cfg = get_config(RANK_CONFIG)
     _run_ranks("--rank-pp-sp-worker", workdir, PP_SP_TIMEOUT, "pp/sp ranks")
     _run_ranks("--rank-pp-sp-worker", workdir, PP_SP_TIMEOUT, "pp x tp ranks", ranks=4)
     reports = {(r, n): json.load(open(f"{workdir}/pp_sp_rank{r}_of{n}.json"))
@@ -6024,8 +6070,319 @@ def group_serve_mesh(dev, card, summary, launches) -> None:
         launches.update(phase_serve_mesh(dev, card, workdir))
 
 
+# phase 50 (group "sharded"): ZeRO-1, FSDP, tensor parallelism on the plain
+# tiers and the multichip dryrun, over ranks sharing the card over gloo
+SHARDED_TIMEOUT = 240  # s: a rank that hangs fails phase 50
+SHARDED_STEPS = 3
+SHARDED_BATCH = 8  # the depth-2 runs' global batch
+ZERO1_STEP = {"ln_qkv_attn": 12, **{name: 12 for name in TRAIN_KERNELS}}  # K1, K4-K7; no K20
+_DP2_B16 = ["--config", "vit_b_16", "--dp", "2", "--batch", str(DP_TRAIN_BATCH),
+            "--mixed-precision", "--ops", "fused_train"]
+_DEPTH2 = ["--config", RANK_CONFIG, "--batch", str(SHARDED_BATCH)]
+SHARDED_RUNS = {  # name: (flags, launches per rank and step), on 2 ranks
+    "train_dp_b16": (_DP2_B16, ZERO1_STEP),
+    "train_dp_zero1": ([*_DP2_B16, "--zero1"], ZERO1_STEP),
+    # the plain tiers launch no kernel
+    **{f"train_dp_{ops}{fsdp}": ([*_DEPTH2, "--dp", "2", "--ops", ops, *(["--fsdp"] if fsdp
+                                                                         else [])], {})
+       for ops in ("eager", "qat") for fsdp in ("", "_fsdp")},
+    # MAE's encoder and its decoder's 8 blocks
+    **{f"train_mae_dp{zero1}": ([*_DEPTH2, "--dp", "2", "--mixed-precision", "--ops",
+                                 "fused_train", "--mae", *(["--zero1"] if zero1 else [])],
+                                {name: RANK_DEPTH + 8 for name in ("ln_qkv_attn", *TRAIN_KERNELS)})
+       for zero1 in ("", "_zero1")},
+    "train_tp_eager": ([*_DEPTH2, "--tp", "2", "--ops", "eager"], {}),
+    "train_tp_qat": ([*_DEPTH2, "--tp", "2", "--ops", "qat"], {}),
+}
+SHARDED_4_RUNS = {  # on 4 ranks: dp 2 x tp 2 through the fused kernels
+    "train_dp_tp": (["--config", RANK_CONFIG, "--dp", "2", "--tp", "2", "--batch",
+                     str(TP_TRAIN_BATCH), "--mixed-precision", "--ops", "fused_train"],
+                    _DEPTH_STEP),
+    "train_dp_tp_zero1": (["--config", RANK_CONFIG, "--dp", "2", "--tp", "2", "--batch",
+                           str(TP_TRAIN_BATCH), "--mixed-precision", "--ops", "fused_train",
+                           "--zero1"], _DEPTH_STEP),
+}
+# the classify CLI's --profile --tp 2 on fused: its forward (K1 at the local
+# heads, K5 partial, K3), then K21 on the local heads and K22 on the local
+# hidden columns, a layer each per iteration
+TP_PROFILE = {"ln_qkv_attn": RANK_DEPTH, "ln_mlp_residual": RANK_DEPTH, "layer_norm": 1,
+              "scaled_dot_product_attention": RANK_DEPTH * PROFILE_ITERS,
+              "mlp": RANK_DEPTH * PROFILE_ITERS}
+# --tp 2 on qat against one card: step 0's loss (no update yet) within this
+# relative bound, which the honest run (its int8 codes flipping where the
+# split products round otherwise: 2.4e-4 on this card) keeps and the planted
+# run with the post-GELU activation's and w2's absmaxes left rank-local
+# (no MAX over tp) must break
+QAT_TP_STEP0_REL = 4e-4
+# --zero1's peak memory below plain dp's by at least this share of the
+# moment bytes it saves (the params' slices are views: no second copy)
+ZERO1_PEAK_SHARE = 0.9
+# the legs __graft_entry__.dryrun_multichip skips at n = 4 (n >= 8 only)
+DRYRUN_SKIPPED_AT_4 = ("pp3d_train_dp2xpp2xtp2", "sp_ring_dp2xsp4", "sp_fused_train")
+
+
+def _state_digest(path: str) -> str:
+    """sha256 of a train-state archive's arrays (names, dtypes, bytes)."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    with np.load(path) as z:
+        for k in sorted(z.files):
+            a = z[k]
+            digest.update(f"{k}:{a.dtype}:{a.shape}".encode())
+            digest.update(np.ascontiguousarray(a).tobytes())
+    return digest.hexdigest()
+
+
+def sharded_rank_worker(workdir: str) -> None:
+    """One rank of phase 50 (``torchrun`` starts 2, then 4): the train CLI
+    runs of ``SHARDED_RUNS`` (``SHARDED_4_RUNS`` on 4 ranks), each with
+    --save-state (rank 0 hashes the archive's arrays); on 2 ranks one step
+    of the ``qat`` tp 2 run with its split absmaxes left rank-local, the
+    ``eager`` engine on tp 2 (logits and rollout of 8 images, fp32) and the
+    classify CLI's ``--profile --tp 2`` on ``fused``; on 4 ranks
+    ``dryrun_multichip(4)``.  Writes ``sharded<n>_rank<r>.json`` (and, on
+    rank 0, the engine's outputs) into ``workdir``."""
+    import torch.distributed as dist
+
+    from vit_tpu_torch.cli.main import main as classify
+    from vit_tpu_torch.config import get_config
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.parallel import make_mesh
+    from vit_tpu_torch.runtime import distributed
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", distributed.local_rank() % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    distributed.initialize(backend="gloo")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    _register_tp_config()
+    report = {"runs": {}}
+    for name, (flags, _) in (SHARDED_RUNS if n == RANKS else SHARDED_4_RUNS).items():
+        state = f"{workdir}/{name}.state.npz"
+        run = _train_rank_cli(workdir, [*flags, "--save-state", state], SHARDED_STEPS, [])
+        if rank == 0:
+            run["state_sha256"] = _state_digest(state)
+            os.remove(state)
+        report["runs"][name] = run
+        torch.cuda.empty_cache()
+    if n == RANKS:
+        # planted: qat's split absmaxes left rank-local (step 0 only)
+        from vit_tpu_torch.parallel import tp_forward
+
+        keep = tp_forward._absmax_over_tp
+        tp_forward._absmax_over_tp = lambda a, mesh: a
+        try:
+            report["runs"]["train_tp_qat_local_absmax"] = _train_rank_cli(
+                workdir, SHARDED_RUNS["train_tp_qat"][0], 1, [])
+        finally:
+            tp_forward._absmax_over_tp = keep
+        cfg = get_config(RANK_CONFIG)
+        eng = InferenceEngine(cfg, synth_params(cfg, 0), dtype="float32", ops="eager",
+                              device=dev, mesh=make_mesh({"dp": 1, "tp": 2}),
+                              batch_pad=SHARDED_BATCH)
+        x = synth_images(SHARDED_BATCH, cfg, seed=50)
+        logits = eng.logits(x).cpu().numpy()
+        rollout = eng.attention_maps(x, rollout=True).cpu().numpy()
+        if rank == 0:
+            np.savez(f"{workdir}/plain_tp.npz", logits=logits, rollout=rollout)
+        del eng
+        buf = io.StringIO()
+        wrappers = _reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = classify(["--config", RANK_CONFIG, "--weights", f"{workdir}/params.npz",
+                           "--synth", str(SHARDED_BATCH), "--ops", "fused", "--tp", "2",
+                           "--profile", "--dtype", "bfloat16", "--device", "cuda",
+                           "--dist-backend", "gloo", "--batch-pad", str(SHARDED_BATCH)])
+        report["profile"] = {"rc": rc, "launches": {k: fn.launches for k, fn in wrappers.items()},
+                             "phases": [ln.split() for ln in buf.getvalue().splitlines()
+                                        if " ms total " in ln]}
+    else:
+        from vit_tpu_torch.dryrun import dryrun_multichip
+
+        wrappers = _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            report["dryrun"] = dryrun_multichip(n, str(dev))
+        report["dryrun_s"] = time.perf_counter() - t0
+        report["dryrun_launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    with open(f"{workdir}/sharded{n}_rank{rank}.json", "w") as fh:
+        json.dump(report, fh)
+
+
+def _losses_of(run: dict) -> list:
+    return [rec["loss"] for rec in run["steps"]]
+
+
+def _mb(n: int) -> str:
+    return f"{n / 1e6:.1f} MB"
+
+
+def _same_runs(reports, plain: str, zero: str, what: str) -> None:
+    """Fail unless the two runs' losses, archives (rank 0's digest) and
+    launch counts are equal."""
+    a, b = reports[0]["runs"][plain], reports[0]["runs"][zero]
+    same = (_losses_of(a) == _losses_of(b), a["state_sha256"] == b["state_sha256"],
+            all(r["runs"][plain]["launches"] == r["runs"][zero]["launches"] for r in reports))
+    log(f"{what}: losses {_losses_of(b)} vs {_losses_of(a)}; archive sha256 "
+        f"{b['state_sha256'][:16]} vs {a['state_sha256'][:16]}; equal (losses, archive, "
+        f"launches): {same}")
+    if not all(same):
+        raise RuntimeError(f"{what}: differs from the plain run")
+
+
+def phase_sharded(dev: torch.device, card: str, workdir: str) -> dict:
+    """Phase 50: ZeRO-1, FSDP and tensor parallelism on the plain tiers.
+    Two ranks sharing the card over gloo (``--rank-sharded-worker``): the
+    train CLI's ``--zero1`` against plain ``--dp 2`` (B/16 depth 12, batch
+    32, bf16 mixed, 3 steps: losses and archives bit for bit, 12 each of
+    K1/K4-K7 a rank and step, each rank's moment bytes and peak memory),
+    ``--fsdp`` on ``eager`` and ``qat`` against plain dp 2 (depth 2, fp32:
+    losses and archives bit for bit, each rank's param bytes), ``--tp 2`` on
+    ``eager`` and ``qat`` against one card's losses (``qat``'s step 0 also
+    against a planted run without the MAX over tp), the ``eager`` engine on
+    tp 2 against one card (logits 1e-4, rollout 1e-5) and ``--profile --tp
+    2`` on ``fused`` (its phases, 2 K21 and 2 K22 a rank and iteration);
+    then four ranks: ``--zero1`` on dp 2 x tp 2 (depth 2) against the plain
+    run and ``dryrun_multichip(4)``.  -> launch counts of rank 0 by path."""
+    from vit_tpu_torch.config import get_config
+    from vit_tpu_torch.io import checkpoint
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    _register_tp_config()
+    cfg = get_config(RANK_CONFIG)
+    params = synth_params(cfg, 0)
+    checkpoint.save_npz(params, f"{workdir}/params.npz")
+    _run_ranks("--rank-sharded-worker", workdir, SHARDED_TIMEOUT, "sharded ranks")
+    reports = [json.load(open(f"{workdir}/sharded{RANKS}_rank{r}.json")) for r in range(RANKS)]
+    for r, rep in enumerate(reports):
+        for name, (_, per_step) in SHARDED_RUNS.items():
+            run = rep["runs"][name]
+            if run["rc"] != 0:
+                raise RuntimeError(f"rank {r} {name}: the train CLI exited {run['rc']}")
+            _expect_cli(run["launches"], per_step, SHARDED_STEPS, f"rank {r} {name}")
+    _same_runs(reports, "train_dp_b16", "train_dp_zero1",
+               "--zero1 vs --dp 2 (B/16, b32, bf16 mixed, 3 steps)")
+    _same_runs(reports, "train_mae_dp", "train_mae_dp_zero1",
+               f"--mae --zero1 vs --mae --dp 2 (depth 2, b{SHARDED_BATCH}, bf16 mixed, 3 steps)")
+    for r, rep in enumerate(reports):
+        plain, zero = rep["runs"]["train_dp_b16"], rep["runs"]["train_dp_zero1"]
+        share = zero["moment_bytes"] / plain["moment_bytes"]
+        log(f"rank {r}: optimizer moments {_mb(zero['moment_bytes'])} under --zero1 vs "
+            f"{_mb(plain['moment_bytes'])} plain ({share:.4f}); peak memory "
+            f"{_mb(zero['peak_bytes'])} vs {_mb(plain['peak_bytes'])}; {card}")
+        if zero["moment_bytes"] > 0.55 * plain["moment_bytes"]:
+            raise RuntimeError(f"rank {r} --zero1: moments not sliced over dp")
+        saved = plain["moment_bytes"] - zero["moment_bytes"]
+        if zero["peak_bytes"] > plain["peak_bytes"] - ZERO1_PEAK_SHARE * saved:
+            raise RuntimeError(f"rank {r} --zero1: peak memory not {ZERO1_PEAK_SHARE} of the "
+                               f"{_mb(saved)} of moments saved below plain dp's")
+    for ops in ("eager", "qat"):
+        _same_runs(reports, f"train_dp_{ops}", f"train_dp_{ops}_fsdp",
+                   f"--fsdp vs --dp 2 on {ops} (depth 2, b{SHARDED_BATCH}, fp32, 3 steps)")
+        for r, rep in enumerate(reports):
+            plain, fsdp = rep["runs"][f"train_dp_{ops}"], rep["runs"][f"train_dp_{ops}_fsdp"]
+            share = fsdp["param_bytes"] / plain["param_bytes"]
+            log(f"rank {r} {ops}: params between steps {_mb(fsdp['param_bytes'])} under --fsdp vs "
+                f"{_mb(plain['param_bytes'])} plain ({share:.4f}), moments "
+                f"{_mb(fsdp['moment_bytes'])} vs {_mb(plain['moment_bytes'])}; peak memory "
+                f"{_mb(fsdp['peak_bytes'])} vs {_mb(plain['peak_bytes'])}; {card}")
+            if fsdp["param_bytes"] > 0.55 * plain["param_bytes"]:
+                raise RuntimeError(f"rank {r} --fsdp: params not sliced over dp")
+    for ops in ("eager", "qat"):
+        got = _losses_of(reports[0]["runs"][f"train_tp_{ops}"])
+        want = _one_card_losses(workdir, [*_DEPTH2, "--ops", ops], SHARDED_STEPS)
+        # eager: 1e-5 relative, plus the 1e-6 that --log-jsonl's 6 decimals
+        # round off; qat: the fake-int8 codes of values that the split
+        # products round otherwise may flip, so the flip budget 2^-6 relative
+        # of the CPU tests (tests/test_torch_qat.py)
+        rel = 1e-5 if ops == "eager" else 2.0 ** -6
+        worst = max(abs(g - w) / (rel * abs(w) + 1e-6) for g, w in zip(got, want))
+        log(f"--tp 2 on {ops} (depth 2, b{SHARDED_BATCH}, fp32): losses {got} vs one card "
+            f"{want}, worst {worst:.3g} of the bound ({rel:g} relative + 1e-6)")
+        if len(got) != SHARDED_STEPS or worst > 1.0:
+            raise RuntimeError(f"--tp 2 on {ops}: losses off one card's")
+        if ops == "qat":
+            # step 0 holds the MAX over tp: the planted run breaks the bound
+            if any(rep["runs"]["train_tp_qat_local_absmax"]["rc"] != 0 for rep in reports):
+                raise RuntimeError("the planted qat --tp 2 run failed")
+            planted = _losses_of(reports[0]["runs"]["train_tp_qat_local_absmax"])
+            honest0, planted0 = (abs(v[0] - want[0]) / abs(want[0]) for v in (got, planted))
+            log(f"--tp 2 on qat step 0 vs one card: {honest0:.6g} relative, planted without "
+                f"the MAX over tp {planted0:.6g} (bound {QAT_TP_STEP0_REL:g}); {card}")
+            if not honest0 <= QAT_TP_STEP0_REL < planted0:
+                raise RuntimeError("--tp 2 on qat: step 0 does not tell the MAX over tp")
+        ms = [rec["ms"] for rec in reports[0]["runs"][f"train_tp_{ops}"]["steps"][1:]]
+        log(f"train_tp_{ops}: {statistics.median(ms):.6g} ms per step (median of steps 1-"
+            f"{len(ms)}; {RANKS} ranks sharing one card over gloo: not a scaling figure); {card}")
+
+    # the eager engine on tp 2 against one card
+    x = synth_images(SHARDED_BATCH, cfg, seed=50)
+    one = InferenceEngine(cfg, params, dtype="float32", ops="eager", device=dev,
+                          batch_pad=SHARDED_BATCH)
+    want_logits = one.logits(x).cpu().numpy()
+    want_roll = one.attention_maps(x, rollout=True).cpu().numpy()
+    got = np.load(f"{workdir}/plain_tp.npz")
+    dev_l = float(np.abs(got["logits"] - want_logits).max())
+    dev_r = float(np.abs(got["rollout"] - want_roll).max())
+    log(f"eager engine tp 2 (b{SHARDED_BATCH} fp32, depth 2) vs one card: logits {dev_l:.3g} "
+        f"(1e-4), rollout {dev_r:.3g} (1e-5)")
+    if not (dev_l <= 1e-4 and dev_r <= 1e-5):
+        raise RuntimeError("the eager tp 2 engine differs from one card's")
+
+    # --profile --tp 2 on fused: the phases, K21 and K22 at the local heads and columns
+    for r, rep in enumerate(reports):
+        prof = rep["profile"]
+        if prof["rc"] != 0:
+            raise RuntimeError(f"rank {r} --profile --tp 2: exited {prof['rc']}")
+        _expect_counts_of(prof["launches"], TP_PROFILE,
+                          f"rank {r} classify --ops fused --tp 2 --profile ({PROFILE_ITERS} "
+                          "iterations)")
+    phases = {row[0]: int(row[-1].removeprefix("x")) for row in reports[0]["profile"]["phases"]}
+    log("classify --tp 2 --profile rank 0: " + " / ".join(
+        " ".join(row) for row in reports[0]["profile"]["phases"]))
+    if phases != {name: PROFILE_ITERS if name in ("patch_embed+pos", "final_ln+head")
+                  else PROFILE_ITERS * RANK_DEPTH for name in PROFILE_PHASES}:
+        raise RuntimeError(f"--profile --tp 2: phase lines {phases}, expected the six phases")
+
+    # four ranks: ZeRO-1 on dp 2 x tp 2, then the dryrun
+    _run_ranks("--rank-sharded-worker", workdir, SHARDED_TIMEOUT, "sharded ranks", ranks=4)
+    reports4 = [json.load(open(f"{workdir}/sharded4_rank{r}.json")) for r in range(4)]
+    for r, rep in enumerate(reports4):
+        for name, (_, per_step) in SHARDED_4_RUNS.items():
+            run = rep["runs"][name]
+            if run["rc"] != 0:
+                raise RuntimeError(f"rank {r} {name}: the train CLI exited {run['rc']}")
+            _expect_cli(run["launches"], per_step, SHARDED_STEPS, f"rank {r} {name}")
+    _same_runs(reports4, "train_dp_tp", "train_dp_tp_zero1",
+               f"--zero1 vs --dp 2 --tp 2 (depth 2, b{TP_TRAIN_BATCH}, bf16 mixed, 3 steps)")
+    line = reports4[0]["dryrun"]
+    log(f"dryrun_multichip(4) on 4 ranks sharing one card ({reports4[0]['dryrun_s']:.3f} s): "
+        f"{line}")
+    statuses = dict(re.findall(r"(\w+)=(\S+)", line.split("OK:", 1)[1]))
+    bad = {k: v for k, v in statuses.items() if k not in ("mesh", "batch", "loss")
+           and v != ("skipped" if k in DRYRUN_SKIPPED_AT_4 else "ok")}
+    if bad or "mesh={'dp': 2, 'tp': 2} batch=4" not in line:
+        raise RuntimeError(f"dryrun_multichip(4): legs {bad} off the JAX package's statuses")
+    return {"train_dp_zero1": reports[0]["runs"]["train_dp_zero1"]["launches"],
+            "train_mae_dp_zero1": reports[0]["runs"]["train_mae_dp_zero1"]["launches"],
+            "train_dp_tp_zero1": reports4[0]["runs"]["train_dp_tp_zero1"]["launches"],
+            "classify_tp_profile": reports[0]["profile"]["launches"],
+            "dryrun_multichip": reports4[0]["dryrun_launches"]}
+
+
+def group_sharded(dev, card, summary, launches) -> None:
+    """Phase 50."""
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+        launches.update(phase_sharded(dev, card, workdir))
+
+
 PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw",
-          "parallel", "serve", "mae", "distill", "qat", "data", "recipe", "pp_sp", "serve_mesh")
+          "parallel", "serve", "mae", "distill", "qat", "data", "recipe", "pp_sp", "serve_mesh",
+          "sharded")
 
 
 def group_classify(dev, card, summary, launches) -> None:
@@ -6216,6 +6573,8 @@ def main(argv=None) -> None:
                    help="run one rank of phase 48 (torchrun starts these), writing into DIR")
     p.add_argument("--rank-serve-mesh-worker", metavar="DIR",
                    help="run one rank of phase 49 (torchrun starts these), writing into DIR")
+    p.add_argument("--rank-sharded-worker", metavar="DIR",
+                   help="run one rank of phase 50 (torchrun starts these), writing into DIR")
     p.add_argument("--cli-worker", metavar="SPEC",
                    help="run one of phase 49's explicit-coordinator CLI processes (SPEC.json)")
     args = p.parse_args(argv)
@@ -6233,6 +6592,9 @@ def main(argv=None) -> None:
         return
     if args.rank_serve_mesh_worker:
         serve_mesh_rank_worker(args.rank_serve_mesh_worker)
+        return
+    if args.rank_sharded_worker:
+        sharded_rank_worker(args.rank_sharded_worker)
         return
     if args.cli_worker:
         cli_worker(args.cli_worker)
@@ -6264,7 +6626,7 @@ def main(argv=None) -> None:
               "per_op": group_per_op, "adamw": group_adamw, "parallel": group_parallel,
               "serve": group_serve, "mae": group_mae, "distill": group_distill, "qat": group_qat,
               "data": group_data, "recipe": group_recipe, "pp_sp": group_pp_sp,
-              "serve_mesh": group_serve_mesh}
+              "serve_mesh": group_serve_mesh, "sharded": group_sharded}
     for name in PHASES:
         if name in only:
             t0 = time.perf_counter()

@@ -155,10 +155,19 @@ def test_engine_refusals(tiny_cfg):
     tome = InferenceEngine(tiny_cfg, tree, dtype="float32", ops="fused", device="cpu", tome_r=1)
     with pytest.raises(ValueError, match="tome_r=0 engine for interpretability"):
         tome.attention_maps(x, rollout=True)
+    # a tp engine probes its local heads (tp_forward.attention_maps_tp): with
+    # no process group, rank 0 of tp 2 fills the first half of the head axis
+    # and leaves the other rank's slots zero; its heads of the first layer
+    # (before any sum over tp) are the whole probe's
     tp = InferenceEngine(tiny_cfg, tree, dtype="float32", ops="fused", device="cpu",
                          mesh=Mesh({"dp": 1, "tp": 2}, 0, {}))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tp.attention_maps(x)
+    got = tp.attention_maps(x)
+    want = InferenceEngine(tiny_cfg, tree, dtype="float32", ops="eager",
+                           device="cpu").attention_maps(x)
+    h = tiny_cfg.num_heads // 2
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got[0, :, :h].numpy(), want[0, :, :h].numpy(), atol=1e-6, rtol=0)
+    assert got[:, :, h:].abs().max() == 0
 
 
 @pytest.fixture
@@ -201,7 +210,7 @@ def test_cli_attn_rollout_matches_jax_cli(weight_dir, tmp_path, tiny_cfg, capsys
     (["--ops", "quant"], "--attn-rollout needs fp weights"),
     (["--profile", "--ops", "quant"], "--attn-rollout/--profile need fp weights"),
     (["--profile", "--tome", "2"], "--attn-rollout/--profile probe the full-token model"),
-    (["--tp", "2"], "ROADMAP.md item 14"),
+    (["--tp", "2"], "need one process per rank: run the CLI under `torchrun"),
 ], ids=["tome", "quant", "both_quant", "both_tome", "tp"])
 def test_cli_attn_rollout_refusals_exit_2(weight_dir, tmp_path, capsys, monkeypatch, extra,
                                           msg):

@@ -146,11 +146,13 @@ def _jax_side(modules):
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tests/test_torch_cuda.py",
                                     "tests/torch_pp_sp_worker.py",
-                                    "tests/torch_serve_worker.py"])
+                                    "tests/torch_serve_worker.py",
+                                    "tests/torch_zero_worker.py",
+                                    "tests/torch_plain_tp_worker.py"])
 def test_card_scripts_import_nothing_of_the_jax_package(script):
-    """What runs on the card (and the pipeline, sequence and serving tests'
-    rank workers) names no module of JAX or of the JAX package, at the top
-    or inside a function."""
+    """What runs on the card (and the pipeline, sequence, serving, ZeRO and
+    plain-tier tensor-parallel tests' rank workers) names no module of JAX
+    or of the JAX package, at the top or inside a function."""
     modules = _imported_modules(REPO / script)
     assert not _jax_side(modules)
     assert any(m.startswith("vit_tpu_torch") for m in modules)
@@ -281,8 +283,9 @@ def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     a Weight_*.bin directory, on a .pth, on --images, with --golden, with
     --ops quant, with --ops per_op --profile, with --attn-rollout and with
     --tome on fused and quant, and under torch.distributed.run on 2 ranks
-    with --tp 2 (fused and quant) and the train CLI with --pp 2 (eager and
-    fused_train) and --sp 2 (eager and fused_train) and the serve CLI's
+    with --tp 2 (fused and quant; eager with --attn-rollout) and the train
+    CLI with --pp 2 (eager and fused_train), --sp 2 (eager and fused_train),
+    --tp 2 on eager, --dp 2 --zero1 and --dp 2 --fsdp, and the serve CLI's
     --selftest with --tp 2; the serve CLI's --selftest, saturated and
     paced; the train CLI's --data-dir with --eval-data-dir and its
     --image-dir; the eval CLI on shards (fused, quant) and on an image folder
@@ -378,8 +381,11 @@ for ops in ("fused", "quant"):
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib"))
 assert not loaded, loaded
 """
+    # one torch thread, as the torchrun launch below: the suite's workers
+    # share the cores
+    env = {k: v for k, v in os.environ.items() if k != "WORLD_SIZE"}
     out = subprocess.run([sys.executable, "-c", code], timeout=300, cwd=tmp_path,
-                         capture_output=True, text=True)
+                         capture_output=True, text=True, env=dict(env, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr[-3000:]
     assert "comparator: 0 error(s) over 2 line(s)" in out.stdout
     rank = tmp_path / "rank.py"
@@ -398,22 +404,30 @@ from vit_tpu_torch.cli import serve
 assert serve.main(["--config", cfg.name, "--device", "cpu", "--tp", "2", "--ops", "fused",
                    "--weights", {str(tmp_path / "p.npz")!r}, "--selftest", "3", "--max-batch",
                    "4", "--batch-pad", "4"]) == 0
+assert classify.main(["--config", cfg.name, "--device", "cpu", "--tp", "2", "--ops", "eager",
+                      "--weights", {str(tmp_path / "p.npz")!r}, "--synth", "2",
+                      "--attn-rollout", {str(tmp_path / "roll_tp.npz")!r}]) == 0
 from vit_tpu_torch.cli import train
 for flags in (["--pp", "2", "--microbatches", "1"], ["--sp", "2"]):
     for ops in ("eager", "fused_train"):
         assert train.main(["--config", cfg.name, "--device", "cpu", "--steps", "1", "--batch",
                            "2", "--ops", ops, *flags]) == 0
+for flags in (["--tp", "2", "--ops", "eager"], ["--dp", "2", "--zero1"],
+              ["--dp", "2", "--fsdp", "--ops", "eager"]):
+    assert train.main(["--config", cfg.name, "--device", "cpu", "--steps", "1", "--batch", "2",
+                       *flags]) == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib"))
 assert not loaded, loaded
 """)
-    env = {k: v for k, v in os.environ.items() if k != "WORLD_SIZE"}
     out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                           "--nproc-per-node", "2", str(rank)], timeout=120, cwd=tmp_path,
                          capture_output=True, text=True, env=dict(env, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr[-3000:]
-    # rank 0's line of each --tp 2 run: the classify CLI's two, the serve CLI's
-    assert out.stdout.count("mesh: {'dp': 1, 'tp': 2} over 2 rank(s), backend gloo") == 3
-    assert out.stdout.count("[1] label:") == 2  # rank 0's lines only
+    # rank 0's line of each --tp 2 run: the classify CLI's three, the serve
+    # CLI's, the train CLI's
+    assert out.stdout.count("mesh: {'dp': 1, 'tp': 2} over 2 rank(s), backend gloo") == 5
+    assert "saved attention-rollout maps (2, 2, 2)" in out.stdout
+    assert out.stdout.count("[1] label:") == 3  # rank 0's lines only
     assert "pipeline: 2 stage(s), 1 microbatches" in out.stdout
     assert out.stdout.count('"metric": "serving images/sec') == 1  # rank 0's line only
     assert "sequence parallel: ring size 2 (ops fused_train)" in out.stdout

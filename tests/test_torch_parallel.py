@@ -366,17 +366,24 @@ def test_engine_refusals(tiny_cfg, tiny_params):
     cfg3 = dataclasses.replace(tiny_cfg, num_heads=3, name="vit_tiny_3h")
     with pytest.raises(ValueError, match="must divide"):
         InferenceEngine(cfg3, tree, ops="fused", device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        InferenceEngine(tiny_cfg, tree, ops="eager", device="cpu", mesh=mesh)
+    # the plain tier splits over tp as the kernel tiers do (it was refused
+    # before tp_forward.plain_tp_ops): each rank holds its shard
+    eager = InferenceEngine(tiny_cfg, tree, ops="eager", device="cpu", mesh=mesh)
+    assert eager._tp_shard and eager.params["blocks"]["w1"].shape[-1] == tiny_cfg.mlp_dim // 2
+    with pytest.raises(ValueError, match="data-parallel only"):
+        InferenceEngine(tiny_cfg, tree, ops="qat", device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="data-parallel only"):
         InferenceEngine(tiny_cfg, tree, ops="fused", device="cpu", mesh=mesh, tome_r=1)
     # as the JAX package's: quant takes a tp mesh, its int8 weights sharded
     eng = InferenceEngine(tiny_cfg, tree, ops="quant", device="cpu", mesh=mesh)
     assert eng._tp_shard and eng.params["blocks"]["wqkv"].dtype == torch.int8
     assert eng.params["blocks"]["wqkv"].shape[-1] == 3 * tiny_cfg.embed_dim // 2
-    with pytest.raises(NotImplementedError, match="item 14"):
-        InferenceEngine(tiny_cfg, tree, ops="fused", device="cpu", mesh=mesh).phase_report(
-            np.zeros((1, 3, 32, 32), np.float32))
+    # phase_report on a tp engine runs rank 0's shard (no process group
+    # here: the all-reduces over tp are no-ops) through the JAX phases
+    report = InferenceEngine(tiny_cfg, tree, ops="fused", device="cpu", mesh=mesh).phase_report(
+        np.zeros((1, 3, 32, 32), np.float32), iters=1)
+    assert sorted(line.split()[0] for line in report.splitlines()) == sorted(
+        ("patch_embed+pos", "layer_norm_1", "attention", "layer_norm_2", "mlp", "final_ln+head"))
 
 
 def test_cli_refusals(tmp_path, capsys, monkeypatch):
@@ -391,8 +398,9 @@ def test_cli_refusals(tmp_path, capsys, monkeypatch):
     assert "torchrun" in capsys.readouterr().err
     assert main([*base, "--tp", "2", "--tome", "4"]) == 2
     assert "shards data-parallel only (no --tp)" in capsys.readouterr().err
+    # --profile with --tp runs (each rank on its shard): it needs torchrun
     assert main([*base, "--tp", "2", "--profile"]) == 2
-    assert "item 14" in capsys.readouterr().err
+    assert "torchrun" in capsys.readouterr().err
     # a torchrun world that is not dp x tp
     monkeypatch.setenv("WORLD_SIZE", "3")
     monkeypatch.setenv("MASTER_ADDR", "localhost")

@@ -2,7 +2,8 @@
 tensor-parallel step through the fused kernels
 (``trainer.make_train_step_kernel_tp``), the data-parallel steps
 (``make_train_step_dp``, MAE and distillation over ``dp``) and the train
-CLI's ``--tp``/``--dp`` — against the JAX package on the CPU: its Pallas
+CLI's ``--tp``/``--dp`` (``--tp`` on ``fused_train`` and on the plain
+tiers) — against the JAX package on the CPU: its Pallas
 kernels in interpret mode and its ``shard_map``/GSPMD steps on the virtual
 8-device mesh, the port in one 2-rank gloo group of its own
 (``torch_parallel_train_worker.py``, started once for the module), plus one
@@ -20,7 +21,11 @@ holds the single-device step to.  bf16 mixed
 precision, AdamW (the key bias, whose gradient is rounding noise around
 an exact zero), ToMe, distillation and the CLIs as the single-device files
 hold them (``test_torch_train.py``, ``test_torch_tome_train.py``,
-``test_torch_distill.py``).
+``test_torch_distill.py``).  The CLI's ``--tp 2`` on the plain tiers against
+the JAX CLI's: the first loss within 1e-5 relative, the later ones within
+the CLI bar 1e-4 (AdamW scales rounding-noise gradients up to about lr a
+step); on ``qat`` the first loss within 1e-4 and the later ones within the
+flip budget 2^-6 (``test_torch_qat.py``).
 """
 
 import dataclasses
@@ -166,6 +171,14 @@ def group(tmp_path_factory, cases, tiny_cfg):
     arrays["mae/noise"] = cases["noise"]
     np.savez(d / "in.npz", **arrays)
     jckpt.save_npz(cases["tp"][0], str(d / "init.npz"))
+    # the plain tiers' --tp 2 CLI runs: the DeiT student's and the teacher's
+    # params, and MAE's start as a step-0 train state (--mae takes no
+    # --init-weights)
+    jckpt.save_npz(cases["dp_distill"][0], str(d / "deit.npz"))
+    jckpt.save_npz(cases["teacher"], str(d / "teacher.npz"))
+    mae_tree = jax.tree.map(jnp.asarray, cases["mae"][0])
+    jckpt.save_train_state(mae_tree, optax.adamw(1e-3).init(mae_tree), 0,
+                           str(d / "mae_state.npz"))
     (d / "out").mkdir()
     env = dict(os.environ, PYTHONPATH=f"{REPO}:{REPO / 'tests'}", OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
@@ -456,6 +469,51 @@ def _losses(path):
     return [json.loads(line)["loss"] for line in Path(path).read_text().splitlines()]
 
 
+@pytest.fixture(scope="module")
+def jax_tp_cli(group, cases, tiny_cfg, tmp_path_factory):
+    """The JAX CLI's per-step losses and saved params at the worker's plain
+    tier --tp 2 flags (``--ops xla``/``qat``; MAE's masks from the worker's
+    noise, as the worker patches its own)."""
+    import vit_tpu.config as jconfig
+    from vit_tpu.cli.train import main as jmain
+
+    _, _, d = group
+    out = tmp_path_factory.mktemp("jax_tp_cli")
+    noise = jnp.asarray(cases["noise"])
+
+    def masks(rng, batch, num_patches, len_keep):
+        shuffle = jnp.argsort(noise, axis=-1).astype(jnp.int32)
+        restore = jnp.argsort(shuffle, axis=-1).astype(jnp.int32)
+        return shuffle[:, :len_keep], restore, (restore >= len_keep).astype(jnp.float32)
+
+    runs = {
+        "eager": ["--config", tiny_cfg.name, "--init-weights", str(d / "init.npz"),
+                  "--ops", "xla"],
+        "qat": ["--config", tiny_cfg.name, "--init-weights", str(d / "init.npz"), "--ops", "qat"],
+        "mae": ["--config", tiny_cfg.name, "--ops", "xla", "--mae", "--mask-ratio", "0.5",
+                "--mae-decoder", "32,2,2", "--resume", str(d / "mae_state.npz")],
+        "distill": ["--config", W.DEIT.name, "--init-weights", str(d / "deit.npz"),
+                    "--ops", "xla", "--distill-teacher", str(d / "teacher.npz")],
+    }
+    jconfig.CONFIGS[tiny_cfg.name] = tiny_cfg
+    jconfig.CONFIGS[W.DEIT.name] = W.DEIT
+    keep = jmae.random_mask
+    jmae.random_mask = masks
+    res = {}
+    try:
+        for name, flags in runs.items():
+            rc = jmain([*flags, "--steps", "3", "--batch", "4", "--dp", "1", "--tp", "2",
+                        "--no-compile-cache", "--log-jsonl", str(out / f"{name}.jsonl"),
+                        "--save", str(out / f"{name}.npz")])
+            assert rc == 0
+            res[name] = (_losses(out / f"{name}.jsonl"), out / f"{name}.npz")
+    finally:
+        jmae.random_mask = keep
+        jconfig.CONFIGS.pop(tiny_cfg.name, None)
+        jconfig.CONFIGS.pop(W.DEIT.name, None)
+    return res
+
+
 def _saved_close(port_npz, jax_npz, cfg):
     tp = _flat(jckpt.load_npz(str(port_npz)), "")
     jp = _flat(jckpt.load_npz(str(jax_npz)), "")
@@ -546,6 +604,22 @@ BASE = ["--config", "vit_tiny_test", "--steps", "1", "--batch", "4", "--device",
      "error: --augment/--grad-accum support the dp paths only (no --pp/--tp/--sp)"),
     (["--tp", "2", "--ops", "fused_train", "--optimizer", "fused_adamw"],
      "error: --optimizer fused_adamw requires --ops fused_train and tp=1"),
+    # ZeRO's, at the JAX package's train_setup.py:233-251
+    (["--dp", "2", "--pp", "2", "--ops", "fused_train", "--zero1"],
+     "error: --zero1 composes with dp/tp eager/qat and fused_train placements only; --pp/--sp "
+     "own their optimizer placement"),
+    (["--dp", "2", "--sp", "2", "--zero1"],
+     "error: --zero1 composes with dp/tp eager/qat and fused_train placements only; --pp/--sp "
+     "own their optimizer placement"),
+    (["--dp", "2", "--ops", "fused_train", "--fsdp"],
+     "error: --fsdp needs the plain op paths (--ops eager/qat) and excludes --pp/--sp (the "
+     "kernel paths and the pp/sp schedules require whole local weights per device)"),
+    (["--dp", "2", "--pp", "2", "--ops", "eager", "--fsdp"],
+     "error: --fsdp needs the plain op paths (--ops eager/qat) and excludes --pp/--sp"),
+    (["--dp", "2", "--ops", "fused_train", "--optimizer", "fused_adamw", "--zero1"],
+     "error: --zero1 with --optimizer fused_adamw would all-gather the sharded moments around "
+     "the (unpartitionable) fused AdamW kernel every step, defeating the sharding; use "
+     "--optimizer adamw with --zero1"),
 ])
 def test_refusals_in_jax_words(fake_mesh, capsys, flags, message):
     assert tmain([*BASE, *flags]) == 2
@@ -562,19 +636,50 @@ def test_distill_teacher_with_tp_on_fused_train_refused(fake_mesh, capsys, tmp_p
             in capsys.readouterr().err)
 
 
-@pytest.mark.parametrize("flags", [["--ops", "eager"], ["--ops", "qat"],
-                                   ["--ops", "eager", "--mae"], ["--distill-teacher", "T"]],
-                         ids=["eager", "qat", "mae", "distill"])
-def test_gspmd_tensor_parallelism_is_a_later_slice(fake_mesh, tmp_path, flags):
-    if "T" in flags:
-        jckpt.save_npz(_jtree(jvit.init_params(jax.random.key(1), W.TEACHER)),
-                       tmp_path / "t.npz")
-        flags = ["--distill-teacher", str(tmp_path / "t.npz")]
-        base = [*BASE[:1], W.DEIT.name, *BASE[2:]]
+@pytest.mark.parametrize("name", ["eager", "qat", "mae", "distill"])
+def test_gspmd_tensor_parallelism_is_a_later_slice(group, jax_tp_cli, tiny_cfg, name):
+    # once refused: the train CLI's --tp 2 on the plain tiers, which the JAX
+    # package runs through GSPMD, now runs tensor-parallel in plain torch
+    # (tp_forward.plain_tp_ops); its losses and saved params against the
+    # JAX CLI's at the same flags (--ops xla/qat)
+    r0, r1, d = group
+    key = f"cli_tp_{name}"
+    assert int(r0[f"{key}/rc"]) == int(r1[f"{key}/rc"]) == 0
+    assert "mesh: {'dp': 1, 'tp': 2} over 2 rank(s), backend gloo" in str(r0[f"{key}/stdout"])
+    assert f"ops: {'qat' if name == 'qat' else 'eager'}" in str(r0[f"{key}/stdout"])
+    got, (want, jnpz) = _losses(d / "out" / f"{key}.jsonl"), jax_tp_cli[name]
+    assert len(got) == len(want) == 3
+    cfg = W.DEIT if name == "distill" else tiny_cfg
+    tp = _flat(jckpt.load_npz(str(d / "out" / f"{key}.npz")), "")
+    jp = _flat(jckpt.load_npz(str(jnpz)), "")
+    if name == "qat":
+        # fake-int8 codes flip between the packages (test_torch_qat.py), and
+        # a flip moves the loss past 1e-5: measured 4.5e-5, 1.2e-3 and
+        # 6.8e-4 relative.  Step 0 (no update yet) within 1e-4, as
+        # test_torch_qat.py holds the one-rank CLI's; the later steps within
+        # the flip budget 2^-6 relative
+        assert abs(got[0] - want[0]) <= 1e-4
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -6, atol=0)
     else:
-        base = BASE
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 14"):
-        tmain([*base, "--tp", "2", *flags])
+        # every loss within 1e-5 relative, plus the 1e-6 that --log-jsonl's
+        # 6 decimals round off (the worst reading, distillation's step 2, is
+        # 0.91 of this bound)
+        assert all(abs(g - w) <= 1e-5 * abs(w) + 1e-6 for g, w in zip(got, want)), (got, want)
+    if name in ("mae", "qat"):
+        # a few weights see a gradient that is rounding noise around zero
+        # (on qat also a flipped code's), which AdamW scales up to about lr
+        # a step: every element within 3 steps x the CLI's lr 1e-3, and the
+        # key biases' columns (encoder and decoder, head width 16) aside,
+        # all but a share of each leaf within 1e-4 (MAE 1e-3; qat 1e-2,
+        # measured at most 2.8e-3)
+        share = 1e-3 if name == "mae" else 1e-2
+        for k in jp:
+            diff = np.abs(tp[k] - jp[k])
+            if k.endswith("bqkv"):
+                diff = diff[..., (np.arange(diff.shape[-1]) // 16) % 3 != 1]
+            assert (diff > 1e-4).mean() <= share and np.abs(tp[k] - jp[k]).max() <= 3e-3, k
+        return
+    _leaf_close(tp, jp, 1e-4, adam_cfg=cfg, steps=3)
 
 
 def test_tp_and_dp_need_a_torchrun_world(monkeypatch, tiny_cfg, capsys):

@@ -461,11 +461,17 @@ def test_train_cli_refuses_orbax_and_bad_accum(tiny_registered, tmp_path, capsys
 
 
 def test_train_cli_has_no_flags_of_later_slices():
+    # no slice is left: every flag of the JAX package's train parser but its
+    # XLA compile cache's, ZeRO's --zero1 and --fsdp too (off by default)
+    from vit_tpu.cli.train_args import build_parser as jbuild
     from vit_tpu_torch.cli.train_args import build_parser
 
     flags = {o for a in build_parser()._actions for o in a.option_strings}
-    for later in ("--zero1", "--fsdp"):
-        assert later not in flags
+    jflags = {o for a in jbuild()._actions for o in a.option_strings}
+    assert jflags - flags == {"--no-compile-cache"}
+    assert flags - jflags == {"--device", "--dist-backend"}
+    args, jargs = build_parser().parse_args([]), jbuild().parse_args([])
+    assert (args.zero1, args.fsdp) == (jargs.zero1, jargs.fsdp) == (False, False)
     assert {"--pp", "--microbatches", "--sp"} <= flags  # pipeline and sequence parallelism's
     # the training loop's state and recipe's
     assert {"--save-state", "--save-every", "--resume", "--ema-decay", "--save-ema", "--augment",

@@ -7,8 +7,9 @@ starts:
 Reads the params, images and labels of every case from ``IN.npz`` (made
 with numpy and the JAX package's initializers by the test, which hands the
 same arrays to the JAX package), runs the port's tensor- and
-data-parallel train steps and the train CLI on the CPU, and writes every
-result to ``OUT.<rank>.npz``.  With ``--cli ARGS... [--and ARGS...]`` it
+data-parallel train steps and the train CLI (``--tp 2`` on ``fused_train``
+and on the plain tiers, ``--dp 2``) on the CPU, and writes every result to
+``OUT.<rank>.npz``.  With ``--cli ARGS... [--and ARGS...]`` it
 is one rank of the train CLI on the tiny test configs instead, one run
 after another (the 4-rank run, the data runs).
 Imports nothing of JAX.
@@ -173,18 +174,35 @@ def mae_case(res, data, dp2, monkey):
         res.update(flatten(params_to_numpy(tree), f"{name}/params/"))
 
 
-def cli_cases(res, init: Path, out: Path, rank: int):
-    """The train CLI over the group, ``--tp 2`` and ``--dp 2``: the same
-    arguments on both ranks; rank 0 alone prints and writes."""
+def cli_cases(res, init: Path, out: Path, rank: int, data: dict, monkey):
+    """The train CLI over the group, ``--tp 2`` and ``--dp 2`` on
+    ``fused_train``, and ``--tp 2`` on the plain tiers (``eager``, ``qat``,
+    MAE on ``eager`` resumed from the test's archive, with its masks from
+    the test's noise, and distillation on ``eager``): the same arguments on
+    both ranks; rank 0 alone prints and writes."""
     from vit_tpu_torch.cli.train import main
 
     config.CONFIGS[TINY.name] = TINY
-    base = ["--config", TINY.name, "--init-weights", str(init), "--steps", "3", "--batch", "4",
-            "--ops", "fused_train", "--device", "cpu", "--dist-backend", "gloo"]
-    for name, flags in (("cli_tp", ["--tp", "2"]), ("cli_dp", ["--dp", "2"])):
+    config.CONFIGS[DEIT.name] = DEIT
+    d = init.parent
+    noise = torch.from_numpy(data["mae/noise"])
+    monkey(mae, "random_mask", lambda gen, b, npatch, k: mae.masks_from_noise(noise, k))
+    common = ["--steps", "3", "--batch", "4", "--device", "cpu", "--dist-backend", "gloo"]
+    base = ["--config", TINY.name, "--init-weights", str(init), *common, "--ops", "fused_train"]
+    plain_tp = {
+        "cli_tp_eager": ["--config", TINY.name, "--init-weights", str(init), "--ops", "eager"],
+        "cli_tp_qat": ["--config", TINY.name, "--init-weights", str(init), "--ops", "qat"],
+        "cli_tp_mae": ["--config", TINY.name, "--ops", "eager", "--mae", "--mask-ratio", "0.5",
+                       "--mae-decoder", "32,2,2", "--resume", str(d / "mae_state.npz")],
+        "cli_tp_distill": ["--config", DEIT.name, "--init-weights", str(d / "deit.npz"),
+                           "--ops", "eager", "--distill-teacher", str(d / "teacher.npz")],
+    }
+    runs = [("cli_tp", [*base, "--tp", "2"]), ("cli_dp", [*base, "--dp", "2"])]
+    runs += [(name, [*flags, *common, "--tp", "2"]) for name, flags in plain_tp.items()]
+    for name, flags in runs:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = main([*base, *flags, "--log-jsonl", str(out / f"{name}.jsonl"),
+            rc = main([*flags, "--log-jsonl", str(out / f"{name}.jsonl"),
                        "--save", str(out / f"{name}.npz")])
         res[f"{name}/rc"] = np.int32(rc)
         res[f"{name}/stdout_lines"] = np.int32(len(buf.getvalue().splitlines()))
@@ -208,9 +226,11 @@ def main(inp: str, out: str) -> None:
         setattr(mod, name, value)
 
     mae_case(res, data, dp2, monkey)
+    cli_cases(res, Path(inp).parent / "init.npz", Path(out).parent, rank, data, monkey)
     for mod, name, value in reversed(patched):
         setattr(mod, name, value)
-    cli_cases(res, Path(inp).parent / "init.npz", Path(out).parent, rank)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("vit_tpu", "jax", "jaxlib"))
+    assert not loaded, loaded
     np.savez(f"{out}.{rank}.npz", **res)
 
 

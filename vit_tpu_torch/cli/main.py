@@ -29,8 +29,9 @@ under ``torchrun``::
     torchrun --nproc-per-node 2 -m vit_tpu_torch.cli.main --weights ./Network \
         --synth 8 --allow-synth-weights --tp 2 --device cpu
 
-``--tp`` splits the heads and the MLP hidden axis of ``fused`` and
-``quant`` over its ranks, ``--dp`` the batch (``InferenceEngine(mesh=)``).
+``--tp`` splits the heads and the MLP hidden axis of ``fused``, ``quant``
+and ``eager`` over its ranks, ``--dp`` the batch (``InferenceEngine(mesh=)``);
+``--attn-rollout`` and ``--profile`` run on every rank, each on its shard.
 The backend is NCCL where every rank has its own card, gloo on the CPU or
 with ``--dist-backend gloo`` (ranks sharing one card).  Rank 0 prints and
 writes the results; every rank exits with the same code.
@@ -163,10 +164,6 @@ def main(argv=None) -> int:
                                     ("--profile", args.profile)) if on]
     one = len(probes) == 1
     what = "/".join(probes)
-    if probes and args.tp > 1:
-        print(f"error: {what} run{'s' if one else ''} the whole weights, which a --tp rank "
-              "does not hold (not ported: ROADMAP.md item 14)", file=sys.stderr)
-        return 2
     if args.tome and probes:
         print(f"error: {what} probe{'s' if one else ''} the full-token model, which would "
               f"diverge from --tome's merged predictions — run {'it' if one else 'them'} "

@@ -3,8 +3,8 @@
 The flags of ``vit_tpu.cli.train_args`` that the PyTorch port runs, with
 ``--tp``/``--dp``/``--pp``/``--sp`` under ``torchrun`` (one process per
 rank), ``--multihost`` with its coordinator flags (or under ``torchrun``),
-and ``--dist-backend``; the ZeRO-1 and FSDP flags wait for their slice of
-the port (ROADMAP.md item 14).
+``--zero1`` and ``--fsdp`` (ZeRO over the ``dp`` ranks), and
+``--dist-backend``.
 """
 
 from __future__ import annotations
@@ -180,6 +180,24 @@ def build_parser() -> argparse.ArgumentParser:
         help="sequence-parallel size: tokens shard over an 'sp' ring, "
         "attention runs as ring attention (parallel/sequence.py). Composes "
         "with --dp; requires --ops eager or fused_train; excludes --pp/--tp",
+    )
+    p.add_argument(
+        "--zero1", action="store_true",
+        help="ZeRO-1: shard optimizer state (adam mu/nu) over the dp ranks "
+        "instead of replicating it — ~dp x less optimizer memory per rank; "
+        "params stay whole over dp (each rank updates its slice, the slices "
+        "are gathered after the step). Works with --ops eager/qat, "
+        "fused_train (dp and dp x tp), and --mae; excludes --pp/--sp (those "
+        "own their placements)",
+    )
+    p.add_argument(
+        "--fsdp", action="store_true",
+        help="fully-sharded data parallelism (ZeRO-3): params, grads, AND "
+        "optimizer state shard over the dp ranks (each block's weights are "
+        "gathered just in time inside the forward, their gradients "
+        "reduce-scattered) — ~dp x less param+optimizer memory per rank. "
+        "Requires the plain op paths (--ops eager/qat); composes with --tp "
+        "and --mae; excludes --pp/--sp and the kernel op paths",
     )
     p.add_argument(
         "--dist-backend", default=None, choices=["nccl", "gloo"],

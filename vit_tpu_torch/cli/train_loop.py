@@ -6,9 +6,10 @@ EMA params when ``--ema-decay`` is on), ``--save-state`` every
 ``--save-every`` steps and at the end, checkpointing on SIGTERM, and the
 final ``--save``, ``--save-backbone``, ``--save-ema`` and
 ``--save-reference``.  On a mesh each rank steps on its dp slice of the
-global batch, and rank 0 alone writes, the whole tree (under ``--tp`` or
-``--pp`` every rank gathers it first: a collective; a pipelined run's
-archives are one-card archives)."""
+global batch, and rank 0 alone writes, the whole tree (under ``--tp``,
+``--pp``, ``--zero1`` or ``--fsdp`` every rank gathers it first: a
+collective; a pipelined or sharded run's archives are one-card
+archives)."""
 
 from __future__ import annotations
 
@@ -35,16 +36,11 @@ def run(args, st) -> int:
     from vit_tpu_torch.io import checkpoint as ckpt
     from vit_tpu_torch.io import weights as wio
     from vit_tpu_torch.io.params import params_to_numpy
-    from vit_tpu_torch.parallel.sharding import splits_params, unshard_params
     from vit_tpu_torch.runtime import trainer
 
     mesh = st.mesh
     lead = mesh is None or mesh.rank == 0
-
-    def whole(tree):
-        if not splits_params(mesh):
-            return tree
-        return unshard_params(tree, mesh)  # every rank takes part
+    whole = st.whole  # every rank takes part
 
     def log_jsonl(record: dict) -> None:
         if args.log_jsonl and lead:
@@ -52,7 +48,7 @@ def run(args, st) -> int:
                 fh.write(json.dumps(record) + "\n")
 
     def evaluate(s: int, final: bool = False) -> None:
-        # under --tp or --pp every rank takes part
+        # under --tp, --pp or --fsdp every rank takes part
         acc = st.run_eval(st.ema if st.ema is not None else st.params)
         which = "ema" if st.ema is not None else "params"
         print(f"{'final' if final else f'step {s:4d} '} eval top-1 {acc:.4f} ({which})")
@@ -60,7 +56,8 @@ def run(args, st) -> int:
 
     def save_state(s: int, params=None) -> None:
         params = whole(st.params) if params is None else params
-        opt = trainer.opt_state_leaves(st.optimizer, st.trained, mesh, st.schedule, st.guard)
+        opt = trainer.opt_state_leaves(st.optimizer, st.opt_tree, mesh, st.schedule, st.guard,
+                                       st.opt_shards)
         ema = whole(st.ema) if st.ema is not None else None
         if not lead:
             return

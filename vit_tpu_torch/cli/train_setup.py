@@ -7,9 +7,12 @@ prints the message and exits 2), in the JAX package's order and words.
 composing with ``--dp`` and ``--tp``), ``--sp`` over a ring of token shards
 (``parallel/sequence.py``, composing with ``--dp``); ``--multihost`` over a
 dp mesh of every process, each streaming its rows of the global batch, as a
-``--dp`` rank does.  What the JAX package runs through GSPMD tensor
-parallelism (``--tp`` on ``eager`` or ``qat``, and so distillation and MAE
-with ``--tp``) raises ``NotImplementedError`` (ROADMAP.md item 14).
+``--dp`` rank does.  ``--tp`` runs through the fused kernels on
+``fused_train`` and in plain torch on ``eager`` and ``qat``
+(``parallel/tp_forward.plain_tp_ops``: what GSPMD makes of the JAX
+package's ``xla`` and ``qat`` tiers), distillation and MAE too.  ``--zero1``
+slices the optimizer's leaves over ``dp`` (``runtime/trainer.Zero1``),
+``--fsdp`` the params themselves (``parallel/sharding.DpShards``).
 """
 
 from __future__ import annotations
@@ -73,6 +76,27 @@ class TrainSetup:
     # the optimizer state holds a schedule count (optax.adamw with a
     # schedule): a train-state archive has it as its last leaf
     schedule: bool = False
+    # --fsdp: the dp placement of the params, which are this rank's slices
+    # (a sharding.DpShards; else None)
+    fsdp: Optional[object] = None
+    # the tree the optimizer's state follows (trained, or under --zero1 its
+    # dp slices; None: trained) and that tree's dp placement (a
+    # sharding.DpShards under --zero1/--fsdp, else None)
+    opt_tree: Optional[dict] = None
+    opt_shards: Optional[object] = None
+
+    def __post_init__(self):
+        if self.opt_tree is None:
+            self.opt_tree = self.trained
+
+    def whole(self, tree):
+        """A tree in the params' placement (the params, the EMA), whole on
+        every rank (a collective under --tp/--pp/--fsdp)."""
+        from vit_tpu_torch.parallel.sharding import splits_params, unshard_params
+
+        if self.fsdp is not None:
+            return self.fsdp.unshard(tree)
+        return unshard_params(tree, self.mesh) if splits_params(self.mesh) else tree
 
 
 _DECAY_KEYS = {"kernel", "wqkv", "wo", "w1", "w2"}
@@ -233,18 +257,18 @@ def _fp32_matmuls():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
-def _build_eval(args, cfg, mesh: Optional[Mesh], device):
+def _build_eval(args, cfg, whole: Callable, device):
     """--eval-data-dir -> ``run_eval(params) -> top-1``: the first n_eval
     images of the held-out shards (whole batches, at most --eval-batches),
     scored by the fp32 eager forward with TF32 off, as the JAX package
-    scores them with its fp32 ``xla``-tier forward.  Under --tp or --pp every
-    rank gathers the whole tree first (a collective: every rank evaluates)."""
+    scores them with its fp32 ``xla``-tier forward.  ``whole`` gathers the
+    whole tree first (under --tp, --pp or --fsdp a collective: every rank
+    evaluates)."""
     if not args.eval_every:
         raise SetupError("error: --eval-data-dir requires --eval-every N")
     from vit_tpu_torch.io.dataset import BinShardDataset
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops.dispatch import get_ops
-    from vit_tpu_torch.parallel.sharding import splits_params, unshard_params
 
     eval_ds = BinShardDataset(args.eval_data_dir, require_labels=True,
                               num_classes=cfg.num_classes)
@@ -257,8 +281,7 @@ def _build_eval(args, cfg, mesh: Optional[Mesh], device):
     eager = get_ops("eager")
 
     def run_eval(params) -> float:
-        if splits_params(mesh):
-            params = unshard_params(params, mesh)
+        params = whole(params)
         correct = 0
         with torch.no_grad(), _fp32_matmuls():
             for i in range(0, n_eval, args.batch):
@@ -539,11 +562,26 @@ def build_mesh(args) -> tuple:
     return mesh, torch.device(device)
 
 
-def _not_ported_tp(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} with --tp > 1: the JAX package runs it through GSPMD tensor parallelism, "
-        "which is not ported (ROADMAP.md item 14); use --ops fused_train, or --dp"
-    )
+def _zero_flags(args, ops_name: str) -> None:
+    """The JAX package's refusals of --zero1 and --fsdp, in its order and
+    words (the plain tiers named as the port names them)."""
+    pp, sp = args.pp, args.sp
+    if args.zero1 and (pp > 1 or sp > 1):
+        raise SetupError(
+            "error: --zero1 composes with dp/tp eager/qat and fused_train placements only; "
+            "--pp/--sp own their optimizer placement"
+        )
+    if args.fsdp and (pp > 1 or sp > 1 or ops_name not in ("eager", "qat")):
+        raise SetupError(
+            "error: --fsdp needs the plain op paths (--ops eager/qat) and excludes --pp/--sp "
+            "(the kernel paths and the pp/sp schedules require whole local weights per device)"
+        )
+    if args.zero1 and args.optimizer == "fused_adamw":
+        raise SetupError(
+            "error: --zero1 with --optimizer fused_adamw would all-gather the sharded moments "
+            "around the (unpartitionable) fused AdamW kernel every step, defeating the "
+            "sharding; use --optimizer adamw with --zero1"
+        )
 
 
 def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
@@ -555,7 +593,7 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
     from vit_tpu_torch.io.params import params_from_numpy
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops.dispatch import get_ops
-    from vit_tpu_torch.parallel.sharding import shard_params, splits_params
+    from vit_tpu_torch.parallel.sharding import DpShards, shard_params, splits_params
     from vit_tpu_torch.runtime import trainer
 
     if device is None:
@@ -664,6 +702,7 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
             raise SetupError("error: --skip-nonfinite requires --optimizer adamw")
         if ops_name != "fused_train" or tp > 1:
             raise SetupError("error: --optimizer fused_adamw requires --ops fused_train and tp=1")
+    _zero_flags(args, ops_name)
     guard = trainer.NonFiniteGuard() if args.skip_nonfinite else None
     schedule = lr_at is not None and not fused
     start_step, opt_leaves = 0, None
@@ -679,17 +718,28 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
             raise SetupError(f"error: {e}") from e
         params = params_from_numpy(tree, "cpu", torch.float32)
     if tp > 1:
-        if ops_name != "fused_train":
-            raise _not_ported_tp(f"--ops {ops_name}")
         for what, n in (("num_heads", cfg.num_heads), ("mlp_dim", cfg.mlp_dim)):
             if n % tp:
                 raise SetupError(f"error: tp={tp} must divide {what}={n}")
+    fsdp = None
     if splits_params(mesh):
         # each rank keeps and updates its own part (the same seed on every
         # rank makes the same whole tree first)
         params = shard_params(params, mesh)
+    if args.fsdp and mesh is not None:
+        # and of that, its dp slices (FSDP): gathered in the forward
+        fsdp = DpShards(params, mesh)
+        params = fsdp.slice(params)
     params = trainer.as_trainable(params, device, torch.float32)
     trained = _trained(params, args.freeze_backbone)
+    # --zero1: the optimizer holds this rank's dp slices of the trained
+    # leaves; under --fsdp it holds them already (FSDP takes precedence, as
+    # in the JAX package's placement)
+    zero1 = (trainer.Zero1(trained, mesh) if args.zero1 and fsdp is None and mesh is not None
+             else None)
+    # the tree the optimizer's state follows, and its dp placement
+    opt_tree = trained if zero1 is None else zero1.slices
+    opt_shards = fsdp if zero1 is None else zero1.layout
     if fused:
         # K20 on every leaf; the optimizer evaluates the schedule itself, at
         # its 1-based count, so the loop leaves its lr alone
@@ -699,7 +749,7 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
     else:
         # the schedule's lr is set by the loop from the applied updates
         optimizer = torch.optim.AdamW(
-            adamw_param_groups(trained, args.weight_decay, args.wd_exempt_norm_bias),
+            adamw_param_groups(opt_tree, args.weight_decay, args.wd_exempt_norm_bias),
             lr=lr_at(0) if lr_at else args.lr,
         )
     if args.wd_exempt_norm_bias:
@@ -710,23 +760,32 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
         print("freeze-backbone: training the classification head(s) only (distilled configs "
               "train head AND head_dist — apply_head averages them)")
     if opt_leaves is not None:
-        trainer.restore_opt_state(optimizer, trained, opt_leaves, mesh, schedule, guard)
+        trainer.restore_opt_state(optimizer, opt_tree, opt_leaves, mesh, schedule, guard,
+                                  opt_shards)
         print(f"resumed from {args.resume} at step {start_step}")
-    ops = get_ops(ops_name)
+    ops = base_ops = get_ops(ops_name)
+    if tp > 1 and ops_name in ("eager", "qat"):
+        # the plain tiers' blocks on this rank's heads and hidden columns
+        from vit_tpu_torch.parallel.tp_forward import plain_tp_ops
+
+        ops = plain_tp_ops(base_ops, mesh)
+    zero = dict(zero1=zero1, fsdp=fsdp)
     # every step's randomness (augmentation, dropout, MAE's masks) from
     # seeds of (this seed, the step's number, the dp index)
     draw_seed = args.seed ^ 0xA46
     if mae_cfg is not None:
         gen = torch.Generator(device=device).manual_seed(draw_seed)
+        # the decoder stays whole on every rank (the plain table under --tp)
         step = trainer.make_mae_train_step(cfg, mae_cfg, optimizer, gen, ops,
                                            compute_dtype=compute_dtype, grad_clip=args.grad_clip,
-                                           mesh=mesh, guard=guard, trained=trained)
+                                           mesh=mesh, guard=guard, trained=trained,
+                                           decoder_ops=base_ops if tp > 1 else None, **zero)
     elif teacher_fwd is not None:
         step = trainer.make_distill_train_step(
             cfg, optimizer, teacher_fwd, ops, remat=remat, compute_dtype=compute_dtype,
             alpha=args.distill_alpha, hard=not args.distill_soft, tau=args.distill_tau,
             label_smoothing=args.label_smoothing, grad_clip=args.grad_clip, mesh=mesh,
-            guard=guard, trained=trained,
+            guard=guard, trained=trained, **zero,
         )
     elif sp > 1:
         from vit_tpu_torch.parallel.sequence import make_sp_train_step
@@ -754,11 +813,11 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
             grad_clip=args.grad_clip, guard=guard, trained=trained,
         )
         print(f"pipeline: {pp} stage(s), {m} microbatches")
-    elif tp > 1:
+    elif tp > 1 and ops_name == "fused_train":
         step = trainer.make_train_step_kernel_tp(
             cfg, optimizer, mesh, remat=remat, compute_dtype=compute_dtype,
             label_smoothing=args.label_smoothing, grad_clip=args.grad_clip, guard=guard,
-            trained=trained,
+            trained=trained, zero1=zero1,
         )
     else:
         step = trainer.make_train_step_dp(
@@ -767,7 +826,7 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
             grad_clip=args.grad_clip, use_dropout=use_dropout,
             rng=(torch.Generator().manual_seed(draw_seed)
                  if use_dropout or augment_fn is not None else None),
-            forward_fn=tome_forward, augment_fn=augment_fn, guard=guard, trained=trained,
+            forward_fn=tome_forward, augment_fn=augment_fn, guard=guard, trained=trained, **zero,
         )
 
     ema = ema_update = None
@@ -778,7 +837,8 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
         if args.resume and ema_sidecar(args.resume).exists():
             tree = params_from_numpy(ckpt.load_npz(ema_sidecar(args.resume)), device,
                                      torch.float32)
-            ema = shard_params(tree, mesh) if splits_params(mesh) else tree
+            ema = (fsdp.shard(tree) if fsdp is not None
+                   else shard_params(tree, mesh) if splits_params(mesh) else tree)
             print(f"resumed EMA from {ema_sidecar(args.resume)}")
         ema_update = trainer.make_ema_update(args.ema_decay)
         print(f"ema: decay {args.ema_decay}")
@@ -796,10 +856,13 @@ def prepare(args, mesh: Optional[Mesh] = None, device=None) -> TrainSetup:
         images, labels = images[:n_static], labels[:n_static]
     # the stream's producer starts at the loop's first batch: nothing to
     # stop if this raises
-    run_eval = _build_eval(args, cfg, mesh, device) if args.eval_data_dir else None
-    return TrainSetup(
+    st = TrainSetup(
         cfg=cfg, device=device, ops_name=ops_name, step=step, params=params,
         optimizer=optimizer, trained=trained, lr_at=lr_at, stream=stream, images=images,
-        labels=labels, n_static=n_static, run_eval=run_eval, mesh=mesh, start_step=start_step, guard=guard,
-        ema=ema, ema_update=ema_update, schedule=schedule,
+        labels=labels, n_static=n_static, mesh=mesh, start_step=start_step, guard=guard,
+        ema=ema, ema_update=ema_update, schedule=schedule, fsdp=fsdp,
+        opt_tree=opt_tree, opt_shards=opt_shards,
     )
+    if args.eval_data_dir:
+        st.run_eval = _build_eval(args, cfg, st.whole, device)
+    return st

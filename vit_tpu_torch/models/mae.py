@@ -237,10 +237,13 @@ def forward_loss(
     gelu_variant: str = "exact",
     return_pred: bool = False,
     noise: Optional[torch.Tensor] = None,
+    decoder_ops: Optional[OpsImpl] = None,
 ):
     """One pretraining forward: masked-patch MSE (scalar fp32).  The masks
     come from ``gen`` (a generator on the images' device), or from
     ``noise`` (B, N) when given (a test seam: the JAX package's draw).
+    ``decoder_ops``: the decoder's table, where it is not the encoder's
+    (a tensor-parallel encoder's decoder stays whole).
 
     ``return_pred`` also returns (pred (B, N, C*p*p) fp32, mask (B, N) fp32
     — 1 on masked)."""
@@ -252,7 +255,8 @@ def forward_loss(
     else:
         keep, restore, mask = masks_from_noise(noise, len_keep)
     latent = encode(params, images, keep, cfg, ops, gelu_variant)
-    pred = decode(params, latent, restore, cfg, mae_cfg, gelu_variant, ops)
+    pred = decode(params, latent, restore, cfg, mae_cfg, gelu_variant,
+                  ops if decoder_ops is None else decoder_ops)
     target = patchify(images.float(), cfg.patch_size)
     if mae_cfg.norm_pix_loss:
         mean = target.mean(dim=-1, keepdim=True)

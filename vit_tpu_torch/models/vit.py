@@ -14,6 +14,7 @@ CLS->patch relevance composed from them (Abnar & Zuidema 2020).
 
 from __future__ import annotations
 
+import abc
 from typing import Any, Dict, Optional
 
 import torch
@@ -129,9 +130,22 @@ def layer_seeds(gen: torch.Generator, depth: int):
     return [int(s) for s in torch.randint(0, 2 ** 32, (depth,), generator=gen)]
 
 
-def layers(blocks: Dict[str, torch.Tensor]):
+class LayeredBlocks(abc.ABC):
+    """A stacked ``blocks`` subtree that hands out its layers itself
+    (``layers()``), where they are not slices of whole tensors: FSDP's
+    gathered view (``parallel/sharding.DpShards.view``)."""
+
+    @abc.abstractmethod
+    def layers(self) -> list:
+        """Every layer's mapping of block params, in order."""
+
+
+def layers(blocks):
     """Every layer's slice of the stacked block params, as views that
-    autograd joins back into one stacked gradient per leaf."""
+    autograd joins back into one stacked gradient per leaf (a
+    :class:`LayeredBlocks` hands out its own)."""
+    if isinstance(blocks, LayeredBlocks):
+        return blocks.layers()
     keys = list(blocks)
     return [dict(zip(keys, vals)) for vals in zip(*(blocks[k].unbind(0) for k in keys))]
 

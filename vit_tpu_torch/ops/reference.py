@@ -114,6 +114,21 @@ def attention(
     similarity metric.  ``return_probs`` also returns the softmax rows
     (..., H, T, T) in the accumulation dtype, from before their rounding to
     the working dtype (the attention probe, ``models/vit.attention_maps``)."""
+    ctx, k, probs = attention_context(x, wqkv, bqkv, num_heads, logit_bias)
+    out = linear(ctx, wo, bo)
+    if return_probs:
+        return out, probs
+    if return_kmean:
+        return out, _acc(k).mean(dim=-3).to(x.dtype)  # heads axis of (..., H, T, Dh)
+    return out
+
+
+def attention_context(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor, num_heads: int,
+                      logit_bias: Optional[torch.Tensor] = None):
+    """:func:`attention` up to the out_proj: -> (the merged per-head context
+    (..., T, H*Dh) in x's dtype, the keys (..., H, T, Dh), the softmax rows
+    (..., H, T, T) in the accumulation dtype).  ``wqkv`` may hold any whole
+    heads (a tensor-parallel rank's, ``parallel/tp_forward.py``)."""
     qkv = linear(x, wqkv, bqkv)
     q, k, v = split_packed_qkv(qkv, num_heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -122,12 +137,7 @@ def attention(
         scores = scores + logit_bias[..., None, None, :].to(scores.dtype)
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("...hqk,...hkd->...hqd", _acc(probs.to(x.dtype)), _acc(v))
-    out = linear(merge_heads(ctx.to(x.dtype)), wo, bo)
-    if return_probs:
-        return out, probs
-    if return_kmean:
-        return out, _acc(k).mean(dim=-3).to(x.dtype)  # heads axis of (..., H, T, Dh)
-    return out
+    return merge_heads(ctx.to(x.dtype)), k, probs
 
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Parallelism: a rank mesh with named axes and the sharding rules, over
 ``torch.distributed`` (one process per rank) — counterpart of
 ``vit_tpu.parallel``.  ``shard_forward.py`` runs a forward data-parallel,
-``tp_forward.py`` the fused and W8A8 kernel paths tensor-parallel,
-``pipeline.py`` the layer stack pipelined over stages and ``sequence.py``
-the tokens over a ring (ring attention)."""
+``tp_forward.py`` the fused and W8A8 kernel paths and the plain tiers
+tensor-parallel, ``pipeline.py`` the layer stack pipelined over stages and
+``sequence.py`` the tokens over a ring (ring attention); ``sharding.py``
+holds the rules, ZeRO's among them."""
 
 from vit_tpu_torch.parallel.mesh import make_mesh, mesh_shape_for
 from vit_tpu_torch.parallel.pipeline import make_pp_train_step, pp_param_pspecs, shard_forward_pp

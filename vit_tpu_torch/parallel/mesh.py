@@ -17,9 +17,13 @@ no two ranks on one card).  So the cyclic shift of the pipeline and of the
 sequence ring (``ppermute`` in the JAX package) and the broadcast of one
 rank's tensor are each an all-reduce SUM of raw bytes: every rank writes its
 tensor's bytes into its slot of a zero-filled buffer, and a sum of bytes
-with zeros is the tensor bit for bit (:func:`shift`, :func:`broadcast_from`).
-:class:`Shift` is the differentiable shift: its backward shifts the
-gradient the other way, the transpose ``shard_map`` gives ``ppermute``.
+with zeros is the tensor bit for bit (:func:`shift`, :func:`broadcast_from`,
+:func:`all_gather`).  :class:`Shift` is the differentiable shift: its
+backward shifts the gradient the other way, the transpose ``shard_map``
+gives ``ppermute``.  :func:`reduce_scatter` is an all-reduce SUM and this
+rank's slice of it, and :class:`GatherSlot` the differentiable gather that
+ZeRO-3 (FSDP) puts in the forward: the slices gathered forward, the
+gradient reduce-scattered backward.
 """
 
 from __future__ import annotations
@@ -179,3 +183,52 @@ class BroadcastFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (g if ctx.keep else torch.zeros_like(g)), None, None, None
+
+
+def all_gather(part: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's ``part`` of ``axis``, laid end to end along ``dim`` in
+    rank order, on every rank, bit for bit (the ranks' parts have one shape
+    and dtype).  ``part`` itself where the axis has one rank."""
+    n = mesh.size(axis)
+    if n == 1:
+        return part
+    step = part.shape[dim]
+    return gather_slot(part, mesh, axis, dim, step * n, mesh.index(axis) * step)
+
+
+def gather_slot(piece: torch.Tensor, mesh: Mesh, axis: str, dim: int, full: int,
+                offset: int) -> torch.Tensor:
+    """A tensor of ``piece``'s shape but ``full`` long on ``dim``, every
+    rank of ``axis`` writing its ``piece`` at its ``offset`` there (a piece
+    of length 0 writes nothing): the ranks' pieces must tile it.  Bit for
+    bit (a byte-sum over zeros)."""
+    shape = list(piece.shape)
+    shape[dim] = full
+    out = piece.new_zeros(shape)
+    out.narrow(dim, offset, piece.shape[dim]).copy_(piece)
+    return _sum_bytes(out, mesh, axis)
+
+
+def reduce_scatter(t: torch.Tensor, mesh: Mesh, axis: str, dim: int, offset: int,
+                   length: int) -> torch.Tensor:
+    """The SUM of every rank's ``t`` over ``axis`` (an all-reduce of a
+    copy), narrowed to this rank's ``length`` entries from ``offset`` on
+    ``dim`` (a contiguous tensor)."""
+    total = mesh.all_reduce(t.detach().clone(memory_format=torch.contiguous_format), axis)
+    return total.narrow(dim, offset, length).contiguous()
+
+
+class GatherSlot(torch.autograd.Function):
+    """:func:`gather_slot` forward; backward, the gradient summed over
+    ``axis`` and narrowed to this rank's piece (a reduce-scatter): the SUM
+    of the ranks' gradients of the gathered tensor, not their mean."""
+
+    @staticmethod
+    def forward(ctx, piece, mesh, axis, dim, full, offset):
+        ctx.args = (mesh, axis, dim, offset, piece.shape[dim])
+        return gather_slot(piece.detach(), mesh, axis, dim, full, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, offset, length = ctx.args
+        return reduce_scatter(g, mesh, axis, dim, offset, length), None, None, None, None, None

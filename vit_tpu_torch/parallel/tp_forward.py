@@ -1,5 +1,8 @@
 """Tensor-parallel inference and training through the fused and W8A8
-kernels — counterpart of ``vit_tpu.parallel.tp_forward``.
+kernels — counterpart of ``vit_tpu.parallel.tp_forward`` — and on the
+plain tiers (``eager``, ``qat``), the counterpart of what GSPMD makes of the
+JAX package's ``xla`` and ``qat`` forwards under ``sharding.param_pspecs``
+(:func:`plain_tp_ops`, :func:`attention_maps_tp`).
 
 SPMD over a :class:`~vit_tpu_torch.parallel.mesh.Mesh`: every rank runs
 this code on its own shard of the weights (``sharding.shard_params``), and
@@ -38,16 +41,31 @@ partial gradients the same way; the step sums them over ``tp`` once, after
 the backward (``sharding.TP_PARTIAL_GRADS``).  bo, b2, the embeddings, the
 final LayerNorm and the head are computed after the sums, identically on
 every rank: their gradients are whole and are not summed.
+
+The plain tiers split the same way in plain torch (:func:`plain_block_tp`):
+``reference.attention_context`` on the local heads from the
+column-parallel ``wqkv``, the row-parallel out_proj's fp32 partial summed
+over ``tp``, GELU on the local hidden columns of the column-parallel FC1,
+FC2's fp32 partial summed; ``bo`` and ``b2`` added once, after the sums.
+On ``qat`` two of the fake quantizers' absmaxes cover split data — the
+post-GELU activation's rows (its hidden columns split) and ``w2``'s output
+channels (its input rows split) — and meet in an all-reduce MAX over
+``tp`` (``_absmax_over_tp``), so the codes are the unsharded table's; the
+absmaxes of the whole LN outputs and of the column-parallel ``wqkv`` and
+``w1`` stay local.
 """
 
 from __future__ import annotations
 
 import torch
 
+import dataclasses
+
 from vit_tpu_torch.config import ViTConfig
 from vit_tpu_torch.ops import fused_block
 from vit_tpu_torch.ops import reference
-from vit_tpu_torch.parallel.mesh import Mesh
+from vit_tpu_torch.ops.dispatch import OpsImpl
+from vit_tpu_torch.parallel.mesh import Mesh, all_gather
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -259,7 +277,8 @@ def train_forward_tp(cfg: ViTConfig, mesh: Mesh, gelu_variant: str = "exact"):
 def shard_forward_tp(cfg: ViTConfig, mesh: Mesh, ops_name: str, gelu_variant: str = "exact",
                      return_features: bool = False, split_dp: bool = True):
     """-> ``forward(local_params, images)`` running the ``fused`` or
-    ``quant`` kernel path over a (dp x) tp mesh: ``local_params`` this
+    ``quant`` kernel path, or the plain ``eager`` tier
+    (:func:`plain_tp_ops`), over a (dp x) tp mesh: ``local_params`` this
     rank's shard (``sharding.shard_params``), ``images`` the whole batch on
     every rank (it splits over ``dp``), the logits (or features) of the
     whole batch out on every rank.  ``split_dp=False``: ``images`` are this
@@ -268,12 +287,132 @@ def shard_forward_tp(cfg: ViTConfig, mesh: Mesh, ops_name: str, gelu_variant: st
     from vit_tpu_torch.parallel.shard_forward import shard_forward_dp
 
     tp = _check_tp(cfg, mesh)
-    if ops_name not in ("fused", "quant"):
-        raise ValueError(f"shard_forward_tp supports ops 'fused'/'quant', got {ops_name!r}")
+    if ops_name not in ("fused", "quant", "eager"):
+        raise ValueError(f"shard_forward_tp supports ops 'fused'/'quant'/'eager', got "
+                         f"{ops_name!r}")
     heads_local, quant = cfg.num_heads // tp, ops_name == "quant"
+    if ops_name == "eager":
+        from vit_tpu_torch.models import vit
+        from vit_tpu_torch.ops.dispatch import EAGER_OPS
 
-    def local_fn(p, x):
-        return _local_forward(p, x, cfg, heads_local, gelu_variant, quant, mesh,
-                              return_features=return_features)
+        ops = plain_tp_ops(EAGER_OPS, mesh)
+
+        def local_fn(p, x):
+            return vit.forward(p, x, cfg, ops, gelu_variant=gelu_variant,
+                               return_features=return_features)
+    else:
+        def local_fn(p, x):
+            return _local_forward(p, x, cfg, heads_local, gelu_variant, quant, mesh,
+                                  return_features=return_features)
 
     return shard_forward_dp(local_fn, mesh) if split_dp else local_fn
+
+
+# -- the plain tiers ---------------------------------------------------------------
+
+
+def _absmax_over_tp(a: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A fake quantizer's absmax over data split across ``tp``: the MAX of
+    the ranks' (detached) absmaxes."""
+    return mesh.all_reduce(a, "tp", "max")
+
+
+def _fake_quant_act_tp(h: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``qat.fake_quant_act`` of an activation whose rows are split over
+    ``tp`` (the post-GELU hidden columns)."""
+    from vit_tpu_torch.ops.qat import _fake_quant
+
+    hf = h.float()
+    absmax = _absmax_over_tp(hf.detach().abs().amax(dim=-1, keepdim=True), mesh)
+    return _fake_quant(hf, absmax).to(h.dtype)
+
+
+def _fake_quant_rows_tp(w: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``qat.fake_quant_weight`` of a row-parallel weight (its input rows,
+    over which each output channel's absmax runs, split over ``tp``)."""
+    from vit_tpu_torch.ops.qat import _fake_quant
+
+    wf = w.float()
+    absmax = _absmax_over_tp(wf.detach().abs().amax(dim=tuple(range(wf.dim() - 1)),
+                                                    keepdim=True), mesh)
+    return _fake_quant(wf, absmax).to(w.dtype)
+
+
+def _row_parallel_out(part_in: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype,
+                      mesh: Mesh) -> torch.Tensor:
+    """``reference.linear``'s arithmetic for a row-parallel weight: this
+    rank's fp32 partial product, its SUM over ``tp``, then the bias, cast
+    to ``dtype``."""
+    acc = reference._acc(part_in)
+    part = _SumOverTP.apply(torch.matmul(acc, w.to(acc.dtype)), mesh)
+    return (part + b.to(part.dtype)).to(dtype)
+
+
+def plain_block_tp(x2d: torch.Tensor, blk, heads_local: int, seq_len: int, eps: float,
+                   gelu_variant: str, mesh: Mesh, qat: bool, return_probs: bool = False):
+    """One pre-LN encoder block on the plain tier (``vit.encoder_block``'s
+    arithmetic; ``qat``: ``ops/qat.py``'s fake quantizers), this rank's
+    slice: local-head attention and the local MLP hidden columns, completed
+    by all-reduces over ``tp`` (module docstring).  ``x2d`` (B*T, D) whole on
+    every rank; differentiable: the LayerNorms' inputs pass through
+    ``_CopyToTP``, so their scales' and biases' gradients are partial
+    (``sharding.TP_PARTIAL_GRADS``).  ``return_probs`` also returns the
+    local heads' softmax rows (B, H/tp, T, T)."""
+    from vit_tpu_torch.ops import qat as Q
+
+    x = x2d.reshape(-1, seq_len, x2d.shape[-1])
+    dtype = x.dtype
+    h = reference.layer_norm(_CopyToTP.apply(x, mesh), blk["ln1_scale"], blk["ln1_bias"], eps)
+    wqkv = blk["wqkv"]
+    if qat:  # the replicated input's rows and the column-parallel wqkv: local
+        h, wqkv = Q.fake_quant_act(h), Q.fake_quant_weight(wqkv)
+    ctx, _, probs = reference.attention_context(h, wqkv, blk["bqkv"], heads_local)
+    x = x + _row_parallel_out(ctx, blk["wo"], blk["bo"], dtype, mesh)
+    h = reference.layer_norm(_CopyToTP.apply(x, mesh), blk["ln2_scale"], blk["ln2_bias"], eps)
+    w1, w2 = blk["w1"], blk["w2"]
+    if qat:
+        h, w1 = Q.fake_quant_act(h), Q.fake_quant_weight(w1)
+    h = reference.linear(h, w1, blk["b1"])
+    h = reference.gelu_exact(h) if gelu_variant == "exact" else reference.gelu_tanh(h)
+    if qat:  # split over tp: the absmaxes meet in a MAX
+        h, w2 = _fake_quant_act_tp(h, mesh), _fake_quant_rows_tp(w2, mesh)
+    x = (x + _row_parallel_out(h, w2, blk["b2"], dtype, mesh)).reshape(x2d.shape)
+    return (x, probs) if return_probs else x
+
+
+def plain_tp_ops(ops: OpsImpl, mesh: Mesh) -> OpsImpl:
+    """The plain table ``ops`` (``eager`` or ``qat``) tensor-parallel over
+    ``mesh``'s ``tp``: its ``encoder_block`` is :func:`plain_block_tp` on
+    this rank's shard (``sharding.shard_params``); the embeddings, the final
+    LayerNorm and the head stay the table's, on whole leaves.
+    ``models/vit.forward`` (and MAE's encoder) then run the rank's part."""
+    if ops.name not in ("eager", "qat"):
+        raise ValueError(f"plain_tp_ops takes the plain tiers 'eager'/'qat', got {ops.name!r}")
+    tp, qat = mesh.size("tp"), ops.name == "qat"
+
+    def encoder_block(x2d, blk, num_heads, seq_len, eps, gelu_variant):
+        return plain_block_tp(x2d, blk, num_heads // tp, seq_len, eps, gelu_variant, mesh, qat)
+
+    return dataclasses.replace(ops, encoder_block=encoder_block)
+
+
+def attention_maps_tp(params, images, cfg: ViTConfig, mesh: Mesh,
+                      gelu_variant: str = "exact") -> torch.Tensor:
+    """``models/vit.attention_maps`` over a tp mesh: every rank probes its
+    local heads through :func:`plain_block_tp` on its shard, and the
+    probabilities are gathered along the head axis over ``tp`` (bit for
+    bit), so that each rank returns (depth, B, H, T, T) with every head."""
+    from vit_tpu_torch.models import vit
+
+    heads_local = cfg.num_heads // _check_tp(cfg, mesh)
+    x = images.to(params["pos_embed"].dtype)
+    x = reference.patch_embed(x, params["patch_embed"]["kernel"], params["patch_embed"]["bias"],
+                              cfg.patch_size)
+    x = reference.add_cls_and_pos(x, vit.prefix_tokens(params), params["pos_embed"])
+    b, t, d = x.shape
+    x2, maps = x.reshape(b * t, d), []
+    for blk in vit.layers(params["blocks"]):
+        x2, probs = plain_block_tp(x2, blk, heads_local, t, cfg.layernorm_eps, gelu_variant,
+                                   mesh, False, return_probs=True)
+        maps.append(all_gather(probs.contiguous(), mesh, "tp", 1))
+    return torch.stack(maps)

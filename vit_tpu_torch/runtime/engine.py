@@ -15,8 +15,8 @@ probe (per-layer attention probabilities, or their rollout).
 ``mesh`` (``parallel.make_mesh``) runs the forward SPMD over the ranks of
 ``torch.distributed``, one engine per rank, each given the whole batch: a
 mesh with ``tp`` = 1 splits the batch over ``dp`` for any op table
-(``parallel/shard_forward.py``); ``tp`` > 1 on ``fused`` or ``quant`` also
-splits the heads and the MLP hidden axis over ``tp``
+(``parallel/shard_forward.py``); ``tp`` > 1 on ``fused``, ``quant`` or
+``eager`` also splits the heads and the MLP hidden axis over ``tp``
 (``parallel/tp_forward.py``), each rank holding its shard of the prepared
 weights.  Every rank returns the whole batch's logits.
 """
@@ -101,23 +101,17 @@ class InferenceEngine:
             self._tome_forward = forwards[self._ops.name]
         self._tp_shard = False
         if tp > 1:
-            # the kernel paths split heads and the MLP hidden axis over tp
-            # with all-reduces (parallel/tp_forward.py) on 'fused' and
-            # 'quant'; the JAX package's 'xla' tier gets tp from GSPMD,
-            # which the port does not have
-            if self._ops.name in ("fused", "quant"):
+            # heads and the MLP hidden axis split over tp with all-reduces
+            # (parallel/tp_forward.py): through the kernels on 'fused' and
+            # 'quant', in plain torch on 'eager' (where the JAX package's
+            # 'xla' tier gets tp from GSPMD)
+            if self._ops.name in ("fused", "quant", "eager"):
                 if cfg.num_heads % tp or cfg.mlp_dim % tp:
                     raise ValueError(
                         f"tp={tp} must divide num_heads={cfg.num_heads} and "
                         f"mlp_dim={cfg.mlp_dim}"
                     )
                 self._tp_shard = True
-            elif self._ops.name == "eager":
-                raise NotImplementedError(
-                    "ops='eager' with tp > 1: the JAX package partitions its plain tier with "
-                    "GSPMD, which the port does not have; tensor parallelism runs on "
-                    "'fused' or 'quant' (ROADMAP.md item 14)"
-                )
             else:
                 raise ValueError(
                     f"ops={self._ops.name!r} shards data-parallel only "
@@ -236,7 +230,9 @@ class InferenceEngine:
         (depth, B, H, T, T) — or, with ``rollout``, the Abnar & Zuidema
         CLS->patch relevance (B, grid, grid).  Runs the plain reference ops
         (``models/vit.attention_maps``), not the kernels; on a dp mesh each
-        rank probes its slice of the batch (the probabilities' axis 1)."""
+        rank probes its slice of the batch (the probabilities' axis 1), and
+        on a tp mesh its local heads, gathered over tp
+        (``parallel/tp_forward.attention_maps_tp``)."""
         if self.tome_r:
             raise ValueError(
                 "attention_maps() on a tome_r engine would probe the "
@@ -248,14 +244,13 @@ class InferenceEngine:
                 "attention_maps needs fp weights; build the engine with "
                 "ops='eager'/'per_op'/'fused'"
             )
-        if self._tp_shard:
-            raise NotImplementedError(
-                "attention_maps runs the whole weights; on a tp > 1 engine each rank holds a "
-                "shard (the JAX package's GSPMD probe is not ported, ROADMAP.md item 14)"
-            )
         cfg, gelu = self.cfg, self._gelu_variant
 
         def probe(p, x):
+            if self._tp_shard:  # the local heads, gathered over tp
+                from vit_tpu_torch.parallel.tp_forward import attention_maps_tp
+
+                return attention_maps_tp(p, x, cfg, self.mesh, gelu)
             return vit.attention_maps(p, x, cfg, gelu)
 
         if self.mesh is not None:
@@ -277,7 +272,11 @@ class InferenceEngine:
         head) over ``iters`` forwards, as the JAX engine's: the unfused op
         path — the reference LayerNorm, the table's per-op ``attention`` and
         ``mlp`` (K21 and K22 on ``per_op`` and ``fused``) — so the phases are
-        separable, each ending in a device synchronize."""
+        separable, each ending in a device synchronize.  On a tp engine each
+        rank runs them on its shard: ``attention`` on its local heads and
+        ``mlp`` on its local hidden columns, each completed by the
+        all-reduce over tp inside its phase, ``bo`` and ``b2`` added once
+        after the sum."""
         from vit_tpu_torch.runtime.profiler import PhaseTimer
 
         R = reference
@@ -285,21 +284,27 @@ class InferenceEngine:
             raise NotImplementedError(
                 "phase_report needs separable fp ops; use ops='eager'/'per_op'/'fused'"
             )
-        if self._tp_shard:
-            raise NotImplementedError(
-                "phase_report runs the whole weights; on a tp > 1 engine each rank holds a "
-                "shard (the JAX package's GSPMD probe is not ported, ROADMAP.md item 14)"
-            )
         timer = PhaseTimer()
         cfg = self.cfg
         x, _ = self._stage(images)
         p = self.params
         eps = cfg.layernorm_eps
+        tp = self.mesh.size("tp") if self._tp_shard else 1
 
         def sync(v):
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             return v
+
+        def completed(part, bias):
+            # a row-parallel exit: this rank's partial (made without the
+            # bias), summed over tp, then the bias once
+            if tp == 1:
+                return part
+            return (self.mesh.all_reduce(part.float(), "tp") + bias.float()).to(part.dtype)
+
+        def no_bias(bias):
+            return torch.zeros_like(bias) if tp > 1 else bias
 
         for _ in range(iters):
             with timer.phase("patch_embed+pos"):
@@ -312,14 +317,16 @@ class InferenceEngine:
                 with timer.phase("layer_norm_1"):
                     ln1 = sync(R.layer_norm(h, blk["ln1_scale"], blk["ln1_bias"], eps))
                 with timer.phase("attention"):
-                    a = sync(self._ops.attention(ln1, blk["wqkv"], blk["bqkv"], blk["wo"],
-                                                 blk["bo"], cfg.num_heads))
+                    a = sync(completed(self._ops.attention(
+                        ln1, blk["wqkv"], blk["bqkv"], blk["wo"], no_bias(blk["bo"]),
+                        cfg.num_heads // tp), blk["bo"]))
                 h = h + a
                 with timer.phase("layer_norm_2"):
                     ln2 = sync(R.layer_norm(h, blk["ln2_scale"], blk["ln2_bias"], eps))
                 with timer.phase("mlp"):
-                    m = sync(self._ops.mlp(ln2, blk["w1"], blk["b1"], blk["w2"], blk["b2"],
-                                           gelu_variant=self._gelu_variant))
+                    m = sync(completed(self._ops.mlp(
+                        ln2, blk["w1"], blk["b1"], blk["w2"], no_bias(blk["b2"]),
+                        gelu_variant=self._gelu_variant), blk["b2"]))
                 h = h + m
             with timer.phase("final_ln+head"):
                 hn = R.layer_norm(h, p["ln_final"]["scale"], p["ln_final"]["bias"], eps)

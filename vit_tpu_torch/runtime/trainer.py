@@ -7,7 +7,10 @@ the step SPMD on its own slice of the batch: the loss and the gradients
 are averaged over ``dp`` in one all-reduce (``pmean``), and with ``tp``
 the forward is the tensor-parallel kernel path (``parallel/tp_forward.py``),
 each rank's optimizer updating its own shards
-(:func:`make_train_step_kernel_tp`).
+(:func:`make_train_step_kernel_tp`).  ZeRO-1 (:class:`Zero1`) has each
+dp rank's optimizer update its ``zero1_pspec`` slice of each leaf, and
+FSDP (``sharding.DpShards``) keeps the params themselves as dp slices,
+gathered in the forward a block at a time (``fsdp=``).
 Params are a dict of leaf tensors with ``requires_grad``; a
 ``torch.optim`` optimizer over those leaves takes the place of an optax
 transformation and its state, and updates them in place — the
@@ -69,7 +72,7 @@ def cross_entropy_loss(
 
 
 def _make_loss_fn(cfg: ViTConfig, ops: OpsImpl, remat: bool, compute_dtype=None,
-                  label_smoothing: float = 0.0, forward_fn=None):
+                  label_smoothing: float = 0.0, forward_fn=None, fsdp=None):
     """(params, images, labels[, rng]) -> scalar loss.  With
     ``compute_dtype`` (mixed precision) the params and images are cast
     inside the loss, so the gradients land in the fp32 master weights
@@ -80,11 +83,13 @@ def _make_loss_fn(cfg: ViTConfig, ops: OpsImpl, remat: bool, compute_dtype=None,
     generator made from that seed, so a recomputed forward draws the same
     masks.  ``forward_fn`` ``(params, images, dropout_rng) -> logits``
     overrides the model forward (the merged-token forward of token-merging
-    training, ``models/tome.py``)."""
+    training, ``models/tome.py``).  ``fsdp`` (``sharding.DpShards``): the
+    params are dp slices, gathered inside the forward (so under ``remat``
+    the backward gathers them again), then cast."""
 
     def fwd(p, x, seed):
+        p = _compute_params(p, compute_dtype, fsdp)
         if compute_dtype is not None:
-            p = vit.cast_params(p, compute_dtype)
             x = x.to(compute_dtype)
         rng = None if seed is None else torch.Generator().manual_seed(seed)
         if forward_fn is not None:
@@ -101,6 +106,14 @@ def _make_loss_fn(cfg: ViTConfig, ops: OpsImpl, remat: bool, compute_dtype=None,
         return cross_entropy_loss(logits, labels, label_smoothing)
 
     return loss_fn
+
+
+def _compute_params(params, compute_dtype, fsdp):
+    """The tree a forward reads: ``fsdp``'s gathered view of the slices, or
+    the params, cast to ``compute_dtype`` when given."""
+    if fsdp is not None:
+        return fsdp.view(params, compute_dtype)
+    return params if compute_dtype is None else vit.cast_params(params, compute_dtype)
 
 
 def distillation_loss(
@@ -134,15 +147,15 @@ def distillation_loss(
 
 def _make_distill_loss_fn(cfg: ViTConfig, ops: OpsImpl, remat: bool, compute_dtype,
                           teacher_fwd: Callable, alpha: float, hard: bool, tau: float,
-                          label_smoothing: float = 0.0):
+                          label_smoothing: float = 0.0, fsdp=None):
     """(params, images, labels[, rng]) -> the distillation loss: the frozen
     teacher under ``torch.no_grad`` (no graph), the student's
     separate-head forward on ``ops`` (``_make_distill_loss_fn`` in the JAX
     package).  ``rng`` is ignored: distillation composes with no dropout."""
 
     def fwd(p, x):
+        p = _compute_params(p, compute_dtype, fsdp)
         if compute_dtype is not None:
-            p = vit.cast_params(p, compute_dtype)
             x = x.to(compute_dtype)
         return vit.forward(p, x, cfg, ops, separate_heads=True)
 
@@ -175,6 +188,8 @@ def make_distill_train_step(
     mesh: Optional[Mesh] = None,
     guard: Optional["NonFiniteGuard"] = None,
     trained: Optional[dict] = None,
+    zero1: Optional["Zero1"] = None,
+    fsdp=None,
 ):
     """Build ``(params, images, labels) -> loss`` training a DeiT-distilled
     student against a frozen teacher, one optimizer update per call
@@ -186,12 +201,12 @@ def make_distill_train_step(
     no graph.  The student runs ``vit.forward(..., separate_heads=True)``
     on ``ops``; it must be a distilled config (dual heads).  ``mesh``: the
     data-parallel step (:func:`make_train_step_dp`), the teacher on each
-    rank's own images."""
+    rank's own images; ``zero1``, ``fsdp`` as there."""
     return make_train_step_dp(
         cfg, optimizer, mesh, ops, remat=remat, compute_dtype=compute_dtype,
         label_smoothing=label_smoothing, grad_clip=grad_clip,
         distill=dict(teacher_fwd=teacher_fwd, alpha=alpha, hard=hard, tau=tau), guard=guard,
-        trained=trained,
+        trained=trained, zero1=zero1, fsdp=fsdp,
     )
 
 
@@ -206,6 +221,9 @@ def make_mae_train_step(
     mesh: Optional[Mesh] = None,
     guard: Optional["NonFiniteGuard"] = None,
     trained: Optional[dict] = None,
+    decoder_ops: Optional[OpsImpl] = None,
+    zero1: Optional["Zero1"] = None,
+    fsdp=None,
 ):
     """Build the MAE pretraining step ``(params, images, labels) -> loss``
     (``models/mae.py``), the loop's calling shape; the labels are ignored,
@@ -221,7 +239,10 @@ def make_mae_train_step(
     No remat: at the default 75% mask the encoder runs on a quarter of the
     tokens, and the ``fused_train`` backward kernels recompute from their
     stashed inputs already.  With ``compute_dtype`` the params are cast
-    inside the loss (the encoder casts the images)."""
+    inside the loss (the encoder casts the images).  ``decoder_ops``: the
+    decoder's table where it differs from the encoder's (a tensor-parallel
+    encoder, ``tp_forward.plain_tp_ops``: the decoder stays whole);
+    ``zero1``, ``fsdp`` as in :func:`make_train_step_dp`."""
     from vit_tpu_torch.models import mae
 
     calls = itertools.count()
@@ -230,11 +251,13 @@ def make_mae_train_step(
         del labels
         seed = _step_seed(gen.initial_seed(), next(calls) if step is None else step, mesh)
         _clear_grads(params)
-        p = params if compute_dtype is None else vit.cast_params(params, compute_dtype)
+        p = _compute_params(params, compute_dtype, fsdp)
+        split = {} if decoder_ops is None else {"decoder_ops": decoder_ops}
         loss = mae.forward_loss(p, images, torch.Generator(device=gen.device).manual_seed(seed),
-                                cfg, mae_cfg, ops)
+                                cfg, mae_cfg, ops, **split)
         loss.backward()
-        return _finish(params, loss.detach(), optimizer, grad_clip, mesh, guard, trained)
+        return _finish(params, loss.detach(), optimizer, grad_clip, mesh, guard, trained, zero1,
+                       fsdp)
 
     return train_step
 
@@ -357,6 +380,8 @@ def make_train_step_dp(
     augment_fn: Optional[Callable] = None,
     guard: Optional["NonFiniteGuard"] = None,
     trained: Optional[dict] = None,
+    zero1: Optional["Zero1"] = None,
+    fsdp=None,
 ):
     """The data-parallel step, ``(params, local images, local labels,
     step=None) -> loss``: the counterpart of ``jit_train_step_dp_shard_map``
@@ -372,6 +397,11 @@ def make_train_step_dp(
     its own rows).  ``distill`` (teacher_fwd, alpha, hard, tau) swaps the
     loss for DeiT distillation.
     ``mesh`` None is the single-device step (:func:`make_train_step`).
+    ``zero1`` (:class:`Zero1`): the optimizer updates this rank's dp slices
+    of the whole gradients, which are then gathered (ZeRO-1; ``optimizer``
+    holds ``zero1.slices``).  ``fsdp`` (``sharding.DpShards``): ``params``
+    are this rank's dp slices, gathered in the forward; their gradients
+    come back reduce-scattered (FSDP).
     The other arguments as in :func:`make_train_step`."""
     if (use_dropout or augment_fn is not None) and rng is None:
         raise ValueError("use_dropout and augment_fn need rng, a torch.Generator (e.g. seeded "
@@ -386,11 +416,12 @@ def make_train_step_dp(
             raise ValueError("distillation composes with none of dropout, forward_fn and "
                              "augment_fn")
         loss_fn = _make_distill_loss_fn(cfg, ops, remat, compute_dtype, label_smoothing=
-                                        label_smoothing, **distill)
+                                        label_smoothing, fsdp=fsdp, **distill)
     else:
         # augmented targets are soft rows, smoothed once by the augmentation
         loss_fn = _make_loss_fn(cfg, ops, remat, compute_dtype,
-                                0.0 if augment_fn is not None else label_smoothing, forward_fn)
+                                0.0 if augment_fn is not None else label_smoothing, forward_fn,
+                                fsdp)
     calls = itertools.count()
 
     def train_step(params, images, labels, step: Optional[int] = None) -> torch.Tensor:
@@ -406,7 +437,7 @@ def make_train_step_dp(
                 step_rng = torch.Generator().manual_seed(drop_seed)
         _clear_grads(params)
         loss = _value_and_grad_accum(loss_fn, params, images, labels, grad_accum, step_rng)
-        return _finish(params, loss, optimizer, grad_clip, mesh, guard, trained)
+        return _finish(params, loss, optimizer, grad_clip, mesh, guard, trained, zero1, fsdp)
 
     return train_step
 
@@ -422,6 +453,7 @@ def make_train_step_kernel_tp(
     grad_clip: float = 0.0,
     guard: Optional["NonFiniteGuard"] = None,
     trained: Optional[dict] = None,
+    zero1: Optional["Zero1"] = None,
 ):
     """Tensor-parallel training through the fused kernels, ``(local params,
     local images, local labels) -> loss``: the counterpart of
@@ -432,24 +464,36 @@ def make_train_step_kernel_tp(
     switch); ``dp`` composes over it.  After the backward the partial
     LayerNorm gradients are summed over ``tp``, everything is averaged
     over ``dp``, ``grad_clip`` takes the global norm over the shards, and
-    each rank's optimizer updates its own shards.  ``remat`` recomputes the
-    forward (its all-reduces too) in the backward."""
+    each rank's optimizer updates its own shards (``zero1``: its dp slices
+    of them).  ``remat`` recomputes the forward (its all-reduces too) in
+    the backward."""
     from vit_tpu_torch.parallel.tp_forward import train_forward_tp
 
     forward = train_forward_tp(cfg, mesh, gelu_variant)
     return make_train_step_dp(cfg, optimizer, mesh, remat=remat, compute_dtype=compute_dtype,
                               label_smoothing=label_smoothing, grad_clip=grad_clip,
                               forward_fn=lambda p, x, _rng: forward(p, x), guard=guard,
-                              trained=trained)
+                              trained=trained, zero1=zero1)
 
 
-def _pmean_dp(params, loss: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def _pmean_dp(params, loss: torch.Tensor, mesh: Mesh, fsdp=None) -> torch.Tensor:
     """The loss and every gradient averaged over ``dp`` in place, in one
-    all-reduce of one flat fp32 buffer (``pmean``).  -> the loss."""
+    all-reduce of one flat fp32 buffer (``pmean``).  Under ``fsdp`` a dp
+    slice's gradient came back summed over dp already (the reduce-scatter):
+    it is only divided.  -> the loss."""
     n = mesh.size("dp")
     if n == 1:
         return loss
     grads = [t.grad for t in leaves(params) if t.grad is not None]
+    if fsdp is not None:
+        from vit_tpu_torch.parallel.sharding import _pairs
+
+        summed = {id(t.grad) for t, spec in _pairs(params, fsdp.specs)
+                  if t.grad is not None and fsdp.sliced(spec)}
+        for g in grads:
+            if id(g) in summed:
+                g.div_(n)
+        grads = [g for g in grads if id(g) not in summed]
     flat = torch.cat([loss.float().reshape(1), *(g.float().reshape(-1) for g in grads)])
     flat = mesh.all_reduce(flat, "dp").div_(n)
     for g, part in zip(grads, flat[1:].split([g.numel() for g in grads])):
@@ -459,44 +503,54 @@ def _pmean_dp(params, loss: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def _finish(params, loss: torch.Tensor, optimizer: torch.optim.Optimizer, grad_clip: float,
             mesh: Optional[Mesh], guard: Optional["NonFiniteGuard"] = None,
-            trained: Optional[dict] = None) -> torch.Tensor:
+            trained: Optional[dict] = None, zero1: Optional["Zero1"] = None,
+            fsdp=None) -> torch.Tensor:
     """After the backward: on a mesh, the ``dp`` mean of the loss and the
     gradients and the sums of the partial ones (``sharding.sum_partial_grads``:
     over ``tp``, ``pp`` or ``sp``); then the update.  -> the loss."""
     if mesh is not None:
         from vit_tpu_torch.parallel.sharding import sum_partial_grads
 
-        loss = _pmean_dp(params, loss, mesh)
+        loss = _pmean_dp(params, loss, mesh, fsdp)
         sum_partial_grads(params, mesh)
-    _update(params, optimizer, grad_clip, mesh, guard, trained)
+    _update(params, optimizer, grad_clip, mesh, guard, trained, zero1, fsdp)
     return loss
 
 
 def _update(params, optimizer: torch.optim.Optimizer, grad_clip: float,
             mesh: Optional[Mesh] = None, guard: Optional["NonFiniteGuard"] = None,
-            trained: Optional[dict] = None) -> None:
+            trained: Optional[dict] = None, zero1: Optional["Zero1"] = None,
+            fsdp=None) -> None:
     """One optimizer update from the leaves' gradients: none when ``guard``
     refuses them (optax's ``apply_if_finite`` outside everything, so it
     tests every leaf's gradient, frozen ones too); else clipped first to
     the global L2 norm ``grad_clip`` when it is > 0, the norm over
     ``trained`` (the leaves the optimizer updates; None: all of
-    ``params``), over tp or pp shards the whole tree's
-    (``sharding.global_grad_norm``), clipped as ``clip_grad_norm_`` clips."""
+    ``params``), over tp, pp or FSDP's dp shards the whole tree's
+    (``sharding.global_grad_norm``), clipped as ``clip_grad_norm_`` clips.
+    The guard, the clip and the schedule see the whole gradients, as optax
+    sees global arrays; under ``zero1`` the optimizer then updates this
+    rank's slices (:meth:`Zero1.step`)."""
     if guard is not None and not guard.admit(
-            [t.grad for t in leaves(params) if t.grad is not None], mesh):
+            [t.grad for t in leaves(params) if t.grad is not None], mesh, fsdp is not None):
         return
     if grad_clip:
         trained = params if trained is None else trained
         from vit_tpu_torch.parallel.sharding import global_grad_norm, splits_params
 
-        if not splits_params(mesh):
+        if not splits_params(mesh) and fsdp is None:
             torch.nn.utils.clip_grad_norm_(list(leaves(trained)), grad_clip)
         else:
-            coef = torch.clamp(grad_clip / (global_grad_norm(trained, mesh) + 1e-6), max=1.0)
+            specs = None if fsdp is None else {k: fsdp.specs[k] for k in trained}
+            coef = torch.clamp(grad_clip / (global_grad_norm(trained, mesh, specs) + 1e-6),
+                               max=1.0)
             for t in leaves(trained):
                 if t.grad is not None:
                     t.grad.mul_(coef)
-    optimizer.step()
+    if zero1 is not None:
+        zero1.step(optimizer)
+    else:
+        optimizer.step()
 
 
 # --skip-nonfinite's optax.apply_if_finite(..., max_consecutive_errors=8)
@@ -515,12 +569,13 @@ class NonFiniteGuard:
     def __init__(self):
         self.notfinite_count, self.last_finite, self.total_notfinite = 0, True, 0
 
-    def admit(self, grads: Sequence[torch.Tensor], mesh: Optional[Mesh] = None) -> bool:
+    def admit(self, grads: Sequence[torch.Tensor], mesh: Optional[Mesh] = None,
+              dp_slices: bool = False) -> bool:
         """Count this step's gradients; -> whether its update applies.  Over
-        ``tp`` and ``pp`` the ranks' shards decide together (an all-reduce an
-        axis)."""
+        ``tp`` and ``pp`` (and ``dp``, where ``dp_slices``: FSDP's) the
+        ranks' shards decide together (an all-reduce an axis)."""
         bad = torch.stack([~torch.isfinite(g).all() for g in grads]).sum().float().reshape(1)
-        for axis in ("tp", "pp"):
+        for axis in ("tp", "pp") + (("dp",) if dp_slices else ()):
             if mesh is not None and mesh.size(axis) > 1:
                 bad = mesh.all_reduce(bad, axis)
         finite = bool(bad.item() == 0)  # the one host read of the guard
@@ -602,12 +657,13 @@ def opt_state_shapes(trained, schedule: bool = False,
 
 
 def opt_state_leaves(optimizer: torch.optim.Optimizer, trained, mesh: Optional[Mesh] = None,
-                     schedule: bool = False,
-                     guard: Optional[NonFiniteGuard] = None) -> List[np.ndarray]:
+                     schedule: bool = False, guard: Optional[NonFiniteGuard] = None,
+                     shards=None) -> List[np.ndarray]:
     """``optimizer``'s state as optax's leaves (:func:`opt_state_layout`),
     whole (under tp or pp every rank gathers the moments: a collective), for
-    ``io/checkpoint``.  ``trained`` is the part of the params that
-    ``optimizer`` updates."""
+    ``io/checkpoint``.  ``trained`` is the tree of the leaves ``optimizer``
+    updates (ZeRO-1: ``Zero1.slices``); ``shards`` (``sharding.DpShards``,
+    under ZeRO-1 or FSDP) gathers their dp slices too."""
     from vit_tpu_torch.utils import flatten_tree
 
     fused = isinstance(optimizer, FusedAdamW)
@@ -623,12 +679,12 @@ def opt_state_leaves(optimizer: torch.optim.Optimizer, trained, mesh: Optional[M
              for k, what in enumerate(("mu", "nu"))}
     from vit_tpu_torch.parallel.sharding import splits_params
 
-    if splits_params(mesh):
+    if shards is not None or splits_params(mesh):
         from vit_tpu_torch.parallel.sharding import unshard_params
         from vit_tpu_torch.utils import unflatten_tree
 
-        trees = {what: flatten_tree(unshard_params(unflatten_tree(t), mesh))
-                 for what, t in trees.items()}
+        whole = shards.unshard if shards is not None else (lambda t: unshard_params(t, mesh))
+        trees = {what: flatten_tree(whole(unflatten_tree(t))) for what, t in trees.items()}
     count = applied_updates(optimizer)
     scalars = {"count": count, "schedule_count": count}
     if guard is not None:
@@ -641,11 +697,12 @@ def opt_state_leaves(optimizer: torch.optim.Optimizer, trained, mesh: Optional[M
 
 def restore_opt_state(optimizer: torch.optim.Optimizer, trained, opt_leaves: Sequence,
                       mesh: Optional[Mesh] = None, schedule: bool = False,
-                      guard: Optional[NonFiniteGuard] = None) -> None:
+                      guard: Optional[NonFiniteGuard] = None, shards=None) -> None:
     """Load :func:`opt_state_layout`'s leaves (``io/checkpoint.load_train_state``'s,
     checked against :func:`opt_state_shapes`) into ``optimizer`` and
-    ``guard``; under tp or pp each rank keeps its shards of the moments.  A
-    trailing schedule count is the adam count and is not read."""
+    ``guard``; under tp or pp each rank keeps its shards of the moments, and
+    under ``shards`` (ZeRO-1, FSDP) its dp slices of them.  A trailing
+    schedule count is the adam count and is not read."""
     from vit_tpu_torch.utils import flatten_tree, unflatten_tree
 
     scalars, trees = {}, {"mu": {}, "nu": {}}
@@ -663,7 +720,9 @@ def restore_opt_state(optimizer: torch.optim.Optimizer, trained, opt_leaves: Seq
     trees = {what: unflatten_tree(t) for what, t in trees.items()}
     from vit_tpu_torch.parallel.sharding import splits_params
 
-    if splits_params(mesh):
+    if shards is not None:
+        trees = {what: shards.shard(t) for what, t in trees.items()}
+    elif splits_params(mesh):
         from vit_tpu_torch.parallel.sharding import shard_params
 
         trees = {what: shard_params(t, mesh) for what, t in trees.items()}
@@ -676,6 +735,66 @@ def restore_opt_state(optimizer: torch.optim.Optimizer, trained, opt_leaves: Seq
                                "exp_avg": m, "exp_avg_sq": v})
     if fused:
         optimizer.count = count
+
+
+class Zero1:
+    """ZeRO-1 (Rajbhandari et al. 2019 §5.1; ``--zero1``): the params stay
+    whole over ``dp``, and the optimizer updates only this rank's
+    ``zero1_pspec`` slice of each leaf of ``trained`` (its tp shard under
+    tp), keeping only that slice's moments; the updated slices are then
+    gathered into the whole params (bit for bit).  AdamW is elementwise, so
+    the params come out the plain dp step's bit for bit.  ``slices`` is the
+    tree the optimizer is built over, each slice a view of its leaf's own
+    storage, which AdamW updates in place (no copy of the params): a leaf
+    with no axis that dp divides is there itself, whole."""
+
+    def __init__(self, trained, mesh: Mesh):
+        from vit_tpu_torch.parallel.sharding import DpShards, dp_view
+
+        self.mesh = mesh
+        self.layout = DpShards(trained, mesh)
+        self._pairs = []  # (leaf, its slice, rule)
+
+        def rec(tree, specs):
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    out[k] = rec(v, specs[k])
+                elif self.layout.sliced(specs[k]):
+                    part = dp_view(v.detach(), specs[k], mesh)
+                    self._pairs.append((v, part, specs[k]))
+                    out[k] = part
+                else:
+                    out[k] = v
+            return out
+
+        self.slices = rec(trained, self.layout.specs)
+
+    def step(self, optimizer: torch.optim.Optimizer) -> None:
+        """``optimizer.step()`` on the slices of the leaves' gradients, then
+        the other ranks' updated slices gathered into the leaves.  A sliced
+        leaf keeps no gradient past the step, whole or sliced: only the
+        update needs it."""
+        from vit_tpu_torch.parallel.sharding import dp_gather, dp_slice
+
+        for leaf, part, spec in self._pairs:
+            g = None if leaf.grad is None else dp_slice(leaf.grad, spec, self.mesh)
+            if g is not None and g.untyped_storage().data_ptr() == \
+                    leaf.grad.untyped_storage().data_ptr():
+                g = g.clone()  # a view would keep the whole gradient alive
+            part.grad, leaf.grad = g, None
+        optimizer.step()
+        with torch.no_grad():
+            for leaf, part, spec in self._pairs:
+                part.grad = None
+                leaf.copy_(dp_gather(part, spec, self.mesh))
+
+
+def moment_bytes(optimizer: torch.optim.Optimizer) -> int:
+    """The bytes of ``optimizer``'s per-leaf moment tensors on this rank."""
+    keys = ("exp_avg", "exp_avg_sq", "mu", "nu")
+    return sum(v.numel() * v.element_size() for st in optimizer.state.values()
+               for k, v in st.items() if k in keys)
 
 
 class FusedAdamW(torch.optim.Optimizer):
