@@ -310,17 +310,16 @@ Phases (a failed phase raises; nothing is caught):
      ``roofline`` and ``forward_timing`` of the batch-100 ``fused`` forward
      and ``train_step_timing`` of the batch-64 step.
 
- 47. the training loop's state and recipe: the train CLI (B/16 batch 64
-     ``fused_train``, bf16 mixed, ``--optimizer fused_adamw``) on 256 B/16
-     images in 3 shards with ``--augment crop,flip,mixup,cutmix --ema-decay
-     0.999 --eval-data-dir``: 4 steps straight with ``--save-state
-     --save-every 2``, then the same run sent SIGTERM in its second step
-     (checkpointed at step 2, rc 0) and resumed for 2 steps, the two final
-     archives and EMA sidecars equal leaf for leaf, bit for bit, where two
-     planted resumes (draws restarted at step 0; no EMA sidecar) are not
-     (12 each of K1, K4-K7
-     and 1 K20 per step, counts set to 0 just before each run and read just
-     after); ``--freeze-backbone --grad-clip 1`` (the backbone the init bit
+ 47. the training loop's state and recipe: the train CLI (B/16 widths at
+     depth 2, batch 64 ``fused_train``, bf16 mixed, ``--optimizer
+     fused_adamw``) on 256 B/16 images in 3 shards with ``--augment
+     crop,flip,mixup,cutmix --ema-decay 0.999 --eval-data-dir``: 4 steps
+     straight with ``--save-state --save-every 2``, then the same run sent
+     SIGTERM in its second step (checkpointed at step 2, rc 0) and resumed
+     for 2 steps, the two final archives and EMA sidecars equal leaf for
+     leaf, bit for bit, where two planted resumes (draws restarted at step
+     0; no EMA sidecar) are not (2 each of K1, K4-K7 and 1 K20 per step,
+     counts set to 0 just before each run and read just after); ``--freeze-backbone --grad-clip 1`` (the backbone the init bit
      for bit, 12 each of K1, K4-K7 per step), ``--skip-nonfinite`` on a
      static batch pair whose second holds NaNs (steps 1 and 3 skipped, the
      archive's counters (1, False, 2) and adam count 2); two ranks over
@@ -412,11 +411,35 @@ Phases (a failed phase raises; nothing is caught):
      archives, launches), and ``dryrun_multichip(4)``: every leg the JAX
      package runs at n = 4 ``ok``, the three it skips ``skipped``.
 
+ 51. conversion, resolution transfer and the training stashes: a B/16
+     synthetic ``Weight_*.bin`` directory through ``vit-tpu-torch-convert``
+     to ``.pth`` and ``.npz`` and back to ``Weight_*.bin``, byte for byte;
+     the classify CLI on the ``.pth`` and the ``.npz`` (``--ops fused
+     --synth 100``: identical lines, 12 K1, 12 K2, 1 K3 each; counts set to
+     0 just before each run and read just after); ``--config vit_b_16_384
+     --interpolate-pos-from vit_b_16`` (T 577: 12 K1, 12 K2, 1 K3) against
+     the fp32 ``eager`` forward of the same interpolated params by the
+     comparator rule, the interpolated table against float64 numpy of the
+     same matrices (2^-20 of its scale), and the @384 forward's time; K1,
+     K2 and K3 at that path's shapes (b100 T 577, bf16 and fp32) against
+     their twins; then one B/16 layer at b64 T 197 (K8 also @512 b16),
+     bf16 and fp32: K1
+     ``return_qkv`` and K5 ``return_u`` against their twins, K6 ``qkv=``
+     (with and without ``dres``, with ``log_size``), K7 ``u=`` and K8 ``u=``
+     (both ``residual`` forms) against their twins given the kernels'
+     stashes; K6 on K1's bf16 QKV equal to K6's recompute bit for bit, K7
+     and K8 on K5's u within the dtype's tolerance of the recompute,
+     ``fused_encoder_block_bwd`` with both stashes against without; K6, K7
+     and K8 at bf16 with and without the stash by device time in one A B B
+     A turn.  Each stash form's summary is the ``stash`` entry of its
+     kernel in the kernels line, its ``launches`` the wrapper's count of
+     that form summed over every path's reading (each held to 0).
+
 ``--only PHASE[,PHASE]`` reruns groups of phases (classify 3-6, train 7-10,
 regularized 11-14, long 15-19, quant 20-24, tome 25 and 27-30, dh80 26,
 per_op 31-33, adamw 34-35, parallel 36-38 and 45, serve 39-41, mae 42,
-distill 43, qat 44, data 46, recipe 47, pp_sp 48, serve_mesh 49, sharded 50);
-without it every phase runs.
+distill 43, qat 44, data 46, recipe 47, pp_sp 48, serve_mesh 49, sharded 50,
+convert 51); without it every phase runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -662,19 +685,19 @@ def _rand(dev, seed):
     return rn
 
 
-def kernel_cases(dev: torch.device):
-    """-> {kernel: [case]} for K1-K3 at B/16 shapes."""
+def kernel_cases(dev: torch.device, t: int = B16["t"], batches=BATCHES):
+    """-> {kernel: [case]} for K1-K3 at B/16 widths, ``t`` tokens."""
     import torch.nn.functional as F
 
     from vit_tpu_torch.ops.kernels import layer_norm as k3
     from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
     from vit_tpu_torch.ops.kernels import out_ln_mlp_residual as k2
 
-    d, h, f, t = B16["d"], B16["heads"], B16["f"], B16["t"]
+    d, h, f = B16["d"], B16["heads"], B16["f"]
     rn = _rand(dev, 0)
     cases = {name: [] for name in KERNELS}
     for dtype in (torch.bfloat16, torch.float32):
-        for b in BATCHES:
+        for b in batches:
             rows = b * t
             tag = _tag(dtype, b, rows)
             x = rn(rows, d, scale=2.0, dtype=dtype)
@@ -729,6 +752,9 @@ def phase_kernels(cases: dict, labels: dict, summary_batch: int) -> dict:
                 if g.shape != w.shape or not torch.isfinite(g).all():
                     raise RuntimeError(f"{name} {tag}: output {i} non-finite or misshapen")
                 e = (g - w).abs().max().item()
+                if c.get("exact") and not torch.equal(g, w):
+                    raise RuntimeError(f"{name} {tag}: output {i} max|d|={e:.6g}, expected "
+                                       "bit for bit")
                 tol = TOLERANCE[dtype] * max(1.0, w.abs().max().item())
                 if not e <= tol:
                     raise RuntimeError(f"{name} {tag}: output {i} max|d|={e:.6g} > tol "
@@ -745,8 +771,9 @@ def phase_kernels(cases: dict, labels: dict, summary_batch: int) -> dict:
             device = ""
             if dev_ms:
                 k_dev, lib_dev = dev_ms["device_ms"], dev_ms["library_device_ms"]
-                device = (f"; device {k_dev:.6g} ms ({bound_ms / k_dev:.1%} of bound), library "
-                          f"device {'none' if lib_dev is None else f'{lib_dev:.6g} ms'}")
+                share = "" if k_dev is None else f" ({bound_ms / k_dev:.1%} of bound)"
+                device = (f"; device {_ms(k_dev)}{share}, library device "
+                          f"{'none' if c['library'] is None else _ms(lib_dev)}")
             log(f"{labels[name][0]} {name} {tag}: {len(got)} output(s), max|d|={err:.6g} "
                 f"(at most {worst:.3g} of its tol) kernel {ms:.6g} ms, plain {plain_ms:.6g} ms, "
                 f"library {'none' if lib_ms is None else f'{lib_ms:.6g} ms'}, bound "
@@ -1364,7 +1391,7 @@ def phase_cli(params, workdir: str, ops: str = "fused",
             "--dtype", "bfloat16", "--device", "cuda", "--batch-pad", "100", "--json",
             "--output", result, *extra,
         ])
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = _counts(wrappers)
     out = buf.getvalue().splitlines()
     tag = " ".join(["cli --ops", ops, *extra])
     log("\n".join([f"{tag}: " + line for line in out[:3] + out[-2:]]))
@@ -1376,7 +1403,7 @@ def phase_cli(params, workdir: str, ops: str = "fused",
         raise RuntimeError("classify CLI did not print 100 result lines")
     if [r.index for r in comparator.parse_result_file(result)] != list(range(100)):
         raise RuntimeError("classify CLI's --output is not 100 well-formed lines")
-    want = {name: 0 for name in wrappers}
+    want = {name: 0 for name in launches}
     want.update({name: depth for name in kernels}, layer_norm=final_ln)
     for name, n in (more or {}).items():
         want[name] += n
@@ -1544,17 +1571,35 @@ def all_wrappers() -> dict:
                                              *ADAMW_KERNELS, *TP_KERNELS, *STUDY_KERNELS)}
 
 
+# the stash forms, each counted by its wrapper beside its launches; no path
+# of the port calls them, and every reading of the counts holds them to 0
+STASH_FORMS = {"ln_qkv_attn": "return_qkv", "ln_mlp_residual": "return_u",
+               "ln_qkv_attn_bwd": "qkv=", "ln_mlp_out_residual_bwd": "u=",
+               "ln_mlp_residual_bwd": "u="}
+
+
 def _reset_counts() -> dict:
-    """Every wrapper by name, its launch count set to 0."""
+    """Every wrapper by name, its launch counts set to 0."""
     wrappers = all_wrappers()
-    for fn in wrappers.values():
+    for name, fn in wrappers.items():
         fn.launches = 0
+        if name in STASH_FORMS:
+            fn.stash_launches = 0
     return wrappers
+
+
+def _counts(wrappers: dict) -> dict:
+    """Every wrapper's launch count by name, and each stash form's as
+    ``"<kernel> <form>"``."""
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts.update({f"{name} {form}": wrappers[name].stash_launches
+                   for name, form in STASH_FORMS.items()})
+    return counts
 
 
 def _expect_counts(wrappers: dict, want: dict, what: str) -> dict:
     """Read every count; fail unless ``want`` (the rest 0)."""
-    return _expect_counts_of({name: fn.launches for name, fn in wrappers.items()}, want, what)
+    return _expect_counts_of(_counts(wrappers), want, what)
 
 
 def _expect_counts_of(launches: dict, want: dict, what: str) -> dict:
@@ -1587,7 +1632,7 @@ def _train_cli(workdir: str, extra, steps: int = TRAIN_STEPS, records=None, logg
             "--ops", "fused_train", "--mixed-precision", "--device", "cuda",
             "--log-jsonl", log_path, *extra,
         ])
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = _counts(wrappers)
     tag = "train cli" + (" " + " ".join(extra) if extra else "")
     log("\n".join(f"{tag}: " + line for line in buf.getvalue().splitlines()))
     log(f"{tag}: rc {rc}, launches {launches}")
@@ -2801,32 +2846,43 @@ def phase_adamw_kernel(dev: torch.device, card: str) -> dict:
     bound_ms, bound_by = bound(15 * n, nbytes, torch.float32)
     log(f"K20 adamw_update step, B/16 fp32, 20 leaves ({n} elements): kernel {ms:.6g} ms "
         f"({per_step} launch; turns {', '.join(f'{t:.6g}' for t in turns['kernel'])}; device "
-        f"{device['kernel']:.6g} ms), plain {plain_ms:.6g} ms, torch.optim.AdamW fused "
+        f"{_ms(device['kernel'])}), plain {plain_ms:.6g} ms, torch.optim.AdamW fused "
         f"{fused_ms:.6g} ms (turns {', '.join(f'{t:.6g}' for t in turns['fused'])}; device "
-        f"{device['fused']:.6g} ms), foreach {foreach_ms:.6g} ms, bound {bound_ms:.6g} ms "
+        f"{_ms(device['fused'])}), foreach {foreach_ms:.6g} ms, bound {bound_ms:.6g} ms "
         f"({bound_by}, {bound_ms / ms:.1%} of it); {card}")
     return {"adamw_update": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by,
                              "library_ms": fused_ms}}
 
 
-def _device_ms(fn, steps: int = 10) -> float:
+def _device_ms(fn, steps: int = 10) -> float | None:
     """Device time of ``fn`` in ms: the sum of its kernels' durations over
     ``steps`` calls in a torch.profiler trace, per call.  Annotations that
     the trace also places on the device timeline (``Optimizer.step``'s
-    record_function) span kernels and are not counted."""
+    record_function) span kernels and are not counted.  Late in a long
+    process the profiler at times records no kernel of a trace: such a
+    trace is taken again, up to three times, and then the time is None
+    (not measured), never 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        if kernels:
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    return None
+
+
+def _ms(value: float | None) -> str:
+    """A time from ``_device_ms`` as printed: "<ms> ms", or "not measured"."""
+    return "not measured" if value is None else f"{value:.6g} ms"
 
 
 def phase_adamw_train_cli(workdir: str) -> dict:
@@ -3077,6 +3133,8 @@ class _RowSpy:
 
     launches = property(lambda self: self.fn.launches,
                         lambda self, n: setattr(self.fn, "launches", n))
+    stash_launches = property(lambda self: self.fn.stash_launches,
+                              lambda self, n: setattr(self.fn, "stash_launches", n))
 
 
 def rank_worker(workdir: str) -> None:
@@ -3116,7 +3174,7 @@ def rank_worker(workdir: str) -> None:
                            f"{workdir}/{path}.txt", *flags])
         k1.ln_qkv_attn = real_k1
         report["rc"][path] = rc
-        report["launches"][path] = {name: fn.launches for name, fn in wrappers.items()}
+        report["launches"][path] = _counts(wrappers)
         out = buf.getvalue().splitlines()
         report["stdout"][path] = out[:2] + out[-2:]
     report["k1_rows_dp"] = k1_spy.rows
@@ -3148,7 +3206,7 @@ def rank_worker(workdir: str) -> None:
     wrappers = _reset_counts()
     l16 = eng.logits(x).float().cpu().numpy()
     torch.cuda.synchronize()
-    report["launches"]["classify_tp_long"] = {name: fn.launches for name, fn in wrappers.items()}
+    report["launches"]["classify_tp_long"] = _counts(wrappers)
     report["long_finite"] = bool(np.isfinite(l16).all()) and l16.shape == (16, cfg.num_classes)
     with open(f"{workdir}/rank{rank}.json", "w") as fh:
         json.dump(report, fh)
@@ -3342,7 +3400,7 @@ def _train_rank_cli(workdir: str, flags, steps: int, mesh_spies,
     digest = hashlib.sha256()
     for t in leaves(st.params):
         digest.update(t.detach().cpu().numpy().tobytes())
-    report = {"rc": rc, "launches": {name: fn.launches for name, fn in wrappers.items()},
+    report = {"rc": rc, "launches": _counts(wrappers),
               "flags": {spy.flag: [sum(spy.values), len(spy.values)] for spy in mesh_spies},
               "stdout": buf.getvalue().splitlines()[-3:], "wall_s": wall,
               "params_sha256": digest.hexdigest(), "rank": dist.get_rank(),
@@ -3426,7 +3484,7 @@ def train_rank_worker(workdir: str) -> None:
     torch.cuda.synchronize()
     report["runs"]["train_tp_long"] = {
         "rc": 0 if np.isfinite(loss) else 1,
-        "launches": {n: fn.launches for n, fn in wrappers.items()},
+        "launches": _counts(wrappers),
         "flags": {spy.flag: [sum(spy.values), len(spy.values)] for spy in spies}, "loss": loss}
     with open(f"{workdir}/train_rank{rank}.json", "w") as fh:
         json.dump(report, fh)
@@ -4308,11 +4366,11 @@ EVAL_RUNS = {  # name: (eval CLI flags, launches per batch)
 def _write_shards(root: str, images: np.ndarray, labels: np.ndarray) -> None:
     """``images`` as input-100.bin-format shards of DATA_SHARDS images, each
     with its int32 ``.labels.bin``."""
+    from vit_tpu_torch.io.images import save_image_bin
+
     lo = 0
     for i, n in enumerate(DATA_SHARDS):
-        with open(f"{root}/shard{i}.bin", "wb") as fh:
-            np.array((n, *images.shape[1:]), "<i4").tofile(fh)
-            images[lo : lo + n].astype("<f4").tofile(fh)
+        save_image_bin(images[lo : lo + n], f"{root}/shard{i}.bin")
         labels[lo : lo + n].astype("<i4").tofile(f"{root}/shard{i}.labels.bin")
         lo += n
 
@@ -4409,7 +4467,7 @@ def phase_eval_cli(workdir: str, params, images, labels, dev, card: str) -> dict
         with contextlib.redirect_stdout(buf):
             rc = main(["--weights", weights, *source, "--batch", str(DATA_BATCH), "--dtype",
                        "bfloat16", "--device", "cuda", "--json", *flags])
-        launches = {k: fn.launches for k, fn in wrappers.items()}
+        launches = _counts(wrappers)
         if rc != 0:
             raise RuntimeError(f"eval CLI {flags} exited {rc}")
         got = json.loads(buf.getvalue().splitlines()[-1])
@@ -4585,9 +4643,13 @@ RECIPE_EMA_DECAY = 0.999
 RECIPE_FLAGS = ["--optimizer", "fused_adamw", "--lr", str(TRAIN_LR), "--augment",
                 "crop,flip,mixup,cutmix", "--ema-decay", str(RECIPE_EMA_DECAY), "--eval-every", "2",
                 "--eval-batches", "1", "--data-threads", "8"]
-RECIPE_STEP = {"ln_qkv_attn": 12, **{name: 12 for name in TRAIN_KERNELS}, "adamw_update": 1}
-RECIPE_TP_DEPTH = 2  # the tp 2 save and resume's depth (B/16 widths)
+RECIPE_TP_DEPTH = 2  # the tp 2 save and resume's depth (B/16 widths), and the resume runs'
 RECIPE_TP_CONFIG = "vit_b_16_depth2"
+# the resume runs at B/16 widths and depth 2 (their archives a sixth of
+# depth 12's: seven of them are written and read back); the recipe step's
+# time is still taken at depth 12 (phase_recipe_times)
+RECIPE_STEP = {"ln_qkv_attn": RECIPE_TP_DEPTH, **{name: RECIPE_TP_DEPTH for name in TRAIN_KERNELS},
+               "adamw_update": 1}
 RECIPE_TP_FLAGS = ["--config", RECIPE_TP_CONFIG, "--batch", str(TP_TRAIN_BATCH), "--ops",
                    "fused_train", "--lr", str(TRAIN_LR), "--ema-decay", str(RECIPE_EMA_DECAY),
                    "--seed", "3"]
@@ -4736,7 +4798,9 @@ def phase_recipe_resume(workdir: str, card: str) -> dict:
     from vit_tpu_torch.cli.train_loop import ema_sidecar
     from vit_tpu_torch.io import checkpoint
 
-    base = [*RECIPE_FLAGS, "--data-dir", workdir, "--eval-data-dir", workdir]
+    _register_tp_config()
+    base = [*RECIPE_FLAGS, "--config", RECIPE_TP_CONFIG, "--data-dir", workdir, "--eval-data-dir",
+            workdir]
     straight, first, resumed = (f"{workdir}/{n}.npz" for n in ("straight", "first", "resumed"))
     records: list = []
     out = {}
@@ -4776,7 +4840,8 @@ def phase_recipe_resume(workdir: str, card: str) -> dict:
     if not all(caught.values()):
         raise RuntimeError(f"the resume check cannot see a planted fault: leaves differing "
                            f"{caught}")
-    log(f"recipe resume (B/16 b64 bf16 fused_train fused_adamw, augment crop,flip,mixup,cutmix, "
+    log(f"recipe resume (B/16 widths, depth {RECIPE_TP_DEPTH}, b64 bf16 fused_train fused_adamw, "
+        f"augment crop,flip,mixup,cutmix, "
         f"EMA 0.999, --data-dir): straight losses {losses}, step ms (the first includes its "
         f"warm-up) {[r['ms'] for r in records if 'ms' in r]}; SIGTERM in step 2 -> checkpointed "
         f"at step 2, rc 0; resumed {resumed_losses}; step-4 archive resumed vs straight: every "
@@ -5008,12 +5073,12 @@ def phase_recipe_times(workdir: str, dev: torch.device, card: str) -> None:
     ema_bound = 3 * 4 * B16_LEAVES[1] / HBM_BYTES_PER_S * 1e3
     wall = {k: statistics.median(v) for k, v in walls.items()}
     log(f"recipe step B/16 b64 bf16 fused_train fused_adamw: plain {wall['plain']:.6g} ms wall "
-        f"(median of 8, in turns), {device['plain']:.6g} ms device; with augment "
+        f"(median of 8, in turns), {_ms(device['plain'])} device; with augment "
         f"crop,flip,mixup,cutmix and EMA 0.999 {wall['recipe']:.6g} ms wall, "
-        f"{device['recipe']:.6g} ms device ({64 / wall['recipe'] * 1e3:.6g} img/s vs "
-        f"{64 / wall['plain'] * 1e3:.6g}); the augmentation alone {aug_ms:.6g} ms device (b64, "
+        f"{_ms(device['recipe'])} device ({64 / wall['recipe'] * 1e3:.6g} img/s vs "
+        f"{64 / wall['plain'] * 1e3:.6g}); the augmentation alone {_ms(aug_ms)} device (b64, "
         f"mean over mixup and cutmix draws), {statistics.median(enqueue):.6g} ms host to queue "
-        f"it (median of 10); the EMA alone {ema_ms:.6g} ms device, {ema_event_ms:.6g} ms by "
+        f"it (median of 10); the EMA alone {_ms(ema_ms)} device, {ema_event_ms:.6g} ms by "
         f"CUDA events (median of 10), bound {ema_bound:.6g} ({B16_LEAVES[1]:,} fp32 elements); "
         f"{card}")
     t0 = time.perf_counter()
@@ -5141,7 +5206,7 @@ def _lib_step(report, name, make_step, tree, x, y, want):
     loss = float(make_step(tree)(tree, x, y))
     torch.cuda.synchronize()
     report["runs"][name] = {"rc": 0 if np.isfinite(loss) else 1, "loss": loss,
-                            "launches": {n: fn.launches for n, fn in wrappers.items()}}
+                            "launches": _counts(wrappers)}
     report["want"][name] = want
 
 
@@ -5211,7 +5276,7 @@ def pp_sp_rank_worker(workdir: str) -> None:
         logits = fwd(local, x.to(torch.bfloat16)).float().cpu().numpy()
         torch.cuda.synchronize()
         report["runs"]["classify_quant_tp_pp"] = {
-            "rc": 0, "launches": {n: fn.launches for n, fn in wrappers.items()}}
+            "rc": 0, "launches": _counts(wrappers)}
         report["want"]["classify_quant_tp_pp"] = PPTP_QUANT
         del q, local
         spies = [_FlagSpy(k5.ln_mlp_residual, "partial", False),
@@ -5254,8 +5319,7 @@ def pp_sp_rank_worker(workdir: str) -> None:
     wrappers = _reset_counts()
     logits = fwd(local, x100).float().cpu().numpy()
     torch.cuda.synchronize()
-    report["runs"]["classify_pp"] = {"rc": 0, "launches": {n: f.launches
-                                                           for n, f in wrappers.items()}}
+    report["runs"]["classify_pp"] = {"rc": 0, "launches": _counts(wrappers)}
     report["want"]["classify_pp"] = PP_FWD_LAUNCHES
     report["ms"]["classify_pp"] = _step_times(lambda: fwd(local, x100), dev)
     if rank == 0:
@@ -5459,12 +5523,12 @@ def phase_pp_sp(dev: torch.device, card: str, workdir: str) -> dict:
         torch.cuda.empty_cache()
     ms = reports[0, 2]["ms"]
     log(f"pp 2 fused bf16 forward b{PP_FWD_BATCH}: {ms['classify_pp'][0]:.6g} ms wall, "
-        f"{ms['classify_pp'][1]:.6g} ms device (rank 0) against one card's {one_ms[0]:.6g} / "
-        f"{one_ms[1]:.6g}; two ranks sharing one card over gloo, not a scaling figure; {card}")
+        f"{_ms(ms['classify_pp'][1])} device (rank 0) against one card's {one_ms[0]:.6g} ms / "
+        f"{_ms(one_ms[1])}; two ranks sharing one card over gloo, not a scaling figure; {card}")
     for name, what in (("train_pp", f"pp 2 fused_train fp32 step b{PP_BATCH} m {PP_MB}"),
                        ("train_sp", f"sp 2 fused_train bf16 mixed step b{SP_BATCH}")):
-        log(f"{what}: {ms[name][0]:.6g} ms wall, {ms[name][1]:.6g} ms device (rank 0) against "
-            f"one card's {one_step[name][0]:.6g} / {one_step[name][1]:.6g}; two ranks sharing "
+        log(f"{what}: {ms[name][0]:.6g} ms wall, {_ms(ms[name][1])} device (rank 0) against "
+            f"one card's {one_step[name][0]:.6g} ms / {_ms(one_step[name][1])}; two ranks sharing "
             f"one card over gloo, not a scaling figure; {card}")
     for name in PP_RUNS:
         log(f"{name} rank 0: " + " / ".join(reports[0, 2]["runs"][name]["stdout"]))
@@ -5618,7 +5682,7 @@ def serve_mesh_rank_worker(workdir: str) -> None:
         else:
             server.follow()
         torch.cuda.synchronize()
-        run.update(launches={n: fn.launches for n, fn in wrappers.items()}, forwards=spy.calls)
+        run.update(launches=_counts(wrappers), forwards=spy.calls)
         report["runs"][name] = run
         del engine, server
         gc.collect()
@@ -5638,7 +5702,7 @@ def serve_mesh_rank_worker(workdir: str) -> None:
     server.start()
     time.sleep(LOCKSTEP_IDLE_S)  # no traffic on any rank: ticks, no forward
     torch.cuda.synchronize()
-    report["lockstep_idle"] = {"launches": {n: fn.launches for n, fn in wrappers.items()},
+    report["lockstep_idle"] = {"launches": _counts(wrappers),
                                "forwards": spy.calls - 1}  # less warmup's
     wrappers, calls0 = _reset_counts(), spy.calls
     open(f"{workdir}/lockstep_ready{rank}", "w").close()
@@ -5663,7 +5727,7 @@ def serve_mesh_rank_worker(workdir: str) -> None:
     server.stop()  # returns once every rank has stopped
     run["stop_wait_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
-    run.update(launches={n: fn.launches for n, fn in wrappers.items()},
+    run.update(launches=_counts(wrappers),
                forwards=spy.calls - calls0)
     report["runs"]["serve_lockstep"] = run
     del engine, server
@@ -5712,7 +5776,7 @@ def serve_mesh_rank_worker(workdir: str) -> None:
     else:
         server.follow()
     torch.cuda.synchronize()
-    run.update(launches={n: fn.launches for n, fn in wrappers.items()}, forwards=spy.calls)
+    run.update(launches=_counts(wrappers), forwards=spy.calls)
     report["runs"]["serve_http_tp"] = run
     del server
     gc.collect()
@@ -5726,8 +5790,7 @@ def serve_mesh_rank_worker(workdir: str) -> None:
         rc = train([*MULTIHOST_FLAGS, "--dp", str(RANKS), "--data-dir", f"{workdir}/shards",
                     "--log-jsonl", f"{workdir}/train_dp.jsonl"])
     torch.cuda.synchronize()
-    report["runs"]["train_dp_depth2"] = {"rc": rc, "launches": {
-        n: fn.launches for n, fn in wrappers.items()}}
+    report["runs"]["train_dp_depth2"] = {"rc": rc, "launches": _counts(wrappers)}
     section("train_dp_depth2")
     with open(f"{workdir}/serve_rank{rank}.json", "w") as fh:
         json.dump(report, fh)
@@ -5750,7 +5813,7 @@ def cli_worker(spec: str) -> None:
         wrappers = _reset_counts()
         rc = (serve if job["cli"] == "serve" else train).main(job["argv"])
         torch.cuda.synchronize()
-        out.append({"rc": rc, "launches": {n: fn.launches for n, fn in wrappers.items()}})
+        out.append({"rc": rc, "launches": _counts(wrappers)})
         print(f"--cli-worker: {job['cli']} exited {rc}", flush=True)
         if rc:
             break
@@ -6196,7 +6259,7 @@ def sharded_rank_worker(workdir: str) -> None:
                            "--synth", str(SHARDED_BATCH), "--ops", "fused", "--tp", "2",
                            "--profile", "--dtype", "bfloat16", "--device", "cuda",
                            "--dist-backend", "gloo", "--batch-pad", str(SHARDED_BATCH)])
-        report["profile"] = {"rc": rc, "launches": {k: fn.launches for k, fn in wrappers.items()},
+        report["profile"] = {"rc": rc, "launches": _counts(wrappers),
                              "phases": [ln.split() for ln in buf.getvalue().splitlines()
                                         if " ms total " in ln]}
     else:
@@ -6207,7 +6270,7 @@ def sharded_rank_worker(workdir: str) -> None:
         with contextlib.redirect_stdout(io.StringIO()):
             report["dryrun"] = dryrun_multichip(n, str(dev))
         report["dryrun_s"] = time.perf_counter() - t0
-        report["dryrun_launches"] = {k: fn.launches for k, fn in wrappers.items()}
+        report["dryrun_launches"] = _counts(wrappers)
     with open(f"{workdir}/sharded{n}_rank{rank}.json", "w") as fh:
         json.dump(report, fh)
 
@@ -6380,9 +6443,281 @@ def group_sharded(dev, card, summary, launches) -> None:
         launches.update(phase_sharded(dev, card, workdir))
 
 
+CONVERT_BATCH = 100  # the classify CLI's images in phase 51
+CONVERT_LAUNCHES = {"ln_qkv_attn": 12, "out_ln_mlp_residual": 12, "layer_norm": 1}
+STASH_LONG_ROWS = 16 * (LONG_IMAGE // 16) ** 2 + 16  # @512 b16: 16,400 rows
+CONVERT_T = 577  # vit_b_16_384's tokens
+
+
+def _classify_lines(argv, what: str) -> tuple:
+    """The classify CLI in-process on the card: -> (its result lines, its
+    launch counts), the counts set to 0 just before and read just after."""
+    from vit_tpu_torch.cli.main import main
+
+    buf = io.StringIO()
+    wrappers = _reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = main([*argv, "--device", "cuda", "--dtype", "bfloat16",
+                   "--batch-pad", str(CONVERT_BATCH)])
+    out = buf.getvalue().splitlines()
+    log("\n".join(f"{what}: {line}" for line in out[:2] + out[-1:]))
+    if rc != 0:
+        raise RuntimeError(f"{what}: the classify CLI exited {rc}")
+    lines = [line for line in out if re.match(r"^\[\d+\] label: \d+ / prob: \d+\.\d{6}", line)]
+    if len(lines) != CONVERT_BATCH:
+        raise RuntimeError(f"{what}: {len(lines)} result lines, expected {CONVERT_BATCH}")
+    return lines, _expect_counts(wrappers, CONVERT_LAUNCHES, what)
+
+
+def _same_tree_bytes(a: str, b: str) -> None:
+    """Two directories hold the same files, byte for byte."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        raise RuntimeError(f"{a} and {b} hold different files")
+    for name in names:
+        with open(f"{a}/{name}", "rb") as fa, open(f"{b}/{name}", "rb") as fb:
+            if fa.read() != fb.read():
+                raise RuntimeError(f"{name}: the round trip changed its bytes")
+
+
+def phase_convert(workdir: str, card: str) -> dict:
+    """Phase 51, parts 1 and 2: vit-tpu-torch-convert's round trip at B/16
+    and the resolution transfer to @384 through the classify CLI."""
+    from vit_tpu_torch.cli import convert
+    from vit_tpu_torch.config import VIT_B_16, get_config
+    from vit_tpu_torch.io import weights as wio
+    from vit_tpu_torch.io.images import synth_images
+    from vit_tpu_torch.io.interpolate import _bicubic_matrix, adapt_params_resolution
+    from vit_tpu_torch.runtime.engine import InferenceEngine
+
+    launches = {}
+    ref = f"{workdir}/Network"
+    wio.save_reference_weights(wio.synth_reference_tensors(VIT_B_16, seed=0), ref, VIT_B_16)
+    t0 = time.perf_counter()
+    for src, dst, flags in ((ref, f"{workdir}/w.pth", ["--no-round6"]),
+                            (ref, f"{workdir}/w.npz", ["--no-round6"]),
+                            (f"{workdir}/w.npz", f"{workdir}/back", []),
+                            (f"{workdir}/w.pth", f"{workdir}/back_pth", [])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = convert.main(["--from", src, "--to", dst, *flags])
+        log(f"vit-tpu-torch-convert: {buf.getvalue().strip()} (rc {rc})")
+        if rc != 0:
+            raise RuntimeError(f"vit-tpu-torch-convert {src} -> {dst} exited {rc}")
+    _same_tree_bytes(ref, f"{workdir}/back")
+    _same_tree_bytes(ref, f"{workdir}/back_pth")
+    log(f"B/16 Weight_*.bin -> .pth/.npz -> Weight_*.bin: {len(os.listdir(ref))} files byte "
+        f"for byte ({time.perf_counter() - t0:.3f} s for the four conversions)")
+
+    synth = ["--config", "vit_b_16", "--synth", str(CONVERT_BATCH), "--ops", "fused"]
+    pth_lines, launches["classify_convert_pth"] = _classify_lines(
+        [*synth, "--weights", f"{workdir}/w.pth"], "classify .pth")
+    npz_lines, launches["classify_convert_npz"] = _classify_lines(
+        [*synth, "--weights", f"{workdir}/w.npz"], "classify .npz")
+    if pth_lines != npz_lines:
+        raise RuntimeError("the .pth and the .npz classify differently")
+    log(f"classify --ops fused of the .pth and the .npz: {len(pth_lines)} identical lines")
+
+    # the resolution transfer: B/16 weights at @384 (T 577), K1-K3 on the card
+    cfg384 = get_config("vit_b_16_384")
+    result = f"{workdir}/result384.txt"
+    _, launches["classify_384"] = _classify_lines(
+        ["--config", cfg384.name, "--interpolate-pos-from", "vit_b_16", "--weights", ref,
+         "--synth", str(CONVERT_BATCH), "--ops", "fused", "--output", result],
+        "classify vit_b_16_384 --interpolate-pos-from vit_b_16")
+    params = adapt_params_resolution(wio.load_reference_weights(ref, VIT_B_16), VIT_B_16, cfg384)
+    # the table against float64 numpy of the same matrices
+    g_in, g_out = VIT_B_16.grid_size, cfg384.grid_size
+    grid = wio.load_reference_weights(ref, VIT_B_16)["pos_embed"][1:].astype(np.float64)
+    w64 = _bicubic_matrix(g_in, g_out, True)
+    want = np.einsum("ow,hwd->hod", w64, np.einsum("oh,hwd->owd", w64,
+                                                    grid.reshape(g_in, g_in, -1)))
+    table_dev = float(np.abs(params["pos_embed"][1:] - want.reshape(g_out * g_out, -1)).max())
+    scale = float(np.abs(want).max())
+    log(f"interpolated table (577 x 768) vs float64 numpy: max|d|={table_dev:.3g} "
+        f"(tol 2^-20 x {scale:.4g})")
+    if not table_dev <= 2.0 ** -20 * scale:
+        raise RuntimeError("the interpolated position table is off float64's")
+    images = synth_images(CONVERT_BATCH, cfg384, seed=0)
+    dev = torch.device("cuda", 0)
+    eager32 = InferenceEngine(cfg384, params, "float32", "eager", dev, batch_pad=CONVERT_BATCH)
+    p32 = eager32.probabilities(images).cpu().numpy()
+    del eager32
+    torch.cuda.empty_cache()
+    _line_rule("bf16 fused @384 (interpolated) vs fp32 eager", result,
+               _write_lines(f"{workdir}/eager384.txt", p32), p32)
+    fused = InferenceEngine(cfg384, params, "bfloat16", "fused", dev, batch_pad=CONVERT_BATCH)
+    x = torch.from_numpy(images).to(dev, torch.bfloat16)
+    ms = cuda_ms(lambda: fused.logits(x), warmup=2, iters=5)
+    log(f"fused bf16 forward vit_b_16_384 b{CONVERT_BATCH} (T 577): {ms:.6g} ms, "
+        f"{CONVERT_BATCH / ms * 1e3:.6g} img/s; {card}")
+    return launches
+
+
+def _write_lines(path: str, p: np.ndarray) -> str:
+    from vit_tpu_torch.io import results
+
+    pred = p.argmax(-1)
+    results.write_result_file(pred, p[np.arange(len(pred)), pred], path)
+    return path
+
+
+def stash_cases(dev: torch.device):
+    """-> ({kernel: [case]}, {kernel: (form, stash-form thunk, recompute
+    thunk)}): the stash forms of K1, K5, K6, K7 and K8 at one B/16 layer,
+    b64 T 197 (K8 also @512 b16), bf16 and fp32, each kernel given the
+    stash the kernel path makes (K1's QKV, K5's u).  The cases hold each
+    stash form against its twin given the same stash (the bf16 b64 case,
+    K8's @512 b16, is the kernel's ``stash`` summary), each stash against
+    its recompute, and ``fused_encoder_block_bwd`` with both stashes
+    against without; the thunks are the pairs timed at bf16."""
+    from vit_tpu_torch.ops import backward
+    from vit_tpu_torch.ops.kernels import ln_mlp_out_residual_bwd as k7
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual as k5
+    from vit_tpu_torch.ops.kernels import ln_mlp_residual_bwd as k8
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn as k1
+    from vit_tpu_torch.ops.kernels import ln_qkv_attn_bwd as k6
+
+    d, h, f, t = B16["d"], B16["heads"], B16["f"], B16["t"]
+    rn = _rand(dev, 51)
+    cases = {name: [] for name in (*STASH_FORMS, "fused_encoder_block_bwd")}
+    timed = {}
+
+    def add(name, tag, dtype, b, fn, plain, args, flops, summary=False, exact=False):
+        cases[name].append(dict(case(tag, dtype, b, fn, plain, args, flops), summary=summary,
+                                exact=exact))
+
+    def block_grads(*a, **stashes):
+        dx, grads = backward.fused_encoder_block_bwd(*a, **stashes)
+        return (dx, *(grads[k] for k in sorted(grads)))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows, b in ((64 * t, 64), (STASH_LONG_ROWS, 16)):
+            tag = _tag(dtype, b, rows)
+            first = dtype == torch.bfloat16  # the summary's and the timed cases
+            w = lambda *shape, scale=1.0, shift=0.0: rn(*shape, scale=scale, shift=shift,  # noqa: E731
+                                                         dtype=dtype)
+            x, x1, dy, ctx, dctx = w(rows, d, scale=2.0), w(rows, d, scale=2.0), w(rows, d), \
+                w(rows, d), w(rows, d)
+            s1, b1n, s2, b2n = w(d, scale=0.2, shift=1.0), w(d, scale=0.2), \
+                w(d, scale=0.2, shift=1.0), w(d, scale=0.2)
+            wqkv, bqkv = w(d, 3 * d, scale=d ** -0.5), w(3 * d, scale=0.1)
+            wo = w(d, d, scale=d ** -0.5)
+            w1, bb1 = w(d, f, scale=d ** -0.5), w(f, scale=0.1)
+            w2, bb2 = w(f, d, scale=f ** -0.5), w(d, scale=0.1)
+            a5 = (x1, s2, b2n, w1, bb1, w2, bb2, 1e-6, "exact")
+            _, u = k5.ln_mlp_residual(*a5, return_u=True)
+            a8 = (dy, x1, s2, b2n, w1, bb1, w2, 1e-6, "exact")
+            flops8 = 8 * rows * d * f
+            for residual in (True, False):
+                add("ln_mlp_residual_bwd", f"{tag} u= residual={residual}", dtype, b,
+                    lambda *a, r=residual: k8.ln_mlp_residual_bwd(*a[:-1], u=a[-1], residual=r),
+                    lambda *a, r=residual: k8.ln_mlp_residual_bwd_plain(*a[:-1], u=a[-1],
+                                                                          residual=r),
+                    (*a8, u), flops8, summary=first and b == 16 and residual)
+            add("ln_mlp_residual_bwd", f"{tag} u= vs recompute", dtype, b,
+                lambda *a: k8.ln_mlp_residual_bwd(*a[:-1], u=a[-1]),
+                lambda *a: k8.ln_mlp_residual_bwd(*a[:-1]), (*a8, u), flops8)
+            if first and b == 16:
+                timed["ln_mlp_residual_bwd"] = (
+                    "u=", lambda a=a8, s=u: k8.ln_mlp_residual_bwd(*a, u=s),
+                    lambda a=a8: k8.ln_mlp_residual_bwd(*a))
+            if b != 64:
+                continue  # the long rows are K8's alone (K7 and K6 run T <= 1024)
+            a1 = (x, s1, b1n, wqkv, bqkv, h, t, 1e-6)
+            add("ln_qkv_attn", f"{tag} return_qkv", dtype, b,
+                lambda *a: k1.ln_qkv_attn(*a, return_qkv=True),
+                lambda *a: k1.ln_qkv_attn_plain(*a, return_qkv=True), a1,
+                2 * rows * d * 3 * d + 4 * b * t * t * d, summary=first)
+            add("ln_mlp_residual", f"{tag} return_u", dtype, b,
+                lambda *a: k5.ln_mlp_residual(*a, return_u=True), k5.ln_mlp_residual_u_plain, a5,
+                4 * rows * d * f, summary=first)
+            _, qkv = k1.ln_qkv_attn(*a1, return_qkv=True)
+            a6 = (dctx, dy, x, s1, b1n, wqkv, bqkv, h, t, 1e-6)
+            flops6 = 4 * rows * d * 3 * d + 10 * b * t * t * d
+            for tag6, args6 in (("", a6), (" dres=None", (dctx, None, *a6[2:]))):
+                add("ln_qkv_attn_bwd", f"{tag} qkv={tag6}", dtype, b,
+                    lambda *a: k6.ln_qkv_attn_bwd(*a[:-1], qkv=a[-1]),
+                    lambda *a: k6.ln_qkv_attn_bwd_plain(*a[:-1], qkv=a[-1]), (*args6, qkv),
+                    flops6, summary=first and not tag6)
+            log_size = torch.log(torch.rand(b, t, generator=torch.Generator(device=dev)
+                                            .manual_seed(5), device=dev) + 1.0)
+            add("ln_qkv_attn_bwd", f"{tag} qkv= log_size", dtype, b,
+                lambda *a: k6.ln_qkv_attn_bwd(*a[:-2], qkv=a[-2], log_size=a[-1]),
+                lambda *a: k6.ln_qkv_attn_bwd_plain(*a[:-2], qkv=a[-2], log_size=a[-1]),
+                (*a6, qkv, log_size), flops6)
+            # K6's bf16 stash is K1's QKV, the same core's output rounded as
+            # K6's recompute: bit for bit; K7/K8 differ by K5's rounding of u
+            add("ln_qkv_attn_bwd", f"{tag} qkv= vs recompute", dtype, b,
+                lambda *a: k6.ln_qkv_attn_bwd(*a[:-1], qkv=a[-1]),
+                lambda *a: k6.ln_qkv_attn_bwd(*a[:-1]), (*a6, qkv), flops6,
+                exact=dtype == torch.bfloat16)
+            a7 = (dy, x1, ctx, s2, b2n, w1, bb1, w2, wo, 1e-6, "exact")
+            flops7 = 8 * rows * d * f + 4 * rows * d * d
+            add("ln_mlp_out_residual_bwd", f"{tag} u=", dtype, b,
+                lambda *a: k7.ln_mlp_out_residual_bwd(*a[:-1], u=a[-1]),
+                lambda *a: k7.ln_mlp_out_residual_bwd_plain(*a[:-1], u=a[-1]), (*a7, u), flops7,
+                summary=first)
+            add("ln_mlp_out_residual_bwd", f"{tag} u= vs recompute", dtype, b,
+                lambda *a: k7.ln_mlp_out_residual_bwd(*a[:-1], u=a[-1]),
+                lambda *a: k7.ln_mlp_out_residual_bwd(*a[:-1]), (*a7, u), flops7)
+            blk = {"ln1_scale": s1, "ln1_bias": b1n, "wqkv": wqkv, "bqkv": bqkv, "wo": wo,
+                   "bo": w(d, scale=0.1), "ln2_scale": s2, "ln2_bias": b2n, "w1": w1, "b1": bb1,
+                   "w2": w2, "b2": bb2}
+            add("fused_encoder_block_bwd", f"{tag} qkv= u= vs recompute", dtype, b,
+                lambda *a: block_grads(*a[:-2], qkv=a[-2], u=a[-1]),
+                lambda *a: block_grads(*a[:-2]),
+                (x, blk, ctx, x1, dy, h, t, 1e-6, qkv, u), flops6 + flops7)
+            if first:
+                timed["ln_qkv_attn_bwd"] = (
+                    "qkv=", lambda a=a6, s=qkv: k6.ln_qkv_attn_bwd(*a, qkv=s),
+                    lambda a=a6: k6.ln_qkv_attn_bwd(*a))
+                timed["ln_mlp_out_residual_bwd"] = (
+                    "u=", lambda a=a7, s=u: k7.ln_mlp_out_residual_bwd(*a, u=s),
+                    lambda a=a7: k7.ln_mlp_out_residual_bwd(*a))
+    return cases, timed
+
+
+def phase_stashes(card: str) -> dict:
+    """Phase 51, part 3: the stash forms against their twins and their
+    recomputes (``stash_cases``), then K6, K7 and K8 with and without the
+    stash at bf16 b64 (K8 @512 b16) in one A B B A turn by device time.
+    -> {kernel: its stash form's summary}."""
+    cases, timed = stash_cases(torch.device("cuda", 0))
+    labels = {"ln_qkv_attn": ("K1",), "ln_mlp_residual": ("K5",), "ln_qkv_attn_bwd": ("K6",),
+              "ln_mlp_out_residual_bwd": ("K7",), "ln_mlp_residual_bwd": ("K8",),
+              "fused_encoder_block_bwd": ("K7+K6",)}
+    summary = {name: {"form": STASH_FORMS[name], **entry}
+               for name, entry in phase_kernels(cases, labels, 0).items()}
+    del cases
+    for name, (form, with_stash, without) in timed.items():
+        ms = {"with": [], "without": []}
+        for which in ("without", "with", "with", "without"):
+            ms[which].append(_device_ms(with_stash if which == "with" else without))
+        ms = {k: None if None in v else statistics.mean(v) for k, v in ms.items()}
+        ratio = ("" if None in ms.values()
+                 else f" ({ms['without'] / ms['with']:.3f}x)")
+        log(f"{labels[name][0]} {name} bf16 device time, A B B A: without the stash "
+            f"{_ms(ms['without'])}, with {form} {_ms(ms['with'])}{ratio}; {card}")
+        summary[name].update(device_ms=ms["with"], device_ms_without=ms["without"])
+    return summary
+
+
+def group_convert(dev, card, summary, launches) -> None:
+    """Phase 51."""
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+        launches.update(phase_convert(workdir, card))
+    torch.cuda.empty_cache()
+    # K1-K3 at the @384 path's shapes (b100 T 577) against their twins
+    phase_kernels(kernel_cases(dev, CONVERT_T, (CONVERT_BATCH,)), KERNELS, 0)
+    torch.cuda.empty_cache()
+    for name, entry in phase_stashes(card).items():
+        summary.setdefault(name, {})["stash"] = entry  # beside the kernel's own entry
+
+
 PHASES = ("classify", "train", "regularized", "long", "quant", "tome", "dh80", "per_op", "adamw",
           "parallel", "serve", "mae", "distill", "qat", "data", "recipe", "pp_sp", "serve_mesh",
-          "sharded")
+          "sharded", "convert")
 
 
 def group_classify(dev, card, summary, launches) -> None:
@@ -6626,7 +6961,7 @@ def main(argv=None) -> None:
               "per_op": group_per_op, "adamw": group_adamw, "parallel": group_parallel,
               "serve": group_serve, "mae": group_mae, "distill": group_distill, "qat": group_qat,
               "data": group_data, "recipe": group_recipe, "pp_sp": group_pp_sp,
-              "serve_mesh": group_serve_mesh, "sharded": group_sharded}
+              "serve_mesh": group_serve_mesh, "sharded": group_sharded, "convert": group_convert}
     for name in PHASES:
         if name in only:
             t0 = time.perf_counter()
@@ -6669,6 +7004,11 @@ def main(argv=None) -> None:
          **summary[name]}
         for name, (_, src, replaces) in all_kernels.items() if name in summary
     ]
+    # a stash form's launches: its count summed over every path read
+    for entry in kernels:
+        if "stash" in entry:
+            key = f"{entry['name']} {entry['stash']['form']}"
+            entry["stash"]["launches"] = sum(counts[key] for counts in launches.values())
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

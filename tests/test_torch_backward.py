@@ -20,6 +20,7 @@ Tolerances:
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -262,15 +263,103 @@ def test_hooks_of_later_slices_raise():
             assert got_u.shape == (10, 256) and want_u.shape == (10, 256)
             np.testing.assert_allclose(_f32(got_out), _f32(want_out), **FWD_TOL[dtype])
             np.testing.assert_allclose(_f32(got_u), _f32(want_u), **FWD_TOL[dtype])
-    k7 = [torch.from_numpy(a) for a in _k7_arrays(10, 64, 256, 6)]
-    with pytest.raises(NotImplementedError, match="u= stash"):
-        ln_mlp_out_residual_bwd(*k7, EPS, u=torch.zeros(10, 256))
+    # and so are the stashes: K7's u= and K6's qkv= against the JAX kernels
+    # given the same stash (the recomputed one: the stash path equals it)
+    for dtype in DTYPES:
+        jk7, tk7 = _pairs(_k7_arrays(10, 64, 256, 6), dtype)
+        ju, tu = _pairs([_np(8, 10, 256)], dtype)
+        _close_bwd(ln_mlp_out_residual_bwd(*tk7, EPS, u=tu[0]),
+                   JB.ln_mlp_out_residual_bwd(*jk7, EPS, interpret=True, u=ju[0]), dtype)
+        jk6, tk6 = _pairs(_k6_arrays(10, 64, 7), dtype)
+        jq, tq = _pairs([_np(9, 10, 192)], dtype)
+        _close_bwd(ln_qkv_attn_bwd(*tk6, 4, 5, EPS, qkv=tq[0]),
+                   JB.ln_qkv_attn_bwd(*jk6, 4, 5, EPS, interpret=True, qkv=jq[0]), dtype)
     k6 = [torch.from_numpy(a) for a in _k6_arrays(10, 64, 7)]
-    with pytest.raises(NotImplementedError, match="qkv"):
-        ln_qkv_attn_bwd(*k6, 4, 5, EPS, qkv=torch.zeros(10, 192))
     # token merging's log_size and the form without dres are ported: they run
     dx, *_ = ln_qkv_attn_bwd(k6[0], None, *k6[2:], 4, 5, EPS, log_size=torch.zeros(2, 5))
     assert dx.shape == k6[2].shape
+
+
+# -- the stashes: K1's return_qkv and K5's return_u feeding K6, K7 and K8 ------
+
+STASH_CASES = ["k1_return_qkv", "k6_qkv", "k6_qkv_no_dres", "k6_qkv_log_size", "k7_u",
+               "k8_u", "k8_u_partial", "block"]
+
+
+@functools.lru_cache(maxsize=None)
+def _stash_inputs(dtype, which):
+    """The operands of the stash cases and each package's stash from its
+    own forward kernel, once per dtype: ``which`` "qkv" -> (jax K6
+    operands, torch K6 operands, K1's (ctx, qkv) in JAX, in the port);
+    "u" -> (jax K7 operands, torch K7 operands, jax b2, torch b2, K5's u in
+    JAX, in the port)."""
+    from vit_tpu_torch.ops.kernels.ln_qkv_attn import ln_qkv_attn
+
+    rows, d, f, h, t = 10, 64, 256, 4, 5
+    if which == "qkv":
+        jk6, tk6 = _pairs(_k6_arrays(rows, d, 30), dtype)
+        return (jk6, tk6, JF.ln_qkv_attn(*jk6[2:], h, t, EPS, interpret=True, return_qkv=True),
+                ln_qkv_attn(*tk6[2:], h, t, EPS, return_qkv=True))
+    jk7, tk7 = _pairs(_k7_arrays(rows, d, f, 40), dtype)
+    jb2, tb2 = _pairs([_np(49, d, scale=0.1)], dtype)
+    k5 = lambda ops, b2: (ops[1], *ops[3:8], b2[0])  # noqa: E731  x1, LN2, MLP weights, b2
+    return (jk7, tk7, jb2[0], tb2[0],
+            JF.ln_mlp_residual(*k5(jk7, jb2), EPS, interpret=True, return_u=True)[1],
+            ln_mlp_residual(*k5(tk7, tb2), EPS, return_u=True)[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", STASH_CASES)
+def test_stash_twins_match_pallas(dtype, case):
+    """Each stash form's twin against the JAX function in interpret mode,
+    each package's stash from its own forward kernel (K1's return_qkv, K5's
+    return_u), as a training step would hand it over."""
+    from vit_tpu_torch.ops.kernels.ln_mlp_residual_bwd import ln_mlp_residual_bwd
+    from vit_tpu_torch.ops.kernels.ln_qkv_attn import ln_qkv_attn
+
+    rows, d, h, t = 10, 64, 4, 5
+    if case == "k1_return_qkv" or case.startswith("k6") or case == "block":
+        jk6, tk6, jq, tq = _stash_inputs(dtype, "qkv")
+    if case == "k1_return_qkv":
+        assert tq[1].dtype == getattr(torch, dtype) and tuple(tq[1].shape) == (rows, 3 * d)
+        for g, w in zip(tq, jq):
+            _close_fwd(g, w, dtype)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            ln_qkv_attn(*tk6[2:], h, t, EPS, return_qkv=True, return_kmean=True)
+        return
+    if case.startswith("k6"):
+        jargs, targs, kw = jk6, tk6, {}
+        if case == "k6_qkv_no_dres":
+            jargs, targs = [jk6[0], None, *jk6[2:]], [tk6[0], None, *tk6[2:]]
+        if case == "k6_qkv_log_size":
+            ls = np.log1p(np.random.default_rng(31).uniform(size=(rows // t, t))).astype(np.float32)
+            kw = {"log_size": ls}
+        _close_bwd(
+            ln_qkv_attn_bwd(*targs, h, t, EPS, qkv=tq[1],
+                            **{k: torch.from_numpy(v) for k, v in kw.items()}),
+            JB.ln_qkv_attn_bwd(*jargs, h, t, EPS, interpret=True, qkv=jq[1],
+                               **{k: jnp.asarray(v) for k, v in kw.items()}), dtype)
+        return
+    jk7, tk7, jb2, tb2, ju, tu = _stash_inputs(dtype, "u")
+    if case == "k7_u":
+        _close_bwd(ln_mlp_out_residual_bwd(*tk7, EPS, u=tu),
+                   JB.ln_mlp_out_residual_bwd(*jk7, EPS, interpret=True, u=ju), dtype)
+    elif case.startswith("k8"):
+        residual = case == "k8_u"
+        k8 = lambda ops: [ops[0], ops[1], *ops[3:8]]  # noqa: E731  the K7 operands but ctx, wo
+        _close_bwd(ln_mlp_residual_bwd(*k8(tk7), EPS, u=tu, residual=residual),
+                   JB.ln_mlp_residual_bwd(*k8(jk7), EPS, interpret=True, u=ju,
+                                          residual=residual), dtype)
+    else:  # the whole block's backward with both stashes
+        names = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "ln2_scale", "ln2_bias", "w1", "b1",
+                 "w2", "b2", "wo", "bo")
+        jw = (*jk6[3:7], *jk7[3:8], jb2, jk7[8], jb2)
+        tw = (*tk6[3:7], *tk7[3:8], tb2, tk7[8], tb2)
+        jdx, jg = JB.fused_encoder_block_bwd(jk6[2], dict(zip(names, jw)), jk7[2], jk7[1],
+                                             jk7[0], h, t, EPS, "exact", True, qkv=jq[1], u=ju)
+        tdx, tg = TB.fused_encoder_block_bwd(tk6[2], dict(zip(names, tw)), tk7[2], tk7[1],
+                                             tk7[0], h, t, EPS, "exact", qkv=tq[1], u=tu)
+        _close_bwd([tdx, *(tg[k] for k in names)], [jdx, *(jg[k] for k in names)], dtype)
 
 
 def test_block_backward_runs_merged_k7_at_every_width(monkeypatch):

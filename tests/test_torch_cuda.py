@@ -740,6 +740,49 @@ def test_ln_qkv_attn_bwd(dev, dtype, b, t, d, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,t", [(10, 5), (12608, 197)], ids=["tiny", "b64_t197"])
+def test_stash_forms(dev, dtype, rows, t):
+    # K1's return_qkv and K5's return_u feeding K6's qkv= and K7's and K8's
+    # u= (both residual forms), each against its twin given the same stash;
+    # the bf16 K6 on K1's QKV is K6's recompute bit for bit
+    d, f, h = (64, 256, 4) if rows == 10 else (768, 3072, 12)
+    k6 = _k6_args(dev, dtype, rows // t, t, d, h)
+    ctx, qkv = ln_qkv_attn(*k6[2:], return_qkv=True)
+    want_ctx, want_qkv = ln_qkv_attn_plain(*k6[2:], return_qkv=True)
+    _check_all((ctx, qkv), (want_ctx, want_qkv))
+    _check_all(ln_qkv_attn_bwd(*k6, qkv=qkv), ln_qkv_attn_bwd_plain(*k6, qkv=qkv))
+    if dtype == torch.bfloat16:
+        for a, b in zip(ln_qkv_attn_bwd(*k6, qkv=qkv), ln_qkv_attn_bwd(*k6)):
+            assert torch.equal(a, b)
+    k7 = _k7_args(dev, dtype, rows, d, f, "exact")
+    k5 = _mlp_args(dev, dtype, rows, d, f)  # K7's x1, LN2 and MLP weights, and b2
+    x1, s, b, w1, b1, w2, _ = k5
+    _, u = ln_mlp_residual(*k5, 1e-6, return_u=True)
+    _check_all(ln_mlp_out_residual_bwd(*k7, u=u), ln_mlp_out_residual_bwd_plain(*k7, u=u))
+    k8 = (k7[0], x1, s, b, w1, b1, w2, 1e-6)
+    for residual in (True, False):
+        _check_all(ln_mlp_residual_bwd(*k8, u=u, residual=residual),
+                   ln_mlp_residual_bwd_plain(*k8, u=u, residual=residual))
+    # an fp32 stash widens as it is, whatever the dtype
+    _check_all(ln_mlp_residual_bwd(*k8, u=u.float()), ln_mlp_residual_bwd_plain(*k8, u=u.float()))
+
+
+@pytest.mark.cuda
+def test_stash_forms_refuse_bad_stashes(dev):
+    k7 = _k7_args(dev, torch.bfloat16, 10, 64, 256, "exact")
+    with pytest.raises(ValueError, match="u has shape"):
+        ln_mlp_out_residual_bwd(*k7, u=torch.zeros(10, 128, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="u must be contiguous"):
+        ln_mlp_out_residual_bwd(*k7, u=torch.zeros(10, 256, device=dev, dtype=torch.float16))
+    k6 = _k6_args(dev, torch.bfloat16, 2, 5, 64, 4)
+    with pytest.raises(ValueError, match="qkv must be contiguous"):
+        ln_qkv_attn_bwd(*k6, qkv=torch.zeros(10, 192, device=dev))
+    with pytest.raises(ValueError, match="return_qkv"):
+        ln_qkv_attn(*k6[2:], return_qkv=True, return_kmean=True)
+
+
+@pytest.mark.cuda
 def test_backward_kernels_are_deterministic(dev):
     # no float atomics: two runs give bit-identical outputs, gradients included
     k7 = _k7_args(dev, torch.bfloat16, 591, 768, 3072, "exact")

@@ -27,10 +27,11 @@ from vit_tpu.io import checkpoint as jckpt
 from vit_tpu.io import dataset as jds
 from vit_tpu.io import native as jnative
 from vit_tpu.io import preprocess as jpre
-from vit_tpu.io.images import load_image_bin, save_image_bin
+from vit_tpu.io.images import load_image_bin
 from vit_tpu_torch.io import dataset as tds
 from vit_tpu_torch.io import native as tnative
 from vit_tpu_torch.io import preprocess as tpre
+from vit_tpu_torch.io.images import save_image_bin
 from vit_tpu_torch.runtime.prefetch import batched, prefetch_to_device
 
 REPO = Path(__file__).resolve().parents[1]

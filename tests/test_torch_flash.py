@@ -206,9 +206,18 @@ def test_out_residual_bwd_matches_pallas():
 
 
 def test_split_backward_forms_that_raise():
-    z = torch.zeros(4, 8)
-    with pytest.raises(NotImplementedError, match="u="):
-        ln_mlp_residual_bwd(z, z, z[0], z[0], z, z[0], z, EPS, u=z)
+    # the pre-GELU stash is ported: the recomputed u handed in as the stash
+    # gives the recompute's outputs bit for bit (the JAX parity of every
+    # stash form is tests/test_torch_backward.py:test_stash_twins_match_pallas)
+    dy0, x0 = _t(_np(60, 4, 8)), _t(_np(61, 4, 8))
+    w10, w20 = _t(_np(62, 8, 16, scale=0.3)), _t(_np(63, 16, 8, scale=0.3))
+    s0, b0, b10 = _t(_np(64, 8, shift=1.0)), _t(_np(65, 8)), _t(_np(66, 16))
+    from vit_tpu_torch.ops.backward import _ln_stats
+
+    u = (_ln_stats(x0, EPS)[0] * s0 + b0) @ w10 + b10  # the twin's own fp32 recompute
+    for a, c in zip(ln_mlp_residual_bwd(dy0, x0, s0, b0, w10, b10, w20, EPS, u=u),
+                    ln_mlp_residual_bwd(dy0, x0, s0, b0, w10, b10, w20, EPS)):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
     # residual=False (tensor parallelism's form) is ported: dy's identity
     # term leaves dx1, every other output stays
     dy, x1 = _t(_np(70, 4, 8)), _t(_np(71, 4, 8))

@@ -148,11 +148,15 @@ def _jax_side(modules):
                                     "tests/torch_pp_sp_worker.py",
                                     "tests/torch_serve_worker.py",
                                     "tests/torch_zero_worker.py",
-                                    "tests/torch_plain_tp_worker.py"])
+                                    "tests/torch_plain_tp_worker.py",
+                                    "examples/torch_classify.py", "examples/torch_finetune.py",
+                                    "examples/torch_serve_batching.py",
+                                    "examples/torch_distill.py", "examples/torch_parallel.py"])
 def test_card_scripts_import_nothing_of_the_jax_package(script):
-    """What runs on the card (and the pipeline, sequence, serving, ZeRO and
-    plain-tier tensor-parallel tests' rank workers) names no module of JAX
-    or of the JAX package, at the top or inside a function."""
+    """What runs on the card (the port's examples among it, and the
+    pipeline, sequence, serving, ZeRO and plain-tier tensor-parallel tests'
+    rank workers) names no module of JAX or of the JAX package, at the top
+    or inside a function."""
     modules = _imported_modules(REPO / script)
     assert not _jax_side(modules)
     assert any(m.startswith("vit_tpu_torch") for m in modules)
@@ -281,8 +285,10 @@ def test_main_paths_load_nothing_of_the_jax_package(tmp_path, tiny_cfg):
     the fused and the int8 teacher; and with --tome, plain and
     regularized), and the classify CLI on its npz, on
     a Weight_*.bin directory, on a .pth, on --images, with --golden, with
-    --ops quant, with --ops per_op --profile, with --attn-rollout and with
-    --tome on fused and quant, and under torch.distributed.run on 2 ranks
+    --ops quant, with --ops per_op --profile, with --attn-rollout, with
+    --interpolate-pos-from and with --tome on fused and quant, the convert
+    CLI (Weight_*.bin -> .pth -> .npz -> Weight_*.bin), and under
+    torch.distributed.run on 2 ranks
     with --tp 2 (fused and quant; eager with --attn-rollout) and the train
     CLI with --pp 2 (eager and fused_train), --sp 2 (eager and fused_train),
     --tp 2 on eager, --dp 2 --zero1 and --dp 2 --fsdp, and the serve CLI's
@@ -341,6 +347,16 @@ assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2", "--ops", 
                       "--profile"]) == 0
 assert classify.main([*run, "--weights", d + "/p.npz", "--synth", "2",
                       "--attn-rollout", d + "/roll.npz"]) == 0
+from vit_tpu_torch.cli import convert
+assert convert.main(["--config", cfg.name, "--from", d + "/Network", "--allow-synth-weights",
+                     "--to", d + "/c.pth"]) == 0
+assert convert.main(["--config", cfg.name, "--from", d + "/c.pth", "--to", d + "/c.npz"]) == 0
+assert convert.main(["--config", cfg.name, "--from", d + "/c.npz", "--to", d + "/Back"]) == 0
+big = config.ViTConfig(image_size=48, patch_size=16, embed_dim=64, depth=2, num_heads=4,
+                       num_classes=11, name="vit_tiny48_test")
+config.CONFIGS[big.name] = big
+assert classify.main(["--config", big.name, "--device", "cpu", "--interpolate-pos-from",
+                      cfg.name, "--weights", d + "/c.npz", "--synth", "2"]) == 0
 from vit_tpu_torch.cli import serve
 for extra in ([], ["--selftest-rate", "200"]):
     assert serve.main([*run, "--weights", d + "/p.npz", "--selftest", "4", "--max-batch", "4",

@@ -7,7 +7,8 @@ tiers) — against the JAX package on the CPU: its Pallas
 kernels in interpret mode and its ``shard_map``/GSPMD steps on the virtual
 8-device mesh, the port in one 2-rank gloo group of its own
 (``torch_parallel_train_worker.py``, started once for the module), plus one
-4-rank ``torchrun`` of the CLI.
+4-rank ``torchrun`` of the CLI, started with it: both run while the JAX
+references are computed.
 
 Tolerances.  K8's twin against the Pallas kernel: fp32 1e-4
 (``test_torch_flash.py``'s bar), bf16 2e-2 of each output's largest |value|
@@ -156,9 +157,18 @@ def cases(tiny_cfg):
     return out
 
 
+# the two torchrun runs of the worker: the 2-rank group and the 4-rank CLI
+# at --dp 2 --tp 2 (the JAX CLI test's mesh, tests/test_cli.py)
+RANK_RUNS = ("group", "four")
+
+
 @pytest.fixture(scope="module")
-def group(tmp_path_factory, cases, tiny_cfg):
-    """Both ranks' results of ``torch_parallel_train_worker.py``."""
+def launched(tmp_path_factory, cases, tiny_cfg):
+    """The worker's inputs, and both torchrun runs of
+    ``torch_parallel_train_worker.py`` started at once, each rank at one
+    torch thread, so that they run while this process computes the JAX
+    references; -> (dir, {run: Popen}).  Each run's stdout and stderr go to
+    ``dir/<run>.out``/``.err``; a run still going at teardown is killed."""
     d = tmp_path_factory.mktemp("group")
     arrays = {}
     for name, case in cases.items():
@@ -180,14 +190,45 @@ def group(tmp_path_factory, cases, tiny_cfg):
     jckpt.save_train_state(mae_tree, optax.adamw(1e-3).init(mae_tree), 0,
                            str(d / "mae_state.npz"))
     (d / "out").mkdir()
+    (d / "four").mkdir()
     env = dict(os.environ, PYTHONPATH=f"{REPO}:{REPO / 'tests'}", OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
-    out = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2", "--standalone",
-         str(REPO / "tests" / "torch_parallel_train_worker.py"), str(d / "in.npz"),
-         str(d / "out" / "res")],
-        cwd=d, env=env, capture_output=True, text=True, timeout=420)
-    assert out.returncode == 0, out.stderr[-4000:]
+    worker = str(REPO / "tests" / "torch_parallel_train_worker.py")
+    argv = {
+        "group": ["2", worker, str(d / "in.npz"), str(d / "out" / "res")],
+        "four": ["4", worker, "--cli", "--config", tiny_cfg.name, "--init-weights",
+                 str(d / "init.npz"), "--steps", "3", "--batch", "4", "--ops", "fused_train",
+                 "--device", "cpu", "--dist-backend", "gloo", "--dp", "2", "--tp", "2",
+                 "--log-jsonl", str(d / "four" / "l.jsonl"), "--save", str(d / "four" / "p.npz")],
+    }
+    procs = {}
+    for run in RANK_RUNS:
+        n, *rest = argv[run]
+        with open(d / f"{run}.out", "w") as out, open(d / f"{run}.err", "w") as err:
+            procs[run] = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", n,
+                 "--standalone", *rest], cwd=d, env=env, stdout=out, stderr=err)
+    yield d, procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _finished(launched, run: str, timeout: int):
+    """-> (exit code, stdout, stderr) of the rank run ``run``."""
+    d, procs = launched
+    rc = procs[run].wait(timeout=timeout)
+    return rc, (d / f"{run}.out").read_text(), (d / f"{run}.err").read_text()
+
+
+@pytest.fixture(scope="module")
+def group(launched, jax_cli, jax_tp_cli):
+    """Both ranks' results of ``torch_parallel_train_worker.py`` (the JAX
+    CLI references first: they are computed while the ranks run)."""
+    d, _ = launched
+    rc, _, err = _finished(launched, "group", 420)
+    assert rc == 0, err[-4000:]
     r0, r1 = (dict(np.load(d / "out" / f"res.{r}.npz")) for r in (0, 1))
     return r0, r1, d
 
@@ -441,13 +482,13 @@ def test_dropout_masks_differ_between_dp_ranks(group):
 
 
 @pytest.fixture(scope="module")
-def jax_cli(group, tiny_cfg, tmp_path_factory):
+def jax_cli(launched, tiny_cfg, tmp_path_factory):
     """The JAX CLI's per-step losses and saved params at the worker's flags,
     on dp 1 x tp 2, dp 2 and dp 2 x tp 2."""
     import vit_tpu.config as jconfig
     from vit_tpu.cli.train import main as jmain
 
-    _, _, d = group
+    d, _ = launched
     out = tmp_path_factory.mktemp("jax_cli")
     jconfig.CONFIGS[tiny_cfg.name] = tiny_cfg
     res = {}
@@ -470,14 +511,14 @@ def _losses(path):
 
 
 @pytest.fixture(scope="module")
-def jax_tp_cli(group, cases, tiny_cfg, tmp_path_factory):
+def jax_tp_cli(launched, cases, tiny_cfg, tmp_path_factory):
     """The JAX CLI's per-step losses and saved params at the worker's plain
     tier --tp 2 flags (``--ops xla``/``qat``; MAE's masks from the worker's
     noise, as the worker patches its own)."""
     import vit_tpu.config as jconfig
     from vit_tpu.cli.train import main as jmain
 
-    _, _, d = group
+    d, _ = launched
     out = tmp_path_factory.mktemp("jax_tp_cli")
     noise = jnp.asarray(cases["noise"])
 
@@ -545,26 +586,18 @@ def test_train_cli_rank0_alone_prints_and_saves_whole_params(group, tiny_cfg, na
         assert np.asarray(tree["blocks"]["wqkv"]).shape == (2, 64, 192)
 
 
-def test_train_cli_four_ranks_dp2_tp2_matches_jax_cli(group, jax_cli, tiny_cfg, tmp_path):
-    # the JAX CLI test's mesh (tests/test_cli.py: --dp 2 --tp 2)
-    _, _, d = group
-    env = dict(os.environ, PYTHONPATH=f"{REPO}:{REPO / 'tests'}", OMP_NUM_THREADS="1")
-    env.pop("WORLD_SIZE", None)
-    out = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "4", "--standalone",
-         str(REPO / "tests" / "torch_parallel_train_worker.py"), "--cli",
-         "--config", tiny_cfg.name, "--init-weights", str(d / "init.npz"), "--steps", "3",
-         "--batch", "4", "--ops", "fused_train", "--device", "cpu", "--dist-backend", "gloo",
-         "--dp", "2", "--tp", "2", "--log-jsonl", str(tmp_path / "l.jsonl"),
-         "--save", str(tmp_path / "p.npz")],
-        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=240)
-    assert out.returncode == 0, out.stderr[-4000:]
-    assert "mesh: {'dp': 2, 'tp': 2} over 4 rank(s), backend gloo" in out.stdout
-    assert out.stdout.count("step    2") == 1  # rank 0 alone prints
-    got, (want, jnpz) = _losses(tmp_path / "l.jsonl"), jax_cli["dp_tp"]
+def test_train_cli_four_ranks_dp2_tp2_matches_jax_cli(launched, jax_cli, tiny_cfg):
+    # the JAX CLI test's mesh (tests/test_cli.py: --dp 2 --tp 2), started
+    # with the group (``launched``)
+    d, _ = launched
+    rc, stdout, stderr = _finished(launched, "four", 240)
+    assert rc == 0, stderr[-4000:]
+    assert "mesh: {'dp': 2, 'tp': 2} over 4 rank(s), backend gloo" in stdout
+    assert stdout.count("step    2") == 1  # rank 0 alone prints
+    got, (want, jnpz) = _losses(d / "four" / "l.jsonl"), jax_cli["dp_tp"]
     assert len(got) == 3
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-    _saved_close(tmp_path / "p.npz", jnpz, tiny_cfg)
+    _saved_close(d / "four" / "p.npz", jnpz, tiny_cfg)
 
 
 # -- the refusals, in the JAX package's words -----------------------------------------

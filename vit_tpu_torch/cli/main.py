@@ -39,8 +39,13 @@ writes the results; every rank exits with the same code.
 ``--attn-rollout PATH`` saves the batch's attention-rollout heatmaps
 (``InferenceEngine.attention_maps``) to an ``.npz`` (``maps`` (B, grid,
 grid), ``labels``); it needs fp weights and the full-token model (no
-``quant``, no ``--tome``).  ``--interpolate-pos-from`` of the JAX package's
-CLI waits for its slice of the port.
+``quant``, no ``--tome``).  ``--interpolate-pos-from CONFIG`` loads a
+checkpoint of that (lower-resolution) config and bicubic-interpolates its
+position table to ``--config``'s grid (``io/interpolate.py``) on the host,
+before the engine places the tree on its device::
+
+    vit-tpu-torch --config vit_b_16_384 --interpolate-pos-from vit_b_16 \
+        --weights ./Network --synth 8 --allow-synth-weights
 """
 
 from __future__ import annotations
@@ -85,8 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--ops", default="auto", choices=["auto", "eager", "per_op", "fused", "quant"],
         help="compute path: fused (CUDA kernels), quant (W8A8 int8 CUDA kernels), "
         "per_op (one CUDA kernel per layer op, the JAX package's --ops pallas: a "
-        "debugging surface), eager (plain PyTorch); auto = fused on cuda or with --tp, "
-        "eager otherwise",
+        "debugging surface), eager (plain PyTorch); auto = fused on cuda, eager "
+        "otherwise",
     )
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument(
@@ -111,6 +116,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--allow-synth-weights", action="store_true",
         help="synthesize any missing weight files (stripped-blob checkpoints)",
+    )
+    p.add_argument(
+        "--interpolate-pos-from", metavar="CONFIG",
+        help="weights dir holds a checkpoint of this (lower-resolution) "
+        "config; bicubic-interpolate its position table to --config's grid",
     )
     p.add_argument("--labels", help="label names: text file or C source array")
     p.add_argument("--top", type=int, default=1, help="print top-K classes per image")
@@ -143,8 +153,8 @@ def main(argv=None) -> int:
 
     cfg = resolve_config(args.config, args.num_classes)
     ops = args.ops
-    if ops == "auto":
-        ops = "fused" if args.device == "cuda" or args.tp > 1 else "eager"
+    if ops == "auto":  # the JAX package's rule: the kernels on the accelerator alone
+        ops = "fused" if args.device == "cuda" else "eager"
     if args.tome < 0:
         print("error: --tome must be >= 0", file=sys.stderr)
         return 2
@@ -210,14 +220,25 @@ def _classify(args, cfg, ops, mesh, device, lead: bool) -> int:
         images, source_names = load_and_preprocess(args.images, cfg)
     else:
         images = iio.synth_images(args.synth, cfg, seed=0)
+    load_cfg = cfg
+    if args.interpolate_pos_from:
+        # --num-classes applies to the load config too: the checkpoint being
+        # adapted carries the fine-tuned head; only the position table moves
+        from vit_tpu_torch.config import resolve_config
+
+        load_cfg = resolve_config(args.interpolate_pos_from, args.num_classes)
     try:
         params = load_params_any(
-            args.weights, cfg, round_to_6dp=not args.no_round6,
+            args.weights, load_cfg, round_to_6dp=not args.no_round6,
             allow_synth=args.allow_synth_weights,
         )
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.interpolate_pos_from:
+        from vit_tpu_torch.io.interpolate import adapt_params_resolution
+
+        params = adapt_params_resolution(params, load_cfg, cfg)
     t_load = time.perf_counter() - t_load0
 
     engine = InferenceEngine(

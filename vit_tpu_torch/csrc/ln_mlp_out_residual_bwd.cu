@@ -1,6 +1,8 @@
 // K7: merged backward of [LN2 + MLP + residual] o [out_proj + residual].
 // Replaces vit_tpu/ops/pallas/backward.py:ln_mlp_out_residual_bwd
-// (_ln_mlp_out_bwd_kernel with _mlp_bwd_core and _mlp_grad_accum).
+// (_ln_mlp_out_bwd_kernel with _mlp_bwd_core and _mlp_grad_accum), with
+// or without the pre-GELU stash u (non-null `u`, of dtype `u_dtype`:
+// widened into the fp32 u scratch in place of the FC1 GEMM, UStash).
 //
 // The TPU kernel walks row blocks in order, keeps W1, W2, W_o and the fp32
 // weight-gradient accumulators resident in VMEM, and carries the sums from
@@ -30,14 +32,14 @@ namespace vt {
 template <typename T>
 cudaError_t ln_mlp_out_residual_bwd(const T* dy, const T* x1, const T* ctx, const T* ln_scale,
                                     const T* ln_bias, const T* w1, const T* b1, const T* w2,
-                                    const T* wo, T* dx1, T* dctx, float* dgamma, float* dbeta,
+                                    const T* wo, const UStash& stash, T* dx1, T* dctx, float* dgamma, float* dbeta,
                                     float* dw1, float* db1, float* dw2, float* db2, float* dwo,
                                     float* dbo, void* workspace, int rows, int d, int f,
                                     int d_ctx, float eps, int variant, cudaStream_t stream) {
   Arena arena{(char*)workspace};
   const K7Scratch<T> s = k7_scratch<T>(arena, rows, d, f, d_ctx);
   VT_TRY(mlp_residual_bwd<T>(s, dy, x1, ln_scale, ln_bias, w1, b1, w2, dx1, dgamma, dbeta, dw1,
-                             db1, dw2, db2, rows, d, f, eps, variant, stream));
+                             db1, dw2, db2, rows, d, f, eps, variant, stream, true, stash));
   return out_residual_bwd<T>(dx1, ColOf<float>{s.dx1f, d}, ctx, wo, dctx, dwo, dbo, s.cpart,
                              s.wpart, rows, d_ctx, d, stream);
 }
@@ -57,11 +59,12 @@ size_t vt_ln_mlp_out_residual_bwd_workspace(int rows, int d, int f, int d_ctx, i
 
 int vt_ln_mlp_out_residual_bwd(const void* dy, const void* x1, const void* ctx,
                                const void* ln_scale, const void* ln_bias, const void* w1,
-                               const void* b1, const void* w2, const void* wo, void* dx1,
+                               const void* b1, const void* w2, const void* wo, const void* u,
+                               void* dx1,
                                void* dctx, void* dgamma, void* dbeta, void* dw1, void* db1,
                                void* dw2, void* db2, void* dwo, void* dbo, void* workspace,
                                int rows, int d, int f, int d_ctx, float eps, int gelu_variant,
-                               int dtype, int device, void* stream) {
+                               int u_dtype, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -69,7 +72,8 @@ int vt_ln_mlp_out_residual_bwd(const void* dy, const void* x1, const void* ctx,
     typedef float T;
     return (int)vt::ln_mlp_out_residual_bwd<T>(
         (const T*)dy, (const T*)x1, (const T*)ctx, (const T*)ln_scale, (const T*)ln_bias,
-        (const T*)w1, (const T*)b1, (const T*)w2, (const T*)wo, (T*)dx1, (T*)dctx,
+        (const T*)w1, (const T*)b1, (const T*)w2, (const T*)wo, vt::UStash{u, u_dtype},
+        (T*)dx1, (T*)dctx,
         (float*)dgamma, (float*)dbeta, (float*)dw1, (float*)db1, (float*)dw2, (float*)db2,
         (float*)dwo, (float*)dbo, workspace, rows, d, f, d_ctx, eps, gelu_variant, s);
   }
@@ -82,7 +86,8 @@ int vt_ln_mlp_out_residual_bwd(const void* dy, const void* x1, const void* ctx,
         vt::Dropout{}, (T*)dx1, (float*)dgamma, (float*)dbeta, (float*)dw1, (float*)db1,
         (float*)dw2, (float*)db2, rows, d, f, eps, gelu_variant, s,
         vt::OutProjBwd{(const T*)ctx, (const T*)wo, nullptr, (T*)dctx, (float*)dwo, (float*)dbo,
-                       d_ctx});
+                       d_ctx},
+        true, vt::UStash{u, u_dtype});
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -19,6 +19,8 @@
 #include "epilogue.cuh"
 #include "gemm.cuh"
 
+#include <algorithm>
+
 namespace vt {
 
 template <typename T>
@@ -62,6 +64,38 @@ K7Scratch<T> k8_scratch(Arena& a, int rows, int d, int f) {
   return s;
 }
 
+// The pre-GELU stash (u= of K7 and K8, the JAX kernels' u_ref): the
+// forward's u in its own dtype (K5's return_u gives round(u)), widened in
+// one pass into the fp32 (rows, F) u/du scratch in place of the FC1 GEMM,
+// as the TPU kernel upcasts it; the chain then reads and overwrites s.u as
+// it does after the GEMM.  A host-side branch: without the stash every
+// launch is the parent's.
+struct UStash {
+  const void* u;  // (rows, F) in `dtype`, or null: recompute u
+  int dtype;      // kFloat32 or kBFloat16
+};
+
+template <typename U>
+__global__ void __launch_bounds__(256) widen_kernel(const U* __restrict__ in,
+                                                    float* __restrict__ out, size_t n) {
+  const size_t step = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step)
+    out[i] = to_f(in[i]);
+}
+
+// a template, so only a chain that takes the stash instantiates the kernels
+template <class Stash = UStash>
+cudaError_t launch_widen(const Stash& stash, float* out, size_t n, cudaStream_t stream) {
+  const int blocks = (int)std::min<size_t>((n + 255) / 256, 132 * 16);
+  if (stash.dtype == kBFloat16)
+    widen_kernel<bf16><<<blocks, 256, 0, stream>>>((const bf16*)stash.u, out, n);
+  else if (stash.dtype == kFloat32)
+    widen_kernel<float><<<blocks, 256, 0, stream>>>((const float*)stash.u, out, n);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
 // u[r, c] holds u on entry and du on exit; g = round(gelu(u)),
 // du = acc * gelu'(u) with acc = (dy @ W2^T)[r, c], du_c = round(du)
 template <typename T>
@@ -84,7 +118,8 @@ struct GeluGradEpi {
 
 // The MLP half:
 //   1. LN2 row statistics of the rounded x1 (fp32)
-//   2. u = LN2(x1) @ W1 + b1 -> fp32 (rows, F) scratch, never rounded
+//   2. u = LN2(x1) @ W1 + b1 -> fp32 (rows, F) scratch, never rounded (or
+//      the stash widened into it)
 //   3. dg = dy @ W2^T; epilogue: g = round(gelu(u)), du = dg * gelu'(u)
 //      (fp32, written over u), du_c = round(du)
 //   4. dh2 = du_c @ W1^T -> fp32 (rows, D)
@@ -99,12 +134,17 @@ cudaError_t mlp_residual_bwd(const K7Scratch<T>& s, const T* dy, const T* x1, co
                              const T* ln_bias, const T* w1, const T* b1, const T* w2, T* dx1,
                              float* dgamma, float* dbeta, float* dw1, float* db1, float* dw2,
                              float* db2, int rows, int d, int f, float eps, int variant,
-                             cudaStream_t stream, bool residual = true) {
+                             cudaStream_t stream, bool residual = true,
+                             const UStash& stash = {}) {
   const LoadLn<T, T> h2{x1, d, s.mean, s.rstd, ln_scale, ln_bias};
   const LoadLn<T, T, true> h2_t{x1, d, s.mean, s.rstd, ln_scale, ln_bias};
 
   VT_TRY(launch_row_stats(x1, s.mean, s.rstd, rows, d, eps, stream));
-  VT_TRY(launch_gemm<T>(h2, Load<T>{w1, f}, rows, f, d, BiasEpi<T, float>{b1, s.u, f}, stream));
+  if (stash.u)
+    VT_TRY(launch_widen(stash, s.u, (size_t)rows * f, stream));
+  else
+    VT_TRY(launch_gemm<T>(h2, Load<T>{w1, f}, rows, f, d, BiasEpi<T, float>{b1, s.u, f},
+                          stream));
   VT_TRY(launch_gemm<T>(Load<T>{dy, d}, Load<T, T, true>{w2, d}, rows, f, d,
                         GeluGradEpi<T>{s.u, s.g, s.du_c, f, variant}, stream));
   VT_TRY(launch_gemm<T>(Load<T>{s.du_c, f}, Load<T, T, true>{w1, f}, rows, d, f,

@@ -1,7 +1,10 @@
 // K6: backward of LN1 -> packed QKV -> attention, joined with the first
 // residual's gradient: dx = dres + d(LN1 + QKV + attention)/dx.
 // Replaces vit_tpu/ops/pallas/backward.py:ln_qkv_attn_bwd
-// (_ln_qkv_attn_bwd_kernel, without the qkv stash).  With token merging's
+// (_ln_qkv_attn_bwd_kernel), with or without the packed-QKV stash `qkv`
+// (K1's return_qkv: round(LN1(x) W_qkv + b_qkv), read in place of the
+// recompute of steps 1-2 below, whose LN1 statistics and h1 dW_qkv and dx
+// still need; a host-side branch).  With token merging's
 // `log_size` (B, T) fp32 the recomputed scores add it before the row max,
 // as the forward did; without the residual join (dres=None) the wrapper
 // passes zeros for dres, which adds exactly nothing.
@@ -283,20 +286,23 @@ K6Scratch<T> k6_scratch(Arena& a, int rows, int d, int d3) {
 template <typename T>
 cudaError_t ln_qkv_attn_bwd(const T* dctx, const T* dres, const T* x, const T* ln_scale,
                             const T* ln_bias, const T* wqkv, const T* bqkv,
-                            const float* log_size, T* dx, float* dgamma,
+                            const float* log_size, const T* qkv_stash, T* dx, float* dgamma,
                             float* dbeta, float* dwqkv, float* dbqkv, void* workspace, int batch,
                             int seq, int d, int heads, int head_dim, float eps,
                             cudaStream_t stream) {
   const int rows = batch * seq, d3 = 3 * heads * head_dim;
   Arena arena{(char*)workspace};
   const K6Scratch<T> s = k6_scratch<T>(arena, rows, d, d3);
+  const T* const qkv = qkv_stash ? qkv_stash : s.qkv;
 
   VT_TRY(launch_row_stats(x, s.mean, s.rstd, rows, d, eps, stream));
-  VT_TRY(launch_gemm<T>(LoadLn<T, T>{x, d, s.mean, s.rstd, ln_scale, ln_bias},
-                        Load<T>{wqkv, d3}, rows, d3, d, BiasEpi<T, T>{bqkv, s.qkv, d3}, stream));
+  if (!qkv_stash)
+    VT_TRY(launch_gemm<T>(LoadLn<T, T>{x, d, s.mean, s.rstd, ln_scale, ln_bias},
+                          Load<T>{wqkv, d3}, rows, d3, d, BiasEpi<T, T>{bqkv, s.qkv, d3},
+                          stream));
   VT_TRY(cudaMemsetAsync(s.dqkv, 0, sizeof(float) * (size_t)rows * d3, stream));
 #define VT_K6_ATTN(DH) \
-  VT_TRY((launch_attention_bwd<T, DH>(s.qkv, dctx, log_size, s.dqkv, batch, seq, heads, stream)))
+  VT_TRY((launch_attention_bwd<T, DH>(qkv, dctx, log_size, s.dqkv, batch, seq, heads, stream)))
   switch (head_dim) {
     case 16: VT_K6_ATTN(16); break;
     case 32: VT_K6_ATTN(32); break;
@@ -530,20 +536,22 @@ inline K6MmaScratch k6_mma_scratch(Arena& a, int batch, int seq, int d, int head
 
 cudaError_t ln_qkv_attn_bwd_mma(const bf16* dctx, const bf16* dres, const bf16* x,
                                 const bf16* ln_scale, const bf16* ln_bias, const bf16* wqkv,
-                                const bf16* bqkv, const float* log_size, bf16* dx, float* dgamma,
-                                float* dbeta, float* dwqkv, float* dbqkv, void* workspace,
-                                int batch, int seq, int d, int heads, int head_dim, float eps,
-                                cudaStream_t stream) {
+                                const bf16* bqkv, const float* log_size, const bf16* qkv_stash,
+                                bf16* dx, float* dgamma, float* dbeta, float* dwqkv,
+                                float* dbqkv, void* workspace, int batch, int seq, int d,
+                                int heads, int head_dim, float eps, cudaStream_t stream) {
   const int rows = batch * seq, d3 = 3 * heads * head_dim;
   Arena arena{(char*)workspace};
   const K6MmaScratch s = k6_mma_scratch(arena, batch, seq, d, heads, d3);
+  const bf16* const qkv = qkv_stash ? qkv_stash : s.qkv;
 
   VT_TRY(launch_row_stats(x, s.mean, s.rstd, rows, d, eps, stream));
   VT_TRY(launch_ln_rows(x, ln_scale, ln_bias, s.h1, rows, d, eps, stream));
-  VT_TRY(launch_gemm_mma(s.h1, d, wqkv, d3, rows, d3, d, BiasEpi<bf16, bf16>{bqkv, s.qkv, d3},
-                         stream));
-#define VT_K6_ATTN(DH)                                                                         \
-  VT_TRY(k6_attention_bwd_mma_any<DH>(s.qkv, dctx, log_size, s.lse, s.delta, s.dqkv, s.dqkv_c, \
+  if (!qkv_stash)
+    VT_TRY(launch_gemm_mma(s.h1, d, wqkv, d3, rows, d3, d, BiasEpi<bf16, bf16>{bqkv, s.qkv, d3},
+                           stream));
+#define VT_K6_ATTN(DH)                                                                       \
+  VT_TRY(k6_attention_bwd_mma_any<DH>(qkv, dctx, log_size, s.lse, s.delta, s.dqkv, s.dqkv_c, \
                                       batch, seq, heads, stream))
   switch (head_dim) {
     case 16: VT_K6_ATTN(16); break;
@@ -582,7 +590,7 @@ size_t vt_ln_qkv_attn_bwd_workspace(int batch, int seq, int d, int heads, int he
 
 int vt_ln_qkv_attn_bwd(const void* dctx, const void* dres, const void* x, const void* ln_scale,
                        const void* ln_bias, const void* wqkv, const void* bqkv,
-                       const void* log_size, void* dx,
+                       const void* log_size, const void* qkv, void* dx,
                        void* dgamma, void* dbeta, void* dwqkv, void* dbqkv, void* workspace,
                        int batch, int seq, int d, int heads, int head_dim, float eps, int dtype,
                        int device, void* stream) {
@@ -593,7 +601,7 @@ int vt_ln_qkv_attn_bwd(const void* dctx, const void* dres, const void* x, const 
     typedef float T;
     return (int)vt::ln_qkv_attn_bwd<T>(
         (const T*)dctx, (const T*)dres, (const T*)x, (const T*)ln_scale, (const T*)ln_bias,
-        (const T*)wqkv, (const T*)bqkv, (const float*)log_size, (T*)dx, (float*)dgamma,
+        (const T*)wqkv, (const T*)bqkv, (const float*)log_size, (const T*)qkv, (T*)dx, (float*)dgamma,
         (float*)dbeta, (float*)dwqkv, (float*)dbqkv, workspace, batch, seq, d, heads, head_dim,
         eps, s);
   }
@@ -601,7 +609,7 @@ int vt_ln_qkv_attn_bwd(const void* dctx, const void* dres, const void* x, const 
     typedef vt::bf16 T;
     return (int)vt::ln_qkv_attn_bwd_mma(
         (const T*)dctx, (const T*)dres, (const T*)x, (const T*)ln_scale, (const T*)ln_bias,
-        (const T*)wqkv, (const T*)bqkv, (const float*)log_size, (T*)dx, (float*)dgamma,
+        (const T*)wqkv, (const T*)bqkv, (const float*)log_size, (const T*)qkv, (T*)dx, (float*)dgamma,
         (float*)dbeta, (float*)dwqkv, (float*)dbqkv, workspace, batch, seq, d, heads, head_dim,
         eps, s);
   }

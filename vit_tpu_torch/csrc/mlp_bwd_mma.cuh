@@ -17,7 +17,9 @@
 //   1. LN2 row statistics of x1 (fp32; LN-bwd and dgamma read them);
 //   2. h2 = round(LN2(x1)) once into a bf16 (rows, D) scratch (launch_ln_rows:
 //      the value gemm.cuh's LoadLn computes on every load);
-//   3. u = h2 W1 + b1, fp32, never rounded (K2's FC1 form);
+//   3. u = h2 W1 + b1, fp32, never rounded (K2's FC1 form); with K7's and
+//      K8's u= stash, the stash widened into the fp32 scratch instead
+//      (launch_widen, a host-side branch: h2 is still needed for dW1);
 //   4. round(dy_m) W2^T, B K-major; the GELU backward in the epilogue:
 //      g = round(gelu(u) [m_in]), du = (acc [m_in]) gelu'(u) over u, du_c =
 //      round(du);
@@ -138,14 +140,19 @@ cudaError_t mlp_residual_bwd_mma(const MlpBwdMmaScratch& s, const bf16* dy, cons
                                  Dropout drop, bf16* dx1, float* dgamma, float* dbeta, float* dw1,
                                  float* db1, float* dw2, float* db2, int rows, int d, int f,
                                  float eps, int variant, cudaStream_t stream,
-                                 const OutProjBwd& out = {}, bool residual = true) {
+                                 const OutProjBwd& out = {}, bool residual = true,
+                                 const UStash& stash = {}) {
   const Gate<bf16, kDrop> dy_m{dy, d, dp_mlp, drop, kSiteMlpOut};
   // the GEMMs' dY operand: dy, or round(dy_m) in the dh2 scratch
   const bf16* const dyg = kReg ? (const bf16*)s.dh2 : dy;
 
   VT_TRY(launch_row_stats(x1, s.mean, s.rstd, rows, d, eps, stream));
   VT_TRY(launch_ln_rows(x1, ln_scale, ln_bias, s.h2, rows, d, eps, stream));
-  VT_TRY(launch_gemm_mma(s.h2, d, w1, f, rows, f, d, BiasEpi<bf16, float>{b1, s.u, f}, stream));
+  if (stash.u)
+    VT_TRY(launch_widen(stash, s.u, (size_t)rows * f, stream));
+  else
+    VT_TRY(launch_gemm_mma(s.h2, d, w1, f, rows, f, d, BiasEpi<bf16, float>{b1, s.u, f},
+                           stream));
   if constexpr (kReg) {
     VT_TRY(launch_gate_rows(dy_m, (bf16*)s.dh2, rows, d, stream));
     VT_TRY((launch_gemm_mma<false, true>(

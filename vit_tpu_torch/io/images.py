@@ -1,12 +1,15 @@
 """Image batches — counterpart of ``vit_tpu.io.images``: the reference's
 ``input-100.bin`` format (4 x int32 little-endian header ``(n, c, h, w)``,
-then ``n*c*h*w`` fp32 values in NCHW order), from a file or from memory (the
-serving daemon's request body), and the seeded synthetic batch that stands
-in for it."""
+then ``n*c*h*w`` fp32 values in NCHW order), read from a file or from memory
+(the serving daemon's request body) and written (``save_image_bin``), the
+seeded synthetic batch that stands in for it, and the torchvision-eval
+normalization of raw uint8 images (``preprocess``)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from vit_tpu_torch.io.preprocess import IMAGENET_MEAN, IMAGENET_STD
 
 
 def load_image_bin(path) -> np.ndarray:
@@ -50,3 +53,21 @@ def synth_images(n: int, cfg, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     x = rng.normal(0.0, 1.0, (n, cfg.in_channels, cfg.image_size, cfg.image_size))
     return x.astype(np.float32)
+
+
+def save_image_bin(images: np.ndarray, path) -> None:
+    """Write (N, C, H, W) float32 in the reference's binary format."""
+    images = np.asarray(images, dtype="<f4")
+    n, c, h, w = images.shape
+    with open(path, "wb") as f:
+        np.array([n, c, h, w], dtype="<i4").tofile(f)
+        images.tofile(f)
+
+
+def preprocess(raw_uint8: np.ndarray) -> np.ndarray:
+    """torchvision-eval normalization of (N, H, W, C) uint8 [0, 255] ->
+    (N, C, H, W) float32, for callers feeding images already cropped to
+    size (the reference does this offline before writing input-100.bin)."""
+    x = raw_uint8.astype(np.float32) / 255.0
+    x = (x - IMAGENET_MEAN) / IMAGENET_STD
+    return np.ascontiguousarray(x.transpose(0, 3, 1, 2))

@@ -29,6 +29,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from vit_tpu_torch.config import VIT_B_16, ViTConfig
+from vit_tpu_torch.utils.tree import cast_tree
 
 WEIGHTS_PER_LAYER = 12
 
@@ -148,11 +149,13 @@ def load_reference_tensors(
     return out
 
 
-def params_from_tensors(tensors: Dict[int, np.ndarray], cfg: ViTConfig = VIT_B_16):
+def params_from_tensors(tensors: Dict[int, np.ndarray], cfg: ViTConfig = VIT_B_16,
+                        dtype=np.float32):
     """Indexed torchvision tensors -> the params tree (fp32 numpy): every
     [out, in] matrix transposed to [in, out], conv_proj_weight [D, C, p, p]
     flattened to (C*p*p, D) channel-major, the layers stacked, and the
-    packed in_proj reordered from (3, H, Dh)-major rows to (H, 3, Dh)."""
+    packed in_proj reordered from (3, H, Dh)-major rows to (H, 3, Dh).
+    Another ``dtype`` casts the tree (``utils/tree.cast_tree``)."""
     d, L, hd, nh = cfg.embed_dim, cfg.depth, cfg.head_dim, cfg.num_heads
     base_final = 4 + WEIGHTS_PER_LAYER * L
 
@@ -166,7 +169,7 @@ def params_from_tensors(tensors: Dict[int, np.ndarray], cfg: ViTConfig = VIT_B_1
     def stack(offset, fn=lambda a: a):
         return np.stack([fn(t(4 + WEIGHTS_PER_LAYER * l + offset)) for l in range(L)])
 
-    return {
+    params = {
         "cls_token": t(0).reshape(d),
         "patch_embed": {"kernel": t(1).reshape(d, cfg.patch_dim).T.copy(), "bias": t(2)},
         "pos_embed": t(3).reshape(cfg.seq_len, d),
@@ -187,6 +190,7 @@ def params_from_tensors(tensors: Dict[int, np.ndarray], cfg: ViTConfig = VIT_B_1
         "ln_final": {"scale": t(base_final), "bias": t(base_final + 1)},
         "head": {"kernel": t(base_final + 2).T.copy(), "bias": t(base_final + 3)},
     }
+    return params if dtype is np.float32 else cast_tree(params, dtype)
 
 
 def load_reference_weights(

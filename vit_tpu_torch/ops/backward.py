@@ -69,9 +69,12 @@ def _ln_bwd_dx(dh, xhat, inv, gamma):
 
 def fused_encoder_block_bwd(
     x2d, blk, ctx, x1, g, num_heads: int, seq_len: int, eps: float,
-    gelu_variant: str = "exact",
+    gelu_variant: str = "exact", qkv=None, u=None,
 ):
-    """Full-block backward from the saved (x, ctx, x1): K7 then K6.
+    """Full-block backward from the saved (x, ctx, x1[, qkv, u]): K7 then
+    K6.  ``qkv`` (K1's ``return_qkv``) and ``u`` (K5's ``return_u``), when
+    the forward stashed them, skip K6's QKV and K7's FC1 recompute GEMMs,
+    as in the JAX package; no training path of either package stashes.
 
     Returns (dx, dblk), dblk with the params dict's keys, each gradient
     cast to its parameter's dtype as the JAX backward does (under mixed
@@ -90,11 +93,11 @@ def fused_encoder_block_bwd(
 
     (dx1, dctx, dg2, dbt2, dw1, db1, dw2, db2, dwo, dbo) = ln_mlp_out_residual_bwd(
         g, x1, ctx, blk["ln2_scale"], blk["ln2_bias"], blk["w1"], blk["b1"],
-        blk["w2"], blk["wo"], eps, gelu_variant,
+        blk["w2"], blk["wo"], eps, gelu_variant, u=u,
     )
     dx, dg1, dbt1, dwqkv, dbqkv = ln_qkv_attn_bwd(
         dctx, dx1, x2d, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"],
-        blk["bqkv"], num_heads, seq_len, eps,
+        blk["bqkv"], num_heads, seq_len, eps, qkv=qkv,
     )
     return dx, _block_grads(blk, dg1, dbt1, dwqkv, dbqkv, dwo, dbo, dg2, dbt2, dw1, db1, dw2, db2)
 

@@ -66,14 +66,14 @@ SIGNATURES = {
     # x, ln_scale, ln_bias, w1, b1, w2, stats, h, g, u, out,
     # rows, d, f, eps, gelu_variant, dtype, device, stream
     "vt_ln_mlp_partial": [_P] * 11 + [_I] * 3 + [_F, _I, _I, _I, _P],
-    # dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, dx1, dctx, dgamma,
+    # dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, u, dx1, dctx, dgamma,
     # dbeta, dw1, db1, dw2, db2, dwo, dbo, workspace,
-    # rows, d, f, d_ctx, eps, gelu_variant, dtype, device, stream
-    "vt_ln_mlp_out_residual_bwd": [_P] * 20 + [_I] * 4 + [_F, _I, _I, _I, _P],
-    # dctx, dres, x, ln_scale, ln_bias, wqkv, bqkv, log_size, dx, dgamma,
-    # dbeta, dwqkv, dbqkv, workspace, batch, seq, d, heads, head_dim, eps,
-    # dtype, device, stream
-    "vt_ln_qkv_attn_bwd": [_P] * 14 + [_I] * 5 + [_F, _I, _I, _P],
+    # rows, d, f, d_ctx, eps, gelu_variant, u_dtype, dtype, device, stream
+    "vt_ln_mlp_out_residual_bwd": [_P] * 21 + [_I] * 4 + [_F, _I, _I, _I, _I, _P],
+    # dctx, dres, x, ln_scale, ln_bias, wqkv, bqkv, log_size, qkv, dx,
+    # dgamma, dbeta, dwqkv, dbqkv, workspace, batch, seq, d, heads, head_dim,
+    # eps, dtype, device, stream
+    "vt_ln_qkv_attn_bwd": [_P] * 15 + [_I] * 5 + [_F, _I, _I, _P],
     # ctx, res, wo, bo, dp, out, rows, d_ctx, d, <dropout>, dtype, device, stream
     "vt_out_residual_train": [_P] * 6 + [_I] * 3 + _DROP + [_I, _I, _P],
     # x, ln_scale, ln_bias, w1, b1, w2, b2, dp, stats, h, g, out,
@@ -83,10 +83,10 @@ SIGNATURES = {
     # dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo, dbo, workspace,
     # rows, d, f, d_ctx, eps, gelu_variant, <dropout>, dtype, device, stream
     "vt_ln_mlp_out_residual_bwd_train": [_P] * 22 + [_I] * 4 + [_F, _I] + _DROP + [_I, _I, _P],
-    # dy, x1, ln_scale, ln_bias, w1, b1, w2, dx1, dgamma, dbeta, dw1, db1,
-    # dw2, db2, workspace, rows, d, f, eps, gelu_variant, residual, dtype,
-    # device, stream
-    "vt_ln_mlp_residual_bwd": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _I, _I, _P],
+    # dy, x1, ln_scale, ln_bias, w1, b1, w2, u, dx1, dgamma, dbeta, dw1, db1,
+    # dw2, db2, workspace, rows, d, f, eps, gelu_variant, residual, u_dtype,
+    # dtype, device, stream
+    "vt_ln_mlp_residual_bwd": [_P] * 16 + [_I] * 3 + [_F, _I, _I, _I, _I, _I, _P],
     # dx1, ctx, wo, dctx, dwo, dbo, workspace, rows, d_ctx, d, dtype, device,
     # stream
     "vt_out_residual_bwd": [_P] * 7 + [_I] * 5 + [_P],

@@ -3,7 +3,17 @@ CUDA (``csrc/ln_mlp_out_residual_bwd.cu``).
 
 Replaces ``vit_tpu/ops/pallas/backward.py:ln_mlp_out_residual_bwd``
 (pallas_call at :380; body ``_ln_mlp_out_bwd_kernel`` :296 with
-``_mlp_bwd_core`` :111 and ``_mlp_grad_accum`` :159).
+``_mlp_bwd_core`` :111 and ``_mlp_grad_accum`` :159), with or without the
+pre-GELU stash ``u``.
+
+The stash ``u=`` (rows, F), K5's ``return_u`` (round(h2 W1 + b1) in the
+dtype) or any fp32 or dtype tensor of that shape, stands in for the FC1
+recompute, as the TPU kernel's ``u_ref`` does (``backward.py:134-135``):
+one pass widens it into the fp32 u/du scratch where the FC1 GEMM would
+have written (``UStash``, ``csrc/ln_mlp_out_residual_bwd.cuh``), and the
+chain goes on unchanged.  LN2's statistics and h2 are still computed: dW1,
+dgamma and dx1 read them.  Given K5's rounded u, g and du differ from the
+recompute by that rounding, as in the JAX package.
 
 What bounds it on the H100: operations, 10·rows·D·F + 4·rows·D·d_ctx of
 tensor-core work in seven GEMMs (ViT-B/16 @224 batch 64: 12,608 rows, D =
@@ -46,18 +56,19 @@ from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import GELU_VARIANTS
 
 
 def mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant="exact",
-                           residual: bool = True):
+                           residual: bool = True, u=None):
     """The MLP half of the twins of K7 and K8 (K8 is K7 without the
     out_proj tail): fp32 compute with casts at the TPU kernel's rounding
     points.  -> (dx1 fp32, dgamma, dbeta, dw1, db1, dw2, db2), all fp32.
     ``residual=False`` leaves dy's identity term out of dx1 (K8's
-    tensor-parallel form); the rest is unchanged."""
+    tensor-parallel form); the rest is unchanged.  ``u``, the pre-GELU
+    stash, widened to fp32, replaces the FC1 recompute."""
     cd = dy.dtype
     fast = use_fast_erf(cd)
     dyf, gamma = dy.float(), ln_scale.float()
     xhat, inv = _ln_stats(x1.float(), eps)
     h2 = (xhat * gamma + ln_bias.float()).to(cd)
-    u = h2.float() @ w1.float() + b1.float()
+    u = h2.float() @ w1.float() + b1.float() if u is None else u.float()
     g = _gelu(u, gelu_variant, fast_erf=fast)
     du = (dyf @ w2.float().t()) * _gelu_grad(u, gelu_variant, fast_erf=fast)
     du_c = du.to(cd)
@@ -72,20 +83,33 @@ def mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_vari
 
 
 def ln_mlp_out_residual_bwd_plain(
-    dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, eps, gelu_variant: str = "exact",
+    dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, eps, gelu_variant: str = "exact", u=None,
 ):
     """Plain twin: fp32 compute with casts at the TPU kernel's rounding
     points.  -> (dx1, dctx, dgamma, dbeta, dw1, db1, dw2, db2, dwo, dbo);
     dx1 and dctx in the dtype, the rest fp32."""
     cd = dy.dtype
     dx1, dgamma, dbeta, dw1, db1, dw2, db2 = mlp_residual_bwd_plain(
-        dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant)
+        dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant, u=u)
     dx1_c = dx1.to(cd)
     dctx = (dx1_c.float() @ wo.float().t()).to(cd)
     return (
         dx1_c, dctx, dgamma, dbeta, dw1, db1, dw2, db2,
         ctx.float().t() @ dx1_c.float(), dx1.sum(0),
     )
+
+
+def check_stash(name: str, u, dy, f: int):
+    """The pre-GELU stash of K7 and K8: (rows, F), fp32 or dy's dtype, on
+    dy's device, contiguous; -> the dtype code the kernel widens from, or
+    -1 without a stash.  Raises ``ValueError`` otherwise."""
+    if u is None:
+        return -1
+    if u.dtype not in (torch.float32, dy.dtype) or u.device != dy.device \
+            or not u.is_contiguous():
+        raise ValueError(f"{name}: u must be contiguous float32 or {dy.dtype} on {dy.device}")
+    _build.check_shape(name, "u", u, (dy.shape[0], f))
+    return _build.DTYPE_CODES[u.dtype]
 
 
 def check_tile_operands(dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, *_, **__) -> None:
@@ -100,15 +124,13 @@ def ln_mlp_out_residual_bwd(
     u=None,
 ):
     """VJP of [out_proj + residual] then [LN2 + MLP + residual] over (B*T, D)
-    rows, from the upstream gradient ``dy`` and the saved x1 and ctx.
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.  ``u``
-    (the pre-GELU stash of a later slice) raises."""
+    rows, from the upstream gradient ``dy`` and the saved x1 and ctx; ``u``
+    (rows, F), the forward's pre-GELU stash, replaces the FC1 recompute.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel."""
     name = "ln_mlp_out_residual_bwd"
-    if u is not None:
-        raise NotImplementedError(f"{name}: the u= stash hook is not ported yet (ROADMAP.md)")
     if dy.device.type == "cpu":
         return ln_mlp_out_residual_bwd_plain(
-            dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, eps, gelu_variant
+            dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo, eps, gelu_variant, u
         )
     if gelu_variant not in GELU_VARIANTS:
         raise ValueError(f"{name}: gelu_variant {gelu_variant!r} not in {tuple(GELU_VARIANTS)}")
@@ -124,6 +146,7 @@ def ln_mlp_out_residual_bwd(
     _build.check_shape(name, "b1", b1, (f,))
     _build.check_shape(name, "w2", w2, (f, d))
     _build.check_shape(name, "wo", wo, (d_ctx, d))
+    u_code = check_stash(name, u, dy, f)
     if dy.dtype == torch.bfloat16:
         check_tile_operands(dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo)
     dev, code = dy.device, _build.DTYPE_CODES[dy.dtype]
@@ -138,13 +161,16 @@ def ln_mlp_out_residual_bwd(
     _build.check(
         lib.vt_ln_mlp_out_residual_bwd(
             *(t.data_ptr() for t in (dy, x1, ctx, ln_scale, ln_bias, w1, b1, w2, wo)),
-            *(t.data_ptr() for t in outs), ws.data_ptr(), rows, d, f, d_ctx, eps,
-            GELU_VARIANTS[gelu_variant], code, dev.index, _build.stream_of(dy),
+            _build.ptr_or_null(u), *(t.data_ptr() for t in outs), ws.data_ptr(), rows, d, f,
+            d_ctx, eps, GELU_VARIANTS[gelu_variant], u_code, code, dev.index,
+            _build.stream_of(dy),
         ),
         name,
     )
     ln_mlp_out_residual_bwd.launches += 1
+    ln_mlp_out_residual_bwd.stash_launches += u is not None
     return outs
 
 
 ln_mlp_out_residual_bwd.launches = 0
+ln_mlp_out_residual_bwd.stash_launches = 0  # the launches given u=

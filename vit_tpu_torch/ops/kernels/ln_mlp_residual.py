@@ -136,7 +136,9 @@ def ln_mlp_residual(
         name,
     )
     ln_mlp_residual.launches += 1
+    ln_mlp_residual.stash_launches += return_u
     return (out, u) if return_u else out
 
 
 ln_mlp_residual.launches = 0
+ln_mlp_residual.stash_launches = 0  # the launches with return_u

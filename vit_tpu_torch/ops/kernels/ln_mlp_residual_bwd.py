@@ -4,7 +4,9 @@
 Replaces ``vit_tpu/ops/pallas/backward.py:ln_mlp_residual_bwd``
 (pallas_call at :253; body ``_ln_mlp_bwd_kernel`` :182 with
 ``_mlp_bwd_core`` :111 and ``_mlp_grad_accum`` :159), in both its
-``residual`` forms, without the pre-GELU stash ``u``.  ``residual=False``
+``residual`` forms, with or without the pre-GELU stash ``u`` (K7's: one
+pass widens it into the fp32 u/du scratch in place of the FC1 GEMM,
+``csrc/ln_mlp_out_residual_bwd.cuh:UStash``).  ``residual=False``
 is the VJP of K5's tensor-parallel partial form (the caller
 ``vit_tpu/parallel/tp_forward.py:_lmp_bwd``): dx1 is the LayerNorm backward
 alone, without dy's identity term (the kernel body's one line at :198);
@@ -44,17 +46,17 @@ from __future__ import annotations
 import torch
 
 from vit_tpu_torch.ops.kernels import _build
-from vit_tpu_torch.ops.kernels.ln_mlp_out_residual_bwd import mlp_residual_bwd_plain
+from vit_tpu_torch.ops.kernels.ln_mlp_out_residual_bwd import check_stash, mlp_residual_bwd_plain
 from vit_tpu_torch.ops.kernels.out_ln_mlp_residual import GELU_VARIANTS
 
 
 def ln_mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps,
-                              gelu_variant: str = "exact", residual: bool = True):
+                              gelu_variant: str = "exact", residual: bool = True, u=None):
     """Plain twin: fp32 compute with casts at the TPU kernel's rounding
     points.  -> (dx1, dgamma, dbeta, dw1, db1, dw2, db2); dx1 in the dtype,
     the rest fp32."""
     dx1, *grads = mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant,
-                                         residual)
+                                         residual, u)
     return (dx1.to(dy.dtype), *grads)
 
 
@@ -72,15 +74,13 @@ def ln_mlp_residual_bwd(
     """VJP of ``ln_mlp_residual`` (K5) over (B*T, D) rows, from the upstream
     gradient ``dy`` and the saved x1 -> (dx1, dgamma, dbeta, dw1, db1, dw2,
     db2).  ``residual=False`` is the tensor-parallel partial form (dx1 without
-    dy's identity term).  CPU tensors take the plain twin; CUDA tensors
-    launch the kernel.  ``u=`` (the pre-GELU stash) belongs to a later slice
-    and raises."""
+    dy's identity term); ``u`` (rows, F), the forward's pre-GELU stash,
+    replaces the FC1 recompute.  CPU tensors take the plain twin; CUDA
+    tensors launch the kernel."""
     name = "ln_mlp_residual_bwd"
-    if u is not None:
-        raise NotImplementedError(f"{name}: u= (the stash hook) is not ported yet (ROADMAP.md)")
     if dy.device.type == "cpu":
         return ln_mlp_residual_bwd_plain(dy, x1, ln_scale, ln_bias, w1, b1, w2, eps, gelu_variant,
-                                         residual)
+                                         residual, u)
     if gelu_variant not in GELU_VARIANTS:
         raise ValueError(f"{name}: gelu_variant {gelu_variant!r} not in {tuple(GELU_VARIANTS)}")
     _build.check_operands(name, dy, x1, ln_scale, ln_bias, w1, b1, w2)
@@ -92,6 +92,7 @@ def ln_mlp_residual_bwd(
     _build.check_shape(name, "w1", w1, (d, f))
     _build.check_shape(name, "b1", b1, (f,))
     _build.check_shape(name, "w2", w2, (f, d))
+    u_code = check_stash(name, u, dy, f)
     if dy.dtype == torch.bfloat16:
         check_tile_operands(dy, x1, ln_scale, ln_bias, w1, b1, w2)
     dev, code = dy.device, _build.DTYPE_CODES[dy.dtype]
@@ -103,14 +104,16 @@ def ln_mlp_residual_bwd(
     _build.check(
         lib.vt_ln_mlp_residual_bwd(
             *(t.data_ptr() for t in (dy, x1, ln_scale, ln_bias, w1, b1, w2)),
-            *(t.data_ptr() for t in outs), ws.data_ptr(), rows, d, f, eps,
-            GELU_VARIANTS[gelu_variant], int(bool(residual)), code, dev.index,
+            _build.ptr_or_null(u), *(t.data_ptr() for t in outs), ws.data_ptr(), rows, d, f, eps,
+            GELU_VARIANTS[gelu_variant], int(bool(residual)), u_code, code, dev.index,
             _build.stream_of(dy),
         ),
         name,
     )
     ln_mlp_residual_bwd.launches += 1
+    ln_mlp_residual_bwd.stash_launches += u is not None
     return outs
 
 
 ln_mlp_residual_bwd.launches = 0
+ln_mlp_residual_bwd.stash_launches = 0  # the launches given u=

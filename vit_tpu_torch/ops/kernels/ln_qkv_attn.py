@@ -39,6 +39,11 @@ mean key over heads (B*T, dh) — the fp32 sum in head order times 1/H,
 rounded to the dtype — read by a third small kernel from the packed-QKV
 scratch the attention stage reads (the TPU kernel reads it from VMEM).
 Without either, the launches are exactly those of the hook-less kernel.
+
+``return_qkv`` (the training stash that K6's ``qkv=`` reads) also returns
+the packed QKV (B*T, 3D) in the dtype: the stage-2 scratch the kernel
+writes anyway, handed out instead of dropped, so it costs no launch and
+no CUDA change.  As in the JAX package it excludes ``return_kmean``.
 """
 
 from __future__ import annotations
@@ -105,14 +110,24 @@ def ln_qkv_attn_plain(
     eps: float,
     log_size=None,
     return_kmean: bool = False,
+    return_qkv: bool = False,
 ):
     """Plain twin: fp32 compute with casts at the TPU kernel's rounding
     points."""
+    _check_returns(return_qkv, return_kmean)
     dtype = x2d.dtype
     h = _ln(x2d, ln_scale, ln_bias, eps).to(dtype)
     qkv = (h.float() @ wqkv.float() + bqkv.float()).to(dtype)
     ctx = packed_attention_plain(qkv, num_heads, seq_len, log_size)
+    if return_qkv:
+        return ctx, qkv
     return (ctx, kmean_plain(qkv, num_heads)) if return_kmean else ctx
+
+
+def _check_returns(return_qkv: bool, return_kmean: bool) -> None:
+    if return_qkv and return_kmean:
+        raise ValueError("return_qkv (training) and return_kmean (ToMe "
+                         "inference) are mutually exclusive")
 
 
 def ln_qkv_attn(
@@ -126,14 +141,16 @@ def ln_qkv_attn(
     eps: float,
     log_size=None,
     return_kmean: bool = False,
+    return_qkv: bool = False,
 ):
     """(B*T, D) -> attention context (B*T, D), or (context, kmean (B*T, dh))
-    with ``return_kmean``; ``log_size`` (B, T) fp32 biases the key logits.
-    CPU tensors take the plain twin; CUDA tensors launch the kernel."""
+    with ``return_kmean``, or (context, packed QKV (B*T, 3D)) with
+    ``return_qkv``; ``log_size`` (B, T) fp32 biases the key logits.  CPU
+    tensors take the plain twin; CUDA tensors launch the kernel."""
     if x2d.device.type == "cpu":
-        return ln_qkv_attn_plain(
-            x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads, seq_len, eps, log_size, return_kmean
-        )
+        return ln_qkv_attn_plain(x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads, seq_len, eps,
+                                 log_size, return_kmean, return_qkv)
+    _check_returns(return_qkv, return_kmean)
     name = "ln_qkv_attn"
     _build.check_operands(name, x2d, ln_scale, ln_bias, wqkv, bqkv)
     rows, d = x2d.shape
@@ -173,7 +190,11 @@ def ln_qkv_attn(
         name,
     )
     ln_qkv_attn.launches += 1
+    if return_qkv:
+        ln_qkv_attn.stash_launches += 1
+        return ctx, qkv
     return (ctx, kmean) if return_kmean else ctx
 
 
 ln_qkv_attn.launches = 0
+ln_qkv_attn.stash_launches = 0  # the launches with return_qkv

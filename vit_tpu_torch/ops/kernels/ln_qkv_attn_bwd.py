@@ -3,11 +3,18 @@ residual's gradient, CUDA (``csrc/ln_qkv_attn_bwd.cu``).
 
 Replaces ``vit_tpu/ops/pallas/backward.py:ln_qkv_attn_bwd`` (pallas_call at
 :967; body ``_ln_qkv_attn_bwd_kernel`` :818), with or without ``dres`` and
-with token merging's ``log_size``; the ``qkv`` stash has no caller and
-raises.  ``log_size`` (B, T) fp32 is added to the recomputed key logits
-before the row max, so the probs are the forward's (``backward.py:861``);
-``dres=None`` (the standalone VJP of K1) joins a zero residual gradient,
-which adds exactly nothing.
+with token merging's ``log_size`` and with or without the packed-QKV
+stash ``qkv``.  ``log_size`` (B, T) fp32 is added to the recomputed key
+logits before the row max, so the probs are the forward's
+(``backward.py:861``); ``dres=None`` (the standalone VJP of K1) joins a
+zero residual gradient, which adds exactly nothing.  ``qkv`` (B*T, 3D) in
+the dtype, K1's ``return_qkv`` (round(LN1(x) W_qkv + b_qkv)), is read in
+place of the QKV recompute, as the TPU kernel's ``qkv_ref``
+(``backward.py:843-844``): a host-side branch skips the QKV GEMM and
+points the attention backward at the stash; LN1's statistics and h1 are
+still computed, because dW_qkv and dx read them.  K1's bf16 QKV is the
+same core's output rounded the same way as the recompute, so the stash
+gives the recompute's gradients bit for bit.
 
 What bounds it on the H100: operations.  B/16 batch 64 (12,608 rows):
 three GEMMs of 2 rows D 3D each (the QKV recompute, dh1 = dQKV Wᵀ and
@@ -51,11 +58,12 @@ from vit_tpu_torch.ops.kernels.ln_qkv_attn import HEAD_DIMS, _check_log_size
 
 def ln_qkv_attn_bwd_plain(
     dctx, dres, x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads: int, seq_len: int, eps: float,
-    log_size=None,
+    log_size=None, qkv=None,
 ):
     """Plain twin: fp32 compute with casts at the TPU kernel's rounding
     points.  -> (dx, dgamma, dbeta, dwqkv, dbqkv); dx in the dtype, the
-    rest fp32.  ``dres=None`` leaves out the residual join."""
+    rest fp32.  ``dres=None`` leaves out the residual join; ``qkv``, the
+    packed-QKV stash, replaces the recompute."""
     cd = x2d.dtype
     rows, _ = x2d.shape
     d3 = wqkv.shape[-1]
@@ -64,7 +72,8 @@ def ln_qkv_attn_bwd_plain(
     gamma = ln_scale.float()
     xhat, inv = _ln_stats(x2d.float(), eps)
     h1 = (xhat * gamma + ln_bias.float()).to(cd)
-    qkv = (h1.float() @ wqkv.float() + bqkv.float()).to(cd)
+    if qkv is None:
+        qkv = (h1.float() @ wqkv.float() + bqkv.float()).to(cd)
     qkv = qkv.reshape(b, seq_len, num_heads, 3, dh).permute(3, 0, 2, 1, 4)
     q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()  # (B, H, T, dh)
     scale = 1.0 / dh ** 0.5
@@ -102,15 +111,14 @@ def ln_qkv_attn_bwd(
 ):
     """VJP of ``ln_qkv_attn`` joined with the residual: dx = dres +
     d(LN1 + QKV + attention)/dx, or without the join when ``dres`` is None;
-    ``log_size`` (B, T) fp32 when the forward had token merging's bias.
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.  The
-    ``qkv`` stash has no caller and raises."""
+    ``log_size`` (B, T) fp32 when the forward had token merging's bias;
+    ``qkv`` (B*T, 3D) in the dtype, the forward's packed QKV (K1's
+    ``return_qkv``), replaces the recompute.  CPU tensors take the plain
+    twin; CUDA tensors launch the kernel."""
     name = "ln_qkv_attn_bwd"
-    if qkv is not None:
-        raise NotImplementedError(f"{name}: the qkv= stash is not ported (no caller; ROADMAP.md)")
     if x2d.device.type == "cpu":
         return ln_qkv_attn_bwd_plain(
-            dctx, dres, x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads, seq_len, eps, log_size
+            dctx, dres, x2d, ln_scale, ln_bias, wqkv, bqkv, num_heads, seq_len, eps, log_size, qkv
         )
     if dres is None:
         dres = torch.zeros_like(x2d)
@@ -134,8 +142,14 @@ def ln_qkv_attn_bwd(
     _build.check_shape(name, "wqkv", wqkv, (d, d3))
     _build.check_shape(name, "bqkv", bqkv, (d3,))
     _check_log_size(name, log_size, x2d, seq_len)
+    if qkv is not None:
+        if qkv.dtype != x2d.dtype or qkv.device != x2d.device or not qkv.is_contiguous():
+            raise ValueError(f"{name}: qkv must be contiguous {x2d.dtype} on {x2d.device}")
+        _build.check_shape(name, "qkv", qkv, (rows, d3))
     if x2d.dtype == torch.bfloat16:
         check_tile_operands(dctx, dres, x2d, ln_scale, ln_bias, wqkv)
+        if qkv is not None:  # read in 16-byte copies, as the scratch it replaces
+            _build.check_aligned(name, qkv=qkv)
     dev, code = x2d.device, _build.DTYPE_CODES[x2d.dtype]
     f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)  # noqa: E731
     outs = (torch.empty(rows, d, dtype=x2d.dtype, device=dev), f32(d), f32(d), f32(d, d3), f32(d3))
@@ -146,13 +160,15 @@ def ln_qkv_attn_bwd(
     _build.check(
         lib.vt_ln_qkv_attn_bwd(
             *(t.data_ptr() for t in (dctx, dres, x2d, ln_scale, ln_bias, wqkv, bqkv)),
-            _build.ptr_or_null(log_size), *(t.data_ptr() for t in outs), ws.data_ptr(), batch, seq_len, d, num_heads, dh,
+            _build.ptr_or_null(log_size), _build.ptr_or_null(qkv), *(t.data_ptr() for t in outs), ws.data_ptr(), batch, seq_len, d, num_heads, dh,
             eps, code, dev.index, _build.stream_of(x2d),
         ),
         name,
     )
     ln_qkv_attn_bwd.launches += 1
+    ln_qkv_attn_bwd.stash_launches += qkv is not None
     return outs
 
 
 ln_qkv_attn_bwd.launches = 0
+ln_qkv_attn_bwd.stash_launches = 0  # the launches given qkv=

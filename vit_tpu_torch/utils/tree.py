@@ -39,9 +39,13 @@ def unflatten_tree(flat: Dict[str, Any], sep: str = "/") -> Any:
 
 def cast_tree(tree: Any, dtype) -> Any:
     """Cast every leaf of a nested-dict tree to ``dtype``: a torch dtype
-    for tensors, a numpy one for arrays."""
+    for tensors, a numpy one for arrays; a torch dtype makes an array a CPU
+    tensor."""
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         return tree.to(dtype)
+    if isinstance(dtype, torch.dtype):
+        return torch.from_numpy(np.asarray(tree)).to(dtype)
     return np.asarray(tree).astype(dtype)
+
